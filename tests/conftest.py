@@ -30,6 +30,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long multi-process tests (always run in CI; "
         "deselect locally with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA kernels); skips without one")
 
 
 @pytest.fixture(scope="session")
