@@ -21,8 +21,10 @@
 // reused by all 64 columns. When the N tiles alone would leave SMs idle
 // (narrow N, long K), K is split across blocks by whole scale groups: each
 // split writes f32 partial sums to a workspace and a second small kernel
-// adds them in split order. This first version multiplies on the CUDA
-// cores in f32 (W4A8: __dp4a); wgmma and TMA are later work.
+// adds them in split order. bf16 activations with groups of 128 (the
+// serving path) multiply on the tensor cores with mma.sync (codes converted
+// to bf16 in registers); other cases multiply on the CUDA cores in f32
+// (W4A8: __dp4a). wgmma, TMA and a pipelined K loop are later work.
 #include "common.cuh"
 
 namespace {
@@ -289,6 +291,181 @@ void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStre
   reduce_splits_kernel<OT><<<(unsigned)blocks, 256, 0, st>>>(ws, (OT*)out, splits, n);
 }
 
+// ---------------------------------------------------------------- bf16 x, tensor cores
+// The main path's case (bf16 activations, int4 or int8 weights, groups of
+// 128): the weight codes are converted to bf16 in shared memory order and
+// multiplied on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+// accumulate). Codes and bf16 activations are exact in bf16, so every
+// product is exact and the group sums differ from the FMA kernel only in
+// their order; the -8 fold and the group scale stay in f32 per group.
+constexpr int MMA_TN = 128;      // output columns per block: 8 warps x 16
+constexpr int MMA_THREADS = 256;
+constexpr int MMA_XS = 136;      // x tile row stride in bf16 (68 words: conflict-free A loads)
+constexpr int MMA_WS = 144;      // weight tile row stride in bytes (rows 2 apart: banks 8 apart)
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BITS, typename OT>
+__global__ void __launch_bounds__(MMA_THREADS)
+qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+               const float* __restrict__ scale, OT* __restrict__ out,
+               int B, int K, int N, int gps) {
+  constexpr int GS = 128;
+  constexpr int WROWS = (BITS == 4) ? 64 : 128;  // weight rows per group
+  __shared__ __align__(16) __nv_bfloat16 xs[64 * MMA_XS];
+  __shared__ __align__(16) uint8_t ws[WROWS * MMA_WS];
+  __shared__ float rs[64];  // per-row sum of this group's x (int4 fold)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;   // mma groupID
+  const int tq = lane & 3;     // mma threadID_in_group
+  const int n0 = blockIdx.x * MMA_TN;
+  const int b0 = blockIdx.y * 64;
+  const int groups = K / GS;
+  const int g0 = blockIdx.z * gps;
+  const int g1 = min(groups, g0 + gps);
+  out += (size_t)blockIdx.z * B * N;
+  const int wc = warp * 16;    // this warp's first column in the tile
+
+  float acc[4][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  for (int g = g0; g < g1; ++g) {
+    __syncthreads();  // the previous group's readers are done
+    // x tile: 64 rows x 128 bf16, 16-byte loads (K % 8 == 0)
+    for (int idx = tid; idx < 64 * 16; idx += MMA_THREADS) {
+      const int row = idx >> 4;
+      const int c8 = (idx & 15) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (b0 + row < B)
+        v = *reinterpret_cast<const uint4*>(x + (size_t)(b0 + row) * K + g * GS + c8);
+      *reinterpret_cast<uint4*>(&xs[row * MMA_XS + c8]) = v;
+    }
+    // weight tile: WROWS rows x 128 bytes
+    for (int idx = tid; idx < WROWS * 8; idx += MMA_THREADS) {
+      const int r = idx >> 3;
+      const int col = n0 + (idx & 7) * 16;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (col < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(g * WROWS + r) * N + col);
+      *reinterpret_cast<uint4*>(&ws[r * MMA_WS + (idx & 7) * 16]) = v;
+    }
+    __syncthreads();
+    if (BITS == 4) {  // row sums: 4 threads per row, 32 values each
+      const int row = tid >> 2;
+      float t = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) t += __bfloat162float(xs[row * MMA_XS + (tid & 3) * 32 + k]);
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      if ((tid & 3) == 0) rs[row] = t;
+      __syncthreads();
+    }
+    float part[4][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll 2
+    for (int st = 0; st < GS / 16; ++st) {
+      const int k0 = st * 16 + tq * 2;  // this thread's first k in the step
+      uint32_t bf[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = wc + nt * 8 + gid;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = k0 + (e & 1) + (e >> 1) * 8;
+          if (BITS == 4) {  // k < 64: low nibble of packed row k, else high nibble of row k-64
+            const uint32_t byte = ws[(kk & 63) * MMA_WS + c];
+            v[e] = small_u2f(kk < 64 ? (byte & 0xFu) : (byte >> 4));
+          } else {
+            v[e] = (float)(int8_t)ws[kk * MMA_WS + c];
+          }
+        }
+        bf[nt][0] = bf16x2_bits(v[0], v[1]);
+        bf[nt][1] = bf16x2_bits(v[2], v[3]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const __nv_bfloat16* xr = &xs[(mt * 16 + gid) * MMA_XS + k0];
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(xr);
+        af[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS);
+        af[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
+        af[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS + 8);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) mma_bf16(part[mt][nt], af, bf[nt]);
+      }
+    }
+    // group epilogue: -8 fold and scale in f32
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int col = n0 + wc + nt * 8 + tq * 2;
+      if (col >= N) continue;
+      const float s0 = scale[(size_t)g * N + col];
+      const float s1 = scale[(size_t)g * N + col + 1];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = part[mt][nt][i];
+          if (BITS == 4) p -= 8.0f * rs[mt * 16 + gid + (i >> 1) * 8];
+          acc[mt][nt][i] += p * ((i & 1) ? s1 : s0);
+        }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int col = n0 + wc + nt * 8 + tq * 2;
+    if (col >= N) continue;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = b0 + mt * 16 + gid + h * 8;
+        if (b >= B) continue;
+        store_f32(&out[(size_t)b * N + col], acc[mt][nt][2 * h]);
+        store_f32(&out[(size_t)b * N + col + 1], acc[mt][nt][2 * h + 1]);
+      }
+  }
+}
+
+template <int BITS>
+void launch_mma(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
+                int gps, int splits, float* ws, cudaStream_t st) {
+  dim3 grid((N + MMA_TN - 1) / MMA_TN, (B + 63) / 64, splits);
+  if (splits == 1) {
+    qmm_mma_kernel<BITS, __nv_bfloat16><<<grid, MMA_THREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, (__nv_bfloat16*)out,
+        B, K, N, gps);
+    return;
+  }
+  qmm_mma_kernel<BITS, float><<<grid, MMA_THREADS, 0, st>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, ws, B, K, N, gps);
+  launch_reduce<__nv_bfloat16>(ws, out, splits, (long long)B * N, st);
+}
+
 template <int BITS, int RPT, typename XT, typename OT>
 void launch_fp(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
                int gs, int gps, int splits, cudaStream_t stream) {
@@ -320,15 +497,26 @@ void launch_fp_rows(const void* x, const void* w, const void* s, void* out, int 
 // x_kind: 0 = float32 x and out, 1 = bfloat16 x and out, 2 = int8 x (W4A8,
 // float32 out before the row scale). K is split into `splits` runs of `gps`
 // scale groups; with splits > 1, `workspace` holds splits*B*N floats.
+// tensor_cores selects the mma.sync kernel (bf16 x, groups of 128).
 // Returns a cudaError_t code.
 extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* scale,
                                      void* out, int B, int K, int N, int gs, int bits,
                                      int x_kind, int gps, int splits, void* workspace,
-                                     void* stream) {
+                                     int tensor_cores, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
   if (splits < 1 || (splits > 1 && workspace == nullptr)) return (int)cudaErrorInvalidValue;
   float* ws = (float*)workspace;
+  if (tensor_cores) {  // bf16 x, int4/int8 codes, groups of 128, K % 128 == 0
+    if (x_kind != 1 || gs != 128 || K % 128 != 0) return (int)cudaErrorInvalidValue;
+    if (bits == 4)
+      launch_mma<4>(x, w, scale, out, B, K, N, gps, splits, ws, st);
+    else if (bits == 8)
+      launch_mma<8>(x, w, scale, out, B, K, N, gps, splits, ws, st);
+    else
+      return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
   if (x_kind == 2) {
     if (bits != 4) return (int)cudaErrorInvalidValue;
     float* dst = splits > 1 ? ws : (float*)out;

@@ -89,11 +89,16 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
         raise ValueError(f"cannot group K={k} by group_size={gs}")
 
 
-def _k_splits(b: int, n: int, groups: int, sms: int):
+def _k_splits(b: int, n: int, groups: int, sms: int, tensor_cores: bool):
     """(groups per split, splits): split K by whole scale groups until the
-    grid has about 4 blocks per SM (64-column tiles x 16- or 64-row tiles)."""
-    tiles = -(-n // 64) * -(-b // (16 if b <= 16 else 64))
-    want = max(1, min(groups, -(-4 * sms // tiles)))
+    grid fills the card: ~2 blocks per SM for the tensor-core kernel
+    (128x64 tiles, 8 warps), ~4 for the CUDA-core one (64-column tiles of
+    16 or 64 rows, 4 warps)."""
+    if tensor_cores:
+        tiles, per_sm = -(-n // 128) * -(-b // 64), 2
+    else:
+        tiles, per_sm = -(-n // 64) * -(-b // (16 if b <= 16 else 64)), 4
+    want = max(1, min(groups, -(-per_sm * sms // tiles)))
     gps = -(-groups // want)
     return gps, -(-groups // gps)
 
@@ -134,13 +139,16 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch.Tenso
     out = torch.empty((b, n_pad), dtype=torch.float32 if x_kind != 1 else torch.bfloat16,
                       device=x2.device)
     gs = _group_size(qt)
-    gps, splits = _k_splits(b, n_pad, k // gs, kernels.sm_count(x2.device))
+    tensor_cores = x_kind == 1 and gs == 128  # the serving path's case
+    if tensor_cores and x2.data_ptr() % 16:
+        x2 = x2.clone()  # the tensor-core kernel loads x rows in 16-byte pieces
+    gps, splits = _k_splits(b, n_pad, k // gs, kernels.sm_count(x2.device), tensor_cores)
     ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
         if splits > 1 else None
     rc = kernels.lib().tpuserve_quant_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         b, k, n_pad, gs, qt.bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
-        kernels.stream_of(x2))
+        int(tensor_cores), kernels.stream_of(x2))
     kernels.check(rc, "quant_matmul")
     launches += 1
     if n_pad != n:
