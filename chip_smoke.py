@@ -16,15 +16,13 @@ Phases, each fatal on failure:
 Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
-    python3 chip_smoke.py            # everything (needs one card)
-    python3 chip_smoke.py --quick    # phases 1-3 with fewer timing repeats
+    python3 chip_smoke.py            # needs one card
 
 Imports torch and tpuserve_torch only (no JAX).
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -56,45 +54,31 @@ def bound(nbytes: float, ops: float, peak: float):
 
 
 class Timer:
-    """Device time of one call, from CUDA events around a CUDA graph that
-    replays `reps` calls (no host launch gaps); plain event timing over a
-    loop when a call cannot be captured."""
+    """Device time of one call: CUDA events around a CUDA graph that replays
+    `reps` calls, so host launch gaps do not count."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.methods = set()
 
     def ms(self, fn, reps: int) -> float:
         torch = self.torch
         fn(0)
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        try:
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn(1)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for i in range(reps):
-                    fn(i)
-            graph.replay()
-            torch.cuda.synchronize()
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            self.methods.add("cuda-graph")
-            del graph
-        except RuntimeError as e:  # not capturable: time a launch loop
-            torch.cuda.synchronize()
-            self.methods.add(f"event-loop ({type(e).__name__})")
-            start.record()
+        side = torch.cuda.Stream()  # warm up off the capture stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(1)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
             for i in range(reps):
                 fn(i)
-            end.record()
-            torch.cuda.synchronize()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
 
@@ -510,9 +494,6 @@ def phase_slice(torch, p, smi_line):
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true", help="phases 1-3, fewer repeats")
-    args = ap.parse_args()
     import torch
 
     name, count, smi_line = phase_device(torch)
@@ -524,14 +505,10 @@ def main() -> None:
     t0 = time.monotonic()
     build = phase_build()
     timer = Timer(torch)
-    reps = 5 if args.quick else 20
-    results = phase_kernels(torch, timer, reps, p)
-    log(f"[kernel] timing: {sorted(timer.methods)}; card {smi_line}")
-    slice_res = None
-    if not args.quick:
-        slice_res = phase_slice(torch, p, smi_line)
-        for name_, launched in slice_res["launches"].items():
-            results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    results = phase_kernels(torch, timer, 20, p)
+    slice_res = phase_slice(torch, p, smi_line)
+    for name_, launched in slice_res["launches"].items():
+        results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -542,7 +519,7 @@ def main() -> None:
     for kname in ("vector_add", "quant_matmul", "decode_attention"):
         r = results[kname]
         line.append({"name": kname, "route": "cuda", "source": sources[kname][0],
-                     "replaces": sources[kname][1], "launches": r.get("launches", 0),
+                     "replaces": sources[kname][1], "launches": r["launches"],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "per": r["per"]})

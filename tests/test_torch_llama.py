@@ -19,6 +19,7 @@ import torch
 
 from tpuserve.models import llama as jllama
 from tpuserve.quant import core as jcore
+from tpuserve_torch import interop
 from tpuserve_torch.models import llama as tllama
 from torch_parity import SMALL, jax_to_torch_params, to_np
 
@@ -134,6 +135,11 @@ def test_prefill_chunk_decode_match_jax(weights, jax_kernels, kv_bits):
                   else getattr(tc, name)).astype(np.int32)
         assert np.abs(a - b).max() <= 1
         assert (a != b).mean() < 1e-3
+    # the JAX cache state carried across byte for byte
+    carried = interop.kv_cache_from_numpy(*(np.asarray(t) for t in
+                                            (jc.k, jc.v, jc.k_scale, jc.v_scale)))
+    assert carried.k.dtype == tc.k.dtype and carried.k_scale.dtype == tc.k_scale.dtype
+    np.testing.assert_array_equal(to_np(carried.k), np.asarray(jc.k))
 
     # 8 greedy decode steps; slots 1 and 3 stay inactive
     pos = np.array([5, -1, len(long), -1], np.int32)

@@ -31,15 +31,14 @@ def test_pack_int4_bytes_identical():
         np.testing.assert_array_equal(back, codes)
 
 
-@pytest.mark.parametrize("chunks", [1, 2])
-def test_pack_kv_codes_bytes_identical(chunks):
+def test_pack_kv_codes_bytes_identical():
     rng = np.random.default_rng(1)
     codes = rng.integers(-8, 8, size=(3, 5, 512)).astype(np.int8)
-    ref = np.asarray(jllama.pack_kv_codes(jnp.asarray(codes), chunks))
-    out = tllama.pack_kv_codes(torch.from_numpy(codes), chunks).numpy()
+    ref = np.asarray(jllama.pack_kv_codes(jnp.asarray(codes), 1))
+    out = tllama.pack_kv_codes(torch.from_numpy(codes)).numpy()
     np.testing.assert_array_equal(out, ref)
-    back = tllama.unpack_kv_codes(torch.from_numpy(ref.copy()), chunks).numpy()
-    np.testing.assert_array_equal(back, np.asarray(jllama.unpack_kv_codes(jnp.asarray(ref), chunks)))
+    back = tllama.unpack_kv_codes(torch.from_numpy(ref.copy())).numpy()
+    np.testing.assert_array_equal(back, np.asarray(jllama.unpack_kv_codes(jnp.asarray(ref), 1)))
     np.testing.assert_array_equal(back, codes)
 
 

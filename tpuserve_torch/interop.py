@@ -49,8 +49,7 @@ def params_from_numpy(tree: Mapping[str, object], device="cpu") -> Dict[str, obj
 
 
 def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
-                        v_scale: Optional[np.ndarray] = None, pack_chunks: int = 1,
-                        device="cpu") -> KVCache:
+                        v_scale: Optional[np.ndarray] = None, device="cpu") -> KVCache:
     """Flat-layout cache state (k/v [n_layers, S, L, W or W/2], head-major
     scales [n_layers, S, Hkv, L] or None) -> KVCache."""
     if np.asarray(k).ndim != 4:
@@ -58,5 +57,4 @@ def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
     return KVCache(
         k=tensor_from_numpy(k, device), v=tensor_from_numpy(v, device),
         k_scale=None if k_scale is None else tensor_from_numpy(k_scale, device),
-        v_scale=None if v_scale is None else tensor_from_numpy(v_scale, device),
-        pack_chunks=pack_chunks)
+        v_scale=None if v_scale is None else tensor_from_numpy(v_scale, device))

@@ -4,9 +4,9 @@ The sources under `tpuserve_torch/csrc/` are plain CUDA C++ with a C
 interface. `build()` compiles each `.cu` file with its own `nvcc` process
 (all started together) for `sm_90a`, links the objects into one shared
 library and `lib()` loads it with ctypes. The build runs at first use, never
-at import, into `build/tpuserve_torch/` at the repository root (override with
-TPUSERVE_TORCH_BUILD_DIR); the library name carries a hash of the sources
-and flags, so an edited source is rebuilt.
+at import, into `build/tpuserve_torch/` at the repository root; the library
+name carries a hash of the sources and flags, so an edited source is
+rebuilt.
 
 Every wrapper allocates its outputs with torch, launches on PyTorch's
 current stream and raises through `check()` when the C function returns a
@@ -55,11 +55,7 @@ _lib: Optional[ctypes.CDLL] = None
 _info: Optional[BuildInfo] = None
 
 
-def build_dir() -> Path:
-    env = os.environ.get("TPUSERVE_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parent.parent / "build" / "tpuserve_torch"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tpuserve_torch"
 
 
 def _nvcc() -> str:
@@ -86,7 +82,7 @@ def build(force: bool = False) -> BuildInfo:
     with _lock:
         if _info is not None and not force:
             return _info
-        out_dir = build_dir()
+        out_dir = BUILD_DIR
         out_dir.mkdir(parents=True, exist_ok=True)
         so = out_dir / f"libtpuserve_torch_{_digest()}.so"
         if so.exists() and not force:

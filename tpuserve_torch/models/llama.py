@@ -65,22 +65,6 @@ class LlamaParams:
     def llama2_7b(cls) -> "LlamaParams":
         return cls()
 
-    @classmethod
-    def tiny(cls) -> "LlamaParams":
-        """CPU-test scale."""
-        return cls(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-                   head_dim=16, ffn_dim=128)
-
-
-def active_param_count(p: LlamaParams) -> int:
-    """Matmul-active parameters per decoded token (2*this is the step's
-    matmul FLOPs per token)."""
-    qd = p.n_heads * p.head_dim
-    kvd = p.n_kv_heads * p.head_dim
-    attn = p.dim * qd + 2 * p.dim * kvd + qd * p.dim
-    ffn = 3 * p.dim * p.ffn_dim
-    head = p.dim * p.vocab_size
-    return p.n_layers * (attn + ffn) + head
 
 
 def _no_moe(p: LlamaParams) -> None:
@@ -90,7 +74,6 @@ def _no_moe(p: LlamaParams) -> None:
 
 # ---------------------------------------------------------------------- weights
 def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cpu",
-                generator: Optional[torch.Generator] = None,
                 seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random-init weights (flat dict) from a seeded torch.Generator on
     `device`. Serving normally loads a checkpoint; this exists for tests and
@@ -98,9 +81,8 @@ def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cpu",
     across with interop.params_from_numpy instead.)"""
     _no_moe(p)
     dev = torch.device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
     std = 0.02
 
     def normal(*shape):
@@ -187,7 +169,6 @@ class KVCache:
     v: torch.Tensor
     k_scale: Optional[torch.Tensor]
     v_scale: Optional[torch.Tensor]
-    pack_chunks: int = 1
 
     @property
     def quantized(self) -> bool:
@@ -215,7 +196,7 @@ class KVCache:
     @classmethod
     def create(cls, p: LlamaParams, n_slots: int, max_len: int, quantized: bool,
                dtype=torch.bfloat16, scale_dtype=torch.float32, kv_bits: int = 8,
-               pack_chunks: int = 1, device="cpu") -> "KVCache":
+               device="cpu") -> "KVCache":
         dev = torch.device(device)
         w = p.n_kv_heads * p.head_dim
         shape = (p.n_layers, n_slots, max_len, w)
@@ -225,8 +206,6 @@ class KVCache:
                 raise ValueError("kv_bits=4 requires a quantized cache")
             if w % 2:
                 raise ValueError("kv_bits=4 requires an even n_kv_heads*head_dim")
-            if pack_chunks > 1 and p.n_kv_heads % pack_chunks:
-                raise ValueError("pack_chunks must divide n_kv_heads")
             shape = shape[:-1] + (w // 2,)
             store = torch.uint8
         elif quantized:
@@ -240,7 +219,6 @@ class KVCache:
             v=torch.zeros(shape, dtype=store, device=dev),
             k_scale=torch.zeros(scale_shape, dtype=scale_dtype, device=dev),
             v_scale=torch.zeros(scale_shape, dtype=scale_dtype, device=dev),
-            pack_chunks=pack_chunks,
         )
 
 
@@ -258,34 +236,20 @@ def _quantize_kv_cache(cache: KVCache, x: torch.Tensor):
     return _quantize_kv(x, 7.0 if cache.k.dtype == torch.uint8 else 127.0)
 
 
-def pack_kv_codes(codes: torch.Tensor, chunks: int = 1) -> torch.Tensor:
-    """int8 codes in [-8, 7] [..., W] -> packed uint8 [..., W/2], split-half
-    along the last dim per chunk: within each of `chunks` equal slices of W,
-    byte d holds positions d (low nibble) and Wc/2 + d (high nibble),
-    offset-8. chunks=1 is the global split-half the decode kernel reads."""
-    w = codes.shape[-1]
-    lead = codes.shape[:-1]
-    if chunks > 1:
-        wc = w // chunks
-        x = codes.reshape(lead + (chunks, wc))
-        lo = x[..., : wc // 2].to(torch.int32) + 8
-        hi = x[..., wc // 2:].to(torch.int32) + 8
-        return (lo | (hi << 4)).to(torch.uint8).reshape(lead + (w // 2,))
-    half = w // 2
+def pack_kv_codes(codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] [..., W] -> packed uint8 [..., W/2], global
+    split-half along the last dim: byte d holds positions d (low nibble) and
+    W/2 + d (high nibble), offset-8 — the layout the decode kernel reads
+    (the JAX package's pack_chunks=1; per-shard chunks wait for tp)."""
+    half = codes.shape[-1] // 2
     lo = codes[..., :half].to(torch.int32) + 8
     hi = codes[..., half:].to(torch.int32) + 8
     return (lo | (hi << 4)).to(torch.uint8)
 
 
-def unpack_kv_codes(packed: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of pack_kv_codes: uint8 [..., W/2] -> int8 [..., W]."""
     p32 = packed.to(torch.int32)
-    lead = packed.shape[:-1]
-    if chunks > 1:
-        wb = packed.shape[-1] // chunks
-        x = p32.reshape(lead + (chunks, wb))
-        return (torch.cat([(x & 15) - 8, (x >> 4) - 8], dim=-1)
-                .reshape(lead + (packed.shape[-1] * 2,)).to(torch.int8))
     return torch.cat([(p32 & 15) - 8, (p32 >> 4) - 8], dim=-1).to(torch.int8)
 
 
@@ -295,8 +259,8 @@ def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, kq, vq, ks
     c = kq.shape[0]
     kw, vw = kq.reshape(c, -1), vq.reshape(c, -1)
     if cache.k.dtype == torch.uint8:  # packed int4
-        kw = pack_kv_codes(kw, cache.pack_chunks)
-        vw = pack_kv_codes(vw, cache.pack_chunks)
+        kw = pack_kv_codes(kw)
+        vw = pack_kv_codes(vw)
     cache.k[layer, slot, start:start + c] = kw.to(cache.k.dtype)
     cache.v[layer, slot, start:start + c] = vw.to(cache.v.dtype)
     if ks is not None:
@@ -434,8 +398,8 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
             k_all = cache.k[layer, slot, :window]
             v_all = cache.v[layer, slot, :window]
             if k_all.dtype == torch.uint8:
-                k_all = unpack_kv_codes(k_all, cache.pack_chunks)
-                v_all = unpack_kv_codes(v_all, cache.pack_chunks)
+                k_all = unpack_kv_codes(k_all)
+                v_all = unpack_kv_codes(v_all)
             k_all = k_all.reshape(window, p.n_kv_heads, p.head_dim)
             v_all = v_all.reshape(window, p.n_kv_heads, p.head_dim)
             qg = q[0].reshape(c, p.n_kv_heads, n_rep, p.head_dim)
@@ -500,8 +464,8 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
                 kq, vq, ks, vs = k, v, None, None
             kq, vq = kq.reshape(s, -1), vq.reshape(s, -1)  # [S, W] rows
             if cache.k.dtype == torch.uint8:  # packed int4
-                kq = pack_kv_codes(kq, cache.pack_chunks)
-                vq = pack_kv_codes(vq, cache.pack_chunks)
+                kq = pack_kv_codes(kq)
+                vq = pack_kv_codes(vq)
             # In-place write of this step's K/V at (layer, slot, pos) for the
             # ACTIVE slots only: rows of inactive slots (positions < 0) are
             # never written. (JAX writes functionally and rewrites the old

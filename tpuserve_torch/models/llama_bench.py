@@ -9,7 +9,7 @@ need realistic shapes and types, not trained values.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -19,13 +19,11 @@ from tpuserve_torch.quant.core import QTensor
 
 def init_quantized_params(p: LlamaParams, bits: int = 4, group_size: int = 128,
                           dtype=torch.bfloat16, device="cpu",
-                          generator: Optional[torch.Generator] = None,
                           seed: int = 42) -> Dict[str, object]:
     _no_moe(p)
     dev = torch.device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
     qd = p.n_heads * p.head_dim
     kvd = p.n_kv_heads * p.head_dim
 

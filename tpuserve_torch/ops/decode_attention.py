@@ -26,7 +26,6 @@ the whole window is one L block: a plain softmax with one P requant per row.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -38,6 +37,7 @@ launches = 0  # CUDA kernel launches (the plain version does not count)
 _NEG_INF = -1e30
 _HD = 128          # head_dim the CUDA kernel is written for
 _KERNEL_NQ = (1, 2, 4, 8)
+_BLOCK_L = 128     # L rows per online-softmax block (the TPU kernel's default)
 
 
 def _quantize_q(q: torch.Tensor):
@@ -69,9 +69,7 @@ def _geometry(q, k_full, k_scale_l, window, block_l):
     if quantized and not kv_int8:
         raise ValueError("scales are only supported with an int8 or packed int4 cache")
     win = l_max if window is None else min(int(window), l_max)
-    if block_l is None:
-        block_l = int(os.environ.get("TPUSERVE_ATTN_BLOCK_L", "128"))
-    block_l = min(block_l, win)
+    block_l = min(block_l or _BLOCK_L, win)
     while win % block_l != 0:
         block_l //= 2
     # the TPU's multi-slot packing (sb > 1) is one L block over the window

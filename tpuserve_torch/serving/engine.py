@@ -125,31 +125,6 @@ class GenerationEngine:
         self.tokens_in = 0
 
     # ------------------------------------------------------------------ setup
-    @property
-    def tokenizer(self):
-        """Model-local tokenizer.json (HF `tokenizers`), lazily loaded; None
-        when absent or when `tokenizers` is not installed."""
-        if not hasattr(self, "_tokenizer"):
-            self._tokenizer = None
-            path = os.path.join(self.model_dir, "tokenizer.json")
-            if os.path.exists(path):
-                try:
-                    from tokenizers import Tokenizer
-
-                    self._tokenizer = Tokenizer.from_file(path)
-                except Exception:
-                    self._tokenizer = None
-        return self._tokenizer
-
-    def generate_text(self, text: str, **kw) -> Dict:
-        tok = self.tokenizer
-        if tok is None:
-            raise InvalidArgumentError(
-                "model has no tokenizer.json; send 'input_ids' instead of 'text'")
-        result = self.generate(tok.encode(text).ids, **kw)
-        result["text"] = tok.decode(result["generated_ids"])
-        return result
-
     def _load_params(self) -> Dict[str, torch.Tensor]:
         init_mode = str(self.config.model_params.get("init", "")).lower()
         st_path = os.path.join(self.model_dir, "model.safetensors")

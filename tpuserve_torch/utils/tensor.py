@@ -4,10 +4,9 @@ Reference counterpart: `inference::Tensor` (inference_engine/src/model.cpp:30-43
 include/model.h:93-126) — a CPU byte buffer plus an optional GPU buffer with
 explicit toGPU/toCPU transfers.
 
-Here a `Tensor` wraps a numpy array or a torch tensor without copying.
-Device placement is `torch.as_tensor(..., device=)` / `np.asarray` — there
-is no separate byte-buffer tier (fixing the reference's ~5 copies per
-request, SURVEY.md §2c.8).
+Here a `Tensor` wraps a numpy array or a torch tensor without copying;
+`numpy()` brings it to the host. There is no separate byte-buffer tier
+(fixing the reference's ~5 copies per request, SURVEY.md §2c.8).
 """
 
 from __future__ import annotations
@@ -69,14 +68,6 @@ class Tensor:
         if hasattr(data, "detach"):  # torch tensor
             data = data.detach().cpu().numpy()
         return np.asarray(data)
-
-    def torch(self, device=None):
-        """Device-side tensor (host→device transfer if needed)."""
-        import torch
-
-        if self.data is None:
-            raise ValueError(f"tensor '{self.name}' has no data")
-        return torch.as_tensor(self.data, device=device)
 
     def tolist(self):
         arr = self.numpy()
