@@ -343,6 +343,36 @@ def _model_config(p):
     }
 
 
+def profile_step(torch, step):
+    """Device busy share of one decode step: kernel time summed by
+    torch.profiler over the step's wall time (host clock, synchronized)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    kernels = sum(r[2] for r in rows)
+    if not busy_us:
+        log("[slice] profiler: no device time recorded (not measured)")
+        return None
+    log(f"[slice] profiler, one decode step: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), {kernels} device ops")
+    for dev_us, key, count in rows[:8]:
+        log(f"[slice]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, device_ops=kernels,
+                top=[(k, d / 1e3, c) for d, k, c in rows[:12]])
+
+
 def phase_slice(torch, p, smi_line):
     from tpuserve_torch.device import smoke
     from tpuserve_torch.engine.manager import InferenceManager
@@ -481,6 +511,8 @@ def phase_slice(torch, p, smi_line):
         times.append((time.monotonic() - t) * 1e3)
     restore()
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    busy = profile_step(torch, lambda: llama.decode_step(engine.params, p, toks, cache, pos))
+    restore()
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} ms "
         f"-> {64 / step_ms * 1e3:.1f} tok/s at full batch; max_memory_allocated "
@@ -488,7 +520,8 @@ def phase_slice(torch, p, smi_line):
     mgr.shutdown()
     return dict(launches=launches, want=dict(quant_matmul=want_qmm, decode_attention=want_attn),
                 decode_steps=steps, prefill_calls=prefills, tokens=generated, wall_s=wall,
-                tok_s=tok_s, step_ms=step_ms, step_times_ms=times, full_step_err=err,
+                tok_s=tok_s, step_ms=step_ms, step_times_ms=times, profile=busy,
+                full_step_err=err,
                 full_step_tol=tol, argmax_agreement=agree, max_memory_allocated=peak,
                 load_s=load_s)
 
