@@ -23,6 +23,7 @@ Imports torch and tpuserve_torch only (no JAX).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -167,17 +168,21 @@ def check_quant_matmul(torch, timer, reps, p):
         "w_down": ((p.ffn_dim, p.dim), p.n_layers),
         "lm_head": ((p.dim, p.vocab_size), 1),
     }
-    cases = [(name, kn, per, 4, 0, 64) for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 8, 0, 64) for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 4, 8, 64) for name, (kn, per) in shapes.items()]
-    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256)]  # prefill-sized batch
+    # (name, (K, N), launches per step, bits, act_bits, B, group size)
+    cases = [(name, kn, per, 4, 0, 64, 128) for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, 0, 8, 0, 64, 128) for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, 0, 4, 8, 64, 128) for name, (kn, per) in shapes.items()]
+    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256, 128)]  # prefill-sized batch
+    # group sizes other than 128 (the kernel reads them at run time)
+    cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32),
+              ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0])]  # per channel
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
     worst, rows = 0.0, []
-    for name, (k, n), per_step, bits, act_bits, b in cases:
-        qt = _qt_random(torch, bits, k, n, act_bits=act_bits)
+    for name, (k, n), per_step, bits, act_bits, b, gs in cases:
+        qt = _qt_random(torch, bits, k, n, gs, act_bits)
         wbytes = qt.nbytes
         copies = max(1, math.ceil(L2_FLUSH_BYTES / wbytes))
-        qts = [qt] + [_qt_random(torch, bits, k, n, act_bits=act_bits) for _ in range(copies - 1)]
+        qts = [qt] + [_qt_random(torch, bits, k, n, gs, act_bits) for _ in range(copies - 1)]
         x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
         out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
         torch.cuda.synchronize()
@@ -186,11 +191,11 @@ def check_quant_matmul(torch, timer, reps, p):
         # group sums, then f32): one bf16 step at the largest output
         tol = 2 ** -7 * ref.float().abs().max().item()
         if not err <= tol:
-            fail(f"quant_matmul {name} int{bits} act{act_bits} B={b}: max|err| {err} > {tol}")
+            fail(f"quant_matmul {name} int{bits} act{act_bits} B={b} g{gs}: max|err| {err} > {tol}")
         worst = max(worst, err)
         ms = timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps)
-        row = dict(name=name, K=k, N=n, B=b, bits=bits, act_bits=act_bits, max_abs_err=err,
-                   tol=tol, ms=ms)
+        row = dict(name=name, K=k, N=n, B=b, bits=bits, act_bits=act_bits, group_size=gs,
+                   max_abs_err=err, tol=tol, ms=ms)
         nbytes = b * k * 2 + wbytes + b * n * 2
         ops = 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(
@@ -207,7 +212,7 @@ def check_quant_matmul(torch, timer, reps, p):
             step["ops"] += per_step * ops
             del wd
         rows.append(row)
-        log(f"[kernel] quant_matmul {name} K={k} N={n} B={b} int{bits}"
+        log(f"[kernel] quant_matmul {name} K={k} N={n} B={b} int{bits} g{gs}"
             f"{' W4A8' if act_bits else ''}: max|err| {err:.3g} (tol {tol:.3g}); "
             f"{ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
             + (f", plain {row['plain_ms']:.4f} ms, torch.matmul bf16 {row['library_ms']:.4f} ms"
@@ -229,42 +234,53 @@ def check_decode_attention(torch, timer, reps, p):
     g = torch.Generator(device="cuda")
     g.manual_seed(5)
     s, h, hkv, l, hd = 64, p.n_heads, p.n_kv_heads, 256, p.head_dim
-    w = hkv * hd
     worst, rows, main = 0.0, [], None
     pos_main = torch.randint(0, l, (s,), generator=g, device="cuda", dtype=torch.int32)
     pos_main[::9] = -1            # inactive slots
     pos_main[1] = l - 1
-    cases = [("int4", l, None, s, h, hkv, l), ("int8", l, None, s, h, hkv, l),
-             ("bf16", l, None, s, h, hkv, l), ("int8", l, 128, s, h, hkv, l),
-             ("int8", 64, None, 4, 8, 2, 64)]   # small shape: the TPU's packed (2b) case
-    for kind, ll, window, ss, hh, kk, lcache in cases:
+    cases = [("int4", None, s, h, hkv, l), ("int8", None, s, h, hkv, l),
+             ("bf16", None, s, h, hkv, l), ("int8", 128, s, h, hkv, l),
+             # the TPU's packed (2b) case: W = 256 makes win*W*sb < 1 MiB, so
+             # one P requant covers the whole 256-row window
+             ("int8", None, 16, 8, 2, l)]
+    for kind, window, ss, hh, kk, lcache in cases:
         ww = kk * hd
-        n_layers = 2
-        if kind == "int4":
-            kv = [torch.randint(0, 256, (n_layers, ss, lcache, ww // 2), generator=g,
-                                device="cuda", dtype=torch.int32).to(torch.uint8)
-                  for _ in range(2)]
-        elif kind == "int8":
-            kv = [torch.randint(-127, 128, (n_layers, ss, lcache, ww), generator=g,
-                                device="cuda", dtype=torch.int32).to(torch.int8)
-                  for _ in range(2)]
-        else:
-            kv = [torch.randn((n_layers, ss, lcache, ww), generator=g, device="cuda")
-                  .to(torch.bfloat16) for _ in range(2)]
-        sc = [None, None]
-        if kind != "bf16":
-            sc = [((torch.rand((ss, kk, lcache), generator=g, device="cuda") + 0.5) * 0.01)
-                  .to(torch.bfloat16) for _ in range(2)]
-        q = (torch.randn((ss, hh, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         win = window or lcache
         if ss == s:
             pos = pos_main.clamp(max=win - 1)
             pos[::9] = -1
         else:
-            pos = torch.tensor([5, -1, lcache - 1, 30], device="cuda", dtype=torch.int32)
-        args = (q, kv[0], kv[1], sc[0], sc[1], pos, 1)
-        out = decode_attention_wide_cache(*args, window=window)
-        ref = decode_attention_wide_cache_plain(*args, window=window)
+            pos = torch.randint(0, win, (ss,), generator=g, device="cuda", dtype=torch.int32)
+            pos[1], pos[2] = -1, win - 1
+        live = (pos.clamp(min=-1) + 1).sum().item()  # KV rows the data needs
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
+        kv_live = 2 * live * ww * elem + (2 * live * kk * 2 if kind != "bf16" else 0)
+        # enough layers that the live rows read while rotating through them
+        # exceed the L2: every timed call reads its KV from device memory
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
+        shape = (n_layers, ss, lcache, ww // 2 if kind == "int4" else ww)
+        if kind == "int4":
+            kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+        elif kind == "int8":
+            kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        else:
+            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        sc = None
+        if kind != "bf16":
+            sc = [((torch.rand((n_layers, ss, kk, lcache), generator=g, device="cuda") + 0.5)
+                   * 0.01).to(torch.bfloat16) for _ in range(2)]
+        q = (torch.randn((ss, hh, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+
+        def call(fn, i):
+            li = i % n_layers
+            ks, vs = (None, None) if sc is None else (sc[0][li], sc[1][li])
+            return fn(q, kv[0], kv[1], ks, vs, pos, li, window=window)
+
+        out = call(decode_attention_wide_cache, 1)
+        ref = call(decode_attention_wide_cache_plain, 1)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         # same requant points and exact integer dots, but where exp() of a
@@ -277,44 +293,41 @@ def check_decode_attention(torch, timer, reps, p):
         if not torch.all(out[pos < 0] == 0):
             fail(f"decode_attention {kind}: inactive slots are not zero")
         worst = max(worst, err)
-        ms = timer.ms(lambda i: decode_attention_wide_cache(*args, window=window), reps)
-        live = (pos.clamp(min=-1) + 1).sum().item()  # KV rows the data needs
-        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
-        nbytes = (2 * live * ww * elem + (2 * live * kk * 2 if kind != "bf16" else 0)
-                  + q.numel() * 2 + q.numel() * 4 + pos.numel() * 4)
+        ms = timer.ms(lambda i: call(decode_attention_wide_cache, i), reps)
+        plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_plain, i),
+                            max(2, reps // 5))
+        nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + pos.numel() * 4
         ops = 2 * 2 * live * hh * hd
         b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind != "bf16" else "bf16"])
+        # library yardstick: SDPA over the dequantized window, masked by
+        # position, on copies that together exceed the L2
+        kd, vd = kv[0][0, :, :win], kv[1][0, :, :win]
+        if kind == "int4":
+            kd, vd = unpack_kv_codes(kd), unpack_kv_codes(vd)
+        kd = kd.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
+        vd = vd.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
+        if sc is not None:
+            kd = kd * sc[0][0, :, :, :win].float()[..., None]
+            vd = vd * sc[1][0, :, :, :win].float()[..., None]
+        kd = kd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
+        vd = vd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * kd.numel() * 2)))
+        kvd = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(copies - 1)]
+        mask = (torch.arange(win, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib_ms = timer.ms(lambda i: F.scaled_dot_product_attention(
+            qs, *kvd[i % copies], attn_mask=mask, scale=1.0), reps)
         row = dict(kind=kind, S=ss, H=hh, Hkv=kk, L=lcache, window=window, live_rows=live,
-                   max_abs_err=err, tol=tol, ms=ms, bound_ms=b_ms, bound_by=b_by)
-        if ss == s and window is None:
-            row["plain_ms"] = timer.ms(
-                lambda i: decode_attention_wide_cache_plain(*args, window=window),
-                max(2, reps // 5))
-            # library yardstick: SDPA over the dequantized window, masked by position
-            kd = kv[0][1]
-            vd = kv[1][1]
-            if kind == "int4":
-                kd, vd = unpack_kv_codes(kd), unpack_kv_codes(vd)
-            kd = kd.view(ss, lcache, kk, hd).permute(0, 2, 1, 3).float()
-            vd = vd.view(ss, lcache, kk, hd).permute(0, 2, 1, 3).float()
-            if sc[0] is not None:
-                kd = kd * sc[0].float()[..., None]
-                vd = vd * sc[1].float()[..., None]
-            kd, vd = kd.to(torch.bfloat16).contiguous(), vd.to(torch.bfloat16).contiguous()
-            mask = (torch.arange(lcache, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
-            qs = q[:, :, None, :]
-            row["library_ms"] = timer.ms(
-                lambda i: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask, scale=1.0),
-                reps)
-            if kind == "int4":
-                main = row
+                   layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if kind == "int4" and ss == s:
+            main = row
         rows.append(row)
         log(f"[kernel] decode_attention {kind} S={ss} H={hh} Hkv={kk} L={lcache} "
             f"window={window}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})"
-            + (f", plain {row['plain_ms']:.4f} ms, SDPA bf16 {row['library_ms']:.4f} ms"
-               if "plain_ms" in row else ""))
-        del kv, sc
+            f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
+            f"{n_layers} layers rotated")
+        del kv, sc, kvd, kd, vd
         torch.cuda.empty_cache()
     n_l = p.n_layers
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
@@ -371,6 +384,24 @@ def profile_step(torch, step):
         log(f"[slice]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, device_ops=kernels,
                 top=[(k, d / 1e3, c) for d, k, c in rows[:12]])
+
+
+@contextlib.contextmanager
+def plain_kernels(llama):
+    """Route the model's kernel calls to their plain PyTorch versions for a
+    reference run on the card, and restore them after. The served model's
+    weights are int4 with bf16 activations, for which qmatmul is exactly
+    quant_matmul."""
+    from tpuserve_torch.ops.decode_attention import decode_attention_wide_cache_plain
+    from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
+
+    saved = llama.qmatmul, llama.decode_attention_wide_cache
+    llama.qmatmul = quant_matmul_plain
+    llama.decode_attention_wide_cache = decode_attention_wide_cache_plain
+    try:
+        yield
+    finally:
+        llama.qmatmul, llama.decode_attention_wide_cache = saved
 
 
 def phase_slice(torch, p, smi_line):
@@ -484,7 +515,8 @@ def phase_slice(torch, p, smi_line):
 
     logits_k, _ = llama.decode_step(engine.params, p, toks, cache, pos)
     restore()
-    logits_p, _ = llama.decode_step(engine.params, p, toks, cache, pos, plain=True)
+    with plain_kernels(llama):
+        logits_p, _ = llama.decode_step(engine.params, p, toks, cache, pos)
     restore()
     torch.cuda.synchronize()
     ref_max = logits_p.abs().max().item()

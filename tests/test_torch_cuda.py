@@ -4,7 +4,7 @@ the card. Every test here is marked `gpu` and skips without a card.
 This file imports torch and tpuserve_torch only (the machine with the card
 has no JAX), so it runs there without the JAX conftest:
 
-    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: quant-matmul's kernel and plain version sum the same exact
 products in another order (f32: a few ulps of the output; bf16 output: one
@@ -45,7 +45,8 @@ def _qt(bits, gs, k, n, act_bits, device, seed=0):
 
 
 @pytest.mark.parametrize("bits,gs,act_bits", [
-    (4, 128, 0), (4, 0, 0), (8, 128, 0), (8, 256, 0), (8, 0, 0), (4, 128, 8), (4, 32, 0)])
+    (4, 128, 0), (4, 0, 0), (8, 128, 0), (8, 256, 0), (8, 0, 0), (4, 128, 8), (4, 32, 0),
+    (4, 16, 0), (8, 32, 0)])
 @pytest.mark.parametrize("b", [1, 37, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul(cuda, bits, gs, act_bits, b, dtype):
@@ -95,6 +96,7 @@ def _cache(kind, s, hkv, l, n_layers, device, scale_dtype=torch.float32, seed=0)
     ("int4", 32, 32, 256, None, None, torch.bfloat16),
     ("bf16", 32, 32, 256, 128, None, None),
     ("int8", 8, 2, 64, None, None, torch.float32),       # packed case, rep 4
+    ("int8", 8, 2, 256, None, None, torch.float32),      # packed case, one P requant per row
     ("int4", 4, 2, 64, 32, 16, torch.float32),           # int4 pair x rep 2
     ("f32", 4, 2, 64, None, 16, None),
     ("f32", 4, 4, 64, None, None, None),                  # packed, float cache

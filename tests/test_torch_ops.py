@@ -148,6 +148,20 @@ def test_decode_attention_bf16_scales_and_gqa():
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=2e-6)
 
 
+def test_decode_attention_packed_whole_row():
+    """The TPU's packed case (_packed_kernel) where it differs from the
+    L-blocked one: at L=256 and W=256, win*W*sb < 1 MiB, so P is requantized
+    once over the whole 256-row window instead of once per 128-row block."""
+    q, k, v, ks, vs = _attn_inputs("int8", s=4, h=8, hkv=2, l=256, seed=5)
+    geometry = tda._geometry(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(ks),
+                             None, None)
+    assert geometry["block_l"] == 256
+    pos = np.array([200, -1, 255, 130], np.int32)  # every live slot spans both halves
+    out, ref = _run_both("int8", q, k, v, ks, vs, pos, 1)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=2e-6)
+    assert np.all(out[1] == 0.0)
+
+
 def test_vector_add_plain_matches_pallas():
     rng = np.random.default_rng(0)
     a = rng.normal(size=(1000,)).astype(np.float32)

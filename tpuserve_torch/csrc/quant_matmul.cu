@@ -21,29 +21,28 @@
 // reused by all 64 columns. When the N tiles alone would leave SMs idle
 // (narrow N, long K), K is split across blocks by whole scale groups: each
 // split writes f32 partial sums to a workspace and a second small kernel
-// adds them in split order. bf16 activations with groups of 128 (the
-// serving path) multiply on the tensor cores with mma.sync (codes converted
-// to bf16 in registers); other cases multiply on the CUDA cores in f32
-// (W4A8: __dp4a). wgmma, TMA and a pipelined K loop are later work.
+// adds them in split order. bf16 activations (the serving path) multiply on
+// the tensor cores with mma.sync (codes converted to bf16 in registers);
+// f32 activations multiply on the CUDA cores in f32, and W4A8 with __dp4a.
+// wgmma, TMA and a pipelined K loop are later work.
 #include "common.cuh"
 
 namespace {
 
 using tpuserve::small_u2f;
 using tpuserve::store_f32;
-using tpuserve::to_f32;
 
 constexpr int TN = 64;        // output columns per block
 constexpr int THREADS = 128;  // 8 column groups x 16 row groups
 constexpr int XS = 132;       // x tile row stride: 128 values + pad against bank conflicts
 constexpr int WT = 68;        // W4A8 transposed weight tile row stride in bytes
 
-// ---------------------------------------------------------------- bf16/f32 x
-template <int BITS, int RPT, typename XT, typename OT>
+// ---------------------------------------------------------------- f32 x
+template <int BITS, int RPT>
 __global__ void __launch_bounds__(THREADS)
-qmm_fp_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
-              const float* __restrict__ scale, OT* __restrict__ out,
-              int B, int K, int N, int gs, int gps) {
+qmm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
+               const float* __restrict__ scale, float* __restrict__ out,
+               int B, int K, int N, int gs, int gps) {
   constexpr int ROWS = 16 * RPT;
   constexpr int MAXW = (BITS == 4) ? 64 : 128;  // weight rows per chunk
   __shared__ float xs[ROWS * XS];
@@ -97,7 +96,7 @@ qmm_fp_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
           k = g * gs + r0 + j;
         }
         const int b = b0 + row;
-        xs[row * XS + slot] = (b < B) ? to_f32(x[(size_t)b * K + k]) : 0.f;
+        xs[row * XS + slot] = (b < B) ? x[(size_t)b * K + k] : 0.f;
       }
       for (int idx = tid; idx < cw * 4; idx += THREADS) {
         const int r = idx >> 2;
@@ -159,7 +158,7 @@ qmm_fp_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
     const int b = b0 + ty + 16 * i;
     if (b >= B) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) store_f32(&out[(size_t)b * N + n0 + tx * 8 + j], acc[i][j]);
+    for (int j = 0; j < 8; ++j) out[(size_t)b * N + n0 + tx * 8 + j] = acc[i][j];
   }
 }
 
@@ -292,12 +291,16 @@ void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStre
 }
 
 // ---------------------------------------------------------------- bf16 x, tensor cores
-// The main path's case (bf16 activations, int4 or int8 weights, groups of
-// 128): the weight codes are converted to bf16 in shared memory order and
+// bf16 activations, int4 or int8 weights, any group size that is a multiple
+// of 16: the weight codes are converted to bf16 in shared memory order and
 // multiplied on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
 // accumulate). Codes and bf16 activations are exact in bf16, so every
-// product is exact and the group sums differ from the FMA kernel only in
-// their order; the -8 fold and the group scale stay in f32 per group.
+// product is exact and the group sums differ from the plain version only in
+// their order; the -8 fold and the group scale stay in f32 per group. A
+// group is walked in chunks of min(gs, 128) values of K (int4: half as many
+// packed rows, whose low and high nibbles pair with two runs of x values).
+// GS = 128 (the serving path) makes the group size a compile-time constant,
+// so every tile loop unrolls; GS = 0 reads it from gs at run time.
 constexpr int MMA_TN = 128;      // output columns per block: 8 warps x 16
 constexpr int MMA_THREADS = 256;
 constexpr int MMA_XS = 136;      // x tile row stride in bf16 (68 words: conflict-free A loads)
@@ -316,15 +319,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BITS, typename OT>
+template <int BITS, int GS, typename OT>
 __global__ void __launch_bounds__(MMA_THREADS)
 qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
                const float* __restrict__ scale, OT* __restrict__ out,
-               int B, int K, int N, int gps) {
-  constexpr int GS = 128;
-  constexpr int WROWS = (BITS == 4) ? 64 : 128;  // weight rows per group
+               int B, int K, int N, int gs, int gps) {
+  constexpr int MAXW = (BITS == 4) ? 64 : 128;  // weight rows per chunk
   __shared__ __align__(16) __nv_bfloat16 xs[64 * MMA_XS];
-  __shared__ __align__(16) uint8_t ws[WROWS * MMA_WS];
+  __shared__ __align__(16) uint8_t ws[MAXW * MMA_WS];
   __shared__ float rs[64];  // per-row sum of this group's x (int4 fold)
 
   const int tid = threadIdx.x;
@@ -334,7 +336,13 @@ qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   const int tq = lane & 3;     // mma threadID_in_group
   const int n0 = blockIdx.x * MMA_TN;
   const int b0 = blockIdx.y * 64;
-  const int groups = K / GS;
+  if (GS) gs = GS;
+  const int half = gs / 2;
+  const int wrows = (BITS == 4) ? half : gs;  // weight rows per group
+  const int kc = min(gs, 128);                 // x values per row per chunk (% 16 == 0)
+  const int cw = (BITS == 4) ? kc / 2 : kc;    // weight rows per chunk
+  const int chunks = wrows / cw;
+  const int groups = K / gs;
   const int g0 = blockIdx.z * gps;
   const int g1 = min(groups, g0 + gps);
   out += (size_t)blockIdx.z * B * N;
@@ -349,73 +357,82 @@ qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
   for (int g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous group's readers are done
-    // x tile: 64 rows x 128 bf16, 16-byte loads (K % 8 == 0)
-    for (int idx = tid; idx < 64 * 16; idx += MMA_THREADS) {
-      const int row = idx >> 4;
-      const int c8 = (idx & 15) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (b0 + row < B)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(b0 + row) * K + g * GS + c8);
-      *reinterpret_cast<uint4*>(&xs[row * MMA_XS + c8]) = v;
-    }
-    // weight tile: WROWS rows x 128 bytes
-    for (int idx = tid; idx < WROWS * 8; idx += MMA_THREADS) {
-      const int r = idx >> 3;
-      const int col = n0 + (idx & 7) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (col < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(g * WROWS + r) * N + col);
-      *reinterpret_cast<uint4*>(&ws[r * MMA_WS + (idx & 7) * 16]) = v;
-    }
-    __syncthreads();
-    if (BITS == 4) {  // row sums: 4 threads per row, 32 values each
-      const int row = tid >> 2;
-      float t = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < 32; ++k) t += __bfloat162float(xs[row * MMA_XS + (tid & 3) * 32 + k]);
-      t += __shfl_xor_sync(0xffffffffu, t, 1);
-      t += __shfl_xor_sync(0xffffffffu, t, 2);
-      if ((tid & 3) == 0) rs[row] = t;
-      __syncthreads();
-    }
     float part[4][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
-#pragma unroll 2
-    for (int st = 0; st < GS / 16; ++st) {
-      const int k0 = st * 16 + tq * 2;  // this thread's first k in the step
-      uint32_t bf[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int c = wc + nt * 8 + gid;
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kk = k0 + (e & 1) + (e >> 1) * 8;
-          if (BITS == 4) {  // k < 64: low nibble of packed row k, else high nibble of row k-64
-            const uint32_t byte = ws[(kk & 63) * MMA_WS + c];
-            v[e] = small_u2f(kk < 64 ? (byte & 0xFu) : (byte >> 4));
-          } else {
-            v[e] = (float)(int8_t)ws[kk * MMA_WS + c];
-          }
-        }
-        bf[nt][0] = bf16x2_bits(v[0], v[1]);
-        bf[nt][1] = bf16x2_bits(v[2], v[3]);
+    for (int c = 0; c < chunks; ++c) {
+      const int r0 = c * cw;
+      __syncthreads();  // the previous chunk's readers are done
+      // x tile: 64 rows x kc bf16, 16-byte loads (gs % 16 == 0); int4 puts
+      // x[g*gs + r0 ..] in columns [0, cw) and x[g*gs + gs/2 + r0 ..] in [cw, 2cw)
+      const int pieces = kc / 8;
+      for (int idx = tid; idx < 64 * pieces; idx += MMA_THREADS) {
+        const int row = idx / pieces;
+        const int j = (idx - row * pieces) * 8;
+        const int k = (BITS == 4 && j >= cw) ? g * gs + half + r0 + (j - cw) : g * gs + r0 + j;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (b0 + row < B) v = *reinterpret_cast<const uint4*>(x + (size_t)(b0 + row) * K + k);
+        *reinterpret_cast<uint4*>(&xs[row * MMA_XS + j]) = v;
       }
+      // weight tile: cw rows x 128 bytes
+      for (int idx = tid; idx < cw * 8; idx += MMA_THREADS) {
+        const int r = idx >> 3;
+        const int col = n0 + (idx & 7) * 16;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (col < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(g * wrows + r0 + r) * N + col);
+        *reinterpret_cast<uint4*>(&ws[r * MMA_WS + (idx & 7) * 16]) = v;
+      }
+      __syncthreads();
+      if (BITS == 4) {  // row sums, over the group's chunks: 4 threads per row
+        const int row = tid >> 2;
+        const int per = kc / 4;
+        float t = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < per; ++k) t += __bfloat162float(xs[row * MMA_XS + (tid & 3) * per + k]);
+        t += __shfl_xor_sync(0xffffffffu, t, 1);
+        t += __shfl_xor_sync(0xffffffffu, t, 2);
+        if ((tid & 3) == 0) rs[row] = (c == 0) ? t : rs[row] + t;
+        __syncthreads();
+      }
+      if (c == 0) {  // the group's sums start here
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* xr = &xs[(mt * 16 + gid) * MMA_XS + k0];
-        uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(xr);
-        af[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS);
-        af[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-        af[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS + 8);
+        for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) mma_bf16(part[mt][nt], af, bf[nt]);
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+      }
+#pragma unroll 2
+      for (int st = 0; st < kc / 16; ++st) {
+        const int k0 = st * 16 + tq * 2;  // this thread's first k in the step
+        uint32_t bf[2][2];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = wc + nt * 8 + gid;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = k0 + (e & 1) + (e >> 1) * 8;
+            if (BITS == 4) {  // k < cw: low nibble of packed row k, else high nibble of row k-cw
+              const bool lo = kk < cw;
+              const uint32_t byte = ws[(lo ? kk : kk - cw) * MMA_WS + col];
+              v[e] = small_u2f(lo ? (byte & 0xFu) : (byte >> 4));
+            } else {
+              v[e] = (float)(int8_t)ws[kk * MMA_WS + col];
+            }
+          }
+          bf[nt][0] = bf16x2_bits(v[0], v[1]);
+          bf[nt][1] = bf16x2_bits(v[2], v[3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const __nv_bfloat16* xr = &xs[(mt * 16 + gid) * MMA_XS + k0];
+          uint32_t af[4];
+          af[0] = *reinterpret_cast<const uint32_t*>(xr);
+          af[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS);
+          af[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
+          af[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS + 8);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma_bf16(part[mt][nt], af, bf[nt]);
+        }
       }
     }
     // group epilogue: -8 fold and scale in f32
@@ -451,45 +468,45 @@ qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   }
 }
 
-template <int BITS>
+template <int BITS, int GS>
 void launch_mma(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
-                int gps, int splits, float* ws, cudaStream_t st) {
+                int gs, int gps, int splits, float* ws, cudaStream_t st) {
   dim3 grid((N + MMA_TN - 1) / MMA_TN, (B + 63) / 64, splits);
   if (splits == 1) {
-    qmm_mma_kernel<BITS, __nv_bfloat16><<<grid, MMA_THREADS, 0, st>>>(
+    qmm_mma_kernel<BITS, GS, __nv_bfloat16><<<grid, MMA_THREADS, 0, st>>>(
         (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, (__nv_bfloat16*)out,
-        B, K, N, gps);
+        B, K, N, gs, gps);
     return;
   }
-  qmm_mma_kernel<BITS, float><<<grid, MMA_THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, ws, B, K, N, gps);
+  qmm_mma_kernel<BITS, GS, float><<<grid, MMA_THREADS, 0, st>>>(
+      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, ws, B, K, N, gs, gps);
   launch_reduce<__nv_bfloat16>(ws, out, splits, (long long)B * N, st);
 }
 
-template <int BITS, int RPT, typename XT, typename OT>
-void launch_fp(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
-               int gs, int gps, int splits, cudaStream_t stream) {
-  dim3 grid((N + TN - 1) / TN, (B + 16 * RPT - 1) / (16 * RPT), splits);
-  qmm_fp_kernel<BITS, RPT, XT, OT><<<grid, THREADS, 0, stream>>>(
-      (const XT*)x, (const uint8_t*)w, (const float*)s, (OT*)out, B, K, N, gs, gps);
+template <int BITS>
+void launch_mma_gs(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
+                   int gs, int gps, int splits, float* ws, cudaStream_t st) {
+  if (gs == 128)
+    launch_mma<BITS, 128>(x, w, s, out, B, K, N, gs, gps, splits, ws, st);
+  else
+    launch_mma<BITS, 0>(x, w, s, out, B, K, N, gs, gps, splits, ws, st);
 }
 
 // splits == 1: straight into out; else f32 partials into ws, then the sum
-template <int BITS, typename XT>
-void launch_fp_rows(const void* x, const void* w, const void* s, void* out, int B, int K,
-                    int N, int gs, int gps, int splits, float* ws, cudaStream_t stream) {
-  if (splits == 1) {
-    if (B <= 16)
-      launch_fp<BITS, 1, XT, XT>(x, w, s, out, B, K, N, gs, gps, 1, stream);
-    else
-      launch_fp<BITS, 4, XT, XT>(x, w, s, out, B, K, N, gs, gps, 1, stream);
-    return;
+template <int BITS>
+void launch_f32(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
+                int gs, int gps, int splits, float* ws, cudaStream_t st) {
+  float* dst = splits > 1 ? ws : (float*)out;
+  if (B <= 16) {
+    dim3 grid((N + TN - 1) / TN, (B + 15) / 16, splits);
+    qmm_f32_kernel<BITS, 1><<<grid, THREADS, 0, st>>>(
+        (const float*)x, (const uint8_t*)w, (const float*)s, dst, B, K, N, gs, gps);
+  } else {
+    dim3 grid((N + TN - 1) / TN, (B + 63) / 64, splits);
+    qmm_f32_kernel<BITS, 4><<<grid, THREADS, 0, st>>>(
+        (const float*)x, (const uint8_t*)w, (const float*)s, dst, B, K, N, gs, gps);
   }
-  if (B <= 16)
-    launch_fp<BITS, 1, XT, float>(x, w, s, ws, B, K, N, gs, gps, splits, stream);
-  else
-    launch_fp<BITS, 4, XT, float>(x, w, s, ws, B, K, N, gs, gps, splits, stream);
-  launch_reduce<XT>(ws, out, splits, (long long)B * N, stream);
+  if (splits > 1) launch_reduce<float>(ws, out, splits, (long long)B * N, st);
 }
 
 }  // namespace
@@ -497,22 +514,22 @@ void launch_fp_rows(const void* x, const void* w, const void* s, void* out, int 
 // x_kind: 0 = float32 x and out, 1 = bfloat16 x and out, 2 = int8 x (W4A8,
 // float32 out before the row scale). K is split into `splits` runs of `gps`
 // scale groups; with splits > 1, `workspace` holds splits*B*N floats.
-// tensor_cores selects the mma.sync kernel (bf16 x, groups of 128).
+// bf16 x takes the tensor-core kernel and needs gs % 16 == 0.
 // Returns a cudaError_t code.
 extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* scale,
                                      void* out, int B, int K, int N, int gs, int bits,
                                      int x_kind, int gps, int splits, void* workspace,
-                                     int tensor_cores, void* stream) {
+                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
   if (splits < 1 || (splits > 1 && workspace == nullptr)) return (int)cudaErrorInvalidValue;
   float* ws = (float*)workspace;
-  if (tensor_cores) {  // bf16 x, int4/int8 codes, groups of 128, K % 128 == 0
-    if (x_kind != 1 || gs != 128 || K % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (x_kind == 1) {  // bf16 x: tensor cores
+    if (gs % 16 != 0) return (int)cudaErrorInvalidValue;
     if (bits == 4)
-      launch_mma<4>(x, w, scale, out, B, K, N, gps, splits, ws, st);
+      launch_mma_gs<4>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
     else if (bits == 8)
-      launch_mma<8>(x, w, scale, out, B, K, N, gps, splits, ws, st);
+      launch_mma_gs<8>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
     else
       return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
@@ -531,14 +548,11 @@ extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* s
     if (splits > 1) launch_reduce<float>(ws, out, splits, (long long)B * N, st);
     return (int)cudaGetLastError();
   }
-  if (bits == 4 && x_kind == 0)
-    launch_fp_rows<4, float>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-  else if (bits == 4 && x_kind == 1)
-    launch_fp_rows<4, __nv_bfloat16>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-  else if (bits == 8 && x_kind == 0)
-    launch_fp_rows<8, float>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-  else if (bits == 8 && x_kind == 1)
-    launch_fp_rows<8, __nv_bfloat16>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
+  if (x_kind != 0) return (int)cudaErrorInvalidValue;
+  if (bits == 4)
+    launch_f32<4>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
+  else if (bits == 8)
+    launch_f32<8>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -38,7 +38,7 @@ _I = ctypes.c_int
 # exported C functions -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "tpuserve_vector_add": [_P, _P, _P, ctypes.c_longlong, _P],
-    "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _I, _P],
+    "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
 }
 

@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
-from tpuserve_torch.ops.decode_attention import (
-    decode_attention_wide_cache, decode_attention_wide_cache_plain)
+from tpuserve_torch.ops.decode_attention import decode_attention_wide_cache
 from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
 
 
@@ -110,10 +109,10 @@ def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cpu",
     return params
 
 
-def _mm(params: Dict, name: str, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def _mm(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
     w = params[name]
     if isinstance(w, QTensor):
-        return qmatmul(x, w, plain=plain)
+        return qmatmul(x, w)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
 
 
@@ -286,7 +285,7 @@ def _attention_prefill(q, k, v, mask):
     return out.to(v.dtype)
 
 
-def _forward_block(params, pre, x, p: LlamaParams, attn_fn, plain: bool = False):
+def _forward_block(params, pre, x, p: LlamaParams, attn_fn):
     """One transformer block; attn_fn maps (q, k, v) -> attn output. Uses the
     fused wqkv / w_gateup weights when the checkpoint carries them."""
     _no_moe(p)
@@ -294,38 +293,38 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn, plain: bool = False)
     kvd = p.n_kv_heads * p.head_dim
     h = rms_norm(params, f"{pre}/attn_norm", x, p.rms_eps)
     if f"{pre}/wqkv/kernel" in params:
-        qkv = _mm(params, f"{pre}/wqkv/kernel", h, plain)
+        qkv = _mm(params, f"{pre}/wqkv/kernel", h)
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q = _mm(params, f"{pre}/wq/kernel", h, plain)
-        k = _mm(params, f"{pre}/wk/kernel", h, plain)
-        v = _mm(params, f"{pre}/wv/kernel", h, plain)
+        q = _mm(params, f"{pre}/wq/kernel", h)
+        k = _mm(params, f"{pre}/wk/kernel", h)
+        v = _mm(params, f"{pre}/wv/kernel", h)
     attn_out = attn_fn(q, k, v)
-    x = x + _mm(params, f"{pre}/wo/kernel", attn_out, plain)
+    x = x + _mm(params, f"{pre}/wo/kernel", attn_out)
     h = rms_norm(params, f"{pre}/mlp_norm", x, p.rms_eps)
     if f"{pre}/w_gateup/kernel" in params:
-        gateup = _mm(params, f"{pre}/w_gateup/kernel", h, plain)
+        gateup = _mm(params, f"{pre}/w_gateup/kernel", h)
         gate, up = gateup[..., :p.ffn_dim], gateup[..., p.ffn_dim:]
     else:
-        gate = _mm(params, f"{pre}/w_gate/kernel", h, plain)
-        up = _mm(params, f"{pre}/w_up/kernel", h, plain)
+        gate = _mm(params, f"{pre}/w_gate/kernel", h)
+        up = _mm(params, f"{pre}/w_up/kernel", h)
     gate = F.silu(gate.to(torch.float32)).to(h.dtype)
-    return x + _mm(params, f"{pre}/w_down/kernel", gate * up, plain)
+    return x + _mm(params, f"{pre}/w_down/kernel", gate * up)
 
 
-def _logits(params, x, p: LlamaParams, plain: bool = False):
+def _logits(params, x, p: LlamaParams):
     h = rms_norm(params, "final_norm", x, p.rms_eps)
     if p.tie_embeddings:
         w = params["embed/weight"]
         if isinstance(w, QTensor):
             raise ValueError("tied embeddings cannot be quantized")
         return torch.matmul(h.to(torch.float32), w.to(torch.float32).t())
-    return _mm(params, "lm_head/kernel", h, plain).to(torch.float32)
+    return _mm(params, "lm_head/kernel", h).to(torch.float32)
 
 
 # ---------------------------------------------------------------------- prefill
 def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: int,
-            length: int, *, plain: bool = False):
+            length: int):
     """Process a prompt into cache slot `slot`.
 
     tokens: int [1, L] (right-padded to a bucket; `length` = real length).
@@ -356,14 +355,14 @@ def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: 
             out = _attention_prefill(q, k, v, mask)
             return out.reshape(b, l, p.n_heads * p.head_dim)
 
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn, plain)
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
     last = x[:, length - 1, :]
-    return _logits(params, last, p, plain), cache
+    return _logits(params, last, p), cache
 
 
 def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: int,
-                  start: int, length: int, window: int, *, plain: bool = False):
+                  start: int, length: int, window: int):
     """Process ONE chunk of a prompt into cache slot `slot`.
 
     tokens: int [1, C] (right-padded; `length` = valid tokens); start: global
@@ -419,24 +418,23 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
                                v_all.to(cdt).to(torch.float32))
             return out.to(x.dtype).reshape(b, c, p.n_heads * p.head_dim)
 
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn, plain)
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
     last = x[:, length - 1, :]
-    return _logits(params, last, p, plain), cache
+    return _logits(params, last, p), cache
 
 
 # ---------------------------------------------------------------------- decode
 def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
                 positions: torch.Tensor, window: Optional[int] = None, *,
-                active_idx: Optional[torch.Tensor] = None, plain: bool = False):
+                active_idx: Optional[torch.Tensor] = None):
     """One continuous-batching decode step over all S slots.
 
     tokens: int [S] (current token per slot); positions: int [S] (index where
     this token goes; negative = inactive slot). `window` limits attention
     reads to the first `window` cache positions; callers guarantee
     max(positions)+1 <= window. `active_idx` (the indices of slots with
-    positions >= 0) may be passed to spare a device-to-host sync; `plain`
-    runs the kernels' plain versions on any device (a reference run).
+    positions >= 0) may be passed to spare a device-to-host sync.
     Returns (logits [S, V] f32, cache).
     """
     s = tokens.shape[0]
@@ -450,7 +448,6 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
     win = cache.max_len if window is None else min(int(window), cache.max_len)
-    attention = decode_attention_wide_cache_plain if plain else decode_attention_wide_cache
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
@@ -475,14 +472,14 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
             if ks is not None:
                 cache.k_scale[layer][active_idx, :, pos_a] = ks[active_idx].to(cache.k_scale.dtype)
                 cache.v_scale[layer][active_idx, :, pos_a] = vs[active_idx].to(cache.v_scale.dtype)
-            out = attention(
+            out = decode_attention_wide_cache(
                 true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
                 cache.k_scale[layer] if cache.quantized else None,
                 cache.v_scale[layer] if cache.quantized else None,
                 positions, layer, window=win)
             return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
 
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn, plain)
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
-    logits = _logits(params, x, p, plain)
+    logits = _logits(params, x, p)
     return torch.where(active[:, None], logits, 0.0), cache

@@ -139,7 +139,10 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch.Tenso
     out = torch.empty((b, n_pad), dtype=torch.float32 if x_kind != 1 else torch.bfloat16,
                       device=x2.device)
     gs = _group_size(qt)
-    tensor_cores = x_kind == 1 and gs == 128  # the serving path's case
+    tensor_cores = x_kind == 1  # bf16 activations multiply on the tensor cores
+    if tensor_cores and gs % 16:
+        raise ValueError(f"quant_matmul kernel: bf16 activations need group_size % 16 == 0, "
+                         f"got {gs}")
     if tensor_cores and x2.data_ptr() % 16:
         x2 = x2.clone()  # the tensor-core kernel loads x rows in 16-byte pieces
     gps, splits = _k_splits(b, n_pad, k // gs, kernels.sm_count(x2.device), tensor_cores)
@@ -148,7 +151,7 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch.Tenso
     rc = kernels.lib().tpuserve_quant_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         b, k, n_pad, gs, qt.bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
-        int(tensor_cores), kernels.stream_of(x2))
+        kernels.stream_of(x2))
     kernels.check(rc, "quant_matmul")
     launches += 1
     if n_pad != n:

@@ -193,21 +193,20 @@ def fp8_round(x: torch.Tensor) -> torch.Tensor:
     return (x8.to(torch.float32) * scale).to(torch.bfloat16)
 
 
-def qmatmul(x: torch.Tensor, qt: QTensor, *, plain: bool = False) -> torch.Tensor:
+def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x [.., K] @ dequant(qt) [K, N] -> [.., N].
 
     W8A8 (int8 weights, act_bits 8) is plain PyTorch, as it is plain XLA in
     the JAX package. Everything else goes through the fused kernel
     (`ops.quant_matmul`): its CUDA kernel for a tensor on the card, its
-    plain version for a tensor on the CPU. `plain=True` calls the plain
-    version directly, on any device (a reference run on the card)."""
-    from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    plain version for a tensor on the CPU."""
+    from tpuserve_torch.ops.quant_matmul import quant_matmul
 
     if qt.act_bits == 8 and qt.bits == 8:
         return _w8a8_matmul(x, qt)
     if qt.act_fp8:
         x = fp8_round(x)
-    return quant_matmul_plain(x, qt) if plain else quant_matmul(x, qt)
+    return quant_matmul(x, qt)
 
 
 def quantize_param_tree(
