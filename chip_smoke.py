@@ -6,13 +6,20 @@ Phases, each fatal on failure:
   2. build    every CUDA kernel from tpuserve_torch/csrc with nvcc (sm_90a);
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, with its time, the plain version's, a library
-              yardstick's and the card's bound;
+              yardstick's and the card's bound; the paged decode attention
+              also against the flat kernel on the same KV in shuffled pages;
   4. slice    a Llama-2-7B-width int4 model (random weights from a seed, 32
               layers, int4 g128, packed int4 KV, 64 slots, L=256) loaded
               through InferenceManager(device="cuda"), serving concurrent
               requests through the backend's generate; launch counters must
               show the kernels on that path; one full-width decode step
-              through the kernels and through the plain versions must agree.
+              through the kernels and through the plain versions must agree;
+  5. paged    the same model with paged int8 KV (page_size 128, prefix
+              sharing, prefill_chunk 128), loaded after the first is shut
+              down: concurrent requests, two of them sharing a 128-token
+              prefix with an earlier one; prefix hits, the pages returned,
+              the launch counts, shared vs unshared first-token logits and
+              one full-width paged decode step, kernels vs plain versions.
 Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -226,8 +233,6 @@ def check_quant_matmul(torch, timer, reps, p):
 
 
 def check_decode_attention(torch, timer, reps, p):
-    import torch.nn.functional as F
-    from tpuserve_torch.models.llama import unpack_kv_codes
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_cache_plain)
 
@@ -299,24 +304,9 @@ def check_decode_attention(torch, timer, reps, p):
         nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + pos.numel() * 4
         ops = 2 * 2 * live * hh * hd
         b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind != "bf16" else "bf16"])
-        # library yardstick: SDPA over the dequantized window, masked by
-        # position, on copies that together exceed the L2
-        kd, vd = kv[0][0, :, :win], kv[1][0, :, :win]
-        if kind == "int4":
-            kd, vd = unpack_kv_codes(kd), unpack_kv_codes(vd)
-        kd = kd.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
-        vd = vd.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
-        if sc is not None:
-            kd = kd * sc[0][0, :, :, :win].float()[..., None]
-            vd = vd * sc[1][0, :, :, :win].float()[..., None]
-        kd = kd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
-        vd = vd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
-        copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * kd.numel() * 2)))
-        kvd = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(copies - 1)]
-        mask = (torch.arange(win, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
-        qs = q[:, :, None, :]
-        lib_ms = timer.ms(lambda i: F.scaled_dot_product_attention(
-            qs, *kvd[i % copies], attn_mask=mask, scale=1.0), reps)
+        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0, :, :win], kv[1][0, :, :win],
+                         None if sc is None else sc[0][0, :, :, :win],
+                         None if sc is None else sc[1][0, :, :, :win], pos, kind)
         row = dict(kind=kind, S=ss, H=hh, Hkv=kk, L=lcache, window=window, live_rows=live,
                    layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -327,7 +317,7 @@ def check_decode_attention(torch, timer, reps, p):
             f"window={window}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
             f"{n_layers} layers rotated")
-        del kv, sc, kvd, kd, vd
+        del kv, sc
         torch.cuda.empty_cache()
     n_l = p.n_layers
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
@@ -336,10 +326,153 @@ def check_decode_attention(torch, timer, reps, p):
                 per="one decode step: 32 launches, packed int4 KV, S=64, L=256", cases=rows)
 
 
+def sdpa_ms(torch, timer, reps, q, kw, vw, ks, vs, pos, kind):
+    """Library yardstick: SDPA over the dequantized bf16 window, masked by
+    position, on copies that together exceed the L2. kw/vw are one layer's
+    window [S, win, Wst] of codes or values, ks/vs its scales [S, Hkv, win]
+    or None."""
+    import torch.nn.functional as F
+    from tpuserve_torch.models.llama import unpack_kv_codes
+
+    ss, hh, hd = q.shape
+    win = kw.shape[1]
+    if kind == "int4":
+        kw, vw = unpack_kv_codes(kw), unpack_kv_codes(vw)
+    kk = kw.shape[-1] // hd
+    kd = kw.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
+    vd = vw.reshape(ss, win, kk, hd).permute(0, 2, 1, 3).float()
+    if ks is not None:
+        kd = kd * ks.float()[..., None]
+        vd = vd * vs.float()[..., None]
+    kd = kd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
+    vd = vd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
+    copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * kd.numel() * 2)))
+    kvd = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(copies - 1)]
+    mask = (torch.arange(win, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    ms = timer.ms(lambda i: F.scaled_dot_product_attention(
+        qs, *kvd[i % copies], attn_mask=mask, scale=1.0), reps)
+    del kvd, kd, vd
+    return ms
+
+
+def check_decode_attention_paged(torch, timer, reps, p):
+    """The paged kernel at the paged slice's shapes (S=64, L=256 as two
+    pages of 128, shuffled across the pool) against its plain version and
+    against the flat kernel on the same KV laid out contiguously."""
+    from tpuserve_torch.ops.decode_attention import (
+        decode_attention_wide_cache, decode_attention_wide_paged,
+        decode_attention_wide_paged_plain)
+    from tpuserve_torch.serving.paged_kv import pad8
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    s, h, hkv, hd, ps, l = 64, p.n_heads, p.n_kv_heads, p.head_dim, 128, 256
+    n_cols, hp, w = l // ps, pad8(hkv), hkv * hd
+    n_pages = s * n_cols + 1                       # page 0 is the reserved zero page
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device="cuda")).view(
+        s, n_cols).to(torch.int32)
+    pos = torch.randint(0, l, (s,), generator=g, device="cuda", dtype=torch.int32)
+    pos[::9] = -1                                  # inactive slots
+    pos[1], pos[2], pos[3] = l - 1, ps - 1, ps     # last row, page edges
+    live = int((pos.clamp(min=-1) + 1).sum().item())          # KV rows the data needs
+    pages_read = int(torch.div(pos + ps, ps, rounding_mode="floor").sum().item())
+    idx = table.long()
+    worst, rows, main = 0.0, [], None
+    for kind in ("int8", "int4", "bf16"):
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
+        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
+        shape = (n_layers, n_pages, ps, w // 2 if kind == "int4" else w)
+        if kind == "int4":
+            kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+        elif kind == "int8":
+            kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        else:
+            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        sc = [None, None]
+        if kind != "bf16":
+            sc = [(torch.rand((n_layers, n_pages, hp, ps), generator=g, device="cuda") + 0.5)
+                  * 0.01 for _ in range(2)]
+        q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+        # the same KV laid out contiguously, [n_layers, S, L + ps, Wst] with
+        # scales [n_layers, S, Hkv, L + ps]: one junk page past the window
+        # keeps the flat side on its L-blocked form at any width
+        flat = [torch.cat([t[:, idx].reshape(n_layers, s, l, -1),
+                           t[:, :1].expand(-1, s, -1, -1)], dim=2) for t in kv]
+        flat_sc = [None if t is None else torch.cat(
+            [t[:, idx].permute(0, 1, 3, 2, 4).reshape(n_layers, s, hp, l),
+             t[:, idx[:, 0]]], dim=3)[:, :, :hkv].contiguous() for t in sc]
+
+        def call(fn, i):
+            return fn(q, kv[0], kv[1], sc[0], sc[1], table, pos, i % n_layers)
+
+        def call_flat(i):
+            li = i % n_layers
+            ks, vs = (None, None) if sc[0] is None else (flat_sc[0][li], flat_sc[1][li])
+            return decode_attention_wide_cache(q, flat[0], flat[1], ks, vs, pos, li, window=l,
+                                               block_l=ps)
+
+        out = call(decode_attention_wide_paged, 1)
+        ref = call(decode_attention_wide_paged_plain, 1)
+        out_flat = call_flat(1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # as the flat kernel's check: exact integer dots and the same requant
+        # points; an ulp of exp() can tip one P code: 2e-3 of the range
+        tol = 2e-3 * ref.abs().max().item() + 1e-6
+        if not err <= tol:
+            fail(f"decode_attention_paged {kind}: max|err| {err} > {tol}")
+        # the flat kernel with block_l = ps runs the same blocks in the same
+        # order over the same bytes: equal up to f32 rounding (expected 0)
+        flat_err = (out - out_flat).abs().max().item()
+        flat_tol = 1e-6
+        if not flat_err <= flat_tol:
+            fail(f"decode_attention_paged {kind}: differs from the flat kernel by {flat_err}")
+        if not torch.all(out[pos < 0] == 0):
+            fail(f"decode_attention_paged {kind}: inactive slots are not zero")
+        worst = max(worst, err)
+        ms = timer.ms(lambda i: call(decode_attention_wide_paged, i), reps)
+        flat_ms = timer.ms(call_flat, reps)
+        plain_ms = timer.ms(lambda i: call(decode_attention_wide_paged_plain, i),
+                            max(2, reps // 5))
+        nbytes = kv_live + pages_read * 4 + q.numel() * 2 + q.numel() * 4 + s * 4
+        ops = 2 * 2 * live * h * hd
+        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind != "bf16" else "bf16"])
+        ks0, vs0 = (None, None) if sc[0] is None else (flat_sc[0][0, :, :, :l],
+                                                       flat_sc[1][0, :, :, :l])
+        lib_ms = sdpa_ms(torch, timer, reps, q, flat[0][0, :, :l], flat[1][0, :, :l],
+                         ks0, vs0, pos, kind)
+        row = dict(kind=kind, S=s, H=h, Hkv=hkv, page_size=ps, L=l, live_rows=live,
+                   pages_read=pages_read, layers_rotated=n_layers, max_abs_err=err, tol=tol,
+                   flat_err=flat_err, flat_tol=flat_tol, ms=ms, flat_ms=flat_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if kind == "int8":                          # the paged slice's KV
+            main = row
+        rows.append(row)
+        log(f"[kernel] decode_attention_paged {kind} S={s} H={h} Hkv={hkv} ps={ps} L={l}: "
+            f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel {flat_err:.3g} (tol "
+            f"{flat_tol}); {ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
+            f"{n_layers} layers rotated")
+        del kv, sc, flat, flat_sc
+        torch.cuda.empty_cache()
+    n_l = p.n_layers
+    return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
+                bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
+                per="one decode step: 32 launches, int8 pool, S=64, ps=128, L=256",
+                cases=rows)
+
+
 def phase_kernels(torch, timer, reps, p):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
+    results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     return results
 
 
@@ -356,7 +489,17 @@ def _model_config(p):
     }
 
 
-def profile_step(torch, step):
+def _write_repo(cfg) -> str:
+    """A model repository in a temporary directory holding one config.json
+    (the weights are made from the config's seed)."""
+    tmp = tempfile.mkdtemp(prefix="tpuserve_torch_repo_")
+    os.makedirs(os.path.join(tmp, cfg["name"], "1"))
+    with open(os.path.join(tmp, cfg["name"], "1", "config.json"), "w") as fh:
+        json.dump(cfg, fh)
+    return tmp
+
+
+def profile_step(torch, step, tag="slice"):
     """Device busy share of one decode step: kernel time summed by
     torch.profiler over the step's wall time (host clock, synchronized)."""
     from torch.profiler import ProfilerActivity, profile
@@ -376,12 +519,12 @@ def profile_step(torch, step):
     busy_us = sum(r[0] for r in rows)
     kernels = sum(r[2] for r in rows)
     if not busy_us:
-        log("[slice] profiler: no device time recorded (not measured)")
+        log(f"[{tag}] profiler: no device time recorded (not measured)")
         return None
-    log(f"[slice] profiler, one decode step: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"[{tag}] profiler, one decode step: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), {kernels} device ops")
     for dev_us, key, count in rows[:8]:
-        log(f"[slice]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+        log(f"[{tag}]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, device_ops=kernels,
                 top=[(k, d / 1e3, c) for d, k, c in rows[:12]])
 
@@ -392,16 +535,19 @@ def plain_kernels(llama):
     reference run on the card, and restore them after. The served model's
     weights are int4 with bf16 activations, for which qmatmul is exactly
     quant_matmul."""
-    from tpuserve_torch.ops.decode_attention import decode_attention_wide_cache_plain
+    from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
+                                                     decode_attention_wide_paged_plain)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
 
-    saved = llama.qmatmul, llama.decode_attention_wide_cache
+    saved = llama.qmatmul, llama.decode_attention_wide_cache, llama.decode_attention_wide_paged
     llama.qmatmul = quant_matmul_plain
     llama.decode_attention_wide_cache = decode_attention_wide_cache_plain
+    llama.decode_attention_wide_paged = decode_attention_wide_paged_plain
     try:
         yield
     finally:
-        llama.qmatmul, llama.decode_attention_wide_cache = saved
+        (llama.qmatmul, llama.decode_attention_wide_cache,
+         llama.decode_attention_wide_paged) = saved
 
 
 def phase_slice(torch, p, smi_line):
@@ -411,10 +557,7 @@ def phase_slice(torch, p, smi_line):
     from tpuserve_torch.ops import decode_attention, quant_matmul
 
     counters = (smoke, quant_matmul, decode_attention)
-    tmp = tempfile.mkdtemp(prefix="tpuserve_torch_repo_")
-    os.makedirs(os.path.join(tmp, "llama2_7b_int4", "1"))
-    with open(os.path.join(tmp, "llama2_7b_int4", "1", "config.json"), "w") as fh:
-        json.dump(_model_config(p), fh)
+    tmp = _write_repo(_model_config(p))
 
     torch.cuda.reset_peak_memory_stats()
     for mod in counters:       # the main path's run starts here
@@ -558,6 +701,231 @@ def phase_slice(torch, p, smi_line):
                 load_s=load_s)
 
 
+def _paged_model_config(p):
+    """bench.py's paged setting (TPUSERVE_BENCH_PAGED=1: int8 pool,
+    page_size 128, num_pages 0 = n_slots * pages per slot + 1), with prefix
+    sharing and chunks of one page."""
+    cfg = _model_config(p)
+    cfg["name"] = "llama2_7b_int4_paged"
+    cfg["quantization"]["kv_cache"] = "int8"
+    cfg["generation"].update(paged=True, page_size=128, num_pages=0, prefix_sharing=True,
+                             prefill_chunk=128)
+    return cfg
+
+
+def _pages_back(engine, want, timeout=30.0):
+    """Serving stats once `want` pages are free or cached: a slot's pages go
+    back just after its request completes, on the scheduler's thread."""
+    t_end = time.monotonic() + timeout
+    while True:
+        st = engine.serving_stats()
+        back = st["kv_free_pages"] + st.get("prefix_cached_blocks", 0)
+        if back == want or time.monotonic() > t_end:
+            return st, back
+        time.sleep(0.01)
+
+
+def phase_paged_slice(torch, p, smi_line):
+    from tpuserve_torch.device import smoke
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    cfg = _paged_model_config(p)
+    name = cfg["name"]
+    tmp = _write_repo(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    mgr = InferenceManager(tmp, num_workers=1, device=DEVICE)
+    t_load = time.monotonic()
+    mgr.load_model(name)
+    load_s = time.monotonic() - t_load
+    backend = mgr.get_model(name).backend
+    engine = backend.engine
+    ptm, cache = engine.ptm, engine.cache
+    ps, n_pages = ptm.page_size, cache.n_pages
+    rng = torch.Generator().manual_seed(13)
+
+    def prompt(n):
+        return torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+
+    stem = prompt(ps)                                   # one full page, shared
+    shared = [stem + prompt(n) for n in (20, 37, 9)]
+    jobs = [
+        dict(prompt_ids=prompt(200), max_new_tokens=16),                   # chunked: 128 + 72
+        dict(prompt_ids=shared[1], max_new_tokens=16),                     # shares the stem
+        dict(prompt_ids=shared[2], max_new_tokens=12, temperature=0.8, top_p=0.9),
+        dict(prompt_ids=prompt(6), max_new_tokens=24),
+        dict(prompt_ids=prompt(40), max_new_tokens=20, temperature=0.8, top_p=0.9),
+        dict(prompt_ids=prompt(100), max_new_tokens=10, temperature=0.7, top_k=40),
+        dict(prompt_ids=prompt(9), max_new_tokens=32, repetition_penalty=1.2),
+    ]
+    results = [None] * len(jobs)
+    errors = []
+
+    def run(i):
+        kw = dict(jobs[i])
+        try:
+            results[i] = backend.generate(kw.pop("prompt_ids"), **kw)
+        except Exception as e:  # recorded, then fatal below
+            errors.append(f"request {i}: {e}")
+
+    for mod in (smoke, quant_matmul, decode_attention):  # the paged path's run starts here
+        mod.launches = 0
+    decode_attention.paged_launches = 0
+    steps0, prefills0 = engine.steps, engine.prefill_calls
+    t0 = time.monotonic()
+    first = backend.generate(shared[0], max_new_tokens=16)  # registers the stem's page
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"quant_matmul": quant_matmul.launches,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_paged": decode_attention.paged_launches}
+    steps = engine.steps - steps0
+    prefills = engine.prefill_calls - prefills0
+    if errors or any(r is None for r in results):
+        fail(f"paged requests failed: {errors}")
+    for i, (job, res) in enumerate(zip(jobs + [dict(max_new_tokens=16)], results + [first])):
+        if res["num_generated"] != job["max_new_tokens"]:
+            fail(f"paged request {i}: {res['num_generated']} tokens, "
+                 f"expected {job['max_new_tokens']}")
+    stats, back = _pages_back(engine, n_pages - 1)
+    want_qmm = (4 * p.n_layers + 1) * (steps + prefills)
+    want_paged = p.n_layers * steps
+    generated = first["num_generated"] + sum(r["num_generated"] for r in results)
+    log(f"[paged] {len(jobs) + 1} requests answered ({generated} tokens in {wall:.2f} s, "
+        f"{generated / wall:.1f} tok/s); decode steps {steps}, prefill calls {prefills}; "
+        f"launches {launches} (expected quant_matmul {want_qmm}, decode_attention_paged "
+        f"{want_paged}, decode_attention 0); prefix hits {stats['prefix_hits']} blocks, "
+        f"{stats['prefix_hit_tokens']} tokens; pages free {stats['kv_free_pages']} + cached "
+        f"{stats['prefix_cached_blocks']} of {n_pages - 1}; load {load_s:.1f} s")
+    if (launches["decode_attention_paged"] != want_paged
+            or launches["quant_matmul"] != want_qmm or launches["decode_attention"] != 0):
+        fail("paged slice: kernel launch counts do not match the path's calls")
+    if min(launches["decode_attention_paged"], launches["quant_matmul"]) < 1:
+        fail(f"paged slice: a kernel of the path was never launched: {launches}")
+    if stats["prefix_hit_tokens"] < ps:
+        fail(f"paged slice: prefix_hit_tokens {stats['prefix_hit_tokens']} < {ps}")
+    if back != n_pages - 1:
+        fail(f"paged slice: {back} of {n_pages - 1} pages came back after retirement")
+
+    # first-token logits of a shared admission (the cached stem page, then a
+    # suffix prefill over it, as GenerationEngine._dev_admit runs it) against
+    # an unshared full prefill of the same prompt into private pages. Every
+    # request has retired and the scheduler waits on its queue.
+    slot, errs, agree, firsts, shared_max = 0, [], [], [], 0.0
+    for ids in shared + [stem + prompt(50)]:
+        bucket = engine._bucket_len(len(ids))
+        _, matched = ptm.admit_shared(slot, ids)
+        if matched < ps:
+            fail(f"paged slice: the stem was not matched ({matched} tokens)")
+        ptm.ensure(slot, bucket)
+        suffix = ids[matched:]
+        cb = engine._bucket_len(len(suffix))
+        win = -(-min(matched + cb, engine.max_seq_len) // ps) * ps
+        l_shared, _ = llama.prefill_paged_suffix(
+            engine.params, p, engine._tokens(suffix, cb), cache, ptm.device_table(), slot,
+            matched, len(suffix), window=win)
+        ptm.release(slot)
+        ptm.ensure(slot, bucket)                        # private pages only
+        l_full, _ = llama.prefill_paged(engine.params, p, engine._tokens(ids, bucket), cache,
+                                        ptm.device_table(), slot, len(ids))
+        ptm.release(slot)
+        l_shared, l_full = l_shared.float(), l_full.float()
+        errs.append((l_shared - l_full).abs().max().item())
+        shared_max = max(shared_max, l_full.abs().max().item())
+        agree.append(int(l_shared.argmax().item() == l_full.argmax().item()))
+        firsts.append(l_full.argmax().item())
+    # the suffix attends over int8 pages of the prefix where the full
+    # prefill attends over its fresh bf16 K/V: one KV quantization step per
+    # prefix row, carried through 32 layers; bound: 5% of the logit range
+    shared_tol = 0.05 * shared_max
+    log(f"[paged] shared vs unshared first-token logits, {len(errs)} prompts: max|err| "
+        f"{max(errs):.4g} of {shared_max:.4g} (tol {shared_tol:.4g}); argmax agreement "
+        f"{sum(agree)}/{len(agree)} ({len(set(firsts))} distinct first tokens)")
+    if not max(errs) <= shared_tol:
+        fail("paged slice: shared and unshared admissions disagree")
+
+    # one full-width paged decode step: 64 slots over shuffled pages filled
+    # with random codes and scales, kernel path vs plain path
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    for t in (cache.k, cache.v):
+        t.random_(-127, 128, generator=g)
+    for t in (cache.k_scale, cache.v_scale):
+        t.uniform_(0.005, 0.015, generator=g)
+    n_cols = -(-engine.max_seq_len // ps)
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device=DEVICE))[:64 * n_cols]
+    table = table.view(64, n_cols).to(torch.int32)
+    toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
+    pos = torch.randint(100, 250, (64,), generator=g, device=DEVICE, dtype=torch.int32)
+    pos[7] = -1
+    pool = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    snapshot = [t.clone() for t in pool]
+
+    def restore():
+        for dst, src in zip(pool, snapshot):
+            dst.copy_(src)
+
+    def step(i=0):
+        return llama.decode_step_paged(engine.params, p, toks, cache, table, pos + i)[0]
+
+    logits_k = step()
+    restore()
+    with plain_kernels(llama):
+        logits_p = step()
+    restore()
+    torch.cuda.synchronize()
+    ref_max = logits_p.abs().max().item()
+    err = (logits_k - logits_p).abs().max().item()
+    live = pos >= 0
+    agree_step = (logits_k.argmax(-1) == logits_p.argmax(-1))[live].float().mean().item()
+    finite = bool(torch.isfinite(logits_k).all())
+    tol = 0.05 * ref_max  # as the contiguous slice's full-width step
+    log(f"[paged] full-width decode_step_paged, kernels vs plain: max|err| {err:.4g} of "
+        f"{ref_max:.4g} (tol {tol:.4g}); argmax agreement {agree_step:.4f}; finite {finite}")
+    if not finite or not err <= tol:
+        fail("full-width paged decode step: kernel path and plain path disagree")
+
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        step(i)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t) * 1e3)
+    restore()
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    busy = profile_step(torch, step, tag="paged")
+    restore()
+    # the page table's upload, as the engine makes it once per decode dispatch
+    uploads = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        ptm.device_table()
+        torch.cuda.synchronize()
+        uploads.append((time.monotonic() - t) * 1e3)
+    upload_ms = sorted(uploads)[len(uploads) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[paged] paged decode step (64 slots, L=256, {p.n_layers} layers, int8 pool): median "
+        f"{step_ms:.2f} ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; page-table upload "
+        f"{upload_ms:.4f} ms; max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+    mgr.shutdown()
+    return dict(launches=launches, want=dict(quant_matmul=want_qmm,
+                                             decode_attention_paged=want_paged),
+                decode_steps=steps, prefill_calls=prefills, tokens=generated, wall_s=wall,
+                stats=stats, shared_errs=errs, shared_tol=shared_tol, shared_ref_max=shared_max,
+                shared_argmax_agree=agree, full_step_err=err, full_step_tol=tol,
+                argmax_agreement=agree_step, step_ms=step_ms, step_times_ms=times,
+                profile=busy, table_upload_ms=upload_ms, max_memory_allocated=peak,
+                load_s=load_s)
+
+
 def main() -> None:
     import torch
 
@@ -574,14 +942,21 @@ def main() -> None:
     slice_res = phase_slice(torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    paged_res = phase_paged_slice(torch, p, smi_line)
+    # the paged kernel runs on the paged path only: its count is that run's
+    results["decode_attention_paged"]["launches"] = \
+        paged_res["launches"]["decode_attention_paged"]
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
                                 "tpuserve/ops/quant_matmul.py:40"),
                "decode_attention": ("tpuserve_torch/csrc/decode_attention.cu",
-                                    "tpuserve/ops/decode_attention.py:160")}
+                                    "tpuserve/ops/decode_attention.py:160"),
+               "decode_attention_paged": (
+                   "tpuserve_torch/csrc/decode_attention.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)")}
     line = []
-    for kname in ("vector_add", "quant_matmul", "decode_attention"):
+    for kname in sources:
         r = results[kname]
         line.append({"name": kname, "route": "cuda", "source": sources[kname][0],
                      "replaces": sources[kname][1], "launches": r["launches"],
@@ -592,7 +967,8 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
-                   "seconds": time.monotonic() - t0}, fh, indent=1, default=str)
+                   "paged_slice": paged_res, "seconds": time.monotonic() - t0}, fh, indent=1,
+                  default=str)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

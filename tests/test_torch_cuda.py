@@ -121,6 +121,96 @@ def test_decode_attention(cuda, kind, h, hkv, l, window, block_l, scale_dtype):
         assert err <= 2e-3 * ref.abs().max().item() + 1e-6, (qdt, err)
 
 
+def _pools(kind, s, hkv, ps, n_pages, n_layers, device, seed=0):
+    """Random paged pools [n_layers, n_pages, ps, W] and f32 scale pools
+    [n_layers, n_pages, pad8(Hkv), ps] (None for bf16)."""
+    g = torch.Generator().manual_seed(seed)
+    w = hkv * 128
+    shape = (n_layers, n_pages, ps, w // 2 if kind == "int4" else w)
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8) for _ in range(2))
+    elif kind == "int4":
+        k, v = (torch.randint(0, 256, shape, generator=g, dtype=torch.int32).to(torch.uint8)
+                for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=g).to(torch.bfloat16) for _ in range(2))
+    ks = vs = None
+    if kind != "bf16":
+        hp = (hkv + 7) // 8 * 8
+        ks, vs = ((torch.rand((n_layers, n_pages, hp, ps), generator=g) + 0.5) * 0.01
+                  for _ in range(2))
+    to = lambda t: None if t is None else t.to(device)
+    return to(k), to(v), to(ks), to(vs)
+
+
+@pytest.mark.parametrize("kind,h,hkv,ps,n_cols,window", [
+    ("int8", 32, 32, 128, 2, None),     # Llama-2-7B paged decode shape
+    ("int4", 32, 32, 128, 2, None),
+    ("bf16", 32, 32, 128, 2, None),
+    ("int8", 8, 2, 16, 6, 64),          # window shorter than the table
+    ("int4", 4, 2, 16, 4, None),
+])
+def test_decode_attention_paged(cuda, kind, h, hkv, ps, n_cols, window):
+    """The paged kernel against its plain version, and against the flat
+    kernel on the same KV laid out contiguously (the pages are shuffled);
+    with block_l = ps the two kernels run the same blocks in the same
+    order, so they agree to f32 rounding (tolerance 1e-6, expected 0)."""
+    s, n_layers, layer = 8, 2, 1
+    n_pages = s * n_cols + 1
+    k, v, ks, vs = _pools(kind, s, hkv, ps, n_pages, n_layers, cuda)
+    g = torch.Generator().manual_seed(3)
+    table = (1 + torch.randperm(n_pages - 1, generator=g)).view(s, n_cols).to(torch.int32)
+    win = window or n_cols * ps
+    pos = torch.randint(0, win, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[2], pos[3], pos[4] = -1, win - 1, ps - 1, ps
+    table, pos = table.to(cuda), pos.to(cuda)
+    # the flat cache holds one junk page past the window, so the flat side
+    # runs its L-blocked form, as the paged kernel does
+    idx = table[:, :win // ps].long()
+    fk, fv = (torch.cat([t[:, idx].reshape(n_layers, s, win, -1),
+                         t[:, :1].expand(-1, s, -1, -1)], dim=2).contiguous() for t in (k, v))
+    fks = fvs = None
+    if ks is not None:
+        fks, fvs = (torch.cat([sc[layer][idx].permute(0, 2, 1, 3).reshape(s, -1, win)[:, :hkv],
+                               sc[layer][idx][:, 0, :hkv]], dim=2).contiguous()
+                    for sc in (ks, vs))
+    q = (torch.randn((s, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    for qdt in (torch.float32, torch.bfloat16):
+        args = (q.to(qdt), k, v, ks, vs, table, pos, layer)
+        out = da.decode_attention_wide_paged(*args, window=window)
+        ref = da.decode_attention_wide_paged_plain(*args, window=window)
+        flat = da.decode_attention_wide_cache(q.to(qdt), fk, fv, fks, fvs, pos, layer,
+                                              window=win, block_l=ps)
+        torch.cuda.synchronize()
+        assert torch.all(out[1] == 0)
+        err = (out - ref).abs().max().item()
+        assert err <= 2e-3 * ref.abs().max().item() + 1e-6, (qdt, err)
+        assert (out - flat).abs().max().item() <= 1e-6, qdt
+
+
+def test_decode_attention_paged_refuses(cuda):
+    """The paged wrapper raises, and never runs the plain version, on what
+    the kernel does not take."""
+    k, v, ks, vs = _pools("int8", 2, 2, 16, 5, 1, cuda)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    q = torch.randn((2, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="multiple of page_size"):
+        da.decode_attention_wide_paged(q, k, v, ks, vs, table, pos, 0, window=24)
+    with pytest.raises(ValueError, match="float32"):
+        da.decode_attention_wide_paged(q, k, v, ks.to(torch.bfloat16), vs.to(torch.bfloat16),
+                                       table, pos, 0)
+    with pytest.raises(ValueError, match="page_table"):
+        da.decode_attention_wide_paged(q, k, v, ks, vs, table.long(), pos, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention_wide_paged(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                       v[..., :64].contiguous(), ks, vs, table, pos, 0)
+    before = da.paged_launches
+    da.decode_attention_wide_paged(q, k, v, ks, vs, table, pos, 0)
+    torch.cuda.synchronize()
+    assert da.paged_launches == before + 1
+
+
 def test_vector_add(cuda):
     for n in (1, 1000, 1_000_003):
         a, b = torch.randn(n, device=cuda), torch.randn(n, device=cuda)

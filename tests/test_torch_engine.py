@@ -3,7 +3,6 @@ package's on one checkpoint, the InferenceManager -> LLMBackend entry
 points, the device guard, and the no-JAX import boundary.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -22,7 +21,7 @@ from tpuserve_torch.engine.manager import InferenceManager
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving.engine import GenerationEngine
 from tpuserve_torch.utils.errors import BackendError
-from torch_parity import SMALL
+from torch_parity import SMALL, write_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,48 +36,6 @@ def _config(name, **gen):
         "quantization": {"weights": "int4", "group_size": 128, "kv_cache": "int4"},
         "generation": generation,
     }
-
-
-def _write_model(root, name, cfg, seed=0):
-    """One version dir holding config.json and a model.safetensors written
-    from a numpy seed. The spread of the weights makes greedy margins far
-    larger than the two packages' rounding differences."""
-    from safetensors.numpy import save_file
-
-    rng = np.random.default_rng(seed)
-    d, f, v = SMALL["dim"], SMALL["ffn_dim"], SMALL["vocab_size"]
-    qd = SMALL["n_heads"] * SMALL["head_dim"]
-    kvd = SMALL["n_kv_heads"] * SMALL["head_dim"]
-
-    def n(*shape, std):
-        return (rng.normal(size=shape) * std).astype(np.float32)
-
-    # A bf16 model hands out bf16 logits, and with a Gaussian head the top
-    # two of a step fall within one bf16 step of each other at ~1 step in
-    # 10, where the packages' rounding differences decide the argmax. So
-    # the head is the embedding under a permutation: the residual stream
-    # carries the fed token e_t, whose logit for token perm^-1(t) is ~16
-    # while the rest are ~N(0, 1) plus what the layers add. Greedy decoding
-    # walks a token chain with margins of many bf16 steps.
-    emb = n(v, d, std=1.0)
-    perm = rng.permutation(v)
-    w = {"embed/weight": emb, "final_norm/scale": np.ones((d,), np.float32),
-         "lm_head/kernel": np.ascontiguousarray(emb[perm].T / np.sqrt(d))}
-    for l in range(SMALL["n_layers"]):
-        pre = f"layers.{l}"
-        w[f"{pre}/attn_norm/scale"] = np.ones((d,), np.float32)
-        w[f"{pre}/mlp_norm/scale"] = np.ones((d,), np.float32)
-        for nm, shape in (("wq", (d, qd)), ("wk", (d, kvd)), ("wv", (d, kvd)),
-                          ("w_gate", (d, f)), ("w_up", (d, f))):
-            w[f"{pre}/{nm}/kernel"] = n(*shape, std=1.0 / np.sqrt(d))
-        w[f"{pre}/wo/kernel"] = n(qd, d, std=1.0 / np.sqrt(qd))
-        w[f"{pre}/w_down/kernel"] = n(f, d, std=1.0 / np.sqrt(f))
-    vdir = os.path.join(root, name, "1")
-    os.makedirs(vdir)
-    with open(os.path.join(vdir, "config.json"), "w") as fh:
-        json.dump(cfg, fh)
-    save_file(w, os.path.join(vdir, "model.safetensors"))
-    return vdir
 
 
 PROMPTS = [
@@ -105,7 +62,7 @@ def test_engine_greedy_tokens_match_jax(tmp_path, monkeypatch):
     admitted in chunks. The JAX engine runs its Pallas kernels in interpret
     mode, with decode_horizon 2 to keep its compile time down."""
     cfg = _config("parity")
-    vdir = _write_model(str(tmp_path), "parity", cfg)
+    vdir = write_model(str(tmp_path), "parity", cfg)
     monkeypatch.setattr(jllama, "_decode_attn_mode", lambda p: "pallas")
     monkeypatch.setattr(jllama, "qmatmul",
                         lambda x, qt, use_pallas=None: jcore.qmatmul(x, qt, use_pallas=True))
@@ -131,7 +88,7 @@ def test_manager_backend_generate(tmp_path):
     .generate(..) — concurrent greedy and sampled requests, stop ids,
     logprobs, a chunked prompt, and a repeated greedy prompt."""
     cfg = _config("demo", decode_horizon=4, max_new_tokens=6)
-    _write_model(str(tmp_path), "demo", cfg, seed=1)
+    write_model(str(tmp_path), "demo", cfg, seed=1)
     mgr = InferenceManager(str(tmp_path), num_workers=1, device="cpu")
     try:
         mgr.load_model("demo")
@@ -177,26 +134,33 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     on the CPU unless the caller passes device="cpu"."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _config("guard")
-    vdir = _write_model(str(tmp_path), "guard", cfg)
+    vdir = write_model(str(tmp_path), "guard", cfg)
     with pytest.raises(BackendError, match="device='cpu'"):
         InferenceManager(str(tmp_path), num_workers=1)
     with pytest.raises(BackendError, match="device='cpu'"):
         GenerationEngine(vdir, ModelConfig.from_dict(cfg))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("generation.paged", True),
-    ("generation.speculation_tokens", 4),
-    ("sharding.tensor_parallel", 2),
-    ("quantization.method", "gptq"),
-    ("model_params.n_experts", 4),
-])
-def test_unported_configurations_raise(tmp_path, field, value):
+@pytest.mark.parametrize("overrides", [
+    {"generation.paged": True, "generation.speculation_tokens": 4},
+    {"generation.speculation_tokens": 4},
+    {"sharding.tensor_parallel": 2},
+    {"quantization.method": "gptq"},
+    {"model_params.n_experts": 4},
+], ids=["generation.paged-True", "generation.speculation_tokens-4",
+        "sharding.tensor_parallel-2", "quantization.method-gptq", "model_params.n_experts-4"])
+def test_unported_configurations_raise(tmp_path, overrides):
+    """Unported parts raise instead of running something else: paged KV is
+    ported, but paged KV with speculation is not, and it must not run
+    unpaged or unspeculated."""
     cfg = _config("unported")
-    section, key = field.split(".")
-    cfg.setdefault(section, {})[key] = value
+    for field, value in overrides.items():
+        section, key = field.split(".")
+        cfg.setdefault(section, {})[key] = value
     eng = GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")
-    with pytest.raises(BackendError, match="not ported"):
+    match = "not ported.*speculative decoding" if "generation.speculation_tokens" in overrides \
+        else "not ported"
+    with pytest.raises(BackendError, match=match):
         eng.start()
 
 
@@ -208,8 +172,9 @@ def test_import_leaves_jax_out():
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
         "from tpuserve_torch.engine.manager import InferenceManager\n"
         "from tpuserve_torch.engine import backend, llm_backend\n"
-        "from tpuserve_torch.serving import engine, sampling\n"
+        "from tpuserve_torch.serving import engine, paged_kv, sampling\n"
         "from tpuserve_torch.models import llama, llama_bench\n"
+        "from tpuserve_torch.ops import decode_attention, quant_matmul\n"
         "from tpuserve_torch.device import info, smoke\n"
         "backend._ensure_builtins()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"

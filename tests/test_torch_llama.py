@@ -21,7 +21,7 @@ from tpuserve.models import llama as jllama
 from tpuserve.quant import core as jcore
 from tpuserve_torch import interop
 from tpuserve_torch.models import llama as tllama
-from torch_parity import SMALL, jax_to_torch_params, to_np
+from torch_parity import SMALL, jax_to_torch_params, numpy_weights, to_np
 
 P_J = jllama.LlamaParams(**SMALL)
 P_T = tllama.LlamaParams(**SMALL)
@@ -34,34 +34,6 @@ def jax_kernels(monkeypatch):
     monkeypatch.setattr(jllama, "_decode_attn_mode", lambda p: "pallas")
     monkeypatch.setattr(jllama, "qmatmul",
                         lambda x, qt, use_pallas=None: jcore.qmatmul(x, qt, use_pallas=True))
-
-
-def numpy_weights(seed=0):
-    """Float weights with a wide enough spread that greedy margins dwarf the
-    two packages' rounding differences."""
-    rng = np.random.default_rng(seed)
-    d, f, v = SMALL["dim"], SMALL["ffn_dim"], SMALL["vocab_size"]
-    qd = SMALL["n_heads"] * SMALL["head_dim"]
-    kvd = SMALL["n_kv_heads"] * SMALL["head_dim"]
-
-    def n(*shape, std):
-        return (rng.normal(size=shape) * std).astype(np.float32)
-
-    w = {"embed/weight": n(v, d, std=1.0),
-         "final_norm/scale": np.ones((d,), np.float32),
-         "lm_head/kernel": n(d, v, std=4.0 / np.sqrt(d))}
-    for l in range(SMALL["n_layers"]):
-        pre = f"layers.{l}"
-        w[f"{pre}/attn_norm/scale"] = np.ones((d,), np.float32)
-        w[f"{pre}/mlp_norm/scale"] = np.ones((d,), np.float32)
-        w[f"{pre}/wq/kernel"] = n(d, qd, std=1.0 / np.sqrt(d))
-        w[f"{pre}/wk/kernel"] = n(d, kvd, std=1.0 / np.sqrt(d))
-        w[f"{pre}/wv/kernel"] = n(d, kvd, std=1.0 / np.sqrt(d))
-        w[f"{pre}/wo/kernel"] = n(qd, d, std=1.0 / np.sqrt(qd))
-        w[f"{pre}/w_gate/kernel"] = n(d, f, std=1.0 / np.sqrt(d))
-        w[f"{pre}/w_up/kernel"] = n(d, f, std=1.0 / np.sqrt(d))
-        w[f"{pre}/w_down/kernel"] = n(f, d, std=1.0 / np.sqrt(f))
-    return w
 
 
 @pytest.fixture(scope="module")

@@ -2,15 +2,26 @@
 // read in place at a layer offset.
 //
 // Replaces tpuserve/ops/decode_attention.py::_wide_kernel (the
-// decode_attention_wide_cache path, inline Q_wide) and ::_packed_kernel
+// decode_attention_wide_cache path, inline Q_wide), ::_packed_kernel
 // (several slots per block when the window is small; here that is the same
 // kernel run with one L block covering the whole window, which is what a
-// plain softmax over the row with one P requant amounts to).
+// plain softmax over the row with one P requant amounts to), and
+// ::_wide_kernel with paged_sc=True (decode_attention_wide_paged: the same
+// body over a paged pool, see PAGED below).
 //
 // Cache: k/v [n_layers, S, L, W] (W = Hkv*hd values; int8, bf16 or f32) or
 // packed int4 uint8 [n_layers, S, L, W/2] where byte d holds W-position d in
 // its low nibble and W/2 + d in its high nibble (global split-half, biased
 // by 8). Scales: this layer's [S, Hkv, L], bf16 or f32, head-major.
+//
+// PAGED: k/v are pools [n_layers, n_pages, ps, W] (W/2 for int4) and the
+// scales are f32 pools [n_layers, n_pages, hp, ps] (hp = pad8(Hkv)), all
+// read in place. Block jb of a slot is page table[slot, jb], so block_l ==
+// ps: the TPU kernel's one-page block, with one P requant per page. Only
+// addressing differs from the flat form: one lane per warp loads the
+// block's page id and shuffles it to the others. The table is read only for
+// blocks at or before the slot's position (jb <= pos/ps), so the kernel
+// never touches a page past the live one.
 //
 // Numerics kept from the TPU kernel, so that the two differ only in the
 // order of float sums:
@@ -57,6 +68,9 @@ struct AttnArgs {
   int sc_bf16;
   int S, H, Hkv, L, layer, win, bl;
   int row_stride;      // elements (bytes for int4) per cache row
+  // paged pools only
+  const int* table;    // [S, P] page ids, row stride tstride
+  int tstride, n_pages, hp;
 };
 
 __device__ __forceinline__ float load_scale(const void* p, size_t i, int bf16) {
@@ -68,7 +82,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   constexpr bool INTK = (KIND == KV_INT8 || KIND == KV_INT4);
   extern __shared__ __align__(16) unsigned char dsm[];
@@ -146,14 +160,28 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
 #pragma unroll
   for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
 
-  const size_t row0 = ((size_t)a.layer * a.S + slot) * a.L;  // first cache row of this slot
-  const size_t unit_off = (size_t)u * HD;                    // elements (bytes for int4)
-  const size_t sc_row = (size_t)slot * a.Hkv;                // scale rows of this slot
+  const size_t unit_off = (size_t)u * HD;  // elements (bytes for int4)
 
   const int n_blocks = a.win / bl;
   for (int jb = 0; jb < n_blocks && jb * bl <= pos; ++jb) {
     const int l0 = jb * bl;
     const int live = min(bl, pos - l0 + 1);
+    // this block's first cache row, and its scales: scale of (kv head h,
+    // row i) at sc0 + h * sc_h + i
+    size_t blk_row, sc0, sc_h;
+    if (PAGED) {
+      int page = 0;
+      if (lane == 0) page = a.table[(size_t)slot * a.tstride + jb];
+      page = __shfl_sync(0xffffffffu, page, 0);
+      const size_t pg = (size_t)a.layer * a.n_pages + (size_t)page;
+      blk_row = pg * bl;
+      sc0 = pg * a.hp * bl;
+      sc_h = bl;
+    } else {
+      blk_row = ((size_t)a.layer * a.S + slot) * a.L + l0;
+      sc0 = (size_t)slot * a.Hkv * a.L + l0;
+      sc_h = a.L;
+    }
 
     // ---- phase 1: scores for every row of the block (dead rows masked)
     for (int i = warp; i < bl; i += WARPS) {
@@ -161,7 +189,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
         if (lane < NQ) sc[lane * bl + i] = NEG_INF;
         continue;
       }
-      const size_t off = (row0 + l0 + i) * (size_t)a.row_stride + unit_off;
+      const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
       float s[NQ];
       if (INTK) {
         const uint32_t kw = *reinterpret_cast<const uint32_t*>(
@@ -179,7 +207,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
         }
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
-          const float ksc = load_scale(a.ks, (sc_row + kv_of(j)) * a.L + l0 + i, a.sc_bf16);
+          const float ksc = load_scale(a.ks, sc0 + kv_of(j) * sc_h + i, a.sc_bf16);
           s[j] = ((float)d[j] * s_qscale[j]) * ksc;
         }
       } else {
@@ -225,7 +253,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
         float p = expf(row[i] - m_safe);
         psum += p;
         if (INTK) {
-          if (i < live) p = p * load_scale(a.vs, (sc_row + kv_of(j)) * a.L + l0 + i, a.sc_bf16);
+          if (i < live) p = p * load_scale(a.vs, sc0 + kv_of(j) * sc_h + i, a.sc_bf16);
           pmax = fmaxf(pmax, fabsf(p));
         } else if (KIND == KV_BF16) {
           p = round_bf16(p);
@@ -260,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0;
       for (int i = warp; i < live; i += WARPS) {
-        const size_t off = (row0 + l0 + i) * (size_t)a.row_stride + unit_off;
+        const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
         const uint32_t vw = *reinterpret_cast<const uint32_t*>(
             reinterpret_cast<const uint8_t*>(a.v) + off + lane * 4);
 #pragma unroll
@@ -299,7 +327,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0.f;
       for (int i = warp; i < live; i += WARPS) {
-        const size_t off = (row0 + l0 + i) * (size_t)a.row_stride + unit_off;
+        const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
         float vv[4];
         if (KIND == KV_BF16) {
           const uint2 raw = *reinterpret_cast<const uint2*>(
@@ -343,30 +371,43 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   }
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, bool PAGED>
 int launch(const AttnArgs& a, size_t smem, cudaStream_t st) {
   // static + dynamic shared memory above 48 KB needs an opt-in per kernel;
   // raise the opt-in whenever a larger window asks for more
   static size_t opted_in = 0;
   if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ, PAGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   const int units = (KIND == KV_INT4) ? a.Hkv / 2 : a.Hkv;
   dim3 grid(units, a.S);
-  decode_attn_kernel<KIND, NQ><<<grid, THREADS, smem, st>>>(a);
+  decode_attn_kernel<KIND, NQ, PAGED><<<grid, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
+template <int KIND, bool PAGED>
 int launch_nq(const AttnArgs& a, int nq, size_t smem, cudaStream_t st) {
   switch (nq) {
-    case 1: return launch<KIND, 1>(a, smem, st);
-    case 2: return launch<KIND, 2>(a, smem, st);
-    case 4: return launch<KIND, 4>(a, smem, st);
-    case 8: return launch<KIND, 8>(a, smem, st);
+    case 1: return launch<KIND, 1, PAGED>(a, smem, st);
+    case 2: return launch<KIND, 2, PAGED>(a, smem, st);
+    case 4: return launch<KIND, 4, PAGED>(a, smem, st);
+    case 8: return launch<KIND, 8, PAGED>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool PAGED>
+int launch_kind(const AttnArgs& a, int kind, int nq, cudaStream_t st) {
+  if (a.S <= 0) return 0;
+  const size_t smem = (size_t)nq * a.bl * (sizeof(float) + 1);
+  switch (kind) {
+    case KV_INT8: return launch_nq<KV_INT8, PAGED>(a, nq, smem, st);
+    case KV_INT4: return launch_nq<KV_INT4, PAGED>(a, nq, smem, st);
+    case KV_BF16: return launch_nq<KV_BF16, PAGED>(a, nq, smem, st);
+    case KV_F32: return launch_nq<KV_F32, PAGED>(a, nq, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -385,14 +426,26 @@ extern "C" int tpuserve_decode_attention(const void* q, const void* k, const voi
   a.q_bf16 = q_bf16; a.sc_bf16 = sc_bf16;
   a.S = S; a.H = H; a.Hkv = Hkv; a.L = L; a.layer = layer; a.win = win; a.bl = bl;
   a.row_stride = row_stride;
-  if (S <= 0) return 0;
-  const size_t smem = (size_t)nq * bl * (sizeof(float) + 1);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (kind) {
-    case KV_INT8: return launch_nq<KV_INT8>(a, nq, smem, st);
-    case KV_INT4: return launch_nq<KV_INT4>(a, nq, smem, st);
-    case KV_BF16: return launch_nq<KV_BF16>(a, nq, smem, st);
-    case KV_F32: return launch_nq<KV_F32>(a, nq, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  a.table = nullptr; a.tstride = 0; a.n_pages = 0; a.hp = 0;
+  return launch_kind<false>(a, kind, nq, (cudaStream_t)stream);
+}
+
+// The paged form: pools [n_layers, n_pages, ps, row_stride] and f32 scale
+// pools [n_layers, n_pages, hp, ps] (int kinds only), page table [S, *]
+// with row stride table_stride; win is a multiple of ps. Returns a
+// cudaError_t code.
+extern "C" int tpuserve_decode_attention_paged(const void* q, const void* k, const void* v,
+                                               const void* ks, const void* vs, const int* pos,
+                                               const int* table, void* out, int q_bf16, int S,
+                                               int H, int Hkv, int n_pages, int ps, int hp,
+                                               int layer, int win, int table_stride,
+                                               int row_stride, int kind, int nq, void* stream) {
+  AttnArgs a;
+  a.q = q; a.k = k; a.v = v; a.ks = ks; a.vs = vs; a.pos = pos; a.out = (float*)out;
+  a.q_bf16 = q_bf16; a.sc_bf16 = 0;
+  a.S = S; a.H = H; a.Hkv = Hkv; a.L = ps; a.layer = layer; a.win = win; a.bl = ps;
+  a.row_stride = row_stride;
+  a.table = table; a.tstride = table_stride; a.n_pages = n_pages; a.hp = hp;
+  if (ps <= 0 || win % ps != 0) return (int)cudaErrorInvalidValue;
+  return launch_kind<true>(a, kind, nq, (cudaStream_t)stream);
 }

@@ -15,6 +15,7 @@ import torch
 
 from tpuserve_torch.models.llama import KVCache
 from tpuserve_torch.quant.core import QTensor
+from tpuserve_torch.serving.paged_kv import PagedKVCache
 
 _QT_KEYS = {"q", "scale", "bits", "group_size", "orig_shape"}
 
@@ -55,6 +56,23 @@ def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
     if np.asarray(k).ndim != 4:
         raise ValueError("only the flat [n_layers, S, L, W] cache layout is ported")
     return KVCache(
+        k=tensor_from_numpy(k, device), v=tensor_from_numpy(v, device),
+        k_scale=None if k_scale is None else tensor_from_numpy(k_scale, device),
+        v_scale=None if v_scale is None else tensor_from_numpy(v_scale, device))
+
+
+def paged_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
+                           v_scale: Optional[np.ndarray] = None, device="cpu") -> PagedKVCache:
+    """Paged pool state -> PagedKVCache. k/v are flat pools [n_layers,
+    n_pages, ps, W or W/2] or 5D [n_layers, n_pages, ps, Hkv, hd] (the same
+    bytes: the head dims are merged); scale pools [n_layers, n_pages,
+    pad8(Hkv), ps] f32 or None."""
+    k, v = np.asarray(k), np.asarray(v)
+    if k.ndim == 5:
+        k, v = (a.reshape(a.shape[:3] + (-1,)) for a in (k, v))
+    if k.ndim != 4:
+        raise ValueError("paged pools are [n_layers, n_pages, ps, W] (or 5D)")
+    return PagedKVCache(
         k=tensor_from_numpy(k, device), v=tensor_from_numpy(v, device),
         k_scale=None if k_scale is None else tensor_from_numpy(k_scale, device),
         v_scale=None if v_scale is None else tensor_from_numpy(v_scale, device))

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "tpuserve_vector_add": [_P, _P, _P, ctypes.c_longlong, _P],
     "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
+    "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
 }
 
 

@@ -8,10 +8,14 @@ single-device path).
     prefill(params, p, tokens[1, L], cache, slot, length)        -> logits[1, V]
     prefill_chunk(params, p, tokens[1, C], cache, slot, start, length, window)
     decode_step(params, p, tokens[S], cache, positions, window)  -> logits[S, V]
+  and their paged forms over a serving.paged_kv.PagedKVCache and a page
+  table: prefill_paged, prefill_paged_suffix, decode_step_paged;
   each returns (logits, cache);
 - the KV cache in the flat layout only: k/v [n_layers, S, L, Hkv*hd] (int8,
-  packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L].
-  JAX updates the cache functionally; here it is written in place.
+  packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L];
+  paged pools [n_layers, n_pages, ps, Hkv*hd] with f32 scale pools
+  [n_layers, n_pages, pad8(Hkv), ps]. JAX updates caches functionally;
+  here they are written in place.
 
 Prefill attention is plain torch (the JAX package leaves it to XLA). Decode
 attention always goes through `ops.decode_attention` (its CUDA kernel on the
@@ -28,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
-from tpuserve_torch.ops.decode_attention import decode_attention_wide_cache
+from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache,
+                                                 decode_attention_wide_paged)
 from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
 
 
@@ -252,20 +257,79 @@ def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([(p32 & 15) - 8, (p32 >> 4) - 8], dim=-1).to(torch.int8)
 
 
-def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, kq, vq, ks, vs) -> KVCache:
-    """Write a [C, Hkv, hd] chunk (+ scales [C, Hkv] or None) into
-    (layer, slot, start..start+C), in place."""
-    c = kq.shape[0]
-    kw, vw = kq.reshape(c, -1), vq.reshape(c, -1)
+def _pad_heads(x: torch.Tensor, hp: int) -> torch.Tensor:
+    """[.., Hkv] -> [.., hp] zero-padded: scale pools hold pad8(Hkv)
+    head-major rows per page."""
+    pad = hp - x.shape[-1]
+    if pad <= 0:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+
+
+def _kv_rows(cache, k, v):
+    """This step's K/V [N, Hkv, hd] as cache rows [N, Wst] in the cache's
+    storage dtype, and their scales [N, Hkv] f32 (None for a float cache)."""
+    n = k.shape[0]
+    if cache.quantized:
+        kq, ks = _quantize_kv_cache(cache, k)
+        vq, vs = _quantize_kv_cache(cache, v)
+    else:
+        kq, vq, ks, vs = k, v, None, None
+    kq, vq = kq.reshape(n, -1), vq.reshape(n, -1)
     if cache.k.dtype == torch.uint8:  # packed int4
-        kw = pack_kv_codes(kw)
-        vw = pack_kv_codes(vw)
-    cache.k[layer, slot, start:start + c] = kw.to(cache.k.dtype)
-    cache.v[layer, slot, start:start + c] = vw.to(cache.v.dtype)
+        kq, vq = pack_kv_codes(kq), pack_kv_codes(vq)
+    return kq.to(cache.k.dtype), vq.to(cache.v.dtype), ks, vs
+
+
+def _write_pages(cache, layer: int, pages, offsets, k, v) -> None:
+    """Write K/V [N, Hkv, hd] in place at pool rows (layer, pages[i],
+    offsets[i]), quantizing (and packing) for an int8/int4 pool."""
+    kq, vq, ks, vs = _kv_rows(cache, k, v)
+    cache.k[layer][pages, offsets] = kq
+    cache.v[layer][pages, offsets] = vq
+    if ks is not None:
+        hp = cache.k_scale.shape[2]
+        cache.k_scale[layer][pages, :, offsets] = _pad_heads(ks, hp).to(cache.k_scale.dtype)
+        cache.v_scale[layer][pages, :, offsets] = _pad_heads(vs, hp).to(cache.v_scale.dtype)
+
+
+def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, k, v) -> None:
+    """Write K/V [C, Hkv, hd] in place at (layer, slot, start..start+C),
+    quantizing (and packing) for an int8/int4 cache."""
+    kq, vq, ks, vs = _kv_rows(cache, k, v)
+    c = kq.shape[0]
+    cache.k[layer, slot, start:start + c] = kq
+    cache.v[layer, slot, start:start + c] = vq
     if ks is not None:
         cache.k_scale[layer, slot, :, start:start + c] = ks.t().to(cache.k_scale.dtype)
         cache.v_scale[layer, slot, :, start:start + c] = vs.t().to(cache.v_scale.dtype)
-    return cache
+
+
+def _attend_window(q, k_rows, v_rows, k_scale, v_scale, mask, p: LlamaParams):
+    """Chunk attention over a window of cache rows, as the JAX package's
+    prefill_chunk and prefill_paged_suffix compute it: q [C, H, hd] (rope
+    applied); k_rows/v_rows [win, Wst] (codes, packed int4 codes or
+    values); k_scale/v_scale [Hkv, win] or None; mask [C, win]. Returns
+    [C, H*hd] f32."""
+    c, win = q.shape[0], k_rows.shape[0]
+    if k_rows.dtype == torch.uint8:
+        k_rows, v_rows = unpack_kv_codes(k_rows), unpack_kv_codes(v_rows)
+    k_all = k_rows.reshape(win, p.n_kv_heads, p.head_dim)
+    v_all = v_rows.reshape(win, p.n_kv_heads, p.head_dim)
+    qg = q.reshape(c, p.n_kv_heads, p.n_heads // p.n_kv_heads, p.head_dim)
+    cdt = torch.float32 if k_all.dtype == torch.float32 else torch.bfloat16
+    scores = torch.einsum("cgrd,lgd->cgrl", qg.to(cdt).to(torch.float32),
+                          k_all.to(cdt).to(torch.float32))
+    if k_scale is not None:
+        scores = scores * k_scale[None, :, None, :]
+    scores = true_div(scores, math.sqrt(p.head_dim))
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[None, :, None, :]
+    out = torch.einsum("cgrl,lgd->cgrd", probs.to(cdt).to(torch.float32),
+                       v_all.to(cdt).to(torch.float32))
+    return out.reshape(c, p.n_heads * p.head_dim)
 
 
 # ---------------------------------------------------------------------- blocks
@@ -346,12 +410,7 @@ def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: 
             v = v.reshape(b, l, p.n_kv_heads, p.head_dim)
             # write K/V into the slot (whole bucket; the invalid tail is
             # masked on every read)
-            if cache.quantized:
-                kq, ks = _quantize_kv_cache(cache, k[0])
-                vq, vs = _quantize_kv_cache(cache, v[0])
-            else:
-                kq, vq, ks, vs = k[0], v[0], None, None
-            _write_slot_kv(cache, layer, slot, 0, kq, vq, ks, vs)
+            _write_slot_kv(cache, layer, slot, 0, k[0], v[0])
             out = _attention_prefill(q, k, v, mask)
             return out.reshape(b, l, p.n_heads * p.head_dim)
 
@@ -381,42 +440,20 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     kpos = torch.arange(window, device=dev)
     mask = kpos[None, :] <= gpos[:, None]  # [C, win]
-    n_rep = p.n_heads // p.n_kv_heads
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
             q = apply_rope(q.reshape(b, c, p.n_heads, p.head_dim), cos, sin)
             k = apply_rope(k.reshape(b, c, p.n_kv_heads, p.head_dim), cos, sin)
             v = v.reshape(b, c, p.n_kv_heads, p.head_dim)
+            _write_slot_kv(cache, layer, slot, start, k[0], v[0])
+            ks = vs = None
             if cache.quantized:
-                kq, ks = _quantize_kv_cache(cache, k[0])
-                vq, vs = _quantize_kv_cache(cache, v[0])
-            else:
-                kq, vq, ks, vs = k[0], v[0], None, None
-            _write_slot_kv(cache, layer, slot, start, kq, vq, ks, vs)
-            k_all = cache.k[layer, slot, :window]
-            v_all = cache.v[layer, slot, :window]
-            if k_all.dtype == torch.uint8:
-                k_all = unpack_kv_codes(k_all)
-                v_all = unpack_kv_codes(v_all)
-            k_all = k_all.reshape(window, p.n_kv_heads, p.head_dim)
-            v_all = v_all.reshape(window, p.n_kv_heads, p.head_dim)
-            qg = q[0].reshape(c, p.n_kv_heads, n_rep, p.head_dim)
-            cdt = torch.float32 if k_all.dtype == torch.float32 else torch.bfloat16
-            scores = torch.einsum("cgrd,lgd->cgrl", qg.to(cdt).to(torch.float32),
-                                  k_all.to(cdt).to(torch.float32))
-            if cache.quantized:
-                ksc = cache.k_scale[layer, slot][:, :window]
-                scores = scores * ksc[None, :, None, :]
-            scores = true_div(scores, math.sqrt(p.head_dim))
-            scores = torch.where(mask[:, None, None, :], scores, -1e30)
-            probs = torch.softmax(scores, dim=-1)
-            if cache.quantized:
-                vsc = cache.v_scale[layer, slot][:, :window]
-                probs = probs * vsc[None, :, None, :]
-            out = torch.einsum("cgrl,lgd->cgrd", probs.to(cdt).to(torch.float32),
-                               v_all.to(cdt).to(torch.float32))
-            return out.to(x.dtype).reshape(b, c, p.n_heads * p.head_dim)
+                ks = cache.k_scale[layer, slot][:, :window]
+                vs = cache.v_scale[layer, slot][:, :window]
+            out = _attend_window(q[0], cache.k[layer, slot, :window],
+                                 cache.v[layer, slot, :window], ks, vs, mask, p)
+            return out.to(x.dtype).reshape(b, c, -1)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
@@ -454,21 +491,13 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
             q = apply_rope(q.reshape(s, p.n_heads, p.head_dim), cos_q, sin_q)
             k = apply_rope(k.reshape(s, p.n_kv_heads, p.head_dim), cos_q, sin_q)
             v = v.reshape(s, p.n_kv_heads, p.head_dim)
-            if cache.quantized:
-                kq, ks = _quantize_kv_cache(cache, k)  # [S, Hkv, hd], [S, Hkv]
-                vq, vs = _quantize_kv_cache(cache, v)
-            else:
-                kq, vq, ks, vs = k, v, None, None
-            kq, vq = kq.reshape(s, -1), vq.reshape(s, -1)  # [S, W] rows
-            if cache.k.dtype == torch.uint8:  # packed int4
-                kq = pack_kv_codes(kq)
-                vq = pack_kv_codes(vq)
+            kq, vq, ks, vs = _kv_rows(cache, k, v)  # [S, Wst] rows, [S, Hkv]
             # In-place write of this step's K/V at (layer, slot, pos) for the
             # ACTIVE slots only: rows of inactive slots (positions < 0) are
             # never written. (JAX writes functionally and rewrites the old
             # value for inactive slots instead.)
-            cache.k[layer][active_idx, pos_a] = kq[active_idx].to(cache.k.dtype)
-            cache.v[layer][active_idx, pos_a] = vq[active_idx].to(cache.v.dtype)
+            cache.k[layer][active_idx, pos_a] = kq[active_idx]
+            cache.v[layer][active_idx, pos_a] = vq[active_idx]
             if ks is not None:
                 cache.k_scale[layer][active_idx, :, pos_a] = ks[active_idx].to(cache.k_scale.dtype)
                 cache.v_scale[layer][active_idx, :, pos_a] = vs[active_idx].to(cache.v_scale.dtype)
@@ -477,6 +506,146 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
                 cache.k_scale[layer] if cache.quantized else None,
                 cache.v_scale[layer] if cache.quantized else None,
                 positions, layer, window=win)
+            return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
+
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+
+    logits = _logits(params, x, p)
+    return torch.where(active[:, None], logits, 0.0), cache
+
+
+# ---------------------------------------------------------------------- paged
+def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_table: torch.Tensor,
+                  slot: int, length: int):
+    """Prefill into a PagedKVCache (serving/paged_kv.py).
+
+    tokens [1, L_bucket]; page_table [S, P] int32 (pool page ids, 0 = the
+    reserved zero page); the engine guarantees the slot's chain covers the
+    whole bucket, which is written (the invalid tail is masked on every
+    read). Returns (logits_last [1, V], cache).
+    """
+    b, l = tokens.shape
+    slot, length = int(slot), int(length)
+    dev = tokens.device
+    ps = cache.page_size
+    x = params["embed/weight"][tokens]
+    positions = torch.arange(l, device=dev)[None, :]
+    cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    valid = positions < length
+    mask = valid[:, None, :] & (positions[:, :, None] >= positions[:, None, :])
+    # pool coordinates of logical positions 0..l-1 of this slot
+    lpos = torch.arange(l, device=dev)
+    pages = page_table[slot].to(device=dev, dtype=torch.long)[lpos // ps]
+    offsets = lpos % ps
+
+    for layer in range(p.n_layers):
+        def attn_fn(q, k, v, layer=layer):
+            q = apply_rope(q.reshape(b, l, p.n_heads, p.head_dim), cos, sin)
+            k = apply_rope(k.reshape(b, l, p.n_kv_heads, p.head_dim), cos, sin)
+            v = v.reshape(b, l, p.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, pages, offsets, k[0], v[0])
+            out = _attention_prefill(q, k, v, mask)
+            return out.reshape(b, l, p.n_heads * p.head_dim)
+
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+
+    return _logits(params, x[:, length - 1, :], p), cache
+
+
+def prefill_paged_suffix(params, p: LlamaParams, tokens: torch.Tensor, cache,
+                         page_table: torch.Tensor, slot: int, start: int, length: int,
+                         window: int):
+    """Prefill the SUFFIX of a prompt whose first `start` tokens already hold
+    valid KV in the slot's pages (a shared prefix, or earlier chunks).
+
+    tokens [1, C] (suffix, right-padded; `length` = valid tokens); start =
+    global position of tokens[0] (page-aligned); `window` (a page multiple)
+    covers start + C. Queries attend to the prefix pages plus causally
+    within the suffix, over a plain-torch gather of the window's pages, as
+    prefill_chunk does. Only the `length` valid rows are written (the JAX
+    package routes the padded tail to a masked zero-page write, which
+    leaves the pool as this does). Returns (logits [1, V] at the suffix's
+    last valid position, cache).
+    """
+    b, c = tokens.shape
+    slot, start, length = int(slot), int(start), int(length)
+    dev = tokens.device
+    ps = cache.page_size
+    x = params["embed/weight"][tokens]
+    gpos = start + torch.arange(c, device=dev)
+    cos, sin = rope_cos_sin(gpos[None, :], p.head_dim, p.rope_theta)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    n_cols = max(1, min(int(window) // ps, page_table.shape[1]))
+    l_virt = n_cols * ps
+    mask = torch.arange(l_virt, device=dev)[None, :] <= gpos[:, None]  # [C, win]
+    row = page_table[slot].to(device=dev, dtype=torch.long)
+    wpos = gpos[:length]
+    wpages, woffs = row[wpos // ps], wpos % ps
+    cols = row[:n_cols]
+
+    def window_scales(pool, layer):  # [n_cols, hp, ps] -> [Hkv, l_virt]
+        return pool[layer][cols].permute(1, 0, 2).reshape(-1, l_virt)[:p.n_kv_heads]
+
+    for layer in range(p.n_layers):
+        def attn_fn(q, k, v, layer=layer):
+            q = apply_rope(q.reshape(b, c, p.n_heads, p.head_dim), cos, sin)
+            k = apply_rope(k.reshape(b, c, p.n_kv_heads, p.head_dim), cos, sin)
+            v = v.reshape(b, c, p.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, wpages, woffs, k[0, :length], v[0, :length])
+            ks = vs = None
+            if cache.quantized:
+                ks, vs = window_scales(cache.k_scale, layer), window_scales(cache.v_scale, layer)
+            out = _attend_window(q[0], cache.k[layer][cols].reshape(l_virt, -1),
+                                 cache.v[layer][cols].reshape(l_virt, -1), ks, vs, mask, p)
+            return out.to(x.dtype).reshape(b, c, -1)
+
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+
+    return _logits(params, x[:, length - 1, :], p), cache
+
+
+def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
+                      page_table: torch.Tensor, positions: torch.Tensor,
+                      window: Optional[int] = None, *,
+                      active_idx: Optional[torch.Tensor] = None):
+    """One decode step over a PagedKVCache.
+
+    page_table [S, P] int32; positions [S] (-1 = inactive). The engine
+    guarantees every active slot's chain covers positions[s]+1 tokens.
+    `window` limits reads to the leading ceil(window/ps) pages. This step's
+    K/V is written in place for the active slots only; attention reads the
+    pool in place through `decode_attention_wide_paged`. Returns (logits
+    [S, V] f32, cache).
+    """
+    s = tokens.shape[0]
+    dev = tokens.device
+    ps = cache.page_size
+    positions = positions.to(device=dev, dtype=torch.int32)
+    page_table = page_table.to(device=dev, dtype=torch.int32)
+    if window is not None:
+        page_table = page_table[:, :max(1, min(-(-int(window) // ps), page_table.shape[1]))]
+    l_virt = page_table.shape[1] * ps
+    active = positions >= 0
+    pos = positions.clamp_min(0)
+    if active_idx is None:
+        active_idx = torch.nonzero(active).flatten()
+    pos_a = pos[active_idx].long()
+    wpages = page_table[active_idx, pos_a // ps].long()
+    woffs = pos_a % ps
+    x = params["embed/weight"][tokens]
+    cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
+    cos_q, sin_q = cos[:, None, :], sin[:, None, :]
+
+    for layer in range(p.n_layers):
+        def attn_fn(q, k, v, layer=layer):
+            q = apply_rope(q.reshape(s, p.n_heads, p.head_dim), cos_q, sin_q)
+            k = apply_rope(k.reshape(s, p.n_kv_heads, p.head_dim), cos_q, sin_q)
+            v = v.reshape(s, p.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx])
+            out = decode_attention_wide_paged(
+                true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, cache.k_scale,
+                cache.v_scale, page_table, positions, layer, window=l_virt)
             return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)

@@ -22,17 +22,24 @@ algorithm step by step:
 When the window is small enough that the TPU packs several slots into one
 block (`_packed_kernel`: win == L, int8 or float cache, win*W*sb < 1 MiB),
 the whole window is one L block: a plain softmax with one P requant per row.
+
+`decode_attention_wide_paged` (the JAX package's entry point of the same
+name, `_wide_kernel` with `paged_sc`) runs the same algorithm over a paged
+pool [n_layers, n_pages, ps, W] read in place through a page table, with
+f32 scale pools [n_layers, n_pages, pad8(Hkv), ps]. Its online-softmax
+block is always one page (block_l = ps), so P is requantized once per page.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from tpuserve_torch.quant.core import true_div
 
-launches = 0  # CUDA kernel launches (the plain version does not count)
+launches = 0        # flat-cache kernel launches (the plain versions do not count)
+paged_launches = 0  # paged-pool kernel launches
 
 _NEG_INF = -1e30
 _HD = 128          # head_dim the CUDA kernel is written for
@@ -49,8 +56,9 @@ def _quantize_q(q: torch.Tensor):
     return qi, scale
 
 
-def _geometry(q, k_full, k_scale_l, window, block_l):
-    """Shapes and the L blocking, chosen as the JAX entry point chooses them."""
+def _geometry(q, k_full, k_scale_l, window, block_l, pack: bool = True):
+    """Shapes and the L blocking, chosen as the JAX entry point chooses them
+    (`pack=False`: never the multi-slot whole-row form, as the paged path)."""
     s_dim, n_heads, hd = q.shape
     if k_full.dim() != 4:
         raise ValueError("decode attention expects the flat [n_layers, S, L, W] cache")
@@ -74,7 +82,7 @@ def _geometry(q, k_full, k_scale_l, window, block_l):
         block_l //= 2
     # the TPU's multi-slot packing (sb > 1) is one L block over the window
     sb = 1
-    if win == l_max and kv_bits == 8:
+    if pack and win == l_max and kv_bits == 8:
         while (sb * 2) <= s_dim and s_dim % (sb * 2) == 0 and win * w * sb < (1 << 20):
             sb *= 2
     if sb > 1:
@@ -89,7 +97,11 @@ def decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l, p
                                       block_l: Optional[int] = None) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch (any device). Returns
     [S, H, hd] f32."""
-    g = _geometry(q, k_full, k_scale_l, window, block_l)
+    return _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer,
+                         _geometry(q, k_full, k_scale_l, window, block_l))
+
+
+def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
     s_dim, m_dim, hd, n_kv, rep = g["s_dim"], g["n_heads"], g["hd"], g["n_kv"], g["rep"]
     bl, win = g["block_l"], g["win"]
     dev = q.device
@@ -152,6 +164,42 @@ def decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l, p
     return torch.where(l_run > 0, acc / torch.clamp_min(l_run, 1e-20), 0.0)
 
 
+def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
+    """The kernel's (kind, query heads per block) for a cache dtype; raises
+    on what the CUDA kernel does not take."""
+    if hd != _HD:
+        raise ValueError(f"decode attention kernel: head_dim must be {_HD}, got {hd}")
+    if kv_bits == 4:
+        kind, nq = 1, 2 * rep
+        if n_kv % 2:
+            raise ValueError("decode attention kernel: packed int4 needs an even n_kv_heads")
+    elif k_dtype == torch.int8:
+        kind, nq = 0, rep
+    elif k_dtype == torch.bfloat16:
+        kind, nq = 2, rep
+    elif k_dtype == torch.float32:
+        kind, nq = 3, rep
+    else:
+        raise ValueError(f"decode attention kernel: unsupported cache dtype {k_dtype}")
+    if nq not in _KERNEL_NQ:
+        raise ValueError(f"decode attention kernel: {nq} query heads per block unsupported")
+    return kind, nq
+
+
+def _check_inputs(q, tensors, k, v, block_rows, nq):
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode attention kernel: unsupported q dtype {q.dtype}")
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError("decode attention kernel: all inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("decode attention kernel: inputs must be contiguous")
+    if k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError("decode attention kernel: k and v caches differ")
+    if nq * block_rows * 5 > 160 * 1024:
+        raise ValueError(f"decode attention kernel: block of {block_rows} rows too large")
+
+
 def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positions,
                                 layer: int, *, window: Optional[int] = None,
                                 block_l: Optional[int] = None) -> torch.Tensor:
@@ -170,33 +218,11 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
     from tpuserve_torch import kernels
 
     g = _geometry(q, k_full, k_scale_l, window, block_l)
-    hd, n_kv, rep = g["hd"], g["n_kv"], g["rep"]
-    if hd != _HD:
-        raise ValueError(f"decode attention kernel: head_dim must be {_HD}, got {hd}")
-    if g["kv_bits"] == 4:
-        kind, nq = 1, 2 * rep
-        if n_kv % 2:
-            raise ValueError("decode attention kernel: packed int4 needs an even n_kv_heads")
-    elif k_full.dtype == torch.int8:
-        kind, nq = 0, rep
-    elif k_full.dtype == torch.bfloat16:
-        kind, nq = 2, rep
-    elif k_full.dtype == torch.float32:
-        kind, nq = 3, rep
-    else:
-        raise ValueError(f"decode attention kernel: unsupported cache dtype {k_full.dtype}")
-    if nq not in _KERNEL_NQ:
-        raise ValueError(f"decode attention kernel: {nq} query heads per block unsupported")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decode attention kernel: unsupported q dtype {q.dtype}")
-    tensors = [q, k_full, v_full, positions] + ([k_scale_l, v_scale_l] if g["quantized"] else [])
-    for t in tensors:
-        if t.device != q.device:
-            raise ValueError("decode attention kernel: all inputs must be on one device")
-        if not t.is_contiguous():
-            raise ValueError("decode attention kernel: inputs must be contiguous")
-    if k_full.shape != v_full.shape or k_full.dtype != v_full.dtype:
-        raise ValueError("decode attention kernel: k and v caches differ")
+    n_kv = g["n_kv"]
+    kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], g["hd"])
+    _check_inputs(q, [q, k_full, v_full, positions]
+                  + ([k_scale_l, v_scale_l] if g["quantized"] else []),
+                  k_full, v_full, g["block_l"], nq)
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     sc_bf16 = 0
@@ -208,9 +234,6 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
                                                                           torch.bfloat16):
             raise ValueError("decode attention kernel: scales must be f32 or bf16")
         sc_bf16 = int(k_scale_l.dtype == torch.bfloat16)
-    smem = nq * g["block_l"] * 5
-    if smem > 160 * 1024:
-        raise ValueError(f"decode attention kernel: block of {g['block_l']} rows too large")
     pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     null = 0
@@ -223,4 +246,114 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
         k_full.shape[-1], kind, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- paged pools
+def _paged_window(k_pool, page_table, window) -> Tuple[int, int]:
+    """(page_size, window) of a paged call; the window is a whole number of
+    pages and at most the table's width."""
+    if k_pool.dim() != 4:
+        raise ValueError("paged decode attention expects flat pools [n_layers, n_pages, ps, W]")
+    if page_table.dim() != 2:
+        raise ValueError("page_table must be [S, P]")
+    ps = k_pool.shape[2]
+    l_virt = page_table.shape[1] * ps
+    win = l_virt if window is None else min(int(window), l_virt)
+    if win <= 0 or win % ps:
+        raise ValueError(f"paged decode attention: window {win} is not a multiple of "
+                         f"page_size {ps}")
+    return ps, win
+
+
+def decode_attention_wide_paged_plain(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                                      page_table, positions, layer: int, *,
+                                      window: Optional[int] = None) -> torch.Tensor:
+    """The paged kernel's algorithm in plain PyTorch (any device): the
+    slot's pages gathered into a [S, win, Wst] window, the scale pages into
+    [S, Hkv, win], then the flat algorithm with one page per online-softmax
+    block. Returns [S, H, hd] f32."""
+    ps, win = _paged_window(k_pool, page_table, window)
+    s_dim, _, hd = q.shape
+    cols = page_table[:, :win // ps].to(device=q.device, dtype=torch.long)  # [S, win/ps]
+    k = k_pool[layer][cols].reshape(1, s_dim, win, k_pool.shape[-1])
+    v = v_pool[layer][cols].reshape(1, s_dim, win, v_pool.shape[-1])
+    ks = vs = None
+    if k_scale_pool is not None:
+        n_kv = k_pool.shape[-1] * (2 if k_pool.dtype == torch.uint8 else 1) // hd
+
+        def window_scales(pool):  # [S, win/ps, hp, ps] -> [S, Hkv, win]
+            return pool[layer][cols].permute(0, 2, 1, 3).reshape(s_dim, -1, win)[:, :n_kv]
+
+        ks, vs = window_scales(k_scale_pool), window_scales(v_scale_pool)
+    g = _geometry(q, k, ks, win, ps, pack=False)
+    return _attend_plain(q, k, v, ks, vs, positions, 0, g)
+
+
+def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, page_table,
+                                positions, layer: int, *,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a paged pool, pages read in place through the
+    page table (the JAX package's decode_attention_wide_paged with scale
+    pools).
+
+    q [S, H, hd] (f32 or bf16), already scaled by 1/sqrt(hd); k_pool/v_pool
+    [n_layers, n_pages, ps, Wst]; k_scale_pool/v_scale_pool [n_layers,
+    n_pages, pad8(Hkv), ps] f32 or None; page_table [S, P] int32 (pool page
+    ids; its rows may be strided, as a column slice is); positions [S] int
+    (-1 = inactive); `window` a multiple of ps. Returns [S, H, hd] f32.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    global paged_launches
+    if not q.is_cuda:
+        return decode_attention_wide_paged_plain(q, k_pool, v_pool, k_scale_pool,
+                                                 v_scale_pool, page_table, positions,
+                                                 layer, window=window)
+    from tpuserve_torch import kernels
+
+    ps, win = _paged_window(k_pool, page_table, window)
+    s_dim, n_heads, hd = q.shape
+    n_layers, n_pages, _, w_store = k_pool.shape
+    kv_bits = 4 if k_pool.dtype == torch.uint8 else 8
+    w = w_store * (2 if kv_bits == 4 else 1)
+    n_kv = w // hd
+    if n_kv == 0 or n_heads % n_kv:
+        raise ValueError(f"paged decode attention: {n_heads} heads over W={w}")
+    kind, nq = _kernel_kind(k_pool.dtype, kv_bits, n_kv, n_heads // n_kv, hd)
+    quantized = k_scale_pool is not None
+    if quantized != (kind in (0, 1)) or quantized != (v_scale_pool is not None):
+        raise ValueError("paged decode attention: int8/int4 pools take scale pools, "
+                         "float pools none")
+    if kv_bits == 4 and (w // 2) % 128:
+        raise ValueError(f"packed int4 KV needs (n_kv_heads*head_dim)/2 % 128 == 0, got W={w}")
+    _check_inputs(q, [q, k_pool, v_pool, positions]
+                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool, ps, nq)
+    if (page_table.device != q.device or page_table.dtype != torch.int32
+            or page_table.shape[0] != s_dim or page_table.stride(1) != 1):
+        raise ValueError("paged decode attention: page_table must be int32 [S, P] on the "
+                         "card with unit column stride")
+    if positions.shape != (s_dim,) or positions.dtype != torch.int32:
+        raise ValueError("paged decode attention: positions must be int32 [S]")
+    if not 0 <= int(layer) < n_layers:
+        raise ValueError(f"layer {layer} out of range")
+    hp = 0
+    if quantized:
+        hp = k_scale_pool.shape[2]
+        want = (n_layers, n_pages, hp, ps)
+        if (tuple(k_scale_pool.shape) != want or tuple(v_scale_pool.shape) != want
+                or hp < n_kv):
+            raise ValueError(f"paged decode attention: scale pools must be "
+                             f"[n_layers, n_pages, >= {n_kv}, ps]")
+        if k_scale_pool.dtype != torch.float32 or v_scale_pool.dtype != torch.float32:
+            raise ValueError("paged decode attention: scale pools must be float32")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    null = 0
+    rc = kernels.lib().tpuserve_decode_attention_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale_pool.data_ptr() if quantized else null,
+        v_scale_pool.data_ptr() if quantized else null,
+        positions.data_ptr(), page_table.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), s_dim, n_heads, n_kv, n_pages, ps, hp, int(layer),
+        win, page_table.stride(0), w_store, kind, nq, kernels.stream_of(q))
+    kernels.check(rc, "decode_attention_paged")
+    paged_launches += 1
     return out

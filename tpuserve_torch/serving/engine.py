@@ -1,5 +1,6 @@
 """GenerationEngine — continuous batching over a slotted KV cache (PyTorch
-port of tpuserve/serving/engine.py, contiguous single-device path).
+port of tpuserve/serving/engine.py, the single-device contiguous and paged
+paths).
 
 - S decode *slots* (config.generation.max_slots). A scheduler thread owns
   the device loop: admit pending requests into free slots (prefill, or
@@ -16,10 +17,16 @@ port of tpuserve/serving/engine.py, contiguous single-device path).
 - Weights load from model.safetensors (flat llama.py names) and are
   quantized on load per config.quantization; `model_params.init` "random"
   or "random_quantized" makes them from a seed instead.
+- Paged mode (generation.paged): a page pool (serving/paged_kv.py) with a
+  page table per slot, pages allocated as slots grow and released when
+  they retire; prefix sharing (generation.prefix_sharing) reuses the pages
+  of matched full-page prompt prefixes and prefills only the suffix.
+  Chunked prefill rides the suffix path, so prefill_chunk must be a
+  multiple of page_size.
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (paged KV, speculation, sharding, GPTQ, LoRC,
+that need unported parts (speculation, sharding or pipelining, GPTQ, LoRC,
 MoE) raise BackendError.
 """
 
@@ -41,6 +48,7 @@ from tpuserve_torch.models import llama
 from tpuserve_torch.models.llama import KVCache, LlamaParams
 from tpuserve_torch.quant.core import QTensor, quantize_param_tree
 from tpuserve_torch.repository.config import ModelConfig
+from tpuserve_torch.serving.paged_kv import PagedKVCache, PageTableManager
 from tpuserve_torch.serving.sampling import SamplingParams, sample_with_logprobs
 from tpuserve_torch.utils.dtypes import DataType
 from tpuserve_torch.utils.errors import BackendError, InvalidArgumentError
@@ -103,7 +111,8 @@ class GenerationEngine:
         self.default_max_new = int(gen.max_new_tokens)
 
         self.params = None
-        self.cache: Optional[KVCache] = None
+        self.cache = None  # KVCache, or PagedKVCache in paged mode
+        self.ptm: Optional[PageTableManager] = None  # paged mode only
         self._param_bytes = 0
         self._pending: "queue.Queue[Optional[Request]]" = queue.Queue()
         self._slots: List[Optional[_SlotState]] = [None] * self.n_slots
@@ -147,10 +156,9 @@ class GenerationEngine:
         cfg, gen, qcfg = self.config, self.config.generation, self.config.quantization
         shard = cfg.sharding
         unported = []
-        if gen.paged:
-            unported.append("paged KV (generation.paged)")
         if int(getattr(gen, "speculation_tokens", 0) or 0) > 0:
-            unported.append("speculative decoding (generation.speculation_tokens)")
+            unported.append("speculative decoding (generation.speculation_tokens)"
+                            + (", with paged KV or without" if gen.paged else ""))
         if (shard.tensor_parallel * shard.data_parallel
                 * int(getattr(shard, "sequence_parallel", 1))
                 * int(getattr(shard, "pipeline_parallel", 1))) > 1:
@@ -201,6 +209,11 @@ class GenerationEngine:
         self._param_bytes = sum(
             v.nbytes if isinstance(v, QTensor) else v.numel() * v.element_size()
             for v in params.values())
+        gen = self.config.generation
+        if gen.paged and self._chunk_size > 0 and self._chunk_size % int(gen.page_size) != 0:
+            raise BackendError(
+                f"generation.prefill_chunk ({self._chunk_size}) must be a "
+                f"multiple of page_size ({gen.page_size}) in paged mode")
         if self._chunk_size > 0 and self.max_seq_len % self._chunk_size != 0:
             # a trailing chunk may not straddle max_seq_len
             raise BackendError(
@@ -210,11 +223,25 @@ class GenerationEngine:
         kv_bits = 4 if qcfg.kv_cache == "int4" else 8
         if kv_bits == 4 and (p.n_kv_heads * p.head_dim) % 2:
             raise BackendError("kv_cache int4 needs even n_kv_heads*head_dim")
-        scale_dtype = torch.bfloat16 \
-            if getattr(qcfg, "kv_scale_dtype", "float32") == "bfloat16" else torch.float32
-        self.cache = KVCache.create(p, self.n_slots, self.max_seq_len, quantized=quant_kv,
-                                    dtype=torch.bfloat16, scale_dtype=scale_dtype,
-                                    kv_bits=kv_bits, device=self.device)
+        if gen.paged:
+            # flat pools only (the JAX package's int4 pools are always flat);
+            # scale pools are float32 whatever kv_scale_dtype says, as there
+            ps = int(gen.page_size)
+            max_pages = -(-self.max_seq_len // ps)
+            num_pages = int(gen.num_pages) or self.n_slots * max_pages + 1
+            self.cache = PagedKVCache.create(p, num_pages, ps, quantized=quant_kv,
+                                             dtype=torch.bfloat16, kv_bits=kv_bits,
+                                             device=self.device)
+            self.ptm = PageTableManager(num_pages, ps, self.n_slots, self.max_seq_len,
+                                        prefix_sharing=bool(gen.prefix_sharing),
+                                        device=self.device)
+        else:
+            scale_dtype = torch.bfloat16 \
+                if getattr(qcfg, "kv_scale_dtype", "float32") == "bfloat16" else torch.float32
+            self.cache = KVCache.create(p, self.n_slots, self.max_seq_len, quantized=quant_kv,
+                                        dtype=torch.bfloat16, scale_dtype=scale_dtype,
+                                        kv_bits=kv_bits, device=self.device)
+            self.ptm = None
         self._presence = torch.zeros((self.n_slots, p.vocab_size), dtype=torch.bool,
                                      device=self.device)
         self._running = True
@@ -240,6 +267,7 @@ class GenerationEngine:
             req.error = reason
             req.token_queue.put(None)
             req.done.set()
+            self._release(self._chunking["slot"])
             self._chunking = None
         for i, st in enumerate(self._slots):
             if st is not None:
@@ -247,6 +275,7 @@ class GenerationEngine:
                 st.request.token_queue.put(None)
                 st.request.done.set()
                 self._slots[i] = None
+                self._release(i)
         while True:
             try:
                 req = self._pending.get_nowait()
@@ -256,6 +285,11 @@ class GenerationEngine:
                 req.error = reason
                 req.token_queue.put(None)
                 req.done.set()
+
+    def _release(self, slot: int) -> None:
+        """Return a slot's pages to the pool (paged mode; else a no-op)."""
+        if self.ptm is not None:
+            self.ptm.release(slot)
 
     def memory_usage_bytes(self) -> int:
         total = self._param_bytes
@@ -272,11 +306,18 @@ class GenerationEngine:
             "prefill_calls": self.prefill_calls,
             "tokens_generated": self.tokens_out,
             "tokens_prefilled": self.tokens_in,
-            "paged": False,
+            "paged": self.ptm is not None,
             "decode_horizon_last": self._horizon_last,
         }
         if self._tok_ms_ema is not None:
             stats["decode_token_ms_ema"] = round(self._tok_ms_ema, 3)
+        if self.ptm is not None:
+            stats["kv_free_pages"] = self.ptm.free_pages
+            if self.ptm.prefix_sharing:
+                stats["prefix_cached_blocks"] = self.ptm.cached_blocks
+                stats["prefix_hits"] = self.ptm.prefix_hits
+                stats["prefix_hit_tokens"] = self.ptm.prefix_hit_tokens
+            stats["kv_page_size"] = self.ptm.page_size
         return stats
 
     # ------------------------------------------------------------------ API
@@ -352,10 +393,34 @@ class GenerationEngine:
         return torch.from_numpy(tokens).to(self.device)
 
     def _dev_admit(self, slot: int, prompt_ids, samp):
-        """Whole-prompt admission: bucketed prefill + first-token sample."""
-        tokens = self._tokens(prompt_ids, self._bucket_len(len(prompt_ids)))
-        logits, _ = llama.prefill(self.params, self.p, tokens, self.cache, slot,
-                                  len(prompt_ids))
+        """Whole-prompt admission: bucketed prefill + first-token sample.
+        Paged mode: shared prefix pages first, private pages for the rest,
+        and a suffix prefill when a prefix matched."""
+        l = len(prompt_ids)
+        bucket = self._bucket_len(l)
+        if self.ptm is None:
+            logits, _ = llama.prefill(self.params, self.p, self._tokens(prompt_ids, bucket),
+                                      self.cache, slot, l)
+        else:
+            _, matched = self.ptm.admit_shared(slot, prompt_ids)
+            try:
+                self.ptm.ensure(slot, bucket)  # raises ResourceExhaustedError
+            except Exception:
+                self.ptm.release(slot)  # drop the shared refs taken above
+                raise
+            if matched > 0:
+                # matched pages already hold valid KV: prefill the suffix only
+                suffix = prompt_ids[matched:]
+                cb = self._bucket_len(len(suffix))
+                ps = self.ptm.page_size
+                win = -(-min(matched + cb, self.max_seq_len) // ps) * ps
+                logits, _ = llama.prefill_paged_suffix(
+                    self.params, self.p, self._tokens(suffix, cb), self.cache,
+                    self.ptm.device_table(), slot, matched, len(suffix), window=win)
+            else:
+                logits, _ = llama.prefill_paged(
+                    self.params, self.p, self._tokens(prompt_ids, bucket), self.cache,
+                    self.ptm.device_table(), slot, l)
         self.prefill_calls += 1
         return self._dev_first_sample(slot, prompt_ids, samp, logits)
 
@@ -374,10 +439,16 @@ class GenerationEngine:
         return tok, lp0
 
     def _dev_chunk(self, slot: int, chunk_ids, c0: int, n: int, window: int):
-        """One prefill chunk; returns this chunk's logits."""
+        """One prefill chunk; returns this chunk's logits. Paged mode runs
+        it as a suffix prefill over the slot's pages."""
         tokens = self._tokens(chunk_ids, self._chunk_size)
-        logits, _ = llama.prefill_chunk(self.params, self.p, tokens, self.cache, slot,
-                                        c0, n, window=window)
+        if self.ptm is None:
+            logits, _ = llama.prefill_chunk(self.params, self.p, tokens, self.cache, slot,
+                                            c0, n, window=window)
+        else:
+            logits, _ = llama.prefill_paged_suffix(
+                self.params, self.p, tokens, self.cache, self.ptm.device_table(), slot,
+                c0, n, window=window)
         self.prefill_calls += 1
         return logits
 
@@ -389,10 +460,16 @@ class GenerationEngine:
         positions = np.asarray(positions, np.int32)
         pos = torch.from_numpy(positions).to(self.device)
         active_idx = torch.from_numpy(np.nonzero(positions >= 0)[0]).to(self.device)
+        table = None if self.ptm is None else self.ptm.device_table()
         out_t, out_lp = [], []
         for _ in range(horizon):
-            logits, _ = llama.decode_step(self.params, self.p, toks, self.cache, pos,
-                                          window=window, active_idx=active_idx)
+            if table is None:
+                logits, _ = llama.decode_step(self.params, self.p, toks, self.cache, pos,
+                                              window=window, active_idx=active_idx)
+            else:
+                logits, _ = llama.decode_step_paged(self.params, self.p, toks, self.cache,
+                                                    table, pos, window=window,
+                                                    active_idx=active_idx)
             toks, lp, _ = sample_with_logprobs(logits, self._sampling, self._generator,
                                                self._presence)
             pos = torch.where(pos >= 0, pos + 1, pos)
@@ -410,7 +487,9 @@ class GenerationEngine:
         self._emit(req, tok, lp0)
         st = _SlotState(request=req, next_pos=len(req.prompt_ids), generated=1,
                         last_token=tok)
-        if not self._retire_if_done(st):
+        if self._retire_if_done(st):
+            self._release(slot)
+        else:
             self._slots[slot] = st
 
     def _advance_chunk(self) -> None:
@@ -422,19 +501,31 @@ class GenerationEngine:
             req.token_queue.put(None)
             req.done.set()
             self._chunking = None
+            self._release(slot)
             return
         ids = req.prompt_ids
         c0 = ch["progress"]
         cs = self._chunk_size
         try:
-            n = min(cs, len(ids) - c0)
-            window = self._bucket_len(min(c0 + cs, self.max_seq_len))
+            if self.ptm is None:
+                n = min(cs, len(ids) - c0)
+                window = self._bucket_len(min(c0 + cs, self.max_seq_len))
+            else:
+                if c0 == 0:
+                    _, matched = self.ptm.admit_shared(slot, ids)
+                    if matched > 0:  # matched pages already hold valid KV
+                        ch["progress"] = c0 = matched
+                n = min(cs, len(ids) - c0)
+                self.ptm.ensure(slot, c0 + n)
+                ps = self.ptm.page_size
+                window = -(-min(c0 + cs, self.max_seq_len) // ps) * ps
             logits = self._dev_chunk(slot, ids[c0:c0 + n], c0, n, window)
         except Exception as e:
             req.error = str(e)
             req.token_queue.put(None)
             req.done.set()
             self._chunking = None
+            self._release(slot)
             return
         ch["progress"] = c0 + n
         if ch["progress"] < len(ids):
@@ -446,7 +537,9 @@ class GenerationEngine:
         self.tokens_in += len(ids)
         self._emit(req, tok, lp0)
         st = _SlotState(request=req, next_pos=len(ids), generated=1, last_token=tok)
-        if not self._retire_if_done(st):
+        if self._retire_if_done(st):
+            self._release(slot)
+        else:
             self._slots[slot] = st
 
     def _emit(self, req: Request, tok: int, logprob: Optional[float] = None) -> None:
@@ -509,6 +602,7 @@ class GenerationEngine:
                     req.error = str(e)
                     req.token_queue.put(None)
                     req.done.set()
+                    self._release(slot)
                 if self._pending.empty():
                     break
 
@@ -519,6 +613,7 @@ class GenerationEngine:
             for i, st in enumerate(self._slots):
                 if st is not None and st.request.aborted and self._retire_if_done(st):
                     self._slots[i] = None
+                    self._release(i)
 
             active = [i for i, s in enumerate(self._slots) if s is not None]
             if not active:
@@ -530,6 +625,23 @@ class GenerationEngine:
                 st = self._slots[i]
                 tokens[i] = st.last_token
                 positions[i] = st.next_pos
+            if self.ptm is not None:
+                # grow page chains for the token each active slot writes
+                for i in list(active):
+                    st = self._slots[i]
+                    try:
+                        self.ptm.ensure(i, st.next_pos + 1)
+                    except Exception as e:
+                        st.request.error = str(e)
+                        st.request.finish_reason = "kv_pages_exhausted"
+                        st.request.token_queue.put(None)
+                        st.request.done.set()
+                        self.ptm.release(i)
+                        self._slots[i] = None
+                        positions[i] = -1
+                        active.remove(i)
+                if not active:
+                    continue
             # fused horizon: when nothing waits to be admitted, run up to
             # decode_horizon steps per host fetch, bounded by each slot's
             # remaining budget and the sequence capacity
@@ -557,6 +669,14 @@ class GenerationEngine:
                 while window <= last_pos:
                     window *= 2
                 window = min(window, self.max_seq_len)
+            if self.ptm is not None and horizon > 1:
+                # page chains must cover every position the horizon writes
+                for i in active:
+                    try:
+                        self.ptm.ensure(i, self._slots[i].next_pos + horizon)
+                    except Exception:
+                        horizon = 1
+                        break
             try:
                 t_disp = time.monotonic()
                 step_tokens, step_lps = self._dev_decode(tokens, positions, window, horizon)
@@ -571,6 +691,7 @@ class GenerationEngine:
                     st.request.token_queue.put(None)
                     st.request.done.set()
                     self._slots[i] = None
+                    self._release(i)
                 continue
             self.steps += step_tokens.shape[0]
             for h in range(step_tokens.shape[0]):
@@ -587,3 +708,4 @@ class GenerationEngine:
                         # slot's cache tail is masked by position on reads
                         self._slots[i] = None
                         active.remove(i)
+                        self._release(i)
