@@ -243,15 +243,20 @@ def check_decode_attention(torch, timer, reps, p):
     pos_main = torch.randint(0, l, (s,), generator=g, device="cuda", dtype=torch.int32)
     pos_main[::9] = -1            # inactive slots
     pos_main[1] = l - 1
-    cases = [("int4", None, s, h, hkv, l), ("int8", None, s, h, hkv, l),
-             ("bf16", None, s, h, hkv, l), ("int8", 128, s, h, hkv, l),
+    pos_step = step_positions(torch, g, s)
+    # (kind, window, S, H, Hkv, L, at the full-width step's positions)
+    cases = [("int4", None, s, h, hkv, l, False), ("int8", None, s, h, hkv, l, False),
+             ("bf16", None, s, h, hkv, l, False), ("int8", 128, s, h, hkv, l, False),
              # the TPU's packed (2b) case: W = 256 makes win*W*sb < 1 MiB, so
              # one P requant covers the whole 256-row window
-             ("int8", None, 16, 8, 2, l)]
-    for kind, window, ss, hh, kk, lcache in cases:
+             ("int8", None, 16, 8, 2, l, False),
+             ("int4", None, s, h, hkv, l, True)]
+    for kind, window, ss, hh, kk, lcache, at_step in cases:
         ww = kk * hd
         win = window or lcache
-        if ss == s:
+        if at_step:
+            pos = pos_step
+        elif ss == s:
             pos = pos_main.clamp(max=win - 1)
             pos[::9] = -1
         else:
@@ -308,13 +313,14 @@ def check_decode_attention(torch, timer, reps, p):
                          None if sc is None else sc[0][0, :, :, :win],
                          None if sc is None else sc[1][0, :, :, :win], pos, kind)
         row = dict(kind=kind, S=ss, H=hh, Hkv=kk, L=lcache, window=window, live_rows=live,
-                   layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        if kind == "int4" and ss == s:
+                   step_positions=at_step, layers_rotated=n_layers, max_abs_err=err, tol=tol,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if kind == "int4" and ss == s and not at_step:
             main = row
         rows.append(row)
         log(f"[kernel] decode_attention {kind} S={ss} H={hh} Hkv={kk} L={lcache} "
-            f"window={window}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms, bound "
+            f"window={window}{' step positions' if at_step else ''}: max|err| {err:.3g} "
+            f"(tol {tol:.3g}); {ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
             f"{n_layers} layers rotated")
         del kv, sc
@@ -324,6 +330,14 @@ def check_decode_attention(torch, timer, reps, p):
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"],
                 per="one decode step: 32 launches, packed int4 KV, S=64, L=256", cases=rows)
+
+
+def step_positions(torch, g, s):
+    """Positions of the slices' full-width decode step: every slot live at
+    100-249 but slot 7, so most slots read two 128-row blocks."""
+    pos = torch.randint(100, 250, (s,), generator=g, device="cuda", dtype=torch.int32)
+    pos[7] = -1
+    return pos
 
 
 def sdpa_ms(torch, timer, reps, q, kw, vw, ks, vs, pos, kind):
@@ -372,14 +386,16 @@ def check_decode_attention_paged(torch, timer, reps, p):
     n_pages = s * n_cols + 1                       # page 0 is the reserved zero page
     table = (1 + torch.randperm(n_pages - 1, generator=g, device="cuda")).view(
         s, n_cols).to(torch.int32)
-    pos = torch.randint(0, l, (s,), generator=g, device="cuda", dtype=torch.int32)
-    pos[::9] = -1                                  # inactive slots
-    pos[1], pos[2], pos[3] = l - 1, ps - 1, ps     # last row, page edges
-    live = int((pos.clamp(min=-1) + 1).sum().item())          # KV rows the data needs
-    pages_read = int(torch.div(pos + ps, ps, rounding_mode="floor").sum().item())
+    pos_rand = torch.randint(0, l, (s,), generator=g, device="cuda", dtype=torch.int32)
+    pos_rand[::9] = -1                                  # inactive slots
+    pos_rand[1], pos_rand[2], pos_rand[3] = l - 1, ps - 1, ps  # last row, page edges
+    pos_step = step_positions(torch, g, s)
     idx = table.long()
     worst, rows, main = 0.0, [], None
-    for kind in ("int8", "int4", "bf16"):
+    for kind, at_step in (("int8", False), ("int4", False), ("bf16", False), ("int8", True)):
+        pos = pos_step if at_step else pos_rand
+        live = int((pos.clamp(min=-1) + 1).sum().item())      # KV rows the data needs
+        pages_read = int(torch.div(pos + ps, ps, rounding_mode="floor").sum().item())
         elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
         kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
@@ -447,13 +463,15 @@ def check_decode_attention_paged(torch, timer, reps, p):
         lib_ms = sdpa_ms(torch, timer, reps, q, flat[0][0, :, :l], flat[1][0, :, :l],
                          ks0, vs0, pos, kind)
         row = dict(kind=kind, S=s, H=h, Hkv=hkv, page_size=ps, L=l, live_rows=live,
-                   pages_read=pages_read, layers_rotated=n_layers, max_abs_err=err, tol=tol,
-                   flat_err=flat_err, flat_tol=flat_tol, ms=ms, flat_ms=flat_ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        if kind == "int8":                          # the paged slice's KV
+                   pages_read=pages_read, step_positions=at_step, layers_rotated=n_layers,
+                   max_abs_err=err, tol=tol, flat_err=flat_err, flat_tol=flat_tol, ms=ms,
+                   flat_ms=flat_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        if kind == "int8" and not at_step:          # the paged slice's KV
             main = row
         rows.append(row)
-        log(f"[kernel] decode_attention_paged {kind} S={s} H={h} Hkv={hkv} ps={ps} L={l}: "
+        log(f"[kernel] decode_attention_paged {kind} S={s} H={h} Hkv={hkv} ps={ps} L={l}"
+            f"{' step positions' if at_step else ''}: "
             f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel {flat_err:.3g} (tol "
             f"{flat_tol}); {ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "

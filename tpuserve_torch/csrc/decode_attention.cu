@@ -38,9 +38,10 @@
 // used for 2*rep operations. Design: one block of 4 warps per (kv unit,
 // slot). A kv unit is one kv head, or for packed int4 the head pair
 // (h, h + Hkv/2) whose nibbles share bytes [h*hd, (h+1)*hd) of each row,
-// so every byte is read once. One warp reads one 128-byte row segment at a
-// time (coalesced), the rep query heads of the unit share each row read,
-// and rows past positions[slot] are never read.
+// so every byte is read once. A warp reads a row's segment of the unit in
+// one coalesced load and starts the loads of ROWS rows before it uses them,
+// the rep query heads of the unit share each row read, and rows past
+// positions[slot] are never read.
 #include "common.cuh"
 
 namespace {
@@ -52,6 +53,7 @@ using tpuserve::warp_sum;
 constexpr int HD = 128;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 4;  // rows a warp loads before it computes on them
 constexpr float NEG_INF = -1e30f;
 
 enum Kind { KV_INT8 = 0, KV_INT4 = 1, KV_BF16 = 2, KV_F32 = 3 };
@@ -80,6 +82,30 @@ __device__ __forceinline__ float load_scale(const void* p, size_t i, int bf16) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One lane's 4 values of a cache row: 4 bytes (int8, packed int4), 4 bf16
+// or 4 f32.
+template <int KIND> struct RowWord { using T = uint32_t; };
+template <> struct RowWord<KV_BF16> { using T = uint2; };
+template <> struct RowWord<KV_F32> { using T = float4; };
+
+// off: the row segment's first element (byte for int8/int4), a multiple of 4
+template <int KIND>
+__device__ __forceinline__ typename RowWord<KIND>::T load_word(const void* base, size_t off,
+                                                               int lane) {
+  return reinterpret_cast<const typename RowWord<KIND>::T*>(base)[off / 4 + lane];
+}
+
+template <int KIND>
+__device__ __forceinline__ void word_floats(const typename RowWord<KIND>::T& w, float (&x)[4]) {
+  if constexpr (KIND == KV_BF16) {
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[c] = __bfloat162float(h[c]);
+  } else if constexpr (KIND == KV_F32) {
+    x[0] = w.x; x[1] = w.y; x[2] = w.z; x[3] = w.w;
+  }
 }
 
 template <int KIND, int NQ, bool PAGED>
@@ -183,57 +209,70 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
       sc_h = a.L;
     }
 
-    // ---- phase 1: scores for every row of the block (dead rows masked)
-    for (int i = warp; i < bl; i += WARPS) {
-      if (i >= live) {
-        if (lane < NQ) sc[lane * bl + i] = NEG_INF;
-        continue;
-      }
-      const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
-      float s[NQ];
-      if (INTK) {
-        const uint32_t kw = *reinterpret_cast<const uint32_t*>(
-            reinterpret_cast<const uint8_t*>(a.k) + off + lane * 4);
-        int d[NQ];
+    // one lane's word of block row i of the K or V cache
+    auto word = [&](const void* base, int i) {
+      return load_word<KIND>(base, (blk_row + i) * (size_t)a.row_stride + unit_off, lane);
+    };
+
+    // ---- phase 1: scores for every row of the block (dead rows masked).
+    // A warp takes rows warp, warp + WARPS, ... in groups of ROWS: it loads
+    // the group's K words and scales first, so that ROWS loads are in
+    // flight, then does their dots.
+    for (int i0 = warp; i0 < bl; i0 += WARPS * ROWS) {
+      typename RowWord<KIND>::T kw[ROWS] = {};
+      float ks_lo[ROWS] = {}, ks_hi[ROWS] = {};  // scales of kv_of(0) and kv_of(NQ-1)
 #pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          if (KIND == KV_INT4) {
-            const int nib = (int)((j < rep) ? (kw & 0x0F0F0F0Fu) : ((kw >> 4) & 0x0F0F0F0Fu));
-            d[j] = __dp4a(qw[j], nib, 0) - 8 * qsum[j];
-          } else {
-            d[j] = __dp4a(qw[j], (int)kw, 0);
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = i0 + r * WARPS;
+        if (i < live) {
+          kw[r] = word(a.k, i);
+          if constexpr (INTK) {
+            ks_lo[r] = load_scale(a.ks, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
+            if (KIND == KV_INT4) ks_hi[r] = load_scale(a.ks, sc0 + kv_of(NQ - 1) * sc_h + i, a.sc_bf16);
           }
-          d[j] = warp_sum(d[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float ksc = load_scale(a.ks, sc0 + kv_of(j) * sc_h + i, a.sc_bf16);
-          s[j] = ((float)d[j] * s_qscale[j]) * ksc;
-        }
-      } else {
-        float kv[4];
-        if (KIND == KV_BF16) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(
-              reinterpret_cast<const __nv_bfloat16*>(a.k) + off + lane * 4);
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) kv[c] = __bfloat162float(h[c]);
-        } else {
-          const float4 raw = *reinterpret_cast<const float4*>(
-              reinterpret_cast<const float*>(a.k) + off + lane * 4);
-          kv[0] = raw.x; kv[1] = raw.y; kv[2] = raw.z; kv[3] = raw.w;
-        }
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          float t = 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) t += qv4[j][c] * kv[c];
-          s[j] = warp_sum(t);
         }
       }
-      if (lane == 0) {
 #pragma unroll
-        for (int j = 0; j < NQ; ++j) sc[j * bl + i] = s[j];
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = i0 + r * WARPS;
+        if (i >= bl) break;
+        if (i >= live) {
+          if (lane < NQ) sc[lane * bl + i] = NEG_INF;
+          continue;
+        }
+        float s[NQ];
+        if constexpr (INTK) {
+          int d[NQ];
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            if (KIND == KV_INT4) {
+              const int nib = (int)((j < rep) ? (kw[r] & 0x0F0F0F0Fu) : ((kw[r] >> 4) & 0x0F0F0F0Fu));
+              d[j] = __dp4a(qw[j], nib, 0) - 8 * qsum[j];
+            } else {
+              d[j] = __dp4a(qw[j], (int)kw[r], 0);
+            }
+            d[j] = warp_sum(d[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const float ksc = (KIND == KV_INT4 && j >= rep) ? ks_hi[r] : ks_lo[r];
+            s[j] = ((float)d[j] * s_qscale[j]) * ksc;
+          }
+        } else {
+          float kv[4];
+          word_floats<KIND>(kw[r], kv);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            float t = 0.f;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) t += qv4[j][c] * kv[c];
+            s[j] = warp_sum(t);
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) sc[j * bl + i] = s[j];
+        }
       }
     }
     __syncthreads();
@@ -280,29 +319,37 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
     }
     __syncthreads();
 
-    // ---- phase 3: P @ V over the live rows; one warp per row
-    if (INTK) {
+    // ---- phase 3: P @ V over the live rows; one warp per row, the V words
+    // of ROWS rows loaded first as in phase 1
+    if constexpr (INTK) {
       int pa[NQ][4];
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0;
-      for (int i = warp; i < live; i += WARPS) {
-        const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
-        const uint32_t vw = *reinterpret_cast<const uint32_t*>(
-            reinterpret_cast<const uint8_t*>(a.v) + off + lane * 4);
+      for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+        uint32_t vws[ROWS] = {};
 #pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const int p = (int)pq[(size_t)j * bl + i];
+        for (int r = 0; r < ROWS; ++r)
+          if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const uint32_t byte = (vw >> (8 * c)) & 0xFFu;
-            int val;
-            if (KIND == KV_INT4)
-              val = (int)((j < rep) ? (byte & 0xFu) : (byte >> 4)) - 8;
-            else
-              val = (int)(int8_t)byte;
-            pa[j][c] += p * val;
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i >= live) break;
+          const uint32_t vw = vws[r];
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int p = (int)pq[(size_t)j * bl + i];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const uint32_t byte = (vw >> (8 * c)) & 0xFFu;
+              int val;
+              if (KIND == KV_INT4)
+                val = (int)((j < rep) ? (byte & 0xFu) : (byte >> 4)) - 8;
+              else
+                val = (int)(int8_t)byte;
+              pa[j][c] += p * val;
+            }
           }
         }
       }
@@ -326,25 +373,23 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0.f;
-      for (int i = warp; i < live; i += WARPS) {
-        const size_t off = (blk_row + i) * (size_t)a.row_stride + unit_off;
-        float vv[4];
-        if (KIND == KV_BF16) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(
-              reinterpret_cast<const __nv_bfloat16*>(a.v) + off + lane * 4);
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+        typename RowWord<KIND>::T vws[ROWS] = {};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) vv[c] = __bfloat162float(h[c]);
-        } else {
-          const float4 raw = *reinterpret_cast<const float4*>(
-              reinterpret_cast<const float*>(a.v) + off + lane * 4);
-          vv[0] = raw.x; vv[1] = raw.y; vv[2] = raw.z; vv[3] = raw.w;
-        }
+        for (int r = 0; r < ROWS; ++r)
+          if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float p = sc[(size_t)j * bl + i];
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i >= live) break;
+          float vv[4];
+          word_floats<KIND>(vws[r], vv);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) pa[j][c] += p * vv[c];
+          for (int j = 0; j < NQ; ++j) {
+            const float p = sc[(size_t)j * bl + i];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) pa[j][c] += p * vv[c];
+          }
         }
       }
 #pragma unroll
