@@ -8,6 +8,9 @@ Phases, each fatal on failure:
               path's shapes, with its time, the plain version's, a library
               yardstick's and the card's bound; the paged decode attention
               also against the flat kernel on the same KV in shuffled pages;
+              the multi-candidate (speculative verify) decode attention
+              also against the flat kernel at positions + c, and timed
+              against C flat calls;
   4. slice    a Llama-2-7B-width int4 model (random weights from a seed, 32
               layers, int4 g128, packed int4 KV, 64 slots, L=256) loaded
               through InferenceManager(device="cuda"), serving concurrent
@@ -19,7 +22,17 @@ Phases, each fatal on failure:
               down: concurrent requests, two of them sharing a 128-token
               prefix with an earlier one; prefix hits, the pages returned,
               the launch counts, shared vs unshared first-token logits and
-              one full-width paged decode step, kernels vs plain versions.
+              one full-width paged decode step, kernels vs plain versions;
+  6. spec     the JAX package's 7B speculation setting (int8 KV, 8 slots
+              of 512, 8 drafts, 4 fused rounds): 8 concurrent greedy
+              requests of a periodic prompt with speculation on, then off
+              on the same engine; drafts, no disabled speculation and 32
+              multi-kernel launches per verify round are required; one
+              full-width verify_step against its plain versions and
+              against C sequential decode steps;
+  7. spec-paged  the paged setting with speculation: drafts, every page
+              back, and no multi-kernel launch (the paged verify attends in
+              plain torch).
 Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -342,13 +355,16 @@ def step_positions(torch, g, s):
 
 def sdpa_ms(torch, timer, reps, q, kw, vw, ks, vs, pos, kind):
     """Library yardstick: SDPA over the dequantized bf16 window, masked by
-    position, on copies that together exceed the L2. kw/vw are one layer's
-    window [S, win, Wst] of codes or values, ks/vs its scales [S, Hkv, win]
-    or None."""
+    position, on copies that together exceed the L2. q is [S, H, hd], or
+    [S, C, H, hd] for C candidates, candidate c masked past pos + c; kw/vw
+    are one layer's window [S, win, Wst] of codes or values, ks/vs its
+    scales [S, Hkv, win] or None."""
     import torch.nn.functional as F
     from tpuserve_torch.models.llama import unpack_kv_codes
 
-    ss, hh, hd = q.shape
+    if q.dim() == 3:
+        q = q[:, None]
+    ss, cc, hh, hd = q.shape
     win = kw.shape[1]
     if kind == "int4":
         kw, vw = unpack_kv_codes(kw), unpack_kv_codes(vw)
@@ -362,8 +378,9 @@ def sdpa_ms(torch, timer, reps, q, kw, vw, ks, vs, pos, kind):
     vd = vd.to(torch.bfloat16).repeat_interleave(hh // kk, dim=1).contiguous()
     copies = max(1, math.ceil(L2_FLUSH_BYTES / (2 * kd.numel() * 2)))
     kvd = [(kd, vd)] + [(kd.clone(), vd.clone()) for _ in range(copies - 1)]
-    mask = (torch.arange(win, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
-    qs = q[:, :, None, :]
+    horizon = pos[:, None] + torch.arange(cc, device="cuda")[None, :]        # [S, C]
+    mask = (torch.arange(win, device="cuda")[None, None, :] <= horizon[:, :, None])[:, None]
+    qs = q.permute(0, 2, 1, 3)                                                # [S, H, C, hd]
     ms = timer.ms(lambda i: F.scaled_dot_product_attention(
         qs, *kvd[i % copies], attn_mask=mask, scale=1.0), reps)
     del kvd, kd, vd
@@ -486,11 +503,104 @@ def check_decode_attention_paged(torch, timer, reps, p):
                 cases=rows)
 
 
+def check_decode_attention_multi(torch, timer, reps, p):
+    """The multi-candidate (speculative verify) kernel at the [spec] phase's
+    shapes (S=8 slots, C=9 candidates, L=512, Llama-2-7B heads, positions
+    100-400) against its plain version, and each candidate c against the
+    flat kernel at positions + c on the same KV."""
+    from tpuserve_torch.ops.decode_attention import (
+        decode_attention_wide_cache, decode_attention_wide_cache_multi,
+        decode_attention_wide_cache_multi_plain)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    s, c, h, hkv, hd, l = 8, 9, p.n_heads, p.n_kv_heads, p.head_dim, 512
+    w = hkv * hd
+    pos = torch.randint(100, 401, (s,), generator=g, device="cuda", dtype=torch.int32)
+    pos_c = [pos + j for j in range(c)]
+    live = int((pos + c).sum().item())          # KV rows the kernel reads, once each
+    cand_rows = sum(int((pc + 1).sum().item()) for pc in pos_c)  # rows each candidate sees
+    worst, rows, main = 0.0, [], None
+    for kind in ("int8", "int4"):
+        elem = {"int4": 0.5, "int8": 1}[kind]
+        kv_live = 2 * live * w * elem + 2 * live * hkv * 4    # f32 scales, as the engine's
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
+        shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
+        if kind == "int4":
+            kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+        else:
+            kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+        sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+              for _ in range(2)]
+        q = (torch.randn((s, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+        q_c = [q[:, j].contiguous() for j in range(c)]
+
+        def call(fn, i):
+            li = i % n_layers
+            return fn(q, kv[0], kv[1], sc[0][li], sc[1][li], pos, li, window=l)
+
+        def call_flat(i):  # C flat-kernel calls, candidate j at positions + j
+            li = i % n_layers
+            return [decode_attention_wide_cache(q_c[j], kv[0], kv[1], sc[0][li], sc[1][li],
+                                                pos_c[j], li, window=l) for j in range(c)]
+
+        out = call(decode_attention_wide_cache_multi, 1)
+        ref = call(decode_attention_wide_cache_multi_plain, 1)
+        out_flat = torch.stack(call_flat(1), dim=1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # as the flat kernel's check: exact integer dots and the same requant
+        # points; an ulp of exp() can tip one P code: 2e-3 of the range
+        tol = 2e-3 * ref.abs().max().item() + 1e-6
+        if not err <= tol:
+            fail(f"decode_attention_multi {kind}: max|err| {err} > {tol}")
+        # candidate j runs the flat kernel's blocks over the same bytes with
+        # the same arithmetic, and blocks past its horizon add nothing: equal
+        # up to f32 rounding (expected 0)
+        flat_err = (out - out_flat).abs().max().item()
+        flat_tol = 1e-6 * out_flat.abs().max().item() + 1e-7
+        if not flat_err <= flat_tol:
+            fail(f"decode_attention_multi {kind}: differs from the flat kernel at "
+                 f"positions + c by {flat_err} > {flat_tol}")
+        worst = max(worst, err)
+        ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi, i), reps)
+        flat_ms = timer.ms(call_flat, reps)
+        plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi_plain, i),
+                            max(2, reps // 5))
+        nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
+        ops = 2 * 2 * cand_rows * h * hd
+        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8"])
+        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], sc[0][0], sc[1][0], pos,
+                         kind)
+        row = dict(kind=kind, S=s, C=c, H=h, Hkv=hkv, L=l, live_rows=live,
+                   candidate_rows=cand_rows, layers_rotated=n_layers, max_abs_err=err, tol=tol,
+                   flat_err=flat_err, flat_tol=flat_tol, ms=ms, flat_ms=flat_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if kind == "int8":                      # the [spec] phase's KV
+            main = row
+        rows.append(row)
+        log(f"[kernel] decode_attention_multi {kind} S={s} C={c} H={h} Hkv={hkv} L={l}: "
+            f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel at pos + c {flat_err:.3g} "
+            f"(tol {flat_tol:.3g}); {ms:.4f} ms, {c} flat-kernel calls {flat_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {live} live rows), plain {plain_ms:.4f} ms, SDPA bf16 with "
+            f"the candidates' causal mask {lib_ms:.4f} ms; {n_layers} layers rotated")
+        del kv, sc, q, q_c
+        torch.cuda.empty_cache()
+    n_l = p.n_layers
+    return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
+                bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
+                per="one verify step: 32 launches, int8 KV, S=8, C=9, L=512", cases=rows)
+
+
 def phase_kernels(torch, timer, reps, p):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
+    results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
     return results
 
 
@@ -517,9 +627,9 @@ def _write_repo(cfg) -> str:
     return tmp
 
 
-def profile_step(torch, step, tag="slice"):
-    """Device busy share of one decode step: kernel time summed by
-    torch.profiler over the step's wall time (host clock, synchronized)."""
+def profile_step(torch, step, tag="slice", what="decode step"):
+    """Device busy share of one step: kernel time summed by torch.profiler
+    over the step's wall time (host clock, synchronized)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -539,7 +649,7 @@ def profile_step(torch, step, tag="slice"):
     if not busy_us:
         log(f"[{tag}] profiler: no device time recorded (not measured)")
         return None
-    log(f"[{tag}] profiler, one decode step: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"[{tag}] profiler, one {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), {kernels} device ops")
     for dev_us, key, count in rows[:8]:
         log(f"[{tag}]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
@@ -553,19 +663,23 @@ def plain_kernels(llama):
     reference run on the card, and restore them after. The served model's
     weights are int4 with bf16 activations, for which qmatmul is exactly
     quant_matmul."""
-    from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
+    from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_multi_plain,
+                                                     decode_attention_wide_cache_plain,
                                                      decode_attention_wide_paged_plain)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
 
-    saved = llama.qmatmul, llama.decode_attention_wide_cache, llama.decode_attention_wide_paged
-    llama.qmatmul = quant_matmul_plain
-    llama.decode_attention_wide_cache = decode_attention_wide_cache_plain
-    llama.decode_attention_wide_paged = decode_attention_wide_paged_plain
+    names = ("qmatmul", "decode_attention_wide_cache", "decode_attention_wide_paged",
+             "decode_attention_wide_cache_multi")
+    saved = [getattr(llama, n) for n in names]
+    for n, fn in zip(names, (quant_matmul_plain, decode_attention_wide_cache_plain,
+                             decode_attention_wide_paged_plain,
+                             decode_attention_wide_cache_multi_plain)):
+        setattr(llama, n, fn)
     try:
         yield
     finally:
-        (llama.qmatmul, llama.decode_attention_wide_cache,
-         llama.decode_attention_wide_paged) = saved
+        for n, fn in zip(names, saved):
+            setattr(llama, n, fn)
 
 
 def phase_slice(torch, p, smi_line):
@@ -944,6 +1058,273 @@ def phase_paged_slice(torch, p, smi_line):
                 load_s=load_s)
 
 
+def _spec_model_config(p):
+    """The JAX package's 7B speculation setting (scripts/spec_bench.py):
+    int4 g128 weights, int8 KV, 8 slots of 512 tokens, up to 8 drafts per
+    verify, 4 fused rounds, decode horizon 4; speculation_min_gain 0, so
+    every eligible step speculates."""
+    cfg = _model_config(p)
+    cfg["name"] = "llama2_7b_int4_spec"
+    cfg["quantization"]["kv_cache"] = "int8"
+    cfg["generation"] = {"max_seq_len": 512, "max_slots": 8, "eos_token_id": -1,
+                         "max_new_tokens": 256, "decode_horizon": 4, "speculation_tokens": 8,
+                         "speculation_rounds": 4, "speculation_min_gain": 0}
+    return cfg
+
+
+def _periodic_prompt(vocab_size):
+    """spec_bench.py's repetitive prompt: a 12-token period drawn from
+    numpy's default_rng(0), repeated to 96 tokens."""
+    import numpy as np
+
+    period = np.random.default_rng(0).integers(100, vocab_size - 1, 12).tolist()
+    return (period * 10)[:96]
+
+
+def _serve_wave(backend, prompts, new, tag):
+    """One concurrent greedy request per prompt, a thread each; fatal unless
+    every one returns `new` tokens. Returns (token lists, wall seconds)."""
+    import torch
+
+    results, errors = [None] * len(prompts), []
+
+    def run(i):
+        try:
+            results[i] = backend.generate(prompts[i], max_new_tokens=new)
+        except Exception as e:  # recorded, then fatal below
+            errors.append(f"request {i}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if errors or any(r is None for r in results):
+        fail(f"[{tag}] requests failed: {errors}")
+    for i, r in enumerate(results):
+        if r["num_generated"] != new:
+            fail(f"[{tag}] request {i}: {r['num_generated']} tokens, expected {new}")
+    return [r["generated_ids"] for r in results], wall
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _host_ms(torch, fn, n=6):
+    """Median host-clock time of fn(i), synchronized, the first call left out."""
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t) * 1e3)
+    rest = sorted(times[1:])
+    return rest[len(rest) // 2], times
+
+
+def phase_spec(torch, p, smi_line):
+    """Speculative decoding through the served path: 8 concurrent greedy
+    requests of the periodic prompt, speculation on (the main path's run of
+    the multi kernel) and then off on the same engine; then one full-width
+    verify_step, kernels vs plain versions and vs C sequential decode steps."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    cfg = _spec_model_config(p)
+    name = cfg["name"]
+    torch.cuda.reset_peak_memory_stats()
+    mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+    mgr.load_model(name)
+    backend = mgr.get_model(name).backend
+    engine = backend.engine
+    gen = engine.config.generation
+    spec_k, n_slots, new = int(gen.speculation_tokens), engine.n_slots, 64
+    prompts = [_periodic_prompt(p.vocab_size)] * n_slots
+    backend.generate(prompts[0], max_new_tokens=8)      # warm-up, outside the counted run
+
+    for mod in (quant_matmul, decode_attention):        # the speculative path's run starts here
+        mod.launches = 0
+    decode_attention.paged_launches = decode_attention.multi_launches = 0
+    base = dict(steps=engine.steps, prefills=engine.prefill_calls, verifies=engine.verify_calls,
+                drafted=engine.spec_drafted, accepted=engine.spec_accepted)
+    on_tokens, on_wall = _serve_wave(backend, prompts, new, "spec")
+    launches = {"quant_matmul": quant_matmul.launches,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_paged": decode_attention.paged_launches,
+                "decode_attention_multi": decode_attention.multi_launches}
+    steps = engine.steps - base["steps"]                 # a verify round counts one step
+    prefills = engine.prefill_calls - base["prefills"]
+    verifies = engine.verify_calls - base["verifies"]
+    drafted = engine.spec_drafted - base["drafted"]
+    accepted = engine.spec_accepted - base["accepted"]
+    want = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+            "decode_attention": p.n_layers * (steps - verifies),
+            "decode_attention_paged": 0,
+            "decode_attention_multi": p.n_layers * verifies}
+    acceptance = accepted / drafted if drafted else None
+    on_tok_s = n_slots * new / on_wall
+    log(f"[spec] {n_slots} concurrent greedy requests of the periodic 96-token prompt, {new} "
+        f"tokens each: {on_wall:.2f} s, {on_tok_s:.1f} tok/s; verify calls {verifies} (rounds), "
+        f"decode steps {steps - verifies}, prefill calls {prefills}; drafted {drafted}, "
+        f"accepted {accepted} (acceptance {acceptance}); launches {launches} (expected {want}); "
+        f"speculation disabled {engine._spec_disabled}")
+    if drafted <= 0:
+        fail("[spec] no token was drafted")
+    if engine._spec_disabled:
+        fail("[spec] a verify dispatch failed and disabled speculation")
+    if verifies < 1 or launches != want:
+        fail("[spec] kernel launch counts do not match the path's calls")
+
+    gen.speculation_tokens = 0                           # the same engine, speculation off
+    off_tokens, off_wall = _serve_wave(backend, prompts, new, "spec-off")
+    gen.speculation_tokens = spec_k
+    off_tok_s = n_slots * new / off_wall
+    diffs = [_first_diff(a, b) for a, b in zip(on_tokens, off_tokens)]
+    log(f"[spec] speculation off, same engine and traffic: {off_wall:.2f} s, {off_tok_s:.1f} "
+        f"tok/s (on/off {on_tok_s / off_tok_s:.3f}); first differing token per request, on vs "
+        f"off (None = equal): {diffs}; card {smi_line}")
+
+    # one full-width verify_step: 8 slots x 9 candidates at positions 100-400
+    # (one slot with 3 drafts, one inactive), kernels vs plain versions, and
+    # against C sequential decode steps on a copy of the cache
+    cache = engine.cache
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(4)
+    c = spec_k + 1
+    toks = torch.randint(0, p.vocab_size, (n_slots, c), generator=g, device=DEVICE)
+    pos = torch.randint(100, 401, (n_slots,), generator=g, device=DEVICE, dtype=torch.int32)
+    lens = torch.full((n_slots,), c, dtype=torch.int32, device=DEVICE)
+    lens[3] = 4
+    pos[5], lens[5] = -1, 0
+    valid = torch.arange(c, device=DEVICE)[None, :] < lens[:, None]
+    tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    snapshot = [t.clone() for t in tensors]
+
+    def restore():
+        for dst, src in zip(tensors, snapshot):
+            dst.copy_(src)
+
+    def verify(i=0):
+        return llama.verify_step(engine.params, p, toks, cache,
+                                 torch.where(pos >= 0, pos + i, pos), lens)[0]
+
+    logits_k = verify().float()
+    restore()
+    with plain_kernels(llama):
+        logits_p = verify().float()
+    restore()
+    seq = llama.KVCache(k=snapshot[0].clone(), v=snapshot[1].clone(),
+                        k_scale=snapshot[2].clone(), v_scale=snapshot[3].clone())
+    seq_logits = []
+    for j in range(c):
+        step_pos = torch.where(lens > j, pos + j, -1).to(torch.int32)
+        seq_logits.append(llama.decode_step(engine.params, p, toks[:, j], seq, step_pos)[0].float())
+    logits_s = torch.stack(seq_logits, dim=1)
+    del seq
+    torch.cuda.synchronize()
+    ref_max = logits_p[valid].abs().max().item()
+    err = (logits_k - logits_p)[valid].abs().max().item()
+    seq_err = (logits_k - logits_s)[valid].abs().max().item()
+    agree = (logits_k.argmax(-1) == logits_p.argmax(-1))[valid].float().mean().item()
+    seq_agree = (logits_k.argmax(-1) == logits_s.argmax(-1))[valid].float().mean().item()
+    finite = bool(torch.isfinite(logits_k).all())
+    zero = bool((logits_k[~valid] == 0).all())
+    # as the full-width decode steps: bf16 activations through 32 layers
+    # round at the same points, and a step that tips one way carries
+    # forward. The sequential decode steps also compute each candidate's
+    # K/V in a batch of another shape. Bound: 5% of the logit range
+    tol = 0.05 * ref_max
+    log(f"[spec] full-width verify_step (S={n_slots}, C={c}), kernels vs plain: max|err| "
+        f"{err:.4g} of {ref_max:.4g} (tol {tol:.4g}), argmax agreement {agree:.4f}; vs {c} "
+        f"sequential decode steps: max|err| {seq_err:.4g} (tol {tol:.4g}), argmax agreement "
+        f"{seq_agree:.4f}; finite {finite}; invalid rows zero {zero}")
+    if not finite or not zero or not err <= tol or not seq_err <= tol:
+        fail("[spec] full-width verify_step disagrees with its plain path or sequential decode")
+
+    verify_ms, verify_times = _host_ms(torch, verify)
+    decode_ms, decode_times = _host_ms(torch, lambda i: llama.decode_step(
+        engine.params, p, toks[:, 0], cache, torch.where(pos >= 0, pos + i, pos)))
+    restore()
+    busy = profile_step(torch, verify, tag="spec", what="verify step")
+    restore()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[spec] verify step (S={n_slots}, C={c}, L=512) median {verify_ms:.2f} ms, decode step "
+        f"(S={n_slots}) median {decode_ms:.2f} ms (ratio {verify_ms / decode_ms:.3f}); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+    mgr.shutdown()
+    return dict(launches=launches, want=want, decode_steps=steps - verifies, verify_calls=verifies,
+                prefill_calls=prefills, drafted=drafted, accepted=accepted,
+                acceptance=acceptance, on_wall_s=on_wall, on_tok_s=on_tok_s, off_wall_s=off_wall,
+                off_tok_s=off_tok_s, first_diff=diffs, on_tokens=on_tokens, off_tokens=off_tokens,
+                full_verify_err=err, full_verify_seq_err=seq_err, full_verify_tol=tol,
+                argmax_agreement=agree, seq_argmax_agreement=seq_agree, verify_ms=verify_ms,
+                verify_times_ms=verify_times, decode_ms=decode_ms, decode_times_ms=decode_times,
+                profile=busy, max_memory_allocated=peak)
+
+
+def phase_spec_paged(torch, p, smi_line):
+    """Speculation over paged KV: the paged slice's setting with
+    speculation_tokens 8 (one host-drafted verify per iteration, through
+    verify_step_paged, which attends in plain torch and launches no multi
+    kernel); 8 concurrent greedy requests of the periodic prompt."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    cfg = _paged_model_config(p)
+    cfg["name"] = "llama2_7b_int4_paged_spec"
+    cfg["generation"]["speculation_tokens"] = 8
+    name = cfg["name"]
+    mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+    mgr.load_model(name)
+    backend = mgr.get_model(name).backend
+    engine = backend.engine
+    n_pages = engine.cache.n_pages
+    prompts, new = [_periodic_prompt(p.vocab_size)] * 8, 64
+
+    for mod in (quant_matmul, decode_attention):        # the paged speculative run starts here
+        mod.launches = 0
+    decode_attention.paged_launches = decode_attention.multi_launches = 0
+    steps0, prefills0, verifies0 = engine.steps, engine.prefill_calls, engine.verify_calls
+    tokens, wall = _serve_wave(backend, prompts, new, "spec-paged")
+    launches = {"quant_matmul": quant_matmul.launches,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_paged": decode_attention.paged_launches,
+                "decode_attention_multi": decode_attention.multi_launches}
+    steps = engine.steps - steps0
+    prefills = engine.prefill_calls - prefills0
+    verifies = engine.verify_calls - verifies0
+    stats, back = _pages_back(engine, n_pages - 1)
+    want = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+            "decode_attention": 0,
+            "decode_attention_paged": p.n_layers * (steps - verifies),
+            "decode_attention_multi": 0}
+    drafted, accepted = stats.get("spec_drafted", 0), stats.get("spec_accepted", 0)
+    log(f"[spec-paged] 8 concurrent greedy requests, {new} tokens each: {wall:.2f} s, "
+        f"{8 * new / wall:.1f} tok/s; verify calls {verifies}, decode steps {steps - verifies}, "
+        f"prefill calls {prefills}; drafted {drafted}, accepted {accepted}; launches {launches} "
+        f"(expected {want}); pages free {stats['kv_free_pages']} + cached "
+        f"{stats.get('prefix_cached_blocks', 0)} of {n_pages - 1}; speculation disabled "
+        f"{engine._spec_disabled}")
+    if drafted <= 0 or verifies < 1:
+        fail("[spec-paged] no token was drafted")
+    if engine._spec_disabled:
+        fail("[spec-paged] a verify dispatch failed and disabled speculation")
+    if launches != want:
+        fail("[spec-paged] kernel launch counts do not match the path's calls")
+    if back != n_pages - 1:
+        fail(f"[spec-paged] {back} of {n_pages - 1} pages came back after retirement")
+    mgr.shutdown()
+    return dict(launches=launches, want=want, decode_steps=steps - verifies,
+                verify_calls=verifies, prefill_calls=prefills, drafted=drafted,
+                accepted=accepted, wall_s=wall, stats=stats, tokens=tokens)
+
+
 def main() -> None:
     import torch
 
@@ -964,6 +1345,10 @@ def main() -> None:
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
         paged_res["launches"]["decode_attention_paged"]
+    spec_res = phase_spec(torch, p, smi_line)
+    # the multi kernel runs on the speculative path only: its count is that run's
+    results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
+    spec_paged_res = phase_spec_paged(torch, p, smi_line)
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -972,7 +1357,10 @@ def main() -> None:
                                     "tpuserve/ops/decode_attention.py:160"),
                "decode_attention_paged": (
                    "tpuserve_torch/csrc/decode_attention.cu",
-                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)")}
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)"),
+               "decode_attention_multi": (
+                   "tpuserve_torch/csrc/decode_attention_multi.cu",
+                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)")}
     line = []
     for kname in sources:
         r = results[kname]
@@ -985,7 +1373,8 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
-                   "paged_slice": paged_res, "seconds": time.monotonic() - t0}, fh, indent=1,
+                   "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
+                   "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi_line, flush=True)

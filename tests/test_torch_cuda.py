@@ -211,6 +211,83 @@ def test_decode_attention_paged_refuses(cuda):
     assert da.paged_launches == before + 1
 
 
+@pytest.mark.parametrize("kind,h,hkv,win,block_l,cands,scale_dtype", [
+    ("int8", 32, 32, 512, None, 9, torch.bfloat16),   # Llama-2-7B verify shape
+    ("int4", 32, 32, 512, None, 9, torch.bfloat16),
+    ("int8", 32, 32, 256, None, 1, torch.float32),
+    ("int4", 32, 32, 256, None, 2, torch.float32),
+    ("int8", 8, 2, 256, 64, 5, torch.float32),        # rep 4
+    ("int4", 8, 2, 128, 32, 9, torch.float32),        # rep 4: 8 heads per block x 9
+    ("int4", 8, 2, 64, 16, 2, torch.bfloat16),
+    ("bf16", 4, 4, 256, None, 2, None),
+    ("bf16", 8, 2, 128, 32, 9, None),
+    ("f32", 4, 4, 128, None, 1, None),
+    ("f32", 8, 2, 128, 32, 5, None),
+])
+def test_decode_attention_multi(cuda, kind, h, hkv, win, block_l, cands, scale_dtype):
+    """The multi-candidate kernel against its plain version, and each row c
+    against the flat kernel at positions + c on the same KV. The cache
+    holds 64 junk rows past the window, so the flat side runs its L-blocked
+    form, as the multi kernel always does; the two then run the same blocks
+    over the same bytes with the same arithmetic, and a block past a row's
+    horizon changes nothing: they agree to f32 rounding (tolerance 1e-6 of
+    the range, expected 0)."""
+    s, n_layers, layer = 8, 2, 1
+    k, v, ks, vs = _cache(kind, s, hkv, win + 64, n_layers, cuda,
+                          scale_dtype=scale_dtype or torch.float32)
+    g = torch.Generator().manual_seed(4)
+    q = (torch.randn((s, cands, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    pos = torch.randint(0, win - cands + 1, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[3], pos[5] = -1, win - cands, 0
+    pos = pos.to(cuda)
+    live = pos >= 0
+    for qdt in (torch.float32, torch.bfloat16):
+        args = (q.to(qdt), k, v, ks, vs, pos, layer)
+        before = da.multi_launches
+        out = da.decode_attention_wide_cache_multi(*args, window=win, block_l=block_l)
+        ref = da.decode_attention_wide_cache_multi_plain(*args, window=win, block_l=block_l)
+        torch.cuda.synchronize()
+        assert da.multi_launches == before + 1
+        assert out.shape == (s, cands, h, 128) and torch.all(out[1, 0] == 0)
+        err = (out - ref)[live].abs().max().item()
+        assert err <= 2e-3 * ref[live].abs().max().item() + 1e-6, (qdt, err)
+        for c in range(cands):
+            flat = da.decode_attention_wide_cache(q[:, c].to(qdt).contiguous(), k, v, ks, vs,
+                                                  pos + c, layer, window=win, block_l=block_l)
+            torch.cuda.synchronize()
+            flat_err = (out[:, c] - flat)[live].abs().max().item()
+            assert flat_err <= 1e-6 * flat[live].abs().max().item() + 1e-7, (qdt, c, flat_err)
+
+
+def test_decode_attention_multi_refuses(cuda):
+    """The multi wrapper raises, and never runs the plain version, on what
+    the kernel does not take."""
+    k, v, ks, vs = _cache("int4", 2, 2, 128, 1, cuda)
+    pos = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    q = torch.randn((2, 3, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="candidates"):
+        da.decode_attention_wide_cache_multi(torch.randn((2, 17, 4, 128), device=cuda),
+                                             k, v, ks, vs, pos, 0)
+    with pytest.raises(ValueError, match=r"q \[S, C, H, hd\]"):
+        da.decode_attention_wide_cache_multi(q[:, 0], k, v, ks, vs, pos, 0)
+    with pytest.raises(ValueError, match="head_dim"):   # int8 W=256 read as 4 heads of 64
+        k8, v8, ks8, vs8 = _cache("int8", 2, 2, 128, 1, cuda)
+        da.decode_attention_wide_cache_multi(q[..., :64].contiguous(), k8, v8,
+                                             ks8.repeat(1, 2, 1), vs8.repeat(1, 2, 1), pos, 0)
+    with pytest.raises(ValueError, match="scales must be"):
+        da.decode_attention_wide_cache_multi(q, k, v, ks[:, :, :64].contiguous(),
+                                             vs[:, :, :64].contiguous(), pos, 0)
+    with pytest.raises(ValueError, match="shared memory"):   # 16 x 8 rows, 128-row blocks
+        da.decode_attention_wide_cache_multi(torch.randn((2, 16, 8, 128), device=cuda),
+                                             k, v, ks, vs, pos, 0)
+    with pytest.raises(ValueError, match="out of range"):
+        da.decode_attention_wide_cache_multi(q, k, v, ks, vs, pos, 1)
+    before = da.multi_launches
+    da.decode_attention_wide_cache_multi(q, k, v, ks, vs, pos, 0)
+    torch.cuda.synchronize()
+    assert da.multi_launches == before + 1
+
+
 def test_vector_add(cuda):
     for n in (1, 1000, 1_000_003):
         a, b = torch.randn(n, device=cuda), torch.randn(n, device=cuda)

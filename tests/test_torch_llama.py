@@ -109,7 +109,8 @@ def test_prefill_chunk_decode_match_jax(weights, jax_kernels, kv_bits):
         assert (a != b).mean() < 1e-3
     # the JAX cache state carried across byte for byte
     carried = interop.kv_cache_from_numpy(*(np.asarray(t) for t in
-                                            (jc.k, jc.v, jc.k_scale, jc.v_scale)))
+                                            (jc.k, jc.v, jc.k_scale, jc.v_scale)),
+                                          device="cpu")
     assert carried.k.dtype == tc.k.dtype and carried.k_scale.dtype == tc.k_scale.dtype
     np.testing.assert_array_equal(to_np(carried.k), np.asarray(jc.k))
 
@@ -136,7 +137,8 @@ def test_prefill_chunk_decode_match_jax(weights, jax_kernels, kv_bits):
 def test_decode_never_writes_inactive_slots():
     """The port writes the cache in place and skips slots with position -1."""
     p = P_T
-    params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, seed=1), p)
+    params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, device="cpu",
+                                                   seed=1), p)
     cache = tllama.KVCache.create(p, 3, 32, quantized=True, kv_bits=4)
     cache.k.fill_(0x5A)
     cache.k_scale.fill_(7.0)

@@ -59,7 +59,8 @@ def _ptm_pair(monkeypatch, n_pages, ps, n_slots, max_len):
     # against the pure-Python one, whose semantics the native one copies
     monkeypatch.setattr(jpkv, "make_allocator", jpkv._PyKvAllocator)
     j = jpkv.PageTableManager(n_pages, ps, n_slots, max_len, prefix_sharing=True)
-    t = tpkv.PageTableManager(n_pages, ps, n_slots, max_len, prefix_sharing=True)
+    t = tpkv.PageTableManager(n_pages, ps, n_slots, max_len, prefix_sharing=True,
+                              device="cpu")
     return j, t
 
 
@@ -358,7 +359,8 @@ def test_paged_model_matches_jax(weights, jax_kernels, kv_bits):
         a, b = a.astype(np.int32), b.astype(np.int32)
         assert np.abs(a - b).max() <= 1 and (a != b).mean() < 1e-3
     carried = interop.paged_cache_from_numpy(*(np.asarray(x) for x in
-                                               (jc.k, jc.v, jc.k_scale, jc.v_scale)))
+                                               (jc.k, jc.v, jc.k_scale, jc.v_scale)),
+                                             device="cpu")
     assert carried.k.dtype == tc.k.dtype and carried.k_scale.shape == tc.k_scale.shape
 
     # 8 greedy decode steps over a 3-page window; slot 4 stays inactive and
@@ -385,7 +387,8 @@ def test_decode_step_paged_writes_active_rows_only():
     """In-place writes land at (layer, table[s, pos // ps], pos % ps) for
     active slots; the zero page and inactive slots' pages stay untouched."""
     p = P_T
-    params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, seed=1), p)
+    params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, device="cpu",
+                                                   seed=1), p)
     cache = tpkv.PagedKVCache.create(p, 6, 16, quantized=True, kv_bits=4)
     cache.k.fill_(0x5A)
     cache.k_scale.fill_(7.0)

@@ -60,7 +60,7 @@ class InferenceManager:
     model this manager loads runs; there is no fallback to the CPU."""
 
     def __init__(self, repository_path: str, num_workers: int = 4, device="cuda"):
-        from tpuserve_torch.serving.engine import resolve_device
+        from tpuserve_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
         self.repository = ModelRepository(repository_path)

@@ -16,19 +16,21 @@ import torch
 from tpuserve_torch.models.llama import KVCache
 from tpuserve_torch.quant.core import QTensor
 from tpuserve_torch.serving.paged_kv import PagedKVCache
+from tpuserve_torch.utils.device import resolve_device
 
 _QT_KEYS = {"q", "scale", "bits", "group_size", "orig_shape"}
 
 
-def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
     """numpy array (including ml_dtypes bfloat16) -> torch tensor on device."""
+    device = resolve_device(device)
     arr = np.array(arr, copy=True, order="C")  # own, writable, contiguous
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_numpy(tree: Mapping[str, object], device="cpu") -> Dict[str, object]:
+def params_from_numpy(tree: Mapping[str, object], device="cuda") -> Dict[str, object]:
     """Flat param dict of numpy arrays -> torch. A QTensor entry is a dict
     with q, scale, bits, group_size, orig_shape and optionally act_bits and
     act_fp8."""
@@ -50,7 +52,7 @@ def params_from_numpy(tree: Mapping[str, object], device="cpu") -> Dict[str, obj
 
 
 def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
-                        v_scale: Optional[np.ndarray] = None, device="cpu") -> KVCache:
+                        v_scale: Optional[np.ndarray] = None, device="cuda") -> KVCache:
     """Flat-layout cache state (k/v [n_layers, S, L, W or W/2], head-major
     scales [n_layers, S, Hkv, L] or None) -> KVCache."""
     if np.asarray(k).ndim != 4:
@@ -62,7 +64,7 @@ def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
 
 
 def paged_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
-                           v_scale: Optional[np.ndarray] = None, device="cpu") -> PagedKVCache:
+                           v_scale: Optional[np.ndarray] = None, device="cuda") -> PagedKVCache:
     """Paged pool state -> PagedKVCache. k/v are flat pools [n_layers,
     n_pages, ps, W or W/2] or 5D [n_layers, n_pages, ps, Hkv, hd] (the same
     bytes: the head dims are merged); scale pools [n_layers, n_pages,

@@ -27,8 +27,9 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
+           "decode_attention_multi.cu")
+HEADERS = ("common.cuh", "attention_common.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
+    "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],
 }
 
 

@@ -8,9 +8,12 @@ single-device path).
     prefill(params, p, tokens[1, L], cache, slot, length)        -> logits[1, V]
     prefill_chunk(params, p, tokens[1, C], cache, slot, start, length, window)
     decode_step(params, p, tokens[S], cache, positions, window)  -> logits[S, V]
+    verify_step(params, p, tokens[S, C], cache, positions, lengths, window)
+                                                                  -> logits[S, C, V]
   and their paged forms over a serving.paged_kv.PagedKVCache and a page
-  table: prefill_paged, prefill_paged_suffix, decode_step_paged;
-  each returns (logits, cache);
+  table: prefill_paged, prefill_paged_suffix, decode_step_paged,
+  verify_step_paged; each returns (logits, cache); draft_lookup drafts
+  speculative candidates from the token history on the device;
 - the KV cache in the flat layout only: k/v [n_layers, S, L, Hkv*hd] (int8,
   packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L];
   paged pools [n_layers, n_pages, ps, Hkv*hd] with f32 scale pools
@@ -18,8 +21,10 @@ single-device path).
   here they are written in place.
 
 Prefill attention is plain torch (the JAX package leaves it to XLA). Decode
-attention always goes through `ops.decode_attention` (its CUDA kernel on the
-card, its plain version on the CPU); there is no einsum fallback.
+and verify attention over the flat cache always go through
+`ops.decode_attention` (its CUDA kernels on the card, their plain versions
+on the CPU); there is no einsum fallback. The paged verify attends over the
+gathered window in plain torch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
 from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache,
+                                                 decode_attention_wide_cache_multi,
                                                  decode_attention_wide_paged)
 from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
+from tpuserve_torch.utils.device import resolve_device
 
 
 # ---------------------------------------------------------------------- config
@@ -77,14 +84,14 @@ def _no_moe(p: LlamaParams) -> None:
 
 
 # ---------------------------------------------------------------------- weights
-def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cpu",
+def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cuda",
                 seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random-init weights (flat dict) from a seeded torch.Generator on
     `device`. Serving normally loads a checkpoint; this exists for tests and
     fixtures. (The JAX PRNG cannot be reproduced: tests carry JAX's weights
     across with interop.params_from_numpy instead.)"""
     _no_moe(p)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     std = 0.02
@@ -307,29 +314,31 @@ def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, k, v) -> N
 
 def _attend_window(q, k_rows, v_rows, k_scale, v_scale, mask, p: LlamaParams):
     """Chunk attention over a window of cache rows, as the JAX package's
-    prefill_chunk and prefill_paged_suffix compute it: q [C, H, hd] (rope
-    applied); k_rows/v_rows [win, Wst] (codes, packed int4 codes or
-    values); k_scale/v_scale [Hkv, win] or None; mask [C, win]. Returns
-    [C, H*hd] f32."""
-    c, win = q.shape[0], k_rows.shape[0]
+    prefill_chunk, prefill_paged_suffix and verify_step_paged compute it
+    (XLA einsums: bf16 dots, no q or P requant): q [..., C, H, hd] (rope
+    applied); k_rows/v_rows [..., win, Wst] (codes, packed int4 codes or
+    values); k_scale/v_scale [..., Hkv, win] or None; mask [..., C, win].
+    Leading dims (slots) batch. Returns [..., C, H*hd] f32."""
+    c, win = q.shape[-3], k_rows.shape[-2]
+    lead = q.shape[:-3]
     if k_rows.dtype == torch.uint8:
         k_rows, v_rows = unpack_kv_codes(k_rows), unpack_kv_codes(v_rows)
-    k_all = k_rows.reshape(win, p.n_kv_heads, p.head_dim)
-    v_all = v_rows.reshape(win, p.n_kv_heads, p.head_dim)
-    qg = q.reshape(c, p.n_kv_heads, p.n_heads // p.n_kv_heads, p.head_dim)
+    k_all = k_rows.reshape(*lead, win, p.n_kv_heads, p.head_dim)
+    v_all = v_rows.reshape(*lead, win, p.n_kv_heads, p.head_dim)
+    qg = q.reshape(*lead, c, p.n_kv_heads, p.n_heads // p.n_kv_heads, p.head_dim)
     cdt = torch.float32 if k_all.dtype == torch.float32 else torch.bfloat16
-    scores = torch.einsum("cgrd,lgd->cgrl", qg.to(cdt).to(torch.float32),
+    scores = torch.einsum("...cgrd,...lgd->...cgrl", qg.to(cdt).to(torch.float32),
                           k_all.to(cdt).to(torch.float32))
     if k_scale is not None:
-        scores = scores * k_scale[None, :, None, :]
+        scores = scores * k_scale[..., None, :, None, :]
     scores = true_div(scores, math.sqrt(p.head_dim))
-    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    scores = torch.where(mask[..., :, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     if v_scale is not None:
-        probs = probs * v_scale[None, :, None, :]
-    out = torch.einsum("cgrl,lgd->cgrd", probs.to(cdt).to(torch.float32),
+        probs = probs * v_scale[..., None, :, None, :]
+    out = torch.einsum("...cgrl,...lgd->...cgrd", probs.to(cdt).to(torch.float32),
                        v_all.to(cdt).to(torch.float32))
-    return out.reshape(c, p.n_heads * p.head_dim)
+    return out.reshape(*lead, c, p.n_heads * p.head_dim)
 
 
 # ---------------------------------------------------------------------- blocks
@@ -514,6 +523,116 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     return torch.where(active[:, None], logits, 0.0), cache
 
 
+# ---------------------------------------------------------------------- speculation
+def draft_lookup(hist: torch.Tensor, seq_lens: torch.Tensor, n: int, k: int,
+                 k_cap: torch.Tensor):
+    """Prompt-lookup drafting on the device, in tensor ops (no host sync).
+
+    hist [S, L] int: each slot's token history (prompt + generated,
+    including the uncommitted last token), right-padded; seq_lens [S] valid
+    tokens per row; n the n-gram length, k the most drafts; k_cap [S] a
+    per-slot cap. The trailing n-gram is matched against every window that
+    ends before the sequence tail; the rightmost match with >= k tokens
+    after it wins, else the match with the longest continuation (the first
+    of equals). Returns (drafts [S, k] right-padded with 0, k_eff [S]), the
+    JAX package's draft_lookup integer for integer."""
+    s, l = hist.shape
+    dev = hist.device
+    seq_lens = seq_lens.to(device=dev, dtype=torch.int64)
+    k_cap = k_cap.to(device=dev, dtype=torch.int64)
+    idx = torch.arange(l - n + 1, device=dev)                   # window starts
+    win = hist.unfold(1, n, 1)                                  # [S, L-n+1, n]
+    pat_idx = torch.clamp(seq_lens[:, None] - n + torch.arange(n, device=dev)[None, :], 0, l - 1)
+    pat = torch.gather(hist, 1, pat_idx)                        # [S, n]
+    match = (win == pat[:, None, :]).all(dim=-1)                # [S, L-n+1]
+    avail = seq_lens[:, None] - (idx[None, :] + n)              # continuation tokens
+    valid = match & (avail >= 1) & (seq_lens[:, None] >= n + 1)
+    full = valid & (avail >= k)
+    j_full = torch.where(full, idx[None, :], -1).amax(dim=1)   # rightmost
+    avail_masked = torch.where(valid, avail, -1)
+    j_best = torch.argmax(avail_masked, dim=1)                  # first max
+    has_any = avail_masked.amax(dim=1) >= 1
+    j = torch.where(j_full >= 0, j_full, j_best)
+    av = torch.gather(avail, 1, j[:, None])[:, 0]
+    k_eff = torch.where(has_any, torch.clamp(torch.minimum(av, k_cap), 0, k), 0)
+    cols = torch.arange(k, device=dev)[None, :]
+    drafts = torch.gather(hist, 1, torch.clamp(j[:, None] + n + cols, 0, l - 1))
+    return torch.where(cols < k_eff[:, None], drafts, 0), k_eff
+
+
+def _verify_prep(params, p: LlamaParams, tokens, positions, lengths, l_max: int):
+    """What verify_step and verify_step_paged share: per-(slot, candidate)
+    positions pos_c [S, C] (clamped to l_max - 1), the valid mask [S, C],
+    the 2-D embeddings [S*C, D] and RoPE tables [S, C, 1, hd/2]."""
+    s, c = tokens.shape
+    dev = tokens.device
+    positions = positions.to(device=dev, dtype=torch.int64)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    cols = torch.arange(c, device=dev)[None, :]
+    active = positions >= 0
+    pos_c = torch.clamp_max(positions.clamp_min(0)[:, None] + cols, l_max - 1)
+    valid = active[:, None] & (cols < lengths[:, None])
+    x = params["embed/weight"][tokens].reshape(s * c, p.dim)
+    cos, sin = rope_cos_sin(pos_c, p.head_dim, p.rope_theta)
+    return pos_c, valid, x, cos[:, :, None, :], sin[:, :, None, :]
+
+
+def verify_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
+                positions: torch.Tensor, lengths: torch.Tensor,
+                window: Optional[int] = None):
+    """Speculative verification: C candidate tokens per slot in one step.
+
+    tokens [S, C]: column 0 is the slot's real next token, columns 1.. a
+    drafted continuation (right-padded); positions [S] where column 0 goes
+    (-1 = inactive); lengths [S] valid tokens per row (>= 1 for a live
+    slot). `window` bounds attention reads; callers guarantee
+    max(positions) + C <= window. Returns (logits [S, C, V] f32, position
+    j's predicting token j+1, 0 on invalid rows; cache).
+
+    Activations stay 2-D [S*C, D] through the blocks. Every candidate's
+    K/V is written in place at positions[s] + c (clamped to L-1, as in the
+    JAX package) before attention reads, so draft j attends to drafts < j
+    through the cache; rejected drafts leave entries past the slot's live
+    position, masked on every later read and overwritten later. An invalid
+    row stores back the bytes it read, so the cache ends as if only valid
+    rows were written, with no host sync (the fused rounds need none).
+    Callers keep valid rows below L-1, where clamped invalid rows gather.
+    Attention is the multi-candidate kernel (`decode_attention_wide_cache_
+    multi`), always."""
+    s, c = tokens.shape
+    pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, tokens, positions, lengths,
+                                                 cache.max_len)
+    win = cache.max_len if window is None else min(int(window), cache.max_len)
+    sidx = torch.arange(s, device=tokens.device)[:, None]   # broadcasts against pos_c
+
+    def masked(new, old):  # [S, C, ...]: the new rows where valid, else the old
+        return torch.where(valid[:, :, None], new.view(s, c, -1).to(old.dtype), old)
+
+    for layer in range(p.n_layers):
+        def attn_fn(q, k, v, layer=layer):
+            q = apply_rope(q.reshape(s, c, p.n_heads, p.head_dim), cos_q, sin_q)
+            k = apply_rope(k.reshape(s, c, p.n_kv_heads, p.head_dim), cos_q, sin_q)
+            v = v.reshape(s, c, p.n_kv_heads, p.head_dim)
+            kq, vq, ks, vs = _kv_rows(cache, k.reshape(s * c, p.n_kv_heads, p.head_dim),
+                                      v.reshape(s * c, p.n_kv_heads, p.head_dim))
+            for dst, new in ((cache.k[layer], kq), (cache.v[layer], vq)):
+                dst[sidx, pos_c] = masked(new, dst[sidx, pos_c])
+            if ks is not None:  # head-major scales: [S, C, Hkv] at [sidx, :, pos_c]
+                for dst, new in ((cache.k_scale[layer], ks), (cache.v_scale[layer], vs)):
+                    dst[sidx, :, pos_c] = masked(new, dst[sidx, :, pos_c])
+            out = decode_attention_wide_cache_multi(
+                true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
+                cache.k_scale[layer] if cache.quantized else None,
+                cache.v_scale[layer] if cache.quantized else None,
+                positions, layer, window=win)
+            return out.to(x.dtype).reshape(s * c, p.n_heads * p.head_dim)
+
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+
+    logits = _logits(params, x, p).reshape(s, c, -1)
+    return torch.where(valid[:, :, None], logits, 0.0), cache
+
+
 # ---------------------------------------------------------------------- paged
 def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_table: torch.Tensor,
                   slot: int, length: int):
@@ -652,3 +771,57 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
 
     logits = _logits(params, x, p)
     return torch.where(active[:, None], logits, 0.0), cache
+
+
+def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
+                      page_table: torch.Tensor, positions: torch.Tensor,
+                      lengths: torch.Tensor, window: Optional[int] = None):
+    """Speculative verification over a PagedKVCache: C candidate tokens per
+    slot write into their slots' pages and attend through the gathered
+    window in one step (the JAX package's verify_step_paged, which has no
+    kernel: its attention is XLA einsums over the gathered window, here
+    `_attend_window` batched over slots).
+
+    tokens [S, C], positions [S] (-1 = inactive), lengths [S] as
+    verify_step; page_table [S, P] int32; `window` limits reads to the
+    leading window // ps pages. The engine ensures each slot's chain covers
+    positions[s] + lengths[s] tokens. Only the valid rows are written,
+    through `_write_pages` (finding them syncs with the host, which the
+    host-drafted paged path does anyway); rejected drafts leave entries past
+    the live position, masked by position. Returns (logits [S, C, V] f32,
+    0 on invalid rows; cache)."""
+    s, c = tokens.shape
+    dev = tokens.device
+    ps = cache.page_size
+    page_table = page_table.to(device=dev, dtype=torch.long)
+    if window is not None:
+        page_table = page_table[:, :max(1, min(int(window) // ps, page_table.shape[1]))]
+    n_cols = page_table.shape[1]
+    l_virt = n_cols * ps
+    pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, tokens, positions, lengths, l_virt)
+    mask = torch.arange(l_virt, device=dev)[None, None, :] <= pos_c[:, :, None]  # [S, C, win]
+    vs_idx, vc_idx = torch.nonzero(valid, as_tuple=True)
+    wpos = pos_c[vs_idx, vc_idx]
+    wpages, woffs = page_table[vs_idx, wpos // ps], wpos % ps
+
+    def window_scales(pool, layer):  # [S, n_cols, hp, ps] -> [S, Hkv, l_virt]
+        return pool[layer][page_table].permute(0, 2, 1, 3).reshape(s, -1, l_virt)[:, :p.n_kv_heads]
+
+    for layer in range(p.n_layers):
+        def attn_fn(q, k, v, layer=layer):
+            q = apply_rope(q.reshape(s, c, p.n_heads, p.head_dim), cos_q, sin_q)
+            k = apply_rope(k.reshape(s, c, p.n_kv_heads, p.head_dim), cos_q, sin_q)
+            v = v.reshape(s, c, p.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, wpages, woffs, k[vs_idx, vc_idx], v[vs_idx, vc_idx])
+            ks = vs = None
+            if cache.quantized:
+                ks, vs = window_scales(cache.k_scale, layer), window_scales(cache.v_scale, layer)
+            out = _attend_window(q, cache.k[layer][page_table].reshape(s, l_virt, -1),
+                                 cache.v[layer][page_table].reshape(s, l_virt, -1), ks, vs,
+                                 mask, p)
+            return out.to(x.dtype).reshape(s * c, p.n_heads * p.head_dim)
+
+        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+
+    logits = _logits(params, x, p).reshape(s, c, -1)
+    return torch.where(valid[:, :, None], logits, 0.0), cache

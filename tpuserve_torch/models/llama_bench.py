@@ -15,13 +15,14 @@ import torch
 
 from tpuserve_torch.models.llama import LlamaParams, _no_moe
 from tpuserve_torch.quant.core import QTensor
+from tpuserve_torch.utils.device import resolve_device
 
 
 def init_quantized_params(p: LlamaParams, bits: int = 4, group_size: int = 128,
-                          dtype=torch.bfloat16, device="cpu",
+                          dtype=torch.bfloat16, device="cuda",
                           seed: int = 42) -> Dict[str, object]:
     _no_moe(p)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     qd = p.n_heads * p.head_dim

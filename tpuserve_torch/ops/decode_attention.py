@@ -28,6 +28,13 @@ name, `_wide_kernel` with `paged_sc`) runs the same algorithm over a paged
 pool [n_layers, n_pages, ps, W] read in place through a page table, with
 f32 scale pools [n_layers, n_pages, pad8(Hkv), ps]. Its online-softmax
 block is always one page (block_l = ps), so P is requantized once per page.
+
+`decode_attention_wide_cache_multi` (the JAX package's entry point of the
+same name, `_wide_multi_kernel`) is speculative verification: C candidate
+queries per slot over one read of the flat cache, candidate c attending to
+rows <= positions[s] + c. It never takes the multi-slot packed form, and
+blocks run while they hold a row <= positions[s] + C - 1. Its kernel is
+csrc/decode_attention_multi.cu.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from tpuserve_torch.quant.core import true_div
 
 launches = 0        # flat-cache kernel launches (the plain versions do not count)
 paged_launches = 0  # paged-pool kernel launches
+multi_launches = 0  # multi-candidate (speculative verify) kernel launches
 
 _NEG_INF = -1e30
 _HD = 128          # head_dim the CUDA kernel is written for
@@ -101,8 +109,12 @@ def decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l, p
                          _geometry(q, k_full, k_scale_l, window, block_l))
 
 
-def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
-    s_dim, m_dim, hd, n_kv, rep = g["s_dim"], g["n_heads"], g["hd"], g["n_kv"], g["rep"]
+def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
+                  cands: int = 1):
+    """q [S, C*H, hd] rows candidate-major (C = `cands`): row c*H + h is
+    candidate c's head h and sees cache rows <= positions[s] + c."""
+    s_dim, n_heads, hd, n_kv, rep = g["s_dim"], g["n_heads"], g["hd"], g["n_kv"], g["rep"]
+    m_dim = cands * n_heads
     bl, win = g["block_l"], g["win"]
     dev = q.device
     pos = positions.to(device=dev, dtype=torch.int64)
@@ -111,12 +123,14 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
         qc, qs = _quantize_q(q)                  # [S, M, hd] int8, [S, M, 1]
         qd = qc.to(torch.float64)                # integer dots are exact in f64
         qsum = qd.sum(dim=-1, keepdim=True)      # [S, M, 1]
-        ks = k_scale_l[:, :, :win].to(torch.float32).repeat_interleave(rep, dim=1)
-        vs = v_scale_l[:, :, :win].to(torch.float32).repeat_interleave(rep, dim=1)
+        ks, vs = (sc[:, :, :win].to(torch.float32).repeat_interleave(rep, dim=1)
+                  .repeat(1, cands, 1) for sc in (k_scale_l, v_scale_l))
     else:
         cdt = torch.float32 if k_full.dtype == torch.float32 else torch.bfloat16
         qd = q.to(cdt).to(torch.float32)
-    kv_head = torch.arange(m_dim, device=dev) // rep  # query head -> kv head
+    rows = torch.arange(m_dim, device=dev)
+    kv_head = (rows % n_heads) // rep            # query row -> kv head
+    horizon = (pos.view(s_dim, 1) + (rows // n_heads).view(1, m_dim)).view(s_dim, m_dim, 1)
 
     def heads(block):  # [S, bl, Wst] -> [S, Hkv, bl, hd] (codes or values)
         if g["kv_bits"] == 4:
@@ -129,7 +143,7 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
     acc = torch.zeros((s_dim, m_dim, hd), dtype=torch.float32, device=dev)
     for j in range(win // bl):
         l0 = j * bl
-        run = (l0 <= pos).view(s_dim, 1, 1)      # blocks past pos are skipped
+        run = (l0 <= pos + cands - 1).view(s_dim, 1, 1)  # blocks past the last row skipped
         kb = heads(k_full[layer, :, l0:l0 + bl])[:, kv_head]   # [S, M, bl, hd]
         vb = heads(v_full[layer, :, l0:l0 + bl])[:, kv_head]
         if kv_int8:
@@ -140,7 +154,7 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
         else:
             s = torch.einsum("smd,smld->sml", qd, kb.to(torch.float32))
         lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
-        s = s + torch.where(lpos <= pos.view(s_dim, 1, 1), 0.0, _NEG_INF)
+        s = s + torch.where(lpos <= horizon, 0.0, _NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
         m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
         p = torch.exp(s - m_safe)
@@ -246,6 +260,99 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
         k_full.shape[-1], kind, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- candidates
+_MULTI_MAX_C = 16          # candidates per slot the multi kernel takes
+_MULTI_GROUP = 16          # query rows the kernel accumulates P@V for at once
+_SMEM_LIMIT = 227 * 1024   # shared memory one block may use on the H100
+
+
+def multi_smem_bytes(rows: int, block_l: int) -> int:
+    """Dynamic shared memory of the multi kernel for `rows` = C * (query
+    heads per block): q [rows, hd] f32, scores/P [rows, bl] f32, the P@V
+    cross-warp reduction [4 warps, group, hd] and the accumulators
+    [rows, hd] f32, P codes [rows, bl] int8. csrc/decode_attention_multi.cu
+    lays it out so."""
+    return rows * _HD * 4 + rows * block_l * 4 + 4 * _MULTI_GROUP * _HD * 4 \
+        + rows * _HD * 4 + rows * block_l
+
+
+def decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions,
+                                            layer: int, *, window: Optional[int] = None,
+                                            block_l: Optional[int] = None) -> torch.Tensor:
+    """The multi kernel's algorithm in plain PyTorch (any device): the flat
+    algorithm over C*H candidate-major query rows, q quantized per (slot,
+    candidate, head), row (s, c) masked past positions[s] + c. Returns
+    [S, C, H, hd] f32."""
+    s_dim, cands, n_heads, hd = q.shape
+    g = _geometry(q[:, 0], k_full, k_scale_l, window, block_l, pack=False)
+    out = _attend_plain(q.reshape(s_dim, cands * n_heads, hd), k_full, v_full, k_scale_l,
+                        v_scale_l, positions, layer, g, cands=cands)
+    return out.reshape(s_dim, cands, n_heads, hd)
+
+
+def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, positions,
+                                      layer: int, *, window: Optional[int] = None,
+                                      block_l: Optional[int] = None) -> torch.Tensor:
+    """Speculative-verification attention over the flat cache, in place at
+    `layer`: q [S, C, H, hd] (f32 or bf16; C candidates per slot, scaled by
+    1/sqrt(hd) and RoPE'd at their own positions, their K/V already written
+    at positions[s] .. positions[s] + C - 1); positions [S] = candidate 0's
+    position (-1 = inactive); the rest as decode_attention_wide_cache.
+    Callers guarantee max(positions) + C <= window. Returns [S, C, H, hd]
+    f32; candidate 0 of an inactive slot is 0, its other candidates are
+    garbage for the caller to mask. CUDA tensors launch the kernel (1 <= C
+    <= 16); CPU tensors take the plain version."""
+    global multi_launches
+    if not q.is_cuda:
+        return decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scale_l,
+                                                       positions, layer, window=window,
+                                                       block_l=block_l)
+    from tpuserve_torch import kernels
+
+    if q.dim() != 4:
+        raise ValueError("multi decode attention expects q [S, C, H, hd]")
+    s_dim, cands, n_heads, hd = q.shape
+    if not 1 <= cands <= _MULTI_MAX_C:
+        raise ValueError(f"multi decode attention kernel: {cands} candidates, "
+                         f"takes 1..{_MULTI_MAX_C}")
+    g = _geometry(q[:, 0], k_full, k_scale_l, window, block_l, pack=False)
+    n_kv = g["n_kv"]
+    kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], hd)
+    _check_inputs(q, [q, k_full, v_full, positions]
+                  + ([k_scale_l, v_scale_l] if g["quantized"] else []),
+                  k_full, v_full, g["block_l"], nq)
+    smem = multi_smem_bytes(cands * nq, g["block_l"])
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
+                         f"{cands} candidates x {nq} heads, block {g['block_l']}")
+    if not 0 <= int(layer) < g["n_layers"]:
+        raise ValueError(f"layer {layer} out of range")
+    if positions.shape != (s_dim,):
+        raise ValueError("multi decode attention: positions must be [S]")
+    sc_bf16 = 0
+    if g["quantized"]:
+        want = (s_dim, n_kv, g["l_max"])
+        if tuple(k_scale_l.shape) != want or tuple(v_scale_l.shape) != want:
+            raise ValueError(f"multi decode attention kernel: scales must be {want}")
+        if k_scale_l.dtype != v_scale_l.dtype or k_scale_l.dtype not in (torch.float32,
+                                                                          torch.bfloat16):
+            raise ValueError("multi decode attention kernel: scales must be f32 or bf16")
+        sc_bf16 = int(k_scale_l.dtype == torch.bfloat16)
+    pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    null = 0
+    rc = kernels.lib().tpuserve_decode_attention_multi(
+        q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
+        k_scale_l.data_ptr() if g["quantized"] else null,
+        v_scale_l.data_ptr() if g["quantized"] else null,
+        pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
+        s_dim, cands, n_heads, n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
+        k_full.shape[-1], kind, nq, kernels.stream_of(q))
+    kernels.check(rc, "decode_attention_multi")
+    multi_launches += 1
     return out
 
 

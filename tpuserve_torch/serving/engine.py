@@ -23,11 +23,20 @@ paths).
   of matched full-page prompt prefixes and prefills only the suffix.
   Chunked prefill rides the suffix path, so prefill_chunk must be a
   multiple of page_size.
+- Speculative decoding (generation.speculation_tokens = k > 0): prompt-
+  lookup drafts of up to k tokens, verified C = k+1 at a time with exact
+  acceptance (greedy: the model's argmax; sampled: point-mass rejection
+  sampling, sampling.spec_accept). Contiguous mode with speculation_rounds
+  > 1 runs that many draft+verify rounds back to back on the device,
+  drafting there (llama.draft_lookup), and fetches their tokens with ONE
+  device-to-host copy; paged mode and speculation_rounds = 1 draft on the
+  host and verify once per iteration. Slots with a repetition penalty do
+  not speculate, nor does a step while requests wait for admission.
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (speculation, sharding or pipelining, GPTQ, LoRC,
-MoE) raise BackendError.
+that need unported parts (sharding or pipelining, GPTQ, LoRC, MoE) raise
+BackendError.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from tpuserve_torch.models.llama import KVCache, LlamaParams
 from tpuserve_torch.quant.core import QTensor, quantize_param_tree
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving.paged_kv import PagedKVCache, PageTableManager
-from tpuserve_torch.serving.sampling import SamplingParams, sample_with_logprobs
+from tpuserve_torch.serving.sampling import SamplingParams, sample_with_logprobs, spec_accept
+from tpuserve_torch.utils.device import resolve_device
 from tpuserve_torch.utils.dtypes import DataType
 from tpuserve_torch.utils.errors import BackendError, InvalidArgumentError
 from tpuserve_torch.utils.tensor import Tensor
@@ -57,16 +67,6 @@ from tpuserve_torch.utils.tensor import Tensor
 log = logging.getLogger("tpuserve_torch.engine")
 
 _QUANT_BITS = {"int8": 8, "int4": 4}
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: "cuda" unless the caller asks for
-    the CPU. Raises when a card is asked for and none is present."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise BackendError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass
@@ -96,6 +96,18 @@ class _SlotState:
     next_pos: int  # cache position the *next* fed token occupies
     generated: int
     last_token: int
+    # --- speculation bookkeeping (see _sync_slot_history) ---
+    # tokens of (prompt + outputs) already copied into the engine's history
+    # buffer row
+    hist_synced: int = 0
+    # n-gram -> start index over the history with a one-token lag (n-grams
+    # ending at most at index len-2), so a lookup of the trailing n-gram
+    # finds only strictly earlier occurrences
+    ngram_idx: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+    ngram_synced: int = 0
+    # EMA of accepted draft tokens per verify round (a count) for the
+    # break-even guard; starts optimistic so that new slots get probed
+    acc_ema: float = 8.0
 
 
 class GenerationEngine:
@@ -128,10 +140,16 @@ class GenerationEngine:
         self._generator.manual_seed(int(config.model_params.get("seed", 0)))
         self._sampling = SamplingParams.create(self.n_slots, device=self.device)
         self._presence: Optional[torch.Tensor] = None  # [S, V] bool, made at start()
-        self.steps = 0          # decode steps
+        self.steps = 0          # decode steps (a verify round counts one)
         self.prefill_calls = 0  # whole-prompt prefills and prefill chunks
         self.tokens_out = 0
         self.tokens_in = 0
+        self.verify_calls = 0   # verify_step / verify_step_paged calls
+        self._hist_np: Optional[np.ndarray] = None  # [S, max_seq_len] token history
+        self._spec_disabled = False  # latched when a verify dispatch raises
+        self._spec_probe = 0         # break-even-guard probe counter
+        self.spec_drafted = 0        # drafted tokens proposed
+        self.spec_accepted = 0       # drafted tokens accepted (and emitted)
 
     # ------------------------------------------------------------------ setup
     def _load_params(self) -> Dict[str, torch.Tensor]:
@@ -153,12 +171,9 @@ class GenerationEngine:
             f"no checkpoint in {self.model_dir} and model_params.init != 'random'")
 
     def _check_supported(self) -> None:
-        cfg, gen, qcfg = self.config, self.config.generation, self.config.quantization
+        cfg, qcfg = self.config, self.config.quantization
         shard = cfg.sharding
         unported = []
-        if int(getattr(gen, "speculation_tokens", 0) or 0) > 0:
-            unported.append("speculative decoding (generation.speculation_tokens)"
-                            + (", with paged KV or without" if gen.paged else ""))
         if (shard.tensor_parallel * shard.data_parallel
                 * int(getattr(shard, "sequence_parallel", 1))
                 * int(getattr(shard, "pipeline_parallel", 1))) > 1:
@@ -309,6 +324,9 @@ class GenerationEngine:
             "paged": self.ptm is not None,
             "decode_horizon_last": self._horizon_last,
         }
+        if self.spec_drafted:
+            stats["spec_drafted"] = self.spec_drafted
+            stats["spec_accepted"] = self.spec_accepted
         if self._tok_ms_ema is not None:
             stats["decode_token_ms_ema"] = round(self._tok_ms_ema, 3)
         if self.ptm is not None:
@@ -379,6 +397,18 @@ class GenerationEngine:
         while b < n:
             b *= 2
         return min(b, self.max_seq_len)
+
+    def _window(self, last_pos: int) -> int:
+        """KV read window of a dispatch whose last write is at `last_pos`:
+        the smallest of generation.decode_buckets power-of-two buckets past
+        it (0 buckets: the whole max_seq_len)."""
+        n_buckets = int(self.config.generation.decode_buckets)
+        if n_buckets <= 0:
+            return self.max_seq_len
+        window = max(64, self.max_seq_len >> n_buckets)
+        while window <= last_pos:
+            window *= 2
+        return min(window, self.max_seq_len)
 
     def _free_slot(self) -> Optional[int]:
         busy = self._chunking["slot"] if self._chunking is not None else -1
@@ -479,6 +509,74 @@ class GenerationEngine:
                             torch.stack(out_lp).to(torch.float64)]).cpu().numpy()
         return both[0].astype(np.int64), both[1].astype(np.float32)
 
+    def _dev_verify(self, toks, positions, lens, window: int):
+        """One verify of host-drafted candidates toks [S, C] (paged or
+        contiguous) and their acceptance, fetched with one copy; returns
+        host arrays (tokens [S, C], logprobs [S, C], accepted [S])."""
+        dev = self.device
+        toks_t = torch.from_numpy(toks).to(dev)
+        pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
+        lens_t = torch.from_numpy(lens).to(dev)
+        if self.ptm is None:
+            logits, _ = llama.verify_step(self.params, self.p, toks_t, self.cache, pos_t,
+                                          lens_t, window=window)
+        else:
+            logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
+                                                self.ptm.device_table(), pos_t, lens_t,
+                                                window=window)
+        self.verify_calls += 1
+        g, lp, acc = spec_accept(logits, toks_t, lens_t, self._sampling, self._generator)
+        c = toks.shape[1]
+        host = torch.cat([g.to(torch.float64), lp.to(torch.float64),
+                          acc[:, None].to(torch.float64)], dim=1).cpu().numpy()
+        return host[:, :c].astype(np.int64), host[:, c:2 * c], host[:, 2 * c].astype(np.int64)
+
+    def _dev_spec_rounds(self, last, positions, k_cap, window: int, rounds: int):
+        """`rounds` draft+verify+accept rounds back to back on the device
+        (the JAX engine's spec_multi_fn): each round drafts from the history
+        buffer (llama.draft_lookup), verifies C = k+1 candidates per slot and
+        appends the committed run to the buffer. Nothing crosses to the host
+        until all rounds are queued; one copy then returns host arrays
+        (tokens [R, S, C], logprobs [R, S, C], accepted [R, S], drafted
+        [R, S])."""
+        gen = self.config.generation
+        spec_k = int(gen.speculation_tokens)
+        n = int(getattr(gen, "speculation_ngram", 3) or 3)
+        c = spec_k + 1
+        dev = self.device
+        # C columns wider than max_seq_len, so a committed run is appended
+        # without clamping (draft_lookup reads nothing past seq_lens)
+        hist = torch.zeros((self.n_slots, self.max_seq_len + c), dtype=torch.int64, device=dev)
+        hist[:, :self.max_seq_len] = torch.from_numpy(self._hist_np).to(dev)
+        last = torch.from_numpy(last).to(dev)
+        pos = torch.from_numpy(np.asarray(positions, np.int64)).to(dev)
+        k_cap = torch.from_numpy(k_cap).to(dev)
+        rows = torch.arange(self.n_slots, device=dev)[:, None]
+        cols = torch.arange(c, device=dev)[None, :]
+        rounds_out = []
+        for _ in range(rounds):
+            live = pos >= 0
+            slen = torch.where(live, pos + 1, 0)
+            drafts, k_eff = llama.draft_lookup(hist, slen, n, spec_k, k_cap)
+            toks = torch.cat([last[:, None], drafts], dim=1)
+            lens = torch.where(live, 1 + k_eff, 0)
+            logits, _ = llama.verify_step(self.params, self.p, toks, self.cache, pos, lens,
+                                          window=window)
+            self.verify_calls += 1
+            g, lp, acc = spec_accept(logits, toks, lens, self._sampling, self._generator)
+            acc = torch.minimum(acc, k_eff)
+            adv = torch.where(live, acc + 1, 0)
+            last = torch.where(live, torch.gather(g, 1, acc[:, None])[:, 0], last)
+            wr = slen[:, None] + cols
+            hist[rows, wr] = torch.where(cols < adv[:, None], g, hist[rows, wr])
+            pos = torch.where(live, pos + adv, pos)
+            rounds_out.append(torch.cat([g.to(torch.float64), lp.to(torch.float64),
+                                         acc[:, None].to(torch.float64),
+                                         k_eff[:, None].to(torch.float64)], dim=1))
+        host = torch.stack(rounds_out).cpu().numpy()   # [R, S, 2C + 2]
+        return (host[..., :c].astype(np.int64), host[..., c:2 * c],
+                host[..., 2 * c].astype(np.int64), host[..., 2 * c + 1].astype(np.int64))
+
     # ------------------------------------------------------------------ scheduling
     def _admit(self, req: Request, slot: int) -> None:
         samp = (req.temperature, req.top_k, req.top_p, req.repetition_penalty, req.min_p)
@@ -567,6 +665,186 @@ class GenerationEngine:
         req.done.set()
         return True
 
+    # ------------------------------------------------------------------ speculation
+    def _propose_lookup(self, st: _SlotState, k: int, n: int) -> List[int]:
+        """Prompt-lookup draft: match the sequence's trailing n-gram against
+        its own history (prompt + generated) and propose the k tokens that
+        followed the most recent earlier occurrence with a full k-token
+        continuation, else the occurrence with the longest continuation (on
+        repetitive text the latest match abuts the tail and would draft 0-1
+        tokens)."""
+        hist = st.request.prompt_ids + st.request.output_ids
+        if len(hist) < n + 1 or k <= 0:
+            return []
+        arr = np.asarray(hist, np.int64)
+        pat = arr[-n:]
+        win = np.lib.stride_tricks.sliding_window_view(arr[:-1], n)
+        hits = np.nonzero((win == pat).all(axis=1))[0]
+        if len(hits) == 0:
+            return []
+        avail = len(arr) - (hits + n)
+        full = hits[avail >= k]
+        j = int(full[-1]) if len(full) else int(hits[np.argmax(avail)])
+        return [int(t) for t in arr[j + n:j + n + k]]
+
+    def _sync_slot_history(self, i: int, st: _SlotState) -> int:
+        """Bring the slot's row of the history buffer and its lagged n-gram
+        index up to date, in O(new tokens); returns the history length."""
+        if self._hist_np is None:
+            self._hist_np = np.zeros((self.n_slots, self.max_seq_len), np.int64)
+        req = st.request
+        p_len = len(req.prompt_ids)
+        total = min(p_len + len(req.output_ids), self.max_seq_len)
+        row = self._hist_np[i]
+        if st.hist_synced == 0:
+            row[:total] = (req.prompt_ids + req.output_ids)[:total]
+        elif total > st.hist_synced:
+            row[st.hist_synced:total] = req.output_ids[st.hist_synced - p_len:total - p_len]
+        st.hist_synced = total
+        n = int(getattr(self.config.generation, "speculation_ngram", 3) or 3)
+        for m in range(max(st.ngram_synced, n), total):
+            st.ngram_idx[tuple(int(x) for x in row[m - n:m])] = m - n
+        st.ngram_synced = max(st.ngram_synced, total)
+        return total
+
+    def _slot_has_match(self, i: int, st: _SlotState, total: int, n: int) -> bool:
+        if total < n + 1:
+            return False
+        return tuple(int(x) for x in self._hist_np[i, total - n:total]) in st.ngram_idx
+
+    def _commit(self, i: int, st: _SlotState, run, lps, accepted: int) -> bool:
+        """Emit a verify's run for slot i: `accepted` drafts, then the final
+        token. Returns False when the slot retired inside the run (tokens
+        past its EOS, stop id or budget are dropped; their cache rows are
+        masked by position)."""
+        for j in range(accepted + 1):
+            st.next_pos += 1
+            st.generated += 1
+            st.last_token = int(run[j])
+            if j < accepted:
+                self.spec_accepted += 1  # counted as delivered
+            self._emit(st.request, st.last_token, float(lps[j]))
+            if self._retire_if_done(st):
+                self._slots[i] = None
+                self._release(i)
+                return False
+        return True
+
+    def _spec_failed(self, e: Exception) -> bool:
+        # a verify failure never takes down in-flight requests: the rows it
+        # may have written lie past every slot's live position, so plain
+        # decode goes on over an intact cache
+        self._spec_disabled = True
+        log.error("speculative verify failed; speculation is off for this engine's "
+                  "lifetime, plain decode goes on: %s", e)
+        return False
+
+    def _spec_step(self, active, positions, spec_k: int) -> bool:
+        """One speculative iteration; False when drafting is not worthwhile
+        (the caller runs a plain decode step instead).
+
+        Contiguous mode with speculation_rounds > 1: up to that many rounds
+        on the device with device drafting (_dev_spec_rounds); otherwise one
+        host-drafted verify (_spec_step_single)."""
+        gen = self.config.generation
+        rounds = int(getattr(gen, "speculation_rounds", 1) or 1)
+        if rounds <= 1 or self.ptm is not None:
+            return self._spec_step_single(active, positions, spec_k)
+        n = int(getattr(gen, "speculation_ngram", 3) or 3)
+        match = {i: self._slot_has_match(i, self._slots[i],
+                                         self._sync_slot_history(i, self._slots[i]), n)
+                 for i in active}
+        if not any(match.values()):
+            return False
+        # break-even guard: the expected accepted drafts per slot and round
+        # (per-slot EMA) must clear speculation_min_gain; a probe every 16
+        # refusals refreshes the EMAs
+        min_gain = float(getattr(gen, "speculation_min_gain", 0.0) or 0.0)
+        exp_gain = sum(min(self._slots[i].acc_ema, spec_k) for i in active if match[i]) \
+            / len(active)
+        if exp_gain < min_gain:
+            self._spec_probe += 1
+            if self._spec_probe % 16 != 0:
+                return False
+        k_cap = np.zeros((self.n_slots,), np.int64)
+        for i in active:
+            # a round advances at most k_cap + 1: even fully accepted runs
+            # stay inside the sequence capacity. Not match-gated: the device
+            # lookup re-matches every round as the history grows.
+            room = (self.max_seq_len - 1 - self._slots[i].next_pos) // rounds - 1
+            k_cap[i] = min(spec_k, max(0, room))
+        if not k_cap.any():
+            return False
+        window = self._window(max(positions[i] for i in active) + rounds * (spec_k + 1) - 1)
+        last = np.zeros((self.n_slots,), np.int64)
+        for i in active:
+            last[i] = self._slots[i].last_token
+        try:
+            g, lps, acc, keff = self._dev_spec_rounds(last, positions, k_cap, window, rounds)
+        except Exception as e:
+            return self._spec_failed(e)
+        self.steps += rounds
+        self._horizon_last = 1
+        live = {i: self._slots[i] for i in active}
+        for r in range(rounds):
+            for i in list(live):
+                st = live[i]
+                kr = int(keff[r, i])
+                a = min(int(acc[r, i]), kr)
+                self.spec_drafted += kr
+                if kr > 0:
+                    st.acc_ema = 0.7 * st.acc_ema + 0.3 * a
+                if not self._commit(i, st, g[r, i], lps[r, i], a):
+                    del live[i]
+        return True
+
+    def _spec_step_single(self, active, positions, spec_k: int) -> bool:
+        """One host-drafted verify (paged mode, or speculation_rounds 1);
+        False when no slot has a draft."""
+        n = int(getattr(self.config.generation, "speculation_ngram", 3) or 3)
+        c = spec_k + 1
+        props: Dict[int, List[int]] = {}
+        for i in active:
+            room = self.max_seq_len - 1 - self._slots[i].next_pos - 1  # drafts past col 0
+            props[i] = self._propose_lookup(self._slots[i], min(spec_k, max(0, room)), n)
+        if not any(props.values()):
+            return False
+        toks = np.zeros((self.n_slots, c), np.int64)
+        lens = np.zeros((self.n_slots,), np.int64)
+        for i in active:
+            row = [self._slots[i].last_token] + props[i]
+            toks[i, :len(row)] = row
+            lens[i] = len(row)
+        last_pos = max(positions[i] for i in active) + c - 1
+        if self.ptm is None:
+            window = self._window(last_pos)
+        else:
+            # page chains must cover every candidate; a slot the pool cannot
+            # grow drops its drafts (one real token)
+            for i in active:
+                try:
+                    self.ptm.ensure(i, self._slots[i].next_pos + int(lens[i]))
+                except Exception:
+                    toks[i, 1:] = 0
+                    lens[i] = 1
+                    props[i] = []
+            if not any(props.values()):
+                return False
+            ps = self.ptm.page_size
+            window = min(-(-(last_pos + 1) // ps) * ps, self.max_seq_len)
+        try:
+            g, lps, acc = self._dev_verify(toks, positions, lens, window)
+        except Exception as e:
+            return self._spec_failed(e)
+        self.steps += 1
+        self._horizon_last = 1
+        for i in active:
+            st, prop = self._slots[i], props[i]
+            a = min(int(acc[i]), len(prop))
+            self.spec_drafted += len(prop)
+            self._commit(i, st, prop[:a] + [int(g[i, a])], lps[i], a)
+        return True
+
     def _loop(self) -> None:
         try:
             self._loop_inner()
@@ -645,7 +923,7 @@ class GenerationEngine:
             # fused horizon: when nothing waits to be admitted, run up to
             # decode_horizon steps per host fetch, bounded by each slot's
             # remaining budget and the sequence capacity
-            max_pos = max(positions[i] for i in active)
+            max_pos = int(max(positions[i] for i in active))
             horizon = 1
             gen = self.config.generation
             h_cfg = int(getattr(gen, "decode_horizon", 1) or 1)
@@ -660,15 +938,7 @@ class GenerationEngine:
                     horizon = max(1, min(horizon, int(tgt / max(self._tok_ms_ema, 1e-6))))
                 if horizon > 1:  # power-of-2 bucket, as the JAX engine
                     horizon = 1 << (horizon.bit_length() - 1)
-            # KV read window: smallest bucket covering every live position
-            window = self.max_seq_len
-            n_buckets = int(gen.decode_buckets)
-            if n_buckets > 0:
-                last_pos = max_pos + horizon - 1
-                window = max(64, self.max_seq_len >> n_buckets)
-                while window <= last_pos:
-                    window *= 2
-                window = min(window, self.max_seq_len)
+            window = self._window(max_pos + horizon - 1)  # covers every live position
             if self.ptm is not None and horizon > 1:
                 # page chains must cover every position the horizon writes
                 for i in active:
@@ -677,6 +947,18 @@ class GenerationEngine:
                     except Exception:
                         horizon = 1
                         break
+            # speculative decoding (prompt-lookup): when every active slot
+            # is unpenalized and nothing waits to be admitted, verify drafts
+            # instead of one decode step. The repetition penalty disables
+            # it: its presence mask would have to evolve inside the
+            # accepted run.
+            spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
+            if (spec_k > 0 and not self._spec_disabled and self._pending.empty()
+                    and self._chunking is None
+                    and all(self._slots[i].request.repetition_penalty == 1.0
+                            and not self._slots[i].request.aborted for i in active)):
+                if self._spec_step(active, positions, spec_k):
+                    continue
             try:
                 t_disp = time.monotonic()
                 step_tokens, step_lps = self._dev_decode(tokens, positions, window, horizon)

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpuserve_torch.utils.device import resolve_device
 from tpuserve_torch.utils.errors import ResourceExhaustedError
 
 
@@ -238,7 +239,7 @@ class PageTableManager:
     """
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int, max_len: int,
-                 prefix_sharing: bool = False, device="cpu"):
+                 prefix_sharing: bool = False, device="cuda"):
         if n_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
         # page 0 reserved: hand the allocator n_pages-1 pages, shift ids by 1
@@ -246,7 +247,7 @@ class PageTableManager:
         self.page_size = page_size
         self.max_pages = -(-max_len // page_size)
         self.n_slots = n_slots
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.table = np.zeros((n_slots, self.max_pages), np.int32)  # 0 = zero page
         self.prefix_sharing = bool(prefix_sharing)
         # digest -> block record {"handle", "page" (0-based pool id), "refs", "tick"}

@@ -93,6 +93,12 @@ def _masked_logits(lf: torch.Tensor, params: SamplingParams) -> torch.Tensor:
     return torch.where(probs >= params.min_p[:, None] * pmax, scaled, -torch.inf)
 
 
+def _uniform(shape, generator, device) -> torch.Tensor:
+    """Uniform in [1e-10, 1), as jax.random.uniform(minval=1e-10)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return 1e-10 + (1.0 - 1e-10) * u
+
+
 def sample(logits: torch.Tensor, params: SamplingParams,
            generator: Optional[torch.Generator] = None,
            presence: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -112,11 +118,72 @@ def sample(logits: torch.Tensor, params: SamplingParams,
 
     greedy = torch.argmax(lf, dim=-1)
     scaled = _masked_logits(lf, params)
-    u = torch.rand((s, v), generator=generator, device=lf.device)
-    u = 1e-10 + (1.0 - 1e-10) * u  # uniform in [1e-10, 1), as jax.random.uniform
-    gumbel = -torch.log(-torch.log(u))
+    gumbel = -torch.log(-torch.log(_uniform((s, v), generator, lf.device)))
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(params.temperature > 0, sampled, greedy)
+
+
+def spec_accept(
+    logits: torch.Tensor, draft: torch.Tensor, lens: torch.Tensor,
+    params: SamplingParams, generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact speculative acceptance for point-mass (prompt-lookup) drafts.
+
+    logits [S, C, V]: position j's logits predict the token at column j+1.
+    draft [S, C]: column 0 is the slot's committed last token, columns
+    1..lens-1 the drafted continuation; lens [S] valid columns (>= 1 for a
+    live slot), so a row carries k = lens-1 drafts.
+
+    Draft j is accepted with probability p_j(draft) under the slot's
+    processed distribution (temperature / top-k / top-p / min-p, the masks
+    sample() applies); greedy slots (temperature <= 0) accept iff the draft
+    equals the argmax. At the first rejection the emitted token is drawn
+    from p with the rejected token masked out (the residual of a point-mass
+    proposal), so the emitted sequence is distributed exactly as
+    token-by-token sampling; when all k drafts are accepted a bonus token is
+    drawn from p_k. The repetition penalty is not applied (the engine
+    speculates only for slots without one). Uniforms and Gumbel noise come
+    from `generator`.
+
+    Returns (tokens [S, C] int64, logprobs [S, C] f32, accepted [S] int64):
+    row i emits tokens[i, :accepted[i]+1]; logprobs are under the
+    unfiltered model distribution."""
+    s, c, v = logits.shape
+    dev = logits.device
+    lf = logits.to(torch.float32)
+    params_c = SamplingParams(*(getattr(params, f.name).repeat_interleave(c)
+                                for f in dataclasses.fields(params)))
+    masked = _masked_logits(lf.reshape(s * c, v), params_c).reshape(s, c, v)
+    probs = torch.softmax(masked, dim=-1)
+    greedy_tok = torch.argmax(masked, dim=-1)        # == argmax(lf)
+
+    # the token judged by position-j logits sits at draft column j+1
+    draft = draft.to(device=dev, dtype=torch.int64)
+    draft_next = torch.cat([draft[:, 1:], draft.new_zeros((s, 1))], dim=1)   # [S, C]
+    p_draft = torch.gather(probs, 2, draft_next[..., None])[..., 0]
+    u = _uniform((s, c), generator, dev)
+    sampled = (params.temperature > 0)[:, None]
+    accept = torch.where(sampled, u < p_draft, draft_next == greedy_tok)
+    k = torch.clamp_min(lens.to(device=dev, dtype=torch.int64) - 1, 0)      # drafts per row
+    cols = torch.arange(c, device=dev)[None, :]
+    accept = accept & (cols < k[:, None])
+    a = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)            # [S]
+
+    # final token at position a: the residual (rejected draft masked) when
+    # a < k, else the bonus draw from p_k
+    rows = torch.arange(s, device=dev)
+    m_a = masked[rows, a]                                                  # [S, V]
+    rejected = draft_next[rows, a]
+    mask_rej = (a < k)[:, None] & (torch.arange(v, device=dev)[None, :] == rejected[:, None])
+    m_final = torch.where(mask_rej, -torch.inf, m_a)
+    gumbel = -torch.log(-torch.log(_uniform((s, v), generator, dev)))
+    final = torch.where(params.temperature > 0, torch.argmax(m_final + gumbel, dim=-1),
+                        torch.argmax(m_final, dim=-1))
+
+    out = torch.where(cols < a[:, None], draft_next, 0)
+    out = torch.where(cols == a[:, None], final[:, None], out)
+    lp = torch.gather(lf, 2, out[..., None])[..., 0] - torch.logsumexp(lf, dim=-1)
+    return out, lp, a
 
 
 def sample_with_logprobs(
