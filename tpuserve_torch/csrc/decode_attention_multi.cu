@@ -25,13 +25,18 @@
 // Bound on the H100: bytes, as the flat kernel; the point of this kernel is
 // that each live K/V byte is read from device memory once for all C
 // candidates, where C flat calls would read it C times. Design: the flat
-// kernel's block per (kv unit, slot) and its warps loading ROWS rows ahead,
-// widened from NQ query rows to R = C*NQ. C is a run-time bound, so per-row
-// state lives in shared memory (q, scores and P, the accumulators): a warp
-// holds one K word in registers while it runs the dots of every candidate
-// that sees the row. P@V runs over groups of GROUP query rows, the register
-// accumulators of one group at a time; each group reads the block's V rows
-// again, from L1 or L2, not from device memory.
+// kernel's block per (kv unit, slot), widened from NQ query rows to R =
+// C*NQ. C is a run-time bound, so per-row state lives in shared memory (q,
+// scores and P, the accumulators). Scores of the int kinds: a thread owns
+// one cache row of the block, holds its 128-byte K segment in registers
+// and runs the whole dot of every candidate that sees the row against q
+// codes broadcast from shared memory, so no warp reduction is needed; it
+// also stages the row's V scales for the softmax phase. Scores of the
+// float kinds: a warp owns a row and its lanes 4 values each, as in the
+// flat kernel. P@V runs over groups of GROUP query rows, the register
+// accumulators of one group at a time, warps loading ROWS V rows ahead;
+// each group reads the block's V rows again, from L1 or L2, not from device
+// memory.
 #include "attention_common.cuh"
 
 namespace {
@@ -59,12 +64,13 @@ struct MultiArgs {
 
 // Dynamic shared memory, in this order (ops/decode_attention.py's
 // multi_smem_bytes computes the same size): q [R][HD] f32 (int8 codes in
-// its first bytes for the int kinds), scores then P [R][bl] f32, the P@V
-// reduction [WARPS][GROUP][HD] 32-bit, accumulators [R][HD] f32, P codes
-// [R][bl] int8.
+// its first bytes for the int kinds), the P@V reduction [WARPS][GROUP][HD]
+// 32-bit, accumulators [R][HD] f32 (the three read in 16-byte vectors, so
+// they come first), scores then P [R][bl] f32, the block's V scales [2][bl]
+// f32 (kv heads of members 0 and NQ-1), P codes [R][bl] int8.
 __host__ __device__ inline size_t smem_bytes(int rows, int bl) {
-  return (size_t)rows * HD * 4 + (size_t)rows * bl * 4 + (size_t)WARPS * GROUP * HD * 4 +
-         (size_t)rows * HD * 4 + (size_t)rows * bl;
+  return (size_t)rows * HD * 4 + (size_t)WARPS * GROUP * HD * 4 + (size_t)rows * HD * 4 +
+         (size_t)rows * bl * 4 + (size_t)2 * bl * 4 + (size_t)rows * bl;
 }
 
 template <int KIND, int NQ>
@@ -76,12 +82,14 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
   extern __shared__ __align__(16) unsigned char dsm[];
   float* qf = reinterpret_cast<float*>(dsm);
   int8_t* q8 = reinterpret_cast<int8_t*>(dsm);
-  float* sc = reinterpret_cast<float*>(dsm + (size_t)R * HD * 4);
-  unsigned char* red = dsm + (size_t)R * HD * 4 + (size_t)R * bl * 4;
+  unsigned char* red = dsm + (size_t)R * HD * 4;
   float* acc = reinterpret_cast<float*>(red + (size_t)WARPS * GROUP * HD * 4);
-  int8_t* pq = reinterpret_cast<int8_t*>(acc + (size_t)R * HD);
+  float* sc = acc + (size_t)R * HD;
+  float* vsc = sc + (size_t)R * bl;
+  int8_t* pq = reinterpret_cast<int8_t*>(vsc + (size_t)2 * bl);
   __shared__ float s_qscale[MAX_ROWS], s_m[MAX_ROWS], s_l[MAX_ROWS], s_corr[MAX_ROWS],
       s_pscale[MAX_ROWS];
+  __shared__ int s_qsum[MAX_ROWS];  // int4: sum of the row's q codes, for the -8 fold
 
   const int u = blockIdx.x;
   const int slot = blockIdx.y;
@@ -116,13 +124,19 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
       float am = fmaxf(fmaxf(fabsf(qv[0]), fabsf(qv[1])), fmaxf(fabsf(qv[2]), fabsf(qv[3])));
       am = warp_max(am);
       const float scale = fmaxf(am / 127.0f, 1e-10f);
+      int csum = 0;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         float rr = rintf(qv[c] / scale);
         rr = fminf(fmaxf(rr, -127.0f), 127.0f);
         q8[r * HD + lane * 4 + c] = (int8_t)rr;
+        csum += (int)rr;
       }
-      if (lane == 0) s_qscale[r] = scale;
+      csum = warp_sum(csum);
+      if (lane == 0) {
+        s_qscale[r] = scale;
+        s_qsum[r] = csum;
+      }
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
@@ -149,52 +163,75 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
       return load_word<KIND>(base, (blk_row + i) * (size_t)a.row_stride + unit_off, lane);
     };
 
-    // ---- phase 1: scores of every (row, candidate); a warp holds the K
-    // words of ROWS rows and runs the dots of each candidate that sees them
-    for (int i0 = warp; i0 < bl; i0 += WARPS * ROWS) {
-      typename RowWord<KIND>::T kw[ROWS] = {};
-      float ks_lo[ROWS] = {}, ks_hi[ROWS] = {};  // scales of kv_of(0) and kv_of(NQ-1)
+    // ---- phase 1: scores of every (row, candidate). Candidate c sees block
+    // row i iff l0 + i <= pos + c; the rows of candidates before c_min are
+    // masked.
+    if constexpr (INTK) {
+      // a thread owns row i: its K segment (HD codes, or HD packed bytes of
+      // a head pair) in registers, one whole dot per (candidate, member)
+      for (int i = tid; i < bl; i += THREADS) {
+        const int c_min = (i < live) ? max(0, l0 + i - pos) : a.C;
+        for (int rr = 0; rr < c_min * NQ; ++rr) sc[rr * bl + i] = NEG_INF;
+        if (c_min >= a.C) continue;
+        const uint4* kp = reinterpret_cast<const uint4*>(
+            static_cast<const unsigned char*>(a.k) + (blk_row + i) * (size_t)a.row_stride +
+            unit_off);
+        uint32_t kw[HD / 4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int i = i0 + r * WARPS;
-        if (i < live) {
-          kw[r] = word(a.k, i);
-          if constexpr (INTK) {
-            ks_lo[r] = load_scale(a.ks, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
-            if (KIND == KV_INT4) ks_hi[r] = load_scale(a.ks, sc0 + kv_of(NQ - 1) * sc_h + i, a.sc_bf16);
+        for (int t = 0; t < HD / 16; ++t) {
+          const uint4 w = kp[t];
+          kw[4 * t] = w.x; kw[4 * t + 1] = w.y; kw[4 * t + 2] = w.z; kw[4 * t + 3] = w.w;
+        }
+        // scales of kv_of(0) and, for int4's hi-nibble members, kv_of(NQ-1)
+        const float ks_lo = load_scale(a.ks, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
+        const float ks_hi = (KIND == KV_INT4)
+                                ? load_scale(a.ks, sc0 + kv_of(NQ - 1) * sc_h + i, a.sc_bf16)
+                                : ks_lo;
+        vsc[i] = load_scale(a.vs, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
+        if (KIND == KV_INT4) vsc[bl + i] = load_scale(a.vs, sc0 + kv_of(NQ - 1) * sc_h + i, a.sc_bf16);
+        for (int c = c_min; c < a.C; ++c) {
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int rq = c * NQ + j;
+            const int4* qp = reinterpret_cast<const int4*>(&q8[rq * HD]);  // broadcast reads
+            int d = 0;
+#pragma unroll
+            for (int t = 0; t < HD / 16; ++t) {
+              const int4 q4 = qp[t];
+              const int qs[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const uint32_t w = kw[4 * t + e];
+                if (KIND == KV_INT4)
+                  d = __dp4a(qs[e], (int)((j < HALF) ? (w & 0x0F0F0F0Fu) : ((w >> 4) & 0x0F0F0F0Fu)), d);
+                else
+                  d = __dp4a(qs[e], (int)w, d);
+              }
+            }
+            if (KIND == KV_INT4) d -= 8 * s_qsum[rq];
+            const float ksc = (KIND == KV_INT4 && j >= HALF) ? ks_hi : ks_lo;
+            sc[rq * bl + i] = ((float)d * s_qscale[rq]) * ksc;
           }
         }
       }
+    } else {
+      // a warp owns row i and its lanes 4 values each, loading ROWS rows ahead
+      for (int i0 = warp; i0 < bl; i0 += WARPS * ROWS) {
+        typename RowWord<KIND>::T kw[ROWS] = {};
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int i = i0 + r * WARPS;
-        if (i >= bl) break;
-        // candidate c sees block row i iff l0 + i <= pos + c
-        const int c_min = (i < live) ? max(0, l0 + i - pos) : a.C;
-        for (int rr = lane; rr < c_min * NQ; rr += 32) sc[rr * bl + i] = NEG_INF;
-        for (int c = c_min; c < a.C; ++c) {
-          float s[NQ];
-          if constexpr (INTK) {
-            int d[NQ];
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i < live) kw[r] = word(a.k, i);
+        }
 #pragma unroll
-            for (int j = 0; j < NQ; ++j) {
-              const int qw = *reinterpret_cast<const int*>(&q8[(c * NQ + j) * HD + lane * 4]);
-              if (KIND == KV_INT4) {
-                const int nib = (int)((j < HALF) ? (kw[r] & 0x0F0F0F0Fu) : ((kw[r] >> 4) & 0x0F0F0F0Fu));
-                d[j] = __dp4a(qw, nib, 0) - 8 * __dp4a(qw, 0x01010101, 0);
-              } else {
-                d[j] = __dp4a(qw, (int)kw[r], 0);
-              }
-              d[j] = warp_sum(d[j]);
-            }
-#pragma unroll
-            for (int j = 0; j < NQ; ++j) {
-              const float ksc = (KIND == KV_INT4 && j >= HALF) ? ks_hi[r] : ks_lo[r];
-              s[j] = ((float)d[j] * s_qscale[c * NQ + j]) * ksc;
-            }
-          } else {
-            float kv[4];
-            word_floats<KIND>(kw[r], kv);
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i >= bl) break;
+          const int c_min = (i < live) ? max(0, l0 + i - pos) : a.C;
+          for (int rr = lane; rr < c_min * NQ; rr += 32) sc[rr * bl + i] = NEG_INF;
+          float kv[4];
+          word_floats<KIND>(kw[r], kv);
+          for (int c = c_min; c < a.C; ++c) {
 #pragma unroll
             for (int j = 0; j < NQ; ++j) {
               const float4 q4 = *reinterpret_cast<const float4*>(&qf[(c * NQ + j) * HD + lane * 4]);
@@ -202,12 +239,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
               float t = 0.f;
 #pragma unroll
               for (int e = 0; e < 4; ++e) t += qv4[e] * kv[e];
-              s[j] = warp_sum(t);
+              t = warp_sum(t);
+              if (lane == 0) sc[(c * NQ + j) * bl + i] = t;
             }
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int j = 0; j < NQ; ++j) sc[(c * NQ + j) * bl + i] = s[j];
           }
         }
       }
@@ -217,6 +251,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
     // ---- phase 2: online-softmax statistics, v_scale fold, P requant
     for (int r = warp; r < R; r += WARPS) {
       float* row = sc + (size_t)r * bl;
+      const float* vrow = vsc + ((KIND == KV_INT4 && r % NQ >= HALF) ? bl : 0);
       float mx = NEG_INF;
       for (int i = lane; i < bl; i += 32) mx = fmaxf(mx, row[i]);
       mx = warp_max(mx);
@@ -229,7 +264,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
         float p = expf(row[i] - m_safe);
         psum += p;
         if (INTK) {
-          if (i < live) p = p * load_scale(a.vs, sc0 + kv_of(r % NQ) * sc_h + i, a.sc_bf16);
+          if (i < live) p = p * vrow[i];
           pmax = fmaxf(pmax, fabsf(p));
         } else if (KIND == KV_BF16) {
           p = round_bf16(p);
@@ -299,8 +334,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 #pragma unroll
         for (int jj = 0; jj < GROUP; ++jj)
           if (jj < gn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) redi[(warp * GROUP + jj) * HD + lane * 4 + e] = pa[jj][e];
+            reinterpret_cast<int4*>(redi + (warp * GROUP + jj) * HD)[lane] =
+                make_int4(pa[jj][0], pa[jj][1], pa[jj][2], pa[jj][3]);
         __syncthreads();
         for (int jj = 0; jj < gn; ++jj) {
           int tot = 0;
@@ -341,8 +376,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 #pragma unroll
         for (int jj = 0; jj < GROUP; ++jj)
           if (jj < gn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) redf[(warp * GROUP + jj) * HD + lane * 4 + e] = pa[jj][e];
+            reinterpret_cast<float4*>(redf + (warp * GROUP + jj) * HD)[lane] =
+                make_float4(pa[jj][0], pa[jj][1], pa[jj][2], pa[jj][3]);
         __syncthreads();
         for (int jj = 0; jj < gn; ++jj) {
           float part = 0.f;

@@ -271,12 +271,12 @@ _SMEM_LIMIT = 227 * 1024   # shared memory one block may use on the H100
 
 def multi_smem_bytes(rows: int, block_l: int) -> int:
     """Dynamic shared memory of the multi kernel for `rows` = C * (query
-    heads per block): q [rows, hd] f32, scores/P [rows, bl] f32, the P@V
-    cross-warp reduction [4 warps, group, hd] and the accumulators
-    [rows, hd] f32, P codes [rows, bl] int8. csrc/decode_attention_multi.cu
-    lays it out so."""
-    return rows * _HD * 4 + rows * block_l * 4 + 4 * _MULTI_GROUP * _HD * 4 \
-        + rows * _HD * 4 + rows * block_l
+    heads per block): q [rows, hd] f32, the P@V cross-warp reduction
+    [4 warps, group, hd] and the accumulators [rows, hd] f32, scores/P
+    [rows, bl] f32, the block's V scales [2, bl] f32, P codes [rows, bl]
+    int8. csrc/decode_attention_multi.cu lays it out so."""
+    return rows * _HD * 4 + 4 * _MULTI_GROUP * _HD * 4 + rows * _HD * 4 \
+        + rows * block_l * 4 + 2 * block_l * 4 + rows * block_l
 
 
 def decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions,
@@ -324,6 +324,8 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     _check_inputs(q, [q, k_full, v_full, positions]
                   + ([k_scale_l, v_scale_l] if g["quantized"] else []),
                   k_full, v_full, g["block_l"], nq)
+    if k_full.data_ptr() % 16 or v_full.data_ptr() % 16:   # rows are read in 16-byte vectors
+        raise ValueError("multi decode attention kernel: k and v caches must be 16-byte aligned")
     smem = multi_smem_bytes(cands * nq, g["block_l"])
     if smem > _SMEM_LIMIT:
         raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
