@@ -809,15 +809,9 @@ def phase_slice(torch, p, smi_line):
         fail("full-width decode step: kernel path and plain path disagree")
 
     # step time of the kernel path (host clock around synchronized steps)
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        llama.decode_step(engine.params, p, toks, cache, pos + i)
-        torch.cuda.synchronize()
-        times.append((time.monotonic() - t) * 1e3)
+    step_ms, times = _host_ms(torch, lambda i: llama.decode_step(engine.params, p, toks, cache,
+                                                                 pos + i))
     restore()
-    step_ms = sorted(times[1:])[len(times[1:]) // 2]
     busy = profile_step(torch, lambda: llama.decode_step(engine.params, p, toks, cache, pos))
     restore()
     peak = torch.cuda.max_memory_allocated()
@@ -1023,15 +1017,8 @@ def phase_paged_slice(torch, p, smi_line):
     if not finite or not err <= tol:
         fail("full-width paged decode step: kernel path and plain path disagree")
 
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        step(i)
-        torch.cuda.synchronize()
-        times.append((time.monotonic() - t) * 1e3)
+    step_ms, times = _host_ms(torch, step)
     restore()
-    step_ms = sorted(times[1:])[len(times[1:]) // 2]
     busy = profile_step(torch, step, tag="paged")
     restore()
     # the page table's upload, as the engine makes it once per decode dispatch
