@@ -588,11 +588,51 @@ def check_decode_attention_multi(torch, timer, reps, p):
             f"the candidates' causal mask {lib_ms:.4f} ms; {n_layers} layers rotated")
         del kv, sc, q, q_c
         torch.cuda.empty_cache()
+    # C = 1 against the flat kernel at the slice's decode step (S=64, L=256,
+    # step positions): whether the multi kernel could serve plain decode too
+    s1, l1 = 64, 256
+    pos1 = step_positions(torch, g, s1)
+    live1 = int((pos1.clamp(min=-1) + 1).sum().item())
+    c1_rows = []
+    for kind in ("int4", "int8"):
+        elem = {"int4": 0.5, "int8": 1}[kind]
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / (2 * live1 * w * elem)))
+        kv = [torch.randint(*((0, 256) if kind == "int4" else (-127, 128)),
+                            (n_layers, s1, l1, w // 2 if kind == "int4" else w), generator=g,
+                            device="cuda", dtype=torch.int32).to(
+                                torch.uint8 if kind == "int4" else torch.int8) for _ in range(2)]
+        sc = [((torch.rand((n_layers, s1, hkv, l1), generator=g, device="cuda") + 0.5)
+               * 0.01).to(torch.bfloat16) for _ in range(2)]
+        q1 = (torch.randn((s1, 1, h, hd), generator=g, device="cuda") / hd ** 0.5).to(
+            torch.bfloat16)
+        q1_flat = q1[:, 0].contiguous()
+
+        def one(i):
+            li = i % n_layers
+            return decode_attention_wide_cache_multi(q1, kv[0], kv[1], sc[0][li], sc[1][li],
+                                                     pos1, li)
+
+        def flat1(i):
+            li = i % n_layers
+            return decode_attention_wide_cache(q1_flat, kv[0], kv[1], sc[0][li], sc[1][li],
+                                               pos1, li)
+
+        c1_err = (one(1)[:, 0] - flat1(1)).abs().max().item()
+        if not c1_err <= 1e-6:   # the same blocks in the same order: expected 0
+            fail(f"decode_attention_multi C=1 {kind}: differs from the flat kernel by {c1_err}")
+        c1_rows.append(dict(kind=kind, S=s1, C=1, L=l1, step_positions=True, flat_err=c1_err,
+                            ms=timer.ms(one, reps), flat_ms=timer.ms(flat1, reps)))
+        log(f"[kernel] decode_attention_multi C=1 {kind} S={s1} L={l1} step positions: vs flat "
+            f"kernel {c1_err:.3g}; {c1_rows[-1]['ms']:.4f} ms, flat kernel "
+            f"{c1_rows[-1]['flat_ms']:.4f} ms; {n_layers} layers rotated")
+        del kv, sc, q1, q1_flat
+        torch.cuda.empty_cache()
     n_l = p.n_layers
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
-                per="one verify step: 32 launches, int8 KV, S=8, C=9, L=512", cases=rows)
+                per="one verify step: 32 launches, int8 KV, S=8, C=9, L=512",
+                cases=rows + c1_rows)
 
 
 def phase_kernels(torch, timer, reps, p):

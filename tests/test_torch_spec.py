@@ -38,6 +38,7 @@ from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving import paged_kv as tpkv
 from tpuserve_torch.serving import sampling as tsampling
 from tpuserve_torch.serving.engine import GenerationEngine, Request, _SlotState
+from tpuserve_torch.utils.errors import BackendError
 from torch_parity import SMALL, jax_to_torch_params, numpy_weights, to_np, write_model
 
 P_J = jllama.LlamaParams(**SMALL)
@@ -397,6 +398,9 @@ def _port(tmp_path, name, prompts, n=24, kw=None, **gen):
     try:
         out, reasons = _serve(eng, prompts, n, **(kw or {}))
         stats = _settled(eng)
+        # a verify that raised would pass unseen: plain decode gives the
+        # same greedy tokens
+        assert not eng._spec_disabled
     finally:
         eng.stop()
     return out, reasons, stats
@@ -520,6 +524,41 @@ def test_capacity_and_eos_inside_a_run(tmp_path, spec_prompts, mode):
     out, reasons, _ = _port(tmp_path, f"eos_{mode}", spec_prompts, **SPEC_MODES[mode], **eos)
     assert out == ref and reasons == ref_reasons and reasons[0] == "eos"
     assert len(out[0]) == 11
+
+
+def test_fused_rounds_run_past_capacity(tmp_path):
+    """A slot that enters the fused rounds within rounds - 1 positions of
+    max_seq_len (its k_cap is 0) still moves one position a round, past
+    max_seq_len, while another slot drafts: its history appends clamp to
+    the buffer's last column instead of indexing past it."""
+    cfg = _config("edge", max_seq_len=64, **SPEC_MODES["fused"])
+    eng = GenerationEngine(write_model(str(tmp_path), "edge", cfg), ModelConfig.from_dict(cfg),
+                           device="cpu")
+    eng.start()
+    try:
+        # period-8 histories: slot 1's trailing 3-gram recurs 4+ tokens back
+        eng._hist_np = np.tile(np.arange(1, 9, dtype=np.int64), (3, 8))
+        g, _, _, keff = eng._dev_spec_rounds(np.array([1, 1, 0]), np.array([63, 16, -1], np.int32),
+                                             np.array([0, 4, 0]), window=64, rounds=4)
+    finally:
+        eng.stop()
+    assert g.shape == (4, 3, 5)
+    assert (keff[:, 0] == 0).all() and keff[0, 1] == 4
+
+
+@pytest.mark.parametrize("spec_k,n_heads,kv", [(16, 4, "int8"), (15, 8, "int4")])
+def test_verify_width_the_kernel_refuses_fails_at_load(tmp_path, spec_k, n_heads, kv):
+    """More than 16 candidates, or 16 candidates of 8 query heads per block
+    (GQA rep 4, int4 KV: past the H100's 227 KiB of shared memory), fail at
+    start rather than at the first verify; paged mode, whose verify runs
+    no kernel, takes them."""
+    cfg = _config("wide", speculation_tokens=spec_k)
+    cfg["model_params"]["n_heads"] = n_heads
+    cfg["quantization"]["kv_cache"] = kv
+    with pytest.raises(BackendError, match="speculation_tokens"):
+        GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu").start()
+    cfg["generation"].update(paged=True, page_size=16)
+    GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")._check_supported()
 
 
 def test_failed_verify_disables_speculation(tmp_path, spec_prompts, plain_tokens, monkeypatch):

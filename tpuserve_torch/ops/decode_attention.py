@@ -279,6 +279,18 @@ def multi_smem_bytes(rows: int, block_l: int) -> int:
         + rows * block_l * 4 + 2 * block_l * 4 + rows * block_l
 
 
+def check_multi_kernel(cands: int, nq: int, block_l: int = _BLOCK_L) -> None:
+    """Raise ValueError unless the multi kernel takes `cands` candidates of
+    `nq` query heads per block over blocks of `block_l` rows."""
+    if not 1 <= cands <= _MULTI_MAX_C:
+        raise ValueError(f"multi decode attention kernel: {cands} candidates, "
+                         f"takes 1..{_MULTI_MAX_C}")
+    smem = multi_smem_bytes(cands * nq, block_l)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
+                         f"{cands} candidates x {nq} heads, block {block_l}")
+
+
 def decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions,
                                             layer: int, *, window: Optional[int] = None,
                                             block_l: Optional[int] = None) -> torch.Tensor:
@@ -315,9 +327,7 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     if q.dim() != 4:
         raise ValueError("multi decode attention expects q [S, C, H, hd]")
     s_dim, cands, n_heads, hd = q.shape
-    if not 1 <= cands <= _MULTI_MAX_C:
-        raise ValueError(f"multi decode attention kernel: {cands} candidates, "
-                         f"takes 1..{_MULTI_MAX_C}")
+    check_multi_kernel(cands, 1)   # C first: _geometry reads candidate 0
     g = _geometry(q[:, 0], k_full, k_scale_l, window, block_l, pack=False)
     n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], hd)
@@ -326,10 +336,7 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
                   k_full, v_full, g["block_l"], nq)
     if k_full.data_ptr() % 16 or v_full.data_ptr() % 16:   # rows are read in 16-byte vectors
         raise ValueError("multi decode attention kernel: k and v caches must be 16-byte aligned")
-    smem = multi_smem_bytes(cands * nq, g["block_l"])
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
-                         f"{cands} candidates x {nq} heads, block {g['block_l']}")
+    check_multi_kernel(cands, nq, g["block_l"])
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     if positions.shape != (s_dim,):

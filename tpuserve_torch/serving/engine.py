@@ -26,17 +26,19 @@ paths).
 - Speculative decoding (generation.speculation_tokens = k > 0): prompt-
   lookup drafts of up to k tokens, verified C = k+1 at a time with exact
   acceptance (greedy: the model's argmax; sampled: point-mass rejection
-  sampling, sampling.spec_accept). Contiguous mode with speculation_rounds
-  > 1 runs that many draft+verify rounds back to back on the device,
+  sampling, sampling.spec_accept). Contiguous mode runs
+  speculation_rounds draft+verify rounds back to back on the device,
   drafting there (llama.draft_lookup), and fetches their tokens with ONE
-  device-to-host copy; paged mode and speculation_rounds = 1 draft on the
-  host and verify once per iteration. Slots with a repetition penalty do
-  not speculate, nor does a step while requests wait for admission.
+  device-to-host copy; paged mode drafts on the host, so that page chains
+  cover the drafts, and verifies once per iteration. Slots with a
+  repetition penalty do not speculate, nor does a step while requests
+  wait for admission.
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
 that need unported parts (sharding or pipelining, GPTQ, LoRC, MoE) raise
-BackendError.
+BackendError, as does a contiguous speculation width the verify kernel
+does not take.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 
 from tpuserve_torch.models import llama
 from tpuserve_torch.models.llama import KVCache, LlamaParams
+from tpuserve_torch.ops.decode_attention import check_multi_kernel
 from tpuserve_torch.quant.core import QTensor, quantize_param_tree
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving.paged_kv import PagedKVCache, PageTableManager
@@ -100,11 +103,6 @@ class _SlotState:
     # tokens of (prompt + outputs) already copied into the engine's history
     # buffer row
     hist_synced: int = 0
-    # n-gram -> start index over the history with a one-token lag (n-grams
-    # ending at most at index len-2), so a lookup of the trailing n-gram
-    # finds only strictly earlier occurrences
-    ngram_idx: Dict[tuple, int] = dataclasses.field(default_factory=dict)
-    ngram_synced: int = 0
     # EMA of accepted draft tokens per verify round (a count) for the
     # break-even guard; starts optimistic so that new slots get probed
     acc_ema: float = 8.0
@@ -187,6 +185,15 @@ class GenerationEngine:
         if unported:
             raise BackendError(
                 "not ported to tpuserve_torch yet: " + ", ".join(unported))
+        spec_k = int(getattr(cfg.generation, "speculation_tokens", 0) or 0)
+        if spec_k > 0 and not cfg.generation.paged:
+            # the contiguous verify's kernel takes C = k+1 candidates of the
+            # query heads one block serves (a head pair's for int4 KV)
+            nq = self.p.n_heads // self.p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
+            try:
+                check_multi_kernel(spec_k + 1, nq)
+            except ValueError as e:
+                raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
 
     def start(self) -> None:
         self._check_supported()
@@ -510,20 +517,16 @@ class GenerationEngine:
         return both[0].astype(np.int64), both[1].astype(np.float32)
 
     def _dev_verify(self, toks, positions, lens, window: int):
-        """One verify of host-drafted candidates toks [S, C] (paged or
-        contiguous) and their acceptance, fetched with one copy; returns
-        host arrays (tokens [S, C], logprobs [S, C], accepted [S])."""
+        """One paged verify of host-drafted candidates toks [S, C] and their
+        acceptance, fetched with one copy; returns host arrays (tokens
+        [S, C], logprobs [S, C], accepted [S])."""
         dev = self.device
         toks_t = torch.from_numpy(toks).to(dev)
         pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
-        if self.ptm is None:
-            logits, _ = llama.verify_step(self.params, self.p, toks_t, self.cache, pos_t,
-                                          lens_t, window=window)
-        else:
-            logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
-                                                self.ptm.device_table(), pos_t, lens_t,
-                                                window=window)
+        logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
+                                            self.ptm.device_table(), pos_t, lens_t,
+                                            window=window)
         self.verify_calls += 1
         g, lp, acc = spec_accept(logits, toks_t, lens_t, self._sampling, self._generator)
         c = toks.shape[1]
@@ -544,8 +547,10 @@ class GenerationEngine:
         n = int(getattr(gen, "speculation_ngram", 3) or 3)
         c = spec_k + 1
         dev = self.device
-        # C columns wider than max_seq_len, so a committed run is appended
-        # without clamping (draft_lookup reads nothing past seq_lens)
+        # C columns wider than max_seq_len (draft_lookup reads nothing past
+        # seq_lens). A slot whose k_cap is 0 still moves one position a
+        # round, past max_seq_len when it enters within rounds - 1 of it:
+        # its appends clamp to the last column, as in the JAX engine.
         hist = torch.zeros((self.n_slots, self.max_seq_len + c), dtype=torch.int64, device=dev)
         hist[:, :self.max_seq_len] = torch.from_numpy(self._hist_np).to(dev)
         last = torch.from_numpy(last).to(dev)
@@ -567,7 +572,7 @@ class GenerationEngine:
             acc = torch.minimum(acc, k_eff)
             adv = torch.where(live, acc + 1, 0)
             last = torch.where(live, torch.gather(g, 1, acc[:, None])[:, 0], last)
-            wr = slen[:, None] + cols
+            wr = (slen[:, None] + cols).clamp_(max=hist.shape[1] - 1)
             hist[rows, wr] = torch.where(cols < adv[:, None], g, hist[rows, wr])
             pos = torch.where(live, pos + adv, pos)
             rounds_out.append(torch.cat([g.to(torch.float64), lp.to(torch.float64),
@@ -687,9 +692,9 @@ class GenerationEngine:
         j = int(full[-1]) if len(full) else int(hits[np.argmax(avail)])
         return [int(t) for t in arr[j + n:j + n + k]]
 
-    def _sync_slot_history(self, i: int, st: _SlotState) -> int:
-        """Bring the slot's row of the history buffer and its lagged n-gram
-        index up to date, in O(new tokens); returns the history length."""
+    def _sync_slot_history(self, i: int, st: _SlotState) -> None:
+        """Bring the slot's row of the history buffer up to date, in O(new
+        tokens)."""
         if self._hist_np is None:
             self._hist_np = np.zeros((self.n_slots, self.max_seq_len), np.int64)
         req = st.request
@@ -701,16 +706,6 @@ class GenerationEngine:
         elif total > st.hist_synced:
             row[st.hist_synced:total] = req.output_ids[st.hist_synced - p_len:total - p_len]
         st.hist_synced = total
-        n = int(getattr(self.config.generation, "speculation_ngram", 3) or 3)
-        for m in range(max(st.ngram_synced, n), total):
-            st.ngram_idx[tuple(int(x) for x in row[m - n:m])] = m - n
-        st.ngram_synced = max(st.ngram_synced, total)
-        return total
-
-    def _slot_has_match(self, i: int, st: _SlotState, total: int, n: int) -> bool:
-        if total < n + 1:
-            return False
-        return tuple(int(x) for x in self._hist_np[i, total - n:total]) in st.ngram_idx
 
     def _commit(self, i: int, st: _SlotState, run, lps, accepted: int) -> bool:
         """Emit a verify's run for slot i: `accepted` drafts, then the final
@@ -743,17 +738,16 @@ class GenerationEngine:
         """One speculative iteration; False when drafting is not worthwhile
         (the caller runs a plain decode step instead).
 
-        Contiguous mode with speculation_rounds > 1: up to that many rounds
-        on the device with device drafting (_dev_spec_rounds); otherwise one
-        host-drafted verify (_spec_step_single)."""
-        gen = self.config.generation
-        rounds = int(getattr(gen, "speculation_rounds", 1) or 1)
-        if rounds <= 1 or self.ptm is not None:
+        Contiguous mode: speculation_rounds rounds on the device with device
+        drafting (_dev_spec_rounds); paged mode: one host-drafted verify
+        (_spec_step_single)."""
+        if self.ptm is not None:
             return self._spec_step_single(active, positions, spec_k)
+        gen = self.config.generation
+        rounds = max(1, int(getattr(gen, "speculation_rounds", 1) or 1))
         n = int(getattr(gen, "speculation_ngram", 3) or 3)
-        match = {i: self._slot_has_match(i, self._slots[i],
-                                         self._sync_slot_history(i, self._slots[i]), n)
-                 for i in active}
+        # the gate: the trailing n-gram occurs earlier in the history
+        match = {i: bool(self._propose_lookup(self._slots[i], 1, n)) for i in active}
         if not any(match.values()):
             return False
         # break-even guard: the expected accepted drafts per slot and round
@@ -778,6 +772,7 @@ class GenerationEngine:
         window = self._window(max(positions[i] for i in active) + rounds * (spec_k + 1) - 1)
         last = np.zeros((self.n_slots,), np.int64)
         for i in active:
+            self._sync_slot_history(i, self._slots[i])
             last[i] = self._slots[i].last_token
         try:
             g, lps, acc, keff = self._dev_spec_rounds(last, positions, k_cap, window, rounds)
@@ -799,8 +794,9 @@ class GenerationEngine:
         return True
 
     def _spec_step_single(self, active, positions, spec_k: int) -> bool:
-        """One host-drafted verify (paged mode, or speculation_rounds 1);
-        False when no slot has a draft."""
+        """One host-drafted verify (paged mode: the page chains are grown to
+        cover the drafts before the dispatch); False when no slot has a
+        draft."""
         n = int(getattr(self.config.generation, "speculation_ngram", 3) or 3)
         c = spec_k + 1
         props: Dict[int, List[int]] = {}
@@ -815,23 +811,20 @@ class GenerationEngine:
             row = [self._slots[i].last_token] + props[i]
             toks[i, :len(row)] = row
             lens[i] = len(row)
+        # page chains must cover every candidate; a slot the pool cannot
+        # grow drops its drafts (one real token)
+        for i in active:
+            try:
+                self.ptm.ensure(i, self._slots[i].next_pos + int(lens[i]))
+            except Exception:
+                toks[i, 1:] = 0
+                lens[i] = 1
+                props[i] = []
+        if not any(props.values()):
+            return False
         last_pos = max(positions[i] for i in active) + c - 1
-        if self.ptm is None:
-            window = self._window(last_pos)
-        else:
-            # page chains must cover every candidate; a slot the pool cannot
-            # grow drops its drafts (one real token)
-            for i in active:
-                try:
-                    self.ptm.ensure(i, self._slots[i].next_pos + int(lens[i]))
-                except Exception:
-                    toks[i, 1:] = 0
-                    lens[i] = 1
-                    props[i] = []
-            if not any(props.values()):
-                return False
-            ps = self.ptm.page_size
-            window = min(-(-(last_pos + 1) // ps) * ps, self.max_seq_len)
+        ps = self.ptm.page_size
+        window = min(-(-(last_pos + 1) // ps) * ps, self.max_seq_len)
         try:
             g, lps, acc = self._dev_verify(toks, positions, lens, window)
         except Exception as e:
