@@ -32,8 +32,19 @@ Phases, each fatal on failure:
               against C sequential decode steps;
   7. spec-paged  the paged setting with speculation: drafts, every page
               back, and no multi-kernel launch (the paged verify attends in
-              plain torch).
-Then a `kernels` JSON line, the nvidia-smi line, and as the last line
+              plain torch);
+  8. grouped  the slice's configuration served with
+              TPUSERVE_DECODE_ATTN=grouped: 32 grouped-kernel launches per
+              decode step and no flat-kernel launch; one full-width decode
+              step through the kernels against the plain versions, and its
+              logits under grouped, pallas and xla on copies of one cache;
+  9. sweep    the decode-attention diagnostic ladder
+              (tpuserve_torch.scripts.sweep_attention) with every variant at
+              its Llama-2-7B defaults: the probes' streaming rates, the
+              grouped kernel's splits, decode_attention_wide and the einsum
+              path.
+The kernel phase also holds the grouped kernel, decode_attention_wide and
+the three probes against their plain versions. Then a `kernels` JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py            # needs one card
@@ -635,12 +646,208 @@ def check_decode_attention_multi(torch, timer, reps, p):
                 cases=rows + c1_rows)
 
 
+def check_decode_attention_grouped(torch, timer, reps, p):
+    """The grouped kernel at the [grouped] phase's shapes (S=64, L=256,
+    Llama-2-7B heads, step positions; its int8 window is the unpacked int4
+    cache) and at a rep-4 shape (H=32, Hkv=8), int8 and bf16, with the
+    default split (one kv head a block) and g_kv = Hkv, against its plain
+    version; the flat kernel on the same KV beside it."""
+    from tpuserve_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain, decode_attention_wide_cache)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    s, l, hd = 64, 256, p.head_dim
+    pos = step_positions(torch, g, s)
+    live = int((pos.clamp(min=-1) + 1).sum().item())        # KV rows the data needs
+    worst, rows, main = 0.0, [], None
+    for kind, h, hkv in (("int8", p.n_heads, p.n_kv_heads), ("bf16", p.n_heads, p.n_kv_heads),
+                         ("int8", p.n_heads, 8), ("bf16", p.n_heads, 8)):
+        w = hkv * hd
+        elem = 1 if kind == "int8" else 2
+        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind == "int8" else 0)
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
+        shape = (n_layers, s, l, w)
+        if kind == "int8":
+            kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.int8) for _ in range(2)]
+            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+                  for _ in range(2)]       # f32 head-major, as the engine's cache
+        else:
+            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+            sc = [None, None]
+        q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+        for g_kv in (None, hkv):
+            def call(fn, i, g_kv=g_kv):
+                li = i % n_layers
+                ks, vs = ((None, None) if sc[0] is None
+                          else (sc[0][li].transpose(1, 2), sc[1][li].transpose(1, 2)))
+                k4, v4 = (t[li].view(s, l, hkv, hd) for t in kv)
+                return fn(q, k4, v4, ks, vs, pos, g_kv=g_kv)
+
+            def flat(i):
+                li = i % n_layers
+                ks, vs = (None, None) if sc[0] is None else (sc[0][li], sc[1][li])
+                return decode_attention_wide_cache(q, kv[0], kv[1], ks, vs, pos, li)
+
+            out = call(decode_attention, 1)
+            ref = call(decode_attention_plain, 1)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            # the same arithmetic and exact integer dots; an ulp of expf
+            # against torch.exp can tip one P entry across a bf16 rounding
+            # boundary (2^-8 of it): 1e-3 of the output range
+            tol = 1e-3 * ref.abs().max().item() + 1e-7
+            if not err <= tol:
+                fail(f"decode_attention_grouped {kind} H={h} Hkv={hkv} g_kv={g_kv}: "
+                     f"max|err| {err} > {tol}")
+            if not torch.all(out[pos < 0] == 0):
+                fail("decode_attention_grouped: inactive slots are not zero")
+            worst = max(worst, err)
+            ms = timer.ms(lambda i: call(decode_attention, i), reps)
+            flat_ms = timer.ms(flat, reps)
+            plain_ms = timer.ms(lambda i: call(decode_attention_plain, i), max(2, reps // 5))
+            nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
+            ops = 2 * 2 * live * h * hd
+            b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind == "int8" else "bf16"])
+            lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0],
+                             None if sc[0] is None else sc[0][0],
+                             None if sc[0] is None else sc[1][0], pos, kind)
+            row = dict(kind=kind, S=s, H=h, Hkv=hkv, L=l, g_kv=g_kv or 1, live_rows=live,
+                       layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms, flat_ms=flat_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            if kind == "int8" and hkv == p.n_kv_heads and g_kv is None:   # the [grouped] path
+                main = row
+            rows.append(row)
+            log(f"[kernel] decode_attention_grouped {kind} S={s} H={h} Hkv={hkv} L={l} "
+                f"g_kv={g_kv or 1} step positions: max|err| {err:.3g} (tol {tol:.3g}); "
+                f"{ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
+                f"{n_layers} layers rotated")
+        del kv, sc, q
+        torch.cuda.empty_cache()
+    n_l = p.n_layers
+    return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
+                bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
+                per="one decode step: 32 launches, int8 window (unpacked int4), S=64, L=256",
+                cases=rows)
+
+
+def sweep_inputs(torch, copies=2):
+    """`copies` sets of the sweep's inputs at its defaults (S=64, L=256,
+    Hkv=32, rep 1; every slot at L-1): K and V 64 MB each per set."""
+    from tpuserve_torch.scripts import sweep_attention as sweep
+
+    dims = sweep.shapes()
+    return dims, [sweep.setup(dims, torch.device("cuda"), seed=i) for i in range(copies)]
+
+
+def check_decode_attention_wide(torch, timer, reps):
+    """decode_attention_wide (the prebuilt-Q_wide entry, the flat kernel on
+    a one-layer view) at the sweep's shape, block_l 256 and 128, against
+    its plain version."""
+    from tpuserve_torch.ops.decode_attention import (decode_attention_wide,
+                                                     decode_attention_wide_plain)
+
+    dims, sets = sweep_inputs(torch)
+    q, k, v, ks, vs, pos = sets[0]
+    s, l, hkv, hd = k.shape
+    live = int((pos + 1).sum().item())
+    rows, main, worst = [], None, 0.0
+    for block_l in (256, 128):
+        out = decode_attention_wide(q, k, v, ks, vs, pos, block_l=block_l)
+        ref = decode_attention_wide_plain(q, k, v, ks, vs, pos, block_l=block_l)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 2e-3 * ref.abs().max().item() + 1e-6    # the flat kernel's (a P code may tip)
+        if not err <= tol:
+            fail(f"decode_attention_wide block_l={block_l}: max|err| {err} > {tol}")
+        worst = max(worst, err)
+        ms = timer.ms(lambda i: decode_attention_wide(*sets[i % 2], block_l=block_l), reps)
+        plain_ms = timer.ms(lambda i: decode_attention_wide_plain(*sets[i % 2], block_l=block_l),
+                            max(2, reps // 5))
+        nbytes = 2 * live * hkv * hd + 2 * live * hkv * 4 + q.numel() * 2 + q.numel() * 4 + s * 4
+        b_ms, b_by = bound(nbytes, 2 * 2 * live * q.shape[1] * hd, PEAK_OPS["int8"])
+        lib_ms = sdpa_ms(torch, timer, reps, q, k.view(s, l, -1), v.view(s, l, -1), ks, vs, pos,
+                         "int8")
+        row = dict(S=s, L=l, Hkv=hkv, H=q.shape[1], block_l=block_l, live_rows=live,
+                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        main = main or row
+        rows.append(row)
+        log(f"[kernel] decode_attention_wide int8 S={s} H={q.shape[1]} Hkv={hkv} L={l} "
+            f"block_l={block_l}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), bound {b_ms:.4f} ms ({b_by}), plain "
+            f"{plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms")
+    del sets
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                per="one call at the sweep's shape: int8, S=64, L=256, Hkv=32, block_l 256",
+                cases=rows)
+
+
+def check_probes(torch, timer, reps):
+    """The three probes at the sweep's shape against their plain versions,
+    with the rate each streams K and V at, as a share of 3.35 TB/s."""
+    from tpuserve_torch.ops import attention_probes as probes
+
+    dims, sets = sweep_inputs(torch)
+    k0, v0 = sets[0][1], sets[0][2]
+    kv_bytes = k0.numel() + v0.numel()
+    qis = [probes.probe_q(st[0]) for st in sets]
+    results = {}
+    cases = {
+        "probe_dma_bound": (lambda i: probes.dma_bound(*sets[i % 2][1:3]),
+                            lambda i: probes.colsum_plain(*sets[i % 2][1:3]), 0),
+        "probe_dma_wide": (lambda i: probes.dma_wide(*sets[i % 2][1:3]),
+                           lambda i: probes.colsum_plain(*sets[i % 2][1:3]), 0),
+        "probe_dma_wide3d": (lambda i: probes.dma_wide(*sets[i % 2][1:3], three_d=True),
+                             lambda i: probes.colsum_plain(*sets[i % 2][1:3]), 0),
+        "probe_dot_only": (lambda i: probes.dot_only(qis[i % 2], *sets[i % 2][1:3]),
+                           lambda i: probes.dot_only_plain(qis[i % 2], *sets[i % 2][1:3]),
+                           4 * qis[0].shape[0] * qis[0].shape[1] * k0.shape[1] * k0.shape[2]
+                           * k0.shape[3]),
+    }
+    for name, (fn, plain, ops) in cases.items():
+        out, ref = fn(0), plain(0)
+        torch.cuda.synchronize()
+        if out.dtype == torch.int32:
+            err, tol = float((out - ref).abs().max().item()), 0.0   # integer sums: exact
+        else:
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()      # f32 atomics in any order
+        if not err <= tol:
+            fail(f"{name}: max|err| {err} > {tol}")
+        ms = timer.ms(fn, reps)
+        plain_ms = timer.ms(plain, max(2, reps // 5))
+        nbytes = kv_bytes + (qis[0].numel() + 4 * qis[0].numel() if ops else 4 * 128)
+        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8"])
+        rate = kv_bytes / ms / 1e6             # GB/s: bytes over ms
+        results[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, gb_s=rate,
+                             hbm_share=rate * 1e9 / HBM_BYTES_PER_S,
+                             per="one call at the sweep's shape: K and V int8 [64, 256, 32, 128]")
+        log(f"[kernel] {name}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms, "
+            f"{rate:.1f} GB/s of K and V ({100 * rate * 1e9 / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s), "
+            f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms")
+    del sets, qis
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(torch, timer, reps, p):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
+    results["decode_attention_grouped"] = check_decode_attention_grouped(torch, timer, reps, p)
+    results["decode_attention_wide"] = check_decode_attention_wide(torch, timer, reps)
+    results.update(check_probes(torch, timer, reps))
     return results
 
 
@@ -668,8 +875,12 @@ def _write_repo(cfg) -> str:
 
 
 def profile_step(torch, step, tag="slice", what="decode step"):
-    """Device busy share of one step: kernel time summed by torch.profiler
-    over the step's wall time (host clock, synchronized)."""
+    """Device busy share of one step: the time of the device's own events
+    (kernels, copies, sets) summed by torch.profiler over the step's wall
+    time (host clock, synchronized). The host-side rows (aten::...) carry
+    their kernels' device time too and are left out, or it would count
+    twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -680,6 +891,8 @@ def profile_step(torch, step, tag="slice", what="decode step"):
         wall_us = (time.monotonic() - t) * 1e6
     rows = []
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
         dev_us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us, e.key, e.count))
@@ -703,17 +916,18 @@ def plain_kernels(llama):
     reference run on the card, and restore them after. The served model's
     weights are int4 with bf16 activations, for which qmatmul is exactly
     quant_matmul."""
-    from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_multi_plain,
+    from tpuserve_torch.ops.decode_attention import (decode_attention_plain,
+                                                     decode_attention_wide_cache_multi_plain,
                                                      decode_attention_wide_cache_plain,
                                                      decode_attention_wide_paged_plain)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
 
     names = ("qmatmul", "decode_attention_wide_cache", "decode_attention_wide_paged",
-             "decode_attention_wide_cache_multi")
+             "decode_attention_wide_cache_multi", "decode_attention")
     saved = [getattr(llama, n) for n in names]
     for n, fn in zip(names, (quant_matmul_plain, decode_attention_wide_cache_plain,
                              decode_attention_wide_paged_plain,
-                             decode_attention_wide_cache_multi_plain)):
+                             decode_attention_wide_cache_multi_plain, decode_attention_plain)):
         setattr(llama, n, fn)
     try:
         yield
@@ -1352,6 +1566,166 @@ def phase_spec_paged(torch, p, smi_line):
                 accepted=accepted, wall_s=wall, stats=stats, tokens=tokens)
 
 
+@contextlib.contextmanager
+def attn_mode(mode):
+    """TPUSERVE_DECODE_ATTN set to `mode` (None: unset), restored after."""
+    key = "TPUSERVE_DECODE_ATTN"
+    saved = os.environ.get(key)
+    if mode is None:
+        os.environ.pop(key, None)
+    else:
+        os.environ[key] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = saved
+
+
+def phase_grouped(torch, timer, p, smi_line):
+    """The slice's configuration (Llama-2-7B widths, int4 g128 weights,
+    packed int4 KV, 64 slots, L=256, decode_horizon 8) served with
+    TPUSERVE_DECODE_ATTN=grouped, loaded after the earlier engines are shut
+    down: every decode step's attention goes through the grouped kernel
+    over the unpacked int8 window."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    cfg = _model_config(p)
+    cfg["name"] = name = "llama2_7b_int4_grouped"
+    with attn_mode("grouped"):
+        torch.cuda.reset_peak_memory_stats()
+        mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        mgr.load_model(name)
+        backend = mgr.get_model(name).backend
+        engine = backend.engine
+        rng = torch.Generator().manual_seed(17)
+        prompts = [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+                   for n in (5, 200, 33, 90, 17, 12, 150, 64)]
+        backend.generate(prompts[0], max_new_tokens=4)     # warm-up, outside the counted run
+        for mod in (quant_matmul, decode_attention):       # the grouped path's run starts here
+            mod.launches = 0
+        decode_attention.grouped_launches = 0
+        steps0, prefills0 = engine.steps, engine.prefill_calls
+        tokens, wall = _serve_wave(backend, prompts, 24, "grouped")
+        launches = {"quant_matmul": quant_matmul.launches,
+                    "decode_attention": decode_attention.launches,
+                    "decode_attention_grouped": decode_attention.grouped_launches}
+        steps = engine.steps - steps0
+        prefills = engine.prefill_calls - prefills0
+        want = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+                "decode_attention": 0, "decode_attention_grouped": p.n_layers * steps}
+        tok_s = len(prompts) * 24 / wall
+        log(f"[grouped] {len(prompts)} concurrent greedy requests, 24 tokens each: {wall:.2f} s, "
+            f"{tok_s:.1f} tok/s; decode steps {steps}, prefill calls {prefills}; launches "
+            f"{launches} (expected {want}); card {smi_line}")
+        if launches != want or steps < 1:
+            fail("[grouped] kernel launch counts do not match the path's calls")
+
+        # one full-width decode step: 64 slots at positions 100-249 (slot 7
+        # inactive), kernels vs plain versions, then under each mode on a copy
+        # of the same cache
+        cache = engine.cache
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(3)
+        toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
+        pos = step_positions(torch, g, 64)
+        tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+        snapshot = [t.clone() for t in tensors]
+
+        def restore():
+            for dst, src in zip(tensors, snapshot):
+                dst.copy_(src)
+
+        def step(i=0):
+            return llama.decode_step(engine.params, p, toks, cache, pos + i * (pos >= 0))[0]
+
+        logits_k = step().float()
+        restore()
+        with plain_kernels(llama):
+            logits_p = step().float()
+        restore()
+        by_mode = {"grouped": logits_k}
+        for mode in ("pallas", "xla"):
+            with attn_mode(mode):
+                by_mode[mode] = step().float()
+            restore()
+        torch.cuda.synchronize()
+        live = pos >= 0
+        ref_max = logits_p.abs().max().item()
+        err = (logits_k - logits_p).abs().max().item()
+        agree = (logits_k.argmax(-1) == logits_p.argmax(-1))[live].float().mean().item()
+        finite = all(bool(torch.isfinite(t).all()) for t in by_mode.values())
+        # bf16 activations through 32 layers, as the slice's full-width step:
+        # a rounding step that tips one way carries forward; 5% of the range.
+        # The modes also differ in algorithm (the flat kernel requantizes P to
+        # int8, grouped rounds it to bf16, xla runs bf16 einsums): same bound
+        tol = 0.05 * ref_max
+        modes = {}
+        for mode in ("pallas", "xla"):
+            d = (by_mode[mode] - logits_k).abs().max().item()
+            a = (by_mode[mode].argmax(-1) == logits_k.argmax(-1))[live].float().mean().item()
+            modes[mode] = dict(max_abs_diff=d, argmax_agreement=a)
+        log(f"[grouped] full-width decode step, kernels vs plain: max|err| {err:.4g} of "
+            f"{ref_max:.4g} (tol {tol:.4g}); argmax agreement {agree:.4f}; finite {finite}")
+        log(f"[grouped] the same step under pallas / xla against grouped: max|diff| "
+            f"{modes['pallas']['max_abs_diff']:.4g} / {modes['xla']['max_abs_diff']:.4g} (tol "
+            f"{tol:.4g}); argmax agreement {modes['pallas']['argmax_agreement']:.4f} / "
+            f"{modes['xla']['argmax_agreement']:.4f}")
+        if not finite or not err <= tol or any(m["max_abs_diff"] > tol for m in modes.values()):
+            fail("[grouped] full-width decode step: the paths disagree")
+
+        step_ms, times = _host_ms(torch, step)
+        restore()
+        busy = profile_step(torch, step, tag="grouped")
+        restore()
+        # the unpack of the packed int4 window to int8 codes, K and V, as the
+        # step runs it per layer: timed alone, rotated over the layers
+        from tpuserve_torch.models.llama import unpack_kv_codes
+
+        win = cache.max_len
+        unpack_ms = timer.ms(lambda i: (unpack_kv_codes(cache.k[i % p.n_layers, :, :win]),
+                                        unpack_kv_codes(cache.v[i % p.n_layers, :, :win])), 20)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[grouped] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} "
+            f"ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; int4 -> int8 unpack of the "
+            f"window {unpack_ms:.4f} ms a layer, {p.n_layers * unpack_ms:.3f} ms a step; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+        mgr.shutdown()
+    return dict(launches=launches, want=want, decode_steps=steps, prefill_calls=prefills,
+                wall_s=wall, tok_s=tok_s, tokens=tokens, full_step_err=err, full_step_tol=tol,
+                argmax_agreement=agree, modes=modes, step_ms=step_ms, step_times_ms=times,
+                profile=busy, unpack_ms_per_layer=unpack_ms, max_memory_allocated=peak)
+
+
+def phase_sweep(torch):
+    """The diagnostic ladder with every variant at its defaults, printed as
+    the script prints it; the probes' and decode_attention_wide's launches
+    are counted over this run."""
+    from tpuserve_torch.ops import attention_probes as probes
+    from tpuserve_torch.ops import decode_attention
+    from tpuserve_torch.scripts import sweep_attention as sweep
+
+    probes.dma_bound_launches = probes.dma_wide_launches = probes.dot_only_launches = 0
+    decode_attention.wide_launches = 0
+    with attn_mode(None):
+        records = sweep.run(list(sweep.VARIANTS), sweep.shapes(), torch.device("cuda"))
+    launches = {"probe_dma_bound": probes.dma_bound_launches,
+                "probe_dma_wide": probes.dma_wide_launches,
+                "probe_dot_only": probes.dot_only_launches,
+                "decode_attention_wide": decode_attention.wide_launches}
+    failed = [r["variant"] for r in records if "failed" in r]
+    log(f"[sweep] {len(records)} variants, launches {launches}")
+    if failed:
+        fail(f"[sweep] variants failed: {failed}")
+    if min(launches.values()) < 1:
+        fail(f"[sweep] a kernel of the sweep was never launched: {launches}")
+    return dict(records=records, launches=launches)
+
+
 def main() -> None:
     import torch
 
@@ -1376,6 +1750,14 @@ def main() -> None:
     # the multi kernel runs on the speculative path only: its count is that run's
     results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
     spec_paged_res = phase_spec_paged(torch, p, smi_line)
+    grouped_res = phase_grouped(torch, timer, p, smi_line)
+    # the grouped kernel runs on the grouped path only: its count is that run's
+    results["decode_attention_grouped"]["launches"] = \
+        grouped_res["launches"]["decode_attention_grouped"]
+    sweep_res = phase_sweep(torch)
+    # the probes and the prebuilt-Q_wide entry run in the sweep only
+    for kname, launched in sweep_res["launches"].items():
+        results[kname]["launches"] = launched
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -1387,7 +1769,21 @@ def main() -> None:
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)"),
                "decode_attention_multi": (
                    "tpuserve_torch/csrc/decode_attention_multi.cu",
-                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)")}
+                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)"),
+               "decode_attention_grouped": (
+                   "tpuserve_torch/csrc/decode_attention_grouped.cu",
+                   "tpuserve/ops/decode_attention.py:1237 (_kernel; call :1423)"),
+               "decode_attention_wide": (
+                   "tpuserve_torch/csrc/decode_attention.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, prebuilt Q_wide; "
+                   "call :477)"),
+               "probe_dma_bound": ("tpuserve_torch/csrc/attention_probes.cu",
+                                   "scripts/sweep_attention.py:99 (dma_bound.kern; call :104)"),
+               "probe_dma_wide": ("tpuserve_torch/csrc/attention_probes.cu",
+                                  "scripts/sweep_attention.py:137,159 (dma_wide.kern; calls "
+                                  ":142, :164)"),
+               "probe_dot_only": ("tpuserve_torch/csrc/attention_probes.cu",
+                                  "scripts/sweep_attention.py:193 (dot_only.kern; call :218)")}
     line = []
     for kname in sources:
         r = results[kname]
@@ -1401,6 +1797,7 @@ def main() -> None:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
                    "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
+                   "grouped": grouped_res, "sweep": sweep_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)

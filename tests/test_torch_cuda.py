@@ -288,6 +288,118 @@ def test_decode_attention_multi_refuses(cuda):
     assert da.multi_launches == before + 1
 
 
+@pytest.mark.parametrize("kind,h,hkv,l,block_l,g_kv,scale_dtype", [
+    ("int8", 32, 32, 256, 256, None, torch.float32),    # Llama-2-7B decode step, default split
+    ("int8", 32, 32, 256, 256, 32, torch.bfloat16),     # all heads in one block
+    ("bf16", 32, 32, 256, 256, None, None),
+    ("int8", 32, 8, 256, 64, None, torch.float32),      # rep 4, four blocks
+    ("int8", 32, 8, 256, 256, 8, torch.float32),
+    ("bf16", 8, 4, 128, 32, 2, None),                    # rep 2
+    ("f32", 8, 4, 128, 32, None, None),
+    ("f32", 16, 2, 64, 16, 2, None),                     # rep 8
+])
+def test_decode_attention_grouped(cuda, kind, h, hkv, l, block_l, g_kv, scale_dtype):
+    """The grouped kernel against its plain version on a window view of a
+    longer cache (slot stride 2L rows) with transposed scale views, as the
+    decode step hands them over. Same arithmetic, exact integer dots; an
+    ulp of expf against torch.exp can tip one P entry across a bf16
+    rounding boundary (2^-8 of it): 1e-3 of the output range."""
+    s, n_layers, layer = 8, 2, 1
+    k, v, ks, vs = _cache(kind, s, hkv, 2 * l, n_layers, cuda,
+                          scale_dtype=scale_dtype or torch.float32)
+    kw, vw = (t[layer, :, :l].view(s, l, hkv, 128) for t in (k, v))
+    ksw = vsw = None
+    if ks is not None:
+        ksw, vsw = (t[:, :, :l].transpose(1, 2) for t in (ks, vs))
+    g = torch.Generator().manual_seed(5)
+    q = (torch.randn((s, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    pos = torch.randint(0, l, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[3], pos[5] = -1, l - 1, 0
+    pos = pos.to(cuda)
+    for qdt in (torch.float32, torch.bfloat16):
+        args = (q.to(qdt), kw, vw, ksw, vsw, pos)
+        before = da.grouped_launches
+        out = da.decode_attention(*args, block_l=block_l, g_kv=g_kv)
+        ref = da.decode_attention_plain(*args, block_l=block_l, g_kv=g_kv)
+        torch.cuda.synchronize()
+        assert da.grouped_launches == before + 1
+        assert torch.all(out[1] == 0)
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item() + 1e-7, (qdt, err)
+
+
+def test_decode_attention_grouped_refuses(cuda):
+    """The grouped wrapper raises, and never runs the plain version, on what
+    the kernel does not take."""
+    k, v, ks, vs = _cache("int8", 2, 2, 64, 1, cuda)
+    k4, v4 = (t[0].view(2, 64, 2, 128) for t in (k, v))
+    ks4, vs4 = (t.transpose(1, 2) for t in (ks, vs))
+    pos = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    q = torch.randn((2, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="needs scales"):
+        da.decode_attention(q, k4, v4, None, None, pos)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q[..., :64].contiguous(), k4[..., :64], v4[..., :64], ks4, vs4, pos)
+    with pytest.raises(ValueError, match="contiguous rows"):   # heads not adjacent
+        da.decode_attention(q, k4.transpose(0, 1).contiguous().transpose(0, 1), v4, ks4, vs4,
+                            pos)
+    with pytest.raises(ValueError, match="query heads per block"):   # rep 3
+        da.decode_attention(torch.randn((2, 6, 128), device=cuda), k4, v4, ks4, vs4, pos)
+    before = da.grouped_launches
+    da.decode_attention(q, k4, v4, ks4, vs4, pos)
+    torch.cuda.synchronize()
+    assert da.grouped_launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("block_l", [256, 128, 32])
+def test_decode_attention_wide(cuda, kind, block_l):
+    """decode_attention_wide (the flat kernel over a one-layer view of a
+    contiguous [S, L, Hkv, hd] cache) against its plain version: the flat
+    kernel's tolerance, 2e-3 of the range."""
+    s, hkv, l = 8, 4, 256
+    k, v, ks, vs = _cache(kind, s, hkv, l, 1, cuda)
+    k4, v4 = (t[0].view(s, l, hkv, 128) for t in (k, v))
+    g = torch.Generator().manual_seed(6)
+    q = (torch.randn((s, 2 * hkv, 128), generator=g) / 128 ** 0.5).to(cuda)
+    pos = torch.randint(0, l, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[3] = -1, l - 1
+    pos = pos.to(cuda)
+    before = (da.wide_launches, da.launches)
+    out = da.decode_attention_wide(q, k4, v4, ks, vs, pos, block_l=block_l)
+    ref = da.decode_attention_wide_plain(q, k4, v4, ks, vs, pos, block_l=block_l)
+    torch.cuda.synchronize()
+    assert (da.wide_launches, da.launches) == (before[0] + 1, before[1])
+    assert torch.all(out[1] == 0)
+    err = (out - ref).abs().max().item()
+    assert err <= 2e-3 * ref.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("s,l,hkv", [(4, 256, 32), (3, 64, 2), (2, 32, 4)])
+def test_attention_probes(cuda, s, l, hkv):
+    """The probes against their plain versions: column sums exactly (integer
+    atomics); dot_only to 1e-5 of the range (f32 atomics in any order)."""
+    from tpuserve_torch.ops import attention_probes as probes
+
+    g = torch.Generator().manual_seed(7)
+    k, v = (torch.randint(-128, 128, (s, l, hkv, 128), generator=g, dtype=torch.int8).to(cuda)
+            for _ in range(2))
+    want = probes.colsum_plain(k, v)
+    for name, fn in (("dma_bound", lambda: probes.dma_bound(k, v)),
+                     ("dma_wide", lambda: probes.dma_wide(k, v)),
+                     ("dma_wide3d", lambda: probes.dma_wide(k, v, three_d=True))):
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), name
+    qi = probes.probe_q(torch.randn((s, 2 * hkv, 128), generator=g).to(cuda) / 128 ** 0.5)
+    before = probes.dot_only_launches
+    out = probes.dot_only(qi, k, v)
+    ref = probes.dot_only_plain(qi, k, v)
+    torch.cuda.synchronize()
+    assert probes.dot_only_launches == before + 1
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
 def test_vector_add(cuda):
     for n in (1, 1000, 1_000_003):
         a, b = torch.randn(n, device=cuda), torch.randn(n, device=cuda)

@@ -50,7 +50,8 @@ def weights():
 def _caches(kv_bits):
     jc = jllama.KVCache.create(P_J, SLOTS, MAX_LEN, quantized=True, flat=True,
                                kv_bits=kv_bits)
-    tc = tllama.KVCache.create(P_T, SLOTS, MAX_LEN, quantized=True, kv_bits=kv_bits)
+    tc = tllama.KVCache.create(P_T, SLOTS, MAX_LEN, quantized=True, kv_bits=kv_bits,
+                               device="cpu")
     return jc, tc
 
 
@@ -139,7 +140,7 @@ def test_decode_never_writes_inactive_slots():
     p = P_T
     params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, device="cpu",
                                                    seed=1), p)
-    cache = tllama.KVCache.create(p, 3, 32, quantized=True, kv_bits=4)
+    cache = tllama.KVCache.create(p, 3, 32, quantized=True, kv_bits=4, device="cpu")
     cache.k.fill_(0x5A)
     cache.k_scale.fill_(7.0)
     pos = torch.tensor([3, -1, 0], dtype=torch.int32)

@@ -295,7 +295,8 @@ def test_paged_model_matches_jax(weights, jax_kernels, kv_bits):
     ps, n_slots, n_pages = 16, 5, 14
     jc = jpkv.PagedKVCache.create(P_J, n_pages, ps, quantized=True, flat=True,
                                   kv_bits=kv_bits)
-    tc = tpkv.PagedKVCache.create(P_T, n_pages, ps, quantized=True, kv_bits=kv_bits)
+    tc = tpkv.PagedKVCache.create(P_T, n_pages, ps, quantized=True, kv_bits=kv_bits,
+                                   device="cpu")
     rng = np.random.default_rng(11)
     order = 1 + rng.permutation(n_pages - 1)   # shuffled pool pages
     table = np.zeros((n_slots, 4), np.int32)
@@ -389,7 +390,7 @@ def test_decode_step_paged_writes_active_rows_only():
     p = P_T
     params = tllama.fuse_params(tllama.init_params(p, dtype=torch.float32, device="cpu",
                                                    seed=1), p)
-    cache = tpkv.PagedKVCache.create(p, 6, 16, quantized=True, kv_bits=4)
+    cache = tpkv.PagedKVCache.create(p, 6, 16, quantized=True, kv_bits=4, device="cpu")
     cache.k.fill_(0x5A)
     cache.k_scale.fill_(7.0)
     table = torch.tensor([[3, 5], [2, 0], [4, 1]], dtype=torch.int32)

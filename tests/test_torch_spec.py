@@ -146,7 +146,8 @@ def test_draft_lookup_matches_jax_and_host_proposer():
 def _accept_both(logits, draft, lens, temperature=0.0, top_k=0):
     s = logits.shape[0]
     jp = jsampling.SamplingParams.create(s, temperature=temperature, top_k=top_k)
-    tp = tsampling.SamplingParams.create(s, temperature=temperature, top_k=top_k)
+    tp = tsampling.SamplingParams.create(s, temperature=temperature, top_k=top_k,
+                                         device="cpu")
     jo = jsampling.spec_accept(jnp.asarray(logits), jnp.asarray(draft, jnp.int32),
                                jnp.asarray(lens, jnp.int32), jp, jax.random.PRNGKey(0))
     to = tsampling.spec_accept(torch.from_numpy(logits), torch.from_numpy(draft),
@@ -183,7 +184,7 @@ def _sampled(seed, n, draft_row, lens_row, top_k=0, gen_seed=42):
     logits = torch.from_numpy(np.repeat(base, n, axis=0))
     draft = torch.tensor([draft_row] * n)
     lens = torch.full((n,), lens_row)
-    params = tsampling.SamplingParams.create(n, temperature=1.0, top_k=top_k)
+    params = tsampling.SamplingParams.create(n, temperature=1.0, top_k=top_k, device="cpu")
     out, _, acc = tsampling.spec_accept(logits, draft, lens, params,
                                         torch.Generator().manual_seed(gen_seed))
     return base[0], to_np(out), to_np(acc)
@@ -255,7 +256,8 @@ def test_verify_step_matches_jax_and_sequential_decode(weights, jax_kernels, kv_
     jp, tp = weights
     slots, max_len = 3, 64
     jc = jllama.KVCache.create(P_J, slots, max_len, quantized=True, flat=True, kv_bits=kv_bits)
-    tc = tllama.KVCache.create(P_T, slots, max_len, quantized=True, kv_bits=kv_bits)
+    tc = tllama.KVCache.create(P_T, slots, max_len, quantized=True, kv_bits=kv_bits,
+                               device="cpu")
     rng = np.random.default_rng(7)
     prompts = {0: rng.integers(0, SMALL["vocab_size"], 9), 2: rng.integers(0, 512, 30)}
     for slot, prompt in prompts.items():
@@ -323,7 +325,8 @@ def test_verify_step_paged_matches_jax_and_sequential_decode(weights, jax_kernel
     jp, tp = weights
     ps, n_pages = 16, 12
     jc = jpkv.PagedKVCache.create(P_J, n_pages, ps, quantized=True, flat=True, kv_bits=kv_bits)
-    tc = tpkv.PagedKVCache.create(P_T, n_pages, ps, quantized=True, kv_bits=kv_bits)
+    tc = tpkv.PagedKVCache.create(P_T, n_pages, ps, quantized=True, kv_bits=kv_bits,
+                                   device="cpu")
     order = 1 + np.random.default_rng(2).permutation(n_pages - 1)
     table = np.zeros((3, 4), np.int32)
     table[0, :2], table[2, :3] = order[:2], order[2:5]     # shuffled pages

@@ -114,23 +114,16 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 
   // ---- q: per-row int8 quantization (int kinds) or dtype rounding
   for (int r = warp; r < R; r += WARPS) {
-    const size_t base = io_index(r) + lane * 4;
     float qv[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      qv[c] = a.q_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(a.q)[base + c])
-                       : reinterpret_cast<const float*>(a.q)[base + c];
+    load_q4(a.q, io_index(r) + lane * 4, a.q_bf16, qv);
     if (INTK) {
-      float am = fmaxf(fmaxf(fabsf(qv[0]), fabsf(qv[1])), fmaxf(fabsf(qv[2]), fabsf(qv[3])));
-      am = warp_max(am);
-      const float scale = fmaxf(am / 127.0f, 1e-10f);
+      int8_t code[4];
+      const float scale = quantize_q4(qv, code);
       int csum = 0;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        float rr = rintf(qv[c] / scale);
-        rr = fminf(fmaxf(rr, -127.0f), 127.0f);
-        q8[r * HD + lane * 4 + c] = (int8_t)rr;
-        csum += (int)rr;
+        q8[r * HD + lane * 4 + c] = code[c];
+        csum += code[c];
       }
       csum = warp_sum(csum);
       if (lane == 0) {
@@ -255,13 +248,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
       float mx = NEG_INF;
       for (int i = lane; i < bl; i += 32) mx = fmaxf(mx, row[i]);
       mx = warp_max(mx);
-      const float m_prev = s_m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = fmaxf(m_new, NEG_INF / 2);
-      const float corr = expf(m_prev - m_safe);
+      const SoftmaxStep st = softmax_step(s_m[r], mx);
       float psum = 0.f, pmax = 0.f;
       for (int i = lane; i < bl; i += 32) {
-        float p = expf(row[i] - m_safe);
+        float p = expf(row[i] - st.m_safe);
         psum += p;
         if (INTK) {
           if (i < live) p = p * vrow[i];
@@ -283,9 +273,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
         }
       }
       if (lane == 0) {
-        s_l[r] = s_l[r] * corr + psum;
-        s_m[r] = m_new;
-        s_corr[r] = corr;
+        s_l[r] = s_l[r] * st.corr + psum;
+        s_m[r] = st.m_new;
+        s_corr[r] = st.corr;
         s_pscale[r] = pscale;
       }
     }

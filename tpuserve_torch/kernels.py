@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
-           "decode_attention_multi.cu")
+           "decode_attention_multi.cu", "decode_attention_grouped.cu", "attention_probes.cu")
 HEADERS = ("common.cuh", "attention_common.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -36,13 +36,17 @@ NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # exported C functions -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "tpuserve_vector_add": [_P, _P, _P, ctypes.c_longlong, _P],
+    "tpuserve_vector_add": [_P, _P, _P, _LL, _P],
     "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
     "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],
+    "tpuserve_decode_attention_grouped": [_P] * 7 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P],
+    "tpuserve_probe_colsum": [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
+    "tpuserve_probe_dot_only": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

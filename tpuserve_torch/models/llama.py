@@ -21,23 +21,29 @@ single-device path).
   here they are written in place.
 
 Prefill attention is plain torch (the JAX package leaves it to XLA). Decode
-and verify attention over the flat cache always go through
-`ops.decode_attention` (its CUDA kernels on the card, their plain versions
-on the CPU); there is no einsum fallback. The paged verify attends over the
-gathered window in plain torch, as the JAX package leaves it to XLA.
+and verify attention follow TPUSERVE_DECODE_ATTN, as in the JAX package
+(`_decode_attn_mode`): "pallas" (the default) runs `ops.decode_attention`'s
+flat, multi-candidate and paged kernels, "grouped" runs decode_step through
+the grouped kernel, and any other value ("xla") attends with the einsums of
+`_attend_window`, as do verify_step and decode_step_paged under "grouped".
+Kernels run as CUDA kernels on the card and as their plain versions on the
+CPU. The paged verify attends over the gathered window in plain torch in
+every mode, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
-from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache,
+from tpuserve_torch.ops.decode_attention import (decode_attention,
+                                                 decode_attention_wide_cache,
                                                  decode_attention_wide_cache_multi,
                                                  decode_attention_wide_paged)
 from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
@@ -207,8 +213,8 @@ class KVCache:
     @classmethod
     def create(cls, p: LlamaParams, n_slots: int, max_len: int, quantized: bool,
                dtype=torch.bfloat16, scale_dtype=torch.float32, kv_bits: int = 8,
-               device="cpu") -> "KVCache":
-        dev = torch.device(device)
+               device="cuda") -> "KVCache":
+        dev = resolve_device(device)
         w = p.n_kv_heads * p.head_dim
         shape = (p.n_layers, n_slots, max_len, w)
         scale_shape = (p.n_layers, n_slots, p.n_kv_heads, max_len)
@@ -259,9 +265,14 @@ def pack_kv_codes(codes: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_kv_codes: uint8 [..., W/2] -> int8 [..., W]."""
-    p32 = packed.to(torch.int32)
-    return torch.cat([(p32 & 15) - 8, (p32 >> 4) - 8], dim=-1).to(torch.int8)
+    """Inverse of pack_kv_codes: uint8 [..., W/2] -> int8 [..., W]. Three
+    byte-wide passes: the low and high nibbles into the two halves, then the
+    -8 offset, which wraps mod 256 into the int8 codes' bytes."""
+    half = packed.shape[-1]
+    out = torch.empty(packed.shape[:-1] + (2 * half,), dtype=torch.uint8, device=packed.device)
+    torch.bitwise_and(packed, 15, out=out[..., :half])
+    torch.bitwise_right_shift(packed, 4, out=out[..., half:])
+    return out.sub_(8).view(torch.int8)
 
 
 def _pad_heads(x: torch.Tensor, hp: int) -> torch.Tensor:
@@ -339,6 +350,70 @@ def _attend_window(q, k_rows, v_rows, k_scale, v_scale, mask, p: LlamaParams):
     out = torch.einsum("...cgrl,...lgd->...cgrd", probs.to(cdt).to(torch.float32),
                        v_all.to(cdt).to(torch.float32))
     return out.reshape(*lead, c, p.n_heads * p.head_dim)
+
+
+def _window_scales(cache: KVCache, layer: int, win: int):
+    """This layer's [S, Hkv, win] scales of the first `win` rows (views), or
+    (None, None) for a float cache."""
+    if not cache.quantized:
+        return None, None
+    return cache.k_scale[layer, :, :, :win], cache.v_scale[layer, :, :, :win]
+
+
+def _paged_window_scales(cache, layer: int, cols: torch.Tensor, p: LlamaParams):
+    """The scale pages of a [S, n_cols] page table gathered into [S, Hkv,
+    n_cols * ps] windows, or (None, None) for a float pool."""
+    if not cache.quantized:
+        return None, None
+    s, n_cols = cols.shape
+    l_virt = n_cols * cache.page_size
+
+    def gather(pool):  # [S, n_cols, hp, ps] -> [S, Hkv, l_virt]
+        return pool[layer][cols].permute(0, 2, 1, 3).reshape(s, -1, l_virt)[:, :p.n_kv_heads]
+
+    return gather(cache.k_scale), gather(cache.v_scale)
+
+
+def _decode_attn_mode(p: LlamaParams) -> str:
+    """Decode-attention implementation, read from TPUSERVE_DECODE_ATTN
+    (case-insensitive) once per call of decode_step, verify_step and
+    decode_step_paged, as the JAX package's `_decode_attn_mode`:
+
+    - "pallas" (default): the flat kernel in decode_step, the multi-candidate
+      kernel in verify_step, the paged kernel in decode_step_paged;
+    - "grouped": decode_step through the grouped kernel
+      (`ops.decode_attention`) over the [S, win, Hkv, hd] window;
+      verify_step and decode_step_paged take the einsum path;
+    - any other value, "xla": the einsum path (`_attend_window`) in all three.
+
+    "pallas" with a head_dim that is not a multiple of 128 means "xla", as in
+    the JAX package. Unlike it, the CPU keeps "pallas" and "grouped" (their
+    kernels' plain versions), where the JAX package takes "xla" off a TPU."""
+    mode = os.environ.get("TPUSERVE_DECODE_ATTN", "pallas").lower()
+    if mode not in ("pallas", "grouped"):
+        return "xla"
+    if mode == "pallas" and p.head_dim % 128 != 0:
+        return "xla"
+    return mode
+
+
+def _attend_grouped(q, cache: KVCache, layer: int, win: int, positions, p: LlamaParams):
+    """decode_step's attention under "grouped": the first `win` rows of this
+    layer as [S, win, Hkv, hd] (a view of the flat cache for int8 and float
+    caches; a packed int4 cache is unpacked to int8 codes first, as the JAX
+    package leaves that to XLA) with [S, win, Hkv] scales (a transposed view)
+    through `ops.decode_attention`. q [S, H, hd] with RoPE applied; returns
+    [S, H, hd] f32."""
+    s = q.shape[0]
+    k_rows, v_rows = cache.k[layer, :, :win], cache.v[layer, :, :win]
+    if cache.k.dtype == torch.uint8:
+        k_rows, v_rows = unpack_kv_codes(k_rows), unpack_kv_codes(v_rows)
+    shape = (s, win, p.n_kv_heads, p.head_dim)
+    ks, vs = _window_scales(cache, layer, win)
+    if ks is not None:
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    return decode_attention(true_div(q, math.sqrt(p.head_dim)), k_rows.view(shape),
+                            v_rows.view(shape), ks, vs, positions)
 
 
 # ---------------------------------------------------------------------- blocks
@@ -480,10 +555,11 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     this token goes; negative = inactive slot). `window` limits attention
     reads to the first `window` cache positions; callers guarantee
     max(positions)+1 <= window. `active_idx` (the indices of slots with
-    positions >= 0) may be passed to spare a device-to-host sync.
-    Returns (logits [S, V] f32, cache).
+    positions >= 0) may be passed to spare a device-to-host sync. Attention
+    follows `_decode_attn_mode`. Returns (logits [S, V] f32, cache).
     """
     s = tokens.shape[0]
+    mode = _decode_attn_mode(p)
     positions = positions.to(device=tokens.device, dtype=torch.int32)
     active = positions >= 0
     pos = positions.clamp_min(0)
@@ -494,6 +570,7 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
     win = cache.max_len if window is None else min(int(window), cache.max_len)
+    read_mask = torch.arange(win, device=tokens.device)[None, :] <= pos[:, None]  # [S, win]
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
@@ -510,11 +587,17 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
             if ks is not None:
                 cache.k_scale[layer][active_idx, :, pos_a] = ks[active_idx].to(cache.k_scale.dtype)
                 cache.v_scale[layer][active_idx, :, pos_a] = vs[active_idx].to(cache.v_scale.dtype)
-            out = decode_attention_wide_cache(
-                true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
-                cache.k_scale[layer] if cache.quantized else None,
-                cache.v_scale[layer] if cache.quantized else None,
-                positions, layer, window=win)
+            if mode == "pallas":
+                out = decode_attention_wide_cache(
+                    true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
+                    cache.k_scale[layer] if cache.quantized else None,
+                    cache.v_scale[layer] if cache.quantized else None,
+                    positions, layer, window=win)
+            elif mode == "grouped":
+                out = _attend_grouped(q, cache, layer, win, positions, p)
+            else:
+                out = _attend_window(q[:, None], cache.k[layer, :, :win], cache.v[layer, :, :win],
+                                     *_window_scales(cache, layer, win), read_mask[:, None], p)
             return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -598,11 +681,13 @@ def verify_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     rows were written, with no host sync (the fused rounds need none).
     Callers keep valid rows below L-1, where clamped invalid rows gather.
     Attention is the multi-candidate kernel (`decode_attention_wide_cache_
-    multi`), always."""
+    multi`) under "pallas" and the einsum path otherwise (`_decode_attn_mode`)."""
     s, c = tokens.shape
+    mode = _decode_attn_mode(p)
     pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, tokens, positions, lengths,
                                                  cache.max_len)
     win = cache.max_len if window is None else min(int(window), cache.max_len)
+    read_mask = torch.arange(win, device=tokens.device)[None, None, :] <= pos_c[:, :, None]
     sidx = torch.arange(s, device=tokens.device)[:, None]   # broadcasts against pos_c
 
     def masked(new, old):  # [S, C, ...]: the new rows where valid, else the old
@@ -620,11 +705,15 @@ def verify_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
             if ks is not None:  # head-major scales: [S, C, Hkv] at [sidx, :, pos_c]
                 for dst, new in ((cache.k_scale[layer], ks), (cache.v_scale[layer], vs)):
                     dst[sidx, :, pos_c] = masked(new, dst[sidx, :, pos_c])
-            out = decode_attention_wide_cache_multi(
-                true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
-                cache.k_scale[layer] if cache.quantized else None,
-                cache.v_scale[layer] if cache.quantized else None,
-                positions, layer, window=win)
+            if mode == "pallas":
+                out = decode_attention_wide_cache_multi(
+                    true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
+                    cache.k_scale[layer] if cache.quantized else None,
+                    cache.v_scale[layer] if cache.quantized else None,
+                    positions, layer, window=win)
+            else:
+                out = _attend_window(q, cache.k[layer, :, :win], cache.v[layer, :, :win],
+                                     *_window_scales(cache, layer, win), read_mask, p)
             return out.to(x.dtype).reshape(s * c, p.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -733,11 +822,13 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     page_table [S, P] int32; positions [S] (-1 = inactive). The engine
     guarantees every active slot's chain covers positions[s]+1 tokens.
     `window` limits reads to the leading ceil(window/ps) pages. This step's
-    K/V is written in place for the active slots only; attention reads the
-    pool in place through `decode_attention_wide_paged`. Returns (logits
-    [S, V] f32, cache).
+    K/V is written in place for the active slots only; under "pallas"
+    attention reads the pool in place through `decode_attention_wide_paged`,
+    otherwise (`_decode_attn_mode`) the einsum path attends over the
+    gathered window. Returns (logits [S, V] f32, cache).
     """
     s = tokens.shape[0]
+    mode = _decode_attn_mode(p)
     dev = tokens.device
     ps = cache.page_size
     positions = positions.to(device=dev, dtype=torch.int32)
@@ -755,6 +846,7 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     x = params["embed/weight"][tokens]
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
+    read_mask = torch.arange(l_virt, device=dev)[None, :] <= pos[:, None]  # [S, l_virt]
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
@@ -762,9 +854,16 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
             k = apply_rope(k.reshape(s, p.n_kv_heads, p.head_dim), cos_q, sin_q)
             v = v.reshape(s, p.n_kv_heads, p.head_dim)
             _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx])
-            out = decode_attention_wide_paged(
-                true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, cache.k_scale,
-                cache.v_scale, page_table, positions, layer, window=l_virt)
+            if mode == "pallas":
+                out = decode_attention_wide_paged(
+                    true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, cache.k_scale,
+                    cache.v_scale, page_table, positions, layer, window=l_virt)
+            else:
+                cols = page_table.long()
+                out = _attend_window(
+                    q[:, None], cache.k[layer][cols].reshape(s, l_virt, -1),
+                    cache.v[layer][cols].reshape(s, l_virt, -1),
+                    *_paged_window_scales(cache, layer, cols, p), read_mask[:, None], p)
             return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -804,21 +903,15 @@ def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     wpos = pos_c[vs_idx, vc_idx]
     wpages, woffs = page_table[vs_idx, wpos // ps], wpos % ps
 
-    def window_scales(pool, layer):  # [S, n_cols, hp, ps] -> [S, Hkv, l_virt]
-        return pool[layer][page_table].permute(0, 2, 1, 3).reshape(s, -1, l_virt)[:, :p.n_kv_heads]
-
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
             q = apply_rope(q.reshape(s, c, p.n_heads, p.head_dim), cos_q, sin_q)
             k = apply_rope(k.reshape(s, c, p.n_kv_heads, p.head_dim), cos_q, sin_q)
             v = v.reshape(s, c, p.n_kv_heads, p.head_dim)
             _write_pages(cache, layer, wpages, woffs, k[vs_idx, vc_idx], v[vs_idx, vc_idx])
-            ks = vs = None
-            if cache.quantized:
-                ks, vs = window_scales(cache.k_scale, layer), window_scales(cache.v_scale, layer)
             out = _attend_window(q, cache.k[layer][page_table].reshape(s, l_virt, -1),
-                                 cache.v[layer][page_table].reshape(s, l_virt, -1), ks, vs,
-                                 mask, p)
+                                 cache.v[layer][page_table].reshape(s, l_virt, -1),
+                                 *_paged_window_scales(cache, layer, page_table, p), mask, p)
             return out.to(x.dtype).reshape(s * c, p.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)

@@ -35,24 +35,38 @@ queries per slot over one read of the flat cache, candidate c attending to
 rows <= positions[s] + c. It never takes the multi-slot packed form, and
 blocks run while they hold a row <= positions[s] + C - 1. Its kernel is
 csrc/decode_attention_multi.cu.
+
+`decode_attention_wide` (the JAX package's entry of the same name,
+`_wide_kernel` with a prebuilt Q_wide) is the flat kernel's function over
+a contiguous [S, L, Hkv, hd] cache: a one-layer view, never packed.
+
+`decode_attention` (the JAX package's entry of the same name, the grouped
+`_kernel` behind TPUSERVE_DECODE_ATTN=grouped) takes k/v [S, L, Hkv, hd]
+and [S, L, Hkv] scales and computes other numerics: no P requant, P times
+v_scale rounded to bf16, P@V on V's values. Its kernel is
+csrc/decode_attention_grouped.cu.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from tpuserve_torch.quant.core import true_div
 
-launches = 0        # flat-cache kernel launches (the plain versions do not count)
-paged_launches = 0  # paged-pool kernel launches
-multi_launches = 0  # multi-candidate (speculative verify) kernel launches
+launches = 0          # flat-cache kernel launches (the plain versions do not count)
+paged_launches = 0    # paged-pool kernel launches
+multi_launches = 0    # multi-candidate (speculative verify) kernel launches
+wide_launches = 0     # flat-kernel launches through decode_attention_wide
+grouped_launches = 0  # grouped kernel launches
 
 _NEG_INF = -1e30
 _HD = 128          # head_dim the CUDA kernel is written for
 _KERNEL_NQ = (1, 2, 4, 8)
 _BLOCK_L = 128     # L rows per online-softmax block (the TPU kernel's default)
+_GROUPED_MAX_BL = 2048   # the grouped kernel's scores [nq, block_l] f32 in shared memory
 
 
 def _quantize_q(q: torch.Tensor):
@@ -229,9 +243,16 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
         return decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l,
                                                  positions, layer, window=window,
                                                  block_l=block_l)
+    out = _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer,
+                       _geometry(q, k_full, k_scale_l, window, block_l))
+    launches += 1
+    return out
+
+
+def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
+    """Check the inputs and launch the flat kernel over the geometry `g`."""
     from tpuserve_torch import kernels
 
-    g = _geometry(q, k_full, k_scale_l, window, block_l)
     n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], g["hd"])
     _check_inputs(q, [q, k_full, v_full, positions]
@@ -259,7 +280,207 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
         g["s_dim"], g["n_heads"], n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
         k_full.shape[-1], kind, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention")
-    launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- prebuilt Q_wide
+def _wide_flat(q, k, v, k_scale, v_scale, block_l):
+    """The prebuilt-Q_wide entry's operands as the flat kernel's: k/v [S, L,
+    Hkv, hd] viewed as one layer [1, S, L, Hkv*hd] (no copy), and its
+    geometry without the multi-slot packed form."""
+    if k.dim() != 4:
+        raise ValueError("decode_attention_wide expects k/v [S, L, Hkv, hd]")
+    s_dim, l_max, n_kv, hd = k.shape
+    kf = k.reshape(1, s_dim, l_max, n_kv * hd)
+    vf = v.reshape(1, s_dim, l_max, n_kv * hd)
+    return kf, vf, _geometry(q, kf, k_scale, None, block_l, pack=False)
+
+
+def decode_attention_wide_plain(q, k, v, k_scale, v_scale, positions, *,
+                                block_l: int = 256) -> torch.Tensor:
+    """decode_attention_wide's algorithm in plain PyTorch (any device): the
+    flat kernel's plain version over the one-layer view. [S, H, hd] f32."""
+    kf, vf, g = _wide_flat(q, k, v, k_scale, v_scale, block_l)
+    return _attend_plain(q, kf, vf, k_scale, v_scale, positions, 0, g)
+
+
+def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
+                          block_l: int = 256) -> torch.Tensor:
+    """The JAX package's decode_attention_wide (`_wide_kernel` with a
+    prebuilt Q_wide), the flat kernel's function over a contiguous cache:
+    q [S, H, hd] (f32 or bf16, scaled by 1/sqrt(hd)); k/v [S, L, Hkv, hd]
+    int8, bf16 or f32; k_scale/v_scale [S, Hkv, L] (f32 or bf16) or None;
+    positions [S] (-1 = inactive). L is read in blocks of `block_l`
+    (clipped to L, halved until it divides L), never in the multi-slot
+    packed form, which this entry never takes. Returns [S, H, hd] f32.
+    CUDA tensors launch the flat kernel (csrc/decode_attention.cu) on a
+    one-layer view; CPU tensors take the plain version."""
+    global wide_launches
+    if not q.is_cuda:
+        return decode_attention_wide_plain(q, k, v, k_scale, v_scale, positions,
+                                           block_l=block_l)
+    kf, vf, g = _wide_flat(q, k, v, k_scale, v_scale, block_l)
+    out = _launch_flat(q, kf, vf, k_scale, v_scale, positions, 0, g)
+    wide_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- grouped
+_GKV_ENV = "TPUSERVE_ATTN_GKV"
+
+
+def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[int]):
+    """Shapes, the kv heads per block and the L blocking of the grouped
+    entry, chosen as the JAX package's decode_attention chooses them, but
+    for the default split (see decode_attention)."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError("grouped decode attention expects q [S, H, hd] and k/v [S, L, Hkv, hd]")
+    s_dim, n_heads, hd = q.shape
+    _, l_max, n_kv, hd_k = k.shape
+    if k.shape != v.shape or k.dtype != v.dtype or k.shape[0] != s_dim or hd_k != hd:
+        raise ValueError(f"grouped decode attention: q {tuple(q.shape)}, k {tuple(k.shape)} "
+                         f"{k.dtype}, v {tuple(v.shape)} {v.dtype} do not fit")
+    if n_heads % n_kv:
+        raise ValueError(f"grouped decode attention: {n_heads} heads over {n_kv} kv heads")
+    if k.dtype not in (torch.int8, torch.bfloat16, torch.float32):
+        raise ValueError(f"grouped decode attention: unsupported cache dtype {k.dtype}")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("grouped decode attention: give both scales or neither")
+    if k.dtype == torch.int8 and not quantized:
+        raise ValueError("grouped decode attention: an int8 cache needs scales")
+    if quantized and (tuple(k_scale.shape) != (s_dim, l_max, n_kv)
+                      or tuple(v_scale.shape) != (s_dim, l_max, n_kv)):
+        raise ValueError(f"grouped decode attention: scales must be {(s_dim, l_max, n_kv)}")
+    if g_kv is None:
+        g_kv = int(os.environ.get(_GKV_ENV, "0")) or 1
+    g_kv = max(1, min(int(g_kv), n_kv))
+    while n_kv % g_kv:
+        g_kv -= 1
+    bl = max(1, min(int(block_l), l_max))
+    while l_max % bl:
+        bl //= 2
+    return dict(s_dim=s_dim, n_heads=n_heads, hd=hd, l_max=l_max, n_kv=n_kv,
+                rep=n_heads // n_kv, quantized=quantized, kv_int8=k.dtype == torch.int8,
+                g_kv=g_kv, block_l=bl)
+
+
+def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
+                           g_kv: Optional[int] = None) -> torch.Tensor:
+    """The grouped kernel's algorithm in plain PyTorch (any device), step
+    for step as the TPU's `_kernel`: int8 q per (slot, head) and integer
+    score dots for an int8 cache (q's own values for a float cache), then
+    s * k_scale * q_scale; positions past positions[s] masked with -1e30;
+    online softmax over `block_l` blocks (m_safe = max(m, -5e29)), blocks
+    wholly past positions[s] skipped; P * v_scale rounded to bf16 (unless
+    the cache is f32) and P@V on V's values with f32 accumulation, no P
+    requant; out = acc / max(l, 1e-20) where l > 0, else 0. `g_kv` only
+    splits the work (the TPU's masked head pairs add exact zeros), so it
+    changes no value. Returns [S, H, hd] f32."""
+    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
+    s_dim, n_heads, hd, l_max, bl = g["s_dim"], g["n_heads"], g["hd"], g["l_max"], g["block_l"]
+    dev = q.device
+    pos = positions.to(device=dev, dtype=torch.int64).view(s_dim, 1, 1)
+    kv_head = torch.arange(n_heads, device=dev) // g["rep"]   # query head -> kv head
+    if g["kv_int8"]:
+        qc, qs = _quantize_q(q)                    # [S, H, hd] int8, [S, H, 1]
+        qd = qc.to(torch.float64)                  # integer dots are exact in f64
+    else:
+        qd = q.to(torch.float32)
+
+    def heads(x, l0):   # [S, L, Hkv, ...] block -> [S, H, bl, ...] per query head
+        return x[:, l0:l0 + bl][:, :, kv_head].transpose(1, 2)
+
+    m_run = torch.full((s_dim, n_heads, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((s_dim, n_heads, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((s_dim, n_heads, hd), dtype=torch.float32, device=dev)
+    for l0 in range(0, l_max, bl):
+        run = l0 <= pos
+        kb, vb = heads(k, l0), heads(v, l0)        # [S, H, bl, hd]
+        if g["kv_int8"]:
+            s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float64)).to(torch.float32)
+            s = s * heads(k_scale, l0).to(torch.float32) * qs
+        else:
+            s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float32))
+            if g["quantized"]:
+                s = s * heads(k_scale, l0).to(torch.float32)
+        lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
+        s = s + torch.where(lpos <= pos, 0.0, _NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
+        p = torch.exp(s - m_safe)
+        corr = torch.exp(m_run - m_safe)
+        l_new = l_run * corr + p.sum(dim=-1, keepdim=True)
+        if g["quantized"]:
+            p = p * heads(v_scale, l0).to(torch.float32)
+        if k.dtype != torch.float32:
+            p = p.to(torch.bfloat16).to(torch.float32)
+        part = torch.einsum("shl,shld->shd", p, vb.to(torch.float32))
+        acc = torch.where(run, acc * corr + part, acc)
+        l_run = torch.where(run, l_new, l_run)
+        m_run = torch.where(run, m_new, m_run)
+    return torch.where(l_run > 0, acc / torch.clamp_min(l_run, 1e-20), 0.0)
+
+
+def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
+                     g_kv: Optional[int] = None) -> torch.Tensor:
+    """Grouped decode attention (the JAX package's decode_attention, the
+    `_kernel` behind TPUSERVE_DECODE_ATTN=grouped).
+
+    q [S, H, hd] (f32 or bf16), already scaled by 1/sqrt(hd); k/v [S, L,
+    Hkv, hd] int8, bf16 or f32, the last three dims contiguous (a window
+    view of a longer cache is taken in place: slots may be any 16-byte
+    multiple apart); k_scale/v_scale [S, L, Hkv] f32 or bf16, any strides
+    (a transposed view of the head-major scale cache), or None for a float
+    cache; positions [S] int (-1 = inactive); `block_l` the online-softmax
+    block; `g_kv` the kv heads one block serves (or TPUSERVE_ATTN_GKV; the
+    port's default is 1, where the JAX package's is 16 // rep). Returns
+    [S, H, hd] f32. CUDA tensors launch csrc/decode_attention_grouped.cu;
+    CPU tensors take the plain version."""
+    global grouped_launches
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, k_scale, v_scale, positions, block_l=block_l,
+                                      g_kv=g_kv)
+    from tpuserve_torch import kernels
+
+    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
+    s_dim, n_heads, n_kv = g["s_dim"], g["n_heads"], g["n_kv"]
+    kind, nq = _kernel_kind(k.dtype, 8, n_kv, g["rep"], g["hd"])
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
+        raise ValueError("grouped decode attention kernel: q must be contiguous f32 or bf16")
+    quantized = g["quantized"]
+    tensors = [q, k, v, positions] + ([k_scale, v_scale] if quantized else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("grouped decode attention kernel: all inputs must be on one device")
+    esz = k.element_size()
+    if (k.stride()[1:] != (n_kv * _HD, _HD, 1) or v.stride() != k.stride()
+            or (k.stride(0) * esz) % 16 or k.data_ptr() % 16 or v.data_ptr() % 16):
+        raise ValueError("grouped decode attention kernel: k/v must be [S, L, Hkv, hd] views "
+                         "with contiguous rows, 16-byte aligned slots and equal strides")
+    sc_bf16, ss = 0, (0, 0, 0)
+    if quantized:
+        if k_scale.dtype != v_scale.dtype or k_scale.dtype not in (torch.float32,
+                                                                    torch.bfloat16):
+            raise ValueError("grouped decode attention kernel: scales must be f32 or bf16")
+        if k_scale.stride() != v_scale.stride():
+            raise ValueError("grouped decode attention kernel: k and v scales differ in strides")
+        sc_bf16, ss = int(k_scale.dtype == torch.bfloat16), k_scale.stride()
+    if g["block_l"] > _GROUPED_MAX_BL:
+        raise ValueError(f"grouped decode attention kernel: block_l {g['block_l']} > "
+                         f"{_GROUPED_MAX_BL}")
+    if positions.shape != (s_dim,):
+        raise ValueError("grouped decode attention: positions must be [S]")
+    pos32 = positions.to(torch.int32).contiguous()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    null = 0
+    rc = kernels.lib().tpuserve_decode_attention_grouped(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else null, v_scale.data_ptr() if quantized else null,
+        pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
+        s_dim, n_heads, n_kv, g["l_max"], g["block_l"], g["g_kv"], k.stride(0), *ss,
+        kind, nq, kernels.stream_of(q))
+    kernels.check(rc, "decode_attention_grouped")
+    grouped_launches += 1
     return out
 
 

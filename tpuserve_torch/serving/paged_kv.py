@@ -202,8 +202,8 @@ class PagedKVCache:
 
     @classmethod
     def create(cls, p, n_pages: int, page_size: int, quantized: bool,
-               dtype=torch.bfloat16, kv_bits: int = 8, device="cpu") -> "PagedKVCache":
-        dev = torch.device(device)
+               dtype=torch.bfloat16, kv_bits: int = 8, device="cuda") -> "PagedKVCache":
+        dev = resolve_device(device)
         w = p.n_kv_heads * p.head_dim
         if kv_bits == 4:
             if not quantized:

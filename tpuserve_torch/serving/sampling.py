@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpuserve_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class SamplingParams:
@@ -27,9 +29,11 @@ class SamplingParams:
 
     @classmethod
     def create(cls, n_slots: int, temperature=0.0, top_k=0, top_p=1.0,
-               repetition_penalty=1.0, min_p=0.0, device="cpu") -> "SamplingParams":
+               repetition_penalty=1.0, min_p=0.0, device="cuda") -> "SamplingParams":
+        dev = resolve_device(device)
+
         def full(v, dt):
-            return torch.full((n_slots,), v, dtype=dt, device=device)
+            return torch.full((n_slots,), v, dtype=dt, device=dev)
 
         return cls(
             temperature=full(float(temperature), torch.float32),
