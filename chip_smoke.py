@@ -42,10 +42,21 @@ Phases, each fatal on failure:
               (tpuserve_torch.scripts.sweep_attention) with every variant at
               its Llama-2-7B defaults: the probes' streaming rates, the
               grouped kernel's splits, decode_attention_wide and the einsum
-              path.
-The kernel phase also holds the grouped kernel, decode_attention_wide and
-the three probes against their plain versions. Then a `kernels` JSON line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+              path;
+ 10. unpack   the int4 unpack microbenchmark
+              (tpuserve_torch.scripts.unpack_microbench) at its defaults,
+              then the unpack in place: the flat kernel (packed int4, the
+              slice's step), the paged kernel (int4 pages) and the multi
+              kernel (int4, S=8, C=9) under TPUSERVE_INT4_UNPACK=cur and
+              =noop in turns, noop held against its own plain version;
+ 11. diag_bw  the HBM bandwidth probes (tpuserve_torch.scripts.diag_bw),
+              every mode at its defaults, then the copy forms at smaller
+              blocks.
+The kernel phase also holds the grouped kernel, decode_attention_wide, the
+three probes, the five unpack probes and the three copy forms against their
+plain versions. Then a `kernels` JSON line, the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}. Details go to
+chiprun_out/chip_smoke.json.
 
     python3 chip_smoke.py            # needs one card
 
@@ -827,8 +838,11 @@ def check_probes(torch, timer, reps):
         nbytes = kv_bytes + (qis[0].numel() + 4 * qis[0].numel() if ops else 4 * 128)
         b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8"])
         rate = kv_bytes / ms / 1e6             # GB/s: bytes over ms
+        # the column sums' plain version is one torch.sum per tensor, the
+        # library's call for the function; dot_only has none
+        lib_ms = None if ops else plain_ms
         results[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None, gb_s=rate,
+                             bound_by=b_by, library_ms=lib_ms, gb_s=rate,
                              hbm_share=rate * 1e9 / HBM_BYTES_PER_S,
                              per="one call at the sweep's shape: K and V int8 [64, 256, 32, 128]")
         log(f"[kernel] {name}: max|err| {err:.3g} (tol {tol:.3g}); {ms:.4f} ms, "
@@ -837,6 +851,97 @@ def check_probes(torch, timer, reps):
     del sets, qis
     torch.cuda.empty_cache()
     return results
+
+
+def check_unpack_probes(torch, timer, reps):
+    """The five unpack-microbenchmark kernels at the script's defaults (x
+    int8 [262144, 2048], 537 MB, past the L2; q int8 [32, 2048]; blocks of
+    256 rows) against their plain versions, exactly (integer sums)."""
+    from tpuserve_torch.ops import unpack_probes as up
+    from tpuserve_torch.scripts import unpack_microbench as ub
+
+    d = ub.dims()
+    x, q = ub.setup(d, torch.device("cuda"))
+    n, w2, m, blr = d["N_ROWS"], d["W2"], d["M"], d["BLR"]
+    results = {}
+    for name in up.VARIANTS:
+        fn = up.PROBES[name]
+        out = fn(x, q, 3, blr)
+        ref = up.unpack_probe_plain(name, x, q, 3, blr)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max().item())
+        if err != 0:                             # integer sums: exact
+            fail(f"unpack probe {name}: max|err| {err} > 0")
+        ms = timer.ms(lambda i: fn(x, q, i, blr), reps)
+        plain_ms = timer.ms(lambda i: up.unpack_probe_plain(name, x, q, i, blr), 2)
+        dots = {"stream_raw": 0, "dot_raw": 1}.get(name, 2)
+        ops = 2 * m * n * w2 * dots if dots else n * w2
+        b_ms, b_by = bound(n * w2 + (m * w2 if dots else 0) + m * 128 * 8, ops,
+                           PEAK_OPS["int8"])
+        lib_ms = None
+        if name == "stream_raw":
+            lib_ms = timer.ms(lambda i: x.sum(dtype=torch.int32), reps)
+        elif name == "dot_raw":       # cuBLASLt's int8 product: the scores before the fold
+            lib_ms = timer.ms(lambda i: torch._int_mm(q, x.t()), reps)
+        rate = n * w2 / ms / 1e6
+        results[_unpack_unit(name)] = dict(
+            max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, gb_s=rate,
+            per="one pass at the microbenchmark's defaults: x int8 [262144, 2048], q [32, 2048]")
+        log(f"[kernel] unpack probe {name}: max|err| {err:.3g} (tol 0); {ms:.4f} ms, {rate:.1f} "
+            f"GB/s ({100 * rate * 1e9 / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s), bound {b_ms:.4f} "
+            f"ms ({b_by}), plain {plain_ms:.4f} ms"
+            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms"))
+    del x, q
+    torch.cuda.empty_cache()
+    return results
+
+
+def check_diag_copy(torch, timer, reps):
+    """diag_bw's copy kernel in its three forms at the script's defaults (K
+    and V int8 [64, 256, 32, 128], g 16, block_l 256, every slot at L-1),
+    two sets of inputs rotated past the L2, against the plain versions,
+    exactly; the library's torch.sum over the views beside them."""
+    from tpuserve_torch.ops import attention_probes as probes
+    from tpuserve_torch.scripts import diag_bw
+
+    d = dict(S=64, L=256, N_KV=32, HD=128, G=16, BLOCK_L=256)
+    sets = [diag_bw.setup(d, torch.device("cuda"), seed=i) for i in range(2)]
+    kv_bytes = 2 * sets[0][0].numel()
+    rows, main = [], None
+    hd = d["HD"]
+    lib_ms = timer.ms(lambda i: (sets[i % 2][0].view(-1, hd).sum(0, dtype=torch.int32)
+                                 + sets[i % 2][1].view(-1, hd).sum(0, dtype=torch.int32)), reps)
+    for mode in probes.COPY_MODES:
+        def call(fn, i, mode=mode):
+            k, v, pos = sets[i % 2]
+            return fn(k, v, mode, d["BLOCK_L"], d["G"], pos if mode == "pdyn" else None)
+
+        out, ref = call(probes.diag_copy, 0), call(probes.diag_copy_plain, 0)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max().item())
+        if err != 0:                             # integer sums: exact
+            fail(f"diag_copy {mode}: max|err| {err} > 0")
+        ms = timer.ms(lambda i: call(probes.diag_copy, i), reps)
+        plain_ms = timer.ms(lambda i: call(probes.diag_copy_plain, i), max(2, reps // 5))
+        b_ms, b_by = bound(kv_bytes + d["S"] * 4 + d["HD"] * 4, kv_bytes, PEAK_OPS["int8"])
+        grid = probes.diag_copy_grid(sets[0][0].shape, mode, d["BLOCK_L"], d["G"])
+        rate = kv_bytes / ms / 1e6
+        row = dict(mode=mode, grid=grid, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, gb_s=rate)
+        rows.append(row)
+        if mode == "pcopy4d":    # the attention's per-head-group access pattern
+            main = row
+        log(f"[kernel] diag_copy {mode} grid {grid}: max|err| {err:.3g} (tol 0); {ms:.4f} ms, "
+            f"{rate:.1f} GB/s of K and V ({100 * rate * 1e9 / HBM_BYTES_PER_S:.1f}% of 3.35 "
+            f"TB/s), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.sum over the "
+            f"views {lib_ms:.4f} ms")
+    del sets
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=lib_ms,
+                per="one call at diag_bw's defaults: pcopy4d, K and V int8 [64, 256, 32, 128], "
+                    "g 16, block_l 256", cases=rows)
 
 
 def phase_kernels(torch, timer, reps, p):
@@ -848,6 +953,8 @@ def phase_kernels(torch, timer, reps, p):
     results["decode_attention_grouped"] = check_decode_attention_grouped(torch, timer, reps, p)
     results["decode_attention_wide"] = check_decode_attention_wide(torch, timer, reps)
     results.update(check_probes(torch, timer, reps))
+    results.update(check_unpack_probes(torch, timer, reps))
+    results["diag_copy"] = check_diag_copy(torch, timer, reps)
     return results
 
 
@@ -1566,10 +1673,20 @@ def phase_spec_paged(torch, p, smi_line):
                 accepted=accepted, wall_s=wall, stats=stats, tokens=tokens)
 
 
-@contextlib.contextmanager
 def attn_mode(mode):
     """TPUSERVE_DECODE_ATTN set to `mode` (None: unset), restored after."""
-    key = "TPUSERVE_DECODE_ATTN"
+    return env_set("TPUSERVE_DECODE_ATTN", mode)
+
+
+def unpack_mode(mode):
+    """TPUSERVE_INT4_UNPACK set to `mode` (None: unset), restored after."""
+    return env_set("TPUSERVE_INT4_UNPACK", mode)
+
+
+@contextlib.contextmanager
+def env_set(key, mode):
+    """The environment variable `key` set to `mode` (None: unset), restored
+    after."""
     saved = os.environ.get(key)
     if mode is None:
         os.environ.pop(key, None)
@@ -1726,6 +1843,147 @@ def phase_sweep(torch):
     return dict(records=records, launches=launches)
 
 
+def _unpack_unit(probe_name):
+    """The kernels line's name of an unpack probe variant."""
+    return probe_name if probe_name.startswith("unpack") else f"unpack_{probe_name}"
+
+
+def insitu_cases(torch, p):
+    """The three packed-int4 decode-attention kernels at their serving
+    shapes, each as (name, call(fn, i) of fn on layer i, the kernel's
+    wrapper, its plain version, the bytes a call reads):
+    the flat kernel at the slice's step (S=64, L=256, step positions, bf16
+    scales), the paged kernel over int4 pages (S=64, two pages of 128,
+    shuffled, step positions, f32 scale pools) and the multi kernel at the
+    [spec] phase's shape (S=8, C=9, L=512, positions 100-400, f32 scales);
+    each over enough layers that the rotated reads exceed the L2."""
+    from tpuserve_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
+    w2 = hkv * hd // 2
+
+    def packed(*shape):
+        return [torch.randint(0, 256, shape, generator=g, device="cuda",
+                              dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+
+    def scales(*shape, dtype=torch.float32):
+        return [((torch.rand(shape, generator=g, device="cuda") + 0.5) * 0.01).to(dtype)
+                for _ in range(2)]
+
+    def layers(live):      # live rows of K and V, packed, with their f32/bf16 scales
+        return max(2, math.ceil(L2_FLUSH_BYTES / (2 * live * (w2 + 4 * hkv))))
+
+    cases = []
+    s, l = 64, 256
+    pos = step_positions(torch, g, s)
+    live = int((pos + 1).clamp(min=0).sum().item())
+    n_l = layers(live)
+    kv, sc = packed(n_l, s, l, w2), scales(n_l, s, hkv, l, dtype=torch.bfloat16)
+    q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+    cases.append(("flat", lambda fn, i: fn(q, *kv, sc[0][i % n_l], sc[1][i % n_l], pos, i % n_l),
+                  da.decode_attention_wide_cache, da.decode_attention_wide_cache_plain,
+                  2 * live * (w2 + 2 * hkv)))
+    ps = 128
+    n_pages = s * (l // ps) + 1
+    table = (1 + torch.randperm(n_pages - 1, generator=g, device="cuda")).view(s, l // ps).to(
+        torch.int32)
+    pk, pks = packed(n_l, n_pages, ps, w2), scales(n_l, n_pages, (hkv + 7) // 8 * 8, ps)
+    cases.append(("paged", lambda fn, i: fn(q, *pk, *pks, table, pos, i % n_l),
+                  da.decode_attention_wide_paged, da.decode_attention_wide_paged_plain,
+                  2 * live * (w2 + 4 * hkv)))
+    sm, c, lm = 8, 9, 512
+    pos_m = torch.randint(100, 401, (sm,), generator=g, device="cuda", dtype=torch.int32)
+    live_m = int((pos_m + c).sum().item())
+    n_m = layers(live_m)
+    mkv, msc = packed(n_m, sm, lm, w2), scales(n_m, sm, hkv, lm)
+    qm = (torch.randn((sm, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+    cases.append(("multi", lambda fn, i: fn(qm, *mkv, msc[0][i % n_m], msc[1][i % n_m], pos_m,
+                                            i % n_m, window=lm),
+                  da.decode_attention_wide_cache_multi, da.decode_attention_wide_cache_multi_plain,
+                  2 * live_m * (w2 + 4 * hkv)))
+    return cases
+
+
+def phase_unpack(torch, timer, reps, p, smi_line):
+    """The unpack microbenchmark at its defaults (its kernels' launches are
+    counted over this run), then the unpack in place: each packed-int4
+    decode-attention kernel timed under TPUSERVE_INT4_UNPACK=cur and =noop
+    in turns (cur, noop, noop, cur), per layer, with noop's output held
+    against noop's plain version."""
+    from tpuserve_torch.ops import unpack_probes as up
+    from tpuserve_torch.scripts import unpack_microbench as ub
+
+    for name in up.launches:
+        up.launches[name] = 0
+    records = ub.run(list(ub.KERNELS), ub.dims(), torch.device("cuda"))
+    launches = {_unpack_unit(n): c for n, c in up.launches.items()}
+    failed = [r["variant"] for r in records if "failed" in r]
+    log(f"[unpack] microbenchmark: {len(records)} variants, launches {launches}")
+    if failed:
+        fail(f"[unpack] variants failed: {failed}")
+    if min(launches.values()) < 1:
+        fail(f"[unpack] a kernel of the microbenchmark was never launched: {launches}")
+
+    insitu = {}
+    for name, call, kern, plain, nbytes in insitu_cases(torch, p):
+        with unpack_mode("noop"):
+            out, ref = call(kern, 1), call(plain, 1)
+        with unpack_mode("cur"):
+            out_cur = call(kern, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 2e-3 * ref.abs().max().item() + 1e-6  # the decode-attention kernels' tolerance
+        moved = (out - out_cur).abs().max().item()
+        if not err <= tol:
+            fail(f"[unpack] {name} kernel under noop: max|err| {err} against its plain version "
+                 f"> {tol}")
+        if not moved > 0:
+            fail(f"[unpack] {name} kernel: noop gave the unpacked result")
+        turns = []
+        for mode in ("cur", "noop", "noop", "cur"):
+            with unpack_mode(mode):
+                turns.append((mode, timer.ms(lambda i: call(kern, i), reps)))
+        cur = [t for m, t in turns if m == "cur"]
+        noop = [t for m, t in turns if m == "noop"]
+        cur_ms, noop_ms = sum(cur) / 2, sum(noop) / 2
+        tax = 1 - noop_ms / cur_ms
+        cur_gb_s, noop_gb_s = nbytes / cur_ms / 1e6, nbytes / noop_ms / 1e6
+        insitu[name] = dict(turns=turns, cur_ms=cur_ms, noop_ms=noop_ms, tax=tax, noop_err=err,
+                            noop_tol=tol, cur_gb_s=cur_gb_s, noop_gb_s=noop_gb_s)
+        log(f"[unpack] in place, {name} kernel (packed int4) per layer: cur "
+            f"{' / '.join(f'{t:.4f}' for t in cur)} ms, noop "
+            f"{' / '.join(f'{t:.4f}' for t in noop)} ms; the unpack's share {100 * tax:.1f}% "
+            f"({cur_gb_s:.1f} -> {noop_gb_s:.1f} GB/s); noop vs its plain version max|err| "
+            f"{err:.3g} (tol {tol:.3g}); card {smi_line}")
+    torch.cuda.empty_cache()
+    return dict(records=records, launches=launches, insitu=insitu)
+
+
+def phase_diag_bw(torch):
+    """diag_bw with every mode at its defaults (the copy kernel's launches
+    are counted over this run), then the copy forms at block_l 64 and 16:
+    what the block size does to the stream."""
+    from tpuserve_torch.ops import attention_probes as probes
+    from tpuserve_torch.scripts import diag_bw
+
+    d = dict(S=64, L=256, N_KV=32, HD=128, G=16, BLOCK_L=256, ITERS=30)
+    probes.diag_copy_launches = 0
+    records = diag_bw.run(list(diag_bw.MODES), d, torch.device("cuda"))
+    launches = probes.diag_copy_launches
+    for block_l in (64, 16):
+        records += diag_bw.run(list(probes.COPY_MODES), dict(d, BLOCK_L=block_l),
+                               torch.device("cuda"))
+    failed = [(r["mode"], r.get("block_l")) for r in records if "failed" in r]
+    log(f"[diag_bw] {len(records)} runs, diag_copy launches {launches} at the defaults")
+    if failed:
+        fail(f"[diag_bw] modes failed: {failed}")
+    if launches < 1:
+        fail("[diag_bw] the copy kernel was never launched")
+    return dict(records=records, launches=launches)
+
+
 def main() -> None:
     import torch
 
@@ -1758,6 +2016,12 @@ def main() -> None:
     # the probes and the prebuilt-Q_wide entry run in the sweep only
     for kname, launched in sweep_res["launches"].items():
         results[kname]["launches"] = launched
+    unpack_res = phase_unpack(torch, timer, 20, p, smi_line)
+    # the unpack probes run in the microbenchmark only, the copy kernel in diag_bw
+    for kname, launched in unpack_res["launches"].items():
+        results[kname]["launches"] = launched
+    diag_res = phase_diag_bw(torch)
+    results["diag_copy"]["launches"] = diag_res["launches"]
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -1783,7 +2047,19 @@ def main() -> None:
                                   "scripts/sweep_attention.py:137,159 (dma_wide.kern; calls "
                                   ":142, :164)"),
                "probe_dot_only": ("tpuserve_torch/csrc/attention_probes.cu",
-                                  "scripts/sweep_attention.py:193 (dot_only.kern; call :218)")}
+                                  "scripts/sweep_attention.py:193 (dot_only.kern; call :218)"),
+               "unpack_stream_raw": ("tpuserve_torch/csrc/unpack_probes.cu",
+                                     "scripts/unpack_microbench.py:52 (_k_stream_raw; call :153)"),
+               "unpack_dot_raw": ("tpuserve_torch/csrc/unpack_probes.cu",
+                                  "scripts/unpack_microbench.py:62 (_k_dot_raw; call :153)"),
+               "unpack_cur": ("tpuserve_torch/csrc/unpack_probes.cu",
+                              "scripts/unpack_microbench.py:75 (_k_unpack_cur; call :153)"),
+               "unpack_hi": ("tpuserve_torch/csrc/unpack_probes.cu",
+                             "scripts/unpack_microbench.py:95 (_k_unpack_hi; call :153)"),
+               "unpack_i8": ("tpuserve_torch/csrc/unpack_probes.cu",
+                             "scripts/unpack_microbench.py:119 (_k_unpack_i8; call :153)"),
+               "diag_copy": ("tpuserve_torch/csrc/attention_probes.cu",
+                             "scripts/diag_bw.py:78 (copy_kernel; calls :137, :165, :201)")}
     line = []
     for kname in sources:
         r = results[kname]
@@ -1797,7 +2073,8 @@ def main() -> None:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
                    "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
-                   "grouped": grouped_res, "sweep": sweep_res,
+                   "grouped": grouped_res, "sweep": sweep_res, "unpack": unpack_res,
+                   "diag_bw": diag_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)

@@ -405,3 +405,141 @@ def test_vector_add(cuda):
         a, b = torch.randn(n, device=cuda), torch.randn(n, device=cuda)
         assert torch.equal(smoke.vector_add(a, b), a + b)
     assert smoke.run_smoke_test(device="cuda")
+
+
+@pytest.mark.parametrize("m,w2,n,blr,grid", [
+    (32, 2048, 4096, 256, None),   # the microbenchmark's widths, 8 MB
+    (16, 256, 640, 128, None),     # fewer groups than SMs
+    (32, 2048, 38400, 128, 1),     # one block: each warp sums 150 groups, flushing every 64
+    (16, 12800, 3200, 128, 1),     # the widest q shared memory takes: flushing every 10 groups
+])
+def test_unpack_probes(cuda, monkeypatch, m, w2, n, blr, grid):
+    """The five unpack-probe variants against their plain versions, exactly
+    (int32 sums flushed into 64-bit integer atomics), with full-range int8
+    inputs; the three unpack variants equal one another. `grid` stands in
+    for the card's SM count, the launch's number of blocks."""
+    from tpuserve_torch import kernels
+    from tpuserve_torch.ops import unpack_probes as up
+
+    if grid is not None:
+        monkeypatch.setattr(kernels, "sm_count", lambda device: grid)
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-128, 128, (n, w2), generator=g, dtype=torch.int8).to(cuda)
+    q = torch.randint(-128, 128, (m, w2), generator=g, dtype=torch.int8).to(cuda)
+    outs = {}
+    for name in up.VARIANTS:
+        before = up.launches[name]
+        out = up.PROBES[name](x, q, 7, blr)
+        ref = up.unpack_probe_plain(name, x, q, 7, blr)
+        torch.cuda.synchronize()
+        assert up.launches[name] == before + 1
+        assert out.dtype == torch.int64 and torch.equal(out, ref), name
+        outs[name] = out
+    assert torch.equal(outs["unpack_cur"], outs["unpack_hi"])
+    assert torch.equal(outs["unpack_cur"], outs["unpack_i8"])
+
+
+def test_unpack_probes_refuse(cuda):
+    from tpuserve_torch.ops import unpack_probes as up
+
+    x = torch.zeros((256, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="query rows"):
+        up.dot_raw(x, torch.zeros((8, 256), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        up.unpack_cur(x[:, :96].contiguous(), torch.zeros((16, 96), dtype=torch.int8,
+                                                          device=cuda), blr=128)
+    with pytest.raises(ValueError, match="W2"):
+        up.unpack_i8(torch.zeros((128, 16384), dtype=torch.int8, device=cuda),
+                     torch.zeros((16, 16384), dtype=torch.int8, device=cuda), blr=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        up.unpack_hi(x[:, ::2], torch.zeros((16, 128), dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.parametrize("s,l,hkv,hd,g,block_l", [
+    (64, 256, 32, 128, 16, 256),   # diag_bw's defaults
+    (4, 64, 4, 48, 2, 16),         # 3 column groups a row: 255 of 256 threads load
+    (3, 32, 2, 208, 1, 8),         # 13 column groups
+    (2, 96, 8, 16, 4, 32),
+    (5, 128, 6, 256, 3, 64),
+])
+def test_diag_copy(cuda, s, l, hkv, hd, g, block_l):
+    """diag_copy's three forms against their plain versions, exactly
+    (integer atomics); pdyn over mixed positions."""
+    from tpuserve_torch.ops import attention_probes as probes
+
+    gen = torch.Generator().manual_seed(hd)
+    k, v = (torch.randint(-128, 128, (s, l, hkv, hd), generator=gen, dtype=torch.int8).to(cuda)
+            for _ in range(2))
+    pos = torch.randint(-1, l, (s,), generator=gen, dtype=torch.int32)
+    pos[0] = -1
+    pos[-1] = 0
+    pos = pos.to(cuda)
+    for mode in probes.COPY_MODES:
+        p = pos if mode == "pdyn" else None
+        before = probes.diag_copy_launches
+        out = probes.diag_copy(k, v, mode, block_l, g, p)
+        ref = probes.diag_copy_plain(k, v, mode, block_l, g, p)
+        torch.cuda.synchronize()
+        assert probes.diag_copy_launches == before + 1
+        assert out.dtype == torch.int32 and torch.equal(out, ref), mode
+
+
+def test_diag_copy_refuses(cuda):
+    from tpuserve_torch.ops import attention_probes as probes
+
+    k = torch.zeros((2, 16, 2, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="hd=24"):
+        probes.diag_copy(k, k, "pcopy", 8)
+    k = torch.zeros((2, 16, 2, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int32 positions"):
+        probes.diag_copy(k, k, "pdyn", 8, positions=torch.zeros(2, dtype=torch.int64,
+                                                                device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.diag_copy(k.transpose(0, 1).contiguous().transpose(0, 1), k, "pcopy", 8)
+
+
+@pytest.fixture()
+def noop(monkeypatch):
+    monkeypatch.setenv("TPUSERVE_INT4_UNPACK", "noop")
+
+
+def test_int4_noop_kernels(cuda, noop, monkeypatch):
+    """TPUSERVE_INT4_UNPACK=noop: the flat, paged and multi kernels' NOOP
+    instances against their plain versions under noop (the decode-attention
+    tolerance), differing from the default instances; unset again, the
+    default instances give what they gave before."""
+    s, h, hkv, l, layer = 8, 32, 32, 256, 1
+    k, v, ks, vs = _cache("int4", s, hkv, l, 2, cuda, scale_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(9)
+    q = (torch.randn((s, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    q4 = (torch.randn((s, 3, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    pos = torch.randint(0, l - 3, (s,), generator=g, dtype=torch.int32)
+    pos[1] = -1
+    pos = pos.to(cuda)
+    pk, pv, pks, pvs = _pools("int4", s, hkv, 128, 2 * s + 1, 2, cuda)
+    table = (1 + torch.randperm(2 * s, generator=g)).view(s, 2).to(torch.int32).to(cuda)
+    calls = {
+        "flat": (lambda: da.decode_attention_wide_cache(q, k, v, ks, vs, pos, layer),
+                 lambda: da.decode_attention_wide_cache_plain(q, k, v, ks, vs, pos, layer)),
+        "paged": (lambda: da.decode_attention_wide_paged(q, pk, pv, pks, pvs, table, pos, layer),
+                  lambda: da.decode_attention_wide_paged_plain(q, pk, pv, pks, pvs, table, pos,
+                                                               layer)),
+        "multi": (lambda: da.decode_attention_wide_cache_multi(q4, k, v, ks, vs, pos, layer),
+                  lambda: da.decode_attention_wide_cache_multi_plain(q4, k, v, ks, vs, pos,
+                                                                     layer)),
+    }
+    live = pos >= 0
+    noop_out = {}
+    for name, (kern, plain) in calls.items():
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref)[live].abs().max().item()
+        assert err <= 2e-3 * ref[live].abs().max().item() + 1e-6, (name, err)
+        noop_out[name] = out
+    monkeypatch.delenv("TPUSERVE_INT4_UNPACK")
+    for name, (kern, plain) in calls.items():
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref)[live].abs().max().item()
+        assert err <= 2e-3 * ref[live].abs().max().item() + 1e-6, (name, err)
+        assert (out - noop_out[name])[live].abs().max().item() > 1e-3 * out.abs().max().item()

@@ -20,6 +20,9 @@ constexpr int ROWS = 4;  // rows a warp loads before it computes on them
 constexpr float NEG_INF = -1e30f;
 
 enum Kind { KV_INT8 = 0, KV_INT4 = 1, KV_BF16 = 2, KV_F32 = 3 };
+// packed int4 under TPUSERVE_INT4_UNPACK=noop: a launch code, run by the
+// KV_INT4 instances with their NOOP flag set
+constexpr int KV_INT4_NOOP = 4;
 
 __device__ __forceinline__ float load_scale(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])

@@ -34,6 +34,20 @@
 // tile (columns g*4 + 32*k + e, so that the 8 column groups of a warp read
 // 128 consecutive bytes). Blocks add their partial sums to the output with
 // float atomics.
+//
+// colsum_strided: replaces scripts/diag_bw.py::copy_kernel (:78), in the
+// three forms its modes call (pcopy :137, pcopy4d :165, pdyn :201; the
+// make_pallas calls :92 and :99 are reached by no mode). A block sums `rows`
+// runs of run_bytes at a stride of row_stride bytes into int32 column sums
+// [hd], hd any multiple of 16 up to 256 (copy_kernel's reshape(-1, hd)),
+// over K and V alike, and adds them to the output with atomics; the TPU
+// kernel writes each block's sums over the last one's. With positions, the
+// blocks x past max(positions[slot], 0) / live_div read nothing (pdyn's
+// clamped index map: the TPU re-reads the live block, which its pipeline
+// skips). Bound: bytes. The loads and the 16-bit lane sums are colsum's;
+// a thread keeps one 16-column group (a multiple of hd / 16 threads load,
+// the rest idle), walking the block's flattened 16-byte units with its row
+// and offset advanced by constant steps, not divided out per load.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -214,7 +228,112 @@ __global__ void __launch_bounds__(PT) dot_only_kernel(const int8_t* qi, const in
   }
 }
 
+constexpr int MAX_HD = 256;  // widest row segment colsum_strided takes
+
+struct StridedArgs {
+  long long slot_stride, group_stride, block_stride, row_stride;  // bytes
+  int rows, run_bytes, hd, live_div;
+  const int* pos;  // [slots] or null
+};
+
+__global__ void __launch_bounds__(PT) colsum_strided_kernel(const int8_t* k, const int8_t* v,
+                                                            int* out, StridedArgs a) {
+  __shared__ int col[MAX_HD];
+  const int jb = blockIdx.x, slot = blockIdx.z;
+  if (a.pos != nullptr && jb > max(a.pos[slot], 0) / a.live_div) return;  // the whole block
+  const int tid = threadIdx.x;
+  for (int c = tid; c < a.hd; c += PT) col[c] = 0;
+  const int ncg = a.hd / 16;              // 16-column groups of a row segment
+  const int active = (PT / ncg) * ncg;    // loading threads: unit U has group U % ncg
+  const long long upr = a.run_bytes / 16; // 16-byte units of a run
+  const long long total = upr * a.rows;
+  const long long dr = active / upr, du = active % upr;  // (row, unit) step of `active` units
+  const size_t base = (size_t)slot * a.slot_stride + (size_t)blockIdx.y * a.group_stride +
+                      (size_t)jb * a.block_stride;
+  int sums[16] = {};
+  uint32_t lo[4] = {}, hi[4] = {};
+  int loads = 0, since = 0;
+  if (tid < active) {
+    for (int t = 0; t < 2; ++t) {
+      const int8_t* p = (t ? v : k) + base;
+      long long row = tid / upr, u = tid % upr;
+      for (long long U = tid; U < total; U += (long long)active * UNROLL) {
+        uint4 w[UNROLL];
+        int n = 0;
+#pragma unroll
+        for (int r = 0; r < UNROLL; ++r) {
+          if (U + (long long)r * active < total) {
+            w[r] = *reinterpret_cast<const uint4*>(p + row * a.row_stride + u * 16);
+            n = r + 1;
+          }
+          row += dr;
+          u += du;
+          if (u >= upr) {
+            u -= upr;
+            ++row;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < UNROLL; ++r)
+          if (r < n) {
+            add_biased(w[r], lo, hi);
+            ++loads;
+            ++since;
+          }
+        if (since >= FLUSH - UNROLL) {
+          flush(lo, hi, sums);
+          since = 0;
+        }
+      }
+    }
+  }
+  flush(lo, hi, sums);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) sums[e] -= 128 * loads;
+  const int lane = tid & 31;
+  const bool pow2 = (32 % ncg) == 0;  // every lane loads; lanes l, l + ncg, ... share columns
+  if (pow2) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      for (int o = ncg; o < 32; o <<= 1) sums[e] += __shfl_xor_sync(0xffffffffu, sums[e], o);
+  }
+  __syncthreads();  // col is zeroed
+  if (tid < active && (!pow2 || lane < ncg)) {
+    const int cg = tid % ncg;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) atomicAdd(&col[cg * 16 + e], sums[e]);
+  }
+  __syncthreads();
+  for (int c = tid; c < a.hd; c += PT) atomicAdd(&out[c], col[c]);
+}
+
 }  // namespace
+
+// Column sums [hd] int32 (out, zeroed by the caller) over k and v: block
+// (x, y, z) of the grid (blocks_x, groups, slots) sums `rows` runs of
+// run_bytes, row_stride apart, from z * slot_stride + y * group_stride +
+// x * block_stride; with pos ([slots] int32), blocks x > max(pos[z], 0) /
+// live_div read nothing. hd is a multiple of 16 up to 256 and divides
+// run_bytes; the offsets are multiples of 16. Returns a cudaError_t code.
+extern "C" int tpuserve_probe_colsum_strided(const void* k, const void* v, void* out,
+                                             const int* pos, long long slot_stride,
+                                             long long group_stride, long long block_stride,
+                                             long long row_stride, int rows, int run_bytes,
+                                             int hd, int live_div, int blocks_x, int groups,
+                                             int slots, void* stream) {
+  if (blocks_x <= 0 || groups <= 0 || slots <= 0 || rows <= 0) return 0;
+  if (hd <= 0 || hd % 16 || hd > MAX_HD || run_bytes <= 0 || run_bytes % hd ||
+      (slot_stride | group_stride | block_stride | row_stride) % 16 ||
+      (pos != nullptr && live_div <= 0))
+    return (int)cudaErrorInvalidValue;
+  StridedArgs a;
+  a.slot_stride = slot_stride; a.group_stride = group_stride; a.block_stride = block_stride;
+  a.row_stride = row_stride; a.rows = rows; a.run_bytes = run_bytes; a.hd = hd;
+  a.live_div = live_div; a.pos = pos;
+  colsum_strided_kernel<<<dim3(blocks_x, groups, slots), PT, 0, (cudaStream_t)stream>>>(
+      static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), (int*)out, a);
+  return (int)cudaGetLastError();
+}
 
 // Column sums [128] int32 (out, zeroed by the caller) over k and v: chunks
 // of chunk_bytes (a multiple of 128 * 16); by_slot: grid (chunks_x, slots)

@@ -34,6 +34,13 @@
 //   - out = acc / max(l, 1e-20) where l > 0, else 0 (inactive slots).
 // bf16/f32 caches use plain f32 dots, P rounded to bf16 for a bf16 cache.
 //
+// NOOP (packed int4 only; TPUSERVE_INT4_UNPACK=noop, ops/decode_attention.py):
+// the raw packed bytes, as signed int8, stand for both nibble halves of K
+// and of V, with the -8*sum(q) and -8 folds kept, as the JAX package's
+// _unpack_nibbles does in that mode. Numerically wrong on purpose: an A/B
+// against the default instances times the nibble unpack in place. The
+// default instances (NOOP = false) compile as before.
+//
 // Bound on the H100: bytes. Each cached K/V byte of a live position is
 // used for 2*rep operations. Design: one block of 4 warps per (kv unit,
 // slot). A kv unit is one kv head, or for packed int4 the head pair
@@ -68,7 +75,7 @@ struct AttnArgs {
   int tstride, n_pages, hp;
 };
 
-template <int KIND, int NQ, bool PAGED>
+template <int KIND, int NQ, bool PAGED, bool NOOP = false>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   constexpr bool INTK = (KIND == KV_INT8 || KIND == KV_INT4);
   extern __shared__ __align__(16) unsigned char dsm[];
@@ -206,7 +213,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
 #pragma unroll
           for (int j = 0; j < NQ; ++j) {
             if (KIND == KV_INT4) {
-              const int nib = (int)((j < rep) ? (kw[r] & 0x0F0F0F0Fu) : ((kw[r] >> 4) & 0x0F0F0F0Fu));
+              const int nib = NOOP ? (int)kw[r]
+                                   : (int)((j < rep) ? (kw[r] & 0x0F0F0F0Fu)
+                                                     : ((kw[r] >> 4) & 0x0F0F0F0Fu));
               d[j] = __dp4a(qw[j], nib, 0) - 8 * qsum[j];
             } else {
               d[j] = __dp4a(qw[j], (int)kw[r], 0);
@@ -305,7 +314,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
               const uint32_t byte = (vw >> (8 * c)) & 0xFFu;
               int val;
               if (KIND == KV_INT4)
-                val = (int)((j < rep) ? (byte & 0xFu) : (byte >> 4)) - 8;
+                val = (NOOP ? (int)(int8_t)byte
+                            : (int)((j < rep) ? (byte & 0xFu) : (byte >> 4))) - 8;
               else
                 val = (int)(int8_t)byte;
               pa[j][c] += p * val;
@@ -376,30 +386,30 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   }
 }
 
-template <int KIND, int NQ, bool PAGED>
+template <int KIND, int NQ, bool PAGED, bool NOOP>
 int launch(const AttnArgs& a, size_t smem, cudaStream_t st) {
   // static + dynamic shared memory above 48 KB needs an opt-in per kernel;
   // raise the opt-in whenever a larger window asks for more
   static size_t opted_in = 0;
   if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ, PAGED>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ, PAGED, NOOP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   const int units = (KIND == KV_INT4) ? a.Hkv / 2 : a.Hkv;
   dim3 grid(units, a.S);
-  decode_attn_kernel<KIND, NQ, PAGED><<<grid, THREADS, smem, st>>>(a);
+  decode_attn_kernel<KIND, NQ, PAGED, NOOP><<<grid, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int KIND, bool PAGED>
+template <int KIND, bool PAGED, bool NOOP = false>
 int launch_nq(const AttnArgs& a, int nq, size_t smem, cudaStream_t st) {
   switch (nq) {
-    case 1: return launch<KIND, 1, PAGED>(a, smem, st);
-    case 2: return launch<KIND, 2, PAGED>(a, smem, st);
-    case 4: return launch<KIND, 4, PAGED>(a, smem, st);
-    case 8: return launch<KIND, 8, PAGED>(a, smem, st);
+    case 1: return launch<KIND, 1, PAGED, NOOP>(a, smem, st);
+    case 2: return launch<KIND, 2, PAGED, NOOP>(a, smem, st);
+    case 4: return launch<KIND, 4, PAGED, NOOP>(a, smem, st);
+    case 8: return launch<KIND, 8, PAGED, NOOP>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -413,14 +423,16 @@ int launch_kind(const AttnArgs& a, int kind, int nq, cudaStream_t st) {
     case KV_INT4: return launch_nq<KV_INT4, PAGED>(a, nq, smem, st);
     case KV_BF16: return launch_nq<KV_BF16, PAGED>(a, nq, smem, st);
     case KV_F32: return launch_nq<KV_F32, PAGED>(a, nq, smem, st);
+    case KV_INT4_NOOP: return launch_nq<KV_INT4, PAGED, true>(a, nq, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache. nq: query heads per
-// block (rep, or 2*rep for int4). Returns a cudaError_t code.
+// kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache, 4 packed int4 with
+// the noop unpack (see NOOP). nq: query heads per block (rep, or 2*rep for
+// int4). Returns a cudaError_t code.
 extern "C" int tpuserve_decode_attention(const void* q, const void* k, const void* v,
                                          const void* ks, const void* vs, const int* pos,
                                          void* out, int q_bf16, int sc_bf16, int S, int H,

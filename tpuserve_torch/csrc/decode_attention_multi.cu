@@ -22,6 +22,10 @@
 // l > 0. A block runs while it holds a row <= positions[s] + C - 1; row c
 // masks the rows past positions[s] + c.
 //
+// NOOP (packed int4 only; kind 4): TPUSERVE_INT4_UNPACK=noop as in
+// decode_attention.cu, the raw packed bytes as signed int8 for both nibble
+// halves of K and V, the folds kept; a timing diagnostic, wrong on purpose.
+//
 // Bound on the H100: bytes, as the flat kernel; the point of this kernel is
 // that each live K/V byte is read from device memory once for all C
 // candidates, where C flat calls would read it C times. Design: the flat
@@ -73,7 +77,7 @@ __host__ __device__ inline size_t smem_bytes(int rows, int bl) {
          (size_t)rows * bl * 4 + (size_t)2 * bl * 4 + (size_t)rows * bl;
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, bool NOOP = false>
 __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a) {
   constexpr bool INTK = (KIND == KV_INT8 || KIND == KV_INT4);
   constexpr int HALF = NQ / 2;  // int4: members < HALF read low nibbles
@@ -196,7 +200,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
               for (int e = 0; e < 4; ++e) {
                 const uint32_t w = kw[4 * t + e];
                 if (KIND == KV_INT4)
-                  d = __dp4a(qs[e], (int)((j < HALF) ? (w & 0x0F0F0F0Fu) : ((w >> 4) & 0x0F0F0F0Fu)), d);
+                  d = __dp4a(qs[e],
+                             NOOP ? (int)w
+                                  : (int)((j < HALF) ? (w & 0x0F0F0F0Fu) : ((w >> 4) & 0x0F0F0F0Fu)),
+                             d);
                 else
                   d = __dp4a(qs[e], (int)w, d);
               }
@@ -311,7 +318,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
                   const uint32_t byte = (vw >> (8 * e)) & 0xFFu;
                   int val;
                   if (KIND == KV_INT4)
-                    val = (int)(((jj % NQ) < HALF) ? (byte & 0xFu) : (byte >> 4)) - 8;
+                    val = (NOOP ? (int)(int8_t)byte
+                                : (int)(((jj % NQ) < HALF) ? (byte & 0xFu) : (byte >> 4))) - 8;
                   else
                     val = (int)(int8_t)byte;
                   pa[jj][e] += p * val;
@@ -387,39 +395,39 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
   }
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, bool NOOP>
 int launch(const MultiArgs& a, size_t smem, cudaStream_t st) {
   // dynamic shared memory above 48 KB needs an opt-in per kernel; raise it
   // whenever a call asks for more
   static size_t opted_in = 0;
   if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_multi_kernel<KIND, NQ>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attn_multi_kernel<KIND, NQ, NOOP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   const int units = (KIND == KV_INT4) ? a.Hkv / 2 : a.Hkv;
   dim3 grid(units, a.S);
-  decode_attn_multi_kernel<KIND, NQ><<<grid, THREADS, smem, st>>>(a);
+  decode_attn_multi_kernel<KIND, NQ, NOOP><<<grid, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int KIND>
+template <int KIND, bool NOOP = false>
 int launch_nq(const MultiArgs& a, int nq, size_t smem, cudaStream_t st) {
   switch (nq) {
-    case 1: return launch<KIND, 1>(a, smem, st);
-    case 2: return launch<KIND, 2>(a, smem, st);
-    case 4: return launch<KIND, 4>(a, smem, st);
-    case 8: return launch<KIND, 8>(a, smem, st);
+    case 1: return launch<KIND, 1, NOOP>(a, smem, st);
+    case 2: return launch<KIND, 2, NOOP>(a, smem, st);
+    case 4: return launch<KIND, 4, NOOP>(a, smem, st);
+    case 8: return launch<KIND, 8, NOOP>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache. nq: query heads per
-// block (rep, or 2*rep for int4); C candidates, C * nq <= 128. Returns a
-// cudaError_t code.
+// kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache, 4 packed int4 with the
+// noop unpack. nq: query heads per block (rep, or 2*rep for int4); C
+// candidates, C * nq <= 128. Returns a cudaError_t code.
 extern "C" int tpuserve_decode_attention_multi(const void* q, const void* k, const void* v,
                                                const void* ks, const void* vs, const int* pos,
                                                void* out, int q_bf16, int sc_bf16, int S, int C,
@@ -440,6 +448,7 @@ extern "C" int tpuserve_decode_attention_multi(const void* q, const void* k, con
     case KV_INT4: return launch_nq<KV_INT4>(a, nq, smem, st);
     case KV_BF16: return launch_nq<KV_BF16>(a, nq, smem, st);
     case KV_F32: return launch_nq<KV_F32>(a, nq, smem, st);
+    case KV_INT4_NOOP: return launch_nq<KV_INT4, true>(a, nq, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,7 +28,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
-           "decode_attention_multi.cu", "decode_attention_grouped.cu", "attention_probes.cu")
+           "decode_attention_multi.cu", "decode_attention_grouped.cu", "attention_probes.cu",
+           "unpack_probes.cu")
 HEADERS = ("common.cuh", "attention_common.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "tpuserve_decode_attention_grouped": [_P] * 7 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P],
     "tpuserve_probe_colsum": [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     "tpuserve_probe_dot_only": [_P] * 4 + [_I] * 4 + [_P],
+    "tpuserve_probe_colsum_strided": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P],
+    "tpuserve_unpack_probe": [_P] * 3 + [_LL] + [_I] * 3 + [_LL, _I, _P],
 }
 
 

@@ -16,6 +16,20 @@ attention's access patterns and computes a function of every byte it reads
   bf16(1e-6 * (qi[s, m] . k[s, r])) * bf16(v[s, r]), f32 accumulation: the
   attention's two dots over all L*Hkv rows, no softmax, no head matching.
 
+`diag_copy` (scripts/diag_bw.py::copy_kernel, port of its modes pcopy,
+pcopy4d and pdyn; run by tpuserve_torch.scripts.diag_bw) streams int8 K/V
+[S, L, Hkv, hd], hd any multiple of 16 up to 256, in blocks of `block_l`
+positions, and returns int32 column sums [hd] over every row segment it
+reads (the TPU kernel returns the last block's):
+
+- `pcopy`: contiguous blocks of block_l x Hkv rows of the [S, L*Hkv, hd]
+  view, grid (L/block_l, S);
+- `pcopy4d`: strided blocks (block_l, g, hd) of [S, L, Hkv, hd], runs of
+  g*hd bytes at a stride of Hkv*hd, grid (L/block_l, Hkv/g, S);
+- `pdyn`: pcopy, but block j of a slot reads nothing past its live block
+  max(positions[s], 0) // block_l (the TPU clamps the block index there,
+  and its pipeline skips the repeated fetch).
+
 For CUDA tensors each wrapper launches its kernel in csrc/attention_probes.cu
 (see the note there); for CPU tensors it runs the plain version.
 """
@@ -27,10 +41,13 @@ import torch
 dma_bound_launches = 0
 dma_wide_launches = 0
 dot_only_launches = 0
+diag_copy_launches = 0
 
 _HD = 128
 _POSITIONS = 64    # positions of a dma_bound / dot_only block (the TPU probes')
 _WIDE_ROWS = 16    # rows of a dma_wide block: 64 KB of K and of V at Hkv = 32
+_MAX_HD = 256      # widest row segment diag_copy takes
+COPY_MODES = ("pcopy", "pcopy4d", "pdyn")
 
 
 def _check_cache(k, v):
@@ -150,3 +167,79 @@ def dot_only(qi, k, v) -> torch.Tensor:
     kernels.check(rc, "probe_dot_only")
     dot_only_launches += 1
     return out
+
+
+# ---------------------------------------------------------------- diag_bw
+def _check_copy(k, v, mode: str, block_l: int, g: int, positions):
+    if mode not in COPY_MODES:
+        raise ValueError(f"diag_copy: unknown mode {mode!r}; known: {', '.join(COPY_MODES)}")
+    if k.dim() != 4 or k.shape != v.shape or k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError("diag_copy takes int8 k and v [S, L, Hkv, hd] of one shape")
+    s_dim, l_max, n_kv, hd = k.shape
+    if hd <= 0 or hd % 16 or hd > _MAX_HD:
+        raise ValueError(f"diag_copy: hd={hd} must be a multiple of 16 up to {_MAX_HD}")
+    if block_l <= 0 or l_max % block_l:
+        raise ValueError(f"diag_copy: block_l={block_l} does not divide L={l_max}")
+    if mode == "pcopy4d" and (g <= 0 or n_kv % g):
+        raise ValueError(f"diag_copy: g={g} does not divide Hkv={n_kv}")
+    if mode == "pdyn" and (positions is None or positions.shape != (s_dim,)):
+        raise ValueError("diag_copy: pdyn takes positions [S]")
+
+
+def diag_copy_plain(k, v, mode: str, block_l: int, g: int = 1, positions=None) -> torch.Tensor:
+    """What diag_copy computes, in plain PyTorch: int32 column sums [hd] of
+    every row segment of k and v that the mode reads (pdyn: the blocks of
+    each slot up to its live one)."""
+    _check_copy(k, v, mode, block_l, g, positions)
+    s_dim, l_max, _, hd = k.shape
+    if mode != "pdyn":
+        return (k.reshape(-1, hd).sum(dim=0, dtype=torch.int32)
+                + v.reshape(-1, hd).sum(dim=0, dtype=torch.int32))
+    live = torch.div(positions.to(k.device).long().clamp_min(0), block_l, rounding_mode="floor")
+    read = (torch.arange(l_max, device=k.device) // block_l)[None, :] <= live[:, None]  # [S, L]
+    keep = read[:, :, None, None]
+    return (torch.where(keep, k, 0).sum(dim=(0, 1, 2), dtype=torch.int32)
+            + torch.where(keep, v, 0).sum(dim=(0, 1, 2), dtype=torch.int32))
+
+
+def diag_copy(k, v, mode: str, block_l: int, g: int = 1, positions=None) -> torch.Tensor:
+    """copy_kernel of scripts/diag_bw.py in the form of `mode` (see the
+    module's note): int32 column sums [hd] over k/v [S, L, Hkv, hd] int8,
+    blocks of `block_l` positions, `g` kv heads a block (pcopy4d), slots
+    limited by `positions` [S] int32 (pdyn)."""
+    global diag_copy_launches
+    _check_copy(k, v, mode, block_l, g, positions)
+    if not k.is_cuda:
+        return diag_copy_plain(k, v, mode, block_l, g, positions)
+    from tpuserve_torch import kernels
+
+    _, l_max, n_kv, hd = k.shape
+    if not (k.is_contiguous() and v.is_contiguous()) or k.device != v.device:
+        raise ValueError("diag_copy: k and v must be contiguous on one device")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("diag_copy: k and v must be 16-byte aligned")
+    pos = 0
+    if mode == "pdyn":
+        if positions.device != k.device or positions.dtype != torch.int32:
+            raise ValueError("diag_copy: pdyn takes int32 positions on the card")
+        positions = positions.contiguous()
+        pos = positions.data_ptr()
+    row = n_kv * hd                       # bytes of a position
+    if mode == "pcopy4d":                 # (block_l, g, hd) blocks: g*hd bytes a row
+        run, group_stride = g * hd, g * hd
+    else:                                 # (block_l*Hkv, hd) blocks: contiguous
+        run, group_stride = row, 0
+    out = torch.zeros(hd, dtype=torch.int32, device=k.device)
+    rc = kernels.lib().tpuserve_probe_colsum_strided(
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), pos, l_max * row, group_stride,
+        block_l * row, row, block_l, run, hd, block_l,
+        *diag_copy_grid(k.shape, mode, block_l, g), kernels.stream_of(k))
+    kernels.check(rc, f"diag_copy {mode}")
+    diag_copy_launches += 1
+    return out
+
+
+def diag_copy_grid(k_shape, mode: str, block_l: int, g: int = 1):
+    """The kernel's grid for a cache of `k_shape` [S, L, Hkv, hd]."""
+    s_dim, l_max, n_kv, _ = k_shape
+    return (l_max // block_l, n_kv // g if mode == "pcopy4d" else 1, s_dim)

@@ -40,6 +40,13 @@ csrc/decode_attention_multi.cu.
 `_wide_kernel` with a prebuilt Q_wide) is the flat kernel's function over
 a contiguous [S, L, Hkv, hd] cache: a one-layer view, never packed.
 
+TPUSERVE_INT4_UNPACK (read per call, as the JAX package's `_unpack_nibbles`
+reads it when it traces): "noop" makes the flat, paged and multi-candidate
+entries, kernels and plain versions, feed the raw packed bytes as signed
+int8 to both nibble halves of K and V, keeping the -8*sum(q) and -8 folds.
+Numerically wrong on purpose: timed against the default ("cur") it gives
+the nibble unpack's share of the kernel's time in place.
+
 `decode_attention` (the JAX package's entry of the same name, the grouped
 `_kernel` behind TPUSERVE_DECODE_ATTN=grouped) takes k/v [S, L, Hkv, hd]
 and [S, L, Hkv] scales and computes other numerics: no P requant, P times
@@ -67,6 +74,13 @@ _HD = 128          # head_dim the CUDA kernel is written for
 _KERNEL_NQ = (1, 2, 4, 8)
 _BLOCK_L = 128     # L rows per online-softmax block (the TPU kernel's default)
 _GROUPED_MAX_BL = 2048   # the grouped kernel's scores [nq, block_l] f32 in shared memory
+_UNPACK_ENV = "TPUSERVE_INT4_UNPACK"
+
+
+def int4_unpack_noop() -> bool:
+    """Whether TPUSERVE_INT4_UNPACK is "noop" (anything else, and unset,
+    is the JAX package's default "cur": unpack the nibbles)."""
+    return os.environ.get(_UNPACK_ENV, "cur") == "noop"
 
 
 def _quantize_q(q: torch.Tensor):
@@ -145,9 +159,13 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
     rows = torch.arange(m_dim, device=dev)
     kv_head = (rows % n_heads) // rep            # query row -> kv head
     horizon = (pos.view(s_dim, 1) + (rows // n_heads).view(1, m_dim)).view(s_dim, m_dim, 1)
+    noop = g["kv_bits"] == 4 and int4_unpack_noop()
 
     def heads(block):  # [S, bl, Wst] -> [S, Hkv, bl, hd] (codes or values)
-        if g["kv_bits"] == 4:
+        if noop:   # the raw bytes, signed, for both halves
+            b = block.view(torch.int8)
+            block = torch.cat([b, b], dim=-1)
+        elif g["kv_bits"] == 4:
             p32 = block.to(torch.int32)
             block = torch.cat([p32 & 15, p32 >> 4], dim=-1)  # biased nibbles
         return block.reshape(s_dim, bl, n_kv, hd).permute(0, 2, 1, 3)
@@ -194,11 +212,12 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
 
 def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
     """The kernel's (kind, query heads per block) for a cache dtype; raises
-    on what the CUDA kernel does not take."""
+    on what the CUDA kernel does not take. Packed int4 is kind 1, or 4
+    under TPUSERVE_INT4_UNPACK=noop."""
     if hd != _HD:
         raise ValueError(f"decode attention kernel: head_dim must be {_HD}, got {hd}")
     if kv_bits == 4:
-        kind, nq = 1, 2 * rep
+        kind, nq = (4 if int4_unpack_noop() else 1), 2 * rep
         if n_kv % 2:
             raise ValueError("decode attention kernel: packed int4 needs an even n_kv_heads")
     elif k_dtype == torch.int8:
@@ -657,7 +676,7 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
         raise ValueError(f"paged decode attention: {n_heads} heads over W={w}")
     kind, nq = _kernel_kind(k_pool.dtype, kv_bits, n_kv, n_heads // n_kv, hd)
     quantized = k_scale_pool is not None
-    if quantized != (kind in (0, 1)) or quantized != (v_scale_pool is not None):
+    if quantized != (kind in (0, 1, 4)) or quantized != (v_scale_pool is not None):
         raise ValueError("paged decode attention: int8/int4 pools take scale pools, "
                          "float pools none")
     if kv_bits == 4 and (w // 2) % 128:

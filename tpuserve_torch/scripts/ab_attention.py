@@ -3,11 +3,12 @@ in turns (A, B, B, A), so that a change to a kernel is compared within one
 machine and one power state.
 
 Each turn runs in its own process from the checkout's root, builds that
-checkout's kernels and calls its chip_smoke.py's kernel checks for the flat
-and the multi-candidate decode attention, which time every case with CUDA
-events around a CUDA graph, inputs rotated past the L2. The script prints
-one line per case with the two checkouts' times (mean of their turns) and
-their ratio, and writes every turn to chiprun_out/ab_attention.json.
+checkout's kernels and calls its chip_smoke.py's kernel checks for the
+flat, the paged and the multi-candidate decode attention, which time every
+case with CUDA events around a CUDA graph, inputs rotated past the L2. The
+script prints one line per case with the two checkouts' times (mean of
+their turns) and their ratio, and writes every turn to
+chiprun_out/ab_attention.json.
 
     python -m tpuserve_torch.scripts.ab_attention PARENT_DIR CHANGE_DIR
 """
@@ -29,7 +30,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 p = LlamaParams.llama2_7b()
 timer = cs.Timer(torch)
 rows = {}
-for name, check in (("flat", cs.check_decode_attention), ("multi", cs.check_decode_attention_multi)):
+for name, check in (("flat", cs.check_decode_attention), ("paged", cs.check_decode_attention_paged),
+                    ("multi", cs.check_decode_attention_multi)):
     res = check(torch, timer, 20, p)
     for c in res["cases"]:
         key = " ".join(f"{k}={c[k]}" for k in ("kind", "S", "H", "Hkv", "L", "C", "window",

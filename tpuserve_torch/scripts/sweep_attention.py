@@ -116,13 +116,13 @@ def _variant(name: str, dims, q, k, v, ks, vs, positions) -> Callable[[], torch.
     raise ValueError(f"unknown sweep variant {name!r}; known: {', '.join(VARIANTS)}")
 
 
-def time_per_call(fn: Callable[[], torch.Tensor], iters: int, device) -> float:
-    """Seconds per call: the best of 3 runs of `iters` calls in a row,
+def time_per_call(fn: Callable[[], torch.Tensor], iters: int, device, runs: int = 3) -> float:
+    """Seconds per call: the best of `runs` runs of `iters` calls in a row,
     after one warm-up call. CUDA events on the card, the host clock on the
     CPU."""
     fn()
     best = float("inf")
-    for _ in range(3):
+    for _ in range(runs):
         if device.type == "cuda":
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda.synchronize()
