@@ -51,10 +51,18 @@ Phases, each fatal on failure:
               =noop in turns, noop held against its own plain version;
  11. diag_bw  the HBM bandwidth probes (tpuserve_torch.scripts.diag_bw),
               every mode at its defaults, then the copy forms at smaller
-              blocks.
+              blocks;
+ 12. qmm_sweep  the quant-matmul sweep (tpuserve_torch.scripts.
+              qmatmul_sweep) at its defaults: chained int4/int8 matmuls at
+              the wrapper's split and at each block_k, and the
+              dequantize-then-matmul control.
 The kernel phase also holds the grouped kernel, decode_attention_wide, the
 three probes, the five unpack probes and the three copy forms against their
-plain versions. Then a `kernels` JSON line, the nvidia-smi line, and as the
+plain versions; the quant-matmul at B=64 (a decode step) and B=72 (a
+verify step) with a per-step line each, two calls bitwise equal; and the
+flat, multi and grouped kernels under TPUSERVE_ATTN_DYNSKIP=0 against =1.
+The slice phase also runs one full-width decode step under
+TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 
@@ -199,6 +207,10 @@ def _qt_random(torch, bits, k, n, gs=128, act_bits=0):
 
 
 def check_quant_matmul(torch, timer, reps, p):
+    """Every weight shape of a 7B step against the plain version, at B=64
+    (a decode step) and B=72 (a verify step, S*C = 8*9), with each bf16
+    call repeated for bitwise-equal outputs (split K adds in a fixed
+    order); per-step totals of the kernel, its bound and torch.matmul."""
     from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     from tpuserve_torch.quant.core import dequantize
 
@@ -210,23 +222,26 @@ def check_quant_matmul(torch, timer, reps, p):
         "w_down": ((p.ffn_dim, p.dim), p.n_layers),
         "lm_head": ((p.dim, p.vocab_size), 1),
     }
-    # (name, (K, N), launches per step, bits, act_bits, B, group size)
-    cases = [(name, kn, per, 4, 0, 64, 128) for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 8, 0, 64, 128) for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 4, 8, 64, 128) for name, (kn, per) in shapes.items()]
-    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256, 128)]  # prefill-sized batch
+    # (name, (K, N), launches per step, bits, act_bits, B, group size, step)
+    cases = [(name, kn, per, 4, 0, 64, 128, "decode") for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, per, 4, 0, 72, 128, "verify") for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, 0, 8, 0, 64, 128, None) for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, 0, 4, 8, 64, 128, None) for name, (kn, per) in shapes.items()]
+    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256, 128, None)]  # prefill-sized batch
     # group sizes other than 128 (the kernel reads them at run time)
-    cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32),
-              ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0])]  # per channel
-    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32, None),
+              ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0], None)]  # per channel
+    steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+             for key in ("decode", "verify")}
     worst, rows = 0.0, []
-    for name, (k, n), per_step, bits, act_bits, b, gs in cases:
+    for name, (k, n), per_step, bits, act_bits, b, gs, step_name in cases:
         qt = _qt_random(torch, bits, k, n, gs, act_bits)
         wbytes = qt.nbytes
         copies = max(1, math.ceil(L2_FLUSH_BYTES / wbytes))
         qts = [qt] + [_qt_random(torch, bits, k, n, gs, act_bits) for _ in range(copies - 1)]
         x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
         out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
+        again = quant_matmul(x, qt)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         # both round an f32 sum of the same products to bf16 (W4A8: int32
@@ -234,37 +249,54 @@ def check_quant_matmul(torch, timer, reps, p):
         tol = 2 ** -7 * ref.float().abs().max().item()
         if not err <= tol:
             fail(f"quant_matmul {name} int{bits} act{act_bits} B={b} g{gs}: max|err| {err} > {tol}")
+        if not torch.equal(out, again):
+            fail(f"quant_matmul {name} int{bits} act{act_bits} B={b} g{gs}: two calls differ")
         worst = max(worst, err)
         ms = timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps)
         row = dict(name=name, K=k, N=n, B=b, bits=bits, act_bits=act_bits, group_size=gs,
-                   max_abs_err=err, tol=tol, ms=ms)
+                   max_abs_err=err, tol=tol, ms=ms, step=step_name)
         nbytes = b * k * 2 + wbytes + b * n * 2
         ops = 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, ops, PEAK_OPS["int8" if act_bits == 8 else "bf16"])
-        if per_step:  # the main path's case: also the plain version and the library call
-            row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
-                                       max(2, reps // 5))
+        if step_name:  # a step's case: also the library call (and at B=64 the plain version)
+            if step_name == "decode":
+                row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
+                                           max(2, reps // 5))
             wd = [dequantize(t, torch.bfloat16) for t in qts[:max(1, math.ceil(
                 L2_FLUSH_BYTES / (k * n * 2)))]]
             row["library_ms"] = timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps)
+            step = steps[step_name]
             for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                step[key] += per_step * row[key]
+                step[key] += per_step * row.get(key, 0.0)
             step["bytes"] += per_step * nbytes
             step["ops"] += per_step * ops
             del wd
         rows.append(row)
         log(f"[kernel] quant_matmul {name} K={k} N={n} B={b} int{bits} g{gs}"
-            f"{' W4A8' if act_bits else ''}: max|err| {err:.3g} (tol {tol:.3g}); "
-            f"{ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-            + (f", plain {row['plain_ms']:.4f} ms, torch.matmul bf16 {row['library_ms']:.4f} ms"
-               if per_step else ""))
+            f"{' W4A8' if act_bits else ''}: max|err| {err:.3g} (tol {tol:.3g}), two calls "
+            f"equal; {ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else "")
+            + (f", torch.matmul bf16 {row['library_ms']:.4f} ms" if step_name else ""))
         del qts, qt
         torch.cuda.empty_cache()
-    b_ms, b_by = bound(step["bytes"], step["ops"], PEAK_OPS["bf16"])
-    return dict(max_abs_err=worst, ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=b_ms,
-                bound_by=b_by, library_ms=step["library_ms"],
-                per="one decode step: 129 launches, int4 g128, B=64 bf16", cases=rows)
+    for key, what in (("decode", "decode step (B=64)"), ("verify", "verify step (B=72)")):
+        step = steps[key]
+        step["bound_ms"], step["bound_by"] = bound(step["bytes"], step["ops"], PEAK_OPS["bf16"])
+        log(f"[kernel] quant_matmul per {what}, 129 calls int4 g128: {step['ms']:.3f} ms, "
+            f"bound {step['bound_ms']:.3f} ms ({step['bound_by']}), torch.matmul bf16 "
+            f"{step['library_ms']:.3f} ms ({step['ms'] / step['library_ms']:.2f}x)"
+            + (f", plain {step['plain_ms']:.3f} ms" if key == "decode" else ""))
+    dec, ver = steps["decode"], steps["verify"]
+    log(f"[kernel] quant_matmul verify step / decode step: {ver['ms'] / dec['ms']:.3f}")
+    return dict(max_abs_err=worst, ms=dec["ms"], plain_ms=dec["plain_ms"],
+                bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+                library_ms=dec["library_ms"],
+                per="one decode step: 129 launches, int4 g128, B=64 bf16",
+                verify=dict(ms=ver["ms"], bound_ms=ver["bound_ms"], bound_by=ver["bound_by"],
+                            library_ms=ver["library_ms"],
+                            per="one verify step: 129 launches, int4 g128, B=72 bf16"),
+                cases=rows)
 
 
 def check_decode_attention(torch, timer, reps, p):
@@ -746,6 +778,93 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                 cases=rows)
 
 
+def check_dynskip(torch, timer, reps, p):
+    """TPUSERVE_ATTN_DYNSKIP=0 against =1 on the flat (packed int4 KV, the
+    slice's step positions), multi-candidate (int8, the spec phase's S=8,
+    C=9, L=512) and grouped (int8 window, the grouped phase's shapes)
+    kernels: "0" reads and masks the blocks past a slot's position, "1"
+    skips them; the outputs must agree (masked rows add exact zeros) and
+    both are timed, the KV rotated past the L2."""
+    from tpuserve_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_wide_cache,
+                                                     decode_attention_wide_cache_multi)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
+    w = hkv * hd
+
+    def layers(nbytes):
+        return max(2, math.ceil(L2_FLUSH_BYTES / nbytes))
+
+    def codes(shape, int4):
+        lo, hi = (0, 256) if int4 else (-127, 128)
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32).to(
+            torch.uint8 if int4 else torch.int8)
+
+    s, l = 64, 256
+    pos = step_positions(torch, g, s)
+    nl = layers(2 * s * l * w // 2)
+    kv4 = [codes((nl, s, l, w // 2), True) for _ in range(2)]
+    sc4 = [((torch.rand((nl, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01)
+           .to(torch.bfloat16) for _ in range(2)]
+    q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+
+    def flat(i):
+        li = i % nl
+        return decode_attention_wide_cache(q, kv4[0], kv4[1], sc4[0][li], sc4[1][li], pos, li)
+
+    sm, cm, lm = 8, 9, 512
+    posm = torch.randint(100, 401, (sm,), generator=g, device="cuda", dtype=torch.int32)
+    nlm = layers(2 * sm * lm * w)
+    kvm = [codes((nlm, sm, lm, w), False) for _ in range(2)]
+    scm = [(torch.rand((nlm, sm, hkv, lm), generator=g, device="cuda") + 0.5) * 0.01
+           for _ in range(2)]
+    qm = (torch.randn((sm, cm, h, hd), generator=g, device="cuda") / hd ** 0.5).to(
+        torch.bfloat16)
+
+    def multi(i):
+        li = i % nlm
+        return decode_attention_wide_cache_multi(qm, kvm[0], kvm[1], scm[0][li], scm[1][li],
+                                                 posm, li)
+
+    nlg = layers(2 * s * l * w)
+    kvg = [codes((nlg, s, l, w), False) for _ in range(2)]
+    scg = [(torch.rand((nlg, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+           for _ in range(2)]
+
+    def grouped(i):
+        li = i % nlg
+        k4, v4 = (t[li].view(s, l, hkv, hd) for t in kvg)
+        return decode_attention(q, k4, v4, scg[0][li].transpose(1, 2),
+                                scg[1][li].transpose(1, 2), pos, block_l=l)
+
+    rows = []
+    for name, fn in (("flat int4 S=64 L=256", flat), ("multi int8 S=8 C=9 L=512", multi),
+                     ("grouped int8 S=64 L=256", grouped)):
+        outs, times = {}, {}
+        for mode in ("1", "0", "0", "1"):    # in turns
+            with env_set("TPUSERVE_ATTN_DYNSKIP", mode):
+                outs[mode] = fn(1)
+                times.setdefault(mode, []).append(timer.ms(fn, reps))
+        torch.cuda.synchronize()
+        live = outs["1"] if "multi" not in name else outs["1"][:, 0]
+        err = (outs["0"] - outs["1"]).abs().max().item()
+        # the same arithmetic: masked rows add exact zeros
+        tol = 1e-6 * live.abs().max().item()
+        if not err <= tol:
+            fail(f"dynskip {name}: outputs under 0 and 1 differ by {err} > {tol}")
+        row = dict(kernel=name, max_abs_diff=err, tol=tol, ms_skip=min(times["1"]),
+                   ms_read=min(times["0"]), times=times)
+        rows.append(row)
+        log(f"[kernel] dynskip {name}: max|0 - 1| {err:.3g} (tol {tol:.3g}); "
+            f"DYNSKIP=1 {row['ms_skip']:.4f} ms, DYNSKIP=0 {row['ms_read']:.4f} ms "
+            f"({row['ms_read'] / row['ms_skip']:.2f}x), turns 1,0,0,1")
+    del kv4, kvm, kvg
+    torch.cuda.empty_cache()
+    return rows
+
+
 def sweep_inputs(torch, copies=2):
     """`copies` sets of the sweep's inputs at its defaults (S=64, L=256,
     Hkv=32, rep 1; every slot at L-1): K and V 64 MB each per set."""
@@ -951,6 +1070,7 @@ def phase_kernels(torch, timer, reps, p):
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
     results["decode_attention_grouped"] = check_decode_attention_grouped(torch, timer, reps, p)
+    results["dynskip"] = check_dynskip(torch, timer, reps, p)
     results["decode_attention_wide"] = check_decode_attention_wide(torch, timer, reps)
     results.update(check_probes(torch, timer, reps))
     results.update(check_unpack_probes(torch, timer, reps))
@@ -1041,6 +1161,38 @@ def plain_kernels(llama):
     finally:
         for n, fn in zip(names, saved):
             setattr(llama, n, fn)
+
+
+def qmatmul_xla_step(torch, llama, engine, p, toks, cache, pos, logits_k, restore, busy):
+    """One full-width decode step under TPUSERVE_QMATMUL=xla (every weight
+    dequantized to bf16, then torch.matmul): its logits against the kernel
+    step's, no quant-matmul launch in it, and both steps' device time."""
+    from tpuserve_torch.ops import quant_matmul
+
+    before = quant_matmul.launches
+    with env_set("TPUSERVE_QMATMUL", "xla"):
+        logits_x, _ = llama.decode_step(engine.params, p, toks, cache, pos)
+        restore()
+        busy_x = profile_step(torch, lambda: llama.decode_step(engine.params, p, toks, cache,
+                                                                pos),
+                              what="decode step under TPUSERVE_QMATMUL=xla")
+        restore()
+    torch.cuda.synchronize()
+    if quant_matmul.launches != before:
+        fail("TPUSERVE_QMATMUL=xla: the quant-matmul kernel was launched")
+    ref_max = logits_k.abs().max().item()
+    err = (logits_x - logits_k).abs().max().item()
+    live = pos >= 0
+    agree = (logits_x.argmax(-1) == logits_k.argmax(-1))[live].float().mean().item()
+    finite = bool(torch.isfinite(logits_x).all())
+    tol = 0.05 * ref_max     # as the kernel step against the plain versions
+    dev = lambda b: "not measured" if b is None else f"{b['busy_ms']:.2f} ms"
+    log(f"[slice] TPUSERVE_QMATMUL=xla full-width decode step vs the kernel step: max|diff| "
+        f"{err:.4g} of {ref_max:.4g} (tol {tol:.4g}); argmax agreement {agree:.4f}; finite "
+        f"{finite}; device busy: kernels {dev(busy)}, xla {dev(busy_x)}")
+    if not finite or not err <= tol:
+        fail("TPUSERVE_QMATMUL=xla: its decode step disagrees with the kernel step")
+    return dict(max_abs_diff=err, tol=tol, argmax_agreement=agree, profile=busy_x)
 
 
 def phase_slice(torch, p, smi_line):
@@ -1175,6 +1327,7 @@ def phase_slice(torch, p, smi_line):
     restore()
     busy = profile_step(torch, lambda: llama.decode_step(engine.params, p, toks, cache, pos))
     restore()
+    xla = qmatmul_xla_step(torch, llama, engine, p, toks, cache, pos, logits_k, restore, busy)
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} ms "
         f"-> {64 / step_ms * 1e3:.1f} tok/s at full batch; max_memory_allocated "
@@ -1185,7 +1338,7 @@ def phase_slice(torch, p, smi_line):
                 tok_s=tok_s, step_ms=step_ms, step_times_ms=times, profile=busy,
                 full_step_err=err,
                 full_step_tol=tol, argmax_agreement=agree, max_memory_allocated=peak,
-                load_s=load_s)
+                load_s=load_s, qmatmul_xla=xla)
 
 
 def _paged_model_config(p):
@@ -1984,6 +2137,22 @@ def phase_diag_bw(torch):
     return dict(records=records, launches=launches)
 
 
+def phase_qmm_sweep(torch):
+    """The quant-matmul sweep (tpuserve_torch.scripts.qmatmul_sweep) at its
+    defaults: 32 chained [64, 4096] x [4096, 4096] matmuls a CUDA graph, the
+    kernel at its own split and at block_k 256/512/1024, int8, and the
+    dequantize-then-matmul control. Its weights sit in the L2."""
+    from tpuserve_torch.scripts import qmatmul_sweep
+
+    records = qmatmul_sweep.run(torch.device("cuda"), 64, 5, 32)
+    failed = [r["mode"] for r in records if "failed" in r]
+    log(f"[qmm_sweep] {len(records)} modes; " + ", ".join(
+        f"{r['mode']} {r['us']:.1f} us" for r in records if "failed" not in r))
+    if failed:
+        fail(f"[qmm_sweep] modes failed: {failed}")
+    return dict(records=records)
+
+
 def main() -> None:
     import torch
 
@@ -2022,6 +2191,7 @@ def main() -> None:
         results[kname]["launches"] = launched
     diag_res = phase_diag_bw(torch)
     results["diag_copy"]["launches"] = diag_res["launches"]
+    qmm_sweep_res = phase_qmm_sweep(torch)
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -2074,7 +2244,7 @@ def main() -> None:
                    "build_log": build.log, "kernels": results, "slice": slice_res,
                    "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
                    "grouped": grouped_res, "sweep": sweep_res, "unpack": unpack_res,
-                   "diag_bw": diag_res,
+                   "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)

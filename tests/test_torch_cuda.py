@@ -543,3 +543,94 @@ def test_int4_noop_kernels(cuda, noop, monkeypatch):
         err = (out - ref)[live].abs().max().item()
         assert err <= 2e-3 * ref[live].abs().max().item() + 1e-6, (name, err)
         assert (out - noop_out[name])[live].abs().max().item() > 1e-3 * out.abs().max().item()
+
+
+# ---------------------------------------------------------------- Hopper quant-matmul
+@pytest.mark.parametrize("bits,gs", [(4, 128), (4, 32), (4, 16), (4, 0), (8, 128), (8, 32),
+                                     (8, 16), (8, 0)])
+@pytest.mark.parametrize("b", [1, 8, 37, 64, 72, 130, 256, 300])
+def test_quant_matmul_hopper(cuda, bits, gs, b):
+    """The bf16 kernel (wgmma, TMA ring, split K in one launch) against its
+    plain version at every batch tile, N = 208 (not a multiple of the 64- or
+    128-column tile), each group size: one bf16 step at the largest output;
+    two calls bitwise equal; one launch a call."""
+    k, n = 512, 208
+    qt = _qt(bits, gs, k, n, 0, cuda)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    before = qm.launches
+    out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 2
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits,block_k", [(4, 128), (4, 256), (4, 512), (4, 1024), (4, 4096),
+                                          (8, 64), (8, 512), (8, 1024)])
+def test_quant_matmul_hopper_block_k(cuda, bits, block_k):
+    """Each K split the sweep takes, in one launch: the last split of a tile
+    adds the partials in split order, so the result is the same bits as a
+    second call and within one bf16 step of the plain version. N = 1040:
+    nine 128-column tiles, the last one partly past N."""
+    k, n, b = 4096, 1040, 72
+    qt = _qt(bits, 128, k, n, 0, cuda)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(7)).to(cuda, torch.bfloat16)
+    out = qm.quant_matmul(x, qt, block_k=block_k)
+    again = qm.quant_matmul(x, qt, block_k=block_k)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+# ---------------------------------------------------------------- TPUSERVE_ATTN_DYNSKIP
+@pytest.mark.parametrize("entry,kind", [("flat", "int4"), ("flat", "int8"), ("flat", "bf16"),
+                                        ("multi", "int8"), ("multi", "int4"),
+                                        ("grouped", "int8"), ("grouped", "bf16")])
+def test_dynskip_changes_no_output(cuda, monkeypatch, entry, kind):
+    """The flat, multi and grouped kernels under TPUSERVE_ATTN_DYNSKIP=0
+    (every block read, the rows past a slot masked) against =1 (those
+    blocks skipped): masked rows add exact zeros, so the outputs agree to
+    1e-6 of the range (expected equal), and both against the plain version."""
+    s, hkv, l, n_layers, layer = 8, 2, 256, 2, 1
+    h = hkv * (2 if kind != "bf16" else 1)
+    k, v, ks, vs = _cache(kind, s, hkv, l, n_layers, cuda)
+    g = torch.Generator().manual_seed(9)
+    cands = 3 if entry == "multi" else 1
+    shape = (s, cands, h, 128) if entry == "multi" else (s, h, 128)
+    q = (torch.randn(shape, generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    pos = torch.randint(0, l - cands, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[2], pos[4] = -1, 0, 40
+    pos = pos.to(cuda)
+    if entry == "flat":
+        fns = (lambda: da.decode_attention_wide_cache(q, k, v, ks, vs, pos, layer, block_l=32),
+               lambda: da.decode_attention_wide_cache_plain(q, k, v, ks, vs, pos, layer,
+                                                            block_l=32))
+    elif entry == "multi":
+        fns = (lambda: da.decode_attention_wide_cache_multi(q, k, v, ks, vs, pos, layer,
+                                                            block_l=32),
+               lambda: da.decode_attention_wide_cache_multi_plain(q, k, v, ks, vs, pos, layer,
+                                                                  block_l=32))
+    else:
+        kw, vw = (t[layer].view(s, l, hkv, 128) for t in (k, v))
+        ksw = vsw = None
+        if ks is not None:
+            ksw, vsw = ks.transpose(1, 2), vs.transpose(1, 2)
+        fns = (lambda: da.decode_attention(q, kw, vw, ksw, vsw, pos, block_l=32),
+               lambda: da.decode_attention_plain(q, kw, vw, ksw, vsw, pos, block_l=32))
+    outs = {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", mode)
+        outs[mode] = (fns[0](), fns[1]())
+    torch.cuda.synchronize()
+    live = pos >= 0
+    a, b = outs["0"][0][live], outs["1"][0][live]
+    assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+    tol = (1e-3 if entry == "grouped" else 2e-3) * outs["1"][1][live].abs().max().item() + 1e-6
+    for mode in ("0", "1"):
+        assert (outs[mode][0] - outs[mode][1])[live].abs().max().item() <= tol, mode

@@ -1,0 +1,204 @@
+"""The Hopper quant-matmul's host side on the CPU, and the ported sweep.
+
+The kernel (csrc/quant_matmul.cu, bf16 activations) runs only on the card,
+where tests/test_torch_cuda.py holds it against quant_matmul_plain. Here:
+the launch plan its wrapper picks (batch tile, warpgroups, K split) reads
+the weights once for any batch up to 256 and covers K exactly; block_k
+sets the split as in the JAX package's quant_matmul; the group sizes it
+takes; a CUDA tensor reaches the one C entry once per call (launches
+counted, failures raised, nothing else launched); and
+tpuserve_torch.scripts.qmatmul_sweep run end to end at a tiny size with
+--device cpu (the port of scripts/qmatmul_sweep.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpuserve_torch import kernels
+from tpuserve_torch.ops import quant_matmul as tqm
+from tpuserve_torch.quant.core import quantize
+from tpuserve_torch.scripts import qmatmul_sweep
+
+SMS = 132
+
+
+@pytest.mark.parametrize("b", [1, 8, 37, 64, 72, 130, 256, 300])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (4096, 4096), (11008, 4096), (512, 208)])
+def test_plan_reads_the_weights_once_up_to_256_rows(b, k, n):
+    bt, nwg_n, nwg_b, sps, splits = tqm.hopper_plan(b, k, n, 4, SMS)
+    assert bt in tqm._BATCH_TILES and nwg_n * nwg_b <= 2
+    rows = bt * nwg_b                         # batch rows one block covers
+    passes = -(-b // rows)                    # blocks along grid.z
+    assert passes == (1 if b <= 256 else -(-b // 256))
+    assert rows >= min(b, 256) and (b <= 128) == (nwg_b == 1)
+    total = -(-k // 128)                      # int4 stages of 128 values of K
+    assert splits == -(-total // sps) and (splits - 1) * sps < total <= splits * sps
+
+
+@pytest.mark.parametrize("block_k,bits,sps", [(128, 4, 1), (256, 4, 2), (512, 4, 4),
+                                              (1024, 4, 8), (64, 8, 1), (512, 8, 8),
+                                              (8192, 4, 32)])
+def test_block_k_sets_the_split(block_k, bits, sps):
+    _, _, _, got, splits = tqm.hopper_plan(64, 4096, 4096, bits, SMS, block_k=block_k)
+    total = 4096 // (128 if bits == 4 else 64)
+    assert got == sps and splits == -(-total // sps)
+
+
+@pytest.mark.parametrize("block_k,bits", [(64, 4), (100, 4), (96, 8), (0, 4)])
+def test_block_k_off_the_stage_is_refused(block_k, bits):
+    with pytest.raises(ValueError, match="block_k"):
+        tqm.hopper_plan(64, 4096, 4096, bits, SMS, block_k=block_k)
+
+
+@pytest.mark.parametrize("bits,gs,ok", [
+    (4, 16, True), (4, 32, True), (4, 64, True), (4, 128, True), (4, 256, True), (4, 4096, True),
+    (4, 48, False), (4, 96, False), (4, 8, False), (8, 16, True), (8, 64, True),
+    (8, 128, True), (8, 96, False)])
+def test_group_sizes_the_kernel_takes(bits, gs, ok):
+    assert tqm.hopper_group_ok(bits, gs) == ok
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor, to reach the
+    wrapper's kernel branch on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _FakeLib:
+    def __init__(self, rc=0):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return self.rc
+        return fn
+
+
+def _fake(monkeypatch, rc):
+    fake = _FakeLib(rc)
+    monkeypatch.setattr(kernels, "lib", lambda: fake)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(kernels, "check", lambda code, what: (
+        None if code == 0 else (_ for _ in ()).throw(RuntimeError(f"{what}: {code}"))))
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(tqm, "quant_matmul_plain", plain_must_not_run)
+    return fake
+
+
+def _inputs(bits, gs, k, n, b):
+    rng = np.random.default_rng(bits + gs + b)
+    qt = quantize(torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05),
+                  bits=bits, group_size=gs)
+    x = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(torch.bfloat16)
+    return torch.Tensor._make_subclass(_FakeCuda, x), qt
+
+
+@pytest.mark.parametrize("b,block_k", [(64, None), (72, None), (300, None), (64, 256)])
+def test_bf16_calls_the_hopper_entry_once(monkeypatch, b, block_k):
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, 128, 4096, 4096, b)
+    before = tqm.launches
+    out = tqm.quant_matmul(x, qt, block_k=block_k)
+    assert tqm.launches == before + 1 and tuple(out.shape) == (b, 4096)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul_bf16"]
+    args = fake.calls[0][1]
+    b_, k_, n_, gs, bits, bt, nwg_n, nwg_b, sps, splits = args[6:16]
+    assert (b_, k_, n_, gs, bits) == (b, 4096, 4096, 128, 4)
+    assert (bt, nwg_n, nwg_b, sps, splits) == tqm.hopper_plan(b, 4096, 4096, 4, SMS, block_k)
+    assert (args[4] != 0) == (splits > 1) and (args[5] != 0) == (splits > 1)
+
+
+def test_bf16_kernel_failure_raises(monkeypatch):
+    _fake(monkeypatch, 700)
+    x, qt = _inputs(4, 128, 512, 256, 8)
+    before = tqm.launches
+    with pytest.raises(RuntimeError, match="quant_matmul"):
+        tqm.quant_matmul(x, qt)
+    assert tqm.launches == before
+
+
+def test_bf16_group_the_kernel_cannot_tile_is_refused(monkeypatch):
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, 48, 480, 64, 4)
+    with pytest.raises(ValueError, match="groups"):
+        tqm.quant_matmul(x, qt)
+    assert fake.calls == []
+
+
+def test_f32_keeps_the_cuda_core_entry(monkeypatch):
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, 128, 512, 256, 8)
+    tqm.quant_matmul(x.float(), qt, block_k=256)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
+    gps, splits = fake.calls[0][1][10:12]
+    assert (gps, splits) == (2, 2)
+
+
+def test_sweep_runs_every_mode_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(qmatmul_sweep, "dims", lambda: dict(K=256, N=256))
+    for name, val in (("TPUSERVE_QMM_B", "4"), ("TPUSERVE_QMM_DEPTH", "2"),
+                      ("TPUSERVE_QMM_ROUNDS", "2")):
+        monkeypatch.setenv(name, val)
+    records = qmatmul_sweep.main(["--device", "cpu"])
+    names = ["int4/auto", "int4/bk256", "int4/bk512", "int4/bk1024", "int8/auto",
+             "int8/bk512", "int4/xla"]
+    assert [r["mode"] for r in records] == names
+    assert all("failed" not in r and r["us"] > 0 for r in records)
+    out = capsys.readouterr().out
+    assert "# b=4 256x256 gs=128 depth=2" in out and "host clock" in out
+    assert all(f"{n:14s}" in out for n in names)
+
+
+def test_sweep_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        qmatmul_sweep.main(["--device", "cuda"])
+
+
+def test_ab_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):
+    """The parent-vs-change scripts (ab_quant_matmul and ab_attention)
+    run their turns A, B, B, A, print each case's mean ratio and a case
+    only one checkout has, and keep every turn."""
+    import json
+
+    from tpuserve_torch.scripts import ab_attention, ab_quant_matmul
+
+    seen = []
+
+    def fake_turn(tree, code):
+        seen.append(tree)
+        rows = {"per decode step (B=64)": 2.0 if tree == "change" else 4.0}
+        if tree == "change":
+            rows["per verify step (B=72)"] = 2.1
+        return rows
+
+    monkeypatch.setattr(ab_attention, "turn", fake_turn)
+    monkeypatch.chdir(tmp_path)
+    ab_quant_matmul.main(["parent", "change"])
+    assert seen == ["parent", "change", "change", "parent"]
+    out = capsys.readouterr().out
+    assert "per decode step (B=64): A 4.0000 / 4.0000 ms, B 2.0000 / 2.0000 ms, B/A 0.500" in out
+    assert "per verify step (B=72): only in B: 2.1000 / 2.1000 ms" in out
+    rec = json.loads((tmp_path / "chiprun_out" / "ab_quant_matmul.json").read_text())
+    assert rec["order"] == ["a", "b", "b", "a"] and len(rec["turns"]) == 4
+
+
+@pytest.mark.parametrize("name", ["base", "tma_only", "no_wgmma", "no_convert", "no_lds",
+                                  "no_epilogue"])
+def test_ablations_still_match_the_kernel_source(name):
+    """Each cut of scripts/qmm_ablate.py applies to csrc/quant_matmul.cu as
+    it is (the script runs only on the card; this keeps it in step)."""
+    from tpuserve_torch.scripts import qmm_ablate
+
+    src = qmm_ablate.patched(name)
+    assert ("qmm_wgmma_kernel" in src) and (name == "base") == (src == (
+        kernels.CSRC / "quant_matmul.cu").read_text())

@@ -23,6 +23,9 @@ enum Kind { KV_INT8 = 0, KV_INT4 = 1, KV_BF16 = 2, KV_F32 = 3 };
 // packed int4 under TPUSERVE_INT4_UNPACK=noop: a launch code, run by the
 // KV_INT4 instances with their NOOP flag set
 constexpr int KV_INT4_NOOP = 4;
+// a flag added to the launch code under TPUSERVE_ATTN_DYNSKIP=0: read and
+// mask the blocks past a slot's position instead of skipping them
+constexpr int KV_READ_ALL = 16;
 
 __device__ __forceinline__ float load_scale(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])

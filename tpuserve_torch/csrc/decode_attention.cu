@@ -34,6 +34,13 @@
 //   - out = acc / max(l, 1e-20) where l > 0, else 0 (inactive slots).
 // bf16/f32 caches use plain f32 dots, P rounded to bf16 for a bf16 cache.
 //
+// READ_ALL (flat form; TPUSERVE_ATTN_DYNSKIP=0, launch code + KV_READ_ALL):
+// the blocks past positions[slot] are read and their rows masked, as the
+// TPU kernel reads them under TPUSERVE_ATTN_DYNSKIP=0; masked rows add
+// exact zeros, so the output is the same. A template flag, so that the
+// default instances keep their schedule (a run-time flag slowed the packed
+// int4 instance); the paged form always skips.
+//
 // NOOP (packed int4 only; TPUSERVE_INT4_UNPACK=noop, ops/decode_attention.py):
 // the raw packed bytes, as signed int8, stand for both nibble halves of K
 // and of V, with the -8*sum(q) and -8 folds kept, as the JAX package's
@@ -48,7 +55,7 @@
 // so every byte is read once. A warp reads a row's segment of the unit in
 // one coalesced load and starts the loads of ROWS rows before it uses them,
 // the rep query heads of the unit share each row read, and rows past
-// positions[slot] are never read.
+// positions[slot] are never read (unless READ_ALL).
 #include "attention_common.cuh"
 
 namespace {
@@ -75,7 +82,7 @@ struct AttnArgs {
   int tstride, n_pages, hp;
 };
 
-template <int KIND, int NQ, bool PAGED, bool NOOP = false>
+template <int KIND, int NQ, bool PAGED, bool NOOP = false, bool READ_ALL = false>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   constexpr bool INTK = (KIND == KV_INT8 || KIND == KV_INT4);
   extern __shared__ __align__(16) unsigned char dsm[];
@@ -156,9 +163,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   const size_t unit_off = (size_t)u * HD;  // elements (bytes for int4)
 
   const int n_blocks = a.win / bl;
-  for (int jb = 0; jb < n_blocks && jb * bl <= pos; ++jb) {
+  for (int jb = 0; jb < n_blocks && (READ_ALL || jb * bl <= pos); ++jb) {
     const int l0 = jb * bl;
-    const int live = min(bl, pos - l0 + 1);
+    const int live = min(bl, pos - l0 + 1);     // rows <= pos (may be <= 0 without the skip)
+    const int nread = READ_ALL ? bl : live;     // rows read
     // this block's first cache row, and its scales: scale of (kv head h,
     // row i) at sc0 + h * sc_h + i
     size_t blk_row, sc0, sc_h;
@@ -191,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int i = i0 + r * WARPS;
-        if (i < live) {
+        if (i < nread) {
           kw[r] = word(a.k, i);
           if constexpr (INTK) {
             ks_lo[r] = load_scale(a.ks, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
@@ -203,7 +211,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
       for (int r = 0; r < ROWS; ++r) {
         const int i = i0 + r * WARPS;
         if (i >= bl) break;
-        if (i >= live) {
+        if (i >= nread) {
           if (lane < NQ) sc[lane * bl + i] = NEG_INF;
           continue;
         }
@@ -240,7 +248,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
         }
         if (lane == 0) {
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) sc[j * bl + i] = s[j];
+          for (int j = 0; j < NQ; ++j) sc[j * bl + i] = i < live ? s[j] : NEG_INF;
         }
       }
     }
@@ -261,7 +269,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
         float p = expf(row[i] - m_safe);
         psum += p;
         if (INTK) {
-          if (i < live) p = p * load_scale(a.vs, sc0 + kv_of(j) * sc_h + i, a.sc_bf16);
+          if (i < nread) p = p * load_scale(a.vs, sc0 + kv_of(j) * sc_h + i, a.sc_bf16);
           pmax = fmaxf(pmax, fabsf(p));
         } else if (KIND == KV_BF16) {
           p = round_bf16(p);
@@ -296,15 +304,15 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0;
-      for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+      for (int i0 = warp; i0 < nread; i0 += WARPS * ROWS) {
         uint32_t vws[ROWS] = {};
 #pragma unroll
         for (int r = 0; r < ROWS; ++r)
-          if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
+          if (i0 + r * WARPS < nread) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
-          if (i >= live) break;
+          if (i >= nread) break;
           const uint32_t vw = vws[r];
 #pragma unroll
           for (int j = 0; j < NQ; ++j) {
@@ -343,15 +351,15 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0.f;
-      for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+      for (int i0 = warp; i0 < nread; i0 += WARPS * ROWS) {
         typename RowWord<KIND>::T vws[ROWS] = {};
 #pragma unroll
         for (int r = 0; r < ROWS; ++r)
-          if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
+          if (i0 + r * WARPS < nread) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
-          if (i >= live) break;
+          if (i >= nread) break;
           float vv[4];
           word_floats<KIND>(vws[r], vv);
 #pragma unroll
@@ -386,44 +394,44 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(AttnArgs a) {
   }
 }
 
-template <int KIND, int NQ, bool PAGED, bool NOOP>
+template <int KIND, int NQ, bool PAGED, bool NOOP, bool READ_ALL>
 int launch(const AttnArgs& a, size_t smem, cudaStream_t st) {
   // static + dynamic shared memory above 48 KB needs an opt-in per kernel;
   // raise the opt-in whenever a larger window asks for more
   static size_t opted_in = 0;
   if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ, PAGED, NOOP>,
+    cudaError_t e = cudaFuncSetAttribute(decode_attn_kernel<KIND, NQ, PAGED, NOOP, READ_ALL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   const int units = (KIND == KV_INT4) ? a.Hkv / 2 : a.Hkv;
   dim3 grid(units, a.S);
-  decode_attn_kernel<KIND, NQ, PAGED, NOOP><<<grid, THREADS, smem, st>>>(a);
+  decode_attn_kernel<KIND, NQ, PAGED, NOOP, READ_ALL><<<grid, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int KIND, bool PAGED, bool NOOP = false>
+template <int KIND, bool PAGED, bool NOOP = false, bool READ_ALL = false>
 int launch_nq(const AttnArgs& a, int nq, size_t smem, cudaStream_t st) {
   switch (nq) {
-    case 1: return launch<KIND, 1, PAGED, NOOP>(a, smem, st);
-    case 2: return launch<KIND, 2, PAGED, NOOP>(a, smem, st);
-    case 4: return launch<KIND, 4, PAGED, NOOP>(a, smem, st);
-    case 8: return launch<KIND, 8, PAGED, NOOP>(a, smem, st);
+    case 1: return launch<KIND, 1, PAGED, NOOP, READ_ALL>(a, smem, st);
+    case 2: return launch<KIND, 2, PAGED, NOOP, READ_ALL>(a, smem, st);
+    case 4: return launch<KIND, 4, PAGED, NOOP, READ_ALL>(a, smem, st);
+    case 8: return launch<KIND, 8, PAGED, NOOP, READ_ALL>(a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, bool READ_ALL = false>
 int launch_kind(const AttnArgs& a, int kind, int nq, cudaStream_t st) {
   if (a.S <= 0) return 0;
   const size_t smem = (size_t)nq * a.bl * (sizeof(float) + 1);
   switch (kind) {
-    case KV_INT8: return launch_nq<KV_INT8, PAGED>(a, nq, smem, st);
-    case KV_INT4: return launch_nq<KV_INT4, PAGED>(a, nq, smem, st);
-    case KV_BF16: return launch_nq<KV_BF16, PAGED>(a, nq, smem, st);
-    case KV_F32: return launch_nq<KV_F32, PAGED>(a, nq, smem, st);
-    case KV_INT4_NOOP: return launch_nq<KV_INT4, PAGED, true>(a, nq, smem, st);
+    case KV_INT8: return launch_nq<KV_INT8, PAGED, false, READ_ALL>(a, nq, smem, st);
+    case KV_INT4: return launch_nq<KV_INT4, PAGED, false, READ_ALL>(a, nq, smem, st);
+    case KV_BF16: return launch_nq<KV_BF16, PAGED, false, READ_ALL>(a, nq, smem, st);
+    case KV_F32: return launch_nq<KV_F32, PAGED, false, READ_ALL>(a, nq, smem, st);
+    case KV_INT4_NOOP: return launch_nq<KV_INT4, PAGED, true, READ_ALL>(a, nq, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -432,7 +440,7 @@ int launch_kind(const AttnArgs& a, int kind, int nq, cudaStream_t st) {
 
 // kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache, 4 packed int4 with
 // the noop unpack (see NOOP). nq: query heads per block (rep, or 2*rep for
-// int4). Returns a cudaError_t code.
+// int4). kind + KV_READ_ALL: the READ_ALL instances. Returns a cudaError_t code.
 extern "C" int tpuserve_decode_attention(const void* q, const void* k, const void* v,
                                          const void* ks, const void* vs, const int* pos,
                                          void* out, int q_bf16, int sc_bf16, int S, int H,
@@ -444,7 +452,9 @@ extern "C" int tpuserve_decode_attention(const void* q, const void* k, const voi
   a.S = S; a.H = H; a.Hkv = Hkv; a.L = L; a.layer = layer; a.win = win; a.bl = bl;
   a.row_stride = row_stride;
   a.table = nullptr; a.tstride = 0; a.n_pages = 0; a.hp = 0;
-  return launch_kind<false>(a, kind, nq, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (kind & KV_READ_ALL) return launch_kind<false, true>(a, kind & ~KV_READ_ALL, nq, st);
+  return launch_kind<false>(a, kind, nq, st);
 }
 
 // The paged form: pools [n_layers, n_pages, ps, row_stride] and f32 scale

@@ -10,7 +10,8 @@
 //   - positions past positions[slot] masked to -1e30;
 //   - online softmax over blocks of bl rows: m_safe = max(m, -5e29),
 //     p = exp(s - m_safe), l = l * corr + sum(p); blocks wholly past
-//     positions[slot] are skipped, so an inactive slot (-1) gives 0;
+//     positions[slot] are read and masked, or skipped with dynskip on
+//     (TPUSERVE_ATTN_DYNSKIP=1); either way an inactive slot (-1) gives 0;
 //   - p * v_scale rounded to bf16 (f32 cache: not rounded), times V's values
 //     (int8 codes are exact in bf16), accumulated in f32: acc = acc * corr +
 //     P @ V. No P requant: this is not decode_attention.cu's arithmetic;
@@ -37,7 +38,7 @@
 // and its lanes 4 values each, loading ROWS rows ahead, as the flat kernel
 // does. P @ V: a warp takes rows warp, warp + 4, ..., loads ROWS of them
 // ahead, a lane owns 4 columns, and the 4 warps' partial sums meet in
-// shared memory. Rows past positions[slot] are never read.
+// shared memory. With dynskip on, rows past positions[slot] are never read.
 #include "attention_common.cuh"
 
 namespace {
@@ -58,6 +59,7 @@ struct GroupedArgs {
   float* out;          // [S, H, HD]
   int q_bf16, sc_bf16;
   int S, H, Hkv, L, bl, g_kv;
+  int dynskip;         // 1: skip the blocks past pos; 0: read and mask them
   long long slot_stride;             // elements between slots of k and v
   long long ss_slot, ss_row, ss_head; // scale strides, elements
 };
@@ -118,9 +120,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
         for (int c = 0; c < 4; ++c) qr[j][c] = qf[j][lane * 4 + c];
     }
 
-    for (int jb = 0; jb < n_blocks && jb * bl <= pos; ++jb) {
+    for (int jb = 0; jb < n_blocks && (!a.dynskip || jb * bl <= pos); ++jb) {
       const int l0 = jb * bl;
-      const int live = min(bl, pos - l0 + 1);
+      const int live = min(bl, pos - l0 + 1);    // rows <= pos (may be <= 0 without the skip)
+      const int nread = a.dynskip ? live : bl;   // rows read
       // element of (slot, l0, h, 0), and the scale of (slot, l0 + i, h) at
       // sc0 + i * ss_row
       const size_t row0 = (size_t)slot * a.slot_stride + (size_t)l0 * rstride + (size_t)h * HD;
@@ -130,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
       if constexpr (INTK) {
         // a thread owns row i: its HD codes in registers, every query head's dot
         for (int i = tid; i < bl; i += THREADS) {
-          if (i >= live) {
+          if (i >= nread) {
 #pragma unroll
             for (int j = 0; j < NQ; ++j) sc[j * bl + i] = NEG_INF;
             continue;
@@ -156,7 +159,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
           }
           const float ksc = load_scale(a.ks, sc0 + (size_t)i * a.ss_row, a.sc_bf16);
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) sc[j * bl + i] = ((float)d[j] * ksc) * s_qscale[j];
+          for (int j = 0; j < NQ; ++j)
+            sc[j * bl + i] = i < live ? ((float)d[j] * ksc) * s_qscale[j] : NEG_INF;
         }
       } else {
         // a warp owns row i and its lanes 4 values each, ROWS rows loaded ahead
@@ -165,13 +169,13 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const int i = i0 + r * WARPS;
-            if (i < live) kw[r] = load_word<KIND>(a.k, row0 + (size_t)i * rstride, lane);
+            if (i < nread) kw[r] = load_word<KIND>(a.k, row0 + (size_t)i * rstride, lane);
           }
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const int i = i0 + r * WARPS;
             if (i >= bl) break;
-            if (i >= live) {
+            if (i >= nread) {
               if (lane < NQ) sc[lane * bl + i] = NEG_INF;
               continue;
             }
@@ -189,7 +193,8 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
               const float ksc = scaled ? load_scale(a.ks, sc0 + (size_t)i * a.ss_row, a.sc_bf16)
                                        : 1.f;
 #pragma unroll
-              for (int j = 0; j < NQ; ++j) sc[j * bl + i] = scaled ? s[j] * ksc : s[j];
+              for (int j = 0; j < NQ; ++j)
+                sc[j * bl + i] = i >= live ? NEG_INF : (scaled ? s[j] * ksc : s[j]);
             }
           }
         }
@@ -207,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
         for (int i = lane; i < bl; i += 32) {
           float p = expf(row[i] - st.m_safe);  // 0 for the masked rows
           psum += p;
-          if (scaled && i < live) p *= load_scale(a.vs, sc0 + (size_t)i * a.ss_row, a.sc_bf16);
+          if (scaled && i < nread) p *= load_scale(a.vs, sc0 + (size_t)i * a.ss_row, a.sc_bf16);
           if (KIND != KV_F32) p = round_bf16(p);
           row[i] = p;
         }
@@ -226,17 +231,17 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) pa[j][c] = 0.f;
-      for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+      for (int i0 = warp; i0 < nread; i0 += WARPS * ROWS) {
         typename RowWord<KIND>::T vws[ROWS] = {};
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
-          if (i < live) vws[r] = load_word<KIND>(a.v, row0 + (size_t)i * rstride, lane);
+          if (i < nread) vws[r] = load_word<KIND>(a.v, row0 + (size_t)i * rstride, lane);
         }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
-          if (i >= live) break;
+          if (i >= nread) break;
           float vv[4];
           word_floats<KIND>(vws[r], vv);
 #pragma unroll
@@ -302,7 +307,10 @@ int launch_nq(const GroupedArgs& a, int nq, cudaStream_t st) {
 }  // namespace
 
 // kind: 0 int8, 2 bf16, 3 f32 cache (int8 needs scales). nq: query heads per
-// kv head (rep). Returns a cudaError_t code.
+// kv head (rep). kind + KV_READ_ALL (the JAX package's default for this
+// kernel, TPUSERVE_ATTN_DYNSKIP=0) reads and masks the blocks past a slot's
+// position; without it they are skipped; the output is the same. Returns a
+// cudaError_t code.
 extern "C" int tpuserve_decode_attention_grouped(
     const void* q, const void* k, const void* v, const void* ks, const void* vs, const int* pos,
     void* out, int q_bf16, int sc_bf16, int S, int H, int Hkv, int L, int bl, int g_kv,
@@ -312,6 +320,8 @@ extern "C" int tpuserve_decode_attention_grouped(
   a.q = q; a.k = k; a.v = v; a.ks = ks; a.vs = vs; a.pos = pos; a.out = (float*)out;
   a.q_bf16 = q_bf16; a.sc_bf16 = sc_bf16;
   a.S = S; a.H = H; a.Hkv = Hkv; a.L = L; a.bl = bl; a.g_kv = g_kv;
+  a.dynskip = !(kind & KV_READ_ALL);
+  kind &= ~KV_READ_ALL;
   a.slot_stride = slot_stride; a.ss_slot = ss_slot; a.ss_row = ss_row; a.ss_head = ss_head;
   if (S <= 0) return 0;
   if (bl <= 0 || bl > MAX_BL || L % bl != 0 || g_kv <= 0 || Hkv % g_kv != 0 || H != Hkv * nq)

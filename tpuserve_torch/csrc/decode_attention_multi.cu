@@ -20,7 +20,9 @@
 // m_safe = max(m, -5e29), v_scale folded into P, P requantized per row and
 // block with pscale = max(pmax/127, 1e-20), out = acc / max(l, 1e-20) where
 // l > 0. A block runs while it holds a row <= positions[s] + C - 1; row c
-// masks the rows past positions[s] + c.
+// masks the rows past positions[s] + c. With dynskip off (the JAX package's
+// TPUSERVE_ATTN_DYNSKIP=0) every block is read and every row scored, and
+// the rows past them masked: exact zeros, the same output.
 //
 // NOOP (packed int4 only; kind 4): TPUSERVE_INT4_UNPACK=noop as in
 // decode_attention.cu, the raw packed bytes as signed int8 for both nibble
@@ -64,6 +66,7 @@ struct MultiArgs {
   int q_bf16, sc_bf16;
   int S, C, H, Hkv, L, layer, win, bl;
   int row_stride;      // elements (bytes for int4) per cache row
+  int dynskip;         // 1: skip the blocks past the last row; 0: read and mask them
 };
 
 // Dynamic shared memory, in this order (ops/decode_attention.py's
@@ -149,9 +152,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 
   const size_t unit_off = (size_t)u * HD;  // elements (bytes for int4)
   const int n_blocks = a.win / bl;
-  for (int jb = 0; jb < n_blocks && jb * bl <= last; ++jb) {
+  for (int jb = 0; jb < n_blocks && (!a.dynskip || jb * bl <= last); ++jb) {
     const int l0 = jb * bl;
-    const int live = min(bl, last - l0 + 1);
+    const int live = min(bl, last - l0 + 1);   // rows any candidate sees (may be <= 0)
+    const int nread = a.dynskip ? live : bl;   // rows read
     const size_t blk_row = ((size_t)a.layer * a.S + slot) * a.L + l0;
     const size_t sc0 = (size_t)slot * a.Hkv * a.L + l0;  // scale of (kv head h, row i):
     const size_t sc_h = a.L;                              // sc0 + h * sc_h + i
@@ -168,8 +172,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
       // a head pair) in registers, one whole dot per (candidate, member)
       for (int i = tid; i < bl; i += THREADS) {
         const int c_min = (i < live) ? max(0, l0 + i - pos) : a.C;
-        for (int rr = 0; rr < c_min * NQ; ++rr) sc[rr * bl + i] = NEG_INF;
-        if (c_min >= a.C) continue;
+        const int c_from = a.dynskip ? c_min : 0;  // without the skip every row is scored
+        for (int rr = 0; rr < c_from * NQ; ++rr) sc[rr * bl + i] = NEG_INF;
+        if (c_from >= a.C) continue;
         const uint4* kp = reinterpret_cast<const uint4*>(
             static_cast<const unsigned char*>(a.k) + (blk_row + i) * (size_t)a.row_stride +
             unit_off);
@@ -186,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
                                 : ks_lo;
         vsc[i] = load_scale(a.vs, sc0 + kv_of(0) * sc_h + i, a.sc_bf16);
         if (KIND == KV_INT4) vsc[bl + i] = load_scale(a.vs, sc0 + kv_of(NQ - 1) * sc_h + i, a.sc_bf16);
-        for (int c = c_min; c < a.C; ++c) {
+        for (int c = c_from; c < a.C; ++c) {
 #pragma unroll
           for (int j = 0; j < NQ; ++j) {
             const int rq = c * NQ + j;
@@ -210,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
             }
             if (KIND == KV_INT4) d -= 8 * s_qsum[rq];
             const float ksc = (KIND == KV_INT4 && j >= HALF) ? ks_hi : ks_lo;
-            sc[rq * bl + i] = ((float)d * s_qscale[rq]) * ksc;
+            sc[rq * bl + i] = c >= c_min ? ((float)d * s_qscale[rq]) * ksc : NEG_INF;
           }
         }
       }
@@ -221,17 +226,18 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
-          if (i < live) kw[r] = word(a.k, i);
+          if (i < nread) kw[r] = word(a.k, i);
         }
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
           const int i = i0 + r * WARPS;
           if (i >= bl) break;
           const int c_min = (i < live) ? max(0, l0 + i - pos) : a.C;
-          for (int rr = lane; rr < c_min * NQ; rr += 32) sc[rr * bl + i] = NEG_INF;
+          const int c_from = a.dynskip ? c_min : 0;
+          for (int rr = lane; rr < c_from * NQ; rr += 32) sc[rr * bl + i] = NEG_INF;
           float kv[4];
           word_floats<KIND>(kw[r], kv);
-          for (int c = c_min; c < a.C; ++c) {
+          for (int c = c_from; c < a.C; ++c) {
 #pragma unroll
             for (int j = 0; j < NQ; ++j) {
               const float4 q4 = *reinterpret_cast<const float4*>(&qf[(c * NQ + j) * HD + lane * 4]);
@@ -240,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
 #pragma unroll
               for (int e = 0; e < 4; ++e) t += qv4[e] * kv[e];
               t = warp_sum(t);
-              if (lane == 0) sc[(c * NQ + j) * bl + i] = t;
+              if (lane == 0) sc[(c * NQ + j) * bl + i] = c >= c_min ? t : NEG_INF;
             }
           }
         }
@@ -261,7 +267,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
         float p = expf(row[i] - st.m_safe);
         psum += p;
         if (INTK) {
-          if (i < live) p = p * vrow[i];
+          if (i < nread) p = p * vrow[i];
           pmax = fmaxf(pmax, fabsf(p));
         } else if (KIND == KV_BF16) {
           p = round_bf16(p);
@@ -299,15 +305,15 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
         for (int jj = 0; jj < GROUP; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pa[jj][e] = 0;
-        for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+        for (int i0 = warp; i0 < nread; i0 += WARPS * ROWS) {
           uint32_t vws[ROWS] = {};
 #pragma unroll
           for (int r = 0; r < ROWS; ++r)
-            if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
+            if (i0 + r * WARPS < nread) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const int i = i0 + r * WARPS;
-            if (i >= live) break;
+            if (i >= nread) break;
             const uint32_t vw = vws[r];
 #pragma unroll
             for (int jj = 0; jj < GROUP; ++jj) {
@@ -349,15 +355,15 @@ __global__ void __launch_bounds__(THREADS) decode_attn_multi_kernel(MultiArgs a)
         for (int jj = 0; jj < GROUP; ++jj)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pa[jj][e] = 0.f;
-        for (int i0 = warp; i0 < live; i0 += WARPS * ROWS) {
+        for (int i0 = warp; i0 < nread; i0 += WARPS * ROWS) {
           typename RowWord<KIND>::T vws[ROWS] = {};
 #pragma unroll
           for (int r = 0; r < ROWS; ++r)
-            if (i0 + r * WARPS < live) vws[r] = word(a.v, i0 + r * WARPS);
+            if (i0 + r * WARPS < nread) vws[r] = word(a.v, i0 + r * WARPS);
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) {
             const int i = i0 + r * WARPS;
-            if (i >= live) break;
+            if (i >= nread) break;
             float vv[4];
             word_floats<KIND>(vws[r], vv);
 #pragma unroll
@@ -427,7 +433,9 @@ int launch_nq(const MultiArgs& a, int nq, size_t smem, cudaStream_t st) {
 
 // kind: 0 int8, 1 packed int4, 2 bf16, 3 f32 cache, 4 packed int4 with the
 // noop unpack. nq: query heads per block (rep, or 2*rep for int4); C
-// candidates, C * nq <= 128. Returns a cudaError_t code.
+// candidates, C * nq <= 128. kind + KV_READ_ALL reads and masks the blocks
+// past the last row any candidate sees (TPUSERVE_ATTN_DYNSKIP=0); the output
+// is the same. Returns a cudaError_t code.
 extern "C" int tpuserve_decode_attention_multi(const void* q, const void* k, const void* v,
                                                const void* ks, const void* vs, const int* pos,
                                                void* out, int q_bf16, int sc_bf16, int S, int C,
@@ -438,6 +446,8 @@ extern "C" int tpuserve_decode_attention_multi(const void* q, const void* k, con
   a.q_bf16 = q_bf16; a.sc_bf16 = sc_bf16;
   a.S = S; a.C = C; a.H = H; a.Hkv = Hkv; a.L = L; a.layer = layer; a.win = win; a.bl = bl;
   a.row_stride = row_stride;
+  a.dynskip = !(kind & KV_READ_ALL);
+  kind &= ~KV_READ_ALL;
   if (S <= 0) return 0;
   if (C < 1 || C * nq > MAX_ROWS || bl <= 0 || win % bl != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(C * nq, bl);

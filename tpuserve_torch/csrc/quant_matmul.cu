@@ -3,8 +3,7 @@
 // Replaces tpuserve/ops/quant_matmul.py::_kernel (all three branches):
 //   - int4: W packed uint8 [K/2, N], split-half per scale group (packed row
 //     r of group g holds element g*gs + r in its low nibble and element
-//     g*gs + gs/2 + r in its high nibble); the nibbles stay biased in
-//     [0, 15] and the -8 is folded as  x.c - 8*rowsum(x)  per group;
+//     g*gs + gs/2 + r in its high nibble), codes biased by 8;
 //   - int8: W int8 [K, N]; a group may span many K chunks (gs = K);
 //   - W4A8: x arrives quantized to int8 per row, the dots are integer
 //     (__dp4a, int32 accumulation) against the biased nibbles, the -8 fold
@@ -12,20 +11,32 @@
 // Scales are f32 [G, N]; each group's partial sum is scaled in f32 and
 // accumulated in f32, as in the TPU kernel.
 //
-// Bound on the H100: bytes at decode. At B <= 64 every weight byte is used
-// for at most 2*64 operations, far below the ~295 operations per byte where
-// the tensor cores, not the memory, become the limit. Design: one block per
-// 64-column N tile covering up to 64 rows of x, walking K chunk by chunk,
-// so every weight byte is read from device memory once per call with
-// coalesced 16-byte loads along N. x chunks are staged in shared memory and
-// reused by all 64 columns. When the N tiles alone would leave SMs idle
-// (narrow N, long K), K is split across blocks by whole scale groups: each
-// split writes f32 partial sums to a workspace and a second small kernel
-// adds them in split order. bf16 activations (the serving path) multiply on
-// the tensor cores with mma.sync (codes converted to bf16 in registers);
-// f32 activations multiply on the CUDA cores in f32, and W4A8 with __dp4a.
-// wgmma, TMA and a pipelined K loop are later work.
+// Bound on the H100 at decode: bytes and tensor-core operations nearly
+// alike. A byte of int4 weights holds two weights, so at B = 64 it carries
+// 4*64 = 256 bf16 operations (B = 72: 288), close to the card's ridge of
+// ~295 operations per byte (989 TFLOP/s over 3.35 TB/s): streaming the
+// weights at full rate needs the tensor cores at 75-85% of their peak.
+//
+// Three paths:
+//   - bf16 activations (the serving path): qmm_wgmma_kernel in namespace hop
+//     below, built for Hopper: wgmma with the weights as A from registers
+//     and x as B from shared memory, a TMA ring fed by one producer thread,
+//     every weight byte read from device memory once for B <= 256 and from
+//     shared memory once, split K reduced in the same launch in a fixed
+//     order (tpuserve_quant_matmul_bf16);
+//   - f32 activations: qmm_f32_kernel, CUDA cores in f32;
+//   - W4A8: qmm_w4a8_kernel, __dp4a.
+// The last two keep the first port's form (tpuserve_quant_matmul): one block
+// per 64-column tile of up to 64 rows of x walking K chunk by chunk through
+// shared memory, K split by whole scale groups into a workspace that
+// reduce_splits_kernel adds in split order.
 #include "common.cuh"
+
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include <mutex>
+#include <unordered_map>
 
 namespace {
 
@@ -290,207 +301,663 @@ void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStre
   reduce_splits_kernel<OT><<<(unsigned)blocks, 256, 0, st>>>(ws, (OT*)out, splits, n);
 }
 
-// ---------------------------------------------------------------- bf16 x, tensor cores
-// bf16 activations, int4 or int8 weights, any group size that is a multiple
-// of 16: the weight codes are converted to bf16 in shared memory order and
-// multiplied on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). Codes and bf16 activations are exact in bf16, so every
-// product is exact and the group sums differ from the plain version only in
-// their order; the -8 fold and the group scale stay in f32 per group. A
-// group is walked in chunks of min(gs, 128) values of K (int4: half as many
-// packed rows, whose low and high nibbles pair with two runs of x values).
-// GS = 128 (the serving path) makes the group size a compile-time constant,
-// so every tile loop unrolls; GS = 0 reads it from gs at run time.
-constexpr int MMA_TN = 128;      // output columns per block: 8 warps x 16
-constexpr int MMA_THREADS = 256;
-constexpr int MMA_XS = 136;      // x tile row stride in bf16 (68 words: conflict-free A loads)
-constexpr int MMA_WS = 144;      // weight tile row stride in bytes (rows 2 apart: banks 8 apart)
+// ---------------------------------------------------------------- bf16 x, Hopper
+// bf16 activations, int4 or int8 weights, swapped operands: the kernel
+// computes out^T = W^T . x^T with wgmma, the weight columns as its M and the
+// batch rows as its N (BT, a multiple of 8 up to 128 a warpgroup; two batch
+// warpgroups share the weights for B up to 256). So one pass over the
+// weights serves the whole batch. A consumer warpgroup covers 64 columns
+// (one m64 tile); a block has two consumer warpgroups.
+//
+// Stage: 64 packed int4 rows (128 values of K) or 64 int8 rows of each
+// consumer warpgroup's columns, the x values they multiply and the group
+// scales they need, brought by TMA into a ring of up to 8 shared-memory
+// stages that one producer thread keeps full (mbarriers full/empty).
+//   - weights: box [64 rows, 64 columns] uint8, 64-byte swizzle (a warp's
+//     loads of four rows hit distinct banks);
+//   - x: int4 two boxes [rows, 64 values] bf16 (128-byte swizzle): for a
+//     group of 128 or more, the values that meet the stage's low nibbles
+//     and the ones that meet its high nibbles (gs/2 further on); for a
+//     group that divides 128, the stage's 128 values in order. int8: one box;
+//   - scales: box [groups in the stage, columns] f32.
+// A (the weights) comes from registers: a thread converts the bytes of its
+// two adjacent columns in rows 2tq, 2tq+1 of an 8-row octet
+// with one PRMT and one HSUB2 per bf16 pair, after a LOP3 (and a shift) per
+// word: the nibble goes under a bf16 exponent (0x43: 128 + code) and 136 is
+// subtracted, which leaves code - 8, exact. So every product x * (c - 8)
+// is exact in the tensor core and the group's f32 sum equals
+// x.c - 8*rowsum(x) (the TPU kernel's fold) up to the order of the f32
+// additions. Each octet is read from shared memory once: its low nibbles
+// feed one k16 step and its high nibbles the step gs/2 values further on
+// (for gs = 16, the two halves of one step). Each group's wgmma sum goes
+// into `part` and is then scaled in f32 into `acc` (acc += part *
+// scale[g, col]).
+//
+// Split K in one launch: grid.y splits the stages; each split writes its f32
+// tile to a workspace, and the last split of a tile to arrive (a per-tile
+// counter) adds the splits in split order and writes the bf16 output, so
+// two calls give the same bits. A group larger than a split's K range
+// splits too: its scale multiplies each split's partial sum.
+namespace hop {
 
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int WG_THREADS = 128;
+constexpr int STAGE_ROWS = 64;        // weight rows per stage
+
+constexpr int COLS = 64;              // output columns per consumer warpgroup
+constexpr int W_BYTES = STAGE_ROWS * COLS;  // one warpgroup's weight box
+constexpr int MAX_STAGES = 8;
+
+constexpr int MAX_THREADS = 2 * WG_THREADS + 32;  // two consumer warpgroups and the producer
+
+struct Args {
+  __nv_bfloat16* out;  // [B, N]
+  float* ws;           // [splits, B, N] when splits > 1
+  int* counters;       // per output tile, zero between calls
+  int B, K, N, gs, sps, total, splits, stages, nwg_n, nwg_b, gr;
+  int off_x, off_sc, stage_bytes, tx_bytes, xbox_bytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The wgmma fences order registers, not memory: no memory clobber, so that
+// the compiler may move shared-memory loads across them (the mbarrier waits
+// and arrivals carry the clobbers that order the ring).
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;"); }
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N));
+}
+__device__ __forceinline__ void wg_wait0() { wg_wait<0>(); }
+// keep the compiler from moving accumulator reads or writes across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
 }
 
-template <int BITS, int GS, typename OT>
-__global__ void __launch_bounds__(MMA_THREADS)
-qmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scale, OT* __restrict__ out,
-               int B, int K, int N, int gs, int gps) {
-  constexpr int MAXW = (BITS == 4) ? 64 : 128;  // weight rows per chunk
-  __shared__ __align__(16) __nv_bfloat16 xs[64 * MMA_XS];
-  __shared__ __align__(16) uint8_t ws[MAXW * MMA_WS];
-  __shared__ float rs[64];  // per-row sum of this group's x (int4 fold)
+// K-major B operand with 128-byte swizzle: rows of 128 bytes, 8-row atoms
+// 1024 bytes apart (stride byte offset), start address in 16-byte units
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;   // mma groupID
-  const int tq = lane & 3;     // mma threadID_in_group
-  const int n0 = blockIdx.x * MMA_TN;
-  const int b0 = blockIdx.y * 64;
-  if (GS) gs = GS;
-  const int half = gs / 2;
-  const int wrows = (BITS == 4) ? half : gs;  // weight rows per group
-  const int kc = min(gs, 128);                 // x values per row per chunk (% 16 == 0)
-  const int cw = (BITS == 4) ? kc / 2 : kc;    // weight rows per chunk
-  const int chunks = wrows / cw;
-  const int groups = K / gs;
-  const int g0 = blockIdx.z * gps;
-  const int g1 = min(groups, g0 + gps);
-  out += (size_t)blockIdx.z * B * N;
-  const int wc = warp * 16;    // this warp's first column in the tile
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
 
-  float acc[4][2][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+// bf16 pair (code - 8) of two nibbles held in bytes of m: sel 0x4140 takes
+// bytes 0 and 1 (column c0), 0x4342 bytes 2 and 3 (column c1)
+__device__ __forceinline__ uint32_t nib_pair(uint32_t m, uint32_t sel) {
+  const uint32_t v = prmt(m, 0x43434343u, sel);  // 128 + code in each half
+  const uint32_t c = 0x43084308u;                // 136.0, 136.0
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
 
-  for (int g = g0; g < g1; ++g) {
-    float part[4][2][4];
-    for (int c = 0; c < chunks; ++c) {
-      const int r0 = c * cw;
-      __syncthreads();  // the previous chunk's readers are done
-      // x tile: 64 rows x kc bf16, 16-byte loads (gs % 16 == 0); int4 puts
-      // x[g*gs + r0 ..] in columns [0, cw) and x[g*gs + gs/2 + r0 ..] in [cw, 2cw)
-      const int pieces = kc / 8;
-      for (int idx = tid; idx < 64 * pieces; idx += MMA_THREADS) {
-        const int row = idx / pieces;
-        const int j = (idx - row * pieces) * 8;
-        const int k = (BITS == 4 && j >= cw) ? g * gs + half + r0 + (j - cw) : g * gs + r0 + j;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (b0 + row < B) v = *reinterpret_cast<const uint4*>(x + (size_t)(b0 + row) * K + k);
-        *reinterpret_cast<uint4*>(&xs[row * MMA_XS + j]) = v;
-      }
-      // weight tile: cw rows x 128 bytes
-      for (int idx = tid; idx < cw * 8; idx += MMA_THREADS) {
-        const int r = idx >> 3;
-        const int col = n0 + (idx & 7) * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (col < N) v = *reinterpret_cast<const uint4*>(w + (size_t)(g * wrows + r0 + r) * N + col);
-        *reinterpret_cast<uint4*>(&ws[r * MMA_WS + (idx & 7) * 16]) = v;
-      }
-      __syncthreads();
-      if (BITS == 4) {  // row sums, over the group's chunks: 4 threads per row
-        const int row = tid >> 2;
-        const int per = kc / 4;
-        float t = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < per; ++k) t += __bfloat162float(xs[row * MMA_XS + (tid & 3) * per + k]);
-        t += __shfl_xor_sync(0xffffffffu, t, 1);
-        t += __shfl_xor_sync(0xffffffffu, t, 2);
-        if ((tid & 3) == 0) rs[row] = (c == 0) ? t : rs[row] + t;
-        __syncthreads();
-      }
-      if (c == 0) {  // the group's sums start here
+// bf16 pair of two int8 codes in bytes lo_byte and lo_byte + 1 of w
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, int lo_byte) {
+  const float f0 = small_u2f(((w >> (8 * lo_byte)) & 0xFFu) ^ 0x80u) - 128.0f;
+  const float f1 = small_u2f(((w >> (8 * lo_byte + 8)) & 0xFFu) ^ 0x80u) - 128.0f;
+  __nv_bfloat162 r = __floats2bfloat162_rn(f0, f1);  // exact: |code| <= 128
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The thread's bytes of an octet (rows r, r + 1 with r = R + 2tq; columns
+// c0, c0 + 1) as [ (r,c0), (r+1,c0), (r,c1), (r+1,c1) ]. The weight box is
+// 64 bytes a row with the 64-byte swizzle: 16-byte chunk ^= (row / 2) % 4.
+__device__ __forceinline__ uint32_t octet_word(const uint8_t* wt, int r, int warp, int gid) {
+  const int off = r * 64 + ((warp ^ ((r >> 1) & 3)) << 4) + 2 * gid;
+  const uint32_t a = *reinterpret_cast<const uint16_t*>(wt + off);
+  const uint32_t b = *reinterpret_cast<const uint16_t*>(wt + off + 64);
+  return prmt(a, b, 0x5140u);
+}
+
+template <int N> struct Wgmma;
+template <> struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct Wgmma<72> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, "
+        "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct Wgmma<128> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+// acc += part * scale[group, column]: an m64 tile's accumulators hold, for
+// this thread, column c (i % 4 < 2, scale s0) and c + 1 (i % 4 >= 2, s1)
+template <int BT>
+__device__ __forceinline__ void scale_into(float* acc, const float* part, float s0, float s1) {
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < BT / 8; ++j) {
+    acc[4 * j + 0] += part[4 * j + 0] * s0;
+    acc[4 * j + 1] += part[4 * j + 1] * s0;
+    acc[4 * j + 2] += part[4 * j + 2] * s1;
+    acc[4 * j + 3] += part[4 * j + 3] * s1;
+  }
+}
+
+template <int BT>
+__device__ __forceinline__ void close_group(float* acc, float* part, const float* sc_row, int c0) {
+  wg_wait0();
+  fence_regs<BT / 2>(part);
+  const float2 s = *reinterpret_cast<const float2*>(sc_row + c0);
+  scale_into<BT>(acc, part, s.x, s.y);
+}
+
+__device__ __forceinline__ void fence_frag(uint32_t* af) {
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[i]));
+}
+
+// one k16 step (af2 == nullptr) or two on the same accumulators, then commit
+template <int BT>
+__device__ __forceinline__ void issue(float* part, uint32_t* af, uint64_t desc, int accumulate,
+                                      uint32_t* af2 = nullptr, uint64_t desc2 = 0) {
+  fence_frag(af);
+  if (af2) fence_frag(af2);
+  fence_regs<BT / 2>(part);
+  wg_fence();
+  Wgmma<BT>::mma(part, af, desc, accumulate);
+  if (af2) Wgmma<BT>::mma(part, af2, desc2, 1);
+  wg_commit();
+}
+
+// int4, one g128 group a stage: its four 16-row units, the stage's bytes
+// loaded first; the group's sum into `part` (fresh), left in flight
+template <int BT>
+__device__ __forceinline__ void g128_stage(float* part, const uint8_t* wt, uint32_t xb,
+                                           int xbox_bytes, int warp, int gid, int tq) {
+  uint32_t w[8];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
-      }
-#pragma unroll 2
-      for (int st = 0; st < kc / 16; ++st) {
-        const int k0 = st * 16 + tq * 2;  // this thread's first k in the step
-        uint32_t bf[2][2];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = wc + nt * 8 + gid;
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kk = k0 + (e & 1) + (e >> 1) * 8;
-            if (BITS == 4) {  // k < cw: low nibble of packed row k, else high nibble of row k-cw
-              const bool lo = kk < cw;
-              const uint32_t byte = ws[(lo ? kk : kk - cw) * MMA_WS + col];
-              v[e] = small_u2f(lo ? (byte & 0xFu) : (byte >> 4));
-            } else {
-              v[e] = (float)(int8_t)ws[kk * MMA_WS + col];
-            }
-          }
-          bf[nt][0] = bf16x2_bits(v[0], v[1]);
-          bf[nt][1] = bf16x2_bits(v[2], v[3]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const __nv_bfloat16* xr = &xs[(mt * 16 + gid) * MMA_XS + k0];
-          uint32_t af[4];
-          af[0] = *reinterpret_cast<const uint32_t*>(xr);
-          af[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS);
-          af[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-          af[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * MMA_XS + 8);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_bf16(part[mt][nt], af, bf[nt]);
-        }
-      }
-    }
-    // group epilogue: -8 fold and scale in f32
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = n0 + wc + nt * 8 + tq * 2;
-      if (col >= N) continue;
-      const float s0 = scale[(size_t)g * N + col];
-      const float s1 = scale[(size_t)g * N + col + 1];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float p = part[mt][nt][i];
-          if (BITS == 4) p -= 8.0f * rs[mt * 16 + gid + (i >> 1) * 8];
-          acc[mt][nt][i] += p * ((i & 1) ? s1 : s0);
-        }
-    }
+  for (int u = 0; u < 4; ++u) {
+    w[2 * u] = octet_word(wt, 16 * u + 2 * tq, warp, gid);
+    w[2 * u + 1] = octet_word(wt, 16 * u + 8 + 2 * tq, warp, gid);
   }
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int col = n0 + wc + nt * 8 + tq * 2;
-    if (col >= N) continue;
+  for (int u = 0; u < 4; ++u) {
+    const uint32_t l0 = w[2 * u] & 0x0F0F0F0Fu, l1 = w[2 * u + 1] & 0x0F0F0F0Fu;
+    const uint32_t h0 = (w[2 * u] >> 4) & 0x0F0F0F0Fu, h1 = (w[2 * u + 1] >> 4) & 0x0F0F0F0Fu;
+    uint32_t alo[4] = {nib_pair(l0, 0x4140u), nib_pair(l0, 0x4342u), nib_pair(l1, 0x4140u),
+                       nib_pair(l1, 0x4342u)};
+    uint32_t ahi[4] = {nib_pair(h0, 0x4140u), nib_pair(h0, 0x4342u), nib_pair(h1, 0x4140u),
+                       nib_pair(h1, 0x4342u)};
+    // box 0 holds the x of the low nibbles, box 1 that of the high ones
+    issue<BT>(part, alo, desc_sw128(xb + 32 * u), u > 0, ahi,
+              desc_sw128(xb + xbox_bytes + 32 * u));
+  }
+}
+
+
+// GS = 128 fixes the group size at compile time; GS = 0 reads a.gs.
+template <int BITS, int GS, int BT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
+                 const __grid_constant__ CUtensorMap xmap, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)a.stages * a.stage_bytes);
+  __shared__ int s_last;
+  const int ncons = a.nwg_n * a.nwg_b;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int gs = GS ? GS : a.gs;
+  const int st0 = blockIdx.y * a.sps;
+  const int nst = min(a.total, st0 + a.sps) - st0;
+  const int col_blk = blockIdx.x * COLS * a.nwg_n;
+  const int row_blk = blockIdx.z * BT * a.nwg_b;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);                                // full
+      mbar_init(smem_u32(&bars[a.stages + s]), ncons * WG_THREADS);    // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == ncons) {  // the producer warp: one thread keeps the ring full
+    if (threadIdx.x == ncons * WG_THREADS) {
+      for (int it = 0; it < nst; ++it) {
+        const int s = it % a.stages;
+        const uint32_t full = smem_u32(&bars[s]);
+        if (it >= a.stages) mbar_wait(smem_u32(&bars[a.stages + s]), ((it / a.stages) - 1) & 1);
+        const uint32_t base = smem_u32(smem + (size_t)s * a.stage_bytes);
+        mbar_expect_tx(full, a.tx_bytes);
+        const int r0 = (st0 + it) * STAGE_ROWS;
+        int grp, klo, khi = 0;
+        if (BITS == 4) {
+          const int half = gs / 2;
+          grp = r0 / half;
+          klo = gs >= 128 ? grp * gs + (r0 - grp * half) : 2 * r0;
+          khi = gs >= 128 ? klo + half : klo + 64;
+        } else {
+          grp = r0 / gs;
+          klo = r0;
+        }
+        for (int w = 0; w < a.nwg_n; ++w) {
+          tma_2d(base + w * W_BYTES, &qmap, full, col_blk + w * COLS, r0);
+          tma_2d(base + a.off_sc + w * a.gr * COLS * 4, &smap, full, col_blk + w * COLS, grp);
+        }
+        tma_2d(base + a.off_x, &xmap, full, klo, row_blk);
+        if (BITS == 4) tma_2d(base + a.off_x + a.xbox_bytes, &xmap, full, khi, row_blk);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup (wn, wb): columns wn*64.., batch rows wb*BT..
+  const int wn = wg % a.nwg_n;
+  const int wb = wg / a.nwg_n;
+  const int tid = threadIdx.x & (WG_THREADS - 1);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tq = lane & 3;
+  const int c0 = warp * 16 + 2 * gid;  // A rows gid, gid + 8 of this warp: columns c0, c0 + 1
+
+  float acc[BT / 2];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+  for (int i = 0; i < BT / 2; ++i) acc[i] = 0.f;
+
+  if constexpr (BITS == 4 && GS == 128 && BT <= 72) {
+    // g128, the serving path: every stage is one group. Two group sums in
+    // turn, so that a stage's wgmmas run while the next stage converts;
+    // a stage is scaled into acc and released one stage later.
+    float p0[BT / 2], p1[BT / 2];
+    const float* sc_prev = nullptr;
+    int s_prev = 0;
+    auto stage = [&](int it, float* cur, float* prev) {
+      const int s = it % a.stages;
+      mbar_wait(smem_u32(&bars[s]), (it / a.stages) & 1);
+      const uint8_t* base = smem + (size_t)s * a.stage_bytes;
+      g128_stage<BT>(cur, base + wn * W_BYTES, smem_u32(base + a.off_x) + wb * BT * 128,
+                     a.xbox_bytes, warp, gid, tq);
+      if (it > 0) {
+        wg_wait<4>();  // the previous stage's four groups are done
+        fence_regs<BT / 2>(prev);
+        const float2 sp = *reinterpret_cast<const float2*>(sc_prev + c0);
+        scale_into<BT>(acc, prev, sp.x, sp.y);
+        mbar_arrive(smem_u32(&bars[a.stages + s_prev]));
+      }
+      sc_prev = reinterpret_cast<const float*>(base + a.off_sc + wn * a.gr * COLS * 4);
+      s_prev = s;
+    };
+    for (int it = 0; it < nst; it += 2) {
+      stage(it, p0, p1);
+      if (it + 1 < nst) stage(it + 1, p1, p0);
+    }
+    wg_wait0();
+    const float2 sp = *reinterpret_cast<const float2*>(sc_prev + c0);
+    if (nst & 1) {
+      fence_regs<BT / 2>(p0);
+      scale_into<BT>(acc, p0, sp.x, sp.y);
+    } else {
+      fence_regs<BT / 2>(p1);
+      scale_into<BT>(acc, p1, sp.x, sp.y);
+    }
+    mbar_arrive(smem_u32(&bars[a.stages + s_prev]));
+  } else {
+    float part[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) part[i] = 0.f;
+    int accumulate = 0;
+
+    for (int it = 0; it < nst; ++it) {
+      const int s = it % a.stages;
+      mbar_wait(smem_u32(&bars[s]), (it / a.stages) & 1);
+      const uint8_t* base = smem + (size_t)s * a.stage_bytes;
+      const uint8_t* wt = base + wn * W_BYTES;
+      const float* sc = reinterpret_cast<const float*>(base + a.off_sc + wn * a.gr * COLS * 4);
+      const uint32_t xb = smem_u32(base + a.off_x) + wb * BT * 128;
+      const bool closes = it == nst - 1 ||
+          ((st0 + it + 1) * STAGE_ROWS) % (BITS == 4 ? gs / 2 : gs) == 0;
+      // x value p (0..127) of the stage: box p / 64, 32 bytes a k16 step
+      auto xdesc = [&](int p) {
+        return desc_sw128(xb + (p >> 6) * a.xbox_bytes + (p & 63) * 2);
+      };
+      if (BITS == 4 && gs != 16) {
+        const int half = gs / 2;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int R = 16 * u;
+          const uint32_t w0 = octet_word(wt, R + 2 * tq, warp, gid);
+          const uint32_t w1 = octet_word(wt, R + 8 + 2 * tq, warp, gid);
+          const uint32_t l0 = w0 & 0x0F0F0F0Fu, l1 = w1 & 0x0F0F0F0Fu;
+          const uint32_t h0 = (w0 >> 4) & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
+          uint32_t alo[4] = {nib_pair(l0, 0x4140u), nib_pair(l0, 0x4342u),
+                             nib_pair(l1, 0x4140u), nib_pair(l1, 0x4342u)};
+          uint32_t ahi[4] = {nib_pair(h0, 0x4140u), nib_pair(h0, 0x4342u),
+                             nib_pair(h1, 0x4140u), nib_pair(h1, 0x4342u)};
+          // gs >= 128: box 0 holds the low nibbles' x, box 1 the high ones';
+          // gs < 128: the stage's x in order, group g at g*gs
+          const int g = gs >= 128 ? 0 : R / half;
+          const int plo = gs >= 128 ? R : g * gs + (R - g * half);
+          const int phi = gs >= 128 ? 64 + R : plo + half;
+          issue<BT>(part, alo, xdesc(plo), accumulate, ahi, xdesc(phi));
+          accumulate = 1;
+          if (gs < 128 && (R + 16) % half == 0) {
+            close_group<BT>(acc, part, sc + g * COLS, c0);
+            accumulate = 0;
+          }
+        }
+        if (gs >= 128 && closes) {
+          close_group<BT>(acc, part, sc, c0);
+          accumulate = 0;
+        }
+      } else if (BITS == 4) {  // gs == 16: an octet is a group, its halves one k16 step
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const uint32_t w0 = octet_word(wt, 8 * u + 2 * tq, warp, gid);
+          const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
+          uint32_t af[4] = {nib_pair(l0, 0x4140u), nib_pair(l0, 0x4342u),
+                            nib_pair(h0, 0x4140u), nib_pair(h0, 0x4342u)};
+          issue<BT>(part, af, xdesc(16 * u), 0);
+          close_group<BT>(acc, part, sc + u * COLS, c0);
+        }
+      } else {  // int8: 16 rows a k16 step
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int R = 16 * u;
+          const uint32_t w0 = octet_word(wt, R + 2 * tq, warp, gid);
+          const uint32_t w1 = octet_word(wt, R + 8 + 2 * tq, warp, gid);
+          uint32_t af[4] = {i8_pair(w0, 0), i8_pair(w0, 2), i8_pair(w1, 0), i8_pair(w1, 2)};
+          issue<BT>(part, af, xdesc(R), accumulate);
+          accumulate = 1;
+          if (gs < 64 && (R + 16) % gs == 0) {
+            close_group<BT>(acc, part, sc + (R / gs) * COLS, c0);
+            accumulate = 0;
+          }
+        }
+        if (gs >= 64 && closes) {
+          close_group<BT>(acc, part, sc, c0);
+          accumulate = 0;
+        }
+      }
+      wg_wait0();  // the stage's x has been read
+      mbar_arrive(smem_u32(&bars[a.stages + s]));
+    }
+  }
+
+  const int col = col_blk + wn * COLS + c0;
+  const int b0 = row_blk + wb * BT + 2 * tq;
+  if (a.splits == 1) {
+    if (col >= a.N) return;
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      const int b = b0 + 8 * j;
+      if (b < a.B)
+        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)b * a.N + col) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
+      if (b + 1 < a.B)
+        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)(b + 1) * a.N + col) =
+            __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
+    }
+    return;
+  }
+  // split K: this split's tile into the workspace; the last split of the
+  // tile to arrive adds all of them in split order
+  float* ws = a.ws + (size_t)blockIdx.y * a.B * a.N;
+  if (col < a.N) {
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      const int b = b0 + 8 * j;
+      if (b < a.B)
+        *reinterpret_cast<float2*>(ws + (size_t)b * a.N + col) = make_float2(acc[4 * j], acc[4 * j + 2]);
+      if (b + 1 < a.B)
+        *reinterpret_cast<float2*>(ws + (size_t)(b + 1) * a.N + col) =
+            make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+    }
+  }
+  __threadfence();
+  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
+  const int tile = blockIdx.x + gridDim.x * blockIdx.z;
+  if (threadIdx.x == 0) s_last = atomicAdd(&a.counters[tile], 1) == a.splits - 1;
+  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
+  if (!s_last) return;
+  __threadfence();
+  if (col < a.N) {
+    for (int b = b0; b < min(a.B, b0 + BT); b += 8) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int b = b0 + mt * 16 + gid + h * 8;
-        if (b >= B) continue;
-        store_f32(&out[(size_t)b * N + col], acc[mt][nt][2 * h]);
-        store_f32(&out[(size_t)b * N + col + 1], acc[mt][nt][2 * h + 1]);
+        if (b + h >= a.B) break;
+        float lo = 0.f, hi = 0.f;
+        for (int sp = 0; sp < a.splits; ++sp) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(
+              a.ws + ((size_t)sp * a.B + b + h) * a.N + col));
+          lo += v.x;
+          hi += v.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)(b + h) * a.N + col) =
+            __floats2bfloat162_rn(lo, hi);
       }
+    }
   }
+  if (threadIdx.x == 0) a.counters[tile] = 0;  // ready for the next call
+}
+
+// ---- host: tensor maps (cuTensorMapEncodeTiled from libcuda, found with
+// dlopen so that the library links against nothing but the runtime)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// 2-D map over a row-major [outer, inner] array; false if the encoder refuses
+bool encode(CUtensorMap* m, CUtensorMapDataType dt, const void* ptr, uint64_t inner,
+            uint64_t outer, uint64_t row_bytes, uint32_t box_in, uint32_t box_out,
+            CUtensorMapSwizzle sw) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_in, box_out};
+  const cuuint32_t es[2] = {1, 1};
+  return fn(m, dt, 2, const_cast<void*>(ptr), dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The weight's two maps depend only on its pointers and shape: built once
+// per weight and kept (a serving step makes 129 calls on a fixed set).
+struct WeightKey {
+  const void* q;
+  const void* s;
+  int bits, K, N, gs;
+  bool operator==(const WeightKey& o) const {
+    return q == o.q && s == o.s && bits == o.bits && K == o.K && N == o.N && gs == o.gs;
+  }
+};
+struct WeightKeyHash {
+  size_t operator()(const WeightKey& k) const {
+    return std::hash<const void*>()(k.q) ^ (std::hash<const void*>()(k.s) << 1) ^
+           ((size_t)k.N * 31 + (size_t)k.K * 7 + (size_t)k.gs * 3 + (size_t)k.bits);
+  }
+};
+struct WeightMaps {
+  CUtensorMap q, s;
+};
+
+bool weight_maps(const WeightKey& key, int gr, WeightMaps* out) {
+  static std::mutex mu;
+  static std::unordered_map<WeightKey, WeightMaps, WeightKeyHash> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return true;
+  }
+  const uint64_t rows = key.bits == 4 ? key.K / 2 : key.K;
+  WeightMaps m;
+  // 64-byte weight rows with the 64-byte swizzle that octet_word reads
+  if (!encode(&m.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, key.q, key.N, rows, key.N, COLS, STAGE_ROWS,
+              CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode(&m.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, key.s, key.N, key.K / key.gs,
+              (uint64_t)key.N * 4, COLS, gr, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return false;
+  if (cache.size() >= 4096) cache.clear();  // weights freed and reallocated
+  cache.emplace(key, m);
+  *out = m;
+  return true;
+}
+
+template <int BITS, int GS, int BT>
+int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
+                 size_t smem, cudaStream_t st) {
+  auto kern = qmm_wgmma_kernel<BITS, GS, BT>;
+  static size_t opted_in = 0;
+  if (smem > opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = smem;
+  }
+  const int threads = a.nwg_n * a.nwg_b * WG_THREADS + 32;
+  if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  kern<<<grid, threads, smem, st>>>(wm.q, wm.s, xm, a);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS, int GS>
-void launch_mma(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
-                int gs, int gps, int splits, float* ws, cudaStream_t st) {
-  dim3 grid((N + MMA_TN - 1) / MMA_TN, (B + 63) / 64, splits);
-  if (splits == 1) {
-    qmm_mma_kernel<BITS, GS, __nv_bfloat16><<<grid, MMA_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, (__nv_bfloat16*)out,
-        B, K, N, gs, gps);
-    return;
+int launch_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
+              size_t smem, cudaStream_t st) {
+  switch (bt) {
+    case 16: return launch_wgmma<BITS, GS, 16>(wm, xm, a, grid, smem, st);
+    case 32: return launch_wgmma<BITS, GS, 32>(wm, xm, a, grid, smem, st);
+    case 64: return launch_wgmma<BITS, GS, 64>(wm, xm, a, grid, smem, st);
+    case 72: return launch_wgmma<BITS, GS, 72>(wm, xm, a, grid, smem, st);
+    case 128: return launch_wgmma<BITS, GS, 128>(wm, xm, a, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  qmm_mma_kernel<BITS, GS, float><<<grid, MMA_THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)w, (const float*)s, ws, B, K, N, gs, gps);
-  launch_reduce<__nv_bfloat16>(ws, out, splits, (long long)B * N, st);
 }
 
-template <int BITS>
-void launch_mma_gs(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
-                   int gs, int gps, int splits, float* ws, cudaStream_t st) {
-  if (gs == 128)
-    launch_mma<BITS, 128>(x, w, s, out, B, K, N, gs, gps, splits, ws, st);
-  else
-    launch_mma<BITS, 0>(x, w, s, out, B, K, N, gs, gps, splits, ws, st);
-}
+}  // namespace hop
 
 // splits == 1: straight into out; else f32 partials into ws, then the sum
 template <int BITS>
@@ -511,11 +978,10 @@ void launch_f32(const void* x, const void* w, const void* s, void* out, int B, i
 
 }  // namespace
 
-// x_kind: 0 = float32 x and out, 1 = bfloat16 x and out, 2 = int8 x (W4A8,
-// float32 out before the row scale). K is split into `splits` runs of `gps`
-// scale groups; with splits > 1, `workspace` holds splits*B*N floats.
-// bf16 x takes the tensor-core kernel and needs gs % 16 == 0.
-// Returns a cudaError_t code.
+// x_kind: 0 = float32 x and out, 2 = int8 x (W4A8, float32 out before the
+// row scale); bfloat16 x takes tpuserve_quant_matmul_bf16. K is split into
+// `splits` runs of `gps` scale groups; with splits > 1, `workspace` holds
+// splits*B*N floats. Returns a cudaError_t code.
 extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* scale,
                                      void* out, int B, int K, int N, int gs, int bits,
                                      int x_kind, int gps, int splits, void* workspace,
@@ -524,16 +990,6 @@ extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* s
   if (B <= 0) return 0;
   if (splits < 1 || (splits > 1 && workspace == nullptr)) return (int)cudaErrorInvalidValue;
   float* ws = (float*)workspace;
-  if (x_kind == 1) {  // bf16 x: tensor cores
-    if (gs % 16 != 0) return (int)cudaErrorInvalidValue;
-    if (bits == 4)
-      launch_mma_gs<4>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-    else if (bits == 8)
-      launch_mma_gs<8>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-    else
-      return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
-  }
   if (x_kind == 2) {
     if (bits != 4) return (int)cudaErrorInvalidValue;
     float* dst = splits > 1 ? ws : (float*)out;
@@ -556,4 +1012,64 @@ extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* s
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// bf16 x [B, K] (16-byte aligned rows) and out [B, N]; q packed uint8
+// [K/2, N] (bits 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0.
+// gs % 16 == 0 and it divides, or is a multiple of, the stage's 128 (int4)
+// or 64 (int8) values of K. bt: the batch tile (16, 32, 64, 72 or 128);
+// nwg_n column and nwg_b batch warpgroups a block (bt * nwg_b <= 256; more
+// rows take more blocks along grid.z); sps stages a split and splits =
+// ceil(stages / sps); with splits > 1, workspace holds splits*B*N floats
+// and counters one zeroed int per output tile. One launch. Returns a
+// cudaError_t code.
+extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const void* scale,
+                                          void* out, void* workspace, void* counters, int B,
+                                          int K, int N, int gs, int bits, int bt, int nwg_n,
+                                          int nwg_b, int sps, int splits, void* stream) {
+  using namespace hop;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  if ((bits != 4 && bits != 8) || gs <= 0 || gs % 16 || K % gs || N % 16 || nwg_n < 1 ||
+      nwg_b < 1)
+    return bad;
+  const int sk = bits == 4 ? 128 : 64;  // values of K a stage holds
+  if (gs % sk && sk % gs) return bad;
+  const int rows = bits == 4 ? K / 2 : K;
+  const int total = (rows + STAGE_ROWS - 1) / STAGE_ROWS;
+  if (sps < 1 || splits != (total + sps - 1) / sps) return bad;
+  if (splits > 1 && (workspace == nullptr || counters == nullptr)) return bad;
+  const int bx = bt * nwg_b;
+  if (bx > 256) return bad;
+
+  Args a;
+  a.out = (__nv_bfloat16*)out;
+  a.ws = (float*)workspace;
+  a.counters = (int*)counters;
+  a.B = B; a.K = K; a.N = N; a.gs = gs; a.sps = sps; a.total = total; a.splits = splits;
+  a.nwg_n = nwg_n; a.nwg_b = nwg_b;
+  a.gr = gs < sk ? sk / gs : 1;
+  const int nbox = bits == 4 ? 2 : 1;
+  a.xbox_bytes = bx * 128;
+  a.off_x = nwg_n * W_BYTES;
+  a.off_sc = a.off_x + nbox * a.xbox_bytes;
+  const int sc_bytes = nwg_n * a.gr * COLS * 4;
+  a.stage_bytes = (a.off_sc + sc_bytes + 1023) / 1024 * 1024;
+  a.tx_bytes = nwg_n * W_BYTES + nbox * a.xbox_bytes + sc_bytes;
+  const int budget = 232448 - 1024 - 256 - 2 * MAX_STAGES * 8;
+  a.stages = min(MAX_STAGES, budget / a.stage_bytes);
+  if (a.stages < 2) return bad;
+  const size_t smem = 1024 + (size_t)a.stages * a.stage_bytes + 2 * a.stages * 8;
+
+  WeightMaps wm;
+  CUtensorMap xm;
+  if (!weight_maps({q, scale, bits, K, N, gs}, a.gr, &wm) ||
+      !encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, B, (uint64_t)K * 2, 64, bx,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return bad;
+  dim3 grid((N + COLS * nwg_n - 1) / (COLS * nwg_n), splits, (B + bx - 1) / bx);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bits == 8) return launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
+  if (gs == 128) return launch_bt<4, 128>(bt, wm, xm, a, grid, smem, st);
+  return launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
 }

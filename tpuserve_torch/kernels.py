@@ -42,6 +42,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tpuserve_vector_add": [_P, _P, _P, _LL, _P],
     "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
+    "tpuserve_quant_matmul_bf16": [_P] * 6 + [_I] * 10 + [_P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
     "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],
@@ -119,7 +120,7 @@ def build(force: bool = False) -> BuildInfo:
         tmp = out_dir / f"{so.name}.tmp{os.getpid()}"
         link = subprocess.run(
             [nvcc, "-gencode", ARCH, "-shared", "-o", str(tmp)]
-            + [str(obj) for _, obj, _ in procs],
+            + [str(obj) for _, obj, _ in procs] + ["-ldl"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")

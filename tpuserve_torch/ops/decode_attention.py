@@ -40,6 +40,14 @@ csrc/decode_attention_multi.cu.
 `_wide_kernel` with a prebuilt Q_wide) is the flat kernel's function over
 a contiguous [S, L, Hkv, hd] cache: a one-layer view, never packed.
 
+TPUSERVE_ATTN_BLOCK_L (read per call where block_l is None, as the JAX
+package reads it when it traces) sets the flat and multi entries' block_l,
+default 128, clipped to the window and halved until it divides it; the
+paged entry keeps one page a block. TPUSERVE_ATTN_DYNSKIP (read per call;
+default "1" for the flat and multi kernels, "0" for the grouped one): "1"
+skips a slot's blocks past its position, anything else reads and masks
+them, as the TPU kernels' index maps do. Outputs are the same either way.
+
 TPUSERVE_INT4_UNPACK (read per call, as the JAX package's `_unpack_nibbles`
 reads it when it traces): "noop" makes the flat, paged and multi-candidate
 entries, kernels and plain versions, feed the raw packed bytes as signed
@@ -72,9 +80,26 @@ grouped_launches = 0  # grouped kernel launches
 _NEG_INF = -1e30
 _HD = 128          # head_dim the CUDA kernel is written for
 _KERNEL_NQ = (1, 2, 4, 8)
-_BLOCK_L = 128     # L rows per online-softmax block (the TPU kernel's default)
+_BLOCK_L_ENV = "TPUSERVE_ATTN_BLOCK_L"   # L rows per online-softmax block, default 128
+_DYNSKIP_ENV = "TPUSERVE_ATTN_DYNSKIP"
+_READ_ALL = 16     # added to a kernel's launch code: read and mask past a slot (attention_common.cuh)
 _GROUPED_MAX_BL = 2048   # the grouped kernel's scores [nq, block_l] f32 in shared memory
 _UNPACK_ENV = "TPUSERVE_INT4_UNPACK"
+
+
+def default_block_l() -> int:
+    """The flat and multi entries' block_l when the caller gives none:
+    TPUSERVE_ATTN_BLOCK_L, read per call as the JAX package reads it when it
+    traces, else the TPU kernel's default 128."""
+    return int(os.environ.get(_BLOCK_L_ENV, "128"))
+
+
+def dynskip(grouped: bool = False) -> bool:
+    """TPUSERVE_ATTN_DYNSKIP, read per call with the JAX package's defaults:
+    on ("1") for the flat and multi kernels, off ("0") for the grouped one.
+    On, a slot's blocks past its position are skipped; off, they are read
+    and masked, which gives the same output (an A/B of the bytes read)."""
+    return os.environ.get(_DYNSKIP_ENV, "0" if grouped else "1") == "1"
 
 
 def int4_unpack_noop() -> bool:
@@ -113,7 +138,7 @@ def _geometry(q, k_full, k_scale_l, window, block_l, pack: bool = True):
     if quantized and not kv_int8:
         raise ValueError("scales are only supported with an int8 or packed int4 cache")
     win = l_max if window is None else min(int(window), l_max)
-    block_l = min(block_l or _BLOCK_L, win)
+    block_l = min(default_block_l() if block_l is None else int(block_l), win)
     while win % block_l != 0:
         block_l //= 2
     # the TPU's multi-slot packing (sb > 1) is one L block over the window
@@ -134,13 +159,15 @@ def decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l, p
     """The kernel's algorithm in plain PyTorch (any device). Returns
     [S, H, hd] f32."""
     return _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer,
-                         _geometry(q, k_full, k_scale_l, window, block_l))
+                         _geometry(q, k_full, k_scale_l, window, block_l), skip=dynskip())
 
 
 def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
-                  cands: int = 1):
+                  cands: int = 1, skip: bool = True):
     """q [S, C*H, hd] rows candidate-major (C = `cands`): row c*H + h is
-    candidate c's head h and sees cache rows <= positions[s] + c."""
+    candidate c's head h and sees cache rows <= positions[s] + c. `skip`
+    (TPUSERVE_ATTN_DYNSKIP) skips a slot's blocks past its last row; without
+    it they run, wholly masked."""
     s_dim, n_heads, hd, n_kv, rep = g["s_dim"], g["n_heads"], g["hd"], g["n_kv"], g["rep"]
     m_dim = cands * n_heads
     bl, win = g["block_l"], g["win"]
@@ -176,6 +203,8 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
     for j in range(win // bl):
         l0 = j * bl
         run = (l0 <= pos + cands - 1).view(s_dim, 1, 1)  # blocks past the last row skipped
+        if not skip:
+            run = torch.ones_like(run)
         kb = heads(k_full[layer, :, l0:l0 + bl])[:, kv_head]   # [S, M, bl, hd]
         vb = heads(v_full[layer, :, l0:l0 + bl])[:, kv_head]
         if kv_int8:
@@ -263,13 +292,14 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
                                                  positions, layer, window=window,
                                                  block_l=block_l)
     out = _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer,
-                       _geometry(q, k_full, k_scale_l, window, block_l))
+                       _geometry(q, k_full, k_scale_l, window, block_l), dynskip())
     launches += 1
     return out
 
 
-def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
-    """Check the inputs and launch the flat kernel over the geometry `g`."""
+def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g, skip: bool):
+    """Check the inputs and launch the flat kernel over the geometry `g`
+    (`skip`: the kernel's dynskip flag)."""
     from tpuserve_torch import kernels
 
     n_kv = g["n_kv"]
@@ -297,7 +327,7 @@ def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g):
         v_scale_l.data_ptr() if g["quantized"] else null,
         pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
         g["s_dim"], g["n_heads"], n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-        k_full.shape[-1], kind, nq, kernels.stream_of(q))
+        k_full.shape[-1], kind if skip else kind + _READ_ALL, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention")
     return out
 
@@ -320,7 +350,7 @@ def decode_attention_wide_plain(q, k, v, k_scale, v_scale, positions, *,
     """decode_attention_wide's algorithm in plain PyTorch (any device): the
     flat kernel's plain version over the one-layer view. [S, H, hd] f32."""
     kf, vf, g = _wide_flat(q, k, v, k_scale, v_scale, block_l)
-    return _attend_plain(q, kf, vf, k_scale, v_scale, positions, 0, g)
+    return _attend_plain(q, kf, vf, k_scale, v_scale, positions, 0, g, skip=False)
 
 
 def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
@@ -331,15 +361,16 @@ def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
     int8, bf16 or f32; k_scale/v_scale [S, Hkv, L] (f32 or bf16) or None;
     positions [S] (-1 = inactive). L is read in blocks of `block_l`
     (clipped to L, halved until it divides L), never in the multi-slot
-    packed form, which this entry never takes. Returns [S, H, hd] f32.
-    CUDA tensors launch the flat kernel (csrc/decode_attention.cu) on a
-    one-layer view; CPU tensors take the plain version."""
+    packed form, which this entry never takes, and every block is read (the
+    TPU kernel's block maps here are static: no per-slot skip). Returns [S,
+    H, hd] f32. CUDA tensors launch the flat kernel (csrc/decode_attention.cu)
+    on a one-layer view; CPU tensors take the plain version."""
     global wide_launches
     if not q.is_cuda:
         return decode_attention_wide_plain(q, k, v, k_scale, v_scale, positions,
                                            block_l=block_l)
     kf, vf, g = _wide_flat(q, k, v, k_scale, v_scale, block_l)
-    out = _launch_flat(q, kf, vf, k_scale, v_scale, positions, 0, g)
+    out = _launch_flat(q, kf, vf, k_scale, v_scale, positions, 0, g, skip=False)
     wide_launches += 1
     return out
 
@@ -391,7 +422,8 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     score dots for an int8 cache (q's own values for a float cache), then
     s * k_scale * q_scale; positions past positions[s] masked with -1e30;
     online softmax over `block_l` blocks (m_safe = max(m, -5e29)), blocks
-    wholly past positions[s] skipped; P * v_scale rounded to bf16 (unless
+    wholly past positions[s] skipped under TPUSERVE_ATTN_DYNSKIP=1 (read
+    and masked by default: the same values); P * v_scale rounded to bf16 (unless
     the cache is f32) and P@V on V's values with f32 accumulation, no P
     requant; out = acc / max(l, 1e-20) where l > 0, else 0. `g_kv` only
     splits the work (the TPU's masked head pairs add exact zeros), so it
@@ -413,8 +445,9 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     m_run = torch.full((s_dim, n_heads, 1), _NEG_INF, dtype=torch.float32, device=dev)
     l_run = torch.zeros((s_dim, n_heads, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((s_dim, n_heads, hd), dtype=torch.float32, device=dev)
+    skip = dynskip(grouped=True)
     for l0 in range(0, l_max, bl):
-        run = l0 <= pos
+        run = (l0 <= pos) | (not skip)
         kb, vb = heads(k, l0), heads(v, l0)        # [S, H, bl, hd]
         if g["kv_int8"]:
             s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float64)).to(torch.float32)
@@ -497,7 +530,7 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
         k_scale.data_ptr() if quantized else null, v_scale.data_ptr() if quantized else null,
         pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
         s_dim, n_heads, n_kv, g["l_max"], g["block_l"], g["g_kv"], k.stride(0), *ss,
-        kind, nq, kernels.stream_of(q))
+        kind if dynskip(grouped=True) else kind + _READ_ALL, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_grouped")
     grouped_launches += 1
     return out
@@ -519,9 +552,11 @@ def multi_smem_bytes(rows: int, block_l: int) -> int:
         + rows * block_l * 4 + 2 * block_l * 4 + rows * block_l
 
 
-def check_multi_kernel(cands: int, nq: int, block_l: int = _BLOCK_L) -> None:
+def check_multi_kernel(cands: int, nq: int, block_l: Optional[int] = None) -> None:
     """Raise ValueError unless the multi kernel takes `cands` candidates of
-    `nq` query heads per block over blocks of `block_l` rows."""
+    `nq` query heads per block over blocks of `block_l` rows (None: the
+    entry's default, TPUSERVE_ATTN_BLOCK_L or 128)."""
+    block_l = default_block_l() if block_l is None else block_l
     if not 1 <= cands <= _MULTI_MAX_C:
         raise ValueError(f"multi decode attention kernel: {cands} candidates, "
                          f"takes 1..{_MULTI_MAX_C}")
@@ -541,7 +576,7 @@ def decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scal
     s_dim, cands, n_heads, hd = q.shape
     g = _geometry(q[:, 0], k_full, k_scale_l, window, block_l, pack=False)
     out = _attend_plain(q.reshape(s_dim, cands * n_heads, hd), k_full, v_full, k_scale_l,
-                        v_scale_l, positions, layer, g, cands=cands)
+                        v_scale_l, positions, layer, g, cands=cands, skip=dynskip())
     return out.reshape(s_dim, cands, n_heads, hd)
 
 
@@ -599,7 +634,7 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
         v_scale_l.data_ptr() if g["quantized"] else null,
         pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
         s_dim, cands, n_heads, n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-        k_full.shape[-1], kind, nq, kernels.stream_of(q))
+        k_full.shape[-1], kind if dynskip() else kind + _READ_ALL, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_multi")
     multi_launches += 1
     return out

@@ -5,7 +5,9 @@ Computes x[B, K] @ dequant(W)[K, N] where W is INT8 [K, N] or packed INT4
 [K//2, N] with group-wise scales [G, N] (tpuserve_torch.quant.core
 conventions). For a tensor on the card the wrapper launches the CUDA kernel
 in csrc/quant_matmul.cu; for a tensor on the CPU it runs the kernel's plain
-PyTorch version below, which repeats the kernel's arithmetic:
+PyTorch version below, which repeats the kernel's arithmetic (the bf16
+kernel folds the -8 into its code conversion instead, which gives the same
+exact products and differs only in the order of f32 sums):
 
 - int4: per group, the raw nibbles stay biased in [0, 15] and the -8 is
   folded as  x.lo + x.hi - 8*rowsum(x) , then scaled in f32;
@@ -18,6 +20,8 @@ Leading dims of x are flattened into the batch and restored.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -89,23 +93,104 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
         raise ValueError(f"cannot group K={k} by group_size={gs}")
 
 
-def _k_splits(b: int, n: int, groups: int, sms: int, tensor_cores: bool):
-    """(groups per split, splits): split K by whole scale groups until the
-    grid fills the card: ~2 blocks per SM for the tensor-core kernel
-    (128x64 tiles, 8 warps), ~4 for the CUDA-core one (64-column tiles of
-    16 or 64 rows, 4 warps)."""
-    if tensor_cores:
-        tiles, per_sm = -(-n // 128) * -(-b // 64), 2
-    else:
-        tiles, per_sm = -(-n // 64) * -(-b // (16 if b <= 16 else 64)), 4
-    want = max(1, min(groups, -(-per_sm * sms // tiles)))
+def _k_splits(b: int, n: int, groups: int, sms: int):
+    """(groups per split, splits) of the CUDA-core kernels (f32 and W4A8
+    activations): split K by whole scale groups until the grid holds ~4
+    blocks per SM (64-column tiles of 16 or 64 rows, 4 warps)."""
+    tiles = -(-n // 64) * -(-b // (16 if b <= 16 else 64))
+    want = max(1, min(groups, -(-4 * sms // tiles)))
     gps = -(-groups // want)
     return gps, -(-groups // gps)
 
 
-def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch.Tensor:
+# ---------------------------------------------------------------- bf16, Hopper
+_BATCH_TILES = (16, 32, 64, 72, 128)  # wgmma N widths the kernel is built for
+_COUNTERS = {}         # device index -> int32 per-tile counters, zero between calls
+_MAX_TILES = 1 << 16
+
+
+def _stage_k(bits: int) -> int:
+    """Values of K one ring stage of the Hopper kernel holds: 64 packed rows."""
+    return 128 if bits == 4 else 64
+
+
+def hopper_group_ok(bits: int, gs: int) -> bool:
+    """Whether the Hopper kernel takes this group size: a multiple of 16 that
+    divides, or is a multiple of, its stage's 128 (int4) or 64 (int8) values
+    of K, so that every stage holds whole groups or lies in one."""
+    sk = _stage_k(bits)
+    return gs % 16 == 0 and (gs % sk == 0 or sk % gs == 0)
+
+
+def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[int] = None):
+    """The Hopper kernel's launch for x [b, k] and a [k, n] weight:
+    (batch tile, column warpgroups, batch warpgroups, stages per split,
+    splits). The batch tile is wgmma's N; one block covers up to 256 rows,
+    so the weights are read once for b <= 256. K splits (in the same
+    launch) as far as the grid still fits one wave of one block per SM;
+    `block_k` (the K range one block walks, a multiple of the stage) sets
+    the split instead."""
+    if b <= 128:
+        nwg_b, per = 1, b
+    else:
+        nwg_b, per = 2, -(-min(b, 256) // 2)
+    bt = next(t for t in _BATCH_TILES if t >= per)
+    nwg_n = 2 if nwg_b == 1 else 1
+    sk = _stage_k(bits)
+    total = -(-k // sk)
+    if block_k is not None:
+        if block_k <= 0 or block_k % sk:
+            raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of {sk}")
+        sps = min(total, block_k // sk)
+    else:
+        tiles = -(-n // (64 * nwg_n)) * -(-b // (bt * nwg_b))
+        # one wave: a block fills an SM's shared memory
+        want = max(1, min(total, sms // tiles))
+        sps = -(-total // want)
+    return bt, nwg_n, nwg_b, sps, -(-total // sps)
+
+
+def _counters(device) -> torch.Tensor:
+    idx = torch.device(device).index or 0
+    if idx not in _COUNTERS:
+        _COUNTERS[idx] = torch.zeros(_MAX_TILES, dtype=torch.int32, device=device)
+    return _COUNTERS[idx]
+
+
+def _launch_hopper(x2, q, scale, out, qt, gs, block_k):
+    from tpuserve_torch import kernels
+
+    b, k = x2.shape
+    n_pad = out.shape[1]
+    if not hopper_group_ok(qt.bits, gs):
+        raise ValueError(f"quant_matmul kernel: bf16 activations take int{qt.bits} groups "
+                         f"that divide or are multiples of {_stage_k(qt.bits)}, got {gs}")
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()  # TMA reads x rows from a 16-byte aligned base
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:
+        q, scale = q.clone(), scale.clone()
+    bt, nwg_n, nwg_b, sps, splits = hopper_plan(b, k, n_pad, qt.bits, kernels.sm_count(x2.device),
+                                                block_k)
+    ws = cnt = None
+    if splits > 1:
+        if -(-n_pad // (64 * nwg_n)) * -(-b // (bt * nwg_b)) > _MAX_TILES:
+            raise ValueError("quant_matmul kernel: too many output tiles to split K")
+        ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device)
+        cnt = _counters(x2.device)
+    rc = kernels.lib().tpuserve_quant_matmul_bf16(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr(),
+        b, k, n_pad, gs, qt.bits, bt, nwg_n, nwg_b, sps, splits, kernels.stream_of(x2))
+    kernels.check(rc, "quant_matmul")
+
+
+def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
+                 block_k: Optional[int] = None) -> torch.Tensor:
     """x [.., K] @ dequant(qt) [K, N] via the fused kernel (CUDA tensors) or
-    its plain version (CPU tensors)."""
+    its plain version (CPU tensors). `block_k` (as in the JAX package's
+    quant_matmul) is the K range one block walks, which sets the K split;
+    None lets the wrapper choose. It changes no value beyond the order of
+    f32 sums, and the plain version ignores it."""
     global launches
     if not x.is_cuda:
         return quant_matmul_plain(x, qt, out_dtype=out_dtype)
@@ -132,27 +217,32 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch.Tenso
         raise ValueError(f"quant_matmul kernel: unsupported activation dtype {x2.dtype}")
     x2 = x2.contiguous()
     q, scale = qt.q.contiguous(), qt.scale.to(torch.float32).contiguous()
-    n_pad = -(-n // 16) * 16  # the kernel loads weight rows in 16-byte pieces
+    n_pad = -(-n // 16) * 16  # the kernels load weight rows in 16-byte pieces
     if n_pad != n:
         q = torch.nn.functional.pad(q, (0, n_pad - n))
         scale = torch.nn.functional.pad(scale, (0, n_pad - n))
     out = torch.empty((b, n_pad), dtype=torch.float32 if x_kind != 1 else torch.bfloat16,
                       device=x2.device)
     gs = _group_size(qt)
-    tensor_cores = x_kind == 1  # bf16 activations multiply on the tensor cores
-    if tensor_cores and gs % 16:
-        raise ValueError(f"quant_matmul kernel: bf16 activations need group_size % 16 == 0, "
-                         f"got {gs}")
-    if tensor_cores and x2.data_ptr() % 16:
-        x2 = x2.clone()  # the tensor-core kernel loads x rows in 16-byte pieces
-    gps, splits = _k_splits(b, n_pad, k // gs, kernels.sm_count(x2.device), tensor_cores)
-    ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
-        if splits > 1 else None
-    rc = kernels.lib().tpuserve_quant_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        b, k, n_pad, gs, qt.bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
-        kernels.stream_of(x2))
-    kernels.check(rc, "quant_matmul")
+    if x_kind == 1:  # bf16 activations: the Hopper kernel
+        _launch_hopper(x2, q, scale, out, qt, gs, block_k)
+    else:
+        groups = k // gs
+        if block_k is None:
+            gps, splits = _k_splits(b, n_pad, groups, kernels.sm_count(x2.device))
+        else:
+            if block_k <= 0 or block_k % gs:
+                raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of the "
+                                 f"group size {gs}")
+            gps = min(groups, block_k // gs)
+            splits = -(-groups // gps)
+        ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
+            if splits > 1 else None
+        rc = kernels.lib().tpuserve_quant_matmul(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            b, k, n_pad, gs, qt.bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
+            kernels.stream_of(x2))
+        kernels.check(rc, "quant_matmul")
     launches += 1
     if n_pad != n:
         out = out[:, :n]

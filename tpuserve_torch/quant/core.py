@@ -11,12 +11,14 @@ Representation, byte-compatible with the JAX package:
 
 `qmatmul` routes to the fused dequant+matmul kernel
 (tpuserve_torch/ops/quant_matmul.py), which runs its CUDA kernel for tensors
-on the card and its plain PyTorch version for tensors on the CPU.
+on the card and its plain PyTorch version for tensors on the CPU, or under
+TPUSERVE_QMATMUL=xla to dequantize-then-matmul.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -193,20 +195,37 @@ def fp8_round(x: torch.Tensor) -> torch.Tensor:
     return (x8.to(torch.float32) * scale).to(torch.bfloat16)
 
 
+def qmatmul_mode() -> str:
+    """TPUSERVE_QMATMUL, read per call as the JAX package reads it: "xla"
+    sends qmatmul to dequantize-then-matmul; anything else (default
+    "pallas") to the fused kernel."""
+    return os.environ.get("TPUSERVE_QMATMUL", "pallas").lower()
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """x [.., K] @ dequant(qt) [K, N] -> [.., N].
 
     W8A8 (int8 weights, act_bits 8) is plain PyTorch, as it is plain XLA in
     the JAX package. Everything else goes through the fused kernel
     (`ops.quant_matmul`): its CUDA kernel for a tensor on the card, its
-    plain version for a tensor on the CPU."""
+    plain version for a tensor on the CPU. Under TPUSERVE_QMATMUL=xla, on
+    either device, it takes the JAX qmatmul's other branches instead: W4A8
+    through `_w4a8_matmul_ref`, the rest as `dequantize` to bf16 (f32 for f32
+    activations) and one `torch.matmul` with f32 accumulation, cast to x's
+    dtype."""
     from tpuserve_torch.ops.quant_matmul import quant_matmul
 
-    if qt.act_bits == 8 and qt.bits == 8:
-        return _w8a8_matmul(x, qt)
+    xla = qmatmul_mode() == "xla"
+    if qt.act_bits == 8:
+        if qt.bits == 8:
+            return _w8a8_matmul(x, qt)
+        return _w4a8_matmul_ref(x, qt) if xla else quant_matmul(x, qt)
     if qt.act_fp8:
         x = fp8_round(x)
-    return quant_matmul(x, qt)
+    if not xla:
+        return quant_matmul(x, qt)
+    w = dequantize(qt, dtype=torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
+    return torch.matmul(x, w.to(x.dtype))
 
 
 def quantize_param_tree(

@@ -41,8 +41,10 @@ print("AB_JSON " + json.dumps(rows), flush=True)
 """
 
 
-def turn(tree: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=tree, capture_output=True,
+def turn(tree: str, code: str = _TURN) -> dict:
+    """Run `code` in its own process from the checkout's root; return the
+    dict it prints on its AB_JSON line."""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                           text=True, timeout=900)
     if proc.returncode != 0:
         raise SystemExit(f"turn in {tree} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
@@ -50,22 +52,32 @@ def turn(tree: str) -> dict:
     return json.loads(line[len("AB_JSON "):])
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_ab(argv, code: str, out_name: str, description: str) -> None:
+    """Turns A, B, B, A of `code` in the two checkouts named on the command
+    line; every turn into chiprun_out/`out_name`, one line per case."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("a", help="checkout A (e.g. the parent commit, unpacked)")
     ap.add_argument("b", help="checkout B (e.g. the change)")
     args = ap.parse_args(argv)
     order = [("a", args.a), ("b", args.b), ("b", args.b), ("a", args.a)]
-    turns = [(side, turn(tree)) for side, tree in order]
+    turns = [(side, turn(tree, code)) for side, tree in order]
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "ab_attention.json"), "w") as fh:
+    with open(os.path.join("chiprun_out", out_name), "w") as fh:
         json.dump({"order": [s for s, _ in order], "turns": [t for _, t in turns]}, fh, indent=1)
-    for case in turns[0][1]:
-        a = [t[case] for s, t in turns if s == "a"]
-        b = [t[case] for s, t in turns if s == "b"]
+    for case in dict.fromkeys(k for _, t in turns for k in t):  # every case, in order
+        a = [t[case] for s, t in turns if s == "a" and case in t]
+        b = [t[case] for s, t in turns if s == "b" and case in t]
+        if not a or not b:
+            print(f"{case}: only in {'A' if a else 'B'}: "
+                  f"{' / '.join(f'{x:.4f}' for x in a or b)} ms", flush=True)
+            continue
         ma, mb = sum(a) / len(a), sum(b) / len(b)
         print(f"{case}: A {' / '.join(f'{x:.4f}' for x in a)} ms, B "
               f"{' / '.join(f'{x:.4f}' for x in b)} ms, B/A {mb / ma:.3f}", flush=True)
+
+
+def main(argv=None) -> None:
+    run_ab(argv, _TURN, "ab_attention.json", __doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -1,0 +1,39 @@
+"""Time the quant-matmul of two checkouts of the repo on one card, in turns
+(A, B, B, A), as ab_attention.py does for the decode attention: each turn
+builds that checkout's kernels and runs its chip_smoke.py's quant-matmul
+check (every 7B weight shape, int4 and int8, inputs rotated past the L2,
+CUDA events around a CUDA graph). One line per case with both checkouts'
+times (mean of their turns) and their ratio, the per-step totals among
+them; a case one checkout lacks is printed with its own times. Every turn
+goes to chiprun_out/ab_quant_matmul.json.
+
+    python -m tpuserve_torch.scripts.ab_quant_matmul PARENT_DIR CHANGE_DIR
+"""
+
+from __future__ import annotations
+
+from tpuserve_torch.scripts.ab_attention import run_ab
+
+_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from tpuserve_torch.models.llama import LlamaParams
+torch.backends.cuda.matmul.allow_tf32 = False
+res = cs.check_quant_matmul(torch, cs.Timer(torch), 20, LlamaParams.llama2_7b())
+rows = {"per decode step (B=64)": res["ms"]}
+if "verify" in res:
+    rows["per verify step (B=72)"] = res["verify"]["ms"]
+for c in res["cases"]:
+    rows[f"{c['name']} K={c['K']} N={c['N']} B={c['B']} int{c['bits']} g{c['group_size']}"
+         + (" W4A8" if c["act_bits"] else "")] = c["ms"]
+print("AB_JSON " + json.dumps(rows), flush=True)
+"""
+
+
+def main(argv=None) -> None:
+    run_ab(argv, _TURN, "ab_quant_matmul.json", __doc__.splitlines()[0])
+
+
+if __name__ == "__main__":
+    main()
