@@ -59,7 +59,9 @@ Phases, each fatal on failure:
 The kernel phase also holds the grouped kernel, decode_attention_wide, the
 three probes, the five unpack probes and the three copy forms against their
 plain versions; the quant-matmul at B=64 (a decode step) and B=72 (a
-verify step) with a per-step line each, two calls bitwise equal; and the
+verify step) with a per-step line each, two calls bitwise equal, and at
+groups of 96 and 48 that its wgmma kernel's stages cannot tile (the
+CUDA-core route, its launches printed); and the
 flat, multi and grouped kernels under TPUSERVE_ATTN_DYNSKIP=0 against =1.
 The slice phase also runs one full-width decode step under
 TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nvidia-smi line, and as the
@@ -211,6 +213,7 @@ def check_quant_matmul(torch, timer, reps, p):
     (a decode step) and B=72 (a verify step, S*C = 8*9), with each bf16
     call repeated for bitwise-equal outputs (split K adds in a fixed
     order); per-step totals of the kernel, its bound and torch.matmul."""
+    from tpuserve_torch.ops import quant_matmul as tqm
     from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     from tpuserve_torch.quant.core import dequantize
 
@@ -231,6 +234,14 @@ def check_quant_matmul(torch, timer, reps, p):
     # group sizes other than 128 (the kernel reads them at run time)
     cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32, None),
               ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0], None)]  # per channel
+    # groups the Hopper kernel's stages cannot tile take the CUDA-core
+    # kernel on f32 x (bf16_route); K = 4032 = 42 * 96, the nearest to
+    # dim 4096 that 96 and 48 divide
+    group_route = [("wo", (4032, p.dim), 0, 4, 0, 64, 96, None),
+                   ("wo", (4032, p.dim), 0, 4, 0, 64, 48, None),
+                   ("wo", (4032, p.dim), 0, 8, 0, 64, 96, None)]
+    cases += group_route
+    routed0 = tqm.group_route_launches
     steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
              for key in ("decode", "verify")}
     worst, rows = 0.0, []
@@ -289,6 +300,11 @@ def check_quant_matmul(torch, timer, reps, p):
             + (f", plain {step['plain_ms']:.3f} ms" if key == "decode" else ""))
     dec, ver = steps["decode"], steps["verify"]
     log(f"[kernel] quant_matmul verify step / decode step: {ver['ms'] / dec['ms']:.3f}")
+    routed = tqm.group_route_launches - routed0
+    if routed < 2 * len(group_route):   # two checked calls a case, plus the timed ones
+        fail(f"quant_matmul: {routed} group-route launches for {len(group_route)} cases")
+    log(f"[kernel] quant_matmul group route (CUDA-core kernel, bf16 x as f32; int4 g96, "
+        f"int4 g48, int8 g96): {routed} launches")
     return dict(max_abs_err=worst, ms=dec["ms"], plain_ms=dec["plain_ms"],
                 bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                 library_ms=dec["library_ms"],
@@ -296,7 +312,7 @@ def check_quant_matmul(torch, timer, reps, p):
                 verify=dict(ms=ver["ms"], bound_ms=ver["bound_ms"], bound_by=ver["bound_by"],
                             library_ms=ver["library_ms"],
                             per="one verify step: 129 launches, int4 g128, B=72 bf16"),
-                cases=rows)
+                group_route_launches=routed, cases=rows)
 
 
 def check_decode_attention(torch, timer, reps, p):
@@ -2196,19 +2212,20 @@ def main() -> None:
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
                                 "tpuserve/ops/quant_matmul.py:40"),
-               "decode_attention": ("tpuserve_torch/csrc/decode_attention.cu",
-                                    "tpuserve/ops/decode_attention.py:160"),
+               "decode_attention": ("tpuserve_torch/csrc/decode_attention_hopper.cu",
+                                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel; "
+                                    ":495 _packed_kernel)"),
                "decode_attention_paged": (
-                   "tpuserve_torch/csrc/decode_attention.cu",
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)"),
                "decode_attention_multi": (
-                   "tpuserve_torch/csrc/decode_attention_multi.cu",
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)"),
                "decode_attention_grouped": (
                    "tpuserve_torch/csrc/decode_attention_grouped.cu",
                    "tpuserve/ops/decode_attention.py:1237 (_kernel; call :1423)"),
                "decode_attention_wide": (
-                   "tpuserve_torch/csrc/decode_attention.cu",
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, prebuilt Q_wide; "
                    "call :477)"),
                "probe_dma_bound": ("tpuserve_torch/csrc/attention_probes.cu",
@@ -2238,6 +2255,8 @@ def main() -> None:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "per": r["per"]})
+        if kname == "quant_matmul":   # the CUDA-core route of groups the wgmma kernel refuses
+            line[-1]["group_route_launches"] = r["group_route_launches"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,

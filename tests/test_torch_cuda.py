@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpuserve_torch import kernels
 from tpuserve_torch.device import smoke
 from tpuserve_torch.ops import decode_attention as da
 from tpuserve_torch.ops import quant_matmul as qm
@@ -259,6 +260,61 @@ def test_decode_attention_multi(cuda, kind, h, hkv, win, block_l, cands, scale_d
             assert flat_err <= 1e-6 * flat[live].abs().max().item() + 1e-7, (qdt, c, flat_err)
 
 
+@pytest.mark.parametrize("entry", ["flat", "multi", "paged"])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("s,split", [(2, True), (64, False)])
+def test_decode_attention_core_splits(cuda, entry, kind, s, split):
+    """The Hopper core with its window split over blocks (S=2: a few blocks
+    a slot, so split_plan cuts the 512-row window into runs merged by the
+    last block to arrive) and without (S=64 at 32 kv heads: the grid fills
+    the card): against the plain version, which takes the same plan, two
+    calls bitwise equal (the merge runs in split order), and the multi
+    kernel's row c against the flat kernel at positions + c to 1e-6 of the
+    range."""
+    hkv, l, n_layers, layer, cands = 32, 512, 1, 0, 3
+    h = hkv
+    g = torch.Generator().manual_seed(11)
+    pos = torch.randint(0, l - cands, (s,), generator=g, dtype=torch.int32)
+    pos[0] = l - cands
+    if s > 2:
+        pos[1] = -1
+    pos = pos.to(cuda)
+    live = pos >= 0
+    shape = (s, cands, h, 128) if entry == "multi" else (s, h, 128)
+    q = (torch.randn(shape, generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    if entry == "paged":
+        ps, n_cols = 128, l // 128
+        n_pages = s * n_cols + 1
+        k, v, ks, vs = _pools(kind, s, hkv, ps, n_pages, 1, cuda, seed=2)
+        table = (1 + torch.randperm(n_pages - 1, generator=g)).view(s, n_cols)
+        table = table.to(cuda, torch.int32)
+        args = (q, k, v, ks, vs, table, pos, layer)
+        kern, plain = da.decode_attention_wide_paged, da.decode_attention_wide_paged_plain
+    else:
+        k, v, ks, vs = _cache(kind, s, hkv, l, n_layers, cuda, scale_dtype=torch.bfloat16)
+        args = (q, k, v, ks, vs, pos, layer)
+        if entry == "flat":
+            kern, plain = da.decode_attention_wide_cache, da.decode_attention_wide_cache_plain
+        else:
+            kern = da.decode_attention_wide_cache_multi
+            plain = da.decode_attention_wide_cache_multi_plain
+    units = hkv // 2 if kind == "int4" else hkv     # 128-row blocks (the default, one page)
+    splits, _ = da.split_plan(units, s, l // 128, kernels.sm_count(cuda))
+    assert (splits > 1) == split, splits
+    out, again, ref = kern(*args), kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    err = (out - ref)[live].abs().max().item()
+    assert err <= 2e-3 * ref[live].abs().max().item() + 1e-6, err
+    if entry == "multi":
+        for c in range(cands):
+            flat = da.decode_attention_wide_cache(q[:, c].contiguous(), k, v, ks, vs, pos + c,
+                                                  layer)
+            torch.cuda.synchronize()
+            flat_err = (out[:, c] - flat)[live].abs().max().item()
+            assert flat_err <= 1e-6 * flat[live].abs().max().item() + 1e-7, (c, flat_err)
+
+
 def test_decode_attention_multi_refuses(cuda):
     """The multi wrapper raises, and never runs the plain version, on what
     the kernel does not take."""
@@ -277,9 +333,11 @@ def test_decode_attention_multi_refuses(cuda):
     with pytest.raises(ValueError, match="scales must be"):
         da.decode_attention_wide_cache_multi(q, k, v, ks[:, :, :64].contiguous(),
                                              vs[:, :, :64].contiguous(), pos, 0)
-    with pytest.raises(ValueError, match="shared memory"):   # 16 x 8 rows, 128-row blocks
+    # 16 x 8 rows over 2048-row blocks (at 128-row blocks the Hopper core serves them)
+    with pytest.raises(ValueError, match="shared memory"):
+        kl, vl, ksl, vsl = _cache("int4", 2, 2, 2048, 1, cuda)
         da.decode_attention_wide_cache_multi(torch.randn((2, 16, 8, 128), device=cuda),
-                                             k, v, ks, vs, pos, 0)
+                                             kl, vl, ksl, vsl, pos, 0, block_l=2048)
     with pytest.raises(ValueError, match="out of range"):
         da.decode_attention_wide_cache_multi(q, k, v, ks, vs, pos, 1)
     before = da.multi_launches
@@ -567,6 +625,26 @@ def test_quant_matmul_hopper(cuda, bits, gs, b):
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2 ** -7 * ref.float().abs().max().item(), err
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 48), (4, 96), (4, 80), (4, 112), (8, 96), (8, 48)])
+@pytest.mark.parametrize("b", [1, 64, 72, 130])
+def test_quant_matmul_group_route(cuda, bits, gs, b):
+    """bf16 activations with groups the Hopper kernel's stages cannot tile:
+    the CUDA-core kernel on x cast to f32, one launch a call, counted as a
+    group-route launch, against the plain version within one bf16 step."""
+    k, n = 480 if gs != 112 else 448, 208
+    qt = _qt(bits, gs, k, n, 0, cuda)
+    assert qt.group_size == gs and qm.bf16_route(bits, gs) == "cuda_core"
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    before, routed = qm.launches, qm.group_route_launches
+    out = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1 and qm.group_route_launches == routed + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("bits,block_k", [(4, 128), (4, 256), (4, 512), (4, 1024), (4, 4096),

@@ -162,6 +162,55 @@ def test_decode_attention_packed_whole_row():
     assert np.all(out[1] == 0.0)
 
 
+@pytest.fixture()
+def dynskip_env(monkeypatch):
+    """Set TPUSERVE_ATTN_DYNSKIP for one test; JAX reads it when it traces,
+    so its caches are cleared around the change."""
+    import jax
+
+    def set_mode(mode):
+        monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", mode)
+        jax.clear_caches()
+
+    yield set_mode
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("dyn", ["0", "1"])
+@pytest.mark.parametrize("s,hkv,l,block_l", [(2, 2, 256, 64), (4, 4, 512, 128)])
+def test_decode_attention_split_window_matches_pallas(dynskip_env, kind, dyn, s, hkv, l,
+                                                      block_l):
+    """The Hopper core's split plan at small grids: the window is cut into
+    runs of whole blocks, each with its own online softmax, merged in
+    order. The plain version, which takes the same plan, against the Pallas
+    kernel (one online softmax over the window) under either dynskip: the
+    same requant points per block, so f32 ulps of |out|. The cache holds a
+    block past the window, so int8 never takes the one-block packed form."""
+    dynskip_env(dyn)
+    q, k, v, ks, vs = _attn_inputs(kind, s=s, h=hkv, hkv=hkv, l=l + block_l, seed=7 + s)
+    g = tda._geometry(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(ks), l,
+                      block_l)
+    splits, bps = tda._core_plan(g, torch.device("cpu"))
+    assert splits >= 2 and splits * bps >= l // block_l
+    pos = np.array([l - 1, -1, block_l, 3][:s], np.int32)
+    out, ref = _run_both(kind, q, k, v, ks, vs, pos, 1, window=l, block_l=block_l)
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=2e-6)
+    assert np.all(out[1] == 0.0)
+
+
+@pytest.mark.parametrize("units,s,n_blocks,want", [
+    (16, 64, 2, 1),     # the slice: 1024 blocks fill the card
+    (32, 64, 2, 1),     # the paged slice: 2048
+    (32, 8, 4, 2),      # the spec cell: 256 blocks, two splits of two blocks
+    (2, 16, 1, 1),      # a window that is one block cannot split
+    (2, 2, 4, 4),       # a tiny grid: a block a split
+    (1, 1, 7, 7)])
+def test_split_plan(units, s, n_blocks, want):
+    splits, bps = tda.split_plan(units, s, n_blocks, 132)
+    assert splits == want and (splits - 1) * bps < n_blocks <= splits * bps
+
+
 def test_vector_add_plain_matches_pallas():
     rng = np.random.default_rng(0)
     a = rng.normal(size=(1000,)).astype(np.float32)
@@ -226,7 +275,8 @@ def test_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
         else:
             with pytest.raises(RuntimeError):
                 call()
-    assert fake.calls == ["tpuserve_quant_matmul", "tpuserve_decode_attention",
+    # an int8 cache takes the Hopper decode-attention core
+    assert fake.calls == ["tpuserve_quant_matmul", "tpuserve_decode_attention_core",
                           "tpuserve_vector_add"]
     grew = 1 if rc == 0 else 0
     assert (tqm.launches, tda.launches, tsmoke.launches) == tuple(c + grew for c in counts)

@@ -205,6 +205,26 @@ def test_paged_plain_matches_pallas(kind, ps, layer, window):
     assert np.all(out[1] == 0.0)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("s,hkv,ps,pages", [(2, 2, 64, 4), (4, 4, 128, 4)])
+def test_paged_split_window_matches_pallas(kind, s, hkv, ps, pages):
+    """The paged plain version with the window split into runs of whole
+    pages (the Hopper core's plan at a small grid) against the Pallas
+    kernel in interpret mode: f32 ulps of |out|."""
+    q, k, v, ks, vs, table = _pool_inputs(kind, ps, n_slots=s, h=hkv, hkv=hkv,
+                                          table_pages=pages, seed=s + ps)
+    win = pages * ps
+    units = hkv // 2 if kind == "int4" else hkv
+    assert tda.split_plan(units, s, pages, 132)[0] >= 2
+    pos = np.array([win - 1, ps + 5, -1, 2 * ps][:s], np.int32)
+    ref = np.asarray(jda.decode_attention_wide_paged(
+        *(jnp.asarray(a) for a in (q, k, v, ks, vs, table, pos)), 1, interpret=True))
+    tk, tv, tsc = _torch_pools(kind, k, v, ks, vs)
+    out = to_np(tda.decode_attention_wide_paged(
+        torch.from_numpy(q), tk, tv, *tsc, torch.from_numpy(table), torch.from_numpy(pos), 1))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=2e-6)
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4", "bf16"])
 def test_paged_plain_equals_flat_plain(kind):
     """The same KV scattered into shuffled pages and laid out contiguously:
@@ -257,7 +277,7 @@ def test_paged_cuda_tensors_launch_the_kernel_or_raise(monkeypatch):
     pos = torch.zeros(4, dtype=torch.int32)
     before = tda.paged_launches
     tda.decode_attention_wide_paged(fq, tk, tv, *tsc, tt[:, :2], pos, 0)  # strided table
-    assert fake.calls == ["tpuserve_decode_attention_paged"]
+    assert fake.calls == ["tpuserve_decode_attention_core"]   # int8 pools: the Hopper core
     assert tda.paged_launches == before + 1
     with pytest.raises(ValueError, match="multiple of page_size"):
         tda.decode_attention_wide_paged(fq, tk, tv, *tsc, tt, pos, 0, window=24)

@@ -126,11 +126,47 @@ def test_bf16_kernel_failure_raises(monkeypatch):
 
 
 def test_bf16_group_the_kernel_cannot_tile_is_refused(monkeypatch):
+    """The Hopper entry refuses a group its stages cannot tile (48 values):
+    the wrapper never calls it, and serves the group through the CUDA-core
+    entry on x cast to f32, counted as a group-route launch."""
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(4, 48, 480, 64, 4)
-    with pytest.raises(ValueError, match="groups"):
-        tqm.quant_matmul(x, qt)
-    assert fake.calls == []
+    before, routed = tqm.launches, tqm.group_route_launches
+    out = tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
+    args = fake.calls[0][1]
+    assert args[4:10] == (4, 480, 64, 48, 4, 0)   # b, k, n, gs, bits, f32 x
+    assert tqm.launches == before + 1 and tqm.group_route_launches == routed + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (4, 64)
+
+
+# every group the JAX package's quantize makes of K = 4096 (even, dividing
+# K; per-channel is one group of K) has a route for bf16 activations
+@pytest.mark.parametrize("gs", [16, 32, 48, 64, 96, 128, 256, 0])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_every_quantized_group_has_a_bf16_route(bits, gs):
+    k = 4096
+    g = gs or k
+    route = tqm.bf16_route(bits, g)
+    assert route == ("wgmma" if tqm.hopper_group_ok(bits, g) else "cuda_core")
+    assert (route == "cuda_core") == (g in (48, 96))
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 7), (4, 0), (3, 64)])
+def test_bf16_route_refuses_what_no_kernel_takes(bits, gs):
+    with pytest.raises(ValueError, match="no kernel"):
+        tqm.bf16_route(bits, gs)
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 96), (8, 96), (8, 80)])
+def test_bf16_group_route_launches_once(monkeypatch, bits, gs):
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(bits, gs, 480, 128, 72)
+    routed = tqm.group_route_launches
+    tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
+    assert fake.calls[0][1][7:10] == (gs, bits, 0)
+    assert tqm.group_route_launches == routed + 1
 
 
 def test_f32_keeps_the_cuda_core_entry(monkeypatch):

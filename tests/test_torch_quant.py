@@ -112,6 +112,28 @@ def test_qmatmul_modes_match_jax(bits, gs, act_bits, act_fp8):
         np.testing.assert_allclose(out8, ref8, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("bits,gs", [(4, 48), (4, 96), (8, 96)])
+def test_quant_matmul_groups_off_the_stage_match_jax_kernel(bits, gs):
+    """Groups the Hopper kernel's stages cannot tile (served on the card by
+    the CUDA-core kernel on x cast to f32): the port's plain version on
+    bf16 x against the JAX package's fused kernel in interpret mode. Both
+    sum the same exact products in f32 and round to bf16: at most one bf16
+    ulp apart."""
+    from tpuserve.ops.quant_matmul import quant_matmul as jqmm
+    from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
+
+    rng = np.random.default_rng(6 + gs)
+    w = rng.normal(size=(480, 128)).astype(np.float32) * 0.05
+    x = rng.normal(size=(5, 480)).astype(np.float32)
+    qt = jcore.quantize(jnp.asarray(w), bits=bits, group_size=gs)
+    assert qt.group_size == gs
+    ref = np.asarray(jqmm(jnp.asarray(x, jnp.bfloat16), qt, interpret=True)
+                     .astype(jnp.float32))
+    out = quant_matmul_plain(torch.from_numpy(x).to(torch.bfloat16), jax_qt_to_torch(qt))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(to_np(out), ref, rtol=2 ** -7, atol=1e-3)
+
+
 def test_quantize_param_tree_selection():
     rng = np.random.default_rng(5)
     params = {

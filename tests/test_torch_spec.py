@@ -107,6 +107,44 @@ def test_multi_plain_matches_pallas(kind, rep, cands, block_l):
 
 
 # ------------------------------------------------------------ (b) drafting
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("cands", [1, 3, 9])
+@pytest.mark.parametrize("dyn", ["0", "1"])
+def test_multi_split_window_matches_pallas(monkeypatch, kind, cands, dyn):
+    """The multi kernel's plain version with the window split into runs of
+    whole blocks (the Hopper core's plan at S=3, Hkv=2, L=256) against the
+    Pallas kernel in interpret mode under either dynskip, and row c against
+    the flat plain version at positions + c, which takes the same plan (S=3
+    keeps the flat int8 side off the one-block packed form)."""
+    monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", dyn)
+    jax.clear_caches()
+    try:
+        q, k, v, ks, vs = _multi_inputs(kind, 1, cands, s=3, l=256, seed=cands)
+        l, block_l = 256, 64
+        tq = torch.from_numpy(q)
+        g = tda._geometry(tq[:, 0], torch.from_numpy(k), torch.from_numpy(ks), None, block_l,
+                          pack=False)
+        assert tda._core_plan(g, torch.device("cpu"))[0] >= 2
+        pos = np.array([l - cands, 70, -1], np.int32)
+        tsc = [torch.from_numpy(a) for a in (ks, vs)]
+        ref = np.asarray(jda.decode_attention_wide_cache_multi(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(ks), jnp.asarray(vs),
+            jnp.asarray(pos), 1, block_l=block_l, interpret=True))
+        out = to_np(tda.decode_attention_wide_cache_multi(
+            tq, torch.from_numpy(k), torch.from_numpy(v), *tsc, torch.from_numpy(pos), 1,
+            block_l=block_l))
+        # active slots only: candidates >= 1 of an inactive slot are garbage
+        np.testing.assert_allclose(out[:2], ref[:2], rtol=1e-5, atol=2e-6)
+        assert np.all(out[2, 0] == 0.0)
+        for c in range(cands):
+            flat = to_np(tda.decode_attention_wide_cache_plain(
+                torch.from_numpy(q[:, c]), torch.from_numpy(k), torch.from_numpy(v), *tsc,
+                torch.from_numpy(pos + c), 1, block_l=block_l, window=l))
+            np.testing.assert_allclose(out[:2, c], flat[:2], rtol=1e-6, atol=1e-7)
+    finally:
+        jax.clear_caches()
+
+
 def _histories(rng, s, l):
     hist = np.zeros((s, l), np.int32)
     lens = rng.integers(1, l, s).astype(np.int32)
@@ -550,14 +588,19 @@ def test_fused_rounds_run_past_capacity(tmp_path):
 
 
 @pytest.mark.parametrize("spec_k,n_heads,kv", [(16, 4, "int8"), (15, 8, "int4")])
-def test_verify_width_the_kernel_refuses_fails_at_load(tmp_path, spec_k, n_heads, kv):
+def test_verify_width_the_kernel_refuses_fails_at_load(tmp_path, monkeypatch, spec_k, n_heads,
+                                                       kv):
     """More than 16 candidates, or 16 candidates of 8 query heads per block
-    (GQA rep 4, int4 KV: past the H100's 227 KiB of shared memory), fail at
-    start rather than at the first verify; paged mode, whose verify runs
-    no kernel, takes them."""
+    (GQA rep 4, int4 KV) over 2048-row blocks (TPUSERVE_ATTN_BLOCK_L: past
+    the H100's 227 KiB of shared memory; the Hopper core serves them at
+    the default 128), fail at start rather than at the first verify; paged
+    mode, whose verify runs no kernel, takes them."""
     cfg = _config("wide", speculation_tokens=spec_k)
     cfg["model_params"]["n_heads"] = n_heads
     cfg["quantization"]["kv_cache"] = kv
+    if n_heads == 8:
+        GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")._check_supported()
+        monkeypatch.setenv("TPUSERVE_ATTN_BLOCK_L", "2048")
     with pytest.raises(BackendError, match="speculation_tokens"):
         GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu").start()
     cfg["generation"].update(paged=True, page_size=16)
@@ -620,9 +663,10 @@ def test_multi_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
     else:
         with pytest.raises(RuntimeError):
             call()
-    assert [name for name, _ in calls] == ["tpuserve_decode_attention_multi"]
-    # S, C, H, Hkv, L, layer, window, block_l, row stride, kind (int4), heads per block
-    assert calls[0][1][9:20] == (3, 9, 2, 2, 64, 1, 64, 64, 128, 1, 2)
+    assert [name for name, _ in calls] == ["tpuserve_decode_attention_core"]
+    # S, C, H, Hkv, L, layer, window, block_l, row stride; kind (int4), heads per block
+    assert calls[0][1][12:21] == (3, 9, 2, 2, 64, 1, 64, 64, 128)
+    assert calls[0][1][24:26] == (1, 2)
     assert tda.multi_launches == before + (1 if rc == 0 else 0)
     with pytest.raises(ValueError, match="candidates"):
         tda.decode_attention_wide_cache_multi(

@@ -354,7 +354,6 @@ def test_knob_selects_the_kernel_instance(monkeypatch, mode, kind):
     spool = torch.ones((2, 16, 8, 16))
     tda.decode_attention_wide_paged(fq, pool, pool, spool, spool,
                                     torch.arange(16, dtype=torch.int32).view(4, 4), pos, 0)
-    # the kind argument of each entry point's C function
-    assert [(name, args[-3]) for name, args in calls] == [
-        ("tpuserve_decode_attention", kind), ("tpuserve_decode_attention_multi", kind),
-        ("tpuserve_decode_attention_paged", kind)]
+    # the kind argument of the Hopper core's C function, which all three take
+    assert [(name, args[24]) for name, args in calls] == [
+        ("tpuserve_decode_attention_core", kind)] * 3

@@ -1,11 +1,8 @@
 // Pieces shared by the decode-attention kernels (decode_attention.cu,
-// decode_attention_multi.cu, decode_attention_grouped.cu): the block shape,
-// the cache kinds, how one lane reads its four values of a cache row, the
-// per-row int8 quantizer of q and the online-softmax step. The flat kernel
-// (decode_attention.cu) keeps its own inline copy of the last two: moved
-// onto these, its packed-int4 instance compiled to a slower schedule on the
-// H100 (tpuserve_torch/scripts/ab_attention.py, parent against change),
-// while the multi kernel's did not change.
+// decode_attention_multi.cu, decode_attention_hopper.cu,
+// decode_attention_grouped.cu): the block shape, the cache kinds, how one
+// lane reads its four values of a cache row, the per-row int8 quantizer of
+// q and the online-softmax step.
 #pragma once
 
 #include "common.cuh"

@@ -66,7 +66,10 @@ qmm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   const int b0 = blockIdx.y * ROWS;
   const int half = gs / 2;
   const int wrows = (BITS == 4) ? half : gs;  // weight rows per group
-  const int cw = wrows < MAXW ? wrows : MAXW;
+  // chunk: the largest divisor of the group's rows that fits the tile, so
+  // that any group size is served (min(wrows, MAXW) where that divides)
+  int cw = wrows < MAXW ? wrows : MAXW;
+  while (wrows % cw) --cw;
   const int chunks = wrows / cw;
   const int groups = K / gs;
   const int xw = (BITS == 4) ? 2 * cw : cw;   // x values staged per row

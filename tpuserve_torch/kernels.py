@@ -28,8 +28,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
-           "decode_attention_multi.cu", "decode_attention_grouped.cu", "attention_probes.cu",
-           "unpack_probes.cu")
+           "decode_attention_multi.cu", "decode_attention_hopper.cu",
+           "decode_attention_grouped.cu", "attention_probes.cu", "unpack_probes.cu")
 HEADERS = ("common.cuh", "attention_common.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
     "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],
+    "tpuserve_decode_attention_core": [_P] * 10 + [_I] * 18 + [_P],
     "tpuserve_decode_attention_grouped": [_P] * 7 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P],
     "tpuserve_probe_colsum": [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     "tpuserve_probe_dot_only": [_P] * 4 + [_I] * 4 + [_P],

@@ -5,10 +5,13 @@ The cache is read in place: k/v [n_layers, S, L, W] (W = Hkv*hd; int8,
 bf16 or f32) or packed int4 uint8 [n_layers, S, L, W/2] (global split-half:
 byte d holds W-position d in its low nibble and W/2 + d in its high
 nibble), at a layer offset. Scales are this layer's [S, Hkv, L] (bf16 or
-f32, head-major). For tensors on the card the wrapper launches the CUDA
-kernel in csrc/decode_attention.cu; for tensors on the CPU it runs the
-plain version below, which follows the kernel's (and the TPU kernel's)
-algorithm step by step:
+f32, head-major). For tensors on the card the wrapper launches a CUDA
+kernel: for an int8 or packed int4 cache the Hopper core of
+csrc/decode_attention_hopper.cu, which also serves the paged, prebuilt-Q_wide
+and multi-candidate entries, and for a bf16 or f32 cache
+csrc/decode_attention.cu (multi-candidate: csrc/decode_attention_multi.cu).
+For tensors on the CPU it runs the plain version below, which follows the
+kernel's (and the TPU kernel's) algorithm step by step:
 
 - q quantized to int8 per (slot, head) (`_quantize_q`); int32 score dots,
   then  s * q_scale * k_scale ; int4 adds the  -8*sum(q)  fold;
@@ -18,6 +21,13 @@ algorithm step by step:
 - v_scale folded into P, P requantized to int8 per row and block
   (pscale = max(pmax/127, 1e-20)), int32 P@V;
 - bf16/f32 caches: plain f32 dots, P rounded to bf16 for a bf16 cache.
+
+The core splits a slot's window over blocks of the grid where the grid is
+small (`split_plan`): each run of whole block_l blocks starts its own online
+softmax and the runs' (m, l, acc) are merged in order. The requant points
+do not move; the plain versions take the same plan, so only the order of
+f32 sums (and a P code at a rounding tie) can differ from one online
+softmax over the window.
 
 When the window is small enough that the TPU packs several slots into one
 block (`_packed_kernel`: win == L, int8 or float cache, win*W*sb < 1 MiB),
@@ -33,8 +43,7 @@ block is always one page (block_l = ps), so P is requantized once per page.
 same name, `_wide_multi_kernel`) is speculative verification: C candidate
 queries per slot over one read of the flat cache, candidate c attending to
 rows <= positions[s] + c. It never takes the multi-slot packed form, and
-blocks run while they hold a row <= positions[s] + C - 1. Its kernel is
-csrc/decode_attention_multi.cu.
+blocks run while they hold a row <= positions[s] + C - 1.
 
 `decode_attention_wide` (the JAX package's entry of the same name,
 `_wide_kernel` with a prebuilt Q_wide) is the flat kernel's function over
@@ -85,6 +94,13 @@ _DYNSKIP_ENV = "TPUSERVE_ATTN_DYNSKIP"
 _READ_ALL = 16     # added to a kernel's launch code: read and mask past a slot (attention_common.cuh)
 _GROUPED_MAX_BL = 2048   # the grouped kernel's scores [nq, block_l] f32 in shared memory
 _UNPACK_ENV = "TPUSERVE_INT4_UNPACK"
+# the Hopper core (csrc/decode_attention_hopper.cu) of the int8 and packed int4 caches
+_CORE_TR, _CORE_ROW_B, _CORE_SC_W = 64, 144, 68
+_CORE_RG = 32          # query rows one block serves (a row group)
+_CORE_SPLIT_FILL = 4   # blocks an SM should have before the window is split
+_H100_SMS = 132        # the plan of a CPU call is the H100's
+_CORE_COUNTERS = {}    # device index -> int32 counters a (slot, unit, row group), zero between calls
+_CORE_MAX_COUNTERS = 1 << 16
 
 
 def default_block_l() -> int:
@@ -106,6 +122,59 @@ def int4_unpack_noop() -> bool:
     """Whether TPUSERVE_INT4_UNPACK is "noop" (anything else, and unset,
     is the JAX package's default "cur": unpack the nibbles)."""
     return os.environ.get(_UNPACK_ENV, "cur") == "noop"
+
+
+def split_plan(units: int, s_dim: int, n_blocks: int, sms: int):
+    """(splits, blocks per split) of the Hopper core: split a slot's window
+    of `n_blocks` block_l blocks over more blocks of the grid until it holds
+    about _CORE_SPLIT_FILL blocks an SM (units * S without a split), never
+    below one whole block a split. It does not count row groups, so a
+    multi-candidate call splits as the flat calls at its positions do. The
+    plain versions take the same plan, so the CPU tests run the merge."""
+    ctas = max(1, units * s_dim)
+    want = max(1, min(n_blocks, (_CORE_SPLIT_FILL * sms) // ctas))
+    bps = -(-n_blocks // want)
+    return -(-n_blocks // bps), bps
+
+
+def core_rows(cands: int, nq: int):
+    """(row groups, padded rows of a group) of the Hopper core for `cands`
+    candidates of `nq` query heads a kv unit: groups of up to 32 rows,
+    padded to the mma's 8, 16 or 32."""
+    rows = cands * nq
+    rmax = min(rows, _CORE_RG)
+    return -(-rows // _CORE_RG), (8 if rmax <= 8 else 16 if rmax <= 16 else 32)
+
+
+def core_smem_bytes(rp: int, block_l: int, pages: int = 0, int8: bool = False) -> int:
+    """Dynamic shared memory of one block of the Hopper core (its
+    smem_bytes): the cp.async ring (a V tile is transposed within its
+    stage; 3 stages for an int8 cache with up to 8 rows, else 4), q codes,
+    scores and P f32, P codes, the block's V scales, eight per-row
+    statistics and flags, four per-warp partials a row and, paged, the
+    `pages` page ids of a split."""
+    blp = -(-block_l // _CORE_TR) * _CORE_TR
+    stage = _CORE_TR * _CORE_ROW_B + 4 * _CORE_SC_W * 4
+    stages = 3 if int8 and rp == 8 else 4
+    return (stages * stage + rp * 144 + rp * (blp + 4) * 4
+            + rp * (blp + 16) + 2 * blp * 4 + 24 * rp * 4 + pages * 4)
+
+
+def _plan_sms(device) -> int:
+    if torch.device(device).type == "cuda":
+        from tpuserve_torch import kernels
+        return kernels.sm_count(device)
+    return _H100_SMS
+
+
+def _core_plan(g, device):
+    """The Hopper core's (splits, blocks per split) for a geometry `g`;
+    (1, n_blocks) for the float caches, whose kernels do not split."""
+    n_blocks = g["win"] // g["block_l"]
+    if not g["kv_int8"]:
+        return 1, n_blocks
+    units = g["n_kv"] // 2 if g["kv_bits"] == 4 else g["n_kv"]
+    return split_plan(units, g["s_dim"], n_blocks, _plan_sms(device))
 
 
 def _quantize_q(q: torch.Tensor):
@@ -158,16 +227,19 @@ def decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l, p
                                       block_l: Optional[int] = None) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch (any device). Returns
     [S, H, hd] f32."""
-    return _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer,
-                         _geometry(q, k_full, k_scale_l, window, block_l), skip=dynskip())
+    g = _geometry(q, k_full, k_scale_l, window, block_l)
+    return _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
+                         skip=dynskip(), splits=_core_plan(g, q.device)[0])
 
 
 def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
-                  cands: int = 1, skip: bool = True):
+                  cands: int = 1, skip: bool = True, splits: int = 1):
     """q [S, C*H, hd] rows candidate-major (C = `cands`): row c*H + h is
     candidate c's head h and sees cache rows <= positions[s] + c. `skip`
     (TPUSERVE_ATTN_DYNSKIP) skips a slot's blocks past its last row; without
-    it they run, wholly masked."""
+    it they run, wholly masked. The window's blocks are cut into `splits`
+    runs of whole blocks (the Hopper core's split_plan); each run's online
+    softmax starts afresh, and the runs' (m, l, acc) are merged in order."""
     s_dim, n_heads, hd, n_kv, rep = g["s_dim"], g["n_heads"], g["hd"], g["n_kv"], g["rep"]
     m_dim = cands * n_heads
     bl, win = g["block_l"], g["win"]
@@ -197,45 +269,62 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
             block = torch.cat([p32 & 15, p32 >> 4], dim=-1)  # biased nibbles
         return block.reshape(s_dim, bl, n_kv, hd).permute(0, 2, 1, 3)
 
-    m_run = torch.full((s_dim, m_dim, 1), _NEG_INF, dtype=torch.float32, device=dev)
-    l_run = torch.zeros((s_dim, m_dim, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((s_dim, m_dim, hd), dtype=torch.float32, device=dev)
-    for j in range(win // bl):
-        l0 = j * bl
-        run = (l0 <= pos + cands - 1).view(s_dim, 1, 1)  # blocks past the last row skipped
-        if not skip:
-            run = torch.ones_like(run)
-        kb = heads(k_full[layer, :, l0:l0 + bl])[:, kv_head]   # [S, M, bl, hd]
-        vb = heads(v_full[layer, :, l0:l0 + bl])[:, kv_head]
-        if kv_int8:
-            dots = torch.einsum("smd,smld->sml", qd, kb.to(torch.float64))
-            if g["kv_bits"] == 4:
-                dots = dots - 8.0 * qsum
-            s = dots.to(torch.float32) * qs * ks[:, :, l0:l0 + bl]
-        else:
-            s = torch.einsum("smd,smld->sml", qd, kb.to(torch.float32))
-        lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
-        s = s + torch.where(lpos <= horizon, 0.0, _NEG_INF)
-        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+    def fresh():
+        return (torch.full((s_dim, m_dim, 1), _NEG_INF, dtype=torch.float32, device=dev),
+                torch.zeros((s_dim, m_dim, 1), dtype=torch.float32, device=dev),
+                torch.zeros((s_dim, m_dim, hd), dtype=torch.float32, device=dev))
+
+    n_blocks = win // bl
+    bps = -(-n_blocks // splits)
+    parts = []
+    for z in range(splits):
+        m_run, l_run, acc = fresh()
+        for j in range(z * bps, min(n_blocks, (z + 1) * bps)):
+            l0 = j * bl
+            run = (l0 <= pos + cands - 1).view(s_dim, 1, 1)  # blocks past the last row skipped
+            if not skip:
+                run = torch.ones_like(run)
+            kb = heads(k_full[layer, :, l0:l0 + bl])[:, kv_head]   # [S, M, bl, hd]
+            vb = heads(v_full[layer, :, l0:l0 + bl])[:, kv_head]
+            if kv_int8:
+                dots = torch.einsum("smd,smld->sml", qd, kb.to(torch.float64))
+                if g["kv_bits"] == 4:
+                    dots = dots - 8.0 * qsum
+                s = dots.to(torch.float32) * qs * ks[:, :, l0:l0 + bl]
+            else:
+                s = torch.einsum("smd,smld->sml", qd, kb.to(torch.float32))
+            lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
+            s = s + torch.where(lpos <= horizon, 0.0, _NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+            m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
+            p = torch.exp(s - m_safe)
+            corr = torch.exp(m_run - m_safe)
+            l_new = l_run * corr + p.sum(dim=-1, keepdim=True)
+            if kv_int8:
+                p = p * vs[:, :, l0:l0 + bl]
+                pmax = p.abs().amax(dim=-1, keepdim=True)
+                pscale = torch.clamp_min(true_div(pmax, 127.0), 1e-20)
+                pq = torch.clamp(torch.round(p / pscale), -127, 127)
+                vals = vb.to(torch.float64) - (8.0 if g["kv_bits"] == 4 else 0.0)
+                part = torch.einsum("sml,smld->smd", pq.to(torch.float64), vals)
+                part = part.to(torch.float32) * pscale
+            else:
+                if k_full.dtype != torch.float32:
+                    p = p.to(torch.bfloat16).to(torch.float32)
+                part = torch.einsum("sml,smld->smd", p, vb.to(torch.float32))
+            acc = torch.where(run, acc * corr + part, acc)
+            l_run = torch.where(run, l_new, l_run)
+            m_run = torch.where(run, m_new, m_run)
+        parts.append((m_run, l_run, acc))
+    # the merge, in split order (one split: an exact identity)
+    m_run, l_run, acc = fresh()
+    for m_z, l_z, a_z in parts:
+        m_new = torch.maximum(m_run, m_z)
         m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
-        p = torch.exp(s - m_safe)
-        corr = torch.exp(m_run - m_safe)
-        l_new = l_run * corr + p.sum(dim=-1, keepdim=True)
-        if kv_int8:
-            p = p * vs[:, :, l0:l0 + bl]
-            pmax = p.abs().amax(dim=-1, keepdim=True)
-            pscale = torch.clamp_min(true_div(pmax, 127.0), 1e-20)
-            pq = torch.clamp(torch.round(p / pscale), -127, 127)
-            vals = vb.to(torch.float64) - (8.0 if g["kv_bits"] == 4 else 0.0)
-            part = torch.einsum("sml,smld->smd", pq.to(torch.float64), vals)
-            part = part.to(torch.float32) * pscale
-        else:
-            if k_full.dtype != torch.float32:
-                p = p.to(torch.bfloat16).to(torch.float32)
-            part = torch.einsum("sml,smld->smd", p, vb.to(torch.float32))
-        acc = torch.where(run, acc * corr + part, acc)
-        l_run = torch.where(run, l_new, l_run)
-        m_run = torch.where(run, m_new, m_run)
+        corr, c_z = torch.exp(m_run - m_safe), torch.exp(m_z - m_safe)
+        l_run = l_run * corr + l_z * c_z
+        acc = acc * corr + a_z * c_z
+        m_run = m_new
     return torch.where(l_run > 0, acc / torch.clamp_min(l_run, 1e-20), 0.0)
 
 
@@ -262,7 +351,7 @@ def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
     return kind, nq
 
 
-def _check_inputs(q, tensors, k, v, block_rows, nq):
+def _check_inputs(q, tensors, k, v, block_rows, nq, core: bool = False):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode attention kernel: unsupported q dtype {q.dtype}")
     for t in tensors:
@@ -272,7 +361,7 @@ def _check_inputs(q, tensors, k, v, block_rows, nq):
             raise ValueError("decode attention kernel: inputs must be contiguous")
     if k.shape != v.shape or k.dtype != v.dtype:
         raise ValueError("decode attention kernel: k and v caches differ")
-    if nq * block_rows * 5 > 160 * 1024:
+    if not core and nq * block_rows * 4 > 160 * 1024:   # the float kernels' scores
         raise ValueError(f"decode attention kernel: block of {block_rows} rows too large")
 
 
@@ -299,37 +388,84 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
 
 def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g, skip: bool):
     """Check the inputs and launch the flat kernel over the geometry `g`
-    (`skip`: the kernel's dynskip flag)."""
+    (`skip`: the kernel's dynskip flag): the Hopper core for an int8 or
+    packed int4 cache, csrc/decode_attention.cu for a float one."""
     from tpuserve_torch import kernels
 
     n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], g["hd"])
     _check_inputs(q, [q, k_full, v_full, positions]
                   + ([k_scale_l, v_scale_l] if g["quantized"] else []),
-                  k_full, v_full, g["block_l"], nq)
+                  k_full, v_full, g["block_l"], nq, core=g["kv_int8"])
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
-    sc_bf16 = 0
-    if g["quantized"]:
-        want = (g["s_dim"], n_kv, g["l_max"])
-        if tuple(k_scale_l.shape) != want or tuple(v_scale_l.shape) != want:
-            raise ValueError(f"decode attention kernel: scales must be {want}")
-        if k_scale_l.dtype != v_scale_l.dtype or k_scale_l.dtype not in (torch.float32,
-                                                                          torch.bfloat16):
-            raise ValueError("decode attention kernel: scales must be f32 or bf16")
-        sc_bf16 = int(k_scale_l.dtype == torch.bfloat16)
+    sc_bf16 = _check_scales(k_scale_l, v_scale_l, g) if g["quantized"] else 0
     pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    null = 0
+    code = kind if skip else kind + _READ_ALL
+    if g["kv_int8"]:
+        _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, 1, nq,
+                     layer, code, sc_bf16)
+        return out
     rc = kernels.lib().tpuserve_decode_attention(
-        q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
-        k_scale_l.data_ptr() if g["quantized"] else null,
-        v_scale_l.data_ptr() if g["quantized"] else null,
+        q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), 0, 0,
         pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
         g["s_dim"], g["n_heads"], n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-        k_full.shape[-1], kind if skip else kind + _READ_ALL, nq, kernels.stream_of(q))
+        k_full.shape[-1], code, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention")
     return out
+
+
+def _check_scales(k_scale_l, v_scale_l, g, what="decode attention kernel") -> int:
+    """Raise unless the scales are this layer's [S, Hkv, L] f32 or bf16;
+    return whether they are bf16."""
+    want = (g["s_dim"], g["n_kv"], g["l_max"])
+    if tuple(k_scale_l.shape) != want or tuple(v_scale_l.shape) != want:
+        raise ValueError(f"{what}: scales must be {want}")
+    if k_scale_l.dtype != v_scale_l.dtype or k_scale_l.dtype not in (torch.float32,
+                                                                      torch.bfloat16):
+        raise ValueError(f"{what}: scales must be f32 or bf16")
+    return int(k_scale_l.dtype == torch.bfloat16)
+
+
+def _core_counters(device) -> torch.Tensor:
+    idx = torch.device(device).index or 0
+    if idx not in _CORE_COUNTERS:
+        _CORE_COUNTERS[idx] = torch.zeros(_CORE_MAX_COUNTERS, dtype=torch.int32, device=device)
+    return _CORE_COUNTERS[idx]
+
+
+def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, sc_bf16,
+                 n_pages=0, hp=0):
+    """Launch the Hopper core (csrc/decode_attention_hopper.cu) over `g`:
+    the split plan, its workspace and counters, one launch."""
+    from tpuserve_torch import kernels
+
+    splits, bps = _core_plan(g, q.device)
+    units = g["n_kv"] // 2 if g["kv_bits"] == 4 else g["n_kv"]
+    groups, rp = core_rows(cands, nq)
+    smem = core_smem_bytes(rp, g["block_l"], bps if table is not None else 0,
+                           int8=g["kv_bits"] == 8)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"decode attention kernel: {smem} bytes of shared memory for "
+                         f"{cands * nq} rows, block {g['block_l']}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:   # rows are copied in 16-byte pieces
+        raise ValueError("decode attention kernel: k and v must be 16-byte aligned")
+    ws = cnt = None
+    if splits > 1:
+        n_cnt = g["s_dim"] * units * groups
+        if n_cnt > _CORE_MAX_COUNTERS:
+            raise ValueError("decode attention kernel: too many (slot, unit) pairs to split")
+        ws = torch.empty(n_cnt * splits * rp * (_HD + 2), dtype=torch.float32, device=q.device)
+        cnt = _core_counters(q.device)
+    rc = kernels.lib().tpuserve_decode_attention_core(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        pos32.data_ptr(), 0 if table is None else table.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr(),
+        int(q.dtype == torch.bfloat16), sc_bf16, g["s_dim"], cands, g["n_heads"], g["n_kv"],
+        g["l_max"], int(layer), g["win"], g["block_l"], k.shape[-1], n_pages, hp,
+        0 if table is None else table.stride(0), code, nq, splits, bps, kernels.stream_of(q))
+    kernels.check(rc, "decode_attention_core")
 
 
 # ---------------------------------------------------------------- prebuilt Q_wide
@@ -543,24 +679,25 @@ _SMEM_LIMIT = 227 * 1024   # shared memory one block may use on the H100
 
 
 def multi_smem_bytes(rows: int, block_l: int) -> int:
-    """Dynamic shared memory of the multi kernel for `rows` = C * (query
-    heads per block): q [rows, hd] f32, the P@V cross-warp reduction
-    [4 warps, group, hd] and the accumulators [rows, hd] f32, scores/P
-    [rows, bl] f32, the block's V scales [2, bl] f32, P codes [rows, bl]
-    int8. csrc/decode_attention_multi.cu lays it out so."""
-    return rows * _HD * 4 + 4 * _MULTI_GROUP * _HD * 4 + rows * _HD * 4 \
-        + rows * block_l * 4 + 2 * block_l * 4 + rows * block_l
+    """Dynamic shared memory of the float caches' multi kernel for `rows` =
+    C * (query heads per block): q [rows, hd] f32, the P@V cross-warp
+    reduction [4 warps, group, hd] and the accumulators [rows, hd] f32,
+    scores/P [rows, bl] f32. csrc/decode_attention_multi.cu lays it out so."""
+    return rows * _HD * 4 + 4 * _MULTI_GROUP * _HD * 4 + rows * _HD * 4 + rows * block_l * 4
 
 
-def check_multi_kernel(cands: int, nq: int, block_l: Optional[int] = None) -> None:
+def check_multi_kernel(cands: int, nq: int, block_l: Optional[int] = None,
+                       int_kv: bool = True) -> None:
     """Raise ValueError unless the multi kernel takes `cands` candidates of
     `nq` query heads per block over blocks of `block_l` rows (None: the
-    entry's default, TPUSERVE_ATTN_BLOCK_L or 128)."""
+    entry's default, TPUSERVE_ATTN_BLOCK_L or 128): the Hopper core for an
+    int8 or packed int4 cache (`int_kv`), else csrc/decode_attention_multi.cu."""
     block_l = default_block_l() if block_l is None else block_l
     if not 1 <= cands <= _MULTI_MAX_C:
         raise ValueError(f"multi decode attention kernel: {cands} candidates, "
                          f"takes 1..{_MULTI_MAX_C}")
-    smem = multi_smem_bytes(cands * nq, block_l)
+    smem = (core_smem_bytes(core_rows(cands, nq)[1], block_l) if int_kv
+            else multi_smem_bytes(cands * nq, block_l))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
                          f"{cands} candidates x {nq} heads, block {block_l}")
@@ -576,7 +713,8 @@ def decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scal
     s_dim, cands, n_heads, hd = q.shape
     g = _geometry(q[:, 0], k_full, k_scale_l, window, block_l, pack=False)
     out = _attend_plain(q.reshape(s_dim, cands * n_heads, hd), k_full, v_full, k_scale_l,
-                        v_scale_l, positions, layer, g, cands=cands, skip=dynskip())
+                        v_scale_l, positions, layer, g, cands=cands, skip=dynskip(),
+                        splits=_core_plan(g, q.device)[0])
     return out.reshape(s_dim, cands, n_heads, hd)
 
 
@@ -608,34 +746,29 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], hd)
     _check_inputs(q, [q, k_full, v_full, positions]
                   + ([k_scale_l, v_scale_l] if g["quantized"] else []),
-                  k_full, v_full, g["block_l"], nq)
+                  k_full, v_full, g["block_l"], nq, core=g["kv_int8"])
     if k_full.data_ptr() % 16 or v_full.data_ptr() % 16:   # rows are read in 16-byte vectors
         raise ValueError("multi decode attention kernel: k and v caches must be 16-byte aligned")
-    check_multi_kernel(cands, nq, g["block_l"])
+    check_multi_kernel(cands, nq, g["block_l"], int_kv=g["kv_int8"])
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     if positions.shape != (s_dim,):
         raise ValueError("multi decode attention: positions must be [S]")
-    sc_bf16 = 0
-    if g["quantized"]:
-        want = (s_dim, n_kv, g["l_max"])
-        if tuple(k_scale_l.shape) != want or tuple(v_scale_l.shape) != want:
-            raise ValueError(f"multi decode attention kernel: scales must be {want}")
-        if k_scale_l.dtype != v_scale_l.dtype or k_scale_l.dtype not in (torch.float32,
-                                                                          torch.bfloat16):
-            raise ValueError("multi decode attention kernel: scales must be f32 or bf16")
-        sc_bf16 = int(k_scale_l.dtype == torch.bfloat16)
+    sc_bf16 = _check_scales(k_scale_l, v_scale_l, g, "multi decode attention kernel") \
+        if g["quantized"] else 0
     pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    null = 0
-    rc = kernels.lib().tpuserve_decode_attention_multi(
-        q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
-        k_scale_l.data_ptr() if g["quantized"] else null,
-        v_scale_l.data_ptr() if g["quantized"] else null,
-        pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
-        s_dim, cands, n_heads, n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-        k_full.shape[-1], kind if dynskip() else kind + _READ_ALL, nq, kernels.stream_of(q))
-    kernels.check(rc, "decode_attention_multi")
+    code = kind if dynskip() else kind + _READ_ALL
+    if g["kv_int8"]:
+        _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, cands, nq,
+                     layer, code, sc_bf16)
+    else:
+        rc = kernels.lib().tpuserve_decode_attention_multi(
+            q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), 0, 0,
+            pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
+            s_dim, cands, n_heads, n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
+            k_full.shape[-1], code, nq, kernels.stream_of(q))
+        kernels.check(rc, "decode_attention_multi")
     multi_launches += 1
     return out
 
@@ -678,7 +811,8 @@ def decode_attention_wide_paged_plain(q, k_pool, v_pool, k_scale_pool, v_scale_p
 
         ks, vs = window_scales(k_scale_pool), window_scales(v_scale_pool)
     g = _geometry(q, k, ks, win, ps, pack=False)
-    return _attend_plain(q, k, v, ks, vs, positions, 0, g)
+    return _attend_plain(q, k, v, ks, vs, positions, 0, g,
+                         splits=_core_plan(g, q.device)[0])
 
 
 def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, page_table,
@@ -717,7 +851,8 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
     if kv_bits == 4 and (w // 2) % 128:
         raise ValueError(f"packed int4 KV needs (n_kv_heads*head_dim)/2 % 128 == 0, got W={w}")
     _check_inputs(q, [q, k_pool, v_pool, positions]
-                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool, ps, nq)
+                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool, ps, nq,
+                  core=quantized)
     if (page_table.device != q.device or page_table.dtype != torch.int32
             or page_table.shape[0] != s_dim or page_table.stride(1) != 1):
         raise ValueError("paged decode attention: page_table must be int32 [S, P] on the "
@@ -737,14 +872,17 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
         if k_scale_pool.dtype != torch.float32 or v_scale_pool.dtype != torch.float32:
             raise ValueError("paged decode attention: scale pools must be float32")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    null = 0
-    rc = kernels.lib().tpuserve_decode_attention_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale_pool.data_ptr() if quantized else null,
-        v_scale_pool.data_ptr() if quantized else null,
-        positions.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), s_dim, n_heads, n_kv, n_pages, ps, hp, int(layer),
-        win, page_table.stride(0), w_store, kind, nq, kernels.stream_of(q))
-    kernels.check(rc, "decode_attention_paged")
+    if quantized:   # the Hopper core
+        g = dict(s_dim=s_dim, n_heads=n_heads, n_kv=n_kv, kv_bits=kv_bits, kv_int8=True,
+                 rep=n_heads // n_kv, win=win, block_l=ps, l_max=ps)
+        _launch_core(q, k_pool, v_pool, k_scale_pool, v_scale_pool, positions, page_table, out,
+                     g, 1, nq, layer, kind, 0, n_pages=n_pages, hp=hp)
+    else:
+        rc = kernels.lib().tpuserve_decode_attention_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), 0, 0,
+            positions.data_ptr(), page_table.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), s_dim, n_heads, n_kv, n_pages, ps, hp, int(layer),
+            win, page_table.stride(0), w_store, kind, nq, kernels.stream_of(q))
+        kernels.check(rc, "decode_attention_paged")
     paged_launches += 1
     return out

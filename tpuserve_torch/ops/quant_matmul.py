@@ -16,6 +16,11 @@ exact products and differs only in the order of f32 sums):
   per-group dots are integer with the -8 fold in int32, and the per-row
   activation scale multiplies the f32 output.
 
+bf16 activations take the Hopper kernel where its stages tile the group
+(`hopper_group_ok`); any other group (48, 80, 96, 112, ...) takes the
+CUDA-core kernel on x cast to f32, the same function (`bf16_route`, chosen
+by shape before the launch, counted in `group_route_launches`).
+
 Leading dims of x are flattened into the batch and restored.
 """
 
@@ -28,6 +33,9 @@ import torch
 from tpuserve_torch.quant.core import QTensor, quantize_activation, unpack_int4
 
 launches = 0  # CUDA kernel launches (the plain version does not count)
+# of those, bf16 activations served by the CUDA-core kernel on x cast to f32
+# (the group sizes the Hopper kernel's stages cannot tile; see bf16_route)
+group_route_launches = 0
 
 
 def _group_size(qt: QTensor) -> int:
@@ -75,21 +83,20 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
     if qt.q.device != x2.device or qt.scale.device != x2.device:
         raise ValueError("quant_matmul: x and the weight must be on the same device")
     if qt.bits == 4:
-        half = gs // 2
-        chunk = min(half, 64)
-        if gs % 8 != 0 or half % chunk != 0:
-            raise ValueError(f"quant_matmul kernel: unsupported int4 group size {gs}")
+        if gs % 2 != 0:
+            raise ValueError(f"quant_matmul kernel: int4 groups must be even, got {gs}")
+        if qt.act_bits == 8:
+            half = gs // 2
+            if gs % 8 != 0 or half % min(half, 64) != 0:
+                raise ValueError(f"quant_matmul kernel: unsupported W4A8 group size {gs}")
         if qt.q.dtype != torch.uint8 or tuple(qt.q.shape) != (k // 2, n):
             raise ValueError("quant_matmul kernel: int4 weight must be uint8 [K/2, N]")
     elif qt.bits == 8:
-        chunk = min(gs, 128)
-        if gs % chunk != 0:
-            raise ValueError(f"quant_matmul kernel: unsupported int8 group size {gs}")
         if qt.q.dtype != torch.int8 or tuple(qt.q.shape) != (k, n):
             raise ValueError("quant_matmul kernel: int8 weight must be int8 [K, N]")
     else:
         raise ValueError(f"quant_matmul kernel: unsupported bits {qt.bits}")
-    if k % gs != 0:
+    if gs <= 0 or k % gs != 0:
         raise ValueError(f"cannot group K={k} by group_size={gs}")
 
 
@@ -120,6 +127,18 @@ def hopper_group_ok(bits: int, gs: int) -> bool:
     of K, so that every stage holds whole groups or lies in one."""
     sk = _stage_k(bits)
     return gs % 16 == 0 and (gs % sk == 0 or sk % gs == 0)
+
+
+def bf16_route(bits: int, gs: int) -> str:
+    """The kernel that serves bf16 activations for int`bits` weights in
+    groups of `gs` values of K, chosen by shape before any launch: "wgmma"
+    (qmm_wgmma_kernel) where hopper_group_ok, else "cuda_core"
+    (qmm_f32_kernel on x cast to f32, the same function: bf16 values are
+    exact in f32, and the kernel takes any group, int4 any even one).
+    Raises on a group neither takes."""
+    if bits not in (4, 8) or gs <= 0 or (bits == 4 and gs % 2):
+        raise ValueError(f"quant_matmul kernel: no kernel takes int{bits} groups of {gs}")
+    return "wgmma" if hopper_group_ok(bits, gs) else "cuda_core"
 
 
 def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[int] = None):
@@ -162,9 +181,6 @@ def _launch_hopper(x2, q, scale, out, qt, gs, block_k):
 
     b, k = x2.shape
     n_pad = out.shape[1]
-    if not hopper_group_ok(qt.bits, gs):
-        raise ValueError(f"quant_matmul kernel: bf16 activations take int{qt.bits} groups "
-                         f"that divide or are multiples of {_stage_k(qt.bits)}, got {gs}")
     if x2.data_ptr() % 16:
         x2 = x2.clone()  # TMA reads x rows from a 16-byte aligned base
     if q.data_ptr() % 16 or scale.data_ptr() % 16:
@@ -184,6 +200,31 @@ def _launch_hopper(x2, q, scale, out, qt, gs, block_k):
     kernels.check(rc, "quant_matmul")
 
 
+def _launch_cuda_core(x2, q, scale, out, bits, gs, x_kind, block_k):
+    """qmm_f32_kernel (x_kind 0, f32 x) or qmm_w4a8_kernel (x_kind 2), K
+    split by whole scale groups into a workspace reduced in split order."""
+    from tpuserve_torch import kernels
+
+    b, k = x2.shape
+    n_pad = out.shape[1]
+    groups = k // gs
+    if block_k is None:
+        gps, splits = _k_splits(b, n_pad, groups, kernels.sm_count(x2.device))
+    else:
+        if block_k <= 0 or block_k % gs:
+            raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of the "
+                             f"group size {gs}")
+        gps = min(groups, block_k // gs)
+        splits = -(-groups // gps)
+    ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
+        if splits > 1 else None
+    rc = kernels.lib().tpuserve_quant_matmul(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        b, k, n_pad, gs, bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
+        kernels.stream_of(x2))
+    kernels.check(rc, "quant_matmul")
+
+
 def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
                  block_k: Optional[int] = None) -> torch.Tensor:
     """x [.., K] @ dequant(qt) [K, N] via the fused kernel (CUDA tensors) or
@@ -191,11 +232,9 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     quant_matmul) is the K range one block walks, which sets the K split;
     None lets the wrapper choose. It changes no value beyond the order of
     f32 sums, and the plain version ignores it."""
-    global launches
+    global launches, group_route_launches
     if not x.is_cuda:
         return quant_matmul_plain(x, qt, out_dtype=out_dtype)
-    from tpuserve_torch import kernels
-
     k, n = qt.orig_shape
     if x.shape[-1] != k:
         raise ValueError(f"x last dim {x.shape[-1]} != K {k}")
@@ -221,28 +260,18 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     if n_pad != n:
         q = torch.nn.functional.pad(q, (0, n_pad - n))
         scale = torch.nn.functional.pad(scale, (0, n_pad - n))
+    gs = _group_size(qt)
     out = torch.empty((b, n_pad), dtype=torch.float32 if x_kind != 1 else torch.bfloat16,
                       device=x2.device)
-    gs = _group_size(qt)
-    if x_kind == 1:  # bf16 activations: the Hopper kernel
+    route = bf16_route(qt.bits, gs) if x_kind == 1 else "cuda_core"
+    if route == "wgmma":
         _launch_hopper(x2, q, scale, out, qt, gs, block_k)
+    elif x_kind == 1:   # a group the Hopper kernel's stages cannot tile
+        out = torch.empty((b, n_pad), dtype=torch.float32, device=x2.device)
+        _launch_cuda_core(x2.to(torch.float32), q, scale, out, qt.bits, gs, 0, block_k)
+        group_route_launches += 1
     else:
-        groups = k // gs
-        if block_k is None:
-            gps, splits = _k_splits(b, n_pad, groups, kernels.sm_count(x2.device))
-        else:
-            if block_k <= 0 or block_k % gs:
-                raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of the "
-                                 f"group size {gs}")
-            gps = min(groups, block_k // gs)
-            splits = -(-groups // gps)
-        ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
-            if splits > 1 else None
-        rc = kernels.lib().tpuserve_quant_matmul(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            b, k, n_pad, gs, qt.bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
-            kernels.stream_of(x2))
-        kernels.check(rc, "quant_matmul")
+        _launch_cuda_core(x2, q, scale, out, qt.bits, gs, x_kind, block_k)
     launches += 1
     if n_pad != n:
         out = out[:, :n]

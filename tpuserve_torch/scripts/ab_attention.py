@@ -4,7 +4,8 @@ machine and one power state.
 
 Each turn runs in its own process from the checkout's root, builds that
 checkout's kernels and calls its chip_smoke.py's kernel checks for the
-flat, the paged and the multi-candidate decode attention, which time every
+flat, the paged and the multi-candidate decode attention and for
+decode_attention_wide (the flat kernel at the sweep's shape), which time every
 case with CUDA events around a CUDA graph, inputs rotated past the L2. The
 script prints one line per case with the two checkouts' times (mean of
 their turns) and their ratio, and writes every turn to
@@ -31,11 +32,13 @@ p = LlamaParams.llama2_7b()
 timer = cs.Timer(torch)
 rows = {}
 for name, check in (("flat", cs.check_decode_attention), ("paged", cs.check_decode_attention_paged),
-                    ("multi", cs.check_decode_attention_multi)):
+                    ("multi", cs.check_decode_attention_multi),
+                    ("wide", lambda torch, timer, reps, p: cs.check_decode_attention_wide(
+                        torch, timer, reps))):
     res = check(torch, timer, 20, p)
     for c in res["cases"]:
         key = " ".join(f"{k}={c[k]}" for k in ("kind", "S", "H", "Hkv", "L", "C", "window",
-                                             "step_positions") if k in c)
+                                             "block_l", "step_positions") if k in c)
         rows[f"{name} {key}"] = c["ms"]
 print("AB_JSON " + json.dumps(rows), flush=True)
 """
