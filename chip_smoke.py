@@ -6,7 +6,8 @@ Phases, each fatal on failure:
   2. build    every CUDA kernel from tpuserve_torch/csrc with nvcc (sm_90a);
   3. kernels  each kernel against its plain PyTorch version at the main
               path's shapes, with its time, the plain version's, a library
-              yardstick's and the card's bound; the paged decode attention
+              yardstick's and the card's bound (the vector add in each of
+              its seven dtypes beside torch.add); the paged decode attention
               also against the flat kernel on the same KV in shuffled pages;
               the multi-candidate (speculative verify) decode attention
               also against the flat kernel at positions + c, and timed
@@ -170,26 +171,48 @@ def phase_build():
 
 
 def check_vector_add(torch, timer, reps):
-    from tpuserve_torch.device.smoke import vector_add, vector_add_plain
+    """vector_add at 1M elements of each dtype the JAX function adds,
+    bitwise equal to torch's a + b, timed beside torch.add (the library's
+    call, which is also the plain version) with inputs rotated past the
+    L2. The kernels line keeps the float32 case."""
+    from tpuserve_torch.device.smoke import DTYPES, vector_add, vector_add_plain
 
     n = 1_000_000
-    copies = max(1, math.ceil(L2_FLUSH_BYTES / (12 * n)))
-    ab = [(torch.randn(n, device="cuda"), torch.randn(n, device="cuda")) for _ in range(copies)]
-    a, b = ab[0]
-    out, ref = vector_add(a, b), vector_add_plain(a, b)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = 0.0  # one f32 add per element: bitwise equal
-    if err > tol:
-        fail(f"vector_add: max |err| {err} > {tol}")
-    ms = timer.ms(lambda i: vector_add(*ab[i % copies]), reps)
-    plain_ms = timer.ms(lambda i: vector_add_plain(*ab[i % copies]), reps)
-    b_ms, b_by = bound(12 * n, n, PEAK_OPS["f32"])
-    log(f"[kernel] vector_add n={n}: max|err| {err} (tol {tol}); {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    # the plain version is torch.add, the one library call for this function
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=plain_ms, per="one call, 1M float32")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+
+    def operand(dtype):
+        if dtype.is_floating_point:
+            return torch.randn(n, generator=g, device="cuda").to(dtype)
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max + 1, (n,), generator=g, device="cuda",
+                             dtype=dtype)
+
+    cases = []
+    for dtype in DTYPES:
+        esize = torch.empty(0, dtype=dtype).element_size()
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (3 * esize * n)))
+        ab = [(operand(dtype), operand(dtype)) for _ in range(copies)]
+        out, ref = vector_add(*ab[0]), vector_add_plain(*ab[0])
+        torch.cuda.synchronize()
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[esize]
+        if not torch.equal(out.view(bits), ref.view(bits)):   # one add an element: bitwise
+            fail(f"vector_add {dtype}: not bitwise equal to a + b")
+        err = (out.double() - ref.double()).abs().max().item()
+        ms = timer.ms(lambda i: vector_add(*ab[i % copies]), reps)
+        lib_ms = timer.ms(lambda i: torch.add(*ab[i % copies]), reps)
+        b_ms, b_by = bound(3 * esize * n, n, PEAK_OPS["f32"])
+        name = str(dtype).replace("torch.", "")
+        log(f"[kernel] vector_add n={n} {name}: bitwise equal to a + b; {ms:.4f} ms, torch.add "
+            f"(the plain version) {lib_ms:.4f} ms ({ms / lib_ms:.3f}x), bound {b_ms:.4f} ms "
+            f"({b_by}), {3 * esize * n / ms / 1e6:.1f} GB/s")
+        cases.append(dict(dtype=name, max_abs_err=err, tol=0.0, ms=ms, plain_ms=lib_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        del ab
+    f32 = cases[0]
+    return dict(max_abs_err=f32["max_abs_err"], ms=f32["ms"], plain_ms=f32["plain_ms"],
+                bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+                per="one call, 1M float32", cases=cases)
 
 
 def _qt_random(torch, bits, k, n, gs=128, act_bits=0):

@@ -465,11 +465,46 @@ def test_vector_add(cuda):
     assert smoke.run_smoke_test(device="cuda")
 
 
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _vadd_operand(n, dtype, device, g):
+    if dtype in _BITS:
+        return (torch.randn(n, generator=g, device=device)
+                * torch.exp2(torch.randint(-6, 7, (n,), generator=g, device=device))).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max + 1, (n,), generator=g, device=device, dtype=dtype)
+
+
+def _same_bits(x, y):
+    return torch.equal(x.view(_BITS[x.dtype]), y.view(_BITS[y.dtype])) if x.dtype in _BITS \
+        else torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 1_000_003, 2 ** 24 + 5])
+@pytest.mark.parametrize("dtype", smoke.DTYPES)
+def test_vector_add_dtypes(cuda, dtype, n):
+    """Every dtype the JAX function adds, bitwise equal to torch's a + b:
+    on whole tensors, on views that share an alignment (a[1:] + b[1:], the
+    vector route after a scalar head) and on views that do not (a[1:] +
+    b[3:], the scalar route)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a, b = _vadd_operand(n + 3, dtype, cuda, g), _vadd_operand(n + 3, dtype, cuda, g)
+    cases = [(a[:n], b[:n]), (a[1:n + 1], b[1:n + 1]), (a[1:n + 1], b[3:n + 3])]
+    for x, y in cases:
+        before = smoke.launches
+        out = smoke.vector_add(x, y)
+        assert smoke.launches == before + 1
+        assert out.dtype == dtype and _same_bits(out, x + y), (x.data_ptr() % 16, y.data_ptr() % 16)
+
+
 @pytest.mark.parametrize("m,w2,n,blr,grid", [
     (32, 2048, 4096, 256, None),   # the microbenchmark's widths, 8 MB
     (16, 256, 640, 128, None),     # fewer groups than SMs
-    (32, 2048, 38400, 128, 1),     # one block: each warp sums 150 groups, flushing every 64
-    (16, 12800, 3200, 128, 1),     # the widest q shared memory takes: flushing every 10 groups
+    (32, 2048, 38400, 128, 1),     # one block, 300 groups: each pair flushes twice
+    (16, 12800, 3200, 128, 1),     # the widest q: its k-chunks stream beside x; a flush a pair
+    (32, 64, 1024, 256, None),     # one 64-byte chunk: the 128-byte box half past the edge
+    (16, 192, 2560, 128, 7),       # three 64-byte chunks: the second box half past the edge
 ])
 def test_unpack_probes(cuda, monkeypatch, m, w2, n, blr, grid):
     """The five unpack-probe variants against their plain versions, exactly

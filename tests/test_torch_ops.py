@@ -221,6 +221,57 @@ def test_vector_add_plain_matches_pallas():
     assert tsmoke.run_smoke_test(4096, device="cpu")
 
 
+VADD_DTYPES = ["float32", "bfloat16", "float16", "int32", "int16", "int8", "uint8"]
+_BITS = {"float32": torch.int32, "bfloat16": torch.int16, "float16": torch.int16}
+
+
+def _vadd_inputs(dtype, n, seed):
+    """Two vectors of `dtype` from a seed, as (jax, torch) pairs: floats of
+    mixed magnitudes rounded to the type by both sides alike, integers
+    over the type's full range (so that sums wrap)."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(2):
+        if dtype in _BITS:
+            v = (rng.normal(size=n) * np.exp2(rng.integers(-6, 7, size=n))).astype(np.float32)
+            pairs.append((jnp.asarray(v).astype(dtype), torch.from_numpy(v).to(getattr(torch, dtype))))
+        else:
+            info = np.iinfo(dtype)
+            v = rng.integers(info.min, int(info.max) + 1, size=n, dtype=dtype)
+            pairs.append((jnp.asarray(v), torch.from_numpy(v)))
+    return pairs
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 33000])
+@pytest.mark.parametrize("dtype", VADD_DTYPES)
+def test_vector_add_dtypes_match_pallas(dtype, n):
+    """The JAX vector_add adds every dtype jnp has with x64 off; the port
+    takes the same seven and gives the same bits (integers wrap, floats
+    round once), at lengths that are and are not multiples of its
+    (256, 128) block."""
+    (ja, ta), (jb, tb) = _vadd_inputs(dtype, n, seed=n)
+    ref = jsmoke.vector_add(ja, jb, interpret=True)
+    out = tsmoke.vector_add(ta, tb)
+    assert out.dtype == ta.dtype and out.shape == (n,)
+    if dtype in _BITS:   # compare bit patterns: exact, signed zeros included
+        ref_bits = np.asarray(ref).view(np.int32 if dtype == "float32" else np.int16)
+        np.testing.assert_array_equal(out.view(_BITS[dtype]).numpy(), ref_bits)
+    else:
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "bool", "complex64"])
+def test_vector_add_refuses_other_dtypes(dtype):
+    a = torch.zeros(8, dtype=getattr(torch, dtype))
+    with pytest.raises(ValueError, match="float32, bfloat16, float16, int32, int16, int8, uint8"):
+        tsmoke.vector_add(a, a)
+
+
+def test_vector_add_refuses_mixed_dtypes():
+    with pytest.raises(ValueError, match="one dtype"):
+        tsmoke.vector_add(torch.zeros(8), torch.zeros(8, dtype=torch.bfloat16))
+
+
 # ------------------------------------------------------------ dispatch
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that reports itself as a CUDA tensor, to reach the
@@ -296,3 +347,47 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                     torch.from_numpy(v), torch.from_numpy(ks),
                                     torch.from_numpy(vs), torch.zeros(4, dtype=torch.int32), 0)
     assert (tqm.launches, tda.launches) == before
+
+
+class _RecordingLib:
+    """A kernel library that records each call's arguments and succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, args))
+            return 0
+        return fn
+
+
+@pytest.mark.parametrize("offsets,want", [((0, 0), tsmoke.VECTOR), ((1, 1), tsmoke.VECTOR),
+                                          ((1, 3), tsmoke.SCALAR), ((0, 2), tsmoke.SCALAR)])
+@pytest.mark.parametrize("dtype", VADD_DTYPES)
+def test_vector_add_passes_dtype_and_route(monkeypatch, dtype, offsets, want):
+    """A CUDA tensor of each dtype reaches the C entry once, with the
+    dtype's code and the route its alignments allow: views that share an
+    alignment modulo 16 (a[1:], b[1:]) keep the vector route, with out
+    allocated at the same alignment; views that do not (a[1:], b[3:]) take
+    the scalar route. The plain version is never taken."""
+    fake = _RecordingLib()
+    monkeypatch.setattr(kernels, "lib", lambda: fake)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "check", lambda code, what: None)
+    monkeypatch.setattr(tsmoke, "vector_add_plain", _plain_must_not_run)
+    n = 100
+    base = torch.zeros(n + 8, dtype=getattr(torch, dtype))
+    assert base.data_ptr() % 16 == 0
+    a, b = (torch.Tensor._make_subclass(_FakeCuda, base.clone()[o:o + n]) for o in offsets)
+    before = tsmoke.launches
+    out = tsmoke.vector_add(a, b)
+    assert tsmoke.launches == before + 1
+    (name, args), = fake.calls
+    assert name == "tpuserve_vector_add"
+    pa, pb, po, count, code, route, _ = args
+    assert (pa, pb, po, count) == (a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    assert tsmoke.DTYPES[code] == getattr(torch, dtype) and route == want
+    assert out.shape == (n,) and out.dtype == a.dtype
+    if want == tsmoke.VECTOR:
+        assert po % 16 == pa % 16 == pb % 16

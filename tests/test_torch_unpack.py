@@ -206,6 +206,88 @@ def test_microbench_refuses_a_missing_card():
         tub.main(["--device", "cuda"])
 
 
+@pytest.mark.parametrize("tree_cases", [False, True])
+def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
+    """One turn of scripts/ab_probes.py against a stand-in chip_smoke: the
+    parent's vector-add check has no per-dtype cases (float32 only), the
+    change's has one a dtype; both give the same float32 row names, and
+    every unpack variant and library call is a row."""
+    import json
+    import sys
+    import types
+
+    from tpuserve_torch.scripts import ab_probes
+
+    va = dict(ms=0.005, library_ms=0.0048)
+    if tree_cases:
+        va["cases"] = [dict(dtype="float32", ms=0.004, library_ms=0.0048),
+                       dict(dtype="bfloat16", ms=0.003, library_ms=0.0031)]
+    unpack = {"unpack_stream_raw": dict(ms=0.2, library_ms=1.6),
+              "unpack_dot_raw": dict(ms=0.21, library_ms=0.196),
+              "unpack_cur": dict(ms=0.3, library_ms=None)}
+    fake = types.SimpleNamespace(Timer=lambda torch: None,
+                                 check_vector_add=lambda torch, timer, reps: va,
+                                 check_unpack_probes=lambda torch, timer, reps: unpack)
+    monkeypatch.setitem(sys.modules, "chip_smoke", fake)
+    exec(ab_probes._TURN, {})
+    line = next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("AB_JSON "))
+    rows = json.loads(line[len("AB_JSON "):])
+    assert rows["vector_add 1M float32"] == (0.004 if tree_cases else 0.005)
+    assert rows["torch.add 1M float32"] == 0.0048
+    assert ("vector_add 1M bfloat16" in rows) == tree_cases
+    assert rows["unpack_cur x [262144, 2048]"] == 0.3
+    assert rows["library beside unpack_dot_raw"] == 0.196
+    assert "library beside unpack_cur" not in rows
+
+
+def test_ab_probes_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):
+    """ab_probes takes two checkouts, runs A, B, B, A with its own turn and
+    prints one line a case; it refuses a missing checkout argument."""
+    import json
+
+    from tpuserve_torch.scripts import ab_attention, ab_probes
+
+    seen = []
+
+    def fake_turn(tree, code):
+        assert code is ab_probes._TURN
+        seen.append(tree)
+        return {"vector_add 1M float32": 0.004 if tree == "change" else 0.0057}
+
+    monkeypatch.setattr(ab_attention, "turn", fake_turn)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit):
+        ab_probes.main(["parent"])
+    assert seen == []
+    ab_probes.main(["parent", "change"])
+    assert seen == ["parent", "change", "change", "parent"]
+    out = capsys.readouterr().out
+    assert "vector_add 1M float32: A 0.0057 / 0.0057 ms, B 0.0040 / 0.0040 ms, B/A 0.702" in out
+    rec = json.loads((tmp_path / "chiprun_out" / "ab_probes.json").read_text())
+    assert rec["order"] == ["a", "b", "b", "a"] and len(rec["turns"]) == 4
+
+
+@pytest.mark.parametrize("name", ["base", "no_unpack", "no_wgmma", "no_ldsm", "ring_only",
+                                  "two_acc"])
+def test_unpack_ablations_still_match_the_kernel_source(name):
+    """Each cut of scripts/unpack_ablate.py applies to csrc/unpack_probes.cu
+    as it is (the script runs only on the card; this keeps it in step)."""
+    from tpuserve_torch.scripts import unpack_ablate
+
+    src = unpack_ablate.patched(name)
+    assert "unpack_probe_kernel" in src
+    assert (name == "base") == (src == (kernels.CSRC / "unpack_probes.cu").read_text())
+
+
+def test_unpack_ablate_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from tpuserve_torch.scripts import unpack_ablate
+
+    with pytest.raises(SystemExit, match="needs the card"):
+        unpack_ablate.main([])
+
+
 # ------------------------------------------------------------ (b) the knob
 @pytest.fixture()
 def knob(monkeypatch):

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
            "decode_attention_multi.cu", "decode_attention_hopper.cu",
            "decode_attention_grouped.cu", "attention_probes.cu", "unpack_probes.cu")
-HEADERS = ("common.cuh", "attention_common.cuh")
+HEADERS = ("common.cuh", "attention_common.cuh", "hopper.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # exported C functions -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "tpuserve_vector_add": [_P, _P, _P, _LL, _P],
+    "tpuserve_vector_add": [_P, _P, _P, _LL, _I, _I, _P],
     "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     "tpuserve_quant_matmul_bf16": [_P] * 6 + [_I] * 10 + [_P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],

@@ -36,7 +36,7 @@ launches = dict.fromkeys(VARIANTS, 0)   # kernel launches per variant
 _FOLD = 128                # residues of the fold: the TPU's 128 output lanes
 _CHUNK = 64                # bytes of a row the kernel reads per step
 _KERNEL_M = (16, 32)       # query rows the kernel takes
-_SMEM_Q = 200 * 1024       # q's bytes the kernel holds in shared memory
+_SMEM_Q = 200 * 1024       # q's bytes the kernel takes (held or streamed in shared memory)
 _PLAIN_ROWS = 16384        # rows of x the plain version widens at a time
 
 
