@@ -36,9 +36,11 @@ Phases, each fatal on failure:
               plain torch);
   8. grouped  the slice's configuration served with
               TPUSERVE_DECODE_ATTN=grouped: 32 grouped-kernel launches per
-              decode step and no flat-kernel launch; one full-width decode
-              step through the kernels against the plain versions, and its
-              logits under grouped, pallas and xla on copies of one cache;
+              decode step (the Hopper kernel reading the packed int4 window
+              in place) and no flat-kernel launch; one full-width decode
+              step through the kernels against the plain versions, its
+              logits under grouped, pallas and xla on copies of one cache,
+              and no plain unpack in the timed and profiled steps;
   9. sweep    the decode-attention diagnostic ladder
               (tpuserve_torch.scripts.sweep_attention) with every variant at
               its Llama-2-7B defaults: the probes' streaming rates, the
@@ -57,13 +59,15 @@ Phases, each fatal on failure:
               qmatmul_sweep) at its defaults: chained int4/int8 matmuls at
               the wrapper's split and at each block_k, and the
               dequantize-then-matmul control.
-The kernel phase also holds the grouped kernel, decode_attention_wide, the
-three probes, the five unpack probes and the three copy forms against their
-plain versions; the quant-matmul at B=64 (a decode step) and B=72 (a
+The kernel phase also holds the grouped kernels (packed int4, int8 and
+bf16; the packed route beside the parent's unpack-then-int8 route),
+decode_attention_wide, the three probes (dot_only on tensor cores), the
+five unpack probes and the three copy forms against their plain versions; the quant-matmul at B=64 (a decode step) and B=72 (a
 verify step) with a per-step line each, two calls bitwise equal, and at
 groups of 96 and 48 that its wgmma kernel's stages cannot tile (the
 CUDA-core route, its launches printed); and the
-flat, multi and grouped kernels under TPUSERVE_ATTN_DYNSKIP=0 against =1.
+flat, multi and grouped (int8 and packed int4) kernels under
+TPUSERVE_ATTN_DYNSKIP=0 against =1.
 The slice phase also runs one full-width decode step under
 TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Details go to
@@ -729,13 +733,16 @@ def check_decode_attention_multi(torch, timer, reps, p):
 
 
 def check_decode_attention_grouped(torch, timer, reps, p):
-    """The grouped kernel at the [grouped] phase's shapes (S=64, L=256,
-    Llama-2-7B heads, step positions; its int8 window is the unpacked int4
-    cache) and at a rep-4 shape (H=32, Hkv=8), int8 and bf16, with the
-    default split (one kv head a block) and g_kv = Hkv, against its plain
-    version; the flat kernel on the same KV beside it."""
+    """The grouped kernels at the [grouped] phase's shapes (S=64, L=256,
+    Llama-2-7B heads, step positions) and at a rep-4 shape (H=32, Hkv=8):
+    the packed int4 route (the [grouped] path: the Hopper kernel reads the
+    packed window), int8 and bf16, with the default split (one kv head a
+    block) and g_kv = Hkv, against their plain versions; the flat kernel on
+    the same KV beside them, and for packed int4 the parent's route (the
+    window unpacked by unpack_kv_codes, then the int8 kernel)."""
     from tpuserve_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain, decode_attention_wide_cache)
+        decode_attention, decode_attention_packed, decode_attention_packed_plain,
+        decode_attention_plain, decode_attention_wide_cache, unpack_kv_codes)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
@@ -743,26 +750,35 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     pos = step_positions(torch, g, s)
     live = int((pos.clamp(min=-1) + 1).sum().item())        # KV rows the data needs
     worst, rows, main = 0.0, [], None
-    for kind, h, hkv in (("int8", p.n_heads, p.n_kv_heads), ("bf16", p.n_heads, p.n_kv_heads),
+    for kind, h, hkv in (("int4", p.n_heads, p.n_kv_heads), ("int8", p.n_heads, p.n_kv_heads),
+                         ("bf16", p.n_heads, p.n_kv_heads), ("int4", p.n_heads, 8),
                          ("int8", p.n_heads, 8), ("bf16", p.n_heads, 8)):
         w = hkv * hd
-        elem = 1 if kind == "int8" else 2
-        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind == "int8" else 0)
-        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
-        shape = (n_layers, s, l, w)
-        if kind == "int8":
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
+        # read-all (TPUSERVE_ATTN_DYNSKIP=0, the default here) reads every row;
+        # the bound counts the live ones
+        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)
+        n_layers = max(2, math.ceil(L2_FLUSH_BYTES / (2 * s * l * w * elem)))
+        shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
+        if kind == "int4":
+            kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
+                                dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+        elif kind == "int8":
             kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.int8) for _ in range(2)]
-            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
-                  for _ in range(2)]       # f32 head-major, as the engine's cache
         else:
             kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
                   for _ in range(2)]
-            sc = [None, None]
+        sc = [None, None]
+        if kind != "bf16":     # f32 head-major, as the engine's cache
+            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+                  for _ in range(2)]
         q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         for g_kv in (None, hkv):
             def call(fn, i, g_kv=g_kv):
                 li = i % n_layers
+                if kind == "int4":     # the packed window and head-major scales, in place
+                    return fn(q, kv[0][li], kv[1][li], sc[0][li], sc[1][li], pos, g_kv=g_kv)
                 ks, vs = ((None, None) if sc[0] is None
                           else (sc[0][li].transpose(1, 2), sc[1][li].transpose(1, 2)))
                 k4, v4 = (t[li].view(s, l, hkv, hd) for t in kv)
@@ -773,8 +789,16 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                 ks, vs = (None, None) if sc[0] is None else (sc[0][li], sc[1][li])
                 return decode_attention_wide_cache(q, kv[0], kv[1], ks, vs, pos, li)
 
-            out = call(decode_attention, 1)
-            ref = call(decode_attention_plain, 1)
+            def unpacked(i):       # the parent's route for a packed window
+                li = i % n_layers
+                k4, v4 = (unpack_kv_codes(t[li]).view(s, l, hkv, hd) for t in kv)
+                return decode_attention(q, k4, v4, sc[0][li].transpose(1, 2),
+                                        sc[1][li].transpose(1, 2), pos)
+
+            kern = decode_attention_packed if kind == "int4" else decode_attention
+            plain = decode_attention_packed_plain if kind == "int4" else decode_attention_plain
+            out = call(kern, 1)
+            ref = call(plain, 1)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             # the same arithmetic and exact integer dots; an ulp of expf
@@ -787,25 +811,28 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             if not torch.all(out[pos < 0] == 0):
                 fail("decode_attention_grouped: inactive slots are not zero")
             worst = max(worst, err)
-            ms = timer.ms(lambda i: call(decode_attention, i), reps)
+            ms = timer.ms(lambda i: call(kern, i), reps)
             flat_ms = timer.ms(flat, reps)
-            plain_ms = timer.ms(lambda i: call(decode_attention_plain, i), max(2, reps // 5))
+            unpack_ms = timer.ms(unpacked, reps) if kind == "int4" and g_kv is None else None
+            plain_ms = timer.ms(lambda i: call(plain, i), max(2, reps // 5))
             nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
             ops = 2 * 2 * live * h * hd
-            b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind == "int8" else "bf16"])
+            b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind != "bf16" else "bf16"])
             lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0],
                              None if sc[0] is None else sc[0][0],
                              None if sc[0] is None else sc[1][0], pos, kind)
             row = dict(kind=kind, S=s, H=h, Hkv=hkv, L=l, g_kv=g_kv or 1, live_rows=live,
                        layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms, flat_ms=flat_ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-            if kind == "int8" and hkv == p.n_kv_heads and g_kv is None:   # the [grouped] path
+                       unpack_then_int8_ms=unpack_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            if kind == "int4" and hkv == p.n_kv_heads and g_kv is None:   # the [grouped] path
                 main = row
             rows.append(row)
+            extra = "" if unpack_ms is None else f", unpack + int8 kernel {unpack_ms:.4f} ms"
             log(f"[kernel] decode_attention_grouped {kind} S={s} H={h} Hkv={hkv} L={l} "
                 f"g_kv={g_kv or 1} step positions: max|err| {err:.3g} (tol {tol:.3g}); "
-                f"{ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
+                f"{ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms{extra}, bound "
+                f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
                 f"{n_layers} layers rotated")
         del kv, sc, q
         torch.cuda.empty_cache()
@@ -813,18 +840,20 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
-                per="one decode step: 32 launches, int8 window (unpacked int4), S=64, L=256",
-                cases=rows)
+                unpack_then_int8_ms=n_l * main["unpack_then_int8_ms"],
+                per="one decode step: 32 launches, packed int4 window read in place, S=64, "
+                    "L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows)
 
 
 def check_dynskip(torch, timer, reps, p):
     """TPUSERVE_ATTN_DYNSKIP=0 against =1 on the flat (packed int4 KV, the
     slice's step positions), multi-candidate (int8, the spec phase's S=8,
-    C=9, L=512) and grouped (int8 window, the grouped phase's shapes)
-    kernels: "0" reads and masks the blocks past a slot's position, "1"
-    skips them; the outputs must agree (masked rows add exact zeros) and
-    both are timed, the KV rotated past the L2."""
+    C=9, L=512) and grouped (int8 window, and the packed int4 window of the
+    grouped phase, at its shapes) kernels: "0" reads and masks the blocks
+    past a slot's position, "1" skips them; the outputs must agree (masked
+    rows add exact zeros) and both are timed, the KV rotated past the L2."""
     from tpuserve_torch.ops.decode_attention import (decode_attention,
+                                                     decode_attention_packed,
                                                      decode_attention_wide_cache,
                                                      decode_attention_wide_cache_multi)
 
@@ -878,9 +907,15 @@ def check_dynskip(torch, timer, reps, p):
         return decode_attention(q, k4, v4, scg[0][li].transpose(1, 2),
                                 scg[1][li].transpose(1, 2), pos, block_l=l)
 
+    def grouped4(i):
+        li = i % nl
+        return decode_attention_packed(q, kv4[0][li], kv4[1][li], sc4[0][li], sc4[1][li], pos,
+                                       block_l=l)
+
     rows = []
     for name, fn in (("flat int4 S=64 L=256", flat), ("multi int8 S=8 C=9 L=512", multi),
-                     ("grouped int8 S=64 L=256", grouped)):
+                     ("grouped int8 S=64 L=256", grouped),
+                     ("grouped packed int4 S=64 L=256", grouped4)):
         outs, times = {}, {}
         for mode in ("1", "0", "0", "1"):    # in turns
             with env_set("TPUSERVE_ATTN_DYNSKIP", mode):
@@ -1173,7 +1208,7 @@ def profile_step(torch, step, tag="slice", what="decode step"):
     for dev_us, key, count in rows[:8]:
         log(f"[{tag}]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, device_ops=kernels,
-                top=[(k, d / 1e3, c) for d, k, c in rows[:12]])
+                top=[(k, d / 1e3, c) for d, k, c in rows[:12]], names=[k for _, k, _ in rows])
 
 
 @contextlib.contextmanager
@@ -1182,18 +1217,20 @@ def plain_kernels(llama):
     reference run on the card, and restore them after. The served model's
     weights are int4 with bf16 activations, for which qmatmul is exactly
     quant_matmul."""
-    from tpuserve_torch.ops.decode_attention import (decode_attention_plain,
+    from tpuserve_torch.ops.decode_attention import (decode_attention_packed_plain,
+                                                     decode_attention_plain,
                                                      decode_attention_wide_cache_multi_plain,
                                                      decode_attention_wide_cache_plain,
                                                      decode_attention_wide_paged_plain)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
 
     names = ("qmatmul", "decode_attention_wide_cache", "decode_attention_wide_paged",
-             "decode_attention_wide_cache_multi", "decode_attention")
+             "decode_attention_wide_cache_multi", "decode_attention", "decode_attention_packed")
     saved = [getattr(llama, n) for n in names]
     for n, fn in zip(names, (quant_matmul_plain, decode_attention_wide_cache_plain,
                              decode_attention_wide_paged_plain,
-                             decode_attention_wide_cache_multi_plain, decode_attention_plain)):
+                             decode_attention_wide_cache_multi_plain, decode_attention_plain,
+                             decode_attention_packed_plain)):
         setattr(llama, n, fn)
     try:
         yield
@@ -1897,8 +1934,9 @@ def phase_grouped(torch, timer, p, smi_line):
     """The slice's configuration (Llama-2-7B widths, int4 g128 weights,
     packed int4 KV, 64 slots, L=256, decode_horizon 8) served with
     TPUSERVE_DECODE_ATTN=grouped, loaded after the earlier engines are shut
-    down: every decode step's attention goes through the grouped kernel
-    over the unpacked int8 window."""
+    down: every decode step's attention goes through the grouped Hopper
+    kernel, which reads the packed int4 window in place; the profiled step
+    must hold no plain unpack."""
     from tpuserve_torch.engine.manager import InferenceManager
     from tpuserve_torch.models import llama
     from tpuserve_torch.ops import decode_attention, quant_matmul
@@ -1987,27 +2025,46 @@ def phase_grouped(torch, timer, p, smi_line):
         if not finite or not err <= tol or any(m["max_abs_diff"] > tol for m in modes.values()):
             fail("[grouped] full-width decode step: the paths disagree")
 
-        step_ms, times = _host_ms(torch, step)
-        restore()
-        busy = profile_step(torch, step, tag="grouped")
-        restore()
-        # the unpack of the packed int4 window to int8 codes, K and V, as the
-        # step runs it per layer: timed alone, rotated over the layers
-        from tpuserve_torch.models.llama import unpack_kv_codes
+        # the step reads the packed window in place: no plain unpack (counted
+        # through both modules' names, and no unpack kernel in the profile)
+        from tpuserve_torch.ops.decode_attention import unpack_kv_codes
 
+        unpacks = []
+
+        def counted(x):
+            unpacks.append(1)
+            return unpack_kv_codes(x)
+
+        llama.unpack_kv_codes = decode_attention.unpack_kv_codes = counted
+        try:
+            step_ms, times = _host_ms(torch, step)
+            restore()
+            busy = profile_step(torch, step, tag="grouped")
+            restore()
+        finally:
+            llama.unpack_kv_codes = decode_attention.unpack_kv_codes = unpack_kv_codes
+        unpack_ops = [k for k in (busy or {}).get("names", [])
+                      if "bitwiseand" in k.lower().replace("_", "") or "rshift" in k.lower()]
+        log(f"[grouped] plain unpack calls in the timed and profiled steps: {len(unpacks)}; "
+            f"unpack kernels in the profile: {unpack_ops or 'none'}")
+        if unpacks or unpack_ops:
+            fail("[grouped] the decode step still unpacks the int4 window in plain torch")
+        # the unpack of the packed int4 window to int8 codes, K and V, that
+        # the parent's step ran per layer: timed alone, rotated over the layers
         win = cache.max_len
         unpack_ms = timer.ms(lambda i: (unpack_kv_codes(cache.k[i % p.n_layers, :, :win]),
                                         unpack_kv_codes(cache.v[i % p.n_layers, :, :win])), 20)
         peak = torch.cuda.max_memory_allocated()
         log(f"[grouped] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} "
-            f"ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; int4 -> int8 unpack of the "
-            f"window {unpack_ms:.4f} ms a layer, {p.n_layers * unpack_ms:.3f} ms a step; "
-            f"max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+            f"ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; the int4 -> int8 unpack the "
+            f"parent's step ran, alone: {unpack_ms:.4f} ms a layer, {p.n_layers * unpack_ms:.3f} "
+            f"ms a step; max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
         mgr.shutdown()
     return dict(launches=launches, want=want, decode_steps=steps, prefill_calls=prefills,
                 wall_s=wall, tok_s=tok_s, tokens=tokens, full_step_err=err, full_step_tol=tol,
                 argmax_agreement=agree, modes=modes, step_ms=step_ms, step_times_ms=times,
-                profile=busy, unpack_ms_per_layer=unpack_ms, max_memory_allocated=peak)
+                profile=busy, plain_unpack_calls=len(unpacks), unpack_kernels=unpack_ops,
+                parent_unpack_ms_per_layer=unpack_ms, max_memory_allocated=peak)
 
 
 def phase_sweep(torch):
@@ -2245,7 +2302,7 @@ def main() -> None:
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)"),
                "decode_attention_grouped": (
-                   "tpuserve_torch/csrc/decode_attention_grouped.cu",
+                   "tpuserve_torch/csrc/decode_attention_grouped_hopper.cu",
                    "tpuserve/ops/decode_attention.py:1237 (_kernel; call :1423)"),
                "decode_attention_wide": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",

@@ -346,22 +346,30 @@ def test_decode_attention_multi_refuses(cuda):
     assert da.multi_launches == before + 1
 
 
+@pytest.mark.parametrize("skip", ["0", "1"])
 @pytest.mark.parametrize("kind,h,hkv,l,block_l,g_kv,scale_dtype", [
     ("int8", 32, 32, 256, 256, None, torch.float32),    # Llama-2-7B decode step, default split
+    ("int8", 32, 32, 256, 256, 16, torch.float32),      # sixteen heads a block
     ("int8", 32, 32, 256, 256, 32, torch.bfloat16),     # all heads in one block
+    ("int8", 32, 32, 256, 64, 32, torch.float32),       # ... over four blocks
     ("bf16", 32, 32, 256, 256, None, None),
-    ("int8", 32, 8, 256, 64, None, torch.float32),      # rep 4, four blocks
+    ("int8", 32, 8, 256, 64, None, torch.float32),      # rep 4, four blocks: the window splits
     ("int8", 32, 8, 256, 256, 8, torch.float32),
+    ("int8", 16, 2, 256, 32, None, torch.bfloat16),     # rep 8, eight splits
     ("bf16", 8, 4, 128, 32, 2, None),                    # rep 2
     ("f32", 8, 4, 128, 32, None, None),
     ("f32", 16, 2, 64, 16, 2, None),                     # rep 8
 ])
-def test_decode_attention_grouped(cuda, kind, h, hkv, l, block_l, g_kv, scale_dtype):
+def test_decode_attention_grouped(cuda, monkeypatch, kind, h, hkv, l, block_l, g_kv,
+                                  scale_dtype, skip):
     """The grouped kernel against its plain version on a window view of a
     longer cache (slot stride 2L rows) with transposed scale views, as the
-    decode step hands them over. Same arithmetic, exact integer dots; an
-    ulp of expf against torch.exp can tip one P entry across a bf16
-    rounding boundary (2^-8 of it): 1e-3 of the output range."""
+    decode step hands them over, under TPUSERVE_ATTN_DYNSKIP 0 and 1. Same
+    arithmetic (the int8 kernel and its plain version split the window
+    alike), exact integer dots; an ulp of expf against torch.exp can tip
+    one P entry across a bf16 rounding boundary (2^-8 of it): 1e-3 of the
+    output range."""
+    monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", skip)
     s, n_layers, layer = 8, 2, 1
     k, v, ks, vs = _cache(kind, s, hkv, 2 * l, n_layers, cuda,
                           scale_dtype=scale_dtype or torch.float32)
@@ -384,6 +392,53 @@ def test_decode_attention_grouped(cuda, kind, h, hkv, l, block_l, g_kv, scale_dt
         assert torch.all(out[1] == 0)
         err = (out - ref).abs().max().item()
         assert err <= 1e-3 * ref.abs().max().item() + 1e-7, (qdt, err)
+
+
+@pytest.mark.parametrize("skip", ["0", "1"])
+@pytest.mark.parametrize("h,hkv,l,block_l,scale_dtype", [
+    (32, 32, 256, 256, torch.bfloat16),   # Llama-2-7B decode step: one block, no split
+    (32, 32, 256, 64, torch.float32),     # four blocks, two splits at S=8
+    (32, 8, 256, 64, torch.float32),      # rep 4 (8 query rows a head pair), four splits
+    (16, 2, 128, 32, torch.bfloat16),     # rep 8 (16 query rows a pair), four splits
+    (4, 4, 256, 256, torch.float32),      # rep 1
+])
+def test_decode_attention_grouped_packed(cuda, monkeypatch, h, hkv, l, block_l, scale_dtype,
+                                         skip):
+    """The packed int4 route (decode_attention_packed: the grouped Hopper
+    kernel decoding the nibbles itself) against its plain version
+    (unpack_kv_codes, then decode_attention_plain) on the layer's window
+    of a longer packed cache with head-major scale views, as the decode
+    step hands them over: g_kv 1, 16 and 32 (clipped to Hkv) give the same
+    values, inactive slots 0, 1e-3 of the output range (the int8 route's
+    bound), and TPUSERVE_ATTN_DYNSKIP 0 and 1 agree to 1e-6 of it."""
+    s, n_layers, layer = 8, 2, 1
+    k, v, ks, vs = _cache("int4", s, hkv, 2 * l, n_layers, cuda, scale_dtype=scale_dtype)
+    kw, vw = (t[layer, :, :l] for t in (k, v))
+    ksw, vsw = (t[:, :, :l] for t in (ks, vs))
+    g = torch.Generator().manual_seed(6)
+    q = (torch.randn((s, h, 128), generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    pos = torch.randint(0, l, (s,), generator=g, dtype=torch.int32)
+    pos[1], pos[3], pos[5], pos[6] = -1, l - 1, 0, -1
+    pos = pos.to(cuda)
+    outs = {}
+    for mode in ("0", "1") if skip == "0" else ("1", "0"):
+        monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", mode)
+        ref = da.decode_attention_packed_plain(q, kw, vw, ksw, vsw, pos, block_l=block_l)
+        for g_kv in (1, 16, 32):
+            before = da.grouped_launches
+            out = da.decode_attention_packed(q, kw, vw, ksw, vsw, pos, block_l=block_l, g_kv=g_kv)
+            torch.cuda.synchronize()
+            assert da.grouped_launches == before + 1
+            assert torch.all(out[1] == 0) and torch.all(out[6] == 0)
+            err = (out - ref).abs().max().item()
+            assert err <= 1e-3 * ref.abs().max().item() + 1e-7, (mode, g_kv, err)
+            if g_kv == 1:
+                outs[mode] = out
+            else:
+                assert torch.equal(out, outs[mode]), (mode, g_kv)
+    live = pos >= 0
+    diff = (outs["0"] - outs["1"])[live].abs().max().item()
+    assert diff <= 1e-6 * outs["1"][live].abs().max().item()
 
 
 def test_decode_attention_grouped_refuses(cuda):
@@ -431,6 +486,29 @@ def test_decode_attention_wide(cuda, kind, block_l):
     assert torch.all(out[1] == 0)
     err = (out - ref).abs().max().item()
     assert err <= 2e-3 * ref.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("m", [32, 128, 40])
+@pytest.mark.parametrize("s,l,hkv", [(2, 256, 32), (3, 96, 2)])
+def test_dot_only_tensor_cores(cuda, s, l, hkv, m):
+    """The tensor-core dot_only against its plain version at M 32 (the
+    sweep's: one query group), 128 (four groups) and 40 (a ragged group),
+    over 8192 rows a slot (the sweep's) and 192 (three tiles): 1e-5 of the
+    range (P rounds to bf16 at the same point, f32 sums in another order,
+    blocks' float4 atomics in any order). The launch counter counts."""
+    from tpuserve_torch.ops import attention_probes as probes
+
+    g = torch.Generator().manual_seed(11)
+    k, v = (torch.randint(-128, 128, (s, l, hkv, 128), generator=g, dtype=torch.int8).to(cuda)
+            for _ in range(2))
+    qi = probes.probe_q(torch.randn((s, m, 128), generator=g).to(cuda) / 128 ** 0.5)
+    before = probes.dot_only_launches
+    out = probes.dot_only(qi, k, v)
+    ref = probes.dot_only_plain(qi, k, v)
+    torch.cuda.synchronize()
+    assert probes.dot_only_launches == before + 1
+    assert out.shape == ref.shape == (s, m, 128)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("s,l,hkv", [(4, 256, 32), (3, 64, 2), (2, 32, 4)])

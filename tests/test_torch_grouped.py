@@ -11,6 +11,7 @@ The JAX side runs its Pallas kernels in interpret mode (as
 tests/test_decode_attention.py does); caches cross as numpy bytes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ import torch
 import tpuserve.ops.decode_attention as jda
 from tpuserve.models import llama as jllama
 from tpuserve.serving import paged_kv as jpkv
-from tpuserve_torch import interop
+from tpuserve_torch import interop, kernels
 from tpuserve_torch.models import llama as tllama
 from tpuserve_torch.ops import decode_attention as tda
 from tpuserve_torch.repository.config import ModelConfig
@@ -71,7 +72,10 @@ def _range_close(out, ref, rel, what):
 # the same point; the sides differ in the order of f32 sums and in exp()
 # by an ulp, which can tip one P entry across a bf16 rounding boundary
 # (2^-8 of that entry). Measured up to 2.8e-7 of the output range; bound
-# 1e-3, one such tip.
+# 1e-3, one such tip. Where the grid is small (these tests' S and Hkv) the
+# int8 and packed int4 routes split the window as the Hopper kernel does,
+# and a run rounds P at its own max: measured up to 5.3e-4 of the range in
+# these tests (test_grouped_plain_matches_pallas, int8, rep 4).
 _ATTN_TOL = 1e-3
 
 
@@ -108,6 +112,193 @@ def test_grouped_kv_split_changes_no_value():
     for out, ref in pairs:
         _range_close(out, ref, _ATTN_TOL, "g_kv split")
         _range_close(ref, pairs[0][1], 1e-6, "JAX g_kv splits")
+
+
+def _packed_inputs(rep, s=4, l=128, n_kv=4, seed=0):
+    """q [S, H, hd] f32 (scaled), packed int4 k/v [S, L, Hkv*hd/2] (random
+    bytes: every nibble code), head-major f32 scales [S, Hkv, L], positions
+    with an inactive slot, 0 and L-1."""
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(s, n_kv * rep, HD)) / np.sqrt(HD)).astype(np.float32)
+    k, v = (rng.integers(0, 256, size=(s, l, n_kv * HD // 2)).astype(np.uint8) for _ in range(2))
+    ks, vs = (rng.uniform(0.05, 0.3, size=(s, n_kv, l)).astype(np.float32) for _ in range(2))
+    return q, k, v, ks, vs, np.array([-1, 0, l - 1, 77][:s], np.int32)
+
+
+def _jax_packed_reference(inputs, block_l):
+    """The JAX package's grouped path over a packed window: its
+    unpack_kv_codes, then decode_attention (`_kernel` in interpret mode)
+    with the [S, L, Hkv] scale views."""
+    q, k, v, ks, vs, positions = inputs
+    s, l = k.shape[:2]
+    n_kv = ks.shape[1]
+    k8, v8 = (jllama.unpack_kv_codes(jnp.asarray(a)).reshape(s, l, n_kv, HD) for a in (k, v))
+    return np.asarray(jda.decode_attention(
+        jnp.asarray(q), k8, v8, jnp.asarray(ks.transpose(0, 2, 1)),
+        jnp.asarray(vs.transpose(0, 2, 1)), jnp.asarray(positions), block_l=block_l, g_kv=1,
+        interpret=True))
+
+
+@pytest.fixture()
+def dynskip_env(monkeypatch):
+    """Set TPUSERVE_ATTN_DYNSKIP for both packages; JAX reads it when it
+    traces, so its caches are cleared around the change."""
+    def set_skip(val):
+        monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", val)
+        jax.clear_caches()
+
+    yield set_skip
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("skip", ["0", "1"])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_packed_route_plain_matches_pallas(dynskip_env, rep, skip):
+    """The packed int4 route's plain version (decode_attention_packed on
+    CPU tensors) against the JAX package's unpack_kv_codes followed by its
+    grouped `_kernel` in interpret mode: L=128, block_l 32, rep 1 and 4, an
+    inactive slot (exactly 0), under TPUSERVE_ATTN_DYNSKIP 0 and 1, within
+    _ATTN_TOL. It is today's CPU path bit for bit: unpack_kv_codes, then
+    decode_attention."""
+    dynskip_env(skip)
+    inputs = _packed_inputs(rep)
+    q, k, v, ks, vs, positions = (_torch(a) for a in inputs)
+    ref = _jax_packed_reference(inputs, 32)
+    before = tda.grouped_launches
+    out = to_np(tda.decode_attention_packed(q, k, v, ks, vs, positions, block_l=32))
+    assert tda.grouped_launches == before   # the plain version on the CPU
+    assert out.shape == ref.shape == inputs[0].shape
+    assert np.all(out[0] == 0.0), "the inactive slot is not exactly 0"
+    _range_close(out, ref, _ATTN_TOL, f"packed rep {rep} dynskip {skip}")
+    s, l, n_kv = k.shape[0], k.shape[1], ks.shape[1]
+    k8, v8 = (tda.unpack_kv_codes(t).view(s, l, n_kv, HD) for t in (k, v))
+    today = to_np(tda.decode_attention(q, k8, v8, ks.transpose(1, 2), vs.transpose(1, 2),
+                                       positions, block_l=32))
+    np.testing.assert_array_equal(out, today)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_grouped_split_plan_matches_pallas(kind):
+    """Where the grid is small the grouped Hopper kernel splits the window
+    (split_plan over Hkv heads of S slots, whatever the route and g_kv) and
+    its plain version takes the same plan: at S=3, Hkv=2, L=256, block_l 32
+    the window is cut into eight runs of one block, each with its own
+    online softmax, merged in order. Against the TPU's `_kernel` (one online
+    softmax over the window) within _ATTN_TOL: a run rounds P to bf16 at its
+    own max, which moves an output by bf16 roundings (measured 3.4e-4 of the
+    range for int8, 2.0e-4 for int4). g_kv 1 and Hkv give the same values."""
+    s, l, n_kv, rep = 3, 256, 2, 2   # positions -1, 0, 255
+    if kind == "int8":
+        inputs = _attn_inputs("int8", rep, s=s, l=l, n_kv=n_kv, seed=4)
+        ref = np.asarray(jda.decode_attention(*map(_jax, inputs), block_l=32, g_kv=1,
+                                              interpret=True))
+        q, k, v, ks, vs, positions = map(_torch, inputs)
+        entry = tda.decode_attention
+    else:
+        inputs = _packed_inputs(rep, s=s, l=l, n_kv=n_kv, seed=4)
+        ref = _jax_packed_reference(inputs, 32)
+        q, k, v, ks, vs, positions = map(_torch, inputs)
+        entry = tda.decode_attention_packed
+    g = tda._grouped_dims(q, l, n_kv, True, True, 32, None)
+    assert (g["splits"], g["bps"]) == (8, 1)
+    outs = [to_np(entry(q, k, v, ks, vs, positions, block_l=32, g_kv=g_kv))
+            for g_kv in (1, n_kv)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert np.all(outs[0][0] == 0.0)
+    _range_close(outs[0], ref, _ATTN_TOL, f"{kind} split")
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor, to reach the
+    wrappers' kernel branch on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("skip", ["0", "1"])
+@pytest.mark.parametrize("route", ["int8", "int4"])
+def test_grouped_cuda_tensors_pass_the_route_arguments(monkeypatch, route, skip):
+    """A CUDA tensor reaches the grouped Hopper kernel's C entry once, with
+    the window read in place (its own pointer, slot and row strides), the
+    head-major scale strides, the launch code (1 packed int4, 0 int8; +16
+    under TPUSERVE_ATTN_DYNSKIP=0), the query heads a unit, the units a
+    block (g_kv; a pair of heads for int4) and the split plan, with a
+    workspace only where it splits; no plain version and no unpack runs."""
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    def must_not_run(*a, **kw):
+        raise AssertionError("plain version or unpack for a CUDA tensor")
+
+    monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(kernels, "check", lambda code, what: None)
+    for name in ("decode_attention_plain", "decode_attention_packed_plain", "unpack_kv_codes"):
+        monkeypatch.setattr(tda, name, must_not_run)
+    monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", skip)
+    fc = lambda t: torch.Tensor._make_subclass(_FakeCuda, t)
+    n_layers, s, l_max, win, n_kv, rep, layer = 2, 4, 256, 128, 4, 2, 1
+    wst = n_kv * HD // (2 if route == "int4" else 1)
+    cache = torch.zeros((n_layers, s, l_max, wst),
+                        dtype=torch.uint8 if route == "int4" else torch.int8)
+    scales = torch.ones((n_layers, s, n_kv, l_max), dtype=torch.bfloat16)
+    q = fc(torch.zeros((s, n_kv * rep, HD)))
+    kw, vw = (fc(cache[layer, :, :win]) for _ in range(2))
+    ksw, vsw = (fc(scales[layer, :, :, :win]) for _ in range(2))
+    pos = fc(torch.tensor([-1, 0, 127, 40], dtype=torch.int32))
+    before = tda.grouped_launches
+    for g_kv in (1, 4):
+        if route == "int4":
+            out = tda.decode_attention_packed(q, kw, vw, ksw, vsw, pos, block_l=32, g_kv=g_kv)
+        else:
+            out = tda.decode_attention(q, kw.view(s, win, n_kv, HD), vw.view(s, win, n_kv, HD),
+                                       ksw.transpose(1, 2), vsw.transpose(1, 2), pos,
+                                       block_l=32, g_kv=g_kv)
+        assert out.shape == q.shape and out.dtype == torch.float32
+        name, args = calls[-1]
+        assert name == "tpuserve_decode_attention_grouped_hopper"
+        assert args[1] == kw.data_ptr() and args[3] == ksw.data_ptr()
+        ws, cnt = args[7], args[8]
+        assert args[9:12] == (l_max * wst, n_kv * l_max, l_max)   # slot stride (bytes), scales
+        assert args[12:14] == (0, 1)                                 # f32 q, bf16 scales
+        assert args[14:20] == (s, n_kv * rep, n_kv, win, 32, wst)
+        kind, nq, upb, splits, bps = args[20:25]
+        assert kind == (1 if route == "int4" else 0) + (16 if skip == "0" else 0)
+        assert nq == (2 * rep if route == "int4" else rep)
+        assert upb == (max(1, g_kv // 2) if route == "int4" else g_kv)
+        assert (splits, bps) == tda.split_plan(n_kv, s, win // 32, 132) == (4, 1)
+        assert (ws != 0) == (cnt != 0) == (splits > 1)
+    assert tda.grouped_launches == before + 2
+
+
+@pytest.mark.parametrize("name", ["base", "s2b6", "s4b3", "s6b2", "no_convert", "no_pv"])
+def test_grouped_ablations_still_match_the_kernel_source(name):
+    """Each variant of scripts/grouped_ablate.py applies to
+    csrc/decode_attention_grouped_hopper.cu as it is (the script runs only
+    on the card; this keeps it in step)."""
+    from tpuserve_torch.scripts import grouped_ablate
+
+    assert list(grouped_ablate.PATCHES) == ["base", "s2b6", "s4b3", "s6b2", "no_convert",
+                                            "no_pv"]
+    src = grouped_ablate.patched(name)
+    assert "attn_grouped_kernel" in src
+    base = (kernels.CSRC / grouped_ablate.SOURCE).read_text()
+    assert (name == "base") == (src == base)
+
+
+def test_grouped_ablate_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from tpuserve_torch.scripts import grouped_ablate
+
+    with pytest.raises(SystemExit, match="needs the card"):
+        grouped_ablate.main([])
 
 
 @pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
@@ -230,6 +421,47 @@ def test_decode_step_modes_match_jax(weights, jax_mode, monkeypatch, mode, kind)
         pos = np.where(pos >= 0, pos + 1, pos)
 
 
+def test_decode_step_grouped_int4_reads_the_packed_window(weights, jax_mode, monkeypatch):
+    """decode_step under "grouped" with a packed int4 cache hands each
+    layer's packed window and head-major scales to decode_attention_packed
+    (views of the cache: no unpack in the model layer, no call of
+    decode_attention) and matches the JAX package's grouped branch, which
+    unpacks the window in XLA, within _LOGIT_TOL, with the same greedy
+    tokens."""
+    jp, tp = weights
+    slots, max_len = 4, 64
+    k, v, ks, vs = _cache_bytes("int4", slots, max_len, seed=6)
+    jc = _jax_cache(k, v, ks, vs, flat=True)
+    tc = interop.kv_cache_from_numpy(k, v, ks, vs, device="cpu")
+    jax_mode("grouped")
+    monkeypatch.setenv("TPUSERVE_DECODE_ATTN", "grouped")
+    seen = []
+    real = tllama.decode_attention_packed
+
+    def packed(q, k_rows, v_rows, k_scale, v_scale, positions, **kw):
+        seen.append((k_rows.data_ptr(), k_rows.shape, k_scale.shape, k_scale.stride(-1)))
+        return real(q, k_rows, v_rows, k_scale, v_scale, positions, **kw)
+
+    def must_not_run(*a, **kw):
+        raise AssertionError("the packed window was unpacked or sent to decode_attention")
+
+    monkeypatch.setattr(tllama, "decode_attention_packed", packed)
+    monkeypatch.setattr(tllama, "decode_attention", must_not_run)
+    monkeypatch.setattr(tllama, "unpack_kv_codes", must_not_run)
+    pos = np.array([33, -1, 7, 60], np.int32)
+    toks = np.array([9, 0, 250, 31], np.int32)
+    jl, _ = jllama.decode_step(jp, P_J, jnp.asarray(toks), jc, jnp.asarray(pos))
+    tl, _ = tllama.decode_step(tp, P_T, torch.from_numpy(toks).long(), tc,
+                               torch.from_numpy(pos), window=max_len)
+    n_kv = SMALL["n_kv_heads"]
+    assert seen == [(tc.k[layer].data_ptr(), (slots, max_len, n_kv * HD // 2),
+                     (slots, n_kv, max_len), 1) for layer in range(SMALL["n_layers"])]
+    jl, tl = np.asarray(jl), to_np(tl)
+    _range_close(tl, jl, _LOGIT_TOL, "grouped int4 packed route")
+    assert np.all(tl[1] == 0.0)
+    np.testing.assert_array_equal(np.argmax(tl, -1)[pos >= 0], np.argmax(jl, -1)[pos >= 0])
+
+
 def test_decode_step_pallas_unchanged(weights, jax_mode, monkeypatch):
     """The default mode is today's: "pallas" (any case) and no variable give
     bitwise the same logits, through the flat kernel, and they match the JAX
@@ -333,14 +565,16 @@ def test_engine_greedy_tokens_equal_across_modes(tmp_path, monkeypatch):
     """The port's engine serves the SMALL wide-margin checkpoint (int4 g128
     weights, packed int4 KV) with the same greedy tokens under "pallas",
     "grouped" and "xla", and under "grouped" its decode steps go through
-    the grouped kernel's entry (counted on the plain path by a wrapper)."""
+    the grouped kernel's entries (counted on the plain path by wrappers:
+    a packed int4 cache takes the packed route, decode_attention_packed)."""
     cfg = _engine_config("modes")
     vdir = write_model(str(tmp_path), "modes", cfg)
     prompts = [[5, 17, 100, 42, 7], list(range(30, 70)), [3, 1, 4, 1, 5, 9, 2, 6]]
     calls = []
-    real = tllama.decode_attention
-    monkeypatch.setattr(tllama, "decode_attention",
-                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for name in ("decode_attention", "decode_attention_packed"):
+        real = getattr(tllama, name)
+        monkeypatch.setattr(tllama, name, (lambda real: lambda *a, **kw: calls.append(1)
+                                           or real(*a, **kw))(real))
     outs = {}
     for mode in ("pallas", "grouped", "xla"):
         monkeypatch.setenv("TPUSERVE_DECODE_ATTN", mode)

@@ -53,6 +53,61 @@ def test_dot_only_plain():
     assert np.abs(out - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def test_dot_only_plan_fills_the_card():
+    """dot_only's blocks: two an SM in one wave of an H100's 132 SMs. At
+    the sweep's shape (S=64, M=32, L*Hkv=8192) a slot's 128 tiles go to
+    four blocks of 32 (256 blocks); a small call cuts a slot finer, never
+    below one tile a block; M > 32 counts its query groups."""
+    assert probes.dot_only_tiles_per_block(64, 32, 8192, 132) == 32
+    assert probes.dot_only_tiles_per_block(64, 128, 8192, 132) == 128
+    assert probes.dot_only_tiles_per_block(4, 64, 256, 132) == 1
+    assert probes.dot_only_tiles_per_block(2, 8, 128, 132) == 1
+    for s, m, rows in ((64, 32, 8192), (3, 4, 128), (4, 64, 8192), (1, 128, 64)):
+        tpb = probes.dot_only_tiles_per_block(s, m, rows, 132)
+        blocks = -(-rows // 64 // tpb) * s * -(-m // 32)
+        assert 1 <= tpb <= rows // 64 and (blocks <= 264 or tpb == rows // 64)
+
+
+class _FakeCuda(torch.Tensor):
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_dot_only_cuda_tensors_reach_the_kernel(monkeypatch):
+    """A CUDA tensor reaches the tensor-core dot_only entry once with S, M,
+    the rows of a slot and the plan's tiles a block; the plain version never
+    runs; a row count that is not a multiple of 64 is refused."""
+    from tpuserve_torch import kernels
+
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(kernels, "check", lambda code, what: None)
+    monkeypatch.setattr(probes, "dot_only_plain", lambda *a: (_ for _ in ()).throw(
+        AssertionError("plain version taken for a CUDA tensor")))
+    fc = lambda t: torch.Tensor._make_subclass(_FakeCuda, t)
+    k, v = (fc(torch.from_numpy(a)) for a in _cache(s=3, l=64, n_kv=2))
+    qi = fc(torch.zeros((3, 40, 128), dtype=torch.int8))
+    before = probes.dot_only_launches
+    out = probes.dot_only(qi, k, v)
+    assert out.shape == (3, 40, 128) and out.dtype == torch.float32
+    (name, args), = calls
+    assert name == "tpuserve_probe_dot_only"
+    assert args[:4] == (qi.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[4:8] == (3, 40, 128, probes.dot_only_tiles_per_block(3, 40, 128, 132))
+    assert probes.dot_only_launches == before + 1
+    k2, v2 = (fc(torch.zeros((2, 32, 1, 128), dtype=torch.int8)) for _ in range(2))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        probes.dot_only(fc(torch.zeros((2, 4, 128), dtype=torch.int8)), k2, v2)
+
+
 def test_probes_refuse_bad_inputs():
     k, v = _cache()
     with pytest.raises(ValueError, match="int8"):

@@ -211,7 +211,7 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
     """One turn of scripts/ab_probes.py against a stand-in chip_smoke: the
     parent's vector-add check has no per-dtype cases (float32 only), the
     change's has one a dtype; both give the same float32 row names, and
-    every unpack variant and library call is a row."""
+    every unpack variant, library call and attention probe is a row."""
     import json
     import sys
     import types
@@ -225,9 +225,11 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
     unpack = {"unpack_stream_raw": dict(ms=0.2, library_ms=1.6),
               "unpack_dot_raw": dict(ms=0.21, library_ms=0.196),
               "unpack_cur": dict(ms=0.3, library_ms=None)}
+    attn = {"probe_dma_bound": dict(ms=0.049), "probe_dot_only": dict(ms=0.055)}
     fake = types.SimpleNamespace(Timer=lambda torch: None,
                                  check_vector_add=lambda torch, timer, reps: va,
-                                 check_unpack_probes=lambda torch, timer, reps: unpack)
+                                 check_unpack_probes=lambda torch, timer, reps: unpack,
+                                 check_probes=lambda torch, timer, reps: attn)
     monkeypatch.setitem(sys.modules, "chip_smoke", fake)
     exec(ab_probes._TURN, {})
     line = next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("AB_JSON "))
@@ -238,6 +240,8 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
     assert rows["unpack_cur x [262144, 2048]"] == 0.3
     assert rows["library beside unpack_dot_raw"] == 0.196
     assert "library beside unpack_cur" not in rows
+    assert rows["probe_dot_only K, V [64, 256, 32, 128]"] == 0.055
+    assert rows["probe_dma_bound K, V [64, 256, 32, 128]"] == 0.049
 
 
 def test_ab_probes_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):

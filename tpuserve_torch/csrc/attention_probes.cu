@@ -23,17 +23,21 @@
 // dot_only: out[s, m, :] = sum over every row r of [S, R, 128] of
 // bf16(1e-6 * (qi[s, m] . k[s, r])) * v[s, r, :], f32 accumulation: the
 // attention's two dots over every query row and every cache row, without
-// softmax or head matching. Bound: its operations, on the CUDA cores here
-// (the f32 P@V reads each V value from shared memory once per query row;
-// tensor cores would take the P@V off them). A
-// block takes rows_per_block rows of one slot in tiles of DT rows: a thread
-// owns a K row and runs its int8 dots against the query codes in shared
-// memory; the tile's V rows are converted to f32 once into shared memory
-// (converting per query row made the int-to-float conversions the limit);
-// then each thread accumulates 16 output columns of a query row over the
-// tile (columns g*4 + 32*k + e, so that the 8 column groups of a warp read
-// 128 consecutive bytes). Blocks add their partial sums to the output with
-// float atomics.
+// softmax or head matching. Bound: bytes (K and V, 2 x 67 MB at the sweep's
+// shape, against 4.3 G int8 and 4.3 G bf16 operations). Both dots run on
+// the tensor cores (mma.sync), behind a cp.async ring: a block takes a run
+// of 64-row tiles of one slot and 32 query rows; each stage holds a tile's
+// K and V rows, issued together, D_STAGES - 1 tiles ahead. Scores: query
+// rows on M (the q codes stay in registers as A fragments), a warp's 16
+// cache rows on N, int8 m16n8k32, exact; P = bf16(1e-6 * score) goes to
+// shared memory. P @ V: query rows on M, a warp's 32 output columns on N,
+// the tile's rows on K, bf16 m16n8k16 with f32 sums: V's int8 codes are
+// exact in bf16. There is no 8-bit ldmatrix.trans; ldmatrix.trans of the
+// int8 tile as b16 hands a thread two adjacent columns of two adjacent
+// rows, so its even and odd columns become two n tiles, converted to bf16
+// by PRMT and a float subtraction (each V value once a block). The grid
+// fills the card with two blocks an SM (ops/attention_probes.py); blocks
+// add their partial sums to out with float4 atomics.
 //
 // colsum_strided: replaces scripts/diag_bw.py::copy_kernel (:78), in the
 // three forms its modes call (pcopy :137, pcopy4d :165, pdyn :201; the
@@ -50,6 +54,7 @@
 // and offset advanced by constant steps, not divided out per load.
 #include <cuda_bf16.h>
 
+#include "attention_hopper.cuh"
 #include "common.cuh"
 
 namespace {
@@ -132,100 +137,153 @@ __global__ void __launch_bounds__(PT) colsum_kernel(const int8_t* k, const int8_
   if (tid < HDP) atomicAdd(&out[tid], col[tid]);
 }
 
-constexpr int DT = 64;        // rows of a dot_only tile
-constexpr int MAX_PAIRS = 4;  // (query row, 16-column group) pairs a thread: M <= 128
+// ---- dot_only: a block takes tiles_per_block tiles of DT rows of one slot
+// and query rows q0 .. q0 + 31 (grid.z: groups of DQ rows).
+constexpr int DT = 64;        // cache rows of a tile
+constexpr int DQ = 32;        // query rows of a block (two m16 tiles; rows past M are zero)
+constexpr int D_STAGES = 4;   // ring depth: K and V tiles of one stage
+constexpr int D_THREADS = 128;
+constexpr int D_ROW = 144;    // K, V and q row stride in shared memory (conflict-free ldmatrix)
+constexpr int D_TILE = DT * D_ROW;
+constexpr int D_STAGE = 2 * D_TILE;
+constexpr int D_PS = DT + 8;  // bf16 elements of a P row (144 bytes)
+constexpr size_t D_SMEM = (size_t)D_STAGES * D_STAGE + DQ * D_ROW + DQ * D_PS * 2;
 
-// floats of dot_only's P tile [M][DT + 1], rounded up so that the query
-// codes after it start on a 16-byte boundary
-__host__ __device__ inline size_t p_tile_floats(int M) {
-  return ((size_t)M * (DT + 1) + 3) / 4 * 4;
-}
+__global__ void __launch_bounds__(D_THREADS, 2) dot_only_kernel(
+    const int8_t* qi, const int8_t* k, const int8_t* v, float* out, int M, int R,
+    int tiles_per_block) {
+  using namespace tpuserve::hopper;
+  extern __shared__ __align__(128) unsigned char dsm[];
+  unsigned char* ring = dsm;
+  unsigned char* qs = ring + D_STAGES * D_STAGE;                          // [DQ][D_ROW]
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(qs + DQ * D_ROW);  // [DQ][D_PS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, mat = lane >> 3;
+  const int slot = blockIdx.y, q0 = blockIdx.z * DQ, nq = min(DQ, M - q0);
+  const int tile0 = blockIdx.x * tiles_per_block;
+  const int n_tiles = min(tiles_per_block, R / DT - tile0);
+  const int8_t* kb = k + ((size_t)slot * R + (size_t)tile0 * DT) * HDP;
+  const int8_t* vb = v + ((size_t)slot * R + (size_t)tile0 * DT) * HDP;
 
-__global__ void __launch_bounds__(PT) dot_only_kernel(const int8_t* qi, const int8_t* k,
-                                                      const int8_t* v, float* out, int M, int R,
-                                                      int rows_per_block) {
-  extern __shared__ __align__(16) unsigned char dsm[];
-  float* vt = reinterpret_cast<float*>(dsm);                     // [DT][128] V values
-  float* pt = vt + (size_t)DT * HDP;                             // [M][DT + 1] P
-  int8_t* q8 = reinterpret_cast<int8_t*>(pt + p_tile_floats(M));  // [M][128]
-  const int tid = threadIdx.x;
-  const int slot = blockIdx.y;
-  const size_t r_begin = (size_t)blockIdx.x * rows_per_block;
-  const int8_t* kb = k + ((size_t)slot * R + r_begin) * HDP;
-  const int8_t* vb = v + ((size_t)slot * R + r_begin) * HDP;
-  for (int u = tid; u < M * HDP / 16; u += PT)
-    reinterpret_cast<uint4*>(q8)[u] =
-        reinterpret_cast<const uint4*>(qi + (size_t)slot * M * HDP)[u];
-
-  const int pairs = M * 8;
-  float acc[MAX_PAIRS][16];
+  // tile tt: its K and V rows into stage tt % D_STAGES, one commit group
+  auto issue = [&](int tt) {
+    if (tt < n_tiles) {
+      unsigned char* st = ring + (tt % D_STAGES) * D_STAGE;
+      const size_t off = (size_t)tt * DT * HDP;
 #pragma unroll
-  for (int pp = 0; pp < MAX_PAIRS; ++pp)
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[pp][e] = 0.f;
-
-  for (int r0 = 0; r0 < rows_per_block; r0 += DT) {
-    __syncthreads();  // q8 loaded; the last tile's vt and pt read
-    for (int u = tid; u < DT * HDP / 16; u += PT) {
-      const uint4 w = reinterpret_cast<const uint4*>(vb + (size_t)r0 * HDP)[u];
-      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        reinterpret_cast<float4*>(vt)[u * 4 + q] = make_float4(
-            (float)(int8_t)(ws[q] & 0xFFu), (float)(int8_t)((ws[q] >> 8) & 0xFFu),
-            (float)(int8_t)((ws[q] >> 16) & 0xFFu), (float)(int8_t)(ws[q] >> 24));
-    }
-    // scores: thread owns row i of the tile and query rows m0, m0 + PT / DT, ...
-    {
-      const int i = tid % DT;
-      const uint4* kp = reinterpret_cast<const uint4*>(kb + (size_t)(r0 + i) * HDP);
-      uint4 kw[HDP / 16];
-#pragma unroll
-      for (int c = 0; c < HDP / 16; ++c) kw[c] = kp[c];
-      for (int m = tid / DT; m < M; m += PT / DT) {
-        const int4* qp = reinterpret_cast<const int4*>(q8 + (size_t)m * HDP);
-        int d = 0;
-#pragma unroll
-        for (int c = 0; c < HDP / 16; ++c) {
-          const int4 qq = qp[c];
-          d = __dp4a(qq.x, (int)kw[c].x, d);
-          d = __dp4a(qq.y, (int)kw[c].y, d);
-          d = __dp4a(qq.z, (int)kw[c].z, d);
-          d = __dp4a(qq.w, (int)kw[c].w, d);
-        }
-        pt[(size_t)m * (DT + 1) + i] = __bfloat162float(__float2bfloat16_rn((float)d * 1e-6f));
+      for (int e = 0; e < DT * 8 / D_THREADS; ++e) {
+        const int c = tid + e * D_THREADS, row = c >> 3, piece = c & 7;
+        cp_async16(st + row * D_ROW + piece * 16, kb + off + row * HDP + piece * 16, 16);
+        cp_async16(st + D_TILE + row * D_ROW + piece * 16, vb + off + row * HDP + piece * 16, 16);
       }
     }
-    __syncthreads();
-    // P @ V: pair pp = (m, column group g), columns g*4 + 32*k + e
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int pp = 0; pp < MAX_PAIRS; ++pp) {
-      const int pair = tid + pp * PT;
-      if (pair >= pairs) break;
-      const int m = pair >> 3, g = pair & 7;
-      for (int i = 0; i < DT; ++i) {
-        const float p = pt[(size_t)m * (DT + 1) + i];
-        const float4* vr = reinterpret_cast<const float4*>(vt + (size_t)i * HDP);
+  for (int p = 0; p < D_STAGES - 1; ++p) issue(p);
+
+  // the group's query codes (zero past M), then each m16 tile's A fragments
+  for (int c = tid; c < DQ * 8; c += D_THREADS) {
+    const int row = c >> 3, piece = c & 7;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (row < nq)
+      w = reinterpret_cast<const uint4*>(qi + ((size_t)slot * M + q0 + row) * HDP)[piece];
+    *reinterpret_cast<uint4*>(qs + row * D_ROW + piece * 16) = w;
+  }
+  __syncthreads();
+  uint32_t qa[2][4][4];  // [m tile][k32 step]
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float4 x = vr[g + 8 * k];
-          acc[pp][4 * k + 0] += p * x.x;
-          acc[pp][4 * k + 1] += p * x.y;
-          acc[pp][4 * k + 2] += p * x.z;
-          acc[pp][4 * k + 3] += p * x.w;
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ldsm_x4(qa[m][kk], qs + (16 * m + (lane & 7) + (mat & 1) * 8) * D_ROW + 32 * kk +
+                             (mat >> 1) * 16);
+
+  // out columns 32 * warp + 16 * c + 4 * t + e of query rows 16 * m + g (+ 8)
+  float acc[2][2][2][4] = {};  // [m tile][16-byte column chunk c][even, odd columns][c frag]
+
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    cp_async_wait<D_STAGES - 2>();
+    __syncthreads();  // tile tt landed; every warp is done with tile tt - 1 and P
+    issue(tt + D_STAGES - 1);
+    const unsigned char* st = ring + (tt % D_STAGES) * D_STAGE;
+
+    // scores of the tile's rows 16 * warp .. +15 (two n8 tiles) against the
+    // 32 query rows (two m16 tiles), int8 on the tensor cores, exact; then
+    // P = bf16(1e-6 * score) into shared memory
+    int sacc[2][2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t kf[4];  // b0, b1 of n tile 0, then of n tile 1
+      ldsm_x4(kf, st + (16 * warp + (lane & 7) + (mat >> 1) * 8) * D_ROW + 32 * kk +
+                      (mat & 1) * 16);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma_s8(sacc[m][n], qa[m][kk], kf[2 * n], kf[2 * n + 1]);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // |score| < 2^22: 1.5 * 2^23 + score is exact, and so is the subtraction
+          const float s0 = __int_as_float(0x4B400000 + sacc[m][n][2 * h]) - 12582912.0f;
+          const float s1 = __int_as_float(0x4B400000 + sacc[m][n][2 * h + 1]) - 12582912.0f;
+          *reinterpret_cast<uint32_t*>(pt + (16 * m + g + 8 * h) * D_PS + 16 * warp + 8 * n +
+                                       2 * t) = pack_bf16(s0 * 1e-6f, s1 * 1e-6f);
+        }
+    __syncthreads();  // P complete
+
+    // P @ V on bf16 tensor cores: query rows on M, this warp's 32 columns on
+    // N, the tile's rows on K. ldmatrix.trans of the int8 tile as b16 gives
+    // a thread bytes (2t, 2g), (2t, 2g+1), (2t+1, 2g), (2t+1, 2g+1) of an
+    // 8x16-byte block: its even and odd columns are two n8 tiles, converted
+    // to bf16 exactly.
+    const unsigned char* vt = st + D_TILE;
+#pragma unroll
+    for (int ks = 0; ks < DT / 16; ++ks) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        ldsm_x4(pa[m], pt + (16 * m + (lane & 7) + (mat & 1) * 8) * D_PS + 16 * ks +
+                           (mat >> 1) * 8);
+      uint32_t vr[4];  // rows 16ks + 0..7 and 8..15 of chunk 0, then of chunk 1
+      ldsm_x4_trans(vr, vt + (16 * ks + (lane & 7) + (mat & 1) * 8) * D_ROW + 32 * warp +
+                            (mat >> 1) * 16);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t e0 = s8_to_bf16x2<0, 2>(vr[2 * c]), e1 = s8_to_bf16x2<0, 2>(vr[2 * c + 1]);
+        const uint32_t o0 = s8_to_bf16x2<1, 3>(vr[2 * c]), o1 = s8_to_bf16x2<1, 3>(vr[2 * c + 1]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16(acc[m][c][0], pa[m][0], pa[m][1], pa[m][2], pa[m][3], e0, e1);
+          mma_bf16(acc[m][c][1], pa[m][0], pa[m][1], pa[m][2], pa[m][3], o0, o1);
         }
       }
     }
   }
+
+  // the block's partial sums into out: four consecutive columns a float4
 #pragma unroll
-  for (int pp = 0; pp < MAX_PAIRS; ++pp) {
-    const int pair = tid + pp * PT;
-    if (pair >= pairs) break;
-    const int m = pair >> 3, g = pair & 7;
-    float* o = out + ((size_t)slot * M + m) * HDP + g * 4;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int e = 0; e < 16; ++e) atomicAdd(o + 32 * (e >> 2) + (e & 3), acc[pp][e]);
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * m + g + 8 * h;
+      if (row >= nq) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float* o = out + ((size_t)slot * M + q0 + row) * HDP + 32 * warp + 16 * c + 4 * t;
+        const float4 x = make_float4(acc[m][c][0][2 * h], acc[m][c][1][2 * h],
+                                     acc[m][c][0][2 * h + 1], acc[m][c][1][2 * h + 1]);
+#if __CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
+        atomicAdd(reinterpret_cast<float4*>(o), x);  // one vector atomic (sm_90)
+#else
+        atomicAdd(o, x.x); atomicAdd(o + 1, x.y); atomicAdd(o + 2, x.z); atomicAdd(o + 3, x.w);
+#endif
+      }
+    }
 }
 
 constexpr int MAX_HD = 256;  // widest row segment colsum_strided takes
@@ -355,24 +413,27 @@ extern "C" int tpuserve_probe_colsum(const void* k, const void* v, void* out,
 }
 
 // dot_only over qi [S, M, 128] int8 and k/v [S, R, 128] int8 into out
-// [S, M, 128] f32 (zeroed by the caller); rows_per_block divides R and is a
-// multiple of 64; M <= 128. Returns a cudaError_t code.
+// [S, M, 128] f32 (zeroed by the caller): grid (ceil(R / 64 /
+// tiles_per_block), S, ceil(M / 32)); R is a multiple of 64. Returns a
+// cudaError_t code.
 extern "C" int tpuserve_probe_dot_only(const void* qi, const void* k, const void* v, void* out,
-                                       int S, int M, int R, int rows_per_block, void* stream) {
-  if (S <= 0) return 0;
-  if (M <= 0 || M > MAX_PAIRS * PT / 8 || rows_per_block <= 0 || rows_per_block % DT ||
-      R % rows_per_block)
+                                       int S, int M, int R, int tiles_per_block, void* stream) {
+  if (S <= 0 || M <= 0) return 0;
+  if (R <= 0 || R % DT || tiles_per_block <= 0) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(qi) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)DT * HDP + p_tile_floats(M)) * sizeof(float) + (size_t)M * HDP;
-  static size_t opted_in = 0;
-  if (smem > opted_in) {
+  static bool opted_in = false;
+  if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(dot_only_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D_SMEM);
     if (e != cudaSuccess) return (int)e;
-    opted_in = smem;
+    opted_in = true;
   }
-  dot_only_kernel<<<dim3(R / rows_per_block, S), PT, smem, (cudaStream_t)stream>>>(
+  const int blocks_x = (R / DT + tiles_per_block - 1) / tiles_per_block;
+  dot_only_kernel<<<dim3(blocks_x, S, (M + DQ - 1) / DQ), D_THREADS, D_SMEM,
+                    (cudaStream_t)stream>>>(
       static_cast<const int8_t*>(qi), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), (float*)out, M, R, rows_per_block);
+      static_cast<const int8_t*>(v), (float*)out, M, R, tiles_per_block);
   return (int)cudaGetLastError();
 }

@@ -1,44 +1,40 @@
-// Grouped decode attention over a [S, L, Hkv, HD] cache view (the
-// TPUSERVE_DECODE_ATTN=grouped path of the decode step).
+// Grouped decode attention over a bf16 or f32 [S, L, Hkv, HD] cache view
+// (the TPUSERVE_DECODE_ATTN=grouped path of the decode step; int8 and
+// packed int4 windows take decode_attention_grouped_hopper.cu).
 //
 // Replaces tpuserve/ops/decode_attention.py::_kernel (entry
-// decode_attention). It computes what that kernel computes, in order:
-//   - int8 cache: q quantized to int8 per (slot, head) (clip +-127, round
-//     half to even, scale max(absmax/127, 1e-10)); an int32 score dot,
-//     then s = float(dot) * k_scale * q_scale. Float caches: an f32 dot of
-//     q's own values (f32 or bf16) with the cache's, times k_scale if given;
+// decode_attention) for float caches. It computes what that kernel
+// computes, in order:
+//   - an f32 dot of q's own values (f32 or bf16) with the cache's, times
+//     k_scale if given;
 //   - positions past positions[slot] masked to -1e30;
 //   - online softmax over blocks of bl rows: m_safe = max(m, -5e29),
 //     p = exp(s - m_safe), l = l * corr + sum(p); blocks wholly past
 //     positions[slot] are read and masked, or skipped with dynskip on
 //     (TPUSERVE_ATTN_DYNSKIP=1); either way an inactive slot (-1) gives 0;
-//   - p * v_scale rounded to bf16 (f32 cache: not rounded), times V's values
-//     (int8 codes are exact in bf16), accumulated in f32: acc = acc * corr +
-//     P @ V. No P requant: this is not decode_attention.cu's arithmetic;
+//   - p * v_scale (if given) rounded to bf16 (f32 cache: not rounded), times
+//     V's values, accumulated in f32: acc = acc * corr + P @ V. No P
+//     requant: this is not decode_attention.cu's arithmetic;
 //   - out = acc / max(l, 1e-20) where l > 0, else 0.
 // The TPU kernel serves g_kv kv heads per grid step with one dense dot and
 // masks the mismatched head pairs to -1e30; those add exact zeros, so here a
 // block serves g_kv kv heads one after another, each with its rep query
 // heads, and g_kv only splits the work.
 //
-// Cache: k/v [S, L, Hkv, HD] int8, bf16 or f32 with contiguous rows and a
-// slot stride of its own (a window view of a longer cache is read in
-// place). Scales [S, L, Hkv] f32 or bf16 with any strides (a transposed
-// view of the head-major scale cache). q [S, H, HD] f32 or bf16, scaled by
-// 1/sqrt(HD); out [S, H, HD] f32.
+// Cache: k/v [S, L, Hkv, HD] bf16 or f32 with contiguous rows and a slot
+// stride of its own (a window view of a longer cache is read in place).
+// Scales, if any, [S, L, Hkv] f32 or bf16 with any strides. q [S, H, HD]
+// f32 or bf16, scaled by 1/sqrt(HD); out [S, H, HD] f32.
 //
 // Bound on the H100: bytes. Each live K/V byte is used for 2 * rep
 // operations. Design: one block of 4 warps per (slot, group of g_kv kv
 // heads); the default g_kv = 1 gives S * Hkv blocks (2048 at Llama-2-7B
-// widths and 64 slots). Scores of an int8 cache: a thread owns one cache
-// row of the block, holds its HD codes in registers and runs the whole dot
-// of every query head of the kv head against q codes broadcast from shared
-// memory, so no warp reduction is needed. Scores of a float cache (256 or
-// 512 bytes a row, too many for one thread's registers): a warp owns a row
-// and its lanes 4 values each, loading ROWS rows ahead, as the flat kernel
-// does. P @ V: a warp takes rows warp, warp + 4, ..., loads ROWS of them
-// ahead, a lane owns 4 columns, and the 4 warps' partial sums meet in
-// shared memory. With dynskip on, rows past positions[slot] are never read.
+// widths and 64 slots). Scores (256 or 512 bytes a row, too many for one
+// thread's registers): a warp owns a row and its lanes 4 values each,
+// loading ROWS rows ahead, as the flat kernel does. P @ V: a warp takes
+// rows warp, warp + 4, ..., loads ROWS of them ahead, a lane owns 4
+// columns, and the 4 warps' partial sums meet in shared memory. With
+// dynskip on, rows past positions[slot] are never read.
 #include "attention_common.cuh"
 
 namespace {
@@ -53,7 +49,7 @@ struct GroupedArgs {
   const void* q;       // [S, H, HD]
   const void* k;       // [S, L, Hkv, HD] view, slot stride slot_stride elements
   const void* v;
-  const void* ks;      // [S, L, Hkv] view (or null for a float cache)
+  const void* ks;      // [S, L, Hkv] view, or null
   const void* vs;
   const int* pos;      // [S], -1 = inactive
   float* out;          // [S, H, HD]
@@ -66,14 +62,11 @@ struct GroupedArgs {
 
 template <int KIND, int NQ>
 __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArgs a) {
-  constexpr bool INTK = (KIND == KV_INT8);
-  constexpr int CHUNKS = HD / 16;  // 16-byte loads of an int8 row
   extern __shared__ __align__(16) unsigned char dsm[];
   float* sc = reinterpret_cast<float*>(dsm);  // [NQ][bl] scores, then P
   __shared__ __align__(16) float qf[NQ][HD];
-  __shared__ __align__(16) int8_t q8[NQ][HD];
   __shared__ __align__(16) float red[WARPS][NQ][HD];
-  __shared__ float s_qscale[NQ], s_m[NQ], s_l[NQ], s_corr[NQ];
+  __shared__ float s_m[NQ], s_l[NQ], s_corr[NQ];
 
   const int slot = blockIdx.y;
   const int tid = threadIdx.x;
@@ -89,20 +82,12 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
     const int h = blockIdx.x * a.g_kv + hh;  // kv head; its query heads are h*NQ ..
     __syncthreads();                         // the previous head's readers are done
 
-    // ---- q: per-head int8 quantization (int8 cache) or its own values
+    // ---- q: its own values
     for (int j = warp; j < NQ; j += WARPS) {
       float qv[4];
       load_q4(a.q, ((size_t)slot * a.H + h * NQ + j) * HD + lane * 4, a.q_bf16, qv);
-      if (INTK) {
-        int8_t code[4];
-        const float scale = quantize_q4(qv, code);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) q8[j][lane * 4 + c] = code[c];
-        if (lane == 0) s_qscale[j] = scale;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) qf[j][lane * 4 + c] = qv[c];
-      }
+      for (int c = 0; c < 4; ++c) qf[j][lane * 4 + c] = qv[c];
     }
     if (tid < NQ) {
       s_m[tid] = NEG_INF;
@@ -112,13 +97,11 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
 #pragma unroll
     for (int j = 0; j < NQ; ++j) acc[j] = 0.f;
     __syncthreads();
-    float qr[NQ][4] = {};  // float caches: this lane's 4 values of each query head
-    if constexpr (!INTK) {
+    float qr[NQ][4];  // this lane's 4 values of each query head
 #pragma unroll
-      for (int j = 0; j < NQ; ++j)
+    for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) qr[j][c] = qf[j][lane * 4 + c];
-    }
+      for (int c = 0; c < 4; ++c) qr[j][c] = qf[j][lane * 4 + c];
 
     for (int jb = 0; jb < n_blocks && (!a.dynskip || jb * bl <= pos); ++jb) {
       const int l0 = jb * bl;
@@ -129,73 +112,39 @@ __global__ void __launch_bounds__(THREADS) decode_attn_grouped_kernel(GroupedArg
       const size_t row0 = (size_t)slot * a.slot_stride + (size_t)l0 * rstride + (size_t)h * HD;
       const size_t sc0 = (size_t)slot * a.ss_slot + (size_t)l0 * a.ss_row + (size_t)h * a.ss_head;
 
-      // ---- phase 1: scores of every row of the block (dead rows masked)
-      if constexpr (INTK) {
-        // a thread owns row i: its HD codes in registers, every query head's dot
-        for (int i = tid; i < bl; i += THREADS) {
-          if (i >= nread) {
+      // ---- phase 1: scores of every row of the block (dead rows masked);
+      // a warp owns row i and its lanes 4 values each, ROWS rows loaded ahead
+      for (int i0 = warp; i0 < bl; i0 += WARPS * ROWS) {
+        typename RowWord<KIND>::T kw[ROWS] = {};
 #pragma unroll
-            for (int j = 0; j < NQ; ++j) sc[j * bl + i] = NEG_INF;
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i < nread) kw[r] = load_word<KIND>(a.k, row0 + (size_t)i * rstride, lane);
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const int i = i0 + r * WARPS;
+          if (i >= bl) break;
+          if (i >= nread) {
+            if (lane < NQ) sc[lane * bl + i] = NEG_INF;
             continue;
           }
-          const uint4* kp = reinterpret_cast<const uint4*>(
-              static_cast<const int8_t*>(a.k) + row0 + (size_t)i * rstride);
-          uint4 kw[CHUNKS];
+          float kv[4];
+          word_floats<KIND>(kw[r], kv);
+          float s[NQ];
 #pragma unroll
-          for (int c = 0; c < CHUNKS; ++c) kw[c] = kp[c];
-          int d[NQ];
+          for (int j = 0; j < NQ; ++j) {
+            float t = 0.f;
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) d[j] = 0;
-#pragma unroll
-          for (int c = 0; c < CHUNKS; ++c) {
-#pragma unroll
-            for (int j = 0; j < NQ; ++j) {
-              const int4 qq = reinterpret_cast<const int4*>(q8[j])[c];  // broadcast
-              d[j] = __dp4a(qq.x, (int)kw[c].x, d[j]);
-              d[j] = __dp4a(qq.y, (int)kw[c].y, d[j]);
-              d[j] = __dp4a(qq.z, (int)kw[c].z, d[j]);
-              d[j] = __dp4a(qq.w, (int)kw[c].w, d[j]);
-            }
+            for (int c = 0; c < 4; ++c) t += qr[j][c] * kv[c];
+            s[j] = warp_sum(t);
           }
-          const float ksc = load_scale(a.ks, sc0 + (size_t)i * a.ss_row, a.sc_bf16);
+          if (lane == 0) {
+            const float ksc = scaled ? load_scale(a.ks, sc0 + (size_t)i * a.ss_row, a.sc_bf16)
+                                     : 1.f;
 #pragma unroll
-          for (int j = 0; j < NQ; ++j)
-            sc[j * bl + i] = i < live ? ((float)d[j] * ksc) * s_qscale[j] : NEG_INF;
-        }
-      } else {
-        // a warp owns row i and its lanes 4 values each, ROWS rows loaded ahead
-        for (int i0 = warp; i0 < bl; i0 += WARPS * ROWS) {
-          typename RowWord<KIND>::T kw[ROWS] = {};
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const int i = i0 + r * WARPS;
-            if (i < nread) kw[r] = load_word<KIND>(a.k, row0 + (size_t)i * rstride, lane);
-          }
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const int i = i0 + r * WARPS;
-            if (i >= bl) break;
-            if (i >= nread) {
-              if (lane < NQ) sc[lane * bl + i] = NEG_INF;
-              continue;
-            }
-            float kv[4];
-            word_floats<KIND>(kw[r], kv);
-            float s[NQ];
-#pragma unroll
-            for (int j = 0; j < NQ; ++j) {
-              float t = 0.f;
-#pragma unroll
-              for (int c = 0; c < 4; ++c) t += qr[j][c] * kv[c];
-              s[j] = warp_sum(t);
-            }
-            if (lane == 0) {
-              const float ksc = scaled ? load_scale(a.ks, sc0 + (size_t)i * a.ss_row, a.sc_bf16)
-                                       : 1.f;
-#pragma unroll
-              for (int j = 0; j < NQ; ++j)
-                sc[j * bl + i] = i >= live ? NEG_INF : (scaled ? s[j] * ksc : s[j]);
-            }
+            for (int j = 0; j < NQ; ++j)
+              sc[j * bl + i] = i >= live ? NEG_INF : (scaled ? s[j] * ksc : s[j]);
           }
         }
       }
@@ -306,9 +255,9 @@ int launch_nq(const GroupedArgs& a, int nq, cudaStream_t st) {
 
 }  // namespace
 
-// kind: 0 int8, 2 bf16, 3 f32 cache (int8 needs scales). nq: query heads per
-// kv head (rep). kind + KV_READ_ALL (the JAX package's default for this
-// kernel, TPUSERVE_ATTN_DYNSKIP=0) reads and masks the blocks past a slot's
+// kind: 2 bf16, 3 f32 cache. nq: query heads per kv head (rep). kind +
+// KV_READ_ALL (the JAX package's default for this kernel,
+// TPUSERVE_ATTN_DYNSKIP=0) reads and masks the blocks past a slot's
 // position; without it they are skipped; the output is the same. Returns a
 // cudaError_t code.
 extern "C" int tpuserve_decode_attention_grouped(
@@ -326,10 +275,8 @@ extern "C" int tpuserve_decode_attention_grouped(
   if (S <= 0) return 0;
   if (bl <= 0 || bl > MAX_BL || L % bl != 0 || g_kv <= 0 || Hkv % g_kv != 0 || H != Hkv * nq)
     return (int)cudaErrorInvalidValue;
-  if (kind == KV_INT8 && ks == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (kind) {
-    case KV_INT8: return launch_nq<KV_INT8>(a, nq, st);
     case KV_BF16: return launch_nq<KV_BF16>(a, nq, st);
     case KV_F32: return launch_nq<KV_F32>(a, nq, st);
     default: return (int)cudaErrorInvalidValue;

@@ -82,14 +82,15 @@
 // stages the ids of its run for the rest, and it never touches a page past
 // the live one.
 #include "attention_common.cuh"
+#include "attention_hopper.cuh"
 
 namespace {
 
 using namespace tpuserve::attn;
+using namespace tpuserve::hopper;
 using tpuserve::warp_max;
 using tpuserve::warp_sum;
 
-constexpr int TR = 64;            // cache rows of a ring tile
 // Ring depth and blocks an SM: 3 stages and 5 blocks for the int8 cache
 // with up to 8 query rows (the flat and paged decode step: one kv head a
 // block, one row), 4 and 4 otherwise. On the card (scripts/ab_attention.py
@@ -101,15 +102,9 @@ template <int KIND, int NT> struct Ring {
   static constexpr int STAGES = SHALLOW ? 3 : 4;
   static constexpr int BLOCKS = SHALLOW ? 5 : 4;
 };
-constexpr int ROW_B = 144;        // tile row stride: a unit's 128 bytes + 16 (conflict-free)
 constexpr int VT_B = 80;          // transposed V row stride: TR bytes + 16
-constexpr int SC_W = 68;          // words of a staged scale row (64 f32, or 33 bf16 pairs)
-constexpr int TILE_B = TR * ROW_B;
-constexpr int STAGE_B = TILE_B + 4 * SC_W * 4;  // data, then ks lo/hi, vs lo/hi
 static_assert(128 * VT_B <= STAGE_B, "a V tile is transposed within its stage");
-constexpr int QS_B = 144;         // q code row stride
 constexpr int MAX_RG = 32;        // query rows of one block (a row group)
-constexpr size_t SMEM_LIMIT = 227 * 1024;
 
 struct Args {
   const void* q;
@@ -139,54 +134,6 @@ __host__ __device__ inline size_t smem_bytes(int stages, int rp, int bl, int pag
   return (size_t)stages * STAGE_B + (size_t)rp * QS_B + rp * (blp + 4) * 4 +
          rp * (blp + 16) + 2 * blp * 4 + 24 * (size_t)rp * 4 +
          (size_t)pages * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment's nibble halves as int8 codes (biased, 0..15); NOOP keeps
-// the raw bytes for both
-template <bool NOOP>
-__device__ __forceinline__ void nibbles(const uint32_t (&a)[4], uint32_t (&lo)[4],
-                                        uint32_t (&hi)[4]) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    lo[x] = NOOP ? a[x] : (a[x] & 0x0F0F0F0Fu);
-    hi[x] = NOOP ? a[x] : ((a[x] >> 4) & 0x0F0F0F0Fu);
-  }
 }
 
 // One work item of the grid: kv unit u of slot `slot`, row group rg (query

@@ -43,9 +43,11 @@ import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
 from tpuserve_torch.ops.decode_attention import (decode_attention,
+                                                 decode_attention_packed,
                                                  decode_attention_wide_cache,
                                                  decode_attention_wide_cache_multi,
-                                                 decode_attention_wide_paged)
+                                                 decode_attention_wide_paged,
+                                                 unpack_kv_codes)
 from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
 from tpuserve_torch.utils.device import resolve_device
 
@@ -264,17 +266,6 @@ def pack_kv_codes(codes: torch.Tensor) -> torch.Tensor:
     return (lo | (hi << 4)).to(torch.uint8)
 
 
-def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of pack_kv_codes: uint8 [..., W/2] -> int8 [..., W]. Three
-    byte-wide passes: the low and high nibbles into the two halves, then the
-    -8 offset, which wraps mod 256 into the int8 codes' bytes."""
-    half = packed.shape[-1]
-    out = torch.empty(packed.shape[:-1] + (2 * half,), dtype=torch.uint8, device=packed.device)
-    torch.bitwise_and(packed, 15, out=out[..., :half])
-    torch.bitwise_right_shift(packed, 4, out=out[..., half:])
-    return out.sub_(8).view(torch.int8)
-
-
 def _pad_heads(x: torch.Tensor, hp: int) -> torch.Tensor:
     """[.., Hkv] -> [.., hp] zero-padded: scale pools hold pad8(Hkv)
     head-major rows per page."""
@@ -399,21 +390,23 @@ def _decode_attn_mode(p: LlamaParams) -> str:
 
 def _attend_grouped(q, cache: KVCache, layer: int, win: int, positions, p: LlamaParams):
     """decode_step's attention under "grouped": the first `win` rows of this
-    layer as [S, win, Hkv, hd] (a view of the flat cache for int8 and float
-    caches; a packed int4 cache is unpacked to int8 codes first, as the JAX
-    package leaves that to XLA) with [S, win, Hkv] scales (a transposed view)
-    through `ops.decode_attention`. q [S, H, hd] with RoPE applied; returns
-    [S, H, hd] f32."""
+    layer through the grouped kernel, read in place: an int8 or float cache
+    as [S, win, Hkv, hd] with [S, win, Hkv] scales (transposed views)
+    through `ops.decode_attention`; a packed int4 cache as its packed window
+    [S, win, W/2] with the head-major [S, Hkv, win] scales through
+    `ops.decode_attention_packed`, which decodes the nibbles itself (the
+    JAX package unpacks the window in XLA first: the same codes). q [S, H,
+    hd] with RoPE applied; returns [S, H, hd] f32."""
     s = q.shape[0]
     k_rows, v_rows = cache.k[layer, :, :win], cache.v[layer, :, :win]
-    if cache.k.dtype == torch.uint8:
-        k_rows, v_rows = unpack_kv_codes(k_rows), unpack_kv_codes(v_rows)
-    shape = (s, win, p.n_kv_heads, p.head_dim)
     ks, vs = _window_scales(cache, layer, win)
+    q = true_div(q, math.sqrt(p.head_dim))
+    if cache.k.dtype == torch.uint8:
+        return decode_attention_packed(q, k_rows, v_rows, ks, vs, positions)
+    shape = (s, win, p.n_kv_heads, p.head_dim)
     if ks is not None:
         ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
-    return decode_attention(true_div(q, math.sqrt(p.head_dim)), k_rows.view(shape),
-                            v_rows.view(shape), ks, vs, positions)
+    return decode_attention(q, k_rows.view(shape), v_rows.view(shape), ks, vs, positions)
 
 
 # ---------------------------------------------------------------------- blocks

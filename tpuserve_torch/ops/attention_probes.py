@@ -14,7 +14,8 @@ attention's access patterns and computes a function of every byte it reads
   block, slot) order; the same column sums;
 - `dot_only` (dot_only.kern): out[s, m] = sum over every row r of
   bf16(1e-6 * (qi[s, m] . k[s, r])) * bf16(v[s, r]), f32 accumulation: the
-  attention's two dots over all L*Hkv rows, no softmax, no head matching.
+  attention's two dots over all L*Hkv rows, no softmax, no head matching;
+  both dots on the tensor cores behind a cp.async ring.
 
 `diag_copy` (scripts/diag_bw.py::copy_kernel, port of its modes pcopy,
 pcopy4d and pdyn; run by tpuserve_torch.scripts.diag_bw) streams int8 K/V
@@ -44,8 +45,10 @@ dot_only_launches = 0
 diag_copy_launches = 0
 
 _HD = 128
-_POSITIONS = 64    # positions of a dma_bound / dot_only block (the TPU probes')
+_POSITIONS = 64    # positions of a dma_bound block (the TPU probe's)
 _WIDE_ROWS = 16    # rows of a dma_wide block: 64 KB of K and of V at Hkv = 32
+_DOT_TILE = 64     # cache rows of a dot_only tile
+_DOT_Q = 32        # query rows of a dot_only block
 _MAX_HD = 256      # widest row segment diag_copy takes
 COPY_MODES = ("pcopy", "pcopy4d", "pdyn")
 
@@ -139,10 +142,21 @@ def dot_only_plain(qi, k, v) -> torch.Tensor:
     return torch.einsum("smr,srd->smd", p, vf.to(torch.float32))
 
 
+def dot_only_tiles_per_block(s_dim: int, m: int, rows: int, sms: int) -> int:
+    """64-row tiles a block of the dot_only kernel takes: a slot's rows cut
+    into as many runs as two blocks an SM allow in one wave (the kernel's
+    shared memory holds two), given S x ceil(M / 32) (slot, query group)
+    pairs."""
+    tiles = rows // _DOT_TILE
+    runs = max(1, min(tiles, (2 * sms) // (s_dim * -(-m // _DOT_Q))))
+    return -(-tiles // runs)
+
+
 def dot_only(qi, k, v) -> torch.Tensor:
     """The attention's two dots without softmax: qi [S, M, 128] int8 (see
-    probe_q), k/v [S, L, Hkv, 128] int8 -> [S, M, 128] f32, blocks of 64
-    positions x all heads of a slot."""
+    probe_q), k/v [S, L, Hkv, 128] int8 -> [S, M, 128] f32. The kernel
+    streams the L*Hkv rows of a slot in 64-row tiles (L*Hkv a multiple of
+    64), 32 query rows a block."""
     global dot_only_launches
     _check_cache(k, v)
     if qi.dim() != 3 or qi.shape[0] != k.shape[0] or qi.shape[2] != _HD or qi.dtype != torch.int8:
@@ -153,16 +167,19 @@ def dot_only(qi, k, v) -> torch.Tensor:
 
     s_dim, l_max, n_kv, _ = k.shape
     m = qi.shape[1]
-    rows = min(_POSITIONS, l_max) * n_kv
-    if l_max % min(_POSITIONS, l_max) or rows % 64 or m > 128:
-        raise ValueError(f"dot_only: L={l_max}, Hkv={n_kv}, M={m} not taken")
+    rows = l_max * n_kv
+    if rows % _DOT_TILE:
+        raise ValueError(f"dot_only: L*Hkv={rows} is not a multiple of {_DOT_TILE}")
     if not (qi.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("dot_only: inputs must be contiguous")
     if len({qi.device, k.device, v.device}) != 1:
         raise ValueError("dot_only: inputs must be on one device")
+    if qi.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("dot_only: inputs must be 16-byte aligned")
     out = torch.zeros((s_dim, m, _HD), dtype=torch.float32, device=k.device)
+    tpb = dot_only_tiles_per_block(s_dim, m, rows, kernels.sm_count(k.device))
     rc = kernels.lib().tpuserve_probe_dot_only(qi.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                               out.data_ptr(), s_dim, m, l_max * n_kv, rows,
+                                               out.data_ptr(), s_dim, m, rows, tpb,
                                                kernels.stream_of(k))
     kernels.check(rc, "probe_dot_only")
     dot_only_launches += 1

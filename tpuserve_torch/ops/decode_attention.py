@@ -67,8 +67,13 @@ the nibble unpack's share of the kernel's time in place.
 `decode_attention` (the JAX package's entry of the same name, the grouped
 `_kernel` behind TPUSERVE_DECODE_ATTN=grouped) takes k/v [S, L, Hkv, hd]
 and [S, L, Hkv] scales and computes other numerics: no P requant, P times
-v_scale rounded to bf16, P@V on V's values. Its kernel is
-csrc/decode_attention_grouped.cu.
+v_scale rounded to bf16, P@V on V's values. Its kernels are
+csrc/decode_attention_grouped_hopper.cu for an int8 window (with the core's
+window split, `_grouped_plan`) and csrc/decode_attention_grouped.cu for a
+float one. `decode_attention_packed`, the port's route for the decode step
+over a packed int4 cache, runs the same Hopper kernel on the packed window
+and its head-major scales in place; its plain version is unpack_kv_codes
+followed by decode_attention_plain.
 """
 
 from __future__ import annotations
@@ -316,8 +321,15 @@ def _attend_plain(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g,
             l_run = torch.where(run, l_new, l_run)
             m_run = torch.where(run, m_new, m_run)
         parts.append((m_run, l_run, acc))
-    # the merge, in split order (one split: an exact identity)
-    m_run, l_run, acc = fresh()
+    return _merge_runs(parts)
+
+
+def _merge_runs(parts):
+    """The window's runs' online-softmax states (m, l, acc) merged in
+    split order, as the Hopper kernels' last split does (one run: an exact
+    identity), then out = acc / max(l, 1e-20) where l > 0, else 0."""
+    m_run = torch.full_like(parts[0][0], _NEG_INF)
+    l_run, acc = torch.zeros_like(parts[0][1]), torch.zeros_like(parts[0][2])
     for m_z, l_z, a_z in parts:
         m_new = torch.maximum(m_run, m_z)
         m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
@@ -515,10 +527,22 @@ def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
 _GKV_ENV = "TPUSERVE_ATTN_GKV"
 
 
+def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of models.llama.pack_kv_codes: uint8 [..., W/2] -> int8 [...,
+    W]. Three byte-wide passes: the low and high nibbles into the two
+    halves, then the -8 offset, which wraps mod 256 into the int8 codes'
+    bytes."""
+    half = packed.shape[-1]
+    out = torch.empty(packed.shape[:-1] + (2 * half,), dtype=torch.uint8, device=packed.device)
+    torch.bitwise_and(packed, 15, out=out[..., :half])
+    torch.bitwise_right_shift(packed, 4, out=out[..., half:])
+    return out.sub_(8).view(torch.int8)
+
+
 def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[int]):
-    """Shapes, the kv heads per block and the L blocking of the grouped
-    entry, chosen as the JAX package's decode_attention chooses them, but
-    for the default split (see decode_attention)."""
+    """Shapes, the kv heads per block, the L blocking and the window split
+    of the grouped entry, chosen as the JAX package's decode_attention
+    chooses them, but for the default split (see decode_attention)."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("grouped decode attention expects q [S, H, hd] and k/v [S, L, Hkv, hd]")
     s_dim, n_heads, hd = q.shape
@@ -538,6 +562,14 @@ def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[in
     if quantized and (tuple(k_scale.shape) != (s_dim, l_max, n_kv)
                       or tuple(v_scale.shape) != (s_dim, l_max, n_kv)):
         raise ValueError(f"grouped decode attention: scales must be {(s_dim, l_max, n_kv)}")
+    return _grouped_dims(q, l_max, n_kv, k.dtype == torch.int8, quantized, block_l, g_kv)
+
+
+def _grouped_dims(q, l_max: int, n_kv: int, kv_int8: bool, quantized: bool, block_l: int,
+                  g_kv: Optional[int]):
+    """The grouped geometry of checked shapes: g_kv clipped to a divisor of
+    Hkv, block_l halved until it divides L, and the window split."""
+    s_dim, n_heads, hd = q.shape
     if g_kv is None:
         g_kv = int(os.environ.get(_GKV_ENV, "0")) or 1
     g_kv = max(1, min(int(g_kv), n_kv))
@@ -546,9 +578,21 @@ def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[in
     bl = max(1, min(int(block_l), l_max))
     while l_max % bl:
         bl //= 2
-    return dict(s_dim=s_dim, n_heads=n_heads, hd=hd, l_max=l_max, n_kv=n_kv,
-                rep=n_heads // n_kv, quantized=quantized, kv_int8=k.dtype == torch.int8,
-                g_kv=g_kv, block_l=bl)
+    g = dict(s_dim=s_dim, n_heads=n_heads, hd=hd, l_max=l_max, n_kv=n_kv,
+             rep=n_heads // n_kv, quantized=quantized, kv_int8=kv_int8, g_kv=g_kv, block_l=bl)
+    g["splits"], g["bps"] = _grouped_plan(g, q.device)
+    return g
+
+
+def _grouped_plan(g, device):
+    """The grouped Hopper kernel's (splits, blocks per split): split_plan
+    over the Hkv kv heads of S slots, for the int8 and the packed int4 route
+    alike and whatever g_kv, so that neither changes a value; (1, n_blocks)
+    for the float caches, whose kernel does not split."""
+    n_blocks = g["l_max"] // g["block_l"]
+    if not g["kv_int8"]:
+        return 1, n_blocks
+    return split_plan(g["n_kv"], g["s_dim"], n_blocks, _plan_sms(device))
 
 
 def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
@@ -561,9 +605,12 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     wholly past positions[s] skipped under TPUSERVE_ATTN_DYNSKIP=1 (read
     and masked by default: the same values); P * v_scale rounded to bf16 (unless
     the cache is f32) and P@V on V's values with f32 accumulation, no P
-    requant; out = acc / max(l, 1e-20) where l > 0, else 0. `g_kv` only
-    splits the work (the TPU's masked head pairs add exact zeros), so it
-    changes no value. Returns [S, H, hd] f32."""
+    requant; out = acc / max(l, 1e-20) where l > 0, else 0. An int8 cache
+    takes the Hopper kernel's window split (`_grouped_plan`): each run of
+    whole blocks starts its own online softmax and the runs' (m, l, acc)
+    are merged in order, so P is rounded to bf16 at the run's max. `g_kv`
+    only splits the work (the TPU's masked head pairs add exact zeros), so
+    it changes no value. Returns [S, H, hd] f32."""
     g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
     s_dim, n_heads, hd, l_max, bl = g["s_dim"], g["n_heads"], g["hd"], g["l_max"], g["block_l"]
     dev = q.device
@@ -578,36 +625,114 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     def heads(x, l0):   # [S, L, Hkv, ...] block -> [S, H, bl, ...] per query head
         return x[:, l0:l0 + bl][:, :, kv_head].transpose(1, 2)
 
-    m_run = torch.full((s_dim, n_heads, 1), _NEG_INF, dtype=torch.float32, device=dev)
-    l_run = torch.zeros((s_dim, n_heads, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((s_dim, n_heads, hd), dtype=torch.float32, device=dev)
+    def fresh():
+        return (torch.full((s_dim, n_heads, 1), _NEG_INF, dtype=torch.float32, device=dev),
+                torch.zeros((s_dim, n_heads, 1), dtype=torch.float32, device=dev),
+                torch.zeros((s_dim, n_heads, hd), dtype=torch.float32, device=dev))
+
     skip = dynskip(grouped=True)
-    for l0 in range(0, l_max, bl):
-        run = (l0 <= pos) | (not skip)
-        kb, vb = heads(k, l0), heads(v, l0)        # [S, H, bl, hd]
-        if g["kv_int8"]:
-            s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float64)).to(torch.float32)
-            s = s * heads(k_scale, l0).to(torch.float32) * qs
-        else:
-            s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float32))
+    n_blocks, bps = l_max // bl, g["bps"]
+    parts = []
+    for z in range(g["splits"]):
+        m_run, l_run, acc = fresh()
+        for l0 in range(z * bps * bl, min(n_blocks, (z + 1) * bps) * bl, bl):
+            run = (l0 <= pos) | (not skip)
+            kb, vb = heads(k, l0), heads(v, l0)        # [S, H, bl, hd]
+            if g["kv_int8"]:
+                s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float64)).to(torch.float32)
+                s = s * heads(k_scale, l0).to(torch.float32) * qs
+            else:
+                s = torch.einsum("shd,shld->shl", qd, kb.to(torch.float32))
+                if g["quantized"]:
+                    s = s * heads(k_scale, l0).to(torch.float32)
+            lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
+            s = s + torch.where(lpos <= pos, 0.0, _NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+            m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
+            p = torch.exp(s - m_safe)
+            corr = torch.exp(m_run - m_safe)
+            l_new = l_run * corr + p.sum(dim=-1, keepdim=True)
             if g["quantized"]:
-                s = s * heads(k_scale, l0).to(torch.float32)
-        lpos = torch.arange(l0, l0 + bl, device=dev).view(1, 1, bl)
-        s = s + torch.where(lpos <= pos, 0.0, _NEG_INF)
-        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
-        m_safe = torch.clamp_min(m_new, _NEG_INF / 2)
-        p = torch.exp(s - m_safe)
-        corr = torch.exp(m_run - m_safe)
-        l_new = l_run * corr + p.sum(dim=-1, keepdim=True)
-        if g["quantized"]:
-            p = p * heads(v_scale, l0).to(torch.float32)
-        if k.dtype != torch.float32:
-            p = p.to(torch.bfloat16).to(torch.float32)
-        part = torch.einsum("shl,shld->shd", p, vb.to(torch.float32))
-        acc = torch.where(run, acc * corr + part, acc)
-        l_run = torch.where(run, l_new, l_run)
-        m_run = torch.where(run, m_new, m_run)
-    return torch.where(l_run > 0, acc / torch.clamp_min(l_run, 1e-20), 0.0)
+                p = p * heads(v_scale, l0).to(torch.float32)
+            if k.dtype != torch.float32:
+                p = p.to(torch.bfloat16).to(torch.float32)
+            part = torch.einsum("shl,shld->shd", p, vb.to(torch.float32))
+            acc = torch.where(run, acc * corr + part, acc)
+            l_run = torch.where(run, l_new, l_run)
+            m_run = torch.where(run, m_new, m_run)
+        parts.append((m_run, l_run, acc))
+    return _merge_runs(parts)
+
+
+def grouped_smem_bytes(nq: int, block_l: int) -> int:
+    """Dynamic shared memory of one block of the grouped Hopper kernel (its
+    grouped_smem) for nq query rows a unit: a 3-stage cp.async ring, q
+    codes (padded to the mma's 8 or 16 rows), scores f32 and P bf16 of the
+    block's nq rows, its V scales, six per-row statistics and two per-warp
+    partials a padded row."""
+    rp = 8 if nq <= 8 else 16
+    blp = -(-block_l // _CORE_TR) * _CORE_TR
+    stage = _CORE_TR * _CORE_ROW_B + 4 * _CORE_SC_W * 4
+    return (3 * stage + rp * 144 + nq * (blp + 4) * 4 + nq * (blp + 8) * 2 + 2 * blp * 4
+            + 6 * rp * 4 + 2 * 4 * rp * 4)
+
+
+def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what):
+    """Launch csrc/decode_attention_grouped_hopper.cu over the window k/v
+    (int8 [S, L, Hkv, hd] or packed [S, L, Hkv*hd/2] views with contiguous
+    rows) and head-major scales ks/vs [S, Hkv, L] (unit stride along L);
+    kind 0 int8 or 1 packed int4."""
+    from tpuserve_torch import kernels
+
+    s_dim, n_kv = g["s_dim"], g["n_kv"]
+    units = n_kv // 2 if kind == 1 else n_kv
+    upb = g["g_kv"] if kind == 0 else max(1, g["g_kv"] // 2)
+    while units % upb:
+        upb -= 1
+    rp = 8 if nq <= 8 else 16
+    smem = grouped_smem_bytes(nq, g["block_l"])
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{what}: {smem} bytes of shared memory for {nq} query heads a kv "
+                         f"unit, block {g['block_l']}")
+    if (k.stride(0) * k.element_size()) % 16 or row_stride % 16 or k.data_ptr() % 16 \
+            or v.data_ptr() % 16:
+        raise ValueError(f"{what}: k/v slots and rows must be 16-byte aligned")
+    if ks.stride() != vs.stride() or ks.stride(2) != 1:
+        raise ValueError(f"{what}: the scales must be [S, Hkv, L] views of one layout with "
+                         "unit stride along L")
+    splits, bps = g["splits"], g["bps"]
+    ws = cnt = None
+    if splits > 1:
+        n_cnt = s_dim * units
+        if n_cnt > _CORE_MAX_COUNTERS:
+            raise ValueError(f"{what}: too many (slot, unit) pairs to split")
+        ws = torch.empty(n_cnt * splits * rp * (_HD + 2), dtype=torch.float32, device=q.device)
+        cnt = _core_counters(q.device)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    code = kind if dynskip(grouped=True) else kind + _READ_ALL
+    rc = kernels.lib().tpuserve_decode_attention_grouped_hopper(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        pos32.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        0 if cnt is None else cnt.data_ptr(), k.stride(0) * k.element_size(), ks.stride(0),
+        ks.stride(1), int(q.dtype == torch.bfloat16), int(ks.dtype == torch.bfloat16), s_dim,
+        g["n_heads"], n_kv, g["l_max"], g["block_l"], row_stride, code, nq, upb, splits, bps,
+        kernels.stream_of(q))
+    kernels.check(rc, "decode_attention_grouped_hopper")
+    return out
+
+
+def _check_grouped_call(q, positions, tensors, what):
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
+        raise ValueError(f"{what}: q must be contiguous f32 or bf16")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: all inputs must be on one device")
+    if positions.shape != (q.shape[0],):
+        raise ValueError("grouped decode attention: positions must be [S]")
+
+
+def _check_scale_dtypes(k_scale, v_scale, what):
+    if k_scale.dtype != v_scale.dtype or k_scale.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: scales must be f32 or bf16")
 
 
 def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
@@ -619,11 +744,13 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
     Hkv, hd] int8, bf16 or f32, the last three dims contiguous (a window
     view of a longer cache is taken in place: slots may be any 16-byte
     multiple apart); k_scale/v_scale [S, L, Hkv] f32 or bf16, any strides
-    (a transposed view of the head-major scale cache), or None for a float
+    (a transposed view of the head-major scale cache is read in place,
+    other layouts are copied head-major first), or None for a float
     cache; positions [S] int (-1 = inactive); `block_l` the online-softmax
     block; `g_kv` the kv heads one block serves (or TPUSERVE_ATTN_GKV; the
     port's default is 1, where the JAX package's is 16 // rep). Returns
-    [S, H, hd] f32. CUDA tensors launch csrc/decode_attention_grouped.cu;
+    [S, H, hd] f32. CUDA tensors launch csrc/decode_attention_grouped_hopper.cu
+    for an int8 cache and csrc/decode_attention_grouped.cu for a float one;
     CPU tensors take the plain version."""
     global grouped_launches
     if not q.is_cuda:
@@ -631,34 +758,36 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
                                       g_kv=g_kv)
     from tpuserve_torch import kernels
 
+    what = "grouped decode attention kernel"
     g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
     s_dim, n_heads, n_kv = g["s_dim"], g["n_heads"], g["n_kv"]
     kind, nq = _kernel_kind(k.dtype, 8, n_kv, g["rep"], g["hd"])
-    if q.dtype not in (torch.float32, torch.bfloat16) or not q.is_contiguous():
-        raise ValueError("grouped decode attention kernel: q must be contiguous f32 or bf16")
     quantized = g["quantized"]
-    tensors = [q, k, v, positions] + ([k_scale, v_scale] if quantized else [])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("grouped decode attention kernel: all inputs must be on one device")
+    _check_grouped_call(q, positions, [q, k, v, positions] + ([k_scale, v_scale] if quantized
+                                                               else []), what)
     esz = k.element_size()
     if (k.stride()[1:] != (n_kv * _HD, _HD, 1) or v.stride() != k.stride()
             or (k.stride(0) * esz) % 16 or k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("grouped decode attention kernel: k/v must be [S, L, Hkv, hd] views "
                          "with contiguous rows, 16-byte aligned slots and equal strides")
-    sc_bf16, ss = 0, (0, 0, 0)
     if quantized:
-        if k_scale.dtype != v_scale.dtype or k_scale.dtype not in (torch.float32,
-                                                                    torch.bfloat16):
-            raise ValueError("grouped decode attention kernel: scales must be f32 or bf16")
+        _check_scale_dtypes(k_scale, v_scale, what)
         if k_scale.stride() != v_scale.stride():
             raise ValueError("grouped decode attention kernel: k and v scales differ in strides")
+    pos32 = positions.to(torch.int32).contiguous()
+    if g["kv_int8"]:
+        ks, vs = k_scale.transpose(1, 2), v_scale.transpose(1, 2)    # [S, Hkv, L]
+        if ks.stride(2) != 1:
+            ks, vs = ks.contiguous(), vs.contiguous()
+        out = _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, n_kv * _HD, what)
+        grouped_launches += 1
+        return out
+    sc_bf16, ss = 0, (0, 0, 0)
+    if quantized:
         sc_bf16, ss = int(k_scale.dtype == torch.bfloat16), k_scale.stride()
     if g["block_l"] > _GROUPED_MAX_BL:
         raise ValueError(f"grouped decode attention kernel: block_l {g['block_l']} > "
                          f"{_GROUPED_MAX_BL}")
-    if positions.shape != (s_dim,):
-        raise ValueError("grouped decode attention: positions must be [S]")
-    pos32 = positions.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     null = 0
     rc = kernels.lib().tpuserve_decode_attention_grouped(
@@ -668,6 +797,81 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
         s_dim, n_heads, n_kv, g["l_max"], g["block_l"], g["g_kv"], k.stride(0), *ss,
         kind if dynskip(grouped=True) else kind + _READ_ALL, nq, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_grouped")
+    grouped_launches += 1
+    return out
+
+
+def _packed_views(k, v, k_scale, v_scale, n_kv):
+    """The packed route's operands as the public entry's: k/v unpacked to
+    int8 codes [S, L, Hkv, hd], scales as [S, L, Hkv] views."""
+    s_dim, l_max = k.shape[:2]
+    k8, v8 = (unpack_kv_codes(t).view(s_dim, l_max, n_kv, _HD) for t in (k, v))
+    return k8, v8, k_scale.transpose(1, 2), v_scale.transpose(1, 2)
+
+
+def _check_packed(q, k, v, k_scale, v_scale):
+    if k.dim() != 3 or k.dtype != torch.uint8 or k.shape != v.shape or v.dtype != torch.uint8:
+        raise ValueError("packed grouped decode attention: k/v must be packed int4 uint8 "
+                         "[S, L, Hkv*hd/2] of one shape")
+    s_dim, l_max, w_half = k.shape
+    n_kv = 2 * w_half // _HD
+    if q.dim() != 3 or q.shape[0] != s_dim or q.shape[2] != _HD or n_kv < 2 \
+            or 2 * w_half != n_kv * _HD or n_kv % 2:
+        raise ValueError(f"packed grouped decode attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not fit (head_dim {_HD}, an even n_kv_heads)")
+    want = (s_dim, n_kv, l_max)
+    if k_scale is None or tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        raise ValueError(f"packed grouped decode attention: scales must be {want}")
+    return n_kv
+
+
+def decode_attention_packed_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
+                                  g_kv: Optional[int] = None) -> torch.Tensor:
+    """The packed route in plain PyTorch (any device): the window unpacked
+    to int8 codes by unpack_kv_codes, then decode_attention_plain over it
+    with the scales as [S, L, Hkv] views. [S, H, hd] f32."""
+    n_kv = _check_packed(q, k, v, k_scale, v_scale)
+    return decode_attention_plain(q, *_packed_views(k, v, k_scale, v_scale, n_kv), positions,
+                                  block_l=block_l, g_kv=g_kv)
+
+
+def decode_attention_packed(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
+                            g_kv: Optional[int] = None) -> torch.Tensor:
+    """Grouped decode attention over a packed int4 window, read in place:
+    the decode step's route under TPUSERVE_DECODE_ATTN=grouped for a packed
+    int4 cache (the JAX package unpacks the window in XLA and calls
+    decode_attention; the values are those of unpack_kv_codes followed by
+    decode_attention, up to the order of f32 sums).
+
+    q [S, H, hd] (f32 or bf16), scaled by 1/sqrt(hd); k/v packed uint8 [S,
+    L, Hkv*hd/2] (global split-half, see models.llama.pack_kv_codes) with
+    contiguous rows, slots any 16-byte multiple apart (a window view of a
+    layer of the flat cache); k_scale/v_scale the head-major [S, Hkv, L]
+    f32 or bf16 scales (a window view of the scale cache); positions [S]
+    int (-1 = inactive); block_l and g_kv as decode_attention. Returns [S,
+    H, hd] f32. CUDA tensors launch csrc/decode_attention_grouped_hopper.cu,
+    which decodes the nibbles itself; CPU tensors take the plain version."""
+    global grouped_launches
+    if not q.is_cuda:
+        return decode_attention_packed_plain(q, k, v, k_scale, v_scale, positions,
+                                             block_l=block_l, g_kv=g_kv)
+    what = "packed grouped decode attention kernel"
+    n_kv = _check_packed(q, k, v, k_scale, v_scale)
+    s_dim, l_max, w_half = k.shape
+    n_heads = q.shape[1]
+    if n_heads % n_kv:
+        raise ValueError(f"{what}: {n_heads} heads over {n_kv} kv heads")
+    g = _grouped_dims(q, l_max, n_kv, True, True, block_l, g_kv)   # the unpacked window's
+    nq = 2 * g["rep"]
+    if nq > 16:
+        raise ValueError(f"{what}: {nq} query heads per kv head pair unsupported")
+    _check_grouped_call(q, positions, [q, k, v, k_scale, v_scale, positions], what)
+    _check_scale_dtypes(k_scale, v_scale, what)
+    if k.stride(2) != 1 or k.stride(1) != w_half or v.stride() != k.stride():
+        raise ValueError(f"{what}: k/v must be [S, L, W/2] views with contiguous rows and "
+                         "equal strides")
+    pos32 = positions.to(torch.int32).contiguous()
+    out = _launch_grouped_hopper(q, k, v, k_scale, v_scale, pos32, g, 1, nq, w_half, what)
     grouped_launches += 1
     return out
 

@@ -6,9 +6,16 @@ Each turn runs in its own process from the checkout's root, builds that
 checkout's kernels and calls its chip_smoke.py's kernel checks for the
 flat, the paged and the multi-candidate decode attention and for
 decode_attention_wide (the flat kernel at the sweep's shape), which time every
-case with CUDA events around a CUDA graph, inputs rotated past the L2. The
-script prints one line per case with the two checkouts' times (mean of
-their turns) and their ratio, and writes every turn to
+case with CUDA events around a CUDA graph, inputs rotated past the L2.
+Then the grouped decode attention at the [grouped] phase's shape (S=64,
+L=256, Llama-2-7B heads, step positions; and rep 4, Hkv=8) under
+TPUSERVE_ATTN_DYNSKIP=0 and =1, timed the same way through the public
+entries both checkouts have: the int8 window (g_kv 1 and Hkv) and a packed
+int4 window as the decode step hands it over (a checkout without the
+packed route unpacks it with unpack_kv_codes first, as its decode step
+did); and the sweep's grouped variants (its own timing: best of 3 runs of
+30 calls). The script prints one line per case with the two checkouts'
+times (mean of their turns) and their ratio, and writes every turn to
 chiprun_out/ab_attention.json.
 
     python -m tpuserve_torch.scripts.ab_attention PARENT_DIR CHANGE_DIR
@@ -40,6 +47,53 @@ for name, check in (("flat", cs.check_decode_attention), ("paged", cs.check_deco
         key = " ".join(f"{k}={c[k]}" for k in ("kind", "S", "H", "Hkv", "L", "C", "window",
                                              "block_l", "step_positions") if k in c)
         rows[f"{name} {key}"] = c["ms"]
+import math, os
+from tpuserve_torch.ops import decode_attention as da
+from tpuserve_torch.models.llama import unpack_kv_codes
+g = torch.Generator(device="cuda")
+g.manual_seed(8)
+s, l, hd = 64, 256, 128
+pos = cs.step_positions(torch, g, s)
+for hkv in (32, 8):
+    w = hkv * hd
+    nl = max(2, math.ceil(cs.L2_FLUSH_BYTES / (2 * s * l * w)))
+    kv8 = [torch.randint(-127, 128, (nl, s, l, w), generator=g, device="cuda",
+                         dtype=torch.int32).to(torch.int8) for _ in range(2)]
+    nl4 = max(2, math.ceil(cs.L2_FLUSH_BYTES / (s * l * w)))
+    kv4 = [torch.randint(0, 256, (nl4, s, l, w // 2), generator=g, device="cuda",
+                         dtype=torch.int32).to(torch.uint8) for _ in range(2)]
+    sc = [(torch.rand((max(nl, nl4), s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+          for _ in range(2)]
+    q = (torch.randn((s, 32, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+
+    def int8(i, g_kv):
+        li = i % nl
+        return da.decode_attention(q, kv8[0][li].view(s, l, hkv, hd), kv8[1][li].view(s, l, hkv, hd),
+                                   sc[0][li].transpose(1, 2), sc[1][li].transpose(1, 2), pos,
+                                   g_kv=g_kv)
+
+    def int4(i):
+        li = i % nl4
+        if hasattr(da, "decode_attention_packed"):
+            return da.decode_attention_packed(q, kv4[0][li], kv4[1][li], sc[0][li], sc[1][li], pos)
+        k4, v4 = (unpack_kv_codes(t[li]).view(s, l, hkv, hd) for t in kv4)
+        return da.decode_attention(q, k4, v4, sc[0][li].transpose(1, 2), sc[1][li].transpose(1, 2),
+                                   pos)
+
+    for skip in ("0", "1"):
+        os.environ["TPUSERVE_ATTN_DYNSKIP"] = skip
+        key = f"grouped S={s} H=32 Hkv={hkv} L={l} step positions dynskip={skip}"
+        rows[f"{key} int8 g_kv=1"] = timer.ms(lambda i: int8(i, 1), 20)
+        rows[f"{key} int8 g_kv={hkv}"] = timer.ms(lambda i: int8(i, hkv), 20)
+        rows[f"{key} packed int4 window"] = timer.ms(int4, 20)
+    os.environ.pop("TPUSERVE_ATTN_DYNSKIP")
+    del kv8, kv4, sc
+    torch.cuda.empty_cache()
+from tpuserve_torch.scripts import sweep_attention as sweep
+for r in sweep.run(["g1s", "g8s", "g16s", "g32s", "g32s_bl64"], sweep.shapes(),
+                   torch.device("cuda")):
+    if "us" in r:
+        rows[f"sweep {r['label']}"] = r["us"] / 1e3
 print("AB_JSON " + json.dumps(rows), flush=True)
 """
 

@@ -1,11 +1,12 @@
-"""Time the vector add and the unpack-microbenchmark kernels of two
-checkouts of the repo on one card, in turns (A, B, B, A), as
-ab_attention.py does for the decode attention: each turn builds that
-checkout's kernels and runs its chip_smoke.py's vector-add check (1M
-elements of each dtype the checkout takes, inputs rotated past the L2) and
+"""Time the vector add, the unpack-microbenchmark kernels and the
+attention probes of two checkouts of the repo on one card, in turns (A, B,
+B, A), as ab_attention.py does for the decode attention: each turn builds
+that checkout's kernels and runs its chip_smoke.py's vector-add check (1M
+elements of each dtype the checkout takes, inputs rotated past the L2),
 unpack-probe check (the five variants at the microbenchmark's defaults, x
-int8 [262144, 2048], 537 MB). Both checks time with CUDA events around a
-CUDA graph. One line per case with both checkouts' times (mean of their
+int8 [262144, 2048], 537 MB) and attention-probe check (dma_bound,
+dma_wide 2-D and 3-D, dot_only at the sweep's shape, K and V 2 x 67 MB).
+The checks time with CUDA events around a CUDA graph. One line per case with both checkouts' times (mean of their
 turns) and their ratio; the library calls (torch.add, x.sum, torch._int_mm)
 are cases too, so their ratio shows the noise of the call. A case one
 checkout lacks is printed with its own times. Every turn goes to
@@ -32,6 +33,8 @@ for name, r in cs.check_unpack_probes(torch, timer, 20).items():
     rows[f"{name} x [262144, 2048]"] = r["ms"]
     if r["library_ms"] is not None:
         rows[f"library beside {name}"] = r["library_ms"]
+for name, r in cs.check_probes(torch, timer, 20).items():
+    rows[f"{name} K, V [64, 256, 32, 128]"] = r["ms"]
 print("AB_JSON " + json.dumps(rows), flush=True)
 """
 
