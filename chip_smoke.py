@@ -18,6 +18,15 @@ Phases, each fatal on failure:
               requests through the backend's generate; launch counters must
               show the kernels on that path; one full-width decode step
               through the kernels and through the plain versions must agree;
+  4b. w4a8   the slice's configuration with activations int8 (random bf16
+              weights from a seed, quantized at load: W4A8 on the int8
+              wgmma kernel) and then 4c. odd, the same with int4 groups of
+              688 (w_down's groups, which a 64-row stage cannot tile; the
+              weights of K 4096 then have one group each): 4 concurrent
+              greedy requests of 16 new tokens, the route's launch count,
+              one full-width decode step against the plain versions (greedy
+              tokens equal where the top two logits are apart), one
+              profiled step with the quant-matmul's share of device time;
   5. paged    the same model with paged int8 KV (page_size 128, prefix
               sharing, prefill_chunk 128), loaded after the first is shut
               down: concurrent requests, two of them sharing a 128-token
@@ -62,11 +71,15 @@ Phases, each fatal on failure:
 The kernel phase also holds the grouped kernels (packed int4, int8 and
 bf16; the packed route beside the parent's unpack-then-int8 route),
 decode_attention_wide, the three probes (dot_only on tensor cores), the
-five unpack probes and the three copy forms against their plain versions; the quant-matmul at B=64 (a decode step) and B=72 (a
-verify step) with a per-step line each, two calls bitwise equal, and at
-groups of 96 and 48 that its wgmma kernel's stages cannot tile (the
-CUDA-core route, its launches printed); and the
-flat, multi and grouped (int8 and packed int4) kernels under
+five unpack probes and the three copy forms against their plain
+versions; the quant-matmul at B=64 (a decode step), B=72 (a verify step)
+and W4A8 at B=64 with a per-step line each, two calls bitwise equal,
+torch.matmul on the dequantized weights beside every case (W4A8 also
+torch._int_mm), groups a 64-row stage cannot tile (int4 48, 80, 96, 112,
+688; int8 96) on the wgmma kernel and a bf16 group of 40 and a W4A8 group
+of 48 on the CUDA-core kernels, each route's counter checked; the
+multi-candidate kernel also on a bf16 cache beside SDPA; and the flat,
+multi and grouped (int8 and packed int4) kernels under
 TPUSERVE_ATTN_DYNSKIP=0 against =1.
 The slice phase also runs one full-width decode step under
 TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nvidia-smi line, and as the
@@ -81,6 +94,7 @@ Imports torch and tpuserve_torch only (no JAX).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -236,13 +250,19 @@ def _qt_random(torch, bits, k, n, gs=128, act_bits=0):
 
 
 def check_quant_matmul(torch, timer, reps, p):
-    """Every weight shape of a 7B step against the plain version, at B=64
-    (a decode step) and B=72 (a verify step, S*C = 8*9), with each bf16
-    call repeated for bitwise-equal outputs (split K adds in a fixed
-    order); per-step totals of the kernel, its bound and torch.matmul."""
+    """Every weight shape of a 7B step against the plain version: int4 g128
+    at B=64 (a decode step) and B=72 (a verify step, S*C = 8*9), int8
+    weights and W4A8 at B=64, and groups a 64-row stage cannot tile (int4
+    48, 80, 96, 112, 688; int8 96) on the wgmma kernel, with each call
+    repeated for bitwise-equal outputs (split K adds in a fixed order);
+    torch.matmul on the dequantized bf16 weights beside every case (W4A8:
+    also torch._int_mm on the int8 x and codes); per-step totals of the
+    kernel, its bound and torch.matmul at B=64 and 72 and for W4A8; a bf16
+    group of no multiple of 16 and a W4A8 group of no multiple of 32 still
+    on their CUDA-core kernels."""
     from tpuserve_torch.ops import quant_matmul as tqm
     from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
-    from tpuserve_torch.quant.core import dequantize
+    from tpuserve_torch.quant.core import dequantize, quantize_activation, unpack_int4
 
     qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
     shapes = {  # (K, N) -> launches per decode step
@@ -252,35 +272,56 @@ def check_quant_matmul(torch, timer, reps, p):
         "w_down": ((p.ffn_dim, p.dim), p.n_layers),
         "lm_head": ((p.dim, p.vocab_size), 1),
     }
-    # (name, (K, N), launches per step, bits, act_bits, B, group size, step)
-    cases = [(name, kn, per, 4, 0, 64, 128, "decode") for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, per, 4, 0, 72, 128, "verify") for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 8, 0, 64, 128, None) for name, (kn, per) in shapes.items()]
-    cases += [(name, kn, 0, 4, 8, 64, 128, None) for name, (kn, per) in shapes.items()]
-    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256, 128, None)]  # prefill-sized batch
+    # (name, (K, N), launches per step, bits, act_bits, B, group size, step, route)
+    cases = [(name, kn, per, 4, 0, 64, 128, "decode", "wgmma")
+             for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, per, 4, 0, 72, 128, "verify", "wgmma")
+              for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, 0, 8, 0, 64, 128, None, "wgmma") for name, (kn, per) in shapes.items()]
+    cases += [(name, kn, per, 4, 8, 64, 128, "w4a8", "w4a8")
+              for name, (kn, per) in shapes.items()]
+    cases += [("wqkv", shapes["wqkv"][0], 0, 4, 0, 256, 128, None, "wgmma")]  # prefill batch
     # group sizes other than 128 (the kernel reads them at run time)
-    cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32, None),
-              ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0], None)]  # per channel
-    # groups the Hopper kernel's stages cannot tile take the CUDA-core
-    # kernel on f32 x (bf16_route); K = 4032 = 42 * 96, the nearest to
-    # dim 4096 that 96 and 48 divide
-    group_route = [("wo", (4032, p.dim), 0, 4, 0, 64, 96, None),
-                   ("wo", (4032, p.dim), 0, 4, 0, 64, 48, None),
-                   ("wo", (4032, p.dim), 0, 8, 0, 64, 96, None)]
-    cases += group_route
-    routed0 = tqm.group_route_launches
-    steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
-             for key in ("decode", "verify")}
+    cases += [("w_gateup", shapes["w_gateup"][0], 0, 4, 0, 64, 32, None, "wgmma"),
+              ("wo", shapes["wo"][0], 0, 8, 0, 64, shapes["wo"][0][0], None, "wgmma")]
+    # groups a 64-row stage cannot tile, on the wgmma kernel in stages cut
+    # along the groups: K = 4032 = 42 * 96 = 36 * 112 (the nearest to dim
+    # 4096 that 96, 48 and 112 divide), 4080 = 51 * 80; w_down in groups of
+    # 688 = 11008 / 16 (the [odd] phase's configuration)
+    odd = [("wo", (4032, p.dim), 0, 4, 0, 64, 96, None, "odd"),
+           ("wo", (4032, p.dim), 0, 4, 0, 64, 48, None, "odd"),
+           ("wo", (4080, p.dim), 0, 4, 0, 64, 80, None, "odd"),
+           ("wo", (4032, p.dim), 0, 4, 0, 64, 112, None, "odd"),
+           ("wo", (4032, p.dim), 0, 8, 0, 64, 96, None, "odd"),
+           ("w_down", shapes["w_down"][0], 0, 4, 0, 64, 688, None, "odd")]
+    # groups the wgmma kernels do not take keep their CUDA-core kernels:
+    # bf16 x in groups of 40 (K = 4000), W4A8 in groups of 48
+    routed_cases = [("wo", (4000, p.dim), 0, 4, 0, 64, 40, None, "group_route"),
+                    ("wo", (4032, p.dim), 0, 4, 8, 64, 48, None, "w4a8_route")]
+    cases += odd + routed_cases
+    counters = ("group_route_launches", "odd_group_launches", "w4a8_launches",
+                "w4a8_route_launches")
+    counts0 = {c: getattr(tqm, c) for c in counters}
+    want = {"odd": "odd_group_launches", "w4a8": "w4a8_launches",
+            "group_route": "group_route_launches", "w4a8_route": "w4a8_route_launches"}
+    steps = {key: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+                       int_mm_ms=0.0, kernel_ms=0.0)
+             for key in ("decode", "verify", "w4a8")}
     worst, rows = 0.0, []
-    for name, (k, n), per_step, bits, act_bits, b, gs, step_name in cases:
+    for name, (k, n), per_step, bits, act_bits, b, gs, step_name, route in cases:
         qt = _qt_random(torch, bits, k, n, gs, act_bits)
         wbytes = qt.nbytes
         copies = max(1, math.ceil(L2_FLUSH_BYTES / wbytes))
         qts = [qt] + [_qt_random(torch, bits, k, n, gs, act_bits) for _ in range(copies - 1)]
         x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
+        before = {c: getattr(tqm, c) for c in counters}
         out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
         again = quant_matmul(x, qt)
         torch.cuda.synchronize()
+        moved = {c for c in counters if getattr(tqm, c) != before[c]}
+        if moved != ({want[route]} if route in want else set()):
+            fail(f"quant_matmul {name} int{bits} act{act_bits} g{gs}: route counters {moved} "
+                 f"moved, expected {want.get(route)}")
         err = (out.float() - ref.float()).abs().max().item()
         # both round an f32 sum of the same products to bf16 (W4A8: int32
         # group sums, then f32): one bf16 step at the largest output
@@ -292,46 +333,69 @@ def check_quant_matmul(torch, timer, reps, p):
         worst = max(worst, err)
         ms = timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps)
         row = dict(name=name, K=k, N=n, B=b, bits=bits, act_bits=act_bits, group_size=gs,
-                   max_abs_err=err, tol=tol, ms=ms, step=step_name)
+                   route=route, max_abs_err=err, tol=tol, ms=ms, step=step_name)
         nbytes = b * k * 2 + wbytes + b * n * 2
         ops = 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, ops, PEAK_OPS["int8" if act_bits == 8 else "bf16"])
-        if step_name:  # a step's case: also the library call (and at B=64 the plain version)
-            if step_name == "decode":
-                row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
-                                           max(2, reps // 5))
-            wd = [dequantize(t, torch.bfloat16) for t in qts[:max(1, math.ceil(
-                L2_FLUSH_BYTES / (k * n * 2)))]]
-            row["library_ms"] = timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps)
+        if step_name in ("decode", "w4a8") or route == "odd":  # the plain version at B=64
+            row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
+                                       max(2, reps // 5))
+        # the library yardstick: torch.matmul on the dequantized bf16 weights
+        wd = [dequantize(t, torch.bfloat16) for t in qts[:max(1, math.ceil(
+            L2_FLUSH_BYTES / (k * n * 2)))]]
+        row["library_ms"] = timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps)
+        del wd
+        if act_bits == 8:
+            # the kernel alone on x quantized beforehand (the wrapper adds the
+            # row quantization kernel), and torch._int_mm on the int8 x and
+            # the codes: the int8 tensor cores' rate for the product without
+            # the group scales
+            xq, sx = quantize_activation(x)
+            outb = torch.empty((b, n), dtype=torch.bfloat16, device="cuda")
+            gsz = gs if gs < k else k
+            row["kernel_ms"] = timer.ms(lambda i: tqm._launch_hopper(
+                xq, qts[i % copies].q, qts[i % copies].scale, outb, qts[i % copies], gsz, None,
+                sx), reps) if route == "w4a8" else None
+            codes_t = [unpack_int4(t.q, gsz).t().contiguous() for t in qts]
+            row["int_mm_ms"] = timer.ms(lambda i: torch._int_mm(xq, codes_t[i % copies].t()),
+                                        reps)
+            del codes_t
+        if step_name:
             step = steps[step_name]
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                step[key] += per_step * row.get(key, 0.0)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "int_mm_ms", "kernel_ms"):
+                step[key] += per_step * (row.get(key) or 0.0)
             step["bytes"] += per_step * nbytes
             step["ops"] += per_step * ops
-            del wd
         rows.append(row)
         log(f"[kernel] quant_matmul {name} K={k} N={n} B={b} int{bits} g{gs}"
-            f"{' W4A8' if act_bits else ''}: max|err| {err:.3g} (tol {tol:.3g}), two calls "
-            f"equal; {ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{' W4A8' if act_bits else ''} ({route}): max|err| {err:.3g} (tol {tol:.3g}), two "
+            f"calls equal; {ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
             + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else "")
-            + (f", torch.matmul bf16 {row['library_ms']:.4f} ms" if step_name else ""))
+            + f", torch.matmul bf16 {row['library_ms']:.4f} ms"
+            + (f", kernel alone {row['kernel_ms']:.4f} ms" if row.get("kernel_ms") else "")
+            + (f", torch._int_mm {row['int_mm_ms']:.4f} ms" if "int_mm_ms" in row else ""))
         del qts, qt
         torch.cuda.empty_cache()
-    for key, what in (("decode", "decode step (B=64)"), ("verify", "verify step (B=72)")):
+    for key, what in (("decode", "decode step (B=64), 129 calls int4 g128"),
+                      ("verify", "verify step (B=72), 129 calls int4 g128"),
+                      ("w4a8", "W4A8 decode step (B=64), 129 calls int4 g128 x int8")):
         step = steps[key]
-        step["bound_ms"], step["bound_by"] = bound(step["bytes"], step["ops"], PEAK_OPS["bf16"])
-        log(f"[kernel] quant_matmul per {what}, 129 calls int4 g128: {step['ms']:.3f} ms, "
+        step["bound_ms"], step["bound_by"] = bound(
+            step["bytes"], step["ops"], PEAK_OPS["int8" if key == "w4a8" else "bf16"])
+        log(f"[kernel] quant_matmul per {what}: {step['ms']:.3f} ms, "
             f"bound {step['bound_ms']:.3f} ms ({step['bound_by']}), torch.matmul bf16 "
             f"{step['library_ms']:.3f} ms ({step['ms'] / step['library_ms']:.2f}x)"
-            + (f", plain {step['plain_ms']:.3f} ms" if key == "decode" else ""))
+            + (f", plain {step['plain_ms']:.3f} ms" if key != "verify" else "")
+            + (f", torch._int_mm {step['int_mm_ms']:.3f} ms, the kernel alone (x quantized "
+               f"beforehand) {step['kernel_ms']:.3f} ms" if key == "w4a8" else ""))
     dec, ver = steps["decode"], steps["verify"]
     log(f"[kernel] quant_matmul verify step / decode step: {ver['ms'] / dec['ms']:.3f}")
-    routed = tqm.group_route_launches - routed0
-    if routed < 2 * len(group_route):   # two checked calls a case, plus the timed ones
-        fail(f"quant_matmul: {routed} group-route launches for {len(group_route)} cases")
-    log(f"[kernel] quant_matmul group route (CUDA-core kernel, bf16 x as f32; int4 g96, "
-        f"int4 g48, int8 g96): {routed} launches")
+    routed = {c: getattr(tqm, c) - counts0[c] for c in counters}
+    log(f"[kernel] quant_matmul route launches in this check: {routed}")
+    odd_rows = [r for r in rows if r["route"] == "odd"]
+    main_odd = odd_rows[0]                      # wo int4 g96
+    w4 = steps["w4a8"]
     return dict(max_abs_err=worst, ms=dec["ms"], plain_ms=dec["plain_ms"],
                 bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
                 library_ms=dec["library_ms"],
@@ -339,7 +403,49 @@ def check_quant_matmul(torch, timer, reps, p):
                 verify=dict(ms=ver["ms"], bound_ms=ver["bound_ms"], bound_by=ver["bound_by"],
                             library_ms=ver["library_ms"],
                             per="one verify step: 129 launches, int4 g128, B=72 bf16"),
-                group_route_launches=routed, cases=rows)
+                w4a8=dict(max_abs_err=max(r["max_abs_err"] for r in rows if r["route"] == "w4a8"),
+                          ms=w4["ms"], plain_ms=w4["plain_ms"], bound_ms=w4["bound_ms"],
+                          bound_by=w4["bound_by"], library_ms=w4["library_ms"],
+                          int_mm_ms=w4["int_mm_ms"], kernel_ms=w4["kernel_ms"],
+                          per="one W4A8 decode step: 129 launches, int4 g128 x int8, B=64"),
+                odd=dict(max_abs_err=max(r["max_abs_err"] for r in odd_rows), ms=main_odd["ms"],
+                         plain_ms=main_odd["plain_ms"], bound_ms=main_odd["bound_ms"],
+                         bound_by=main_odd["bound_by"], library_ms=main_odd["library_ms"],
+                         per="one call: wo K=4032 N=4096 int4 g96, B=64 bf16"),
+                route_launches=routed, cases=rows)
+
+
+def check_quantize_rows(torch, timer, reps, p):
+    """W4A8's row quantization kernel at the decode step's shapes (B=64;
+    K = dim and ffn_dim, bf16 x; one row of zeros) against
+    quantize_activation, its plain version: codes and scales bitwise equal.
+    No single PyTorch call computes it (library: none)."""
+    from tpuserve_torch.ops.quant_matmul import quantize_rows
+    from tpuserve_torch.quant.core import quantize_activation
+
+    rows, main = [], None
+    for k in (p.dim, p.ffn_dim):
+        b = 64
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (b * k * 3)))
+        xs = [torch.randn((b, k), device="cuda").to(torch.bfloat16) for _ in range(copies)]
+        xs[0][5] = 0
+        q, sx = quantize_rows(xs[0])
+        ref_q, ref_s = quantize_activation(xs[0])
+        torch.cuda.synchronize()
+        if not (torch.equal(q, ref_q) and torch.equal(sx, ref_s)):
+            fail(f"quantize_rows K={k}: codes or scales differ from quantize_activation")
+        ms = timer.ms(lambda i: quantize_rows(xs[i % copies]), reps)
+        plain_ms = timer.ms(lambda i: quantize_activation(xs[i % copies]), reps)
+        b_ms, b_by = bound(b * k * 2 + b * k + b * 4, 3.0 * b * k, PEAK_OPS["f32"])
+        row = dict(B=b, K=k, max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        main = main or row
+        rows.append(row)
+        log(f"[kernel] quantize_rows B={b} K={k} bf16: codes and scales bitwise equal to "
+            f"quantize_activation; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del xs
+    return dict(main, per=f"one call: B=64, K={p.dim}, bf16 x", cases=rows)
 
 
 def check_decode_attention(torch, timer, reps, p):
@@ -603,8 +709,9 @@ def check_decode_attention_paged(torch, timer, reps, p):
 def check_decode_attention_multi(torch, timer, reps, p):
     """The multi-candidate (speculative verify) kernel at the [spec] phase's
     shapes (S=8 slots, C=9 candidates, L=512, Llama-2-7B heads, positions
-    100-400) against its plain version, and each candidate c against the
-    flat kernel at positions + c on the same KV."""
+    100-400; int8, packed int4 and bf16 caches, each beside SDPA) against
+    its plain version, and each candidate c against the flat kernel at
+    positions + c on the same KV."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_cache_multi,
         decode_attention_wide_cache_multi_plain)
@@ -618,29 +725,37 @@ def check_decode_attention_multi(torch, timer, reps, p):
     live = int((pos + c).sum().item())          # KV rows the kernel reads, once each
     cand_rows = sum(int((pc + 1).sum().item()) for pc in pos_c)  # rows each candidate sees
     worst, rows, main = 0.0, [], None
-    for kind in ("int8", "int4"):
-        elem = {"int4": 0.5, "int8": 1}[kind]
-        kv_live = 2 * live * w * elem + 2 * live * hkv * 4    # f32 scales, as the engine's
+    for kind in ("int8", "int4", "bf16"):
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
+        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)  # f32 scales
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
         shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
         if kind == "int4":
             kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.uint8) for _ in range(2)]
-        else:
+        elif kind == "int8":
             kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.int8) for _ in range(2)]
-        sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
-              for _ in range(2)]
+        else:
+            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)]
+        sc = None
+        if kind != "bf16":
+            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
+                  for _ in range(2)]
         q = (torch.randn((s, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         q_c = [q[:, j].contiguous() for j in range(c)]
 
+        def scales(li):
+            return (None, None) if sc is None else (sc[0][li], sc[1][li])
+
         def call(fn, i):
             li = i % n_layers
-            return fn(q, kv[0], kv[1], sc[0][li], sc[1][li], pos, li, window=l)
+            return fn(q, kv[0], kv[1], *scales(li), pos, li, window=l)
 
         def call_flat(i):  # C flat-kernel calls, candidate j at positions + j
             li = i % n_layers
-            return [decode_attention_wide_cache(q_c[j], kv[0], kv[1], sc[0][li], sc[1][li],
+            return [decode_attention_wide_cache(q_c[j], kv[0], kv[1], *scales(li),
                                                 pos_c[j], li, window=l) for j in range(c)]
 
         out = call(decode_attention_wide_cache_multi, 1)
@@ -653,11 +768,13 @@ def check_decode_attention_multi(torch, timer, reps, p):
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
             fail(f"decode_attention_multi {kind}: max|err| {err} > {tol}")
-        # candidate j runs the flat kernel's blocks over the same bytes with
-        # the same arithmetic, and blocks past its horizon add nothing: equal
-        # up to f32 rounding (expected 0)
+        # int8/int4: candidate j runs the flat kernel's blocks over the same
+        # bytes with the same arithmetic, and blocks past its horizon add
+        # nothing: equal up to f32 rounding (expected 0). bf16: two kernels
+        # of their own (decode_attention_multi.cu, decode_attention.cu), each
+        # held against the plain version: within that check's tolerance
         flat_err = (out - out_flat).abs().max().item()
-        flat_tol = 1e-6 * out_flat.abs().max().item() + 1e-7
+        flat_tol = tol if kind == "bf16" else 1e-6 * out_flat.abs().max().item() + 1e-7
         if not flat_err <= flat_tol:
             fail(f"decode_attention_multi {kind}: differs from the flat kernel at "
                  f"positions + c by {flat_err} > {flat_tol}")
@@ -668,9 +785,8 @@ def check_decode_attention_multi(torch, timer, reps, p):
                             max(2, reps // 5))
         nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
         ops = 2 * 2 * cand_rows * h * hd
-        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8"])
-        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], sc[0][0], sc[1][0], pos,
-                         kind)
+        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["bf16" if kind == "bf16" else "int8"])
+        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], *scales(0), pos, kind)
         row = dict(kind=kind, S=s, C=c, H=h, Hkv=hkv, L=l, live_rows=live,
                    candidate_rows=cand_rows, layers_rotated=n_layers, max_abs_err=err, tol=tol,
                    flat_err=flat_err, flat_tol=flat_tol, ms=ms, flat_ms=flat_ms,
@@ -1140,6 +1256,7 @@ def check_diag_copy(torch, timer, reps):
 def phase_kernels(torch, timer, reps, p):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
+    results["quantize_rows"] = check_quantize_rows(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
@@ -1208,15 +1325,16 @@ def profile_step(torch, step, tag="slice", what="decode step"):
     for dev_us, key, count in rows[:8]:
         log(f"[{tag}]   {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, device_ops=kernels,
-                top=[(k, d / 1e3, c) for d, k, c in rows[:12]], names=[k for _, k, _ in rows])
+                top=[(k, d / 1e3, c) for d, k, c in rows[:12]], names=[k for _, k, _ in rows],
+                rows=[(k, d / 1e3, c) for d, k, c in rows])
 
 
 @contextlib.contextmanager
 def plain_kernels(llama):
     """Route the model's kernel calls to their plain PyTorch versions for a
-    reference run on the card, and restore them after. The served model's
-    weights are int4 with bf16 activations, for which qmatmul is exactly
-    quant_matmul."""
+    reference run on the card, and restore them after. The served models'
+    weights are int4, with bf16 or (W4A8) int8 activations, for which
+    qmatmul is exactly quant_matmul."""
     from tpuserve_torch.ops.decode_attention import (decode_attention_packed_plain,
                                                      decode_attention_plain,
                                                      decode_attention_wide_cache_multi_plain,
@@ -1415,6 +1533,135 @@ def phase_slice(torch, p, smi_line):
                 full_step_err=err,
                 full_step_tol=tol, argmax_agreement=agree, max_memory_allocated=peak,
                 load_s=load_s, qmatmul_xla=xla)
+
+
+def phase_quant_route(torch, p, smi_line, tag, quant, counter):
+    """The slice's configuration with `quant` (W4A8: activations int8;
+    odd: int4 in groups of 688, which a 64-row stage cannot tile; the
+    weights of K = 4096 then have one group, per channel), its weights
+    random bf16 from a seed and quantized at load, the path a checkpoint
+    takes (init random_quantized makes codes directly and, as the JAX
+    package's, leaves activations out). 4 concurrent greedy requests of 16
+    new tokens; the route's counter must show every launch it should take;
+    one full-width decode step through the kernels against the plain
+    versions, through one layer (logits within 5% of their range) and all
+    32 (greedy tokens equal wherever the top two logits are further apart
+    than twice the two paths' largest difference); one profiled decode
+    step: device time and the quant-matmul's share."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import quant_matmul as tqm
+
+    cfg = _model_config(p)
+    cfg["name"] = f"llama2_7b_{tag}"
+    cfg["model_params"]["init"] = "random"
+    cfg["quantization"].update(quant)
+    tmp = _write_repo(cfg)
+    mgr = InferenceManager(tmp, num_workers=1, device=DEVICE)
+    t_load = time.monotonic()
+    mgr.load_model(cfg["name"])
+    load_s = time.monotonic() - t_load
+    backend = mgr.get_model(cfg["name"]).backend
+    engine = backend.engine
+    rng = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+               for n in (9, 40, 100, 23)]
+    results, errors = [None] * len(prompts), []
+
+    def run(i):
+        try:
+            results[i] = backend.generate(prompts[i], max_new_tokens=16)
+        except Exception as e:  # recorded, then fatal below
+            errors.append(f"request {i}: {e}")
+
+    counters = ("launches", "group_route_launches", "odd_group_launches", "w4a8_launches",
+                "w4a8_route_launches", "quantize_launches")
+    for c in counters:          # the path's run starts here
+        setattr(tqm, c, 0)
+    steps0, prefills0 = engine.steps, engine.prefill_calls
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = {c: getattr(tqm, c) for c in counters}
+    if errors or any(r is None for r in results):
+        fail(f"[{tag}] requests failed: {errors}")
+    if any(r["num_generated"] != 16 for r in results):
+        fail(f"[{tag}] a request did not generate 16 tokens")
+    calls = engine.steps - steps0 + engine.prefill_calls - prefills0
+    per_call = 4 * p.n_layers + 1 if counter == "w4a8_launches" else p.n_layers
+    want = per_call * calls
+    log(f"[{tag}] {len(prompts)} concurrent greedy requests, 16 new tokens each, in "
+        f"{wall:.2f} s; decode steps {engine.steps - steps0}, prefill calls "
+        f"{engine.prefill_calls - prefills0}; quant_matmul launches {counts} (expected {counter} "
+        f"{want}); load {load_s:.1f} s")
+    if (counts[counter] != want or counts["group_route_launches"]
+            or counts["w4a8_route_launches"]
+            or counts["quantize_launches"] != counts["w4a8_launches"]):
+        fail(f"[{tag}] route launches do not match the path's calls")
+
+    cache = engine.cache
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
+    pos = torch.randint(100, 250, (64,), generator=g, device=DEVICE, dtype=torch.int32)
+    pos[7] = -1
+    snapshot = [t.clone() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+
+    def restore():
+        for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale), snapshot):
+            dst.copy_(src)
+
+    # Two depths: one layer (layer 0, the final norm and lm_head: every
+    # weight shape of the path once) held to [slice]'s 5% of the logit
+    # range, and all 32, where a randomly initialised model grows any
+    # one-ulp difference (W4A8's int8 rounding of each matmul's input turns
+    # one near a row's absmax into half a code step), so greedy tokens are
+    # held equal wherever the top two logits are further apart than twice
+    # the paths' difference.
+    depths = {}
+    for depth in (1, p.n_layers):
+        pd = dataclasses.replace(p, n_layers=depth)
+        logits_k, _ = llama.decode_step(engine.params, pd, toks, cache, pos)
+        restore()
+        with plain_kernels(llama):
+            logits_p, _ = llama.decode_step(engine.params, pd, toks, cache, pos)
+        restore()
+        torch.cuda.synchronize()
+        live = pos >= 0
+        ref_max = logits_p.abs().max().item()
+        err = (logits_k - logits_p)[live].abs().max().item()
+        top2 = logits_p.float().topk(2, dim=-1).values
+        clear = live & ((top2[:, 0] - top2[:, 1]) > 2 * err)
+        same = logits_k.argmax(-1) == logits_p.argmax(-1)
+        finite = bool(torch.isfinite(logits_k).all())
+        tol = 0.05 * ref_max if depth == 1 else None
+        log(f"[{tag}] full-width decode step, {depth} layer(s), kernels vs plain: max|err| "
+            f"{err:.4g} of {ref_max:.4g}" + (f" (tol {tol:.4g})" if tol else " (no bound)")
+            + f"; greedy tokens equal on {int((same & live).sum())} of {int(live.sum())} live "
+            f"slots, on all {int(clear.sum())} whose top two logits are more than 2x max|err| "
+            f"apart: {bool(same[clear].all())}; finite {finite}")
+        if not finite or (tol and not err <= tol) or not bool(same[clear].all()):
+            fail(f"[{tag}] full-width decode step: kernel path and plain path disagree")
+        depths[depth] = dict(err=err, tol=tol, range=ref_max, greedy_equal=int((same & live).sum()),
+                             live=int(live.sum()), clear=int(clear.sum()))
+    busy = profile_step(torch, lambda: llama.decode_step(engine.params, p, toks, cache, pos),
+                        tag=tag)
+    restore()
+    qmm_ms = quant_ms = None
+    if busy:
+        qmm_ms = sum(ms for key, ms, _ in busy["rows"] if "qmm_" in key)
+        quant_ms = sum(ms for key, ms, _ in busy["rows"] if "quantize_rows" in key)
+        log(f"[{tag}] quant-matmul kernels in the profiled step: {qmm_ms:.3f} ms of "
+            f"{busy['busy_ms']:.3f} ms device time ({100 * qmm_ms / busy['busy_ms']:.1f}%), the "
+            f"row quantization {quant_ms:.3f} ms; card {smi_line}")
+    mgr.shutdown()
+    return dict(launches=counts, want={counter: want}, load_s=load_s, wall_s=wall,
+                full_step=depths, profile=busy, qmm_ms=qmm_ms, quantize_ms=quant_ms)
 
 
 def _paged_model_config(p):
@@ -2265,6 +2512,17 @@ def main() -> None:
     slice_res = phase_slice(torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    # the slice's path with int8 activations, then with groups a 64-row
+    # stage cannot tile: each route's launches are that run's
+    w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
+                                 "w4a8_launches")
+    results["quant_matmul_w4a8"] = dict(results["quant_matmul"]["w4a8"],
+                                        launches=w4a8_res["launches"]["w4a8_launches"])
+    results["quantize_rows"]["launches"] = w4a8_res["launches"]["quantize_launches"]
+    odd_res = phase_quant_route(torch, p, smi_line, "odd", {"group_size": 688},
+                                "odd_group_launches")
+    results["quant_matmul_odd_groups"] = dict(results["quant_matmul"]["odd"],
+                                              launches=odd_res["launches"]["odd_group_launches"])
     paged_res = phase_paged_slice(torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
@@ -2292,6 +2550,15 @@ def main() -> None:
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
                                 "tpuserve/ops/quant_matmul.py:40"),
+               "quant_matmul_w4a8": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                     "tpuserve/ops/quant_matmul.py:40 (_kernel, act_int8 "
+                                     "branch :65-83)"),
+               "quant_matmul_odd_groups": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                           "tpuserve/ops/quant_matmul.py:40 (_kernel, int4 and "
+                                           "int8 branches :84-110)"),
+               "quantize_rows": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                 "tpuserve/quant/core.py:166 (quantize_activation, left to XLA "
+                                 "there: no Pallas kernel)"),
                "decode_attention": ("tpuserve_torch/csrc/decode_attention_hopper.cu",
                                     "tpuserve/ops/decode_attention.py:160 (_wide_kernel; "
                                     ":495 _packed_kernel)"),
@@ -2335,14 +2602,15 @@ def main() -> None:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "per": r["per"]})
-        if kname == "quant_matmul":   # the CUDA-core route of groups the wgmma kernel refuses
-            line[-1]["group_route_launches"] = r["group_route_launches"]
+        if kname == "quant_matmul":   # route launches of the kernel check
+            line[-1]["route_launches"] = r["route_launches"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
                    "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
-                   "grouped": grouped_res, "sweep": sweep_res, "unpack": unpack_res,
+                   "grouped": grouped_res, "w4a8": w4a8_res, "odd": odd_res,
+                   "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)

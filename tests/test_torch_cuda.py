@@ -23,7 +23,7 @@ from tpuserve_torch import kernels
 from tpuserve_torch.device import smoke
 from tpuserve_torch.ops import decode_attention as da
 from tpuserve_torch.ops import quant_matmul as qm
-from tpuserve_torch.quant.core import QTensor, quantize
+from tpuserve_torch.quant.core import QTensor, quantize, quantize_activation
 
 pytestmark = pytest.mark.gpu
 
@@ -743,21 +743,137 @@ def test_quant_matmul_hopper(cuda, bits, gs, b):
 @pytest.mark.parametrize("bits,gs", [(4, 48), (4, 96), (4, 80), (4, 112), (8, 96), (8, 48)])
 @pytest.mark.parametrize("b", [1, 64, 72, 130])
 def test_quant_matmul_group_route(cuda, bits, gs, b):
-    """bf16 activations with groups the Hopper kernel's stages cannot tile:
-    the CUDA-core kernel on x cast to f32, one launch a call, counted as a
-    group-route launch, against the plain version within one bf16 step."""
+    """bf16 activations in groups a 64-row stage cannot tile: the wgmma
+    kernel in stages cut along the groups, one launch a call, counted as an
+    odd-group launch and never as a group-route one, against the plain
+    version within one bf16 step; two calls bitwise equal."""
     k, n = 480 if gs != 112 else 448, 208
     qt = _qt(bits, gs, k, n, 0, cuda)
-    assert qt.group_size == gs and qm.bf16_route(bits, gs) == "cuda_core"
+    assert qt.group_size == gs and qm.bf16_route(bits, gs) == "wgmma" and qm.odd_group(bits, gs)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
-    before, routed = qm.launches, qm.group_route_launches
+    before, routed, odd = qm.launches, qm.group_route_launches, qm.odd_group_launches
     out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
     ref = qm.quant_matmul_plain(x, qt)
     torch.cuda.synchronize()
-    assert qm.launches == before + 1 and qm.group_route_launches == routed + 1
+    assert qm.launches == before + 2 and qm.odd_group_launches == odd + 2
+    assert qm.group_route_launches == routed
     assert out.dtype == torch.bfloat16 and out.shape == (b, n)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+def _qt_codes(bits, gs, k, n, act_bits, device, seed=0):
+    """Random codes and scales made on the card (a quantizer's clip search
+    at 7B widths would take the host minutes)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if bits == 4:
+        q = torch.randint(0, 256, (k // 2, n), generator=g, device=device,
+                          dtype=torch.int32).to(torch.uint8)
+    else:
+        q = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                          dtype=torch.int32).to(torch.int8)
+    scale = (torch.rand((k // gs, n), generator=g, device=device) + 0.5) * 0.003
+    return QTensor(q=q, scale=scale, bits=bits, group_size=gs if gs < k else 0,
+                   orig_shape=(k, n), act_bits=act_bits)
+
+
+# the five weight shapes of a Llama-2-7B layer step (K, N)
+_SHAPES_7B = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("k,n", _SHAPES_7B)
+@pytest.mark.parametrize("b", [1, 16, 64, 72, 128, 256])
+def test_quant_matmul_w4a8_hopper(cuda, k, n, b):
+    """W4A8 (int4 g128, int8 x) on the int8 wgmma kernel at the 7B shapes:
+    within one bf16 step of the largest plain output, two calls bitwise
+    equal, one launch a call counted in w4a8_launches (and one of the row
+    quantization kernel); the CUDA-core routes' counters do not move."""
+    qt = _qt_codes(4, 128, k, n, 8, cuda, seed=k + n)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    names = ("launches", "w4a8_launches", "quantize_launches", "w4a8_route_launches",
+             "group_route_launches")
+    counts = [getattr(qm, c) for c in names]
+    out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert [getattr(qm, c) for c in names] == [counts[0] + 2, counts[1] + 2, counts[2] + 2,
+                                               counts[3], counts[4]]
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("gs,k", [(32, 512), (64, 512), (96, 480), (160, 480), (0, 512),
+                                  (256, 1024)])
+@pytest.mark.parametrize("b", [1, 37, 72, 130])
+def test_quant_matmul_w4a8_groups(cuda, gs, k, b):
+    """W4A8 groups of a multiple of 32 on the int8 wgmma kernel: whole
+    groups a stage (32, 64, 96), pieces (160: 64 + 16 rows; 256; per
+    channel), against the quantizer's own weights and the plain version."""
+    n = 208
+    qt = _qt(4, gs, k, n, 8, cuda)
+    assert qm.w4a8_route(gs or k) == "wgmma"
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    a8 = qm.w4a8_launches
+    out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert qm.w4a8_launches == a8 + 2
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("b,k", [(1, 96), (64, 4096), (72, 11008), (256, 4096), (3, 1000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_rows(cuda, b, k, dtype):
+    """The row quantization kernel: codes and scales bitwise those of
+    quantize_activation (its plain version), a row of zeros included."""
+    x = (torch.randn((b, k), generator=torch.Generator().manual_seed(k)) * 3).to(cuda, dtype)
+    x[b // 2] = 0
+    before = qm.quantize_launches
+    q, sx = qm.quantize_rows(x)
+    ref_q, ref_s = quantize_activation(x)
+    torch.cuda.synchronize()
+    assert qm.quantize_launches == before + 1
+    assert torch.equal(q, ref_q) and torch.equal(sx, ref_s)
+
+
+@pytest.mark.parametrize("act_bits,gs", [(0, 40), (8, 48)])
+def test_quant_matmul_cuda_core_routes_remain(cuda, act_bits, gs):
+    """A bf16 group of no multiple of 16 (40) and a W4A8 group of no
+    multiple of 32 (48) keep their CUDA-core kernels, each counted on its
+    route, against the plain version."""
+    k, n, b = 480, 208, 37
+    qt = _qt(4, gs, k, n, act_bits, cuda)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    routed, a8_routed = qm.group_route_launches, qm.w4a8_route_launches
+    out = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert (qm.group_route_launches, qm.w4a8_route_launches) == (
+        (routed + 1, a8_routed) if act_bits == 0 else (routed, a8_routed + 1))
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("act_bits,gs", [(0, 96), (8, 128)])
+def test_quant_matmul_new_paths_raise(cuda, monkeypatch, act_bits, gs):
+    """A launch the kernel refuses (a batch tile it is not built for) on the
+    odd-group and the W4A8 path raises; nothing falls back."""
+    k, n = 480 if gs == 96 else 512, 208
+    qt = _qt(4, gs, k, n, act_bits, cuda)
+    x = torch.randn((8, k), device=cuda).to(torch.bfloat16)
+    monkeypatch.setattr(qm, "hopper_plan", lambda *a, **kw: (24, 2, 1, 1, 1))
+    counts = (qm.launches, qm.group_route_launches, qm.w4a8_route_launches)
+    with pytest.raises(RuntimeError, match="quant_matmul"):
+        qm.quant_matmul(x, qt)
+    assert counts == (qm.launches, qm.group_route_launches, qm.w4a8_route_launches)
 
 
 @pytest.mark.parametrize("bits,block_k", [(4, 128), (4, 256), (4, 512), (4, 1024), (4, 4096),

@@ -32,13 +32,22 @@ from torch_parity import jax_qt_to_torch, to_np
 
 # ------------------------------------------------------------ quant-matmul
 QMM_CASES = [
-    # (bits, group_size, K, N, act_bits, block_k for the Pallas call)
+    # (bits, group_size, K, N, act_bits, block_k for the Pallas call[, x dtype])
     (4, 128, 256, 384, 0, None),
     (4, 0, 256, 128, 0, None),       # one group spanning K
     (8, 128, 256, 384, 0, None),
     (8, 256, 512, 256, 0, 128),      # int8 group split across K blocks (gpb == 0)
     (8, 0, 256, 256, 0, None),       # per-channel int8
     (4, 128, 512, 256, 8, None),     # W4A8: int8 x int8 -> int32 per group
+    # groups a 64-row stage cannot tile, bf16 x (the odd-group stages)
+    (4, 48, 480, 256, 0, None, "bf16"),
+    (4, 96, 480, 256, 0, None, "bf16"),
+    (4, 112, 448, 256, 0, None, "bf16"),
+    (8, 96, 480, 256, 0, None, "bf16"),
+    # W4A8 on int8 wgmma: groups of a multiple of 32 (whole groups a stage)
+    (4, 32, 512, 256, 8, None),
+    (4, 64, 512, 256, 8, None),
+    (4, 96, 480, 256, 8, None),
 ]
 
 
@@ -52,9 +61,22 @@ def _qmm_inputs(bits, gs, k, n, act_bits, b=5, seed=0):
     return x, qt
 
 
-@pytest.mark.parametrize("bits,gs,k,n,act_bits,block_k", QMM_CASES)
-def test_quant_matmul_plain_matches_pallas(bits, gs, k, n, act_bits, block_k):
+@pytest.mark.parametrize("bits,gs,k,n,act_bits,block_k,xdt",
+                         [c + ("f32",) * (7 - len(c)) for c in QMM_CASES],
+                         ids=["-".join(map(str, c)) for c in QMM_CASES])
+def test_quant_matmul_plain_matches_pallas(bits, gs, k, n, act_bits, block_k, xdt):
     x, qt = _qmm_inputs(bits, gs, k, n, act_bits)
+    if xdt == "bf16":
+        xb = jnp.asarray(x, jnp.bfloat16)
+        ref = np.asarray(jqm.quant_matmul(xb, qt, interpret=True, block_k=block_k)).astype(
+            np.float32)
+        xt = torch.from_numpy(np.asarray(xb.astype(jnp.float32))).to(torch.bfloat16)
+        out = tqm.quant_matmul(xt, jax_qt_to_torch(qt))
+        assert out.dtype == torch.bfloat16
+        # both round an f32 sum of the same exact products to bf16: at most
+        # one bf16 ulp apart
+        np.testing.assert_allclose(to_np(out), ref, rtol=2 ** -7, atol=1e-6)
+        return
     ref = np.asarray(jqm.quant_matmul(jnp.asarray(x), qt, interpret=True, block_k=block_k))
     out = to_np(tqm.quant_matmul(torch.from_numpy(x), jax_qt_to_torch(qt)))
     # f32 sums of the same products in another order: ~1e-6 of |out| ~ 3

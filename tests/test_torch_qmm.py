@@ -1,12 +1,14 @@
 """The Hopper quant-matmul's host side on the CPU, and the ported sweep.
 
-The kernel (csrc/quant_matmul.cu, bf16 activations) runs only on the card,
-where tests/test_torch_cuda.py holds it against quant_matmul_plain. Here:
-the launch plan its wrapper picks (batch tile, warpgroups, K split) reads
-the weights once for any batch up to 256 and covers K exactly; block_k
-sets the split as in the JAX package's quant_matmul; the group sizes it
-takes; a CUDA tensor reaches the one C entry once per call (launches
-counted, failures raised, nothing else launched); and
+The kernels (csrc/quant_matmul.cu: bf16 activations, and W4A8 on int8
+wgmma) run only on the card, where tests/test_torch_cuda.py holds them
+against quant_matmul_plain. Here: the launch plan their wrapper picks
+(batch tile, warpgroups, K split) reads the weights once for any batch up
+to 256 and covers K exactly; block_k sets the split as in the JAX
+package's quant_matmul; the stages of K for every group size, odd ones
+included; the group sizes each route takes; a CUDA tensor reaches one C
+entry once per call (launches and routes counted, failures raised,
+nothing else launched); and
 tpuserve_torch.scripts.qmatmul_sweep run end to end at a tiny size with
 --device cpu (the port of scripts/qmatmul_sweep.py)."""
 
@@ -16,7 +18,7 @@ import torch
 
 from tpuserve_torch import kernels
 from tpuserve_torch.ops import quant_matmul as tqm
-from tpuserve_torch.quant.core import quantize
+from tpuserve_torch.quant.core import quantize, quantize_activation
 from tpuserve_torch.scripts import qmatmul_sweep
 
 SMS = 132
@@ -52,10 +54,69 @@ def test_block_k_off_the_stage_is_refused(block_k, bits):
 
 @pytest.mark.parametrize("bits,gs,ok", [
     (4, 16, True), (4, 32, True), (4, 64, True), (4, 128, True), (4, 256, True), (4, 4096, True),
-    (4, 48, False), (4, 96, False), (4, 8, False), (8, 16, True), (8, 64, True),
-    (8, 128, True), (8, 96, False)])
+    (4, 48, True), (4, 96, True), (4, 8, False), (8, 16, True), (8, 64, True),
+    (8, 128, True), (8, 96, True), (4, 80, True), (4, 112, True), (4, 688, True),
+    (8, 48, True), (8, 80, True), (4, 40, False), (8, 24, False), (8, 8, False)])
 def test_group_sizes_the_kernel_takes(bits, gs, ok):
+    """Every multiple of 16 values, int4 and int8 (a k16 step never
+    straddles two groups); nothing else."""
     assert tqm.hopper_group_ok(bits, gs) == ok
+
+
+@pytest.mark.parametrize("bits,gs,k", [
+    (4, 128, 4096), (4, 16, 512), (4, 32, 480), (4, 64, 4096), (4, 256, 4096), (4, 4096, 4096),
+    (4, 48, 4032), (4, 80, 480), (4, 96, 4032), (4, 112, 448), (4, 144, 576), (4, 688, 11008),
+    (8, 128, 4096), (8, 16, 512), (8, 48, 480), (8, 96, 4032), (8, 80, 480), (8, 11008, 11008)])
+def test_stages_cover_k_in_whole_groups_or_pieces(bits, gs, k):
+    """A stage holds whole groups in at most 64 weight rows, or one piece of
+    at most 64 rows of a group; the stages cover every weight row once. The
+    groups a 64-row stage tiles keep the stages they had (K / 128 int4,
+    K / 64 int8)."""
+    gr, spg, total = tqm.stage_plan(bits, k, gs)
+    rpg = gs // 2 if bits == 4 else gs
+    groups = k // gs
+    assert gr == 1 or spg == 1
+    if spg == 1:
+        assert gr * rpg <= 64 < (gr + 1) * rpg and total == -(-groups // gr)
+    else:
+        assert (spg - 1) * 64 < rpg <= spg * 64 and total == groups * spg
+        pieces = [min(64, rpg - p * 64) for p in range(spg)]
+        assert sum(pieces) == rpg and all(r % 8 == 0 for r in pieces)
+    assert tqm.odd_group(bits, gs) == (64 % rpg != 0 and rpg % 64 != 0)
+    if not tqm.odd_group(bits, gs):
+        assert total == -(-k // (128 if bits == 4 else 64))
+
+
+@pytest.mark.parametrize("gs,route", [(32, "wgmma"), (64, "wgmma"), (96, "wgmma"),
+                                      (128, "wgmma"), (160, "wgmma"), (4096, "wgmma"),
+                                      (16, "cuda_core"), (48, "cuda_core"), (40, "cuda_core"),
+                                      (8, "cuda_core")])
+def test_w4a8_route(gs, route):
+    """W4A8 takes int8 wgmma where every group ends on a k32 step, the
+    CUDA-core kernel for the other groups it takes."""
+    assert tqm.w4a8_route(gs) == route
+
+
+@pytest.mark.parametrize("gs", [20, 0, 136])
+def test_w4a8_route_refuses_what_no_kernel_takes(gs):
+    with pytest.raises(ValueError, match="W4A8 group size"):
+        tqm.w4a8_route(gs)
+
+
+@pytest.mark.parametrize("b", [1, 16, 64, 72, 128, 130, 256, 300])
+@pytest.mark.parametrize("gs,k", [(32, 4096), (64, 4096), (96, 4032), (128, 4096),
+                                  (128, 11008), (4096, 4096), (11008, 11008), (160, 4000)])
+def test_w4a8_plan(b, gs, k):
+    """The W4A8 launch: an int8 wgmma batch tile (no n72), every stage a
+    whole number of k32 steps, and a split that ends where a group does."""
+    n = 4096
+    bt, nwg_n, nwg_b, sps, splits = tqm.hopper_plan(b, k, n, 4, SMS, gs=gs, a8=True)
+    assert bt in tqm._A8_TILES and bt * nwg_b >= min(b, 256)
+    gr, spg, total = tqm.stage_plan(4, k, gs)
+    stage_values = [2 * min(64, gs // 2 - p * 64) for p in range(spg)] if spg > 1 \
+        else [gr * gs]
+    assert all(v % 32 == 0 for v in stage_values)
+    assert sps % spg == 0 and splits == -(-total // sps)
 
 
 class _FakeCuda(torch.Tensor):
@@ -69,12 +130,12 @@ class _FakeCuda(torch.Tensor):
 
 class _FakeLib:
     def __init__(self, rc=0):
-        self.rc, self.calls = rc, []
+        self.rc, self.calls, self.ok = rc, [], set()
 
     def __getattr__(self, name):
         def fn(*args):
             self.calls.append((name, args))
-            return self.rc
+            return 0 if name in self.ok else self.rc
         return fn
 
 
@@ -126,22 +187,23 @@ def test_bf16_kernel_failure_raises(monkeypatch):
 
 
 def test_bf16_group_the_kernel_cannot_tile_is_refused(monkeypatch):
-    """The Hopper entry refuses a group its stages cannot tile (48 values):
-    the wrapper never calls it, and serves the group through the CUDA-core
-    entry on x cast to f32, counted as a group-route launch."""
+    """The Hopper entry takes no group of other than a multiple of 16 values
+    (40): the wrapper never calls it, and serves the group through the
+    CUDA-core entry on x cast to f32, counted as a group-route launch."""
     fake = _fake(monkeypatch, 0)
-    x, qt = _inputs(4, 48, 480, 64, 4)
+    x, qt = _inputs(4, 40, 480, 64, 4)
     before, routed = tqm.launches, tqm.group_route_launches
     out = tqm.quant_matmul(x, qt)
     assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
     args = fake.calls[0][1]
-    assert args[4:10] == (4, 480, 64, 48, 4, 0)   # b, k, n, gs, bits, f32 x
+    assert args[4:10] == (4, 480, 64, 40, 4, 0)   # b, k, n, gs, bits, f32 x
     assert tqm.launches == before + 1 and tqm.group_route_launches == routed + 1
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (4, 64)
 
 
 # every group the JAX package's quantize makes of K = 4096 (even, dividing
-# K; per-channel is one group of K) has a route for bf16 activations
+# K; per-channel is one group of K) has a route for bf16 activations:
+# wgmma for every multiple of 16 values, the CUDA-core kernel for the rest
 @pytest.mark.parametrize("gs", [16, 32, 48, 64, 96, 128, 256, 0])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_every_quantized_group_has_a_bf16_route(bits, gs):
@@ -149,7 +211,16 @@ def test_every_quantized_group_has_a_bf16_route(bits, gs):
     g = gs or k
     route = tqm.bf16_route(bits, g)
     assert route == ("wgmma" if tqm.hopper_group_ok(bits, g) else "cuda_core")
-    assert (route == "cuda_core") == (g in (48, 96))
+    assert route == "wgmma"
+
+
+# the same for every even divisor of the 7B contraction widths and of the
+# odd-group check's K = 4032: wgmma exactly for the multiples of 16
+@pytest.mark.parametrize("k", [4096, 4032, 11008])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_every_even_divisor_has_its_bf16_route(bits, k):
+    for g in (g for g in range(2, k + 1, 2) if k % g == 0):
+        assert (tqm.bf16_route(bits, g) == "wgmma") == (g % 16 == 0), g
 
 
 @pytest.mark.parametrize("bits,gs", [(4, 7), (4, 0), (3, 64)])
@@ -158,7 +229,7 @@ def test_bf16_route_refuses_what_no_kernel_takes(bits, gs):
         tqm.bf16_route(bits, gs)
 
 
-@pytest.mark.parametrize("bits,gs", [(4, 96), (8, 96), (8, 80)])
+@pytest.mark.parametrize("bits,gs", [(4, 40), (8, 40), (8, 24)])
 def test_bf16_group_route_launches_once(monkeypatch, bits, gs):
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(bits, gs, 480, 128, 72)
@@ -169,6 +240,82 @@ def test_bf16_group_route_launches_once(monkeypatch, bits, gs):
     assert tqm.group_route_launches == routed + 1
 
 
+@pytest.mark.parametrize("bits,gs,k", [(4, 48, 480), (4, 96, 480), (4, 80, 480), (4, 112, 448),
+                                       (8, 96, 480), (8, 48, 480), (4, 688, 11008)])
+@pytest.mark.parametrize("b", [4, 72])
+def test_odd_groups_take_the_hopper_entry(monkeypatch, bits, gs, k, b):
+    """bf16 x in groups the 64-row stage cannot tile: the Hopper entry once,
+    with the plan for the group's stages, counted as an odd-group launch;
+    the group route's counter does not move."""
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(bits, gs, k, 128, b)
+    before, routed, odd = tqm.launches, tqm.group_route_launches, tqm.odd_group_launches
+    out = tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul_bf16"]
+    args = fake.calls[0][1]
+    assert args[6:11] == (b, k, 128, gs, bits)
+    assert args[11:16] == tqm.hopper_plan(b, k, 128, bits, SMS, gs=gs)
+    assert tqm.launches == before + 1 and tqm.odd_group_launches == odd + 1
+    assert tqm.group_route_launches == routed
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, 128)
+
+
+@pytest.mark.parametrize("gs,k", [(128, 4096), (32, 480), (96, 480), (4096, 4096)])
+@pytest.mark.parametrize("b", [1, 64, 72, 300])
+def test_w4a8_calls_the_int8_hopper_entry_once(monkeypatch, gs, k, b):
+    """W4A8 in groups of a multiple of 32: the int8 Hopper entry once, on
+    the W4A8 plan, counted in w4a8_launches; f32 out before the row scale,
+    then the activation's dtype."""
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, gs, k, 256, b)
+    qt.act_bits = 8
+    before, a8, routed = tqm.launches, tqm.w4a8_launches, tqm.w4a8_route_launches
+    quantized = tqm.quantize_launches
+    out = tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows",
+                                                "tpuserve_quant_matmul_a8"]
+    q_args, args = fake.calls[0][1], fake.calls[1][1]
+    assert q_args[3:6] == (b, k, 1)                      # bf16 x, one block a row
+    assert args[0] == q_args[1] and args[3] == q_args[2]  # its codes and row scales
+    assert args[7:12] == (b, k, 256, gs, 1)              # bf16 out, the row scale in
+    assert args[12:17] == tqm.hopper_plan(b, k, 256, 4, SMS, gs=gs, a8=True)
+    assert (args[5] != 0) == (args[16] > 1) and (args[6] != 0) == (args[16] > 1)
+    assert tqm.launches == before + 1 and tqm.w4a8_launches == a8 + 1
+    assert tqm.w4a8_route_launches == routed and tqm.quantize_launches == quantized + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, 256)
+
+
+@pytest.mark.parametrize("gs", [48, 16])
+def test_w4a8_other_groups_keep_the_cuda_core_entry(monkeypatch, gs):
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, gs, 480, 64, 8)
+    qt.act_bits = 8
+    before, a8, routed = tqm.launches, tqm.w4a8_launches, tqm.w4a8_route_launches
+    tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows", "tpuserve_quant_matmul"]
+    assert fake.calls[1][1][7:10] == (gs, 4, 2)    # gs, bits, int8 x
+    assert tqm.launches == before + 1 and tqm.w4a8_route_launches == routed + 1
+    assert tqm.w4a8_launches == a8
+
+
+@pytest.mark.parametrize("gs,act_bits", [(96, 0), (128, 8), (96, 8)])
+def test_new_hopper_paths_raise_on_failure(monkeypatch, gs, act_bits):
+    """A build or launch error on the odd-group or the W4A8 path raises; no
+    other kernel is tried and nothing is counted."""
+    fake = _fake(monkeypatch, 700)
+    fake.ok = {"tpuserve_quantize_rows"}   # the row quantization launches; the matmul fails
+    x, qt = _inputs(4, gs, 480 if gs == 96 else 512, 64, 8)
+    qt.act_bits = act_bits
+    counts = (tqm.launches, tqm.odd_group_launches, tqm.w4a8_launches,
+              tqm.group_route_launches, tqm.w4a8_route_launches)
+    with pytest.raises(RuntimeError, match="quant_matmul"):
+        tqm.quant_matmul(x, qt)
+    assert [n for n, _ in fake.calls if n != "tpuserve_quantize_rows"] == [
+        "tpuserve_quant_matmul_a8" if act_bits else "tpuserve_quant_matmul_bf16"]
+    assert counts == (tqm.launches, tqm.odd_group_launches, tqm.w4a8_launches,
+                      tqm.group_route_launches, tqm.w4a8_route_launches)
+
+
 def test_f32_keeps_the_cuda_core_entry(monkeypatch):
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(4, 128, 512, 256, 8)
@@ -176,6 +323,24 @@ def test_f32_keeps_the_cuda_core_entry(monkeypatch):
     assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
     gps, splits = fake.calls[0][1][10:12]
     assert (gps, splits) == (2, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_quantize_rows_reaches_its_kernel(monkeypatch, dtype):
+    """quantize_rows: a CUDA tensor reaches the row kernel once (bf16 as
+    itself, other dtypes as f32), counted; a CPU tensor takes
+    quantize_activation, the plain version, unchanged."""
+    fake = _fake(monkeypatch, 0)
+    x = torch.randn(6, 96).to(dtype)
+    q, sx = tqm.quantize_rows(x)
+    ref_q, ref_s = quantize_activation(x)
+    assert torch.equal(q, ref_q) and torch.equal(sx, ref_s) and not fake.calls
+    before = tqm.quantize_launches
+    q, sx = tqm.quantize_rows(torch.Tensor._make_subclass(_FakeCuda, x))
+    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows"]
+    assert fake.calls[0][1][3:6] == (6, 96, int(dtype == torch.bfloat16))
+    assert q.dtype == torch.int8 and tuple(sx.shape) == (6, 1)
+    assert tqm.quantize_launches == before + 1
 
 
 def test_sweep_runs_every_mode_on_the_cpu(monkeypatch, capsys):
@@ -229,7 +394,8 @@ def test_ab_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", ["base", "tma_only", "no_wgmma", "no_convert", "no_lds",
-                                  "no_epilogue"])
+                                  "no_epilogue", "a8_tma_only", "a8_no_wgmma", "a8_no_convert",
+                                  "a8_no_ldmatrix", "a8_no_flush"])
 def test_ablations_still_match_the_kernel_source(name):
     """Each cut of scripts/qmm_ablate.py applies to csrc/quant_matmul.cu as
     it is (the script runs only on the card; this keeps it in step)."""

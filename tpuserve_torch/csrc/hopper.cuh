@@ -81,6 +81,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
          ((uint64_t)1 << 62);
 }
 
+// The same with 64-byte rows and the 64-byte swizzle: 8-row atoms 512 bytes
+// apart (an 8-bit K-major operand of 64 values of K a row)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
+}
+
 // ---- host: tensor maps (cuTensorMapEncodeTiled from libcuda, found with
 // dlopen so that the library links against nothing but the runtime)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -17,15 +17,19 @@
 // ~295 operations per byte (989 TFLOP/s over 3.35 TB/s): streaming the
 // weights at full rate needs the tensor cores at 75-85% of their peak.
 //
-// Three paths:
-//   - bf16 activations (the serving path): qmm_wgmma_kernel in namespace hop
-//     below, built for Hopper: wgmma with the weights as A from registers
-//     and x as B from shared memory, a TMA ring fed by one producer thread,
-//     every weight byte read from device memory once for B <= 256 and from
-//     shared memory once, split K reduced in the same launch in a fixed
-//     order (tpuserve_quant_matmul_bf16);
-//   - f32 activations: qmm_f32_kernel, CUDA cores in f32;
-//   - W4A8: qmm_w4a8_kernel, __dp4a.
+// Paths:
+//   - bf16 activations (the serving path), every group of a multiple of 16
+//     values: qmm_wgmma_kernel in namespace hop below, built for Hopper:
+//     wgmma with the weights as A from registers and x as B from shared
+//     memory, a TMA ring fed by one producer thread, every weight byte read
+//     from device memory once for B <= 256 and from shared memory once,
+//     split K reduced in the same launch in a fixed order
+//     (tpuserve_quant_matmul_bf16);
+//   - W4A8 with groups of a multiple of 32 values: qmm_a8_kernel, the same
+//     ring and split on int8 wgmma (tpuserve_quant_matmul_a8);
+//   - f32 activations, and bf16 ones in groups of another size (run on x
+//     cast to f32): qmm_f32_kernel, CUDA cores in f32;
+//   - W4A8 with other groups: qmm_w4a8_kernel, __dp4a.
 // The last two keep the first port's form (tpuserve_quant_matmul): one block
 // per 64-column tile of up to 64 rows of x walking K chunk by chunk through
 // shared memory, K split by whole scale groups into a workspace that
@@ -283,6 +287,36 @@ qmm_w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------- rows to int8
+// W4A8's activations: x [B, K] to int8 codes and f32 scales, one block a
+// row (tpuserve/quant/core.py::quantize_activation, which the JAX package
+// leaves to XLA): s = max(absmax / 127, 1e-8), q = clamp(rint(x / s),
+// -127, 127), with IEEE divisions as PyTorch's, so the codes and scales
+// are bitwise those of the plain version. Bound by bytes: x is read twice
+// (the second pass mostly from L1/L2), the codes written once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                     int K) {
+  __shared__ float s_max[8];
+  const T* xr = x + (size_t)blockIdx.x * K;
+  int8_t* qr = q + (size_t)blockIdx.x * K;
+  float m = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, fabsf(tpuserve::to_f32(xr[k])));
+  m = tpuserve::warp_max(m);
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = s_max[0];
+#pragma unroll
+  for (int w = 1; w < 8; ++w) m = fmaxf(m, s_max[w]);
+  const float sc = fmaxf(__fdiv_rn(m, 127.0f), 1e-8f);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float v = rintf(__fdiv_rn(tpuserve::to_f32(xr[k]), sc));
+    qr[k] = (int8_t)fminf(fmaxf(v, -127.0f), 127.0f);
+  }
+  if (threadIdx.x == 0) scale[blockIdx.x] = sc;
+}
+
 // out[i] = sum over splits of ws[split][i], added in split order
 template <typename OT>
 __global__ void reduce_splits_kernel(const float* __restrict__ ws, OT* __restrict__ out,
@@ -334,11 +368,21 @@ void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStre
 // into `part` and is then scaled in f32 into `acc` (acc += part *
 // scale[g, col]).
 //
+// Groups a 64-row stage cannot tile (int4 48, 80, 96, 112, 144, ...; int8
+// 48, 80, 96, ...: any multiple of 16 values; `odd` below) take stages cut
+// along their groups instead: a stage holds as many whole groups as fit in
+// 64 weight rows (x in order from the first one), or one piece of at most
+// 64 rows of a larger group (the last piece shorter). Where a group's int4
+// half (gs/2) is no multiple of 16, a k16 step takes low nibbles of one
+// octet and high nibbles of another: the fragment is built per 8 values of
+// K from the octet the pack puts there, and the k16 step is taken in x's
+// order, so that x stays one descriptor.
+//
 // Split K in one launch: grid.y splits the stages; each split writes its f32
 // tile to a workspace, and the last split of a tile to arrive (a per-tile
-// counter) adds the splits in split order and writes the bf16 output, so
-// two calls give the same bits. A group larger than a split's K range
-// splits too: its scale multiplies each split's partial sum.
+// counter) adds the splits in split order and writes the output, so two
+// calls give the same bits. A group larger than a split's K range splits
+// too: its scale multiplies each split's partial sum.
 namespace hop {
 
 using namespace tpuserve::hopper;
@@ -353,12 +397,135 @@ constexpr int MAX_STAGES = 8;
 constexpr int MAX_THREADS = 2 * WG_THREADS + 32;  // two consumer warpgroups and the producer
 
 struct Args {
-  __nv_bfloat16* out;  // [B, N]
+  void* out;           // [B, N]: bf16, or f32 (qmm_a8_kernel may write either)
+  const float* row_scale;  // [B] multiplied into each output row (qmm_a8_kernel)
   float* ws;           // [splits, B, N] when splits > 1
   int* counters;       // per output tile, zero between calls
-  int B, K, N, gs, sps, total, splits, stages, nwg_n, nwg_b, gr;
+  int B, K, N, gs, sps, total, splits, stages, nwg_n, nwg_b;
+  int gr;              // scale groups a stage holds (whole groups), else 1
+  int spg;             // stages a group spans (pieces of one group), else 1
+  int odd;             // the group is cut by the stages as above
   int off_x, off_sc, stage_bytes, tx_bytes, xbox_bytes;
 };
+
+// Where stage t starts: its first weight row, its first scale group and the
+// K positions of its two x boxes (int4: the values that meet the low
+// nibbles, then the high ones; whole groups: the stage's values in order).
+__device__ __forceinline__ void stage_origin(const Args& a, int bits, int gs, int t, int& r0,
+                                             int& grp, int& klo, int& khi) {
+  const int rpg = bits == 4 ? gs / 2 : gs;  // weight rows a group
+  if (a.spg == 1) {                         // a.gr whole groups
+    grp = t * a.gr;
+    r0 = grp * rpg;
+    klo = grp * gs;
+    khi = klo + 64;
+  } else {                                  // piece t % spg of one group
+    grp = t / a.spg;
+    const int pc = t - grp * a.spg;
+    r0 = grp * rpg + pc * STAGE_ROWS;
+    klo = grp * gs + pc * STAGE_ROWS;
+    khi = klo + rpg;
+  }
+}
+
+// The producer thread: keeps the ring full for the block's nst stages
+// (weights and scales of each column warpgroup, then x; two x boxes for
+// int4 weights).
+template <int BITS>
+__device__ __forceinline__ void produce(const Args& a, uint8_t* smem, uint64_t* bars,
+                                        const CUtensorMap* qmap, const CUtensorMap* smap,
+                                        const CUtensorMap* xmap, int gs, int st0, int nst,
+                                        int col_blk, int row_blk) {
+  for (int it = 0; it < nst; ++it) {
+    const int s = it % a.stages;
+    const uint32_t full = smem_u32(&bars[s]);
+    if (it >= a.stages) mbar_wait(smem_u32(&bars[a.stages + s]), ((it / a.stages) - 1) & 1);
+    const uint32_t base = smem_u32(smem + (size_t)s * a.stage_bytes);
+    mbar_expect_tx(full, a.tx_bytes);
+    int r0, grp, klo, khi;
+    stage_origin(a, BITS, gs, st0 + it, r0, grp, klo, khi);
+    for (int w = 0; w < a.nwg_n; ++w) {
+      tma_2d(base + w * W_BYTES, qmap, full, col_blk + w * COLS, r0);
+      tma_2d(base + a.off_sc + w * a.gr * COLS * 4, smap, full, col_blk + w * COLS, grp);
+    }
+    tma_2d(base + a.off_x, xmap, full, klo, row_blk);
+    if (BITS == 4) tma_2d(base + a.off_x + a.xbox_bytes, xmap, full, khi, row_blk);
+  }
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+// The consumers' output: acc holds, for this thread, columns col, col + 1
+// and batch rows b0 + 8j (+1). With splits > 1 this split's tile goes to the
+// workspace, and the last split of the tile to arrive adds all of them in
+// split order. RS: each row times a.row_scale (W4A8) before the rounding.
+template <int BT, typename OT, bool RS>
+__device__ __forceinline__ void write_out(const Args& a, const float* acc, int col, int b0,
+                                          int ncons, int* s_last) {
+  OT* out = reinterpret_cast<OT*>(a.out);
+  auto rs = [&](int b) {
+    if constexpr (RS) return a.row_scale[b];
+    return 1.0f;
+  };
+  if (a.splits == 1) {
+    if (col >= a.N) return;
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      const int b = b0 + 8 * j;
+      if (b < a.B) {
+        const float r = rs(b);
+        store2(out + (size_t)b * a.N + col, acc[4 * j] * r, acc[4 * j + 2] * r);
+      }
+      if (b + 1 < a.B) {
+        const float r = rs(b + 1);
+        store2(out + (size_t)(b + 1) * a.N + col, acc[4 * j + 1] * r, acc[4 * j + 3] * r);
+      }
+    }
+    return;
+  }
+  float* ws = a.ws + (size_t)blockIdx.y * a.B * a.N;
+  if (col < a.N) {
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      const int b = b0 + 8 * j;
+      if (b < a.B)
+        *reinterpret_cast<float2*>(ws + (size_t)b * a.N + col) = make_float2(acc[4 * j], acc[4 * j + 2]);
+      if (b + 1 < a.B)
+        *reinterpret_cast<float2*>(ws + (size_t)(b + 1) * a.N + col) =
+            make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+    }
+  }
+  __threadfence();
+  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
+  const int tile = blockIdx.x + gridDim.x * blockIdx.z;
+  if (threadIdx.x == 0) *s_last = atomicAdd(&a.counters[tile], 1) == a.splits - 1;
+  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
+  if (!*s_last) return;
+  __threadfence();
+  if (col < a.N) {
+    for (int b = b0; b < min(a.B, b0 + BT); b += 8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (b + h >= a.B) break;
+        float lo = 0.f, hi = 0.f;
+        for (int sp = 0; sp < a.splits; ++sp) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(
+              a.ws + ((size_t)sp * a.B + b + h) * a.N + col));
+          lo += v.x;
+          hi += v.y;
+        }
+        const float r = rs(b + h);
+        store2(out + (size_t)(b + h) * a.N + col, lo * r, hi * r);
+      }
+    }
+  }
+  if (threadIdx.x == 0) a.counters[tile] = 0;  // ready for the next call
+}
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t r;
@@ -553,8 +720,130 @@ __device__ __forceinline__ void g128_stage(float* part, const uint8_t* wt, uint3
   }
 }
 
+// Half of a k16 fragment (8 values of K) for an odd group: the low (sh 0) or
+// high (sh 4) nibbles of the octet at weight row `row`, as the pair of
+// registers of columns c0 and c1; zeros where the octet lies past the piece.
+__device__ __forceinline__ void nib_half(uint32_t* af, const uint8_t* wt, int row, int sh,
+                                         bool valid, int warp, int gid, int tq) {
+  if (!valid) {
+    af[0] = af[1] = 0u;
+    return;
+  }
+  const uint32_t w = (octet_word(wt, row + 2 * tq, warp, gid) >> sh) & 0x0F0F0F0Fu;
+  af[0] = nib_pair(w, 0x4140u);
+  af[1] = nib_pair(w, 0x4342u);
+}
 
-// GS = 128 fixes the group size at compile time; GS = 0 reads a.gs.
+// The 16 int8 rows from `row` as a k16 fragment
+__device__ __forceinline__ void i8_frag(uint32_t* af, const uint8_t* wt, int row, int warp,
+                                        int gid, int tq) {
+  const uint32_t w0 = octet_word(wt, row + 2 * tq, warp, gid);
+  const uint32_t w1 = octet_word(wt, row + 8 + 2 * tq, warp, gid);
+  af[0] = i8_pair(w0, 0);
+  af[1] = i8_pair(w0, 2);
+  af[2] = i8_pair(w1, 0);
+  af[3] = i8_pair(w1, 2);
+}
+
+// Up to 8 k16 steps (fragments fr, x values px of the stage) on the same
+// accumulators, the first adding to them or not, issued together and
+// committed as one group. The fragments are all built before the first
+// wgmma and stay live (keep_frags) until the group has been waited for: a
+// wgmma reads its A registers after it is issued, so none of them may be
+// written again before then.
+template <int BT, typename XDesc>
+__device__ __forceinline__ void issue_batch(float* part, uint32_t (&fr)[8][4], const int* px,
+                                            int n, int accumulate, XDesc xdesc) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) fence_frag(fr[s]);
+  fence_regs<BT / 2>(part);
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    if (s < n) Wgmma<BT>::mma(part, fr[s], xdesc(px[s]), s > 0 || accumulate);
+  wg_commit();
+}
+
+__device__ __forceinline__ void keep_frags(uint32_t (&fr)[8][4]) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) fence_frag(fr[s]);
+}
+
+// One stage of an odd group size (Args::odd): whole groups, each its k16
+// steps in x's order and then its flush, or a piece of one group, its low
+// nibbles against x box 0 and its high ones against box 1 (int8: its rows
+// against box 0), flushed where the group (or the block's split) ends.
+template <int BITS, int BT, typename XDesc>
+__device__ __forceinline__ void odd_stage(const Args& a, float* acc, float* part, int& accumulate,
+                                          const uint8_t* wt, const float* sc, XDesc xdesc,
+                                          int gs, int t, bool last, int warp, int gid, int tq,
+                                          int c0) {
+  const int rpg = BITS == 4 ? gs / 2 : gs;
+  uint32_t fr[8][4];
+  int px[8];
+  if (a.spg == 1) {  // whole groups (gs <= 128 int4, <= 64 int8): at most 8 k16 steps each
+    const int ng = min(a.gr, a.K / gs - t * a.gr);
+    const int hq = rpg / 8;  // octets a group holds
+    for (int j = 0; j < ng; ++j) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s < gs / 16) {
+          if (BITS == 4) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = 2 * s + h;  // 8 values of K: low nibbles of octet q, or high of q - hq
+              nib_half(fr[s] + 2 * h, wt, j * rpg + 8 * (q < hq ? q : q - hq), q < hq ? 0 : 4,
+                       true, warp, gid, tq);
+            }
+          } else {
+            i8_frag(fr[s], wt, j * gs + 16 * s, warp, gid, tq);
+          }
+          px[s] = j * gs + 16 * s;
+        }
+      }
+      issue_batch<BT>(part, fr, px, gs / 16, 0, xdesc);
+      close_group<BT>(acc, part, sc + j * COLS, c0);
+      keep_frags(fr);
+    }
+    accumulate = 0;
+    return;
+  }
+  const int pc = t % a.spg;
+  const int rows = min(STAGE_ROWS, rpg - pc * STAGE_ROWS);  // a multiple of 8 (int8: 16)
+  int n;
+  if (BITS == 4) {  // step s: 16 rows from 16 (s / 2), low (s even) or high nibbles
+    n = 2 * ((rows + 15) / 16);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      if (s < n) {
+        const int R = 16 * (s >> 1), sh = 4 * (s & 1);
+        nib_half(fr[s], wt, R, sh, true, warp, gid, tq);
+        nib_half(fr[s] + 2, wt, R + 8, sh, R + 8 < rows, warp, gid, tq);
+        px[s] = sh ? 64 + R : R;
+      }
+    }
+  } else {
+    n = rows / 16;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < n) {
+        i8_frag(fr[s], wt, 16 * s, warp, gid, tq);
+        px[s] = 16 * s;
+      }
+    }
+  }
+  issue_batch<BT>(part, fr, px, n, accumulate, xdesc);
+  accumulate = 1;
+  if (pc == a.spg - 1 || last) {
+    close_group<BT>(acc, part, sc, c0);
+    accumulate = 0;
+  }
+  wg_wait0();
+  keep_frags(fr);
+}
+
+// GS = 128 fixes the group size at compile time; GS = 0 reads a.gs (groups
+// the 64-row stage tiles); GS = -1 reads a.gs for the odd groups.
 template <int BITS, int GS, int BT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
@@ -566,7 +855,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   __shared__ int s_last;
   const int ncons = a.nwg_n * a.nwg_b;
   const int wg = threadIdx.x / WG_THREADS;
-  const int gs = GS ? GS : a.gs;
+  const int gs = GS > 0 ? GS : a.gs;
   const int st0 = blockIdx.y * a.sps;
   const int nst = min(a.total, st0 + a.sps) - st0;
   const int col_blk = blockIdx.x * COLS * a.nwg_n;
@@ -582,32 +871,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   __syncthreads();
 
   if (wg == ncons) {  // the producer warp: one thread keeps the ring full
-    if (threadIdx.x == ncons * WG_THREADS) {
-      for (int it = 0; it < nst; ++it) {
-        const int s = it % a.stages;
-        const uint32_t full = smem_u32(&bars[s]);
-        if (it >= a.stages) mbar_wait(smem_u32(&bars[a.stages + s]), ((it / a.stages) - 1) & 1);
-        const uint32_t base = smem_u32(smem + (size_t)s * a.stage_bytes);
-        mbar_expect_tx(full, a.tx_bytes);
-        const int r0 = (st0 + it) * STAGE_ROWS;
-        int grp, klo, khi = 0;
-        if (BITS == 4) {
-          const int half = gs / 2;
-          grp = r0 / half;
-          klo = gs >= 128 ? grp * gs + (r0 - grp * half) : 2 * r0;
-          khi = gs >= 128 ? klo + half : klo + 64;
-        } else {
-          grp = r0 / gs;
-          klo = r0;
-        }
-        for (int w = 0; w < a.nwg_n; ++w) {
-          tma_2d(base + w * W_BYTES, &qmap, full, col_blk + w * COLS, r0);
-          tma_2d(base + a.off_sc + w * a.gr * COLS * 4, &smap, full, col_blk + w * COLS, grp);
-        }
-        tma_2d(base + a.off_x, &xmap, full, klo, row_blk);
-        if (BITS == 4) tma_2d(base + a.off_x + a.xbox_bytes, &xmap, full, khi, row_blk);
-      }
-    }
+    if (threadIdx.x == ncons * WG_THREADS)
+      produce<BITS>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk, row_blk);
     return;
   }
 
@@ -681,7 +946,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       auto xdesc = [&](int p) {
         return desc_sw128(xb + (p >> 6) * a.xbox_bytes + (p & 63) * 2);
       };
-      if (BITS == 4 && gs != 16) {
+      if constexpr (GS < 0) {
+        odd_stage<BITS, BT>(a, acc, part, accumulate, wt, sc, xdesc, gs, st0 + it,
+                            it == nst - 1, warp, gid, tq, c0);
+      } else if (BITS == 4 && gs != 16) {
         const int half = gs / 2;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -724,9 +992,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int R = 16 * u;
-          const uint32_t w0 = octet_word(wt, R + 2 * tq, warp, gid);
-          const uint32_t w1 = octet_word(wt, R + 8 + 2 * tq, warp, gid);
-          uint32_t af[4] = {i8_pair(w0, 0), i8_pair(w0, 2), i8_pair(w1, 0), i8_pair(w1, 2)};
+          uint32_t af[4];
+          i8_frag(af, wt, R, warp, gid, tq);
           issue<BT>(part, af, xdesc(R), accumulate);
           accumulate = 1;
           if (gs < 64 && (R + 16) % gs == 0) {
@@ -744,61 +1011,432 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     }
   }
 
-  const int col = col_blk + wn * COLS + c0;
-  const int b0 = row_blk + wb * BT + 2 * tq;
-  if (a.splits == 1) {
-    if (col >= a.N) return;
+  write_out<BT, __nv_bfloat16, false>(a, acc, col_blk + wn * COLS + c0,
+                                      row_blk + wb * BT + 2 * tq, ncons, &s_last);
+}
+
+// ---------------------------------------------------------------- W4A8, Hopper
+// int4 weights against int8 x (tpuserve/ops/quant_matmul.py::_kernel, the
+// act_int8 branch): for each group and output, the int32 dot of x with the
+// codes minus 8, converted to f32, times the group's scale, summed over the
+// groups in f32; the output row then times its activation scale (the
+// caller's multiply in the TPU path, done here before the output's
+// rounding). x comes from quantize_rows_kernel.
+//
+// Bound on the H100 at decode: bytes, as the bf16 path; the int8 tensor
+// cores give twice the bf16 rate, and a byte of weights costs one LOP3 (and
+// a shift) a nibble pair instead of the bf16 path's PRMT and HSUB2.
+//
+// The ring, swap-AB, split and output of qmm_wgmma_kernel, on wgmma
+// m64nNk32.s32.s8.s8 (N: 16, 32, 64, 80 or 128; integer wgmma has no n72):
+//   - x: two int8 boxes [rows, 64 values], 64-byte swizzle, K-major as
+//     wgmma needs an 8-bit B operand; the stages are those of the bf16 path
+//     (whole groups with x in order, or pieces of one group with box 0
+//     against the low nibbles and box 1 against the high ones), for
+//     groups of a multiple of 32 so that every k32 step lies in one group;
+//   - A from registers: ldmatrix.x4.trans gives a lane two adjacent columns
+//     of two adjacent rows a matrix; the lanes' row addresses are arranged
+//     so that two PRMTs turn matrices (0, 1) and (2, 3) into the four codes
+//     of K 4tq..4tq+3 of column c0 and of c1 (the k32 fragment), and the
+//     8 rows of each matrix fall on 8 distinct bank groups of the swizzled
+//     weight box;
+//   - codes: one LOP3 (and a shift for the low nibbles) makes
+//     ((nibble << 4) ^ 0x80) = 16 * (code - 8) as s8, exact; the int32 sums
+//     are 16 times the TPU kernel's x.c - 8*rowsum(x), taken back at the
+//     group's flush (|sum| < 2^31 for any group under 2^17 values);
+//   - a split ends only where a group does, so each group's int32 sum is
+//     whole before its scale (the wrapper's plan);
+//   - all of a batch's A fragments are built before its first wgmma and
+//     stay live until it has been waited for: a wgmma reads its A registers
+//     after it is issued, and ptxas does not keep a loop from rewriting
+//     them in the meantime;
+//   - g128 (the serving groups, one a stage) runs two group sums in turn,
+//     as the bf16 kernel's g128 path: a stage's wgmmas in flight while the
+//     next stage loads and converts; its flush converts the int32 sums
+//     without I2F (a8_flush).
+template <int N> struct WgmmaS8;
+template <> struct WgmmaS8<16> {
+  __device__ __forceinline__ static void mma(int* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct WgmmaS8<32> {
+  __device__ __forceinline__ static void mma(int* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct WgmmaS8<64> {
+  __device__ __forceinline__ static void mma(int* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct WgmmaS8<80> {
+  __device__ __forceinline__ static void mma(int* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39}, "
+        "{%40, %41, %42, %43}, %44, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+template <> struct WgmmaS8<128> {
+  __device__ __forceinline__ static void mma(int* d, const uint32_t* a, uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+// The k32 fragment of the 16-row blocks ra (K 0-15 of the step) and rb
+// (K 16-31) of the weight box: ldmatrix.x4.trans, lane L addressing row
+// L % 8 of matrix L / 8. A lane receives rows 2tq, 2tq + 1 of each matrix
+// at its two columns; matrix rows 2a, 2a + 1 are the block's rows
+// 4a + {0, 1} or 4a + {2, 3} (the first pair in matrix 0 for a < 2, in
+// matrix 1 for a >= 2), so that a matrix's 8 rows fall on 8 distinct bank
+// groups of the 64-byte swizzle, and two PRMTs a block (sel0, sel1: by tq)
+// give the bytes of rows 4tq..4tq+3 of column c0 and of c1.
+__device__ __forceinline__ void a8_load(uint32_t (&f)[4], uint32_t wt, int ra, int rb, int warp,
+                                        int lane, uint32_t sel0, uint32_t sel1) {
+  const int m = lane >> 3, j = lane & 7;
+  const int row = (m < 2 ? ra : rb) + 4 * (j >> 1) + 2 * ((j >> 2) ^ (m & 1)) + (j & 1);
+  const uint32_t addr = wt + row * 64 + ((warp ^ ((row >> 1) & 3)) << 4);
+  uint32_t r[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+  f[0] = prmt(r[0], r[1], sel0);
+  f[1] = prmt(r[0], r[1], sel1);
+  f[2] = prmt(r[2], r[3], sel0);
+  f[3] = prmt(r[2], r[3], sel1);
+}
+
+// 16 * (code - 8) as s8 in each byte: the low nibbles (sh 4) or the high
+// ones (sh 0) of four packed bytes
+__device__ __forceinline__ uint32_t codes16(uint32_t w, int sh) {
+  return ((w << sh) & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+
+// The int32 group sum part = 16 v (v the TPU kernel's x.c - 8*rowsum(x))
+// scaled into acc: acc += v * scale. With |part| < 2^22 (groups of up to
+// 258 values) the conversion is exact without I2F, whose rate is a quarter
+// of an add's: part added to the bits of 1.5 * 2^23 is that float plus
+// part, and the 16 goes into the scale (exact: a power of two), so the
+// product is the same real number as v * scale and rounds alike.
+template <int BT, bool SMALL>
+__device__ __forceinline__ void a8_flush(float* acc, int* part, const float* sc_row, int c0) {
+  const float2 sv = *reinterpret_cast<const float2*>(sc_row + c0);
+  if (SMALL) {
+    const float s0 = sv.x * 0.0625f, s1 = sv.y * 0.0625f;
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
-      const int b = b0 + 8 * j;
-      if (b < a.B)
-        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)b * a.N + col) =
-            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
-      if (b + 1 < a.B)
-        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)(b + 1) * a.N + col) =
-            __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
-    }
-    return;
-  }
-  // split K: this split's tile into the workspace; the last split of the
-  // tile to arrive adds all of them in split order
-  float* ws = a.ws + (size_t)blockIdx.y * a.B * a.N;
-  if (col < a.N) {
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-      const int b = b0 + 8 * j;
-      if (b < a.B)
-        *reinterpret_cast<float2*>(ws + (size_t)b * a.N + col) = make_float2(acc[4 * j], acc[4 * j + 2]);
-      if (b + 1 < a.B)
-        *reinterpret_cast<float2*>(ws + (size_t)(b + 1) * a.N + col) =
-            make_float2(acc[4 * j + 1], acc[4 * j + 3]);
-    }
-  }
-  __threadfence();
-  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
-  const int tile = blockIdx.x + gridDim.x * blockIdx.z;
-  if (threadIdx.x == 0) s_last = atomicAdd(&a.counters[tile], 1) == a.splits - 1;
-  asm volatile("bar.sync 1, %0;" ::"r"(ncons * WG_THREADS) : "memory");
-  if (!s_last) return;
-  __threadfence();
-  if (col < a.N) {
-    for (int b = b0; b < min(a.B, b0 + BT); b += 8) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (b + h >= a.B) break;
-        float lo = 0.f, hi = 0.f;
-        for (int sp = 0; sp < a.splits; ++sp) {
-          const float2 v = __ldcg(reinterpret_cast<const float2*>(
-              a.ws + ((size_t)sp * a.B + b + h) * a.N + col));
-          lo += v.x;
-          hi += v.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)(b + h) * a.N + col) =
-            __floats2bfloat162_rn(lo, hi);
+      for (int e = 0; e < 4; ++e) {
+        const float f = __int_as_float(part[4 * j + e] + 0x4B400000) - 12582912.0f;
+        acc[4 * j + e] += f * (e < 2 ? s0 : s1);
       }
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+      acc[4 * j + 0] += (float)(part[4 * j + 0] >> 4) * sv.x;
+      acc[4 * j + 1] += (float)(part[4 * j + 1] >> 4) * sv.x;
+      acc[4 * j + 2] += (float)(part[4 * j + 2] >> 4) * sv.y;
+      acc[4 * j + 3] += (float)(part[4 * j + 3] >> 4) * sv.y;
+    }
   }
-  if (threadIdx.x == 0) a.counters[tile] = 0;  // ready for the next call
+}
+
+// One g128 stage (one group, x in order: box 0 against the low nibbles,
+// box 1 against the high ones): two ldmatrix.x4 give the 64 rows, whose
+// low and high nibbles make the four k32 fragments, issued into `part`
+// (fresh) and left in flight.
+template <int BT>
+__device__ __forceinline__ void a8_g128_stage(int* part, uint32_t (&fr)[4][4], uint32_t wt,
+                                              uint32_t xb, int xbox_bytes, int warp, int lane,
+                                              uint32_t sel0, uint32_t sel1) {
+  uint32_t raw[2][4];
+  a8_load(raw[0], wt, 0, 16, warp, lane, sel0, sel1);
+  a8_load(raw[1], wt, 32, 48, warp, lane, sel0, sel1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // step i: rows 32 (i % 2).., low (i < 2) or high nibbles
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fr[i][r] = codes16(raw[i & 1][r], i < 2 ? 4 : 0);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+  fence_regs<BT / 2>(part);
+  wg_fence();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    WgmmaS8<BT>::mma(part, fr[i], desc_sw64(xb + (i >> 1) * xbox_bytes + 32 * (i & 1)), i > 0);
+  wg_commit();
+}
+
+// G128: groups of 128 (a stage is one group), run as the bf16 kernel's g128
+// path: two group sums in turn, a stage's wgmmas in flight while the next
+// stage converts, each flushed and released one stage later.
+template <int BT, bool G128, typename OT>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
+              const __grid_constant__ CUtensorMap xmap, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)a.stages * a.stage_bytes);
+  __shared__ int s_last;
+  const int ncons = a.nwg_n * a.nwg_b;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int gs = a.gs;
+  const int st0 = blockIdx.y * a.sps;
+  const int nst = min(a.total, st0 + a.sps) - st0;
+  const int col_blk = blockIdx.x * COLS * a.nwg_n;
+  const int row_blk = blockIdx.z * BT * a.nwg_b;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(smem_u32(&bars[s]), 1);                                // full
+      mbar_init(smem_u32(&bars[a.stages + s]), ncons * WG_THREADS);    // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == ncons) {
+    if (threadIdx.x == ncons * WG_THREADS)
+      produce<4>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk, row_blk);
+    return;
+  }
+
+  const int wn = wg % a.nwg_n;
+  const int wb = wg / a.nwg_n;
+  const int tid = threadIdx.x & (WG_THREADS - 1);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tq = lane & 3;
+  const int c0 = warp * 16 + 2 * gid;
+  const uint32_t sel0 = tq < 2 ? 0x6420u : 0x2064u;
+  const uint32_t sel1 = tq < 2 ? 0x7531u : 0x3175u;
+  const int rpg = gs / 2;
+
+  float acc[BT / 2];
+  int part[BT / 2];
+#pragma unroll
+  for (int i = 0; i < BT / 2; ++i) {
+    acc[i] = 0.f;
+    part[i] = 0;
+  }
+  int accumulate = 0;
+
+  if constexpr (G128 && BT <= 80) {
+    int p1[BT / 2];
+    uint32_t f0[4][4], f1[4][4];
+    const float* sc_prev = nullptr;
+    int s_prev = 0;
+    auto stage = [&](int it, int* cur, uint32_t (&fc)[4][4], int* prev, uint32_t (&fp)[4][4]) {
+      const int s = it % a.stages;
+      mbar_wait(smem_u32(&bars[s]), (it / a.stages) & 1);
+      const uint8_t* base = smem + (size_t)s * a.stage_bytes;
+      a8_g128_stage<BT>(cur, fc, smem_u32(base + wn * W_BYTES),
+                        smem_u32(base + a.off_x) + wb * BT * 64, a.xbox_bytes, warp, lane, sel0,
+                        sel1);
+      if (it > 0) {
+        wg_wait<1>();  // the previous stage's group is done
+        fence_regs<BT / 2>(prev);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_regs<4>(fp[i]);
+        a8_flush<BT, true>(acc, prev, sc_prev, c0);
+        mbar_arrive(smem_u32(&bars[a.stages + s_prev]));
+      }
+      sc_prev = reinterpret_cast<const float*>(base + a.off_sc + wn * COLS * 4);
+      s_prev = s;
+    };
+    for (int it = 0; it < nst; it += 2) {
+      stage(it, part, f0, p1, f1);
+      if (it + 1 < nst) stage(it + 1, p1, f1, part, f0);
+    }
+    wg_wait0();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      fence_regs<4>(f0[i]);
+      fence_regs<4>(f1[i]);
+    }
+    // (a branch each, not a pointer chosen at run time: that would put both
+    // sums in local memory, where the async wgmma cannot write them)
+    if (nst & 1) {
+      fence_regs<BT / 2>(part);
+      a8_flush<BT, true>(acc, part, sc_prev, c0);
+    } else {
+      fence_regs<BT / 2>(p1);
+      a8_flush<BT, true>(acc, p1, sc_prev, c0);
+    }
+    mbar_arrive(smem_u32(&bars[a.stages + s_prev]));
+  } else {
+  for (int it = 0; it < nst; ++it) {
+    const int s = it % a.stages;
+    mbar_wait(smem_u32(&bars[s]), (it / a.stages) & 1);
+    const uint8_t* base = smem + (size_t)s * a.stage_bytes;
+    const uint32_t wt = smem_u32(base + wn * W_BYTES);
+    const float* sc = reinterpret_cast<const float*>(base + a.off_sc + wn * a.gr * COLS * 4);
+    const uint32_t xb = smem_u32(base + a.off_x) + wb * BT * 64;
+    // x value p (0..127) of the stage: box p / 64, 32 bytes a k32 step
+    auto xdesc = [&](int p) { return desc_sw64(xb + (p >> 6) * a.xbox_bytes + (p & 63)); };
+    // up to 4 k32 steps: step s takes the 16-row blocks ra[s] (K 0-15) and
+    // rb[s] (K 16-31, zeros unless vb[s]), low (sh 4) or high (sh 0)
+    // nibbles, against x from px[s]; all built before the first is issued,
+    // kept live until they are waited for (a wgmma reads its A registers
+    // after it is issued)
+    uint32_t fr[4][4];
+    int px[4];
+    auto run = [&](int n, const int* ra, const int* sa, const int* rb, const int* sb,
+                   const bool* vb) {
+      uint32_t raw[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < n) {
+          // the low and high nibbles of the same rows come from one load
+          if (i == 0 || ra[i] != ra[i - 1] || rb[i] != rb[i - 1] || vb[i] != vb[i - 1])
+            a8_load(raw, wt, ra[i], vb[i] ? rb[i] : ra[i], warp, lane, sel0, sel1);
+          fr[i][0] = codes16(raw[0], sa[i]);
+          fr[i][1] = codes16(raw[1], sa[i]);
+          fr[i][2] = vb[i] ? codes16(raw[2], sb[i]) : 0u;
+          fr[i][3] = vb[i] ? codes16(raw[3], sb[i]) : 0u;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+      fence_regs<BT / 2>(part);
+      wg_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n) WgmmaS8<BT>::mma(part, fr[i], xdesc(px[i]), i > 0 || accumulate);
+      wg_commit();
+      accumulate = 1;
+    };
+    // the group's int32 sum (16 times the TPU kernel's) into f32, scaled
+    auto flush = [&](const float* sc_row) {
+      wg_wait0();
+      fence_regs<BT / 2>(part);
+      if (gs <= 256)
+        a8_flush<BT, true>(acc, part, sc_row, c0);
+      else
+        a8_flush<BT, false>(acc, part, sc_row, c0);
+      accumulate = 0;
+    };
+    int ra[4], sa[4], rb[4], sb[4];
+    bool vb[4];
+    const int t = st0 + it;
+    if (a.spg == 1) {  // whole groups (gs <= 128), x in order: gs / 32 k32 steps each
+      const int ng = min(a.gr, a.K / gs - t * a.gr);
+      const int hq = rpg / 16;  // 16-row blocks a group holds
+      for (int j = 0; j < ng; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // K 32m..32m+31 of the group: lows of block q, or highs of q - hq;
+          // where gs % 64 == 0 the steps go lows and highs of the same rows
+          // in turn (m = 0, hq/2, 1, hq/2 + 1), so that they share a load
+          const int m = rpg % 32 ? i : (i >> 1) + (i & 1) * (hq >> 1);
+          const int q = 2 * m;
+          ra[i] = j * rpg + 16 * (q < hq ? q : q - hq);
+          sa[i] = q < hq ? 4 : 0;
+          rb[i] = j * rpg + 16 * (q + 1 < hq ? q + 1 : q + 1 - hq);
+          sb[i] = q + 1 < hq ? 4 : 0;
+          vb[i] = true;
+          px[i] = j * gs + 32 * m;
+        }
+        run(gs / 32, ra, sa, rb, sb, vb);
+        flush(sc + j * COLS);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+      }
+    } else {  // a piece of one group: lows against box 0, highs against box 1
+      const int pc = t % a.spg;
+      const int rows = min(STAGE_ROWS, rpg - pc * STAGE_ROWS);  // a multiple of 16
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // rows 32 (i / 2).., low (i even) or high nibbles
+        const int R = 32 * (i >> 1);
+        ra[i] = R;
+        rb[i] = R + 16;
+        vb[i] = R + 16 < rows;
+        sa[i] = sb[i] = (i & 1) ? 0 : 4;
+        px[i] = (i & 1) ? 64 + R : R;
+      }
+      run(2 * ((rows + 31) / 32), ra, sa, rb, sb, vb);
+      if (pc == a.spg - 1 || it == nst - 1) flush(sc);
+    }
+    wg_wait0();  // the stage's x has been read
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+    mbar_arrive(smem_u32(&bars[a.stages + s]));
+  }
+  }
+
+  write_out<BT, OT, true>(a, acc, col_blk + wn * COLS + c0, row_blk + wb * BT + 2 * tq, ncons,
+                          &s_last);
 }
 
 // The weight's two maps depend only on its pointers and shape: built once
@@ -844,11 +1482,9 @@ bool weight_maps(const WeightKey& key, int gr, WeightMaps* out) {
   return true;
 }
 
-template <int BITS, int GS, int BT>
-int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
-                 size_t smem, cudaStream_t st) {
-  auto kern = qmm_wgmma_kernel<BITS, GS, BT>;
-  static size_t opted_in = 0;
+template <typename Kern>
+int launch_with(Kern kern, size_t& opted_in, const WeightMaps& wm, const CUtensorMap& xm,
+                const Args& a, dim3 grid, size_t smem, cudaStream_t st) {
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -858,6 +1494,20 @@ int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim
   if (threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
   kern<<<grid, threads, smem, st>>>(wm.q, wm.s, xm, a);
   return (int)cudaGetLastError();
+}
+
+template <int BITS, int GS, int BT>
+int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
+                 size_t smem, cudaStream_t st) {
+  static size_t opted_in = 0;
+  return launch_with(qmm_wgmma_kernel<BITS, GS, BT>, opted_in, wm, xm, a, grid, smem, st);
+}
+
+template <int BT, bool G128, typename OT>
+int launch_a8(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid, size_t smem,
+              cudaStream_t st) {
+  static size_t opted_in = 0;
+  return launch_with(qmm_a8_kernel<BT, G128, OT>, opted_in, wm, xm, a, grid, smem, st);
 }
 
 template <int BITS, int GS>
@@ -871,6 +1521,70 @@ int launch_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a
     case 128: return launch_wgmma<BITS, GS, 128>(wm, xm, a, grid, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <bool G128, typename OT>
+int launch_a8_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
+                 size_t smem, cudaStream_t st) {
+  switch (bt) {
+    case 16: return launch_a8<16, G128, OT>(wm, xm, a, grid, smem, st);
+    case 32: return launch_a8<32, G128, OT>(wm, xm, a, grid, smem, st);
+    case 64: return launch_a8<64, G128, OT>(wm, xm, a, grid, smem, st);
+    case 80: return launch_a8<80, G128, OT>(wm, xm, a, grid, smem, st);
+    case 128: return launch_a8<128, G128, OT>(wm, xm, a, grid, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The stages of K for `bits`-bit weights in groups of gs (a multiple of 16
+// that divides K): a.gr whole groups a stage where a group's weight rows
+// fit in one, else a.spg pieces a group; a.odd where neither divides the
+// other. The wrapper's plan (ops/quant_matmul.py::stage_plan) is the same.
+void plan_stages(Args& a, int bits, int K, int gs) {
+  const int rpg = bits == 4 ? gs / 2 : gs;
+  const int groups = K / gs;
+  if (rpg <= STAGE_ROWS) {
+    a.gr = STAGE_ROWS / rpg;
+    a.spg = 1;
+    a.total = (groups + a.gr - 1) / a.gr;
+  } else {
+    a.gr = 1;
+    a.spg = (rpg + STAGE_ROWS - 1) / STAGE_ROWS;
+    a.total = groups * a.spg;
+  }
+  a.odd = STAGE_ROWS % rpg != 0 && rpg % STAGE_ROWS != 0;
+}
+
+// What both entries set up alike: the stages, the ring's layout in shared
+// memory (per stage: the weight boxes, nbox x boxes of xbox_bytes, the
+// scale boxes), the weight's maps and the grid. Returns a cudaError_t code
+// (0: ready to launch).
+int prepare(Args& a, size_t& smem, WeightMaps& wm, dim3& grid, const void* q, const void* scale,
+            void* out, void* workspace, void* counters, int B, int K, int N, int gs, int bits,
+            int nwg_n, int nwg_b, int bx, int nbox, int xbox_bytes, int sps, int splits) {
+  const int bad = (int)cudaErrorInvalidValue;
+  a.out = out;
+  a.row_scale = nullptr;
+  a.ws = (float*)workspace;
+  a.counters = (int*)counters;
+  a.B = B; a.K = K; a.N = N; a.gs = gs; a.sps = sps; a.splits = splits;
+  a.nwg_n = nwg_n; a.nwg_b = nwg_b;
+  plan_stages(a, bits, K, gs);
+  if (sps < 1 || splits != (a.total + sps - 1) / sps) return bad;
+  if (splits > 1 && (workspace == nullptr || counters == nullptr)) return bad;
+  a.xbox_bytes = xbox_bytes;
+  a.off_x = nwg_n * W_BYTES;
+  a.off_sc = a.off_x + nbox * a.xbox_bytes;
+  const int sc_bytes = nwg_n * a.gr * COLS * 4;
+  a.stage_bytes = (a.off_sc + sc_bytes + 1023) / 1024 * 1024;
+  a.tx_bytes = nwg_n * W_BYTES + nbox * a.xbox_bytes + sc_bytes;
+  const int budget = 232448 - 1024 - 256 - 2 * MAX_STAGES * 8;
+  a.stages = min(MAX_STAGES, budget / a.stage_bytes);
+  if (a.stages < 2) return bad;
+  smem = 1024 + (size_t)a.stages * a.stage_bytes + 2 * a.stages * 8;
+  if (!weight_maps({q, scale, bits, K, N, gs}, a.gr, &wm)) return bad;
+  grid = dim3((N + COLS * nwg_n - 1) / (COLS * nwg_n), splits, (B + bx - 1) / bx);
+  return 0;
 }
 
 }  // namespace hop
@@ -931,14 +1645,13 @@ extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* s
 }
 
 // bf16 x [B, K] (16-byte aligned rows) and out [B, N]; q packed uint8
-// [K/2, N] (bits 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0.
-// gs % 16 == 0 and it divides, or is a multiple of, the stage's 128 (int4)
-// or 64 (int8) values of K. bt: the batch tile (16, 32, 64, 72 or 128);
-// nwg_n column and nwg_b batch warpgroups a block (bt * nwg_b <= 256; more
-// rows take more blocks along grid.z); sps stages a split and splits =
-// ceil(stages / sps); with splits > 1, workspace holds splits*B*N floats
-// and counters one zeroed int per output tile. One launch. Returns a
-// cudaError_t code.
+// [K/2, N] (bits 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0;
+// gs % 16 == 0 and it divides K. bt: the batch tile (16, 32, 64, 72 or
+// 128); nwg_n column and nwg_b batch warpgroups a block (bt * nwg_b <= 256;
+// more rows take more blocks along grid.z); sps stages a split and splits =
+// ceil(stages / sps) (stages as plan_stages counts them); with splits > 1,
+// workspace holds splits*B*N floats and counters one zeroed int per output
+// tile. One launch. Returns a cudaError_t code.
 extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const void* scale,
                                           void* out, void* workspace, void* counters, int B,
                                           int K, int N, int gs, int bits, int bt, int nwg_n,
@@ -949,43 +1662,75 @@ extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const vo
   if ((bits != 4 && bits != 8) || gs <= 0 || gs % 16 || K % gs || N % 16 || nwg_n < 1 ||
       nwg_b < 1)
     return bad;
-  const int sk = bits == 4 ? 128 : 64;  // values of K a stage holds
-  if (gs % sk && sk % gs) return bad;
-  const int rows = bits == 4 ? K / 2 : K;
-  const int total = (rows + STAGE_ROWS - 1) / STAGE_ROWS;
-  if (sps < 1 || splits != (total + sps - 1) / sps) return bad;
-  if (splits > 1 && (workspace == nullptr || counters == nullptr)) return bad;
   const int bx = bt * nwg_b;
   if (bx > 256) return bad;
-
   Args a;
-  a.out = (__nv_bfloat16*)out;
-  a.ws = (float*)workspace;
-  a.counters = (int*)counters;
-  a.B = B; a.K = K; a.N = N; a.gs = gs; a.sps = sps; a.total = total; a.splits = splits;
-  a.nwg_n = nwg_n; a.nwg_b = nwg_b;
-  a.gr = gs < sk ? sk / gs : 1;
-  const int nbox = bits == 4 ? 2 : 1;
-  a.xbox_bytes = bx * 128;
-  a.off_x = nwg_n * W_BYTES;
-  a.off_sc = a.off_x + nbox * a.xbox_bytes;
-  const int sc_bytes = nwg_n * a.gr * COLS * 4;
-  a.stage_bytes = (a.off_sc + sc_bytes + 1023) / 1024 * 1024;
-  a.tx_bytes = nwg_n * W_BYTES + nbox * a.xbox_bytes + sc_bytes;
-  const int budget = 232448 - 1024 - 256 - 2 * MAX_STAGES * 8;
-  a.stages = min(MAX_STAGES, budget / a.stage_bytes);
-  if (a.stages < 2) return bad;
-  const size_t smem = 1024 + (size_t)a.stages * a.stage_bytes + 2 * a.stages * 8;
-
+  size_t smem;
   WeightMaps wm;
+  dim3 grid;
+  const int rc = prepare(a, smem, wm, grid, q, scale, out, workspace, counters, B, K, N, gs, bits,
+                         nwg_n, nwg_b, bx, bits == 4 ? 2 : 1, bx * 128, sps, splits);
+  if (rc) return rc;
   CUtensorMap xm;
-  if (!weight_maps({q, scale, bits, K, N, gs}, a.gr, &wm) ||
-      !encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, B, (uint64_t)K * 2, 64, bx,
+  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, B, (uint64_t)K * 2, 64, bx,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return bad;
-  dim3 grid((N + COLS * nwg_n - 1) / (COLS * nwg_n), splits, (B + bx - 1) / bx);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 8) return launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
+  if (bits == 8)
+    return a.odd ? launch_bt<8, -1>(bt, wm, xm, a, grid, smem, st)
+                 : launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
   if (gs == 128) return launch_bt<4, 128>(bt, wm, xm, a, grid, smem, st);
-  return launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
+  return a.odd ? launch_bt<4, -1>(bt, wm, xm, a, grid, smem, st)
+               : launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
+}
+
+// W4A8: int8 x [B, K] with its f32 row scales [B] (multiplied into each
+// output row); out [B, N] f32 (out_bf16 0) or bf16 (1, rounded after the
+// row scale); q packed uint8 [K/2, N]; scale f32 [K/gs, N]; N % 16 == 0; gs
+// % 32 == 0 and it divides K. bt: 16, 32, 64, 80 or 128; the rest as
+// tpuserve_quant_matmul_bf16. One launch. Returns a cudaError_t code.
+extern "C" int tpuserve_quant_matmul_a8(const void* x, const void* q, const void* scale,
+                                        const void* row_scale, void* out, void* workspace,
+                                        void* counters, int B, int K, int N, int gs, int out_bf16,
+                                        int bt, int nwg_n, int nwg_b, int sps, int splits,
+                                        void* stream) {
+  using namespace hop;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B <= 0) return 0;
+  if (gs <= 0 || gs % 32 || K % gs || N % 16 || nwg_n < 1 || nwg_b < 1 || !row_scale) return bad;
+  const int bx = bt * nwg_b;
+  if (bx > 256) return bad;
+  Args a;
+  size_t smem;
+  WeightMaps wm;
+  dim3 grid;
+  const int rc = prepare(a, smem, wm, grid, q, scale, out, workspace, counters, B, K, N, gs, 4,
+                         nwg_n, nwg_b, bx, 2, bx * 64, sps, splits);
+  if (rc) return rc;
+  if (sps % a.spg) return bad;  // a split ends where a group does
+  a.row_scale = (const float*)row_scale;
+  CUtensorMap xm;
+  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, B, (uint64_t)K, 64, bx,
+              CU_TENSOR_MAP_SWIZZLE_64B))
+    return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!out_bf16)  // f32 activations: the general path serves g128 too
+    return launch_a8_bt<false, float>(bt, wm, xm, a, grid, smem, st);
+  return gs == 128 ? launch_a8_bt<true, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st)
+                   : launch_a8_bt<false, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st);
+}
+
+// x [B, K] float32 (x_kind 0) or bfloat16 (1) to int8 q [B, K] and f32
+// scale [B]. Returns a cudaError_t code.
+extern "C" int tpuserve_quantize_rows(const void* x, void* q, void* scale, int B, int K,
+                                      int x_kind, void* stream) {
+  if (B <= 0) return 0;
+  if (K <= 0 || (x_kind != 0 && x_kind != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_kind == 1)
+    quantize_rows_kernel<__nv_bfloat16><<<B, 256, 0, st>>>((const __nv_bfloat16*)x, (int8_t*)q,
+                                                           (float*)scale, K);
+  else
+    quantize_rows_kernel<float><<<B, 256, 0, st>>>((const float*)x, (int8_t*)q, (float*)scale, K);
+  return (int)cudaGetLastError();
 }

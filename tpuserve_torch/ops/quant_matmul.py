@@ -16,10 +16,14 @@ exact products and differs only in the order of f32 sums):
   per-group dots are integer with the -8 fold in int32, and the per-row
   activation scale multiplies the f32 output.
 
-bf16 activations take the Hopper kernel where its stages tile the group
-(`hopper_group_ok`); any other group (48, 80, 96, 112, ...) takes the
-CUDA-core kernel on x cast to f32, the same function (`bf16_route`, chosen
-by shape before the launch, counted in `group_route_launches`).
+bf16 activations take the Hopper kernel for every group of a multiple of
+16 values (`hopper_group_ok`; the groups its 64-row stages cannot tile,
+48, 80, 96, 112, ..., in stages cut along the groups, `stage_plan`); any
+other group takes the CUDA-core kernel on x cast to f32, the same function
+(`bf16_route`, chosen by shape before the launch, counted in
+`group_route_launches`). W4A8 takes the Hopper int8 kernel for groups of a
+multiple of 32 values and the CUDA-core __dp4a kernel for the rest
+(`w4a8_route`, counted in `w4a8_route_launches`).
 
 Leading dims of x are flattened into the batch and restored.
 """
@@ -34,8 +38,14 @@ from tpuserve_torch.quant.core import QTensor, quantize_activation, unpack_int4
 
 launches = 0  # CUDA kernel launches (the plain version does not count)
 # of those, bf16 activations served by the CUDA-core kernel on x cast to f32
-# (the group sizes the Hopper kernel's stages cannot tile; see bf16_route)
+# (groups of no multiple of 16 values; see bf16_route)
 group_route_launches = 0
+# bf16 activations on the Hopper kernel in stages cut along odd groups
+odd_group_launches = 0
+# W4A8 on the Hopper int8 kernel, and on the CUDA-core kernel (w4a8_route)
+w4a8_launches = 0
+w4a8_route_launches = 0
+quantize_launches = 0  # the row quantization kernel (quantize_rows), every W4A8 call
 
 
 def _group_size(qt: QTensor) -> int:
@@ -62,7 +72,11 @@ def quant_matmul_plain(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch
         dots = torch.einsum("bgk,gkn->bgn", xg, wg)                    # exact integers
         rsum = xg.sum(dim=2, keepdim=True)
         part = (dots - 8.0 * rsum).to(torch.float32)
-        out = (part * scale[None]).sum(dim=1)
+        # the groups added one after another in f32, as the kernel adds them
+        # within a K split (a split adds its partial sums in split order)
+        out = torch.zeros_like(part[:, 0])
+        for g in range(groups):
+            out = out + part[:, g] * scale[g]
         return (out * sx).to(out_dtype).reshape(*lead, n)
     xf = x2.to(torch.float32)
     xg = xf.reshape(-1, groups, gs)
@@ -77,6 +91,31 @@ def quant_matmul_plain(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch
     return out.to(out_dtype).reshape(*lead, n)
 
 
+def quantize_rows(x2: torch.Tensor):
+    """W4A8's activations, x [B, K] -> (int8 [B, K], f32 scales [B, 1]):
+    quantize_activation's function, by the row kernel
+    (csrc/quant_matmul.cu::quantize_rows_kernel, bitwise the same codes and
+    scales) for a tensor on the card, by quantize_activation itself (the
+    plain version) for one on the CPU."""
+    global quantize_launches
+    if not x2.is_cuda:
+        return quantize_activation(x2)
+    from tpuserve_torch import kernels
+
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        x2 = x2.to(torch.float32)  # exact, as quantize_activation's cast
+    x2 = x2.contiguous()
+    b, k = x2.shape
+    q = torch.empty((b, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((b, 1), dtype=torch.float32, device=x2.device)
+    rc = kernels.lib().tpuserve_quantize_rows(
+        x2.data_ptr(), q.data_ptr(), sx.data_ptr(), b, k, int(x2.dtype == torch.bfloat16),
+        kernels.stream_of(x2))
+    kernels.check(rc, "quantize_rows")
+    quantize_launches += 1
+    return q, sx
+
+
 def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
     k, n = qt.orig_shape
     gs = _group_size(qt)
@@ -86,9 +125,7 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
         if gs % 2 != 0:
             raise ValueError(f"quant_matmul kernel: int4 groups must be even, got {gs}")
         if qt.act_bits == 8:
-            half = gs // 2
-            if gs % 8 != 0 or half % min(half, 64) != 0:
-                raise ValueError(f"quant_matmul kernel: unsupported W4A8 group size {gs}")
+            w4a8_route(gs)
         if qt.q.dtype != torch.uint8 or tuple(qt.q.shape) != (k // 2, n):
             raise ValueError("quant_matmul kernel: int4 weight must be uint8 [K/2, N]")
     elif qt.bits == 8:
@@ -111,22 +148,41 @@ def _k_splits(b: int, n: int, groups: int, sms: int):
 
 
 # ---------------------------------------------------------------- bf16, Hopper
-_BATCH_TILES = (16, 32, 64, 72, 128)  # wgmma N widths the kernel is built for
+_BATCH_TILES = (16, 32, 64, 72, 128)  # wgmma N widths the bf16 kernel is built for
+_A8_TILES = (16, 32, 64, 80, 128)     # and the int8 one (integer wgmma has no n72)
+_STAGE_ROWS = 64       # weight rows a ring stage holds
 _COUNTERS = {}         # device index -> int32 per-tile counters, zero between calls
 _MAX_TILES = 1 << 16
 
 
-def _stage_k(bits: int) -> int:
-    """Values of K one ring stage of the Hopper kernel holds: 64 packed rows."""
-    return 128 if bits == 4 else 64
+def stage_plan(bits: int, k: int, gs: int):
+    """The Hopper kernels' stages of K for int`bits` weights in groups of
+    gs values (csrc/quant_matmul.cu::plan_stages): (gr, spg, total), either
+    gr whole groups a stage where a group's weight rows (gs/2 int4, gs
+    int8) fit in the 64 a stage holds, or spg stages (pieces of at most 64
+    rows) a group; total stages."""
+    rpg = gs // 2 if bits == 4 else gs
+    groups = k // gs
+    if rpg <= _STAGE_ROWS:
+        gr = _STAGE_ROWS // rpg
+        return gr, 1, -(-groups // gr)
+    spg = -(-rpg // _STAGE_ROWS)
+    return 1, spg, groups * spg
+
+
+def odd_group(bits: int, gs: int) -> bool:
+    """Whether the 64-row stage and the group's rows divide neither each
+    other (int4 48, 80, 96, 112, 144, ...; int8 48, 80, 96, ...): the stages
+    are then cut along the groups (stage_plan), counted in
+    odd_group_launches."""
+    rpg = gs // 2 if bits == 4 else gs
+    return _STAGE_ROWS % rpg != 0 and rpg % _STAGE_ROWS != 0
 
 
 def hopper_group_ok(bits: int, gs: int) -> bool:
-    """Whether the Hopper kernel takes this group size: a multiple of 16 that
-    divides, or is a multiple of, its stage's 128 (int4) or 64 (int8) values
-    of K, so that every stage holds whole groups or lies in one."""
-    sk = _stage_k(bits)
-    return gs % 16 == 0 and (gs % sk == 0 or sk % gs == 0)
+    """Whether the Hopper kernel takes this group size: any multiple of 16
+    values (a k16 step never straddles two groups)."""
+    return gs > 0 and gs % 16 == 0
 
 
 def bf16_route(bits: int, gs: int) -> str:
@@ -141,31 +197,57 @@ def bf16_route(bits: int, gs: int) -> str:
     return "wgmma" if hopper_group_ok(bits, gs) else "cuda_core"
 
 
-def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[int] = None):
-    """The Hopper kernel's launch for x [b, k] and a [k, n] weight:
-    (batch tile, column warpgroups, batch warpgroups, stages per split,
-    splits). The batch tile is wgmma's N; one block covers up to 256 rows,
-    so the weights are read once for b <= 256. K splits (in the same
+def w4a8_route(gs: int) -> str:
+    """The kernel that serves W4A8 (int4 weights, int8 x) in groups of gs:
+    "wgmma" (qmm_a8_kernel, int8 wgmma: every int32 flush falls on a k32
+    step) for gs % 32 == 0, else "cuda_core" (qmm_w4a8_kernel, which takes
+    gs % 8 == 0 with gs/2 at most 64 or a multiple of 64). Raises on a group
+    neither takes."""
+    if gs > 0 and gs % 32 == 0:
+        return "wgmma"
+    half = gs // 2
+    if gs > 0 and gs % 8 == 0 and half % min(half, 64) == 0:
+        return "cuda_core"
+    raise ValueError(f"quant_matmul kernel: unsupported W4A8 group size {gs}")
+
+
+def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[int] = None,
+                gs: int = 128, a8: bool = False):
+    """The Hopper kernels' launch for x [b, k] and a [k, n] weight in groups
+    of gs: (batch tile, column warpgroups, batch warpgroups, stages per
+    split, splits). The batch tile is wgmma's N; one block covers up to 256
+    rows, so the weights are read once for b <= 256. K splits (in the same
     launch) as far as the grid still fits one wave of one block per SM;
-    `block_k` (the K range one block walks, a multiple of the stage) sets
-    the split instead."""
+    `block_k` (the K range one block walks: a multiple of the stage's K, or
+    of the group where the stages cut odd groups into pieces) sets the
+    split instead. a8 (W4A8, qmm_a8_kernel): the int8 batch tiles, and a
+    split ends only where a group does, so that every group's int32 sum is
+    whole before its scale."""
+    tiles = _A8_TILES if a8 else _BATCH_TILES
     if b <= 128:
         nwg_b, per = 1, b
     else:
         nwg_b, per = 2, -(-min(b, 256) // 2)
-    bt = next(t for t in _BATCH_TILES if t >= per)
+    bt = next(t for t in tiles if t >= per)
     nwg_n = 2 if nwg_b == 1 else 1
-    sk = _stage_k(bits)
-    total = -(-k // sk)
+    gr, spg, total = stage_plan(bits, k, gs)
     if block_k is not None:
-        if block_k <= 0 or block_k % sk:
-            raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of {sk}")
-        sps = min(total, block_k // sk)
+        if spg == 1:                      # gr whole groups a stage
+            unit, unit_stages = gr * gs, 1
+        elif not odd_group(bits, gs):     # every stage 64 rows of one group
+            unit, unit_stages = _STAGE_ROWS * (2 if bits == 4 else 1), 1
+        else:                             # a group's spg pieces
+            unit, unit_stages = gs, spg
+        if block_k <= 0 or block_k % unit:
+            raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of {unit}")
+        sps = min(total, block_k // unit * unit_stages)
     else:
-        tiles = -(-n // (64 * nwg_n)) * -(-b // (bt * nwg_b))
+        n_tiles = -(-n // (64 * nwg_n)) * -(-b // (bt * nwg_b))
         # one wave: a block fills an SM's shared memory
-        want = max(1, min(total, sms // tiles))
+        want = max(1, min(total, sms // n_tiles))
         sps = -(-total // want)
+    if a8 and spg > 1:
+        sps = -(-sps // spg) * spg
     return bt, nwg_n, nwg_b, sps, -(-total // sps)
 
 
@@ -176,7 +258,11 @@ def _counters(device) -> torch.Tensor:
     return _COUNTERS[idx]
 
 
-def _launch_hopper(x2, q, scale, out, qt, gs, block_k):
+def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None):
+    """qmm_wgmma_kernel (bf16 x), or qmm_a8_kernel (row_scale given: W4A8,
+    int8 x, its row scales multiplied into the f32 or bf16 out), K split in
+    the same launch."""
+    a8 = row_scale is not None
     from tpuserve_torch import kernels
 
     b, k = x2.shape
@@ -186,17 +272,24 @@ def _launch_hopper(x2, q, scale, out, qt, gs, block_k):
     if q.data_ptr() % 16 or scale.data_ptr() % 16:
         q, scale = q.clone(), scale.clone()
     bt, nwg_n, nwg_b, sps, splits = hopper_plan(b, k, n_pad, qt.bits, kernels.sm_count(x2.device),
-                                                block_k)
+                                                block_k, gs, a8)
     ws = cnt = None
     if splits > 1:
         if -(-n_pad // (64 * nwg_n)) * -(-b // (bt * nwg_b)) > _MAX_TILES:
             raise ValueError("quant_matmul kernel: too many output tiles to split K")
         ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device)
         cnt = _counters(x2.device)
-    rc = kernels.lib().tpuserve_quant_matmul_bf16(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr(),
-        b, k, n_pad, gs, qt.bits, bt, nwg_n, nwg_b, sps, splits, kernels.stream_of(x2))
+    ptrs = (x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr())
+    if a8:
+        rc = kernels.lib().tpuserve_quant_matmul_a8(
+            *ptrs[:3], row_scale.data_ptr(), *ptrs[3:], b, k, n_pad, gs,
+            int(out.dtype == torch.bfloat16), bt, nwg_n, nwg_b, sps, splits,
+            kernels.stream_of(x2))
+    else:
+        rc = kernels.lib().tpuserve_quant_matmul_bf16(
+            *ptrs, b, k, n_pad, gs, qt.bits, bt, nwg_n, nwg_b, sps, splits,
+            kernels.stream_of(x2))
     kernels.check(rc, "quant_matmul")
 
 
@@ -232,7 +325,8 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     quant_matmul) is the K range one block walks, which sets the K split;
     None lets the wrapper choose. It changes no value beyond the order of
     f32 sums, and the plain version ignores it."""
-    global launches, group_route_launches
+    global launches, group_route_launches, odd_group_launches, w4a8_launches
+    global w4a8_route_launches
     if not x.is_cuda:
         return quant_matmul_plain(x, qt, out_dtype=out_dtype)
     k, n = qt.orig_shape
@@ -246,7 +340,7 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     act_int8 = qt.bits == 4 and qt.act_bits == 8
     sx = None
     if act_int8:
-        x2, sx = quantize_activation(x2)
+        x2, sx = quantize_rows(x2)
         x_kind = 2
     elif x2.dtype == torch.bfloat16:
         x_kind = 1
@@ -261,20 +355,34 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
         q = torch.nn.functional.pad(q, (0, n_pad - n))
         scale = torch.nn.functional.pad(scale, (0, n_pad - n))
     gs = _group_size(qt)
-    out = torch.empty((b, n_pad), dtype=torch.float32 if x_kind != 1 else torch.bfloat16,
-                      device=x2.device)
-    route = bf16_route(qt.bits, gs) if x_kind == 1 else "cuda_core"
+    if x_kind == 1:
+        route = bf16_route(qt.bits, gs)
+    elif x_kind == 2:
+        route = w4a8_route(gs)
+    else:
+        route = "cuda_core"
+    # W4A8 on int8 wgmma writes out_dtype's bf16 itself, the row scale in
+    out_kind = torch.bfloat16 if x_kind == 1 or (
+        x_kind == 2 and route == "wgmma" and out_dtype == torch.bfloat16) else torch.float32
+    out = torch.empty((b, n_pad), dtype=out_kind, device=x2.device)
     if route == "wgmma":
-        _launch_hopper(x2, q, scale, out, qt, gs, block_k)
-    elif x_kind == 1:   # a group the Hopper kernel's stages cannot tile
+        _launch_hopper(x2, q, scale, out, qt, gs, block_k, sx if x_kind == 2 else None)
+        if x_kind == 2:
+            w4a8_launches += 1
+            sx = None   # applied in the kernel
+        elif odd_group(qt.bits, gs):
+            odd_group_launches += 1
+    elif x_kind == 1:   # a group of no multiple of 16 values
         out = torch.empty((b, n_pad), dtype=torch.float32, device=x2.device)
         _launch_cuda_core(x2.to(torch.float32), q, scale, out, qt.bits, gs, 0, block_k)
         group_route_launches += 1
     else:
         _launch_cuda_core(x2, q, scale, out, qt.bits, gs, x_kind, block_k)
+        if x_kind == 2:
+            w4a8_route_launches += 1
     launches += 1
     if n_pad != n:
         out = out[:, :n]
-    if act_int8:
+    if sx is not None:
         out = out * sx
     return out.to(out_dtype).reshape(*lead, n)
