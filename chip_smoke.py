@@ -20,13 +20,16 @@ Phases, each fatal on failure:
               through the kernels and through the plain versions must agree;
   4b. w4a8   the slice's configuration with activations int8 (random bf16
               weights from a seed, quantized at load: W4A8 on the int8
-              wgmma kernel) and then 4c. odd, the same with int4 groups of
-              688 (w_down's groups, which a 64-row stage cannot tile; the
-              weights of K 4096 then have one group each): 4 concurrent
-              greedy requests of 16 new tokens, the route's launch count,
-              one full-width decode step against the plain versions (greedy
-              tokens equal where the top two logits are apart), one
-              profiled step with the quant-matmul's share of device time;
+              wgmma kernel); 4c. odd, the same with int4 groups of 688
+              (w_down's groups, which a 64-row stage cannot tile; the
+              weights of K 4096 then have one group each); 4d. g344, groups
+              of 344 (w_down's, in masked k16 steps), and 4e. w4a8-g344,
+              the same with activations int8 (masked k32 steps): 4
+              concurrent greedy requests of 16 new tokens each, every route
+              counter exact, one full-width decode step against the plain
+              versions (greedy tokens equal where the top two logits are
+              apart), one profiled step with the quant-matmul's share of
+              device time;
   5. paged    the same model with paged int8 KV (page_size 128, prefix
               sharing, prefill_chunk 128), loaded after the first is shut
               down: concurrent requests, two of them sharing a 128-token
@@ -76,8 +79,13 @@ versions; the quant-matmul at B=64 (a decode step), B=72 (a verify step)
 and W4A8 at B=64 with a per-step line each, two calls bitwise equal,
 torch.matmul on the dequantized weights beside every case (W4A8 also
 torch._int_mm), groups a 64-row stage cannot tile (int4 48, 80, 96, 112,
-688; int8 96) on the wgmma kernel and a bf16 group of 40 and a W4A8 group
-of 48 on the CUDA-core kernels, each route's counter checked; the
+688; int8 96) on the wgmma kernel, bf16 groups of no multiple of 16 (int4
+40, 24; int8 40) and W4A8 groups of no multiple of 32 (48, 20, 136, 12) in
+masked steps, per-channel int4 at K 4096, each route's counter checked;
+the masked steps' x layout (stage_x for bf16 x, the row quantization's
+codes written in it for W4A8) bitwise against its plain gather; f32 x on
+the CUDA-core kernel beside torch.matmul in f32, and W8A8 (a float64
+torch.matmul) beside torch._int_mm, as records; the
 multi-candidate kernel also on a bf16 cache beside SDPA; and the flat,
 multi and grouped (int8 and packed int4) kernels under
 TPUSERVE_ATTN_DYNSKIP=0 against =1.
@@ -256,10 +264,12 @@ def check_quant_matmul(torch, timer, reps, p):
     48, 80, 96, 112, 688; int8 96) on the wgmma kernel, with each call
     repeated for bitwise-equal outputs (split K adds in a fixed order);
     torch.matmul on the dequantized bf16 weights beside every case (W4A8:
-    also torch._int_mm on the int8 x and codes); per-step totals of the
-    kernel, its bound and torch.matmul at B=64 and 72 and for W4A8; a bf16
-    group of no multiple of 16 and a W4A8 group of no multiple of 32 still
-    on their CUDA-core kernels."""
+    also torch._int_mm on the int8 x and codes, and the kernel alone);
+    per-step totals of the kernel, its bound and torch.matmul at B=64 and 72
+    and for W4A8; bf16 groups of no multiple of 16 (int4 40 and 24, int8
+    40) and W4A8 groups of no multiple of 32 (48, 20, 136, 12) in masked
+    steps on the Hopper kernels; per-channel int4 at the K-4096 shapes;
+    every route's counter checked."""
     from tpuserve_torch.ops import quant_matmul as tqm
     from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
     from tpuserve_torch.quant.core import dequantize, quantize_activation, unpack_int4
@@ -294,11 +304,22 @@ def check_quant_matmul(torch, timer, reps, p):
            ("wo", (4032, p.dim), 0, 4, 0, 64, 112, None, "odd"),
            ("wo", (4032, p.dim), 0, 8, 0, 64, 96, None, "odd"),
            ("w_down", shapes["w_down"][0], 0, 4, 0, 64, 688, None, "odd")]
-    # groups the wgmma kernels do not take keep their CUDA-core kernels:
-    # bf16 x in groups of 40 (K = 4000), W4A8 in groups of 48
+    # groups whose k-steps cross a group's end, in masked steps on the
+    # Hopper kernels: bf16 x in groups of no multiple of 16 (int4 40 and 24,
+    # int8 40), W4A8 in groups of no multiple of 32 (48, 20, 136, 12; K the
+    # nearest to dim 4096 that the group divides)
     routed_cases = [("wo", (4000, p.dim), 0, 4, 0, 64, 40, None, "group_route"),
-                    ("wo", (4032, p.dim), 0, 4, 8, 64, 48, None, "w4a8_route")]
-    cases += odd + routed_cases
+                    ("wo", (4032, p.dim), 0, 4, 8, 64, 48, None, "w4a8_route"),
+                    ("wo", (4000, p.dim), 0, 4, 8, 64, 20, None, "w4a8_route"),
+                    ("wo", (4080, p.dim), 0, 4, 8, 64, 136, None, "w4a8_route"),
+                    ("wo", (4032, p.dim), 0, 4, 8, 64, 12, None, "w4a8_route"),
+                    ("wo", (4032, p.dim), 0, 4, 0, 64, 24, None, "group_route"),
+                    ("wo", (4000, p.dim), 0, 8, 0, 64, 40, None, "group_route")]
+    # per-channel int4 with bf16 x (one group of K, in pieces of one group):
+    # a record of the route, no counter of its own
+    channel = [(name, shapes[name][0], 0, 4, 0, 64, shapes[name][0][0], None, "channel")
+               for name in ("wqkv", "wo", "w_gateup")]
+    cases += odd + routed_cases + channel
     counters = ("group_route_launches", "odd_group_launches", "w4a8_launches",
                 "w4a8_route_launches")
     counts0 = {c: getattr(tqm, c) for c in counters}
@@ -338,7 +359,7 @@ def check_quant_matmul(torch, timer, reps, p):
         ops = 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, ops, PEAK_OPS["int8" if act_bits == 8 else "bf16"])
-        if step_name in ("decode", "w4a8") or route == "odd":  # the plain version at B=64
+        if step_name in ("decode", "w4a8") or route not in ("wgmma", "w4a8"):  # plain at B=64
             row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
                                        max(2, reps // 5))
         # the library yardstick: torch.matmul on the dequantized bf16 weights
@@ -354,9 +375,12 @@ def check_quant_matmul(torch, timer, reps, p):
             xq, sx = quantize_activation(x)
             outb = torch.empty((b, n), dtype=torch.bfloat16, device="cuda")
             gsz = gs if gs < k else k
+            # the codes as the kernel reads them (a masked group's laid out)
+            xk = tqm.quantize_rows(x, tqm.stage_index(4, k, gsz, x.device)
+                                   if tqm.masked_group(gsz, a8=True) else None)[0]
             row["kernel_ms"] = timer.ms(lambda i: tqm._launch_hopper(
-                xq, qts[i % copies].q, qts[i % copies].scale, outb, qts[i % copies], gsz, None,
-                sx), reps) if route == "w4a8" else None
+                xk, qts[i % copies].q, qts[i % copies].scale, outb, qts[i % copies], gsz, None,
+                sx), reps) if route in ("w4a8", "w4a8_route") else None
             codes_t = [unpack_int4(t.q, gsz).t().contiguous() for t in qts]
             row["int_mm_ms"] = timer.ms(lambda i: torch._int_mm(xq, codes_t[i % copies].t()),
                                         reps)
@@ -395,6 +419,14 @@ def check_quant_matmul(torch, timer, reps, p):
     log(f"[kernel] quant_matmul route launches in this check: {routed}")
     odd_rows = [r for r in rows if r["route"] == "odd"]
     main_odd = odd_rows[0]                      # wo int4 g96
+
+    def route_entry(route, per):                # the route's first case and its worst error
+        rs = [r for r in rows if r["route"] == route]
+        return dict(max_abs_err=max(r["max_abs_err"] for r in rs), ms=rs[0]["ms"],
+                    plain_ms=rs[0]["plain_ms"], bound_ms=rs[0]["bound_ms"],
+                    bound_by=rs[0]["bound_by"], library_ms=rs[0]["library_ms"],
+                    int_mm_ms=rs[0].get("int_mm_ms"), kernel_ms=rs[0].get("kernel_ms"), per=per)
+
     w4 = steps["w4a8"]
     return dict(max_abs_err=worst, ms=dec["ms"], plain_ms=dec["plain_ms"],
                 bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
@@ -412,40 +444,173 @@ def check_quant_matmul(torch, timer, reps, p):
                          plain_ms=main_odd["plain_ms"], bound_ms=main_odd["bound_ms"],
                          bound_by=main_odd["bound_by"], library_ms=main_odd["library_ms"],
                          per="one call: wo K=4032 N=4096 int4 g96, B=64 bf16"),
+                group_route=route_entry("group_route",
+                                        "one call: wo K=4000 N=4096 int4 g40, B=64 bf16"),
+                w4a8_route=route_entry("w4a8_route",
+                                       "one call: wo K=4032 N=4096 int4 g48 x int8, B=64"),
                 route_launches=routed, cases=rows)
+
+
+def check_quant_records(torch, timer, reps, p):
+    """Records of two quant-matmul routes no phase of this script serves,
+    numbers only: f32 x on qmm_f32_kernel at wo's shape (int4 g128, B=64)
+    against its plain version (within 1e-5 of the largest output) and
+    torch.matmul in f32 with TF32 off; W8A8 (int8 weights per channel, int8
+    x: quant/core.py::_w8a8_matmul, the port's float64 torch.matmul) at the
+    five 7B shapes against torch._int_mm on the same codes, whose int32 sums
+    scaled alike must give the same bits."""
+    from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from tpuserve_torch.quant.core import _w8a8_matmul, dequantize, quantize_activation
+
+    b = 64
+    k, n = p.n_heads * p.head_dim, p.dim
+    qt = _qt_random(torch, 4, k, n, 128)
+    copies = max(1, math.ceil(L2_FLUSH_BYTES / qt.nbytes))
+    qts = [qt] + [_qt_random(torch, 4, k, n, 128) for _ in range(copies - 1)]
+    x = torch.randn((b, k), device="cuda")
+    out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-5 * ref.abs().max().item()
+    if not err <= tol:
+        fail(f"quant_matmul f32 x: max|err| {err} > {tol}")
+    wd = [dequantize(t, torch.float32) for t in qts[:max(1, math.ceil(L2_FLUSH_BYTES /
+                                                                     (k * n * 4)))]]
+    f32 = dict(name="wo", K=k, N=n, B=b, max_abs_err=err, tol=tol,
+               ms=timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps),
+               plain_ms=timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
+                                 max(2, reps // 5)),
+               library_ms=timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps))
+    f32["bound_ms"], f32["bound_by"] = bound(b * k * 4 + qt.nbytes + b * n * 4, 2.0 * b * k * n,
+                                             PEAK_OPS["f32"])
+    log(f"[kernel] quant_matmul f32 x wo K={k} N={n} B={b} int4 g128 (qmm_f32_kernel): max|err| "
+        f"{err:.3g} (tol {tol:.3g}); {f32['ms']:.4f} ms, bound {f32['bound_ms']:.4f} ms "
+        f"({f32['bound_by']}), plain {f32['plain_ms']:.4f} ms, torch.matmul f32 (TF32 off) "
+        f"{f32['library_ms']:.4f} ms")
+    del qts, wd
+
+    qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
+    shapes = {"wqkv": ((p.dim, qd + 2 * kvd), p.n_layers), "wo": ((qd, p.dim), p.n_layers),
+              "w_gateup": ((p.dim, 2 * p.ffn_dim), p.n_layers),
+              "w_down": ((p.ffn_dim, p.dim), p.n_layers), "lm_head": ((p.dim, p.vocab_size), 1)}
+    w8a8, step = [], dict(ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    for name, ((k, n), per) in shapes.items():
+        qt = _qt_random(torch, 8, k, n, k, act_bits=8)
+        qt.group_size = 0
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / qt.nbytes))
+        qts = [qt] + [dataclasses.replace(_qt_random(torch, 8, k, n, k, act_bits=8),
+                                          group_size=0) for _ in range(copies - 1)]
+        x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
+        xq, sx = quantize_activation(x)
+        out = _w8a8_matmul(x, qt)
+        acc = torch._int_mm(xq, qt.q.t().contiguous().t())
+        ref = (acc.to(torch.float32) * sx * qt.scale[0][None, :]).to(x.dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"W8A8 {name}: _w8a8_matmul differs from torch._int_mm's sums scaled alike")
+        codes_t = [t.q.t().contiguous() for t in qts]
+        row = dict(name=name, K=k, N=n, B=b,
+                   ms=timer.ms(lambda i: _w8a8_matmul(x, qts[i % copies]), max(2, reps // 5)),
+                   library_ms=timer.ms(lambda i: torch._int_mm(xq, codes_t[i % copies].t()),
+                                       reps))
+        nbytes, ops = b * k * 2 + qt.nbytes + b * n * 2, 2.0 * b * k * n
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, PEAK_OPS["int8"])
+        for key in ("ms", "library_ms"):
+            step[key] += per * row[key]
+        step["bytes"] += per * nbytes
+        step["ops"] += per * ops
+        w8a8.append(row)
+        log(f"[kernel] W8A8 {name} K={k} N={n} B={b} (_w8a8_matmul, float64 torch.matmul): equal "
+            f"to torch._int_mm's sums; {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), torch._int_mm {row['library_ms']:.4f} ms")
+        del qts, codes_t
+        torch.cuda.empty_cache()
+    step["bound_ms"], step["bound_by"] = bound(step["bytes"], step["ops"], PEAK_OPS["int8"])
+    log(f"[kernel] W8A8 per decode step (B=64, 129 calls): {step['ms']:.3f} ms, bound "
+        f"{step['bound_ms']:.3f} ms, torch._int_mm {step['library_ms']:.3f} ms")
+    return dict(f32=f32, w8a8=w8a8, w8a8_step=step)
 
 
 def check_quantize_rows(torch, timer, reps, p):
     """W4A8's row quantization kernel at the decode step's shapes (B=64;
     K = dim and ffn_dim, bf16 x; one row of zeros) against
-    quantize_activation, its plain version: codes and scales bitwise equal.
-    No single PyTorch call computes it (library: none)."""
-    from tpuserve_torch.ops.quant_matmul import quantize_rows
+    quantize_activation, its plain version: codes and scales bitwise equal;
+    and at w_down's width in groups of 344 ([w4a8-g344]'s masked route),
+    its codes written in the masked steps' layout, against the plain codes
+    gathered alike. No single PyTorch call computes it (library: none)."""
+    from tpuserve_torch.ops.quant_matmul import _gather, quantize_rows, stage_index
     from tpuserve_torch.quant.core import quantize_activation
 
     rows, main = [], None
-    for k in (p.dim, p.ffn_dim):
+    for k, gs in ((p.dim, 0), (p.ffn_dim, 0), (p.ffn_dim, 344)):
         b = 64
+        index = stage_index(4, k, gs, "cuda") if gs else None
+        w = k if index is None else index.numel()
         copies = max(1, math.ceil(L2_FLUSH_BYTES / (b * k * 3)))
         xs = [torch.randn((b, k), device="cuda").to(torch.bfloat16) for _ in range(copies)]
         xs[0][5] = 0
-        q, sx = quantize_rows(xs[0])
-        ref_q, ref_s = quantize_activation(xs[0])
+
+        def plain(x):
+            q, sx = quantize_activation(x)
+            return (q if index is None else _gather(q, index)), sx
+
+        q, sx = quantize_rows(xs[0], index)
+        ref_q, ref_s = plain(xs[0])
         torch.cuda.synchronize()
         if not (torch.equal(q, ref_q) and torch.equal(sx, ref_s)):
-            fail(f"quantize_rows K={k}: codes or scales differ from quantize_activation")
-        ms = timer.ms(lambda i: quantize_rows(xs[i % copies]), reps)
-        plain_ms = timer.ms(lambda i: quantize_activation(xs[i % copies]), reps)
-        b_ms, b_by = bound(b * k * 2 + b * k + b * 4, 3.0 * b * k, PEAK_OPS["f32"])
-        row = dict(B=b, K=k, max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
+            fail(f"quantize_rows K={k} g{gs}: codes or scales differ from quantize_activation")
+        ms = timer.ms(lambda i: quantize_rows(xs[i % copies], index), reps)
+        plain_ms = timer.ms(lambda i: plain(xs[i % copies]), reps)
+        b_ms, b_by = bound(b * k * 2 + b * w + b * 4 + (0 if index is None else w * 4),
+                           3.0 * b * k, PEAK_OPS["f32"])
+        row = dict(B=b, K=k, group_size=gs, max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
         main = main or row
         rows.append(row)
-        log(f"[kernel] quantize_rows B={b} K={k} bf16: codes and scales bitwise equal to "
-            f"quantize_activation; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+        log(f"[kernel] quantize_rows B={b} K={k} bf16" + (f", codes laid out for g{gs}" if gs
+                                                          else "")
+            + f": codes and scales bitwise equal to quantize_activation"
+            + (" gathered alike" if gs else "") + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
         del xs
     return dict(main, per=f"one call: B=64, K={p.dim}, bf16 x", cases=rows)
+
+
+def check_stage_x(torch, timer, reps, p):
+    """The masked steps' x gather (bf16 x laid out a stage at a time, so
+    that every TMA box starts 16-byte aligned) at wo's width in groups of 40
+    and w_down's in groups of 344 ([g344]'s masked route), B=64, against
+    its plain version (pad, then index_select): bitwise equal. Library:
+    torch.index_select on x padded beforehand."""
+    from tpuserve_torch.ops.quant_matmul import _gather, stage_index, stage_x
+
+    rows = []
+    for name, k, gs in (("wo", 4000, 40), ("w_down", p.ffn_dim, 344)):
+        b = 64
+        index = stage_index(4, k, gs, "cuda")
+        w = index.numel()
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / (b * (k + w) * 2)))
+        xs = [torch.randn((b, k), device="cuda").to(torch.bfloat16) for _ in range(copies)]
+        out, ref = stage_x(xs[0], index), _gather(xs[0], index)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+            fail(f"stage_x {name} g{gs}: not bitwise equal to its plain gather")
+        padded = [torch.nn.functional.pad(x, (0, 1)) for x in xs]
+        il = index.long()
+        row = dict(name=name, B=b, K=k, group_size=gs, W=w, max_abs_err=0.0, tol=0.0,
+                   ms=timer.ms(lambda i: stage_x(xs[i % copies], index), reps),
+                   plain_ms=timer.ms(lambda i: _gather(xs[i % copies], index), reps),
+                   library_ms=timer.ms(lambda i: torch.index_select(padded[i % copies], 1, il),
+                                       reps))
+        row["bound_ms"], row["bound_by"] = bound(b * k * 2 + w * 4 + b * w * 2, 0.0,
+                                                 PEAK_OPS["f32"])
+        rows.append(row)
+        log(f"[kernel] stage_x {name} K={k} g{gs} B={b} -> {w} values a row: bitwise equal to its "
+            f"plain gather; {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']:.4f} ms, torch.index_select on x padded "
+            f"beforehand {row['library_ms']:.4f} ms")
+        del xs, padded
+    return dict(rows[1], per="one call: w_down K=11008 g344, B=64 bf16 x", cases=rows)
 
 
 def check_decode_attention(torch, timer, reps, p):
@@ -1256,7 +1421,9 @@ def check_diag_copy(torch, timer, reps):
 def phase_kernels(torch, timer, reps, p):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
+    results["quant_records"] = check_quant_records(torch, timer, reps, p)
     results["quantize_rows"] = check_quantize_rows(torch, timer, reps, p)
+    results["stage_x"] = check_stage_x(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
@@ -1535,14 +1702,18 @@ def phase_slice(torch, p, smi_line):
                 load_s=load_s, qmatmul_xla=xla)
 
 
-def phase_quant_route(torch, p, smi_line, tag, quant, counter):
+def phase_quant_route(torch, p, smi_line, tag, quant, per_call):
     """The slice's configuration with `quant` (W4A8: activations int8;
-    odd: int4 in groups of 688, which a 64-row stage cannot tile; the
-    weights of K = 4096 then have one group, per channel), its weights
-    random bf16 from a seed and quantized at load, the path a checkpoint
-    takes (init random_quantized makes codes directly and, as the JAX
-    package's, leaves activations out). 4 concurrent greedy requests of 16
-    new tokens; the route's counter must show every launch it should take;
+    odd: int4 in groups of 688, which a 64-row stage cannot tile; g344:
+    groups of 344 = 11008 / 32, w_down's, in masked k16 steps, with bf16 x
+    or, w4a8-g344, int8 x in masked k32 steps; the weights of K = 4096 then
+    have one group, per channel), its weights random bf16 from a seed and
+    quantized at load, the path a checkpoint takes (init random_quantized
+    makes codes directly and, as the JAX package's, leaves activations
+    out). 4 concurrent greedy requests of 16 new tokens; each route
+    counter must show exactly the launches `per_call` gives it for every
+    decode step and prefill call, every other route counter none, and the
+    row quantization one for every W4A8 launch;
     one full-width decode step through the kernels against the plain
     versions, through one layer (logits within 5% of their range) and all
     32 (greedy tokens equal wherever the top two logits are further apart
@@ -1575,7 +1746,7 @@ def phase_quant_route(torch, p, smi_line, tag, quant, counter):
             errors.append(f"request {i}: {e}")
 
     counters = ("launches", "group_route_launches", "odd_group_launches", "w4a8_launches",
-                "w4a8_route_launches", "quantize_launches")
+                "w4a8_route_launches", "stage_launches", "quantize_launches")
     for c in counters:          # the path's run starts here
         setattr(tqm, c, 0)
     steps0, prefills0 = engine.steps, engine.prefill_calls
@@ -1593,15 +1764,15 @@ def phase_quant_route(torch, p, smi_line, tag, quant, counter):
     if any(r["num_generated"] != 16 for r in results):
         fail(f"[{tag}] a request did not generate 16 tokens")
     calls = engine.steps - steps0 + engine.prefill_calls - prefills0
-    per_call = 4 * p.n_layers + 1 if counter == "w4a8_launches" else p.n_layers
-    want = per_call * calls
+    want = {c: per_call.get(c, 0) * calls for c in counters[1:-2]}
+    want["launches"] = (4 * p.n_layers + 1) * calls
+    want["stage_launches"] = want["group_route_launches"]   # bf16 x laid out for each
+    want["quantize_launches"] = want["w4a8_launches"] + want["w4a8_route_launches"]
     log(f"[{tag}] {len(prompts)} concurrent greedy requests, 16 new tokens each, in "
         f"{wall:.2f} s; decode steps {engine.steps - steps0}, prefill calls "
-        f"{engine.prefill_calls - prefills0}; quant_matmul launches {counts} (expected {counter} "
+        f"{engine.prefill_calls - prefills0}; quant_matmul launches {counts} (expected "
         f"{want}); load {load_s:.1f} s")
-    if (counts[counter] != want or counts["group_route_launches"]
-            or counts["w4a8_route_launches"]
-            or counts["quantize_launches"] != counts["w4a8_launches"]):
+    if counts != want:
         fail(f"[{tag}] route launches do not match the path's calls")
 
     cache = engine.cache
@@ -1660,7 +1831,7 @@ def phase_quant_route(torch, p, smi_line, tag, quant, counter):
             f"{busy['busy_ms']:.3f} ms device time ({100 * qmm_ms / busy['busy_ms']:.1f}%), the "
             f"row quantization {quant_ms:.3f} ms; card {smi_line}")
     mgr.shutdown()
-    return dict(launches=counts, want={counter: want}, load_s=load_s, wall_s=wall,
+    return dict(launches=counts, want=want, load_s=load_s, wall_s=wall,
                 full_step=depths, profile=busy, qmm_ms=qmm_ms, quantize_ms=quant_ms)
 
 
@@ -2515,14 +2686,28 @@ def main() -> None:
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
     w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
-                                 "w4a8_launches")
+                                 {"w4a8_launches": 4 * p.n_layers + 1})
     results["quant_matmul_w4a8"] = dict(results["quant_matmul"]["w4a8"],
                                         launches=w4a8_res["launches"]["w4a8_launches"])
     results["quantize_rows"]["launches"] = w4a8_res["launches"]["quantize_launches"]
     odd_res = phase_quant_route(torch, p, smi_line, "odd", {"group_size": 688},
-                                "odd_group_launches")
+                                {"odd_group_launches": p.n_layers})
     results["quant_matmul_odd_groups"] = dict(results["quant_matmul"]["odd"],
                                               launches=odd_res["launches"]["odd_group_launches"])
+    # w_down in groups of 344 (11008 / 32), the rest per channel: masked
+    # k16 steps with bf16 x, masked k32 steps with int8 x
+    g344_res = phase_quant_route(torch, p, smi_line, "g344", {"group_size": 344},
+                                 {"group_route_launches": p.n_layers})
+    results["quant_matmul_group_route"] = dict(
+        results["quant_matmul"]["group_route"],
+        launches=g344_res["launches"]["group_route_launches"])
+    results["stage_x"]["launches"] = g344_res["launches"]["stage_launches"]
+    w4a8_g344_res = phase_quant_route(
+        torch, p, smi_line, "w4a8-g344", {"group_size": 344, "activations": "int8"},
+        {"w4a8_launches": 3 * p.n_layers + 1, "w4a8_route_launches": p.n_layers})
+    results["quant_matmul_w4a8_route"] = dict(
+        results["quant_matmul"]["w4a8_route"],
+        launches=w4a8_g344_res["launches"]["w4a8_route_launches"])
     paged_res = phase_paged_slice(torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
@@ -2556,6 +2741,15 @@ def main() -> None:
                "quant_matmul_odd_groups": ("tpuserve_torch/csrc/quant_matmul.cu",
                                            "tpuserve/ops/quant_matmul.py:40 (_kernel, int4 and "
                                            "int8 branches :84-110)"),
+               "quant_matmul_group_route": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                            "tpuserve/ops/quant_matmul.py:40 (_kernel, int4 and "
+                                            "int8 branches :84-110)"),
+               "quant_matmul_w4a8_route": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                           "tpuserve/ops/quant_matmul.py:40 (_kernel, act_int8 "
+                                           "branch :65-83)"),
+               "stage_x": ("tpuserve_torch/csrc/quant_matmul.cu",
+                           "tpuserve/ops/quant_matmul.py:40 (x read through _kernel's BlockSpec; "
+                           "no Pallas kernel of its own)"),
                "quantize_rows": ("tpuserve_torch/csrc/quant_matmul.cu",
                                  "tpuserve/quant/core.py:166 (quantize_activation, left to XLA "
                                  "there: no Pallas kernel)"),
@@ -2610,6 +2804,7 @@ def main() -> None:
                    "build_log": build.log, "kernels": results, "slice": slice_res,
                    "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
                    "grouped": grouped_res, "w4a8": w4a8_res, "odd": odd_res,
+                   "g344": g344_res, "w4a8_g344": w4a8_g344_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,

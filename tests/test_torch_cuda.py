@@ -847,8 +847,9 @@ def test_quantize_rows(cuda, b, k, dtype):
 @pytest.mark.parametrize("act_bits,gs", [(0, 40), (8, 48)])
 def test_quant_matmul_cuda_core_routes_remain(cuda, act_bits, gs):
     """A bf16 group of no multiple of 16 (40) and a W4A8 group of no
-    multiple of 32 (48) keep their CUDA-core kernels, each counted on its
-    route, against the plain version."""
+    multiple of 32 (48), once on CUDA-core kernels, now on the Hopper
+    kernels in masked steps: each counted on its route, against the plain
+    version."""
     k, n, b = 480, 208, 37
     qt = _qt(4, gs, k, n, act_bits, cuda)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
@@ -862,11 +863,71 @@ def test_quant_matmul_cuda_core_routes_remain(cuda, act_bits, gs):
     assert err <= 2 ** -7 * ref.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("act_bits,gs", [(0, 96), (8, 128)])
+# (bits, act_bits, group, K): bf16 x in groups of no multiple of 16 (int4
+# even ones, int8 any), W4A8 in groups of no multiple of 32; some K of no
+# multiple of 8 (bf16) or 16 (int8 x), which a TMA row could not hold as it
+# is (the wrapper's stage layout holds any K)
+_MASKED = [(4, 0, 2, 250), (4, 0, 10, 250), (4, 0, 12, 480), (4, 0, 20, 500), (4, 0, 40, 480),
+           (4, 0, 136, 544), (8, 0, 1, 70), (8, 0, 3, 249), (8, 0, 24, 480), (8, 0, 40, 480),
+           (4, 8, 2, 250), (4, 8, 12, 252), (4, 8, 20, 500), (4, 8, 48, 480), (4, 8, 136, 544),
+           (4, 8, 144, 576)]
+
+
+@pytest.mark.parametrize("bits,act_bits,gs,k", _MASKED,
+                         ids=[f"int{c[0]}{'-w4a8' if c[1] else ''}-g{c[2]}-k{c[3]}"
+                              for c in _MASKED])
+@pytest.mark.parametrize("b", [1, 64, 72, 256])
+def test_quant_matmul_masked_groups(cuda, bits, act_bits, gs, k, b):
+    """The masked steps: one launch a call on the Hopper kernel, counted on
+    its route (group_route_launches for bf16 x, w4a8_route_launches for
+    W4A8), K split in the launch (N = 208: few tiles, so the plan splits),
+    within one bf16 step of the largest plain output, two calls bitwise
+    equal."""
+    n = 208
+    qt = _qt(bits, gs, k, n, act_bits, cuda)
+    assert qt.group_size == gs
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    a8 = act_bits == 8
+    assert qm.hopper_plan(b, k, n, bits, kernels.sm_count(x.device), gs=gs, a8=a8)[4] > 1
+    names = ("launches", "group_route_launches", "w4a8_route_launches", "odd_group_launches",
+             "w4a8_launches", "stage_launches", "quantize_launches")
+    counts = [getattr(qm, c) for c in names]
+    out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert [getattr(qm, c) for c in names] == [
+        counts[0] + 2, counts[1] + (0 if a8 else 2), counts[2] + (2 if a8 else 0), counts[3],
+        counts[4], counts[5] + (0 if a8 else 2), counts[6] + (2 if a8 else 0)]
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits,gs,k", [(4, 40, 4000), (4, 344, 11008), (4, 10, 250),
+                                       (8, 3, 249), (8, 72, 216)])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_stage_x_and_quantize_rows_lay_x_out(cuda, bits, gs, k, b):
+    """The masked steps' x layout on the card: stage_x (bf16 x) bitwise its
+    plain gather, and quantize_rows with the same index bitwise
+    quantize_activation's codes gathered alike, its scales unchanged."""
+    x = (torch.randn((b, k), generator=torch.Generator().manual_seed(k)) * 3).to(
+        cuda, torch.bfloat16)
+    index = qm.stage_index(bits, k, gs, cuda)
+    out = qm.stage_x(x, index)
+    q, sx = qm.quantize_rows(x, index)
+    ref_q, ref_s = quantize_activation(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), qm._gather(x, index).view(torch.int16))
+    assert torch.equal(q, qm._gather(ref_q, index)) and torch.equal(sx, ref_s)
+
+
+@pytest.mark.parametrize("act_bits,gs", [(0, 96), (8, 128), (0, 40), (8, 48)])
 def test_quant_matmul_new_paths_raise(cuda, monkeypatch, act_bits, gs):
     """A launch the kernel refuses (a batch tile it is not built for) on the
-    odd-group and the W4A8 path raises; nothing falls back."""
-    k, n = 480 if gs == 96 else 512, 208
+    odd-group, the W4A8 and both masked paths raises; nothing falls back."""
+    k, n = 512 if 512 % gs == 0 else 480, 208
     qt = _qt(4, gs, k, n, act_bits, cuda)
     x = torch.randn((8, k), device=cuda).to(torch.bfloat16)
     monkeypatch.setattr(qm, "hopper_plan", lambda *a, **kw: (24, 2, 1, 1, 1))

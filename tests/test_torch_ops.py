@@ -48,6 +48,15 @@ QMM_CASES = [
     (4, 32, 512, 256, 8, None),
     (4, 64, 512, 256, 8, None),
     (4, 96, 480, 256, 8, None),
+    # groups of no multiple of 16 values, bf16 x (the masked k16 steps)
+    (4, 40, 480, 256, 0, None, "bf16"),
+    (4, 12, 240, 256, 0, None, "bf16"),
+    (8, 24, 480, 256, 0, None, "bf16"),
+    (8, 40, 480, 256, 0, None, "bf16"),
+    # W4A8 in groups of no multiple of 32 (the masked k32 steps)
+    (4, 48, 480, 256, 8, None),
+    (4, 20, 480, 256, 8, None),
+    (4, 136, 272, 256, 8, None),
 ]
 
 

@@ -5,8 +5,9 @@ wgmma) run only on the card, where tests/test_torch_cuda.py holds them
 against quant_matmul_plain. Here: the launch plan their wrapper picks
 (batch tile, warpgroups, K split) reads the weights once for any batch up
 to 256 and covers K exactly; block_k sets the split as in the JAX
-package's quant_matmul; the stages of K for every group size, odd ones
-included; the group sizes each route takes; a CUDA tensor reaches one C
+package's quant_matmul; the stages of K for every group size, odd and
+masked ones included; the group sizes each route takes (every group, on
+the Hopper kernels); x laid out for the masked steps; a CUDA tensor reaches one C
 entry once per call (launches and routes counted, failures raised,
 nothing else launched); and
 tpuserve_torch.scripts.qmatmul_sweep run end to end at a tiny size with
@@ -54,13 +55,26 @@ def test_block_k_off_the_stage_is_refused(block_k, bits):
 
 @pytest.mark.parametrize("bits,gs,ok", [
     (4, 16, True), (4, 32, True), (4, 64, True), (4, 128, True), (4, 256, True), (4, 4096, True),
-    (4, 48, True), (4, 96, True), (4, 8, False), (8, 16, True), (8, 64, True),
+    (4, 48, True), (4, 96, True), (4, 8, True), (8, 16, True), (8, 64, True),
     (8, 128, True), (8, 96, True), (4, 80, True), (4, 112, True), (4, 688, True),
-    (8, 48, True), (8, 80, True), (4, 40, False), (8, 24, False), (8, 8, False)])
+    (8, 48, True), (8, 80, True), (4, 40, True), (8, 24, True), (8, 8, True),
+    (4, 2, True), (4, 10, True), (4, 344, True), (8, 1, True), (8, 3, True),
+    (4, 7, False), (4, 0, False), (8, 0, False), (4, -2, False)])
 def test_group_sizes_the_kernel_takes(bits, gs, ok):
-    """Every multiple of 16 values, int4 and int8 (a k16 step never
-    straddles two groups); nothing else."""
+    """Every positive group, int4 even ones (the groups of no multiple of
+    16 values in masked k16 steps); nothing else."""
     assert tqm.hopper_group_ok(bits, gs) == ok
+
+
+@pytest.mark.parametrize("gs,a8,masked", [
+    (16, False, False), (48, False, False), (128, False, False), (4096, False, False),
+    (2, False, True), (8, False, True), (40, False, True), (344, False, True), (1, False, True),
+    (32, True, False), (96, True, False), (128, True, False), (16, True, True),
+    (48, True, True), (12, True, True), (136, True, True), (344, True, True)])
+def test_masked_groups(gs, a8, masked):
+    """A k-step (16 values, 32 for W4A8) crosses a group's end exactly
+    where the group is no multiple of it."""
+    assert tqm.masked_group(gs, a8) == masked
 
 
 @pytest.mark.parametrize("bits,gs,k", [
@@ -89,15 +103,16 @@ def test_stages_cover_k_in_whole_groups_or_pieces(bits, gs, k):
 
 @pytest.mark.parametrize("gs,route", [(32, "wgmma"), (64, "wgmma"), (96, "wgmma"),
                                       (128, "wgmma"), (160, "wgmma"), (4096, "wgmma"),
-                                      (16, "cuda_core"), (48, "cuda_core"), (40, "cuda_core"),
-                                      (8, "cuda_core")])
+                                      (16, "wgmma"), (48, "wgmma"), (40, "wgmma"),
+                                      (8, "wgmma"), (2, "wgmma"), (12, "wgmma"), (20, "wgmma"),
+                                      (136, "wgmma"), (144, "wgmma"), (344, "wgmma")])
 def test_w4a8_route(gs, route):
-    """W4A8 takes int8 wgmma where every group ends on a k32 step, the
-    CUDA-core kernel for the other groups it takes."""
+    """W4A8 takes int8 wgmma for every even group: k32 steps where every
+    group ends on one, masked k32 steps for the others."""
     assert tqm.w4a8_route(gs) == route
 
 
-@pytest.mark.parametrize("gs", [20, 0, 136])
+@pytest.mark.parametrize("gs", [0, 7, 21, -2])
 def test_w4a8_route_refuses_what_no_kernel_takes(gs):
     with pytest.raises(ValueError, match="W4A8 group size"):
         tqm.w4a8_route(gs)
@@ -117,6 +132,72 @@ def test_w4a8_plan(b, gs, k):
         else [gr * gs]
     assert all(v % 32 == 0 for v in stage_values)
     assert sps % spg == 0 and splits == -(-total // sps)
+
+
+@pytest.mark.parametrize("bits,gs,k", [
+    (4, 2, 64), (4, 10, 250), (4, 12, 240), (4, 20, 480), (4, 40, 480), (4, 136, 272),
+    (4, 138, 276), (4, 344, 11008), (8, 1, 70), (8, 3, 249), (8, 24, 480), (8, 40, 480),
+    (8, 72, 216)])
+def test_stages_of_masked_groups(bits, gs, k):
+    """Groups of no multiple of 16 values take the same stages: whole groups
+    in at most 64 weight rows (and at most 128 values of x, the two boxes a
+    stage holds), or pieces of at most 64 rows of one group, whatever the
+    row count of the last piece; the stages cover every weight row once."""
+    gr, spg, total = tqm.stage_plan(bits, k, gs)
+    rpg = gs // 2 if bits == 4 else gs
+    groups = k // gs
+    assert tqm.masked_group(gs) and (gr == 1 or spg == 1)
+    if spg == 1:
+        assert gr * rpg <= 64 < (gr + 1) * rpg and total == -(-groups // gr)
+        assert gr * gs <= (128 if bits == 4 else 64)
+    else:
+        pieces = [min(64, rpg - p * 64) for p in range(spg)]
+        assert sum(pieces) == rpg and min(pieces) > 0 and total == groups * spg
+
+
+@pytest.mark.parametrize("b", [1, 64, 72, 256, 300])
+@pytest.mark.parametrize("gs,k", [(2, 64), (12, 240), (20, 4000), (48, 4032), (136, 4080),
+                                  (144, 4032), (344, 11008), (10, 250)])
+def test_w4a8_plan_of_masked_groups(b, gs, k):
+    """W4A8 in groups of no multiple of 32: the int8 batch tiles, and a
+    split that ends where a group does (pieces of a group in one split), so
+    that each group's int32 sum is whole before its scale."""
+    bt, nwg_n, nwg_b, sps, splits = tqm.hopper_plan(b, k, 4096, 4, SMS, gs=gs, a8=True)
+    assert bt in tqm._A8_TILES and bt * nwg_b >= min(b, 256)
+    gr, spg, total = tqm.stage_plan(4, k, gs)
+    assert sps % spg == 0 and splits == -(-total // sps)
+    assert (splits - 1) * sps < total <= splits * sps
+
+
+@pytest.mark.parametrize("bits,gs,k", [
+    (4, 2, 64), (4, 10, 250), (4, 12, 240), (4, 40, 4000), (4, 136, 272), (4, 138, 276),
+    (4, 344, 11008), (8, 1, 70), (8, 3, 249), (8, 40, 4000), (8, 72, 216)])
+def test_stage_x_index_gives_each_stage_its_values(bits, gs, k):
+    """The masked steps' x layout: every K value once; each stage's 128
+    positions (int8 weights: 64) hold the values its weight rows multiply,
+    in the kernel's order (whole groups in order; a piece's low-nibble
+    values from 0 and its high ones from 64), zeros elsewhere; so every box
+    of 64 starts on a 16-byte boundary of x's row."""
+    idx = tqm.stage_x_index(bits, k, gs)
+    gr, spg, total = tqm.stage_plan(bits, k, gs)
+    w = 128 if bits == 4 else 64
+    assert tuple(idx.shape) == (total * w,)
+    live = idx[idx < k]
+    assert torch.equal(live.sort().values, torch.arange(k))
+    rpg = gs // 2 if bits == 4 else gs
+    for t, stage in enumerate(idx.reshape(total, w).tolist()):
+        grp = t * gr if spg == 1 else t // spg
+        r0 = grp * rpg + (0 if spg == 1 else (t % spg) * 64)
+        for pos, kk in enumerate(stage):
+            if kk == k:
+                continue
+            g, r = divmod(kk, gs)
+            row = g * rpg + (r % rpg if bits == 4 else r)
+            assert r0 <= row < r0 + 64                       # a row the stage holds
+            if spg == 1:
+                assert kk == grp * gs + pos                  # the stage's values in order
+            else:
+                assert pos % 64 == row - r0 and (pos >= 64) == (bits == 4 and r >= rpg)
 
 
 class _FakeCuda(torch.Tensor):
@@ -187,17 +268,22 @@ def test_bf16_kernel_failure_raises(monkeypatch):
 
 
 def test_bf16_group_the_kernel_cannot_tile_is_refused(monkeypatch):
-    """The Hopper entry takes no group of other than a multiple of 16 values
-    (40): the wrapper never calls it, and serves the group through the
-    CUDA-core entry on x cast to f32, counted as a group-route launch."""
+    """A group of no multiple of 16 values (40) goes to the Hopper entry in
+    masked k16 steps, with the plan of its stages, counted as a group-route
+    launch; no other entry is called."""
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(4, 40, 480, 64, 4)
-    before, routed = tqm.launches, tqm.group_route_launches
+    before, routed, staged = tqm.launches, tqm.group_route_launches, tqm.stage_launches
     out = tqm.quant_matmul(x, qt)
-    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
-    args = fake.calls[0][1]
-    assert args[4:10] == (4, 480, 64, 40, 4, 0)   # b, k, n, gs, bits, f32 x
+    assert [name for name, _ in fake.calls] == ["tpuserve_stage_x", "tpuserve_quant_matmul_bf16"]
+    s_args, args = fake.calls[0][1], fake.calls[1][1]
+    index = tqm.stage_index(4, 480, 40, "cpu")
+    assert s_args[1] == index.data_ptr() and s_args[3:6] == (4, 480, index.numel())
+    assert args[0] == s_args[2]                # x in the masked steps' layout
+    assert args[6:11] == (4, 480, 64, 40, 4)   # b, k, n, gs, bits
+    assert args[11:16] == tqm.hopper_plan(4, 480, 64, 4, SMS, gs=40)
     assert tqm.launches == before + 1 and tqm.group_route_launches == routed + 1
+    assert tqm.stage_launches == staged + 1
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (4, 64)
 
 
@@ -215,12 +301,21 @@ def test_every_quantized_group_has_a_bf16_route(bits, gs):
 
 
 # the same for every even divisor of the 7B contraction widths and of the
-# odd-group check's K = 4032: wgmma exactly for the multiples of 16
+# odd-group check's K = 4032: wgmma for all, masked k16 steps exactly where
+# the group is no multiple of 16
 @pytest.mark.parametrize("k", [4096, 4032, 11008])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_every_even_divisor_has_its_bf16_route(bits, k):
     for g in (g for g in range(2, k + 1, 2) if k % g == 0):
-        assert (tqm.bf16_route(bits, g) == "wgmma") == (g % 16 == 0), g
+        assert tqm.bf16_route(bits, g) == "wgmma", g
+        assert tqm.masked_group(g) == (g % 16 != 0), g
+
+
+# int8 weights: every divisor, odd ones included (quantize makes any group)
+@pytest.mark.parametrize("k", [4032, 4000, 249])
+def test_every_int8_divisor_has_its_bf16_route(k):
+    for g in (g for g in range(1, k + 1) if k % g == 0):
+        assert tqm.bf16_route(8, g) == "wgmma", g
 
 
 @pytest.mark.parametrize("bits,gs", [(4, 7), (4, 0), (3, 64)])
@@ -233,11 +328,11 @@ def test_bf16_route_refuses_what_no_kernel_takes(bits, gs):
 def test_bf16_group_route_launches_once(monkeypatch, bits, gs):
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(bits, gs, 480, 128, 72)
-    routed = tqm.group_route_launches
+    routed, odd = tqm.group_route_launches, tqm.odd_group_launches
     tqm.quant_matmul(x, qt)
-    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
-    assert fake.calls[0][1][7:10] == (gs, bits, 0)
-    assert tqm.group_route_launches == routed + 1
+    assert [name for name, _ in fake.calls] == ["tpuserve_stage_x", "tpuserve_quant_matmul_bf16"]
+    assert fake.calls[1][1][9:11] == (gs, bits)
+    assert tqm.group_route_launches == routed + 1 and tqm.odd_group_launches == odd
 
 
 @pytest.mark.parametrize("bits,gs,k", [(4, 48, 480), (4, 96, 480), (4, 80, 480), (4, 112, 448),
@@ -287,30 +382,65 @@ def test_w4a8_calls_the_int8_hopper_entry_once(monkeypatch, gs, k, b):
 
 @pytest.mark.parametrize("gs", [48, 16])
 def test_w4a8_other_groups_keep_the_cuda_core_entry(monkeypatch, gs):
+    """W4A8 in groups of no multiple of 32 values: the row quantization,
+    then the int8 Hopper entry once on the W4A8 plan, counted in
+    w4a8_route_launches (the masked k32 steps)."""
     fake = _fake(monkeypatch, 0)
     x, qt = _inputs(4, gs, 480, 64, 8)
     qt.act_bits = 8
     before, a8, routed = tqm.launches, tqm.w4a8_launches, tqm.w4a8_route_launches
     tqm.quant_matmul(x, qt)
-    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows", "tpuserve_quant_matmul"]
-    assert fake.calls[1][1][7:10] == (gs, 4, 2)    # gs, bits, int8 x
+    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows",
+                                                "tpuserve_quant_matmul_a8"]
+    index = tqm.stage_index(4, 480, gs, "cpu")
+    assert fake.calls[0][1][6:8] == (index.data_ptr(), index.numel())   # codes laid out
+    assert fake.calls[1][1][7:12] == (8, 480, 64, gs, 1)    # b, k, n, gs, bf16 out
+    assert fake.calls[1][1][12:17] == tqm.hopper_plan(8, 480, 64, 4, SMS, gs=gs, a8=True)
     assert tqm.launches == before + 1 and tqm.w4a8_route_launches == routed + 1
     assert tqm.w4a8_launches == a8
 
 
-@pytest.mark.parametrize("gs,act_bits", [(96, 0), (128, 8), (96, 8)])
+@pytest.mark.parametrize("gs,k", [(12, 480), (20, 480), (136, 272), (144, 288), (10, 250)])
+@pytest.mark.parametrize("b", [1, 64, 300])
+def test_w4a8_groups_the_card_refused_reach_the_int8_entry(monkeypatch, gs, k, b):
+    """The even W4A8 groups no kernel took (12, 20, 136, 144, ...): the row
+    quantization once, writing its codes in the masked steps' layout
+    (stage_index), then the int8 Hopper entry once on those codes and row
+    scales, counted in w4a8_route_launches and quantize_launches."""
+    fake = _fake(monkeypatch, 0)
+    x, qt = _inputs(4, gs, k, 64, b)
+    qt.act_bits = 8
+    before, a8, routed = tqm.launches, tqm.w4a8_launches, tqm.w4a8_route_launches
+    quantized = tqm.quantize_launches
+    out = tqm.quant_matmul(x, qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows",
+                                                "tpuserve_quant_matmul_a8"]
+    q_args, args = fake.calls[0][1], fake.calls[1][1]
+    index = tqm.stage_index(4, k, gs, "cpu")
+    assert q_args[3:8] == (b, k, 1, index.data_ptr(), index.numel())
+    assert args[0] == q_args[1] and args[3] == q_args[2]   # its codes and row scales
+    assert args[7:12] == (b, k, 64, gs, 1)
+    assert args[12:17] == tqm.hopper_plan(b, k, 64, 4, SMS, gs=gs, a8=True)
+    assert tqm.launches == before + 1 and tqm.w4a8_route_launches == routed + 1
+    assert tqm.w4a8_launches == a8 and tqm.quantize_launches == quantized + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, 64)
+
+
+@pytest.mark.parametrize("gs,act_bits", [(96, 0), (128, 8), (96, 8), (40, 0), (48, 8),
+                                         (12, 8)])
 def test_new_hopper_paths_raise_on_failure(monkeypatch, gs, act_bits):
-    """A build or launch error on the odd-group or the W4A8 path raises; no
-    other kernel is tried and nothing is counted."""
+    """A build or launch error on the odd-group, the W4A8 or either masked
+    path raises; no other kernel is tried and nothing is counted."""
     fake = _fake(monkeypatch, 700)
-    fake.ok = {"tpuserve_quantize_rows"}   # the row quantization launches; the matmul fails
-    x, qt = _inputs(4, gs, 480 if gs == 96 else 512, 64, 8)
+    # the row quantization and the layout launch; the matmul fails
+    fake.ok = {"tpuserve_quantize_rows", "tpuserve_stage_x"}
+    x, qt = _inputs(4, gs, 512 if 512 % gs == 0 else 480, 64, 8)
     qt.act_bits = act_bits
     counts = (tqm.launches, tqm.odd_group_launches, tqm.w4a8_launches,
               tqm.group_route_launches, tqm.w4a8_route_launches)
     with pytest.raises(RuntimeError, match="quant_matmul"):
         tqm.quant_matmul(x, qt)
-    assert [n for n, _ in fake.calls if n != "tpuserve_quantize_rows"] == [
+    assert [n for n, _ in fake.calls if n not in fake.ok] == [
         "tpuserve_quant_matmul_a8" if act_bits else "tpuserve_quant_matmul_bf16"]
     assert counts == (tqm.launches, tqm.odd_group_launches, tqm.w4a8_launches,
                       tqm.group_route_launches, tqm.w4a8_route_launches)
@@ -321,7 +451,7 @@ def test_f32_keeps_the_cuda_core_entry(monkeypatch):
     x, qt = _inputs(4, 128, 512, 256, 8)
     tqm.quant_matmul(x.float(), qt, block_k=256)
     assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
-    gps, splits = fake.calls[0][1][10:12]
+    gps, splits = fake.calls[0][1][9:11]
     assert (gps, splits) == (2, 2)
 
 
@@ -338,9 +468,37 @@ def test_quantize_rows_reaches_its_kernel(monkeypatch, dtype):
     before = tqm.quantize_launches
     q, sx = tqm.quantize_rows(torch.Tensor._make_subclass(_FakeCuda, x))
     assert [name for name, _ in fake.calls] == ["tpuserve_quantize_rows"]
-    assert fake.calls[0][1][3:6] == (6, 96, int(dtype == torch.bfloat16))
+    assert fake.calls[0][1][3:8] == (6, 96, int(dtype == torch.bfloat16), 0, 96)  # K in order
     assert q.dtype == torch.int8 and tuple(sx.shape) == (6, 1)
     assert tqm.quantize_launches == before + 1
+
+
+@pytest.mark.parametrize("bits,gs,k", [(4, 40, 480), (4, 136, 272), (8, 3, 249)])
+def test_stage_x_lays_x_out_for_the_masked_steps(monkeypatch, bits, gs, k):
+    """stage_x: a CPU tensor takes the plain gather (x[:, index], zeros
+    where index == K); a CUDA tensor reaches its kernel once with the index
+    and its length, counted. quantize_rows with the same index gives the
+    plain codes laid out alike, and its kernel gets the index."""
+    rng = np.random.default_rng(gs)
+    x = torch.from_numpy(rng.normal(size=(3, k)).astype(np.float32)).to(torch.bfloat16)
+    index = tqm.stage_index(bits, k, gs, "cpu")
+    ref = torch.cat([x, torch.zeros(3, 1, dtype=x.dtype)], 1)[:, index.long()]
+    assert torch.equal(tqm.stage_x(x, index), ref)
+    q, sx = tqm.quantize_rows(x, index)
+    ref_q, ref_s = quantize_activation(x)
+    assert torch.equal(sx, ref_s)
+    zeros = torch.zeros(3, 1, dtype=torch.int8)
+    assert torch.equal(q, torch.cat([ref_q, zeros], 1)[:, index.long()])
+    fake = _fake(monkeypatch, 0)
+    staged, quantized = tqm.stage_launches, tqm.quantize_launches
+    xc = torch.Tensor._make_subclass(_FakeCuda, x)
+    out = tqm.stage_x(xc, index)
+    tqm.quantize_rows(xc, index)
+    assert [name for name, _ in fake.calls] == ["tpuserve_stage_x", "tpuserve_quantize_rows"]
+    assert fake.calls[0][1][1] == index.data_ptr() and fake.calls[0][1][3:6] == (3, k, len(index))
+    assert fake.calls[1][1][3:8] == (3, k, 1, index.data_ptr(), len(index))
+    assert tuple(out.shape) == (3, len(index)) and out.dtype == torch.bfloat16
+    assert (tqm.stage_launches, tqm.quantize_launches) == (staged + 1, quantized + 1)
 
 
 def test_sweep_runs_every_mode_on_the_cpu(monkeypatch, capsys):
@@ -395,7 +553,8 @@ def test_ab_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):
 
 @pytest.mark.parametrize("name", ["base", "tma_only", "no_wgmma", "no_convert", "no_lds",
                                   "no_epilogue", "a8_tma_only", "a8_no_wgmma", "a8_no_convert",
-                                  "a8_no_ldmatrix", "a8_no_flush"])
+                                  "a8_no_ldmatrix", "a8_no_flush", "mk_no_build",
+                                  "mk_no_fast", "mk_no_wgmma", "mk_no_flush"])
 def test_ablations_still_match_the_kernel_source(name):
     """Each cut of scripts/qmm_ablate.py applies to csrc/quant_matmul.cu as
     it is (the script runs only on the card; this keeps it in step)."""

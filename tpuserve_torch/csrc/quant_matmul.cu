@@ -6,8 +6,8 @@
 //     g*gs + gs/2 + r in its high nibble), codes biased by 8;
 //   - int8: W int8 [K, N]; a group may span many K chunks (gs = K);
 //   - W4A8: x arrives quantized to int8 per row, the dots are integer
-//     (__dp4a, int32 accumulation) against the biased nibbles, the -8 fold
-//     is done in int32, and the caller multiplies the per-row scale.
+//     (int32 accumulation) against the codes, the -8 fold is exact, and the
+//     per-row scale multiplies the output.
 // Scales are f32 [G, N]; each group's partial sum is scaled in f32 and
 // accumulated in f32, as in the TPU kernel.
 //
@@ -18,22 +18,23 @@
 // weights at full rate needs the tensor cores at 75-85% of their peak.
 //
 // Paths:
-//   - bf16 activations (the serving path), every group of a multiple of 16
-//     values: qmm_wgmma_kernel in namespace hop below, built for Hopper:
-//     wgmma with the weights as A from registers and x as B from shared
-//     memory, a TMA ring fed by one producer thread, every weight byte read
-//     from device memory once for B <= 256 and from shared memory once,
-//     split K reduced in the same launch in a fixed order
+//   - bf16 activations (the serving path), every group int4 or int8
+//     weights take: qmm_wgmma_kernel in namespace hop below, built for
+//     Hopper: wgmma with the weights as A from registers and x as B from
+//     shared memory, a TMA ring fed by one producer thread, every weight
+//     byte read from device memory once for B <= 256 and from shared memory
+//     once, split K reduced in the same launch in a fixed order
 //     (tpuserve_quant_matmul_bf16);
-//   - W4A8 with groups of a multiple of 32 values: qmm_a8_kernel, the same
-//     ring and split on int8 wgmma (tpuserve_quant_matmul_a8);
-//   - f32 activations, and bf16 ones in groups of another size (run on x
-//     cast to f32): qmm_f32_kernel, CUDA cores in f32;
-//   - W4A8 with other groups: qmm_w4a8_kernel, __dp4a.
-// The last two keep the first port's form (tpuserve_quant_matmul): one block
-// per 64-column tile of up to 64 rows of x walking K chunk by chunk through
-// shared memory, K split by whole scale groups into a workspace that
-// reduce_splits_kernel adds in split order.
+//   - W4A8, every even group: qmm_a8_kernel, the same ring and split on
+//     int8 wgmma (tpuserve_quant_matmul_a8);
+//   - f32 activations: qmm_f32_kernel, CUDA cores in f32, the first port's
+//     form (tpuserve_quant_matmul): one block per 64-column tile of up to 64
+//     rows of x walking K chunk by chunk through shared memory, K split by
+//     whole scale groups into a workspace that reduce_splits_kernel adds in
+//     split order.
+// Groups whose k-steps (16 values bf16, 32 int8) do not end where a group
+// does take masked steps on the Hopper kernels (the GS = -2 and A8_MASKED
+// instances).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -48,7 +49,6 @@ using tpuserve::store_f32;
 constexpr int TN = 64;        // output columns per block
 constexpr int THREADS = 128;  // 8 column groups x 16 row groups
 constexpr int XS = 132;       // x tile row stride: 128 values + pad against bank conflicts
-constexpr int WT = 68;        // W4A8 transposed weight tile row stride in bytes
 
 // ---------------------------------------------------------------- f32 x
 template <int BITS, int RPT>
@@ -178,115 +178,6 @@ qmm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------- W4A8
-template <int RPT>
-__global__ void __launch_bounds__(THREADS)
-qmm_w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                const float* __restrict__ scale, float* __restrict__ out,
-                int B, int K, int N, int gs, int gps) {
-  constexpr int ROWS = 16 * RPT;
-  // per row: 64 low-half bytes, then 64 high-half bytes (+4 pad)
-  __shared__ __align__(16) int8_t xs[ROWS * XS];
-  // weights transposed to [column][packed row] so that 4 consecutive packed
-  // rows of one column form one 32-bit word for __dp4a
-  __shared__ __align__(16) uint8_t wt[TN * WT];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;   // columns n0 + tx + 8*j (interleaved: conflict-free)
-  const int ty = tid >> 3;  // rows b0 + ty + 16*i
-  const int n0 = blockIdx.x * TN;
-  const int b0 = blockIdx.y * ROWS;
-  const int half = gs / 2;
-  const int cw = half < 64 ? half : 64;
-  const int chunks = half / cw;
-  const int groups = K / gs;
-  const int g0 = blockIdx.z * gps;
-  const int g1 = min(groups, g0 + gps);
-  out += (size_t)blockIdx.z * B * N;
-
-  float acc[RPT][8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int g = g0; g < g1; ++g) {
-    int part[RPT][8];
-    int xsum[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      xsum[i] = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0;
-    }
-    for (int c = 0; c < chunks; ++c) {
-      const int r0 = c * cw;
-      __syncthreads();
-      for (int idx = tid; idx < ROWS * 2 * cw; idx += THREADS) {
-        const int row = idx / (2 * cw);
-        const int j = idx - row * 2 * cw;
-        const int k = (j < cw) ? g * gs + r0 + j : g * gs + half + r0 + (j - cw);
-        const int slot = (j < cw) ? j : 64 + (j - cw);
-        const int b = b0 + row;
-        xs[row * XS + slot] = (b < B) ? x[(size_t)b * K + k] : (int8_t)0;
-      }
-      for (int idx = tid; idx < cw * 4; idx += THREADS) {
-        const int r = idx >> 2;
-        const int q = idx & 3;
-        const int col = n0 + q * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (col < N)
-          v = *reinterpret_cast<const uint4*>(w + (size_t)(g * half + r0 + r) * N + col);
-        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          wt[(q * 16 + e) * WT + r] = (uint8_t)((words[e >> 2] >> (8 * (e & 3))) & 0xFFu);
-      }
-      __syncthreads();
-      for (int r4 = 0; r4 < cw / 4; ++r4) {
-        int xl[RPT], xh[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int row = ty + 16 * i;
-          xl[i] = *reinterpret_cast<const int*>(&xs[row * XS + 4 * r4]);
-          xh[i] = *reinterpret_cast<const int*>(&xs[row * XS + 64 + 4 * r4]);
-          xsum[i] = __dp4a(xl[i], 0x01010101, xsum[i]);
-          xsum[i] = __dp4a(xh[i], 0x01010101, xsum[i]);
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t word = *reinterpret_cast<const uint32_t*>(&wt[(tx + 8 * j) * WT + 4 * r4]);
-          const int lo = (int)(word & 0x0F0F0F0Fu);         // biased codes, 4 rows
-          const int hi = (int)((word >> 4) & 0x0F0F0F0Fu);
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            part[i][j] = __dp4a(xl[i], lo, part[i][j]);
-            part[i][j] = __dp4a(xh[i], hi, part[i][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx + 8 * j;
-      if (col >= N) continue;
-      const float sc = scale[(size_t)g * N + col];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) acc[i][j] += (float)(part[i][j] - 8 * xsum[i]) * sc;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty + 16 * i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx + 8 * j;
-      if (col < N) out[(size_t)b * N + col] = acc[i][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------- rows to int8
 // W4A8's activations: x [B, K] to int8 codes and f32 scales, one block a
 // row (tpuserve/quant/core.py::quantize_activation, which the JAX package
@@ -294,13 +185,17 @@ qmm_w4a8_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 // -127, 127), with IEEE divisions as PyTorch's, so the codes and scales
 // are bitwise those of the plain version. Bound by bytes: x is read twice
 // (the second pass mostly from L1/L2), the codes written once.
-template <typename T>
+// IDX: the codes go out in the masked steps' layout (ops/quant_matmul.py::
+// stage_x_index): code p of a row is that of x[idx[p]], 0 where idx[p] ==
+// K; W codes a row. Without, W = K in order, in a loop of its own: the
+// index's test in every step cost the W4A8 g128 step 0.8% (PERF.md section 6).
+template <typename T, bool IDX>
 __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                     int K) {
+                     int K, const int* __restrict__ idx, int W) {
   __shared__ float s_max[8];
   const T* xr = x + (size_t)blockIdx.x * K;
-  int8_t* qr = q + (size_t)blockIdx.x * K;
+  int8_t* qr = q + (size_t)blockIdx.x * W;
   float m = 0.f;
   for (int k = threadIdx.x; k < K; k += blockDim.x) m = fmaxf(m, fabsf(tpuserve::to_f32(xr[k])));
   m = tpuserve::warp_max(m);
@@ -310,11 +205,31 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __r
 #pragma unroll
   for (int w = 1; w < 8; ++w) m = fmaxf(m, s_max[w]);
   const float sc = fmaxf(__fdiv_rn(m, 127.0f), 1e-8f);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+  auto code = [&](int k) {
     const float v = rintf(__fdiv_rn(tpuserve::to_f32(xr[k]), sc));
-    qr[k] = (int8_t)fminf(fmaxf(v, -127.0f), 127.0f);
+    return (int8_t)fminf(fmaxf(v, -127.0f), 127.0f);
+  };
+  if (IDX) {
+    for (int p = threadIdx.x; p < W; p += blockDim.x) {
+      const int k = idx[p];
+      qr[p] = k < K ? code(k) : (int8_t)0;
+    }
+  } else {
+    for (int k = threadIdx.x; k < K; k += blockDim.x) qr[k] = code(k);
   }
   if (threadIdx.x == 0) scale[blockIdx.x] = sc;
+}
+
+// bf16 x [B, K] in the masked steps' layout: out[b, p] = x[b, idx[p]], 0
+// where idx[p] == K (ops/quant_matmul.py::stage_x_index); a thread an
+// element, grid (W / 256, B). Bound by bytes.
+__global__ void __launch_bounds__(256)
+stage_x_kernel(const uint16_t* __restrict__ x, const int* __restrict__ idx,
+               uint16_t* __restrict__ out, int K, int W) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= W) return;
+  const int k = idx[p];
+  out[(size_t)blockIdx.y * W + p] = k < K ? x[(size_t)blockIdx.y * K + k] : (uint16_t)0;
 }
 
 // out[i] = sum over splits of ws[split][i], added in split order
@@ -378,6 +293,19 @@ void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStre
 // K from the octet the pack puts there, and the k16 step is taken in x's
 // order, so that x stays one descriptor.
 //
+// Groups whose k16 steps would cross a group's end (int4: any even group
+// of no multiple of 16 values; int8: any group of none; masked_stage,
+// the GS = -2 instances) take the same stages, whole groups with x in
+// order or pieces of one group, x gathered by the wrapper into one aligned
+// run of 128 values a stage (int8 weights: 64), and every k16 step at a
+// fixed position of its x box, so that x stays one descriptor a step. A
+// step that holds values of more than one group (or of a group's two
+// nibble halves, or past the piece or K) is issued once for each group it
+// touches, its A fragment built per K value from the packed row and nibble
+// the pack puts there, with the bf16 of 0 for every K value outside that
+// group: each group's sum stays its own, and is scaled into `acc` in group
+// order.
+//
 // Split K in one launch: grid.y splits the stages; each split writes its f32
 // tile to a workspace, and the last split of a tile to arrive (a per-tile
 // counter) adds the splits in split order and writes the output, so two
@@ -411,6 +339,11 @@ struct Args {
 // Where stage t starts: its first weight row, its first scale group and the
 // K positions of its two x boxes (int4: the values that meet the low
 // nibbles, then the high ones; whole groups: the stage's values in order).
+// Masked groups read x as the wrapper lays it out (ops/quant_matmul.py::
+// stage_x_index): the same values, each stage's from a 16-byte aligned
+// start, since a TMA box's start along K must be (a box at an odd K offset
+// stopped the kernel with an illegal instruction on the card).
+template <bool MASKED>
 __device__ __forceinline__ void stage_origin(const Args& a, int bits, int gs, int t, int& r0,
                                              int& grp, int& klo, int& khi) {
   const int rpg = bits == 4 ? gs / 2 : gs;  // weight rows a group
@@ -426,12 +359,16 @@ __device__ __forceinline__ void stage_origin(const Args& a, int bits, int gs, in
     klo = grp * gs + pc * STAGE_ROWS;
     khi = klo + rpg;
   }
+  if (MASKED) {  // x gathered by the wrapper: stage t's values at t * (64 a box)
+    klo = t * 64 * (bits == 4 ? 2 : 1);
+    khi = klo + 64;
+  }
 }
 
 // The producer thread: keeps the ring full for the block's nst stages
 // (weights and scales of each column warpgroup, then x; two x boxes for
-// int4 weights).
-template <int BITS>
+// int4 weights). MASKED: x laid out for the masked steps.
+template <int BITS, bool MASKED>
 __device__ __forceinline__ void produce(const Args& a, uint8_t* smem, uint64_t* bars,
                                         const CUtensorMap* qmap, const CUtensorMap* smap,
                                         const CUtensorMap* xmap, int gs, int st0, int nst,
@@ -443,7 +380,7 @@ __device__ __forceinline__ void produce(const Args& a, uint8_t* smem, uint64_t* 
     const uint32_t base = smem_u32(smem + (size_t)s * a.stage_bytes);
     mbar_expect_tx(full, a.tx_bytes);
     int r0, grp, klo, khi;
-    stage_origin(a, BITS, gs, st0 + it, r0, grp, klo, khi);
+    stage_origin<MASKED>(a, BITS, gs, st0 + it, r0, grp, klo, khi);
     for (int w = 0; w < a.nwg_n; ++w) {
       tma_2d(base + w * W_BYTES, qmap, full, col_blk + w * COLS, r0);
       tma_2d(base + a.off_sc + w * a.gr * COLS * 4, smap, full, col_blk + w * COLS, grp);
@@ -842,8 +779,116 @@ __device__ __forceinline__ void odd_stage(const Args& a, float* acc, float* part
   keep_frags(fr);
 }
 
+// The two columns' codes at one K value of a masked step (c0 in byte 0,
+// c1 in byte 1): enc = weight row << 3 | the nibble's shift (int4: 0 low,
+// 4 high), or -1 for a K value outside the group being issued, which takes
+// the code of a zero product (int4: 8, the bias; int8: 0).
+// The load always reads a row of the box, and the code is selected after.
+template <int BITS>
+__device__ __forceinline__ uint32_t code_pair(const uint8_t* wt, int enc, int warp, int gid) {
+  const bool live = enc >= 0;
+  const int row = live ? enc >> 3 : 0;
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(
+      wt + row * 64 + ((warp ^ ((row >> 1) & 3)) << 4) + 2 * gid);
+  if (BITS == 4) return live ? (w >> (enc & 7)) & 0x0F0Fu : 0x0808u;
+  return live ? w : 0u;
+}
+
+// The k16 fragment at x position p of a masked stage, 8 values of K (rows
+// 2tq, 2tq + 1 of each half step) at a time: with FAST, where all 8 lie in
+// one half of the group (both ends valid, 7 rows apart on one nibble: the
+// same test in every thread), one octet read as in the odd-group path;
+// else a pair of K values at a time, each from where(k) (code_pair's enc).
+// FAST pays in the pieces of a large group, where nearly every half step
+// passes the test; in whole small groups its branch cost more than it
+// saved (PERF.md section 6).
+template <int BITS, bool FAST, typename Where>
+__device__ __forceinline__ void masked_frag(uint32_t* af, const uint8_t* wt, int p, Where where,
+                                            int warp, int gid, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e0 = where(p + 8 * h), e7 = where(p + 8 * h + 7);
+    uint32_t m;
+    if (FAST && e0 >= 0 && e7 - e0 == 7 << 3) {
+      const uint32_t w = octet_word(wt, (e0 >> 3) + 2 * tq, warp, gid);
+      m = BITS == 4 ? (w >> (e0 & 7)) & 0x0F0F0F0Fu : w;
+    } else {
+      const int k = p + 8 * h + 2 * tq;
+      m = prmt(code_pair<BITS>(wt, where(k), warp, gid),
+               code_pair<BITS>(wt, where(k + 1), warp, gid), 0x5140u);
+    }
+    af[2 * h] = BITS == 4 ? nib_pair(m, 0x4140u) : i8_pair(m, 0);
+    af[2 * h + 1] = BITS == 4 ? nib_pair(m, 0x4342u) : i8_pair(m, 2);
+  }
+}
+
+// One stage of a masked group size (the GS = -2 instances): whole groups,
+// each its k16 steps floor(lo / 16) .. ceil(hi / 16) - 1 of the stage's x
+// masked to its values [lo, hi) and then its flush, or a piece of one group, its
+// low nibbles against x box 0 and its high ones against box 1 (int8: its
+// rows against box 0), masked past the piece's rows and flushed where the
+// group (or the block's split) ends. Each group's batch is waited for
+// before the next one's fragments are built.
+template <int BITS, int BT, typename XDesc>
+__device__ __forceinline__ void masked_stage(const Args& a, float* acc, float* part,
+                                             int& accumulate, const uint8_t* wt, const float* sc,
+                                             XDesc xdesc, int gs, int t, bool last, int warp,
+                                             int gid, int tq, int c0) {
+  const int rpg = BITS == 4 ? gs / 2 : gs;
+  uint32_t fr[8][4];
+  int px[8];
+  if (a.spg == 1) {  // whole groups: gs <= 128 int4, <= 64 int8, so at most 8 k16 steps each
+    const int ng = min(a.gr, a.K / gs - t * a.gr);
+    for (int j = 0; j < ng; ++j) {
+      const int lo = j * gs, s0 = lo >> 4, n = ((lo + gs + 15) >> 4) - s0;
+      auto where = [&](int k) {
+        const int r = k - lo;
+        const int hi = BITS == 4 && r >= rpg;  // the high nibbles hold the group's second half
+        const int enc = BITS == 4 ? (j * rpg + r - hi * rpg) << 3 | hi << 2 : k << 3;
+        return (unsigned)r < (unsigned)gs ? enc : -1;
+      };
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s < n) {
+          px[s] = 16 * (s0 + s);
+          masked_frag<BITS, false>(fr[s], wt, px[s], where, warp, gid, tq);
+        }
+      }
+      issue_batch<BT>(part, fr, px, n, 0, xdesc);
+      close_group<BT>(acc, part, sc + j * COLS, c0);
+      keep_frags(fr);
+    }
+    accumulate = 0;
+    return;
+  }
+  const int pc = t % a.spg;
+  const int rows = min(STAGE_ROWS, rpg - pc * STAGE_ROWS);
+  auto where = [&](int k) {  // box k / 64: int4 low (0) or high (1) nibbles of row k % 64
+    const int r = k & 63;
+    return r < rows ? r << 3 | (BITS == 4 ? (k >> 6) << 2 : 0) : -1;
+  };
+  const int per = (rows + 15) >> 4;  // k16 steps a box
+  const int n = BITS == 4 ? 2 * per : per;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    if (s < n) {
+      px[s] = BITS == 4 ? (s & 1) * 64 + 16 * (s >> 1) : 16 * s;
+      masked_frag<BITS, true>(fr[s], wt, px[s], where, warp, gid, tq);
+    }
+  }
+  issue_batch<BT>(part, fr, px, n, accumulate, xdesc);
+  accumulate = 1;
+  if (pc == a.spg - 1 || last) {
+    close_group<BT>(acc, part, sc, c0);
+    accumulate = 0;
+  }
+  wg_wait0();
+  keep_frags(fr);
+}
+
 // GS = 128 fixes the group size at compile time; GS = 0 reads a.gs (groups
-// the 64-row stage tiles); GS = -1 reads a.gs for the odd groups.
+// the 64-row stage tiles); GS = -1 reads a.gs for the odd groups, GS = -2
+// for the masked ones.
 template <int BITS, int GS, int BT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
@@ -872,7 +917,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
   if (wg == ncons) {  // the producer warp: one thread keeps the ring full
     if (threadIdx.x == ncons * WG_THREADS)
-      produce<BITS>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk, row_blk);
+      produce<BITS, GS == -2>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk,
+                              row_blk);
     return;
   }
 
@@ -946,7 +992,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       auto xdesc = [&](int p) {
         return desc_sw128(xb + (p >> 6) * a.xbox_bytes + (p & 63) * 2);
       };
-      if constexpr (GS < 0) {
+      if constexpr (GS == -2) {
+        masked_stage<BITS, BT>(a, acc, part, accumulate, wt, sc, xdesc, gs, st0 + it,
+                               it == nst - 1, warp, gid, tq, c0);
+      } else if constexpr (GS == -1) {
         odd_stage<BITS, BT>(a, acc, part, accumulate, wt, sc, xdesc, gs, st0 + it,
                             it == nst - 1, warp, gid, tq, c0);
       } else if (BITS == 4 && gs != 16) {
@@ -1032,8 +1081,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 //   - x: two int8 boxes [rows, 64 values], 64-byte swizzle, K-major as
 //     wgmma needs an 8-bit B operand; the stages are those of the bf16 path
 //     (whole groups with x in order, or pieces of one group with box 0
-//     against the low nibbles and box 1 against the high ones), for
-//     groups of a multiple of 32 so that every k32 step lies in one group;
+//     against the low nibbles and box 1 against the high ones); in
+//     groups of a multiple of 32 every k32 step lies in one group, and
+//     other even groups take masked k32 steps (as the bf16 kernel's masked
+//     k16 steps, a8_masked_frag), each group's int32 sum its own;
 //   - A from registers: ldmatrix.x4.trans gives a lane two adjacent columns
 //     of two adjacent rows a matrix; the lanes' row addresses are arranged
 //     so that two PRMTs turn matrices (0, 1) and (2, 3) into the four codes
@@ -1180,6 +1231,41 @@ __device__ __forceinline__ uint32_t codes16(uint32_t w, int sh) {
   return ((w << sh) & 0xF0F0F0F0u) ^ 0x80808080u;
 }
 
+// The k32 fragment at x position p of a masked stage (W4A8): the codes of
+// the thread's K values 4tq..4tq + 3 and 16 + 4tq.. of columns c0 and c1,
+// each from where(k) (code_pair's enc; code 8 outside the group, a zero
+// product), as 16 * (code - 8) in s8.
+// Where the step's 16 values of K at 16h lie in one half of the group (the
+// same test as masked_frag's, in every thread), one 16-row block read as
+// a8_load reads it, with ldmatrix.x2; else four K values at a time.
+template <typename Where>
+__device__ __forceinline__ void a8_masked_frag(uint32_t (&f)[4], const uint8_t* wt, uint32_t wts,
+                                               int p, Where where, int warp, int lane, int gid,
+                                               int tq, uint32_t sel0, uint32_t sel1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e0 = where(p + 16 * h), e15 = where(p + 16 * h + 15);
+    if (e0 >= 0 && e15 - e0 == 15 << 3) {
+      const int j = lane & 7, m = (lane >> 3) & 1;  // a8_load's rows of matrices 0 and 1
+      const int row = (e0 >> 3) + 4 * (j >> 1) + 2 * ((j >> 2) ^ m) + (j & 1);
+      uint32_t r0, r1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+                   : "=r"(r0), "=r"(r1)
+                   : "r"(wts + row * 64 + ((warp ^ ((row >> 1) & 3)) << 4)));
+      f[2 * h] = codes16(prmt(r0, r1, sel0), (e0 & 7) ? 0 : 4);
+      f[2 * h + 1] = codes16(prmt(r0, r1, sel1), (e0 & 7) ? 0 : 4);
+      continue;
+    }
+    const int k = p + 16 * h + 4 * tq;
+    const uint32_t ab = prmt(code_pair<4>(wt, where(k), warp, gid),
+                             code_pair<4>(wt, where(k + 1), warp, gid), 0x5140u);
+    const uint32_t cd = prmt(code_pair<4>(wt, where(k + 2), warp, gid),
+                             code_pair<4>(wt, where(k + 3), warp, gid), 0x5140u);
+    f[2 * h] = codes16(prmt(ab, cd, 0x5410u), 4);      // column c0, K k..k + 3
+    f[2 * h + 1] = codes16(prmt(ab, cd, 0x7632u), 4);  // column c1
+  }
+}
+
 // The int32 group sum part = 16 v (v the TPU kernel's x.c - 8*rowsum(x))
 // scaled into acc: acc += v * scale. With |part| < 2^22 (groups of up to
 // 258 values) the conversion is exact without I2F, whose rate is a quarter
@@ -1236,10 +1322,14 @@ __device__ __forceinline__ void a8_g128_stage(int* part, uint32_t (&fr)[4][4], u
   wg_commit();
 }
 
-// G128: groups of 128 (a stage is one group), run as the bf16 kernel's g128
-// path: two group sums in turn, a stage's wgmmas in flight while the next
-// stage converts, each flushed and released one stage later.
-template <int BT, bool G128, typename OT>
+// MODE A8_G128: groups of 128 (a stage is one group), run as the bf16
+// kernel's g128 path: two group sums in turn, a stage's wgmmas in flight
+// while the next stage converts, each flushed and released one stage
+// later. A8_GENERAL: any group of a multiple of 32 values. A8_MASKED: the
+// other even groups, in masked k32 steps.
+enum { A8_GENERAL, A8_G128, A8_MASKED };
+
+template <int BT, int MODE, typename OT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
               const __grid_constant__ CUtensorMap xmap, const Args a) {
@@ -1267,7 +1357,8 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
 
   if (wg == ncons) {
     if (threadIdx.x == ncons * WG_THREADS)
-      produce<4>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk, row_blk);
+      produce<4, MODE == A8_MASKED>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk,
+                                    row_blk);
     return;
   }
 
@@ -1292,7 +1383,7 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
   }
   int accumulate = 0;
 
-  if constexpr (G128 && BT <= 80) {
+  if constexpr (MODE == A8_G128 && BT <= 80) {
     int p1[BT / 2];
     uint32_t f0[4][4], f1[4][4];
     const float* sc_prev = nullptr;
@@ -1352,6 +1443,17 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     // after it is issued)
     uint32_t fr[4][4];
     int px[4];
+    auto issue_steps = [&](int n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+      fence_regs<BT / 2>(part);
+      wg_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n) WgmmaS8<BT>::mma(part, fr[i], xdesc(px[i]), i > 0 || accumulate);
+      wg_commit();
+      accumulate = 1;
+    };
     auto run = [&](int n, const int* ra, const int* sa, const int* rb, const int* sb,
                    const bool* vb) {
       uint32_t raw[4];
@@ -1367,15 +1469,7 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
           fr[i][3] = vb[i] ? codes16(raw[3], sb[i]) : 0u;
         }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
-      fence_regs<BT / 2>(part);
-      wg_fence();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < n) WgmmaS8<BT>::mma(part, fr[i], xdesc(px[i]), i > 0 || accumulate);
-      wg_commit();
-      accumulate = 1;
+      issue_steps(n);
     };
     // the group's int32 sum (16 times the TPU kernel's) into f32, scaled
     auto flush = [&](const float* sc_row) {
@@ -1390,7 +1484,50 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
     int ra[4], sa[4], rb[4], sb[4];
     bool vb[4];
     const int t = st0 + it;
-    if (a.spg == 1) {  // whole groups (gs <= 128), x in order: gs / 32 k32 steps each
+    const uint8_t* wtp = base + wn * W_BYTES;
+    if (MODE == A8_MASKED && a.spg == 1) {
+      // whole groups of no multiple of 32 values (gs <= 128), x in order:
+      // group j's k32 steps floor(lo / 32) .. ceil(hi / 32) - 1 masked to
+      // its values [lo, hi)
+      const int ng = min(a.gr, a.K / gs - t * a.gr);
+      for (int j = 0; j < ng; ++j) {
+        const int lo = j * gs, s0 = lo >> 5, n = ((lo + gs + 31) >> 5) - s0;
+        auto where = [&](int k) {
+          const int r = k - lo;
+          const int hi = r >= rpg;
+          const int enc = (j * rpg + r - hi * rpg) << 3 | hi << 2;
+          return (unsigned)r < (unsigned)gs ? enc : -1;
+        };
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i < n) {
+            px[i] = 32 * (s0 + i);
+            a8_masked_frag(fr[i], wtp, wt, px[i], where, warp, lane, gid, tq, sel0, sel1);
+          }
+        }
+        issue_steps(n);
+        flush(sc + j * COLS);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) fence_regs<4>(fr[i]);
+      }
+    } else if (MODE == A8_MASKED) {  // a piece: lows against box 0, highs against box 1
+      const int pc = t % a.spg;
+      const int rows = min(STAGE_ROWS, rpg - pc * STAGE_ROWS);
+      auto where = [&](int k) {
+        const int r = k & 63;
+        return r < rows ? r << 3 | (k >> 6) << 2 : -1;
+      };
+      const int n = 2 * ((rows + 31) >> 5);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < n) {
+          px[i] = (i & 1) * 64 + 32 * (i >> 1);
+          a8_masked_frag(fr[i], wtp, wt, px[i], where, warp, lane, gid, tq, sel0, sel1);
+        }
+      }
+      issue_steps(n);
+      if (pc == a.spg - 1 || it == nst - 1) flush(sc);
+    } else if (a.spg == 1) {  // whole groups (gs <= 128), x in order: gs / 32 k32 steps each
       const int ng = min(a.gr, a.K / gs - t * a.gr);
       const int hq = rpg / 16;  // 16-row blocks a group holds
       for (int j = 0; j < ng; ++j) {
@@ -1503,11 +1640,11 @@ int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim
   return launch_with(qmm_wgmma_kernel<BITS, GS, BT>, opted_in, wm, xm, a, grid, smem, st);
 }
 
-template <int BT, bool G128, typename OT>
+template <int BT, int MODE, typename OT>
 int launch_a8(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid, size_t smem,
               cudaStream_t st) {
   static size_t opted_in = 0;
-  return launch_with(qmm_a8_kernel<BT, G128, OT>, opted_in, wm, xm, a, grid, smem, st);
+  return launch_with(qmm_a8_kernel<BT, MODE, OT>, opted_in, wm, xm, a, grid, smem, st);
 }
 
 template <int BITS, int GS>
@@ -1523,21 +1660,21 @@ int launch_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a
   }
 }
 
-template <bool G128, typename OT>
+template <int MODE, typename OT>
 int launch_a8_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
                  size_t smem, cudaStream_t st) {
   switch (bt) {
-    case 16: return launch_a8<16, G128, OT>(wm, xm, a, grid, smem, st);
-    case 32: return launch_a8<32, G128, OT>(wm, xm, a, grid, smem, st);
-    case 64: return launch_a8<64, G128, OT>(wm, xm, a, grid, smem, st);
-    case 80: return launch_a8<80, G128, OT>(wm, xm, a, grid, smem, st);
-    case 128: return launch_a8<128, G128, OT>(wm, xm, a, grid, smem, st);
+    case 16: return launch_a8<16, MODE, OT>(wm, xm, a, grid, smem, st);
+    case 32: return launch_a8<32, MODE, OT>(wm, xm, a, grid, smem, st);
+    case 64: return launch_a8<64, MODE, OT>(wm, xm, a, grid, smem, st);
+    case 80: return launch_a8<80, MODE, OT>(wm, xm, a, grid, smem, st);
+    case 128: return launch_a8<128, MODE, OT>(wm, xm, a, grid, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The stages of K for `bits`-bit weights in groups of gs (a multiple of 16
-// that divides K): a.gr whole groups a stage where a group's weight rows
+// The stages of K for `bits`-bit weights in groups of gs (any group that
+// divides K): a.gr whole groups a stage where a group's weight rows
 // fit in one, else a.spg pieces a group; a.odd where neither divides the
 // other. The wrapper's plan (ops/quant_matmul.py::stage_plan) is the same.
 void plan_stages(Args& a, int bits, int K, int gs) {
@@ -1608,33 +1745,17 @@ void launch_f32(const void* x, const void* w, const void* s, void* out, int B, i
 
 }  // namespace
 
-// x_kind: 0 = float32 x and out, 2 = int8 x (W4A8, float32 out before the
-// row scale); bfloat16 x takes tpuserve_quant_matmul_bf16. K is split into
-// `splits` runs of `gps` scale groups; with splits > 1, `workspace` holds
-// splits*B*N floats. Returns a cudaError_t code.
+// float32 x and out (bfloat16 x takes tpuserve_quant_matmul_bf16, W4A8
+// tpuserve_quant_matmul_a8). K is split into `splits` runs of `gps` scale
+// groups; with splits > 1, `workspace` holds splits*B*N floats. Returns a
+// cudaError_t code.
 extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* scale,
                                      void* out, int B, int K, int N, int gs, int bits,
-                                     int x_kind, int gps, int splits, void* workspace,
-                                     void* stream) {
+                                     int gps, int splits, void* workspace, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
   if (splits < 1 || (splits > 1 && workspace == nullptr)) return (int)cudaErrorInvalidValue;
   float* ws = (float*)workspace;
-  if (x_kind == 2) {
-    if (bits != 4) return (int)cudaErrorInvalidValue;
-    float* dst = splits > 1 ? ws : (float*)out;
-    const int rows = B <= 16 ? 16 : 64;
-    dim3 grid((N + TN - 1) / TN, (B + rows - 1) / rows, splits);
-    if (B <= 16)
-      qmm_w4a8_kernel<1><<<grid, THREADS, 0, st>>>((const int8_t*)x, (const uint8_t*)w,
-                                                   (const float*)scale, dst, B, K, N, gs, gps);
-    else
-      qmm_w4a8_kernel<4><<<grid, THREADS, 0, st>>>((const int8_t*)x, (const uint8_t*)w,
-                                                   (const float*)scale, dst, B, K, N, gs, gps);
-    if (splits > 1) launch_reduce<float>(ws, out, splits, (long long)B * N, st);
-    return (int)cudaGetLastError();
-  }
-  if (x_kind != 0) return (int)cudaErrorInvalidValue;
   if (bits == 4)
     launch_f32<4>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
   else if (bits == 8)
@@ -1644,9 +1765,11 @@ extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* s
   return (int)cudaGetLastError();
 }
 
-// bf16 x [B, K] (16-byte aligned rows) and out [B, N]; q packed uint8
-// [K/2, N] (bits 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0;
-// gs % 16 == 0 and it divides K. bt: the batch tile (16, 32, 64, 72 or
+// bf16 x [B, K] (16-byte aligned rows; for a group of no multiple of 16
+// values, [B, stages * 128] (bits 8: * 64) as ops/quant_matmul.py::
+// stage_x_index gathers it) and out [B, N]; q packed uint8 [K/2, N] (bits
+// 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0; gs divides
+// K (even for bits 4). bt: the batch tile (16, 32, 64, 72 or
 // 128); nwg_n column and nwg_b batch warpgroups a block (bt * nwg_b <= 256;
 // more rows take more blocks along grid.z); sps stages a split and splits =
 // ceil(stages / sps) (stages as plan_stages counts them); with splits > 1,
@@ -1659,8 +1782,8 @@ extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const vo
   using namespace hop;
   const int bad = (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if ((bits != 4 && bits != 8) || gs <= 0 || gs % 16 || K % gs || N % 16 || nwg_n < 1 ||
-      nwg_b < 1)
+  if ((bits != 4 && bits != 8) || gs <= 0 || (bits == 4 && gs % 2) || K % gs || N % 16 ||
+      nwg_n < 1 || nwg_b < 1)
     return bad;
   const int bx = bt * nwg_b;
   if (bx > 256) return bad;
@@ -1671,23 +1794,29 @@ extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const vo
   const int rc = prepare(a, smem, wm, grid, q, scale, out, workspace, counters, B, K, N, gs, bits,
                          nwg_n, nwg_b, bx, bits == 4 ? 2 : 1, bx * 128, sps, splits);
   if (rc) return rc;
+  const bool masked = gs % 16 != 0;
+  // x's row: K values, or (masked) the gathered stages, 64 values a box
+  const uint64_t xw = masked ? (uint64_t)a.total * 64 * (bits == 4 ? 2 : 1) : K;
   CUtensorMap xm;
-  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, B, (uint64_t)K * 2, 64, bx,
+  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, xw, B, xw * 2, 64, bx,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return bad;
   cudaStream_t st = (cudaStream_t)stream;
   if (bits == 8)
-    return a.odd ? launch_bt<8, -1>(bt, wm, xm, a, grid, smem, st)
-                 : launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
+    return masked  ? launch_bt<8, -2>(bt, wm, xm, a, grid, smem, st)
+           : a.odd ? launch_bt<8, -1>(bt, wm, xm, a, grid, smem, st)
+                   : launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
   if (gs == 128) return launch_bt<4, 128>(bt, wm, xm, a, grid, smem, st);
-  return a.odd ? launch_bt<4, -1>(bt, wm, xm, a, grid, smem, st)
-               : launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
+  return masked  ? launch_bt<4, -2>(bt, wm, xm, a, grid, smem, st)
+         : a.odd ? launch_bt<4, -1>(bt, wm, xm, a, grid, smem, st)
+                 : launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
 }
 
-// W4A8: int8 x [B, K] with its f32 row scales [B] (multiplied into each
-// output row); out [B, N] f32 (out_bf16 0) or bf16 (1, rounded after the
-// row scale); q packed uint8 [K/2, N]; scale f32 [K/gs, N]; N % 16 == 0; gs
-// % 32 == 0 and it divides K. bt: 16, 32, 64, 80 or 128; the rest as
+// W4A8: int8 x [B, K] (for a group of no multiple of 32 values, [B, stages
+// * 128] as stage_x_index gathers it), with its f32 row scales [B]
+// (multiplied into each output row); out [B, N] f32 (out_bf16 0) or bf16
+// (1, rounded after the row scale); q packed uint8 [K/2, N]; scale f32
+// [K/gs, N]; N % 16 == 0; gs even, dividing K. bt: 16, 32, 64, 80 or 128; the rest as
 // tpuserve_quant_matmul_bf16. One launch. Returns a cudaError_t code.
 extern "C" int tpuserve_quant_matmul_a8(const void* x, const void* q, const void* scale,
                                         const void* row_scale, void* out, void* workspace,
@@ -1697,7 +1826,7 @@ extern "C" int tpuserve_quant_matmul_a8(const void* x, const void* q, const void
   using namespace hop;
   const int bad = (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (gs <= 0 || gs % 32 || K % gs || N % 16 || nwg_n < 1 || nwg_b < 1 || !row_scale) return bad;
+  if (gs <= 0 || gs % 2 || K % gs || N % 16 || nwg_n < 1 || nwg_b < 1 || !row_scale) return bad;
   const int bx = bt * nwg_b;
   if (bx > 256) return bad;
   Args a;
@@ -1709,28 +1838,57 @@ extern "C" int tpuserve_quant_matmul_a8(const void* x, const void* q, const void
   if (rc) return rc;
   if (sps % a.spg) return bad;  // a split ends where a group does
   a.row_scale = (const float*)row_scale;
+  const bool masked = gs % 32 != 0;
+  const uint64_t xw = masked ? (uint64_t)a.total * 128 : K;  // as the bf16 entry's
   CUtensorMap xm;
-  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, K, B, (uint64_t)K, 64, bx,
+  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, xw, B, xw, 64, bx,
               CU_TENSOR_MAP_SWIZZLE_64B))
     return bad;
   cudaStream_t st = (cudaStream_t)stream;
+  if (masked)
+    return out_bf16 ? launch_a8_bt<A8_MASKED, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st)
+                    : launch_a8_bt<A8_MASKED, float>(bt, wm, xm, a, grid, smem, st);
   if (!out_bf16)  // f32 activations: the general path serves g128 too
-    return launch_a8_bt<false, float>(bt, wm, xm, a, grid, smem, st);
-  return gs == 128 ? launch_a8_bt<true, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st)
-                   : launch_a8_bt<false, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st);
+    return launch_a8_bt<A8_GENERAL, float>(bt, wm, xm, a, grid, smem, st);
+  return gs == 128 ? launch_a8_bt<A8_G128, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st)
+                   : launch_a8_bt<A8_GENERAL, __nv_bfloat16>(bt, wm, xm, a, grid, smem, st);
 }
 
-// x [B, K] float32 (x_kind 0) or bfloat16 (1) to int8 q [B, K] and f32
-// scale [B]. Returns a cudaError_t code.
+// x [B, K] float32 (x_kind 0) or bfloat16 (1) to int8 q [B, W] and f32
+// scale [B]: W = K in order (idx null), or the W positions idx gives (int32,
+// K for a zero). Returns a cudaError_t code.
 extern "C" int tpuserve_quantize_rows(const void* x, void* q, void* scale, int B, int K,
-                                      int x_kind, void* stream) {
+                                      int x_kind, const void* idx, int W, void* stream) {
   if (B <= 0) return 0;
-  if (K <= 0 || (x_kind != 0 && x_kind != 1)) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || (x_kind != 0 && x_kind != 1) || (idx ? W <= 0 : W != K))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (x_kind == 1)
-    quantize_rows_kernel<__nv_bfloat16><<<B, 256, 0, st>>>((const __nv_bfloat16*)x, (int8_t*)q,
-                                                           (float*)scale, K);
-  else
-    quantize_rows_kernel<float><<<B, 256, 0, st>>>((const float*)x, (int8_t*)q, (float*)scale, K);
+  const int* ix = (const int*)idx;
+  int8_t* qo = (int8_t*)q;
+  float* so = (float*)scale;
+  if (x_kind == 1) {
+    const auto* xb = (const __nv_bfloat16*)x;
+    if (ix)
+      quantize_rows_kernel<__nv_bfloat16, true><<<B, 256, 0, st>>>(xb, qo, so, K, ix, W);
+    else
+      quantize_rows_kernel<__nv_bfloat16, false><<<B, 256, 0, st>>>(xb, qo, so, K, ix, W);
+  } else {
+    const auto* xf = (const float*)x;
+    if (ix)
+      quantize_rows_kernel<float, true><<<B, 256, 0, st>>>(xf, qo, so, K, ix, W);
+    else
+      quantize_rows_kernel<float, false><<<B, 256, 0, st>>>(xf, qo, so, K, ix, W);
+  }
+  return (int)cudaGetLastError();
+}
+
+// bf16 x [B, K] to out [B, W] by idx (int32 [W], K for a zero). Returns a
+// cudaError_t code.
+extern "C" int tpuserve_stage_x(const void* x, const void* idx, void* out, int B, int K, int W,
+                                void* stream) {
+  if (B <= 0) return 0;
+  if (K <= 0 || W <= 0 || !idx || B > 65535) return (int)cudaErrorInvalidValue;
+  stage_x_kernel<<<dim3((W + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)x, (const int*)idx, (uint16_t*)out, K, W);
   return (int)cudaGetLastError();
 }

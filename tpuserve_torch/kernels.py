@@ -42,10 +42,11 @@ _LL = ctypes.c_longlong
 # exported C functions -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "tpuserve_vector_add": [_P, _P, _P, _LL, _I, _I, _P],
-    "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
+    "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
     "tpuserve_quant_matmul_bf16": [_P] * 6 + [_I] * 10 + [_P],
     "tpuserve_quant_matmul_a8": [_P] * 7 + [_I] * 10 + [_P],
-    "tpuserve_quantize_rows": [_P] * 3 + [_I] * 3 + [_P],
+    "tpuserve_quantize_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P],
+    "tpuserve_stage_x": [_P] * 3 + [_I] * 3 + [_P],
     "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
     "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],

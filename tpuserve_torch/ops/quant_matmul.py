@@ -16,14 +16,15 @@ exact products and differs only in the order of f32 sums):
   per-group dots are integer with the -8 fold in int32, and the per-row
   activation scale multiplies the f32 output.
 
-bf16 activations take the Hopper kernel for every group of a multiple of
-16 values (`hopper_group_ok`; the groups its 64-row stages cannot tile,
-48, 80, 96, 112, ..., in stages cut along the groups, `stage_plan`); any
-other group takes the CUDA-core kernel on x cast to f32, the same function
-(`bf16_route`, chosen by shape before the launch, counted in
-`group_route_launches`). W4A8 takes the Hopper int8 kernel for groups of a
-multiple of 32 values and the CUDA-core __dp4a kernel for the rest
-(`w4a8_route`, counted in `w4a8_route_launches`).
+bf16 activations take the Hopper kernel for every group (`bf16_route`):
+groups of a multiple of 16 values whose stages tile 64 weight rows as
+they are, the groups those stages cannot tile (48, 80, 96, 112, ...) in
+stages cut along the groups (`stage_plan`, counted in
+`odd_group_launches`), and the groups of no multiple of 16 in masked k16
+steps (`masked_group`, counted in `group_route_launches`). W4A8 takes the
+Hopper int8 kernel for every even group (`w4a8_route`): k32 steps for
+groups of a multiple of 32 (`w4a8_launches`), masked ones for the rest
+(`w4a8_route_launches`). f32 activations take the CUDA-core kernel.
 
 Leading dims of x are flattened into the batch and restored.
 """
@@ -37,15 +38,17 @@ import torch
 from tpuserve_torch.quant.core import QTensor, quantize_activation, unpack_int4
 
 launches = 0  # CUDA kernel launches (the plain version does not count)
-# of those, bf16 activations served by the CUDA-core kernel on x cast to f32
-# (groups of no multiple of 16 values; see bf16_route)
+# of those, bf16 activations on the Hopper kernel in masked k16 steps
+# (groups of no multiple of 16 values; see masked_group)
 group_route_launches = 0
 # bf16 activations on the Hopper kernel in stages cut along odd groups
 odd_group_launches = 0
-# W4A8 on the Hopper int8 kernel, and on the CUDA-core kernel (w4a8_route)
+# W4A8 on the Hopper int8 kernel: groups of a multiple of 32, and the
+# others in masked k32 steps
 w4a8_launches = 0
 w4a8_route_launches = 0
 quantize_launches = 0  # the row quantization kernel (quantize_rows), every W4A8 call
+stage_launches = 0     # the bf16 x gather of the masked steps (stage_x)
 
 
 def _group_size(qt: QTensor) -> int:
@@ -91,29 +94,57 @@ def quant_matmul_plain(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch
     return out.to(out_dtype).reshape(*lead, n)
 
 
-def quantize_rows(x2: torch.Tensor):
+def _gather(x2: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x2[:, index], a zero where index == K: the plain version of the
+    masked steps' x layout."""
+    return torch.nn.functional.pad(x2, (0, 1)).index_select(1, index.to(x2.device).long())
+
+
+def quantize_rows(x2: torch.Tensor, index: Optional[torch.Tensor] = None):
     """W4A8's activations, x [B, K] -> (int8 [B, K], f32 scales [B, 1]):
     quantize_activation's function, by the row kernel
     (csrc/quant_matmul.cu::quantize_rows_kernel, bitwise the same codes and
     scales) for a tensor on the card, by quantize_activation itself (the
-    plain version) for one on the CPU."""
+    plain version) for one on the CPU. With `index` (stage_index) the codes
+    come out in the masked steps' layout, [B, len(index)]."""
     global quantize_launches
     if not x2.is_cuda:
-        return quantize_activation(x2)
+        q, sx = quantize_activation(x2)
+        return (q if index is None else _gather(q, index)), sx
     from tpuserve_torch import kernels
 
     if x2.dtype not in (torch.bfloat16, torch.float32):
         x2 = x2.to(torch.float32)  # exact, as quantize_activation's cast
     x2 = x2.contiguous()
     b, k = x2.shape
-    q = torch.empty((b, k), dtype=torch.int8, device=x2.device)
+    w = k if index is None else index.numel()
+    q = torch.empty((b, w), dtype=torch.int8, device=x2.device)
     sx = torch.empty((b, 1), dtype=torch.float32, device=x2.device)
     rc = kernels.lib().tpuserve_quantize_rows(
         x2.data_ptr(), q.data_ptr(), sx.data_ptr(), b, k, int(x2.dtype == torch.bfloat16),
-        kernels.stream_of(x2))
+        0 if index is None else index.data_ptr(), w, kernels.stream_of(x2))
     kernels.check(rc, "quantize_rows")
     quantize_launches += 1
     return q, sx
+
+
+def stage_x(x2: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """bf16 x [B, K] in the masked steps' layout, [B, len(index)] (x2[:,
+    index], a zero where index == K): csrc/quant_matmul.cu::stage_x_kernel
+    for a tensor on the card, `_gather` (its plain version) for one on the
+    CPU."""
+    global stage_launches
+    if not x2.is_cuda:
+        return _gather(x2, index)
+    from tpuserve_torch import kernels
+
+    b, k = x2.shape
+    out = torch.empty((b, index.numel()), dtype=x2.dtype, device=x2.device)
+    rc = kernels.lib().tpuserve_stage_x(x2.data_ptr(), index.data_ptr(), out.data_ptr(), b, k,
+                                        index.numel(), kernels.stream_of(x2))
+    kernels.check(rc, "stage_x")
+    stage_launches += 1
+    return out
 
 
 def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
@@ -138,7 +169,7 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
 
 
 def _k_splits(b: int, n: int, groups: int, sms: int):
-    """(groups per split, splits) of the CUDA-core kernels (f32 and W4A8
+    """(groups per split, splits) of the CUDA-core kernel (f32
     activations): split K by whole scale groups until the grid holds ~4
     blocks per SM (64-column tiles of 16 or 64 rows, 4 warps)."""
     tiles = -(-n // 64) * -(-b // (16 if b <= 16 else 64))
@@ -152,6 +183,7 @@ _BATCH_TILES = (16, 32, 64, 72, 128)  # wgmma N widths the bf16 kernel is built 
 _A8_TILES = (16, 32, 64, 80, 128)     # and the int8 one (integer wgmma has no n72)
 _STAGE_ROWS = 64       # weight rows a ring stage holds
 _COUNTERS = {}         # device index -> int32 per-tile counters, zero between calls
+_STAGE_X = {}          # (bits, K, gs, device) -> stage_index
 _MAX_TILES = 1 << 16
 
 
@@ -180,34 +212,35 @@ def odd_group(bits: int, gs: int) -> bool:
 
 
 def hopper_group_ok(bits: int, gs: int) -> bool:
-    """Whether the Hopper kernel takes this group size: any multiple of 16
-    values (a k16 step never straddles two groups)."""
-    return gs > 0 and gs % 16 == 0
+    """Whether the Hopper kernels take this group size: any positive group,
+    even for int4 weights (groups of no multiple of 16 values in masked
+    steps)."""
+    return gs > 0 and (bits != 4 or gs % 2 == 0)
+
+
+def masked_group(gs: int, a8: bool = False) -> bool:
+    """Whether a k-step (16 values for bf16 x, 32 for W4A8's int8 x) may
+    cross the end of a group of gs values: the Hopper kernels then issue
+    such a step once for each group it touches, the values of the others
+    masked (csrc/quant_matmul.cu, the GS = -2 and A8_MASKED instances)."""
+    return gs % (32 if a8 else 16) != 0
 
 
 def bf16_route(bits: int, gs: int) -> str:
     """The kernel that serves bf16 activations for int`bits` weights in
-    groups of `gs` values of K, chosen by shape before any launch: "wgmma"
-    (qmm_wgmma_kernel) where hopper_group_ok, else "cuda_core"
-    (qmm_f32_kernel on x cast to f32, the same function: bf16 values are
-    exact in f32, and the kernel takes any group, int4 any even one).
-    Raises on a group neither takes."""
-    if bits not in (4, 8) or gs <= 0 or (bits == 4 and gs % 2):
+    groups of `gs` values of K: "wgmma" (qmm_wgmma_kernel) for every group
+    hopper_group_ok takes. Raises on any other."""
+    if bits not in (4, 8) or not hopper_group_ok(bits, gs):
         raise ValueError(f"quant_matmul kernel: no kernel takes int{bits} groups of {gs}")
-    return "wgmma" if hopper_group_ok(bits, gs) else "cuda_core"
+    return "wgmma"
 
 
 def w4a8_route(gs: int) -> str:
     """The kernel that serves W4A8 (int4 weights, int8 x) in groups of gs:
-    "wgmma" (qmm_a8_kernel, int8 wgmma: every int32 flush falls on a k32
-    step) for gs % 32 == 0, else "cuda_core" (qmm_w4a8_kernel, which takes
-    gs % 8 == 0 with gs/2 at most 64 or a multiple of 64). Raises on a group
-    neither takes."""
-    if gs > 0 and gs % 32 == 0:
+    "wgmma" (qmm_a8_kernel, int8 wgmma) for every even group, as the JAX
+    package takes every even int4 group. Raises on any other."""
+    if gs > 0 and gs % 2 == 0:
         return "wgmma"
-    half = gs // 2
-    if gs > 0 and gs % 8 == 0 and half % min(half, 64) == 0:
-        return "cuda_core"
     raise ValueError(f"quant_matmul kernel: unsupported W4A8 group size {gs}")
 
 
@@ -258,14 +291,50 @@ def _counters(device) -> torch.Tensor:
     return _COUNTERS[idx]
 
 
+def stage_x_index(bits: int, k: int, gs: int) -> torch.Tensor:
+    """The x layout of the masked steps: for every x position of every
+    stage (stage_plan's), the K value it holds, or k for a zero. A stage
+    has 128 positions, two boxes of 64 (int8 weights: one box of 64): whole
+    groups' values in order from position 0, or a piece's values that meet
+    its low nibbles from 0 and (int4) its high ones from 64. So every box
+    starts 16 bytes aligned, as TMA reads it, wherever the stage starts in
+    K; the kernel reads the values in its own order."""
+    rpg = gs // 2 if bits == 4 else gs
+    gr, spg, total = stage_plan(bits, k, gs)
+    idx = torch.full((total, 128 if bits == 4 else 64), k, dtype=torch.long)
+    if spg == 1:
+        span = gr * gs
+        ks = torch.arange(total)[:, None] * span + torch.arange(span)[None]
+        idx[:, :span] = torch.where(ks < k, ks, k)
+    else:
+        t = torch.arange(total)[:, None]
+        r = torch.arange(_STAGE_ROWS)[None]
+        grp, pc = t // spg, t % spg
+        valid = r < rpg - pc * _STAGE_ROWS
+        lo = grp * gs + pc * _STAGE_ROWS + r
+        idx[:, :_STAGE_ROWS] = torch.where(valid, lo, k)
+        if bits == 4:
+            idx[:, _STAGE_ROWS:] = torch.where(valid, lo + rpg, k)
+    return idx.reshape(-1)
+
+
+def stage_index(bits: int, k: int, gs: int, device) -> torch.Tensor:
+    """stage_x_index as int32 on `device`, made once a shape."""
+    key = (bits, k, gs, str(device))
+    if key not in _STAGE_X:
+        _STAGE_X[key] = stage_x_index(bits, k, gs).to(torch.int32).to(device)
+    return _STAGE_X[key]
+
+
 def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None):
     """qmm_wgmma_kernel (bf16 x), or qmm_a8_kernel (row_scale given: W4A8,
     int8 x, its row scales multiplied into the f32 or bf16 out), K split in
-    the same launch."""
+    the same launch; x [B, K], or for a masked group already in the masked
+    steps' layout (stage_x, quantize_rows with stage_index)."""
     a8 = row_scale is not None
     from tpuserve_torch import kernels
 
-    b, k = x2.shape
+    b, k = x2.shape[0], qt.orig_shape[0]
     n_pad = out.shape[1]
     if x2.data_ptr() % 16:
         x2 = x2.clone()  # TMA reads x rows from a 16-byte aligned base
@@ -293,9 +362,9 @@ def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None):
     kernels.check(rc, "quant_matmul")
 
 
-def _launch_cuda_core(x2, q, scale, out, bits, gs, x_kind, block_k):
-    """qmm_f32_kernel (x_kind 0, f32 x) or qmm_w4a8_kernel (x_kind 2), K
-    split by whole scale groups into a workspace reduced in split order."""
+def _launch_cuda_core(x2, q, scale, out, bits, gs, block_k):
+    """qmm_f32_kernel (f32 x), K split by whole scale groups into a
+    workspace reduced in split order."""
     from tpuserve_torch import kernels
 
     b, k = x2.shape
@@ -313,7 +382,7 @@ def _launch_cuda_core(x2, q, scale, out, bits, gs, x_kind, block_k):
         if splits > 1 else None
     rc = kernels.lib().tpuserve_quant_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        b, k, n_pad, gs, bits, x_kind, gps, splits, 0 if ws is None else ws.data_ptr(),
+        b, k, n_pad, gs, bits, gps, splits, 0 if ws is None else ws.data_ptr(),
         kernels.stream_of(x2))
     kernels.check(rc, "quant_matmul")
 
@@ -338,15 +407,12 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     b = x2.shape[0]
     _check_launchable(x2, qt)
     act_int8 = qt.bits == 4 and qt.act_bits == 8
-    sx = None
+    gs = _group_size(qt)
+    masked = (act_int8 or x2.dtype == torch.bfloat16) and masked_group(gs, act_int8)
+    index = stage_index(qt.bits, k, gs, x2.device) if masked else None
     if act_int8:
-        x2, sx = quantize_rows(x2)
-        x_kind = 2
-    elif x2.dtype == torch.bfloat16:
-        x_kind = 1
-    elif x2.dtype == torch.float32:
-        x_kind = 0
-    else:
+        x2, sx = quantize_rows(x2, index)
+    elif x2.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_matmul kernel: unsupported activation dtype {x2.dtype}")
     x2 = x2.contiguous()
     q, scale = qt.q.contiguous(), qt.scale.to(torch.float32).contiguous()
@@ -354,35 +420,26 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     if n_pad != n:
         q = torch.nn.functional.pad(q, (0, n_pad - n))
         scale = torch.nn.functional.pad(scale, (0, n_pad - n))
-    gs = _group_size(qt)
-    if x_kind == 1:
-        route = bf16_route(qt.bits, gs)
-    elif x_kind == 2:
-        route = w4a8_route(gs)
-    else:
-        route = "cuda_core"
-    # W4A8 on int8 wgmma writes out_dtype's bf16 itself, the row scale in
-    out_kind = torch.bfloat16 if x_kind == 1 or (
-        x_kind == 2 and route == "wgmma" and out_dtype == torch.bfloat16) else torch.float32
-    out = torch.empty((b, n_pad), dtype=out_kind, device=x2.device)
-    if route == "wgmma":
-        _launch_hopper(x2, q, scale, out, qt, gs, block_k, sx if x_kind == 2 else None)
-        if x_kind == 2:
+    if act_int8:
+        # W4A8 on int8 wgmma writes out_dtype's bf16 itself, the row scale in
+        out = torch.empty((b, n_pad), dtype=torch.bfloat16 if out_dtype == torch.bfloat16
+                          else torch.float32, device=x2.device)
+        _launch_hopper(x2, q, scale, out, qt, gs, block_k, sx)
+        if masked:
+            w4a8_route_launches += 1
+        else:
             w4a8_launches += 1
-            sx = None   # applied in the kernel
+    elif x2.dtype == torch.bfloat16:
+        out = torch.empty((b, n_pad), dtype=torch.bfloat16, device=x2.device)
+        _launch_hopper(stage_x(x2, index) if masked else x2, q, scale, out, qt, gs, block_k)
+        if masked:
+            group_route_launches += 1
         elif odd_group(qt.bits, gs):
             odd_group_launches += 1
-    elif x_kind == 1:   # a group of no multiple of 16 values
-        out = torch.empty((b, n_pad), dtype=torch.float32, device=x2.device)
-        _launch_cuda_core(x2.to(torch.float32), q, scale, out, qt.bits, gs, 0, block_k)
-        group_route_launches += 1
     else:
-        _launch_cuda_core(x2, q, scale, out, qt.bits, gs, x_kind, block_k)
-        if x_kind == 2:
-            w4a8_route_launches += 1
+        out = torch.empty((b, n_pad), dtype=torch.float32, device=x2.device)
+        _launch_cuda_core(x2, q, scale, out, qt.bits, gs, block_k)
     launches += 1
     if n_pad != n:
         out = out[:, :n]
-    if sx is not None:
-        out = out * sx
     return out.to(out_dtype).reshape(*lead, n)
