@@ -39,10 +39,16 @@ Phases, each fatal on failure:
   6. spec     the JAX package's 7B speculation setting (int8 KV, 8 slots
               of 512, 8 drafts, 4 fused rounds): 8 concurrent greedy
               requests of a periodic prompt with speculation on, then off
-              on the same engine; drafts, no disabled speculation and 32
-              multi-kernel launches per verify round are required; one
+              on the same engine; drafts, no disabled speculation, 32
+              multi-kernel launches per verify round and no served request
+              whose tokens on and off part on a clear step (top two logits
+              of a prefill of the shared tokens apart) are required; one
               full-width verify_step against its plain versions and
-              against C sequential decode steps;
+              against C sequential decode steps (greedy tokens equal on
+              every candidate whose top two logits are apart), no plain
+              version in the profiled verify step;
+  6b. spec-bf16  the same on the JAX package's default cache (kv_cache
+              none, bf16): the multi kernel's float route;
   7. spec-paged  the paged setting with speculation: drafts, every page
               back, and no multi-kernel launch (the paged verify attends in
               plain torch);
@@ -51,8 +57,14 @@ Phases, each fatal on failure:
               decode step (the Hopper kernel reading the packed int4 window
               in place) and no flat-kernel launch; one full-width decode
               step through the kernels against the plain versions, its
-              logits under grouped, pallas and xla on copies of one cache,
-              and no plain unpack in the timed and profiled steps;
+              logits under grouped, pallas and xla on copies of one cache
+              (greedy tokens of grouped and pallas equal wherever the top
+              two logits are apart), no plain unpack and no plain version
+              in the timed and profiled steps, and the same requests
+              served under pallas on the same engine, parting from
+              grouped on no clear step;
+  8b. grouped-bf16  the same on the default bf16 cache: the grouped
+              kernel's bf16 route, 32 launches a decode step;
   9. sweep    the decode-attention diagnostic ladder
               (tpuserve_torch.scripts.sweep_attention) with every variant at
               its Llama-2-7B defaults: the probes' streaming rates, the
@@ -71,8 +83,9 @@ Phases, each fatal on failure:
               qmatmul_sweep) at its defaults: chained int4/int8 matmuls at
               the wrapper's split and at each block_k, and the
               dequantize-then-matmul control.
-The kernel phase also holds the grouped kernels (packed int4, int8 and
-bf16; the packed route beside the parent's unpack-then-int8 route),
+The kernel phase also holds the grouped kernel (packed int4, int8, bf16 at
+g_kv 1, 16 // rep and Hkv, and f32; the packed route beside the parent's
+unpack-then-int8 route),
 decode_attention_wide, the three probes (dot_only on tensor cores), the
 five unpack probes and the three copy forms against their plain
 versions; the quant-matmul at B=64 (a decode step), B=72 (a verify step)
@@ -86,7 +99,7 @@ the masked steps' x layout (stage_x for bf16 x, the row quantization's
 codes written in it for W4A8) bitwise against its plain gather; f32 x on
 the CUDA-core kernel beside torch.matmul in f32, and W8A8 (a float64
 torch.matmul) beside torch._int_mm, as records; the
-multi-candidate kernel also on a bf16 cache beside SDPA; and the flat,
+multi-candidate kernel also on bf16 and f32 caches beside SDPA; and the flat,
 multi and grouped (int8 and packed int4) kernels under
 TPUSERVE_ATTN_DYNSKIP=0 against =1.
 The slice phase also runs one full-width decode step under
@@ -874,9 +887,10 @@ def check_decode_attention_paged(torch, timer, reps, p):
 def check_decode_attention_multi(torch, timer, reps, p):
     """The multi-candidate (speculative verify) kernel at the [spec] phase's
     shapes (S=8 slots, C=9 candidates, L=512, Llama-2-7B heads, positions
-    100-400; int8, packed int4 and bf16 caches, each beside SDPA) against
-    its plain version, and each candidate c against the flat kernel at
-    positions + c on the same KV."""
+    100-400; int8, packed int4, bf16 and f32 caches, each beside SDPA)
+    against its plain version, and each candidate c against the flat kernel
+    at positions + c on the same KV. The bf16 case is the [spec-bf16]
+    phase's route (the float multi entry of the kernels line)."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_cache_multi,
         decode_attention_wide_cache_multi_plain)
@@ -889,10 +903,11 @@ def check_decode_attention_multi(torch, timer, reps, p):
     pos_c = [pos + j for j in range(c)]
     live = int((pos + c).sum().item())          # KV rows the kernel reads, once each
     cand_rows = sum(int((pc + 1).sum().item()) for pc in pos_c)  # rows each candidate sees
-    worst, rows, main = 0.0, [], None
-    for kind in ("int8", "int4", "bf16"):
-        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
-        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)  # f32 scales
+    rows, main, main_f = [], None, None
+    for kind in ("int8", "int4", "bf16", "f32"):
+        flt = kind in ("bf16", "f32")
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2, "f32": 4}[kind]
+        kv_live = 2 * live * w * elem + (0 if flt else 2 * live * hkv * 4)   # f32 scales
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
         shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
         if kind == "int4":
@@ -902,10 +917,10 @@ def check_decode_attention_multi(torch, timer, reps, p):
             kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.int8) for _ in range(2)]
         else:
-            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                  for _ in range(2)]
+            kv = [torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16 if kind == "bf16" else torch.float32) for _ in range(2)]
         sc = None
-        if kind != "bf16":
+        if not flt:
             sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
                   for _ in range(2)]
         q = (torch.randn((s, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
@@ -933,24 +948,28 @@ def check_decode_attention_multi(torch, timer, reps, p):
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
             fail(f"decode_attention_multi {kind}: max|err| {err} > {tol}")
-        # int8/int4: candidate j runs the flat kernel's blocks over the same
-        # bytes with the same arithmetic, and blocks past its horizon add
-        # nothing: equal up to f32 rounding (expected 0). bf16: two kernels
-        # of their own (decode_attention_multi.cu, decode_attention.cu), each
-        # held against the plain version: within that check's tolerance
+        # every cache: candidate j runs the flat kernel's blocks (the same
+        # core) over the same bytes with the same arithmetic, and blocks past
+        # its horizon add nothing: equal up to f32 rounding (expected 0)
         flat_err = (out - out_flat).abs().max().item()
-        flat_tol = tol if kind == "bf16" else 1e-6 * out_flat.abs().max().item() + 1e-7
+        flat_tol = 1e-6 * out_flat.abs().max().item() + 1e-7
         if not flat_err <= flat_tol:
             fail(f"decode_attention_multi {kind}: differs from the flat kernel at "
                  f"positions + c by {flat_err} > {flat_tol}")
-        worst = max(worst, err)
+        # an inactive slot (positions -1): candidate 0 exactly 0
+        pos_off = pos.clone()
+        pos_off[1] = -1
+        out_off = decode_attention_wide_cache_multi(q, kv[0], kv[1], *scales(1), pos_off, 1,
+                                                    window=l)
+        if not torch.all(out_off[1, 0] == 0):
+            fail(f"decode_attention_multi {kind}: an inactive slot's candidate 0 is not zero")
         ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi, i), reps)
         flat_ms = timer.ms(call_flat, reps)
         plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi_plain, i),
                             max(2, reps // 5))
         nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
         ops = 2 * 2 * cand_rows * h * hd
-        b_ms, b_by = bound(nbytes, ops, PEAK_OPS["bf16" if kind == "bf16" else "int8"])
+        b_ms, b_by = bound(nbytes, ops, PEAK_OPS[kind if flt else "int8"])
         lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], *scales(0), pos, kind)
         row = dict(kind=kind, S=s, C=c, H=h, Hkv=hkv, L=l, live_rows=live,
                    candidate_rows=cand_rows, layers_rotated=n_layers, max_abs_err=err, tol=tol,
@@ -958,6 +977,8 @@ def check_decode_attention_multi(torch, timer, reps, p):
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if kind == "int8":                      # the [spec] phase's KV
             main = row
+        if kind == "bf16":                      # the [spec-bf16] phase's KV
+            main_f = row
         rows.append(row)
         log(f"[kernel] decode_attention_multi {kind} S={s} C={c} H={h} Hkv={hkv} L={l}: "
             f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel at pos + c {flat_err:.3g} "
@@ -1006,21 +1027,31 @@ def check_decode_attention_multi(torch, timer, reps, p):
         del kv, sc, q1, q1_flat
         torch.cuda.empty_cache()
     n_l = p.n_layers
-    return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows if r["kind"] in ("int8", "int4")),
+                ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
                 per="one verify step: 32 launches, int8 KV, S=8, C=9, L=512",
-                cases=rows + c1_rows)
+                cases=rows + c1_rows,
+                float=dict(max_abs_err=max(r["max_abs_err"] for r in rows
+                                           if r["kind"] in ("bf16", "f32")),
+                           ms=n_l * main_f["ms"], plain_ms=n_l * main_f["plain_ms"],
+                           bound_ms=n_l * main_f["bound_ms"], bound_by=main_f["bound_by"],
+                           library_ms=n_l * main_f["library_ms"],
+                           flat_ms=n_l * main_f["flat_ms"],
+                           per="one verify step: 32 launches, bf16 KV (kv_cache none), S=8, "
+                               "C=9, L=512"))
 
 
 def check_decode_attention_grouped(torch, timer, reps, p):
-    """The grouped kernels at the [grouped] phase's shapes (S=64, L=256,
+    """The grouped kernel at the [grouped] phase's shapes (S=64, L=256,
     Llama-2-7B heads, step positions) and at a rep-4 shape (H=32, Hkv=8):
     the packed int4 route (the [grouped] path: the Hopper kernel reads the
-    packed window), int8 and bf16, with the default split (one kv head a
-    block) and g_kv = Hkv, against their plain versions; the flat kernel on
-    the same KV beside them, and for packed int4 the parent's route (the
-    window unpacked by unpack_kv_codes, then the int8 kernel)."""
+    packed window), int8, bf16 (the [grouped-bf16] path) and f32, with the
+    default split (one kv head a block), bf16 also with the JAX package's
+    16 // rep, and g_kv = Hkv, against their plain versions; the flat
+    kernel on the same KV beside them, and for packed int4 the parent's
+    route (the window unpacked by unpack_kv_codes, then the int8 kernel)."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention, decode_attention_packed, decode_attention_packed_plain,
         decode_attention_plain, decode_attention_wide_cache, unpack_kv_codes)
@@ -1030,15 +1061,16 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     s, l, hd = 64, 256, p.head_dim
     pos = step_positions(torch, g, s)
     live = int((pos.clamp(min=-1) + 1).sum().item())        # KV rows the data needs
-    worst, rows, main = 0.0, [], None
+    rows, main, main_f = [], None, None
     for kind, h, hkv in (("int4", p.n_heads, p.n_kv_heads), ("int8", p.n_heads, p.n_kv_heads),
-                         ("bf16", p.n_heads, p.n_kv_heads), ("int4", p.n_heads, 8),
-                         ("int8", p.n_heads, 8), ("bf16", p.n_heads, 8)):
+                         ("bf16", p.n_heads, p.n_kv_heads), ("f32", p.n_heads, p.n_kv_heads),
+                         ("int4", p.n_heads, 8), ("int8", p.n_heads, 8), ("bf16", p.n_heads, 8)):
         w = hkv * hd
-        elem = {"int4": 0.5, "int8": 1, "bf16": 2}[kind]
+        flt = kind in ("bf16", "f32")
+        elem = {"int4": 0.5, "int8": 1, "bf16": 2, "f32": 4}[kind]
         # read-all (TPUSERVE_ATTN_DYNSKIP=0, the default here) reads every row;
         # the bound counts the live ones
-        kv_live = 2 * live * w * elem + (2 * live * hkv * 4 if kind != "bf16" else 0)
+        kv_live = 2 * live * w * elem + (0 if flt else 2 * live * hkv * 4)
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / (2 * s * l * w * elem)))
         shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
         if kind == "int4":
@@ -1048,14 +1080,15 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             kv = [torch.randint(-127, 128, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.int8) for _ in range(2)]
         else:
-            kv = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                  for _ in range(2)]
+            kv = [torch.randn(shape, generator=g, device="cuda").to(
+                torch.bfloat16 if kind == "bf16" else torch.float32) for _ in range(2)]
         sc = [None, None]
-        if kind != "bf16":     # f32 head-major, as the engine's cache
+        if not flt:     # f32 head-major, as the engine's cache
             sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
                   for _ in range(2)]
         q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
-        for g_kv in (None, hkv):
+        g_kvs = {"bf16": (None, 16 // (h // hkv), hkv), "f32": (None,)}.get(kind, (None, hkv))
+        for g_kv in g_kvs:
             def call(fn, i, g_kv=g_kv):
                 li = i % n_layers
                 if kind == "int4":     # the packed window and head-major scales, in place
@@ -1082,23 +1115,23 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             ref = call(plain, 1)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
-            # the same arithmetic and exact integer dots; an ulp of expf
-            # against torch.exp can tip one P entry across a bf16 rounding
-            # boundary (2^-8 of it): 1e-3 of the output range
+            # the same arithmetic and exact integer (bf16: f32-exact) products;
+            # an ulp of expf against torch.exp, or of the order of f32 sums,
+            # can tip one P entry across a bf16 rounding boundary (2^-8 of
+            # it): 1e-3 of the output range
             tol = 1e-3 * ref.abs().max().item() + 1e-7
             if not err <= tol:
                 fail(f"decode_attention_grouped {kind} H={h} Hkv={hkv} g_kv={g_kv}: "
                      f"max|err| {err} > {tol}")
             if not torch.all(out[pos < 0] == 0):
                 fail("decode_attention_grouped: inactive slots are not zero")
-            worst = max(worst, err)
             ms = timer.ms(lambda i: call(kern, i), reps)
             flat_ms = timer.ms(flat, reps)
             unpack_ms = timer.ms(unpacked, reps) if kind == "int4" and g_kv is None else None
             plain_ms = timer.ms(lambda i: call(plain, i), max(2, reps // 5))
             nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
             ops = 2 * 2 * live * h * hd
-            b_ms, b_by = bound(nbytes, ops, PEAK_OPS["int8" if kind != "bf16" else "bf16"])
+            b_ms, b_by = bound(nbytes, ops, PEAK_OPS[kind if flt else "int8"])
             lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0],
                              None if sc[0] is None else sc[0][0],
                              None if sc[0] is None else sc[1][0], pos, kind)
@@ -1106,8 +1139,11 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                        layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms, flat_ms=flat_ms,
                        unpack_then_int8_ms=unpack_ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
-            if kind == "int4" and hkv == p.n_kv_heads and g_kv is None:   # the [grouped] path
-                main = row
+            if hkv == p.n_kv_heads and g_kv is None and kind in ("int4", "bf16"):
+                if kind == "int4":     # the [grouped] path
+                    main = row
+                else:                  # the [grouped-bf16] path
+                    main_f = row
             rows.append(row)
             extra = "" if unpack_ms is None else f", unpack + int8 kernel {unpack_ms:.4f} ms"
             log(f"[kernel] decode_attention_grouped {kind} S={s} H={h} Hkv={hkv} L={l} "
@@ -1118,12 +1154,20 @@ def check_decode_attention_grouped(torch, timer, reps, p):
         del kv, sc, q
         torch.cuda.empty_cache()
     n_l = p.n_layers
-    return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
+    worst = lambda kinds: max(r["max_abs_err"] for r in rows if r["kind"] in kinds)
+    return dict(max_abs_err=worst(("int4", "int8")), ms=n_l * main["ms"],
+                plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
                 unpack_then_int8_ms=n_l * main["unpack_then_int8_ms"],
                 per="one decode step: 32 launches, packed int4 window read in place, S=64, "
-                    "L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows)
+                    "L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows,
+                float=dict(max_abs_err=worst(("bf16", "f32")), ms=n_l * main_f["ms"],
+                           plain_ms=n_l * main_f["plain_ms"], bound_ms=n_l * main_f["bound_ms"],
+                           bound_by=main_f["bound_by"], library_ms=n_l * main_f["library_ms"],
+                           flat_ms=n_l * main_f["flat_ms"],
+                           per="one decode step: 32 launches, bf16 window (kv_cache none), S=64, "
+                               "L=256, g_kv 1, TPUSERVE_ATTN_DYNSKIP=0"))
 
 
 def check_dynskip(torch, timer, reps, p):
@@ -1522,6 +1566,33 @@ def plain_kernels(llama):
     finally:
         for n, fn in zip(names, saved):
             setattr(llama, n, fn)
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every plain version of the attention and
+    quant-matmul wrappers (a wrapper takes it only for CPU tensors), to show
+    that a profiled step ran none: yields the list of the names called."""
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    calls, saved = [], []
+    for mod in (decode_attention, quant_matmul):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if name.endswith("_plain") and callable(fn):
+                saved.append((mod, name, fn))
+                setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (calls.append(_n),
+                                                                      _fn(*a, **kw))[1])
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def cache_tensors(cache):
+    """The contiguous cache's tensors (a float cache has no scales)."""
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
 
 
 def qmatmul_xla_step(torch, llama, engine, p, toks, cache, pos, logits_k, restore, busy):
@@ -2109,6 +2180,35 @@ def _first_diff(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+def _gate_served(torch, engine, p, prompts, a_tokens, b_tokens, margin, tag, what):
+    """Fail on a served request whose first token that differs between two
+    runs (`a_tokens` against `b_tokens`) falls on a clear step: one prefill
+    of its prompt and the tokens the runs share gives that step's logits,
+    and the step is clear where their top two are further apart than
+    `margin` (twice the two paths' difference on the full-width step). A
+    near tie that tipped is reported. Returns the differing steps' gaps."""
+    from tpuserve_torch.models import llama
+
+    gaps = []
+    for i, (prompt, a, b) in enumerate(zip(prompts, a_tokens, b_tokens)):
+        d = _first_diff(a, b)
+        if d is None:
+            continue
+        seq = list(prompt) + list(a[:d])
+        cache = llama.KVCache.create(p, 1, len(seq), quantized=False, device=DEVICE)
+        toks = torch.tensor([seq], dtype=torch.long, device=DEVICE)
+        top2 = llama.prefill(engine.params, p, toks, cache, 0, len(seq))[0].float().topk(2)
+        gap = (top2.values[0, 0] - top2.values[0, 1]).item()
+        gaps.append(gap)
+        del cache
+        if gap > margin:
+            fail(f"[{tag}] request {i}: {what} differ at token {d}, a clear step (top-two gap "
+                 f"{gap:.4g} > {margin:.4g})")
+    log(f"[{tag}] served tokens, {what}: top-two gaps at the first differing tokens {gaps} "
+        f"(fatal above {margin:.4g})")
+    return gaps
+
+
 def _host_ms(torch, fn, n=6):
     """Median host-clock time of fn(i), synchronized, the first call left out."""
     times = []
@@ -2122,17 +2222,21 @@ def _host_ms(torch, fn, n=6):
     return rest[len(rest) // 2], times
 
 
-def phase_spec(torch, p, smi_line):
+def phase_spec(torch, p, smi_line, tag="spec", kv_cache="int8"):
     """Speculative decoding through the served path: 8 concurrent greedy
     requests of the periodic prompt, speculation on (the main path's run of
     the multi kernel) and then off on the same engine; then one full-width
-    verify_step, kernels vs plain versions and vs C sequential decode steps."""
+    verify_step, kernels vs plain versions and vs C sequential decode steps
+    (greedy tokens equal on every slot whose top two logits are apart), and
+    one profiled verify step with no plain-version call. `kv_cache` "none"
+    (the [spec-bf16] phase) is the JAX package's default bf16 cache."""
     from tpuserve_torch.engine.manager import InferenceManager
     from tpuserve_torch.models import llama
     from tpuserve_torch.ops import decode_attention, quant_matmul
 
     cfg = _spec_model_config(p)
-    name = cfg["name"]
+    cfg["quantization"]["kv_cache"] = kv_cache
+    cfg["name"] = name = f"{cfg['name']}_{kv_cache}"
     torch.cuda.reset_peak_memory_stats()
     mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
     mgr.load_model(name)
@@ -2148,7 +2252,7 @@ def phase_spec(torch, p, smi_line):
     decode_attention.paged_launches = decode_attention.multi_launches = 0
     base = dict(steps=engine.steps, prefills=engine.prefill_calls, verifies=engine.verify_calls,
                 drafted=engine.spec_drafted, accepted=engine.spec_accepted)
-    on_tokens, on_wall = _serve_wave(backend, prompts, new, "spec")
+    on_tokens, on_wall = _serve_wave(backend, prompts, new, tag)
     launches = {"quant_matmul": quant_matmul.launches,
                 "decode_attention": decode_attention.launches,
                 "decode_attention_paged": decode_attention.paged_launches,
@@ -2164,24 +2268,24 @@ def phase_spec(torch, p, smi_line):
             "decode_attention_multi": p.n_layers * verifies}
     acceptance = accepted / drafted if drafted else None
     on_tok_s = n_slots * new / on_wall
-    log(f"[spec] {n_slots} concurrent greedy requests of the periodic 96-token prompt, {new} "
+    log(f"[{tag}] {n_slots} concurrent greedy requests of the periodic 96-token prompt, {new} "
         f"tokens each: {on_wall:.2f} s, {on_tok_s:.1f} tok/s; verify calls {verifies} (rounds), "
         f"decode steps {steps - verifies}, prefill calls {prefills}; drafted {drafted}, "
         f"accepted {accepted} (acceptance {acceptance}); launches {launches} (expected {want}); "
         f"speculation disabled {engine._spec_disabled}")
     if drafted <= 0:
-        fail("[spec] no token was drafted")
+        fail(f"[{tag}] no token was drafted")
     if engine._spec_disabled:
-        fail("[spec] a verify dispatch failed and disabled speculation")
+        fail(f"[{tag}] a verify dispatch failed and disabled speculation")
     if verifies < 1 or launches != want:
-        fail("[spec] kernel launch counts do not match the path's calls")
+        fail(f"[{tag}] kernel launch counts do not match the path's calls")
 
     gen.speculation_tokens = 0                           # the same engine, speculation off
-    off_tokens, off_wall = _serve_wave(backend, prompts, new, "spec-off")
+    off_tokens, off_wall = _serve_wave(backend, prompts, new, f"{tag}-off")
     gen.speculation_tokens = spec_k
     off_tok_s = n_slots * new / off_wall
     diffs = [_first_diff(a, b) for a, b in zip(on_tokens, off_tokens)]
-    log(f"[spec] speculation off, same engine and traffic: {off_wall:.2f} s, {off_tok_s:.1f} "
+    log(f"[{tag}] speculation off, same engine and traffic: {off_wall:.2f} s, {off_tok_s:.1f} "
         f"tok/s (on/off {on_tok_s / off_tok_s:.3f}); first differing token per request, on vs "
         f"off (None = equal): {diffs}; card {smi_line}")
 
@@ -2198,7 +2302,7 @@ def phase_spec(torch, p, smi_line):
     lens[3] = 4
     pos[5], lens[5] = -1, 0
     valid = torch.arange(c, device=DEVICE)[None, :] < lens[:, None]
-    tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    tensors = cache_tensors(cache)
     snapshot = [t.clone() for t in tensors]
 
     def restore():
@@ -2214,8 +2318,7 @@ def phase_spec(torch, p, smi_line):
     with plain_kernels(llama):
         logits_p = verify().float()
     restore()
-    seq = llama.KVCache(k=snapshot[0].clone(), v=snapshot[1].clone(),
-                        k_scale=snapshot[2].clone(), v_scale=snapshot[3].clone())
+    seq = llama.KVCache(*[t.clone() for t in snapshot], *[None] * (4 - len(snapshot)))
     seq_logits = []
     for j in range(c):
         step_pos = torch.where(lens > j, pos + j, -1).to(torch.int32)
@@ -2228,6 +2331,12 @@ def phase_spec(torch, p, smi_line):
     seq_err = (logits_k - logits_s)[valid].abs().max().item()
     agree = (logits_k.argmax(-1) == logits_p.argmax(-1))[valid].float().mean().item()
     seq_agree = (logits_k.argmax(-1) == logits_s.argmax(-1))[valid].float().mean().item()
+    # greedy tokens of the verify and of the sequential steps, equal on every
+    # (slot, candidate) whose top two logits are further apart than twice
+    # the two paths' difference
+    top2 = logits_s.topk(2, dim=-1).values
+    clear = valid & ((top2[..., 0] - top2[..., 1]) > 2 * seq_err)
+    clear_equal = bool((logits_k.argmax(-1) == logits_s.argmax(-1))[clear].all())
     finite = bool(torch.isfinite(logits_k).all())
     zero = bool((logits_k[~valid] == 0).all())
     # as the full-width decode steps: bf16 activations through 32 layers
@@ -2235,32 +2344,46 @@ def phase_spec(torch, p, smi_line):
     # forward. The sequential decode steps also compute each candidate's
     # K/V in a batch of another shape. Bound: 5% of the logit range
     tol = 0.05 * ref_max
-    log(f"[spec] full-width verify_step (S={n_slots}, C={c}), kernels vs plain: max|err| "
+    log(f"[{tag}] full-width verify_step (S={n_slots}, C={c}), kernels vs plain: max|err| "
         f"{err:.4g} of {ref_max:.4g} (tol {tol:.4g}), argmax agreement {agree:.4f}; vs {c} "
         f"sequential decode steps: max|err| {seq_err:.4g} (tol {tol:.4g}), argmax agreement "
-        f"{seq_agree:.4f}; finite {finite}; invalid rows zero {zero}")
-    if not finite or not zero or not err <= tol or not seq_err <= tol:
-        fail("[spec] full-width verify_step disagrees with its plain path or sequential decode")
+        f"{seq_agree:.4f}, equal on all {int(clear.sum())} clear of {int(valid.sum())}: "
+        f"{clear_equal}; finite {finite}; invalid rows zero {zero}")
+    if not finite or not zero or not err <= tol or not seq_err <= tol or not clear_equal:
+        fail(f"[{tag}] full-width verify_step disagrees with its plain path or sequential decode")
+    served_gaps = _gate_served(torch, engine, p, prompts, on_tokens, off_tokens, 2 * seq_err, tag,
+                               "speculation on and off")
 
     verify_ms, verify_times = _host_ms(torch, verify)
     decode_ms, decode_times = _host_ms(torch, lambda i: llama.decode_step(
         engine.params, p, toks[:, 0], cache, torch.where(pos >= 0, pos + i, pos)))
     restore()
-    busy = profile_step(torch, verify, tag="spec", what="verify step")
+    with plain_calls() as plain:
+        busy = profile_step(torch, verify, tag=tag, what="verify step")
     restore()
+    multi_dev = None
+    if busy:
+        multi_dev = sum(ms for key, ms, _ in busy["rows"] if "attn_core_kernel" in key)
+    log(f"[{tag}] plain-version calls in the profiled verify step: {plain or 'none'}; the "
+        f"multi-candidate kernel's device time in it: "
+        f"{'not measured' if multi_dev is None else f'{multi_dev:.3f} ms'}")
+    if plain:
+        fail(f"[{tag}] the profiled verify step ran a plain version")
     peak = torch.cuda.max_memory_allocated()
-    log(f"[spec] verify step (S={n_slots}, C={c}, L=512) median {verify_ms:.2f} ms, decode step "
+    log(f"[{tag}] verify step (S={n_slots}, C={c}, L=512) median {verify_ms:.2f} ms, decode step "
         f"(S={n_slots}) median {decode_ms:.2f} ms (ratio {verify_ms / decode_ms:.3f}); "
         f"max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
     mgr.shutdown()
     return dict(launches=launches, want=want, decode_steps=steps - verifies, verify_calls=verifies,
                 prefill_calls=prefills, drafted=drafted, accepted=accepted,
                 acceptance=acceptance, on_wall_s=on_wall, on_tok_s=on_tok_s, off_wall_s=off_wall,
-                off_tok_s=off_tok_s, first_diff=diffs, on_tokens=on_tokens, off_tokens=off_tokens,
+                off_tok_s=off_tok_s, first_diff=diffs, served_gaps=served_gaps,
+                on_tokens=on_tokens, off_tokens=off_tokens,
                 full_verify_err=err, full_verify_seq_err=seq_err, full_verify_tol=tol,
                 argmax_agreement=agree, seq_argmax_agreement=seq_agree, verify_ms=verify_ms,
                 verify_times_ms=verify_times, decode_ms=decode_ms, decode_times_ms=decode_times,
-                profile=busy, max_memory_allocated=peak)
+                profile=busy, multi_device_ms=multi_dev, clear=int(clear.sum()),
+                clear_equal=clear_equal, max_memory_allocated=peak)
 
 
 def phase_spec_paged(torch, p, smi_line):
@@ -2348,19 +2471,25 @@ def env_set(key, mode):
             os.environ[key] = saved
 
 
-def phase_grouped(torch, timer, p, smi_line):
+def phase_grouped(torch, timer, p, smi_line, tag="grouped", kv_cache="int4"):
     """The slice's configuration (Llama-2-7B widths, int4 g128 weights,
     packed int4 KV, 64 slots, L=256, decode_horizon 8) served with
     TPUSERVE_DECODE_ATTN=grouped, loaded after the earlier engines are shut
     down: every decode step's attention goes through the grouped Hopper
     kernel, which reads the packed int4 window in place; the profiled step
-    must hold no plain unpack."""
+    must hold no plain unpack and no plain version. `kv_cache` "none" (the
+    [grouped-bf16] phase): the JAX package's default bf16 cache, its window
+    read by the kernel's bf16 route. The same requests are then served under
+    pallas on the same engine, and the full-width step's greedy tokens under
+    grouped and pallas must be equal on every slot whose top two logits are
+    apart."""
     from tpuserve_torch.engine.manager import InferenceManager
     from tpuserve_torch.models import llama
     from tpuserve_torch.ops import decode_attention, quant_matmul
 
     cfg = _model_config(p)
-    cfg["name"] = name = "llama2_7b_int4_grouped"
+    cfg["quantization"]["kv_cache"] = kv_cache
+    cfg["name"] = name = f"llama2_7b_{tag.replace('-', '_')}"
     with attn_mode("grouped"):
         torch.cuda.reset_peak_memory_stats()
         mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
@@ -2375,7 +2504,7 @@ def phase_grouped(torch, timer, p, smi_line):
             mod.launches = 0
         decode_attention.grouped_launches = 0
         steps0, prefills0 = engine.steps, engine.prefill_calls
-        tokens, wall = _serve_wave(backend, prompts, 24, "grouped")
+        tokens, wall = _serve_wave(backend, prompts, 24, tag)
         launches = {"quant_matmul": quant_matmul.launches,
                     "decode_attention": decode_attention.launches,
                     "decode_attention_grouped": decode_attention.grouped_launches}
@@ -2384,11 +2513,11 @@ def phase_grouped(torch, timer, p, smi_line):
         want = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
                 "decode_attention": 0, "decode_attention_grouped": p.n_layers * steps}
         tok_s = len(prompts) * 24 / wall
-        log(f"[grouped] {len(prompts)} concurrent greedy requests, 24 tokens each: {wall:.2f} s, "
+        log(f"[{tag}] {len(prompts)} concurrent greedy requests, 24 tokens each: {wall:.2f} s, "
             f"{tok_s:.1f} tok/s; decode steps {steps}, prefill calls {prefills}; launches "
             f"{launches} (expected {want}); card {smi_line}")
         if launches != want or steps < 1:
-            fail("[grouped] kernel launch counts do not match the path's calls")
+            fail(f"[{tag}] kernel launch counts do not match the path's calls")
 
         # one full-width decode step: 64 slots at positions 100-249 (slot 7
         # inactive), kernels vs plain versions, then under each mode on a copy
@@ -2398,7 +2527,7 @@ def phase_grouped(torch, timer, p, smi_line):
         g.manual_seed(3)
         toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
         pos = step_positions(torch, g, 64)
-        tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+        tensors = cache_tensors(cache)
         snapshot = [t.clone() for t in tensors]
 
         def restore():
@@ -2434,14 +2563,25 @@ def phase_grouped(torch, timer, p, smi_line):
             d = (by_mode[mode] - logits_k).abs().max().item()
             a = (by_mode[mode].argmax(-1) == logits_k.argmax(-1))[live].float().mean().item()
             modes[mode] = dict(max_abs_diff=d, argmax_agreement=a)
-        log(f"[grouped] full-width decode step, kernels vs plain: max|err| {err:.4g} of "
+        # greedy tokens under grouped and pallas, equal on every live slot
+        # whose top two logits are further apart than twice the two modes'
+        # difference
+        top2 = by_mode["pallas"].topk(2, dim=-1).values
+        clear = live & ((top2[:, 0] - top2[:, 1]) > 2 * modes["pallas"]["max_abs_diff"])
+        same = by_mode["pallas"].argmax(-1) == logits_k.argmax(-1)
+        modes["pallas"].update(clear=int(clear.sum()), clear_equal=bool(same[clear].all()))
+        log(f"[{tag}] full-width decode step, kernels vs plain: max|err| {err:.4g} of "
             f"{ref_max:.4g} (tol {tol:.4g}); argmax agreement {agree:.4f}; finite {finite}")
-        log(f"[grouped] the same step under pallas / xla against grouped: max|diff| "
+        log(f"[{tag}] the same step under pallas / xla against grouped: max|diff| "
             f"{modes['pallas']['max_abs_diff']:.4g} / {modes['xla']['max_abs_diff']:.4g} (tol "
             f"{tol:.4g}); argmax agreement {modes['pallas']['argmax_agreement']:.4f} / "
             f"{modes['xla']['argmax_agreement']:.4f}")
-        if not finite or not err <= tol or any(m["max_abs_diff"] > tol for m in modes.values()):
-            fail("[grouped] full-width decode step: the paths disagree")
+        log(f"[{tag}] greedy tokens under grouped and pallas equal on all {int(clear.sum())} "
+            f"live slots whose top two logits are more than 2x the modes' difference apart: "
+            f"{modes['pallas']['clear_equal']}")
+        if (not finite or not err <= tol or any(m["max_abs_diff"] > tol for m in modes.values())
+                or not modes["pallas"]["clear_equal"]):
+            fail(f"[{tag}] full-width decode step: the paths disagree")
 
         # the step reads the packed window in place: no plain unpack (counted
         # through both modules' names, and no unpack kernel in the profile)
@@ -2457,32 +2597,56 @@ def phase_grouped(torch, timer, p, smi_line):
         try:
             step_ms, times = _host_ms(torch, step)
             restore()
-            busy = profile_step(torch, step, tag="grouped")
+            with plain_calls() as plain:
+                busy = profile_step(torch, step, tag=tag)
             restore()
         finally:
             llama.unpack_kv_codes = decode_attention.unpack_kv_codes = unpack_kv_codes
         unpack_ops = [k for k in (busy or {}).get("names", [])
                       if "bitwiseand" in k.lower().replace("_", "") or "rshift" in k.lower()]
-        log(f"[grouped] plain unpack calls in the timed and profiled steps: {len(unpacks)}; "
+        log(f"[{tag}] plain unpack calls in the timed and profiled steps: {len(unpacks)}; "
             f"unpack kernels in the profile: {unpack_ops or 'none'}")
-        if unpacks or unpack_ops:
-            fail("[grouped] the decode step still unpacks the int4 window in plain torch")
-        # the unpack of the packed int4 window to int8 codes, K and V, that
-        # the parent's step ran per layer: timed alone, rotated over the layers
-        win = cache.max_len
-        unpack_ms = timer.ms(lambda i: (unpack_kv_codes(cache.k[i % p.n_layers, :, :win]),
-                                        unpack_kv_codes(cache.v[i % p.n_layers, :, :win])), 20)
+        log(f"[{tag}] plain-version calls in the profiled step: {plain or 'none'}")
+        if unpacks or unpack_ops or plain:
+            fail(f"[{tag}] the decode step unpacks the window or runs a plain version")
+        unpack_ms, note = None, ""
+        if cache.k.dtype == torch.uint8:
+            # the unpack of the packed int4 window to int8 codes, K and V, that
+            # the parent's step ran per layer: timed alone, rotated over the layers
+            win = cache.max_len
+            unpack_ms = timer.ms(lambda i: (unpack_kv_codes(cache.k[i % p.n_layers, :, :win]),
+                                            unpack_kv_codes(cache.v[i % p.n_layers, :, :win])),
+                                 20)
+            note = (f"; the int4 -> int8 unpack the parent's step ran, alone: {unpack_ms:.4f} "
+                    f"ms a layer, {p.n_layers * unpack_ms:.3f} ms a step")
+        grouped_dev = None
+        if busy:
+            grouped_dev = sum(ms for key, ms, _ in busy["rows"] if "attn_grouped_kernel" in key)
         peak = torch.cuda.max_memory_allocated()
-        log(f"[grouped] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} "
-            f"ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; the int4 -> int8 unpack the "
-            f"parent's step ran, alone: {unpack_ms:.4f} ms a layer, {p.n_layers * unpack_ms:.3f} "
-            f"ms a step; max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+        log(f"[{tag}] decode step (64 slots, L=256, {p.n_layers} layers): median {step_ms:.2f} "
+            f"ms -> {64 / step_ms * 1e3:.1f} tok/s at full batch; the grouped kernel's device "
+            f"time in the profiled step "
+            f"{'not measured' if grouped_dev is None else f'{grouped_dev:.3f} ms'}{note}; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+
+        # the same requests under pallas on the same engine (the flat kernel)
+        decode_attention.launches = 0
+        with attn_mode("pallas"):
+            pallas_tokens, pallas_wall = _serve_wave(backend, prompts, 24, f"{tag}-pallas")
+        diffs = [_first_diff(a, b) for a, b in zip(tokens, pallas_tokens)]
+        log(f"[{tag}] the same requests under pallas: {pallas_wall:.2f} s, flat-kernel launches "
+            f"{decode_attention.launches}; first differing token per request, grouped vs "
+            f"pallas (None = equal): {diffs}")
+        served_gaps = _gate_served(torch, engine, p, prompts, tokens, pallas_tokens,
+                                   2 * modes["pallas"]["max_abs_diff"], tag, "grouped and pallas")
         mgr.shutdown()
     return dict(launches=launches, want=want, decode_steps=steps, prefill_calls=prefills,
                 wall_s=wall, tok_s=tok_s, tokens=tokens, full_step_err=err, full_step_tol=tol,
                 argmax_agreement=agree, modes=modes, step_ms=step_ms, step_times_ms=times,
                 profile=busy, plain_unpack_calls=len(unpacks), unpack_kernels=unpack_ops,
-                parent_unpack_ms_per_layer=unpack_ms, max_memory_allocated=peak)
+                parent_unpack_ms_per_layer=unpack_ms, grouped_device_ms=grouped_dev,
+                pallas_tokens=pallas_tokens, pallas_first_diff=diffs, served_gaps=served_gaps,
+                max_memory_allocated=peak)
 
 
 def phase_sweep(torch):
@@ -2715,11 +2879,22 @@ def main() -> None:
     spec_res = phase_spec(torch, p, smi_line)
     # the multi kernel runs on the speculative path only: its count is that run's
     results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
+    # the JAX package's default cache (kv_cache none, bf16): the multi
+    # kernel's float route, counted over that run
+    spec_bf16_res = phase_spec(torch, p, smi_line, tag="spec-bf16", kv_cache="none")
+    results["decode_attention_multi_float"] = dict(
+        results["decode_attention_multi"]["float"],
+        launches=spec_bf16_res["launches"]["decode_attention_multi"])
     spec_paged_res = phase_spec_paged(torch, p, smi_line)
     grouped_res = phase_grouped(torch, timer, p, smi_line)
     # the grouped kernel runs on the grouped path only: its count is that run's
     results["decode_attention_grouped"]["launches"] = \
         grouped_res["launches"]["decode_attention_grouped"]
+    grouped_bf16_res = phase_grouped(torch, timer, p, smi_line, tag="grouped-bf16",
+                                     kv_cache="none")
+    results["decode_attention_grouped_float"] = dict(
+        results["decode_attention_grouped"]["float"],
+        launches=grouped_bf16_res["launches"]["decode_attention_grouped"])
     sweep_res = phase_sweep(torch)
     # the probes and the prebuilt-Q_wide entry run in the sweep only
     for kname, launched in sweep_res["launches"].items():
@@ -2762,9 +2937,16 @@ def main() -> None:
                "decode_attention_multi": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel; call :1052)"),
+               "decode_attention_multi_float": (
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
+                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel, float cache; "
+                   "call :1052)"),
                "decode_attention_grouped": (
                    "tpuserve_torch/csrc/decode_attention_grouped_hopper.cu",
                    "tpuserve/ops/decode_attention.py:1237 (_kernel; call :1423)"),
+               "decode_attention_grouped_float": (
+                   "tpuserve_torch/csrc/decode_attention_grouped_hopper.cu",
+                   "tpuserve/ops/decode_attention.py:1237 (_kernel, float window; call :1423)"),
                "decode_attention_wide": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, prebuilt Q_wide; "
@@ -2802,8 +2984,9 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
-                   "paged_slice": paged_res, "spec": spec_res, "spec_paged": spec_paged_res,
-                   "grouped": grouped_res, "w4a8": w4a8_res, "odd": odd_res,
+                   "paged_slice": paged_res, "spec": spec_res, "spec_bf16": spec_bf16_res,
+                   "spec_paged": spec_paged_res, "grouped": grouped_res,
+                   "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,

@@ -222,6 +222,7 @@ def test_decode_attention_paged_refuses(cuda):
     ("int4", 8, 2, 64, 16, 2, torch.bfloat16),
     ("bf16", 4, 4, 256, None, 2, None),
     ("bf16", 8, 2, 128, 32, 9, None),
+    ("bf16", 32, 32, 512, None, 9, None),   # the default cache's verify at Llama-2-7B
     ("f32", 4, 4, 128, None, 1, None),
     ("f32", 8, 2, 128, 32, 5, None),
 ])
@@ -357,6 +358,8 @@ def test_decode_attention_multi_refuses(cuda):
     ("int8", 32, 8, 256, 256, 8, torch.float32),
     ("int8", 16, 2, 256, 32, None, torch.bfloat16),     # rep 8, eight splits
     ("bf16", 8, 4, 128, 32, 2, None),                    # rep 2
+    ("bf16", 32, 32, 256, 256, 16, None),               # Llama-2-7B heads, the JAX default g_kv
+    ("bf16", 32, 8, 256, 64, None, None),               # rep 4, four blocks: the window splits
     ("f32", 8, 4, 128, 32, None, None),
     ("f32", 16, 2, 64, 16, 2, None),                     # rep 8
 ])
@@ -364,11 +367,13 @@ def test_decode_attention_grouped(cuda, monkeypatch, kind, h, hkv, l, block_l, g
                                   scale_dtype, skip):
     """The grouped kernel against its plain version on a window view of a
     longer cache (slot stride 2L rows) with transposed scale views, as the
-    decode step hands them over, under TPUSERVE_ATTN_DYNSKIP 0 and 1. Same
-    arithmetic (the int8 kernel and its plain version split the window
-    alike), exact integer dots; an ulp of expf against torch.exp can tip
-    one P entry across a bf16 rounding boundary (2^-8 of it): 1e-3 of the
-    output range."""
+    decode step hands them over, under TPUSERVE_ATTN_DYNSKIP 0 and 1, with
+    f32 and bf16 q (an f32 q against a bf16 window: its three bf16 pieces).
+    Same arithmetic (the kernel and its plain version split the window
+    alike), exact integer (int8) or f32-exact (bf16) products; an ulp of
+    expf against torch.exp, or of the order of f32 sums, can tip one P
+    entry across a bf16 rounding boundary (2^-8 of it): 1e-3 of the output
+    range."""
     monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", skip)
     s, n_layers, layer = 8, 2, 1
     k, v, ks, vs = _cache(kind, s, hkv, 2 * l, n_layers, cuda,
@@ -439,6 +444,30 @@ def test_decode_attention_grouped_packed(cuda, monkeypatch, h, hkv, l, block_l, 
     live = pos >= 0
     diff = (outs["0"] - outs["1"])[live].abs().max().item()
     assert diff <= 1e-6 * outs["1"][live].abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_decode_attention_grouped_float_scales(cuda, kind):
+    """A float window with k/v scales (the JAX kernel's optional scales of a
+    float cache): [S, L, Hkv] f32 and bf16 scales in a layout that is not
+    head-major (copied head-major by the wrapper), g_kv 1 and Hkv and a
+    split window (S=4, Hkv=4, four blocks), against the plain version within
+    1e-3 of the output range; g_kv changes no value."""
+    s, hkv, h, l = 4, 4, 8, 128
+    k, v, _, _ = _cache(kind, s, hkv, l, 1, cuda)
+    kw, vw = (t[0].view(s, l, hkv, 128) for t in (k, v))
+    g = torch.Generator().manual_seed(9)
+    q = (torch.randn((s, h, 128), generator=g) / 128 ** 0.5).to(cuda)
+    pos = torch.tensor([127, -1, 40, 0], dtype=torch.int32, device=cuda)
+    for sdt in (torch.float32, torch.bfloat16):
+        ks, vs = ((torch.rand((s, l, hkv), generator=g) + 0.5).to(cuda, sdt) for _ in range(2))
+        ref = da.decode_attention_plain(q, kw, vw, ks, vs, pos, block_l=32)
+        outs = [da.decode_attention(q, kw, vw, ks, vs, pos, block_l=32, g_kv=g_kv)
+                for g_kv in (1, hkv)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]) and torch.all(outs[0][1] == 0)
+        err = (outs[0] - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item() + 1e-7, (sdt, err)
 
 
 def test_decode_attention_grouped_refuses(cuda):

@@ -177,7 +177,7 @@ def test_packed_route_plain_matches_pallas(dynskip_env, rep, skip):
     np.testing.assert_array_equal(out, today)
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16", "f32", "bf16_q"])
 def test_grouped_split_plan_matches_pallas(kind):
     """Where the grid is small the grouped Hopper kernel splits the window
     (split_plan over Hkv heads of S slots, whatever the route and g_kv) and
@@ -186,10 +186,15 @@ def test_grouped_split_plan_matches_pallas(kind):
     online softmax, merged in order. Against the TPU's `_kernel` (one online
     softmax over the window) within _ATTN_TOL: a run rounds P to bf16 at its
     own max, which moves an output by bf16 roundings (measured 3.4e-4 of the
-    range for int8, 2.0e-4 for int4). g_kv 1 and Hkv give the same values."""
+    range for int8, 2.0e-4 for int4). g_kv 1 and Hkv give the same values.
+    The float windows (bf16 with an f32 q, and bf16_q: with a bf16 q; f32)
+    split alike, unscaled (measured 1.9e-4, 1.5e-4 and 4.6e-8 of the range:
+    an f32 window rounds no P)."""
     s, l, n_kv, rep = 3, 256, 2, 2   # positions -1, 0, 255
-    if kind == "int8":
-        inputs = _attn_inputs("int8", rep, s=s, l=l, n_kv=n_kv, seed=4)
+    if kind != "int4":
+        inputs = _attn_inputs(kind[:4], rep, s=s, l=l, n_kv=n_kv, seed=4)
+        if kind == "bf16_q":
+            inputs = (np.asarray(jnp.asarray(inputs[0], jnp.bfloat16)),) + inputs[1:]
         ref = np.asarray(jda.decode_attention(*map(_jax, inputs), block_l=32, g_kv=1,
                                               interpret=True))
         q, k, v, ks, vs, positions = map(_torch, inputs)
@@ -199,7 +204,7 @@ def test_grouped_split_plan_matches_pallas(kind):
         ref = _jax_packed_reference(inputs, 32)
         q, k, v, ks, vs, positions = map(_torch, inputs)
         entry = tda.decode_attention_packed
-    g = tda._grouped_dims(q, l, n_kv, True, True, 32, None)
+    g = tda._grouped_dims(q, l, n_kv, kind in ("int8", "int4"), ks is not None, 32)
     assert (g["splits"], g["bps"]) == (8, 1)
     outs = [to_np(entry(q, k, v, ks, vs, positions, block_l=32, g_kv=g_kv))
             for g_kv in (1, n_kv)]
@@ -218,14 +223,15 @@ class _FakeCuda(torch.Tensor):
 
 
 @pytest.mark.parametrize("skip", ["0", "1"])
-@pytest.mark.parametrize("route", ["int8", "int4"])
+@pytest.mark.parametrize("route", ["int8", "int4", "bf16", "f32"])
 def test_grouped_cuda_tensors_pass_the_route_arguments(monkeypatch, route, skip):
     """A CUDA tensor reaches the grouped Hopper kernel's C entry once, with
-    the window read in place (its own pointer, slot and row strides), the
-    head-major scale strides, the launch code (1 packed int4, 0 int8; +16
-    under TPUSERVE_ATTN_DYNSKIP=0), the query heads a unit, the units a
-    block (g_kv; a pair of heads for int4) and the split plan, with a
-    workspace only where it splits; no plain version and no unpack runs."""
+    the window read in place (its own pointer, slot and row strides in
+    bytes), the head-major scale strides (an unscaled float window: null
+    scales), the launch code (1 packed int4, 0 int8, 2 bf16, 3 f32; +16
+    under TPUSERVE_ATTN_DYNSKIP=0), the query heads a unit and the split
+    plan, with a workspace only where it splits, the same for g_kv 1 and 4
+    (one unit a block whatever g_kv); no plain version and no unpack runs."""
     calls = []
 
     class FakeLib:
@@ -245,8 +251,11 @@ def test_grouped_cuda_tensors_pass_the_route_arguments(monkeypatch, route, skip)
     fc = lambda t: torch.Tensor._make_subclass(_FakeCuda, t)
     n_layers, s, l_max, win, n_kv, rep, layer = 2, 4, 256, 128, 4, 2, 1
     wst = n_kv * HD // (2 if route == "int4" else 1)
-    cache = torch.zeros((n_layers, s, l_max, wst),
-                        dtype=torch.uint8 if route == "int4" else torch.int8)
+    dtype = {"int4": torch.uint8, "int8": torch.int8, "bf16": torch.bfloat16,
+             "f32": torch.float32}[route]
+    esz = torch.tensor([], dtype=dtype).element_size()
+    floating = route in ("bf16", "f32")
+    cache = torch.zeros((n_layers, s, l_max, wst), dtype=dtype)
     scales = torch.ones((n_layers, s, n_kv, l_max), dtype=torch.bfloat16)
     q = fc(torch.zeros((s, n_kv * rep, HD)))
     kw, vw = (fc(cache[layer, :, :win]) for _ in range(2))
@@ -258,20 +267,26 @@ def test_grouped_cuda_tensors_pass_the_route_arguments(monkeypatch, route, skip)
             out = tda.decode_attention_packed(q, kw, vw, ksw, vsw, pos, block_l=32, g_kv=g_kv)
         else:
             out = tda.decode_attention(q, kw.view(s, win, n_kv, HD), vw.view(s, win, n_kv, HD),
-                                       ksw.transpose(1, 2), vsw.transpose(1, 2), pos,
+                                       None if floating else ksw.transpose(1, 2),
+                                       None if floating else vsw.transpose(1, 2), pos,
                                        block_l=32, g_kv=g_kv)
         assert out.shape == q.shape and out.dtype == torch.float32
         name, args = calls[-1]
         assert name == "tpuserve_decode_attention_grouped_hopper"
-        assert args[1] == kw.data_ptr() and args[3] == ksw.data_ptr()
+        assert args[1] == kw.data_ptr()
         ws, cnt = args[7], args[8]
-        assert args[9:12] == (l_max * wst, n_kv * l_max, l_max)   # slot stride (bytes), scales
-        assert args[12:14] == (0, 1)                                 # f32 q, bf16 scales
-        assert args[14:20] == (s, n_kv * rep, n_kv, win, 32, wst)
-        kind, nq, upb, splits, bps = args[20:25]
-        assert kind == (1 if route == "int4" else 0) + (16 if skip == "0" else 0)
+        assert args[9] == l_max * wst * esz                          # slot stride (bytes)
+        if floating:                                                 # null scales
+            assert args[3] == args[4] == 0 and args[10:12] == (0, 0) and args[13] == 0
+        else:                                                        # scale strides, bf16
+            assert args[3] == ksw.data_ptr() and args[10:12] == (n_kv * l_max, l_max)
+            assert args[13] == 1
+        assert args[12] == 0                                         # f32 q
+        assert args[14:20] == (s, n_kv * rep, n_kv, win, 32, wst * esz)
+        kind, nq, splits, bps = args[20:24]
+        assert kind == {"int8": 0, "int4": 1, "bf16": 2, "f32": 3}[route] + (16 if skip == "0"
+                                                                               else 0)
         assert nq == (2 * rep if route == "int4" else rep)
-        assert upb == (max(1, g_kv // 2) if route == "int4" else g_kv)
         assert (splits, bps) == tda.split_plan(n_kv, s, win // 32, 132) == (4, 1)
         assert (ws != 0) == (cnt != 0) == (splits > 1)
     assert tda.grouped_launches == before + 2

@@ -7,8 +7,8 @@
   engine's host proposer;
 - (c) sampling.spec_accept: greedy rows equal to JAX's, sampled rows by
   distribution (the two packages' random numbers differ);
-- (d) verify_step against JAX's with its kernels forced on, int8 and packed
-  int4 KV, and against sequential decode_steps;
+- (d) verify_step against JAX's with its kernels forced on, int8, packed
+  int4 and the default bf16 KV, and against sequential decode_steps;
 - (e) verify_step_paged against JAX's (both attend with einsums over the
   gathered window) and against sequential decode_step_paged;
 - (f) the engine: greedy speculative tokens equal the port's plain tokens
@@ -289,12 +289,16 @@ VERIFY_TOKENS = np.array([[11, 200, 7, 93], [0, 0, 0, 0], [301, 5, 0, 0]], np.in
 VERIFY_LENS = np.array([4, 0, 2], np.int32)
 
 
-@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("kv_bits", [8, 4, 16])
 def test_verify_step_matches_jax_and_sequential_decode(weights, jax_kernels, kv_bits):
+    """kv_bits 16: the JAX package's default cache (kv_cache none: bf16, no
+    scales), whose verify runs the multi kernel's float route."""
     jp, tp = weights
     slots, max_len = 3, 64
-    jc = jllama.KVCache.create(P_J, slots, max_len, quantized=True, flat=True, kv_bits=kv_bits)
-    tc = tllama.KVCache.create(P_T, slots, max_len, quantized=True, kv_bits=kv_bits,
+    quantized = kv_bits != 16
+    jc = jllama.KVCache.create(P_J, slots, max_len, quantized=quantized, flat=True,
+                               kv_bits=min(kv_bits, 8))
+    tc = tllama.KVCache.create(P_T, slots, max_len, quantized=quantized, kv_bits=min(kv_bits, 8),
                                device="cpu")
     rng = np.random.default_rng(7)
     prompts = {0: rng.integers(0, SMALL["vocab_size"], 9), 2: rng.integers(0, 512, 30)}
@@ -305,8 +309,10 @@ def test_verify_step_matches_jax_and_sequential_decode(weights, jax_kernels, kv_
                                jnp.int32(len(prompt)))
         tllama.prefill(tp, P_T, torch.from_numpy(toks).long(), tc, slot, len(prompt))
     pos = np.array([9, -1, 30], np.int32)
-    before = {n: getattr(tc, n).clone() for n in ("k", "v", "k_scale", "v_scale")}
-    seq_cache = tllama.KVCache(**{n: t.clone() for n, t in before.items()})
+    names = ("k", "v", "k_scale", "v_scale") if quantized else ("k", "v")
+    before = {n: getattr(tc, n).clone() for n in names}
+    seq_cache = tllama.KVCache(**{n: before[n].clone() if n in before else None
+                                  for n in ("k", "v", "k_scale", "v_scale")})
 
     jl, jc = jllama.verify_step(jp, P_J, jnp.asarray(VERIFY_TOKENS), jc, jnp.asarray(pos),
                                 jnp.asarray(VERIFY_LENS), window=64)
@@ -322,11 +328,22 @@ def test_verify_step_matches_jax_and_sequential_decode(weights, jax_kernels, kv_
     # quantizer rounding boundary (as test_torch_llama), scales to f32 ulps
     rows = [(s, pos[s] + c) for s in range(3) for c in range(VERIFY_LENS[s])]
     for name in ("k", "v"):
+        if not quantized:
+            a = np.asarray(getattr(jc, name).astype(jnp.float32))
+            b = to_np(getattr(tc, name).float())
+            wa = np.stack([a[:, s, p] for s, p in rows])
+            wb = np.stack([b[:, s, p] for s, p in rows])
+            # layer 1's K/V follow layer 0's attention, whose kernels sum
+            # in another order and can round a P entry the other way:
+            # measured 2^-8.9 of the values' range, 0.4% of them unequal
+            assert np.abs(wa - wb).max() <= 2 ** -8 * np.abs(wa).max()
+            assert (wa != wb).mean() < 1e-2
+            continue
         a, b = _codes(jc, kv_bits, name), _codes(tc, kv_bits, name)
         wa = np.stack([a[:, s, p] for s, p in rows])
         wb = np.stack([b[:, s, p] for s, p in rows])
         assert np.abs(wa - wb).max() <= 1 and (wa != wb).mean() < 1e-3
-    for name in ("k_scale", "v_scale"):
+    for name in ("k_scale", "v_scale") if quantized else ():
         a, b = np.asarray(getattr(jc, name)), to_np(getattr(tc, name))
         np.testing.assert_allclose(np.stack([b[:, s, :, p] for s, p in rows]),
                                    np.stack([a[:, s, :, p] for s, p in rows]), rtol=1e-5)
@@ -673,3 +690,130 @@ def test_multi_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
             torch.Tensor._make_subclass(_FakeCuda, torch.zeros(3, 17, 2, 128)),
             torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(ks),
             torch.from_numpy(vs), torch.zeros(3, dtype=torch.int32), 1)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_multi_float_cache_reaches_the_core(monkeypatch, kind):
+    """A float cache's multi call reaches the Hopper core's entry once and
+    nothing else: the float kind (2 bf16, 3 f32; +16 under
+    TPUSERVE_ATTN_DYNSKIP=0), null scales, the row stride in bytes and the
+    whole window in one run (no split, no workspace), however small the
+    grid (S=3, where an int8 cache splits)."""
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(tda, "decode_attention_wide_cache_multi_plain",
+                        lambda *a, **kw: pytest.fail("plain version taken for a CUDA tensor"))
+    q, k, v, _, _ = _multi_inputs(kind, 2, 9, l=256)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    if kind == "bf16":
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    fq = torch.Tensor._make_subclass(_FakeCuda, torch.from_numpy(q).to(torch.bfloat16))
+    for skip in ("1", "0"):
+        monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", skip)
+        out = tda.decode_attention_wide_cache_multi(fq, tk, tv, None, None,
+                                                    torch.zeros(3, dtype=torch.int32), 1,
+                                                    block_l=64)
+        assert out.shape == (3, 9, 4, 128) and out.dtype == torch.float32
+        name, args = calls[-1]
+        assert [n for n, _ in calls] == ["tpuserve_decode_attention_core"] * len(calls)
+        assert args[3] == args[4] == 0 and args[8] == args[9] == 0   # no scales, no workspace
+        assert args[10:12] == (1, 0)                                  # bf16 q
+        # S, C, H, Hkv, L, layer, window, block_l, row stride (bytes)
+        assert args[12:21] == (3, 9, 4, 2, 256, 1, 256, 64, 256 * tk.element_size())
+        kind_code = {"bf16": 2, "f32": 3}[kind] + (16 if skip == "0" else 0)
+        assert args[24:28] == (kind_code, 2, 1, 4)                    # kind, nq, splits, bps
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_flat_float_cache_shares_the_multi_core(monkeypatch, kind):
+    """A float cache's flat call (the decode step) reaches the Hopper core's
+    entry with the arguments of the multi call at C = 1, so the decode step
+    and the speculative verify run one kernel; the prebuilt-Q_wide call
+    (reading every block) and a float pool's paged call (one page a block,
+    the whole window in one run) reach it too. A block_l whose scores the
+    core's shared memory cannot hold is refused before any launch."""
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    for plain in ("decode_attention_wide_cache_plain", "decode_attention_wide_cache_multi_plain",
+                  "decode_attention_wide_plain"):
+        monkeypatch.setattr(tda, plain, lambda *a, **kw: pytest.fail("plain version taken"))
+    monkeypatch.setenv("TPUSERVE_ATTN_DYNSKIP", "1")
+    q, k, v, _, _ = _multi_inputs(kind, 2, 1, l=256)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    if kind == "bf16":
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    qb = torch.from_numpy(q).to(torch.bfloat16)
+    fq1 = torch.Tensor._make_subclass(_FakeCuda, qb)
+    fq = torch.Tensor._make_subclass(_FakeCuda, qb[:, 0].contiguous())
+    pos = torch.tensor([255, -1, 7], dtype=torch.int32)
+    before = tda.launches
+    out = tda.decode_attention_wide_cache(fq, tk, tv, None, None, pos, 1, block_l=64)
+    tda.decode_attention_wide_cache_multi(fq1, tk, tv, None, None, pos, 1, block_l=64)
+    assert out.shape == (3, 4, 128) and tda.launches == before + 1
+    assert [n for n, _ in calls] == ["tpuserve_decode_attention_core"] * 2
+    (_, flat), (_, multi) = calls
+    assert flat[3] == flat[4] == flat[8] == flat[9] == 0          # no scales, no workspace
+    assert flat[10:28] == multi[10:28]                             # one kernel, one launch form
+    code = {"bf16": 2, "f32": 3}[kind]
+    assert flat[24:28] == (code, 2, 1, 4)                          # kind, nq, splits, bps
+    tda.decode_attention_wide(fq, tk[1].view(3, 256, 2, 128), tv[1].view(3, 256, 2, 128), None,
+                              None, pos, block_l=128)
+    name, wide = calls[-1]
+    assert name == "tpuserve_decode_attention_core"
+    assert wide[24:28] == (code + 16, 2, 1, 2)                     # every block read
+    pools = [t.reshape(2, 3 * 4, 64, 256) for t in (tk, tv)]       # 12 pages of 64 rows
+    table = torch.arange(12, dtype=torch.int32).flip(0).view(3, 4)
+    out = tda.decode_attention_wide_paged(fq, *pools, None, None, table, pos, 1)
+    name, paged = calls[-1]
+    assert out.shape == (3, 4, 128) and name == "tpuserve_decode_attention_core"
+    assert paged[6] == table.data_ptr() and paged[3] == paged[4] == 0
+    # layer, window, block_l = ps, row stride, pages, scale rows (none)
+    assert paged[17:23] == (1, 256, 64, 256 * tk.element_size(), 12, 0)
+    assert paged[24:28] == (code, 2, 1, 4)
+    monkeypatch.setattr(tda, "_SMEM_LIMIT", 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        tda.decode_attention_wide_cache(fq, tk, tv, None, None, pos, 1, block_l=64)
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("cache", ["int8", "int4", "bf16", "f32"])
+def test_core_smem_bytes_admit_every_verify_width(cache):
+    """The core's shared memory (core_smem_bytes, the C smem_bytes' mirror)
+    for each cache: a bf16 stage is 64 rows of 272 bytes, an f32 one of 528.
+    At the default block_l 128 every verify width (C <= 16 candidates of 1,
+    2, 4 or 8 query heads a unit) is admitted and stays under the H100's
+    227 KB; wherever check_multi_kernel admits a shape the bytes are under
+    it, and an f32 cache's 2048-row blocks of 32 rows are refused."""
+    kind = tda._CACHE_KINDS[cache]
+    assert tda._stage_bytes(kind) == 64 * {"bf16": 272, "f32": 528}.get(cache, 144) + 4 * 68 * 4
+    for block_l in (16, 64, 128, 256, 512, 2048):
+        for cands in range(1, 17):
+            for nq in (1, 2, 4, 8):
+                smem = tda.core_smem_bytes(tda.core_rows(cands, nq)[1], block_l, kind=kind)
+                try:
+                    tda.check_multi_kernel(cands, nq, block_l, cache=cache)
+                except ValueError:
+                    assert block_l > 128 and smem > 227 * 1024
+                    continue
+                assert smem <= 227 * 1024
+    # the bf16 core at 32 rows and block_l 128: 4 stages of 18,496 bytes, q
+    # rows 32 x 272, scores 32 x 132 x 4, bf16 P 32 x 272, V scales, stats
+    assert tda.core_smem_bytes(32, 128, kind=2) == (4 * 18496 + 32 * 272 + 32 * 132 * 4
+                                                     + 32 * 272 + 1024 + 24 * 32 * 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tda.check_multi_kernel(16, 8, 2048, cache="f32")

@@ -1,16 +1,15 @@
-// The Hopper decode-attention core: one template for the int8 and packed
-// int4 caches of the flat kernel (C = 1: decode_attention_wide_cache,
-// decode_attention_wide), the paged kernel (C = 1 over a page table:
-// decode_attention_wide_paged) and the multi-candidate kernel (C = 1..16:
-// decode_attention_wide_cache_multi). The bf16/f32 caches keep the bodies
-// of decode_attention.cu and decode_attention_multi.cu.
+// The Hopper decode-attention core: one template for every cache (int8,
+// packed int4, bf16, f32) of the flat kernel (C = 1:
+// decode_attention_wide_cache, decode_attention_wide), the paged kernel
+// (C = 1 over a page table: decode_attention_wide_paged) and the
+// multi-candidate kernel (C = 1..16: decode_attention_wide_cache_multi).
 //
 // Replaces tpuserve/ops/decode_attention.py::_wide_kernel (:160; with
 // paged_sc and with a prebuilt Q_wide), ::_packed_kernel (:495, the whole
 // window as one L block) and ::_wide_multi_kernel (:804).
 //
-// Cache, scales and numerics as decode_attention.cu: k/v [n_layers, S, L,
-// W] int8 or packed int4 [.., W/2] (global split-half, biased by 8), or
+// Cache, scales and numerics: k/v [n_layers, S, L, W] int8, bf16 or f32,
+// or packed int4 [.., W/2] (global split-half, biased by 8), or
 // pools [n_layers, n_pages, ps, W(/2)] read through a page table; scales
 // this layer's [S, Hkv, L] bf16 or f32, or f32 pools [n_layers, n_pages,
 // hp, ps]. q [S, C, H, HD] (C = 1: [S, H, HD]) f32 or bf16, scaled by
@@ -22,7 +21,10 @@
 // at -1e30; online softmax over block_l blocks with m_safe = max(m, -5e29);
 // v_scale folded into P, P requantized per row and block with pscale =
 // max(pmax/127, 1e-20); int32 P@V (int4: the -8 fold as -8*sum(P codes));
-// out = acc / max(l, 1e-20) where l > 0, else 0.
+// out = acc / max(l, 1e-20) where l > 0, else 0. A float cache (the TPU
+// kernel's float branch): f32 dots of q rounded to the cache's type, the
+// rows past pos + c at -1e30, the same online softmax, P = exp(s - m_safe)
+// rounded to bf16 for a bf16 cache, P@V with f32 sums; no split (below).
 //
 // Bound on the H100: bytes (every live K/V byte is used for 2 * rows
 // operations, a few per byte against the int8 tensor cores' ~590). The
@@ -73,6 +75,16 @@
 //   rows, on the critical path of every block.)
 // - Query rows beyond 32 (C * NQ > 32) take more blocks (row groups), each
 //   reading the window for its own rows.
+// - The float caches (KV_BF16, KV_F32) take the same ring, work items,
+//   statistics and output, with rows of 256 (bf16) or 512 (f32) bytes a
+//   kv head. bf16: scores on mma.sync m16n8k16 bf16 -> f32 (cache rows on
+//   M by ldmatrix, the query rows, q rounded to bf16, on N), P@V on the same
+//   mma with hd on M read from the V tile in its stage by ldmatrix.trans
+//   and P bf16 on N: no transpose pass, no conversion. f32: the same
+//   fragments by FMA on the CUDA cores (TF32 would change the values).
+//   The wrapper never splits their window: a run would round P to bf16 at
+//   its own max, where the TPU kernel rounds it at the window's running
+//   max.
 //
 // NOOP (packed int4, TPUSERVE_INT4_UNPACK=noop): the raw bytes as signed
 // int8 for both halves of K and V, the folds kept (a timing diagnostic,
@@ -93,14 +105,21 @@ using tpuserve::warp_sum;
 
 // Ring depth and blocks an SM: 3 stages and 5 blocks for the int8 cache
 // with up to 8 query rows (the flat and paged decode step: one kv head a
-// block, one row), 4 and 4 otherwise. On the card (scripts/ab_attention.py
-// against a copy with the other depth) the shallow ring was faster for
-// those and slower for packed int4 at the decode step's positions and for
-// the multi-candidate rows.
+// block, one row), 4 and 4 for the other int8 and int4 cases. On the card
+// (scripts/ab_attention.py against a copy with the other depth) the shallow
+// ring was faster for those and slower for packed int4 at the decode step's
+// positions and for the multi-candidate rows. The float caches' stages
+// are 1.8x (bf16) and 3.4x (f32) the int8 one: 4 and 3 stages, 2 blocks an
+// SM (the verify's 256 blocks all resident on 132 SMs), but 2 stages and
+// 4 blocks for bf16 with up to 8 rows (the flat and paged decode step's
+// short one-row blocks: more of them resident hide each one's first tile;
+// 1.31x faster than 4 and 2 at the 7B step, 1.24x than 3 and 3).
 template <int KIND, int NT> struct Ring {
-  static constexpr bool SHALLOW = KIND == KV_INT8 && NT == 1;
-  static constexpr int STAGES = SHALLOW ? 3 : 4;
-  static constexpr int BLOCKS = SHALLOW ? 5 : 4;
+  static constexpr bool FLOAT = KIND == KV_BF16 || KIND == KV_F32;
+  static constexpr bool SHALLOW = (KIND == KV_INT8 && NT == 1) || KIND == KV_F32;
+  static constexpr bool BF16_ROW = KIND == KV_BF16 && NT == 1;
+  static constexpr int STAGES = BF16_ROW ? 2 : SHALLOW ? 3 : 4;
+  static constexpr int BLOCKS = BF16_ROW ? 4 : FLOAT ? 2 : SHALLOW ? 5 : 4;
 };
 constexpr int VT_B = 80;          // transposed V row stride: TR bytes + 16
 static_assert(128 * VT_B <= STAGE_B, "a V tile is transposed within its stage");
@@ -124,15 +143,26 @@ struct Args {
 
 __host__ __device__ inline int pad_tiles(int bl) { return (bl + TR - 1) / TR * TR; }
 
+// Bytes of a staged q row: int8 codes, or the q values rounded to a float
+// cache's type
+__host__ __device__ constexpr int q_row_b(int kind) {
+  return kind == KV_F32 ? ROW_F32 : kind == KV_BF16 ? ROW_BF16 : QS_B;
+}
+// Bytes of a P row: int8 codes, bf16 values, or none (f32 P stays in the
+// score rows)
+__host__ __device__ inline int p_row_b(int kind, int blp) {
+  return kind == KV_F32 ? 0 : kind == KV_BF16 ? 2 * (blp + 8) : blp + 16;
+}
+
 // Dynamic shared memory (ops/decode_attention.py::core_smem_bytes mirrors
-// it): the ring, q codes [RP][QS_B], scores and then
-// P [RP][blp + 4] f32, P codes [RP][blp + 16], the block's V scales [2][blp]
+// it): the ring, q rows [RP][q_row_b], scores and then
+// P [RP][blp + 4] f32, P rows [RP][p_row_b], the block's V scales [2][blp]
 // f32, eight per-row statistics and flags [RP], four [WARPS][RP] partials,
 // the page ids of a split (paged: bps).
-__host__ __device__ inline size_t smem_bytes(int stages, int rp, int bl, int pages) {
+__host__ __device__ inline size_t smem_bytes(int kind, int stages, int rp, int bl, int pages) {
   const size_t blp = pad_tiles(bl);
-  return (size_t)stages * STAGE_B + (size_t)rp * QS_B + rp * (blp + 4) * 4 +
-         rp * (blp + 16) + 2 * blp * 4 + 24 * (size_t)rp * 4 +
+  return (size_t)stages * stage_b(kind) + (size_t)rp * q_row_b(kind) + rp * (blp + 4) * 4 +
+         (size_t)rp * p_row_b(kind, (int)blp) + 2 * blp * 4 + 24 * (size_t)rp * 4 +
          (size_t)pages * 4;
 }
 
@@ -170,6 +200,10 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
   constexpr int RP = NT * 8;                 // query rows of an item, padded to the mma's N
   constexpr int QR = RP / WARPS;             // q rows a warp quantizes
   constexpr bool INT4 = (KIND == KV_INT4);
+  constexpr bool FLOAT = Ring<KIND, NT>::FLOAT;
+  constexpr int SB = stage_b(KIND), RB = tile_row_b(KIND);
+  constexpr int PIECES = RB / 16 - 1;        // 16-byte pieces of a kv unit's row: 8, 16, 32
+  constexpr int PSH = PIECES == 32 ? 5 : PIECES == 16 ? 4 : 3;
   extern __shared__ __align__(128) unsigned char sm[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -179,12 +213,13 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
   const int bl = a.bl, blp = pad_tiles(bl), ntl = blp / TR, tpb = 2 * ntl;
 
   unsigned char* ring = sm;
-  int8_t* qc = reinterpret_cast<int8_t*>(ring + STAGES * STAGE_B);
-  float* sc = reinterpret_cast<float*>(qc + RP * QS_B);
+  int8_t* qc = reinterpret_cast<int8_t*>(ring + STAGES * SB);   // q codes, or values (float)
+  float* sc = reinterpret_cast<float*>(qc + RP * q_row_b(KIND));
   const int scs = blp + 4;
-  int8_t* pq = reinterpret_cast<int8_t*>(sc + (size_t)RP * scs);
-  const int pqs = blp + 16;
-  float* vsb = reinterpret_cast<float*>(pq + (size_t)RP * pqs);
+  int8_t* pq = reinterpret_cast<int8_t*>(sc + (size_t)RP * scs);   // P codes, or bf16 P
+  __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(pq);
+  const int pqs = blp + 16, pbs = blp + 8;
+  float* vsb = reinterpret_cast<float*>(pq + (size_t)RP * p_row_b(KIND, blp));
   float* st_qs = vsb + 2 * blp;
   int* st_qsum = reinterpret_cast<int*>(st_qs + RP);
   float* st_m = reinterpret_cast<float*>(st_qsum + RP);
@@ -237,19 +272,19 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
       const int page = !PAGED ? 0
                        : tt < STAGES - 1 ? a.table[(size_t)s.slot * a.tstride + jb] : s_page[b];
       const int live = nread_of(jb) - sub * TR;   // rows of the tile to read
-      unsigned char* st = ring + (tt % STAGES) * STAGE_B;
+      unsigned char* st = ring + (tt % STAGES) * SB;
       const unsigned char* src = is_v ? a.v : a.k;
       const size_t row0 = PAGED ? ((size_t)a.layer * a.n_pages + page) * bl
                                 : ((size_t)a.layer * a.S + s.slot) * a.L + (size_t)jb * bl;
-      const size_t base = (row0 + sub * TR) * (size_t)a.row_stride + (size_t)s.u * HD;
+      const size_t base = (row0 + sub * TR) * (size_t)a.row_stride + (size_t)s.u * (RB - 16);
 #pragma unroll
-      for (int e = 0; e < TR * 8 / THREADS; ++e) {
-        const int c = tid + e * THREADS, row = c >> 3, piece = c & 7;
+      for (int e = 0; e < TR * PIECES / THREADS; ++e) {
+        const int c = tid + e * THREADS, row = c >> PSH, piece = c & (PIECES - 1);
         const bool ok = row < live;
-        cp_async16(st + row * ROW_B + piece * 16,
+        cp_async16(st + row * RB + piece * 16,
                    ok ? src + base + (size_t)row * a.row_stride + piece * 16 : src, ok ? 16 : 0);
       }
-      if (!is_v) {  // the tile's K and V scales of the lo and hi kv heads
+      if (!FLOAT && !is_v) {  // the tile's K and V scales of the lo and hi kv heads
         const int n = max(0, min(live, TR));
         uint32_t* dst = reinterpret_cast<uint32_t*>(st + TILE_B);
         const int arrays = INT4 ? 4 : 2;  // ks lo, (ks hi,) vs lo, (vs hi)
@@ -283,27 +318,39 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
     for (int b = tid; b < s.n_run; b += THREADS)
       s_page[b] = a.table[(size_t)s.slot * a.tstride + s.jb0 + b];
 
-  // ---- q codes and statistics of the item's rows, a warp's rows warp,
-  // warp + WARPS, ... (the first tiles are in flight meanwhile)
+  // ---- q codes (float caches: q rounded to the cache's type) and
+  // statistics of the item's rows, a warp's rows warp, warp + WARPS, ...
+  // (the first tiles are in flight meanwhile); padding rows are zero
 #pragma unroll
   for (int x = 0; x < QR; ++x) {
     const int rr = warp + x * WARPS;
     uint32_t word = 0;
     float scale = 0.f;
     int csum = 0;
-    if (rr < s.nr) {
-      float qv[4];
-      load_q4(a.q, io_index(s.r0 + rr) + lane * 4, a.q_bf16, qv);
-      int8_t code[4];
-      scale = quantize_q4(qv, code);
+    if constexpr (FLOAT) {
+      float qv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (rr < s.nr) load_q4(a.q, io_index(s.r0 + rr) + lane * 4, a.q_bf16, qv);
+      if constexpr (KIND == KV_F32)
+        reinterpret_cast<float4*>(qc + rr * ROW_F32)[lane] =
+            make_float4(qv[0], qv[1], qv[2], qv[3]);
+      else
+        reinterpret_cast<uint2*>(qc + rr * ROW_BF16)[lane] =
+            make_uint2(pack_bf16(qv[0], qv[1]), pack_bf16(qv[2], qv[3]));
+    } else {
+      if (rr < s.nr) {
+        float qv[4];
+        load_q4(a.q, io_index(s.r0 + rr) + lane * 4, a.q_bf16, qv);
+        int8_t code[4];
+        scale = quantize_q4(qv, code);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        word |= (uint32_t)(uint8_t)code[c] << (8 * c);
-        csum += code[c];
+        for (int c = 0; c < 4; ++c) {
+          word |= (uint32_t)(uint8_t)code[c] << (8 * c);
+          csum += code[c];
+        }
+        csum = warp_sum(csum);
       }
-      csum = warp_sum(csum);
+      reinterpret_cast<uint32_t*>(qc + rr * QS_B)[lane] = word;
     }
-    reinterpret_cast<uint32_t*>(qc + rr * QS_B)[lane] = word;
     if (lane == 0) {
       const int r = s.r0 + rr;
       st_qs[rr] = scale;
@@ -314,21 +361,31 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
       st_hi[rr] = INT4 && (r % nq) >= half;
     }
   }
-  for (int i = tid; i < RP * pqs / 4; i += THREADS) reinterpret_cast<int*>(pq)[i] = 0;
+  // P codes, bf16 P or (f32) the scores and P start at zero: the entries
+  // past a block's rows are never written
+  if constexpr (KIND == KV_F32) {
+    for (int i = tid; i < RP * scs; i += THREADS) sc[i] = 0.f;
+  } else {
+    for (int i = tid; i < RP * p_row_b(KIND, blp) / 4; i += THREADS)
+      reinterpret_cast<int*>(pq)[i] = 0;
+  }
   __syncthreads();
 
   uint32_t qb[NT][4][2];  // the scores' B fragments: q codes of n-tile n, k-step kk
+  if constexpr (!FLOAT) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int8_t* p = qc + (n * 8 + g) * QS_B + 32 * kk + 4 * t;
-      qb[n][kk][0] = *reinterpret_cast<const uint32_t*>(p);
-      qb[n][kk][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-    }
+      for (int kk = 0; kk < 4; ++kk) {
+        const int8_t* p = qc + (n * 8 + g) * QS_B + 32 * kk + 4 * t;
+        qb[n][kk][0] = *reinterpret_cast<const uint32_t*>(p);
+        qb[n][kk][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+      }
+  }
   float facc[2][NT][4];   // f32 output accumulators: hd rows 32*warp + 16*m + .., query rows
   int iacc[2][NT][4];     // a block's int32 P@V (int4: the lo members)
   int iacc_hi[2][NT][4];  // int4: the hi members
+  float pacc[2][NT][4];   // float caches: a block's P@V
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -341,36 +398,44 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
     __syncthreads();
     issue(tt + STAGES - 1);
 
-    const unsigned char* st = ring + (tt % STAGES) * STAGE_B;
+    const unsigned char* st = ring + (tt % STAGES) * SB;
     const int b = tt / tpb, rem = tt % tpb;
     const int sub = rem % ntl, jb = s.jb0 + b;
     const int nread = nread_of(jb);
     if (rem < ntl) {
       // ---- scores of the tile's rows 16*warp .. +15 against every query row
       int sacc[NT][4] = {}, sacc_hi[NT][4] = {};
+      float fsc[NT][4] = {};   // float caches
+      if constexpr (KIND == KV_BF16) {
+        scores_bf16<NT>(fsc, st, warp * 16, reinterpret_cast<const unsigned char*>(qc), 1, 0,
+                        lane);
+      } else if constexpr (KIND == KV_F32) {
+        scores_f32<NT>(fsc, st, warp * 16, reinterpret_cast<const float*>(qc), lane);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t af[4];
-        const int mat = lane >> 3;
-        ldsm_x4(af, st + (warp * 16 + (lane & 7) + (mat & 1) * 8) * ROW_B + 32 * kk +
-                        (mat >> 1) * 16);
-        if (INT4) {
-          uint32_t lo[4], hi[4];
-          nibbles<NOOP>(af, lo, hi);
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t af[4];
+          const int mat = lane >> 3;
+          ldsm_x4(af, st + (warp * 16 + (lane & 7) + (mat & 1) * 8) * ROW_B + 32 * kk +
+                          (mat >> 1) * 16);
+          if (INT4) {
+            uint32_t lo[4], hi[4];
+            nibbles<NOOP>(af, lo, hi);
 #pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            mma_s8(sacc[n], lo, qb[n][kk][0], qb[n][kk][1]);
-            if (!NOOP) mma_s8(sacc_hi[n], hi, qb[n][kk][0], qb[n][kk][1]);
+            for (int n = 0; n < NT; ++n) {
+              mma_s8(sacc[n], lo, qb[n][kk][0], qb[n][kk][1]);
+              if (!NOOP) mma_s8(sacc_hi[n], hi, qb[n][kk][0], qb[n][kk][1]);
+            }
+          } else {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) mma_s8(sacc[n], af, qb[n][kk][0], qb[n][kk][1]);
           }
-        } else {
-#pragma unroll
-          for (int n = 0; n < NT; ++n) mma_s8(sacc[n], af, qb[n][kk][0], qb[n][kk][1]);
         }
       }
       // the tile's staged scales (bf16: the halfword offset of each array)
       const uint32_t* scw = reinterpret_cast<const uint32_t*>(st + TILE_B);
       int off[4] = {0, 0, 0, 0};
-      if (a.sc_bf16) {
+      if (!FLOAT && a.sc_bf16) {
 #pragma unroll
         for (int arr = 0; arr < 4; ++arr) {
           if (!INT4 && (arr & 1)) continue;
@@ -392,11 +457,14 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
         const int il = warp * 16 + g + 8 * hrow;   // row of the tile
         const int ib = sub * TR + il;              // row of the block
         if (ib >= bl) continue;
-        const float ks_lo = scale_at(0, il);
-        const float ks_hi = INT4 ? scale_at(1, il) : ks_lo;
-        if (t == 0) {
-          vsb[ib] = scale_at(2, il);
-          if (INT4) vsb[blp + ib] = scale_at(3, il);
+        float ks_lo = 1.f, ks_hi = 1.f;
+        if constexpr (!FLOAT) {
+          ks_lo = scale_at(0, il);
+          ks_hi = INT4 ? scale_at(1, il) : ks_lo;
+          if (t == 0) {
+            vsb[ib] = scale_at(2, il);
+            if (INT4) vsb[blp + ib] = scale_at(3, il);
+          }
         }
         const bool row_ok = ib < nread;
         const int row_pos = jb * bl + ib;
@@ -406,11 +474,17 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
           for (int e = 0; e < 2; ++e) {
             const int rr = n * 8 + 2 * t + e;
             if (rr >= s.nr) continue;
-            const bool hi = INT4 && st_hi[rr];
-            int d = (hi && !NOOP) ? sacc_hi[n][2 * hrow + e] : sacc[n][2 * hrow + e];
-            if (INT4) d -= 8 * st_qsum[rr];
-            const bool ok = row_ok && row_pos <= s.pos + st_c[rr];
-            const float v = ok ? ((float)d * st_qs[rr]) * (hi ? ks_hi : ks_lo) : NEG_INF;
+            float v;
+            if constexpr (FLOAT) {
+              const bool ok = row_ok && row_pos <= s.pos + st_c[rr];
+              v = ok ? fsc[n][2 * hrow + e] : NEG_INF;
+            } else {
+              const bool hi = INT4 && st_hi[rr];
+              int d = (hi && !NOOP) ? sacc_hi[n][2 * hrow + e] : sacc[n][2 * hrow + e];
+              if (INT4) d -= 8 * st_qsum[rr];
+              const bool ok = row_ok && row_pos <= s.pos + st_c[rr];
+              v = ok ? ((float)d * st_qs[rr]) * (hi ? ks_hi : ks_lo) : NEG_INF;
+            }
             sc[rr * scs + ib] = v;
             cmax[n][e] = fmaxf(cmax[n][e], v);
           }
@@ -436,7 +510,46 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
         auto row_max = [&](int rr) {
           return fmaxf(fmaxf(pmx[rr], pmx[RP + rr]), fmaxf(pmx[2 * RP + rr], pmx[3 * RP + rr]));
         };
-        if (s.nr >= WARPS) {
+        if constexpr (FLOAT) {
+          // P = exp(s - m_safe), rounded to bf16 for a bf16 cache (f32: kept
+          // in the score row); l sums the unrounded p, as the TPU kernel
+          const bool by_row = s.nr >= WARPS;
+          const int ql = (bl + WARPS - 1) / WARPS;
+          const int i0 = by_row ? 0 : warp * ql, i1 = by_row ? bl : min(bl, i0 + ql);
+          for (int rr = by_row ? warp : 0; rr < s.nr; rr += by_row ? WARPS : 1) {
+            float* row = sc + rr * scs;
+            const SoftmaxStep ss = softmax_step(st_m[rr], row_max(rr));
+            float psum = 0.f;
+            for (int i = i0 + lane; i < i1; i += 32) {
+              const float p = expf(row[i] - ss.m_safe);
+              psum += p;
+              if (KIND == KV_BF16) pb[rr * pbs + i] = __float2bfloat16_rn(p);
+              else row[i] = p;
+            }
+            psum = warp_sum(psum);
+            if (lane == 0) {
+              if (by_row) {
+                st_l[rr] = st_l[rr] * ss.corr + psum;
+                st_m[rr] = ss.m_new;
+                st_corr[rr] = ss.corr;
+              } else {
+                part_sum[warp * RP + rr] = psum;
+              }
+            }
+          }
+          if (!by_row) {
+            __syncthreads();
+            if (tid < s.nr) {
+              const int rr = tid;
+              const SoftmaxStep ss = softmax_step(st_m[rr], row_max(rr));
+              const float psum = ((part_sum[rr] + part_sum[RP + rr]) + part_sum[2 * RP + rr]) +
+                                 part_sum[3 * RP + rr];
+              st_l[rr] = st_l[rr] * ss.corr + psum;
+              st_m[rr] = ss.m_new;
+              st_corr[rr] = ss.corr;
+            }
+          }
+        } else if (s.nr >= WARPS) {
           for (int rr = warp; rr < s.nr; rr += WARPS) {
             float* row = sc + rr * scs;
             const float* vrow = vsb + (st_hi[rr] ? blp : 0);
@@ -528,11 +641,35 @@ __global__ void __launch_bounds__(THREADS, (Ring<KIND, NT>::BLOCKS)) attn_core_k
           }
         }
       }
+    } else if constexpr (FLOAT) {
+      // ---- V tile of a float cache: P@V on hd rows 32*warp .. +31, V read
+      // in place (bf16: ldmatrix.trans into bf16 mma.sync; f32: FMA)
+      if (sub == 0) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pacc[m][n][e] = 0.f;
+      }
+      if constexpr (KIND == KV_BF16) pv_bf16<NT>(pacc, st, pb, pbs, sub * TR, RP - 1, warp, lane);
+      else pv_f32<NT>(pacc, st, sc, scs, sub * TR, RP - 1, warp, lane);
+      if (sub == ntl - 1) {  // the block's P@V into the f32 accumulators
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int rr = n * 8 + 2 * t + (e & 1);
+              if (rr < s.nr) facc[m][n][e] = facc[m][n][e] * st_corr[rr] + pacc[m][n][e];
+            }
+      }
     } else {
       // ---- V tile: transposed in place to [hd][TR] rows of VT_B bytes (rows
       // 16*warp .. +15, columns 4*lane .. +3 a thread), then P@V on hd rows
       // 32*warp .. +31. The stage is not refilled before the next iteration.
-      unsigned char* vt = ring + (tt % STAGES) * STAGE_B;
+      unsigned char* vt = ring + (tt % STAGES) * SB;
       uint32_t w[16];
 #pragma unroll
       for (int k = 0; k < 16; ++k)
@@ -671,7 +808,8 @@ template <int KIND, int NT, bool PAGED, bool NOOP, bool READ_ALL>
 int launch(const Args& a, cudaStream_t st) {
   static size_t opted_in = 0;
   auto kern = attn_core_kernel<KIND, NT, PAGED, NOOP, READ_ALL>;
-  const size_t smem = smem_bytes(Ring<KIND, NT>::STAGES, NT * 8, a.bl, PAGED ? a.bps : 0);
+  const size_t smem =
+      smem_bytes(KIND, Ring<KIND, NT>::STAGES, NT * 8, a.bl, PAGED ? a.bps : 0);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -704,15 +842,19 @@ int launch_kind(const Args& a, int kind, int nt, cudaStream_t st) {
     case KV_INT8: return launch_nt<KV_INT8, PAGED, false, READ_ALL>(a, nt, st);
     case KV_INT4: return launch_nt<KV_INT4, PAGED, false, READ_ALL>(a, nt, st);
     case KV_INT4_NOOP: return launch_nt<KV_INT4, PAGED, true, READ_ALL>(a, nt, st);
+    case KV_BF16: return launch_nt<KV_BF16, PAGED, false, READ_ALL>(a, nt, st);
+    case KV_F32: return launch_nt<KV_F32, PAGED, false, READ_ALL>(a, nt, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The core for int8 (kind 0), packed int4 (1) and packed int4 with the
-// noop unpack (4); kind + KV_READ_ALL reads and masks the blocks past the
-// last row (flat and multi only). table != null: the paged form (k/v and
+// The core for int8 (kind 0), packed int4 (1), packed int4 with the noop
+// unpack (4) and, unscaled, bf16 (2) and f32 (3) caches and pools (ks,
+// vs and sc_bf16 are not read); kind + KV_READ_ALL reads and masks the
+// blocks past the last row (flat and multi only). row_stride is in bytes.
+// table != null: the paged form (k/v and
 // the f32 scales are pools, block_l = ps, L = ps, C = 1). C candidates of nq
 // query heads a unit (C * nq rows, in groups of 32 along grid.z); the
 // window in `splits` runs of `bps` blocks; with splits > 1, ws holds S *

@@ -27,10 +27,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention.cu",
-           "decode_attention_multi.cu", "decode_attention_hopper.cu",
-           "decode_attention_grouped.cu", "decode_attention_grouped_hopper.cu",
-           "attention_probes.cu", "unpack_probes.cu")
+SOURCES = ("vector_add.cu", "quant_matmul.cu", "decode_attention_hopper.cu",
+           "decode_attention_grouped_hopper.cu", "attention_probes.cu", "unpack_probes.cu")
 HEADERS = ("common.cuh", "attention_common.cuh", "attention_hopper.cuh", "hopper.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -47,12 +45,8 @@ _SIGNATURES = {
     "tpuserve_quant_matmul_a8": [_P] * 7 + [_I] * 10 + [_P],
     "tpuserve_quantize_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P],
     "tpuserve_stage_x": [_P] * 3 + [_I] * 3 + [_P],
-    "tpuserve_decode_attention": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 12 + [_P],
-    "tpuserve_decode_attention_paged": [_P] * 8 + [_I] * 13 + [_P],
-    "tpuserve_decode_attention_multi": [_P] * 7 + [_I] * 13 + [_P],
     "tpuserve_decode_attention_core": [_P] * 10 + [_I] * 18 + [_P],
-    "tpuserve_decode_attention_grouped": [_P] * 7 + [_I] * 8 + [_LL] * 4 + [_I] * 2 + [_P],
-    "tpuserve_decode_attention_grouped_hopper": [_P] * 9 + [_LL] * 3 + [_I] * 13 + [_P],
+    "tpuserve_decode_attention_grouped_hopper": [_P] * 9 + [_LL] * 3 + [_I] * 12 + [_P],
     "tpuserve_probe_colsum": [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     "tpuserve_probe_dot_only": [_P] * 4 + [_I] * 4 + [_P],
     "tpuserve_probe_colsum_strided": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P],

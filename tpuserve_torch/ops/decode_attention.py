@@ -6,10 +6,9 @@ bf16 or f32) or packed int4 uint8 [n_layers, S, L, W/2] (global split-half:
 byte d holds W-position d in its low nibble and W/2 + d in its high
 nibble), at a layer offset. Scales are this layer's [S, Hkv, L] (bf16 or
 f32, head-major). For tensors on the card the wrapper launches a CUDA
-kernel: for an int8 or packed int4 cache the Hopper core of
-csrc/decode_attention_hopper.cu, which also serves the paged, prebuilt-Q_wide
-and multi-candidate entries, and for a bf16 or f32 cache
-csrc/decode_attention.cu (multi-candidate: csrc/decode_attention_multi.cu).
+kernel: the Hopper core of csrc/decode_attention_hopper.cu, which serves
+the flat, paged, prebuilt-Q_wide and multi-candidate entries for every
+cache.
 For tensors on the CPU it runs the plain version below, which follows the
 kernel's (and the TPU kernel's) algorithm step by step:
 
@@ -22,9 +21,10 @@ kernel's (and the TPU kernel's) algorithm step by step:
   (pscale = max(pmax/127, 1e-20)), int32 P@V;
 - bf16/f32 caches: plain f32 dots, P rounded to bf16 for a bf16 cache.
 
-The core splits a slot's window over blocks of the grid where the grid is
-small (`split_plan`): each run of whole block_l blocks starts its own online
-softmax and the runs' (m, l, acc) are merged in order. The requant points
+The core splits an int8 or int4 slot's window over blocks of the grid
+where the grid is small (`split_plan`; never a float cache's): each run of
+whole block_l blocks starts its own online softmax and the runs' (m, l,
+acc) are merged in order. The requant points
 do not move; the plain versions take the same plan, so only the order of
 f32 sums (and a P code at a rounding tie) can differ from one online
 softmax over the window.
@@ -67,13 +67,13 @@ the nibble unpack's share of the kernel's time in place.
 `decode_attention` (the JAX package's entry of the same name, the grouped
 `_kernel` behind TPUSERVE_DECODE_ATTN=grouped) takes k/v [S, L, Hkv, hd]
 and [S, L, Hkv] scales and computes other numerics: no P requant, P times
-v_scale rounded to bf16, P@V on V's values. Its kernels are
-csrc/decode_attention_grouped_hopper.cu for an int8 window (with the core's
-window split, `_grouped_plan`) and csrc/decode_attention_grouped.cu for a
-float one. `decode_attention_packed`, the port's route for the decode step
-over a packed int4 cache, runs the same Hopper kernel on the packed window
-and its head-major scales in place; its plain version is unpack_kv_codes
-followed by decode_attention_plain.
+v_scale rounded to bf16, P@V on V's values. Its kernel is
+csrc/decode_attention_grouped_hopper.cu for every window (int8, bf16, f32),
+with the core's window split (`_grouped_plan`). `decode_attention_packed`,
+the port's route for the decode step over a packed int4 cache, runs the
+same Hopper kernel on the packed window and its head-major scales in
+place; its plain version is unpack_kv_codes followed by
+decode_attention_plain.
 """
 
 from __future__ import annotations
@@ -97,10 +97,15 @@ _KERNEL_NQ = (1, 2, 4, 8)
 _BLOCK_L_ENV = "TPUSERVE_ATTN_BLOCK_L"   # L rows per online-softmax block, default 128
 _DYNSKIP_ENV = "TPUSERVE_ATTN_DYNSKIP"
 _READ_ALL = 16     # added to a kernel's launch code: read and mask past a slot (attention_common.cuh)
-_GROUPED_MAX_BL = 2048   # the grouped kernel's scores [nq, block_l] f32 in shared memory
 _UNPACK_ENV = "TPUSERVE_INT4_UNPACK"
-# the Hopper core (csrc/decode_attention_hopper.cu) of the int8 and packed int4 caches
-_CORE_TR, _CORE_ROW_B, _CORE_SC_W = 64, 144, 68
+# cache kinds of the launch codes (attention_common.cuh)
+_KV_INT8, _KV_INT4, _KV_BF16, _KV_F32 = 0, 1, 2, 3
+_CACHE_KINDS = {"int8": _KV_INT8, "int4": _KV_INT4, "bf16": _KV_BF16, "f32": _KV_F32}
+# the Hopper kernels' ring (csrc/attention_hopper.cuh): tiles of 64 rows, a
+# row of one kv unit + 16 bytes (int8/int4 144, bf16 272, f32 528), then 4
+# staged scale rows of 68 words
+_CORE_TR, _CORE_SC_W = 64, 68
+_ROW_B = {_KV_BF16: 272, _KV_F32: 528}
 _CORE_RG = 32          # query rows one block serves (a row group)
 _CORE_SPLIT_FILL = 4   # blocks an SM should have before the window is split
 _H100_SMS = 132        # the plan of a CPU call is the H100's
@@ -151,18 +156,27 @@ def core_rows(cands: int, nq: int):
     return -(-rows // _CORE_RG), (8 if rmax <= 8 else 16 if rmax <= 16 else 32)
 
 
-def core_smem_bytes(rp: int, block_l: int, pages: int = 0, int8: bool = False) -> int:
+def _stage_bytes(kind: int) -> int:
+    """A ring stage of the Hopper kernels for a cache kind (stage_b)."""
+    return _CORE_TR * _ROW_B.get(kind, 144) + 4 * _CORE_SC_W * 4
+
+
+def core_smem_bytes(rp: int, block_l: int, pages: int = 0, kind: int = _KV_INT4) -> int:
     """Dynamic shared memory of one block of the Hopper core (its
-    smem_bytes): the cp.async ring (a V tile is transposed within its
-    stage; 3 stages for an int8 cache with up to 8 rows, else 4), q codes,
-    scores and P f32, P codes, the block's V scales, eight per-row
-    statistics and flags, four per-warp partials a row and, paged, the
-    `pages` page ids of a split."""
+    smem_bytes) for a cache `kind`: the cp.async ring (a V tile is
+    transposed within its stage; 2 stages for a bf16 cache with up to 8
+    rows, 3 for an int8 one with up to 8 and for f32, else 4), q codes
+    (float: q's values), scores and P f32, P codes (bf16: P bf16; f32:
+    none), the block's V scales, eight per-row statistics and flags, four
+    per-warp partials a row and, paged, the `pages` page ids of a split."""
     blp = -(-block_l // _CORE_TR) * _CORE_TR
-    stage = _CORE_TR * _CORE_ROW_B + 4 * _CORE_SC_W * 4
-    stages = 3 if int8 and rp == 8 else 4
-    return (stages * stage + rp * 144 + rp * (blp + 4) * 4
-            + rp * (blp + 16) + 2 * blp * 4 + 24 * rp * 4 + pages * 4)
+    if kind == _KV_BF16 and rp == 8:
+        stages = 2
+    else:
+        stages = 3 if (kind == _KV_INT8 and rp == 8) or kind == _KV_F32 else 4
+    p_row = {_KV_BF16: 2 * (blp + 8), _KV_F32: 0}.get(kind, blp + 16)
+    return (stages * _stage_bytes(kind) + rp * _ROW_B.get(kind, 144) + rp * (blp + 4) * 4
+            + rp * p_row + 2 * blp * 4 + 24 * rp * 4 + pages * 4)
 
 
 def _plan_sms(device) -> int:
@@ -174,7 +188,10 @@ def _plan_sms(device) -> int:
 
 def _core_plan(g, device):
     """The Hopper core's (splits, blocks per split) for a geometry `g`;
-    (1, n_blocks) for the float caches, whose kernels do not split."""
+    (1, n_blocks) for the float caches: a run of whole blocks would round P
+    to bf16 at its own running max, and a float cache's flat, paged and
+    multi entries are held to the TPU kernel's one online softmax over the
+    window."""
     n_blocks = g["win"] // g["block_l"]
     if not g["kv_int8"]:
         return 1, n_blocks
@@ -363,7 +380,7 @@ def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
     return kind, nq
 
 
-def _check_inputs(q, tensors, k, v, block_rows, nq, core: bool = False):
+def _check_inputs(q, tensors, k, v):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decode attention kernel: unsupported q dtype {q.dtype}")
     for t in tensors:
@@ -373,8 +390,6 @@ def _check_inputs(q, tensors, k, v, block_rows, nq, core: bool = False):
             raise ValueError("decode attention kernel: inputs must be contiguous")
     if k.shape != v.shape or k.dtype != v.dtype:
         raise ValueError("decode attention kernel: k and v caches differ")
-    if not core and nq * block_rows * 4 > 160 * 1024:   # the float kernels' scores
-        raise ValueError(f"decode attention kernel: block of {block_rows} rows too large")
 
 
 def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positions,
@@ -399,32 +414,20 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
 
 
 def _launch_flat(q, k_full, v_full, k_scale_l, v_scale_l, positions, layer, g, skip: bool):
-    """Check the inputs and launch the flat kernel over the geometry `g`
-    (`skip`: the kernel's dynskip flag): the Hopper core for an int8 or
-    packed int4 cache, csrc/decode_attention.cu for a float one."""
-    from tpuserve_torch import kernels
-
+    """Check the inputs and launch the flat kernel, the Hopper core at
+    C = 1, over the geometry `g` (`skip`: the kernel's dynskip flag)."""
     n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], g["hd"])
     _check_inputs(q, [q, k_full, v_full, positions]
-                  + ([k_scale_l, v_scale_l] if g["quantized"] else []),
-                  k_full, v_full, g["block_l"], nq, core=g["kv_int8"])
+                  + ([k_scale_l, v_scale_l] if g["quantized"] else []), k_full, v_full)
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     sc_bf16 = _check_scales(k_scale_l, v_scale_l, g) if g["quantized"] else 0
     pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     code = kind if skip else kind + _READ_ALL
-    if g["kv_int8"]:
-        _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, 1, nq,
-                     layer, code, sc_bf16)
-        return out
-    rc = kernels.lib().tpuserve_decode_attention(
-        q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), 0, 0,
-        pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
-        g["s_dim"], g["n_heads"], n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-        k_full.shape[-1], code, nq, kernels.stream_of(q))
-    kernels.check(rc, "decode_attention")
+    _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, 1, nq, layer,
+                 code, sc_bf16)
     return out
 
 
@@ -450,14 +453,16 @@ def _core_counters(device) -> torch.Tensor:
 def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, sc_bf16,
                  n_pages=0, hp=0):
     """Launch the Hopper core (csrc/decode_attention_hopper.cu) over `g`:
-    the split plan, its workspace and counters, one launch."""
+    the split plan, its workspace and counters, one launch. ks/vs are None
+    for a float cache."""
     from tpuserve_torch import kernels
 
     splits, bps = _core_plan(g, q.device)
     units = g["n_kv"] // 2 if g["kv_bits"] == 4 else g["n_kv"]
     groups, rp = core_rows(cands, nq)
+    kind = code & ~_READ_ALL
     smem = core_smem_bytes(rp, g["block_l"], bps if table is not None else 0,
-                           int8=g["kv_bits"] == 8)
+                           kind=_KV_INT4 if kind == 4 else kind)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"decode attention kernel: {smem} bytes of shared memory for "
                          f"{cands * nq} rows, block {g['block_l']}")
@@ -471,11 +476,13 @@ def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, 
         ws = torch.empty(n_cnt * splits * rp * (_HD + 2), dtype=torch.float32, device=q.device)
         cnt = _core_counters(q.device)
     rc = kernels.lib().tpuserve_decode_attention_core(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if ks is None else ks.data_ptr(),
+        0 if vs is None else vs.data_ptr(),
         pos32.data_ptr(), 0 if table is None else table.data_ptr(), out.data_ptr(),
         0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr(),
         int(q.dtype == torch.bfloat16), sc_bf16, g["s_dim"], cands, g["n_heads"], g["n_kv"],
-        g["l_max"], int(layer), g["win"], g["block_l"], k.shape[-1], n_pages, hp,
+        g["l_max"], int(layer), g["win"], g["block_l"], k.shape[-1] * k.element_size(),
+        n_pages, hp,
         0 if table is None else table.stride(0), code, nq, splits, bps, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_core")
 
@@ -511,8 +518,8 @@ def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
     (clipped to L, halved until it divides L), never in the multi-slot
     packed form, which this entry never takes, and every block is read (the
     TPU kernel's block maps here are static: no per-slot skip). Returns [S,
-    H, hd] f32. CUDA tensors launch the flat kernel (csrc/decode_attention.cu)
-    on a one-layer view; CPU tensors take the plain version."""
+    H, hd] f32. CUDA tensors launch the flat kernel (the Hopper core) on a
+    one-layer view; CPU tensors take the plain version."""
     global wide_launches
     if not q.is_cuda:
         return decode_attention_wide_plain(q, k, v, k_scale, v_scale, positions,
@@ -524,9 +531,6 @@ def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
 
 
 # ---------------------------------------------------------------- grouped
-_GKV_ENV = "TPUSERVE_ATTN_GKV"
-
-
 def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of models.llama.pack_kv_codes: uint8 [..., W/2] -> int8 [...,
     W]. Three byte-wide passes: the low and high nibbles into the two
@@ -539,10 +543,9 @@ def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
     return out.sub_(8).view(torch.int8)
 
 
-def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[int]):
-    """Shapes, the kv heads per block, the L blocking and the window split
-    of the grouped entry, chosen as the JAX package's decode_attention
-    chooses them, but for the default split (see decode_attention)."""
+def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int):
+    """Shapes, the L blocking and the window split of the grouped entry,
+    chosen as the JAX package's decode_attention chooses them."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError("grouped decode attention expects q [S, H, hd] and k/v [S, L, Hkv, hd]")
     s_dim, n_heads, hd = q.shape
@@ -562,36 +565,27 @@ def _grouped_geometry(q, k, v, k_scale, v_scale, block_l: int, g_kv: Optional[in
     if quantized and (tuple(k_scale.shape) != (s_dim, l_max, n_kv)
                       or tuple(v_scale.shape) != (s_dim, l_max, n_kv)):
         raise ValueError(f"grouped decode attention: scales must be {(s_dim, l_max, n_kv)}")
-    return _grouped_dims(q, l_max, n_kv, k.dtype == torch.int8, quantized, block_l, g_kv)
+    return _grouped_dims(q, l_max, n_kv, k.dtype == torch.int8, quantized, block_l)
 
 
-def _grouped_dims(q, l_max: int, n_kv: int, kv_int8: bool, quantized: bool, block_l: int,
-                  g_kv: Optional[int]):
-    """The grouped geometry of checked shapes: g_kv clipped to a divisor of
-    Hkv, block_l halved until it divides L, and the window split."""
+def _grouped_dims(q, l_max: int, n_kv: int, kv_int8: bool, quantized: bool, block_l: int):
+    """The grouped geometry of checked shapes: block_l halved until it
+    divides L, and the window split."""
     s_dim, n_heads, hd = q.shape
-    if g_kv is None:
-        g_kv = int(os.environ.get(_GKV_ENV, "0")) or 1
-    g_kv = max(1, min(int(g_kv), n_kv))
-    while n_kv % g_kv:
-        g_kv -= 1
     bl = max(1, min(int(block_l), l_max))
     while l_max % bl:
         bl //= 2
     g = dict(s_dim=s_dim, n_heads=n_heads, hd=hd, l_max=l_max, n_kv=n_kv,
-             rep=n_heads // n_kv, quantized=quantized, kv_int8=kv_int8, g_kv=g_kv, block_l=bl)
+             rep=n_heads // n_kv, quantized=quantized, kv_int8=kv_int8, block_l=bl)
     g["splits"], g["bps"] = _grouped_plan(g, q.device)
     return g
 
 
 def _grouped_plan(g, device):
     """The grouped Hopper kernel's (splits, blocks per split): split_plan
-    over the Hkv kv heads of S slots, for the int8 and the packed int4 route
-    alike and whatever g_kv, so that neither changes a value; (1, n_blocks)
-    for the float caches, whose kernel does not split."""
+    over the Hkv kv heads of S slots, for every route (int8, packed int4,
+    bf16, f32) alike and whatever g_kv, so that neither changes a value."""
     n_blocks = g["l_max"] // g["block_l"]
-    if not g["kv_int8"]:
-        return 1, n_blocks
     return split_plan(g["n_kv"], g["s_dim"], n_blocks, _plan_sms(device))
 
 
@@ -605,13 +599,13 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     wholly past positions[s] skipped under TPUSERVE_ATTN_DYNSKIP=1 (read
     and masked by default: the same values); P * v_scale rounded to bf16 (unless
     the cache is f32) and P@V on V's values with f32 accumulation, no P
-    requant; out = acc / max(l, 1e-20) where l > 0, else 0. An int8 cache
+    requant; out = acc / max(l, 1e-20) where l > 0, else 0. Every cache
     takes the Hopper kernel's window split (`_grouped_plan`): each run of
     whole blocks starts its own online softmax and the runs' (m, l, acc)
     are merged in order, so P is rounded to bf16 at the run's max. `g_kv`
-    only splits the work (the TPU's masked head pairs add exact zeros), so
-    it changes no value. Returns [S, H, hd] f32."""
-    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
+    only splits the TPU's work (its masked head pairs add exact zeros): it
+    changes no value and is not read here. Returns [S, H, hd] f32."""
+    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l)
     s_dim, n_heads, hd, l_max, bl = g["s_dim"], g["n_heads"], g["hd"], g["l_max"], g["block_l"]
     dev = q.device
     pos = positions.to(device=dev, dtype=torch.int64).view(s_dim, 1, 1)
@@ -664,40 +658,40 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     return _merge_runs(parts)
 
 
-def grouped_smem_bytes(nq: int, block_l: int) -> int:
+def grouped_smem_bytes(nq: int, block_l: int, kind: int = _KV_INT8) -> int:
     """Dynamic shared memory of one block of the grouped Hopper kernel (its
-    grouped_smem) for nq query rows a unit: a 3-stage cp.async ring, q
-    codes (padded to the mma's 8 or 16 rows), scores f32 and P bf16 of the
-    block's nq rows, its V scales, six per-row statistics and two per-warp
-    partials a padded row."""
+    grouped_smem) for nq query rows a unit of a cache `kind`: a 3-stage
+    cp.async ring, q (padded to the mma's 8 or 16 rows: int8 codes, a bf16
+    window's three bf16 pieces, f32 values), scores f32 and P bf16 of the
+    block's nq rows (f32: P in the score rows), its V scales, six per-row
+    statistics and two per-warp partials a padded row."""
     rp = 8 if nq <= 8 else 16
     blp = -(-block_l // _CORE_TR) * _CORE_TR
-    stage = _CORE_TR * _CORE_ROW_B + 4 * _CORE_SC_W * 4
-    return (3 * stage + rp * 144 + nq * (blp + 4) * 4 + nq * (blp + 8) * 2 + 2 * blp * 4
+    q_row = {_KV_BF16: 3 * 272, _KV_F32: 528}.get(kind, 144)
+    p_rows = 0 if kind == _KV_F32 else nq * (blp + 8) * 2
+    return (3 * _stage_bytes(kind) + rp * q_row + nq * (blp + 4) * 4 + p_rows + 2 * blp * 4
             + 6 * rp * 4 + 2 * 4 * rp * 4)
 
 
 def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what):
     """Launch csrc/decode_attention_grouped_hopper.cu over the window k/v
-    (int8 [S, L, Hkv, hd] or packed [S, L, Hkv*hd/2] views with contiguous
-    rows) and head-major scales ks/vs [S, Hkv, L] (unit stride along L);
-    kind 0 int8 or 1 packed int4."""
+    (int8, bf16 or f32 [S, L, Hkv, hd] or packed [S, L, Hkv*hd/2] views with
+    contiguous rows; `row_stride` in bytes) and head-major scales ks/vs [S,
+    Hkv, L] (unit stride along L; None for an unscaled float window); kind
+    0 int8, 1 packed int4, 2 bf16, 3 f32."""
     from tpuserve_torch import kernels
 
     s_dim, n_kv = g["s_dim"], g["n_kv"]
-    units = n_kv // 2 if kind == 1 else n_kv
-    upb = g["g_kv"] if kind == 0 else max(1, g["g_kv"] // 2)
-    while units % upb:
-        upb -= 1
+    units = n_kv // 2 if kind == _KV_INT4 else n_kv
     rp = 8 if nq <= 8 else 16
-    smem = grouped_smem_bytes(nq, g["block_l"])
+    smem = grouped_smem_bytes(nq, g["block_l"], kind)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{what}: {smem} bytes of shared memory for {nq} query heads a kv "
                          f"unit, block {g['block_l']}")
     if (k.stride(0) * k.element_size()) % 16 or row_stride % 16 or k.data_ptr() % 16 \
             or v.data_ptr() % 16:
         raise ValueError(f"{what}: k/v slots and rows must be 16-byte aligned")
-    if ks.stride() != vs.stride() or ks.stride(2) != 1:
+    if ks is not None and (ks.stride() != vs.stride() or ks.stride(2) != 1):
         raise ValueError(f"{what}: the scales must be [S, Hkv, L] views of one layout with "
                          "unit stride along L")
     splits, bps = g["splits"], g["bps"]
@@ -710,13 +704,15 @@ def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what
         cnt = _core_counters(q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     code = kind if dynskip(grouped=True) else kind + _READ_ALL
+    scaled = ks is not None
     rc = kernels.lib().tpuserve_decode_attention_grouped_hopper(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        pos32.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-        0 if cnt is None else cnt.data_ptr(), k.stride(0) * k.element_size(), ks.stride(0),
-        ks.stride(1), int(q.dtype == torch.bfloat16), int(ks.dtype == torch.bfloat16), s_dim,
-        g["n_heads"], n_kv, g["l_max"], g["block_l"], row_stride, code, nq, upb, splits, bps,
-        kernels.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr() if scaled else 0,
+        vs.data_ptr() if scaled else 0, pos32.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), 0 if cnt is None else cnt.data_ptr(),
+        k.stride(0) * k.element_size(), ks.stride(0) if scaled else 0,
+        ks.stride(1) if scaled else 0, int(q.dtype == torch.bfloat16),
+        int(scaled and ks.dtype == torch.bfloat16), s_dim, g["n_heads"], n_kv, g["l_max"],
+        g["block_l"], row_stride, code, nq, splits, bps, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_grouped_hopper")
     return out
 
@@ -747,20 +743,19 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
     (a transposed view of the head-major scale cache is read in place,
     other layouts are copied head-major first), or None for a float
     cache; positions [S] int (-1 = inactive); `block_l` the online-softmax
-    block; `g_kv` the kv heads one block serves (or TPUSERVE_ATTN_GKV; the
-    port's default is 1, where the JAX package's is 16 // rep). Returns
+    block; `g_kv`, the TPU kernel's kv heads a grid step (TPUSERVE_ATTN_GKV
+    there), is taken for the JAX package's signature and changes nothing:
+    the Hopper kernel takes one kv unit a block (a block that walked g_kv
+    units in turn shrank the grid to Hkv / g_kv * S blocks). Returns
     [S, H, hd] f32. CUDA tensors launch csrc/decode_attention_grouped_hopper.cu
-    for an int8 cache and csrc/decode_attention_grouped.cu for a float one;
-    CPU tensors take the plain version."""
+    (int8, bf16 and f32 windows); CPU tensors take the plain version."""
     global grouped_launches
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, k_scale, v_scale, positions, block_l=block_l,
                                       g_kv=g_kv)
-    from tpuserve_torch import kernels
-
     what = "grouped decode attention kernel"
-    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l, g_kv)
-    s_dim, n_heads, n_kv = g["s_dim"], g["n_heads"], g["n_kv"]
+    g = _grouped_geometry(q, k, v, k_scale, v_scale, block_l)
+    n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k.dtype, 8, n_kv, g["rep"], g["hd"])
     quantized = g["quantized"]
     _check_grouped_call(q, positions, [q, k, v, positions] + ([k_scale, v_scale] if quantized
@@ -775,28 +770,12 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
         if k_scale.stride() != v_scale.stride():
             raise ValueError("grouped decode attention kernel: k and v scales differ in strides")
     pos32 = positions.to(torch.int32).contiguous()
-    if g["kv_int8"]:
-        ks, vs = k_scale.transpose(1, 2), v_scale.transpose(1, 2)    # [S, Hkv, L]
-        if ks.stride(2) != 1:
-            ks, vs = ks.contiguous(), vs.contiguous()
-        out = _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, n_kv * _HD, what)
-        grouped_launches += 1
-        return out
-    sc_bf16, ss = 0, (0, 0, 0)
+    ks = vs = None
     if quantized:
-        sc_bf16, ss = int(k_scale.dtype == torch.bfloat16), k_scale.stride()
-    if g["block_l"] > _GROUPED_MAX_BL:
-        raise ValueError(f"grouped decode attention kernel: block_l {g['block_l']} > "
-                         f"{_GROUPED_MAX_BL}")
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    null = 0
-    rc = kernels.lib().tpuserve_decode_attention_grouped(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quantized else null, v_scale.data_ptr() if quantized else null,
-        pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
-        s_dim, n_heads, n_kv, g["l_max"], g["block_l"], g["g_kv"], k.stride(0), *ss,
-        kind if dynskip(grouped=True) else kind + _READ_ALL, nq, kernels.stream_of(q))
-    kernels.check(rc, "decode_attention_grouped")
+        ks, vs = k_scale.transpose(1, 2), v_scale.transpose(1, 2)    # [S, Hkv, L]
+        if ks.stride(2) != 1:   # other layouts are copied head-major
+            ks, vs = ks.contiguous(), vs.contiguous()
+    out = _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, n_kv * _HD * esz, what)
     grouped_launches += 1
     return out
 
@@ -861,7 +840,7 @@ def decode_attention_packed(q, k, v, k_scale, v_scale, positions, *, block_l: in
     n_heads = q.shape[1]
     if n_heads % n_kv:
         raise ValueError(f"{what}: {n_heads} heads over {n_kv} kv heads")
-    g = _grouped_dims(q, l_max, n_kv, True, True, block_l, g_kv)   # the unpacked window's
+    g = _grouped_dims(q, l_max, n_kv, True, True, block_l)   # the unpacked window's
     nq = 2 * g["rep"]
     if nq > 16:
         raise ValueError(f"{what}: {nq} query heads per kv head pair unsupported")
@@ -878,30 +857,20 @@ def decode_attention_packed(q, k, v, k_scale, v_scale, positions, *, block_l: in
 
 # ---------------------------------------------------------------- candidates
 _MULTI_MAX_C = 16          # candidates per slot the multi kernel takes
-_MULTI_GROUP = 16          # query rows the kernel accumulates P@V for at once
 _SMEM_LIMIT = 227 * 1024   # shared memory one block may use on the H100
 
 
-def multi_smem_bytes(rows: int, block_l: int) -> int:
-    """Dynamic shared memory of the float caches' multi kernel for `rows` =
-    C * (query heads per block): q [rows, hd] f32, the P@V cross-warp
-    reduction [4 warps, group, hd] and the accumulators [rows, hd] f32,
-    scores/P [rows, bl] f32. csrc/decode_attention_multi.cu lays it out so."""
-    return rows * _HD * 4 + 4 * _MULTI_GROUP * _HD * 4 + rows * _HD * 4 + rows * block_l * 4
-
-
 def check_multi_kernel(cands: int, nq: int, block_l: Optional[int] = None,
-                       int_kv: bool = True) -> None:
-    """Raise ValueError unless the multi kernel takes `cands` candidates of
-    `nq` query heads per block over blocks of `block_l` rows (None: the
-    entry's default, TPUSERVE_ATTN_BLOCK_L or 128): the Hopper core for an
-    int8 or packed int4 cache (`int_kv`), else csrc/decode_attention_multi.cu."""
+                       cache: str = "int8") -> None:
+    """Raise ValueError unless the multi kernel (the Hopper core) takes
+    `cands` candidates of `nq` query heads per block over blocks of
+    `block_l` rows (None: the entry's default, TPUSERVE_ATTN_BLOCK_L or 128)
+    of a `cache` ("int8", "int4", "bf16" or "f32")."""
     block_l = default_block_l() if block_l is None else block_l
     if not 1 <= cands <= _MULTI_MAX_C:
         raise ValueError(f"multi decode attention kernel: {cands} candidates, "
                          f"takes 1..{_MULTI_MAX_C}")
-    smem = (core_smem_bytes(core_rows(cands, nq)[1], block_l) if int_kv
-            else multi_smem_bytes(cands * nq, block_l))
+    smem = core_smem_bytes(core_rows(cands, nq)[1], block_l, kind=_CACHE_KINDS[cache])
     if smem > _SMEM_LIMIT:
         raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
                          f"{cands} candidates x {nq} heads, block {block_l}")
@@ -932,15 +901,14 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     position (-1 = inactive); the rest as decode_attention_wide_cache.
     Callers guarantee max(positions) + C <= window. Returns [S, C, H, hd]
     f32; candidate 0 of an inactive slot is 0, its other candidates are
-    garbage for the caller to mask. CUDA tensors launch the kernel (1 <= C
-    <= 16); CPU tensors take the plain version."""
+    garbage for the caller to mask. CUDA tensors launch the Hopper core
+    (1 <= C <= 16; every cache, a float one never split); CPU tensors take
+    the plain version."""
     global multi_launches
     if not q.is_cuda:
         return decode_attention_wide_cache_multi_plain(q, k_full, v_full, k_scale_l, v_scale_l,
                                                        positions, layer, window=window,
                                                        block_l=block_l)
-    from tpuserve_torch import kernels
-
     if q.dim() != 4:
         raise ValueError("multi decode attention expects q [S, C, H, hd]")
     s_dim, cands, n_heads, hd = q.shape
@@ -949,11 +917,9 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     n_kv = g["n_kv"]
     kind, nq = _kernel_kind(k_full.dtype, g["kv_bits"], n_kv, g["rep"], hd)
     _check_inputs(q, [q, k_full, v_full, positions]
-                  + ([k_scale_l, v_scale_l] if g["quantized"] else []),
-                  k_full, v_full, g["block_l"], nq, core=g["kv_int8"])
-    if k_full.data_ptr() % 16 or v_full.data_ptr() % 16:   # rows are read in 16-byte vectors
-        raise ValueError("multi decode attention kernel: k and v caches must be 16-byte aligned")
-    check_multi_kernel(cands, nq, g["block_l"], int_kv=g["kv_int8"])
+                  + ([k_scale_l, v_scale_l] if g["quantized"] else []), k_full, v_full)
+    cache = {_KV_INT8: "int8", _KV_BF16: "bf16", _KV_F32: "f32"}.get(kind, "int4")
+    check_multi_kernel(cands, nq, g["block_l"], cache=cache)
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     if positions.shape != (s_dim,):
@@ -963,16 +929,8 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     pos32 = positions if positions.dtype == torch.int32 else positions.to(torch.int32)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     code = kind if dynskip() else kind + _READ_ALL
-    if g["kv_int8"]:
-        _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, cands, nq,
-                     layer, code, sc_bf16)
-    else:
-        rc = kernels.lib().tpuserve_decode_attention_multi(
-            q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(), 0, 0,
-            pos32.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16), sc_bf16,
-            s_dim, cands, n_heads, n_kv, g["l_max"], int(layer), g["win"], g["block_l"],
-            k_full.shape[-1], code, nq, kernels.stream_of(q))
-        kernels.check(rc, "decode_attention_multi")
+    _launch_core(q, k_full, v_full, k_scale_l, v_scale_l, pos32, None, out, g, cands, nq, layer,
+                 code, sc_bf16)
     multi_launches += 1
     return out
 
@@ -1037,8 +995,6 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
         return decode_attention_wide_paged_plain(q, k_pool, v_pool, k_scale_pool,
                                                  v_scale_pool, page_table, positions,
                                                  layer, window=window)
-    from tpuserve_torch import kernels
-
     ps, win = _paged_window(k_pool, page_table, window)
     s_dim, n_heads, hd = q.shape
     n_layers, n_pages, _, w_store = k_pool.shape
@@ -1055,8 +1011,7 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
     if kv_bits == 4 and (w // 2) % 128:
         raise ValueError(f"packed int4 KV needs (n_kv_heads*head_dim)/2 % 128 == 0, got W={w}")
     _check_inputs(q, [q, k_pool, v_pool, positions]
-                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool, ps, nq,
-                  core=quantized)
+                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool)
     if (page_table.device != q.device or page_table.dtype != torch.int32
             or page_table.shape[0] != s_dim or page_table.stride(1) != 1):
         raise ValueError("paged decode attention: page_table must be int32 [S, P] on the "
@@ -1076,17 +1031,9 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
         if k_scale_pool.dtype != torch.float32 or v_scale_pool.dtype != torch.float32:
             raise ValueError("paged decode attention: scale pools must be float32")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    if quantized:   # the Hopper core
-        g = dict(s_dim=s_dim, n_heads=n_heads, n_kv=n_kv, kv_bits=kv_bits, kv_int8=True,
-                 rep=n_heads // n_kv, win=win, block_l=ps, l_max=ps)
-        _launch_core(q, k_pool, v_pool, k_scale_pool, v_scale_pool, positions, page_table, out,
-                     g, 1, nq, layer, kind, 0, n_pages=n_pages, hp=hp)
-    else:
-        rc = kernels.lib().tpuserve_decode_attention_paged(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), 0, 0,
-            positions.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), s_dim, n_heads, n_kv, n_pages, ps, hp, int(layer),
-            win, page_table.stride(0), w_store, kind, nq, kernels.stream_of(q))
-        kernels.check(rc, "decode_attention_paged")
+    g = dict(s_dim=s_dim, n_heads=n_heads, n_kv=n_kv, kv_bits=kv_bits, kv_int8=quantized,
+             rep=n_heads // n_kv, win=win, block_l=ps, l_max=ps)
+    _launch_core(q, k_pool, v_pool, k_scale_pool, v_scale_pool, positions, page_table, out, g, 1,
+                 nq, layer, kind, 0, n_pages=n_pages, hp=hp)
     paged_launches += 1
     return out

@@ -10,11 +10,13 @@ case with CUDA events around a CUDA graph, inputs rotated past the L2.
 Then the grouped decode attention at the [grouped] phase's shape (S=64,
 L=256, Llama-2-7B heads, step positions; and rep 4, Hkv=8) under
 TPUSERVE_ATTN_DYNSKIP=0 and =1, timed the same way through the public
-entries both checkouts have: the int8 window (g_kv 1 and Hkv) and a packed
+entries both checkouts have: the int8 window (g_kv 1 and Hkv), a packed
 int4 window as the decode step hands it over (a checkout without the
 packed route unpacks it with unpack_kv_codes first, as its decode step
-did); and the sweep's grouped variants (its own timing: best of 3 runs of
-30 calls). The script prints one line per case with the two checkouts'
+did) and a bf16 window (the default cache's, unscaled; g_kv 1, the JAX
+package's 16 // rep and Hkv: one launch in a checkout whose kernel takes
+one kv unit a block whatever g_kv); and the sweep's grouped variants (its own
+timing: best of 3 runs of 30 calls). The script prints one line per case with the two checkouts'
 times (mean of their turns) and their ratio, and writes every turn to
 chiprun_out/ab_attention.json.
 
@@ -65,6 +67,13 @@ for hkv in (32, 8):
     sc = [(torch.rand((max(nl, nl4), s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
           for _ in range(2)]
     q = (torch.randn((s, 32, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
+    nlf = max(2, math.ceil(cs.L2_FLUSH_BYTES / (4 * s * l * w)))
+    kvf = [torch.randn((nlf, s, l, hkv, hd), generator=g, device="cuda").to(torch.bfloat16)
+           for _ in range(2)]
+
+    def bf16(i, g_kv):
+        li = i % nlf
+        return da.decode_attention(q, kvf[0][li], kvf[1][li], None, None, pos, g_kv=g_kv)
 
     def int8(i, g_kv):
         li = i % nl
@@ -86,8 +95,10 @@ for hkv in (32, 8):
         rows[f"{key} int8 g_kv=1"] = timer.ms(lambda i: int8(i, 1), 20)
         rows[f"{key} int8 g_kv={hkv}"] = timer.ms(lambda i: int8(i, hkv), 20)
         rows[f"{key} packed int4 window"] = timer.ms(int4, 20)
+        for g_kv in dict.fromkeys((1, 16 // (32 // hkv), hkv)):
+            rows[f"{key} bf16 g_kv={g_kv}"] = timer.ms(lambda i: bf16(i, g_kv), 20)
     os.environ.pop("TPUSERVE_ATTN_DYNSKIP")
-    del kv8, kv4, sc
+    del kv8, kv4, sc, kvf
     torch.cuda.empty_cache()
 from tpuserve_torch.scripts import sweep_attention as sweep
 for r in sweep.run(["g1s", "g8s", "g16s", "g32s", "g32s_bl64"], sweep.shapes(),

@@ -16,7 +16,8 @@ kernel):
 
 The outputs of no_convert and no_pv are wrong on purpose; only times
 count. Cases: the int8 window and the packed int4 window, under
-TPUSERVE_ATTN_DYNSKIP=0 and =1, g_kv 1 and 32. Times: CUDA events around
+TPUSERVE_ATTN_DYNSKIP=0 and =1 (one kv unit a block: g_kv changes nothing
+on the card). Times: CUDA events around
 a CUDA graph of 20 calls, two layers rotated (each more than the 50 MB
 L2). One line a variant and case, in ms a layer, with the card's name and
 power limit first; every time goes to chiprun_out/grouped_ablate.json.
@@ -171,17 +172,16 @@ def cases(q, kv8, kv4, sc, pos):
     s, hd = q.shape[0], q.shape[2]
     l, hkv = kv8[0].shape[2], sc[0].shape[2]
 
-    def int8(g_kv):
-        return lambda i: da.decode_attention(
+    def int8(i):
+        return da.decode_attention(
             q, kv8[0][i % 2].view(s, l, hkv, hd), kv8[1][i % 2].view(s, l, hkv, hd),
-            sc[0][i % 2].transpose(1, 2), sc[1][i % 2].transpose(1, 2), pos, g_kv=g_kv)
+            sc[0][i % 2].transpose(1, 2), sc[1][i % 2].transpose(1, 2), pos)
 
-    def int4(g_kv):
-        return lambda i: da.decode_attention_packed(q, kv4[0][i % 2], kv4[1][i % 2],
-                                                    sc[0][i % 2], sc[1][i % 2], pos, g_kv=g_kv)
+    def int4(i):
+        return da.decode_attention_packed(q, kv4[0][i % 2], kv4[1][i % 2], sc[0][i % 2],
+                                          sc[1][i % 2], pos)
 
-    return [(f"{kind} g_kv={g_kv}", make(g_kv)) for kind, make in (("int8", int8), ("int4", int4))
-            for g_kv in (1, 32)]
+    return [("int8", int8), ("int4", int4)]
 
 
 def main(argv=None) -> None:

@@ -14,9 +14,13 @@ the cache:
               every cache row, no softmax
   g32s g32s_bl64 g32s_bl128 g16s g8s g16d g32d
               the grouped kernel (ops.decode_attention.decode_attention)
-              with g_kv kv heads a block and block_l 256 (or _blN); the
+              with the TPU's g_kv kv heads a grid step (on the card one kv
+              unit a block whatever g_kv) and block_l 256 (or _blN); the
               TPU's "d" variants turned on a dynamic DMA skip: the port's
-              kernel always skips blocks past a slot's position, so d = s
+              kernel always skips blocks past a slot's position, so d = s.
+              On the card g32s, g16s, g8s, g16d, g32d and g1s are one
+              launch (their times differ by noise alone): the names stay
+              for the TPU script's ladder
   g1s         the grouped kernel at the port's default split (one kv head)
   wide wide_bl128
               decode_attention_wide (the flat kernel over the cache), block_l

@@ -190,8 +190,9 @@ class GenerationEngine:
             # the contiguous verify's kernel takes C = k+1 candidates of the
             # query heads one block serves (a head pair's for int4 KV)
             nq = self.p.n_heads // self.p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
+            cache = qcfg.kv_cache if qcfg.kv_cache in ("int8", "int4") else "bf16"
             try:
-                check_multi_kernel(spec_k + 1, nq, int_kv=qcfg.kv_cache in ("int8", "int4"))
+                check_multi_kernel(spec_k + 1, nq, cache=cache)
             except ValueError as e:
                 raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
 
