@@ -97,8 +97,9 @@ torch._int_mm), groups a 64-row stage cannot tile (int4 48, 80, 96, 112,
 masked steps, per-channel int4 at K 4096, each route's counter checked;
 the masked steps' x layout (stage_x for bf16 x, the row quantization's
 codes written in it for W4A8) bitwise against its plain gather; f32 x on
-the CUDA-core kernel beside torch.matmul in f32, and W8A8 (a float64
-torch.matmul) beside torch._int_mm, as records; the
+the wgmma kernel as three bf16 pieces (g128, odd g96, masked g40; the
+split kernel bitwise its plain version) beside torch.matmul in f32, and
+W8A8 (torch._int_mm on the codes) beside torch._int_mm, as records; the
 multi-candidate kernel also on bf16 and f32 caches beside SDPA; and the flat,
 multi and grouped (int8 and packed int4) kernels under
 TPUSERVE_ATTN_DYNSKIP=0 against =1.
@@ -372,7 +373,8 @@ def check_quant_matmul(torch, timer, reps, p):
         ops = 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, ops, PEAK_OPS["int8" if act_bits == 8 else "bf16"])
-        if step_name in ("decode", "w4a8") or route not in ("wgmma", "w4a8"):  # plain at B=64
+        if step_name in ("decode", "w4a8") or route not in ("wgmma", "w4a8") or bits == 8:
+            # the plain version at B=64 (and every int8-weight case)
             row["plain_ms"] = timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
                                        max(2, reps // 5))
         # the library yardstick: torch.matmul on the dequantized bf16 weights
@@ -465,67 +467,106 @@ def check_quant_matmul(torch, timer, reps, p):
 
 
 def check_quant_records(torch, timer, reps, p):
-    """Records of two quant-matmul routes no phase of this script serves,
-    numbers only: f32 x on qmm_f32_kernel at wo's shape (int4 g128, B=64)
-    against its plain version (within 1e-5 of the largest output) and
-    torch.matmul in f32 with TF32 off; W8A8 (int8 weights per channel, int8
-    x: quant/core.py::_w8a8_matmul, the port's float64 torch.matmul) at the
-    five 7B shapes against torch._int_mm on the same codes, whose int32 sums
-    scaled alike must give the same bits."""
+    """Records of two quant-matmul routes no phase of this script serves.
+    f32 x on qmm_wgmma_kernel as three bf16 pieces (split_x, then the
+    kernel with pieces 3) at wo's shape in int4 g128 (B=64), and at wo's
+    width in an odd group (g96, K 4032) and a masked one (g40, K 4000):
+    each against its plain version (within 1e-5 of the largest output),
+    beside torch.matmul in f32 with TF32 off on the dequantized weights,
+    the f32 and split counters checked and the split kernel bitwise its
+    plain version; two bounds, the card's for the same exact work (three
+    bf16 products a value, bf16 peak) and the figure of the same dot in
+    f32 FMA at the f32 peak. W8A8 (int8 weights per channel, int8 x:
+    quant/core.py::_w8a8_matmul, the row kernel and torch._int_mm where K
+    and N are multiples of 8) at the five 7B shapes, the codes K-major as
+    quantize_param_tree stores them, against torch._int_mm on the same
+    codes, whose int32 sums scaled alike must give the same bits; beside
+    it torch._int_mm on the codes row-major."""
+    from tpuserve_torch.ops import quant_matmul as tqm
     from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from tpuserve_torch.quant import core as qcore
     from tpuserve_torch.quant.core import _w8a8_matmul, dequantize, quantize_activation
 
     b = 64
-    k, n = p.n_heads * p.head_dim, p.dim
-    qt = _qt_random(torch, 4, k, n, 128)
-    copies = max(1, math.ceil(L2_FLUSH_BYTES / qt.nbytes))
-    qts = [qt] + [_qt_random(torch, 4, k, n, 128) for _ in range(copies - 1)]
-    x = torch.randn((b, k), device="cuda")
-    out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = 1e-5 * ref.abs().max().item()
-    if not err <= tol:
-        fail(f"quant_matmul f32 x: max|err| {err} > {tol}")
-    wd = [dequantize(t, torch.float32) for t in qts[:max(1, math.ceil(L2_FLUSH_BYTES /
-                                                                     (k * n * 4)))]]
-    f32 = dict(name="wo", K=k, N=n, B=b, max_abs_err=err, tol=tol,
-               ms=timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps),
-               plain_ms=timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
-                                 max(2, reps // 5)),
-               library_ms=timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps))
-    f32["bound_ms"], f32["bound_by"] = bound(b * k * 4 + qt.nbytes + b * n * 4, 2.0 * b * k * n,
-                                             PEAK_OPS["f32"])
-    log(f"[kernel] quant_matmul f32 x wo K={k} N={n} B={b} int4 g128 (qmm_f32_kernel): max|err| "
-        f"{err:.3g} (tol {tol:.3g}); {f32['ms']:.4f} ms, bound {f32['bound_ms']:.4f} ms "
-        f"({f32['bound_by']}), plain {f32['plain_ms']:.4f} ms, torch.matmul f32 (TF32 off) "
-        f"{f32['library_ms']:.4f} ms")
-    del qts, wd
+    wo_k = p.n_heads * p.head_dim
+    f32_rows = []
+    for k, gs, what in ((wo_k, 128, "g128"), (4032, 96, "g96, odd"), (4000, 40, "g40, masked")):
+        n = p.dim
+        qt = _qt_random(torch, 4, k, n, gs)
+        copies = max(1, math.ceil(L2_FLUSH_BYTES / qt.nbytes))
+        qts = [qt] + [_qt_random(torch, 4, k, n, gs) for _ in range(copies - 1)]
+        x = torch.randn((b, k), device="cuda")
+        counts = (tqm.f32_launches, tqm.split_launches, tqm.group_route_launches,
+                  tqm.odd_group_launches)
+        out, ref = quant_matmul(x, qt), quant_matmul_plain(x, qt)
+        again = quant_matmul(x, qt)
+        index = tqm.stage_index(4, k, gs, x.device) if tqm.masked_group(gs) else None
+        pieces = tqm.split_x(x, index)
+        torch.cuda.synchronize()
+        if (tqm.f32_launches, tqm.split_launches, tqm.group_route_launches,
+                tqm.odd_group_launches) != (counts[0] + 2, counts[1] + 3, counts[2], counts[3]):
+            fail(f"quant_matmul f32 x {what}: the f32 route's counters did not move alone")
+        plain_pieces = tqm.split_x_plain(x)
+        if index is not None:
+            plain_pieces = torch.stack([tqm._gather(t, index) for t in plain_pieces])
+        if not torch.equal(pieces.view(torch.int16), plain_pieces.view(torch.int16)):
+            fail(f"split_x {what}: not bitwise its plain version")
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"quant_matmul f32 x {what}: max|err| {err} > {tol}")
+        if not torch.equal(out, again):
+            fail(f"quant_matmul f32 x {what}: two calls differ")
+        wd = [dequantize(t, torch.float32) for t in qts[:max(1, math.ceil(L2_FLUSH_BYTES /
+                                                                         (k * n * 4)))]]
+        row = dict(name="wo", K=k, N=n, B=b, group_size=gs, route="f32 pieces", max_abs_err=err,
+                   tol=tol, ms=timer.ms(lambda i: quant_matmul(x, qts[i % copies]), reps),
+                   split_ms=timer.ms(lambda i: tqm.split_x(x, index), reps),
+                   plain_ms=timer.ms(lambda i: quant_matmul_plain(x, qts[i % copies]),
+                                     max(2, reps // 5)),
+                   library_ms=timer.ms(lambda i: torch.matmul(x, wd[i % len(wd)]), reps))
+        nbytes = b * k * 4 + qt.nbytes + b * n * 4
+        row["bound_ms"], row["bound_by"] = bound(nbytes, tqm.PIECES * 2.0 * b * k * n,
+                                                 PEAK_OPS["bf16"])
+        row["bound_f32_fma_ms"] = bound(nbytes, 2.0 * b * k * n, PEAK_OPS["f32"])[0]
+        f32_rows.append(row)
+        log(f"[kernel] quant_matmul f32 x wo K={k} N={n} B={b} int4 {what} (qmm_wgmma_kernel, "
+            f"three bf16 pieces): max|err| {err:.3g} (tol {tol:.3g}), two calls equal, split "
+            f"bitwise its plain version; {row['ms']:.4f} ms (split_x alone "
+            f"{row['split_ms']:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 "
+            f"FMA {row['bound_f32_fma_ms']:.4f}), plain {row['plain_ms']:.4f} ms, torch.matmul "
+            f"f32 (TF32 off) {row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.3f}x)")
+        del qts, wd
+        torch.cuda.empty_cache()
+    f32 = dict(f32_rows[0], cases=f32_rows)
 
     qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
     shapes = {"wqkv": ((p.dim, qd + 2 * kvd), p.n_layers), "wo": ((qd, p.dim), p.n_layers),
               "w_gateup": ((p.dim, 2 * p.ffn_dim), p.n_layers),
               "w_down": ((p.ffn_dim, p.dim), p.n_layers), "lm_head": ((p.dim, p.vocab_size), 1)}
     w8a8, step = [], dict(ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    paths0 = (qcore.w8a8_int_mm_calls, qcore.w8a8_float64_calls)
     for name, ((k, n), per) in shapes.items():
-        qt = _qt_random(torch, 8, k, n, k, act_bits=8)
-        qt.group_size = 0
-        copies = max(1, math.ceil(L2_FLUSH_BYTES / qt.nbytes))
-        qts = [qt] + [dataclasses.replace(_qt_random(torch, 8, k, n, k, act_bits=8),
-                                          group_size=0) for _ in range(copies - 1)]
+        # the codes K-major, as quantize_param_tree stores W8A8 weights
+        qts = [dataclasses.replace(_qt_random(torch, 8, k, n, k, act_bits=8), group_size=0)
+               for _ in range(max(1, math.ceil(L2_FLUSH_BYTES / (k * n))))]
+        for t in qts:
+            t.q = t.q.t().contiguous().t()
+        qt, copies = qts[0], len(qts)
         x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
         xq, sx = quantize_activation(x)
         out = _w8a8_matmul(x, qt)
-        acc = torch._int_mm(xq, qt.q.t().contiguous().t())
+        acc = torch._int_mm(xq, qt.q)
         ref = (acc.to(torch.float32) * sx * qt.scale[0][None, :]).to(x.dtype)
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             fail(f"W8A8 {name}: _w8a8_matmul differs from torch._int_mm's sums scaled alike")
-        codes_t = [t.q.t().contiguous() for t in qts]
+        codes_row = [t.q.contiguous() for t in qts]
         row = dict(name=name, K=k, N=n, B=b,
-                   ms=timer.ms(lambda i: _w8a8_matmul(x, qts[i % copies]), max(2, reps // 5)),
-                   library_ms=timer.ms(lambda i: torch._int_mm(xq, codes_t[i % copies].t()),
-                                       reps))
+                   ms=timer.ms(lambda i: _w8a8_matmul(x, qts[i % copies]), reps),
+                   library_ms=timer.ms(lambda i: torch._int_mm(xq, qts[i % copies].q), reps),
+                   int_mm_row_major_ms=timer.ms(
+                       lambda i: torch._int_mm(xq, codes_row[i % copies]), reps))
         nbytes, ops = b * k * 2 + qt.nbytes + b * n * 2, 2.0 * b * k * n
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, PEAK_OPS["int8"])
         for key in ("ms", "library_ms"):
@@ -533,14 +574,20 @@ def check_quant_records(torch, timer, reps, p):
         step["bytes"] += per * nbytes
         step["ops"] += per * ops
         w8a8.append(row)
-        log(f"[kernel] W8A8 {name} K={k} N={n} B={b} (_w8a8_matmul, float64 torch.matmul): equal "
+        log(f"[kernel] W8A8 {name} K={k} N={n} B={b} (_w8a8_matmul on torch._int_mm): equal "
             f"to torch._int_mm's sums; {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), torch._int_mm {row['library_ms']:.4f} ms")
-        del qts, codes_t
+            f"({row['bound_by']}), torch._int_mm {row['library_ms']:.4f} ms on the codes "
+            f"K-major, {row['int_mm_row_major_ms']:.4f} row-major")
+        del qts, codes_row
         torch.cuda.empty_cache()
+    paths = (qcore.w8a8_int_mm_calls - paths0[0], qcore.w8a8_float64_calls - paths0[1])
+    if paths[0] < 1:
+        fail(f"W8A8: no call took torch._int_mm (int_mm, float64 calls: {paths})")
     step["bound_ms"], step["bound_by"] = bound(step["bytes"], step["ops"], PEAK_OPS["int8"])
-    log(f"[kernel] W8A8 per decode step (B=64, 129 calls): {step['ms']:.3f} ms, bound "
-        f"{step['bound_ms']:.3f} ms, torch._int_mm {step['library_ms']:.3f} ms")
+    step["paths"] = dict(int_mm=paths[0], float64=paths[1])
+    log(f"[kernel] W8A8 per decode step (B=64, 129 calls): {step['ms']:.3f} ms (the float64 "
+        f"contraction before: 52.88 ms, PERF.md), bound {step['bound_ms']:.3f} ms, "
+        f"torch._int_mm {step['library_ms']:.3f} ms; calls by path {step['paths']}")
     return dict(f32=f32, w8a8=w8a8, w8a8_step=step)
 
 
@@ -1419,7 +1466,8 @@ def check_diag_copy(torch, timer, reps):
     """diag_bw's copy kernel in its three forms at the script's defaults (K
     and V int8 [64, 256, 32, 128], g 16, block_l 256, every slot at L-1),
     two sets of inputs rotated past the L2, against the plain versions,
-    exactly; the library's torch.sum over the views beside them."""
+    exactly; the library's torch.sum over the views beside them; the card's
+    grid of CTAs and the TPU's grid it cuts."""
     from tpuserve_torch.ops import attention_probes as probes
     from tpuserve_torch.scripts import diag_bw
 
@@ -1443,14 +1491,20 @@ def check_diag_copy(torch, timer, reps):
         ms = timer.ms(lambda i: call(probes.diag_copy, i), reps)
         plain_ms = timer.ms(lambda i: call(probes.diag_copy_plain, i), max(2, reps // 5))
         b_ms, b_by = bound(kv_bytes + d["S"] * 4 + d["HD"] * 4, kv_bytes, PEAK_OPS["int8"])
-        grid = probes.diag_copy_grid(sets[0][0].shape, mode, d["BLOCK_L"], d["G"])
+        shape = sets[0][0].shape
+        rpc, cpb, grid = probes.diag_copy_plan(shape, mode, d["BLOCK_L"], d["G"],
+                                               torch.cuda.get_device_properties(0)
+                                               .multi_processor_count)
+        tpu_grid = probes.diag_copy_tpu_grid(shape, mode, d["BLOCK_L"], d["G"])
         rate = kv_bytes / ms / 1e6
-        row = dict(mode=mode, grid=grid, max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, gb_s=rate)
+        row = dict(mode=mode, grid=grid, tpu_grid=tpu_grid, rows_a_cta=rpc, ctas_a_block=cpb,
+                   max_abs_err=err, tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, gb_s=rate)
         rows.append(row)
         if mode == "pcopy4d":    # the attention's per-head-group access pattern
             main = row
-        log(f"[kernel] diag_copy {mode} grid {grid}: max|err| {err:.3g} (tol 0); {ms:.4f} ms, "
+        log(f"[kernel] diag_copy {mode} CTAs {grid} ({cpb} of {rpc} rows a TPU block of the TPU's "
+            f"grid {tpu_grid}): max|err| {err:.3g} (tol 0); {ms:.4f} ms, "
             f"{rate:.1f} GB/s of K and V ({100 * rate * 1e9 / HBM_BYTES_PER_S:.1f}% of 3.35 "
             f"TB/s), bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, torch.sum over the "
             f"views {lib_ms:.4f} ms")

@@ -47,11 +47,17 @@ def _qt(bits, gs, k, n, act_bits, device, seed=0):
 
 @pytest.mark.parametrize("bits,gs,act_bits", [
     (4, 128, 0), (4, 0, 0), (8, 128, 0), (8, 256, 0), (8, 0, 0), (4, 128, 8), (4, 32, 0),
-    (4, 16, 0), (8, 32, 0)])
-@pytest.mark.parametrize("b", [1, 37, 130])
+    (4, 16, 0), (8, 32, 0),
+    (4, 48, 0), (4, 96, 0), (8, 96, 0),     # groups a 64-row stage cannot tile
+    (4, 40, 0), (4, 12, 0), (8, 24, 0)])    # groups of no multiple of 16 (masked steps)
+@pytest.mark.parametrize("b", [1, 37, 130, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_matmul(cuda, bits, gs, act_bits, b, dtype):
-    k, n = 512, 208  # N not a multiple of the 64-column tile
+    """Both activation dtypes (f32 x as three bf16 pieces, f32 out) against
+    the plain version: 1e-5 of the largest output for f32, one bf16 step
+    for bf16."""
+    k = 512 if 512 % (gs or 512) == 0 else 480
+    n = 208  # N not a multiple of the 64-column tile
     qt = _qt(bits, gs, k, n, act_bits, cuda)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
     out = qm.quant_matmul(x, qt)
@@ -656,7 +662,9 @@ def test_unpack_probes_refuse(cuda):
 
 
 @pytest.mark.parametrize("s,l,hkv,hd,g,block_l", [
-    (64, 256, 32, 128, 16, 256),   # diag_bw's defaults
+    (64, 256, 32, 128, 16, 256),   # diag_bw's defaults, and its smaller blocks
+    (64, 256, 32, 128, 16, 64),
+    (64, 256, 32, 128, 16, 16),
     (4, 64, 4, 48, 2, 16),         # 3 column groups a row: 255 of 256 threads load
     (3, 32, 2, 208, 1, 8),         # 13 column groups
     (2, 96, 8, 16, 4, 32),
@@ -664,7 +672,8 @@ def test_unpack_probes_refuse(cuda):
 ])
 def test_diag_copy(cuda, s, l, hkv, hd, g, block_l):
     """diag_copy's three forms against their plain versions, exactly
-    (integer atomics); pdyn over mixed positions."""
+    (integer atomics; tolerance 0), on the card's grid of CTAs, not the
+    TPU's; pdyn over mixed positions."""
     from tpuserve_torch.ops import attention_probes as probes
 
     gen = torch.Generator().manual_seed(hd)
@@ -676,6 +685,10 @@ def test_diag_copy(cuda, s, l, hkv, hd, g, block_l):
     pos = pos.to(cuda)
     for mode in probes.COPY_MODES:
         p = pos if mode == "pdyn" else None
+        rpc, cpb, grid = probes.diag_copy_plan(k.shape, mode, block_l, g,
+                                               kernels.sm_count(cuda))
+        tpu = probes.diag_copy_tpu_grid(k.shape, mode, block_l, g)
+        assert grid == (tpu[0] * cpb,) + tpu[1:] and rpc * cpb >= block_l
         before = probes.diag_copy_launches
         out = probes.diag_copy(k, v, mode, block_l, g, p)
         ref = probes.diag_copy_plain(k, v, mode, block_l, g, p)
@@ -818,7 +831,7 @@ def test_quant_matmul_w4a8_hopper(cuda, k, n, b):
     """W4A8 (int4 g128, int8 x) on the int8 wgmma kernel at the 7B shapes:
     within one bf16 step of the largest plain output, two calls bitwise
     equal, one launch a call counted in w4a8_launches (and one of the row
-    quantization kernel); the CUDA-core routes' counters do not move."""
+    quantization kernel); the masked routes' counters do not move."""
     qt = _qt_codes(4, 128, k, n, 8, cuda, seed=k + n)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
     names = ("launches", "w4a8_launches", "quantize_launches", "w4a8_route_launches",
@@ -876,9 +889,8 @@ def test_quantize_rows(cuda, b, k, dtype):
 @pytest.mark.parametrize("act_bits,gs", [(0, 40), (8, 48)])
 def test_quant_matmul_cuda_core_routes_remain(cuda, act_bits, gs):
     """A bf16 group of no multiple of 16 (40) and a W4A8 group of no
-    multiple of 32 (48), once on CUDA-core kernels, now on the Hopper
-    kernels in masked steps: each counted on its route, against the plain
-    version."""
+    multiple of 32 (48) on the Hopper kernels in masked steps: each counted
+    on its route, against the plain version."""
     k, n, b = 480, 208, 37
     qt = _qt(4, gs, k, n, act_bits, cuda)
     x = torch.randn((b, k), generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
@@ -964,6 +976,86 @@ def test_quant_matmul_new_paths_raise(cuda, monkeypatch, act_bits, gs):
     with pytest.raises(RuntimeError, match="quant_matmul"):
         qm.quant_matmul(x, qt)
     assert counts == (qm.launches, qm.group_route_launches, qm.w4a8_route_launches)
+
+
+@pytest.mark.parametrize("bits,gs,k", [(4, 128, 4096), (4, 96, 4032), (4, 40, 4000),
+                                       (8, 128, 4096), (8, 24, 4032), (4, 0, 4096)])
+@pytest.mark.parametrize("b", [1, 64, 72, 256])
+def test_quant_matmul_f32_hopper(cuda, bits, gs, k, b):
+    """f32 x on the Hopper kernel as three bf16 pieces at wo's width: one
+    split and one matmul launch a call, counted in f32_launches and never
+    on a bf16 route, within 1e-5 of the largest plain output, two calls
+    bitwise equal."""
+    n = 4096
+    qt = _qt_codes(bits, gs or k, k, n, 0, cuda, seed=k + gs)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda)
+    names = ("launches", "f32_launches", "split_launches", "group_route_launches",
+             "odd_group_launches", "stage_launches")
+    counts = [getattr(qm, c) for c in names]
+    out = qm.quant_matmul(x, qt)
+    again = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert [getattr(qm, c) for c in names] == [counts[0] + 2, counts[1] + 2, counts[2] + 2,
+                                               counts[3], counts[4], counts[5]]
+    assert out.dtype == torch.float32 and out.shape == (b, n)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits,gs,k", [(4, 128, 4096), (4, 40, 4000), (8, 24, 4032),
+                                       (4, 344, 11008)])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_split_x(cuda, bits, gs, k, b):
+    """The split kernel bitwise its plain version, in order and in the
+    masked steps' layout; its pieces add back to x in f32."""
+    x = (torch.randn((b, k), generator=torch.Generator().manual_seed(k)) * 3).to(cuda)
+    x[0, :4] = torch.tensor([0.0, -0.0, 3.4028234663852886e38, -1e-30])
+    index = qm.stage_index(bits, k, gs, cuda) if qm.masked_group(gs) else None
+    before = qm.split_launches
+    out = qm.split_x(x, index)
+    whole = qm.split_x(x)
+    plain = qm.split_x_plain(x)
+    torch.cuda.synchronize()
+    assert qm.split_launches == before + 2
+    assert torch.equal(whole.view(torch.int16), plain.view(torch.int16))
+    if index is not None:
+        want = torch.stack([qm._gather(t, index) for t in plain])
+        assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+    hi, mid, lo = whole.float()
+    assert torch.equal(((hi + mid) + lo).view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.parametrize("k,n", _SHAPES_7B + [(4096, 100)])
+@pytest.mark.parametrize("b", [1, 16, 17, 64])
+@pytest.mark.parametrize("k_major", [True, False])
+def test_w8a8_int_mm(cuda, k, n, b, k_major):
+    """W8A8 on the card: the row kernel, then torch._int_mm on the codes
+    (rows padded to 17 where B <= 16; codes K-major as quantize_param_tree
+    stores them, or row-major) where K and N are multiples of 8, else the
+    float64 contraction; the same bits as the float64 contraction scaled
+    alike."""
+    from tpuserve_torch.quant import core
+
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=cuda, dtype=torch.int32).to(
+        torch.int8)
+    if k_major:
+        q = q.t().contiguous().t()
+    qt = QTensor(q=q, scale=(torch.rand((1, n), generator=g, device=cuda) + 0.5) * 0.003,
+                 bits=8, group_size=0, orig_shape=(k, n), act_bits=8)
+    x = torch.randn((b, k), generator=g, device=cuda).to(torch.bfloat16)
+    calls = (core.w8a8_int_mm_calls, core.w8a8_float64_calls)
+    out = core._w8a8_matmul(x, qt)
+    xq, sx = quantize_activation(x)
+    acc = torch.matmul(xq.to(torch.float64), q.to(torch.float64))
+    ref = (acc.to(torch.float32) * sx * qt.scale[0][None, :]).to(x.dtype)
+    torch.cuda.synchronize()
+    int_mm = n % 8 == 0
+    assert (core.w8a8_int_mm_calls, core.w8a8_float64_calls) == (
+        calls[0] + int_mm, calls[1] + (not int_mm))
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("bits,block_k", [(4, 128), (4, 256), (4, 512), (4, 1024), (4, 4096),

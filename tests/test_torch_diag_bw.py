@@ -88,6 +88,42 @@ def test_diag_copy_refuses_bad_inputs():
     assert probes.diag_copy(k[..., :16], k, "pcopy", 8).shape == (16,)
 
 
+_DEFAULTS = (64, 256, 32, 128)   # diag_bw's K and V [S, L, Hkv, hd]
+
+
+@pytest.mark.parametrize("mode", probes.COPY_MODES)
+@pytest.mark.parametrize("shape,block_l,g", [
+    (_DEFAULTS, 256, 16), (_DEFAULTS, 64, 16), (_DEFAULTS, 16, 16), ((4, 64, 4, 48), 16, 2),
+    ((3, 32, 2, 208), 8, 1), ((5, 128, 6, 256), 64, 3), ((1, 1024, 1, 16), 1024, 1)])
+def test_diag_copy_plan_reads_every_row_once(mode, shape, block_l, g):
+    """The card's grid against the TPU's: CTA x reads TPU block x // cpb,
+    rows (x % cpb) * rpc on, inside that block; every row of every TPU
+    block is read by exactly one CTA; under pdyn the CTAs of a dead block
+    (past a slot's live one) read nothing and every other row is read; at
+    diag_bw's defaults the grid holds at least two CTAs an SM of 132."""
+    rpc, cpb, grid = probes.diag_copy_plan(shape, mode, block_l, g, 132)
+    bx, groups, slots = probes.diag_copy_tpu_grid(shape, mode, block_l, g)
+    assert grid == (bx * cpb, groups, slots) and rpc * (cpb - 1) < block_l <= rpc * cpb
+    run = (g if mode == "pcopy4d" else shape[2]) * shape[3]
+    assert rpc == 1 or rpc * run <= 64 * 1024           # at most 64 KB of K a CTA
+    positions = [-1, 0, block_l, shape[1] - 1, block_l - 1] * slots
+    for z in range(slots):
+        live = max(positions[z], 0) // block_l
+        read = {}
+        for x in range(grid[0]):
+            jb, r0 = x // cpb, (x % cpb) * rpc
+            rows = range(r0, min(block_l, r0 + rpc))
+            assert len(rows) > 0
+            if mode == "pdyn" and jb > live:
+                continue                                 # the whole CTA returns
+            for r in rows:
+                read[(jb, r)] = read.get((jb, r), 0) + 1
+        blocks = range(bx) if mode != "pdyn" else range(min(live, bx - 1) + 1)
+        assert read == {(jb, r): 1 for jb in blocks for r in range(block_l)}
+    if shape == _DEFAULTS:
+        assert grid[0] * grid[1] * grid[2] >= 2 * 132
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that reports itself as a CUDA tensor."""
 
@@ -108,6 +144,7 @@ def test_diag_copy_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
 
     monkeypatch.setattr(kernels, "lib", lambda: FakeLib())
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     monkeypatch.setattr(kernels, "check", lambda code, what: (
         None if code == 0 else (_ for _ in ()).throw(RuntimeError(f"{what}: {code}"))))
 
@@ -136,7 +173,11 @@ def test_diag_copy_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
         assert name == "tpuserve_probe_colsum_strided"
         assert args[4:15] == want[mode], mode
         assert (args[3] != 0) == (mode == "pdyn")
-        assert probes.diag_copy_grid(k.shape, mode, bl, g) == want[mode][8:]
+        assert probes.diag_copy_tpu_grid(k.shape, mode, bl, g) == want[mode][8:]
+        rpc, cpb, grid = probes.diag_copy_plan(k.shape, mode, bl, g, 132)
+        assert args[15:17] == (rpc, cpb)           # the CTAs each TPU block is cut into
+        assert probes.diag_copy_grid(k.shape, mode, bl, g) == grid
+        assert grid == (want[mode][8] * cpb,) + want[mode][9:]
     assert probes.diag_copy_launches == before + (3 if rc == 0 else 0)
 
 
@@ -151,7 +192,8 @@ def test_diag_bw_runs_every_mode_on_the_cpu(capsys):
     for line, rec in zip(lines[1:], records):
         assert line.startswith(rec["mode"]) and " us/iter " in line and "FAILED" not in line
         assert rec["us"] > 0 and rec["gb_s"] > 0
-    assert lines[2].endswith("grid 2x1x2 = 4 blocks") and lines[3].endswith("grid 2x2x2 = 8 blocks")
+    assert lines[2].endswith("grid 2x1x2 = 4 blocks, on the card 32x1x2 = 64 CTAs")
+    assert lines[3].endswith("grid 2x2x2 = 8 blocks, on the card 32x2x2 = 128 CTAs")
 
 
 def test_diag_bw_fails_on_a_failing_mode(capsys):

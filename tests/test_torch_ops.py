@@ -57,6 +57,14 @@ QMM_CASES = [
     (4, 48, 480, 256, 8, None),
     (4, 20, 480, 256, 8, None),
     (4, 136, 272, 256, 8, None),
+    # f32 x as three bf16 pieces on the Hopper kernel: groups the 64-row
+    # stage cannot tile, and groups of no multiple of 16 (masked steps)
+    (4, 48, 480, 256, 0, None, "f32"),
+    (4, 96, 480, 256, 0, None, "f32"),
+    (8, 96, 480, 256, 0, None, "f32"),
+    (4, 40, 480, 256, 0, None, "f32"),
+    (4, 12, 240, 256, 0, None, "f32"),
+    (8, 24, 480, 256, 0, None, "f32"),
 ]
 
 
@@ -90,6 +98,69 @@ def test_quant_matmul_plain_matches_pallas(bits, gs, k, n, act_bits, block_k, xd
     out = to_np(tqm.quant_matmul(torch.from_numpy(x), jax_qt_to_torch(qt)))
     # f32 sums of the same products in another order: ~1e-6 of |out| ~ 3
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def _f32_specials():
+    """f32 values the split must keep: random normals of many scales, every
+    power of two from 2^-110 up with its neighbours at or above 2^-110,
+    +-FLT_MAX, zeros of both signs."""
+    rng = np.random.default_rng(5)
+    fin = np.finfo(np.float32)
+    pow2 = np.ldexp(np.float32(1), np.arange(-110, 128)).astype(np.float32)
+    vals = [rng.normal(size=4096).astype(np.float32) * np.exp2(rng.integers(-100, 100, 4096)),
+            pow2, np.nextafter(pow2[1:], np.float32(0)), np.nextafter(pow2, np.float32(np.inf)),
+            np.array([fin.max, -fin.max, 0.0, -0.0], np.float32)]
+    v = np.concatenate(vals).astype(np.float32)
+    return np.concatenate([v, -v])
+
+
+def test_f32_split_is_exact():
+    """x = hi + mid + lo bitwise, three bf16 pieces added in f32, for every
+    finite f32 of magnitude >= 2^-110 and for zeros (-0.0 stays -0.0):
+    random values of many scales, powers of two and their neighbours,
+    +-FLT_MAX."""
+    x = torch.from_numpy(_f32_specials())
+    assert torch.isfinite(x).all()
+    pieces = tqm.split_x(x[None])
+    assert pieces.dtype == torch.bfloat16 and tuple(pieces.shape) == (3, 1, x.numel())
+    hi, mid, lo = pieces.float()[:, 0]
+    back = (hi + mid) + lo
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+
+
+def test_f32_split_of_denormals_keeps_bf16s_finest_step():
+    """Below 2^-110 three bf16 pieces cannot hold every bit (bf16's finest
+    step is 2^-133, an f32 denormal's 2^-149): the split keeps every bit at
+    or above 2^-133 and drops the rest, and x's that bf16 holds (and every
+    zero) come back bitwise."""
+    rng = np.random.default_rng(6)
+    bits = rng.integers(1, 1 << 23, size=4096).astype(np.uint32)   # every f32 denormal kind
+    bits[:256] = (bits[:256] | 1 << 16) & 0xFFFF0000                   # and ones bf16 holds
+    small = np.concatenate([bits.view(np.float32),
+                            np.ldexp(rng.uniform(1, 2, 4096), rng.integers(-126, -110, 4096))
+                            .astype(np.float32)])
+    x = torch.from_numpy(np.concatenate([small, -small]))
+    hi, mid, lo = tqm.split_x(x[None]).float()[:, 0]
+    back = (hi + mid) + lo
+    step = 2.0 ** -133
+    kept = torch.from_numpy(np.trunc(x.double().numpy() / step) * step)   # bits >= 2^-133
+    assert torch.equal(back.double(), kept)
+    assert ((x.double() - back.double()).abs() < step).all()
+    held = x.to(torch.bfloat16).float() == x
+    assert held.any() and torch.equal(back[held].view(torch.int32), x[held].view(torch.int32))
+
+
+@pytest.mark.parametrize("bits,gs,k", [(4, 40, 480), (8, 24, 480), (4, 136, 272)])
+def test_f32_split_in_the_masked_layout(bits, gs, k):
+    """split_x with stage_index: each piece laid out as stage_x lays bf16 x
+    out (the plain gather), the pieces those of x in order."""
+    x = torch.from_numpy(np.random.default_rng(gs).normal(size=(3, k)).astype(np.float32))
+    index = tqm.stage_index(bits, k, gs, "cpu")
+    laid = tqm.split_x(x, index)
+    whole = tqm.split_x(x)
+    assert tuple(laid.shape) == (3, 3, index.numel())
+    for p in range(3):
+        assert torch.equal(laid[p], tqm._gather(whole[p], index))
 
 
 def test_quant_matmul_bf16_and_leading_dims():
@@ -357,9 +428,12 @@ def test_cuda_tensors_launch_the_kernel_or_raise(monkeypatch, rc):
         else:
             with pytest.raises(RuntimeError):
                 call()
-    # an int8 cache takes the Hopper decode-attention core
-    assert fake.calls == ["tpuserve_quant_matmul", "tpuserve_decode_attention_core",
-                          "tpuserve_vector_add"]
+    # f32 x is split into three bf16 pieces for the Hopper quant-matmul (a
+    # failing split raises before the matmul); an int8 cache takes the
+    # Hopper decode-attention core
+    qmm_calls = ["tpuserve_split_x", "tpuserve_quant_matmul_bf16"] if rc == 0 else \
+        ["tpuserve_split_x"]
+    assert fake.calls == qmm_calls + ["tpuserve_decode_attention_core", "tpuserve_vector_add"]
     grew = 1 if rc == 0 else 0
     assert (tqm.launches, tda.launches, tsmoke.launches) == tuple(c + grew for c in counts)
 

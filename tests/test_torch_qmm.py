@@ -1,15 +1,15 @@
 """The Hopper quant-matmul's host side on the CPU, and the ported sweep.
 
-The kernels (csrc/quant_matmul.cu: bf16 activations, and W4A8 on int8
-wgmma) run only on the card, where tests/test_torch_cuda.py holds them
-against quant_matmul_plain. Here: the launch plan their wrapper picks
-(batch tile, warpgroups, K split) reads the weights once for any batch up
-to 256 and covers K exactly; block_k sets the split as in the JAX
-package's quant_matmul; the stages of K for every group size, odd and
-masked ones included; the group sizes each route takes (every group, on
-the Hopper kernels); x laid out for the masked steps; a CUDA tensor reaches one C
-entry once per call (launches and routes counted, failures raised,
-nothing else launched); and
+The kernels (csrc/quant_matmul.cu: bf16 activations, f32 ones as three
+bf16 pieces, and W4A8 on int8 wgmma) run only on the card, where
+tests/test_torch_cuda.py holds them against quant_matmul_plain. Here: the
+launch plan their wrapper picks (batch tile, warpgroups, K split) reads
+the weights once for any batch up to 256 (f32 x: 128) and covers K
+exactly; block_k sets the split as in the JAX package's quant_matmul; the
+stages of K for every group size, odd and masked ones included; the group
+sizes each route takes (every group, on the Hopper kernels); x laid out
+for the masked steps; a CUDA tensor reaches one C entry once per call
+(launches and routes counted, failures raised, nothing else launched); and
 tpuserve_torch.scripts.qmatmul_sweep run end to end at a tiny size with
 --device cpu (the port of scripts/qmatmul_sweep.py)."""
 
@@ -288,16 +288,15 @@ def test_bf16_group_the_kernel_cannot_tile_is_refused(monkeypatch):
 
 
 # every group the JAX package's quantize makes of K = 4096 (even, dividing
-# K; per-channel is one group of K) has a route for bf16 activations:
-# wgmma for every multiple of 16 values, the CUDA-core kernel for the rest
+# K; per-channel is one group of K) has a route for bf16 activations: the
+# wgmma kernel
 @pytest.mark.parametrize("gs", [16, 32, 48, 64, 96, 128, 256, 0])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_every_quantized_group_has_a_bf16_route(bits, gs):
     k = 4096
     g = gs or k
     route = tqm.bf16_route(bits, g)
-    assert route == ("wgmma" if tqm.hopper_group_ok(bits, g) else "cuda_core")
-    assert route == "wgmma"
+    assert tqm.hopper_group_ok(bits, g) and route == "wgmma"
 
 
 # the same for every even divisor of the 7B contraction widths and of the
@@ -446,13 +445,71 @@ def test_new_hopper_paths_raise_on_failure(monkeypatch, gs, act_bits):
                       tqm.group_route_launches, tqm.w4a8_route_launches)
 
 
-def test_f32_keeps_the_cuda_core_entry(monkeypatch):
+@pytest.mark.parametrize("gs", [128, 96, 40])
+@pytest.mark.parametrize("failing", ["tpuserve_split_x", "tpuserve_quant_matmul_bf16"])
+def test_f32_route_raises_on_failure(monkeypatch, gs, failing):
+    """A failing split or matmul launch on the f32 route raises; nothing
+    after it is launched, nothing falls back and nothing is counted."""
+    fake = _fake(monkeypatch, 700)
+    fake.ok = {"tpuserve_split_x", "tpuserve_quant_matmul_bf16"} - {failing}
+    x, qt = _inputs(4, gs, 480 if gs != 128 else 512, 64, 8)
+    names = ("launches", "f32_launches", "split_launches")
+    counts = [getattr(tqm, c) for c in names]
+    with pytest.raises(RuntimeError, match="split_x" if failing.endswith("x") else "quant_matmul"):
+        tqm.quant_matmul(x.float(), qt)
+    assert [n for n, _ in fake.calls][-1] == failing
+    assert [getattr(tqm, c) for c in names] == [
+        counts[0], counts[1], counts[2] + (failing != "tpuserve_split_x")]
+
+
+# f32 x on the Hopper kernel as three bf16 pieces: g128, per channel, odd
+# groups (stages cut along them) and masked ones (x laid out a stage at a time)
+_F32_GROUPS = [(4, 128, 512), (8, 128, 512), (4, 0, 512), (4, 48, 480), (4, 96, 480),
+               (8, 96, 480), (4, 40, 480), (4, 12, 480), (8, 24, 480)]
+
+
+@pytest.mark.parametrize("bits,gs,k", _F32_GROUPS)
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_f32_reaches_the_hopper_entry_once(monkeypatch, bits, gs, k, b):
+    """f32 x: the split kernel once (x in order, or for a masked group in
+    the masked steps' layout, stage_index), then the bf16 Hopper entry once
+    on its three pieces, with the f32 plan and pieces 3, into an f32 out;
+    counted in f32_launches and split_launches, never on a bf16 route."""
     fake = _fake(monkeypatch, 0)
-    x, qt = _inputs(4, 128, 512, 256, 8)
-    tqm.quant_matmul(x.float(), qt, block_k=256)
-    assert [name for name, _ in fake.calls] == ["tpuserve_quant_matmul"]
-    gps, splits = fake.calls[0][1][9:11]
-    assert (gps, splits) == (2, 2)
+    x, qt = _inputs(bits, gs, k, 64, b)
+    g = gs or k
+    names = ("launches", "f32_launches", "split_launches", "group_route_launches",
+             "odd_group_launches", "stage_launches")
+    counts = [getattr(tqm, c) for c in names]
+    out = tqm.quant_matmul(x.float(), qt)
+    assert [name for name, _ in fake.calls] == ["tpuserve_split_x", "tpuserve_quant_matmul_bf16"]
+    s_args, args = fake.calls[0][1], fake.calls[1][1]
+    index = tqm.stage_index(bits, k, g, "cpu") if tqm.masked_group(g) else None
+    assert s_args[1] == (0 if index is None else index.data_ptr())
+    assert s_args[3:6] == (b, k, k if index is None else index.numel())
+    assert args[0] == s_args[2]                  # the pieces
+    assert args[6:11] == (b, k, 64, g, bits)
+    assert args[11:16] == tqm.hopper_plan(b, k, 64, bits, SMS, gs=g, pieces=3)
+    assert args[16] == tqm.PIECES == 3
+    assert [getattr(tqm, c) for c in names] == [counts[0] + 1, counts[1] + 1, counts[2] + 1,
+                                                counts[3], counts[4], counts[5]]
+    assert out.dtype == torch.float32 and tuple(out.shape) == (b, 64)
+
+
+@pytest.mark.parametrize("bits,gs,k", _F32_GROUPS + [(4, 2, 64), (8, 1, 70), (4, 4096, 4096)])
+@pytest.mark.parametrize("b", [1, 37, 64, 72, 128, 129, 256, 300])
+def test_f32_plan_fits_two_stages(bits, gs, k, b):
+    """The f32 plan: at most 128 batch rows a block (three pieces' x boxes a
+    stage), the ring at least two stages deep at every group, the rows
+    covered, K split as for bf16 x."""
+    g = gs or k
+    bt, nwg_n, nwg_b, sps, splits = tqm.hopper_plan(b, k, 4096, bits, SMS, gs=g, pieces=3)
+    assert nwg_b == 1 and nwg_n == 2 and bt in tqm._BATCH_TILES and bt <= 128
+    assert bt >= min(b, 64)                      # 64 rows a block fit every group
+    assert bt >= min(b, 128) or tqm.ring_stages(bits, k, g, 128, nwg_n, 3) < 2
+    assert tqm.ring_stages(bits, k, g, bt, nwg_n, 3) >= 2
+    total = tqm.stage_plan(bits, k, g)[2]
+    assert splits == -(-total // sps) and (splits - 1) * sps < total <= splits * sps
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])

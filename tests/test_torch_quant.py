@@ -114,8 +114,8 @@ def test_qmatmul_modes_match_jax(bits, gs, act_bits, act_fp8):
 
 @pytest.mark.parametrize("bits,gs", [(4, 48), (4, 96), (8, 96)])
 def test_quant_matmul_groups_off_the_stage_match_jax_kernel(bits, gs):
-    """Groups the Hopper kernel's stages cannot tile (served on the card by
-    the CUDA-core kernel on x cast to f32): the port's plain version on
+    """Groups the Hopper kernel's stages cannot tile (served on the card in
+    stages cut along the groups): the port's plain version on
     bf16 x against the JAX package's fused kernel in interpret mode. Both
     sum the same exact products in f32 and round to bf16: at most one bf16
     ulp apart."""
@@ -147,3 +147,42 @@ def test_quantize_param_tree_selection():
         assert isinstance(tp[name], tcore.QTensor) == isinstance(jp[name], jcore.QTensor), name
     np.testing.assert_array_equal(tp["layers.0/wqkv/kernel"].q.numpy(),
                                   np.asarray(jp["layers.0/wqkv/kernel"].q))
+
+
+@pytest.mark.parametrize("b", [1, 16, 17, 64])
+def test_w8a8_int_mm_rows_equal_the_float64_contraction(b):
+    """W8A8's card path (torch._int_mm on the int8 codes, rows padded to 17
+    where B <= 16) gives the float64 contraction's sums exactly, so
+    _w8a8_matmul's bits: the int32 sums, then the same f32 scaling."""
+    rng = np.random.default_rng(b)
+    k, n = 256, 96
+    x = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32) * 3)
+    qt = tcore.quantize(torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * 0.05),
+                        bits=8, group_size=0)
+    qt.act_bits = 8
+    xq, sx = tcore.quantize_activation(x)
+    acc = tcore.int_mm_rows(xq, qt.q)
+    ref = torch.matmul(xq.to(torch.float64), qt.q.to(torch.float64))
+    assert acc.dtype == torch.int32 and tuple(acc.shape) == (b, n)
+    assert torch.equal(acc.to(torch.float64), ref)
+    scale = qt.scale[0][None, :].to(torch.float32)
+    calls = (tcore.w8a8_int_mm_calls, tcore.w8a8_float64_calls)
+    out = tcore._w8a8_matmul(x, qt)                      # the CPU takes float64
+    assert torch.equal(out, acc.to(torch.float32) * sx * scale)
+    assert (tcore.w8a8_int_mm_calls, tcore.w8a8_float64_calls) == (calls[0], calls[1] + 1)
+
+
+def test_w8a8_codes_are_stored_k_major():
+    """quantize_param_tree keeps W8A8 codes in K-major strides (torch._int_mm's
+    fast layout on the card): the same shape and values as quantize's, and
+    qmatmul gives the same bits as on row-major codes."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=(256, 96)).astype(np.float32) * 0.05)
+    tree = tcore.quantize_param_tree({"w_o": w}, bits=8, act_bits=8)
+    qt = tree["w_o"]
+    ref = tcore.quantize(w, bits=8, group_size=0)
+    assert qt.q.stride() == (1, 256) and tuple(qt.q.shape) == (256, 96)
+    assert torch.equal(qt.q, ref.q) and torch.equal(qt.scale, ref.scale)
+    x = torch.from_numpy(rng.normal(size=(5, 256)).astype(np.float32))
+    row = dataclasses.replace(qt, q=qt.q.contiguous())
+    assert torch.equal(tcore.qmatmul(x, qt), tcore.qmatmul(x, row))

@@ -211,7 +211,8 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
     """One turn of scripts/ab_probes.py against a stand-in chip_smoke: the
     parent's vector-add check has no per-dtype cases (float32 only), the
     change's has one a dtype; both give the same float32 row names, and
-    every unpack variant, library call and attention probe is a row."""
+    every unpack variant, library call, attention probe and diag_bw copy
+    form is a row."""
     import json
     import sys
     import types
@@ -226,10 +227,16 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
               "unpack_dot_raw": dict(ms=0.21, library_ms=0.196),
               "unpack_cur": dict(ms=0.3, library_ms=None)}
     attn = {"probe_dma_bound": dict(ms=0.049), "probe_dot_only": dict(ms=0.055)}
+    copy = dict(library_ms=0.79, cases=[dict(mode="pcopy", ms=0.051),
+                                        dict(mode="pdyn", ms=0.052)])
+    diag = dict(records=[dict(mode="xsum", block_l=256, us=800.0),
+                         dict(mode="pcopy4d", block_l=16, us=54.0)])
     fake = types.SimpleNamespace(Timer=lambda torch: None,
                                  check_vector_add=lambda torch, timer, reps: va,
                                  check_unpack_probes=lambda torch, timer, reps: unpack,
-                                 check_probes=lambda torch, timer, reps: attn)
+                                 check_probes=lambda torch, timer, reps: attn,
+                                 check_diag_copy=lambda torch, timer, reps: copy,
+                                 phase_diag_bw=lambda torch: diag)
     monkeypatch.setitem(sys.modules, "chip_smoke", fake)
     exec(ab_probes._TURN, {})
     line = next(ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("AB_JSON "))
@@ -242,6 +249,9 @@ def test_ab_probes_turn_reads_both_checkouts(monkeypatch, capsys, tree_cases):
     assert "library beside unpack_cur" not in rows
     assert rows["probe_dot_only K, V [64, 256, 32, 128]"] == 0.055
     assert rows["probe_dma_bound K, V [64, 256, 32, 128]"] == 0.049
+    assert rows["diag_copy pdyn block_l 256"] == 0.052
+    assert rows["torch.sum over the views"] == 0.79
+    assert rows["diag_bw pcopy4d block_l 16 (best of 3)"] == 0.054
 
 
 def test_ab_probes_runs_turns_a_b_b_a(monkeypatch, tmp_path, capsys):

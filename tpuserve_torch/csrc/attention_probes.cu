@@ -41,17 +41,21 @@
 //
 // colsum_strided: replaces scripts/diag_bw.py::copy_kernel (:78), in the
 // three forms its modes call (pcopy :137, pcopy4d :165, pdyn :201; the
-// make_pallas calls :92 and :99 are reached by no mode). A block sums `rows`
-// runs of run_bytes at a stride of row_stride bytes into int32 column sums
-// [hd], hd any multiple of 16 up to 256 (copy_kernel's reshape(-1, hd)),
-// over K and V alike, and adds them to the output with atomics; the TPU
-// kernel writes each block's sums over the last one's. With positions, the
-// blocks x past max(positions[slot], 0) / live_div read nothing (pdyn's
-// clamped index map: the TPU re-reads the live block, which its pipeline
-// skips). Bound: bytes. The loads and the 16-bit lane sums are colsum's;
-// a thread keeps one 16-column group (a multiple of hd / 16 threads load,
-// the rest idle), walking the block's flattened 16-byte units with its row
-// and offset advanced by constant steps, not divided out per load.
+// make_pallas calls :92 and :99 are reached by no mode). A TPU block sums
+// `rows` runs of run_bytes at a stride of row_stride bytes into int32
+// column sums [hd], hd any multiple of 16 up to 256 (copy_kernel's
+// reshape(-1, hd)), over K and V alike, and adds them to the output with
+// atomics; the TPU kernel writes each block's sums over the last one's.
+// With positions, the TPU blocks x past max(positions[slot], 0) / live_div
+// read nothing (pdyn's clamped index map: the TPU re-reads the live block,
+// which its pipeline skips). Bound: bytes. The CUDA grid is not the TPU's:
+// each TPU block is cut into CTAs of consecutive rows (the wrapper's plan
+// fills the card with several CTAs an SM), and a CTA streams its bytes by
+// bulk asynchronous copies into a 4-stage ring of 16 KB stages (mbarrier
+// completion; contiguous rows as one run in 16 KB pieces, strided runs one
+// copy each), while 8 consumer warps sum each stage from shared memory in
+// colsum's 16-bit lanes. The sums are exact, so any order gives the same
+// bits.
 #include <cuda_bf16.h>
 
 #include "attention_hopper.cuh"
@@ -286,110 +290,209 @@ __global__ void __launch_bounds__(D_THREADS, 2) dot_only_kernel(
     }
 }
 
-constexpr int MAX_HD = 256;  // widest row segment colsum_strided takes
+constexpr int MAX_HD = 256;   // widest row segment colsum_strided takes
+constexpr int CS_CONS = 256;  // colsum_strided's consumer threads; one producer warp after them
+constexpr int CS_STAGE = 16384;  // bytes a ring stage holds
+constexpr int CS_STAGES = 4;     // ring stages: 64 KB a block, three blocks an SM
+constexpr int CS_SMEM = CS_STAGES * CS_STAGE;
 
 struct StridedArgs {
   long long slot_stride, group_stride, block_stride, row_stride;  // bytes
   int rows, run_bytes, hd, live_div;
+  int rpc, cpb;    // rows a CTA, CTAs a TPU block (ops/attention_probes.py::diag_copy_plan)
   const int* pos;  // [slots] or null
 };
 
-__global__ void __launch_bounds__(PT) colsum_strided_kernel(const int8_t* k, const int8_t* v,
-                                                            int* out, StridedArgs a) {
+__device__ __forceinline__ uint32_t sm32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, 16-byte aligned both ends) from global to
+// shared memory, completing on the mbarrier's transaction count
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A CTA's bytes of one tensor: nrun runs of rb bytes, rs apart (rows r0..r1
+// of its TPU block; one run where the rows are contiguous). A stage holds
+// CS_STAGE / rb whole runs, or, for a longer run, one piece of it of `piece`
+// bytes (a multiple of hd, so that every stage starts on a row segment).
+struct CtaRuns {
+  long long rs, rb;
+  int nrun, rps, ppr, piece;
+  __device__ CtaRuns(const StridedArgs& a, int r0, int r1) {
+    const bool contiguous = a.row_stride == a.run_bytes;
+    nrun = contiguous ? 1 : r1 - r0;
+    rb = contiguous ? (long long)(r1 - r0) * a.run_bytes : a.run_bytes;
+    rs = contiguous ? 0 : a.row_stride;
+    piece = CS_STAGE / a.hd * a.hd;
+    rps = rb <= CS_STAGE ? (int)(CS_STAGE / rb) : 1;
+    ppr = rb <= CS_STAGE ? 1 : (int)((rb + piece - 1) / piece);
+  }
+  __device__ int stages() const { return rb <= CS_STAGE ? (nrun + rps - 1) / rps : nrun * ppr; }
+};
+
+// Column sums of a TPU block's rows r0..r1 (block (jb, group, slot) of the
+// TPU's grid) over K and V: a producer thread streams them by bulk copies
+// into a ring of CS_STAGES stages (K's stages, then V's), CS_CONS consumer
+// threads sum each stage's 16-byte units into 16-bit lane sums (the unit's
+// column group is its index modulo hd / 16: every stage starts on a row
+// segment and holds whole ones), flushed to int32 and added to out.
+__global__ void __launch_bounds__(CS_CONS + 32) colsum_strided_kernel(const int8_t* k,
+                                                                      const int8_t* v, int* out,
+                                                                      StridedArgs a) {
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ __align__(8) uint64_t bars[2 * CS_STAGES];
+  __shared__ int bytes_of[CS_STAGES];
   __shared__ int col[MAX_HD];
-  const int jb = blockIdx.x, slot = blockIdx.z;
+  const int jb = blockIdx.x / a.cpb, slot = blockIdx.z;
   if (a.pos != nullptr && jb > max(a.pos[slot], 0) / a.live_div) return;  // the whole block
+  const int r0 = (blockIdx.x - jb * a.cpb) * a.rpc;
+  const int r1 = min(a.rows, r0 + a.rpc);
+  const CtaRuns cr(a, r0, r1);
+  const int n = cr.stages();
   const int tid = threadIdx.x;
-  for (int c = tid; c < a.hd; c += PT) col[c] = 0;
-  const int ncg = a.hd / 16;              // 16-column groups of a row segment
-  const int active = (PT / ncg) * ncg;    // loading threads: unit U has group U % ncg
-  const long long upr = a.run_bytes / 16; // 16-byte units of a run
-  const long long total = upr * a.rows;
-  const long long dr = active / upr, du = active % upr;  // (row, unit) step of `active` units
+  for (int c = tid; c < a.hd; c += blockDim.x) col[c] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < CS_STAGES; ++s) {
+      bar_init(sm32(&bars[s]), 1);                       // full: the producer's arrival
+      bar_init(sm32(&bars[CS_STAGES + s]), CS_CONS);     // empty: every consumer's
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
   const size_t base = (size_t)slot * a.slot_stride + (size_t)blockIdx.y * a.group_stride +
-                      (size_t)jb * a.block_stride;
+                      (size_t)jb * a.block_stride + (size_t)r0 * a.row_stride;
+  const int ncg = a.hd / 16;               // 16-column groups of a row segment
+  const int active = (CS_CONS / ncg) * ncg;  // summing threads: unit U has group U % ncg
   int sums[16] = {};
-  uint32_t lo[4] = {}, hi[4] = {};
-  int loads = 0, since = 0;
-  if (tid < active) {
-    for (int t = 0; t < 2; ++t) {
-      const int8_t* p = (t ? v : k) + base;
-      long long row = tid / upr, u = tid % upr;
-      for (long long U = tid; U < total; U += (long long)active * UNROLL) {
-        uint4 w[UNROLL];
-        int n = 0;
-#pragma unroll
-        for (int r = 0; r < UNROLL; ++r) {
-          if (U + (long long)r * active < total) {
-            w[r] = *reinterpret_cast<const uint4*>(p + row * a.row_stride + u * 16);
-            n = r + 1;
-          }
-          row += dr;
-          u += du;
-          if (u >= upr) {
-            u -= upr;
-            ++row;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < UNROLL; ++r)
-          if (r < n) {
-            add_biased(w[r], lo, hi);
-            ++loads;
-            ++since;
-          }
-        if (since >= FLUSH - UNROLL) {
-          flush(lo, hi, sums);
-          since = 0;
+  int loads = 0;
+  if (tid >= CS_CONS) {  // the producer warp: one thread issues the copies
+    if (tid == CS_CONS) {
+      for (int it = 0; it < 2 * n; ++it) {
+        const int s = it % CS_STAGES, j = it < n ? it : it - n;
+        const int8_t* src = (it < n ? k : v) + base;
+        if (it >= CS_STAGES) bar_wait(sm32(&bars[CS_STAGES + s]), ((it / CS_STAGES) - 1) & 1);
+        const uint32_t dst = sm32(ring + s * CS_STAGE), full = sm32(&bars[s]);
+        if (cr.rb <= CS_STAGE) {  // whole runs
+          const int first = j * cr.rps, cnt = min(cr.rps, cr.nrun - first);
+          bytes_of[s] = cnt * (int)cr.rb;
+          bar_expect_tx(full, cnt * (uint32_t)cr.rb);
+          for (int i = 0; i < cnt; ++i)
+            bulk_g2s(dst + i * (uint32_t)cr.rb, src + (first + i) * cr.rs, (uint32_t)cr.rb, full);
+        } else {                  // one piece of a run
+          const int run = j / cr.ppr;
+          const long long off = (long long)(j - run * cr.ppr) * cr.piece;
+          const int len = (int)min((long long)cr.piece, cr.rb - off);
+          bytes_of[s] = len;
+          bar_expect_tx(full, len);
+          bulk_g2s(dst, src + run * cr.rs + off, len, full);
         }
       }
     }
+  } else {
+    uint32_t lo[4] = {}, hi[4] = {};
+    int since = 0;
+    for (int it = 0; it < 2 * n; ++it) {
+      const int s = it % CS_STAGES;
+      bar_wait(sm32(&bars[s]), (it / CS_STAGES) & 1);
+      const int units = bytes_of[s] / 16;
+      const uint4* st = reinterpret_cast<const uint4*>(ring + s * CS_STAGE);
+      if (tid < active) {
+        for (int u = tid; u < units; u += active) {
+          add_biased(st[u], lo, hi);
+          ++loads;
+          if (++since == FLUSH) {
+            flush(lo, hi, sums);
+            since = 0;
+          }
+        }
+      }
+      bar_arrive(sm32(&bars[CS_STAGES + s]));
+    }
+    flush(lo, hi, sums);
   }
-  flush(lo, hi, sums);
 #pragma unroll
   for (int e = 0; e < 16; ++e) sums[e] -= 128 * loads;
   const int lane = tid & 31;
-  const bool pow2 = (32 % ncg) == 0;  // every lane loads; lanes l, l + ncg, ... share columns
-  if (pow2) {
+  const bool pow2 = (32 % ncg) == 0;  // lanes l, l + ncg, ... of a warp share columns
+  if (pow2 && tid < CS_CONS) {
 #pragma unroll
     for (int e = 0; e < 16; ++e)
       for (int o = ncg; o < 32; o <<= 1) sums[e] += __shfl_xor_sync(0xffffffffu, sums[e], o);
   }
-  __syncthreads();  // col is zeroed
   if (tid < active && (!pow2 || lane < ncg)) {
     const int cg = tid % ncg;
 #pragma unroll
     for (int e = 0; e < 16; ++e) atomicAdd(&col[cg * 16 + e], sums[e]);
   }
   __syncthreads();
-  for (int c = tid; c < a.hd; c += PT) atomicAdd(&out[c], col[c]);
+  for (int c = tid; c < a.hd; c += blockDim.x) atomicAdd(&out[c], col[c]);
 }
 
 }  // namespace
 
-// Column sums [hd] int32 (out, zeroed by the caller) over k and v: block
-// (x, y, z) of the grid (blocks_x, groups, slots) sums `rows` runs of
+// Column sums [hd] int32 (out, zeroed by the caller) over k and v: TPU
+// block (x, y, z) of the grid (blocks_x, groups, slots) sums `rows` runs of
 // run_bytes, row_stride apart, from z * slot_stride + y * group_stride +
 // x * block_stride; with pos ([slots] int32), blocks x > max(pos[z], 0) /
-// live_div read nothing. hd is a multiple of 16 up to 256 and divides
-// run_bytes; the offsets are multiples of 16. Returns a cudaError_t code.
+// live_div read nothing. Each TPU block is cut into cpb CTAs of rpc rows
+// (the CUDA grid is (blocks_x * cpb, groups, slots)). hd is a multiple of
+// 16 up to 256 and divides run_bytes; k, v and the offsets are multiples
+// of 16 bytes. Returns a cudaError_t code.
 extern "C" int tpuserve_probe_colsum_strided(const void* k, const void* v, void* out,
                                              const int* pos, long long slot_stride,
                                              long long group_stride, long long block_stride,
                                              long long row_stride, int rows, int run_bytes,
                                              int hd, int live_div, int blocks_x, int groups,
-                                             int slots, void* stream) {
+                                             int slots, int rpc, int cpb, void* stream) {
   if (blocks_x <= 0 || groups <= 0 || slots <= 0 || rows <= 0) return 0;
   if (hd <= 0 || hd % 16 || hd > MAX_HD || run_bytes <= 0 || run_bytes % hd ||
       (slot_stride | group_stride | block_stride | row_stride) % 16 ||
-      (pos != nullptr && live_div <= 0))
+      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16) ||
+      (pos != nullptr && live_div <= 0) || rpc <= 0 || cpb <= 0 ||
+      (long long)rpc * cpb < rows || (long long)rpc * (cpb - 1) >= rows ||
+      (long long)blocks_x * cpb > 0x7fffffff || groups > 65535 || slots > 65535)
     return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(colsum_strided_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, CS_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
   StridedArgs a;
   a.slot_stride = slot_stride; a.group_stride = group_stride; a.block_stride = block_stride;
   a.row_stride = row_stride; a.rows = rows; a.run_bytes = run_bytes; a.hd = hd;
-  a.live_div = live_div; a.pos = pos;
-  colsum_strided_kernel<<<dim3(blocks_x, groups, slots), PT, 0, (cudaStream_t)stream>>>(
-      static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), (int*)out, a);
+  a.live_div = live_div; a.rpc = rpc; a.cpb = cpb; a.pos = pos;
+  colsum_strided_kernel<<<dim3(blocks_x * cpb, groups, slots), CS_CONS + 32, CS_SMEM,
+                          (cudaStream_t)stream>>>(static_cast<const int8_t*>(k),
+                                                  static_cast<const int8_t*>(v), (int*)out, a);
   return (int)cudaGetLastError();
 }
 

@@ -27,11 +27,13 @@
 //     (tpuserve_quant_matmul_bf16);
 //   - W4A8, every even group: qmm_a8_kernel, the same ring and split on
 //     int8 wgmma (tpuserve_quant_matmul_a8);
-//   - f32 activations: qmm_f32_kernel, CUDA cores in f32, the first port's
-//     form (tpuserve_quant_matmul): one block per 64-column tile of up to 64
-//     rows of x walking K chunk by chunk through shared memory, K split by
-//     whole scale groups into a workspace that reduce_splits_kernel adds in
-//     split order.
+//   - f32 activations, every group bf16 x takes: the same kernel on three
+//     bf16 pieces of x (split_x_kernel: x = hi + mid + lo, each piece the
+//     top 16 bits of what is left, exact for every finite x of magnitude
+//     at least 2^-110 and for zeros); each k16 step issues one wgmma a
+//     piece on the same weight fragments into the one f32 sum, so the
+//     weights are read from device memory once, as for bf16 x, and every
+//     product (piece times code) is exact; out is f32.
 // Groups whose k-steps (16 values bf16, 32 int8) do not end where a group
 // does take masked steps on the Hopper kernels (the GS = -2 and A8_MASKED
 // instances).
@@ -39,144 +41,12 @@
 #include "hopper.cuh"
 
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 namespace {
 
 using tpuserve::small_u2f;
-using tpuserve::store_f32;
-
-constexpr int TN = 64;        // output columns per block
-constexpr int THREADS = 128;  // 8 column groups x 16 row groups
-constexpr int XS = 132;       // x tile row stride: 128 values + pad against bank conflicts
-
-// ---------------------------------------------------------------- f32 x
-template <int BITS, int RPT>
-__global__ void __launch_bounds__(THREADS)
-qmm_f32_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scale, float* __restrict__ out,
-               int B, int K, int N, int gs, int gps) {
-  constexpr int ROWS = 16 * RPT;
-  constexpr int MAXW = (BITS == 4) ? 64 : 128;  // weight rows per chunk
-  __shared__ float xs[ROWS * XS];
-  __shared__ __align__(16) uint8_t ws[MAXW * TN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;   // columns n0 + tx*8 .. +7
-  const int ty = tid >> 3;  // rows b0 + ty + 16*i
-  const int n0 = blockIdx.x * TN;
-  const int b0 = blockIdx.y * ROWS;
-  const int half = gs / 2;
-  const int wrows = (BITS == 4) ? half : gs;  // weight rows per group
-  // chunk: the largest divisor of the group's rows that fits the tile, so
-  // that any group size is served (min(wrows, MAXW) where that divides)
-  int cw = wrows < MAXW ? wrows : MAXW;
-  while (wrows % cw) --cw;
-  const int chunks = wrows / cw;
-  const int groups = K / gs;
-  const int xw = (BITS == 4) ? 2 * cw : cw;   // x values staged per row
-  const bool col_ok = (n0 + tx * 8) < N;      // N % 16 == 0: all 8 or none
-  // K split: this block's scale groups; split z writes its own [B, N] slab
-  const int g0 = blockIdx.z * gps;
-  const int g1 = min(groups, g0 + gps);
-  out += (size_t)blockIdx.z * B * N;
-
-  float acc[RPT][8];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int g = g0; g < g1; ++g) {
-    float part[RPT][8];
-    float rsum[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      rsum[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
-    }
-    for (int c = 0; c < chunks; ++c) {
-      const int r0 = c * cw;
-      __syncthreads();  // previous chunk's readers are done
-      for (int idx = tid; idx < ROWS * xw; idx += THREADS) {
-        const int row = idx / xw;
-        const int j = idx - row * xw;
-        int k;
-        int slot = j;
-        if (BITS == 4) {
-          // low nibbles pair with x[g*gs + r], high nibbles with x[g*gs + gs/2 + r]
-          k = (j < cw) ? g * gs + r0 + j : g * gs + half + r0 + (j - cw);
-          slot = (j < cw) ? j : 64 + (j - cw);
-        } else {
-          k = g * gs + r0 + j;
-        }
-        const int b = b0 + row;
-        xs[row * XS + slot] = (b < B) ? x[(size_t)b * K + k] : 0.f;
-      }
-      for (int idx = tid; idx < cw * 4; idx += THREADS) {
-        const int r = idx >> 2;
-        const int q = idx & 3;
-        const int col = n0 + q * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (col < N)
-          v = *reinterpret_cast<const uint4*>(w + (size_t)(g * wrows + r0 + r) * N + col);
-        *reinterpret_cast<uint4*>(&ws[r * TN + q * 16]) = v;
-      }
-      __syncthreads();
-      for (int r = 0; r < cw; ++r) {
-        const uint2 wv = *reinterpret_cast<const uint2*>(&ws[r * TN + tx * 8]);
-        float wa[8], wb[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t word = (j < 4) ? wv.x : wv.y;
-          const uint32_t byte = (word >> (8 * (j & 3))) & 0xFFu;
-          if (BITS == 4) {
-            wa[j] = small_u2f(byte & 0xFu);  // biased codes in [0, 15]
-            wb[j] = small_u2f(byte >> 4);
-          } else {
-            wa[j] = small_u2f(byte ^ 0x80u) - 128.0f;  // int8 code, exact
-            wb[j] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int row = ty + 16 * i;
-          const float xl = xs[row * XS + r];
-          if (BITS == 4) {
-            const float xh = xs[row * XS + 64 + r];
-            rsum[i] += xl + xh;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) part[i][j] += xl * wa[j] + xh * wb[j];
-          } else {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) part[i][j] += xl * wa[j];
-          }
-        }
-      }
-    }
-    if (col_ok) {
-      float sc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sc[j] = scale[(size_t)g * N + n0 + tx * 8 + j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float p = (BITS == 4) ? part[i][j] - 8.0f * rsum[i] : part[i][j];
-          acc[i][j] += p * sc[j];
-        }
-    }
-  }
-  if (!col_ok) return;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int b = b0 + ty + 16 * i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[(size_t)b * N + n0 + tx * 8 + j] = acc[i][j];
-  }
-}
 
 // ---------------------------------------------------------------- rows to int8
 // W4A8's activations: x [B, K] to int8 codes and f32 scales, one block a
@@ -232,23 +102,33 @@ stage_x_kernel(const uint16_t* __restrict__ x, const int* __restrict__ idx,
   out[(size_t)blockIdx.y * W + p] = k < K ? x[(size_t)blockIdx.y * K + k] : (uint16_t)0;
 }
 
-// out[i] = sum over splits of ws[split][i], added in split order
-template <typename OT>
-__global__ void reduce_splits_kernel(const float* __restrict__ ws, OT* __restrict__ out,
-                                     int splits, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[(size_t)k * n + i];
-    store_f32(&out[i], s);
+// f32 x [B, K] as three bf16 pieces out [3, B, W]: piece 0 (hi) is x's top
+// 16 bits, piece 1 (mid) the top 16 bits of r = x - hi, piece 2 (lo) those
+// of r - mid. Each difference is exact in f32, and for |x| >= 2^-110 (and
+// zeros) lo has no bits left below its top 16, so hi + mid + lo == x
+// bitwise; a zero difference keeps x's sign, so -0.0 gives three -0.0.
+// Below 2^-110 the bits under bf16's finest step (2^-133) are dropped.
+// With idx (the masked steps' layout, as stage_x_kernel): piece p of
+// out[b, q] splits x[b, idx[q]], 0 where idx[q] == K; else W = K in order.
+// A thread an element, grid (W / 256, B). Bound by bytes.
+__global__ void __launch_bounds__(256)
+split_x_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+               uint16_t* __restrict__ out, int B, int K, int W) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= W) return;
+  const int k = idx ? idx[q] : q;
+  const float v = k < K ? x[(size_t)blockIdx.y * K + k] : 0.f;
+  const uint32_t sign = __float_as_uint(v) & 0x80000000u;
+  uint32_t w = __float_as_uint(v);
+  const size_t plane = (size_t)B * W;
+  uint16_t* o = out + (size_t)blockIdx.y * W + q;
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const uint32_t top = w & 0xFFFF0000u;
+    o[p * plane] = (uint16_t)(top >> 16);
+    const float rest = __uint_as_float(w) - __uint_as_float(top);
+    w = rest == 0.f ? sign : __float_as_uint(rest);
   }
-}
-
-template <typename OT>
-void launch_reduce(const float* ws, void* out, int splits, long long n, cudaStream_t st) {
-  long long blocks = (n + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  reduce_splits_kernel<OT><<<(unsigned)blocks, 256, 0, st>>>(ws, (OT*)out, splits, n);
 }
 
 // ---------------------------------------------------------------- bf16 x, Hopper
@@ -334,6 +214,8 @@ struct Args {
   int spg;             // stages a group spans (pieces of one group), else 1
   int odd;             // the group is cut by the stages as above
   int off_x, off_sc, stage_bytes, tx_bytes, xbox_bytes;
+  int piece_bytes;     // a piece's x boxes in a stage (f32 x: three pieces, their
+                       // rows B apart in x's map)
 };
 
 // Where stage t starts: its first weight row, its first scale group and the
@@ -367,8 +249,9 @@ __device__ __forceinline__ void stage_origin(const Args& a, int bits, int gs, in
 
 // The producer thread: keeps the ring full for the block's nst stages
 // (weights and scales of each column warpgroup, then x; two x boxes for
-// int4 weights). MASKED: x laid out for the masked steps.
-template <int BITS, bool MASKED>
+// int4 weights, for each of x's P pieces). MASKED: x laid out for the
+// masked steps.
+template <int BITS, bool MASKED, int P>
 __device__ __forceinline__ void produce(const Args& a, uint8_t* smem, uint64_t* bars,
                                         const CUtensorMap* qmap, const CUtensorMap* smap,
                                         const CUtensorMap* xmap, int gs, int st0, int nst,
@@ -385,8 +268,12 @@ __device__ __forceinline__ void produce(const Args& a, uint8_t* smem, uint64_t* 
       tma_2d(base + w * W_BYTES, qmap, full, col_blk + w * COLS, r0);
       tma_2d(base + a.off_sc + w * a.gr * COLS * 4, smap, full, col_blk + w * COLS, grp);
     }
-    tma_2d(base + a.off_x, xmap, full, klo, row_blk);
-    if (BITS == 4) tma_2d(base + a.off_x + a.xbox_bytes, xmap, full, khi, row_blk);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const uint32_t xs = base + a.off_x + p * a.piece_bytes;
+      tma_2d(xs, xmap, full, klo, p * a.B + row_blk);
+      if (BITS == 4) tma_2d(xs + a.xbox_bytes, xmap, full, khi, p * a.B + row_blk);
+    }
   }
 }
 
@@ -619,24 +506,42 @@ __device__ __forceinline__ void fence_frag(uint32_t* af) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(af[i]));
 }
 
-// one k16 step (af2 == nullptr) or two on the same accumulators, then commit
-template <int BT>
-__device__ __forceinline__ void issue(float* part, uint32_t* af, uint64_t desc, int accumulate,
-                                      uint32_t* af2 = nullptr, uint64_t desc2 = 0) {
+// x's boxes in a stage, as wgmma descriptors: value p (0..127) of piece pc
+// (of P) lies in box p / 64 of that piece, 32 bytes a k16 step. P = 3:
+// f32 x as three bf16 pieces, each multiplied by the same A fragments.
+template <int P>
+struct XBoxes {
+  static constexpr int pieces = P;
+  uint32_t xb;
+  int xbox_bytes, piece_bytes;
+  __device__ __forceinline__ uint64_t operator()(int p, int pc = 0) const {
+    return desc_sw128(xb + pc * piece_bytes + (p >> 6) * xbox_bytes + (p & 63) * 2);
+  }
+};
+
+// one k16 step at x value p (af2 == nullptr) or two (the second at p2) on the
+// same accumulators, one wgmma a piece of x each, then commit
+template <int BT, typename XD>
+__device__ __forceinline__ void issue(float* part, uint32_t* af, const XD& xd, int p,
+                                      int accumulate, uint32_t* af2 = nullptr, int p2 = 0) {
   fence_frag(af);
   if (af2) fence_frag(af2);
   fence_regs<BT / 2>(part);
   wg_fence();
-  Wgmma<BT>::mma(part, af, desc, accumulate);
-  if (af2) Wgmma<BT>::mma(part, af2, desc2, 1);
+#pragma unroll
+  for (int pc = 0; pc < XD::pieces; ++pc) Wgmma<BT>::mma(part, af, xd(p, pc), pc > 0 || accumulate);
+  if (af2) {
+#pragma unroll
+    for (int pc = 0; pc < XD::pieces; ++pc) Wgmma<BT>::mma(part, af2, xd(p2, pc), 1);
+  }
   wg_commit();
 }
 
 // int4, one g128 group a stage: its four 16-row units, the stage's bytes
 // loaded first; the group's sum into `part` (fresh), left in flight
-template <int BT>
-__device__ __forceinline__ void g128_stage(float* part, const uint8_t* wt, uint32_t xb,
-                                           int xbox_bytes, int warp, int gid, int tq) {
+template <int BT, typename XD>
+__device__ __forceinline__ void g128_stage(float* part, const uint8_t* wt, const XD& xd, int warp,
+                                           int gid, int tq) {
   uint32_t w[8];
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -652,8 +557,7 @@ __device__ __forceinline__ void g128_stage(float* part, const uint8_t* wt, uint3
     uint32_t ahi[4] = {nib_pair(h0, 0x4140u), nib_pair(h0, 0x4342u), nib_pair(h1, 0x4140u),
                        nib_pair(h1, 0x4342u)};
     // box 0 holds the x of the low nibbles, box 1 that of the high ones
-    issue<BT>(part, alo, desc_sw128(xb + 32 * u), u > 0, ahi,
-              desc_sw128(xb + xbox_bytes + 32 * u));
+    issue<BT>(part, alo, xd, 16 * u, u > 0, ahi, 64 + 16 * u);
   }
 }
 
@@ -684,20 +588,23 @@ __device__ __forceinline__ void i8_frag(uint32_t* af, const uint8_t* wt, int row
 
 // Up to 8 k16 steps (fragments fr, x values px of the stage) on the same
 // accumulators, the first adding to them or not, issued together and
-// committed as one group. The fragments are all built before the first
-// wgmma and stay live (keep_frags) until the group has been waited for: a
-// wgmma reads its A registers after it is issued, so none of them may be
-// written again before then.
+// committed as one group (one wgmma a step and piece of x). The fragments
+// are all built before the first wgmma and stay live (keep_frags) until the
+// group has been waited for: a wgmma reads its A registers after it is
+// issued, so none of them may be written again before then.
 template <int BT, typename XDesc>
 __device__ __forceinline__ void issue_batch(float* part, uint32_t (&fr)[8][4], const int* px,
-                                            int n, int accumulate, XDesc xdesc) {
+                                            int n, int accumulate, const XDesc& xdesc) {
 #pragma unroll
   for (int s = 0; s < 8; ++s) fence_frag(fr[s]);
   fence_regs<BT / 2>(part);
   wg_fence();
 #pragma unroll
-  for (int s = 0; s < 8; ++s)
-    if (s < n) Wgmma<BT>::mma(part, fr[s], xdesc(px[s]), s > 0 || accumulate);
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int pc = 0; pc < XDesc::pieces; ++pc)
+      if (s < n) Wgmma<BT>::mma(part, fr[s], xdesc(px[s], pc), s > 0 || pc > 0 || accumulate);
+  }
   wg_commit();
 }
 
@@ -712,7 +619,7 @@ __device__ __forceinline__ void keep_frags(uint32_t (&fr)[8][4]) {
 // against box 0), flushed where the group (or the block's split) ends.
 template <int BITS, int BT, typename XDesc>
 __device__ __forceinline__ void odd_stage(const Args& a, float* acc, float* part, int& accumulate,
-                                          const uint8_t* wt, const float* sc, XDesc xdesc,
+                                          const uint8_t* wt, const float* sc, const XDesc& xdesc,
                                           int gs, int t, bool last, int warp, int gid, int tq,
                                           int c0) {
   const int rpg = BITS == 4 ? gs / 2 : gs;
@@ -832,7 +739,7 @@ __device__ __forceinline__ void masked_frag(uint32_t* af, const uint8_t* wt, int
 template <int BITS, int BT, typename XDesc>
 __device__ __forceinline__ void masked_stage(const Args& a, float* acc, float* part,
                                              int& accumulate, const uint8_t* wt, const float* sc,
-                                             XDesc xdesc, int gs, int t, bool last, int warp,
+                                             const XDesc& xdesc, int gs, int t, bool last, int warp,
                                              int gid, int tq, int c0) {
   const int rpg = BITS == 4 ? gs / 2 : gs;
   uint32_t fr[8][4];
@@ -888,8 +795,9 @@ __device__ __forceinline__ void masked_stage(const Args& a, float* acc, float* p
 
 // GS = 128 fixes the group size at compile time; GS = 0 reads a.gs (groups
 // the 64-row stage tiles); GS = -1 reads a.gs for the odd groups, GS = -2
-// for the masked ones.
-template <int BITS, int GS, int BT>
+// for the masked ones. P: x's bf16 pieces, 1 (bf16 x, bf16 out) or 3 (f32
+// x split by split_x_kernel, f32 out).
+template <int BITS, int GS, int BT, int P>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap smap,
                  const __grid_constant__ CUtensorMap xmap, const Args a) {
@@ -917,8 +825,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
   if (wg == ncons) {  // the producer warp: one thread keeps the ring full
     if (threadIdx.x == ncons * WG_THREADS)
-      produce<BITS, GS == -2>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk,
-                              row_blk);
+      produce<BITS, GS == -2, P>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk,
+                                 row_blk);
     return;
   }
 
@@ -947,8 +855,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       const int s = it % a.stages;
       mbar_wait(smem_u32(&bars[s]), (it / a.stages) & 1);
       const uint8_t* base = smem + (size_t)s * a.stage_bytes;
-      g128_stage<BT>(cur, base + wn * W_BYTES, smem_u32(base + a.off_x) + wb * BT * 128,
-                     a.xbox_bytes, warp, gid, tq);
+      g128_stage<BT>(cur, base + wn * W_BYTES,
+                     XBoxes<P>{smem_u32(base + a.off_x) + wb * BT * 128, a.xbox_bytes,
+                               a.piece_bytes},
+                     warp, gid, tq);
       if (it > 0) {
         wg_wait<4>();  // the previous stage's four groups are done
         fence_regs<BT / 2>(prev);
@@ -985,13 +895,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       const uint8_t* base = smem + (size_t)s * a.stage_bytes;
       const uint8_t* wt = base + wn * W_BYTES;
       const float* sc = reinterpret_cast<const float*>(base + a.off_sc + wn * a.gr * COLS * 4);
-      const uint32_t xb = smem_u32(base + a.off_x) + wb * BT * 128;
       const bool closes = it == nst - 1 ||
           ((st0 + it + 1) * STAGE_ROWS) % (BITS == 4 ? gs / 2 : gs) == 0;
-      // x value p (0..127) of the stage: box p / 64, 32 bytes a k16 step
-      auto xdesc = [&](int p) {
-        return desc_sw128(xb + (p >> 6) * a.xbox_bytes + (p & 63) * 2);
-      };
+      const XBoxes<P> xdesc{smem_u32(base + a.off_x) + wb * BT * 128, a.xbox_bytes,
+                            a.piece_bytes};
       if constexpr (GS == -2) {
         masked_stage<BITS, BT>(a, acc, part, accumulate, wt, sc, xdesc, gs, st0 + it,
                                it == nst - 1, warp, gid, tq, c0);
@@ -1016,7 +923,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           const int g = gs >= 128 ? 0 : R / half;
           const int plo = gs >= 128 ? R : g * gs + (R - g * half);
           const int phi = gs >= 128 ? 64 + R : plo + half;
-          issue<BT>(part, alo, xdesc(plo), accumulate, ahi, xdesc(phi));
+          issue<BT>(part, alo, xdesc, plo, accumulate, ahi, phi);
           accumulate = 1;
           if (gs < 128 && (R + 16) % half == 0) {
             close_group<BT>(acc, part, sc + g * COLS, c0);
@@ -1034,7 +941,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           const uint32_t l0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
           uint32_t af[4] = {nib_pair(l0, 0x4140u), nib_pair(l0, 0x4342u),
                             nib_pair(h0, 0x4140u), nib_pair(h0, 0x4342u)};
-          issue<BT>(part, af, xdesc(16 * u), 0);
+          issue<BT>(part, af, xdesc, 16 * u, 0);
           close_group<BT>(acc, part, sc + u * COLS, c0);
         }
       } else {  // int8: 16 rows a k16 step
@@ -1043,7 +950,7 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           const int R = 16 * u;
           uint32_t af[4];
           i8_frag(af, wt, R, warp, gid, tq);
-          issue<BT>(part, af, xdesc(R), accumulate);
+          issue<BT>(part, af, xdesc, R, accumulate);
           accumulate = 1;
           if (gs < 64 && (R + 16) % gs == 0) {
             close_group<BT>(acc, part, sc + (R / gs) * COLS, c0);
@@ -1060,8 +967,9 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     }
   }
 
-  write_out<BT, __nv_bfloat16, false>(a, acc, col_blk + wn * COLS + c0,
-                                      row_blk + wb * BT + 2 * tq, ncons, &s_last);
+  using OT = std::conditional_t<P == 1, __nv_bfloat16, float>;
+  write_out<BT, OT, false>(a, acc, col_blk + wn * COLS + c0, row_blk + wb * BT + 2 * tq, ncons,
+                           &s_last);
 }
 
 // ---------------------------------------------------------------- W4A8, Hopper
@@ -1357,8 +1265,8 @@ qmm_a8_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ 
 
   if (wg == ncons) {
     if (threadIdx.x == ncons * WG_THREADS)
-      produce<4, MODE == A8_MASKED>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst, col_blk,
-                                    row_blk);
+      produce<4, MODE == A8_MASKED, 1>(a, smem, bars, &qmap, &smap, &xmap, gs, st0, nst,
+                                       col_blk, row_blk);
     return;
   }
 
@@ -1633,11 +1541,11 @@ int launch_with(Kern kern, size_t& opted_in, const WeightMaps& wm, const CUtenso
   return (int)cudaGetLastError();
 }
 
-template <int BITS, int GS, int BT>
+template <int BITS, int GS, int BT, int P>
 int launch_wgmma(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
                  size_t smem, cudaStream_t st) {
   static size_t opted_in = 0;
-  return launch_with(qmm_wgmma_kernel<BITS, GS, BT>, opted_in, wm, xm, a, grid, smem, st);
+  return launch_with(qmm_wgmma_kernel<BITS, GS, BT, P>, opted_in, wm, xm, a, grid, smem, st);
 }
 
 template <int BT, int MODE, typename OT>
@@ -1647,17 +1555,31 @@ int launch_a8(const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 g
   return launch_with(qmm_a8_kernel<BT, MODE, OT>, opted_in, wm, xm, a, grid, smem, st);
 }
 
-template <int BITS, int GS>
+template <int BITS, int GS, int P>
 int launch_bt(int bt, const WeightMaps& wm, const CUtensorMap& xm, const Args& a, dim3 grid,
               size_t smem, cudaStream_t st) {
   switch (bt) {
-    case 16: return launch_wgmma<BITS, GS, 16>(wm, xm, a, grid, smem, st);
-    case 32: return launch_wgmma<BITS, GS, 32>(wm, xm, a, grid, smem, st);
-    case 64: return launch_wgmma<BITS, GS, 64>(wm, xm, a, grid, smem, st);
-    case 72: return launch_wgmma<BITS, GS, 72>(wm, xm, a, grid, smem, st);
-    case 128: return launch_wgmma<BITS, GS, 128>(wm, xm, a, grid, smem, st);
+    case 16: return launch_wgmma<BITS, GS, 16, P>(wm, xm, a, grid, smem, st);
+    case 32: return launch_wgmma<BITS, GS, 32, P>(wm, xm, a, grid, smem, st);
+    case 64: return launch_wgmma<BITS, GS, 64, P>(wm, xm, a, grid, smem, st);
+    case 72: return launch_wgmma<BITS, GS, 72, P>(wm, xm, a, grid, smem, st);
+    case 128: return launch_wgmma<BITS, GS, 128, P>(wm, xm, a, grid, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// the instance for the group (and, for int4, g128's own), x in P pieces
+template <int P>
+int launch_group(int bits, int gs, bool masked, const Args& a, int bt, const WeightMaps& wm,
+                 const CUtensorMap& xm, dim3 grid, size_t smem, cudaStream_t st) {
+  if (bits == 8)
+    return masked  ? launch_bt<8, -2, P>(bt, wm, xm, a, grid, smem, st)
+           : a.odd ? launch_bt<8, -1, P>(bt, wm, xm, a, grid, smem, st)
+                   : launch_bt<8, 0, P>(bt, wm, xm, a, grid, smem, st);
+  if (gs == 128) return launch_bt<4, 128, P>(bt, wm, xm, a, grid, smem, st);
+  return masked  ? launch_bt<4, -2, P>(bt, wm, xm, a, grid, smem, st)
+         : a.odd ? launch_bt<4, -1, P>(bt, wm, xm, a, grid, smem, st)
+                 : launch_bt<4, 0, P>(bt, wm, xm, a, grid, smem, st);
 }
 
 template <int MODE, typename OT>
@@ -1693,12 +1615,13 @@ void plan_stages(Args& a, int bits, int K, int gs) {
 }
 
 // What both entries set up alike: the stages, the ring's layout in shared
-// memory (per stage: the weight boxes, nbox x boxes of xbox_bytes, the
-// scale boxes), the weight's maps and the grid. Returns a cudaError_t code
-// (0: ready to launch).
+// memory (per stage: the weight boxes, nbox x boxes of xbox_bytes for each
+// of x's pieces, the scale boxes), the weight's maps and the grid. Returns
+// a cudaError_t code (0: ready to launch).
 int prepare(Args& a, size_t& smem, WeightMaps& wm, dim3& grid, const void* q, const void* scale,
             void* out, void* workspace, void* counters, int B, int K, int N, int gs, int bits,
-            int nwg_n, int nwg_b, int bx, int nbox, int xbox_bytes, int sps, int splits) {
+            int nwg_n, int nwg_b, int bx, int nbox, int xbox_bytes, int pieces, int sps,
+            int splits) {
   const int bad = (int)cudaErrorInvalidValue;
   a.out = out;
   a.row_scale = nullptr;
@@ -1710,11 +1633,12 @@ int prepare(Args& a, size_t& smem, WeightMaps& wm, dim3& grid, const void* q, co
   if (sps < 1 || splits != (a.total + sps - 1) / sps) return bad;
   if (splits > 1 && (workspace == nullptr || counters == nullptr)) return bad;
   a.xbox_bytes = xbox_bytes;
+  a.piece_bytes = nbox * xbox_bytes;
   a.off_x = nwg_n * W_BYTES;
-  a.off_sc = a.off_x + nbox * a.xbox_bytes;
+  a.off_sc = a.off_x + pieces * a.piece_bytes;
   const int sc_bytes = nwg_n * a.gr * COLS * 4;
   a.stage_bytes = (a.off_sc + sc_bytes + 1023) / 1024 * 1024;
-  a.tx_bytes = nwg_n * W_BYTES + nbox * a.xbox_bytes + sc_bytes;
+  a.tx_bytes = a.off_sc + sc_bytes;
   const int budget = 232448 - 1024 - 256 - 2 * MAX_STAGES * 8;
   a.stages = min(MAX_STAGES, budget / a.stage_bytes);
   if (a.stages < 2) return bad;
@@ -1726,64 +1650,30 @@ int prepare(Args& a, size_t& smem, WeightMaps& wm, dim3& grid, const void* q, co
 
 }  // namespace hop
 
-// splits == 1: straight into out; else f32 partials into ws, then the sum
-template <int BITS>
-void launch_f32(const void* x, const void* w, const void* s, void* out, int B, int K, int N,
-                int gs, int gps, int splits, float* ws, cudaStream_t st) {
-  float* dst = splits > 1 ? ws : (float*)out;
-  if (B <= 16) {
-    dim3 grid((N + TN - 1) / TN, (B + 15) / 16, splits);
-    qmm_f32_kernel<BITS, 1><<<grid, THREADS, 0, st>>>(
-        (const float*)x, (const uint8_t*)w, (const float*)s, dst, B, K, N, gs, gps);
-  } else {
-    dim3 grid((N + TN - 1) / TN, (B + 63) / 64, splits);
-    qmm_f32_kernel<BITS, 4><<<grid, THREADS, 0, st>>>(
-        (const float*)x, (const uint8_t*)w, (const float*)s, dst, B, K, N, gs, gps);
-  }
-  if (splits > 1) launch_reduce<float>(ws, out, splits, (long long)B * N, st);
-}
-
 }  // namespace
-
-// float32 x and out (bfloat16 x takes tpuserve_quant_matmul_bf16, W4A8
-// tpuserve_quant_matmul_a8). K is split into `splits` runs of `gps` scale
-// groups; with splits > 1, `workspace` holds splits*B*N floats. Returns a
-// cudaError_t code.
-extern "C" int tpuserve_quant_matmul(const void* x, const void* w, const void* scale,
-                                     void* out, int B, int K, int N, int gs, int bits,
-                                     int gps, int splits, void* workspace, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0) return 0;
-  if (splits < 1 || (splits > 1 && workspace == nullptr)) return (int)cudaErrorInvalidValue;
-  float* ws = (float*)workspace;
-  if (bits == 4)
-    launch_f32<4>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-  else if (bits == 8)
-    launch_f32<8>(x, w, scale, out, B, K, N, gs, gps, splits, ws, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
 
 // bf16 x [B, K] (16-byte aligned rows; for a group of no multiple of 16
 // values, [B, stages * 128] (bits 8: * 64) as ops/quant_matmul.py::
-// stage_x_index gathers it) and out [B, N]; q packed uint8 [K/2, N] (bits
-// 4) or int8 [K, N] (bits 8); scale f32 [K/gs, N]; N % 16 == 0; gs divides
-// K (even for bits 4). bt: the batch tile (16, 32, 64, 72 or
-// 128); nwg_n column and nwg_b batch warpgroups a block (bt * nwg_b <= 256;
-// more rows take more blocks along grid.z); sps stages a split and splits =
-// ceil(stages / sps) (stages as plan_stages counts them); with splits > 1,
-// workspace holds splits*B*N floats and counters one zeroed int per output
-// tile. One launch. Returns a cudaError_t code.
+// stage_x_index gathers it) and out [B, N] bf16; or, pieces 3, f32 x as
+// split_x_kernel's three bf16 pieces [3, B, that width] and out [B, N]
+// f32. q packed uint8 [K/2, N] (bits 4) or int8 [K, N] (bits 8); scale
+// f32 [K/gs, N]; N % 16 == 0; gs divides K (even for bits 4). bt: the
+// batch tile (16, 32, 64, 72 or 128); nwg_n column and nwg_b batch
+// warpgroups a block (bt * nwg_b <= 256; more rows take more blocks along
+// grid.z); sps stages a split and splits = ceil(stages / sps) (stages as
+// plan_stages counts them); with splits > 1, workspace holds splits*B*N
+// floats and counters one zeroed int per output tile. One launch. Returns
+// a cudaError_t code.
 extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const void* scale,
                                           void* out, void* workspace, void* counters, int B,
                                           int K, int N, int gs, int bits, int bt, int nwg_n,
-                                          int nwg_b, int sps, int splits, void* stream) {
+                                          int nwg_b, int sps, int splits, int pieces,
+                                          void* stream) {
   using namespace hop;
   const int bad = (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   if ((bits != 4 && bits != 8) || gs <= 0 || (bits == 4 && gs % 2) || K % gs || N % 16 ||
-      nwg_n < 1 || nwg_b < 1)
+      nwg_n < 1 || nwg_b < 1 || (pieces != 1 && pieces != 3))
     return bad;
   const int bx = bt * nwg_b;
   if (bx > 256) return bad;
@@ -1792,24 +1682,21 @@ extern "C" int tpuserve_quant_matmul_bf16(const void* x, const void* q, const vo
   WeightMaps wm;
   dim3 grid;
   const int rc = prepare(a, smem, wm, grid, q, scale, out, workspace, counters, B, K, N, gs, bits,
-                         nwg_n, nwg_b, bx, bits == 4 ? 2 : 1, bx * 128, sps, splits);
+                         nwg_n, nwg_b, bx, bits == 4 ? 2 : 1, bx * 128, pieces, sps, splits);
   if (rc) return rc;
   const bool masked = gs % 16 != 0;
-  // x's row: K values, or (masked) the gathered stages, 64 values a box
+  // x's row: K values, or (masked) the gathered stages, 64 values a box. The
+  // pieces are one map of pieces * B rows: a box's rows past a piece's B
+  // read the next piece's, which meet only output rows past B (never
+  // written), and past the last piece arrive as zeros.
   const uint64_t xw = masked ? (uint64_t)a.total * 64 * (bits == 4 ? 2 : 1) : K;
   CUtensorMap xm;
-  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, xw, B, xw * 2, 64, bx,
+  if (!encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, xw, (uint64_t)pieces * B, xw * 2, 64, bx,
               CU_TENSOR_MAP_SWIZZLE_128B))
     return bad;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 8)
-    return masked  ? launch_bt<8, -2>(bt, wm, xm, a, grid, smem, st)
-           : a.odd ? launch_bt<8, -1>(bt, wm, xm, a, grid, smem, st)
-                   : launch_bt<8, 0>(bt, wm, xm, a, grid, smem, st);
-  if (gs == 128) return launch_bt<4, 128>(bt, wm, xm, a, grid, smem, st);
-  return masked  ? launch_bt<4, -2>(bt, wm, xm, a, grid, smem, st)
-         : a.odd ? launch_bt<4, -1>(bt, wm, xm, a, grid, smem, st)
-                 : launch_bt<4, 0>(bt, wm, xm, a, grid, smem, st);
+  return pieces == 1 ? launch_group<1>(bits, gs, masked, a, bt, wm, xm, grid, smem, st)
+                     : launch_group<3>(bits, gs, masked, a, bt, wm, xm, grid, smem, st);
 }
 
 // W4A8: int8 x [B, K] (for a group of no multiple of 32 values, [B, stages
@@ -1834,7 +1721,7 @@ extern "C" int tpuserve_quant_matmul_a8(const void* x, const void* q, const void
   WeightMaps wm;
   dim3 grid;
   const int rc = prepare(a, smem, wm, grid, q, scale, out, workspace, counters, B, K, N, gs, 4,
-                         nwg_n, nwg_b, bx, 2, bx * 64, sps, splits);
+                         nwg_n, nwg_b, bx, 2, bx * 64, 1, sps, splits);
   if (rc) return rc;
   if (sps % a.spg) return bad;  // a split ends where a group does
   a.row_scale = (const float*)row_scale;
@@ -1879,6 +1766,18 @@ extern "C" int tpuserve_quantize_rows(const void* x, void* q, void* scale, int B
     else
       quantize_rows_kernel<float, false><<<B, 256, 0, st>>>(xf, qo, so, K, ix, W);
   }
+  return (int)cudaGetLastError();
+}
+
+// f32 x [B, K] to three bf16 pieces out [3, B, W]: W = K in order (idx
+// null), or the W positions idx gives (int32, K for a zero). Returns a
+// cudaError_t code.
+extern "C" int tpuserve_split_x(const void* x, const void* idx, void* out, int B, int K, int W,
+                                void* stream) {
+  if (B <= 0) return 0;
+  if (K <= 0 || W <= 0 || (!idx && W != K) || B > 65535) return (int)cudaErrorInvalidValue;
+  split_x_kernel<<<dim3((W + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)idx, (uint16_t*)out, B, K, W);
   return (int)cudaGetLastError();
 }
 

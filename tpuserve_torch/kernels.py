@@ -40,16 +40,16 @@ _LL = ctypes.c_longlong
 # exported C functions -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "tpuserve_vector_add": [_P, _P, _P, _LL, _I, _I, _P],
-    "tpuserve_quant_matmul": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
-    "tpuserve_quant_matmul_bf16": [_P] * 6 + [_I] * 10 + [_P],
+    "tpuserve_quant_matmul_bf16": [_P] * 6 + [_I] * 11 + [_P],
     "tpuserve_quant_matmul_a8": [_P] * 7 + [_I] * 10 + [_P],
     "tpuserve_quantize_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P],
     "tpuserve_stage_x": [_P] * 3 + [_I] * 3 + [_P],
+    "tpuserve_split_x": [_P] * 3 + [_I] * 3 + [_P],
     "tpuserve_decode_attention_core": [_P] * 10 + [_I] * 18 + [_P],
     "tpuserve_decode_attention_grouped_hopper": [_P] * 9 + [_LL] * 3 + [_I] * 12 + [_P],
     "tpuserve_probe_colsum": [_P] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     "tpuserve_probe_dot_only": [_P] * 4 + [_I] * 4 + [_P],
-    "tpuserve_probe_colsum_strided": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P],
+    "tpuserve_probe_colsum_strided": [_P] * 4 + [_LL] * 4 + [_I] * 9 + [_P],
     "tpuserve_unpack_probe": [_P] * 3 + [_LL] + [_I] * 3 + [_LL, _I, _P],
 }
 

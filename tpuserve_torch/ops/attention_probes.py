@@ -31,6 +31,10 @@ reads (the TPU kernel returns the last block's):
   max(positions[s], 0) // block_l (the TPU clamps the block index there,
   and its pipeline skips the repeated fetch).
 
+Those grids are the TPU's. The card's grid is not (`diag_copy_plan`): each
+TPU block is cut into CTAs of consecutive rows, so that the card holds
+several CTAs an SM whatever block_l is.
+
 For CUDA tensors each wrapper launches its kernel in csrc/attention_probes.cu
 (see the note there); for CPU tensors it runs the plain version.
 """
@@ -50,6 +54,9 @@ _WIDE_ROWS = 16    # rows of a dma_wide block: 64 KB of K and of V at Hkv = 32
 _DOT_TILE = 64     # cache rows of a dot_only tile
 _DOT_Q = 32        # query rows of a dot_only block
 _MAX_HD = 256      # widest row segment diag_copy takes
+_CTA_BYTES = 64 * 1024  # bytes of one of K, V a diag_copy CTA reads at most
+_CTAS_PER_SM = 2        # diag_copy CTAs an SM the plan keeps at least, where rows allow
+_SMS = 132              # the H100's SMs: the plan's default
 COPY_MODES = ("pcopy", "pcopy4d", "pdyn")
 
 
@@ -241,22 +248,53 @@ def diag_copy(k, v, mode: str, block_l: int, g: int = 1, positions=None) -> torc
             raise ValueError("diag_copy: pdyn takes int32 positions on the card")
         positions = positions.contiguous()
         pos = positions.data_ptr()
-    row = n_kv * hd                       # bytes of a position
-    if mode == "pcopy4d":                 # (block_l, g, hd) blocks: g*hd bytes a row
-        run, group_stride = g * hd, g * hd
-    else:                                 # (block_l*Hkv, hd) blocks: contiguous
-        run, group_stride = row, 0
+    row, run, group_stride = _copy_layout(k.shape, mode, g)
+    rpc, cpb, _ = diag_copy_plan(k.shape, mode, block_l, g, kernels.sm_count(k.device))
     out = torch.zeros(hd, dtype=torch.int32, device=k.device)
     rc = kernels.lib().tpuserve_probe_colsum_strided(
         k.data_ptr(), v.data_ptr(), out.data_ptr(), pos, l_max * row, group_stride,
         block_l * row, row, block_l, run, hd, block_l,
-        *diag_copy_grid(k.shape, mode, block_l, g), kernels.stream_of(k))
+        *diag_copy_tpu_grid(k.shape, mode, block_l, g), rpc, cpb, kernels.stream_of(k))
     kernels.check(rc, f"diag_copy {mode}")
     diag_copy_launches += 1
     return out
 
 
-def diag_copy_grid(k_shape, mode: str, block_l: int, g: int = 1):
-    """The kernel's grid for a cache of `k_shape` [S, L, Hkv, hd]."""
+def _copy_layout(k_shape, mode: str, g: int):
+    """(bytes of a position, bytes of a run, bytes between groups): a
+    pcopy4d block reads (block_l, g, hd) runs of g*hd bytes, the others
+    (block_l*Hkv, hd) blocks that are contiguous."""
+    _, _, n_kv, hd = k_shape
+    row = n_kv * hd
+    return (row, g * hd, g * hd) if mode == "pcopy4d" else (row, row, 0)
+
+
+def diag_copy_tpu_grid(k_shape, mode: str, block_l: int, g: int = 1):
+    """The TPU kernel's grid for a cache of `k_shape` [S, L, Hkv, hd]:
+    (blocks along L, kv-head groups, slots)."""
     s_dim, l_max, n_kv, _ = k_shape
     return (l_max // block_l, n_kv // g if mode == "pcopy4d" else 1, s_dim)
+
+
+def diag_copy_plan(k_shape, mode: str, block_l: int, g: int = 1, sms: int = _SMS):
+    """How the card's grid cuts the TPU's (csrc/attention_probes.cu::
+    colsum_strided_kernel): (rows a CTA, CTAs a TPU block, CUDA grid). A
+    TPU block's block_l runs go to cpb CTAs of rpc consecutive runs each
+    (the last one the rest): at most _CTA_BYTES of K (and as many of V) a
+    CTA, and no more rows than keep _CTAS_PER_SM CTAs an SM over the whole
+    grid; CTA x of the grid reads TPU block x // cpb, rows (x % cpb) * rpc
+    on."""
+    bx, groups, slots = diag_copy_tpu_grid(k_shape, mode, block_l, g)
+    run = _copy_layout(k_shape, mode, g)[1]
+    want = block_l * bx * groups * slots // (_CTAS_PER_SM * sms)
+    rpc = max(1, min(block_l, _CTA_BYTES // run, want))
+    cpb = -(-block_l // rpc)
+    rpc = -(-block_l // cpb)          # the rows spread evenly over the CTAs
+    cpb = -(-block_l // rpc)
+    return rpc, cpb, (bx * cpb, groups, slots)
+
+
+def diag_copy_grid(k_shape, mode: str, block_l: int, g: int = 1, sms: int = _SMS):
+    """The kernel's CUDA grid for a cache of `k_shape` [S, L, Hkv, hd]
+    (diag_copy_plan's; the TPU's is diag_copy_tpu_grid)."""
+    return diag_copy_plan(k_shape, mode, block_l, g, sms)[2]

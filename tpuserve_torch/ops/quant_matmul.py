@@ -12,6 +12,9 @@ exact products and differs only in the order of f32 sums):
 - int4: per group, the raw nibbles stay biased in [0, 15] and the -8 is
   folded as  x.lo + x.hi - 8*rowsum(x) , then scaled in f32;
 - int8: per group  x.w , scaled in f32;
+- f32 x: x split into three bf16 pieces (split_x), each piece's exact
+  products with the codes (int4: code - 8) summed per group in f32, the
+  three sums added, each group scaled and added in group order;
 - W4A8 (int4 weights, act_bits 8): x is quantized to int8 per row, the
   per-group dots are integer with the -8 fold in int32, and the per-row
   activation scale multiplies the f32 output.
@@ -24,7 +27,9 @@ stages cut along the groups (`stage_plan`, counted in
 steps (`masked_group`, counted in `group_route_launches`). W4A8 takes the
 Hopper int8 kernel for every even group (`w4a8_route`): k32 steps for
 groups of a multiple of 32 (`w4a8_launches`), masked ones for the rest
-(`w4a8_route_launches`). f32 activations take the CUDA-core kernel.
+(`w4a8_route_launches`). f32 activations take the bf16 route's kernel
+for every group the bf16 route takes, as three bf16 pieces (`split_x`,
+counted in `split_launches`; the matmul in `f32_launches`).
 
 Leading dims of x are flattened into the batch and restored.
 """
@@ -49,6 +54,11 @@ w4a8_launches = 0
 w4a8_route_launches = 0
 quantize_launches = 0  # the row quantization kernel (quantize_rows), every W4A8 call
 stage_launches = 0     # the bf16 x gather of the masked steps (stage_x)
+# f32 activations on the Hopper kernel as three bf16 pieces (every group),
+# and the kernel that splits them (split_x)
+f32_launches = 0
+split_launches = 0
+PIECES = 3             # bf16 pieces of an f32 x
 
 
 def _group_size(qt: QTensor) -> int:
@@ -81,6 +91,20 @@ def quant_matmul_plain(x: torch.Tensor, qt: QTensor, *, out_dtype=None) -> torch
         for g in range(groups):
             out = out + part[:, g] * scale[g]
         return (out * sx).to(out_dtype).reshape(*lead, n)
+    if x2.dtype == torch.float32:
+        # the kernel's f32 route: exact products of each bf16 piece with the
+        # codes, summed per group in f32, the pieces added in order, the
+        # groups scaled and added in order
+        xg = split_x_plain(x2).float().reshape(PIECES, -1, groups, gs)
+        codes = unpack_int4(qt.q, gs) if qt.bits == 4 else qt.q
+        wg = codes.reshape(groups, gs, n).to(torch.float32)
+        part = torch.einsum("bgk,gkn->bgn", xg[0], wg)
+        for piece in xg[1:]:
+            part = part + torch.einsum("bgk,gkn->bgn", piece, wg)
+        out = torch.zeros_like(part[:, 0])
+        for g in range(groups):
+            out = out + part[:, g] * scale[g]
+        return out.to(out_dtype).reshape(*lead, n)
     xf = x2.to(torch.float32)
     xg = xf.reshape(-1, groups, gs)
     if qt.bits == 4:
@@ -128,6 +152,45 @@ def quantize_rows(x2: torch.Tensor, index: Optional[torch.Tensor] = None):
     return q, sx
 
 
+def split_x_plain(x2: torch.Tensor) -> torch.Tensor:
+    """f32 x [..] -> bf16 [3, ..]: hi, mid, lo, each the top 16 bits of what
+    is left of x (csrc/quant_matmul.cu::split_x_kernel, bitwise). Every
+    difference is exact in f32, so hi + mid + lo == x for every finite x
+    of magnitude >= 2^-110 and for zeros (a zero difference keeps x's sign,
+    so -0.0 stays -0.0); below 2^-110 the bits under bf16's finest step,
+    2^-133, are dropped."""
+    sign = x2.view(torch.int32) & -(2 ** 31)
+    w = x2
+    pieces = []
+    for _ in range(PIECES):
+        t = (w.view(torch.int32) & -65536).view(torch.float32)     # & 0xFFFF0000
+        pieces.append(t.to(torch.bfloat16))              # exact: its low 16 bits are 0
+        rest = w - t
+        w = torch.where(rest == 0, sign.view(torch.float32), rest)
+    return torch.stack(pieces)
+
+
+def split_x(x2: torch.Tensor, index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 x [B, K] as three bf16 pieces [3, B, K] (split_x_plain), or with
+    `index` (stage_index) each piece in the masked steps' layout, [3, B,
+    len(index)]: csrc/quant_matmul.cu::split_x_kernel for a tensor on the
+    card, split_x_plain (and `_gather`) for one on the CPU."""
+    global split_launches
+    if not x2.is_cuda:
+        pieces = split_x_plain(x2)
+        return pieces if index is None else torch.stack([_gather(t, index) for t in pieces])
+    from tpuserve_torch import kernels
+
+    b, k = x2.shape
+    w = k if index is None else index.numel()
+    out = torch.empty((PIECES, b, w), dtype=torch.bfloat16, device=x2.device)
+    rc = kernels.lib().tpuserve_split_x(x2.data_ptr(), 0 if index is None else index.data_ptr(),
+                                        out.data_ptr(), b, k, w, kernels.stream_of(x2))
+    kernels.check(rc, "split_x")
+    split_launches += 1
+    return out
+
+
 def stage_x(x2: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """bf16 x [B, K] in the masked steps' layout, [B, len(index)] (x2[:,
     index], a zero where index == K): csrc/quant_matmul.cu::stage_x_kernel
@@ -168,20 +231,11 @@ def _check_launchable(x2: torch.Tensor, qt: QTensor) -> None:
         raise ValueError(f"cannot group K={k} by group_size={gs}")
 
 
-def _k_splits(b: int, n: int, groups: int, sms: int):
-    """(groups per split, splits) of the CUDA-core kernel (f32
-    activations): split K by whole scale groups until the grid holds ~4
-    blocks per SM (64-column tiles of 16 or 64 rows, 4 warps)."""
-    tiles = -(-n // 64) * -(-b // (16 if b <= 16 else 64))
-    want = max(1, min(groups, -(-4 * sms // tiles)))
-    gps = -(-groups // want)
-    return gps, -(-groups // gps)
-
-
 # ---------------------------------------------------------------- bf16, Hopper
 _BATCH_TILES = (16, 32, 64, 72, 128)  # wgmma N widths the bf16 kernel is built for
 _A8_TILES = (16, 32, 64, 80, 128)     # and the int8 one (integer wgmma has no n72)
 _STAGE_ROWS = 64       # weight rows a ring stage holds
+_RING_BYTES = 232448 - 1024 - 256 - 2 * 8 * 8  # the ring's shared memory (hop::prepare)
 _COUNTERS = {}         # device index -> int32 per-tile counters, zero between calls
 _STAGE_X = {}          # (bits, K, gs, device) -> stage_index
 _MAX_TILES = 1 << 16
@@ -244,8 +298,21 @@ def w4a8_route(gs: int) -> str:
     raise ValueError(f"quant_matmul kernel: unsupported W4A8 group size {gs}")
 
 
+def ring_stages(bits: int, k: int, gs: int, rows: int, nwg_n: int, pieces: int = 1) -> int:
+    """Ring stages the kernel's shared memory holds (csrc/quant_matmul.cu::
+    hop::prepare) for bf16 x in `pieces` pieces when a block covers `rows`
+    batch rows with nwg_n column warpgroups: per stage the weight boxes,
+    each piece's x boxes (int4 weights: two of rows * 128 bytes) and the
+    scale boxes, rounded up to 1 KB; at most 8. The kernel refuses fewer
+    than 2."""
+    gr = stage_plan(bits, k, gs)[0]
+    xbox = rows * 128
+    stage = nwg_n * _STAGE_ROWS * 64 + pieces * (2 if bits == 4 else 1) * xbox + nwg_n * gr * 256
+    return min(8, _RING_BYTES // (-(-stage // 1024) * 1024))
+
+
 def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[int] = None,
-                gs: int = 128, a8: bool = False):
+                gs: int = 128, a8: bool = False, pieces: int = 1):
     """The Hopper kernels' launch for x [b, k] and a [k, n] weight in groups
     of gs: (batch tile, column warpgroups, batch warpgroups, stages per
     split, splits). The batch tile is wgmma's N; one block covers up to 256
@@ -255,9 +322,17 @@ def hopper_plan(b: int, k: int, n: int, bits: int, sms: int, block_k: Optional[i
     of the group where the stages cut odd groups into pieces) sets the
     split instead. a8 (W4A8, qmm_a8_kernel): the int8 batch tiles, and a
     split ends only where a group does, so that every group's int32 sum is
-    whole before its scale."""
+    whole before its scale. pieces 3 (f32 x as three bf16 pieces): a stage
+    holds three times x's boxes, so a block covers at most 128 rows (fewer
+    where two stages of 128 would not fit) and the weights are read once
+    for b <= 128."""
     tiles = _A8_TILES if a8 else _BATCH_TILES
-    if b <= 128:
+    if pieces > 1:
+        nwg_b, per = 1, min(b, 128)
+        while per > 16 and ring_stages(bits, k, gs, next(t for t in tiles if t >= per), 2,
+                                       pieces) < 2:
+            per = -(-per // 2)
+    elif b <= 128:
         nwg_b, per = 1, b
     else:
         nwg_b, per = 2, -(-min(b, 256) // 2)
@@ -326,22 +401,24 @@ def stage_index(bits: int, k: int, gs: int, device) -> torch.Tensor:
     return _STAGE_X[key]
 
 
-def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None):
-    """qmm_wgmma_kernel (bf16 x), or qmm_a8_kernel (row_scale given: W4A8,
-    int8 x, its row scales multiplied into the f32 or bf16 out), K split in
-    the same launch; x [B, K], or for a masked group already in the masked
-    steps' layout (stage_x, quantize_rows with stage_index)."""
+def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None, pieces=1):
+    """qmm_wgmma_kernel (bf16 x into bf16 out; pieces 3: f32 x as split_x's
+    three bf16 pieces [3, B, ..] into f32 out), or qmm_a8_kernel (row_scale
+    given: W4A8, int8 x, its row scales multiplied into the f32 or bf16
+    out), K split in the same launch; x [B, K], or for a masked group
+    already in the masked steps' layout (stage_x, quantize_rows or split_x
+    with stage_index)."""
     a8 = row_scale is not None
     from tpuserve_torch import kernels
 
-    b, k = x2.shape[0], qt.orig_shape[0]
+    b, k = out.shape[0], qt.orig_shape[0]
     n_pad = out.shape[1]
     if x2.data_ptr() % 16:
         x2 = x2.clone()  # TMA reads x rows from a 16-byte aligned base
     if q.data_ptr() % 16 or scale.data_ptr() % 16:
         q, scale = q.clone(), scale.clone()
     bt, nwg_n, nwg_b, sps, splits = hopper_plan(b, k, n_pad, qt.bits, kernels.sm_count(x2.device),
-                                                block_k, gs, a8)
+                                                block_k, gs, a8, pieces)
     ws = cnt = None
     if splits > 1:
         if -(-n_pad // (64 * nwg_n)) * -(-b // (bt * nwg_b)) > _MAX_TILES:
@@ -357,33 +434,8 @@ def _launch_hopper(x2, q, scale, out, qt, gs, block_k, row_scale=None):
             kernels.stream_of(x2))
     else:
         rc = kernels.lib().tpuserve_quant_matmul_bf16(
-            *ptrs, b, k, n_pad, gs, qt.bits, bt, nwg_n, nwg_b, sps, splits,
+            *ptrs, b, k, n_pad, gs, qt.bits, bt, nwg_n, nwg_b, sps, splits, pieces,
             kernels.stream_of(x2))
-    kernels.check(rc, "quant_matmul")
-
-
-def _launch_cuda_core(x2, q, scale, out, bits, gs, block_k):
-    """qmm_f32_kernel (f32 x), K split by whole scale groups into a
-    workspace reduced in split order."""
-    from tpuserve_torch import kernels
-
-    b, k = x2.shape
-    n_pad = out.shape[1]
-    groups = k // gs
-    if block_k is None:
-        gps, splits = _k_splits(b, n_pad, groups, kernels.sm_count(x2.device))
-    else:
-        if block_k <= 0 or block_k % gs:
-            raise ValueError(f"quant_matmul: block_k {block_k} is not a multiple of the "
-                             f"group size {gs}")
-        gps = min(groups, block_k // gs)
-        splits = -(-groups // gps)
-    ws = torch.empty((splits, b, n_pad), dtype=torch.float32, device=x2.device) \
-        if splits > 1 else None
-    rc = kernels.lib().tpuserve_quant_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        b, k, n_pad, gs, bits, gps, splits, 0 if ws is None else ws.data_ptr(),
-        kernels.stream_of(x2))
     kernels.check(rc, "quant_matmul")
 
 
@@ -395,7 +447,7 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     None lets the wrapper choose. It changes no value beyond the order of
     f32 sums, and the plain version ignores it."""
     global launches, group_route_launches, odd_group_launches, w4a8_launches
-    global w4a8_route_launches
+    global w4a8_route_launches, f32_launches
     if not x.is_cuda:
         return quant_matmul_plain(x, qt, out_dtype=out_dtype)
     k, n = qt.orig_shape
@@ -408,12 +460,12 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     _check_launchable(x2, qt)
     act_int8 = qt.bits == 4 and qt.act_bits == 8
     gs = _group_size(qt)
-    masked = (act_int8 or x2.dtype == torch.bfloat16) and masked_group(gs, act_int8)
+    if not act_int8 and x2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quant_matmul kernel: unsupported activation dtype {x2.dtype}")
+    masked = masked_group(gs, act_int8)
     index = stage_index(qt.bits, k, gs, x2.device) if masked else None
     if act_int8:
         x2, sx = quantize_rows(x2, index)
-    elif x2.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"quant_matmul kernel: unsupported activation dtype {x2.dtype}")
     x2 = x2.contiguous()
     q, scale = qt.q.contiguous(), qt.scale.to(torch.float32).contiguous()
     n_pad = -(-n // 16) * 16  # the kernels load weight rows in 16-byte pieces
@@ -437,8 +489,10 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
         elif odd_group(qt.bits, gs):
             odd_group_launches += 1
     else:
+        # f32 x: three bf16 pieces on the same kernel, f32 out
         out = torch.empty((b, n_pad), dtype=torch.float32, device=x2.device)
-        _launch_cuda_core(x2, q, scale, out, qt.bits, gs, block_k)
+        _launch_hopper(split_x(x2, index), q, scale, out, qt, gs, block_k, pieces=PIECES)
+        f32_launches += 1
     launches += 1
     if n_pad != n:
         out = out[:, :n]

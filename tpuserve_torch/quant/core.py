@@ -152,16 +152,52 @@ def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+# W8A8 contractions by path: torch._int_mm on the card, float64 where
+# _int_mm does not take the shape or the tensors lie on the CPU
+w8a8_int_mm_calls = 0
+w8a8_float64_calls = 0
+
+
+def int_mm_rows(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """torch._int_mm(xq [B, K], q [K, N]) -> int32 [B, N], the rows padded
+    with zeros to 17 where B <= 16 (_int_mm takes more than 16 rows); K and
+    N must be multiples of 8. On the card q in K-major strides (q.t()
+    contiguous, as quantize_param_tree stores W8A8 codes) takes _int_mm's
+    fast layout; row-major codes are about ten times slower there."""
+    b = xq.shape[0]
+    if b <= 16:
+        xq = torch.cat([xq, xq.new_zeros((17 - b, xq.shape[1]))])
+    return torch._int_mm(xq, q)[:b]
+
+
 def _w8a8_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """Dynamic-INT8 activations x INT8 weights, scales applied on the f32
-    output. Requires per-channel weight scales (group_size 0). The integer
-    contraction runs in float64, which is exact here (|sum| < 2^53); the
-    JAX package leaves this path to XLA, so it has no kernel."""
+    output. Requires per-channel weight scales (group_size 0). The JAX
+    package leaves this path to XLA, so it has no kernel. On the card x is
+    quantized by the row kernel (ops.quant_matmul.quantize_rows, bitwise
+    quantize_activation) and the integer contraction is torch._int_mm
+    (int_mm_rows) where K and N are multiples of 8, as _int_mm needs;
+    elsewhere, and on the CPU (the plain version), it runs in float64,
+    which is exact here (|sum| < 2^53). Both give the same int32 sums, so
+    the same bits; each path is counted (w8a8_int_mm_calls,
+    w8a8_float64_calls)."""
+    global w8a8_int_mm_calls, w8a8_float64_calls
     if qt.bits != 8 or qt.group_size != 0:
         raise ValueError(
             "int8 activations require int8 weights with per-channel scales (group_size=0)")
-    xq, sx = quantize_activation(x)
-    acc = torch.matmul(xq.to(torch.float64), qt.q.to(torch.float64))
+    k, n = qt.q.shape
+    if x.is_cuda and k % 8 == 0 and n % 8 == 0:
+        from tpuserve_torch.ops.quant_matmul import quantize_rows
+
+        xq, sx = quantize_rows(x.reshape(-1, k))
+        acc = int_mm_rows(xq, qt.q)
+        sx = sx.reshape(*x.shape[:-1], 1)
+        acc = acc.reshape(*x.shape[:-1], n)
+        w8a8_int_mm_calls += 1
+    else:
+        xq, sx = quantize_activation(x)
+        acc = torch.matmul(xq.to(torch.float64), qt.q.to(torch.float64))
+        w8a8_float64_calls += 1
     out = acc.to(torch.float32) * sx * qt.scale[0][None, :].to(torch.float32)
     return out.to(x.dtype)
 
@@ -268,6 +304,10 @@ def quantize_param_tree(
             qt = quantize(arr, bits=bits, group_size=gs)
             if act_bits or act_fp8:
                 qt = dataclasses.replace(qt, act_bits=act_bits, act_fp8=act_fp8)
+            if act_bits == 8 and bits == 8:
+                # W8A8 codes in K-major strides (same shape and values):
+                # torch._int_mm's fast layout on the card
+                qt.q = qt.q.t().contiguous().t()
             out[name] = qt
         else:
             out[name] = arr

@@ -3,7 +3,8 @@
 builds that checkout's kernels and runs its chip_smoke.py's quant-matmul
 check (every 7B weight shape, int4 and int8, W4A8, the group sizes a
 64-row stage cannot tile; inputs rotated past the L2, CUDA events around a
-CUDA graph). One line per case with both checkouts' times (mean of their
+CUDA graph), then f32 x at wo's width (int4 g128, g96 and g40) on each
+checkout's own route. One line per case with both checkouts' times (mean of their
 turns) and their ratio, the per-step totals among them (the W4A8 step
 summed from its cases alike in both); a case one checkout lacks is
 printed with its own times. Every turn goes to
@@ -36,6 +37,15 @@ if w4:
 for c in res["cases"]:
     rows[f"{c['name']} K={c['K']} N={c['N']} B={c['B']} int{c['bits']} g{c['group_size']}"
          + (" W4A8" if c["act_bits"] else "")] = c["ms"]
+# f32 x at wo's width (g128, an odd and a masked group), each checkout's own route
+from tpuserve_torch.ops.quant_matmul import quant_matmul
+timer = cs.Timer(torch)
+for k, gs in ((4096, 128), (4032, 96), (4000, 40)):
+    qts = [cs._qt_random(torch, 4, k, p.dim, gs) for _ in range(24)]   # 200 MB, past the L2
+    x = torch.randn((64, k), device="cuda")
+    rows[f"f32 x wo K={k} N={p.dim} B=64 int4 g{gs}"] = timer.ms(
+        lambda i: quant_matmul(x, qts[i % len(qts)]), 20)
+    del qts
 print("AB_JSON " + json.dumps(rows), flush=True)
 """
 

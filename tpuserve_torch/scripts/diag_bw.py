@@ -12,9 +12,11 @@ Modes (pick with --mode, comma-separated):
   pdyn     pcopy, each slot's blocks past its live one unread (the TPU's
            scalar-prefetch clamped index map; every slot is at L-1 here)
 
-Each prints us/iter, effective GB/s of K and V, and the kernel's grid (one
-block of 256 threads each): --block-l keeps the TPU's meaning, so at the
-defaults pcopy has 64 blocks for the H100's 132 SMs. On the card a mode's
+Each prints us/iter, effective GB/s of K and V, the TPU's grid (--block-l
+keeps the TPU's meaning, so at the defaults pcopy has 64 blocks) and the
+card's, which cuts each TPU block into CTAs of consecutive rows
+(ops.attention_probes.diag_copy_plan: 1024 CTAs for the H100's 132 SMs
+at the defaults). On the card a mode's
 time is the best of 3 runs of ITERS calls in a row between CUDA events (the
 TPU script: a scan of ITERS calls, best of 3). On the CPU the plain versions
 run on the host clock: a check, not a device time. A mode that raises
@@ -28,6 +30,7 @@ prints FAILED and the script exits 1.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from typing import Dict, List
 
@@ -70,6 +73,8 @@ def run(modes: List[str], d: Dict[str, int], device) -> List[Dict]:
     print(f"# arrays 2x{k.numel() / 1e6:.0f} MB; S={d['S']} L={d['L']} Hkv={d['N_KV']} "
           f"hd={d['HD']} g={d['G']} block_l={d['BLOCK_L']}; device {name} ({clock})",
           flush=True)
+    sms = 132 if device.type != "cuda" else torch.cuda.get_device_properties(
+        device).multi_processor_count   # the plan's SMs (the H100's for the plain versions)
     records = []
     for mode in modes:
         try:
@@ -84,15 +89,18 @@ def run(modes: List[str], d: Dict[str, int], device) -> List[Dict]:
             print(f"{mode:10s} FAILED: {type(e).__name__}: {e}", flush=True)
             records.append(dict(mode=mode, failed=f"{type(e).__name__}: {e}"))
             continue
-        grid = None
+        grid = tpu_grid = None
         if mode in probes.COPY_MODES:
-            grid = probes.diag_copy_grid(k.shape, mode, d["BLOCK_L"], d["G"])
-        where = "" if grid is None else (f"  grid {grid[0]}x{grid[1]}x{grid[2]} = "
-                                         f"{grid[0] * grid[1] * grid[2]} blocks")
+            tpu_grid = probes.diag_copy_tpu_grid(k.shape, mode, d["BLOCK_L"], d["G"])
+            grid = probes.diag_copy_grid(k.shape, mode, d["BLOCK_L"], d["G"], sms)
+        where = "" if grid is None else (
+            f"  grid {tpu_grid[0]}x{tpu_grid[1]}x{tpu_grid[2]} = {math.prod(tpu_grid)} blocks, "
+            f"on the card {grid[0]}x{grid[1]}x{grid[2]} = {math.prod(grid)} CTAs")
         print(f"{mode:10s} {per * 1e6:9.1f} us/iter  {nbytes / per / 1e9:7.1f} GB/s  "
               f"(compile {first_s:.1f}s){where}", flush=True)
         records.append(dict(mode=mode, block_l=d["BLOCK_L"], g=d["G"], us=per * 1e6,
-                            gb_s=nbytes / per / 1e9, bytes=nbytes, grid=grid))
+                            gb_s=nbytes / per / 1e9, bytes=nbytes, grid=grid,
+                            tpu_grid=tpu_grid))
     return records
 
 

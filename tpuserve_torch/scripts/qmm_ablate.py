@@ -59,8 +59,8 @@ SHAPES = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 3200
 PATCHES = {
     "base": [],
     "tma_only": [("      g128_stage<BT>(cur, ", "      if (0) g128_stage<BT>(cur, ")],
-    "no_wgmma": [("  Wgmma<BT>::mma(part, af, desc, accumulate);\n"
-                  "  if (af2) Wgmma<BT>::mma(part, af2, desc2, 1);", "")],
+    "no_wgmma": [("Wgmma<BT>::mma(part, af, xd(p, pc), pc > 0 || accumulate);", "(void)pc;"),
+                 ("Wgmma<BT>::mma(part, af2, xd(p2, pc), 1);", "(void)pc;")],
     "no_convert": [("  const uint32_t v = prmt(m, 0x43434343u, sel);  // 128 + code in each half",
                     "  return m ^ sel;\n  const uint32_t v = 0;")],
     "no_lds": [("  const uint32_t a = *reinterpret_cast<const uint16_t*>(wt + off);\n"
@@ -110,8 +110,8 @@ PATCHES = {
     ],
     "mk_no_fast": [("    if (FAST && e0 >= 0 && e7 - e0 == 7 << 3) {", "    if (false) {"),
                    ("    if (e0 >= 0 && e15 - e0 == 15 << 3) {", "    if (false) {")],
-    "mk_no_wgmma": [("    if (s < n) Wgmma<BT>::mma(part, fr[s], xdesc(px[s]), "
-                     "s > 0 || accumulate);", "    (void)s;"),
+    "mk_no_wgmma": [("      if (s < n) Wgmma<BT>::mma(part, fr[s], xdesc(px[s], pc), "
+                     "s > 0 || pc > 0 || accumulate);", "      (void)s;"),
                     ("        if (i < n) WgmmaS8<BT>::mma(part, fr[i], xdesc(px[i]), "
                      "i > 0 || accumulate);", "        (void)i;")],
     "mk_no_flush": [("      close_group<BT>(acc, part, sc + j * COLS, c0);", "      wg_wait0();"),
@@ -205,9 +205,9 @@ def step_ms(fn, b: int, weights: dict, a8: bool = False) -> tuple:
             if a8:   # int8 x, its row scales, bf16 out
                 rc = fn(x.data_ptr(), *w, row_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
                         cnt.data_ptr(), b, k, n, 128, 1, *tail)
-            else:
+            else:    # bf16 x: one piece
                 rc = fn(x.data_ptr(), *w, out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, k, n,
-                        128, 4, *tail)
+                        128, 4, *tail[:-1], 1, tail[-1])
             if rc:
                 raise RuntimeError(f"quant_matmul variant: CUDA error {rc}")
 
@@ -251,9 +251,10 @@ def masked_us(fns: dict, b: int) -> dict:
                 if a8:
                     rc = fn(xs.data_ptr(), q.data_ptr(), scale.data_ptr(), row_scale.data_ptr(),
                             res.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, k, n, gs, 1, *tail)
-                else:
+                else:    # bf16 x: one piece
                     rc = fn(xs.data_ptr(), q.data_ptr(), scale.data_ptr(), res.data_ptr(),
-                            ws.data_ptr(), cnt.data_ptr(), b, k, n, gs, bits, *tail)
+                            ws.data_ptr(), cnt.data_ptr(), b, k, n, gs, bits, *tail[:-1], 1,
+                            tail[-1])
                 if rc:
                     raise RuntimeError(f"quant_matmul variant {name}: CUDA error {rc}")
 
