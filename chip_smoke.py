@@ -30,6 +30,19 @@ Phases, each fatal on failure:
               versions (greedy tokens equal where the top two logits are
               apart), one profiled step with the quant-matmul's share of
               device time;
+  4f. mixtral  a Mixtral-8x7B-width MoE model (32 layers, dim 4096, 32/8
+              heads, 8 experts of ffn 14336, top-2; init random_quantized:
+              int4 g128 expert stacks drawn on the card, a bf16 router)
+              with the slice's serving settings: 8 concurrent greedy
+              requests of 24 new tokens, (2 + 2E) x 32 + 1 = 577
+              quant-matmuls a call and 32 flat decode attentions (GQA rep
+              4: 8 query heads a packed int4 block) a decode step, exactly,
+              and no plain version; one full-width decode step with every
+              slot live (dispatch at cap 32) and the same step under
+              TPUSERVE_MOE_DECODE_DISPATCH_T=128 (the dense loop), kernels
+              against plain versions within 5% of the logit range, the
+              plain path handed the kernel path's experts; host-clock step
+              time and one profiled step each;
   5. paged    the same model with paged int8 KV (page_size 128, prefix
               sharing, prefill_chunk 128), loaded after the first is shut
               down: concurrent requests, two of them sharing a 128-token
@@ -82,7 +95,10 @@ Phases, each fatal on failure:
  12. qmm_sweep  the quant-matmul sweep (tpuserve_torch.scripts.
               qmatmul_sweep) at its defaults: chained int4/int8 matmuls at
               the wrapper's split and at each block_k, and the
-              dequantize-then-matmul control.
+              dequantize-then-matmul control;
+ 13. moe_ab   the MoE decode FFN's dense loop against the dispatch
+              (tpuserve_torch.scripts.ab_moe_decode) at Mixtral-8x7B's FFN,
+              batch sizes 8 and 64, f32 h (the JAX script's) and bf16 h.
 The kernel phase also holds the grouped kernel (packed int4, int8, bf16 at
 g_kv 1, 16 // rep and Hkv, and f32; the packed route beside the parent's
 unpack-then-int8 route),
@@ -100,9 +116,12 @@ codes written in it for W4A8) bitwise against its plain gather; f32 x on
 the wgmma kernel as three bf16 pieces (g128, odd g96, masked g40; the
 split kernel bitwise its plain version) beside torch.matmul in f32, and
 W8A8 (torch._int_mm on the codes) beside torch._int_mm, as records; the
-multi-candidate kernel also on bf16 and f32 caches beside SDPA; and the flat,
+multi-candidate kernel also on bf16 and f32 caches beside SDPA; the flat,
 multi and grouped (int8 and packed int4) kernels under
-TPUSERVE_ATTN_DYNSKIP=0 against =1.
+TPUSERVE_ATTN_DYNSKIP=0 against =1; and the [mixtral] path's shapes: the
+quant-matmul on the expert views of stacked int4 experts (gate|up K 4096
+x N 28672, down K 14336 x N 4096, at 8, 16, 32 and 64 rows) and the flat
+core at GQA rep 4 (packed int4: 8 query heads a block; int8: 4).
 The slice phase also runs one full-width decode step under
 TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Details go to
@@ -466,6 +485,113 @@ def check_quant_matmul(torch, timer, reps, p):
                 route_launches=routed, cases=rows)
 
 
+def _qexperts_random(torch, e_n, k, n, gs=128):
+    """A stack of e_n random int4 experts [e_n, K/2, N] with scales in
+    [0.5, 1.5) * 0.02/7, drawn in place on the card."""
+    from tpuserve_torch.quant.core import QExperts
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(k * 11 + n)
+    q = torch.empty((e_n, k // 2, n), dtype=torch.uint8, device="cuda")
+    q.random_(0, 256, generator=g)
+    scale = (torch.rand((e_n, k // gs, n), generator=g, device="cuda") + 0.5) * (0.02 / 7)
+    return QExperts(q=q, scale=scale, bits=4, group_size=gs, orig_shape=(e_n, k, n))
+
+
+def check_quant_matmul_experts(torch, timer, reps, p):
+    """The quant-matmul on the expert views of stacked int4 g128 experts at
+    p's (Mixtral-8x7B's) widths: moe_gateup K=dim N=2*ffn and moe_down
+    K=ffn N=dim, each expert a view at an offset e*K/2*N of the codes and
+    e*groups*N*4 bytes of the scales (every view 16-byte aligned, as TMA
+    reads it, and passed to the kernel without a copy), at the row counts
+    the [mixtral] path gives it: 32 (a decode step's dispatch capacity at
+    64 slots; also a 64-token prefill chunk's), 64 (the dense loop over 64
+    slots), 8 and 16 (the capacities of prefills of 16 and 32 tokens).
+    Each against the plain version within one bf16 step of the largest
+    output and two calls bitwise equal, for the first, a middle and the
+    last expert; timed rotating through all experts (the stack is past the
+    L2) beside its bound and torch.matmul on the dequantized bf16 expert;
+    per-step totals of a layer's experts times the layers, for the
+    dispatch (B=32) and the dense loop (B=64)."""
+    from tpuserve_torch.ops import quant_matmul as tqm
+    from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from tpuserve_torch.quant.core import dequantize
+
+    e_n = p.n_experts
+    stacks = {"moe_gateup": _qexperts_random(torch, e_n, p.dim, 2 * p.ffn_dim),
+              "moe_down": _qexperts_random(torch, e_n, p.ffn_dim, p.dim)}
+    for name, st in stacks.items():
+        for e in range(e_n):
+            ex = st.expert(e)
+            if ex.q.data_ptr() % 16 or ex.scale.data_ptr() % 16 or not ex.q.is_contiguous():
+                fail(f"quant_matmul {name} expert {e}: view not 16-byte aligned and contiguous")
+            if ex.q.data_ptr() != st.q.data_ptr() + e * ex.q.numel():
+                fail(f"quant_matmul {name} expert {e}: not a view of the stack")
+    steps = {b: dict(ms=0.0, bound_ms=0.0, library_ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0)
+             for b in (32, 64)}
+    worst, rows = 0.0, []
+    for name, st in stacks.items():
+        k, n = st.orig_shape[1:]
+        experts = [st.expert(e) for e in range(e_n)]
+        wd = [dequantize(ex, torch.bfloat16) for ex in experts]
+        for b in (32, 64, 8, 16):
+            x = torch.randn((b, k), device="cuda").to(torch.bfloat16)
+            err = 0.0
+            for e in (0, e_n // 2, e_n - 1):
+                before = tqm.launches
+                out, ref = quant_matmul(x, experts[e]), quant_matmul_plain(x, experts[e])
+                again = quant_matmul(x, experts[e])
+                torch.cuda.synchronize()
+                if tqm.launches != before + 2:
+                    fail(f"quant_matmul {name} expert {e} B={b}: not two kernel launches")
+                e_err = (out.float() - ref.float()).abs().max().item()
+                tol = 2 ** -7 * ref.float().abs().max().item()
+                if not e_err <= tol:
+                    fail(f"quant_matmul {name} expert {e} B={b}: max|err| {e_err} > {tol}")
+                if not torch.equal(out, again):
+                    fail(f"quant_matmul {name} expert {e} B={b}: two calls differ")
+                err = max(err, e_err)
+            worst = max(worst, err)
+            ms = timer.ms(lambda i: quant_matmul(x, experts[i % e_n]), reps)
+            lib_ms = timer.ms(lambda i: torch.matmul(x, wd[i % e_n]), reps)
+            plain_ms = timer.ms(lambda i: quant_matmul_plain(x, experts[i % e_n]),
+                                max(2, reps // 5)) if b in steps else None
+            wbytes = experts[0].nbytes
+            nbytes = b * k * 2 + wbytes + b * n * 2
+            ops = 2.0 * b * k * n
+            b_ms, b_by = bound(nbytes, ops, PEAK_OPS["bf16"])
+            row = dict(name=name, K=k, N=n, B=b, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            if b in steps:    # a step: every expert of every layer
+                per = e_n * p.n_layers
+                for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+                    steps[b][key] += per * row[key]
+                steps[b]["bytes"] += per * nbytes
+                steps[b]["ops"] += per * ops
+            log(f"[kernel] quant_matmul expert view {name} K={k} N={n} B={b} int4 g128: max|err| "
+                f"{err:.3g} (tol {tol:.3g}), two calls equal, experts 0, {e_n // 2}, {e_n - 1}; "
+                f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                + (f", plain {plain_ms:.4f} ms" if plain_ms else "")
+                + f", torch.matmul bf16 {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)")
+        del wd
+    for b, what in ((32, "dispatch at cap 32"), (64, "dense loop over 64 slots")):
+        st = steps[b]
+        st["bound_ms"], st["bound_by"] = bound(st["bytes"], st["ops"], PEAK_OPS["bf16"])
+        log(f"[kernel] quant_matmul experts per decode step, {what} ({2 * e_n * p.n_layers} "
+            f"calls, B={b}): {st['ms']:.3f} ms, bound {st['bound_ms']:.3f} ms "
+            f"({st['bound_by']}), torch.matmul bf16 {st['library_ms']:.3f} ms "
+            f"({st['ms'] / st['library_ms']:.2f}x), plain {st['plain_ms']:.3f} ms")
+    del stacks
+    torch.cuda.empty_cache()
+    d = steps[32]
+    return dict(max_abs_err=worst, ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+                bound_by=d["bound_by"], library_ms=d["library_ms"],
+                per=f"one decode step's experts at dispatch: {2 * e_n * p.n_layers} launches on "
+                    f"expert views, int4 g128, B=32 bf16",
+                dense=steps[64], cases=rows)
+
+
 def check_quant_records(torch, timer, reps, p):
     """Records of two quant-matmul routes no phase of this script serves.
     f32 x on qmm_wgmma_kernel as three bf16 pieces (split_x, then the
@@ -673,7 +799,12 @@ def check_stage_x(torch, timer, reps, p):
     return dict(rows[1], per="one call: w_down K=11008 g344, B=64 bf16 x", cases=rows)
 
 
-def check_decode_attention(torch, timer, reps, p):
+def check_decode_attention(torch, timer, reps, p, tag="", full_step=False):
+    """The flat core (decode_attention_wide_cache) at p's heads against its
+    plain version, timed beside its bound and SDPA on the dequantized bf16
+    window; S=64, L=256. The per-step line is the packed int4 case at
+    random positions (full_step: at the full-width step's, all 64 slots
+    live from 100 to 249)."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_cache_plain)
 
@@ -692,6 +823,9 @@ def check_decode_attention(torch, timer, reps, p):
              # one P requant covers the whole 256-row window
              ("int8", None, 16, 8, 2, l, False),
              ("int4", None, s, h, hkv, l, True)]
+    if full_step:   # every slot live, as in the [mixtral] phase's step
+        pos_step = torch.randint(100, 250, (s,), generator=g, device="cuda", dtype=torch.int32)
+        cases = [c for c in cases if c[2] == s and c[0] != "bf16" and not c[1]]
     for kind, window, ss, hh, kk, lcache, at_step in cases:
         ww = kk * hd
         win = window or lcache
@@ -756,10 +890,10 @@ def check_decode_attention(torch, timer, reps, p):
         row = dict(kind=kind, S=ss, H=hh, Hkv=kk, L=lcache, window=window, live_rows=live,
                    step_positions=at_step, layers_rotated=n_layers, max_abs_err=err, tol=tol,
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        if kind == "int4" and ss == s and not at_step:
+        if kind == "int4" and ss == s and at_step == full_step:
             main = row
         rows.append(row)
-        log(f"[kernel] decode_attention {kind} S={ss} H={hh} Hkv={kk} L={lcache} "
+        log(f"[kernel] decode_attention{tag} {kind} S={ss} H={hh} Hkv={kk} L={lcache} "
             f"window={window}{' step positions' if at_step else ''}: max|err| {err:.3g} "
             f"(tol {tol:.3g}); {ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
@@ -770,7 +904,8 @@ def check_decode_attention(torch, timer, reps, p):
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"],
-                per="one decode step: 32 launches, packed int4 KV, S=64, L=256", cases=rows)
+                per=f"one decode step: {n_l} launches, packed int4 KV, S=64, H={h}, Hkv={hkv}, "
+                    f"L=256" + (", every slot live at 100-249" if full_step else ""), cases=rows)
 
 
 def step_positions(torch, g, s):
@@ -1516,13 +1651,16 @@ def check_diag_copy(torch, timer, reps):
                     "g 16, block_l 256", cases=rows)
 
 
-def phase_kernels(torch, timer, reps, p):
+def phase_kernels(torch, timer, reps, p, p_moe):
     results = {"vector_add": check_vector_add(torch, timer, reps)}
     results["quant_matmul"] = check_quant_matmul(torch, timer, reps, p)
+    results["quant_matmul_experts"] = check_quant_matmul_experts(torch, timer, reps, p_moe)
     results["quant_records"] = check_quant_records(torch, timer, reps, p)
     results["quantize_rows"] = check_quantize_rows(torch, timer, reps, p)
     results["stage_x"] = check_stage_x(torch, timer, reps, p)
     results["decode_attention"] = check_decode_attention(torch, timer, reps, p)
+    results["decode_attention_gqa"] = check_decode_attention(torch, timer, reps, p_moe,
+                                                             tag=" (GQA)", full_step=True)
     results["decode_attention_paged"] = check_decode_attention_paged(torch, timer, reps, p)
     results["decode_attention_multi"] = check_decode_attention_multi(torch, timer, reps, p)
     results["decode_attention_grouped"] = check_decode_attention_grouped(torch, timer, reps, p)
@@ -1958,6 +2096,182 @@ def phase_quant_route(torch, p, smi_line, tag, quant, per_call):
     mgr.shutdown()
     return dict(launches=counts, want=want, load_s=load_s, wall_s=wall,
                 full_step=depths, profile=busy, qmm_ms=qmm_ms, quantize_ms=quant_ms)
+
+
+def _mixtral_config(p):
+    """Mixtral-8x7B-v0.1's published widths (its config.json) at init
+    random_quantized (seeded int4 g128 codes, a seeded bf16 router), served
+    as the slice is: packed int4 KV with f32 scales, 64 slots, L=256,
+    prefill_chunk 64, decode_horizon 8."""
+    mp = {f: getattr(p, f) for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+                                      "head_dim", "ffn_dim", "rope_theta", "rms_eps",
+                                      "n_experts", "n_experts_per_tok")}
+    return {
+        "name": "mixtral_8x7b_int4", "platform": "llm", "architecture": "mixtral",
+        "model_params": dict(mp, init="random_quantized", seed=0),
+        "quantization": {"weights": "int4", "group_size": 128, "kv_cache": "int4"},
+        "generation": {"max_seq_len": 256, "max_slots": 64, "eos_token_id": -1,
+                       "max_new_tokens": 32, "prefill_chunk": 64, "decode_horizon": 8},
+    }
+
+
+@contextlib.contextmanager
+def moe_routes(torch, llama, replay=None):
+    """Record the top-k experts of every moe_combine_weights call (replay
+    None), or hand each call the recorded experts in turn, its gates the
+    softmax of this path's own logits at them, and count the rows whose own
+    top-k parts from the record. Yields dict(picks=[[T, k] indices ...],
+    parted=[tensor ...])."""
+    real = llama.moe_combine_weights
+    rec = dict(picks=[], parted=[])
+    given = iter(replay or ())
+
+    def combine(logits, n_experts, k):
+        logits = logits.to(torch.float32)
+        own = llama._top_k(logits, k)[1]
+        if replay is None:
+            rec["picks"].append(own)
+            return real(logits, n_experts, k)
+        idx = next(given)
+        rec["parted"].append((own.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+        only = torch.full_like(logits, -math.inf).scatter(-1, idx, logits.gather(-1, idx))
+        return real(only, n_experts, k)
+
+    llama.moe_combine_weights = combine
+    try:
+        yield rec
+    finally:
+        llama.moe_combine_weights = real
+
+
+def phase_mixtral(torch, p, smi_line):
+    """A Mixtral-8x7B-width MoE model (p: 32 layers, 8 experts, top-2, GQA
+    32/8) at full depth through InferenceManager(device="cuda"): 8
+    concurrent greedy requests (prompts of 5-200 tokens, 24 new tokens each)
+    through the backend's generate, every call launching (2 + 2E) x n_layers
+    + 1 quant-matmuls (wqkv, wo, each expert's gate|up and down, lm_head;
+    every expert runs on every call) and each decode step n_layers flat
+    decode attentions, no plain version called; one full-width decode step
+    (all 64 slots live: dispatch at cap 32) and the same step under
+    TPUSERVE_MOE_DECODE_DISPATCH_T=128 (the dense loop over 64 rows),
+    kernels against plain versions within 5% of the logit range, the plain
+    path handed the kernel path's per-layer top-k experts (the two route
+    from activations rounded in other orders; the rows whose own top-k
+    parts are counted); host-clock step time and one profiled step's device
+    time with the quant-matmul's and the attention's shares."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.models.llama_bench import param_bytes
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    cfg = _mixtral_config(p)
+    tmp = _write_repo(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    mgr = InferenceManager(tmp, num_workers=1, device=DEVICE)
+    t_load = time.monotonic()
+    mgr.load_model(cfg["name"])
+    load_s = time.monotonic() - t_load
+    backend = mgr.get_model(cfg["name"]).backend
+    engine = backend.engine
+    wbytes = param_bytes(engine.params)
+    rng = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+               for n in (5, 200, 33, 90, 17, 64, 150, 120)]
+    per_call = (2 + 2 * p.n_experts) * p.n_layers + 1
+    quant_matmul.launches = decode_attention.launches = 0     # the path's run starts here
+    steps0, prefills0 = engine.steps, engine.prefill_calls
+    with plain_calls() as plain:
+        tokens, wall = _serve_wave(backend, prompts, 24, "mixtral")
+    launches = dict(quant_matmul=quant_matmul.launches,
+                    decode_attention=decode_attention.launches)
+    steps, prefills = engine.steps - steps0, engine.prefill_calls - prefills0
+    want = dict(quant_matmul=per_call * (steps + prefills),
+                decode_attention=p.n_layers * steps)
+    generated = sum(len(t) for t in tokens)
+    log(f"[mixtral] {len(prompts)} concurrent greedy requests, 24 new tokens each, in {wall:.2f} s "
+        f"({generated / wall:.1f} tok/s); decode steps {steps}, prefill calls {prefills}; "
+        f"launches {launches} (expected {want}: {per_call} quant-matmuls a call); plain "
+        f"versions called {sorted(set(plain))}; weights {wbytes / 1e9:.2f} GB, load {load_s:.1f} s")
+    if launches != want:
+        fail("[mixtral] kernel launch counts do not match the path's calls")
+    if plain:
+        fail(f"[mixtral] plain versions ran on the served path: {sorted(set(plain))}")
+
+    cache = engine.cache
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
+    pos = torch.randint(100, 250, (64,), generator=g, device=DEVICE, dtype=torch.int32)
+    snapshot = [t.clone() for t in cache_tensors(cache)]
+
+    def restore():
+        for dst, src in zip(cache_tensors(cache), snapshot):
+            dst.copy_(src)
+
+    def step():
+        return llama.decode_step(engine.params, p, toks, cache, pos)[0]
+
+    steps_out = {}
+    for label, decode_t in (("dispatch", None), ("dense", "128")):
+        with env_set("TPUSERVE_MOE_DECODE_DISPATCH_T", decode_t):
+            before = quant_matmul.launches
+            with moe_routes(torch, llama) as routed:
+                logits_k = step()
+            restore()
+            n_qmm = quant_matmul.launches - before
+            with plain_kernels(llama), moe_routes(torch, llama, routed["picks"]) as replayed:
+                logits_p = step()
+            restore()
+            torch.cuda.synchronize()
+            parted = int(sum(t.item() for t in replayed["parted"]))
+            # pairs past an expert's capacity (cap 32 of 64 tokens), per layer
+            counts = torch.stack([torch.bincount(pk.reshape(-1), minlength=p.n_experts)
+                                  for pk in routed["picks"]])
+            over = int((counts - 32).clamp_min(0).sum().item())
+            ref_max = logits_p.abs().max().item()
+            err = (logits_k - logits_p).abs().max().item()
+            agree = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+            finite = bool(torch.isfinite(logits_k).all())
+            tol = 0.05 * ref_max
+            log(f"[mixtral] full-width decode step, {label} (64 slots live), kernels vs plain "
+                f"(the plain path given the kernel path's experts): max|err| {err:.4g} of "
+                f"{ref_max:.4g} (tol {tol:.4g}); argmax agreement {agree:.4f}; finite {finite}; "
+                f"{n_qmm} quant-matmuls; rows whose own top-{p.n_experts_per_tok} parted in the "
+                f"plain path: {parted} of {64 * p.n_layers}; pairs past capacity 32: {over} "
+                f"over {p.n_layers} layers (max per expert and layer {int(counts.max())})")
+            if not finite or not err <= tol:
+                fail(f"[mixtral] full-width decode step ({label}): kernel path and plain path "
+                     "disagree")
+            if n_qmm != per_call:
+                fail(f"[mixtral] the {label} step launched {n_qmm} quant-matmuls, not {per_call}")
+            step_ms, times = _host_ms(torch, lambda i: llama.decode_step(
+                engine.params, p, toks, cache, pos + i))
+            restore()
+            busy = profile_step(torch, step, tag="mixtral", what=f"decode step ({label})")
+            restore()
+            qmm_ms = attn_ms = None
+            if busy:
+                qmm_ms = sum(ms for key, ms, _ in busy["rows"] if "qmm_" in key)
+                attn_ms = sum(ms for key, ms, _ in busy["rows"] if "attn_core_kernel" in key)
+                log(f"[mixtral] {label} step: host clock median {step_ms:.2f} ms; device busy "
+                    f"{busy['busy_ms']:.2f} ms: quant-matmul {qmm_ms:.3f} ms "
+                    f"({100 * qmm_ms / busy['busy_ms']:.1f}%), decode attention {attn_ms:.3f} ms "
+                    f"({100 * attn_ms / busy['busy_ms']:.1f}%); weights {wbytes / 1e9:.2f} GB: "
+                    f"bytes bound {wbytes / HBM_BYTES_PER_S * 1e3:.2f} ms (a reference point); "
+                    f"card {smi_line}")
+            steps_out[label] = dict(err=err, tol=tol, range=ref_max, argmax_agreement=agree,
+                                    parted_rows=parted, pairs_past_cap=over, qmm_launches=n_qmm,
+                                    step_ms=step_ms, step_times_ms=times, profile=busy,
+                                    qmm_ms=qmm_ms, attn_ms=attn_ms, logits=logits_k)
+    diff = (steps_out["dispatch"].pop("logits") - steps_out["dense"].pop("logits")).abs().max()
+    log(f"[mixtral] dispatch step against the dense-loop step: max|diff| {diff.item():.4g} "
+        "(they part where a pair overflowed, and by bf16 rounding)")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mixtral] max_memory_allocated {peak / 2**30:.2f} GiB; card {smi_line}")
+    mgr.shutdown()
+    return dict(launches=launches, want=want, decode_steps=steps, prefill_calls=prefills,
+                tokens=generated, wall_s=wall, load_s=load_s, weight_bytes=wbytes,
+                steps=steps_out, dispatch_vs_dense=diff.item(), max_memory_allocated=peak)
 
 
 def _paged_model_config(p):
@@ -2885,6 +3199,27 @@ def phase_qmm_sweep(torch):
     return dict(records=records)
 
 
+def phase_moe_ab(torch):
+    """The MoE decode FFN's dense loop against the dispatch
+    (tpuserve_torch.scripts.ab_moe_decode) at its defaults, Mixtral-8x7B's
+    FFN at batch sizes 8 and 64: f32 h as the JAX script runs it, then bf16
+    h, the served activations. A diagnostic: the engine's threshold stays
+    the JAX package's."""
+    from tpuserve_torch.scripts import ab_moe_decode
+
+    records = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        records[str(dtype).replace("torch.", "")] = ab_moe_decode.run(
+            torch.device("cuda"), dict(ab_moe_decode.settings(), dtype=dtype))
+    failed = [(d, r["bs"]) for d, rs in records.items() for r in rs if "failed" in r]
+    log("[moe_ab] " + "; ".join(f"{d} bs{r['bs']}: dense {r['dense_ms']:.3f} ms, dispatch "
+                                f"{r['dispatch_ms']:.3f} ms ({r['ratio']:.3f}x)"
+                                for d, rs in records.items() for r in rs if "failed" not in r))
+    if failed:
+        fail(f"[moe_ab] runs failed: {failed}")
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -2894,13 +3229,19 @@ def main() -> None:
     from tpuserve_torch.models.llama import LlamaParams
 
     p = LlamaParams.llama2_7b()
+    p_moe = LlamaParams.mixtral_8x7b()
     t0 = time.monotonic()
     build = phase_build()
     timer = Timer(torch)
-    results = phase_kernels(torch, timer, 20, p)
+    results = phase_kernels(torch, timer, 20, p, p_moe)
     slice_res = phase_slice(torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    # the MoE path: the quant-matmul on expert views and the flat core at
+    # GQA rep 4, each counted over the [mixtral] run
+    mixtral_res = phase_mixtral(torch, p_moe, smi_line)
+    results["quant_matmul_experts"]["launches"] = mixtral_res["launches"]["quant_matmul"]
+    results["decode_attention_gqa"]["launches"] = mixtral_res["launches"]["decode_attention"]
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
     w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
@@ -2960,10 +3301,14 @@ def main() -> None:
     diag_res = phase_diag_bw(torch)
     results["diag_copy"]["launches"] = diag_res["launches"]
     qmm_sweep_res = phase_qmm_sweep(torch)
+    moe_ab_res = phase_moe_ab(torch)
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
                                 "tpuserve/ops/quant_matmul.py:40"),
+               "quant_matmul_experts": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                        "tpuserve/ops/quant_matmul.py:40 (_kernel, on "
+                                        "QExperts.expert views, tpuserve/quant/core.py:299)"),
                "quant_matmul_w4a8": ("tpuserve_torch/csrc/quant_matmul.cu",
                                      "tpuserve/ops/quant_matmul.py:40 (_kernel, act_int8 "
                                      "branch :65-83)"),
@@ -2985,6 +3330,9 @@ def main() -> None:
                "decode_attention": ("tpuserve_torch/csrc/decode_attention_hopper.cu",
                                     "tpuserve/ops/decode_attention.py:160 (_wide_kernel; "
                                     ":495 _packed_kernel)"),
+               "decode_attention_gqa": ("tpuserve_torch/csrc/decode_attention_hopper.cu",
+                                        "tpuserve/ops/decode_attention.py:160 (_wide_kernel, "
+                                        "GQA rep 4: nq 8 packed int4)"),
                "decode_attention_paged": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)"),
@@ -3041,7 +3389,8 @@ def main() -> None:
                    "paged_slice": paged_res, "spec": spec_res, "spec_bf16": spec_bf16_res,
                    "spec_paged": spec_paged_res, "grouped": grouped_res,
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
-                   "g344": g344_res, "w4a8_g344": w4a8_g344_res,
+                   "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
+                   "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
                    "seconds": time.monotonic() - t0}, fh, indent=1,

@@ -107,6 +107,8 @@ def _cache(kind, s, hkv, l, n_layers, device, scale_dtype=torch.float32, seed=0)
     ("int4", 4, 2, 64, 32, 16, torch.float32),           # int4 pair x rep 2
     ("f32", 4, 2, 64, None, 16, None),
     ("f32", 4, 4, 64, None, None, None),                  # packed, float cache
+    ("int4", 32, 8, 256, None, None, torch.float32),     # Mixtral GQA rep 4: nq 8
+    ("int8", 32, 8, 256, None, None, torch.float32),     # and nq 4
 ])
 def test_decode_attention(cuda, kind, h, hkv, l, window, block_l, scale_dtype):
     s, n_layers, layer = 8, 2, 1
@@ -1123,3 +1125,63 @@ def test_dynskip_changes_no_output(cuda, monkeypatch, entry, kind):
     tol = (1e-3 if entry == "grouped" else 2e-3) * outs["1"][1][live].abs().max().item() + 1e-6
     for mode in ("0", "1"):
         assert (outs[mode][0] - outs[mode][1])[live].abs().max().item() <= tol, mode
+
+
+# ---------------------------------------------------------------- MoE experts
+def _experts_codes(e_n, k, n, device, gs=128, seed=0):
+    from tpuserve_torch.quant.core import QExperts
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.empty((e_n, k // 2, n), dtype=torch.uint8, device=device)
+    q.random_(0, 256, generator=g)
+    scale = (torch.rand((e_n, k // gs, n), generator=g, device=device) + 0.5) * 0.003
+    return QExperts(q=q, scale=scale, bits=4, group_size=gs, orig_shape=(e_n, k, n))
+
+
+@pytest.mark.parametrize("k,n", [(4096, 28672), (14336, 4096)], ids=["gateup", "down"])
+@pytest.mark.parametrize("b", [8, 16, 32, 64])
+def test_quant_matmul_expert_views(cuda, k, n, b):
+    """The kernel on views of a stack of int4 g128 experts at Mixtral-8x7B's
+    widths (the codes of expert e at e*K/2*N bytes, its scales at
+    e*groups*N*4): launched on the view itself, against the plain version
+    within one bf16 step, two calls bitwise equal."""
+    st = _experts_codes(3, k, n, cuda)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(b)).to(cuda, torch.bfloat16)
+    for e in range(3):
+        ex = st.expert(e)
+        assert ex.q.data_ptr() == st.q.data_ptr() + e * (k // 2) * n
+        assert ex.q.data_ptr() % 16 == 0 and ex.scale.data_ptr() % 16 == 0
+        before = qm.launches
+        out, again = qm.quant_matmul(x, ex), qm.quant_matmul(x, ex)
+        ref = qm.quant_matmul_plain(x, ex)
+        torch.cuda.synchronize()
+        assert qm.launches == before + 2
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2 ** -7 * ref.float().abs().max().item(), (e, err)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("decode_t", ["64", "128"], ids=["dispatch", "dense"])
+def test_moe_ffn_on_card(cuda, monkeypatch, decode_t):
+    """llama._moe_ffn over 64 bf16 rows on int4 experts (dim 512, ffn 256,
+    E=8, top-2), the kernel against the plain versions (the same routing:
+    both paths compute the router in f32 from the same h): within two bf16
+    steps of the output's range; 2E quant-matmul launches a call whatever
+    the route."""
+    from tpuserve_torch.models import llama
+
+    monkeypatch.setenv("TPUSERVE_MOE_DECODE_DISPATCH_T", decode_t)
+    p = llama.LlamaParams(dim=512, ffn_dim=256, n_experts=8, n_experts_per_tok=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = {"x/router/kernel": torch.randn((512, 8), generator=g, device=cuda),
+              "x/moe_gateup/kernel": _experts_codes(8, 512, 512, cuda, seed=1),
+              "x/moe_down/kernel": _experts_codes(8, 256, 512, cuda, seed=2)}
+    h = torch.randn((64, 512), generator=g, device=cuda).to(torch.bfloat16)
+    before = qm.launches
+    out = llama._moe_ffn(params, "x", h, p)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 16
+    monkeypatch.setattr(llama, "qmatmul", qm.quant_matmul_plain)
+    ref = llama._moe_ffn(params, "x", h, p)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 * 2 ** -8 * ref.float().abs().max().item(), err

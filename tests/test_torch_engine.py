@@ -146,14 +146,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     ({"generation.speculation_tokens": 4}, True),
     ({"sharding.tensor_parallel": 2}, False),
     ({"quantization.method": "gptq"}, False),
-    ({"model_params.n_experts": 4}, False),
+    ({"model_params.n_experts": 4}, True),
 ], ids=["generation.paged-True", "generation.speculation_tokens-4",
         "sharding.tensor_parallel-2", "quantization.method-gptq", "model_params.n_experts-4"])
 def test_unported_configurations_raise(tmp_path, overrides, ported):
     """Unported parts raise instead of running something else. Speculative
-    decoding, paged or contiguous, is ported: its configurations pass the
-    check and go on to load the model (which fails here: the directory
-    holds no checkpoint)."""
+    decoding, paged or contiguous, and MoE are ported: their configurations
+    pass the check and go on to load the model (which fails here: the
+    directory holds no checkpoint)."""
     cfg = _config("unported")
     for field, value in overrides.items():
         section, key = field.split(".")

@@ -10,6 +10,7 @@ import os
 import numpy as np
 import torch
 
+from tpuserve.quant.core import QExperts as JQExperts
 from tpuserve.quant.core import QTensor as JQTensor
 from tpuserve_torch import interop
 
@@ -20,10 +21,11 @@ SMALL = dict(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
 
 
 def jax_tree_to_numpy(params) -> dict:
-    """JAX param dict (arrays and QTensors) -> the numpy form interop takes."""
+    """JAX param dict (arrays, QTensors and QExperts) -> the numpy form
+    interop takes."""
     out = {}
     for name, v in params.items():
-        if isinstance(v, JQTensor):
+        if isinstance(v, (JQTensor, JQExperts)):
             out[name] = dict(q=np.asarray(v.q), scale=np.asarray(v.scale), bits=v.bits,
                              group_size=v.group_size, orig_shape=v.orig_shape,
                              act_bits=v.act_bits, act_fp8=v.act_fp8)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from tpuserve_torch.models.llama import KVCache
-from tpuserve_torch.quant.core import QTensor
+from tpuserve_torch.quant.core import QExperts, QTensor
 from tpuserve_torch.serving.paged_kv import PagedKVCache
 from tpuserve_torch.utils.device import resolve_device
 
@@ -33,14 +33,16 @@ def tensor_from_numpy(arr, device="cuda") -> torch.Tensor:
 def params_from_numpy(tree: Mapping[str, object], device="cuda") -> Dict[str, object]:
     """Flat param dict of numpy arrays -> torch. A QTensor entry is a dict
     with q, scale, bits, group_size, orig_shape and optionally act_bits and
-    act_fp8."""
+    act_fp8; one whose orig_shape has three dims (E, K, N) is a stack of
+    MoE experts, a QExperts."""
     out: Dict[str, object] = {}
     for name, v in tree.items():
         if isinstance(v, Mapping):
             missing = _QT_KEYS - set(v)
             if missing:
                 raise ValueError(f"{name}: QTensor entry lacks {sorted(missing)}")
-            out[name] = QTensor(
+            cls = QExperts if len(v["orig_shape"]) == 3 else QTensor
+            out[name] = cls(
                 q=tensor_from_numpy(v["q"], device),
                 scale=tensor_from_numpy(v["scale"], device),
                 bits=int(v["bits"]), group_size=int(v["group_size"]),

@@ -1,9 +1,11 @@
-"""Llama-family decoder (PyTorch port of tpuserve/models/llama.py, the dense
+"""Llama-family decoder (PyTorch port of tpuserve/models/llama.py, the
 single-device path).
 
 - plain functions over a flat param dict; matmul weights may be QTensors
-  (INT8/INT4) dispatched through the fused quant-matmul kernel;
-- grouped-query attention + RoPE, RMSNorm, SwiGLU MLP (Llama-2/3 shapes);
+  (INT8/INT4) dispatched through the fused quant-matmul kernel, stacked MoE
+  experts QExperts handed to it one expert at a time;
+- grouped-query attention + RoPE, RMSNorm, SwiGLU MLP (Llama-2/3 shapes) or
+  a Mixtral-style top-k Mixture-of-Experts FFN (_moe_ffn);
 - entry points shaped for continuous batching:
     prefill(params, p, tokens[1, L], cache, slot, length)        -> logits[1, V]
     prefill_chunk(params, p, tokens[1, C], cache, slot, start, length, window)
@@ -48,7 +50,7 @@ from tpuserve_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_wide_cache_multi,
                                                  decode_attention_wide_paged,
                                                  unpack_kv_codes)
-from tpuserve_torch.quant.core import QTensor, qmatmul, true_div
+from tpuserve_torch.quant.core import QExperts, QTensor, qmatmul, true_div
 from tpuserve_torch.utils.device import resolve_device
 
 
@@ -65,8 +67,9 @@ class LlamaParams:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
-    # Mixture-of-Experts fields are parsed for config compatibility; MoE is
-    # not ported yet and is refused where it would run.
+    # Mixture-of-Experts (Mixtral-style): n_experts > 0 replaces every
+    # layer's FFN with a top-k router over E gated-silu experts of ffn_dim
+    # each, their weights stacked [E, ...] (see _moe_ffn).
     n_experts: int = 0
     n_experts_per_tok: int = 2
 
@@ -84,11 +87,26 @@ class LlamaParams:
     def llama2_7b(cls) -> "LlamaParams":
         return cls()
 
+    @classmethod
+    def mixtral_8x7b(cls) -> "LlamaParams":
+        """Mixtral-8x7B-v0.1's published widths (its config.json)."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                   head_dim=128, ffn_dim=14336, rope_theta=1e6, rms_eps=1e-5,
+                   n_experts=8, n_experts_per_tok=2)
 
 
-def _no_moe(p: LlamaParams) -> None:
+def active_param_count(p: LlamaParams) -> int:
+    """Matmul-active parameters per decoded token (MoE counts only the
+    top-k experts a token routes through, plus the router); 2x this is the
+    step's matmul FLOPs per token."""
+    qd = p.n_heads * p.head_dim
+    kvd = p.n_kv_heads * p.head_dim
+    attn = p.dim * qd + 2 * p.dim * kvd + qd * p.dim
+    ffn = 3 * p.dim * p.ffn_dim
     if p.n_experts:
-        raise NotImplementedError("MoE layers are not ported to tpuserve_torch yet")
+        ffn = ffn * p.n_experts_per_tok + p.dim * p.n_experts
+    head = p.dim * p.vocab_size  # lm_head (tied or not, the matmul runs)
+    return p.n_layers * (attn + ffn) + head
 
 
 # ---------------------------------------------------------------------- weights
@@ -98,7 +116,6 @@ def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cuda",
     `device`. Serving normally loads a checkpoint; this exists for tests and
     fixtures. (The JAX PRNG cannot be reproduced: tests carry JAX's weights
     across with interop.params_from_numpy instead.)"""
-    _no_moe(p)
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -123,17 +140,28 @@ def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cuda",
         params[f"{pre}/wv/kernel"] = normal(p.dim, kvd)
         params[f"{pre}/wo/kernel"] = normal(qd, p.dim)
         params[f"{pre}/mlp_norm/scale"] = torch.ones((p.dim,), dtype=dtype, device=dev)
-        params[f"{pre}/w_gate/kernel"] = normal(p.dim, p.ffn_dim)
-        params[f"{pre}/w_up/kernel"] = normal(p.dim, p.ffn_dim)
-        params[f"{pre}/w_down/kernel"] = normal(p.ffn_dim, p.dim)
+        if p.n_experts:
+            params[f"{pre}/router/kernel"] = normal(p.dim, p.n_experts)
+            params[f"{pre}/moe_gateup/kernel"] = normal(p.n_experts, p.dim, 2 * p.ffn_dim)
+            params[f"{pre}/moe_down/kernel"] = normal(p.n_experts, p.ffn_dim, p.dim)
+        else:
+            params[f"{pre}/w_gate/kernel"] = normal(p.dim, p.ffn_dim)
+            params[f"{pre}/w_up/kernel"] = normal(p.dim, p.ffn_dim)
+            params[f"{pre}/w_down/kernel"] = normal(p.ffn_dim, p.dim)
     return params
 
 
-def _mm(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    w = params[name]
+def _mm_w(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul against a weight value, dense or QTensor (the single-device
+    path): a dense weight is cast to x's dtype and multiplied with f32
+    accumulation, as the JAX package's jnp.dot(preferred_element_type=f32)."""
     if isinstance(w, QTensor):
         return qmatmul(x, w)
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(x.dtype)
+    return torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32)).to(x.dtype)
+
+
+def _mm(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    return _mm_w(x, params[name])
 
 
 def fuse_params(params: Dict, p: LlamaParams) -> Dict:
@@ -428,8 +456,8 @@ def _attention_prefill(q, k, v, mask):
 
 def _forward_block(params, pre, x, p: LlamaParams, attn_fn):
     """One transformer block; attn_fn maps (q, k, v) -> attn output. Uses the
-    fused wqkv / w_gateup weights when the checkpoint carries them."""
-    _no_moe(p)
+    fused wqkv / w_gateup weights when the checkpoint carries them; a MoE
+    model's FFN is _moe_ffn."""
     qd = p.n_heads * p.head_dim
     kvd = p.n_kv_heads * p.head_dim
     h = rms_norm(params, f"{pre}/attn_norm", x, p.rms_eps)
@@ -443,6 +471,8 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn):
     attn_out = attn_fn(q, k, v)
     x = x + _mm(params, f"{pre}/wo/kernel", attn_out)
     h = rms_norm(params, f"{pre}/mlp_norm", x, p.rms_eps)
+    if p.n_experts:
+        return x + _moe_ffn(params, pre, h, p)
     if f"{pre}/w_gateup/kernel" in params:
         gateup = _mm(params, f"{pre}/w_gateup/kernel", h)
         gate, up = gateup[..., :p.ffn_dim], gateup[..., p.ffn_dim:]
@@ -451,6 +481,115 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn):
         up = _mm(params, f"{pre}/w_up/kernel", h)
     gate = F.silu(gate.to(torch.float32)).to(h.dtype)
     return x + _mm(params, f"{pre}/w_down/kernel", gate * up)
+
+
+# ---------------------------------------------------------------------- MoE
+def _expert_slice(w, e: int):
+    """One expert's [K, N] weight from a stacked [E, K, N] tensor or
+    QExperts: a view, no copy."""
+    if isinstance(w, QExperts):
+        return w.expert(e)
+    return w[e]
+
+
+def expert_forward(h: torch.Tensor, gu, dn, ffn_dim: int) -> torch.Tensor:
+    """One expert's gated-silu FFN over all rows of h [T, D] -> [T, D].
+    gu [D, 2F] (fused gate|up), dn [F, D]; dense tensors or QTensors."""
+    gateup = _mm_w(h, gu)
+    gate, up = gateup[..., :ffn_dim], gateup[..., ffn_dim:]
+    gate = F.silu(gate.to(torch.float32)).to(h.dtype)
+    return _mm_w(gate * up, dn)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last dim, ties to the
+    lower index, as jax.lax.top_k breaks them (torch.topk promises no
+    order for ties): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_combine_weights(logits: torch.Tensor, n_experts: int, k: int) -> torch.Tensor:
+    """Top-k routing: logits [.., E] -> combine weights [.., E] f32 (softmax
+    over the selected k, zero elsewhere), the Mixtral convention."""
+    top_vals, top_idx = _top_k(logits.to(torch.float32), k)
+    unnorm = torch.exp(top_vals - top_vals.amax(dim=-1, keepdim=True))
+    gates = unnorm / unnorm.sum(dim=-1, keepdim=True)  # jax.nn.softmax's form
+    zeros = torch.zeros(logits.shape[:-1] + (n_experts,), dtype=torch.float32,
+                        device=logits.device)
+    return zeros.scatter(-1, top_idx, gates)
+
+
+def _moe_ffn(params, pre, h, p: LlamaParams):
+    """Mixture-of-Experts FFN (Mixtral-style top-k routing), the JAX
+    package's single-device branch (the mesh-sharded one waits for
+    sharding).
+
+    Every expert runs on every call, whatever the routing, so a call
+    launches the same kernels each time and never syncs on per-expert
+    counts. 3-D input (prefill and its chunks) takes the static-capacity
+    dispatch (_moe_dispatch) whenever TPUSERVE_MOE_CF > 0 and the capacity
+    is under the token count; 2-D input (decode [S, D], verify [S*C, D])
+    only at T >= TPUSERVE_MOE_DECODE_DISPATCH_T (default 64). Otherwise
+    the dense loop runs every expert over all T rows and combines through
+    the routing weights (zero for unrouted pairs). Both knobs are read per
+    call."""
+    router = params[f"{pre}/router/kernel"]
+    logits = torch.matmul(h.to(torch.float32), router.to(torch.float32))
+    w_se = moe_combine_weights(logits, p.n_experts, p.n_experts_per_tok)
+    gu = params[f"{pre}/moe_gateup/kernel"]
+    dn = params[f"{pre}/moe_down/kernel"]
+
+    lead_shape = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])        # [T, D]
+    w2 = w_se.reshape(-1, p.n_experts)     # [T, E]
+    cf = float(os.environ.get("TPUSERVE_MOE_CF", "2.0"))
+    decode_t = int(os.environ.get("TPUSERVE_MOE_DECODE_DISPATCH_T", "64"))
+    t = h2.shape[0]
+    if cf > 0 and (len(lead_shape) > 1 or t >= decode_t):
+        cap = min(t, max(8, int(math.ceil(t * p.n_experts_per_tok / p.n_experts * cf))))
+        if cap < t:
+            return _moe_dispatch(h2, w2, gu, dn, p, cap).reshape(*lead_shape, h.shape[-1])
+    out = torch.zeros_like(h2)
+    for e in range(p.n_experts):
+        y = expert_forward(h2, _expert_slice(gu, e), _expert_slice(dn, e), p.ffn_dim)
+        out = out + w2[:, e:e + 1].to(y.dtype) * y
+    return out.reshape(*lead_shape, h.shape[-1])
+
+
+def _moe_dispatch(h2: torch.Tensor, w2: torch.Tensor, gu, dn, p: LlamaParams,
+                  cap: int) -> torch.Tensor:
+    """Static-capacity top-k dispatch: gather each expert's routed tokens
+    into an [E, cap, D] buffer, run every expert over its own cap rows,
+    scatter-add the weighted outputs back in f32, one expert after another.
+    Pairs (token, expert) take an expert's slots in token order, the top
+    pick of a token first; pairs past an expert's capacity go to an
+    overflow slot that is dropped, so they lose that expert's contribution;
+    unrouted slots point at token 0 with weight 0. Within one expert every
+    real index is distinct, so the f32 sums keep the JAX package's order.
+    All shapes are static and nothing waits on the device.
+
+    h2 [T, D] tokens; w2 [T, E] combine weights (zero off the top-k)."""
+    t, d = h2.shape
+    e_n, k = p.n_experts, p.n_experts_per_tok
+    dev = h2.device
+    top_w, top_idx = _top_k(w2, k)                                  # [T, k]
+    pair_e = top_idx.reshape(-1)                                    # expert per pair
+    pair_t = torch.arange(t * k, device=dev) // k                   # token per pair
+    onehot = (pair_e[:, None] == torch.arange(e_n, device=dev)[None, :]).long()
+    pos_in_e = ((onehot.cumsum(0) - 1) * onehot).sum(1)           # arrival order
+    slot = torch.clamp_max(pos_in_e, cap)                           # cap = overflow bin
+    gat_t = torch.zeros((e_n, cap + 1), dtype=torch.long, device=dev)
+    gat_w = torch.zeros((e_n, cap + 1), dtype=torch.float32, device=dev)
+    gat_t[pair_e, slot] = pair_t
+    gat_w[pair_e, slot] = top_w.reshape(-1).to(torch.float32)
+    gat_t, gat_w = gat_t[:, :cap], gat_w[:, :cap]                   # drop the overflow bin
+    xg = h2[gat_t.reshape(-1)].reshape(e_n, cap, d)
+    out = torch.zeros((t, d), dtype=torch.float32, device=dev)
+    for e in range(e_n):
+        y = expert_forward(xg[e], _expert_slice(gu, e), _expert_slice(dn, e), p.ffn_dim)
+        out.index_add_(0, gat_t[e], gat_w[e][:, None] * y.to(torch.float32))
+    return out.to(h2.dtype)
 
 
 def _logits(params, x, p: LlamaParams):

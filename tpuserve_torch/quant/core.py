@@ -264,6 +264,52 @@ def qmatmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+# ------------------------------------------------------------------ experts
+@dataclasses.dataclass
+class QExperts:
+    """A stack of E quantized expert weights [E, K, N] (MoE layers), stored
+    stacked as the JAX package stores them. `expert(e)` hands one expert to
+    every 2-D path (the quant-matmul kernel, W8A8, fp8 rounding) as an
+    ordinary QTensor whose q and scale are views of the stack, no copy."""
+
+    q: torch.Tensor      # int8 [E, K, N] or uint8 [E, K//2, N] (packed int4)
+    scale: torch.Tensor  # f32 [E, groups, N]
+    bits: int
+    group_size: int
+    orig_shape: Tuple[int, int, int]  # (E, K, N)
+    act_bits: int = 0
+    act_fp8: bool = False
+
+    @property
+    def n_experts(self) -> int:
+        return self.orig_shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return (self.q.numel() * self.q.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    def to(self, device) -> "QExperts":
+        return dataclasses.replace(self, q=self.q.to(device), scale=self.scale.to(device))
+
+    def expert(self, e: int) -> QTensor:
+        return QTensor(q=self.q[e], scale=self.scale[e], bits=self.bits,
+                       group_size=self.group_size, orig_shape=self.orig_shape[1:],
+                       act_bits=self.act_bits, act_fp8=self.act_fp8)
+
+
+def quantize_experts(w: torch.Tensor, bits: int = 8, group_size: int = 128,
+                     clip_search: Optional[bool] = None) -> QExperts:
+    """Quantize a stacked expert weight [E, K, N]: each expert on its own
+    (its own clip search and scales), the results stacked."""
+    if w.dim() != 3:
+        raise ValueError(f"quantize_experts expects [E, K, N], got {tuple(w.shape)}")
+    qts = [quantize(w[e], bits=bits, group_size=group_size, clip_search=clip_search)
+           for e in range(w.shape[0])]
+    return QExperts(q=torch.stack([t.q for t in qts]), scale=torch.stack([t.scale for t in qts]),
+                    bits=bits, group_size=qts[0].group_size, orig_shape=tuple(w.shape))
+
+
 def quantize_param_tree(
     params: Dict[str, torch.Tensor],
     bits: int,
@@ -272,8 +318,8 @@ def quantize_param_tree(
     act_bits: int = 0,
     act_fp8: bool = False,
 ) -> Dict[str, object]:
-    """Quantize every eligible 2-D weight in a flat param dict (see the JAX
-    package for the selection rules). Stacked MoE experts wait for MoE."""
+    """Quantize every eligible 2-D weight and stacked 3-D MoE expert weight
+    in a flat param dict (see the JAX package for the selection rules)."""
     if act_bits == 8:
         if bits not in (4, 8):
             raise ValueError("int8 activations require int8 or int4 weights")
@@ -283,32 +329,32 @@ def quantize_param_tree(
             group_size = 0  # W8A8: scale must factorize per column
 
     def default_pred(name: str, arr) -> bool:
-        if arr.dim() != 2:
+        if arr.dim() not in (2, 3):
             return False
-        k = arr.shape[0]
+        k = arr.shape[-2]
         if group_size > 0 and k % group_size != 0 and k > group_size:
             return False
         if bits == 4 and k % 2 != 0:
             return False
         lname = name.lower()
+        if arr.dim() == 3:  # stacked MoE experts [E, K, N]
+            return "moe" in lname or "expert" in lname
         return any(t in lname for t in ("kernel", "weight", "w_", "proj", "embed_out"))
 
     pred = predicate or default_pred
     out: Dict[str, object] = {}
     for name, arr in params.items():
-        if pred(name, arr):
-            if arr.dim() != 2:
-                raise ValueError(f"{name}: stacked MoE expert weights are not ported yet")
-            k = arr.shape[0]
-            gs = group_size if (group_size > 0 and k % group_size == 0 and k > group_size) else 0
-            qt = quantize(arr, bits=bits, group_size=gs)
-            if act_bits or act_fp8:
-                qt = dataclasses.replace(qt, act_bits=act_bits, act_fp8=act_fp8)
-            if act_bits == 8 and bits == 8:
-                # W8A8 codes in K-major strides (same shape and values):
-                # torch._int_mm's fast layout on the card
-                qt.q = qt.q.t().contiguous().t()
-            out[name] = qt
-        else:
+        if not pred(name, arr):
             out[name] = arr
+            continue
+        k = arr.shape[-2]
+        gs = group_size if (group_size > 0 and k % group_size == 0 and k > group_size) else 0
+        qt = (quantize_experts if arr.dim() == 3 else quantize)(arr, bits=bits, group_size=gs)
+        if act_bits or act_fp8:
+            qt = dataclasses.replace(qt, act_bits=act_bits, act_fp8=act_fp8)
+        if act_bits == 8 and bits == 8:
+            # W8A8 codes in K-major strides (same shape and values), each
+            # expert's too: torch._int_mm's fast layout on the card
+            qt.q = qt.q.transpose(-1, -2).contiguous().transpose(-1, -2)
+        out[name] = qt
     return out

@@ -15,8 +15,9 @@ paths).
   for the repetition penalty; EOS / stop ids / max_new_tokens tracked
   host-side.
 - Weights load from model.safetensors (flat llama.py names) and are
-  quantized on load per config.quantization; `model_params.init` "random"
-  or "random_quantized" makes them from a seed instead.
+  quantized on load per config.quantization (a MoE model's stacked experts
+  too; its router stays bf16); `model_params.init` "random" or
+  "random_quantized" makes them from a seed instead.
 - Paged mode (generation.paged): a page pool (serving/paged_kv.py) with a
   page table per slot, pages allocated as slots grow and released when
   they retire; prefix sharing (generation.prefix_sharing) reuses the pages
@@ -36,7 +37,7 @@ paths).
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (sharding or pipelining, GPTQ, LoRC, MoE) raise
+that need unported parts (sharding or pipelining, GPTQ, LoRC) raise
 BackendError, as does a contiguous speculation width the verify kernel
 does not take.
 """
@@ -58,7 +59,8 @@ import torch
 from tpuserve_torch.models import llama
 from tpuserve_torch.models.llama import KVCache, LlamaParams
 from tpuserve_torch.ops.decode_attention import check_multi_kernel
-from tpuserve_torch.quant.core import QTensor, quantize_param_tree
+from tpuserve_torch.models.llama_bench import init_quantized_params, param_bytes
+from tpuserve_torch.quant.core import quantize_param_tree
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving.paged_kv import PagedKVCache, PageTableManager
 from tpuserve_torch.serving.sampling import SamplingParams, sample_with_logprobs, spec_accept
@@ -180,8 +182,6 @@ class GenerationEngine:
             unported.append("quantization.method 'gptq'")
         if int(getattr(qcfg, "lowrank_correction", 0) or 0) > 0:
             unported.append("quantization.lowrank_correction")
-        if self.p.n_experts:
-            unported.append("MoE (model_params.n_experts)")
         if unported:
             raise BackendError(
                 "not ported to tpuserve_torch yet: " + ", ".join(unported))
@@ -207,15 +207,15 @@ class GenerationEngine:
                 raise BackendError(
                     "model_params.init 'random_quantized' requires "
                     "quantization.weights int8/int4")
-            from tpuserve_torch.models.llama_bench import init_quantized_params
-
             params = init_quantized_params(p, bits=bits, group_size=qcfg.group_size,
                                            device=self.device, seed=42)
         else:
             raw = llama.fuse_params(self._load_params(), p)
             if bits is not None:
                 def pred(name, arr):
-                    return arr.dim() == 2 and name.endswith("kernel") and "router" not in name
+                    # 2-D projections and stacked 3-D MoE expert weights; the
+                    # router stays bf16 (routing is precision-sensitive)
+                    return arr.dim() in (2, 3) and name.endswith("kernel") and "router" not in name
 
                 params = quantize_param_tree(
                     raw, bits=bits, group_size=qcfg.group_size, predicate=pred,
@@ -229,9 +229,7 @@ class GenerationEngine:
         p = self.p
         qcfg = self.config.quantization
         self.params = params
-        self._param_bytes = sum(
-            v.nbytes if isinstance(v, QTensor) else v.numel() * v.element_size()
-            for v in params.values())
+        self._param_bytes = param_bytes(params)
         gen = self.config.generation
         if gen.paged and self._chunk_size > 0 and self._chunk_size % int(gen.page_size) != 0:
             raise BackendError(
