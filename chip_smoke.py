@@ -18,7 +18,20 @@ Phases, each fatal on failure:
               requests through the backend's generate; launch counters must
               show the kernels on that path; one full-width decode step
               through the kernels and through the plain versions must agree;
-  4b. w4a8   the slice's configuration with activations int8 (random bf16
+  4a. rest   the same model through the port's front: create_app(device=
+              "cuda") on 127.0.0.1 from a background event loop, the model
+              (with `input_ids` declared and a WordLevel tokenizer.json)
+              loaded over REST, 16 concurrent /generate requests of the
+              slice's job mix in fresh launch counters (launches exact, no
+              plain version), greedy tokens equal to backend.generate's on
+              the same engine (waves A B B A, tokens/s each), streams
+              (tokens equal, time to first token), text, /infer, /metrics, a
+              profile capture holding the served kernels, auth, gRPC on the
+              same manager (where google.protobuf is importable) and an
+              unload that returns the card's memory; then `python -m
+              tpuserve_torch.server` in a subprocess: /health, load, the
+              soak, greedy tokens equal to the in-process server's, SIGINT;
+  4b. w4a8  the slice's configuration with activations int8 (random bf16
               weights from a seed, quantized at load: W4A8 on the int8
               wgmma kernel); 4c. odd, the same with int4 groups of 688
               (w_down's groups, which a 64-row stage cannot tile; the
@@ -1965,6 +1978,518 @@ def phase_slice(torch, p, smi_line):
                 load_s=load_s, qmatmul_xla=xla)
 
 
+# ------------------------------------------------------------- the front
+REST_MODEL = "llama2_7b_int4"
+
+
+def _rest_repo(p) -> str:
+    """The slice's configuration as a served model: `input_ids` [1, -1]
+    INT32 declared as models/llm_demo declares it, and a tokenizers
+    WordLevel tokenizer.json of p.vocab_size words ("w1" is id 1) with a
+    Whitespace pre-tokenizer, built here."""
+    from tokenizers import Tokenizer, models
+    from tokenizers.pre_tokenizers import Whitespace
+
+    cfg = dict(_model_config(p),
+               inputs=[{"name": "input_ids", "shape": [1, -1], "data_type": "INT32"}],
+               outputs=[{"name": "output_ids", "shape": [1, -1], "data_type": "INT32"}])
+    tmp = _write_repo(cfg)
+    vocab = {"<unk>": 0, **{f"w{i}": i for i in range(1, p.vocab_size)}}
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(os.path.join(tmp, REST_MODEL, "1", "tokenizer.json"))
+    return tmp
+
+
+def _http(method, url, body=None, headers=None, timeout=600):
+    """(status, JSON body) of one request over urllib; an HTTP error code is
+    a status, not an exception."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _http_stream(url, body, timeout=600):
+    """NDJSON chunks of one streamed /generate and the seconds to its first
+    token chunk (host clock)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0, first, chunks = time.monotonic(), None, []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            if not line.strip():
+                continue
+            chunk = json.loads(line)
+            if first is None and "token" in chunk:
+                first = time.monotonic() - t0
+            chunks.append(chunk)
+    return chunks, first
+
+
+@contextlib.contextmanager
+def rest_server(app):
+    """Serve an aiohttp app on 127.0.0.1, a free port, from a background
+    thread's event loop (web.run_app installs signal handlers, so it runs on
+    the main thread only); yields its URL. Cleanup runs the app's own
+    (manager shutdown) and stops the loop."""
+    import asyncio
+
+    from aiohttp import web
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="rest-loop", daemon=True)
+    thread.start()
+    runner = web.AppRunner(app)
+
+    async def start():
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        return runner.addresses[0][1]
+
+    async def stop():
+        await runner.cleanup()
+        await loop.shutdown_default_executor()
+
+    try:
+        port = asyncio.run_coroutine_threadsafe(start(), loop).result(120)
+        yield f"http://127.0.0.1:{port}"
+    finally:
+        asyncio.run_coroutine_threadsafe(stop(), loop).result(300)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+        loop.close()
+
+
+def _rest_jobs(p):
+    """The [slice] job mix twice over (16 requests): greedy and sampled, a
+    200-token prompt (chunked at 64), stop ids with logprobs, a repeated
+    greedy prompt."""
+    import torch
+
+    rng = torch.Generator().manual_seed(13)
+
+    def prompt(n):
+        return torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+
+    jobs = []
+    for _ in range(2):
+        repeat = prompt(12)
+        jobs += [
+            dict(input_ids=prompt(5), max_new_tokens=24),
+            dict(input_ids=prompt(200), max_new_tokens=16),
+            dict(input_ids=prompt(33), max_new_tokens=20, temperature=0.8, top_p=0.9),
+            dict(input_ids=prompt(90), max_new_tokens=12, temperature=0.8, top_p=0.9),
+            dict(input_ids=prompt(17), max_new_tokens=32, logprobs=True),   # stop id below
+            dict(input_ids=repeat, max_new_tokens=24),
+            dict(input_ids=repeat, max_new_tokens=24),
+            dict(input_ids=prompt(150), max_new_tokens=10, temperature=0.8, top_p=0.9),
+        ]
+    return jobs
+
+
+def _wave(torch, jobs, call, tag):
+    """Every job at once, a thread each, through `call(job) -> result dict`;
+    fatal unless each returns its tokens. Returns (results, wall seconds)."""
+    import concurrent.futures as cf
+
+    t0 = time.monotonic()
+    with cf.ThreadPoolExecutor(len(jobs)) as ex:
+        futures = [ex.submit(call, job) for job in jobs]
+        results = []
+        for i, fut in enumerate(futures):
+            try:
+                results.append(fut.result(timeout=600))
+            except Exception as e:  # recorded, then fatal
+                fail(f"[rest] {tag} request {i}: {e}")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for i, (job, res) in enumerate(zip(jobs, results)):
+        want = job["want"]
+        if res.get("num_generated") != want:
+            fail(f"[rest] {tag} request {i}: {res}, expected {want} tokens")
+        stop = job.get("stop_token_ids")
+        if stop:
+            if res["finish_reason"] != "stop" or res["generated_ids"][-1] != stop[0]:
+                fail(f"[rest] {tag} request {i}: stop id not honoured: {res['finish_reason']}")
+            if len(res.get("logprobs", [])) != want:
+                fail(f"[rest] {tag} request {i}: {len(res.get('logprobs', []))} logprobs")
+    return results, wall
+
+
+def _cli_server(tmp, url_tokens, greedy_job, smi_line):
+    """`python -m tpuserve_torch.server --grpc-port` in a subprocess over the
+    phase's repository: /health within a deadline, a load, the soak (LLM
+    infer and generate), one greedy request equal to the in-process
+    server's tokens, the gRPC front on the same manager, and SIGINT: exit 0
+    within 30 s."""
+    import re
+    import signal
+    import socket
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    grpc_port = free_port()
+    args = [sys.executable, "-m", "tpuserve_torch.server", "--repository", tmp, "--host",
+            "127.0.0.1", "--port", str(port), "--grpc-port", str(grpc_port)]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUSERVE_")}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_path = os.path.join(OUT_DIR, "rest_cli_server.log")
+    t_start = time.monotonic()
+    with open(log_path, "w") as server_log:
+        proc = subprocess.Popen(args, env=env, stdout=server_log, stderr=subprocess.STDOUT)
+    try:
+        deadline = t_start + 180
+        while True:
+            if proc.poll() is not None:
+                fail(f"[rest] CLI server exited {proc.returncode} before answering; "
+                     f"see {log_path}")
+            try:
+                if _http("GET", url + "/health", timeout=10)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail(f"[rest] CLI server did not answer /health in 180 s; see {log_path}")
+            time.sleep(0.5)
+        t_up = time.monotonic() - t_start
+        t0 = time.monotonic()
+        status, body = _http("POST", f"{url}/models/{REST_MODEL}/load")
+        load_s = time.monotonic() - t0
+        if status != 202:
+            fail(f"[rest] CLI load answered {status}: {body}")
+        soak = subprocess.run(
+            [sys.executable, "-m", "tpuserve_torch.scripts.soak", "--url", url,
+             "--infer-model", REST_MODEL, "--llm-model", REST_MODEL, "--threads", "8",
+             "--requests", "4"], env=env, capture_output=True, text=True, timeout=600)
+        log("[rest] CLI soak: " + " | ".join(soak.stdout.strip().splitlines()[:6]))
+        if soak.returncode != 0:
+            fail(f"[rest] the soak exited {soak.returncode}: {soak.stdout} {soak.stderr[-2000:]}")
+        m = re.search(r"soak: (\d+) ok in (\d+)s .*, (\d+) errors", soak.stdout)
+        if not m:
+            fail(f"[rest] soak output not understood: {soak.stdout}")
+        soak_ok, soak_s, soak_err = (int(x) for x in m.groups())
+        status, body = _http("POST", f"{url}/models/{REST_MODEL}/generate", greedy_job)
+        if status != 200 or body["generated_ids"] != url_tokens:
+            fail(f"[rest] CLI greedy tokens differ from the in-process server's: "
+                 f"{body.get('generated_ids')} vs {url_tokens}")
+        # the CLI's gRPC front on the manager REST loaded into
+        from tpuserve_torch.server import tpuserve_pb2 as pb
+        from tpuserve_torch.server.grpc import GrpcClient
+
+        client = GrpcClient(f"127.0.0.1:{grpc_port}")
+        try:
+            st = client.model_status(pb.ModelRequest(name=REST_MODEL), timeout=60)
+        finally:
+            client.close()
+        if not st.is_loaded:
+            fail(f"[rest] the CLI's gRPC front does not see the loaded model: {st}")
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fail("[rest] CLI server still up 30 s after SIGINT")
+        down_s = time.monotonic() - t0
+        if rc != 0:
+            fail(f"[rest] CLI server exited {rc} on SIGINT; see {log_path}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    log(f"[rest] CLI (python -m tpuserve_torch.server --grpc-port): "
+        f"/health after {t_up:.1f} s, load {load_s:.2f} s, soak {soak_ok} ok and {soak_err} "
+        f"errors in {soak_s} s (8 threads x 4), greedy tokens equal the in-process server's, "
+        f"SIGINT: exit 0 in {down_s:.2f} s; card {smi_line}")
+    return dict(up_s=t_up, load_s=load_s, soak_ok=soak_ok, soak_errors=soak_err, soak_s=soak_s,
+                sigint_s=down_s)
+
+
+def phase_rest(torch, p, smi_line):
+    """The slice reached through its front: create_app(device="cuda") on
+    127.0.0.1 serving the slice's model loaded over REST, 16 concurrent
+    /generate requests counted and checked (launches, no plain version,
+    greedy tokens equal backend.generate's on the same engine), streams,
+    text, /infer, /metrics, a profile capture, auth, gRPC on the same
+    manager, unload; then the CLI in a subprocess with the soak."""
+    import importlib.util
+
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+    from tpuserve_torch.server.http import _MANAGER_KEY, create_app
+
+    log("[rest] importable here: " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}"
+        for m in ("aiohttp", "grpc", "google.protobuf", "tokenizers", "requests")))
+    tmp = _rest_repo(p)
+    app = create_app(tmp, device=DEVICE)
+    manager = app[_MANAGER_KEY]
+    gen = f"/models/{REST_MODEL}/generate"
+    with rest_server(app) as url:
+        # 1. health and the device routes describe this card
+        if _http("GET", url + "/health")[0] != 200:
+            fail("[rest] /health")
+        _, cuda = _http("GET", url + "/cuda")
+        _, devs = _http("GET", url + "/devices")
+        _, mem = _http("GET", url + "/gpu/memory")
+        total_mb = round(torch.cuda.mem_get_info(0)[1] / 2 ** 20, 2)
+        kind = torch.cuda.get_device_name(0)
+        if not (cuda["cuda_available"] is True and cuda["device_count"] == 1
+                and cuda["tpu_available"] is False):
+            fail(f"[rest] /cuda: {cuda}")
+        if devs["device_details"][0]["device_kind"] != kind or len(devs["devices"]) != 1:
+            fail(f"[rest] /devices: {devs}")
+        if mem["memory_info"][0]["total_mb"] != total_mb or _http(
+                "GET", url + "/tpu/memory")[1]["memory_info"][0]["total_mb"] != total_mb:
+            fail(f"[rest] /gpu/memory: {mem} (mem_get_info total {total_mb} MiB)")
+        log(f"[rest] {url}: /cuda {cuda}; /devices {devs['devices']}; /gpu/memory total "
+            f"{total_mb} MiB as mem_get_info")
+
+        # 2. load over REST
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        status, body = _http("POST", f"{url}/models/{REST_MODEL}/load")
+        load_s = time.monotonic() - t0
+        if status != 202:
+            fail(f"[rest] load answered {status}: {body}")
+        if _http("POST", f"{url}/models/{REST_MODEL}/load")[0] != 200:
+            fail("[rest] a second load did not answer 200")
+        listed = _http("GET", url + "/models")[1]["models"]
+        if [m["is_loaded"] for m in listed if m["name"] == REST_MODEL] != [True]:
+            fail(f"[rest] /models after the load: {listed}")
+        log(f"[rest] POST /models/{REST_MODEL}/load: 202 in {load_s:.2f} s (again: 200); "
+            f"card {smi_line}")
+        backend = manager.get_model(REST_MODEL).backend
+        engine = backend.engine
+
+        # 3. 16 concurrent /generate requests, the stop ids from probes
+        jobs = _rest_jobs(p)
+        phase_tokens = 0
+        for job in jobs:
+            job["want"] = job["max_new_tokens"]
+            if job.get("logprobs"):
+                _, probe = _http("POST", url + gen, dict(input_ids=job["input_ids"],
+                                                         max_new_tokens=8))
+                phase_tokens += probe["num_generated"]
+                stop = probe["generated_ids"][3]
+                job["stop_token_ids"] = [stop]
+                job["want"] = probe["generated_ids"].index(stop) + 1
+        bodies = [{k: v for k, v in job.items() if k != "want"} for job in jobs]
+
+        def over_rest(job):
+            status, out = _http("POST", url + gen, {k: v for k, v in job.items() if k != "want"})
+            if status != 200:
+                raise RuntimeError(f"status {status}: {out}")
+            return out
+
+        def direct(job):
+            kw = {k: v for k, v in job.items() if k not in ("input_ids", "want")}
+            return backend.generate(job["input_ids"], **kw)
+
+        rest_jobs = [dict(b, want=j["want"]) for b, j in zip(bodies, jobs)]
+        quant_matmul.launches = decode_attention.launches = 0   # the served wave starts here
+        stats0 = engine.serving_stats()
+        with plain_calls() as plain:
+            a1, wall_a1 = _wave(torch, rest_jobs, over_rest, "REST wave 1")
+        stats1 = engine.serving_stats()
+        launches = {"quant_matmul": quant_matmul.launches,
+                    "decode_attention": decode_attention.launches}
+        steps = stats1["decode_steps"] - stats0["decode_steps"]
+        prefills = stats1["prefill_calls"] - stats0["prefill_calls"]
+        want_qmm = (4 * p.n_layers + 1) * (steps + prefills)
+        want_attn = p.n_layers * steps
+        log(f"[rest] 16 concurrent /generate requests: decode steps {steps}, prefill calls "
+            f"{prefills}; launches {launches} (expected quant_matmul {want_qmm}, "
+            f"decode_attention {want_attn}); plain versions called: {len(plain)}")
+        if plain:
+            fail(f"[rest] plain versions ran on the served path: {sorted(set(plain))}")
+        if launches != {"quant_matmul": want_qmm, "decode_attention": want_attn} or not steps:
+            fail("[rest] kernel launch counts do not match the served wave's calls")
+        if stats1["active_slots"] or stats1["queue_depth"]:
+            fail(f"[rest] the engine is still busy after the wave: {stats1}")
+        # the same wave through backend.generate on the same engine: A B B A
+        b1, wall_b1 = _wave(torch, rest_jobs, direct, "direct wave 1")
+        b2, wall_b2 = _wave(torch, rest_jobs, direct, "direct wave 2")
+        a2, wall_a2 = _wave(torch, rest_jobs, over_rest, "REST wave 2")
+        wave_tokens = sum(j["want"] for j in rest_jobs)
+        phase_tokens += 4 * wave_tokens
+        greedy = [i for i, j in enumerate(jobs) if not j.get("temperature")]
+        for i in greedy:
+            runs = {r[i]["generated_ids"] == a1[i]["generated_ids"] for r in (a2, b1, b2)}
+            if runs != {True}:
+                fail(f"[rest] greedy request {i}: REST tokens differ from backend.generate's: "
+                     f"{[r[i]['generated_ids'] for r in (a1, a2, b1, b2)]}")
+        tok_s = {"rest": [wave_tokens / wall_a1, wave_tokens / wall_a2],
+                 "direct": [wave_tokens / wall_b1, wave_tokens / wall_b2]}
+        log(f"[rest] wave of 16 ({wave_tokens} tokens), host clock, A B B A: REST "
+            f"{tok_s['rest'][0]:.1f}, direct {tok_s['direct'][0]:.1f}, direct "
+            f"{tok_s['direct'][1]:.1f}, REST {tok_s['rest'][1]:.1f} tok/s; greedy tokens of "
+            f"{len(greedy)} requests equal over REST and backend.generate in all four; card "
+            f"{smi_line}")
+        # a unary request holds one of the loop's default-executor threads
+        # for its whole generation: the same turns with as many requests as
+        # that executor has threads say whether the cap is the REST gap
+        cap = min(32, (os.cpu_count() or 1) + 4)
+        capped = rest_jobs[:cap]
+        cap_tokens = sum(j["want"] for j in capped)
+        walls = [_wave(torch, capped, call, f"{cap}-request wave")[1]
+                 for call in (over_rest, direct, direct, over_rest)]
+        tok_s[f"rest_{cap}"] = [cap_tokens / walls[0], cap_tokens / walls[3]]
+        tok_s[f"direct_{cap}"] = [cap_tokens / walls[1], cap_tokens / walls[2]]
+        phase_tokens += 4 * cap_tokens
+        log(f"[rest] wave of {cap} (the front's executor threads; {cap_tokens} tokens), A B B "
+            f"A: REST {tok_s[f'rest_{cap}'][0]:.1f}, direct {tok_s[f'direct_{cap}'][0]:.1f}, "
+            f"direct {tok_s[f'direct_{cap}'][1]:.1f}, REST {tok_s[f'rest_{cap}'][1]:.1f} tok/s; "
+            f"card {smi_line}")
+
+        # 4. streams (the greedy jobs at once; a stream holds a thread of the
+        # loop's default executor, min(32, cpus + 4), while it waits), text
+        # and /infer
+        import concurrent.futures as cf
+
+        if len(greedy) > min(32, (os.cpu_count() or 1) + 4) - 2:
+            fail(f"[rest] {len(greedy)} streams would fill the front's executor")
+        with cf.ThreadPoolExecutor(len(greedy)) as ex:
+            streamed = list(ex.map(lambda i: _http_stream(url + gen, dict(bodies[i], stream=True)),
+                                   greedy))
+        ttft = []
+        for i, (chunks, first) in zip(greedy, streamed):
+            toks = [c["token"] for c in chunks if "token" in c]
+            last = chunks[-1]
+            if toks != a1[i]["generated_ids"] or not last.get("done") or \
+                    last.get("num_generated") != len(toks):
+                fail(f"[rest] stream of request {i}: {toks} / {last} vs unary "
+                     f"{a1[i]['generated_ids']}")
+            ttft.append(first)
+            phase_tokens += len(toks)
+        ttft_ms = sorted(t * 1e3 for t in ttft)
+        ttft_median = (ttft_ms[len(ttft_ms) // 2 - 1] + ttft_ms[len(ttft_ms) // 2]) / 2
+        log(f"[rest] {len(greedy)} concurrent streams: NDJSON tokens equal the unary tokens, "
+            f"last chunk done; time to first streamed token median {ttft_median:.1f} ms "
+            f"(min {ttft_ms[0]:.1f}, max {ttft_ms[-1]:.1f}); card {smi_line}")
+        text = "w7 w300 w12 w4095"
+        status, out = _http("POST", url + gen, {"text": text, "max_new_tokens": 8})
+        ids = engine.tokenizer.encode(text).ids
+        if status != 200 or out["output_ids"][:len(ids)] != ids or not isinstance(out["text"], str):
+            fail(f"[rest] text request: {status} {out} (ids {ids})")
+        phase_tokens += out["num_generated"]
+        prompt = bodies[0]["input_ids"]
+        status, out = _http("POST", f"{url}/models/{REST_MODEL}/infer",
+                            {"inputs": {"input_ids": prompt}})
+        data = out["outputs"][0] if status == 200 else {}
+        if data.get("name") != "output_ids" or data["data"][:len(prompt)] != prompt or \
+                data["shape"] != [1, len(prompt) + engine.default_max_new]:
+            fail(f"[rest] /infer: {status} {out}")
+        phase_tokens += engine.default_max_new
+        log(f"[rest] text request: output_ids begin with the tokenizer's {ids}, text returned; "
+            f"/infer: output_ids {data['shape']}")
+
+        # 5. /metrics
+        _, metrics = _http("GET", url + "/metrics")
+        serving = metrics["models"][f"{REST_MODEL}:1"]["serving"]
+        if serving["tokens_generated"] < phase_tokens:
+            fail(f"[rest] /metrics tokens_generated {serving['tokens_generated']} < "
+                 f"{phase_tokens} generated in the phase")
+        log(f"[rest] /metrics: serving {serving}; {phase_tokens} generated in the phase")
+
+        # 6. a profile capture around one generate: the scheduler thread's
+        # kernels must be in the trace
+        trace_dir = tempfile.mkdtemp(prefix="tpuserve_torch_trace_")
+        if _http("POST", url + "/profile/start", {"dir": trace_dir})[0] != 200:
+            fail("[rest] /profile/start")
+        status, out = _http("POST", url + gen, dict(input_ids=prompt, max_new_tokens=8))
+        phase_tokens += out.get("num_generated", 0)
+        status, stopped = _http("POST", url + "/profile/stop")
+        if status != 200 or [f["path"] for f in stopped["files"]] != ["trace.json"]:
+            fail(f"[rest] /profile/stop: {status} {stopped}")
+        with open(os.path.join(trace_dir, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        seen = {k: sum(k in n for n in names) for k in ("qmm_wgmma_kernel", "attn_core_kernel")}
+        log(f"[rest] profile capture: {stopped['total_bytes']} bytes of Chrome trace, "
+            f"{len(names)} device kernels; {seen}")
+        if not all(seen.values()):
+            fail("[rest] the profile trace lacks the served path's kernels (only the front's "
+                 "thread was traced?)")
+        subprocess.run(["rm", "-rf", trace_dir], check=False)
+
+        # 7. auth: REST only, / and /health open
+        os.environ["TPUSERVE_AUTH_TOKEN"] = "chip-smoke"
+        try:
+            codes = (_http("GET", url + "/models")[0],
+                     _http("GET", url + "/models", headers={
+                         "Authorization": "Bearer chip-smoke"})[0],
+                     _http("GET", url + "/health")[0])
+        finally:
+            del os.environ["TPUSERVE_AUTH_TOKEN"]
+        if codes != (401, 200, 200):
+            fail(f"[rest] auth: {codes}, expected (401, 200, 200)")
+        log("[rest] TPUSERVE_AUTH_TOKEN: 401 without the header, 200 with it, /health open")
+
+        # 8. gRPC on the same manager
+        from tpuserve_torch.server import tpuserve_pb2 as pb
+        from tpuserve_torch.server.grpc import GrpcClient, create_grpc_server
+
+        server = create_grpc_server(manager, port=0, host="127.0.0.1")
+        gport = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        client = GrpcClient(f"127.0.0.1:{gport}")
+        try:
+            ok = client.health(pb.HealthRequest(), timeout=60).status == "healthy"
+            listed = client.list_models(pb.ListModelsRequest(), timeout=60)
+            ok &= [m.is_loaded for m in listed.models if m.name == REST_MODEL] == [True]
+            st = client.model_status(pb.ModelRequest(name=REST_MODEL), timeout=60)
+            ok &= st.is_loaded and st.state == "LOADED"
+            req = pb.GenerateRequest(name=REST_MODEL, input_ids=bodies[0]["input_ids"],
+                                     max_new_tokens=bodies[0]["max_new_tokens"])
+            unary = list(client.generate(req, timeout=600).generated_ids)
+            chunks = list(client.generate_stream(req, timeout=600))
+            streamed = [c.token for c in chunks if not c.done]
+        finally:
+            client.close()
+            server.stop(grace=None)
+        phase_tokens += 2 * len(unary)
+        if not ok or unary != a1[0]["generated_ids"] or streamed != unary or not chunks[-1].done:
+            fail(f"[rest] gRPC: health/list/status {ok}; Generate {unary}, GenerateStream "
+                 f"{streamed} vs REST {a1[0]['generated_ids']}")
+        log("[rest] gRPC (create_grpc_server on the same manager): Health, ListModels, "
+            "ModelStatus; Generate and GenerateStream equal the REST greedy tokens")
+
+        # 9. unload: the card's memory comes back
+        status, _ = _http("POST", f"{url}/models/{REST_MODEL}/unload")
+        del backend, engine
+        import gc
+
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        log(f"[rest] unload: {status}; memory_allocated {mem_before / 2**30:.3f} GiB before the "
+            f"load, {mem_after / 2**30:.3f} GiB after the unload")
+        if status != 201 or mem_after - mem_before > 2 ** 30:
+            fail("[rest] unload did not answer 201 or return the card's memory to within 1 GB")
+    torch.cuda.empty_cache()
+    cli = _cli_server(tmp, a1[0]["generated_ids"], bodies[0], smi_line)
+    return dict(launches=launches, want=dict(quant_matmul=want_qmm, decode_attention=want_attn),
+                decode_steps=steps, prefill_calls=prefills, load_s=load_s, tok_s=tok_s,
+                wave_tokens=wave_tokens, ttft_ms=ttft_ms, ttft_median_ms=ttft_median,
+                phase_tokens=phase_tokens, mem_before=mem_before,
+                mem_after=mem_after, cli=cli, smi=smi_line)
+
+
 def phase_quant_route(torch, p, smi_line, tag, quant, per_call):
     """The slice's configuration with `quant` (W4A8: activations int8;
     odd: int4 in groups of 688, which a 64-row stage cannot tile; g344:
@@ -3237,6 +3762,13 @@ def main() -> None:
     slice_res = phase_slice(torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    # the slice through its front: the served wave's launches add to the
+    # main path's
+    rest_res = phase_rest(torch, p, smi_line)
+    for name_, launched in rest_res["launches"].items():
+        results[name_]["launches_by_path"] = {"slice": results[name_]["launches"],
+                                              "rest": launched}
+        results[name_]["launches"] += launched
     # the MoE path: the quant-matmul on expert views and the flat core at
     # GQA rep 4, each counted over the [mixtral] run
     mixtral_res = phase_mixtral(torch, p_moe, smi_line)
@@ -3382,11 +3914,14 @@ def main() -> None:
                      "library_ms": r["library_ms"], "per": r["per"]})
         if kname == "quant_matmul":   # route launches of the kernel check
             line[-1]["route_launches"] = r["route_launches"]
+        if "launches_by_path" in r:
+            line[-1]["launches_by_path"] = r["launches_by_path"]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"device": name, "nvidia_smi": smi_line, "build_s": build.seconds,
                    "build_log": build.log, "kernels": results, "slice": slice_res,
-                   "paged_slice": paged_res, "spec": spec_res, "spec_bf16": spec_bf16_res,
+                   "rest": rest_res, "paged_slice": paged_res, "spec": spec_res,
+                   "spec_bf16": spec_bf16_res,
                    "spec_paged": spec_paged_res, "grouped": grouped_res,
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,

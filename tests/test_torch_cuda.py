@@ -1185,3 +1185,63 @@ def test_moe_ffn_on_card(cuda, monkeypatch, decode_t):
     ref = llama._moe_ffn(params, "x", h, p)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2 * 2 ** -8 * ref.float().abs().max().item(), err
+
+
+def test_rest_front_serves_on_card(cuda, tmp_path, monkeypatch):
+    """The port's REST front, create_app(device="cuda"), over a small
+    head_dim-128 int4 model (packed int4 KV) through aiohttp's test client:
+    load, greedy and streamed generate; the quant-matmul and decode-attention
+    counters grow by what the served steps account for, and no plain
+    version runs."""
+    import asyncio
+    import json
+
+    import aiohttp
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from tpuserve_torch.server.http import _MANAGER_KEY, create_app
+
+    cfg = {"name": "tiny", "platform": "llm", "architecture": "llama",
+           "model_params": {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+                            "n_kv_heads": 2, "head_dim": 128, "ffn_dim": 512,
+                            "init": "random_quantized", "seed": 0},
+           "quantization": {"weights": "int4", "group_size": 128, "kv_cache": "int4"},
+           "generation": {"max_seq_len": 64, "max_slots": 4, "eos_token_id": -1,
+                          "max_new_tokens": 6, "prefill_chunk": 16, "decode_horizon": 2}}
+    (tmp_path / "tiny" / "1").mkdir(parents=True)
+    (tmp_path / "tiny" / "1" / "config.json").write_text(json.dumps(cfg))
+    plain = []
+    for mod in (da, qm):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if name.endswith("_plain") and callable(fn):
+                monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: (
+                    plain.append(_n), _fn(*a, **kw))[1])
+
+    async def go():
+        app = create_app(str(tmp_path), device="cuda")
+        client = TestClient(TestServer(app), timeout=aiohttp.ClientTimeout(total=120))
+        await client.start_server()
+        try:
+            assert (await client.post("/models/tiny/load")).status == 202
+            engine = app[_MANAGER_KEY].get_model("tiny").backend.engine
+            steps0, prefills0 = engine.steps, engine.prefill_calls
+            q0, a0 = qm.launches, da.launches
+            r = await client.post("/models/tiny/generate",
+                                  json={"input_ids": [5, 17, 100, 42, 7], "max_new_tokens": 6})
+            unary = await r.json()
+            r = await client.post("/models/tiny/generate",
+                                  json={"input_ids": [5, 17, 100, 42, 7], "max_new_tokens": 6,
+                                        "stream": True})
+            chunks = [json.loads(x) for x in (await r.text()).splitlines() if x]
+            steps = engine.steps - steps0
+            prefills = engine.prefill_calls - prefills0
+            return unary, chunks, steps, prefills, qm.launches - q0, da.launches - a0
+        finally:
+            await client.close()
+
+    unary, chunks, steps, prefills, q, a = asyncio.run(go())
+    assert unary["num_generated"] == 6
+    assert [c["token"] for c in chunks[:-1]] == unary["generated_ids"] and chunks[-1]["done"]
+    assert steps >= 1 and q == (4 * 2 + 1) * (steps + prefills) and a == 2 * steps
+    assert plain == []

@@ -131,12 +131,22 @@ def test_manager_backend_generate(tmp_path):
 
 def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     """Without a card, asking for "cuda" (the default) raises; nothing runs
-    on the CPU unless the caller passes device="cpu"."""
+    on the CPU unless the caller passes device="cpu". The manager touches no
+    device until a model loads (a front lists the repository without a
+    card): its load raises the engine's error and leaves the model in
+    ERROR, never loaded on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _config("guard")
     vdir = write_model(str(tmp_path), "guard", cfg)
-    with pytest.raises(BackendError, match="device='cpu'"):
-        InferenceManager(str(tmp_path), num_workers=1)
+    mgr = InferenceManager(str(tmp_path), num_workers=1)
+    try:
+        assert mgr.device == torch.device("cuda")
+        with pytest.raises(BackendError, match="device='cpu'"):
+            mgr.load_model("guard")
+        assert mgr.get_model_state("guard").value == "ERROR"
+        assert not mgr.is_model_loaded("guard") and mgr.loaded_models() == []
+    finally:
+        mgr.shutdown()
     with pytest.raises(BackendError, match="device='cpu'"):
         GenerationEngine(vdir, ModelConfig.from_dict(cfg))
 
@@ -164,8 +174,9 @@ def test_unported_configurations_raise(tmp_path, overrides, ported):
 
 
 def test_import_leaves_jax_out():
-    """`import tpuserve_torch` and its serving stack import neither JAX nor
-    any module of the JAX package."""
+    """`import tpuserve_torch`, its serving stack and its front (REST, gRPC,
+    the CLI, the soak script) import neither JAX nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
@@ -175,6 +186,9 @@ def test_import_leaves_jax_out():
         "from tpuserve_torch.models import llama, llama_bench\n"
         "from tpuserve_torch.ops import decode_attention, quant_matmul\n"
         "from tpuserve_torch.device import info, smoke\n"
+        "import tpuserve_torch.server, tpuserve_torch.server.http, tpuserve_torch.server.grpc\n"
+        "import tpuserve_torch.server.__main__, tpuserve_torch.server.tpuserve_pb2\n"
+        "import tpuserve_torch.scripts.soak\n"
         "backend._ensure_builtins()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'tpuserve' or m.startswith('tpuserve.')]\n"

@@ -115,3 +115,34 @@ def write_model(root, name, cfg, seed=0):
         json.dump(cfg, fh)
     save_file(w, os.path.join(vdir, "model.safetensors"))
     return vdir
+
+
+def serve_config(name, **gen):
+    """The front tests' LLM: SMALL with int4 g128 weights and packed int4 KV,
+    `input_ids` [1, -1] INT32 declared as models/llm_demo declares it, a
+    decode horizon of 2 and short generations (the JAX engine compiles
+    little in interpret mode)."""
+    generation = dict(max_seq_len=64, max_slots=4, eos_token_id=-1, max_new_tokens=5,
+                      prefill_chunk=16, decode_horizon=2)
+    generation.update(gen)
+    return {
+        "name": name, "platform": "llm", "architecture": "llama",
+        "inputs": [{"name": "input_ids", "shape": [1, -1], "data_type": "INT32"}],
+        "outputs": [{"name": "output_ids", "shape": [1, -1], "data_type": "INT32"}],
+        "model_params": dict(SMALL),
+        "quantization": {"weights": "int4", "group_size": 128, "kv_cache": "int4"},
+        "generation": generation,
+    }
+
+
+def write_tokenizer(vdir, vocab_size=SMALL["vocab_size"]):
+    """A `tokenizers` WordLevel tokenizer.json of `vocab_size` words with a
+    Whitespace pre-tokenizer: "hello" is 1, "world" 2, "tok<i>" i."""
+    from tokenizers import Tokenizer, models
+    from tokenizers.pre_tokenizers import Whitespace
+
+    vocab = {"<unk>": 0, "hello": 1, "world": 2}
+    vocab.update({f"tok{i}": i for i in range(3, vocab_size)})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    tok.save(os.path.join(vdir, "tokenizer.json"))

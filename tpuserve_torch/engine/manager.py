@@ -29,6 +29,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from tpuserve_torch.engine.model import Model
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.repository.repo import ModelRepository
@@ -57,12 +59,13 @@ _Key = Tuple[str, str]  # (name, version)
 
 class InferenceManager:
     """`device` ("cuda" unless the caller asks for the CPU) is where every
-    model this manager loads runs; there is no fallback to the CPU."""
+    model this manager loads runs; there is no fallback to the CPU. The
+    manager itself touches no device, so a front can list and describe the
+    repository on a host without a card; loading a model there raises the
+    engine's no-card error."""
 
     def __init__(self, repository_path: str, num_workers: int = 4, device="cuda"):
-        from tpuserve_torch.utils.device import resolve_device
-
-        self.device = resolve_device(device)
+        self.device = torch.device(device)
         self.repository = ModelRepository(repository_path)
         self._lock = threading.RLock()
         self._models: Dict[_Key, Model] = {}

@@ -152,6 +152,35 @@ class GenerationEngine:
         self.spec_accepted = 0       # drafted tokens accepted (and emitted)
 
     # ------------------------------------------------------------------ setup
+    @property
+    def tokenizer(self):
+        """Model-local tokenizer (tokenizer.json in the version dir, HF
+        `tokenizers` format), lazily loaded; None when absent — the token-id
+        APIs always work without one."""
+        if not hasattr(self, "_tokenizer"):
+            self._tokenizer = None
+            path = os.path.join(self.model_dir, "tokenizer.json")
+            if os.path.exists(path):
+                try:
+                    from tokenizers import Tokenizer
+
+                    self._tokenizer = Tokenizer.from_file(path)
+                except Exception:
+                    self._tokenizer = None
+        return self._tokenizer
+
+    def generate_text(self, text: str, **kw) -> Dict:
+        """Text-in/text-out generation; requires tokenizer.json."""
+        tok = self.tokenizer
+        if tok is None:
+            raise InvalidArgumentError(
+                "model has no tokenizer.json; send 'input_ids' instead of 'text'"
+            )
+        ids = tok.encode(text).ids
+        result = self.generate(ids, **kw)
+        result["text"] = tok.decode(result["generated_ids"])
+        return result
+
     def _load_params(self) -> Dict[str, torch.Tensor]:
         init_mode = str(self.config.model_params.get("init", "")).lower()
         st_path = os.path.join(self.model_dir, "model.safetensors")
