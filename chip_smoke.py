@@ -56,6 +56,24 @@ Phases, each fatal on failure:
               against plain versions within 5% of the logit range, the
               plain path handed the kernel path's experts; host-clock step
               time and one profiled step each;
+  4g. gptq   calibrated quantization: the slice's configuration at
+              Llama-2-7B widths cut to 4 layers, init random (bf16 weights
+              from a seed), int4 g128 with method gptq and
+              lowrank_correction 16 (models/llm_demo's settings), synthetic
+              calibration (16 x 128 tokens), loaded through
+              InferenceManager: each layer's collection, GPTQ and LoRC
+              seconds; the calibration pass's f32-x quant-matmuls (4 a
+              layer, counted; held against the plain version at 2048
+              rows); on every calibrated weight GPTQ's tr(E^T H E) at most
+              RTN's and LoRC's residual at most GPTQ's; layer 0's wo again
+              on the CPU (codes equal in >= 99.9%); 4 concurrent greedy
+              requests (every route counter exact, no plain version); a
+              full-width decode step against the plain versions; profiled
+              decode steps with and without the LoRC factors;
+  4h. llm_demo  the repository's models/llm_demo (GPTQ + LoRC 16, int4
+              KV, speculation 4) loaded from models/ through the port's
+              in-process REST front on the card: greedy /generate tokens
+              equal backend.generate's, no plain version;
   5. paged    the same model with paged int8 KV (page_size 128, prefix
               sharing, prefill_chunk 128), loaded after the first is shut
               down: concurrent requests, two of them sharing a 128-token
@@ -127,11 +145,13 @@ masked steps, per-channel int4 at K 4096, each route's counter checked;
 the masked steps' x layout (stage_x for bf16 x, the row quantization's
 codes written in it for W4A8) bitwise against its plain gather; f32 x on
 the wgmma kernel as three bf16 pieces (g128, odd g96, masked g40; the
-split kernel bitwise its plain version) beside torch.matmul in f32, and
-W8A8 (torch._int_mm on the codes) beside torch._int_mm, as records; the
-multi-candidate kernel also on bf16 and f32 caches beside SDPA; the flat,
-multi and grouped (int8 and packed int4) kernels under
-TPUSERVE_ATTN_DYNSKIP=0 against =1; and the [mixtral] path's shapes: the
+split kernel bitwise its plain version) beside torch.matmul in f32 (the
+route [gptq]'s calibration pass serves), and W8A8 (torch._int_mm on the
+codes) beside torch._int_mm, as a record; the multi-candidate and grouped
+kernels' int caches with the bf16 scales the engine serves and again
+with f32 scales, the multi-candidate kernel also on bf16 and f32 caches
+beside SDPA; the flat, multi and grouped (int8 and packed int4) kernels
+under TPUSERVE_ATTN_DYNSKIP=0 against =1; and the [mixtral] path's shapes: the
 quant-matmul on the expert views of stacked int4 experts (gate|up K 4096
 x N 28672, down K 14336 x N 4096, at 8, 16, 32 and 64 rows) and the flat
 core at GQA rep 4 (packed int4: 8 query heads a block; int8: 4).
@@ -606,8 +626,9 @@ def check_quant_matmul_experts(torch, timer, reps, p):
 
 
 def check_quant_records(torch, timer, reps, p):
-    """Records of two quant-matmul routes no phase of this script serves.
-    f32 x on qmm_wgmma_kernel as three bf16 pieces (split_x, then the
+    """Records of two quant-matmul routes that no decode step serves.
+    f32 x (served by [gptq]'s calibration pass, the kernels line's
+    quant_matmul_f32) on qmm_wgmma_kernel as three bf16 pieces (split_x, then the
     kernel with pieces 3) at wo's shape in int4 g128 (B=64), and at wo's
     width in an odd group (g96, K 4032) and a masked one (g40, K 4000):
     each against its plain version (within 1e-5 of the largest output),
@@ -1082,10 +1103,13 @@ def check_decode_attention_paged(torch, timer, reps, p):
 def check_decode_attention_multi(torch, timer, reps, p):
     """The multi-candidate (speculative verify) kernel at the [spec] phase's
     shapes (S=8 slots, C=9 candidates, L=512, Llama-2-7B heads, positions
-    100-400; int8, packed int4, bf16 and f32 caches, each beside SDPA)
-    against its plain version, and each candidate c against the flat kernel
-    at positions + c on the same KV. The bf16 case is the [spec-bf16]
-    phase's route (the float multi entry of the kernels line)."""
+    100-400; int8 and packed int4 caches with the bf16 scales the engine
+    serves (kv_scale_dtype's default) and again with f32 scales, bf16 and
+    f32 caches, each beside SDPA) against its plain version, and each
+    candidate c against the flat kernel at positions + c on the same KV.
+    The int8 case with bf16 scales is the [spec] phase's route, the bf16
+    cache the [spec-bf16] phase's (the float multi entry of the kernels
+    line)."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_cache_multi,
         decode_attention_wide_cache_multi_plain)
@@ -1099,10 +1123,13 @@ def check_decode_attention_multi(torch, timer, reps, p):
     live = int((pos + c).sum().item())          # KV rows the kernel reads, once each
     cand_rows = sum(int((pc + 1).sum().item()) for pc in pos_c)  # rows each candidate sees
     rows, main, main_f = [], None, None
-    for kind in ("int8", "int4", "bf16", "f32"):
+    for kind, sdt in (("int8", torch.bfloat16), ("int8", torch.float32),
+                      ("int4", torch.bfloat16), ("int4", torch.float32), ("bf16", None),
+                      ("f32", None)):
         flt = kind in ("bf16", "f32")
         elem = {"int4": 0.5, "int8": 1, "bf16": 2, "f32": 4}[kind]
-        kv_live = 2 * live * w * elem + (0 if flt else 2 * live * hkv * 4)   # f32 scales
+        sc_elem = 0 if flt else sdt.itemsize
+        kv_live = 2 * live * w * elem + 2 * live * hkv * sc_elem
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
         shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
         if kind == "int4":
@@ -1116,10 +1143,11 @@ def check_decode_attention_multi(torch, timer, reps, p):
                 torch.bfloat16 if kind == "bf16" else torch.float32) for _ in range(2)]
         sc = None
         if not flt:
-            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
-                  for _ in range(2)]
+            sc = [((torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5)
+                   * 0.01).to(sdt) for _ in range(2)]
         q = (torch.randn((s, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         q_c = [q[:, j].contiguous() for j in range(c)]
+        name = kind if flt else f"{kind} {str(sdt)[6:]} scales"
 
         def scales(li):
             return (None, None) if sc is None else (sc[0][li], sc[1][li])
@@ -1142,14 +1170,14 @@ def check_decode_attention_multi(torch, timer, reps, p):
         # points; an ulp of exp() can tip one P code: 2e-3 of the range
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
-            fail(f"decode_attention_multi {kind}: max|err| {err} > {tol}")
+            fail(f"decode_attention_multi {name}: max|err| {err} > {tol}")
         # every cache: candidate j runs the flat kernel's blocks (the same
         # core) over the same bytes with the same arithmetic, and blocks past
         # its horizon add nothing: equal up to f32 rounding (expected 0)
         flat_err = (out - out_flat).abs().max().item()
         flat_tol = 1e-6 * out_flat.abs().max().item() + 1e-7
         if not flat_err <= flat_tol:
-            fail(f"decode_attention_multi {kind}: differs from the flat kernel at "
+            fail(f"decode_attention_multi {name}: differs from the flat kernel at "
                  f"positions + c by {flat_err} > {flat_tol}")
         # an inactive slot (positions -1): candidate 0 exactly 0
         pos_off = pos.clone()
@@ -1157,7 +1185,7 @@ def check_decode_attention_multi(torch, timer, reps, p):
         out_off = decode_attention_wide_cache_multi(q, kv[0], kv[1], *scales(1), pos_off, 1,
                                                     window=l)
         if not torch.all(out_off[1, 0] == 0):
-            fail(f"decode_attention_multi {kind}: an inactive slot's candidate 0 is not zero")
+            fail(f"decode_attention_multi {name}: an inactive slot's candidate 0 is not zero")
         ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi, i), reps)
         flat_ms = timer.ms(call_flat, reps)
         plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi_plain, i),
@@ -1166,16 +1194,17 @@ def check_decode_attention_multi(torch, timer, reps, p):
         ops = 2 * 2 * cand_rows * h * hd
         b_ms, b_by = bound(nbytes, ops, PEAK_OPS[kind if flt else "int8"])
         lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], *scales(0), pos, kind)
-        row = dict(kind=kind, S=s, C=c, H=h, Hkv=hkv, L=l, live_rows=live,
-                   candidate_rows=cand_rows, layers_rotated=n_layers, max_abs_err=err, tol=tol,
-                   flat_err=flat_err, flat_tol=flat_tol, ms=ms, flat_ms=flat_ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        if kind == "int8":                      # the [spec] phase's KV
+        row = dict(kind=kind, scales=None if flt else str(sdt)[6:], S=s, C=c, H=h, Hkv=hkv,
+                   L=l, live_rows=live, candidate_rows=cand_rows, layers_rotated=n_layers,
+                   max_abs_err=err, tol=tol, flat_err=flat_err, flat_tol=flat_tol, ms=ms,
+                   flat_ms=flat_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by)
+        if kind == "int8" and sdt == torch.bfloat16:   # the [spec] phase's KV
             main = row
         if kind == "bf16":                      # the [spec-bf16] phase's KV
             main_f = row
         rows.append(row)
-        log(f"[kernel] decode_attention_multi {kind} S={s} C={c} H={h} Hkv={hkv} L={l}: "
+        log(f"[kernel] decode_attention_multi {name} S={s} C={c} H={h} Hkv={hkv} L={l}: "
             f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel at pos + c {flat_err:.3g} "
             f"(tol {flat_tol:.3g}); {ms:.4f} ms, {c} flat-kernel calls {flat_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {live} live rows), plain {plain_ms:.4f} ms, SDPA bf16 with "
@@ -1226,7 +1255,7 @@ def check_decode_attention_multi(torch, timer, reps, p):
                 ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
-                per="one verify step: 32 launches, int8 KV, S=8, C=9, L=512",
+                per="one verify step: 32 launches, int8 KV with bf16 scales, S=8, C=9, L=512",
                 cases=rows + c1_rows,
                 float=dict(max_abs_err=max(r["max_abs_err"] for r in rows
                                            if r["kind"] in ("bf16", "f32")),
@@ -1242,7 +1271,9 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     """The grouped kernel at the [grouped] phase's shapes (S=64, L=256,
     Llama-2-7B heads, step positions) and at a rep-4 shape (H=32, Hkv=8):
     the packed int4 route (the [grouped] path: the Hopper kernel reads the
-    packed window), int8, bf16 (the [grouped-bf16] path) and f32, with the
+    packed window), int8 (both with the bf16 scales the engine serves, and
+    at Hkv 32 again with f32 scales), bf16 (the [grouped-bf16] path) and
+    f32, with the
     default split (one kv head a block), bf16 also with the JAX package's
     16 // rep, and g_kv = Hkv, against their plain versions; the flat
     kernel on the same KV beside them, and for packed int4 the parent's
@@ -1257,15 +1288,17 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     pos = step_positions(torch, g, s)
     live = int((pos.clamp(min=-1) + 1).sum().item())        # KV rows the data needs
     rows, main, main_f = [], None, None
-    for kind, h, hkv in (("int4", p.n_heads, p.n_kv_heads), ("int8", p.n_heads, p.n_kv_heads),
-                         ("bf16", p.n_heads, p.n_kv_heads), ("f32", p.n_heads, p.n_kv_heads),
-                         ("int4", p.n_heads, 8), ("int8", p.n_heads, 8), ("bf16", p.n_heads, 8)):
+    h, hk, bf, f32 = p.n_heads, p.n_kv_heads, torch.bfloat16, torch.float32
+    for kind, h, hkv, sdt in (("int4", h, hk, bf), ("int4", h, hk, f32), ("int8", h, hk, bf),
+                              ("int8", h, hk, f32), ("bf16", h, hk, None), ("f32", h, hk, None),
+                              ("int4", h, 8, bf), ("int8", h, 8, bf), ("bf16", h, 8, None)):
         w = hkv * hd
         flt = kind in ("bf16", "f32")
         elem = {"int4": 0.5, "int8": 1, "bf16": 2, "f32": 4}[kind]
         # read-all (TPUSERVE_ATTN_DYNSKIP=0, the default here) reads every row;
         # the bound counts the live ones
-        kv_live = 2 * live * w * elem + (0 if flt else 2 * live * hkv * 4)
+        kv_live = 2 * live * w * elem + (0 if flt else 2 * live * hkv * sdt.itemsize)
+        name = kind if flt else f"{kind} {str(sdt)[6:]} scales"
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / (2 * s * l * w * elem)))
         shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
         if kind == "int4":
@@ -1278,9 +1311,9 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             kv = [torch.randn(shape, generator=g, device="cuda").to(
                 torch.bfloat16 if kind == "bf16" else torch.float32) for _ in range(2)]
         sc = [None, None]
-        if not flt:     # f32 head-major, as the engine's cache
-            sc = [(torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
-                  for _ in range(2)]
+        if not flt:     # head-major, as the engine's cache
+            sc = [((torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5)
+                   * 0.01).to(sdt) for _ in range(2)]
         q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         g_kvs = {"bf16": (None, 16 // (h // hkv), hkv), "f32": (None,)}.get(kind, (None, hkv))
         for g_kv in g_kvs:
@@ -1316,7 +1349,7 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             # it): 1e-3 of the output range
             tol = 1e-3 * ref.abs().max().item() + 1e-7
             if not err <= tol:
-                fail(f"decode_attention_grouped {kind} H={h} Hkv={hkv} g_kv={g_kv}: "
+                fail(f"decode_attention_grouped {name} H={h} Hkv={hkv} g_kv={g_kv}: "
                      f"max|err| {err} > {tol}")
             if not torch.all(out[pos < 0] == 0):
                 fail("decode_attention_grouped: inactive slots are not zero")
@@ -1330,18 +1363,20 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0],
                              None if sc[0] is None else sc[0][0],
                              None if sc[0] is None else sc[1][0], pos, kind)
-            row = dict(kind=kind, S=s, H=h, Hkv=hkv, L=l, g_kv=g_kv or 1, live_rows=live,
-                       layers_rotated=n_layers, max_abs_err=err, tol=tol, ms=ms, flat_ms=flat_ms,
+            row = dict(kind=kind, scales=None if flt else str(sdt)[6:], S=s, H=h, Hkv=hkv,
+                       L=l, g_kv=g_kv or 1, live_rows=live, layers_rotated=n_layers,
+                       max_abs_err=err, tol=tol, ms=ms, flat_ms=flat_ms,
                        unpack_then_int8_ms=unpack_ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
-            if hkv == p.n_kv_heads and g_kv is None and kind in ("int4", "bf16"):
+            if hkv == p.n_kv_heads and g_kv is None and kind in ("int4", "bf16") \
+                    and sdt in (None, torch.bfloat16):
                 if kind == "int4":     # the [grouped] path
                     main = row
                 else:                  # the [grouped-bf16] path
                     main_f = row
             rows.append(row)
             extra = "" if unpack_ms is None else f", unpack + int8 kernel {unpack_ms:.4f} ms"
-            log(f"[kernel] decode_attention_grouped {kind} S={s} H={h} Hkv={hkv} L={l} "
+            log(f"[kernel] decode_attention_grouped {name} S={s} H={h} Hkv={hkv} L={l} "
                 f"g_kv={g_kv or 1} step positions: max|err| {err:.3g} (tol {tol:.3g}); "
                 f"{ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms{extra}, bound "
                 f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
@@ -1355,8 +1390,8 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
                 unpack_then_int8_ms=n_l * main["unpack_then_int8_ms"],
-                per="one decode step: 32 launches, packed int4 window read in place, S=64, "
-                    "L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows,
+                per="one decode step: 32 launches, packed int4 window read in place, bf16 "
+                    "scales, S=64, L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows,
                 float=dict(max_abs_err=worst(("bf16", "f32")), ms=n_l * main_f["ms"],
                            plain_ms=n_l * main_f["plain_ms"], bound_ms=n_l * main_f["bound_ms"],
                            bound_by=main_f["bound_by"], library_ms=n_l * main_f["library_ms"],
@@ -1369,7 +1404,8 @@ def check_dynskip(torch, timer, reps, p):
     """TPUSERVE_ATTN_DYNSKIP=0 against =1 on the flat (packed int4 KV, the
     slice's step positions), multi-candidate (int8, the spec phase's S=8,
     C=9, L=512) and grouped (int8 window, and the packed int4 window of the
-    grouped phase, at its shapes) kernels: "0" reads and masks the blocks
+    grouped phase, at its shapes) kernels, with the bf16 scales the engine
+    serves (multi and grouped int8 also with f32 scales): "0" reads and masks the blocks
     past a slot's position, "1" skips them; the outputs must agree (masked
     rows add exact zeros) and both are timed, the KV rotated past the L2."""
     from tpuserve_torch.ops.decode_attention import (decode_attention,
@@ -1408,24 +1444,26 @@ def check_dynskip(torch, timer, reps, p):
     kvm = [codes((nlm, sm, lm, w), False) for _ in range(2)]
     scm = [(torch.rand((nlm, sm, hkv, lm), generator=g, device="cuda") + 0.5) * 0.01
            for _ in range(2)]
+    scm = {dt: [t.to(dt) for t in scm] for dt in (torch.bfloat16, torch.float32)}
     qm = (torch.randn((sm, cm, h, hd), generator=g, device="cuda") / hd ** 0.5).to(
         torch.bfloat16)
 
-    def multi(i):
+    def multi(i, dt=torch.bfloat16):
         li = i % nlm
-        return decode_attention_wide_cache_multi(qm, kvm[0], kvm[1], scm[0][li], scm[1][li],
-                                                 posm, li)
+        return decode_attention_wide_cache_multi(qm, kvm[0], kvm[1], scm[dt][0][li],
+                                                 scm[dt][1][li], posm, li)
 
     nlg = layers(2 * s * l * w)
     kvg = [codes((nlg, s, l, w), False) for _ in range(2)]
     scg = [(torch.rand((nlg, s, hkv, l), generator=g, device="cuda") + 0.5) * 0.01
            for _ in range(2)]
+    scg = {dt: [t.to(dt) for t in scg] for dt in (torch.bfloat16, torch.float32)}
 
-    def grouped(i):
+    def grouped(i, dt=torch.bfloat16):
         li = i % nlg
         k4, v4 = (t[li].view(s, l, hkv, hd) for t in kvg)
-        return decode_attention(q, k4, v4, scg[0][li].transpose(1, 2),
-                                scg[1][li].transpose(1, 2), pos, block_l=l)
+        return decode_attention(q, k4, v4, scg[dt][0][li].transpose(1, 2),
+                                scg[dt][1][li].transpose(1, 2), pos, block_l=l)
 
     def grouped4(i):
         li = i % nl
@@ -1433,8 +1471,11 @@ def check_dynskip(torch, timer, reps, p):
                                        block_l=l)
 
     rows = []
+    f32 = torch.float32
     for name, fn in (("flat int4 S=64 L=256", flat), ("multi int8 S=8 C=9 L=512", multi),
+                     ("multi int8 f32 scales S=8 C=9 L=512", lambda i: multi(i, f32)),
                      ("grouped int8 S=64 L=256", grouped),
+                     ("grouped int8 f32 scales S=64 L=256", lambda i: grouped(i, f32)),
                      ("grouped packed int4 S=64 L=256", grouped4)):
         outs, times = {}, {}
         for mode in ("1", "0", "0", "1"):    # in turns
@@ -2623,11 +2664,333 @@ def phase_quant_route(torch, p, smi_line, tag, quant, per_call):
                 full_step=depths, profile=busy, qmm_ms=qmm_ms, quantize_ms=quant_ms)
 
 
+def _werr(torch, e, h) -> float:
+    """The calibration-weighted error tr(E^T H E) of a residual E [K, N]
+    under the Hessian H [K, K], in float64 on the card."""
+    return float(torch.einsum("kn,kn->", e, h @ e))
+
+
+@contextlib.contextmanager
+def gptq_capture(gptq):
+    """Record every (weight, Hessian, QTensor, options) that the GPTQ load
+    quantizes and every LoRC factorization it makes, for the gates after
+    the load: the recorder only keeps references, so the load's timings
+    are the quantizer's own."""
+    real_q, real_l = gptq.gptq_quantize, gptq.lorc_factors
+    seen = {"gptq": [], "lorc": []}
+
+    def q(w, h, **kw):
+        qt = real_q(w, h, **kw)
+        seen["gptq"].append((w, h, qt, kw))
+        return qt
+
+    def lf(w, qt, h, r, dtype=None):
+        a, b = real_l(w, qt, h, r, dtype)
+        seen["lorc"].append((qt, a, b))
+        return a, b
+
+    gptq.gptq_quantize, gptq.lorc_factors = q, lf
+    try:
+        yield seen
+    finally:
+        gptq.gptq_quantize, gptq.lorc_factors = real_q, real_l
+
+
+def phase_gptq(torch, timer, reps, p, smi_line, n_layers=4):
+    """Calibrated quantization on the card: the slice's configuration at
+    Llama-2-7B widths cut to `n_layers` layers (every projection shape and
+    lm_head K 4096 x N 32000 calibrated within the run), init random (bf16
+    weights from a seed), quantization as models/llm_demo sets it (int4
+    g128, method gptq, lowrank_correction 16, packed int4 KV), synthetic
+    calibration (16 x 128 tokens, the JAX package's draw), loaded through
+    InferenceManager(device="cuda"): each layer's seconds of collection,
+    GPTQ and LoRC; the calibration pass's f32-x quant-matmuls counted (4
+    a layer) and held against the plain version at their 2048 rows; gates
+    on every calibrated weight (GPTQ's tr(E^T H E) at most RTN's, the
+    port's quantize on the same grid; LoRC's residual at most GPTQ's), and
+    layer 0's wo quantized again on the CPU (codes equal in >= 99.9%).
+    Then 4 concurrent greedy requests of 16 new tokens (every route
+    counter exact, no plain version), one full-width decode step against
+    the plain versions ([w4a8]'s tolerances), and profiled decode steps
+    with and without the LoRC factors: device time, the quant-matmul's
+    share and LoRC's."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import decode_attention as tda
+    from tpuserve_torch.ops import quant_matmul as tqm
+    from tpuserve_torch.quant import core as qcore
+    from tpuserve_torch.quant import gptq
+
+    tag = "gptq"
+    pl = dataclasses.replace(p, n_layers=n_layers)
+    cfg = _model_config(pl)
+    cfg["name"] = f"llama2_7b_gptq_{n_layers}l"
+    cfg["model_params"]["init"] = "random"
+    cfg["quantization"].update(method="gptq", lowrank_correction=16, calibration="synthetic")
+    tmp = _write_repo(cfg)
+    mgr = InferenceManager(tmp, num_workers=1, device=DEVICE)
+    counters = ("launches", "f32_launches", "split_launches", "group_route_launches",
+                "odd_group_launches", "w4a8_launches", "w4a8_route_launches", "stage_launches",
+                "quantize_launches")
+    for c in counters:          # the load's calibration pass starts here
+        setattr(tqm, c, 0)
+    with gptq_capture(gptq) as seen, plain_calls() as plain:
+        t_load = time.monotonic()
+        mgr.load_model(cfg["name"])
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t_load
+    load_counts = {c: getattr(tqm, c) for c in counters}
+    backend = mgr.get_model(cfg["name"]).backend
+    engine = backend.engine
+    timings = list(engine.gptq_timings)
+    for t in timings:
+        log(f"[{tag}] load {t['layer']}: collection {t['collect_s']:.2f} s, GPTQ "
+            f"{t['gptq_s']:.2f} s, LoRC {t['lorc_s']:.2f} s")
+    tot = {k: sum(t[k] for t in timings) for k in ("collect_s", "gptq_s", "lorc_s")}
+    log(f"[{tag}] load through InferenceManager {load_s:.1f} s: collection "
+        f"{tot['collect_s']:.1f} s, GPTQ {tot['gptq_s']:.1f} s, LoRC {tot['lorc_s']:.1f} s; "
+        f"quant-matmul launches in the calibration pass {load_counts}; plain calls {plain}")
+    want_load = dict.fromkeys(counters, 0)
+    want_load.update(launches=4 * n_layers, f32_launches=4 * n_layers,
+                     split_launches=4 * n_layers)
+    if load_counts != want_load or plain:
+        fail(f"[{tag}] the calibration pass's quant-matmuls: {load_counts} (expected "
+             f"{want_load}), plain calls {plain}")
+
+    # gates on every calibrated weight
+    gates = []
+    if len(seen["gptq"]) != 4 * n_layers + 1 or len(seen["lorc"]) != len(seen["gptq"]):
+        fail(f"[{tag}] {len(seen['gptq'])} weights quantized, {len(seen['lorc'])} factorized")
+    name_of = {id(v): n for n, v in engine.params.items()}   # the served QTensor objects
+    names = [name_of.get(id(qt)) for _, _, qt, _ in seen["gptq"]]
+    for name, (w, h, qt, kw), (qt2, a, b) in zip(names, seen["gptq"], seen["lorc"]):
+        if name is None or qt2 is not qt or engine.params.get(f"{name}@lorc_a") is not a:
+            fail(f"[{tag}] a quantized weight or its LoRC factors are not the served ones")
+        wd = w.double()
+        e_g = wd - qcore.dequantize(qt).double()
+        e_r = wd - qcore.dequantize(qcore.quantize(w, bits=4, group_size=128)).double()
+        e_l = e_g - a.double() @ b.double()
+        row = dict(name=name, K=w.shape[0], N=w.shape[1], n_samples=kw.get("n_samples"),
+                   gptq=_werr(torch, e_g, h), rtn=_werr(torch, e_r, h), lorc=_werr(torch, e_l, h))
+        gates.append(row)
+        del e_g, e_r, e_l, wd
+    for row in gates:
+        name = row["name"]
+        log(f"[{tag}] {name} K={row['K']} N={row['N']}: tr(E^T H E) GPTQ {row['gptq']:.5g}, "
+            f"RTN {row['rtn']:.5g} ({row['gptq'] / row['rtn']:.4f}x), GPTQ+LoRC-16 "
+            f"{row['lorc']:.5g} ({row['lorc'] / row['gptq']:.4f}x GPTQ)")
+    bad = [r["name"] for r in gates if not (r["gptq"] <= r["rtn"] and r["lorc"] <= r["gptq"])]
+    if bad:
+        fail(f"[{tag}] GPTQ above RTN or LoRC above GPTQ on {bad}")
+
+    # layer 0's wo again on the CPU: the same function, LAPACK for cuSOLVER
+    wo = next(i for i, n in enumerate(names) if n == "layers.0/wo/kernel")
+    w, h, qt, kw = seen["gptq"][wo]
+    t0 = time.monotonic()
+    qt_cpu = gptq.gptq_quantize(w.cpu(), h.cpu(), **kw)
+    cpu_s = time.monotonic() - t0
+    codes = (qcore.unpack_int4(qt.q, qt.group_size).cpu()
+             == qcore.unpack_int4(qt_cpu.q, qt_cpu.group_size))
+    cpu_same = codes.float().mean().item()
+    scale_rel = ((qt.scale.cpu() - qt_cpu.scale).abs() / qt_cpu.scale.abs()).max().item()
+    log(f"[{tag}] layers.0/wo on the card against the CPU ({cpu_s:.1f} s there): codes equal "
+        f"in {100 * cpu_same:.4f}%, scales within {scale_rel:.3g} relative")
+    if not cpu_same >= 0.999:
+        fail(f"[{tag}] layers.0/wo: codes on the card and the CPU agree in {cpu_same:.5f} only")
+
+    # the calibration pass's f32 route at its shape: 2048 rows of f32 x
+    xg = torch.Generator(device=DEVICE)
+    xg.manual_seed(17)
+    x = torch.randn((16 * 128, qt.orig_shape[0]), generator=xg, device=DEVICE)
+    f0 = tqm.f32_launches
+    out, ref = tqm.quant_matmul(x, qt), tqm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    f32_err = (out - ref).abs().max().item()
+    f32_tol = 1e-5 * ref.abs().max().item()
+    if tqm.f32_launches != f0 + 1 or not f32_err <= f32_tol:
+        fail(f"[{tag}] f32 x at 2048 rows: max|err| {f32_err} > {f32_tol}, or not counted")
+    wdq = qcore.dequantize(qt, torch.float32)
+    k_, n_ = qt.orig_shape
+    f32_row = dict(name="wo", B=x.shape[0], K=k_, N=n_, max_abs_err=f32_err, tol=f32_tol,
+                   ms=timer.ms(lambda i: tqm.quant_matmul(x, qt), reps),
+                   plain_ms=timer.ms(lambda i: tqm.quant_matmul_plain(x, qt), 2),
+                   library_ms=timer.ms(lambda i: torch.matmul(x, wdq), reps))
+    f32_row["bound_ms"], f32_row["bound_by"] = bound(
+        x.numel() * 4 + qt.nbytes + x.shape[0] * n_ * 4, tqm.PIECES * 2.0 * x.shape[0] * k_ * n_,
+        PEAK_OPS["bf16"])
+    log(f"[{tag}] quant_matmul f32 x at the calibration pass's 2048 rows (wo, int4 g128): "
+        f"max|err| {f32_err:.3g} (tol {f32_tol:.3g}); {f32_row['ms']:.4f} ms, bound "
+        f"{f32_row['bound_ms']:.4f} ms ({f32_row['bound_by']}), plain "
+        f"{f32_row['plain_ms']:.4f} ms, torch.matmul f32 (TF32 off) "
+        f"{f32_row['library_ms']:.4f} ms")
+    del x, out, ref, wdq, seen, qt_cpu
+    torch.cuda.empty_cache()
+
+    # serving
+    rng = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+               for n in (9, 40, 100, 23)]
+    results, errors = [None] * len(prompts), []
+
+    def run(i):
+        try:
+            results[i] = backend.generate(prompts[i], max_new_tokens=16)
+        except Exception as e:  # recorded, then fatal below
+            errors.append(f"request {i}: {e}")
+
+    for c in counters:          # the served run starts here
+        setattr(tqm, c, 0)
+    tda.launches = 0
+    steps0, prefills0 = engine.steps, engine.prefill_calls
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    with plain_calls() as plain:
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    counts = {c: getattr(tqm, c) for c in counters}
+    attn = tda.launches
+    if errors or any(r is None for r in results):
+        fail(f"[{tag}] requests failed: {errors}")
+    if any(r["num_generated"] != 16 for r in results):
+        fail(f"[{tag}] a request did not generate 16 tokens")
+    steps = engine.steps - steps0
+    calls = steps + engine.prefill_calls - prefills0
+    want = dict.fromkeys(counters, 0)
+    want["launches"] = (4 * n_layers + 1) * calls
+    log(f"[{tag}] {len(prompts)} concurrent greedy requests, 16 new tokens each, in "
+        f"{wall:.2f} s ({64 / wall:.1f} tok/s); decode steps {steps}, prefill calls "
+        f"{calls - steps}; quant_matmul launches {counts} (expected {want}); flat attention "
+        f"{attn} (expected {n_layers * steps}); plain calls {plain}")
+    if counts != want or attn != n_layers * steps or plain:
+        fail(f"[{tag}] served launches do not match the path's calls, or a plain version ran")
+
+    cache = engine.cache
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    toks = torch.randint(0, p.vocab_size, (64,), generator=g, device=DEVICE)
+    pos = torch.randint(100, 250, (64,), generator=g, device=DEVICE, dtype=torch.int32)
+    pos[7] = -1
+    snapshot = [t.clone() for t in cache_tensors(cache)]
+
+    def restore():
+        for dst, src in zip(cache_tensors(cache), snapshot):
+            dst.copy_(src)
+
+    depths = {}
+    for depth in (1, n_layers):
+        pd = dataclasses.replace(pl, n_layers=depth)
+        logits_k, _ = llama.decode_step(engine.params, pd, toks, cache, pos)
+        restore()
+        with plain_kernels(llama):
+            logits_p, _ = llama.decode_step(engine.params, pd, toks, cache, pos)
+        restore()
+        torch.cuda.synchronize()
+        live = pos >= 0
+        ref_max = logits_p.abs().max().item()
+        err = (logits_k - logits_p)[live].abs().max().item()
+        top2 = logits_p.float().topk(2, dim=-1).values
+        clear = live & ((top2[:, 0] - top2[:, 1]) > 2 * err)
+        same = logits_k.argmax(-1) == logits_p.argmax(-1)
+        finite = bool(torch.isfinite(logits_k).all())
+        tol = 0.05 * ref_max if depth == 1 else None
+        log(f"[{tag}] full-width decode step, {depth} layer(s), kernels vs plain: max|err| "
+            f"{err:.4g} of {ref_max:.4g}" + (f" (tol {tol:.4g})" if tol else " (no bound)")
+            + f"; greedy tokens equal on {int((same & live).sum())} of {int(live.sum())} live "
+            f"slots, on all {int(clear.sum())} whose top two logits are more than 2x max|err| "
+            f"apart: {bool(same[clear].all())}; finite {finite}")
+        if not finite or (tol and not err <= tol) or not bool(same[clear].all()):
+            fail(f"[{tag}] full-width decode step: kernel path and plain path disagree")
+        depths[depth] = dict(err=err, tol=tol, range=ref_max, greedy_equal=int((same & live).sum()),
+                             live=int(live.sum()), clear=int(clear.sum()))
+
+    no_lorc = {k: v for k, v in engine.params.items() if "@lorc_" not in k}
+    with plain_calls() as plain:
+        busy = profile_step(torch, lambda: llama.decode_step(engine.params, pl, toks, cache, pos),
+                            tag=tag)
+        restore()
+        bare = profile_step(torch, lambda: llama.decode_step(no_lorc, pl, toks, cache, pos),
+                            tag=f"{tag} without LoRC")
+        restore()
+    if plain:
+        fail(f"[{tag}] the profiled steps ran plain versions: {sorted(set(plain))}")
+    share = None
+    if busy and bare:
+        qmm_ms = sum(ms for key, ms, _ in busy["rows"] if "qmm_" in key)
+        gemm = [(k, ms, c) for k, ms, c in busy["rows"]
+                if "gemm" in k.lower() and "qmm_" not in k]
+        share = dict(busy_ms=busy["busy_ms"], bare_busy_ms=bare["busy_ms"], qmm_ms=qmm_ms,
+                     lorc_ms=busy["busy_ms"] - bare["busy_ms"],
+                     lorc_ops=busy["device_ops"] - bare["device_ops"],
+                     lorc_gemm_ms=sum(ms for _, ms, _ in gemm),
+                     lorc_gemm_launches=sum(c for _, _, c in gemm), lorc_gemm_kernels=gemm)
+        log(f"[{tag}] profiled decode step: {busy['busy_ms']:.3f} ms device time, quant-matmul "
+            f"{qmm_ms:.3f} ms ({100 * qmm_ms / busy['busy_ms']:.1f}%); without the LoRC factors "
+            f"{bare['busy_ms']:.3f} ms: LoRC {share['lorc_ms']:.3f} ms "
+            f"({100 * share['lorc_ms'] / busy['busy_ms']:.1f}%) and {share['lorc_ops']} device "
+            f"ops, of which GEMM kernels {share['lorc_gemm_ms']:.3f} ms in "
+            f"{share['lorc_gemm_launches']} launches (two matmuls a corrected projection: "
+            f"{2 * (4 * n_layers + 1)}); card {smi_line}")
+    mgr.shutdown()
+    return dict(n_layers=n_layers, load_s=load_s, timings=timings, load_totals=tot,
+                load_launches=load_counts, gates=gates, cpu_codes_equal=cpu_same,
+                cpu_scale_rel=scale_rel, cpu_s=cpu_s, f32_calibration=f32_row,
+                launches=counts, want=want, attention_launches=attn, wall_s=wall,
+                full_step=depths, profile=busy, profile_without_lorc=bare, lorc=share)
+
+
+def phase_llm_demo(torch, smi_line):
+    """The repository's own models/llm_demo (GPTQ with LoRC 16 on random
+    weights from a seed, int4 weights and KV, speculation 4), loaded from
+    the repository directory through the port's in-process REST front on
+    the card: greedy /generate over REST, its tokens equal
+    backend.generate's, every quant-matmul launch and no plain version."""
+    from tpuserve_torch.ops import quant_matmul as tqm
+    from tpuserve_torch.server.http import _MANAGER_KEY, create_app
+
+    tag = "llm_demo"
+    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "models")
+    app = create_app(repo, device=DEVICE)
+    prompt = [5, 17, 100, 42, 7, 5, 17, 100, 42, 7]
+    with rest_server(app) as url, plain_calls() as plain:
+        t0 = time.monotonic()
+        status, body = _http("POST", f"{url}/models/llm_demo/load")
+        load_s = time.monotonic() - t0
+        if status not in (200, 202):
+            fail(f"[{tag}] load over REST: {status} {body}")
+        backend = app[_MANAGER_KEY].get_model("llm_demo").backend
+        engine = backend.engine
+        tqm.launches = 0
+        status, rest = _http("POST", f"{url}/models/llm_demo/generate",
+                             {"input_ids": prompt, "max_new_tokens": 24})
+        rest_launches = tqm.launches
+        direct = backend.generate(prompt, max_new_tokens=24)
+        torch.cuda.synchronize()
+        stats = engine.serving_stats()
+        status_u, _ = _http("POST", f"{url}/models/llm_demo/unload")
+    log(f"[{tag}] models/llm_demo over REST on the card: load {load_s:.2f} s "
+        f"(GPTQ+LoRC-16, {len(engine.gptq_timings)} timed parts), /generate {status}, 24 tokens "
+        f"{rest.get('generated_ids')}; backend.generate equal: "
+        f"{rest.get('generated_ids') == direct['generated_ids']}; quant-matmul launches "
+        f"{rest_launches}; speculation {dict((k, stats.get(k)) for k in ('spec_drafted', 'spec_accepted'))}; "
+        f"plain calls {plain}; unload {status_u}")
+    if status != 200 or rest.get("generated_ids") != direct["generated_ids"] \
+            or rest.get("num_generated") != 24:
+        fail(f"[{tag}] greedy tokens over REST differ from backend.generate's: {rest}")
+    if plain or rest_launches < 1 or status_u != 201:
+        fail(f"[{tag}] plain versions {plain}, {rest_launches} launches, unload {status_u}")
+    return dict(load_s=load_s, tokens=rest["generated_ids"], launches=rest_launches,
+                stats={k: v for k, v in stats.items() if isinstance(v, (int, float))})
+
+
 def _mixtral_config(p):
     """Mixtral-8x7B-v0.1's published widths (its config.json) at init
     random_quantized (seeded int4 g128 codes, a seeded bf16 router), served
-    as the slice is: packed int4 KV with f32 scales, 64 slots, L=256,
-    prefill_chunk 64, decode_horizon 8."""
+    as the slice is: packed int4 KV with bf16 scales (kv_scale_dtype's
+    default), 64 slots, L=256, prefill_chunk 64, decode_horizon 8."""
     mp = {f: getattr(p, f) for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
                                       "head_dim", "ffn_dim", "rope_theta", "rms_eps",
                                       "n_experts", "n_experts_per_tok")}
@@ -3579,7 +3942,7 @@ def insitu_cases(torch, p):
     the flat kernel at the slice's step (S=64, L=256, step positions, bf16
     scales), the paged kernel over int4 pages (S=64, two pages of 128,
     shuffled, step positions, f32 scale pools) and the multi kernel at the
-    [spec] phase's shape (S=8, C=9, L=512, positions 100-400, f32 scales);
+    [spec] phase's shape (S=8, C=9, L=512, positions 100-400, bf16 scales);
     each over enough layers that the rotated reads exceed the L2."""
     from tpuserve_torch.ops import decode_attention as da
 
@@ -3621,12 +3984,12 @@ def insitu_cases(torch, p):
     pos_m = torch.randint(100, 401, (sm,), generator=g, device="cuda", dtype=torch.int32)
     live_m = int((pos_m + c).sum().item())
     n_m = layers(live_m)
-    mkv, msc = packed(n_m, sm, lm, w2), scales(n_m, sm, hkv, lm)
+    mkv, msc = packed(n_m, sm, lm, w2), scales(n_m, sm, hkv, lm, dtype=torch.bfloat16)
     qm = (torch.randn((sm, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
     cases.append(("multi", lambda fn, i: fn(qm, *mkv, msc[0][i % n_m], msc[1][i % n_m], pos_m,
                                             i % n_m, window=lm),
                   da.decode_attention_wide_cache_multi, da.decode_attention_wide_cache_multi_plain,
-                  2 * live_m * (w2 + 4 * hkv)))
+                  2 * live_m * (w2 + 2 * hkv)))
     return cases
 
 
@@ -3799,6 +4162,19 @@ def main() -> None:
     results["quant_matmul_w4a8_route"] = dict(
         results["quant_matmul"]["w4a8_route"],
         launches=w4a8_g344_res["launches"]["w4a8_route_launches"])
+    # calibrated quantization: the load's calibration pass runs the f32-x
+    # route (its launches are that load's), the served run the bf16 route
+    # and the flat core with LoRC on top
+    gptq_res = phase_gptq(torch, timer, 20, p, smi_line)
+    results["quant_matmul_f32"] = dict(
+        results["quant_records"]["f32"], launches=gptq_res["load_launches"]["f32_launches"],
+        per="one call: wo (K 4096, N 4096), B=64, int4 g128, f32 x as three bf16 pieces",
+        calibration=gptq_res["f32_calibration"])
+    for name_, launched in (("quant_matmul", gptq_res["launches"]["launches"]),
+                            ("decode_attention", gptq_res["attention_launches"])):
+        results[name_]["launches_by_path"]["gptq"] = launched
+        results[name_]["launches"] += launched
+    llm_demo_res = phase_llm_demo(torch, smi_line)
     paged_res = phase_paged_slice(torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
@@ -3853,6 +4229,8 @@ def main() -> None:
                "quant_matmul_w4a8_route": ("tpuserve_torch/csrc/quant_matmul.cu",
                                            "tpuserve/ops/quant_matmul.py:40 (_kernel, act_int8 "
                                            "branch :65-83)"),
+               "quant_matmul_f32": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                    "tpuserve/ops/quant_matmul.py:40 (_kernel, f32 x)"),
                "stage_x": ("tpuserve_torch/csrc/quant_matmul.cu",
                            "tpuserve/ops/quant_matmul.py:40 (x read through _kernel's BlockSpec; "
                            "no Pallas kernel of its own)"),
@@ -3925,6 +4303,7 @@ def main() -> None:
                    "spec_paged": spec_paged_res, "grouped": grouped_res,
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
+                   "gptq": gptq_res, "llm_demo": llm_demo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,

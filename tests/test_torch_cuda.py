@@ -23,7 +23,7 @@ from tpuserve_torch import kernels
 from tpuserve_torch.device import smoke
 from tpuserve_torch.ops import decode_attention as da
 from tpuserve_torch.ops import quant_matmul as qm
-from tpuserve_torch.quant.core import QTensor, quantize, quantize_activation
+from tpuserve_torch.quant.core import QTensor, quantize, quantize_activation, unpack_int4
 
 pytestmark = pytest.mark.gpu
 
@@ -1245,3 +1245,105 @@ def test_rest_front_serves_on_card(cuda, tmp_path, monkeypatch):
     assert [c["token"] for c in chunks[:-1]] == unary["generated_ids"] and chunks[-1]["done"]
     assert steps >= 1 and q == (4 * 2 + 1) * (steps + prefills) and a == 2 * steps
     assert plain == []
+
+
+def _gptq_problem(k=512, n=384, t=2048, seed=0):
+    """A weight and the Hessian of correlated activations (float64)."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((k, n), generator=g) * 0.05
+    mixer = torch.randn((k, k), generator=g, dtype=torch.float64) * 0.1 + torch.eye(
+        k, dtype=torch.float64)
+    x = torch.randn((t, k), generator=g, dtype=torch.float64) @ mixer
+    return w, x.T @ x
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 128), (4, 0), (8, 64)])
+def test_gptq_on_card_matches_cpu(cuda, bits, gs):
+    """GPTQ in float64 on the card (cuSOLVER) against the same function on
+    the CPU (LAPACK): codes equal in >= 99.9% of entries (their inverses
+    and Cholesky factors differ in the last bits, which can tip a code,
+    and a tipped code moves the rest of its column), 99% of the scales
+    within 1e-6 relative; LoRC's A @ B (f32 factors, of the CPU's codes on
+    both sides) within 1e-5 of its range."""
+    from tpuserve_torch.quant import gptq
+
+    w, h = _gptq_problem()
+    qc = gptq.gptq_quantize(w, h, bits=bits, group_size=gs)
+    qg = gptq.gptq_quantize(w.to(cuda), h.to(cuda), bits=bits, group_size=gs)
+    assert qg.q.is_cuda and qg.scale.is_cuda and qg.group_size == qc.group_size
+    codes = (lambda qt: unpack_int4(qt.q, qt.group_size) if bits == 4 else qt.q)
+    assert (codes(qg).cpu() == codes(qc)).float().mean().item() >= 0.999
+    rel = (qg.scale.cpu() - qc.scale).abs() / qc.scale.abs()
+    assert (rel <= 1e-6).float().mean().item() >= 0.99
+    ac, bc = gptq.lorc_factors(w, qc, h, 16, dtype=torch.float32)
+    ag, bg = gptq.lorc_factors(w.to(cuda), qc.to(cuda), h.to(cuda), 16, dtype=torch.float32)
+    ref = (ac.double() @ bc.double())
+    err = ((ag.double() @ bg.double()).cpu() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def test_gptq_collect_on_card_matches_cpu(cuda):
+    """The layer-by-layer collection of a small fused Llama on the card
+    against the CPU (no LoRC: the trajectories stay together): codes of
+    every kernel equal in >= 99.9% of entries; the advance pass runs the
+    quant-matmul's f32 route once for each projection of each layer."""
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.quant import gptq
+
+    p = llama.LlamaParams(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                          head_dim=128, ffn_dim=512)
+    params = llama.fuse_params(llama.init_params(p, dtype=torch.float32, device="cpu", seed=1), p)
+    tokens = torch.randint(0, p.vocab_size, (16, 64), generator=torch.Generator().manual_seed(2))
+    qc = gptq.collect_and_quantize_llama(params, p, tokens, bits=4, group_size=128)
+    f32 = qm.f32_launches
+    qg = gptq.collect_and_quantize_llama({k: v.to(cuda) for k, v in params.items()}, p,
+                                         tokens, bits=4, group_size=128)
+    torch.cuda.synchronize()
+    assert qm.f32_launches == f32 + 4 * p.n_layers
+    for name, v in qc.items():
+        if isinstance(v, QTensor):
+            same = (unpack_int4(qg[name].q, 128).cpu() == unpack_int4(v.q, 128))
+            assert same.float().mean().item() >= 0.999, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mm_lorc_kernel_vs_plain(cuda, dtype):
+    """`_mm` with LoRC on the card (the quant-matmul kernel, then the two
+    LoRC products) against its plain route (the kernel's plain version,
+    the same LoRC): one kernel launch, counted; within one bf16 step of
+    the output (bf16 x) or 1e-5 of its range (f32 x)."""
+    from tpuserve_torch.models import llama
+
+    k, n, r = 4096, 1024, 16
+    g = torch.Generator().manual_seed(5)
+    params = {"w/kernel": _qt(4, 128, k, n, 0, cuda),
+              "w/kernel@lorc_a": (torch.randn((k, r), generator=g) * 0.05).to(cuda, torch.bfloat16),
+              "w/kernel@lorc_b": (torch.randn((r, n), generator=g) * 0.05).to(cuda, torch.bfloat16)}
+    x = torch.randn((64, k), generator=g).to(cuda, dtype)
+    before = (qm.launches, qm.f32_launches)
+    out = llama._mm(params, "w/kernel", x)
+    ref = llama._lorc(params, "w/kernel", x, qm.quant_matmul_plain(x, params["w/kernel"]))
+    torch.cuda.synchronize()
+    assert (qm.launches, qm.f32_launches) == (before[0] + 1,
+                                              before[1] + (dtype == torch.float32))
+    assert out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max().item()
+    assert err <= tol, err
+    no_lorc = qm.quant_matmul(x, params["w/kernel"])
+    assert not torch.equal(out, no_lorc)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11008, 4096)])
+def test_quant_matmul_f32_calibration_rows(cuda, k, n):
+    """f32 x at GPTQ's calibration width (16 x 128 = 2048 rows: 16 batch
+    tiles of 128) against the plain version, within 1e-5 of its range."""
+    qt = _qt(4, 128, k, n, 0, cuda)
+    x = torch.randn((2048, k), generator=torch.Generator().manual_seed(k)).to(cuda)
+    before = qm.f32_launches
+    out = qm.quant_matmul(x, qt)
+    ref = qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert qm.f32_launches == before + 1 and out.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err

@@ -155,15 +155,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     ({"generation.paged": True, "generation.speculation_tokens": 4}, True),
     ({"generation.speculation_tokens": 4}, True),
     ({"sharding.tensor_parallel": 2}, False),
-    ({"quantization.method": "gptq"}, False),
+    ({"quantization.method": "gptq"}, True),
+    ({"quantization.method": "gptq", "quantization.lowrank_correction": 16}, True),
     ({"model_params.n_experts": 4}, True),
 ], ids=["generation.paged-True", "generation.speculation_tokens-4",
-        "sharding.tensor_parallel-2", "quantization.method-gptq", "model_params.n_experts-4"])
+        "sharding.tensor_parallel-2", "quantization.method-gptq",
+        "quantization.lowrank_correction-16", "model_params.n_experts-4"])
 def test_unported_configurations_raise(tmp_path, overrides, ported):
     """Unported parts raise instead of running something else. Speculative
-    decoding, paged or contiguous, and MoE are ported: their configurations
-    pass the check and go on to load the model (which fails here: the
-    directory holds no checkpoint)."""
+    decoding, paged or contiguous, MoE, GPTQ and LoRC are ported: their
+    configurations pass the check and go on to load the model (which fails
+    here: the directory holds no checkpoint)."""
     cfg = _config("unported")
     for field, value in overrides.items():
         section, key = field.split(".")
@@ -174,16 +176,18 @@ def test_unported_configurations_raise(tmp_path, overrides, ported):
 
 
 def test_import_leaves_jax_out():
-    """`import tpuserve_torch`, its serving stack and its front (REST, gRPC,
-    the CLI, the soak script) import neither JAX nor any module of the JAX
-    package."""
+    """`import tpuserve_torch`, its serving stack, its quantizers (GPTQ), its
+    front (REST, gRPC, the CLI, the soak script) and its accuracy script
+    import neither JAX nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
         "from tpuserve_torch.engine.manager import InferenceManager\n"
         "from tpuserve_torch.engine import backend, llm_backend\n"
         "from tpuserve_torch.serving import engine, paged_kv, sampling\n"
-        "from tpuserve_torch.models import llama, llama_bench\n"
+        "from tpuserve_torch.models import llama, llama_bench, synthetic\n"
+        "from tpuserve_torch.quant import gptq\n"
+        "import tpuserve_torch.scripts.eval_accuracy\n"
         "from tpuserve_torch.ops import decode_attention, quant_matmul\n"
         "from tpuserve_torch.device import info, smoke\n"
         "import tpuserve_torch.server, tpuserve_torch.server.http, tpuserve_torch.server.grpc\n"

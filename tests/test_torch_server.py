@@ -23,11 +23,13 @@ import urllib.request
 
 import aiohttp
 import pytest
+import torch
 from aiohttp.test_utils import TestClient, TestServer
 
 from tpuserve.models import llama as jllama
 from tpuserve.quant import core as jcore
 from tpuserve.server.http import create_app as jax_create_app
+from tpuserve_torch.quant.core import QTensor
 from tpuserve_torch.server import __main__ as cli
 from tpuserve_torch.server.http import _MANAGER_KEY, create_app
 from torch_parity import serve_config, write_model, write_tokenizer
@@ -205,6 +207,41 @@ def test_generate_unary_streamed_and_text(repo):
         assert data["text"] == engine.tokenizer.decode(data["generated_ids"])
 
     serve(repo, body)
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """GPTQ's load issues thousands of small torch ops; with other test
+    workers on the same cores, torch's intra-op thread pool spends them
+    waiting for its threads (the load below ran 240x slower with six
+    workers), so the test runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_repository_llm_demo_loads_and_generates(one_torch_thread):
+    """The repository's own demo LLM (models/llm_demo: GPTQ with LoRC 16 on
+    random weights from a seed, int4 weights and KV, speculation 4) loads
+    from the real models/ directory over the port's front and generates;
+    its greedy tokens equal backend.generate's."""
+    async def body(c, app):
+        r = await c.post("/models/llm_demo/load")
+        assert r.status in (200, 202), await r.text()
+        backend = app[_MANAGER_KEY].get_model("llm_demo").backend
+        params = backend.engine.params
+        assert isinstance(params["layers.0/wqkv/kernel"], QTensor)
+        assert params["layers.0/wqkv/kernel@lorc_a"].shape[1] == 16
+        r = await c.post("/models/llm_demo/generate",
+                         json={"input_ids": PROMPT, "max_new_tokens": 6})
+        data = await r.json()
+        assert r.status == 200 and data["num_generated"] == 6, data
+        want = await asyncio.to_thread(backend.generate, PROMPT, max_new_tokens=6)
+        assert data["generated_ids"] == want["generated_ids"]
+        assert (await c.post("/models/llm_demo/unload")).status == 201
+
+    serve(os.path.join(REPO, "models"), body)
 
 
 def test_text_without_tokenizer_rejected(repo):

@@ -9,7 +9,9 @@ runs only for tensors on the CPU.
 
 Ported so far: the quantized Llama serving path — InferenceManager ->
 LLMBackend -> GenerationEngine -> models.llama -> {quant-matmul, flat-cache
-decode attention} kernels -> sampling — plus the device smoke kernel.
+decode attention} kernels -> sampling — plus the device smoke kernel; see
+README.md for the later slices (paged KV, speculation, MoE, the front,
+calibrated quantization, ...).
 Importing this package imports neither JAX nor `tpuserve`.
 """
 

@@ -2,8 +2,11 @@
 single-device path).
 
 - plain functions over a flat param dict; matmul weights may be QTensors
-  (INT8/INT4) dispatched through the fused quant-matmul kernel, stacked MoE
-  experts QExperts handed to it one expert at a time;
+  (INT8/INT4) dispatched through the fused quant-matmul kernel, with a
+  GPTQ model's LoRC factors `{name}@lorc_a/_b` added on top (`_lorc`),
+  stacked MoE experts QExperts handed to it one expert at a time;
+  `_forward_block`'s `mm` hook lets GPTQ's calibration record each
+  projection's input (quant/gptq.py);
 - grouped-query attention + RoPE, RMSNorm, SwiGLU MLP (Llama-2/3 shapes) or
   a Mixtral-style top-k Mixture-of-Experts FFN (_moe_ffn);
 - entry points shaped for continuous batching:
@@ -16,6 +19,7 @@ single-device path).
   table: prefill_paged, prefill_paged_suffix, decode_step_paged,
   verify_step_paged; each returns (logits, cache); draft_lookup drafts
   speculative candidates from the token history on the device;
+  Llama.apply gives whole-sequence logits (the accuracy script's path);
 - the KV cache in the flat layout only: k/v [n_layers, S, L, Hkv*hd] (int8,
   packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L];
   paged pools [n_layers, n_pages, ps, Hkv*hd] with f32 scale pools
@@ -86,6 +90,12 @@ class LlamaParams:
     @classmethod
     def llama2_7b(cls) -> "LlamaParams":
         return cls()
+
+    @classmethod
+    def tiny(cls) -> "LlamaParams":
+        """CPU-test scale (the JAX package's `tiny`)."""
+        return cls(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                   head_dim=16, ffn_dim=128)
 
     @classmethod
     def mixtral_8x7b(cls) -> "LlamaParams":
@@ -160,8 +170,34 @@ def _mm_w(x: torch.Tensor, w) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32)).to(x.dtype)
 
 
+def _lorc(params: Dict, name: str, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Low-rank error correction (LoRC): where the quantizer stored a rank-r
+    factorization of its residual under `{name}@lorc_a` / `{name}@lorc_b`
+    ([K, r], [r, N], bf16), add (x @ A) @ B to the quantized matmul's
+    output. The JAX package's rounding points: x @ A in A's dtype (bf16
+    products summed in f32, rounded to bf16), then @ B summed in f32, added
+    to out in f32 and cast back. Both products are plain matmuls, as there."""
+    a = params.get(f"{name}@lorc_a")
+    if a is None:
+        return out
+    b = params[f"{name}@lorc_b"]
+    xa = torch.matmul(x.to(a.dtype).to(torch.float32), a.to(torch.float32)).to(a.dtype)
+    corr = torch.matmul(xa.to(torch.float32), b.to(torch.float32))
+    return (out.to(torch.float32) + corr).to(out.dtype)
+
+
 def _mm(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    return _mm_w(x, params[name])
+    """Name-keyed matmul: LoRC applies to QTensor weights only."""
+    w = params[name]
+    if isinstance(w, QTensor):
+        return _lorc(params, name, x, qmatmul(x, w))
+    return _mm_w(x, w)
+
+
+def _mm_direct(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Name-keyed matmul with LoRC on any weight (the JAX package's form for
+    code inside a shard_map island; GPTQ's calibration pass runs it)."""
+    return _lorc(params, name, x, _mm_w(x, params[name]))
 
 
 def fuse_params(params: Dict, p: LlamaParams) -> Dict:
@@ -454,33 +490,36 @@ def _attention_prefill(q, k, v, mask):
     return out.to(v.dtype)
 
 
-def _forward_block(params, pre, x, p: LlamaParams, attn_fn):
+def _forward_block(params, pre, x, p: LlamaParams, attn_fn, mm=None):
     """One transformer block; attn_fn maps (q, k, v) -> attn output. Uses the
     fused wqkv / w_gateup weights when the checkpoint carries them; a MoE
-    model's FFN is _moe_ffn."""
+    model's FFN is _moe_ffn. `mm` overrides the projections' matmul
+    (default `_mm`; GPTQ's calibration pass records each projection's input
+    through it)."""
+    mm = mm or _mm
     qd = p.n_heads * p.head_dim
     kvd = p.n_kv_heads * p.head_dim
     h = rms_norm(params, f"{pre}/attn_norm", x, p.rms_eps)
     if f"{pre}/wqkv/kernel" in params:
-        qkv = _mm(params, f"{pre}/wqkv/kernel", h)
+        qkv = mm(params, f"{pre}/wqkv/kernel", h)
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q = _mm(params, f"{pre}/wq/kernel", h)
-        k = _mm(params, f"{pre}/wk/kernel", h)
-        v = _mm(params, f"{pre}/wv/kernel", h)
+        q = mm(params, f"{pre}/wq/kernel", h)
+        k = mm(params, f"{pre}/wk/kernel", h)
+        v = mm(params, f"{pre}/wv/kernel", h)
     attn_out = attn_fn(q, k, v)
-    x = x + _mm(params, f"{pre}/wo/kernel", attn_out)
+    x = x + mm(params, f"{pre}/wo/kernel", attn_out)
     h = rms_norm(params, f"{pre}/mlp_norm", x, p.rms_eps)
     if p.n_experts:
-        return x + _moe_ffn(params, pre, h, p)
+        return x + _moe_ffn(params, pre, h, p, mm=mm)
     if f"{pre}/w_gateup/kernel" in params:
-        gateup = _mm(params, f"{pre}/w_gateup/kernel", h)
+        gateup = mm(params, f"{pre}/w_gateup/kernel", h)
         gate, up = gateup[..., :p.ffn_dim], gateup[..., p.ffn_dim:]
     else:
-        gate = _mm(params, f"{pre}/w_gate/kernel", h)
-        up = _mm(params, f"{pre}/w_up/kernel", h)
+        gate = mm(params, f"{pre}/w_gate/kernel", h)
+        up = mm(params, f"{pre}/w_up/kernel", h)
     gate = F.silu(gate.to(torch.float32)).to(h.dtype)
-    return x + _mm(params, f"{pre}/w_down/kernel", gate * up)
+    return x + mm(params, f"{pre}/w_down/kernel", gate * up)
 
 
 # ---------------------------------------------------------------------- MoE
@@ -520,7 +559,7 @@ def moe_combine_weights(logits: torch.Tensor, n_experts: int, k: int) -> torch.T
     return zeros.scatter(-1, top_idx, gates)
 
 
-def _moe_ffn(params, pre, h, p: LlamaParams):
+def _moe_ffn(params, pre, h, p: LlamaParams, mm=None):
     """Mixture-of-Experts FFN (Mixtral-style top-k routing), the JAX
     package's single-device branch (the mesh-sharded one waits for
     sharding).
@@ -533,7 +572,9 @@ def _moe_ffn(params, pre, h, p: LlamaParams):
     only at T >= TPUSERVE_MOE_DECODE_DISPATCH_T (default 64). Otherwise
     the dense loop runs every expert over all T rows and combines through
     the routing weights (zero for unrouted pairs). Both knobs are read per
-    call."""
+    call. `mm` is taken as the JAX package takes it, where it only keeps a
+    call inside a shard_map island from nesting another: the router and the
+    experts never go through it, so calibration records no expert input."""
     router = params[f"{pre}/router/kernel"]
     logits = torch.matmul(h.to(torch.float32), router.to(torch.float32))
     w_se = moe_combine_weights(logits, p.n_experts, p.n_experts_per_tok)
@@ -1050,3 +1091,47 @@ def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
 
     logits = _logits(params, x, p).reshape(s, c, -1)
     return torch.where(valid[:, :, None], logits, 0.0), cache
+
+
+# ---------------------------------------------------------------------- whole sequence
+class Llama:
+    """Whole-sequence forward: logits for given input_ids, as the JAX
+    package's model-zoo wrapper computes them (its `Architecture` base and
+    registry wait for the zoo). Generation runs through the serving engine,
+    not this path. `params_cfg` is the model_params dict."""
+
+    def __init__(self, params_cfg: Dict, device="cuda"):
+        self.params_cfg = dict(params_cfg)
+        self.device = resolve_device(device)
+
+    def _p(self) -> LlamaParams:
+        return LlamaParams.from_dict(self.params_cfg)
+
+    def apply(self, params: Dict, inputs: Dict) -> Dict[str, torch.Tensor]:
+        """inputs["input_ids"] [B, L] -> {"logits": [B, L, V] f32}, causal
+        attention over the whole sequence."""
+        p = self._p()
+        tokens = torch.as_tensor(inputs["input_ids"]).to(device=self.device, dtype=torch.long)
+        b, l = tokens.shape
+        x = params["embed/weight"][tokens]
+        positions = torch.arange(l, device=self.device)[None, :]
+        cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        mask = positions[:, :, None] >= positions[:, None, :]
+
+        def attn_fn(q, k, v):
+            q = apply_rope(q.reshape(b, l, p.n_heads, p.head_dim), cos, sin)
+            k = apply_rope(k.reshape(b, l, p.n_kv_heads, p.head_dim), cos, sin)
+            v = v.reshape(b, l, p.n_kv_heads, p.head_dim)
+            return _attention_prefill(q, k, v, mask).reshape(b, l, -1)
+
+        for layer in range(p.n_layers):
+            x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+        return {"logits": _logits(params, x, p)}
+
+    def quant_predicate(self, name: str, arr) -> bool:
+        # 2-D projections and stacked 3-D MoE expert weights; routers stay
+        # unquantized (routing is precision-sensitive)
+        if "router" in name:
+            return False
+        return getattr(arr, "ndim", 0) in (2, 3) and name.endswith("kernel")

@@ -16,7 +16,9 @@ paths).
   host-side.
 - Weights load from model.safetensors (flat llama.py names) and are
   quantized on load per config.quantization (a MoE model's stacked experts
-  too; its router stays bf16); `model_params.init` "random" or
+  too; its router stays bf16): round-to-nearest, or with `method: gptq`
+  calibrated GPTQ on the engine's device (quant/gptq.py), with LoRC
+  factors at `lowrank_correction` > 0; `model_params.init` "random" or
   "random_quantized" makes them from a seed instead.
 - Paged mode (generation.paged): a page pool (serving/paged_kv.py) with a
   page table per slot, pages allocated as slots grow and released when
@@ -37,9 +39,8 @@ paths).
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (sharding or pipelining, GPTQ, LoRC) raise
-BackendError, as does a contiguous speculation width the verify kernel
-does not take.
+that need unported parts (sharding or pipelining) raise BackendError, as
+does a contiguous speculation width the verify kernel does not take.
 """
 
 from __future__ import annotations
@@ -114,6 +115,7 @@ class GenerationEngine:
     def __init__(self, model_dir: str, config: ModelConfig, device="cuda"):
         self.config = config
         self.model_dir = model_dir
+        self.gptq_timings: List[Dict] = []  # per layer: GPTQ load seconds
         self.device = resolve_device(device)
         self.p = LlamaParams.from_dict(config.model_params)
         gen = config.generation
@@ -181,7 +183,11 @@ class GenerationEngine:
         result["text"] = tok.decode(result["generated_ids"])
         return result
 
-    def _load_params(self) -> Dict[str, torch.Tensor]:
+    def load_params(self, dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """The checkpoint's flat param dict on the engine's device, floating
+        tensors in `dtype` (the engine serves bf16; the accuracy script's
+        reference takes f32): model.safetensors, or with model_params.init
+        "random" weights from seed 42."""
         init_mode = str(self.config.model_params.get("init", "")).lower()
         st_path = os.path.join(self.model_dir, "model.safetensors")
         if os.path.exists(st_path):
@@ -191,11 +197,11 @@ class GenerationEngine:
             for k, v in load_file(st_path).items():
                 t = torch.from_numpy(np.ascontiguousarray(v))
                 if np.issubdtype(v.dtype, np.floating):
-                    t = t.to(torch.bfloat16)
+                    t = t.to(dtype)
                 out[k] = t.to(self.device)
             return out
         if init_mode == "random":
-            return llama.init_params(self.p, device=self.device, seed=42)
+            return llama.init_params(self.p, dtype=dtype, device=self.device, seed=42)
         raise BackendError(
             f"no checkpoint in {self.model_dir} and model_params.init != 'random'")
 
@@ -207,10 +213,6 @@ class GenerationEngine:
                 * int(getattr(shard, "sequence_parallel", 1))
                 * int(getattr(shard, "pipeline_parallel", 1))) > 1:
             unported.append("sharding")
-        if qcfg.method == "gptq":
-            unported.append("quantization.method 'gptq'")
-        if int(getattr(qcfg, "lowrank_correction", 0) or 0) > 0:
-            unported.append("quantization.lowrank_correction")
         if unported:
             raise BackendError(
                 "not ported to tpuserve_torch yet: " + ", ".join(unported))
@@ -224,6 +226,42 @@ class GenerationEngine:
                 check_multi_kernel(spec_k + 1, nq, cache=cache)
             except ValueError as e:
                 raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
+
+    def _gptq_quantize(self, raw: Dict, bits: int, qcfg) -> Dict:
+        """Hessian-calibrated GPTQ (with LoRC at quantization.
+        lowrank_correction > 0) for the dense 2-D kernels, fused wqkv and
+        w_gateup and lm_head included, on the engine's device; MoE expert
+        stacks are quantized by RTN afterwards. Calibration tokens: an .npy
+        int32 [B, L] file named by quantization.calibration, or the JAX
+        package's synthetic draw (the same tokens). The per-layer seconds
+        of collection, GPTQ and LoRC go to `gptq_timings`."""
+        from tpuserve_torch.quant.gptq import collect_and_quantize_llama
+
+        calib_src = qcfg.calibration
+        if calib_src and calib_src != "synthetic":
+            path = calib_src if os.path.isabs(calib_src) else os.path.join(
+                self.model_dir, calib_src)
+            tokens = np.load(path).astype(np.int32)
+            if tokens.ndim != 2:
+                raise BackendError(
+                    f"gptq calibration file {path} must be int32 [B, L]")
+        else:
+            tokens = np.random.default_rng(0).integers(
+                0, self.p.vocab_size, (16, 128)).astype(np.int32)
+        t0 = time.monotonic()
+        self.gptq_timings.clear()
+        params = collect_and_quantize_llama(
+            raw, self.p, torch.from_numpy(tokens), bits=bits, group_size=qcfg.group_size,
+            lowrank_r=int(getattr(qcfg, "lowrank_correction", 0) or 0),
+            timings=self.gptq_timings)
+        if self.p.n_experts:
+            params = quantize_param_tree(
+                params, bits=bits, group_size=qcfg.group_size,
+                predicate=lambda n, a: getattr(a, "ndim", 0) == 3
+                and n.endswith("kernel") and "router" not in n)
+        log.info("gptq calibration+quantization took %.1fs (%d tokens)",
+                 time.monotonic() - t0, tokens.size)
+        return params
 
     def start(self) -> None:
         self._check_supported()
@@ -239,8 +277,10 @@ class GenerationEngine:
             params = init_quantized_params(p, bits=bits, group_size=qcfg.group_size,
                                            device=self.device, seed=42)
         else:
-            raw = llama.fuse_params(self._load_params(), p)
-            if bits is not None:
+            raw = llama.fuse_params(self.load_params(), p)
+            if bits is not None and qcfg.method == "gptq":
+                params = self._gptq_quantize(raw, bits, qcfg)
+            elif bits is not None:
                 def pred(name, arr):
                     # 2-D projections and stacked 3-D MoE expert weights; the
                     # router stays bf16 (routing is precision-sensitive)
