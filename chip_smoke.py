@@ -74,6 +74,30 @@ Phases, each fatal on failure:
               KV, speculation 4) loaded from models/ through the port's
               in-process REST front on the card: greedy /generate tokens
               equal backend.generate's, no plain version;
+  4i. zoo    the model zoo, the ONNX importer, micro-batching and
+              TorchScript: BERT-base (B 8, L 128, rows of the attention
+              mask padded), DenseNet-121 and ResNet-50 (224x224, B 8) at
+              the JAX package's widths, int8 g128, weights from the port's
+              Architecture.init on a seeded generator: one forward through
+              the kernels (74, 1 and 1 quant-matmul launches, no plain
+              call) against the same forward on the plain versions; BERT's
+              host-clock and profiled forward and the quant-matmul's share,
+              images/s, the per-call N pad of the N % 16 != 0 heads, and
+              row 1b (int8, bf16 x) at BERT's shapes and 1024 rows beside
+              torch.matmul and the bound; then through the port's REST
+              front in-process: a copy of models/densenet_tpu (params.npz
+              written in the phase; top-5 with labels.txt names), the
+              repository's models/test_model (safetensors) and the ONNX
+              fixture (each within 1e-5 of reference_mlp_forward), a
+              TorchScript model.pt (its output computed on the card),
+              BERT-base over gRPC's Infer (74 launches); micro-batching: 16
+              concurrent one-image requests over gRPC with dynamic_batching
+              on (fewer forwards than requests, each response equal to its
+              solo result and nearer it than any other image's) and off,
+              requests/s of 6 waves a side (A B B A x 3), the same wave over
+              REST as a record; the front's launches exactly 74 + one a
+              DenseNet forward; eval_accuracy's classifier branch on
+              BERT-base (74 f32-x quant-matmuls);
   5. paged    the same model with paged int8 KV (page_size 128, prefix
               sharing, prefill_chunk 128), loaded after the first is shut
               down: concurrent requests, two of them sharing a 128-token
@@ -172,6 +196,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1787,11 +1812,14 @@ def profile_step(torch, step, tag="slice", what="decode step"):
 
 
 @contextlib.contextmanager
-def plain_kernels(llama):
-    """Route the model's kernel calls to their plain PyTorch versions for a
-    reference run on the card, and restore them after. The served models'
-    weights are int4, with bf16 or (W4A8) int8 activations, for which
-    qmatmul is exactly quant_matmul."""
+def plain_kernels(module, names=("qmatmul", "decode_attention_wide_cache",
+                                 "decode_attention_wide_paged", "decode_attention_wide_cache_multi",
+                                 "decode_attention", "decode_attention_packed")):
+    """Route a module's kernel calls (those it names) to their plain PyTorch
+    versions for a reference run on the card, and restore them after. The
+    served models' weights are int4, with bf16 or (W4A8) int8 activations,
+    and the zoo's int8 with bf16 x, for which qmatmul is exactly
+    quant_matmul."""
     from tpuserve_torch.ops.decode_attention import (decode_attention_packed_plain,
                                                      decode_attention_plain,
                                                      decode_attention_wide_cache_multi_plain,
@@ -1799,19 +1827,20 @@ def plain_kernels(llama):
                                                      decode_attention_wide_paged_plain)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
 
-    names = ("qmatmul", "decode_attention_wide_cache", "decode_attention_wide_paged",
-             "decode_attention_wide_cache_multi", "decode_attention", "decode_attention_packed")
-    saved = [getattr(llama, n) for n in names]
-    for n, fn in zip(names, (quant_matmul_plain, decode_attention_wide_cache_plain,
-                             decode_attention_wide_paged_plain,
-                             decode_attention_wide_cache_multi_plain, decode_attention_plain,
-                             decode_attention_packed_plain)):
-        setattr(llama, n, fn)
+    plain = {"qmatmul": quant_matmul_plain,
+             "decode_attention_wide_cache": decode_attention_wide_cache_plain,
+             "decode_attention_wide_paged": decode_attention_wide_paged_plain,
+             "decode_attention_wide_cache_multi": decode_attention_wide_cache_multi_plain,
+             "decode_attention": decode_attention_plain,
+             "decode_attention_packed": decode_attention_packed_plain}
+    saved = [getattr(module, n) for n in names]
+    for n in names:
+        setattr(module, n, plain[n])
     try:
         yield
     finally:
         for n, fn in zip(names, saved):
-            setattr(llama, n, fn)
+            setattr(module, n, fn)
 
 
 @contextlib.contextmanager
@@ -2984,6 +3013,508 @@ def phase_llm_demo(torch, smi_line):
         fail(f"[{tag}] plain versions {plain}, {rest_launches} launches, unload {status_u}")
     return dict(load_s=load_s, tokens=rest["generated_ids"], launches=rest_launches,
                 stats={k: v for k, v in stats.items() if isinstance(v, (int, float))})
+
+
+# ------------------------------------------------------------------------ zoo
+ZOO_REL = 5e-2  # kernel vs plain forward, bf16 through every layer: of the logits' range
+ZOO_BATCH_REL = 2e-2  # a batched image against its solo forward (other batch, other conv plan)
+
+
+def _zoo_configs():
+    """The zoo's full-width configurations at the JAX package's defaults:
+    BERT-base (vocab 30522, dim 768, 12 layers, 12 heads, ffn 3072) at B 8,
+    L 128; DenseNet-121 and ResNet-50 at 224x224x3, 1000 classes; all int8
+    g128 (the config's quantization)."""
+    img = [{"name": "data_0", "shape": [-1, 224, 224, 3], "data_type": "FLOAT32"}]
+    logits = [{"name": "logits", "shape": [-1, 1000], "data_type": "FLOAT32"}]
+    q8 = {"weights": "int8", "group_size": 128}
+    return {
+        "bert": dict(name="bert_base", platform="jax", architecture="bert", quantization=q8,
+                     inputs=[{"name": "input_ids", "shape": [-1, 128], "data_type": "INT32"},
+                             {"name": "attention_mask", "shape": [-1, 128],
+                              "data_type": "INT32"}],
+                     outputs=[{"name": "logits", "shape": [-1, 2], "data_type": "FLOAT32"}]),
+        "densenet121": dict(name="densenet121", platform="jax", architecture="densenet121",
+                            quantization=q8, inputs=img, outputs=logits),
+        "resnet50": dict(name="resnet50", platform="jax", architecture="resnet50",
+                         quantization=q8, inputs=[dict(img[0], name="input")], outputs=logits),
+    }
+
+
+def _zoo_inputs(torch, arch, b=8):
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    if arch == "bert":
+        ids = torch.randint(0, 30522, (b, 128), generator=g, device=DEVICE, dtype=torch.int32)
+        mask = torch.ones((b, 128), dtype=torch.int32, device=DEVICE)
+        for i in range(1, b):          # rows padded to 128 - 16 i real tokens
+            mask[i, 128 - 16 * i:] = 0
+        return {"input_ids": ids, "attention_mask": mask}
+    name = "data_0" if arch == "densenet121" else "input"
+    return {name: torch.randn((b, 224, 224, 3), generator=g, device=DEVICE)}
+
+
+def _host_forward_ms(torch, fn, n=6):
+    """Median host-clock ms of n synchronized calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _zoo_forwards(torch, timer, smi_line):
+    """Each full-width model: one int8 forward through the kernels (the
+    quant-matmul launches it grew, no plain call) against the same forward
+    on the plain versions; BERT's host-clock and profiled forward and the
+    quant-matmul's share; DenseNet's images/s; ResNet's host clock; the
+    per-call N pad of the N % 16 != 0 heads. Returns (results, the BERT
+    params kept for the front)."""
+    from tpuserve_torch.models import layers
+    from tpuserve_torch.models.registry import get_architecture
+    from tpuserve_torch.ops import quant_matmul as tqm
+    from tpuserve_torch.quant.core import QTensor, quantize_param_tree
+    from tpuserve_torch.repository.config import ModelConfig
+
+    res, keep = {}, {}
+    want = {"bert": 12 * 6 + 2, "densenet121": 1, "resnet50": 1}
+    for arch, cfg in _zoo_configs().items():
+        model = get_architecture(ModelConfig.from_dict(cfg), DEVICE)
+        t = time.monotonic()
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0))
+        qparams = quantize_param_tree(params, bits=8, group_size=128,
+                                      predicate=model.quant_predicate)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t
+        x = _zoo_inputs(torch, arch)
+        out_name = cfg["outputs"][0]["name"]
+        with torch.inference_mode():
+            with plain_calls() as plain:
+                tqm.launches = 0
+                out = model.apply(qparams, x)[out_name]
+                torch.cuda.synchronize()
+                launched = tqm.launches
+            with plain_kernels(layers, ("qmatmul",)):
+                ref = model.apply(qparams, x)[out_name]
+            torch.cuda.synchronize()
+        span = (ref.max() - ref.min()).item()
+        err = (out - ref).abs().max().item()
+        top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        heads = {k: v for k, v in qparams.items() if isinstance(v, QTensor)}
+        log(f"[zoo] {arch} full width, int8 g128 ({len(heads)} quantized weights, "
+            f"{sum(v.group_size == 0 for v in heads.values())} per channel; init + quantize "
+            f"{init_s:.1f} s): kernels vs plain versions max|err| {err:.4g} of a logit range "
+            f"{span:.4g} (tol {ZOO_REL} x range), top-1 equal on {top1:.3f} of rows; "
+            f"quant-matmul launches {launched} (want {want[arch]}), plain calls {plain}")
+        if not torch.isfinite(out).all() or not err <= ZOO_REL * span:
+            fail(f"[zoo] {arch}: kernels vs plain max|err| {err} > {ZOO_REL} x {span}")
+        if launched != want[arch] or plain:
+            fail(f"[zoo] {arch}: {launched} quant-matmul launches (want {want[arch]}), "
+                 f"plain calls {plain}")
+        r = dict(max_abs_err=err, logit_range=span, top1_equal=top1, launches=launched,
+                 init_quantize_s=init_s)
+
+        def fwd():
+            with torch.inference_mode():
+                model.apply(qparams, x)
+
+        r["host_ms"] = _host_forward_ms(torch, fwd)
+        if arch == "bert":
+            prof = profile_step(torch, fwd, tag="zoo", what="BERT-base forward (B 8, L 128)")
+            if prof:
+                qmm = sum(d for k, d, _ in prof["rows"] if "qmm_wgmma_kernel" in k)
+                prof.update(qmm_ms=qmm, qmm_share=qmm / prof["busy_ms"])
+                log(f"[zoo] BERT-base forward: host clock {r['host_ms']:.3f} ms (median of 6), "
+                    f"device busy {prof['busy_ms']:.3f} ms in {prof['device_ops']} ops; "
+                    f"quant-matmul {qmm:.3f} ms ({100 * qmm / prof['busy_ms']:.1f}%); "
+                    f"{smi_line}")
+            r["profile"] = prof
+            keep = dict(model=model, params=params, qparams=qparams, x=x)
+        else:
+            r["images_per_s"] = 8 / (r["host_ms"] / 1e3)
+            log(f"[zoo] {arch} forward at B=8: host clock {r['host_ms']:.3f} ms (median of 6), "
+                f"{r['images_per_s']:.1f} images/s; {smi_line}")
+        # the wrapper pads q and scale of an N % 16 != 0 head to 16 columns
+        # on every call: that copy alone
+        for name in ("classifier/kernel", "head/kernel"):
+            qt = qparams.get(name)
+            if isinstance(qt, QTensor) and qt.orig_shape[1] % 16:
+                k, n = qt.orig_shape
+                n_pad = -(-n // 16) * 16
+                ms = timer.ms(lambda i: (torch.nn.functional.pad(qt.q, (0, n_pad - n)),
+                                         torch.nn.functional.pad(qt.scale, (0, n_pad - n))), 20)
+                r["n_pad"] = dict(weight=name, K=k, N=n, n_pad=n_pad, ms=ms)
+                log(f"[zoo] {arch} {name} (K {k}, N {n}): the per-call pad of q and scale to "
+                    f"N {n_pad}: {ms:.4f} ms a call; {smi_line}")
+        res[arch] = r
+        del params, qparams, x, out, ref
+        if arch != "bert":
+            del model
+        torch.cuda.empty_cache()
+    return res, keep
+
+
+def _zoo_row_1b(torch, timer, smi_line):
+    """Row 1b (int8 g128, bf16 x) at BERT-base's shapes and B*L = 1024
+    rows: each call against its plain version, beside torch.matmul on the
+    dequantized bf16 weights and the bound; the per-forward sum (12 x (4
+    x 768^2 + 768x3072 + 3072x768))."""
+    from tpuserve_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+    from tpuserve_torch.quant.core import dequantize
+
+    rows, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    for name, (k, n), per in (("qkvo", (768, 768), 48), ("ffn_in", (768, 3072), 12),
+                              ("ffn_out", (3072, 768), 12)):
+        qt = _qt_random(torch, 8, k, n, 128)
+        b = 1024
+        xs = [torch.randn((b, k), device=DEVICE).to(torch.bfloat16)
+              for _ in range(max(1, math.ceil(L2_FLUSH_BYTES / (b * k * 2 + qt.nbytes))))]
+        out, ref = quant_matmul(xs[0], qt), quant_matmul_plain(xs[0], qt)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2 ** -7 * ref.float().abs().max().item()
+        if not err <= tol:
+            fail(f"[zoo] row 1b {name} K {k} N {n} B {b}: max|err| {err} > {tol}")
+        ms = timer.ms(lambda i: quant_matmul(xs[i % len(xs)], qt), 20)
+        plain_ms = timer.ms(lambda i: quant_matmul_plain(xs[i % len(xs)], qt), 4)
+        wd = dequantize(qt, torch.bfloat16)
+        lib_ms = timer.ms(lambda i: torch.matmul(xs[i % len(xs)], wd), 20)
+        nbytes, ops = b * k * 2 + qt.nbytes + b * n * 2, 2.0 * b * k * n
+        bms, by = bound(nbytes, ops, PEAK_OPS["bf16"])
+        rows.append(dict(name=name, K=k, N=n, B=b, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                         per_forward=per))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bytes", nbytes), ("ops", ops)):
+            total[key] += per * v
+        log(f"[zoo] row 1b int8 g128 bf16 x, BERT {name} K {k} N {n} at {b} rows: max|err| "
+            f"{err:.3g} (tol {tol:.3g}); {ms:.4f} ms, bound {bms:.4f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); "
+            f"{smi_line}")
+        del xs, wd, qt
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"], PEAK_OPS["bf16"])
+    log(f"[zoo] row 1b per BERT-base forward (72 encoder calls at 1024 rows): "
+        f"{total['ms']:.3f} ms, bound {total['bound_ms']:.3f} ms ({total['bound_by']}), "
+        f"torch.matmul {total['library_ms']:.3f} ms ({total['ms'] / total['library_ms']:.2f}x); "
+        f"{smi_line}")
+    torch.cuda.empty_cache()
+    return rows, total
+
+
+def _zoo_repo(torch, keep):
+    """A temporary repository: a copy of models/densenet_tpu (its config and
+    labels.txt; weights from DenseNet-121's init written there as
+    params.npz, never into models/), the same with dynamic_batching on,
+    the repository's models/test_model, the ONNX fixture, a TorchScript
+    model scripted here and BERT-base (its bf16 init as
+    model.safetensors)."""
+    import numpy as np
+
+    from tpuserve_torch import fixtures
+    from tpuserve_torch.models.registry import get_architecture
+    from tpuserve_torch.repository.config import ModelConfig
+    from tpuserve_torch.utils.checkpoint import write_safetensors
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "models")
+    tmp = tempfile.mkdtemp(prefix="tpuserve_torch_zoo_")
+    src = os.path.join(here, "densenet_tpu", "1")
+    with open(os.path.join(src, "config.json")) as fh:
+        dn_cfg = json.load(fh)
+    model = get_architecture(ModelConfig.from_dict(dn_cfg), DEVICE)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(1))
+    npz = {k: v.float().cpu().numpy() for k, v in params.items()}
+    for name, batching in (("densenet_tpu", False), ("densenet_batched", True)):
+        vdir = os.path.join(tmp, name, "1")
+        os.makedirs(vdir)
+        shutil.copy(os.path.join(src, "labels.txt"), vdir)
+        with open(os.path.join(vdir, "config.json"), "w") as fh:
+            json.dump(dict(dn_cfg, name=name, dynamic_batching=batching), fh)
+        np.savez(os.path.join(vdir, "params.npz"), **npz)
+    shutil.copytree(os.path.join(here, "test_model"), os.path.join(tmp, "test_model"))
+    fixtures.create_onnx_test_model(tmp)
+
+    class OnCard(torch.nn.Module):
+        """y = 2x + b, and 1.0 where x lay on the card."""
+
+        def __init__(self):
+            super().__init__()
+            self.b = torch.nn.Parameter(torch.arange(3, dtype=torch.float32))
+
+        def forward(self, x):
+            return x * 2.0 + self.b, torch.full((1,), float(x.is_cuda), device=x.device)
+
+    vdir = os.path.join(tmp, "torchscript_oncard", "1")
+    os.makedirs(vdir)
+    torch.jit.script(OnCard().eval()).save(os.path.join(vdir, "model.pt"))
+    with open(os.path.join(vdir, "config.json"), "w") as fh:
+        json.dump({"name": "torchscript_oncard", "platform": "pytorch",
+                   "inputs": [{"name": "x", "shape": [-1, 3], "data_type": "FLOAT32"}],
+                   "outputs": [{"name": "y", "shape": [-1, 3], "data_type": "FLOAT32"},
+                               {"name": "on_card", "shape": [1], "data_type": "FLOAT32"}]}, fh)
+    bert_cfg = _zoo_configs()["bert"]
+    vdir = os.path.join(tmp, bert_cfg["name"], "1")
+    os.makedirs(vdir)
+    with open(os.path.join(vdir, "config.json"), "w") as fh:
+        json.dump(bert_cfg, fh)
+    write_safetensors(os.path.join(vdir, "model.safetensors"), keep["params"])
+    return tmp
+
+
+def phase_zoo(torch, timer, smi_line):
+    """[zoo]: the model zoo, the ONNX importer, micro-batching and
+    TorchScript on the card (module docstring, phase 4i)."""
+    forwards, keep = _zoo_forwards(torch, timer, smi_line)
+    row_1b, row_1b_total = _zoo_row_1b(torch, timer, smi_line)
+    tmp = _zoo_repo(torch, keep)
+    try:
+        out = _zoo_front(torch, tmp, keep, dict(forwards=forwards, row_1b=row_1b,
+                                                 row_1b_total=row_1b_total, smi=smi_line))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del keep
+    torch.cuda.empty_cache()
+    ffn_in = next(r for r in row_1b if r["name"] == "ffn_in")
+    out["entry"] = dict(max_abs_err=max(r["max_abs_err"] for r in row_1b), ms=ffn_in["ms"],
+                        plain_ms=ffn_in["plain_ms"], bound_ms=ffn_in["bound_ms"],
+                        bound_by=ffn_in["bound_by"], library_ms=ffn_in["library_ms"],
+                        per="one call: BERT-base ffn_in (K 768, N 3072), 1024 rows, int8 g128, "
+                            "bf16 x")
+    return out
+
+
+def _zoo_front(torch, tmp, keep, out):
+    """The zoo through the port's REST and gRPC front from the temporary
+    repository tmp (phase_zoo): each model served, the front's quant-matmul
+    launches counted exactly, micro-batching, eval_accuracy's classifier
+    branch; out gains the results."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from tpuserve_torch import fixtures
+    from tpuserve_torch.ops import quant_matmul as tqm
+    from tpuserve_torch.server.http import _MANAGER_KEY, create_app
+
+    tag, smi_line = "zoo", out["smi"]
+    app = create_app(tmp, device=DEVICE)
+    manager = app[_MANAGER_KEY]
+    # noise at 16 scales: a random-init network maps plain noise images to
+    # logits within ~0.01 of each other, too close to tell a batch's rows
+    # apart; scaled, the closest two differ by far more than the batching
+    # error
+    g = np.random.default_rng(3)
+    scales = np.linspace(0.5, 2.0, 16, dtype=np.float32)[:, None, None, None]
+    images = (g.normal(size=(16, 224, 224, 3)) * scales).astype(np.float32)
+    with open(os.path.join(tmp, "densenet_tpu", "1", "labels.txt")) as fh:
+        labels = [line.strip() for line in fh if line.strip()]
+    with rest_server(app) as url, plain_calls() as plain:
+        for name in ("densenet_tpu", "densenet_batched", "test_model", "test_model_onnx",
+                     "torchscript_oncard", "bert_base"):
+            t = time.monotonic()
+            status, body = _http("POST", f"{url}/models/{name}/load")
+            if status not in (200, 201, 202):
+                fail(f"[{tag}] load {name} over REST: {status} {body}")
+            out.setdefault("load_s", {})[name] = time.monotonic() - t
+        for mod in (tqm,):        # the front's run starts here
+            mod.launches = 0
+        f32_0 = tqm.f32_launches
+
+        def infer(name, inputs):
+            status, body = _http("POST", f"{url}/models/{name}/infer", {"inputs": inputs})
+            if status != 200:
+                fail(f"[{tag}] /models/{name}/infer: {status} {body}")
+            return {o["name"]: o for o in body["outputs"]}
+
+        # 1. densenet_tpu: top-5 with labels.txt names
+        o = infer("densenet_tpu", {"data_0": images[:1].tolist()})["logits"]
+        top = o.get("classifications", [])
+        if len(top) != 5 or any(c.get("label") != labels[c["index"]] for c in top):
+            fail(f"[{tag}] densenet_tpu top-5 does not carry labels.txt names: {top}")
+        log(f"[{tag}] densenet_tpu (models/densenet_tpu's config and labels.txt, params.npz "
+            f"written in the phase) over REST on the card: logits {o['shape']}, top-5 "
+            f"{[(c['index'], c['label']) for c in top]}")
+        # 2. models/test_model from its safetensors, and 3. the ONNX fixture
+        w = fixtures.make_test_model_weights()
+        x = np.array([[1.0, 2.0, 3.0]], np.float32)
+        want = fixtures.reference_mlp_forward(w, x)
+        for name in ("test_model", "test_model_onnx"):
+            got = np.asarray(infer(name, {"input": x.tolist()})["output"]["data"],
+                             np.float32).reshape(want.shape)
+            err = float(np.abs(got - want).max())
+            log(f"[{tag}] {name} over REST on the card: {got.tolist()} against "
+                f"reference_mlp_forward {want.tolist()}: max|err| {err:.3g} (tol 1e-5)")
+            if not err <= 1e-5:
+                fail(f"[{tag}] {name}: max|err| {err} > 1e-5")
+            out[f"{name}_err"] = err
+        # 4. TorchScript: the output tensor came from the card
+        o = infer("torchscript_oncard", {"x": x.tolist()})
+        module = manager.get_model("torchscript_oncard").backend._module
+        on_card = o["on_card"]["data"] == [1.0] and next(module.parameters()).is_cuda
+        if not on_card or o["y"]["data"] != (2 * x[0] + np.arange(3)).tolist():
+            fail(f"[{tag}] TorchScript: {o}, module on the card {on_card}")
+        log(f"[{tag}] TorchScript model.pt (scripted in the phase) over REST: y {o['y']['data']}, "
+            f"computed on the card (x.is_cuda in the module: {o['on_card']['data']})")
+        # 5. BERT-base over gRPC's Infer, and 6. micro-batching over gRPC
+        from tpuserve_torch.server import tpuserve_pb2 as pb
+        from tpuserve_torch.server.grpc import GrpcClient, create_grpc_server
+
+        ids = keep["x"]["input_ids"][:2].cpu().numpy()
+        mask = keep["x"]["attention_mask"][:2].cpu().numpy()
+        server = create_grpc_server(manager, port=0, host="127.0.0.1")
+        gport = server.add_insecure_port("127.0.0.1:0")
+        server.start()
+        client = GrpcClient(f"127.0.0.1:{gport}")
+
+        def grpc_image(name, i):
+            """One image as raw float32 bytes; its logits."""
+            resp = client.infer(pb.InferRequest(name=name, inputs=[pb.Tensor(
+                name="data_0", data_type="FP32", shape=[1, 224, 224, 3],
+                raw_data=images[i:i + 1].tobytes())]), timeout=600)
+            return np.asarray(resp.outputs[0].tensor.float_data, np.float32)
+
+        def batch_stats():
+            st = _http("GET", f"{url}/models/densenet_batched/stats")[1]["stats"]
+            return st.get("dynamic_batches", 0), st.get("dynamic_batched_requests", 0)
+
+        def wave(call, name):
+            """16 concurrent one-image requests: (requests/s, each one's
+            logits, forwards of more than one request, requests in them)."""
+            b0 = batch_stats()
+            with cf.ThreadPoolExecutor(16) as pool:
+                t = time.monotonic()
+                futs = [pool.submit(call, name, i) for i in range(16)]
+                res = [f.result() for f in futs]
+                rate = 16 / (time.monotonic() - t)
+            b1 = batch_stats()
+            return rate, res, b1[0] - b0[0], b1[1] - b0[1]
+
+        def check_batched(got, what):
+            """Each batched response against its own solo result: within
+            ZOO_BATCH_REL x its range and within half the smallest distance
+            between two images' solo results, so it lies nearer its own than
+            any other's and a split or order fault shows."""
+            errs = [float(np.abs(got[i] - solo[i]).max()) for i in range(16)]
+            spans = [float(solo[i].max() - solo[i].min()) for i in range(16)]
+            if any(e > ZOO_BATCH_REL * sp or not e < solo_gap / 2 for e, sp in zip(errs, spans)):
+                fail(f"[{tag}] micro-batching, {what}: |batched - own solo| {errs}, ranges "
+                     f"{spans}, half the smallest solo distance {solo_gap / 2}")
+            return errs
+
+        try:
+            before = tqm.launches
+            resp = client.infer(pb.InferRequest(name="bert_base", inputs=[
+                pb.Tensor(name="input_ids", data_type="INT32", shape=[2, 128],
+                          int_data=ids.reshape(-1).tolist()),
+                pb.Tensor(name="attention_mask", data_type="INT32", shape=[2, 128],
+                          int_data=mask.reshape(-1).tolist())]), timeout=600)
+            bert_launches = tqm.launches - before
+            got = {o.tensor.name: np.asarray(o.tensor.float_data, np.float32).reshape(
+                list(o.tensor.shape)) for o in resp.outputs}
+            if bert_launches != 74:
+                fail(f"[{tag}] gRPC Infer on bert_base launched {bert_launches} quant-matmuls "
+                     f"(want 74)")
+
+            # micro-batching: each image alone first (batching on, one at a
+            # time), a warm wave each, then 16 concurrent one-image requests
+            # with batching off and on, A B B A three times; over REST the
+            # same wave once, as a record
+            b_start = batch_stats()
+            solo = [grpc_image("densenet_batched", i) for i in range(16)]
+            solo_gap = min(float(np.abs(solo[i] - solo[j]).max())
+                           for i in range(16) for j in range(i + 1, 16))
+            for name in ("densenet_tpu", "densenet_batched"):   # untimed: first batch shapes
+                check_batched(wave(grpc_image, name)[1], f"{name}, the warm wave")
+            waves = {}
+            for name in ("densenet_tpu", "densenet_batched", "densenet_batched",
+                         "densenet_tpu") * 3:
+                waves.setdefault(name, []).append(wave(grpc_image, name))
+            rest_wave = wave(lambda name, i: np.asarray(
+                infer(name, {"data_0": images[i:i + 1].tolist()})["logits"]["data"],
+                np.float32), "densenet_batched")
+            b_end = batch_stats()
+        finally:
+            client.close()
+            server.stop(grace=None)
+        served = tqm.launches
+        # every request since the count was set to 0 ran one forward, but
+        # the batched model's requests that shared one: each forward of
+        # BERT launches 74 quant-matmuls, of DenseNet 1
+        requests = 1 + 16 + 16 * (2 + len(waves["densenet_tpu"]) +
+                                  len(waves["densenet_batched"]) + 1)
+        dn_forwards = requests - (b_end[1] - b_start[1]) + (b_end[0] - b_start[0])
+        errs = []
+        for i, w in enumerate(waves["densenet_batched"]):
+            errs += check_batched(w[1], f"timed wave {i}")
+        errs += check_batched(rest_wave[1], "the REST wave")
+        per_wave = [w[2] + 16 - w[3] for w in waves["densenet_batched"]]
+        rates = {k: sorted(w[0] for w in v) for k, v in waves.items()}
+        med = {k: v[len(v) // 2] for k, v in rates.items()}
+        apart = rates["densenet_batched"][0] > rates["densenet_tpu"][-1] or \
+            rates["densenet_tpu"][0] > rates["densenet_batched"][-1]
+        log(f"[{tag}] bert_base (BERT-base int8, safetensors written in the phase) over gRPC "
+            f"Infer: logits {list(got['logits'].shape)}, pooled {list(got['pooled'].shape)}; "
+            f"{bert_launches} quant-matmul launches (want 74)")
+        log(f"[{tag}] micro-batching over gRPC (densenet_batched: dynamic_batching true, the "
+            f"batcher's max_queue_delay_us 2000): 16 concurrent one-image requests ran in "
+            f"{per_wave} forwards in the 6 timed waves; worst |batched - own solo| "
+            f"{max(errs):.4g} (tol {ZOO_BATCH_REL} x range and half the smallest distance "
+            f"between two images' solo logits, {solo_gap:.4g}); "
+            f"requests/s of 6 waves a side (A B B A x 3), on median {med['densenet_batched']:.1f} "
+            f"(range {rates['densenet_batched'][0]:.1f}-{rates['densenet_batched'][-1]:.1f}), "
+            f"off median {med['densenet_tpu']:.1f} (range {rates['densenet_tpu'][0]:.1f}-"
+            f"{rates['densenet_tpu'][-1]:.1f}); the ranges "
+            f"{'do not overlap' if apart else 'overlap'}; {smi_line}")
+        log(f"[{tag}] the same wave over REST (JSON, 150,528 floats a request): "
+            f"{rest_wave[2] + 16 - rest_wave[3]} forwards ({rest_wave[2]} of more than one "
+            f"request), {rest_wave[0]:.1f} requests/s (one wave)")
+        log(f"[{tag}] the front's quant-matmul launches: {served} = 74 (the gRPC BERT request) "
+            f"+ {dn_forwards} DenseNet forwards of {requests} requests; plain calls {plain}")
+        if not max(per_wave) < 16:
+            fail(f"[{tag}] micro-batching: {per_wave} forwards for 16 requests")
+        if plain or served != 74 + dn_forwards:
+            fail(f"[{tag}] the front ran plain versions {plain}, {served} launches "
+                 f"(want 74 + {dn_forwards})")
+        out.update(launches=served, bert_launches=bert_launches, densenet_forwards=dn_forwards,
+                   forwards=per_wave, batch_errs=errs, solo_gap=solo_gap,
+                   requests_per_s=rates, requests_per_s_median=med, rates_apart=apart,
+                   rest_wave=dict(requests_per_s=rest_wave[0], dynamic_batches=rest_wave[2],
+                                  batched_requests=rest_wave[3]))
+        # the BERT reply against the backend's params through apply (on the
+        # kernel, after the front's count was read)
+        be = manager.get_model("bert_base").backend
+        with torch.inference_mode():
+            direct = be._arch.apply(be.params, {
+                "input_ids": torch.from_numpy(ids).to(DEVICE),
+                "attention_mask": torch.from_numpy(mask).to(DEVICE)})
+        ref = direct["logits"].float().cpu().numpy()
+        err = float(np.abs(got["logits"] - ref).max())
+        span = float(ref.max() - ref.min())
+        log(f"[{tag}] bert_base over gRPC against the backend's params through apply: max|err| "
+            f"{err:.3g} of a range {span:.4g} (tol 1e-3 x range)")
+        if set(got) != {"logits", "pooled"} or not err <= 1e-3 * span:
+            fail(f"[{tag}] gRPC Infer on bert_base: {sorted(got)}, max|err| {err}")
+        out["bert_grpc_err"] = err
+        # 7. eval_accuracy's classifier branch on bert_base: f32 x on int8 (row 1g)
+        from tpuserve_torch.scripts import eval_accuracy
+
+        f32_before = tqm.f32_launches
+        acc = eval_accuracy.evaluate(tmp, "bert_base", "", samples=16, seed=0, device=DEVICE)
+        out["eval_accuracy"] = dict(acc, f32_launches=tqm.f32_launches - f32_before)
+        log(f"[{tag}] eval_accuracy --model bert_base (classifier branch, f32 params vs int8 "
+            f"g128): top-1 agreement {acc['top1_agreement']}, logit correlation "
+            f"{acc['logit_correlation']}, gate {acc['gate_pass']}; f32-x quant-matmuls "
+            f"{out['eval_accuracy']['f32_launches']}; plain calls {plain}")
+        if plain or out["eval_accuracy"]["f32_launches"] != 74:
+            fail(f"[{tag}] eval_accuracy: plain calls {plain}, "
+                 f"{out['eval_accuracy']['f32_launches']} f32-x launches (want 74)")
+        out["f32_launches"] = tqm.f32_launches - f32_0
+        for name in ("densenet_tpu", "densenet_batched", "test_model", "test_model_onnx",
+                     "torchscript_oncard", "bert_base"):
+            _http("POST", f"{url}/models/{name}/unload")
+    return out
 
 
 def _mixtral_config(p):
@@ -4175,6 +4706,14 @@ def main() -> None:
         results[name_]["launches_by_path"]["gptq"] = launched
         results[name_]["launches"] += launched
     llm_demo_res = phase_llm_demo(torch, smi_line)
+    # the model zoo through the port's front: its served int8 quant-matmuls
+    # (row 1b) add to the main path's, and eval_accuracy's f32-x calls to
+    # the f32 route's
+    zoo_res = phase_zoo(torch, timer, smi_line)
+    results["quant_matmul_int8"] = dict(zoo_res["entry"], launches=zoo_res["launches"])
+    results["quant_matmul_f32"]["launches_by_path"] = {
+        "gptq": results["quant_matmul_f32"]["launches"], "zoo": zoo_res["f32_launches"]}
+    results["quant_matmul_f32"]["launches"] += zoo_res["f32_launches"]
     paged_res = phase_paged_slice(torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
@@ -4231,6 +4770,9 @@ def main() -> None:
                                            "branch :65-83)"),
                "quant_matmul_f32": ("tpuserve_torch/csrc/quant_matmul.cu",
                                     "tpuserve/ops/quant_matmul.py:40 (_kernel, f32 x)"),
+               "quant_matmul_int8": ("tpuserve_torch/csrc/quant_matmul.cu",
+                                     "tpuserve/ops/quant_matmul.py:40 (_kernel, int8 weights, "
+                                     "bf16 x; reached by tpuserve/models/layers.py:18 linear)"),
                "stage_x": ("tpuserve_torch/csrc/quant_matmul.cu",
                            "tpuserve/ops/quant_matmul.py:40 (x read through _kernel's BlockSpec; "
                            "no Pallas kernel of its own)"),
@@ -4303,7 +4845,7 @@ def main() -> None:
                    "spec_paged": spec_paged_res, "grouped": grouped_res,
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
-                   "gptq": gptq_res, "llm_demo": llm_demo_res,
+                   "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,

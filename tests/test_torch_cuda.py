@@ -1347,3 +1347,67 @@ def test_quant_matmul_f32_calibration_rows(cuda, k, n):
     assert qm.f32_launches == before + 1 and out.dtype == torch.float32
     err = (out - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+# ---------------------------------------------------------------------- zoo
+@pytest.mark.parametrize("k,n,gs", [(768, 768, 128), (768, 3072, 128), (3072, 768, 128),
+                                    (768, 2, 128), (1024, 1000, 128), (128, 384, 0),
+                                    (147, 64, 0)],
+                         ids=["bert_qkvo", "bert_ffn_in", "bert_ffn_out", "bert_classifier",
+                              "densenet_head", "per_channel", "per_channel_odd_k"])
+@pytest.mark.parametrize("b", [8, 1024])
+def test_quant_matmul_zoo_int8(cuda, k, n, gs, b):
+    """Row 1b (int8 weights, bf16 x) at the zoo's shapes: BERT-base's at
+    B*L = 1024 rows and its pooler/classifier's 8, DenseNet-121's head (N
+    1000 and BERT's classifier N 2 are padded to 16 columns a call), and
+    int8 per channel where K has no 128-group; one bf16 step of the largest
+    output against the plain version."""
+    qt = _qt(8, gs, k, n, 0, cuda)
+    x = torch.randn((b, k), generator=torch.Generator().manual_seed(2)).to(cuda, torch.bfloat16)
+    before = qm.launches
+    out, ref = qm.quant_matmul(x, qt), qm.quant_matmul_plain(x, qt)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1 and out.shape == ref.shape == (b, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("arch", ["bert", "densenet121"])
+def test_zoo_forward_on_card(cuda, arch):
+    """A zoo model's int8 forward on the card: the quant-matmul's launch
+    counter grows by its linears (BERT, 2 layers: 6 a layer + pooler +
+    classifier; DenseNet: the head), no plain version is called, and the
+    logits agree with the same forward through the plain versions within
+    5% of their range (bf16 through every layer)."""
+    from unittest import mock
+
+    from tpuserve_torch.models.registry import get_architecture
+    from tpuserve_torch.quant.core import quantize_param_tree
+    from tpuserve_torch.repository.config import ModelConfig
+
+    if arch == "bert":
+        cfg = {"inputs": [{"name": "input_ids", "shape": [-1, 64], "data_type": "INT32"}],
+               "outputs": [{"name": "logits", "shape": [-1, 2], "data_type": "FLOAT32"}],
+               "model_params": {"n_layers": 2}}
+        x = {"input_ids": torch.randint(0, 30522, (4, 64), device=cuda)}
+        want = 2 * 6 + 2
+    else:
+        cfg = {"inputs": [{"name": "data_0", "shape": [-1, 64, 64, 3], "data_type": "FLOAT32"}],
+               "outputs": [{"name": "logits", "shape": [-1, 1000], "data_type": "FLOAT32"}]}
+        x = {"data_0": torch.randn((4, 64, 64, 3), device=cuda)}
+        want = 1
+    config = ModelConfig.from_dict(dict(cfg, name=arch, platform="jax", architecture=arch))
+    model = get_architecture(config, cuda)
+    params = quantize_param_tree(model.init(torch.Generator(device=cuda).manual_seed(0)),
+                                 bits=8, group_size=128, predicate=model.quant_predicate)
+    before = qm.launches
+    with mock.patch.object(qm, "quant_matmul_plain", side_effect=AssertionError("plain")):
+        with torch.inference_mode():
+            out = model.apply(params, x)["logits"]
+        torch.cuda.synchronize()
+    assert qm.launches - before == want
+    with mock.patch.object(qm, "quant_matmul", qm.quant_matmul_plain), torch.inference_mode():
+        ref = model.apply(params, x)["logits"]
+    assert out.is_cuda and torch.isfinite(out).all()
+    span = (ref.max() - ref.min()).item()
+    assert (out - ref).abs().max().item() <= 0.05 * span

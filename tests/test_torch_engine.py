@@ -177,8 +177,10 @@ def test_unported_configurations_raise(tmp_path, overrides, ported):
 
 def test_import_leaves_jax_out():
     """`import tpuserve_torch`, its serving stack, its quantizers (GPTQ), its
-    front (REST, gRPC, the CLI, the soak script) and its accuracy script
-    import neither JAX nor any module of the JAX package."""
+    front (REST, gRPC, the CLI, the soak script), its accuracy script, the
+    model zoo (the registry with its builtins), the four backends, the ONNX
+    importer, the fixtures and the batcher import neither JAX nor any
+    module of the JAX package."""
     code = (
         "import sys\n"
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
@@ -193,6 +195,13 @@ def test_import_leaves_jax_out():
         "import tpuserve_torch.server, tpuserve_torch.server.http, tpuserve_torch.server.grpc\n"
         "import tpuserve_torch.server.__main__, tpuserve_torch.server.tpuserve_pb2\n"
         "import tpuserve_torch.scripts.soak\n"
+        "from tpuserve_torch.models import registry, layers, mlp, bert, densenet, resnet\n"
+        "from tpuserve_torch.engine import jax_backend, onnx_backend, torch_backend, batcher\n"
+        "import tpuserve_torch.onnx, tpuserve_torch.onnx.proto, tpuserve_torch.onnx.importer\n"
+        "import tpuserve_torch.fixtures, tpuserve_torch.utils.checkpoint\n"
+        "registry._ensure_builtins()\n"
+        "assert {'mlp', 'bert', 'densenet121', 'resnet50', 'llama'} <= "
+        "set(registry.known_architectures())\n"
         "backend._ensure_builtins()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'tpuserve' or m.startswith('tpuserve.')]\n"

@@ -22,6 +22,7 @@ from tpuserve.models import llama as jllama
 from tpuserve.models import synthetic as jsyn
 from tpuserve_torch.models import llama as tllama
 from tpuserve_torch.models import synthetic as tsyn
+from tpuserve_torch.fixtures import create_test_model
 from tpuserve_torch.scripts import eval_accuracy as teval
 from tpuserve_torch.utils.errors import BackendError
 from torch_parity import SMALL, write_model
@@ -172,18 +173,24 @@ def test_eval_accuracy_modes(mode):
 def test_eval_accuracy_repository_model_and_cli(tmp_path, capsys, monkeypatch):
     """--model: a Llama of a repository, loaded through the port's
     repository and engine loader, RTN per its config (the JAX script's
-    result keys); a classifier exits non-zero as not ported; the CLI's exit
-    code is the gate's."""
+    result keys); a classifier takes the classifier branch (the JAX
+    script's keys for it: top-1 agreement and logit correlation); the
+    CLI's exit code is the gate's."""
     cfg = {"name": "ll", "platform": "llm", "architecture": "llama",
            "model_params": dict(SMALL), "quantization": {"weights": "int8", "group_size": 128}}
     write_model(str(tmp_path), "ll", cfg)
     res = teval.evaluate(str(tmp_path), "ll", "", samples=32, seed=0, device="cpu")
     assert set(res) == _jax_result_keys("evaluate") | {"device"}
     assert res["metric"] == "perplexity" and np.isfinite(res["delta"])
-    clf = dict(cfg, name="clf", architecture="mlp", platform="jax")
-    write_model(str(tmp_path), "clf", clf)
-    with pytest.raises(SystemExit, match="not ported"):
-        teval.evaluate(str(tmp_path), "clf", "", samples=8, seed=0, device="cpu")
+    cdir = create_test_model(str(tmp_path), name="clf")  # the seed-42 MLP
+    with open(os.path.join(cdir, "config.json")) as fh:
+        clf = json.load(fh)
+    clf["quantization"] = {"weights": "int8"}
+    with open(os.path.join(cdir, "config.json"), "w") as fh:
+        json.dump(clf, fh)
+    res = teval.evaluate(str(tmp_path), "clf", "", samples=8, seed=0, device="cpu")
+    assert res["metric"] == "top1_agreement" and res["device"] == "cpu"
+    assert {"top1_agreement", "logit_correlation", "gate", "gate_pass"} <= set(res)
     rc = teval.main(["--kv-long-eval", "tiny", "--ctx", "32", "--samples", "32",
                      "--device", "cpu", "--json"])
     out = capsys.readouterr().out.strip().splitlines()[-1]

@@ -2,9 +2,12 @@
 
 Reference counterpart: `ModelImpl`'s per-type dispatch switches
 (model.cpp:514-540 Load, :575-600 Infer, :620-645 Unload). Backends are
-classes in a registry keyed by `ModelType`. The port registers only the LLM
-backend so far; every other model type loads as an UnsupportedBackend that
-raises UnsupportedError until it is ported.
+classes in a registry keyed by `ModelType`: the graph backend (`jax`, the
+model zoo, engine/jax_backend.py), `llm`, `onnx` (the port's own
+wire-format importer, engine/onnx_backend.py) and `pytorch` (TorchScript,
+engine/torch_backend.py), each on the device the manager names.
+TensorFlow, TensorRT and custom models load as an UnsupportedBackend that
+raises UnsupportedError.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ class UnsupportedBackend(Backend):
 
     def load(self) -> None:
         raise UnsupportedError(
-            f"backend '{self.kind}' is not ported to tpuserve_torch yet; supported: llm")
+            f"backend '{self.kind}' is not supported by tpuserve_torch; "
+            "supported: jax, llm, onnx, pytorch")
 
     def unload(self) -> None:  # pragma: no cover
         pass
@@ -100,4 +104,7 @@ def _ensure_builtins() -> None:
     if _LOADED:
         return
     _LOADED = True
+    from tpuserve_torch.engine import jax_backend  # noqa: F401
     from tpuserve_torch.engine import llm_backend  # noqa: F401
+    from tpuserve_torch.engine import onnx_backend  # noqa: F401
+    from tpuserve_torch.engine import torch_backend  # noqa: F401

@@ -3,9 +3,11 @@
 PyTorch port of tpuserve/engine/model.py. Reference counterpart:
 `Model`/`ModelImpl` (model.cpp:448-1525, model.h:129-180) — backend
 dispatch, input validation (model.cpp:734-794), per-model stats updated
-around each Infer (:607-610), and load-time measurement (:505-545). The
-JAX package's dynamic micro-batcher serves graph models, which the port
-does not have yet, so inference calls the backend directly.
+around each Infer (:607-610), and load-time measurement (:505-545).
+Inference goes through the dynamic micro-batcher (engine/batcher.py),
+which coalesces concurrent requests to the graph backends (`platform` jax
+and onnx) when the config sets `dynamic_batching`, and caps forwards in
+flight at `instance_count`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import time
 from typing import Dict, List, Optional
 
 from tpuserve_torch.engine.backend import Backend, create_backend
+from tpuserve_torch.engine.batcher import MicroBatcher
 from tpuserve_torch.engine.stats import ModelStats
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.repository.repo import ModelType
@@ -62,6 +65,17 @@ class Model:
             raise
         self.stats.set_load_time(time.perf_counter_ns() - t0)
         self.stats.set_memory_usage(self.backend.memory_usage_bytes())
+        # dynamic micro-batching + instance cap for graph models (makes the
+        # reference's dead config flags real — engine/batcher.py)
+        batchable = [t.name for t in self.config.inputs if t.shape and t.shape[0] == -1]
+        self._batcher = MicroBatcher(
+            self.backend.infer,
+            batch_axis_inputs=batchable,
+            max_batch=self.config.max_batch_size,
+            instance_count=self.config.instance_count,
+            enabled=bool(self.config.dynamic_batching)
+            and self.model_type in (ModelType.JAX, ModelType.ONNX),
+        )
         self._loaded = True
 
     def unload(self) -> None:
@@ -112,7 +126,7 @@ class Model:
             raise
         t0 = time.perf_counter_ns()
         try:
-            outputs = self.backend.infer(inputs)
+            outputs = self._batcher.infer(inputs)
         except ValidationError:
             self.stats.record_error()
             raise
@@ -138,4 +152,8 @@ class Model:
     def get_stats(self) -> Dict:
         snap = self.stats.snapshot()
         snap["tokens_per_second"] = round(self.stats.tokens_per_second(), 2)
+        b = getattr(self, "_batcher", None)
+        if b is not None and b.batches:
+            snap["dynamic_batches"] = b.batches
+            snap["dynamic_batched_requests"] = b.batched_requests
         return snap

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuserve_torch.models.layers import rms_norm
+from tpuserve_torch.models.registry import Architecture, register_architecture
 from tpuserve_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_packed,
                                                  decode_attention_wide_cache,
@@ -55,6 +56,7 @@ from tpuserve_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_wide_paged,
                                                  unpack_kv_codes)
 from tpuserve_torch.quant.core import QExperts, QTensor, qmatmul, true_div
+from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.utils.device import resolve_device
 
 
@@ -1094,18 +1096,26 @@ def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
 
 
 # ---------------------------------------------------------------------- whole sequence
-class Llama:
-    """Whole-sequence forward: logits for given input_ids, as the JAX
-    package's model-zoo wrapper computes them (its `Architecture` base and
-    registry wait for the zoo). Generation runs through the serving engine,
-    not this path. `params_cfg` is the model_params dict."""
+@register_architecture("llama")
+@register_architecture("mixtral")  # MoE Llama: set model_params.n_experts
+class Llama(Architecture):
+    """Model-zoo wrapper: whole-sequence forward, logits for given
+    input_ids, as the JAX package's computes them. Generation runs through
+    the serving engine, not this path. `config` is a ModelConfig (the
+    registry's call) or its model_params dict."""
 
-    def __init__(self, params_cfg: Dict, device="cuda"):
-        self.params_cfg = dict(params_cfg)
+    def __init__(self, config, device="cuda"):
+        self.config = config if isinstance(config, ModelConfig) else None
+        self.params_cfg = dict(config.model_params if self.config else config)
         self.device = resolve_device(device)
 
     def _p(self) -> LlamaParams:
         return LlamaParams.from_dict(self.params_cfg)
+
+    def init(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                                 device=generator.device))
+        return init_params(self._p(), device=self.device, seed=seed)
 
     def apply(self, params: Dict, inputs: Dict) -> Dict[str, torch.Tensor]:
         """inputs["input_ids"] [B, L] -> {"logits": [B, L, V] f32}, causal

@@ -27,10 +27,10 @@ from tpuserve_torch.utils.errors import ModelNotFoundError
 
 
 class ModelType(enum.Enum):
-    """Backend platforms. In the port only LLM has a backend; the others are
-    recognized (reference: model_repository.cpp:161-178 marker files) and
-    reported, with PyTorch executed via the torch-CPU bridge backend and the
-    rest rejected at load with a clear error."""
+    """Backend platforms. JAX (the model zoo, run by the port in PyTorch),
+    LLM, ONNX and PyTorch (TorchScript) have backends in the port; the others
+    are recognized (reference: model_repository.cpp:161-178 marker files)
+    and reported, and rejected at load with a clear error."""
 
     UNKNOWN = "unknown"
     JAX = "jax"  # flax params under jax.jit

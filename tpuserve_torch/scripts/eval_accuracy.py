@@ -1,5 +1,4 @@
-"""Quantization accuracy harness, the Llama modes (port of
-scripts/eval_accuracy.py).
+"""Quantization accuracy harness (port of scripts/eval_accuracy.py).
 
 Each mode builds a Llama from a seed, quantizes it through the port's own
 quantizers (round-to-nearest, GPTQ, LoRC, the KV cache's), runs both the
@@ -21,8 +20,11 @@ passes, else 1):
   teacher-forced on the f32 cache's greedy path.
 - --model NAME: a Llama model of --repository, loaded through the port's
   repository and engine loader (f32), quantized per its config by RTN as
-  the JAX script does; gate |delta ppl| <= 0.1. Other architectures wait
-  for the model zoo (queue 1 item 8 of ROADMAP.md) and exit 1.
+  the JAX script does; gate |delta ppl| <= 0.1. Any other architecture
+  (the zoo's classifiers: resnet*, densenet*, bert, mlp) loads through the
+  zoo backend's checkpoint reader and is held f32 against its config's
+  weight quantization on synthetic inputs of the declared shape: top-1
+  agreement and logit correlation, gate top-1 >= 0.995.
 
 The synthetic checkpoints come from torch generators, so their numbers are
 not the JAX script's; the structure and the gates are. Every mode runs on
@@ -373,22 +375,23 @@ def evaluate_kv_long(size: str, ctx: int, samples: int, seed: int, device="cuda"
 
 def evaluate(repository: str, model: str, version: str, samples: int, seed: int,
              device="cuda") -> dict:
-    """A repository model's perplexity, f32 against its config's weight
-    quantization (RTN, as the JAX script quantizes it). Llama only."""
+    """A repository model, f32 against its config's weight quantization
+    (RTN, as the JAX script quantizes it): a Llama's perplexity, else the
+    classifier branch (`evaluate_classifier`)."""
     from tpuserve_torch.repository import ModelRepository
     from tpuserve_torch.serving.engine import GenerationEngine
 
     dev = resolve_device(device)
     repo = ModelRepository(repository)
     cfg = repo.get_config(model, version or None)
-    if not (cfg.architecture or "").startswith("llama"):
-        raise SystemExit(f"model '{model}' ({cfg.architecture}): not ported "
-                         "(queue 1 item 8 of ROADMAP.md, the model zoo)")
     qcfg = cfg.quantization
     bits = {"int8": 8, "int4": 4}.get(qcfg.weights)
     if bits is None:
         raise SystemExit(f"model '{model}' has no weight quantization configured")
-    engine = GenerationEngine(repo.get_model_path(model, version or None), cfg, device=dev)
+    model_dir = repo.get_model_path(model, version or None)
+    if not (cfg.architecture or "").startswith("llama"):
+        return evaluate_classifier(cfg, model_dir, bits, samples, seed, dev)
+    engine = GenerationEngine(model_dir, cfg, device=dev)
     params_fp = engine.load_params(torch.float32)
     arch = Llama(cfg.model_params, device=dev)
     params_q = quantize_param_tree(params_fp, bits=bits, group_size=qcfg.group_size,
@@ -409,6 +412,50 @@ def evaluate(repository: str, model: str, version: str, samples: int, seed: int,
             "metric": "perplexity", "fp32": round(base, 4), "quantized": round(quant, 4),
             "delta": round(quant - base, 4), "gate": "<=0.1 ppl (BASELINE.md LLM gate)",
             "gate_pass": bool(abs(quant - base) <= 0.1), "device": _device_name(dev)}
+
+
+def evaluate_classifier(cfg, model_dir: str, bits: int, samples: int, seed: int,
+                        dev: torch.device) -> dict:
+    """The classifier branch: the checkpoint in f32 and quantized per the
+    config (the architecture's quant_predicate), both run on synthetic
+    inputs of the declared shape (token ids below model_params.vocab_size
+    for an integer input, N(0, 1) otherwise; a batch dim of -1 or 1 becomes
+    `samples`): top-1 agreement and the logits' correlation."""
+    from tpuserve_torch.engine.jax_backend import load_checkpoint
+    from tpuserve_torch.models.registry import get_architecture
+
+    arch = get_architecture(cfg, dev)
+    params_fp = {k: v.to(device=dev, dtype=torch.float32)
+                 for k, v in load_checkpoint(model_dir).items()}
+    qcfg = cfg.quantization
+    params_q = quantize_param_tree(params_fp, bits=bits, group_size=qcfg.group_size,
+                                   predicate=arch.quant_predicate,
+                                   act_bits=8 if qcfg.activations == "int8" else 0)
+
+    rng = np.random.default_rng(seed)
+    inp = cfg.inputs[0]
+    shape = [samples if d == -1 else int(d) for d in inp.shape]
+    if shape[0] == 1:
+        shape[0] = samples
+    np_dt = inp.data_type.np_dtype or np.float32
+    if np.issubdtype(np_dt, np.integer):
+        x = rng.integers(0, int(cfg.model_params.get("vocab_size", 100)), shape).astype(np_dt)
+    else:
+        x = rng.normal(size=shape).astype(np_dt)
+
+    out_name = cfg.outputs[0].name if cfg.outputs else "logits"
+    xt = torch.from_numpy(x).to(dev)
+    with torch.inference_mode():
+        ref = arch.apply(params_fp, {inp.name: xt})[out_name].float().cpu().numpy()
+        got = arch.apply(params_q, {inp.name: xt})[out_name].float().cpu().numpy()
+    ref2, got2 = ref.reshape(samples, -1), got.reshape(samples, -1)
+    agree = float(np.mean(np.argmax(ref2, -1) == np.argmax(got2, -1)))
+    corr = float(np.corrcoef(ref2.reshape(-1), got2.reshape(-1))[0, 1])
+    return {"model": cfg.name, "quantization": qcfg.to_dict(), "samples": samples,
+            "metric": "top1_agreement", "top1_agreement": round(agree, 4),
+            "logit_correlation": round(corr, 6),
+            "gate": ">=0.995 top-1 agreement (BASELINE.md <=0.5% CNN gate)",
+            "gate_pass": bool(agree >= 0.995), "device": _device_name(dev)}
 
 
 def main(argv=None) -> int:
