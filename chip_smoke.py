@@ -56,6 +56,24 @@ Phases, each fatal on failure:
               against plain versions within 5% of the logit range, the
               plain path handed the kernel path's experts; host-clock step
               time and one profiled step each;
+  4f1. tp    the slice's model (full depth, packed int4 KV packed per
+              shard) at tensor_parallel 2, served by two `python -m
+              tpuserve_torch.server` processes joined by TPUSERVE_COORDINATOR
+              / NUM_PROCESSES / PROCESS_ID on the one card (gloo): a load and
+              4 concurrent greedy requests over REST; every rank's
+              quant-matmul and flat-core launches at the shard shapes
+              (wqkv 4096x6144, wo 2048x4096, w_gateup 4096x11008, w_down
+              5504x4096, lm_head 4096x16000; the core on 16 kv heads), no
+              plain version; each rank's decode step host clock and device
+              span; SIGINT ends both; the one-rank engine's greedy tokens on
+              the same weights (tokens may part only on a near tie);
+  4f2. dp-sp the slice's widths at 8 layers, int8 KV on the 5D cache,
+              data_parallel 2 x sequence_parallel 2: four ranks the engine
+              starts itself, prompts of 160 and 200 tokens over both sp
+              halves, the same checks (no flat core: the sp merge);
+  4f3. mixtral-tp  the Mixtral-8x7B-width MoE at 4 layers, tensor_parallel
+              2, int8 KV: each rank launches only its 4 experts' views, the
+              same checks (the one-rank engine in the dense expert loop);
   4g. gptq   calibrated quantization: the slice's configuration at
               Llama-2-7B widths cut to 4 layers, init random (bf16 weights
               from a seed), int4 g128 with method gptq and
@@ -3693,6 +3711,677 @@ def phase_mixtral(torch, p, smi_line):
                 steps=steps_out, dispatch_vs_dense=diff.item(), max_memory_allocated=peak)
 
 
+# ------------------------------------------------------------- sharded serving
+# [tp], [dp-sp] and [mixtral-tp]: a sharded model served across ranks that
+# share the one card over gloo (their collectives cross the host; no number
+# here is a multi-GPU speed). Each rank counts its own launches; the
+# controller gathers every rank's counts over the event bus.
+
+
+def _qmm_shard_shapes(p, tp):
+    """The quant-matmul's local K x N on a tp rank: wqkv and lm_head column
+    shards, wo row shards, and for a dense model w_gateup (column) and
+    w_down (row); at 7B tp=2: 4096x6144, 2048x4096, 4096x11008, 5504x4096,
+    4096x16000."""
+    qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
+    shapes = [(p.dim, (qd + 2 * kvd) // tp), (qd // tp, p.dim), (p.dim, p.vocab_size // tp)]
+    if not p.n_experts:
+        shapes += [(p.dim, 2 * p.ffn_dim // tp), (p.ffn_dim // tp, p.dim)]
+    return tuple(f"{k}x{n}" for k, n in shapes)
+
+
+def _mesh_prompts(torch, p, lengths, seed):
+    rng = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist() for n in lengths]
+
+
+def _rank_deltas(before, after):
+    """Per rank: the change of every count between two rank_stats reads,
+    and the rank's memory and weight-block checksum."""
+    out = []
+    for b, a in zip(before, after):
+        d = {k: a[k] - b[k] for k in ("quant_matmul_launches", "decode_attention_launches",
+                                      "plain_calls", "plain_row_shards")}
+        keys = set(a["shard_launches"]) | set(b["shard_launches"])
+        d["shard_launches"] = {k: a["shard_launches"].get(k, 0) - b["shard_launches"].get(k, 0)
+                               for k in sorted(keys)
+                               if a["shard_launches"].get(k, 0) != b["shard_launches"].get(k, 0)}
+        d.update({k: a[k] for k in ("rank", "device", "backend", "param_bytes", "cache_bytes",
+                                    "param_fingerprint", "load_max_memory_allocated",
+                                    "max_memory_allocated")},
+                 step_host_ms=a["step_host_ms_median"])
+        out.append(d)
+    return out
+
+
+def _check_ranks(tag, deltas, world, per_call, n_layers, steps, prefills, dp=1, attn=True,
+                 qmm_shapes=(), smi_line=""):
+    """Every rank launched the quant-matmul per_call times a call it ran
+    (all decode steps; the prefills of its dp group's slots) and the flat
+    core n_layers times a decode step (0 under sp), at the shard shapes, on
+    the card, and called no plain version."""
+    if len(deltas) != world:
+        fail(f"[{tag}] {len(deltas)} ranks answered, expected {world}")
+    owned = [0] * dp
+    for r, d in enumerate(deltas):
+        calls, rest = divmod(d["quant_matmul_launches"], per_call)
+        if rest or calls < steps:
+            fail(f"[{tag}] rank {r}: {d['quant_matmul_launches']} quant-matmuls, not "
+                 f"{per_call} a call over {steps} decode steps and its prefills")
+        owned[r * dp // world] = calls - steps
+        want_attn = n_layers * steps if attn else 0
+        if d["decode_attention_launches"] != want_attn:
+            fail(f"[{tag}] rank {r}: {d['decode_attention_launches']} flat decode attentions, "
+                 f"expected {want_attn}")
+        if d["plain_calls"] or d["plain_row_shards"]:
+            fail(f"[{tag}] rank {r} ran a plain version: {d}")
+        if not d["device"].startswith("cuda") or d["backend"] != "gloo":
+            fail(f"[{tag}] rank {r} ran on {d['device']} over {d['backend']}")
+        for shape in qmm_shapes:
+            if d["shard_launches"].get(f"quant_matmul {shape}", 0) < 1:
+                fail(f"[{tag}] rank {r}: no quant-matmul launch at the shard shape {shape}: "
+                     f"{d['shard_launches']}")
+        log(f"[{tag}] rank {r} ({d['device']}, {d['backend']}): quant-matmul "
+            f"{d['quant_matmul_launches']}, flat core {d['decode_attention_launches']}, plain "
+            f"versions 0; at shard shapes {d['shard_launches']}; decode step host clock median "
+            f"{d['step_host_ms']:.2f} ms; card {smi_line} (ranks share the card over gloo: "
+            "not a multi-GPU speed)")
+    if sum(owned) != prefills:
+        fail(f"[{tag}] the dp groups ran {owned} prefills, the controller {prefills}")
+
+
+def _check_rank_memory(tag, deltas, full_bytes, tp, base=()):
+    """Each rank's peak allocation over its load (torch.cuda's
+    max_memory_allocated in the rank's process, less `base`, what this
+    process held before, for the rank that lives here): its weight blocks,
+    its cache, and what a load holds on top (one whole parameter at most,
+    then freed). Under tp no rank may ever have held the whole model, i.e.
+    the part on top stays below the weights of the other ranks' blocks."""
+    out = []
+    for r, d in enumerate(deltas):
+        peak = d["load_max_memory_allocated"] - (base[r] if r < len(base) else 0)
+        extra = peak - d["param_bytes"] - d["cache_bytes"]
+        out.append(dict(rank=r, load_peak=peak, blocks=d["param_bytes"], cache=d["cache_bytes"],
+                        extra=extra))
+        log(f"[{tag}] rank {r} memory: load peak {peak / 2**30:.3f} GiB = its weight blocks "
+            f"{d['param_bytes'] / 2**30:.3f} + its cache {d['cache_bytes'] / 2**30:.3f} + "
+            f"{extra / 2**30:.3f} on top; the whole model's weights "
+            f"{full_bytes / 2**30:.3f} GiB; peak over the run "
+            f"{(d['max_memory_allocated'] - (base[r] if r < len(base) else 0)) / 2**30:.3f} GiB")
+        if tp > 1 and not extra < full_bytes - d["param_bytes"]:
+            fail(f"[{tag}] rank {r} held {extra} bytes on top of its blocks and cache at load: "
+                 f"the rest of the model is {full_bytes - d['param_bytes']}")
+    return out
+
+
+def _profile_summary(prof):
+    """A profiled decode step's device busy time and its shares: the
+    quant-matmul, the flat core, copies (gloo's host round trips) and the
+    rest."""
+    share = dict(quant_matmul=0.0, core=0.0, copies=0.0, other=0.0)
+    for key, ms, _ in prof["rows"]:
+        kind = "quant_matmul" if "qmm_" in key else "core" if "attn_core" in key \
+            else "copies" if "memcpy" in key.lower() else "other"
+        share[kind] += ms
+    return dict(host_ms=prof["host_ms"], busy_ms=prof["busy_ms"], device_ops=prof["device_ops"],
+                **{f"{k}_ms": v for k, v in share.items()})
+
+
+def _log_profiles(tag, profiles, deltas, smi_line):
+    """Each rank's profiled decode step beside its unprofiled steps' median
+    host clock (the profiled step's own clock carries the profiler's start)."""
+    for r, (pr, d) in enumerate(zip(profiles, deltas)):
+        if pr is None or not pr["busy_ms"]:
+            log(f"[{tag}] rank {r}: the profiler recorded no device time (not measured)")
+            continue
+        log(f"[{tag}] rank {r}, one profiled decode step: device busy {pr['busy_ms']:.3f} ms "
+            f"({100 * pr['busy_ms'] / d['step_host_ms']:.2f}% of the {d['step_host_ms']:.2f} ms "
+            f"median host clock of its unprofiled steps; the profiled step's own "
+            f"{pr['host_ms']:.1f} ms carries the profiler's start), {pr['device_ops']} device "
+            f"ops: quant-matmul {pr['quant_matmul_ms']:.3f}, flat core {pr['core_ms']:.3f}, "
+            f"copies {pr['copies_ms']:.3f}, other {pr['other_ms']:.3f} ms; card {smi_line} "
+            "(ranks share the card over gloo)")
+
+
+def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_max):
+    """Each kernel of a rank's path held against its plain version at the
+    rank's shard shapes, on the rank's blocks: its weight blocks cut from the
+    one-rank engine `weights` (the same draws; their block checksum must
+    equal the rank's own) and its block of `cache_engine`'s cache after
+    that one-rank engine served the same requests (packed int4 repacked per
+    tp shard, as a rank packs it), at slot positions up to `pos_max`, the
+    last one served. The quant-matmul on layer 0's weights and the lm_head
+    (an MoE model: each of the rank's experts' views) at the rank's decode
+    rows, x ~ N(0, 1) in bf16; the flat core on layer 0 with a random q
+    (not under sp: its merge is plain torch). Tolerances as in [kernel]: one
+    bf16 step at the largest output; 2e-3 of the output range."""
+    from tpuserve_torch.models.llama import KVCache, _expert_slice, pack_kv_codes
+    from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
+                                                     unpack_kv_codes)
+    from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
+    from tpuserve_torch.parallel.mesh import Mesh
+    from tpuserve_torch.parallel.sharding import (block_fingerprint, decode_attention_sharded,
+                                                  kernel_operand, local_llama_params,
+                                                  qmatmul_local, shard_cache, shard_llama_params)
+    from tpuserve_torch.quant.core import qmatmul
+
+    tp, dp, sp = sizes
+    p, full = weights.p, cache_engine.cache
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(17)
+    out = []
+    for r in range(tp * dp * sp):
+        mesh = Mesh(tp, dp, sp, r)
+        ti = mesh.coords["tp"]
+        blocks = shard_llama_params(weights.params, mesh)
+        if deltas is not None and block_fingerprint(blocks) != deltas[r]["param_fingerprint"]:
+            fail(f"[{tag}] rank {r}: its weight blocks' checksum differs from the cut of the "
+                 "one-rank engine's weights")
+        rows = weights.n_slots // dp
+        checks = {}
+
+        def hold(key, got, ref, tol):
+            err = (got.float() - ref.float()).abs().max().item()
+            if not err <= tol:
+                fail(f"[{tag}] rank {r}: {key}: max|kernel - plain| {err} > {tol}")
+            worst = checks.get(key, (0.0, tol))
+            checks[key] = (max(err, worst[0]), min(tol, worst[1]))
+
+        def x_for(k):
+            return torch.randn((rows, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+
+        for name in ("layers.0/wqkv/kernel", "layers.0/wo/kernel", "layers.0/w_gateup/kernel",
+                     "layers.0/w_down/kernel", "lm_head/kernel"):
+            if name not in blocks:
+                continue
+            qt = blocks[name]
+            k, n = qt.orig_shape
+            x = x_for(k)
+            ref = quant_matmul_plain(x, kernel_operand(qt, name, ti, tp))
+            hold(f"quant_matmul {k}x{n}", qmatmul_local(x, qt, name, ti, tp), ref,
+                 2 ** -7 * ref.float().abs().max().item())
+        for name in ("layers.0/moe_gateup/kernel", "layers.0/moe_down/kernel"):
+            if name not in blocks:
+                continue
+            stack = blocks[name]
+            for e in range(stack.n_experts):
+                view = _expert_slice(stack, e)
+                k, n = view.orig_shape
+                x = x_for(k)
+                ref = quant_matmul_plain(x, view)
+                hold(f"quant_matmul experts {stack.n_experts} {k}x{n}", qmatmul(x, view), ref,
+                     2 ** -7 * ref.float().abs().max().item())
+        if sp == 1:
+            kv = [full.k[:1], full.v[:1]]
+            if full.k.dtype == torch.uint8:   # a rank packs its own W/tp positions
+                kv = [pack_kv_codes(unpack_kv_codes(t), tp) for t in kv]
+            one = KVCache(k=kv[0], v=kv[1],
+                          k_scale=None if full.k_scale is None else full.k_scale[:1],
+                          v_scale=None if full.v_scale is None else full.v_scale[:1])
+            blk = shard_cache(one, mesh)
+            s_loc = blk.k.shape[1]
+            pos = torch.randint(0, pos_max + 1, (s_loc,), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+            pos[0] = pos_max
+            if s_loc > 1:
+                pos[-1] = -1
+            win = cache_engine._window(pos_max)
+            q = (torch.randn((s_loc, local_llama_params(p, mesh).n_heads, p.head_dim),
+                             generator=gen, device=DEVICE) / p.head_dim ** 0.5).to(torch.bfloat16)
+            ks, vs = (None, None) if blk.k_scale is None else (blk.k_scale[0], blk.v_scale[0])
+            ref = decode_attention_wide_cache_plain(q, blk.k, blk.v, ks, vs, pos, 0, window=win)
+            got = decode_attention_sharded(q, blk.k, blk.v, ks, vs, pos, 0, window=win)
+            hold(f"decode_attention {'x'.join(str(d) for d in blk.k.shape[1:])}", got, ref,
+                 2e-3 * ref.abs().max().item() + 1e-6)
+        out.append(dict(rank=r, checks=checks))
+        log(f"[{tag}] rank {r}: kernels against their plain versions on its blocks at its "
+            f"shard shapes (max|err|, tol): "
+            + "; ".join(f"{k} {e:.3g} ({t:.3g})" for k, (e, t) in checks.items()))
+    return out
+
+
+def _mesh_reference(torch, cfg, prompts, new, tag, env=()):
+    """The one-rank engine on the same weights (sharding off; the knobs
+    `env` set while it serves): its greedy tokens and logprobs for the same
+    concurrent requests; returns them with the manager, kept for the gate."""
+    from tpuserve_torch.engine.manager import InferenceManager
+
+    one = dict(cfg, name=cfg["name"] + "_one", sharding={})
+    mgr = InferenceManager(_write_repo(one), num_workers=1, device=DEVICE)
+    mgr.load_model(one["name"])
+    backend = mgr.get_model(one["name"]).backend
+    with contextlib.ExitStack() as stack:
+        for key, val in env:
+            stack.enter_context(env_set(key, val))
+        res = _mesh_wave(lambda i: backend.generate(prompts[i], max_new_tokens=new,
+                                                    logprobs=True), len(prompts),
+                         tag + " one-rank")[0]
+    return mgr, backend.engine, res
+
+
+def _mesh_wave(call, n, tag):
+    results, errors = [None] * n, []
+
+    def run(i):
+        try:
+            results[i] = call(i)
+        except Exception as e:  # recorded, then fatal below
+            errors.append(f"request {i}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(r is None for r in results):
+        fail(f"[{tag}] requests failed: {errors}")
+    return results, time.monotonic() - t0
+
+
+def _step_margins(torch, engine, p, prompt, shared):
+    """The one-rank engine's own step where a request parts: its prompt
+    admitted as the engine admits it (whole, or in prefill_chunk chunks) into
+    a one-slot cache of the engine's kind, then a decode step for each token
+    both runs drew. Returns the top-two gap of that step's logits and, for a
+    MoE model, the smallest gap over the layers between the token's k-th and
+    (k+1)-th router logits (a routing near tie)."""
+    from tpuserve_torch.models import llama
+
+    routes, real = [], llama.moe_combine_weights
+
+    def rec(logits, n_experts, k):
+        top = logits.reshape(-1, n_experts)[-1].float().sort(descending=True).values
+        routes.append((top[k - 1] - top[k]).item())
+        return real(logits, n_experts, k)
+
+    ec, n, cs = engine.cache, len(prompt), engine._chunk_size
+    cache = llama.KVCache.create(p, 1, engine.max_seq_len, quantized=ec.quantized,
+                                 scale_dtype=ec.k_scale.dtype if ec.quantized else torch.float32,
+                                 kv_bits=ec.kv_bits, device=DEVICE)
+    llama.moe_combine_weights = rec
+    try:
+        if cs and n > cs:
+            for c0 in range(0, n, cs):
+                m = min(cs, n - c0)
+                logits, _ = llama.prefill_chunk(
+                    engine.params, p, engine._tokens(prompt[c0:c0 + m], cs), cache, 0, c0, m,
+                    window=engine._bucket_len(min(c0 + cs, engine.max_seq_len)))
+        else:
+            logits, _ = llama.prefill(engine.params, p, engine._tokens(prompt, engine._bucket_len(n)),
+                                      cache, 0, n)
+        for j, tok in enumerate(shared):
+            del routes[:]
+            toks = torch.tensor([tok], dtype=torch.long, device=DEVICE)
+            pos = torch.tensor([n + j], dtype=torch.int32, device=DEVICE)
+            logits, _ = llama.decode_step(engine.params, p, toks, cache, pos,
+                                          window=engine._window(n + j))
+    finally:
+        llama.moe_combine_weights = real
+    top2 = logits[0].float().topk(2).values
+    return (top2[0] - top2[1]).item(), min(routes, default=None)
+
+
+def _mesh_gate(torch, engine, p, prompts, ref, got, tag):
+    """The sharded run's greedy tokens against the one-rank engine's. Along
+    the tokens both drew, their logprobs differ by dl at most (held under
+    0.05). A request whose tokens part is fatal unless they part on a near
+    tie (the wide-margin rule: random weights put near ties on some steps):
+    the one-rank engine's top two logits at that decode step (its int8 or
+    int4 KV included: a fresh prefill of the same tokens can rank them
+    otherwise) within 4 dl + 1/32, or, in a MoE model, two router logits at
+    the edge of the top-k within 1/32."""
+    dl, per = 0.0, []
+    for r, g in zip(ref, got):
+        d = _first_diff(r["generated_ids"], g["generated_ids"])
+        n = len(r["generated_ids"]) if d is None else d    # the tokens both drew
+        per.append((d, max([abs(a - b) for a, b in zip(r["logprobs"][:n], g["logprobs"][:n])],
+                           default=0.0)))
+        dl = max(dl, per[-1][1])
+    log(f"[{tag}] per request (first differing token, max |logprob diff| up to it): {per}")
+    if not dl <= 0.05:
+        fail(f"[{tag}] logprobs of the shared tokens differ from the one-rank engine's by {dl}")
+    margin, route_tol = 4 * dl + 1 / 32, 1 / 32
+    ties = []
+    for i, (prompt, r, (d, _)) in enumerate(zip(prompts, ref, per)):
+        if d is None:
+            continue
+        gap, route = _step_margins(torch, engine, p, list(prompt), r["generated_ids"][:d])
+        ties.append(dict(request=i, token=d, top2_gap=gap, route_gap=route))
+        if gap > margin and (route is None or route > route_tol):
+            fail(f"[{tag}] request {i}: sharded vs one-rank tokens differ at token {d}, a "
+                 f"clear step (top-two gap {gap:.4g} > {margin:.4g}; router top-k edge gap "
+                 f"{route})")
+    equal = sum(r["generated_ids"] == g["generated_ids"] for r, g in zip(ref, got))
+    log(f"[{tag}] {equal} of {len(ref)} requests token-equal to the one-rank engine; shared "
+        f"tokens' logprobs within {dl:.3g}; where they part (a near tie of the head, above "
+        f"{margin:.4g} fatal, or of the router, above {route_tol:.4g}): {ties}")
+    return dict(equal=equal, requests=len(ref), logprob_diff=dl, near_ties=ties)
+
+
+def phase_tp(torch, p, smi_line):
+    """[tp]: the slice's model (Llama-2-7B widths, 32 layers, int4 g128 from
+    seed 0, packed int4 KV packed per tp shard) at tensor_parallel 2, served
+    by two `python -m tpuserve_torch.server` processes joined by the
+    TPUSERVE_* variables (process 0 the REST front, process 1 its follower;
+    both on the card, gloo): a load and 4 concurrent greedy /generate
+    requests over REST, every rank's launches at the shard shapes and its
+    memory at load, rank 0's device time over one more request (the front's
+    /profile), then SIGINT; the one-rank engine's tokens on the same weights
+    after, and each kernel against its plain version on each rank's blocks
+    at its shard shapes."""
+    import signal
+
+    from tpuserve_torch.parallel.distributed import free_port
+
+    cfg = dict(_model_config(p), name="llama2_7b_int4_tp2", sharding={"tensor_parallel": 2})
+    prompts = _mesh_prompts(torch, p, (5, 90, 33, 150), 23)
+    new = 16
+    tmp = _write_repo(cfg)
+    port, rest = free_port(), free_port()
+    url = f"http://127.0.0.1:{rest}"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUSERVE_")}
+    env.update(TPUSERVE_COORDINATOR=f"127.0.0.1:{port}", TPUSERVE_NUM_PROCESSES="2",
+               TPUSERVE_DIST_TIMEOUT="300")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    logs = [os.path.join(OUT_DIR, f"tp_rank{r}.log") for r in range(2)]
+    procs = []
+    t_start = time.monotonic()
+    for r in range(2):
+        with open(logs[r], "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpuserve_torch.server", "--repository", tmp, "--host",
+                 "127.0.0.1", "--port", str(rest)], env=dict(env, TPUSERVE_PROCESS_ID=str(r)),
+                stdout=fh, stderr=subprocess.STDOUT))
+    name = cfg["name"]
+    try:
+        while True:
+            if any(pr.poll() is not None for pr in procs):
+                fail(f"[tp] a rank exited before the front answered; see {logs}")
+            try:
+                if _http("GET", url + "/health", timeout=10)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > t_start + 180:
+                fail(f"[tp] the front did not answer /health in 180 s; see {logs}")
+            time.sleep(0.5)
+        t0 = time.monotonic()
+        status, body = _http("POST", f"{url}/models/{name}/load")
+        load_s = time.monotonic() - t0
+        if status != 202:
+            fail(f"[tp] load answered {status}: {body}")
+
+        def serving():
+            status, body = _http("GET", url + "/metrics")
+            if status != 200:
+                fail(f"[tp] /metrics answered {status}: {body}")
+            return body["models"][f"{name}:1"]["serving"]
+
+        before = serving()
+        got, wall = _mesh_wave(lambda i: _http("POST", f"{url}/models/{name}/generate",
+                                              {"input_ids": prompts[i], "max_new_tokens": new,
+                                               "logprobs": True})[1], len(prompts), "tp")
+        after = serving()
+        if any("generated_ids" not in g or len(g["generated_ids"]) != new for g in got):
+            fail(f"[tp] a request did not return {new} tokens: {got}")
+        steps = after["decode_steps"] - before["decode_steps"]
+        prefills = after["prefill_calls"] - before["prefill_calls"]
+        deltas = _rank_deltas(before["ranks"], after["ranks"])
+        log(f"[tp] 2 CLI ranks ({after['mesh']}): load over REST {load_s:.1f} s; "
+            f"{len(prompts)} concurrent greedy requests of {new} tokens in {wall:.2f} s "
+            f"({len(prompts) * new / wall:.1f} tok/s); decode steps {steps}, prefill calls "
+            f"{prefills}")
+        _check_ranks("tp", deltas, 2, 4 * p.n_layers + 1, p.n_layers, steps, prefills,
+                     qmm_shapes=_qmm_shard_shapes(p, 2), smi_line=smi_line)
+        core = f"decode_attention 64x256x{p.n_kv_heads * p.head_dim // 4}"  # packed bytes
+        for d in deltas:
+            if d["shard_launches"].get(core, 0) != p.n_layers * steps:
+                fail(f"[tp] rank {d['rank']}: the core did not run on its {p.n_kv_heads // 2} "
+                     f"kv heads ({core}): {d['shard_launches']}")
+        profile = _tp_front_profile(url, name, prompts[0], p.n_layers, smi_line)
+        t0 = time.monotonic()
+        procs[0].send_signal(signal.SIGINT)
+        codes = [pr.wait(timeout=120) for pr in procs]
+        down_s = time.monotonic() - t0
+        if codes != [0, 0]:
+            fail(f"[tp] ranks exited {codes} on SIGINT; see {logs}")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait(timeout=60)
+    mgr, engine, ref = _mesh_reference(torch, cfg, prompts, new, "tp")
+    gate = _mesh_gate(torch, engine, p, prompts, ref, got, "tp")
+    checks = _shard_kernel_checks(torch, "tp", engine, engine, (2, 1, 1), deltas,
+                                  max(map(len, prompts)) + new - 2)
+    memory = _check_rank_memory("tp", deltas, engine._param_bytes, 2)
+    mgr.shutdown()
+    log(f"[tp] SIGINT: both ranks exit 0 in {down_s:.2f} s; card {smi_line}")
+    launches = dict(quant_matmul=sum(d["quant_matmul_launches"] for d in deltas),
+                    decode_attention=sum(d["decode_attention_launches"] for d in deltas))
+    return dict(launches=launches, ranks=deltas, decode_steps=steps, prefill_calls=prefills,
+                wall_s=wall, load_s=load_s, sigint_s=down_s, gate=gate, mesh=after["mesh"],
+                memory=memory, kernel_checks=checks, profile_rank0=profile)
+
+
+def _tp_front_profile(url, name, prompt, n_layers, smi_line):
+    """Rank 0's device time over one request through the front's
+    /profile/start and /profile/stop (torch.profiler in the front's process:
+    the follower rank's process is not traced): a prompt of its tokens and
+    8 new ones, one prefill and 7 decode steps. The Chrome trace's device
+    rows (kernels, copies, sets) summed, by kind, and the decode steps in it
+    counted by the flat core's launches."""
+    trace_dir = os.path.join(OUT_DIR, "tp_trace")
+    if _http("POST", url + "/profile/start", {"dir": trace_dir})[0] != 200:
+        fail("[tp] /profile/start")
+    t0 = time.monotonic()
+    status, body = _http("POST", f"{url}/models/{name}/generate",
+                         {"input_ids": prompt, "max_new_tokens": 8})
+    wall_ms = (time.monotonic() - t0) * 1e3
+    status, stopped = _http("POST", url + "/profile/stop")
+    if status != 200:
+        fail(f"[tp] /profile/stop: {status} {stopped}")
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    share = dict(quant_matmul=0.0, core=0.0, copies=0.0, other=0.0)
+    cores = 0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        key = e.get("name", "")
+        kind = "quant_matmul" if "qmm_" in key else "core" if "attn_core" in key \
+            else "copies" if e["cat"] == "gpu_memcpy" else "other"
+        share[kind] += e.get("dur", 0) / 1e3
+        cores += kind == "core"
+    subprocess.run(["rm", "-rf", trace_dir], check=False)
+    busy = sum(share.values())
+    steps = cores / n_layers
+    log(f"[tp] rank 0 profiled over one request (front's /profile; {steps:g} decode steps and "
+        f"its prefill): host clock {wall_ms:.1f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.2f}%): quant-matmul {share['quant_matmul']:.3f}, flat core "
+        f"{share['core']:.3f}, copies {share['copies']:.3f}, other {share['other']:.3f} ms; "
+        f"card {smi_line} (ranks share the card over gloo; rank 1 not traced)")
+    if not busy:
+        log("[tp] the profiler recorded no device time (not measured)")
+    return dict(host_ms=wall_ms, busy_ms=busy, decode_steps=steps,
+                **{f"{k}_ms": v for k, v in share.items()})
+
+
+def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, attn, shapes,
+                        ref_env=(), record=False):
+    """An engine-started mesh: InferenceManager loads cfg, whose engine
+    starts its follower ranks (logs in chiprun_out/<tag>_ranks/); a wave of
+    concurrent greedy requests with every rank's launches checked; unload
+    (the ranks exit); then the one-rank engine's tokens on the same weights
+    under the knobs ref_env (the sharded path's arithmetic), and with
+    `record` also on its defaults, as a record."""
+    from tpuserve_torch.engine.manager import InferenceManager
+
+    log_dir = os.path.join(OUT_DIR, f"{tag}_ranks")
+    with env_set("TPUSERVE_FOLLOWER_LOG_DIR", log_dir), env_set("TPUSERVE_DIST_TIMEOUT", "300"):
+        mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()   # rank 0 lives in this process
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        mgr.load_model(cfg["name"])
+        load_s = time.monotonic() - t0
+        engine = mgr.get_model(cfg["name"]).backend.engine
+        world = engine.mesh.size
+        before = engine.rank_stats()
+        s0, f0 = engine.steps, engine.prefill_calls
+        got, wall = _mesh_wave(lambda i: engine.generate(prompts[i], max_new_tokens=new,
+                                                         logprobs=True), len(prompts), tag)
+        steps, prefills = engine.steps - s0, engine.prefill_calls - f0
+        deltas = _rank_deltas(before, engine.rank_stats())
+        stats = engine.serving_stats()
+        log(f"[{tag}] {world} engine-started ranks ({stats['mesh']}): load {load_s:.1f} s; "
+            f"{len(prompts)} concurrent greedy requests of {new} tokens in {wall:.2f} s; decode "
+            f"steps {steps}, prefill calls {prefills}")
+        _check_ranks(tag, deltas, world, per_call, p.n_layers, steps, prefills,
+                     dp=engine.mesh.shape["dp"], attn=attn, qmm_shapes=shapes, smi_line=smi_line)
+        sizes = (engine.mesh.shape["tp"], engine.mesh.shape["dp"], engine.mesh.shape["sp"])
+        # every rank profiles the same decode dispatch of one more request
+        engine.profile_next_decode()
+        engine.generate(prompts[0], max_new_tokens=4)
+        profiles = [r["decode_profile"] and _profile_summary(r["decode_profile"])
+                    for r in engine.rank_stats()]
+        _log_profiles(tag, profiles, deltas, smi_line)
+        followers = list(engine._followers)
+        mgr.shutdown()
+        if any(f.poll() is None for f in followers) or any(f.returncode for f in followers):
+            fail(f"[{tag}] follower ranks did not exit cleanly: "
+                 f"{[f.returncode for f in followers]}; see {log_dir}")
+    ref_mgr, ref_engine, ref = _mesh_reference(torch, cfg, prompts, new, tag, ref_env)
+    with contextlib.ExitStack() as stack:
+        for key, val in ref_env:
+            stack.enter_context(env_set(key, val))
+        gate = _mesh_gate(torch, ref_engine, p, prompts, ref, got, tag)
+    checks = _shard_kernel_checks(torch, tag, ref_engine, ref_engine, sizes, deltas,
+                                  max(map(len, prompts)) + new - 2)
+    memory = _check_rank_memory(tag, deltas, ref_engine._param_bytes, sizes[0], base=(base,))
+    ref_mgr.shutdown()
+    if record:   # the one-rank engine on its defaults
+        ref_mgr, ref_engine, ref = _mesh_reference(torch, cfg, prompts, new, tag)
+        dl = max([abs(a - b) for r, g in zip(ref, got)
+                  for a, b in list(zip(r["logprobs"], g["logprobs"]))[
+                      :_first_diff(r["generated_ids"] + [-1], g["generated_ids"] + [-2])]],
+                 default=0.0)
+        equal = sum(r["generated_ids"] == g["generated_ids"] for r, g in zip(ref, got))
+        log(f"[{tag}] record: against the one-rank engine on its defaults, "
+            f"{equal} of {len(got)} requests token-equal, shared tokens' logprobs within "
+            f"{dl:.3g}")
+        gate["vs_defaults"] = dict(equal=equal, logprob_diff=dl)
+        ref_mgr.shutdown()
+    return dict(ranks=deltas, decode_steps=steps, prefill_calls=prefills, wall_s=wall,
+                load_s=load_s, gate=gate, mesh=stats["mesh"], memory=memory,
+                kernel_checks=checks, profiles=profiles,
+                launches=dict(quant_matmul=sum(d["quant_matmul_launches"] for d in deltas),
+                              decode_attention=sum(d["decode_attention_launches"]
+                                                   for d in deltas)))
+
+
+def phase_dp_sp(torch, p, smi_line, n_layers=8):
+    """[dp-sp]: the slice's widths cut to 8 layers with int8 KV on the 5D
+    cache, data_parallel 2 x sequence_parallel 2 (four engine-started ranks:
+    slots over dp, the L window of 256 over sp, the flash-decoding merge in
+    plain torch as the JAX island is XLA), prompts of 160 and 200 tokens
+    spanning both sp halves (admitted in chunks of 64). The merge's
+    arithmetic is the einsum path's (bf16 dots, no int8 q or P), so the
+    one-rank engine it is held to decodes under TPUSERVE_DECODE_ATTN=xla;
+    its distance from the engine on the flat core is recorded beside it."""
+    import dataclasses as dc
+
+    pc = dc.replace(p, n_layers=n_layers)
+    cfg = _model_config(pc)
+    cfg.update(name="llama2_7b_l8_dp2sp2", sharding={"data_parallel": 2, "sequence_parallel": 2})
+    cfg["quantization"] = dict(cfg["quantization"], kv_cache="int8")
+    prompts = _mesh_prompts(torch, p, (5, 160, 40, 200), 29)
+    return _engine_ranks_phase(torch, pc, smi_line, "dp-sp", cfg, prompts, 16,
+                               4 * pc.n_layers + 1, attn=False, shapes=_qmm_shard_shapes(pc, 1),
+                               ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),), record=True)
+
+
+def phase_mixtral_tp(torch, p_moe, smi_line, n_layers=4):
+    """[mixtral-tp]: the Mixtral-8x7B-width MoE at 4 layers, tensor_parallel
+    2 (two engine-started ranks): each rank holds 4 of the 8 experts (E over
+    tp) and launches only their views, the attention on its 4 kv heads (GQA
+    rep 4) over int8 KV. Over packed int4 KV a request parted from the
+    one-rank engine at a step whose top two lie 0.14 apart (an H100), so
+    packed int4 at a rank's width is held kernel against plain on a served
+    int4 cache instead (_mixtral_int4_record), beside a record of how far
+    int4 KV parts two roundings of the one-rank engine. Under a mesh every
+    expert runs over every row (the JAX package's mesh branch), so the
+    one-rank engine it is held to runs the dense loop too (TPUSERVE_MOE_CF=0:
+    its capacity dispatch drops the pairs past an expert's capacity)."""
+    import dataclasses as dc
+
+    pc = dc.replace(p_moe, n_layers=n_layers)
+    cfg = dict(_mixtral_config(pc), name="mixtral_l4_tp2", sharding={"tensor_parallel": 2})
+    cfg["quantization"] = dict(cfg["quantization"], kv_cache="int8")
+    prompts = _mesh_prompts(torch, p_moe, (5, 90, 33, 150), 31)
+    e_loc = pc.n_experts // 2
+    res = _engine_ranks_phase(torch, pc, smi_line, "mixtral-tp", cfg, prompts, 16,
+                              (2 + 2 * e_loc) * pc.n_layers + 1, attn=True,
+                              shapes=_qmm_shard_shapes(pc, 2),
+                              ref_env=(("TPUSERVE_MOE_CF", "0"),), record=True)
+    want = 2 * e_loc * pc.n_layers * (res["decode_steps"] + res["prefill_calls"])
+    experts = 0
+    for d in res["ranks"]:
+        own = d["shard_launches"].get(f"quant_matmul experts {e_loc}", 0)
+        if own != want:
+            fail(f"[mixtral-tp] rank {d['rank']}: {own} expert-view launches, not {want} "
+                 f"(its {e_loc} experts' gate|up and down, a layer a call): "
+                 f"{d['shard_launches']}")
+        experts += own
+    res["launches"] = dict(quant_matmul=res["launches"]["quant_matmul"] - experts,
+                           quant_matmul_experts=experts,
+                           decode_attention_gqa=res["launches"]["decode_attention"])
+    log(f"[mixtral-tp] each rank launched only its {e_loc} experts' views: {want} a rank")
+    res["int4"] = _mixtral_int4_record(torch, pc, cfg, prompts, 16, res["ranks"])
+    return res
+
+
+def _mixtral_int4_record(torch, pc, cfg, prompts, new, deltas):
+    """Packed int4 KV, as [mixtral] serves it: the one-rank engine (dense
+    MoE loop) serves the requests; the flat core at a rank's 4 kv heads
+    (64x256x256 packed bytes) is held against its plain version on each
+    rank's block of that served cache, packed as a rank packs it. As a
+    record, with no shard at all: the same engine under TPUSERVE_QMATMUL=xla
+    (dequantize to bf16, then torch.matmul: the same model at another
+    rounding), where its tokens part from the kernel route's, and the
+    kernel route's top-two gap at that step beside the gate's margin."""
+    cfg4 = dict(cfg, name=cfg["name"] + "_int4")
+    cfg4["quantization"] = dict(cfg["quantization"], kv_cache="int4")
+    dense = (("TPUSERVE_MOE_CF", "0"),)
+    mgr, engine, ref = _mesh_reference(torch, cfg4, prompts, new, "mixtral-tp int4", dense)
+    checks = _shard_kernel_checks(torch, "mixtral-tp int4", engine, engine, (2, 1, 1), deltas,
+                                  max(map(len, prompts)) + new - 2)
+    with env_set("TPUSERVE_MOE_CF", "0"):
+        with env_set("TPUSERVE_QMATMUL", "xla"):
+            other = _mesh_wave(lambda i: engine.generate(prompts[i], max_new_tokens=new,
+                                                         logprobs=True),
+                               len(prompts), "mixtral-tp int4 xla")[0]
+        parts, dl = [], 0.0
+        for i, (a, b) in enumerate(zip(ref, other)):
+            d = _first_diff(a["generated_ids"], b["generated_ids"])
+            n = len(a["generated_ids"]) if d is None else d
+            dl = max([dl] + [abs(x - y) for x, y in zip(a["logprobs"][:n], b["logprobs"][:n])])
+            if d is not None:
+                gap, route = _step_margins(torch, engine, pc, list(prompts[i]),
+                                           a["generated_ids"][:d])
+                parts.append(dict(request=i, token=d, top2_gap=gap, route_gap=route))
+    margin = 4 * dl + 1 / 32
+    log(f"[mixtral-tp int4] record, one rank, packed int4 KV: the quant-matmul kernel route "
+        f"against TPUSERVE_QMATMUL=xla: {len(prompts) - len(parts)} of {len(prompts)} requests "
+        f"token-equal, shared tokens' logprobs within {dl:.3g}; where they part: {parts}; "
+        f"the gate's margin would be {margin:.4g} (a part at a top-two gap above it, with no "
+        "router near tie, fails the sharded gate)")
+    mgr.shutdown()
+    return dict(kernel_checks=checks, xla_parts=parts, xla_logprob_diff=dl, margin=margin)
+
+
 def _paged_model_config(p):
     """bench.py's paged setting (TPUSERVE_BENCH_PAGED=1: int8 pool,
     page_size 128, num_pages 0 = n_slots * pages per slot + 1), with prefix
@@ -4668,6 +5357,16 @@ def main() -> None:
     mixtral_res = phase_mixtral(torch, p_moe, smi_line)
     results["quant_matmul_experts"]["launches"] = mixtral_res["launches"]["quant_matmul"]
     results["decode_attention_gqa"]["launches"] = mixtral_res["launches"]["decode_attention"]
+    # sharded serving: ranks that share the card over gloo, each counting
+    # its own launches at the shard shapes (the controller gathers them)
+    tp_res = phase_tp(torch, p, smi_line)
+    dp_sp_res = phase_dp_sp(torch, p, smi_line)
+    mixtral_tp_res = phase_mixtral_tp(torch, p_moe, smi_line)
+    for tag, res_ in (("tp", tp_res), ("dp-sp", dp_sp_res), ("mixtral-tp", mixtral_tp_res)):
+        for name_, launched in res_["launches"].items():
+            entry = results[name_]
+            entry.setdefault("launches_by_path", {"mixtral": entry["launches"]})[tag] = launched
+            entry["launches"] += launched
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
     w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
@@ -4845,6 +5544,7 @@ def main() -> None:
                    "spec_paged": spec_paged_res, "grouped": grouped_res,
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
+                   "tp": tp_res, "dp_sp": dp_sp_res, "mixtral_tp": mixtral_tp_res,
                    "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,

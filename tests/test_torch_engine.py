@@ -154,18 +154,21 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("overrides,ported", [
     ({"generation.paged": True, "generation.speculation_tokens": 4}, True),
     ({"generation.speculation_tokens": 4}, True),
-    ({"sharding.tensor_parallel": 2}, False),
+    ({"sharding.tensor_parallel": 2}, True),
     ({"quantization.method": "gptq"}, True),
     ({"quantization.method": "gptq", "quantization.lowrank_correction": 16}, True),
     ({"model_params.n_experts": 4}, True),
+    ({"sharding.pipeline_parallel": 2}, False),
 ], ids=["generation.paged-True", "generation.speculation_tokens-4",
         "sharding.tensor_parallel-2", "quantization.method-gptq",
-        "quantization.lowrank_correction-16", "model_params.n_experts-4"])
+        "quantization.lowrank_correction-16", "model_params.n_experts-4",
+        "sharding.pipeline_parallel-2"])
 def test_unported_configurations_raise(tmp_path, overrides, ported):
     """Unported parts raise instead of running something else. Speculative
-    decoding, paged or contiguous, MoE, GPTQ and LoRC are ported: their
+    decoding, paged or contiguous, MoE, GPTQ, LoRC and tensor parallelism
+    (the engine's own follower rank, which fails alike) are ported: their
     configurations pass the check and go on to load the model (which fails
-    here: the directory holds no checkpoint)."""
+    here: the directory holds no checkpoint). pipeline_parallel is not."""
     cfg = _config("unported")
     for field, value in overrides.items():
         section, key = field.split(".")
@@ -179,8 +182,8 @@ def test_import_leaves_jax_out():
     """`import tpuserve_torch`, its serving stack, its quantizers (GPTQ), its
     front (REST, gRPC, the CLI, the soak script), its accuracy script, the
     model zoo (the registry with its builtins), the four backends, the ONNX
-    importer, the fixtures and the batcher import neither JAX nor any
-    module of the JAX package."""
+    importer, the fixtures, the batcher and sharded serving (parallel/, the
+    follower) import neither JAX nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
@@ -199,6 +202,8 @@ def test_import_leaves_jax_out():
         "from tpuserve_torch.engine import jax_backend, onnx_backend, torch_backend, batcher\n"
         "import tpuserve_torch.onnx, tpuserve_torch.onnx.proto, tpuserve_torch.onnx.importer\n"
         "import tpuserve_torch.fixtures, tpuserve_torch.utils.checkpoint\n"
+        "from tpuserve_torch.parallel import mesh, sharding, distributed, dispatcher\n"
+        "import tpuserve_torch.server.follower\n"
         "registry._ensure_builtins()\n"
         "assert {'mlp', 'bert', 'densenet121', 'resnet50', 'llama'} <= "
         "set(registry.known_architectures())\n"

@@ -7,7 +7,7 @@ front (its kernels in Pallas interpret mode) and to the port's, with equal
 status codes, equal JSON key sets and equal greedy tokens and streams; and
 the CLI, `python -m tpuserve_torch.server`, in subprocesses: on the CPU, on
 the card by default (where a load fails here and nothing runs on the CPU),
-and refusing multi-host serving.
+and refusing an incomplete multi-process setting.
 """
 
 import asyncio
@@ -592,12 +592,15 @@ def test_cli_default_platform_never_serves_on_cpu(repo, tmp_path):
 
 
 def test_cli_refuses_multihost(repo):
+    """A coordinator without the process count and id is refused at start
+    (the multi-process form itself is tests/test_torch_multihost.py's)."""
     res = subprocess.run(
         [sys.executable, "-m", "tpuserve_torch.server", "--platform", "cpu", "--repository",
          repo], cwd=REPO, env=_env(TPUSERVE_COORDINATOR="127.0.0.1:1"),
         capture_output=True, text=True, timeout=DEADLINE)
     assert res.returncode != 0
-    assert "multi-host serving is not ported to tpuserve_torch" in res.stderr
+    assert "multi-process serving: TPUSERVE_COORDINATOR, TPUSERVE_NUM_PROCESSES and " \
+        "TPUSERVE_PROCESS_ID must all be set" in res.stderr
 
 
 @pytest.mark.parametrize("value,device", [

@@ -77,14 +77,16 @@ def numpy_weights(seed=0):
 
 def write_model(root, name, cfg, seed=0):
     """One version dir holding config.json and a model.safetensors written
-    from a numpy seed. The spread of the weights makes greedy margins far
+    from a numpy seed, at the config's model_params (SMALL's where it names
+    none). The spread of the weights makes greedy margins far
     larger than the two packages' rounding differences."""
     from safetensors.numpy import save_file
 
     rng = np.random.default_rng(seed)
-    d, f, v = SMALL["dim"], SMALL["ffn_dim"], SMALL["vocab_size"]
-    qd = SMALL["n_heads"] * SMALL["head_dim"]
-    kvd = SMALL["n_kv_heads"] * SMALL["head_dim"]
+    dims = dict(SMALL, **{k: v for k, v in cfg.get("model_params", {}).items() if k in SMALL})
+    d, f, v = dims["dim"], dims["ffn_dim"], dims["vocab_size"]
+    qd = dims["n_heads"] * dims["head_dim"]
+    kvd = dims["n_kv_heads"] * dims["head_dim"]
 
     def n(*shape, std):
         return (rng.normal(size=shape) * std).astype(np.float32)
@@ -100,7 +102,7 @@ def write_model(root, name, cfg, seed=0):
     perm = rng.permutation(v)
     w = {"embed/weight": emb, "final_norm/scale": np.ones((d,), np.float32),
          "lm_head/kernel": np.ascontiguousarray(emb[perm].T / np.sqrt(d))}
-    for l in range(SMALL["n_layers"]):
+    for l in range(dims["n_layers"]):
         pre = f"layers.{l}"
         w[f"{pre}/attn_norm/scale"] = np.ones((d,), np.float32)
         w[f"{pre}/mlp_norm/scale"] = np.ones((d,), np.float32)

@@ -71,6 +71,7 @@ class InferenceManager:
         self._models: Dict[_Key, Model] = {}
         self._states: Dict[_Key, ModelState] = {}
         self._last_error: Optional[str] = None
+        self._sharded_keys: Dict[_Key, bool] = {}  # per load: does it run on a mesh
         self._tasks: "queue.Queue[Optional[Callable[[], None]]]" = queue.Queue()
         self._workers: List[threading.Thread] = []
         self._shutdown = False
@@ -187,14 +188,34 @@ class InferenceManager:
 
     def _begin_load(self, name: str, version: Optional[str]) -> _Key:
         key = self._resolve(name, version)  # raises ModelNotFoundError
+        sharded = self._sharded(key)
         with self._lock:
             state = self._states.get(key, ModelState.UNLOADED)
             if state == ModelState.LOADED:
                 raise ModelAlreadyLoadedError(f"Model {key[0]}:{key[1]} already loaded")
             if state in (ModelState.LOADING, ModelState.UNLOADING):
                 raise TpuServeError(f"Model {key[0]}:{key[1]} is busy ({state.value})")
+            # under a mesh, one model at a time: the ranks' event bus is one
+            # ordered stream and the active mesh is the process's
+            live = [k for k, st in self._states.items() if k != key and st in (
+                ModelState.LOADED, ModelState.LOADING, ModelState.UNLOADING)]
+            if live and (sharded or any(self._sharded_keys.get(k) for k in live)):
+                raise TpuServeError(
+                    "a sharded model is served alone: unload "
+                    + ", ".join(f"{k[0]}:{k[1]}" for k in live) + " first")
+            self._sharded_keys[key] = sharded
             self._states[key] = ModelState.LOADING
         return key
+
+    def _sharded(self, key: _Key) -> bool:
+        """Whether a model's config asks for a mesh of more than one rank."""
+        try:
+            shard = self.repository.get_config(*key).sharding
+        except Exception:  # the load reports a bad config itself
+            return False
+        return (shard.tensor_parallel * shard.data_parallel
+                * int(getattr(shard, "sequence_parallel", 1) or 1)
+                * int(getattr(shard, "pipeline_parallel", 1) or 1)) > 1
 
     def _do_load(self, key: _Key) -> Model:
         """≙ LoadModelInternal (inference_manager.cpp:283-390)."""

@@ -55,10 +55,11 @@ def params_from_numpy(tree: Mapping[str, object], device="cuda") -> Dict[str, ob
 
 def kv_cache_from_numpy(k, v, k_scale: Optional[np.ndarray] = None,
                         v_scale: Optional[np.ndarray] = None, device="cuda") -> KVCache:
-    """Flat-layout cache state (k/v [n_layers, S, L, W or W/2], head-major
-    scales [n_layers, S, Hkv, L] or None) -> KVCache."""
-    if np.asarray(k).ndim != 4:
-        raise ValueError("only the flat [n_layers, S, L, W] cache layout is ported")
+    """Cache state (k/v flat [n_layers, S, L, W or W/2] or 5D [n_layers, S,
+    L, Hkv, hd], head-major scales [n_layers, S, Hkv, L] or None) -> KVCache
+    of the same layout."""
+    if np.asarray(k).ndim not in (4, 5):
+        raise ValueError("a cache is [n_layers, S, L, W] or [n_layers, S, L, Hkv, hd]")
     return KVCache(
         k=tensor_from_numpy(k, device), v=tensor_from_numpy(v, device),
         k_scale=None if k_scale is None else tensor_from_numpy(k_scale, device),

@@ -6,7 +6,9 @@ interface. `build()` compiles each `.cu` file with its own `nvcc` process
 library and `lib()` loads it with ctypes. The build runs at first use, never
 at import, into `build/tpuserve_torch/` at the repository root; the library
 name carries a hash of the sources and flags, so an edited source is
-rebuilt.
+rebuilt. Processes that start together (the ranks of a sharded model) take
+turns: the check-and-build holds an exclusive lock on a file in the build
+directory, so one of them compiles and the others find its library.
 
 Every wrapper allocates its outputs with torch, launches on PyTorch's
 current stream and raises through `check()` when the C function returns a
@@ -15,8 +17,10 @@ CUDA error (a refused launch never runs, so it must be caught here).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -87,6 +91,17 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _build_lock(out_dir: Path):
+    """An exclusive lock across processes (flock on a file in out_dir)."""
+    with open(out_dir / ".build.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build(force: bool = False) -> BuildInfo:
     """Compile (if needed) and return where the library is and what nvcc said."""
     global _info
@@ -96,37 +111,44 @@ def build(force: bool = False) -> BuildInfo:
         out_dir = BUILD_DIR
         out_dir.mkdir(parents=True, exist_ok=True)
         so = out_dir / f"libtpuserve_torch_{_digest()}.so"
-        if so.exists() and not force:
-            _info = BuildInfo(str(so), 0.0, {})
+        with _build_lock(out_dir):
+            if so.exists() and not force:
+                _info = BuildInfo(str(so), 0.0, {})
+                return _info
+            _info = _compile(out_dir, so)
             return _info
-        nvcc = _nvcc()
-        t0 = time.monotonic()
-        procs = []
-        for name in SOURCES:
-            obj = out_dir / (name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(obj)]
-            procs.append((name, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log: Dict[str, str] = {}
-        failed: List[str] = []
-        for name, _, proc in procs:
-            out, _ = proc.communicate()
-            log[name] = out
-            if proc.returncode != 0:
-                failed.append(name)
-        if failed:
-            detail = "\n".join(f"--- {n}\n{log[n]}" for n in failed)
-            raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
-        tmp = out_dir / f"{so.name}.tmp{os.getpid()}"
-        link = subprocess.run(
-            [nvcc, "-gencode", ARCH, "-shared", "-o", str(tmp)]
-            + [str(obj) for _, obj, _ in procs] + ["-ldl"],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        os.replace(tmp, so)
-        _info = BuildInfo(str(so), time.monotonic() - t0, log)
-        return _info
+
+
+def _compile(out_dir: Path, so: Path) -> BuildInfo:
+    """Every source through its own nvcc, all at once, then the link (run
+    under the build lock)."""
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    procs = []
+    for name in SOURCES:
+        obj = out_dir / (name + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log: Dict[str, str] = {}
+    failed: List[str] = []
+    for name, _, proc in procs:
+        out, _ = proc.communicate()
+        log[name] = out
+        if proc.returncode != 0:
+            failed.append(name)
+    if failed:
+        detail = "\n".join(f"--- {n}\n{log[n]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+    tmp = out_dir / f"{so.name}.tmp{os.getpid()}"
+    link = subprocess.run(
+        [nvcc, "-gencode", ARCH, "-shared", "-o", str(tmp)]
+        + [str(obj) for _, obj, _ in procs] + ["-ldl"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so)
+    return BuildInfo(str(so), time.monotonic() - t0, log)
 
 
 def lib() -> ctypes.CDLL:

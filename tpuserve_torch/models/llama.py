@@ -20,8 +20,10 @@ single-device path).
   verify_step_paged; each returns (logits, cache); draft_lookup drafts
   speculative candidates from the token history on the device;
   Llama.apply gives whole-sequence logits (the accuracy script's path);
-- the KV cache in the flat layout only: k/v [n_layers, S, L, Hkv*hd] (int8,
-  packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L];
+- the KV cache in the flat layout k/v [n_layers, S, L, Hkv*hd] (int8,
+  packed int4, bf16 or f32) with head-major scales [n_layers, S, Hkv, L],
+  or the 5D layout [n_layers, S, L, Hkv, hd] that sequence parallelism
+  reads (KVCache.create(flat=False));
   paged pools [n_layers, n_pages, ps, Hkv*hd] with f32 scale pools
   [n_layers, n_pages, pad8(Hkv), ps]. JAX updates caches functionally;
   here they are written in place.
@@ -35,6 +37,16 @@ the grouped kernel, and any other value ("xla") attends with the einsums of
 Kernels run as CUDA kernels on the card and as their plain versions on the
 CPU. The paged verify attends over the gathered window in plain torch in
 every mode, as the JAX package leaves it to XLA.
+
+Under a live mesh (parallel/sharding.py's active mesh: the sharded engine's
+ranks) prefill, prefill_chunk and decode_step run one rank's part: its
+blocks of the weights and of the cache, the tp-sharded projections through
+the per-shard quant-matmul (column shards' outputs gathered over tp, row
+shards' partials summed), MoE experts over tp, decode attention on the
+rank's slots and kv heads through the flat core, or over its L window with
+the flash-decoding merge under sp. Inputs and outputs stay global (tokens
+and positions of every slot, logits [S, V]): a prefill runs on the slot's
+dp group and the others add zeros to its logits.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from tpuserve_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_wide_cache_multi,
                                                  decode_attention_wide_paged,
                                                  unpack_kv_codes)
+from tpuserve_torch.parallel import sharding
 from tpuserve_torch.quant.core import QExperts, QTensor, qmatmul, true_div
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.utils.device import resolve_device
@@ -123,43 +136,50 @@ def active_param_count(p: LlamaParams) -> int:
 
 # ---------------------------------------------------------------------- weights
 def init_params(p: LlamaParams, dtype=torch.bfloat16, device="cuda",
-                seed: int = 0) -> Dict[str, torch.Tensor]:
+                seed: int = 0, keep=None) -> Dict[str, torch.Tensor]:
     """Random-init weights (flat dict) from a seeded torch.Generator on
     `device`. Serving normally loads a checkpoint; this exists for tests and
     fixtures. (The JAX PRNG cannot be reproduced: tests carry JAX's weights
-    across with interop.params_from_numpy instead.)"""
+    across with interop.params_from_numpy instead.) Each tensor passes
+    through `keep(name, tensor)` as it is drawn (a sharded rank moves it to
+    the host there; the draws are the same either way)."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
     std = 0.02
+    params: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        params[name] = t if keep is None else keep(name, t)
 
     def normal(*shape):
         return (torch.randn(shape, generator=generator, device=dev) * std).to(dtype)
 
-    params: Dict[str, torch.Tensor] = {
-        "embed/weight": normal(p.vocab_size, p.dim),
-        "final_norm/scale": torch.ones((p.dim,), dtype=dtype, device=dev),
-    }
+    def ones():
+        return torch.ones((p.dim,), dtype=dtype, device=dev)
+
+    put("embed/weight", normal(p.vocab_size, p.dim))
+    put("final_norm/scale", ones())
     if not p.tie_embeddings:
-        params["lm_head/kernel"] = normal(p.dim, p.vocab_size)
+        put("lm_head/kernel", normal(p.dim, p.vocab_size))
     qd = p.n_heads * p.head_dim
     kvd = p.n_kv_heads * p.head_dim
     for l in range(p.n_layers):
         pre = f"layers.{l}"
-        params[f"{pre}/attn_norm/scale"] = torch.ones((p.dim,), dtype=dtype, device=dev)
-        params[f"{pre}/wq/kernel"] = normal(p.dim, qd)
-        params[f"{pre}/wk/kernel"] = normal(p.dim, kvd)
-        params[f"{pre}/wv/kernel"] = normal(p.dim, kvd)
-        params[f"{pre}/wo/kernel"] = normal(qd, p.dim)
-        params[f"{pre}/mlp_norm/scale"] = torch.ones((p.dim,), dtype=dtype, device=dev)
+        put(f"{pre}/attn_norm/scale", ones())
+        put(f"{pre}/wq/kernel", normal(p.dim, qd))
+        put(f"{pre}/wk/kernel", normal(p.dim, kvd))
+        put(f"{pre}/wv/kernel", normal(p.dim, kvd))
+        put(f"{pre}/wo/kernel", normal(qd, p.dim))
+        put(f"{pre}/mlp_norm/scale", ones())
         if p.n_experts:
-            params[f"{pre}/router/kernel"] = normal(p.dim, p.n_experts)
-            params[f"{pre}/moe_gateup/kernel"] = normal(p.n_experts, p.dim, 2 * p.ffn_dim)
-            params[f"{pre}/moe_down/kernel"] = normal(p.n_experts, p.ffn_dim, p.dim)
+            put(f"{pre}/router/kernel", normal(p.dim, p.n_experts))
+            put(f"{pre}/moe_gateup/kernel", normal(p.n_experts, p.dim, 2 * p.ffn_dim))
+            put(f"{pre}/moe_down/kernel", normal(p.n_experts, p.ffn_dim, p.dim))
         else:
-            params[f"{pre}/w_gate/kernel"] = normal(p.dim, p.ffn_dim)
-            params[f"{pre}/w_up/kernel"] = normal(p.dim, p.ffn_dim)
-            params[f"{pre}/w_down/kernel"] = normal(p.ffn_dim, p.dim)
+            put(f"{pre}/w_gate/kernel", normal(p.dim, p.ffn_dim))
+            put(f"{pre}/w_up/kernel", normal(p.dim, p.ffn_dim))
+            put(f"{pre}/w_down/kernel", normal(p.ffn_dim, p.dim))
     return params
 
 
@@ -188,9 +208,21 @@ def _lorc(params: Dict, name: str, x: torch.Tensor, out: torch.Tensor) -> torch.
     return (out.to(torch.float32) + corr).to(out.dtype)
 
 
+def _mesh():
+    """The live mesh of more than one rank, or None."""
+    mesh = sharding.active_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def _mm(params: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    """Name-keyed matmul: LoRC applies to QTensor weights only."""
+    """Name-keyed matmul: LoRC applies to QTensor weights only. Under a live
+    mesh, the rank's weight block through the per-shard body (row shards
+    summed over tp)."""
     w = params[name]
+    mesh = _mesh()
+    if mesh is not None:
+        sharded = sharding.qmatmul_sharded if isinstance(w, QTensor) else sharding.matmul_sharded
+        return sharded(x, w, name, mesh)
     if isinstance(w, QTensor):
         return _lorc(params, name, x, qmatmul(x, w))
     return _mm_w(x, w)
@@ -242,12 +274,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------- kv cache
 @dataclasses.dataclass
 class KVCache:
-    """Contiguous per-slot KV cache in the flat layout.
+    """Contiguous per-slot KV cache.
 
-    k/v: [n_layers, S, L, W], W = n_kv_heads*head_dim — int8, bf16/f32, or
-    packed int4 (uint8 [.., W/2], see pack_kv_codes). k_scale/v_scale:
-    [n_layers, S, n_kv_heads, L] (head-major; quantized caches only, else
-    None), f32 or bf16. The decode kernel reads all of it in place.
+    k/v: flat [n_layers, S, L, W], W = n_kv_heads*head_dim — int8, bf16/f32,
+    or packed int4 (uint8 [.., W/2], see pack_kv_codes) — or 5D [n_layers,
+    S, L, n_kv_heads, head_dim] (int8 or float; the layout sequence
+    parallelism reads, as in the JAX package; its rows are the same bytes,
+    `rows()` views them flat). k_scale/v_scale: [n_layers, S, n_kv_heads, L]
+    (head-major; quantized caches only, else None), f32 or bf16. The decode
+    kernel reads all of it in place.
     """
 
     k: torch.Tensor
@@ -258,6 +293,14 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def flat(self) -> bool:
+        return self.k.dim() == 4
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """k or v as flat rows [n_layers, S, L, W] (a view of a 5D cache)."""
+        return t if t.dim() == 4 else t.flatten(-2)
 
     @property
     def max_len(self) -> int:
@@ -281,14 +324,15 @@ class KVCache:
     @classmethod
     def create(cls, p: LlamaParams, n_slots: int, max_len: int, quantized: bool,
                dtype=torch.bfloat16, scale_dtype=torch.float32, kv_bits: int = 8,
-               device="cuda") -> "KVCache":
+               device="cuda", flat: bool = True) -> "KVCache":
         dev = resolve_device(device)
         w = p.n_kv_heads * p.head_dim
-        shape = (p.n_layers, n_slots, max_len, w)
+        shape = (p.n_layers, n_slots, max_len, w) if flat \
+            else (p.n_layers, n_slots, max_len, p.n_kv_heads, p.head_dim)
         scale_shape = (p.n_layers, n_slots, p.n_kv_heads, max_len)
         if kv_bits == 4:
-            if not quantized:
-                raise ValueError("kv_bits=4 requires a quantized cache")
+            if not (quantized and flat):
+                raise ValueError("kv_bits=4 requires a quantized flat cache")
             if w % 2:
                 raise ValueError("kv_bits=4 requires an even n_kv_heads*head_dim")
             shape = shape[:-1] + (w // 2,)
@@ -321,15 +365,20 @@ def _quantize_kv_cache(cache: KVCache, x: torch.Tensor):
     return _quantize_kv(x, 7.0 if cache.k.dtype == torch.uint8 else 127.0)
 
 
-def pack_kv_codes(codes: torch.Tensor) -> torch.Tensor:
-    """int8 codes in [-8, 7] [..., W] -> packed uint8 [..., W/2], global
-    split-half along the last dim: byte d holds positions d (low nibble) and
-    W/2 + d (high nibble), offset-8 — the layout the decode kernel reads
-    (the JAX package's pack_chunks=1; per-shard chunks wait for tp)."""
-    half = codes.shape[-1] // 2
-    lo = codes[..., :half].to(torch.int32) + 8
-    hi = codes[..., half:].to(torch.int32) + 8
-    return (lo | (hi << 4)).to(torch.uint8)
+def pack_kv_codes(codes: torch.Tensor, chunks: int = 1) -> torch.Tensor:
+    """int8 codes in [-8, 7] [..., W] -> packed uint8 [..., W/2], split-half
+    along the last dim per chunk: within each of `chunks` equal slices of W,
+    byte d holds positions d (low nibble) and Wc/2 + d (high nibble),
+    offset-8. chunks=1 is the global split-half the decode kernel reads;
+    chunks=tp is the JAX package's sharded cache, whose byte slice
+    [(W/2)/tp] on each tp rank is that rank's own W/tp positions packed with
+    chunks=1 (a rank's cache is packed so, locally)."""
+    w = codes.shape[-1]
+    x = codes.reshape(codes.shape[:-1] + (chunks, w // chunks))
+    half = w // chunks // 2
+    lo = x[..., :half].to(torch.int32) + 8
+    hi = x[..., half:].to(torch.int32) + 8
+    return (lo | (hi << 4)).to(torch.uint8).reshape(codes.shape[:-1] + (w // 2,))
 
 
 def _pad_heads(x: torch.Tensor, hp: int) -> torch.Tensor:
@@ -368,16 +417,22 @@ def _write_pages(cache, layer: int, pages, offsets, k, v) -> None:
         cache.v_scale[layer][pages, :, offsets] = _pad_heads(vs, hp).to(cache.v_scale.dtype)
 
 
-def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, k, v) -> None:
+def _write_slot_kv(cache: KVCache, layer: int, slot: int, start: int, k, v,
+                   l_off: int = 0) -> None:
     """Write K/V [C, Hkv, hd] in place at (layer, slot, start..start+C),
-    quantizing (and packing) for an int8/int4 cache."""
-    kq, vq, ks, vs = _kv_rows(cache, k, v)
-    c = kq.shape[0]
-    cache.k[layer, slot, start:start + c] = kq
-    cache.v[layer, slot, start:start + c] = vq
+    quantizing (and packing) for an int8/int4 cache. A cache that holds
+    the L window [l_off, l_off + max_len) of the sequence (an sp rank's)
+    keeps the rows that fall inside it."""
+    a, b = max(start, l_off), min(start + k.shape[0], l_off + cache.max_len)
+    if a >= b:
+        return
+    kq, vq, ks, vs = _kv_rows(cache, k[a - start:b - start], v[a - start:b - start])
+    a, b = a - l_off, b - l_off
+    cache.rows(cache.k)[layer, slot, a:b] = kq
+    cache.rows(cache.v)[layer, slot, a:b] = vq
     if ks is not None:
-        cache.k_scale[layer, slot, :, start:start + c] = ks.t().to(cache.k_scale.dtype)
-        cache.v_scale[layer, slot, :, start:start + c] = vs.t().to(cache.v_scale.dtype)
+        cache.k_scale[layer, slot, :, a:b] = ks.t().to(cache.k_scale.dtype)
+        cache.v_scale[layer, slot, :, a:b] = vs.t().to(cache.v_scale.dtype)
 
 
 def _attend_window(q, k_rows, v_rows, k_scale, v_scale, mask, p: LlamaParams):
@@ -501,27 +556,41 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn, mm=None):
     mm = mm or _mm
     qd = p.n_heads * p.head_dim
     kvd = p.n_kv_heads * p.head_dim
+    mesh = _mesh()
+    # under tp the column shards' outputs are gathered, then each rank takes
+    # its heads (and its ffn columns), as GSPMD reshards them in the JAX package
+    full = (lambda y: mesh.gather(y, "tp")) if mesh is not None else (lambda y: y)
     h = rms_norm(params, f"{pre}/attn_norm", x, p.rms_eps)
     if f"{pre}/wqkv/kernel" in params:
-        qkv = mm(params, f"{pre}/wqkv/kernel", h)
+        qkv = full(mm(params, f"{pre}/wqkv/kernel", h))
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q = mm(params, f"{pre}/wq/kernel", h)
-        k = mm(params, f"{pre}/wk/kernel", h)
-        v = mm(params, f"{pre}/wv/kernel", h)
+        q = full(mm(params, f"{pre}/wq/kernel", h))
+        k = full(mm(params, f"{pre}/wk/kernel", h))
+        v = full(mm(params, f"{pre}/wv/kernel", h))
+    if mesh is not None:
+        q, k, v = (_tp_part(t, mesh) for t in (q, k, v))
     attn_out = attn_fn(q, k, v)
     x = x + mm(params, f"{pre}/wo/kernel", attn_out)
     h = rms_norm(params, f"{pre}/mlp_norm", x, p.rms_eps)
     if p.n_experts:
         return x + _moe_ffn(params, pre, h, p, mm=mm)
     if f"{pre}/w_gateup/kernel" in params:
-        gateup = mm(params, f"{pre}/w_gateup/kernel", h)
+        gateup = full(mm(params, f"{pre}/w_gateup/kernel", h))
         gate, up = gateup[..., :p.ffn_dim], gateup[..., p.ffn_dim:]
     else:
-        gate = mm(params, f"{pre}/w_gate/kernel", h)
-        up = mm(params, f"{pre}/w_up/kernel", h)
+        gate = full(mm(params, f"{pre}/w_gate/kernel", h))
+        up = full(mm(params, f"{pre}/w_up/kernel", h))
+    if mesh is not None:
+        gate, up = _tp_part(gate, mesh), _tp_part(up, mesh)
     gate = F.silu(gate.to(torch.float32)).to(h.dtype)
     return x + mm(params, f"{pre}/w_down/kernel", gate * up)
+
+
+def _tp_part(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This tp rank's contiguous share of the last dim (its heads)."""
+    n = t.shape[-1] // mesh.shape["tp"]
+    return t[..., mesh.coords["tp"] * n:(mesh.coords["tp"] + 1) * n]
 
 
 # ---------------------------------------------------------------------- MoE
@@ -562,9 +631,9 @@ def moe_combine_weights(logits: torch.Tensor, n_experts: int, k: int) -> torch.T
 
 
 def _moe_ffn(params, pre, h, p: LlamaParams, mm=None):
-    """Mixture-of-Experts FFN (Mixtral-style top-k routing), the JAX
-    package's single-device branch (the mesh-sharded one waits for
-    sharding).
+    """Mixture-of-Experts FFN (Mixtral-style top-k routing). Under a live
+    mesh whose tp divides E, the JAX package's mesh branch: the rank's E/tp
+    experts in the dense loop, one psum over tp (moe_ffn_sharded).
 
     Every expert runs on every call, whatever the routing, so a call
     launches the same kernels each time and never syncs on per-expert
@@ -586,6 +655,11 @@ def _moe_ffn(params, pre, h, p: LlamaParams, mm=None):
     lead_shape = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1])        # [T, D]
     w2 = w_se.reshape(-1, p.n_experts)     # [T, E]
+    mesh = None if mm is _mm_direct else _mesh()
+    if mesh is not None and p.n_experts % mesh.shape["tp"] == 0:
+        # the JAX package's mesh branch: the rank's E/tp experts, every row
+        return sharding.moe_ffn_sharded(h2, w2, gu, dn, p, mesh).reshape(*lead_shape,
+                                                                          h.shape[-1])
     cf = float(os.environ.get("TPUSERVE_MOE_CF", "2.0"))
     decode_t = int(os.environ.get("TPUSERVE_MOE_DECODE_DISPATCH_T", "64"))
     t = h2.shape[0]
@@ -642,41 +716,62 @@ def _logits(params, x, p: LlamaParams):
         if isinstance(w, QTensor):
             raise ValueError("tied embeddings cannot be quantized")
         return torch.matmul(h.to(torch.float32), w.to(torch.float32).t())
-    return _mm(params, "lm_head/kernel", h).to(torch.float32)
+    logits = _mm(params, "lm_head/kernel", h).to(torch.float32)
+    mesh = _mesh()
+    return logits if mesh is None else mesh.gather(logits, "tp")
 
 
 # ---------------------------------------------------------------------- prefill
+def _on_slot_group(mesh, cache: KVCache, slot: int, vocab: int, run):
+    """Run a one-slot step (`run(local_slot)` -> logits [1, V] f32) on the
+    dp group that owns `slot` under a mesh: the other dp groups hold
+    nothing of the slot and add zeros, so every rank gets its logits."""
+    if mesh is None or mesh.shape["dp"] == 1:
+        return run(slot)
+    owner, local = divmod(slot, cache.n_slots)
+    if owner == mesh.coords["dp"]:
+        logits = run(local)
+    else:
+        logits = torch.zeros((1, vocab), dtype=torch.float32, device=cache.k.device)
+    return mesh.psum(logits, "dp")
+
+
 def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: int,
             length: int):
     """Process a prompt into cache slot `slot`.
 
     tokens: int [1, L] (right-padded to a bucket; `length` = real length).
-    Returns (logits_last [1, V] f32 at position length-1, cache).
+    Returns (logits_last [1, V] f32 at position length-1, cache). Under a
+    mesh, `cache` is the rank's block (its slots, kv heads and L window).
     """
     b, l = tokens.shape
     slot, length = int(slot), int(length)
-    x = params["embed/weight"][tokens]  # embeddings stay unquantized
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
+    l_off = _l_off(mesh, cache)
     positions = torch.arange(l, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     valid = positions < length
     mask = valid[:, None, :] & (positions[:, :, None] >= positions[:, None, :])
 
-    for layer in range(p.n_layers):
-        def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, l, p.n_heads, p.head_dim), cos, sin)
-            k = apply_rope(k.reshape(b, l, p.n_kv_heads, p.head_dim), cos, sin)
-            v = v.reshape(b, l, p.n_kv_heads, p.head_dim)
-            # write K/V into the slot (whole bucket; the invalid tail is
-            # masked on every read)
-            _write_slot_kv(cache, layer, slot, 0, k[0], v[0])
-            out = _attention_prefill(q, k, v, mask)
-            return out.reshape(b, l, p.n_heads * p.head_dim)
+    def run(local_slot: int):
+        x = params["embed/weight"][tokens]  # embeddings stay unquantized
+        for layer in range(p.n_layers):
+            def attn_fn(q, k, v, layer=layer):
+                q = apply_rope(q.reshape(b, l, pl.n_heads, p.head_dim), cos, sin)
+                k = apply_rope(k.reshape(b, l, pl.n_kv_heads, p.head_dim), cos, sin)
+                v = v.reshape(b, l, pl.n_kv_heads, p.head_dim)
+                # write K/V into the slot (whole bucket; the invalid tail is
+                # masked on every read)
+                _write_slot_kv(cache, layer, local_slot, 0, k[0], v[0], l_off)
+                out = _attention_prefill(q, k, v, mask)
+                return out.reshape(b, l, pl.n_heads * p.head_dim)
 
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+            x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+        return _logits(params, x[:, length - 1, :], p)
 
-    last = x[:, length - 1, :]
-    return _logits(params, last, p), cache
+    return _on_slot_group(mesh, cache, slot, p.vocab_size, run), cache
 
 
 def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: int,
@@ -687,37 +782,70 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
     position of tokens[0]; `window` = bucket covering start+C. Queries attend
     to cache positions < start (earlier chunks) plus causally within the
     chunk. The padded tail writes garbage K/V at [start+length, start+C),
-    which decode overwrites before any read reaches it.
+    which decode overwrites before any read reaches it. Under sp each rank
+    attends over its L window and the shards merge (the seq-sharded path).
     Returns (logits [1, V] at the chunk's last valid position, cache).
     """
     b, c = tokens.shape
     slot, start, length, window = int(slot), int(start), int(length), int(window)
     dev = tokens.device
-    x = params["embed/weight"][tokens]
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
+    l_off = _l_off(mesh, cache)
     gpos = start + torch.arange(c, device=dev)
     cos, sin = rope_cos_sin(gpos[None, :], p.head_dim, p.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     kpos = torch.arange(window, device=dev)
     mask = kpos[None, :] <= gpos[:, None]  # [C, win]
 
-    for layer in range(p.n_layers):
-        def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, c, p.n_heads, p.head_dim), cos, sin)
-            k = apply_rope(k.reshape(b, c, p.n_kv_heads, p.head_dim), cos, sin)
-            v = v.reshape(b, c, p.n_kv_heads, p.head_dim)
-            _write_slot_kv(cache, layer, slot, start, k[0], v[0])
-            ks = vs = None
-            if cache.quantized:
-                ks = cache.k_scale[layer, slot][:, :window]
-                vs = cache.v_scale[layer, slot][:, :window]
-            out = _attend_window(q[0], cache.k[layer, slot, :window],
-                                 cache.v[layer, slot, :window], ks, vs, mask, p)
-            return out.to(x.dtype).reshape(b, c, -1)
+    def run(ls: int):
+        x = params["embed/weight"][tokens]
+        for layer in range(p.n_layers):
+            def attn_fn(q, k, v, layer=layer):
+                q = apply_rope(q.reshape(b, c, pl.n_heads, p.head_dim), cos, sin)
+                k = apply_rope(k.reshape(b, c, pl.n_kv_heads, p.head_dim), cos, sin)
+                v = v.reshape(b, c, pl.n_kv_heads, p.head_dim)
+                _write_slot_kv(cache, layer, ls, start, k[0], v[0], l_off)
+                if sharding.mesh_sp(mesh) > 1:
+                    k5, v5 = _heads_view(cache, pl)
+                    out = sharding.attend_seq_sharded(
+                        true_div(q, math.sqrt(p.head_dim)), k5[layer, ls:ls + 1],
+                        v5[layer, ls:ls + 1],
+                        cache.k_scale[layer, ls:ls + 1] if cache.quantized else None,
+                        cache.v_scale[layer, ls:ls + 1] if cache.quantized else None,
+                        gpos[None, :], mesh)
+                    return out.to(x.dtype).reshape(b, c, -1)
+                ks = vs = None
+                if cache.quantized:
+                    ks = cache.k_scale[layer, ls][:, :window]
+                    vs = cache.v_scale[layer, ls][:, :window]
+                out = _attend_window(q[0], cache.rows(cache.k)[layer, ls, :window],
+                                     cache.rows(cache.v)[layer, ls, :window], ks, vs, mask, pl)
+                return out.to(x.dtype).reshape(b, c, -1)
 
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+            x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+        return _logits(params, x[:, length - 1, :], p)
 
-    last = x[:, length - 1, :]
-    return _logits(params, last, p), cache
+    return _on_slot_group(mesh, cache, slot, p.vocab_size, run), cache
+
+
+def _local_p(p: LlamaParams, mesh) -> LlamaParams:
+    """The attention's LlamaParams on this rank (its kv-head groups)."""
+    return p if mesh is None else sharding.local_llama_params(p, mesh)
+
+
+def _l_off(mesh, cache: KVCache) -> int:
+    """The first global position of this rank's L window (0 without sp)."""
+    return 0 if mesh is None else mesh.coords["sp"] * cache.max_len
+
+
+def _heads_view(cache: KVCache, pl: LlamaParams):
+    """k and v as [n_layers, S, L, Hkv, hd] (a view of a flat int8 or float
+    cache)."""
+    if not cache.flat:
+        return cache.k, cache.v
+    shape = cache.k.shape[:3] + (pl.n_kv_heads, pl.head_dim)
+    return cache.k.view(shape), cache.v.view(shape)
 
 
 # ---------------------------------------------------------------------- decode
@@ -732,53 +860,82 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     max(positions)+1 <= window. `active_idx` (the indices of slots with
     positions >= 0) may be passed to spare a device-to-host sync. Attention
     follows `_decode_attn_mode`. Returns (logits [S, V] f32, cache).
+
+    Under a mesh each rank steps its dp slots (the flat core on its kv
+    heads, or under sp the seq-sharded merge over its L window, which reads
+    the whole window) and the logits are gathered over dp.
     """
-    s = tokens.shape[0]
     mode = _decode_attn_mode(p)
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
+    if mode == "pallas" and mesh is not None and cache.k.dtype == torch.uint8 \
+            and (cache.k.shape[-1] % 128):
+        mode = "xla"   # a packed shard narrower than the core's 128-byte rows, as in JAX
     positions = positions.to(device=tokens.device, dtype=torch.int32)
+    all_active = positions >= 0
+    sp = sharding.mesh_sp(mesh)
+    if mesh is not None:
+        lo, hi = sharding.local_slots(mesh, tokens.shape[0])
+        tokens, positions = tokens[lo:hi], positions[lo:hi]
+        active_idx = None
+    s = tokens.shape[0]
     active = positions >= 0
     pos = positions.clamp_min(0)
+    l_off = _l_off(mesh, cache)
     if active_idx is None:
-        active_idx = torch.nonzero(active).flatten()
-    pos_a = pos[active_idx].long()
+        held = active if sp == 1 else active & (pos >= l_off) & (pos < l_off + cache.max_len)
+        active_idx = torch.nonzero(held).flatten()
+    pos_a = pos[active_idx].long() - l_off
     x = params["embed/weight"][tokens]  # [S, D]
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
     win = cache.max_len if window is None else min(int(window), cache.max_len)
     read_mask = torch.arange(win, device=tokens.device)[None, :] <= pos[:, None]  # [S, win]
+    k_rows, v_rows = cache.rows(cache.k), cache.rows(cache.v)
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(s, p.n_heads, p.head_dim), cos_q, sin_q)
-            k = apply_rope(k.reshape(s, p.n_kv_heads, p.head_dim), cos_q, sin_q)
-            v = v.reshape(s, p.n_kv_heads, p.head_dim)
+            q = apply_rope(q.reshape(s, pl.n_heads, p.head_dim), cos_q, sin_q)
+            k = apply_rope(k.reshape(s, pl.n_kv_heads, p.head_dim), cos_q, sin_q)
+            v = v.reshape(s, pl.n_kv_heads, p.head_dim)
             kq, vq, ks, vs = _kv_rows(cache, k, v)  # [S, Wst] rows, [S, Hkv]
             # In-place write of this step's K/V at (layer, slot, pos) for the
-            # ACTIVE slots only: rows of inactive slots (positions < 0) are
-            # never written. (JAX writes functionally and rewrites the old
-            # value for inactive slots instead.)
-            cache.k[layer][active_idx, pos_a] = kq[active_idx]
-            cache.v[layer][active_idx, pos_a] = vq[active_idx]
+            # ACTIVE slots only (under sp: those whose position lies in this
+            # rank's window): other rows are never written. (JAX writes
+            # functionally and rewrites the old value for inactive slots.)
+            k_rows[layer][active_idx, pos_a] = kq[active_idx]
+            v_rows[layer][active_idx, pos_a] = vq[active_idx]
             if ks is not None:
                 cache.k_scale[layer][active_idx, :, pos_a] = ks[active_idx].to(cache.k_scale.dtype)
                 cache.v_scale[layer][active_idx, :, pos_a] = vs[active_idx].to(cache.v_scale.dtype)
-            if mode == "pallas":
-                out = decode_attention_wide_cache(
-                    true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v,
+            if sp > 1:
+                k5, v5 = _heads_view(cache, pl)
+                out = sharding.decode_attention_seq_sharded(
+                    true_div(q, math.sqrt(p.head_dim)), k5[layer], v5[layer],
                     cache.k_scale[layer] if cache.quantized else None,
-                    cache.v_scale[layer] if cache.quantized else None,
-                    positions, layer, window=win)
+                    cache.v_scale[layer] if cache.quantized else None, positions, mesh)
+            elif mode == "pallas":
+                args = (true_div(q, math.sqrt(p.head_dim)), k_rows, v_rows,
+                        cache.k_scale[layer] if cache.quantized else None,
+                        cache.v_scale[layer] if cache.quantized else None,
+                        positions, layer)
+                if mesh is not None:
+                    out = sharding.decode_attention_sharded(*args, mesh, window=win)
+                else:
+                    out = decode_attention_wide_cache(*args, window=win)
             elif mode == "grouped":
-                out = _attend_grouped(q, cache, layer, win, positions, p)
+                out = _attend_grouped(q, cache, layer, win, positions, pl)
             else:
-                out = _attend_window(q[:, None], cache.k[layer, :, :win], cache.v[layer, :, :win],
-                                     *_window_scales(cache, layer, win), read_mask[:, None], p)
-            return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
+                out = _attend_window(q[:, None], k_rows[layer, :, :win], v_rows[layer, :, :win],
+                                     *_window_scales(cache, layer, win), read_mask[:, None], pl)
+            return out.to(x.dtype).reshape(s, pl.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
-    logits = _logits(params, x, p)
-    return torch.where(active[:, None], logits, 0.0), cache
+    logits = torch.where(active[:, None], _logits(params, x, p), 0.0)
+    if mesh is not None:
+        logits = mesh.gather(logits, "dp", dim=0)
+    return torch.where(all_active[:, None], logits, 0.0), cache
 
 
 # ---------------------------------------------------------------------- speculation

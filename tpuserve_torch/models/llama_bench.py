@@ -22,7 +22,11 @@ from tpuserve_torch.utils.device import resolve_device
 
 def init_quantized_params(p: LlamaParams, bits: int = 4, group_size: int = 128,
                           dtype=torch.bfloat16, device="cuda",
-                          seed: int = 42) -> Dict[str, object]:
+                          seed: int = 42, keep=None) -> Dict[str, object]:
+    """Random int8/int4 weights at p's widths, drawn on `device` from
+    `seed`. Each parameter passes through `keep(name, value)` as it is made
+    (a sharded rank keeps its block there, so the device never holds the
+    whole model; the draws are the same either way)."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(seed)
@@ -56,25 +60,31 @@ def init_quantized_params(p: LlamaParams, bits: int = 4, group_size: int = 128,
     def normal(*shape):
         return (torch.randn(shape, generator=generator, device=dev) * 0.02).to(dtype)
 
-    params: Dict[str, object] = {
-        "embed/weight": normal(p.vocab_size, p.dim),
-        "final_norm/scale": torch.ones((p.dim,), dtype=dtype, device=dev),
-        "lm_head/kernel": qweight(p.dim, p.vocab_size),
-    }
+    params: Dict[str, object] = {}
+
+    def put(name, val):
+        params[name] = val if keep is None else keep(name, val)
+
+    def ones():
+        return torch.ones((p.dim,), dtype=dtype, device=dev)
+
+    put("embed/weight", normal(p.vocab_size, p.dim))
+    put("final_norm/scale", ones())
+    put("lm_head/kernel", qweight(p.dim, p.vocab_size))
     for l in range(p.n_layers):
         pre = f"layers.{l}"
-        params[f"{pre}/attn_norm/scale"] = torch.ones((p.dim,), dtype=dtype, device=dev)
-        params[f"{pre}/mlp_norm/scale"] = torch.ones((p.dim,), dtype=dtype, device=dev)
+        put(f"{pre}/attn_norm/scale", ones())
+        put(f"{pre}/mlp_norm/scale", ones())
         # fused projections (see llama._forward_block): fewer, wider kernels
-        params[f"{pre}/wqkv/kernel"] = qweight(p.dim, qd + 2 * kvd)
-        params[f"{pre}/wo/kernel"] = qweight(qd, p.dim)
+        put(f"{pre}/wqkv/kernel", qweight(p.dim, qd + 2 * kvd))
+        put(f"{pre}/wo/kernel", qweight(qd, p.dim))
         if p.n_experts:
-            params[f"{pre}/router/kernel"] = normal(p.dim, p.n_experts)
-            params[f"{pre}/moe_gateup/kernel"] = qexperts(p.n_experts, p.dim, 2 * p.ffn_dim)
-            params[f"{pre}/moe_down/kernel"] = qexperts(p.n_experts, p.ffn_dim, p.dim)
+            put(f"{pre}/router/kernel", normal(p.dim, p.n_experts))
+            put(f"{pre}/moe_gateup/kernel", qexperts(p.n_experts, p.dim, 2 * p.ffn_dim))
+            put(f"{pre}/moe_down/kernel", qexperts(p.n_experts, p.ffn_dim, p.dim))
         else:
-            params[f"{pre}/w_gateup/kernel"] = qweight(p.dim, 2 * p.ffn_dim)
-            params[f"{pre}/w_down/kernel"] = qweight(p.ffn_dim, p.dim)
+            put(f"{pre}/w_gateup/kernel", qweight(p.dim, 2 * p.ffn_dim))
+            put(f"{pre}/w_down/kernel", qweight(p.ffn_dim, p.dim))
     return params
 
 

@@ -86,6 +86,7 @@ import torch
 from tpuserve_torch.quant.core import true_div
 
 launches = 0          # flat-cache kernel launches (the plain versions do not count)
+plain_calls = 0       # flat-cache calls that took the plain version (CPU tensors)
 paged_launches = 0    # paged-pool kernel launches
 multi_launches = 0    # multi-candidate (speculative verify) kernel launches
 wide_launches = 0     # flat-kernel launches through decode_attention_wide
@@ -402,8 +403,9 @@ def decode_attention_wide_cache(q, k_full, v_full, k_scale_l, v_scale_l, positio
     positions [S] int (-1 = inactive); `window` (<= L) bounds the read and
     callers guarantee max(positions)+1 <= window. Returns [S, H, hd] f32.
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    global launches
+    global launches, plain_calls
     if not q.is_cuda:
+        plain_calls += 1
         return decode_attention_wide_cache_plain(q, k_full, v_full, k_scale_l, v_scale_l,
                                                  positions, layer, window=window,
                                                  block_l=block_l)
@@ -531,11 +533,14 @@ def decode_attention_wide(q, k, v, k_scale, v_scale, positions, *,
 
 
 # ---------------------------------------------------------------- grouped
-def unpack_kv_codes(packed: torch.Tensor) -> torch.Tensor:
+def unpack_kv_codes(packed: torch.Tensor, chunks: int = 1) -> torch.Tensor:
     """Inverse of models.llama.pack_kv_codes: uint8 [..., W/2] -> int8 [...,
     W]. Three byte-wide passes: the low and high nibbles into the two
     halves, then the -8 offset, which wraps mod 256 into the int8 codes'
-    bytes."""
+    bytes. `chunks` > 1 unpacks each of that many byte slices alone."""
+    if chunks > 1:
+        x = packed.reshape(packed.shape[:-1] + (chunks, packed.shape[-1] // chunks))
+        return unpack_kv_codes(x).reshape(packed.shape[:-1] + (2 * packed.shape[-1],))
     half = packed.shape[-1]
     out = torch.empty(packed.shape[:-1] + (2 * half,), dtype=torch.uint8, device=packed.device)
     torch.bitwise_and(packed, 15, out=out[..., :half])

@@ -43,6 +43,7 @@ import torch
 from tpuserve_torch.quant.core import QTensor, quantize_activation, unpack_int4
 
 launches = 0  # CUDA kernel launches (the plain version does not count)
+plain_calls = 0  # calls that took the plain version (CPU tensors)
 # of those, bf16 activations on the Hopper kernel in masked k16 steps
 # (groups of no multiple of 16 values; see masked_group)
 group_route_launches = 0
@@ -447,8 +448,9 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, *, out_dtype=None,
     None lets the wrapper choose. It changes no value beyond the order of
     f32 sums, and the plain version ignores it."""
     global launches, group_route_launches, odd_group_launches, w4a8_launches
-    global w4a8_route_launches, f32_launches
+    global w4a8_route_launches, f32_launches, plain_calls
     if not x.is_cuda:
+        plain_calls += 1
         return quant_matmul_plain(x, qt, out_dtype=out_dtype)
     k, n = qt.orig_shape
     if x.shape[-1] != k:

@@ -4,8 +4,13 @@
 The reference server has no CLI flags at all (SURVEY.md §5 config); here the
 basics are flags with env-var fallbacks. Models load on the card unless
 `--platform cpu` asks for the CPU; without a card, the server still answers
-and a load fails with the engine's no-card error. Multi-host serving
-(TPUSERVE_COORDINATOR) is not ported and is refused.
+and a load fails with the engine's no-card error.
+
+Multi-process serving: every rank runs this same entry point with the same
+repository and TPUSERVE_COORDINATOR (host:port of process 0),
+TPUSERVE_NUM_PROCESSES and TPUSERVE_PROCESS_ID. Process 0 serves the
+fronts; the others replay its steps (server/follower.py) until it exits.
+The sharded model's mesh must match the number of processes.
 """
 
 import argparse
@@ -48,9 +53,29 @@ def main(argv=None):
     )
     args = p.parse_args(argv)
 
+    multihost = False
     if os.environ.get("TPUSERVE_COORDINATOR"):
-        sys.exit("multi-host serving is not ported to tpuserve_torch: "
-                 "unset TPUSERVE_COORDINATOR to serve from this host alone")
+        from tpuserve_torch.parallel import distributed
+        from tpuserve_torch.utils.errors import BackendError
+
+        try:
+            distributed.initialize(device_type=args.platform)
+        except BackendError as e:
+            sys.exit(f"multi-process serving: {e}")
+        multihost = distributed.is_multi_host()
+        if multihost and distributed.process_info()["process_index"] != 0:
+            import logging
+
+            from tpuserve_torch.server.follower import run_follower_server
+
+            logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                                format="%(asctime)s follower %(levelname)s %(message)s")
+
+            try:
+                run_follower_server()
+            finally:
+                distributed.shutdown()
+            return
 
     from aiohttp import web
 
@@ -72,6 +97,15 @@ def main(argv=None):
         if grpc_server is not None:
             grpc_server.stop(grace=5.0)
         manager.shutdown()
+        if multihost:
+            # release the follower processes blocked in their event loop
+            from tpuserve_torch.parallel import distributed
+            from tpuserve_torch.parallel.dispatcher import publish_event
+
+            try:
+                publish_event(("shutdown",))
+            finally:
+                distributed.shutdown()
 
 
 if __name__ == "__main__":

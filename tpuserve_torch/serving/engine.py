@@ -37,14 +37,30 @@ paths).
   repetition penalty do not speculate, nor does a step while requests
   wait for admission.
 
+- Sharded serving (sharding.tensor_parallel / data_parallel /
+  sequence_parallel, what the JAX package's multi-host v1 serves: contiguous
+  KV, no speculation, one model at a time). Every rank is a process holding
+  its block of the weights and of the KV cache (parallel/sharding.py); rank
+  0, the controller, runs the scheduler and publishes every step's host
+  inputs on the event bus (parallel/dispatcher.py), and the follower ranks
+  replay each step (`run_follower`). Ranks joined by TPUSERVE_COORDINATOR /
+  TPUSERVE_NUM_PROCESSES / TPUSERVE_PROCESS_ID (the CLI's multi-process
+  form) serve the model whose mesh matches their number; with no process
+  group, `start()` starts world - 1 follower ranks on this host itself and
+  `stop()` stops them. Under sequence_parallel the cache is the 5D layout,
+  its L split over sp.
+
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (sharding or pipelining) raise BackendError, as
-does a contiguous speculation width the verify kernel does not take.
+that need unported parts (pipeline_parallel; paged KV or speculation under a
+mesh; the meshes the JAX package serves only through GSPMD) raise
+BackendError naming them, as does a contiguous speculation width the verify
+kernel does not take.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import logging
@@ -73,6 +89,11 @@ from tpuserve_torch.utils.tensor import Tensor
 log = logging.getLogger("tpuserve_torch.engine")
 
 _QUANT_BITS = {"int8": 8, "int4": 4}
+
+# the one live sharded engine of this process (one model at a time under a
+# mesh: the event bus is a single ordered stream, and the active mesh is the
+# process's)
+_MH_LIVE_ENGINE = None
 
 
 @dataclasses.dataclass
@@ -152,6 +173,20 @@ class GenerationEngine:
         self._spec_probe = 0         # break-even-guard probe counter
         self.spec_drafted = 0        # drafted tokens proposed
         self.spec_accepted = 0       # drafted tokens accepted (and emitted)
+        # sharded serving: this rank's mesh, whether this process is the
+        # controller (rank 0), the follower ranks this engine started (one
+        # host, no process group yet), the last decode steps' host clock, a
+        # profile of one decode step when asked (profile_next_decode), the
+        # checksum of the rank's weight blocks and its peak memory at load
+        self.mesh = None
+        self._mh = False
+        self._mh_ctrl = True
+        self._followers: List = []
+        self._step_log: "collections.deque" = collections.deque(maxlen=16)
+        self._profile_next = False
+        self._decode_profile: Optional[Dict] = None
+        self._fingerprint: Optional[int] = None
+        self._load_peak: Optional[int] = None
 
     # ------------------------------------------------------------------ setup
     @property
@@ -183,13 +218,15 @@ class GenerationEngine:
         result["text"] = tok.decode(result["generated_ids"])
         return result
 
-    def load_params(self, dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-        """The checkpoint's flat param dict on the engine's device, floating
-        tensors in `dtype` (the engine serves bf16; the accuracy script's
-        reference takes f32): model.safetensors, or with model_params.init
-        "random" weights from seed 42."""
+    def load_params(self, dtype=torch.bfloat16, host: bool = False) -> Dict[str, torch.Tensor]:
+        """The checkpoint's flat param dict on the engine's device (with
+        `host`, on the CPU), floating tensors in `dtype` (the engine serves
+        bf16; the accuracy script's reference takes f32): model.safetensors,
+        or with model_params.init "random" weights from seed 42, drawn on
+        the engine's device either way."""
         init_mode = str(self.config.model_params.get("init", "")).lower()
         st_path = os.path.join(self.model_dir, "model.safetensors")
+        dev = torch.device("cpu") if host else self.device
         if os.path.exists(st_path):
             from safetensors.numpy import load_file
 
@@ -198,34 +235,85 @@ class GenerationEngine:
                 t = torch.from_numpy(np.ascontiguousarray(v))
                 if np.issubdtype(v.dtype, np.floating):
                     t = t.to(dtype)
-                out[k] = t.to(self.device)
+                out[k] = t.to(dev)
             return out
         if init_mode == "random":
-            return llama.init_params(self.p, dtype=dtype, device=self.device, seed=42)
+            return llama.init_params(self.p, dtype=dtype, device=self.device, seed=42,
+                                     keep=lambda _, t: t.to(dev))
         raise BackendError(
             f"no checkpoint in {self.model_dir} and model_params.init != 'random'")
 
+    def _mesh_sizes(self):
+        shard = self.config.sharding
+        return (int(shard.tensor_parallel), int(shard.data_parallel),
+                int(getattr(shard, "sequence_parallel", 1) or 1))
+
     def _check_supported(self) -> None:
-        cfg, qcfg = self.config, self.config.quantization
-        shard = cfg.sharding
+        cfg, qcfg, gen, p = self.config, self.config.quantization, self.config.generation, self.p
+        tp, dp, sp = self._mesh_sizes()
+        spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
         unported = []
-        if (shard.tensor_parallel * shard.data_parallel
-                * int(getattr(shard, "sequence_parallel", 1))
-                * int(getattr(shard, "pipeline_parallel", 1))) > 1:
-            unported.append("sharding")
+        if int(getattr(cfg.sharding, "pipeline_parallel", 1) or 1) > 1:
+            unported.append("pipeline_parallel (the staged layers and the 5D paged pool)")
+        if tp * dp * sp > 1:
+            if gen.paged:
+                unported.append("paged KV under a mesh")
+            if spec_k > 0:
+                unported.append("speculative decoding under a mesh")
+            if p.n_kv_heads % tp:
+                unported.append(
+                    f"n_kv_heads {p.n_kv_heads} over tensor_parallel {tp} (the JAX "
+                    "package serves it only through GSPMD on the 5D cache)")
         if unported:
-            raise BackendError(
-                "not ported to tpuserve_torch yet: " + ", ".join(unported))
-        spec_k = int(getattr(cfg.generation, "speculation_tokens", 0) or 0)
-        if spec_k > 0 and not cfg.generation.paged:
+            raise BackendError("not ported to tpuserve_torch yet: " + ", ".join(unported))
+        if tp * dp * sp > 1:
+            self._check_mesh(tp, dp, sp)
+        if spec_k > 0 and not gen.paged:
             # the contiguous verify's kernel takes C = k+1 candidates of the
             # query heads one block serves (a head pair's for int4 KV)
-            nq = self.p.n_heads // self.p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
+            nq = p.n_heads // p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
             cache = qcfg.kv_cache if qcfg.kv_cache in ("int8", "int4") else "bf16"
             try:
                 check_multi_kernel(spec_k + 1, nq, cache=cache)
             except ValueError as e:
                 raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
+
+    def _check_mesh(self, tp: int, dp: int, sp: int) -> None:
+        """The JAX engine's divisibility errors and v1 refusals under a mesh,
+        and the widths a tp split must divide."""
+        p, qcfg = self.p, self.config.quantization
+        if self.n_slots % dp:
+            raise BackendError(f"max_slots {self.n_slots} must divide by data_parallel {dp}")
+        if self.max_seq_len % sp:
+            raise BackendError(
+                f"max_seq_len {self.max_seq_len} must divide by sequence_parallel {sp}")
+        if int(getattr(qcfg, "lowrank_correction", 0) or 0) > 0:
+            raise BackendError("quantization.lowrank_correction is single-chip (v1): the "
+                               "rank-r correction factors are not sharded")
+        if qcfg.kv_cache == "int4":
+            if sp > 1:
+                raise BackendError("kv_cache int4 does not compose with sequence_parallel "
+                                   "(sp reads the 5D layout)")
+            if (p.n_kv_heads * p.head_dim // tp) % 2:
+                raise BackendError("kv_cache int4 under tp needs tp | n_kv_heads")
+        qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
+        widths = {"(n_heads + 2 n_kv_heads) * head_dim": qd + 2 * kvd,
+                  "n_heads * head_dim": qd, "vocab_size": p.vocab_size}
+        if not p.n_experts:
+            widths["ffn_dim"] = p.ffn_dim
+        for what, width in widths.items():
+            if width % tp:
+                raise BackendError(f"{what} ({width}) must divide by tensor_parallel {tp}")
+        if _QUANT_BITS.get(qcfg.weights) == 4:
+            from tpuserve_torch.parallel.sharding import row_shard_cuts_group
+
+            rows = {"wo": qd} if p.n_experts else {"wo": qd, "w_down": p.ffn_dim}
+            for name, k in rows.items():
+                if row_shard_cuts_group(k, qcfg.group_size, tp):
+                    raise BackendError(
+                        f"int4 {name}: a row shard of {k // tp} rows over tensor_parallel "
+                        f"{tp} cuts a quantization group of {qcfg.group_size or k} (codes "
+                        "pack split-half per group)")
 
     def _gptq_quantize(self, raw: Dict, bits: int, qcfg) -> Dict:
         """Hessian-calibrated GPTQ (with LoRC at quantization.
@@ -265,6 +353,100 @@ class GenerationEngine:
 
     def start(self) -> None:
         self._check_supported()
+        tp, dp, sp = self._mesh_sizes()
+        from tpuserve_torch.parallel import distributed
+
+        if tp * dp * sp == 1:
+            if distributed.is_multi_host():
+                raise BackendError(
+                    "multi-process serving requires a sharded config (set "
+                    "sharding.tensor_parallel/data_parallel/sequence_parallel)")
+            self._start_rank()
+            return
+        global _MH_LIVE_ENGINE
+        if _MH_LIVE_ENGINE is not None and _MH_LIVE_ENGINE is not self:
+            raise BackendError("sharded serving serves ONE model at a time (the event bus "
+                               "is a single ordered stream)")
+        _MH_LIVE_ENGINE = self
+        try:
+            self._join_ranks(tp * dp * sp)
+            self._start_rank()
+        except BaseException:
+            # leave no live-engine mark and no ranks behind a failed start
+            self._leave_ranks()
+            if _MH_LIVE_ENGINE is self:
+                _MH_LIVE_ENGINE = None
+            raise
+
+    def _join_ranks(self, world: int) -> None:
+        """Take this process's rank: the process group's (ranks joined by the
+        TPUSERVE_* variables), or rank 0 of one this engine forms with
+        world - 1 follower ranks it starts on this host. The controller then
+        tells the followers to load this model; every rank builds the mesh."""
+        from tpuserve_torch.parallel import distributed
+        from tpuserve_torch.parallel.dispatcher import publish_event
+        from tpuserve_torch.parallel.mesh import make_mesh, rank_device
+
+        if distributed.is_initialized():
+            have = distributed.process_info()["process_count"]
+            if have != world:
+                raise BackendError(f"the mesh needs {world} ranks (tensor_parallel x "
+                                   f"data_parallel x sequence_parallel), the process group "
+                                   f"has {have}")
+        else:
+            self._followers = distributed.launch_local_ranks(world, self.device.type)
+        rank = distributed.process_info()["process_index"]
+        self._mh, self._mh_ctrl = True, rank == 0
+        if self._mh_ctrl:
+            publish_event(("load", self.model_dir, self.config, self.device.type))
+        tp, dp, sp = self._mesh_sizes()
+        self.mesh = make_mesh(tp=tp, dp=dp, sp=sp, backend=distributed.backend())
+        dev = rank_device(self.device.type, rank)
+        if dev != self.device:
+            self.device = dev
+            self._generator = torch.Generator(device=dev)
+            self._generator.manual_seed(int(self.config.model_params.get("seed", 0)))
+            self._sampling = SamplingParams.create(self.n_slots, device=dev)
+
+    def _leave_ranks(self) -> None:
+        """Release the followers (a published unload), the mesh's groups, the
+        active mesh and the ranks this engine started."""
+        from tpuserve_torch.parallel import distributed
+        from tpuserve_torch.parallel.sharding import set_active_mesh
+
+        if self._mh and self._mh_ctrl:
+            try:
+                self._publish(("unload",))
+            except Exception as e:  # a dead follower: nothing left to release
+                log.error("could not release the follower ranks: %s", e)
+        if self.mesh is not None:
+            set_active_mesh(None)
+            if self.mesh.comm is not None:
+                self.mesh.comm.destroy()
+            self.mesh = None
+        if self._followers:
+            codes = distributed.stop_local_ranks(self._followers)
+            if any(codes):
+                log.error("follower ranks exited with codes %s", codes)
+            self._followers = []
+            distributed.shutdown()
+        self._mh = False
+
+    def _keep_block(self, name: str, val):
+        """This rank's block of one parameter, on the device (the whole value
+        unsharded)."""
+        if self.mesh is None:
+            return val
+        from tpuserve_torch.parallel.sharding import shard_llama_params
+
+        return shard_llama_params({name: val}, self.mesh)[name]
+
+    def _start_rank(self) -> None:
+        """Build the weights. Under a mesh each parameter is cut to the
+        rank's block as it is made (checkpoints and bf16 draws wait on the
+        host and go to the card one tensor at a time), so the card holds the
+        rank's blocks and one whole parameter at most; GPTQ calibrates on
+        the whole model first."""
         p = self.p
         qcfg = self.config.quantization
         bits = _QUANT_BITS.get(qcfg.weights)
@@ -275,28 +457,46 @@ class GenerationEngine:
                     "model_params.init 'random_quantized' requires "
                     "quantization.weights int8/int4")
             params = init_quantized_params(p, bits=bits, group_size=qcfg.group_size,
-                                           device=self.device, seed=42)
+                                           device=self.device, seed=42, keep=self._keep_block)
         else:
-            raw = llama.fuse_params(self.load_params(), p)
+            raw = llama.fuse_params(self.load_params(host=self.mesh is not None), p)
             if bits is not None and qcfg.method == "gptq":
+                raw = {name: t.to(self.device) for name, t in raw.items()}
                 params = self._gptq_quantize(raw, bits, qcfg)
-            elif bits is not None:
+                params = {name: self._keep_block(name, val) for name, val in params.items()}
+            else:
                 def pred(name, arr):
                     # 2-D projections and stacked 3-D MoE expert weights; the
                     # router stays bf16 (routing is precision-sensitive)
                     return arr.dim() in (2, 3) and name.endswith("kernel") and "router" not in name
 
-                params = quantize_param_tree(
-                    raw, bits=bits, group_size=qcfg.group_size, predicate=pred,
-                    act_bits=8 if qcfg.activations == "int8" else 0,
-                    act_fp8=qcfg.activations == "fp8")
-            else:
-                params = raw
+                params = {}
+                for name in list(raw):
+                    val = raw.pop(name).to(self.device)
+                    if bits is not None:
+                        val = quantize_param_tree(
+                            {name: val}, bits=bits, group_size=qcfg.group_size, predicate=pred,
+                            act_bits=8 if qcfg.activations == "int8" else 0,
+                            act_fp8=qcfg.activations == "fp8")[name]
+                    params[name] = self._keep_block(name, val)
         self._finish_start(params)
 
     def _finish_start(self, params) -> None:
         p = self.p
         qcfg = self.config.quantization
+        if self.mesh is not None:
+            # `params` are this rank's blocks (_start_rank)
+            from tpuserve_torch.parallel.sharding import (block_fingerprint,
+                                                          local_llama_params,
+                                                          set_active_mesh)
+
+            self._fingerprint = block_fingerprint(params)
+            set_active_mesh(self.mesh)
+            pc = local_llama_params(p, self.mesh)
+            n_slots = self.n_slots // self.mesh.shape["dp"]
+            max_len = self.max_seq_len // self.mesh.shape["sp"]
+        else:
+            pc, n_slots, max_len = p, self.n_slots, self.max_seq_len
         self.params = params
         self._param_bytes = param_bytes(params)
         gen = self.config.generation
@@ -326,28 +526,113 @@ class GenerationEngine:
                                         prefix_sharing=bool(gen.prefix_sharing),
                                         device=self.device)
         else:
+            # a rank's block: its slots, kv heads and (5D under sp) L window
             scale_dtype = torch.bfloat16 \
                 if getattr(qcfg, "kv_scale_dtype", "float32") == "bfloat16" else torch.float32
-            self.cache = KVCache.create(p, self.n_slots, self.max_seq_len, quantized=quant_kv,
+            flat = self.mesh is None or self.mesh.shape["sp"] == 1
+            self.cache = KVCache.create(pc, n_slots, max_len, quantized=quant_kv,
                                         dtype=torch.bfloat16, scale_dtype=scale_dtype,
-                                        kv_bits=kv_bits, device=self.device)
+                                        kv_bits=kv_bits, device=self.device, flat=flat)
             self.ptm = None
         self._presence = torch.zeros((self.n_slots, p.vocab_size), dtype=torch.bool,
                                      device=self.device)
+        if self.device.type == "cuda":
+            self._load_peak = torch.cuda.max_memory_allocated(self.device)
         self._running = True
-        self._thread = threading.Thread(target=self._loop, name="tpuserve-torch-genloop",
-                                        daemon=True)
-        self._thread.start()
+        if self._mh_ctrl:   # follower ranks replay the controller's steps instead
+            self._thread = threading.Thread(target=self._loop,
+                                            name="tpuserve-torch-genloop", daemon=True)
+            self._thread.start()
 
     def stop(self) -> None:
+        global _MH_LIVE_ENGINE
         self._running = False
         self._pending.put(None)
         if self._thread is not None:
             self._thread.join(timeout=60)
             self._thread = None
+        # followers are released after the scheduler's last step (event
+        # order is step order)
+        self._leave_ranks()
+        if _MH_LIVE_ENGINE is self:
+            _MH_LIVE_ENGINE = None
         self._fail_outstanding("engine stopped")
         self.params = None
         self.cache = None
+
+    # ------------------------------------------------------------ sharded serving
+    def _publish(self, ev) -> None:
+        """Controller: hand a step's host inputs to the follower ranks (a
+        no-op unsharded)."""
+        if self._mh and self._mh_ctrl:
+            from tpuserve_torch.parallel.dispatcher import publish_event
+
+            publish_event(ev)
+
+    def run_follower(self) -> str:
+        """A follower rank's loop: replay the controller's steps in event
+        order until the model unloads; returns "unload" or "shutdown" (a
+        server teardown that never unloaded the model). Call after start()
+        on ranks other than 0."""
+        from tpuserve_torch.parallel.dispatcher import exchange, recv_event
+
+        last_logits = None
+        while True:
+            ev = recv_event()
+            op = ev[0]
+            if op == "admit":
+                self._dev_admit(*ev[1:])
+            elif op == "decode":
+                self._dev_decode(*ev[1:])
+            elif op == "chunk":
+                last_logits = self._dev_chunk(*ev[1:])
+            elif op == "chunk_final":
+                self._dev_first_sample(*ev[1:], last_logits)
+            elif op == "stats":
+                exchange(self.local_stats())
+            elif op == "ping":
+                continue
+            elif op in ("unload", "shutdown"):
+                return op
+            else:
+                raise BackendError(f"unknown event on the bus: {op!r}")
+
+    def local_stats(self) -> Dict:
+        """This rank's counts: the kernels' launches (quant-matmul, the flat
+        decode-attention core) at the shard shapes, the plain-torch row
+        shards, the last decode steps' host clock, the profiled decode step
+        (profile_next_decode), its weight blocks' checksum and its memory."""
+        from tpuserve_torch.ops import decode_attention, quant_matmul
+        from tpuserve_torch.parallel import sharding
+
+        host = sorted(ms / h for ms, h in self._step_log)
+        cuda = self.device.type == "cuda"
+        return {"rank": self.mesh.rank if self.mesh is not None else 0,
+                "coords": dict(self.mesh.coords) if self.mesh is not None else None,
+                "device": str(self.device), "backend": self.mesh.backend if self.mesh else None,
+                "quant_matmul_launches": quant_matmul.launches,
+                "decode_attention_launches": decode_attention.launches,
+                "plain_calls": quant_matmul.plain_calls + decode_attention.plain_calls,
+                "shard_launches": dict(sharding.shard_launches),
+                "plain_row_shards": sharding.plain_fallbacks,
+                "step_host_ms_median": host[len(host) // 2] if host else None,
+                "decode_profile": self._decode_profile,
+                "param_bytes": self._param_bytes, "param_fingerprint": self._fingerprint,
+                "cache_bytes": self.cache.nbytes if self.cache is not None else 0,
+                "load_max_memory_allocated": self._load_peak,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(self.device)
+                if cuda else None}
+
+    def rank_stats(self) -> List[Dict]:
+        """Every rank's local_stats, in rank order (controller only: the
+        followers answer a published "stats" event on the bus)."""
+        if not self._mh:
+            return [self.local_stats()]
+        from tpuserve_torch.parallel.dispatcher import controlled, exchange, publish_event
+
+        with controlled():
+            publish_event(("stats",))
+            return exchange(self.local_stats())
 
     def _fail_outstanding(self, reason: str) -> None:
         """Complete every in-flight and queued request with an error so no
@@ -399,6 +684,14 @@ class GenerationEngine:
             "paged": self.ptm is not None,
             "decode_horizon_last": self._horizon_last,
         }
+        if self.mesh is not None:
+            stats["mesh"] = dict(self.mesh.shape, world=self.mesh.size,
+                                 backend=self.mesh.backend)
+            if self._mh_ctrl and self._running:
+                try:
+                    stats["ranks"] = self.rank_stats()
+                except Exception as e:  # a dead follower
+                    stats["ranks_error"] = str(e)
         if self.spec_drafted:
             stats["spec_drafted"] = self.spec_drafted
             stats["spec_accepted"] = self.spec_accepted
@@ -557,10 +850,12 @@ class GenerationEngine:
         self.prefill_calls += 1
         return logits
 
-    def _dev_decode(self, tokens, positions, window: int, horizon: int):
+    def _dev_decode(self, tokens, positions, window: int, horizon: int, profile: bool = False):
         """`horizon` batched decode+sample steps back to back on the device,
         fetched with one copy; returns ([H, S] tokens, [H, S] logprobs) as
         host arrays. Slots that are inactive (position -1) stay so."""
+        t0 = time.monotonic()
+        prof = self._profile_start() if profile else None
         toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
         positions = np.asarray(positions, np.int32)
         pos = torch.from_numpy(positions).to(self.device)
@@ -582,7 +877,48 @@ class GenerationEngine:
             out_lp.append(lp)
         both = torch.stack([torch.stack(out_t).to(torch.float64),
                             torch.stack(out_lp).to(torch.float64)]).cpu().numpy()
+        host_ms = (time.monotonic() - t0) * 1e3
+        if prof is not None:
+            self._decode_profile = self._profile_finish(prof, host_ms, horizon)
+        else:
+            self._step_log.append((host_ms, horizon))
         return both[0].astype(np.int64), both[1].astype(np.float32)
+
+    def profile_next_decode(self) -> None:
+        """Every rank runs the next decode dispatch under torch.profiler (the
+        controller's decode event carries the request); local_stats()
+        ["decode_profile"] then holds the step's host clock, its device busy
+        time and its device ops' times by name."""
+        self._profile_next = True
+
+    def _profile_start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _profile_finish(self, prof, host_ms: float, horizon: int) -> Dict:
+        """A step's device busy time: the device's own rows (kernels, copies,
+        sets) summed; the host rows carry their kernels' time too and are
+        left out, or it would count twice."""
+        from torch.autograd import DeviceType
+
+        prof.__exit__(None, None, None)
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU:
+                continue
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                rows.append((e.key, us / 1e3 / horizon, e.count // horizon))
+        rows.sort(key=lambda r: -r[1])
+        return {"host_ms": host_ms / horizon, "busy_ms": sum(r[1] for r in rows),
+                "device_ops": sum(r[2] for r in rows), "rows": rows}
 
     def _dev_verify(self, toks, positions, lens, window: int):
         """One paged verify of host-drafted candidates toks [S, C] and their
@@ -653,6 +989,7 @@ class GenerationEngine:
     # ------------------------------------------------------------------ scheduling
     def _admit(self, req: Request, slot: int) -> None:
         samp = (req.temperature, req.top_k, req.top_p, req.repetition_penalty, req.min_p)
+        self._publish(("admit", slot, list(req.prompt_ids), samp))
         tok, lp0 = self._dev_admit(slot, req.prompt_ids, samp)
         self.tokens_in += len(req.prompt_ids)
         self._emit(req, tok, lp0)
@@ -690,6 +1027,7 @@ class GenerationEngine:
                 self.ptm.ensure(slot, c0 + n)
                 ps = self.ptm.page_size
                 window = -(-min(c0 + cs, self.max_seq_len) // ps) * ps
+            self._publish(("chunk", slot, list(ids[c0:c0 + n]), c0, n, window))
             logits = self._dev_chunk(slot, ids[c0:c0 + n], c0, n, window)
         except Exception as e:
             req.error = str(e)
@@ -704,6 +1042,7 @@ class GenerationEngine:
         # prompt fully prefilled: sample the first generated token
         self._chunking = None
         samp = (req.temperature, req.top_k, req.top_p, req.repetition_penalty, req.min_p)
+        self._publish(("chunk_final", slot, list(req.prompt_ids), samp))
         tok, lp0 = self._dev_first_sample(slot, req.prompt_ids, samp, logits)
         self.tokens_in += len(ids)
         self._emit(req, tok, lp0)
@@ -1022,7 +1361,10 @@ class GenerationEngine:
                     continue
             try:
                 t_disp = time.monotonic()
-                step_tokens, step_lps = self._dev_decode(tokens, positions, window, horizon)
+                profile, self._profile_next = self._profile_next, False
+                self._publish(("decode", tokens, positions, window, horizon, profile))
+                step_tokens, step_lps = self._dev_decode(tokens, positions, window, horizon,
+                                                         profile)
                 per_tok = (time.monotonic() - t_disp) * 1000.0 / step_tokens.shape[0]
                 self._tok_ms_ema = per_tok if self._tok_ms_ema is None \
                     else 0.7 * self._tok_ms_ema + 0.3 * per_tok
