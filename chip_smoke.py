@@ -3741,7 +3741,8 @@ def _rank_deltas(before, after):
     out = []
     for b, a in zip(before, after):
         d = {k: a[k] - b[k] for k in ("quant_matmul_launches", "decode_attention_launches",
-                                      "plain_calls", "plain_row_shards")}
+                                      "decode_attention_paged_launches", "plain_calls",
+                                      "plain_row_shards")}
         keys = set(a["shard_launches"]) | set(b["shard_launches"])
         d["shard_launches"] = {k: a["shard_launches"].get(k, 0) - b["shard_launches"].get(k, 0)
                                for k in sorted(keys)
@@ -3853,8 +3854,10 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
     last one served. The quant-matmul on layer 0's weights and the lm_head
     (an MoE model: each of the rank's experts' views) at the rank's decode
     rows, x ~ N(0, 1) in bf16; the flat core on layer 0 with a random q
-    (not under sp: its merge is plain torch). Tolerances as in [kernel]: one
-    bf16 step at the largest output; 2e-3 of the output range."""
+    (not under sp: its merge is plain torch), or for a paged pool the paged
+    core on the rank's block of layer 0's pages (_paged_shard_check).
+    Tolerances as in [kernel]: one bf16 step at the largest output; 2e-3
+    of the output range."""
     from tpuserve_torch.models.llama import KVCache, _expert_slice, pack_kv_codes
     from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
                                                      unpack_kv_codes)
@@ -3864,6 +3867,7 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
                                                   kernel_operand, local_llama_params,
                                                   qmatmul_local, shard_cache, shard_llama_params)
     from tpuserve_torch.quant.core import qmatmul
+    from tpuserve_torch.serving.paged_kv import PagedKVCache
 
     tp, dp, sp = sizes
     p, full = weights.p, cache_engine.cache
@@ -3911,7 +3915,9 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
                 ref = quant_matmul_plain(x, view)
                 hold(f"quant_matmul experts {stack.n_experts} {k}x{n}", qmatmul(x, view), ref,
                      2 ** -7 * ref.float().abs().max().item())
-        if sp == 1:
+        if isinstance(full, PagedKVCache):
+            _paged_shard_check(torch, gen, hold, p, full, mesh, rows, pos_max)
+        elif sp == 1:
             kv = [full.k[:1], full.v[:1]]
             if full.k.dtype == torch.uint8:   # a rank packs its own W/tp positions
                 kv = [pack_kv_codes(unpack_kv_codes(t), tp) for t in kv]
@@ -3940,19 +3946,56 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
     return out
 
 
-def _mesh_reference(torch, cfg, prompts, new, tag, env=()):
-    """The one-rank engine on the same weights (sharding off; the knobs
-    `env` set while it serves): its greedy tokens and logprobs for the same
-    concurrent requests; returns them with the manager, kept for the gate."""
+def _paged_shard_check(torch, gen, hold, p, full, mesh, rows, pos_max):
+    """The paged core (row 5) on a rank's shard of a served flat pool,
+    against its plain version: layer 0's pages cut to the rank's kv heads
+    (`shard_paged_cache`), its rows of the replicated scale pool, a random
+    q at its heads, every slot's table a random chain of served pages, slot
+    positions up to pos_max (one inactive)."""
+    from tpuserve_torch.ops.decode_attention import decode_attention_wide_paged_plain
+    from tpuserve_torch.parallel.sharding import (decode_attention_paged_sharded,
+                                                  local_llama_params, paged_scale_rows,
+                                                  shard_paged_cache)
+    from tpuserve_torch.serving.paged_kv import PagedKVCache
+
+    one = PagedKVCache(k=full.k[:1], v=full.v[:1],
+                       k_scale=None if full.k_scale is None else full.k_scale[:1],
+                       v_scale=None if full.v_scale is None else full.v_scale[:1])
+    blk = shard_paged_cache(one, mesh)
+    pl = local_llama_params(p, mesh)
+    ps = blk.page_size
+    n_cols = -(-(pos_max + 1) // ps)
+    table = torch.randint(1, blk.n_pages, (rows, n_cols), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    pos = torch.randint(0, pos_max + 1, (rows,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    pos[0] = pos_max
+    pos[-1] = -1
+    ksr, vsr = paged_scale_rows(blk, pl.n_kv_heads, mesh)
+    q = (torch.randn((rows, pl.n_heads, p.head_dim), generator=gen, device=DEVICE)
+         / p.head_dim ** 0.5).to(torch.bfloat16)
+    args = (q, blk.k, blk.v, ksr, vsr, table, pos, 0)
+    ref = decode_attention_wide_paged_plain(*args, window=n_cols * ps)
+    got = decode_attention_paged_sharded(*args, mesh, window=n_cols * ps)
+    hold(f"decode_attention_paged {'x'.join(str(d) for d in blk.k.shape[1:])}", got, ref,
+         2e-3 * ref.abs().max().item() + 1e-6)
+
+
+def _mesh_reference(torch, cfg, prompts, new, tag, env=(), sharding=None):
+    """The one-rank engine on the same weights (sharding off, or the
+    `sharding` given; the knobs `env` set while it serves): its greedy
+    tokens and logprobs for the same concurrent requests; returns them with
+    the manager, kept for the gate."""
     from tpuserve_torch.engine.manager import InferenceManager
 
-    one = dict(cfg, name=cfg["name"] + "_one", sharding={})
-    mgr = InferenceManager(_write_repo(one), num_workers=1, device=DEVICE)
-    mgr.load_model(one["name"])
-    backend = mgr.get_model(one["name"]).backend
+    one = dict(cfg, name=cfg["name"] + ("_one" if not sharding else "_twin"),
+               sharding=sharding or {})
     with contextlib.ExitStack() as stack:
-        for key, val in env:
+        for key, val in env:   # set before the load: ranks it starts inherit them
             stack.enter_context(env_set(key, val))
+        mgr = InferenceManager(_write_repo(one), num_workers=1, device=DEVICE)
+        mgr.load_model(one["name"])
+        backend = mgr.get_model(one["name"]).backend
         res = _mesh_wave(lambda i: backend.generate(prompts[i], max_new_tokens=new,
                                                     logprobs=True), len(prompts),
                          tag + " one-rank")[0]
@@ -4208,14 +4251,52 @@ def _tp_front_profile(url, name, prompt, n_layers, smi_line):
                 **{f"{k}_ms": v for k, v in share.items()})
 
 
+def _twin_gate(tag, twin, ref, got):
+    """The sharded run against its arithmetic twin (an engine of the same
+    sharding arithmetic, `twin`): every request's tokens equal and the
+    logprobs within 0.05."""
+    dl = max([abs(a - b) for r, g in zip(ref, got) for a, b in zip(r["logprobs"], g["logprobs"])],
+             default=0.0)
+    equal = sum(r["generated_ids"] == g["generated_ids"] for r, g in zip(ref, got))
+    log(f"[{tag}] against its arithmetic twin (sharding {twin}, the same knobs): {equal} of "
+        f"{len(ref)} requests token-equal, logprobs within {dl:.3g}")
+    if equal != len(ref) or not dl <= 0.05:
+        fail(f"[{tag}] the sharded run parts from its twin {twin}: {equal} of {len(ref)} equal, "
+             f"logprobs within {dl}")
+    return dict(twin=twin, equal=equal, requests=len(ref), logprob_diff=dl)
+
+
+def _parting_record(torch, tag, engine, p, prompts, ref, got):
+    """A record (not a gate) of the sharded run against the one-rank
+    engine: requests token-equal, shared tokens' logprobs, and where a
+    request parts the one-rank engine's own top-two gap at that step."""
+    parts, dl = [], 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        d = _first_diff(r["generated_ids"], g["generated_ids"])
+        n = len(r["generated_ids"]) if d is None else d
+        dl = max([dl] + [abs(a - b) for a, b in zip(r["logprobs"][:n], g["logprobs"][:n])])
+        if d is not None:
+            gap, route = _step_margins(torch, engine, p, list(prompts[i]), r["generated_ids"][:d])
+            parts.append(dict(request=i, token=d, top2_gap=gap, route_gap=route))
+    equal = len(ref) - len(parts)
+    log(f"[{tag}] record: against the one-rank engine, {equal} of {len(ref)} requests "
+        f"token-equal, shared tokens' logprobs within {dl:.3g}; where they part: {parts}")
+    return dict(equal=equal, logprob_diff=dl, parts=parts)
+
+
 def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, attn, shapes,
-                        ref_env=(), record=False):
+                        ref_env=(), record=False, twin=None):
     """An engine-started mesh: InferenceManager loads cfg, whose engine
     starts its follower ranks (logs in chiprun_out/<tag>_ranks/); a wave of
     concurrent greedy requests with every rank's launches checked; unload
     (the ranks exit); then the one-rank engine's tokens on the same weights
     under the knobs ref_env (the sharded path's arithmetic), and with
-    `record` also on its defaults, as a record."""
+    `record` also on its defaults, as a record. Under pipeline_parallel the
+    launches are checked a decode step and a prefill (_check_pp_ranks) and
+    the kernels on each rank's stage block (_stage_kernel_checks). With
+    `twin` (a sharding) the tokens are held to an engine of that sharding
+    instead, the sharded run's arithmetic twin, and the one-rank engine is
+    a record (_parting_record)."""
     from tpuserve_torch.engine.manager import InferenceManager
 
     log_dir = os.path.join(OUT_DIR, f"{tag}_ranks")
@@ -4239,8 +4320,13 @@ def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, at
         log(f"[{tag}] {world} engine-started ranks ({stats['mesh']}): load {load_s:.1f} s; "
             f"{len(prompts)} concurrent greedy requests of {new} tokens in {wall:.2f} s; decode "
             f"steps {steps}, prefill calls {prefills}")
-        _check_ranks(tag, deltas, world, per_call, p.n_layers, steps, prefills,
-                     dp=engine.mesh.shape["dp"], attn=attn, qmm_shapes=shapes, smi_line=smi_line)
+        pp = engine.mesh.shape["pp"]
+        if pp > 1:
+            _check_pp_ranks(tag, deltas, world, p, pp, steps, prefills, shapes, smi_line)
+        else:
+            _check_ranks(tag, deltas, world, per_call, p.n_layers, steps, prefills,
+                         dp=engine.mesh.shape["dp"], attn=attn, qmm_shapes=shapes,
+                         smi_line=smi_line)
         sizes = (engine.mesh.shape["tp"], engine.mesh.shape["dp"], engine.mesh.shape["sp"])
         # every rank profiles the same decode dispatch of one more request
         engine.profile_next_decode()
@@ -4253,14 +4339,28 @@ def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, at
         if any(f.poll() is None for f in followers) or any(f.returncode for f in followers):
             fail(f"[{tag}] follower ranks did not exit cleanly: "
                  f"{[f.returncode for f in followers]}; see {log_dir}")
+    if twin is not None:
+        with env_set("TPUSERVE_FOLLOWER_LOG_DIR", log_dir + "_twin"), \
+                env_set("TPUSERVE_DIST_TIMEOUT", "300"):
+            twin_mgr, _, twin_ref = _mesh_reference(torch, cfg, prompts, new, tag + " twin",
+                                                    ref_env, sharding=twin)
+            twin_mgr.shutdown()
+        gate = _twin_gate(tag, twin, twin_ref, got)
     ref_mgr, ref_engine, ref = _mesh_reference(torch, cfg, prompts, new, tag, ref_env)
     with contextlib.ExitStack() as stack:
         for key, val in ref_env:
             stack.enter_context(env_set(key, val))
-        gate = _mesh_gate(torch, ref_engine, p, prompts, ref, got, tag)
-    checks = _shard_kernel_checks(torch, tag, ref_engine, ref_engine, sizes, deltas,
-                                  max(map(len, prompts)) + new - 2)
-    memory = _check_rank_memory(tag, deltas, ref_engine._param_bytes, sizes[0], base=(base,))
+        if twin is None:
+            gate = _mesh_gate(torch, ref_engine, p, prompts, ref, got, tag)
+        else:
+            gate["one_rank"] = _parting_record(torch, tag, ref_engine, p, prompts, ref, got)
+    if pp > 1:
+        checks = _stage_kernel_checks(torch, tag, ref_engine, (pp, sizes[0]), deltas)
+    else:
+        checks = _shard_kernel_checks(torch, tag, ref_engine, ref_engine, sizes, deltas,
+                                      max(map(len, prompts)) + new - 2)
+    memory = _check_rank_memory(tag, deltas, ref_engine._param_bytes, sizes[0] * pp,
+                                base=(base,))
     ref_mgr.shutdown()
     if record:   # the one-rank engine on its defaults
         ref_mgr, ref_engine, ref = _mesh_reference(torch, cfg, prompts, new, tag)
@@ -4276,10 +4376,220 @@ def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, at
         ref_mgr.shutdown()
     return dict(ranks=deltas, decode_steps=steps, prefill_calls=prefills, wall_s=wall,
                 load_s=load_s, gate=gate, mesh=stats["mesh"], memory=memory,
+                prefix_hits=stats.get("prefix_hits"),
                 kernel_checks=checks, profiles=profiles,
                 launches=dict(quant_matmul=sum(d["quant_matmul_launches"] for d in deltas),
                               decode_attention=sum(d["decode_attention_launches"]
                                                    for d in deltas)))
+
+
+def _stage_qmm_shapes(p, tp):
+    """The quant-matmul's local K x N in a pipeline stage: wqkv and w_gateup
+    column shards (after _tp_shuffle_cols), wo and w_down row shards, the
+    lm_head whole on every stage; at 7B tp 1: 4096x12288, 4096x4096,
+    4096x22016, 11008x4096, 4096x32000; tp 2: 4096x6144, 2048x4096,
+    4096x11008, 5504x4096, 4096x32000."""
+    qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
+    return (f"{p.dim}x{(qd + 2 * kvd) // tp}", f"{qd // tp}x{p.dim}",
+            f"{p.dim}x{2 * p.ffn_dim // tp}", f"{p.ffn_dim // tp}x{p.dim}",
+            f"{p.dim}x{p.vocab_size}")
+
+
+def _check_pp_ranks(tag, deltas, world, p, pp, steps, prefills, shapes, smi_line):
+    """Every rank of a pipeline mesh (dp 1) launched the quant-matmul 4 *
+    n_layers + 1 times a decode step (its n_layers/pp layers over each of
+    the pp microbatches, and the lm_head) and 4 * n_layers/pp + 1 times a
+    prefill, each layer shape n_layers times a step and n_layers/pp a
+    prefill and the lm_head once a call, on the card; no decode-attention
+    kernel (the stage attends by einsum) and no plain version."""
+    lp = p.n_layers // pp
+    if len(deltas) != world:
+        fail(f"[{tag}] {len(deltas)} ranks answered, expected {world}")
+    want = steps * (4 * p.n_layers + 1) + prefills * (4 * lp + 1)
+    layer_want = steps * p.n_layers + prefills * lp
+    for r, d in enumerate(deltas):
+        if d["quant_matmul_launches"] != want:
+            fail(f"[{tag}] rank {r}: {d['quant_matmul_launches']} quant-matmuls, not {want} "
+                 f"({4 * p.n_layers + 1} a decode step over {steps}, {4 * lp + 1} a prefill "
+                 f"over {prefills})")
+        if d["decode_attention_launches"] or d["decode_attention_paged_launches"]:
+            fail(f"[{tag}] rank {r}: a decode-attention kernel ran in the stage: {d}")
+        if d["plain_calls"] or d["plain_row_shards"]:
+            fail(f"[{tag}] rank {r} ran a plain version: {d}")
+        if not d["device"].startswith("cuda") or d["backend"] != "gloo":
+            fail(f"[{tag}] rank {r} ran on {d['device']} over {d['backend']}")
+        for i, shape in enumerate(shapes):
+            got = d["shard_launches"].get(f"quant_matmul {shape}", 0)
+            if got != (steps + prefills if i == len(shapes) - 1 else layer_want):
+                fail(f"[{tag}] rank {r}: {got} quant-matmuls at the stage shape {shape}: "
+                     f"{d['shard_launches']}")
+        log(f"[{tag}] rank {r} ({d['device']}, {d['backend']}): quant-matmul "
+            f"{d['quant_matmul_launches']} = {4 * p.n_layers + 1} a decode step x {steps} + "
+            f"{4 * lp + 1} a prefill x {prefills}; plain versions 0; at stage shapes "
+            f"{d['shard_launches']}; decode step host clock median {d['step_host_ms']:.2f} ms; "
+            f"card {smi_line} (ranks share the card over gloo: not a multi-GPU speed)")
+
+
+def _stage_kernel_checks(torch, tag, weights, cut, deltas):
+    """Each rank's stage block cut from the one-rank engine's weights
+    (stack_layer_params, then place_pipeline_params: its checksum must equal
+    the rank's own, and its bytes are its n_layers/pp layers and the shared
+    params), and row 1 on it against its plain version: its first layer's
+    wqkv, wo, w_gateup and w_down at one microbatch's rows (S / pp) and the
+    lm_head at the rank's slots, x ~ N(0, 1) in bf16, within one bf16 step
+    at the largest output."""
+    from tpuserve_torch.models.llama_bench import param_bytes
+    from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
+    from tpuserve_torch.parallel.mesh import Mesh
+    from tpuserve_torch.parallel.pipeline import (_layer_view, place_pipeline_params,
+                                                  stack_layer_params)
+    from tpuserve_torch.parallel.sharding import block_fingerprint, qmatmul_local
+
+    pp, tp = cut
+    p = weights.p
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(19)
+    stacked = stack_layer_params(weights.params, p, tp=tp)
+    shared = sum(param_bytes({k: v}) for k, v in stacked.items()
+                 if not k.startswith("stacked_layers/"))
+    out = []
+    for r in range(pp * tp):
+        blk = place_pipeline_params(stacked, Mesh(tp, 1, 1, r, pp=pp))
+        if block_fingerprint(blk) != deltas[r]["param_fingerprint"]:
+            fail(f"[{tag}] rank {r}: its stage block's checksum differs from the stage cut of "
+                 "the one-rank engine's weights")
+        nbytes = param_bytes(blk)
+        if nbytes != deltas[r]["param_bytes"]:
+            fail(f"[{tag}] rank {r}: {deltas[r]['param_bytes']} bytes of blocks, the stage "
+                 f"cut holds {nbytes}")
+        view = _layer_view(blk, 0)
+        checks = {}
+        for name, rows in (("L/wqkv/kernel", weights.n_slots // pp),
+                           ("L/wo/kernel", weights.n_slots // pp),
+                           ("L/w_gateup/kernel", weights.n_slots // pp),
+                           ("L/w_down/kernel", weights.n_slots // pp),
+                           ("lm_head/kernel", weights.n_slots)):
+            qt = view[name] if name.startswith("L/") else blk[name]
+            k, n = qt.orig_shape
+            x = torch.randn((rows, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            ref = quant_matmul_plain(x, qt)
+            got = qmatmul_local(x, qt, name, 0, 1)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            if not err <= tol:
+                fail(f"[{tag}] rank {r}: quant_matmul {k}x{n}: max|kernel - plain| {err} > {tol}")
+            checks[f"quant_matmul {k}x{n} (B {rows})"] = (err, tol)
+        out.append(dict(rank=r, checks=checks, block_bytes=nbytes, shared_bytes=shared))
+        log(f"[{tag}] rank {r}: stage block {nbytes / 2**30:.3f} GiB = its {p.n_layers // pp} "
+            f"of {p.n_layers} layers{' cut over tp ' + str(tp) if tp > 1 else ''} + the shared "
+            f"params {shared / 2**30:.3f} GiB (whole model {weights._param_bytes / 2**30:.3f} "
+            "GiB); row 1 against its plain version at its stage shapes (max|err|, tol): "
+            + "; ".join(f"{k_} {e:.3g} ({t:.3g})" for k_, (e, t) in checks.items()))
+        del blk
+    del stacked
+    return out
+
+
+def _pp_config(p, name, sharding, n_layers=None, **gen):
+    """The slice's model (7B widths, int4 g128 from seed 0, 64 slots of 256)
+    with int8 KV and no prefill chunks (the pipeline composes with none)."""
+    import dataclasses as dc
+
+    pc = p if n_layers is None else dc.replace(p, n_layers=n_layers)
+    cfg = dict(_model_config(pc), name=name, sharding=sharding)
+    cfg["quantization"] = dict(cfg["quantization"], kv_cache="int8")
+    cfg["generation"] = dict(cfg["generation"], prefill_chunk=0, **gen)
+    return pc, cfg
+
+
+def phase_pp(torch, p, smi_line):
+    """[pp]: the slice's model at full depth (32 layers, 16 a stage) at
+    pipeline_parallel 2, int8 KV on the 5D stage caches, two engine-started
+    ranks: 4 concurrent greedy requests of 16 tokens; each rank's
+    launches at its stage shapes (129 a decode step, 65 a prefill), its
+    load peak (half the layers and the shared params), its block checksum
+    against the one-rank engine's stage cut, row 1 against its plain
+    version, one profiled decode step. The stage attends by einsum (the JAX
+    island's XLA path), so the tokens are held to the one-rank engine under
+    TPUSERVE_DECODE_ATTN=xla, with the flat core's engine recorded beside."""
+    pc, cfg = _pp_config(p, "llama2_7b_pp2", {"pipeline_parallel": 2})
+    prompts = _mesh_prompts(torch, p, (5, 90, 33, 150), 23)
+    return _engine_ranks_phase(torch, pc, smi_line, "pp", cfg, prompts, 16, None, attn=False,
+                               shapes=_stage_qmm_shapes(pc, 1),
+                               ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),), record=True)
+
+
+def phase_pp_tp(torch, p, smi_line, n_layers=8):
+    """[pp-tp]: pipeline_parallel 2 x tensor_parallel 2 (four ranks), the
+    slice's widths cut to 8 layers, int8 KV: each stage's layers cut over tp
+    after the column regroup (row 1 at 4096x6144, 2048x4096, 4096x11008,
+    5504x4096), one psum over tp after wo and w_down; the [pp] checks. A tp
+    rank's row shards round their partial sums to bf16 before the psum, and
+    this random model's residual stream carries outliers of ~10^3 that such
+    rounding can flip at a step (measured on four H100s: one step's logits
+    18.25 off the one-rank engine's, the hidden states parting at layer 1-2),
+    so the tokens are held to the arithmetic twin, the tensor_parallel 2 engine
+    without the pipeline (itself held to the one-rank engine by [tp]), under
+    the same knobs, and the one-rank engine is recorded beside it."""
+    pc, cfg = _pp_config(p, "llama2_7b_l8_pp2tp2", {"pipeline_parallel": 2,
+                                                    "tensor_parallel": 2}, n_layers)
+    prompts = _mesh_prompts(torch, p, (5, 90, 33, 150), 23)
+    return _engine_ranks_phase(torch, pc, smi_line, "pp-tp", cfg, prompts, 16, None,
+                               attn=False, shapes=_stage_qmm_shapes(pc, 2),
+                               ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),),
+                               twin={"tensor_parallel": 2})
+
+
+def phase_pp_paged(torch, p, smi_line, n_layers=8):
+    """[pp-paged]: pipeline_parallel 2 over the 5D paged pool (int8, pages
+    of 128, no prefix sharing: the JAX v1 scope), 8 layers: the stage
+    writes its layers' pages and attends over the gathered window; the
+    [pp] checks, the one-rank paged engine under TPUSERVE_DECODE_ATTN=xla
+    as the reference."""
+    pc, cfg = _pp_config(p, "llama2_7b_l8_pp2_paged", {"pipeline_parallel": 2}, n_layers,
+                         paged=True, page_size=128, num_pages=0)
+    prompts = _mesh_prompts(torch, p, (5, 90, 33, 150), 23)
+    return _engine_ranks_phase(torch, pc, smi_line, "pp-paged", cfg, prompts, 16, None,
+                               attn=False, shapes=_stage_qmm_shapes(pc, 1),
+                               ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),))
+
+
+def phase_paged_tp(torch, p, smi_line):
+    """[paged-tp]: paged int8 flat pool (pages of 128, prefix sharing,
+    chunks of one page) under tensor_parallel 2 at full depth, two
+    engine-started ranks, the pool cut over tp on head boundaries (16 kv
+    heads a rank) and its scales replicated: its own prompts, two of which
+    share a 128-token first page (the second admitted in chunks, its first
+    chunk a prefix hit); every rank's launches (129 quant-matmuls a call,
+    the paged core 32 a decode step on its 16 kv heads), the paged core
+    against its plain version on each rank's shard of the one-rank
+    engine's served pool, and the tokens against the one-rank paged engine
+    under the [tp] gate."""
+    cfg = dict(_paged_model_config(p), name="llama2_7b_int4_paged_tp2",
+               sharding={"tensor_parallel": 2})
+    a, b, c, d = _mesh_prompts(torch, p, (200, 72, 5, 33), 37)
+    prompts = [a, a[:128] + b, c, d]
+    res = _engine_ranks_phase(torch, p, smi_line, "paged-tp", cfg, prompts, 16,
+                              4 * p.n_layers + 1, attn=False, shapes=_qmm_shard_shapes(p, 2))
+    want = p.n_layers * res["decode_steps"]
+    paged = 0
+    for d_ in res["ranks"]:
+        got = sum(v for k, v in d_["shard_launches"].items()
+                  if k.startswith("decode_attention_paged ")
+                  and k.endswith(f"x{p.n_kv_heads // 2 * p.head_dim}"))
+        if d_["decode_attention_paged_launches"] != want or got != want:
+            fail(f"[paged-tp] rank {d_['rank']}: {d_['decode_attention_paged_launches']} paged "
+                 f"cores ({got} at its shard), not {want} ({p.n_layers} a decode step on its "
+                 f"{p.n_kv_heads // 2} kv heads): {d_['shard_launches']}")
+        paged += got
+    if not res["prefix_hits"]:
+        fail("[paged-tp] no prefix hit: the second prompt did not reuse the first one's page")
+    log(f"[paged-tp] each rank launched the paged core {want} times ({p.n_layers} a decode "
+        f"step over {res['decode_steps']}) on its {p.n_kv_heads // 2} kv heads; prefix hits "
+        f"{res['prefix_hits']}")
+    res["launches"] = dict(quant_matmul=res["launches"]["quant_matmul"],
+                           decode_attention_paged=paged)
+    return res
 
 
 def phase_dp_sp(torch, p, smi_line, n_layers=8):
@@ -5367,6 +5677,19 @@ def main() -> None:
             entry = results[name_]
             entry.setdefault("launches_by_path", {"mixtral": entry["launches"]})[tag] = launched
             entry["launches"] += launched
+    # the layer pipeline (stage blocks, 5D stage caches and the 5D paged
+    # pool) and paged KV under tensor_parallel: row 1 on every stage's
+    # shapes, row 5 on each rank's kv heads of the pool (added to the paged
+    # path's count below)
+    pp_res = phase_pp(torch, p, smi_line)
+    pp_tp_res = phase_pp_tp(torch, p, smi_line)
+    pp_paged_res = phase_pp_paged(torch, p, smi_line)
+    paged_tp_res = phase_paged_tp(torch, p, smi_line)
+    for tag, res_ in (("pp", pp_res), ("pp-tp", pp_tp_res), ("pp-paged", pp_paged_res),
+                      ("paged-tp", paged_tp_res)):
+        launched = res_["launches"]["quant_matmul"]
+        results["quant_matmul"]["launches_by_path"][tag] = launched
+        results["quant_matmul"]["launches"] += launched
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
     w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
@@ -5417,6 +5740,11 @@ def main() -> None:
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
         paged_res["launches"]["decode_attention_paged"]
+    results["decode_attention_paged"]["launches_by_path"] = {
+        "paged": paged_res["launches"]["decode_attention_paged"],
+        "paged-tp": paged_tp_res["launches"]["decode_attention_paged"]}
+    results["decode_attention_paged"]["launches"] += \
+        paged_tp_res["launches"]["decode_attention_paged"]
     spec_res = phase_spec(torch, p, smi_line)
     # the multi kernel runs on the speculative path only: its count is that run's
     results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
@@ -5545,6 +5873,8 @@ def main() -> None:
                    "grouped_bf16": grouped_bf16_res, "w4a8": w4a8_res, "odd": odd_res,
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
                    "tp": tp_res, "dp_sp": dp_sp_res, "mixtral_tp": mixtral_tp_res,
+                   "pp": pp_res, "pp_tp": pp_tp_res, "pp_paged": pp_paged_res,
+                   "paged_tp": paged_tp_res,
                    "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,

@@ -158,17 +158,20 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     ({"quantization.method": "gptq"}, True),
     ({"quantization.method": "gptq", "quantization.lowrank_correction": 16}, True),
     ({"model_params.n_experts": 4}, True),
-    ({"sharding.pipeline_parallel": 2}, False),
+    ({"sharding.pipeline_parallel": 2, "generation.prefill_chunk": 0,
+      "quantization.kv_cache": "int8"}, True),
 ], ids=["generation.paged-True", "generation.speculation_tokens-4",
         "sharding.tensor_parallel-2", "quantization.method-gptq",
         "quantization.lowrank_correction-16", "model_params.n_experts-4",
         "sharding.pipeline_parallel-2"])
 def test_unported_configurations_raise(tmp_path, overrides, ported):
     """Unported parts raise instead of running something else. Speculative
-    decoding, paged or contiguous, MoE, GPTQ, LoRC and tensor parallelism
-    (the engine's own follower rank, which fails alike) are ported: their
-    configurations pass the check and go on to load the model (which fails
-    here: the directory holds no checkpoint). pipeline_parallel is not."""
+    decoding, paged or contiguous, MoE, GPTQ, LoRC, tensor parallelism and
+    pipeline_parallel (the engine's own follower rank, which fails alike;
+    the pipeline with what the JAX engine composes it with: no
+    prefill_chunk, int8 KV) are ported: their configurations pass the check
+    and go on to load the model (which fails here: the directory holds no
+    checkpoint)."""
     cfg = _config("unported")
     for field, value in overrides.items():
         section, key = field.split(".")
@@ -202,7 +205,7 @@ def test_import_leaves_jax_out():
         "from tpuserve_torch.engine import jax_backend, onnx_backend, torch_backend, batcher\n"
         "import tpuserve_torch.onnx, tpuserve_torch.onnx.proto, tpuserve_torch.onnx.importer\n"
         "import tpuserve_torch.fixtures, tpuserve_torch.utils.checkpoint\n"
-        "from tpuserve_torch.parallel import mesh, sharding, distributed, dispatcher\n"
+        "from tpuserve_torch.parallel import mesh, sharding, distributed, dispatcher, pipeline\n"
         "import tpuserve_torch.server.follower\n"
         "registry._ensure_builtins()\n"
         "assert {'mlp', 'bert', 'densenet121', 'resnet50', 'llama'} <= "

@@ -10,8 +10,10 @@ the multi-process front (tpuserve_torch.parallel, server/follower.py).
   same tokens;
 - dispatcher.MultiHostGenerator (the sharded path without the scheduler)
   on two ranks;
-- what the slice leaves out is refused with a BackendError naming it, and a
-  failed sharded start leaves no live-engine mark.
+- what the port leaves out, and the JAX engine's refusals, are refused
+  with a BackendError naming them (the CLI's form keeps the JAX multi-host
+  refusals of pipeline_parallel and paged KV), and a failed sharded start
+  leaves no live-engine mark.
 
 Every spawned rank runs under a timeout (TPUSERVE_DIST_TIMEOUT 60 s for the
 groups; the engine waits 60 s for its ranks at stop and kills the rest; the
@@ -239,10 +241,11 @@ def test_multihost_generator_ranks_agree(tmp_path):
 
 REFUSALS = {
     "paged": ({"tensor_parallel": 2}, {"paged": True, "page_size": 16, "prefill_chunk": 0},
-              "paged KV under a mesh"),
+              "paged kv_cache int4 is single-chip"),
     "speculation": ({"data_parallel": 2}, {"speculation_tokens": 4},
                     "speculative decoding under a mesh"),
-    "pipeline": ({"pipeline_parallel": 2}, {}, "pipeline_parallel"),
+    "pipeline": ({"pipeline_parallel": 2}, {"prefill_chunk": 0},
+                 "kv_cache int4 does not compose with pipeline_parallel"),
     "gspmd_only": ({"tensor_parallel": 8}, {}, "n_kv_heads 4 over tensor_parallel 8"),
     "slots": ({"data_parallel": 3}, {}, "max_slots 4 must divide by data_parallel 3"),
     "int4_sp": ({"sequence_parallel": 2}, {}, "kv_cache int4 does not compose"),
@@ -251,14 +254,44 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_left_out_configs_refused(tmp_path, case):
-    """What this slice leaves out raises a BackendError naming it, before
-    any rank is started."""
+    """What the port leaves out, and what the JAX engine refuses (a paged
+    int4 pool under a mesh; int4 KV under the pipeline's 5D stage caches),
+    raises a BackendError naming it, before any rank is started."""
     sharding, gen, msg = REFUSALS[case]
     cfg = _config("r", sharding, kv="int4", **gen)
     eng = GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")
     with pytest.raises(BackendError, match=msg):
         eng.start()
     assert eng._followers == [] and not torch.distributed.is_initialized()
+
+
+CLI_REFUSALS = {
+    "cli_pipeline": ({"pipeline_parallel": 2}, {"prefill_chunk": 0},
+                     "multi-host serving v1 does not compose with pipeline_parallel"),
+    "cli_paged": ({"tensor_parallel": 2}, {"paged": True, "page_size": 16, "prefill_chunk": 0},
+                  "page-table bookkeeping is controller-local"),
+    "cli_paged_dp": ({"data_parallel": 2}, {"paged": True, "page_size": 16, "prefill_chunk": 0},
+                     "multi-host serving v1 does not compose with paged KV"),
+}
+
+
+@pytest.mark.parametrize("case", list(CLI_REFUSALS))
+def test_cli_form_refuses_pipeline_and_paged(tmp_path, monkeypatch, case):
+    """Ranks joined by the TPUSERVE_* variables (the CLI's multi-process
+    form, the JAX package's multi-host) keep the JAX multi-host v1
+    refusals of pipeline_parallel and of paged KV, before joining; the
+    same configurations are served by ranks an engine starts itself."""
+    sharding, gen, msg = CLI_REFUSALS[case]
+    monkeypatch.setenv("TPUSERVE_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("TPUSERVE_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TPUSERVE_PROCESS_ID", "0")
+    cfg = _config("c", sharding, kv="int8", **gen)
+    eng = GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")
+    with pytest.raises(BackendError, match=msg):
+        eng.start()
+    assert eng._followers == [] and not torch.distributed.is_initialized()
+    monkeypatch.setenv("TPUSERVE_ENGINE_RANK", "1")   # a rank an engine started
+    eng._check_supported()
 
 
 def test_failed_sharded_start_leaves_no_live_mark(tmp_path, monkeypatch):

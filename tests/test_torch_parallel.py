@@ -46,53 +46,69 @@ torch.set_num_threads(1)
 class ThreadComm:
     """Collectives among the threads of one process, one thread a rank:
     every member of a group deposits its tensor, the last to arrive reduces
-    them in rank order, and each member copies the result back."""
+    them in rank order (a sum or a max; the pipeline's rotation hands each
+    member its predecessor's), and each member copies the result back.
+    `p2p` (the rotation as one exchange, as NCCL's send/recv): with False
+    the mesh builds it from all_reduce, as over gloo."""
 
-    def __init__(self):
+    def __init__(self, p2p=True):
         self.cv = threading.Condition()
         self.slots = {}
         self.seq = collections.defaultdict(int)
+        self.p2p = p2p
+
+    def _exchange(self, rank, t, ranks, combine):
+        with self.cv:
+            n = self.seq[(ranks, rank)]
+            self.seq[(ranks, rank)] += 1
+            e = self.slots.setdefault((ranks, n), {"vals": {}, "out": None, "read": 0})
+            e["vals"][rank] = t.clone()
+            if len(e["vals"]) == len(ranks):
+                e["out"] = combine(e["vals"])
+                self.cv.notify_all()
+            while e["out"] is None:
+                if not self.cv.wait(timeout=120):
+                    raise TimeoutError("a rank never reached the collective")
+            e["read"] += 1
+            out = e["out"]
+            if e["read"] == len(ranks):
+                del self.slots[(ranks, n)]
+        return out
 
     def bind(self, rank):
         comm = self
 
         class RankComm:
+            p2p = comm.p2p
+
             def all_reduce(self, t, op, ranks):
-                with comm.cv:
-                    n = comm.seq[(ranks, rank)]
-                    comm.seq[(ranks, rank)] += 1
-                    e = comm.slots.setdefault((ranks, n), {"vals": {}, "out": None, "read": 0})
-                    e["vals"][rank] = t.clone()
-                    if len(e["vals"]) == len(ranks):
-                        out = e["vals"][ranks[0]].clone()
-                        for r in ranks[1:]:
-                            v = e["vals"][r]
-                            out = torch.maximum(out, v) if op == "max" else out + v
-                        e["out"] = out
-                        comm.cv.notify_all()
-                    while e["out"] is None:
-                        if not comm.cv.wait(timeout=120):
-                            raise TimeoutError("a rank never reached the collective")
-                    e["read"] += 1
-                    out = e["out"]
-                    if e["read"] == len(ranks):
-                        del comm.slots[(ranks, n)]
-                t.copy_(out)
+                def combine(vals):
+                    out = vals[ranks[0]].clone()
+                    for r in ranks[1:]:
+                        v = vals[r]
+                        out = torch.maximum(out, v) if op == "max" else out + v
+                    return out
+
+                t.copy_(comm._exchange(rank, t, ranks, combine))
                 return t
+
+            def ppermute(self, t, ranks):
+                prev = ranks[(ranks.index(rank) - 1) % len(ranks)]
+                return comm._exchange(rank, t, ranks, dict)[prev].clone()
 
         return RankComm()
 
 
-def run_ranks(tp, dp, sp, fn):
-    """fn(mesh) on every rank of a tp x dp x sp mesh, each in a thread with
-    its mesh active; returns the results in rank order."""
-    comm = ThreadComm()
-    n = tp * dp * sp
+def run_ranks(tp, dp, sp, fn, pp=1, p2p=True):
+    """fn(mesh) on every rank of a tp x dp x sp (x pp) mesh, each in a
+    thread with its mesh active; returns the results in rank order."""
+    comm = ThreadComm(p2p)
+    n = tp * dp * sp * pp
     out, errors = [None] * n, []
 
     def body(r):
         try:
-            mesh = tmesh.Mesh(tp, dp, sp, r, comm.bind(r))
+            mesh = tmesh.Mesh(tp, dp, sp, r, comm.bind(r), pp=pp)
             with tshard.use_mesh(mesh):
                 out[r] = fn(mesh)
         except BaseException as e:  # re-raised in the test's thread

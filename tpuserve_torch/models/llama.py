@@ -46,7 +46,12 @@ shards' partials summed), MoE experts over tp, decode attention on the
 rank's slots and kv heads through the flat core, or over its L window with
 the flash-decoding merge under sp. Inputs and outputs stay global (tokens
 and positions of every slot, logits [S, V]): a prefill runs on the slot's
-dp group and the others add zeros to its logits.
+dp group and the others add zeros to its logits. The paged forms (but the
+verify) run under a tp/dp mesh too: the rank's pool block holds its kv
+heads of every page, replicated over dp, so a prefill runs on every dp
+group (each writes its copy of the pool, as a replicated computation does
+in the JAX package) and a decode step on the rank's dp slots through the
+paged core at its kv heads (`sharding.decode_attention_paged_sharded`).
 """
 
 from __future__ import annotations
@@ -399,18 +404,26 @@ def _kv_rows(cache, k, v):
         vq, vs = _quantize_kv_cache(cache, v)
     else:
         kq, vq, ks, vs = k, v, None, None
-    kq, vq = kq.reshape(n, -1), vq.reshape(n, -1)
+    w = k.shape[-2] * k.shape[-1]
+    kq, vq = kq.reshape(n, w), vq.reshape(n, w)   # n may be 0 (no live row)
     if cache.k.dtype == torch.uint8:  # packed int4
         kq, vq = pack_kv_codes(kq), pack_kv_codes(vq)
     return kq.to(cache.k.dtype), vq.to(cache.v.dtype), ks, vs
 
 
-def _write_pages(cache, layer: int, pages, offsets, k, v) -> None:
+def _write_pages(cache, layer: int, pages, offsets, k, v, mesh=None) -> None:
     """Write K/V [N, Hkv, hd] in place at pool rows (layer, pages[i],
-    offsets[i]), quantizing (and packing) for an int8/int4 pool."""
+    offsets[i]), quantizing (and packing) for an int8/int4 pool (a 5D pool
+    takes the rows as [N, Hkv, hd]). Under a tp mesh whose ranks each hold
+    the whole scale pool, the rows' scales are gathered over tp first, so
+    that every rank's copy is the whole pool's (one all_reduce for both)."""
     kq, vq, ks, vs = _kv_rows(cache, k, v)
+    if cache.k.dim() == 5:
+        kq, vq = kq.view(k.shape), vq.view(v.shape)
     cache.k[layer][pages, offsets] = kq
     cache.v[layer][pages, offsets] = vq
+    if ks is not None and sharding.paged_scales_whole(cache, k.shape[1], mesh):
+        ks, vs = mesh.gather(torch.stack([ks, vs]), "tp").unbind(0)   # one collective
     if ks is not None:
         hp = cache.k_scale.shape[2]
         cache.k_scale[layer][pages, :, offsets] = _pad_heads(ks, hp).to(cache.k_scale.dtype)
@@ -1068,6 +1081,8 @@ def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_tabl
     slot, length = int(slot), int(length)
     dev = tokens.device
     ps = cache.page_size
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
     x = params["embed/weight"][tokens]
     positions = torch.arange(l, device=dev)[None, :]
     cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
@@ -1081,12 +1096,12 @@ def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_tabl
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, l, p.n_heads, p.head_dim), cos, sin)
-            k = apply_rope(k.reshape(b, l, p.n_kv_heads, p.head_dim), cos, sin)
-            v = v.reshape(b, l, p.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, pages, offsets, k[0], v[0])
+            q = apply_rope(q.reshape(b, l, pl.n_heads, p.head_dim), cos, sin)
+            k = apply_rope(k.reshape(b, l, pl.n_kv_heads, p.head_dim), cos, sin)
+            v = v.reshape(b, l, pl.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, pages, offsets, k[0], v[0], mesh)
             out = _attention_prefill(q, k, v, mask)
-            return out.reshape(b, l, p.n_heads * p.head_dim)
+            return out.reshape(b, l, pl.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
@@ -1112,6 +1127,9 @@ def prefill_paged_suffix(params, p: LlamaParams, tokens: torch.Tensor, cache,
     slot, start, length = int(slot), int(start), int(length)
     dev = tokens.device
     ps = cache.page_size
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
+    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
     x = params["embed/weight"][tokens]
     gpos = start + torch.arange(c, device=dev)
     cos, sin = rope_cos_sin(gpos[None, :], p.head_dim, p.rope_theta)
@@ -1125,19 +1143,19 @@ def prefill_paged_suffix(params, p: LlamaParams, tokens: torch.Tensor, cache,
     cols = row[:n_cols]
 
     def window_scales(pool, layer):  # [n_cols, hp, ps] -> [Hkv, l_virt]
-        return pool[layer][cols].permute(1, 0, 2).reshape(-1, l_virt)[:p.n_kv_heads]
+        return pool[layer][cols].permute(1, 0, 2).reshape(-1, l_virt)[:pl.n_kv_heads]
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, c, p.n_heads, p.head_dim), cos, sin)
-            k = apply_rope(k.reshape(b, c, p.n_kv_heads, p.head_dim), cos, sin)
-            v = v.reshape(b, c, p.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, wpages, woffs, k[0, :length], v[0, :length])
+            q = apply_rope(q.reshape(b, c, pl.n_heads, p.head_dim), cos, sin)
+            k = apply_rope(k.reshape(b, c, pl.n_kv_heads, p.head_dim), cos, sin)
+            v = v.reshape(b, c, pl.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, wpages, woffs, k[0, :length], v[0, :length], mesh)
             ks = vs = None
             if cache.quantized:
-                ks, vs = window_scales(cache.k_scale, layer), window_scales(cache.v_scale, layer)
+                ks, vs = window_scales(ks_pool, layer), window_scales(vs_pool, layer)
             out = _attend_window(q[0], cache.k[layer][cols].reshape(l_virt, -1),
-                                 cache.v[layer][cols].reshape(l_virt, -1), ks, vs, mask, p)
+                                 cache.v[layer][cols].reshape(l_virt, -1), ks, vs, mask, pl)
             return out.to(x.dtype).reshape(b, c, -1)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -1157,14 +1175,23 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     K/V is written in place for the active slots only; under "pallas"
     attention reads the pool in place through `decode_attention_wide_paged`,
     otherwise (`_decode_attn_mode`) the einsum path attends over the
-    gathered window. Returns (logits [S, V] f32, cache).
+    gathered window. Returns (logits [S, V] f32, cache). Under a mesh the
+    rank steps its dp slots over its pool block and the logits are
+    gathered over dp.
     """
-    s = tokens.shape[0]
     mode = _decode_attn_mode(p)
     dev = tokens.device
     ps = cache.page_size
+    mesh = _mesh()
+    pl = _local_p(p, mesh)
     positions = positions.to(device=dev, dtype=torch.int32)
     page_table = page_table.to(device=dev, dtype=torch.int32)
+    all_active = positions >= 0
+    if mesh is not None:
+        lo, hi = sharding.local_slots(mesh, tokens.shape[0])
+        tokens, positions, page_table = tokens[lo:hi], positions[lo:hi], page_table[lo:hi]
+        active_idx = None
+    s = tokens.shape[0]
     if window is not None:
         page_table = page_table[:, :max(1, min(-(-int(window) // ps), page_table.shape[1]))]
     l_virt = page_table.shape[1] * ps
@@ -1179,29 +1206,36 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
     read_mask = torch.arange(l_virt, device=dev)[None, :] <= pos[:, None]  # [S, l_virt]
+    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
+    rows = dataclasses.replace(cache, k_scale=ks_pool, v_scale=vs_pool)
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(s, p.n_heads, p.head_dim), cos_q, sin_q)
-            k = apply_rope(k.reshape(s, p.n_kv_heads, p.head_dim), cos_q, sin_q)
-            v = v.reshape(s, p.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx])
+            q = apply_rope(q.reshape(s, pl.n_heads, p.head_dim), cos_q, sin_q)
+            k = apply_rope(k.reshape(s, pl.n_kv_heads, p.head_dim), cos_q, sin_q)
+            v = v.reshape(s, pl.n_kv_heads, p.head_dim)
+            _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx], mesh)
             if mode == "pallas":
-                out = decode_attention_wide_paged(
-                    true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, cache.k_scale,
-                    cache.v_scale, page_table, positions, layer, window=l_virt)
+                args = (true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, ks_pool, vs_pool,
+                        page_table, positions, layer)
+                if mesh is not None:
+                    out = sharding.decode_attention_paged_sharded(*args, mesh, window=l_virt)
+                else:
+                    out = decode_attention_wide_paged(*args, window=l_virt)
             else:
                 cols = page_table.long()
                 out = _attend_window(
                     q[:, None], cache.k[layer][cols].reshape(s, l_virt, -1),
                     cache.v[layer][cols].reshape(s, l_virt, -1),
-                    *_paged_window_scales(cache, layer, cols, p), read_mask[:, None], p)
-            return out.to(x.dtype).reshape(s, p.n_heads * p.head_dim)
+                    *_paged_window_scales(rows, layer, cols, pl), read_mask[:, None], pl)
+            return out.to(x.dtype).reshape(s, pl.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
-    logits = _logits(params, x, p)
-    return torch.where(active[:, None], logits, 0.0), cache
+    logits = torch.where(active[:, None], _logits(params, x, p), 0.0)
+    if mesh is not None:
+        logits = mesh.gather(logits, "dp", dim=0)
+    return torch.where(all_active[:, None], logits, 0.0), cache
 
 
 def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,

@@ -993,7 +993,9 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
     [n_layers, n_pages, ps, Wst]; k_scale_pool/v_scale_pool [n_layers,
     n_pages, pad8(Hkv), ps] f32 or None; page_table [S, P] int32 (pool page
     ids; its rows may be strided, as a column slice is); positions [S] int
-    (-1 = inactive); `window` a multiple of ps. Returns [S, H, hd] f32.
+    (-1 = inactive); `window` a multiple of ps. A scale pool may be a view
+    that starts at a head row of a wider pool (a tp rank's rows of a
+    replicated pool). Returns [S, H, hd] f32.
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
     global paged_launches
     if not q.is_cuda:
@@ -1015,8 +1017,9 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
                          "float pools none")
     if kv_bits == 4 and (w // 2) % 128:
         raise ValueError(f"packed int4 KV needs (n_kv_heads*head_dim)/2 % 128 == 0, got W={w}")
-    _check_inputs(q, [q, k_pool, v_pool, positions]
-                  + ([k_scale_pool, v_scale_pool] if quantized else []), k_pool, v_pool)
+    _check_inputs(q, [q, k_pool, v_pool, positions], k_pool, v_pool)
+    if quantized and (k_scale_pool.device != q.device or v_scale_pool.device != q.device):
+        raise ValueError("decode attention kernel: all inputs must be on one device")
     if (page_table.device != q.device or page_table.dtype != torch.int32
             or page_table.shape[0] != s_dim or page_table.stride(1) != 1):
         raise ValueError("paged decode attention: page_table must be int32 [S, P] on the "
@@ -1027,10 +1030,14 @@ def decode_attention_wide_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool, p
         raise ValueError(f"layer {layer} out of range")
     hp = 0
     if quantized:
-        hp = k_scale_pool.shape[2]
-        want = (n_layers, n_pages, hp, ps)
+        # the pools' rows per page: their stride, so that a view that starts
+        # at a rank's first head row of a replicated pool reads in place
+        hp = k_scale_pool.stride(1) // ps
+        want = (n_layers, n_pages, k_scale_pool.shape[2], ps)
+        strides = (n_pages * hp * ps, hp * ps, ps, 1)
         if (tuple(k_scale_pool.shape) != want or tuple(v_scale_pool.shape) != want
-                or hp < n_kv):
+                or k_scale_pool.shape[2] < n_kv or k_scale_pool.stride() != strides
+                or v_scale_pool.stride() != strides):
             raise ValueError(f"paged decode attention: scale pools must be "
                              f"[n_layers, n_pages, >= {n_kv}, ps]")
         if k_scale_pool.dtype != torch.float32 or v_scale_pool.dtype != torch.float32:

@@ -9,8 +9,9 @@ package's three variables:
 
 `initialize()` is a no-op when none is set. On one host the engine starts its
 own follower ranks instead (`launch_local_ranks`), on 127.0.0.1 and a free
-port. The backend is NCCL where every rank has its own card, gloo where
-ranks share one (or run on the CPU).
+port, each marked TPUSERVE_ENGINE_RANK=1 (`joined_by_variables` tells the two
+forms apart). The backend is NCCL where every rank has its own card, gloo
+where ranks share one (or run on the CPU).
 Every group is made with a timeout (TPUSERVE_DIST_TIMEOUT seconds, 600 by
 default), so a rank that dies or stalls ends in an error on the others, not
 a hang. Beside the default group, a gloo group carries the controller's
@@ -136,6 +137,17 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def joined_by_variables() -> bool:
+    """Whether this process's ranks are the CLI's multi-process form (joined
+    by the TPUSERVE_* variables: the JAX package's multi-host), not ranks
+    an engine started on its own host (`launch_local_ranks` marks those
+    TPUSERVE_ENGINE_RANK=1; their controller forms the group only in
+    start())."""
+    if os.environ.get("TPUSERVE_ENGINE_RANK") == "1":
+        return False
+    return is_initialized() or bool(os.environ.get("TPUSERVE_NUM_PROCESSES"))
+
+
 def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -155,7 +167,7 @@ def launch_local_ranks(world: int, device_type: str,
     for r in range(1, world):
         env = dict(os.environ, TPUSERVE_COORDINATOR=f"127.0.0.1:{port}",
                    TPUSERVE_NUM_PROCESSES=str(world), TPUSERVE_PROCESS_ID=str(r),
-                   TPUSERVE_PLATFORM=device_type)
+                   TPUSERVE_PLATFORM=device_type, TPUSERVE_ENGINE_RANK="1")
         env["PYTHONPATH"] = os.pathsep.join(
             [str(_REPO_ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
         if log_dir:

@@ -15,7 +15,12 @@ collectives through its Mesh. The rules (mesh axes ("dp", "sp", "tp")):
   when it cannot split over tp (per-channel G == 1, or G % tp != 0);
 - stacked MoE experts [E, ...]: E over tp when it divides, else replicated;
 - KV cache [n_layers, S, L, Hkv, hd] (flat: [.., W]): slots over dp, kv
-  heads over tp, L over sp; scales [n_layers, S, Hkv, L] alike.
+  heads over tp, L over sp; scales [n_layers, S, Hkv, L] alike;
+- paged pool [n_layers, n_pages, ps, W] (5D: [.., Hkv, hd]): kv heads over
+  tp, replicated over dp (any slot's table may name any page); the scale
+  pool [n_layers, n_pages, pad8(Hkv), ps] over tp only where its rows split
+  into whole unpadded head groups (a 5D pool whose Hkv is a multiple of 8
+  and of tp), else replicated. Slots, tables and positions ride dp.
 
 Each rank keeps its block as a tensor of its own, and a QTensor block's
 orig_shape is its local [K, N]. Per-shard bodies are plain functions of the
@@ -426,3 +431,80 @@ def shard_cache(cache, mesh):
         k=shard_block(cache.k, kv, mesh), v=shard_block(cache.v, kv, mesh),
         k_scale=None if cache.k_scale is None else shard_block(cache.k_scale, sc, mesh),
         v_scale=None if cache.v_scale is None else shard_block(cache.v_scale, sc, mesh))
+
+
+# ---------------------------------------------------------------- paged pool
+def _paged_scale_split(cache, tp: int) -> bool:
+    """Whether the scale pool is cut over tp (the JAX rule): its padded head
+    rows split into whole unpadded head groups, i.e. a 5D pool with hp ==
+    Hkv and hp % tp == 0; else every rank holds all of it."""
+    return (cache.k_scale is not None and tp > 1 and cache.k_scale.shape[2] % tp == 0
+            and cache.k.dim() == 5 and cache.k_scale.shape[2] == cache.k.shape[3])
+
+
+def shard_paged_cache(cache, mesh):
+    """This rank's block of a whole PagedKVCache: the pool's kv heads (W on
+    head boundaries) over tp, every page, replicated over dp; the scale
+    pool cut over tp where _paged_scale_split holds, else whole."""
+    from tpuserve_torch.serving.paged_kv import PagedKVCache
+
+    kv = (None, None, None, "tp") + (() if cache.k.dim() == 4 else (None,))
+    sc = (None, None, "tp" if _paged_scale_split(cache, mesh.shape["tp"]) else None, None)
+    cut = (lambda t, spec: None if t is None else shard_block(t, spec, mesh))
+    return PagedKVCache(k=cut(cache.k, kv), v=cut(cache.v, kv),
+                        k_scale=cut(cache.k_scale, sc), v_scale=cut(cache.v_scale, sc))
+
+
+def paged_cache_block(p, mesh, n_pages: int, page_size: int, quantized: bool,
+                      dtype=torch.bfloat16, kv_bits: int = 8, device="cuda"):
+    """A rank's block of a flat pool, made at its size: [n_layers, n_pages,
+    ps, W/tp] and, the flat pool's scales being replicated, the whole scale
+    pool [n_layers, n_pages, pad8(Hkv), ps] (shard_paged_cache's shapes)."""
+    from tpuserve_torch.serving.paged_kv import PagedKVCache, pad8
+
+    blk = PagedKVCache.create(local_llama_params(p, mesh), n_pages, page_size, quantized,
+                              dtype=dtype, kv_bits=kv_bits, device=device)
+    if quantized and mesh.shape["tp"] > 1:
+        shape = (p.n_layers, n_pages, pad8(p.n_kv_heads), page_size)
+        blk.k_scale = blk.k_scale.new_zeros(shape)
+        blk.v_scale = blk.v_scale.new_zeros(shape)
+    return blk
+
+
+def paged_scales_whole(cache, n_kv_local: int, mesh) -> bool:
+    """Whether a rank's scale pool holds every head's rows (replicated over
+    tp), so that a rank's writes must carry every head's scales."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    return cache.k_scale is not None and tp > 1 and cache.k_scale.shape[2] >= n_kv_local * tp
+
+
+def paged_scale_rows(cache, n_kv_local: int, mesh):
+    """The rank's rows of its scale pools (views from its first head row of
+    a replicated pool; the pools themselves when cut over tp or unsharded),
+    or (None, None) for a float pool."""
+    if cache.k_scale is None:
+        return None, None
+    if not paged_scales_whole(cache, n_kv_local, mesh):
+        return cache.k_scale, cache.v_scale
+    h0 = mesh.coords["tp"] * n_kv_local
+    return cache.k_scale[:, :, h0:], cache.v_scale[:, :, h0:]
+
+
+def decode_attention_paged_sharded(q, k_pool, v_pool, k_scale_rows, v_scale_rows, page_table,
+                                   positions, layer, mesh=None, *,
+                                   window: Optional[int] = None) -> torch.Tensor:
+    """The paged core on one rank's shard: q [S/dp, H/tp, hd] (pre-scaled by
+    1/sqrt(hd)), the rank's pool block [n_layers, n_pages, ps, W/tp], its
+    scale rows (paged_scale_rows: the JAX island takes the gathered [S, Hkv,
+    win] scales of its shard instead; the core reads the pool in place),
+    its slots' table rows [S/dp, P] and positions [S/dp]. Every head's
+    output is complete on its rank: no collective (the psum comes in the
+    row-sharded wo)."""
+    from tpuserve_torch.ops import decode_attention as da
+
+    del mesh
+    before = da.paged_launches
+    out = da.decode_attention_wide_paged(q, k_pool, v_pool, k_scale_rows, v_scale_rows,
+                                         page_table, positions, layer, window=window)
+    _launched("decode_attention_paged", before, da.paged_launches, tuple(k_pool.shape[1:]))
+    return out

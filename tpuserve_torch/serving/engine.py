@@ -38,24 +38,30 @@ paths).
   wait for admission.
 
 - Sharded serving (sharding.tensor_parallel / data_parallel /
-  sequence_parallel, what the JAX package's multi-host v1 serves: contiguous
-  KV, no speculation, one model at a time). Every rank is a process holding
-  its block of the weights and of the KV cache (parallel/sharding.py); rank
-  0, the controller, runs the scheduler and publishes every step's host
-  inputs on the event bus (parallel/dispatcher.py), and the follower ranks
-  replay each step (`run_follower`). Ranks joined by TPUSERVE_COORDINATOR /
+  sequence_parallel / pipeline_parallel; one model at a time). Every rank
+  is a process holding its block of the weights and of the KV cache
+  (parallel/sharding.py; under pipeline_parallel its stage block and 5D
+  stage cache or page pool, parallel/pipeline.py); rank 0, the controller,
+  runs the scheduler and publishes every step's host inputs on the event
+  bus (parallel/dispatcher.py), page-table rows included (the followers
+  keep no allocator), and the follower ranks replay each step
+  (`run_follower`). Ranks joined by TPUSERVE_COORDINATOR /
   TPUSERVE_NUM_PROCESSES / TPUSERVE_PROCESS_ID (the CLI's multi-process
-  form) serve the model whose mesh matches their number; with no process
-  group, `start()` starts world - 1 follower ranks on this host itself and
-  `stop()` stops them. Under sequence_parallel the cache is the 5D layout,
-  its L split over sp.
+  form, the JAX package's multi-host) serve the model whose mesh matches
+  their number, under the JAX multi-host v1 rules (contiguous KV, no
+  pipeline); with no process group, `start()` starts world - 1 follower
+  ranks on this host itself and `stop()` stops them (the JAX package's
+  single-host mesh: pipeline_parallel and paged KV too). Under
+  sequence_parallel the cache is the 5D layout, its L split over sp. Under
+  pipeline_parallel speculation is off, as in the JAX engine (its pipeline
+  has no verify).
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (pipeline_parallel; paged KV or speculation under a
-mesh; the meshes the JAX package serves only through GSPMD) raise
-BackendError naming them, as does a contiguous speculation width the verify
-kernel does not take.
+that need unported parts (speculation under a tp/dp/sp mesh; the meshes
+the JAX package serves only through GSPMD) raise BackendError naming them,
+as do the JAX engine's own refusals and a contiguous speculation width the
+verify kernel does not take.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ import torch
 
 from tpuserve_torch.models import llama
 from tpuserve_torch.models.llama import KVCache, LlamaParams
+from tpuserve_torch.parallel import pipeline
 from tpuserve_torch.ops.decode_attention import check_multi_kernel
 from tpuserve_torch.models.llama_bench import init_quantized_params, param_bytes
 from tpuserve_torch.quant.core import quantize_param_tree
@@ -187,6 +194,8 @@ class GenerationEngine:
         self._decode_profile: Optional[Dict] = None
         self._fingerprint: Optional[int] = None
         self._load_peak: Optional[int] = None
+        self._stage = None  # the stage block under construction (pipeline_parallel)
+        self._paged = bool(gen.paged)
 
     # ------------------------------------------------------------------ setup
     @property
@@ -248,16 +257,21 @@ class GenerationEngine:
         return (int(shard.tensor_parallel), int(shard.data_parallel),
                 int(getattr(shard, "sequence_parallel", 1) or 1))
 
-    def _check_supported(self) -> None:
-        cfg, qcfg, gen, p = self.config, self.config.quantization, self.config.generation, self.p
+    @property
+    def _pp(self) -> int:
+        return int(getattr(self.config.sharding, "pipeline_parallel", 1) or 1)
+
+    def _world(self) -> int:
         tp, dp, sp = self._mesh_sizes()
+        return tp * dp * sp * self._pp
+
+    def _check_supported(self) -> None:
+        qcfg, gen, p = self.config.quantization, self.config.generation, self.p
+        tp, dp, sp = self._mesh_sizes()
+        pp = self._pp
         spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
         unported = []
-        if int(getattr(cfg.sharding, "pipeline_parallel", 1) or 1) > 1:
-            unported.append("pipeline_parallel (the staged layers and the 5D paged pool)")
-        if tp * dp * sp > 1:
-            if gen.paged:
-                unported.append("paged KV under a mesh")
+        if tp * dp * sp > 1 and pp == 1:
             if spec_k > 0:
                 unported.append("speculative decoding under a mesh")
             if p.n_kv_heads % tp:
@@ -266,9 +280,21 @@ class GenerationEngine:
                     "package serves it only through GSPMD on the 5D cache)")
         if unported:
             raise BackendError("not ported to tpuserve_torch yet: " + ", ".join(unported))
-        if tp * dp * sp > 1:
+        if pp > 1:
+            self._check_pipeline(pp, tp, dp, sp)
+        if self._world() > 1:
+            from tpuserve_torch.parallel import distributed
+
+            if distributed.joined_by_variables():
+                # the JAX package's multi-host v1 refusals
+                if pp > 1:
+                    raise BackendError("multi-host serving v1 does not compose with "
+                                       "pipeline_parallel")
+                if gen.paged:
+                    raise BackendError("multi-host serving v1 does not compose with paged KV "
+                                       "(page-table bookkeeping is controller-local)")
             self._check_mesh(tp, dp, sp)
-        if spec_k > 0 and not gen.paged:
+        if spec_k > 0 and not gen.paged and pp == 1:
             # the contiguous verify's kernel takes C = k+1 candidates of the
             # query heads one block serves (a head pair's for int4 KV)
             nq = p.n_heads // p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
@@ -278,18 +304,59 @@ class GenerationEngine:
             except ValueError as e:
                 raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
 
+    def _check_pipeline(self, pp: int, tp: int, dp: int, sp: int) -> None:
+        """The JAX engine's refusals under pipeline_parallel, with its
+        messages."""
+        p, gen, qcfg = self.p, self.config.generation, self.config.quantization
+        if sp > 1:
+            if tp > 1:
+                raise BackendError("pipeline_parallel x sequence_parallel does not compose "
+                                   "with tensor_parallel (v1)")
+            if gen.paged:
+                raise BackendError("sequence_parallel does not compose with paged KV")
+        if gen.paged:
+            if tp > 1 or dp > 1:
+                raise BackendError("pipeline_parallel x paged KV requires tensor_parallel = "
+                                   "data_parallel = 1 (v1)")
+            if bool(getattr(gen, "prefix_sharing", False)):
+                raise BackendError("pipeline_parallel x paged KV does not compose with "
+                                   "prefix_sharing")
+        if self._chunk_size > 0:
+            raise BackendError("pipeline_parallel does not compose with prefill_chunk (v1)")
+        if p.n_layers % pp:
+            raise BackendError(f"n_layers {p.n_layers} must divide by pipeline_parallel {pp}")
+        if self.n_slots % (pp * dp):
+            raise BackendError(f"max_slots {self.n_slots} must divide by "
+                               f"pipeline_parallel*data_parallel {pp * dp}")
+        if tp > 1 and (p.n_kv_heads % tp or p.n_heads % tp or p.ffn_dim % tp):
+            raise BackendError(f"n_heads/n_kv_heads/ffn_dim must divide by tensor_parallel "
+                               f"{tp} under pipeline_parallel")
+        if tp > 1 and p.n_experts:
+            raise BackendError("pipeline_parallel x tensor_parallel does not compose with "
+                               "MoE yet")
+        if qcfg.kv_cache == "int4":
+            raise BackendError("kv_cache int4 does not compose with pipeline_parallel "
+                               "(5D stage caches)")
+
     def _check_mesh(self, tp: int, dp: int, sp: int) -> None:
         """The JAX engine's divisibility errors and v1 refusals under a mesh,
         and the widths a tp split must divide."""
-        p, qcfg = self.p, self.config.quantization
+        p, qcfg, gen = self.p, self.config.quantization, self.config.generation
         if self.n_slots % dp:
             raise BackendError(f"max_slots {self.n_slots} must divide by data_parallel {dp}")
         if self.max_seq_len % sp:
             raise BackendError(
                 f"max_seq_len {self.max_seq_len} must divide by sequence_parallel {sp}")
+        if sp > 1 and gen.paged:
+            raise BackendError("sequence_parallel does not compose with paged KV (page pools "
+                               "address L dynamically; shard slots/heads via "
+                               "data_parallel/tensor_parallel instead)")
         if int(getattr(qcfg, "lowrank_correction", 0) or 0) > 0:
             raise BackendError("quantization.lowrank_correction is single-chip (v1): the "
                                "rank-r correction factors are not sharded")
+        if qcfg.kv_cache == "int4" and gen.paged:
+            raise BackendError("paged kv_cache int4 is single-chip (the shared pool cannot "
+                               "shard a packed W dim)")
         if qcfg.kv_cache == "int4":
             if sp > 1:
                 raise BackendError("kv_cache int4 does not compose with sequence_parallel "
@@ -298,7 +365,9 @@ class GenerationEngine:
                 raise BackendError("kv_cache int4 under tp needs tp | n_kv_heads")
         qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
         widths = {"(n_heads + 2 n_kv_heads) * head_dim": qd + 2 * kvd,
-                  "n_heads * head_dim": qd, "vocab_size": p.vocab_size}
+                  "n_heads * head_dim": qd}
+        if self._pp == 1:   # a pipeline stage holds the lm_head whole
+            widths["vocab_size"] = p.vocab_size
         if not p.n_experts:
             widths["ffn_dim"] = p.ffn_dim
         for what, width in widths.items():
@@ -353,10 +422,10 @@ class GenerationEngine:
 
     def start(self) -> None:
         self._check_supported()
-        tp, dp, sp = self._mesh_sizes()
+        world = self._world()
         from tpuserve_torch.parallel import distributed
 
-        if tp * dp * sp == 1:
+        if world == 1:
             if distributed.is_multi_host():
                 raise BackendError(
                     "multi-process serving requires a sharded config (set "
@@ -369,7 +438,7 @@ class GenerationEngine:
                                "is a single ordered stream)")
         _MH_LIVE_ENGINE = self
         try:
-            self._join_ranks(tp * dp * sp)
+            self._join_ranks(world)
             self._start_rank()
         except BaseException:
             # leave no live-engine mark and no ranks behind a failed start
@@ -391,8 +460,8 @@ class GenerationEngine:
             have = distributed.process_info()["process_count"]
             if have != world:
                 raise BackendError(f"the mesh needs {world} ranks (tensor_parallel x "
-                                   f"data_parallel x sequence_parallel), the process group "
-                                   f"has {have}")
+                                   f"data_parallel x sequence_parallel x pipeline_parallel), "
+                                   f"the process group has {have}")
         else:
             self._followers = distributed.launch_local_ranks(world, self.device.type)
         rank = distributed.process_info()["process_index"]
@@ -400,7 +469,13 @@ class GenerationEngine:
         if self._mh_ctrl:
             publish_event(("load", self.model_dir, self.config, self.device.type))
         tp, dp, sp = self._mesh_sizes()
-        self.mesh = make_mesh(tp=tp, dp=dp, sp=sp, backend=distributed.backend())
+        if self._pp > 1:
+            from tpuserve_torch.parallel.mesh import make_pipeline_mesh
+
+            self.mesh = make_pipeline_mesh(self._pp, tp=tp, dp=dp, sp=sp,
+                                           backend=distributed.backend())
+        else:
+            self.mesh = make_mesh(tp=tp, dp=dp, sp=sp, backend=distributed.backend())
         dev = rank_device(self.device.type, rank)
         if dev != self.device:
             self.device = dev
@@ -434,9 +509,12 @@ class GenerationEngine:
 
     def _keep_block(self, name: str, val):
         """This rank's block of one parameter, on the device (the whole value
-        unsharded)."""
+        unsharded; under pipeline_parallel the stage block takes the layers,
+        None here)."""
         if self.mesh is None:
             return val
+        if self._stage is not None:
+            return self._stage.keep(name, val)
         from tpuserve_torch.parallel.sharding import shard_llama_params
 
         return shard_llama_params({name: val}, self.mesh)[name]
@@ -451,6 +529,10 @@ class GenerationEngine:
         qcfg = self.config.quantization
         bits = _QUANT_BITS.get(qcfg.weights)
         init_mode = str(self.config.model_params.get("init", "")).lower()
+        if self._pp > 1:
+            from tpuserve_torch.parallel.pipeline import StageBlock
+
+            self._stage = StageBlock(p, self.mesh)
         if init_mode == "random_quantized":
             if bits is None:
                 raise BackendError(
@@ -479,6 +561,8 @@ class GenerationEngine:
                             act_bits=8 if qcfg.activations == "int8" else 0,
                             act_fp8=qcfg.activations == "fp8")[name]
                     params[name] = self._keep_block(name, val)
+        if self._stage is not None:
+            params, self._stage = self._stage.finish(params), None
         self._finish_start(params)
 
     def _finish_start(self, params) -> None:
@@ -491,7 +575,8 @@ class GenerationEngine:
                                                           set_active_mesh)
 
             self._fingerprint = block_fingerprint(params)
-            set_active_mesh(self.mesh)
+            if self._pp == 1:   # a pipeline stage runs its own collectives
+                set_active_mesh(self.mesh)
             pc = local_llama_params(p, self.mesh)
             n_slots = self.n_slots // self.mesh.shape["dp"]
             max_len = self.max_seq_len // self.mesh.shape["sp"]
@@ -514,25 +599,47 @@ class GenerationEngine:
         if kv_bits == 4 and (p.n_kv_heads * p.head_dim) % 2:
             raise BackendError("kv_cache int4 needs even n_kv_heads*head_dim")
         if gen.paged:
-            # flat pools only (the JAX package's int4 pools are always flat);
-            # scale pools are float32 whatever kv_scale_dtype says, as there
+            # flat pools (the JAX package's int4 pools are always flat), cut
+            # over tp and replicated over dp under a mesh; a pipeline stage's
+            # block of the 5D pool; scale pools are float32 whatever
+            # kv_scale_dtype says, as there
             ps = int(gen.page_size)
             max_pages = -(-self.max_seq_len // ps)
             num_pages = int(gen.num_pages) or self.n_slots * max_pages + 1
-            self.cache = PagedKVCache.create(p, num_pages, ps, quantized=quant_kv,
-                                             dtype=torch.bfloat16, kv_bits=kv_bits,
-                                             device=self.device)
-            self.ptm = PageTableManager(num_pages, ps, self.n_slots, self.max_seq_len,
-                                        prefix_sharing=bool(gen.prefix_sharing),
-                                        device=self.device)
+            if self._pp > 1:
+                self.cache = PagedKVCache.create(
+                    dataclasses.replace(p, n_layers=p.n_layers // self._pp), num_pages, ps,
+                    quantized=quant_kv, dtype=torch.bfloat16, device=self.device, flat=False)
+            elif self.mesh is not None:
+                from tpuserve_torch.parallel.sharding import paged_cache_block
+
+                self.cache = paged_cache_block(p, self.mesh, num_pages, ps, quant_kv,
+                                               dtype=torch.bfloat16, kv_bits=kv_bits,
+                                               device=self.device)
+            else:
+                self.cache = PagedKVCache.create(p, num_pages, ps, quantized=quant_kv,
+                                                 dtype=torch.bfloat16, kv_bits=kv_bits,
+                                                 device=self.device)
+            # the controller's page bookkeeping; followers get table rows on the bus
+            self.ptm = None if not self._mh_ctrl else PageTableManager(
+                num_pages, ps, self.n_slots, self.max_seq_len,
+                prefix_sharing=bool(gen.prefix_sharing), device=self.device)
         else:
-            # a rank's block: its slots, kv heads and (5D under sp) L window
+            # a rank's block: its slots, kv heads and (5D under sp) L window;
+            # a pipeline stage's 5D stage cache
             scale_dtype = torch.bfloat16 \
                 if getattr(qcfg, "kv_scale_dtype", "float32") == "bfloat16" else torch.float32
-            flat = self.mesh is None or self.mesh.shape["sp"] == 1
-            self.cache = KVCache.create(pc, n_slots, max_len, quantized=quant_kv,
-                                        dtype=torch.bfloat16, scale_dtype=scale_dtype,
-                                        kv_bits=kv_bits, device=self.device, flat=flat)
+            if self._pp > 1:
+                from tpuserve_torch.parallel.pipeline import stage_cache
+
+                self.cache = stage_cache(p, self.mesh, self.n_slots, self.max_seq_len,
+                                         quant_kv, dtype=torch.bfloat16,
+                                         scale_dtype=scale_dtype, device=self.device)
+            else:
+                flat = self.mesh is None or self.mesh.shape["sp"] == 1
+                self.cache = KVCache.create(pc, n_slots, max_len, quantized=quant_kv,
+                                            dtype=torch.bfloat16, scale_dtype=scale_dtype,
+                                            kv_bits=kv_bits, device=self.device, flat=flat)
             self.ptm = None
         self._presence = torch.zeros((self.n_slots, p.vocab_size), dtype=torch.bool,
                                      device=self.device)
@@ -599,7 +706,7 @@ class GenerationEngine:
 
     def local_stats(self) -> Dict:
         """This rank's counts: the kernels' launches (quant-matmul, the flat
-        decode-attention core) at the shard shapes, the plain-torch row
+        and paged decode-attention core) at the shard shapes, the plain-torch row
         shards, the last decode steps' host clock, the profiled decode step
         (profile_next_decode), its weight blocks' checksum and its memory."""
         from tpuserve_torch.ops import decode_attention, quant_matmul
@@ -612,6 +719,7 @@ class GenerationEngine:
                 "device": str(self.device), "backend": self.mesh.backend if self.mesh else None,
                 "quant_matmul_launches": quant_matmul.launches,
                 "decode_attention_launches": decode_attention.launches,
+                "decode_attention_paged_launches": decode_attention.paged_launches,
                 "plain_calls": quant_matmul.plain_calls + decode_attention.plain_calls,
                 "shard_launches": dict(sharding.shard_launches),
                 "plain_row_shards": sharding.plain_fallbacks,
@@ -790,35 +898,64 @@ class GenerationEngine:
         tokens[0, :len(ids)] = ids
         return torch.from_numpy(tokens).to(self.device)
 
-    def _dev_admit(self, slot: int, prompt_ids, samp):
+    def _admit_pages(self, slot: int, prompt_ids):
+        """Controller, paged mode: shared prefix pages first, private pages
+        for the rest of the bucket. Returns (the slot's table row, matched
+        tokens) for the admission's event."""
+        _, matched = self.ptm.admit_shared(slot, prompt_ids)
+        try:
+            self.ptm.ensure(slot, self._bucket_len(len(prompt_ids)))  # ResourceExhaustedError
+        except Exception:
+            self.ptm.release(slot)  # drop the shared refs taken above
+            raise
+        return self.ptm.table[slot].copy(), matched
+
+    def _table(self, rows) -> torch.Tensor:
+        """A device page table [S, P] int32 from the controller's rows: the
+        whole table ([S, P] array) or {slot: row} (the other rows point at
+        the zero page)."""
+        if isinstance(rows, dict):
+            table = np.zeros((self.n_slots, -(-self.max_seq_len // int(
+                self.config.generation.page_size))), np.int32)
+            for slot, row in rows.items():
+                table[slot] = row
+            rows = table
+        return torch.from_numpy(np.ascontiguousarray(rows, np.int32)).to(self.device)
+
+    def _dev_admit(self, slot: int, prompt_ids, samp, paged=None):
         """Whole-prompt admission: bucketed prefill + first-token sample.
-        Paged mode: shared prefix pages first, private pages for the rest,
-        and a suffix prefill when a prefix matched."""
+        Paged mode (`paged` = the slot's table row and the tokens its shared
+        prefix matched): a suffix prefill when a prefix matched."""
         l = len(prompt_ids)
         bucket = self._bucket_len(l)
-        if self.ptm is None:
-            logits, _ = llama.prefill(self.params, self.p, self._tokens(prompt_ids, bucket),
-                                      self.cache, slot, l)
+        pp = self._pp > 1
+        if paged is None:
+            tokens = self._tokens(prompt_ids, bucket)
+            if pp:
+                logits, _ = pipeline.pp_prefill(self.params, self.p, tokens, self.cache, slot,
+                                                l, self.mesh)
+            else:
+                logits, _ = llama.prefill(self.params, self.p, tokens, self.cache, slot, l)
         else:
-            _, matched = self.ptm.admit_shared(slot, prompt_ids)
-            try:
-                self.ptm.ensure(slot, bucket)  # raises ResourceExhaustedError
-            except Exception:
-                self.ptm.release(slot)  # drop the shared refs taken above
-                raise
+            row, matched = paged
+            table = self._table({slot: row})
             if matched > 0:
                 # matched pages already hold valid KV: prefill the suffix only
                 suffix = prompt_ids[matched:]
                 cb = self._bucket_len(len(suffix))
-                ps = self.ptm.page_size
+                ps = int(self.config.generation.page_size)
                 win = -(-min(matched + cb, self.max_seq_len) // ps) * ps
                 logits, _ = llama.prefill_paged_suffix(
-                    self.params, self.p, self._tokens(suffix, cb), self.cache,
-                    self.ptm.device_table(), slot, matched, len(suffix), window=win)
+                    self.params, self.p, self._tokens(suffix, cb), self.cache, table, slot,
+                    matched, len(suffix), window=win)
+            elif pp:
+                logits, _ = pipeline.pp_prefill_paged(
+                    self.params, self.p, self._tokens(prompt_ids, bucket), self.cache, table,
+                    slot, l, self.mesh)
             else:
                 logits, _ = llama.prefill_paged(
                     self.params, self.p, self._tokens(prompt_ids, bucket), self.cache,
-                    self.ptm.device_table(), slot, l)
+                    table, slot, l)
         self.prefill_calls += 1
         return self._dev_first_sample(slot, prompt_ids, samp, logits)
 
@@ -836,36 +973,47 @@ class GenerationEngine:
         self._presence[slot, tok] = True
         return tok, lp0
 
-    def _dev_chunk(self, slot: int, chunk_ids, c0: int, n: int, window: int):
+    def _dev_chunk(self, slot: int, chunk_ids, c0: int, n: int, window: int, row=None):
         """One prefill chunk; returns this chunk's logits. Paged mode runs
-        it as a suffix prefill over the slot's pages."""
+        it as a suffix prefill over the slot's pages (`row`, its table
+        row)."""
         tokens = self._tokens(chunk_ids, self._chunk_size)
-        if self.ptm is None:
+        if row is None:
             logits, _ = llama.prefill_chunk(self.params, self.p, tokens, self.cache, slot,
                                             c0, n, window=window)
         else:
             logits, _ = llama.prefill_paged_suffix(
-                self.params, self.p, tokens, self.cache, self.ptm.device_table(), slot,
+                self.params, self.p, tokens, self.cache, self._table({slot: row}), slot,
                 c0, n, window=window)
         self.prefill_calls += 1
         return logits
 
-    def _dev_decode(self, tokens, positions, window: int, horizon: int, profile: bool = False):
+    def _dev_decode(self, tokens, positions, window: int, horizon: int, profile: bool = False,
+                    table=None):
         """`horizon` batched decode+sample steps back to back on the device,
         fetched with one copy; returns ([H, S] tokens, [H, S] logprobs) as
-        host arrays. Slots that are inactive (position -1) stay so."""
+        host arrays. Slots that are inactive (position -1) stay so. Paged
+        mode: `table`, the controller's page table [S, P]."""
         t0 = time.monotonic()
         prof = self._profile_start() if profile else None
         toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
         positions = np.asarray(positions, np.int32)
         pos = torch.from_numpy(positions).to(self.device)
         active_idx = torch.from_numpy(np.nonzero(positions >= 0)[0]).to(self.device)
-        table = None if self.ptm is None else self.ptm.device_table()
+        table = None if table is None else self._table(table)
+        pp = self._pp > 1
         out_t, out_lp = [], []
         for _ in range(horizon):
-            if table is None:
+            if table is None and pp:
+                logits, _ = pipeline.pp_decode_step(self.params, self.p, toks, self.cache, pos,
+                                                    self.mesh, window=window)
+            elif table is None:
                 logits, _ = llama.decode_step(self.params, self.p, toks, self.cache, pos,
                                               window=window, active_idx=active_idx)
+            elif pp:
+                logits, _ = pipeline.pp_decode_step_paged(self.params, self.p, toks,
+                                                          self.cache, table, pos, self.mesh,
+                                                          window=window)
             else:
                 logits, _ = llama.decode_step_paged(self.params, self.p, toks, self.cache,
                                                     table, pos, window=window,
@@ -929,7 +1077,7 @@ class GenerationEngine:
         pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
         logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
-                                            self.ptm.device_table(), pos_t, lens_t,
+                                            self._table(self.ptm.table), pos_t, lens_t,
                                             window=window)
         self.verify_calls += 1
         g, lp, acc = spec_accept(logits, toks_t, lens_t, self._sampling, self._generator)
@@ -989,8 +1137,9 @@ class GenerationEngine:
     # ------------------------------------------------------------------ scheduling
     def _admit(self, req: Request, slot: int) -> None:
         samp = (req.temperature, req.top_k, req.top_p, req.repetition_penalty, req.min_p)
-        self._publish(("admit", slot, list(req.prompt_ids), samp))
-        tok, lp0 = self._dev_admit(slot, req.prompt_ids, samp)
+        paged = None if self.ptm is None else self._admit_pages(slot, req.prompt_ids)
+        self._publish(("admit", slot, list(req.prompt_ids), samp, paged))
+        tok, lp0 = self._dev_admit(slot, req.prompt_ids, samp, paged)
         self.tokens_in += len(req.prompt_ids)
         self._emit(req, tok, lp0)
         st = _SlotState(request=req, next_pos=len(req.prompt_ids), generated=1,
@@ -1027,8 +1176,9 @@ class GenerationEngine:
                 self.ptm.ensure(slot, c0 + n)
                 ps = self.ptm.page_size
                 window = -(-min(c0 + cs, self.max_seq_len) // ps) * ps
-            self._publish(("chunk", slot, list(ids[c0:c0 + n]), c0, n, window))
-            logits = self._dev_chunk(slot, ids[c0:c0 + n], c0, n, window)
+            row = None if self.ptm is None else self.ptm.table[slot].copy()
+            self._publish(("chunk", slot, list(ids[c0:c0 + n]), c0, n, window, row))
+            logits = self._dev_chunk(slot, ids[c0:c0 + n], c0, n, window, row)
         except Exception as e:
             req.error = str(e)
             req.token_queue.put(None)
@@ -1352,7 +1502,8 @@ class GenerationEngine:
             # instead of one decode step. The repetition penalty disables
             # it: its presence mask would have to evolve inside the
             # accepted run.
-            spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
+            # (off under pipeline_parallel, as in the JAX engine)
+            spec_k = int(getattr(gen, "speculation_tokens", 0) or 0) if self._pp == 1 else 0
             if (spec_k > 0 and not self._spec_disabled and self._pending.empty()
                     and self._chunking is None
                     and all(self._slots[i].request.repetition_penalty == 1.0
@@ -1362,9 +1513,10 @@ class GenerationEngine:
             try:
                 t_disp = time.monotonic()
                 profile, self._profile_next = self._profile_next, False
-                self._publish(("decode", tokens, positions, window, horizon, profile))
+                table = None if self.ptm is None else self.ptm.table.copy()
+                self._publish(("decode", tokens, positions, window, horizon, profile, table))
                 step_tokens, step_lps = self._dev_decode(tokens, positions, window, horizon,
-                                                         profile)
+                                                         profile, table)
                 per_tok = (time.monotonic() - t_disp) * 1000.0 / step_tokens.shape[0]
                 self._tok_ms_ema = per_tok if self._tok_ms_ema is None \
                     else 0.7 * self._tok_ms_ema + 0.3 * per_tok

@@ -1,13 +1,17 @@
 """Paged KV cache: fixed-size pages + per-slot page tables (PyTorch port of
-tpuserve/serving/paged_kv.py, the single-device flat-pool path).
+tpuserve/serving/paged_kv.py).
 
 The contiguous per-slot cache (llama.KVCache) reserves max_seq_len for every
 slot; the paged cache allocates pages on demand, so the memory committed
 follows the actual token count and more concurrent slots fit the same card.
 
-Device layout (flat pools only):
-  k/v:     [n_layers, n_pages, page_size, W] (W = Hkv*hd; int8, bf16 or f32)
-           or packed int4 uint8 [.., W/2] (llama.pack_kv_codes)
+Device layout:
+  k/v:     flat [n_layers, n_pages, page_size, W] (W = Hkv*hd; int8, bf16 or
+           f32) or packed int4 uint8 [.., W/2] (llama.pack_kv_codes); or 5D
+           [n_layers, n_pages, page_size, Hkv, hd] (int8 or float; the
+           layout the pipeline's stages read, PagedKVCache.create(flat=
+           False)). The two layouts hold the same bytes, so a pool crosses
+           between them by a reshape of k and v.
   scales:  [n_layers, n_pages, pad8(Hkv), page_size] f32 (int8/int4 only),
            head-major per page. The pad8 rows are kept so pools cross
            between the two packages byte for byte.
@@ -175,10 +179,10 @@ def make_allocator(num_pages: int, page_size: int) -> _PyKvAllocator:
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """Device page pool in the flat layout (see module docstring). Written
-    in place by the model's paged entry points."""
+    """Device page pool, flat or 5D (see module docstring). Written in place
+    by the model's paged entry points."""
 
-    k: torch.Tensor  # [n_layers, n_pages, page_size, W] (W/2 uint8 for int4)
+    k: torch.Tensor  # [n_layers, n_pages, page_size, W] (W/2 uint8 for int4) or 5D
     v: torch.Tensor
     k_scale: Optional[torch.Tensor]  # [n_layers, n_pages, pad8(Hkv), page_size] f32
     v_scale: Optional[torch.Tensor]
@@ -186,6 +190,26 @@ class PagedKVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def kv_bits(self) -> int:
+        return 4 if self.k.dtype == torch.uint8 else 8
+
+    def as_flat(self) -> "PagedKVCache":
+        """The same pool viewed flat [.., page_size, Hkv*hd] (no copy)."""
+        if self.flat:
+            return self
+        return dataclasses.replace(self, k=self.k.flatten(-2), v=self.v.flatten(-2))
+
+    def as_5d(self, n_kv_heads: int) -> "PagedKVCache":
+        """The same pool viewed 5D [.., page_size, Hkv, hd] (no copy; not a
+        packed int4 pool)."""
+        if not self.flat:
+            return self
+        if self.k.dtype == torch.uint8:
+            raise ValueError("a packed int4 pool is flat only")
+        shape = tuple(self.k.shape[:3]) + (n_kv_heads, self.k.shape[3] // n_kv_heads)
+        return dataclasses.replace(self, k=self.k.view(shape), v=self.v.view(shape))
 
     @property
     def page_size(self) -> int:
@@ -202,15 +226,17 @@ class PagedKVCache:
 
     @classmethod
     def create(cls, p, n_pages: int, page_size: int, quantized: bool,
-               dtype=torch.bfloat16, kv_bits: int = 8, device="cuda") -> "PagedKVCache":
+               dtype=torch.bfloat16, kv_bits: int = 8, device="cuda",
+               flat: bool = True) -> "PagedKVCache":
         dev = resolve_device(device)
         w = p.n_kv_heads * p.head_dim
         if kv_bits == 4:
-            if not quantized:
-                raise ValueError("kv_bits=4 requires a quantized pool")
+            if not (quantized and flat):
+                raise ValueError("kv_bits=4 requires quantized flat pools")
             if w % 2:
                 raise ValueError("kv_bits=4 requires an even n_kv_heads*head_dim")
-        shape = (p.n_layers, n_pages, page_size, w // 2 if kv_bits == 4 else w)
+        shape = (p.n_layers, n_pages, page_size, w // 2 if kv_bits == 4 else w) if flat \
+            else (p.n_layers, n_pages, page_size, p.n_kv_heads, p.head_dim)
         if not quantized:
             return cls(k=torch.zeros(shape, dtype=dtype, device=dev),
                        v=torch.zeros(shape, dtype=dtype, device=dev),
