@@ -3742,14 +3742,14 @@ def _rank_deltas(before, after):
     for b, a in zip(before, after):
         d = {k: a[k] - b[k] for k in ("quant_matmul_launches", "decode_attention_launches",
                                       "decode_attention_paged_launches", "plain_calls",
-                                      "plain_row_shards")}
-        keys = set(a["shard_launches"]) | set(b["shard_launches"])
-        d["shard_launches"] = {k: a["shard_launches"].get(k, 0) - b["shard_launches"].get(k, 0)
-                               for k in sorted(keys)
-                               if a["shard_launches"].get(k, 0) != b["shard_launches"].get(k, 0)}
-        d.update({k: a[k] for k in ("rank", "device", "backend", "param_bytes", "cache_bytes",
-                                    "param_fingerprint", "load_max_memory_allocated",
-                                    "max_memory_allocated")},
+                                      "plain_row_shards", "verify_calls", "verify_rows_written")}
+        for counts in ("shard_launches", "shard_launch_rows"):
+            keys = set(a[counts]) | set(b[counts])
+            d[counts] = {k: a[counts].get(k, 0) - b[counts].get(k, 0) for k in sorted(keys)
+                         if a[counts].get(k, 0) != b[counts].get(k, 0)}
+        d.update({k: a[k] for k in ("rank", "coords", "device", "backend", "param_bytes",
+                                    "cache_bytes", "param_fingerprint", "spec_disabled",
+                                    "load_max_memory_allocated", "max_memory_allocated")},
                  step_host_ms=a["step_host_ms_median"])
         out.append(d)
     return out
@@ -3844,7 +3844,8 @@ def _log_profiles(tag, profiles, deltas, smi_line):
             "(ranks share the card over gloo)")
 
 
-def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_max):
+def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_max,
+                         qmm_rows=None):
     """Each kernel of a rank's path held against its plain version at the
     rank's shard shapes, on the rank's blocks: its weight blocks cut from the
     one-rank engine `weights` (the same draws; their block checksum must
@@ -3855,9 +3856,10 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
     (an MoE model: each of the rank's experts' views) at the rank's decode
     rows, x ~ N(0, 1) in bf16; the flat core on layer 0 with a random q
     (not under sp: its merge is plain torch), or for a paged pool the paged
-    core on the rank's block of layer 0's pages (_paged_shard_check).
-    Tolerances as in [kernel]: one bf16 step at the largest output; 2e-3
-    of the output range."""
+    core on the rank's block of layer 0's pages (_paged_shard_check). With
+    `qmm_rows` the quant-matmul runs at that many rows instead (a verify's
+    S/dp * C). Tolerances as in [kernel]: one bf16 step at the largest
+    output; 2e-3 of the output range."""
     from tpuserve_torch.models.llama import KVCache, _expert_slice, pack_kv_codes
     from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
                                                      unpack_kv_codes)
@@ -3892,7 +3894,8 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
             checks[key] = (max(err, worst[0]), min(tol, worst[1]))
 
         def x_for(k):
-            return torch.randn((rows, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            return torch.randn((qmm_rows or rows, k), generator=gen,
+                               device=DEVICE).to(torch.bfloat16)
 
         for name in ("layers.0/wqkv/kernel", "layers.0/wo/kernel", "layers.0/w_gateup/kernel",
                      "layers.0/w_down/kernel", "lm_head/kernel"):
@@ -3902,7 +3905,7 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
             k, n = qt.orig_shape
             x = x_for(k)
             ref = quant_matmul_plain(x, kernel_operand(qt, name, ti, tp))
-            hold(f"quant_matmul {k}x{n}", qmatmul_local(x, qt, name, ti, tp), ref,
+            hold(f"quant_matmul {x.shape[0]}x{k}x{n}", qmatmul_local(x, qt, name, ti, tp), ref,
                  2 ** -7 * ref.float().abs().max().item())
         for name in ("layers.0/moe_gateup/kernel", "layers.0/moe_down/kernel"):
             if name not in blocks:
@@ -3981,11 +3984,12 @@ def _paged_shard_check(torch, gen, hold, p, full, mesh, rows, pos_max):
          2e-3 * ref.abs().max().item() + 1e-6)
 
 
-def _mesh_reference(torch, cfg, prompts, new, tag, env=(), sharding=None):
+def _mesh_reference(torch, cfg, prompts, new, tag, env=(), sharding=None, warm=()):
     """The one-rank engine on the same weights (sharding off, or the
     `sharding` given; the knobs `env` set while it serves): its greedy
-    tokens and logprobs for the same concurrent requests; returns them with
-    the manager, kept for the gate."""
+    tokens and logprobs for the same concurrent requests, after the `warm`
+    prompts served one at a time; returns them with the manager, kept for
+    the gate."""
     from tpuserve_torch.engine.manager import InferenceManager
 
     one = dict(cfg, name=cfg["name"] + ("_one" if not sharding else "_twin"),
@@ -3996,6 +4000,8 @@ def _mesh_reference(torch, cfg, prompts, new, tag, env=(), sharding=None):
         mgr = InferenceManager(_write_repo(one), num_workers=1, device=DEVICE)
         mgr.load_model(one["name"])
         backend = mgr.get_model(one["name"]).backend
+        for w in warm:
+            backend.generate(w, max_new_tokens=2)
         res = _mesh_wave(lambda i: backend.generate(prompts[i], max_new_tokens=new,
                                                     logprobs=True), len(prompts),
                          tag + " one-rank")[0]
@@ -4022,14 +4028,17 @@ def _mesh_wave(call, n, tag):
     return results, time.monotonic() - t0
 
 
-def _step_margins(torch, engine, p, prompt, shared):
-    """The one-rank engine's own step where a request parts: its prompt
-    admitted as the engine admits it (whole, or in prefill_chunk chunks) into
-    a one-slot cache of the engine's kind, then a decode step for each token
-    both runs drew. Returns the top-two gap of that step's logits and, for a
-    MoE model, the smallest gap over the layers between the token's k-th and
-    (k+1)-th router logits (a routing near tie)."""
+def _step_margins(torch, engine, p, prompt, shared, info=None, sp=1):
+    """The one-rank engine's own step where a request parts
+    (`sp_parting.slot_steps`: its prompt admitted as the engine admits it,
+    then a decode step a shared token; with sp > 1 through the sp merge on
+    threads). Returns the top-two gap of that
+    step's logits and, for a MoE model, the smallest gap over the layers
+    between the token's k-th and (k+1)-th router logits (a routing near
+    tie). With `info` (a dict) also the step's top token, as info["top"],
+    its logits, as info["logits"], and every step's, as info["steps"]."""
     from tpuserve_torch.models import llama
+    from tpuserve_torch.scripts.sp_parting import slot_steps
 
     routes, real = [], llama.moe_combine_weights
 
@@ -4038,73 +4047,161 @@ def _step_margins(torch, engine, p, prompt, shared):
         routes.append((top[k - 1] - top[k]).item())
         return real(logits, n_experts, k)
 
-    ec, n, cs = engine.cache, len(prompt), engine._chunk_size
-    cache = llama.KVCache.create(p, 1, engine.max_seq_len, quantized=ec.quantized,
-                                 scale_dtype=ec.k_scale.dtype if ec.quantized else torch.float32,
-                                 kv_bits=ec.kv_bits, device=DEVICE)
     llama.moe_combine_weights = rec
     try:
-        if cs and n > cs:
-            for c0 in range(0, n, cs):
-                m = min(cs, n - c0)
-                logits, _ = llama.prefill_chunk(
-                    engine.params, p, engine._tokens(prompt[c0:c0 + m], cs), cache, 0, c0, m,
-                    window=engine._bucket_len(min(c0 + cs, engine.max_seq_len)))
-        else:
-            logits, _ = llama.prefill(engine.params, p, engine._tokens(prompt, engine._bucket_len(n)),
-                                      cache, 0, n)
-        for j, tok in enumerate(shared):
-            del routes[:]
-            toks = torch.tensor([tok], dtype=torch.long, device=DEVICE)
-            pos = torch.tensor([n + j], dtype=torch.int32, device=DEVICE)
-            logits, _ = llama.decode_step(engine.params, p, toks, cache, pos,
-                                          window=engine._window(n + j))
+        steps = slot_steps(engine, p, prompt, shared, sp=sp, before_step=routes.clear)
     finally:
         llama.moe_combine_weights = real
-    top2 = logits[0].float().topk(2).values
-    return (top2[0] - top2[1]).item(), min(routes, default=None)
+    top2 = steps[-1].topk(2)
+    if info is not None:
+        info.update(top=int(top2.indices[0]), logits=steps[-1].cpu(), steps=steps)
+    return (top2.values[0] - top2.values[1]).item(), min(routes, default=None)
 
 
-def _mesh_gate(torch, engine, p, prompts, ref, got, tag):
+# The level the mesh gates hold the shared tokens' logprob differences to,
+# and from which their near-tie margin (4 dl + 1/32) is computed: the margin
+# never grows past 4 * DL_LEVEL + 1/32, whatever a phase's logprobs do.
+DL_LEVEL = 0.05
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (an 8-bit significand)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def _shared_dl(torch, engine, p, prompts, a_runs, b_runs, tag, what, ulp_rule):
+    """Two runs' greedy tokens and logprobs: per request the first token
+    that differs (or None) and the largest |logprob diff| over the tokens
+    both drew. The logits are bf16 values (the lm head's output), so where
+    one run rounds a token's logit to a neighbouring bf16 value its logprob
+    moves by that value's spacing. Fatal above DL_LEVEL, but with
+    `ulp_rule` a token above it passes where it is one bf16 step of its
+    logit at that step of the one-rank engine `engine` (its prefill and a
+    decode step a shared token) plus 1/64: each such token is reported with
+    its logit. Returns (per-request list, max dl, the tokens above
+    DL_LEVEL)."""
+    dl, per, over = 0.0, [], []
+    for i, (prompt, a, b) in enumerate(zip(prompts, a_runs, b_runs)):
+        d = _first_diff(a["generated_ids"], b["generated_ids"])
+        n = len(a["generated_ids"]) if d is None else d    # the tokens both drew
+        diffs = [abs(x - y) for x, y in zip(a["logprobs"][:n], b["logprobs"][:n])]
+        per.append((d, max(diffs, default=0.0)))
+        dl = max(dl, per[-1][1])
+        for t, diff in enumerate(diffs):
+            if diff <= DL_LEVEL:
+                continue
+            info = {}
+            _step_margins(torch, engine, p, list(prompt), a["generated_ids"][:t], info)
+            logit = float(info["logits"][a["generated_ids"][t]])
+            over.append(dict(request=i, token=t, diff=diff, logit=logit,
+                             bf16_step=_bf16_ulp(logit)))
+    log(f"[{tag}] per request (first differing token, max |logprob diff| up to it): {per}")
+    for o in over:
+        limit = o["bf16_step"] + 1 / 64 if ulp_rule else DL_LEVEL
+        if not o["diff"] <= max(DL_LEVEL, limit):
+            fail(f"[{tag}] logprobs of the shared tokens differ {what} by {o['diff']} "
+                 f"(request {o['request']}, token {o['token']}: the one-rank step's logit "
+                 f"{o['logit']:.6g}, bf16 step {o['bf16_step']:.6g})")
+    if over:
+        log(f"[{tag}] shared tokens above {DL_LEVEL} {what}, each with the one-rank step's "
+            f"logit and its bf16 step: {over}")
+    return per, dl, over
+
+
+def _mesh_gate(torch, engine, p, prompts, ref, got, tag, ulp_rule=False):
     """The sharded run's greedy tokens against the one-rank engine's. Along
     the tokens both drew, their logprobs differ by dl at most (held under
-    0.05). A request whose tokens part is fatal unless they part on a near
-    tie (the wide-margin rule: random weights put near ties on some steps):
-    the one-rank engine's top two logits at that decode step (its int8 or
-    int4 KV included: a fresh prefill of the same tokens can rank them
-    otherwise) within 4 dl + 1/32, or, in a MoE model, two router logits at
-    the edge of the top-k within 1/32."""
-    dl, per = 0.0, []
-    for r, g in zip(ref, got):
-        d = _first_diff(r["generated_ids"], g["generated_ids"])
-        n = len(r["generated_ids"]) if d is None else d    # the tokens both drew
-        per.append((d, max([abs(a - b) for a, b in zip(r["logprobs"][:n], g["logprobs"][:n])],
-                           default=0.0)))
-        dl = max(dl, per[-1][1])
-    log(f"[{tag}] per request (first differing token, max |logprob diff| up to it): {per}")
-    if not dl <= 0.05:
-        fail(f"[{tag}] logprobs of the shared tokens differ from the one-rank engine's by {dl}")
-    margin, route_tol = 4 * dl + 1 / 32, 1 / 32
+    DL_LEVEL; with `ulp_rule` a token may differ by one bf16 step of its
+    logit, _shared_dl). A request whose tokens part is fatal unless they
+    part on a near tie (the wide-margin rule: random weights put near ties
+    on some steps): the one-rank engine's top two logits at that decode
+    step (its int8 or int4 KV included: a fresh prefill of the same tokens
+    can rank them otherwise) within 4 min(dl, DL_LEVEL) + 1/32, or, in a
+    MoE model, two router logits at the edge of the top-k within 1/32.
+    Each parting is reported with that step's top token (`step_top`) and
+    its logits of the two runs' tokens (`step_logits`)."""
+    per, dl, over = _shared_dl(torch, engine, p, prompts, ref, got, tag,
+                               "from the one-rank engine's", ulp_rule)
+    margin, route_tol = 4 * min(dl, DL_LEVEL) + 1 / 32, 1 / 32
     ties = []
-    for i, (prompt, r, (d, _)) in enumerate(zip(prompts, ref, per)):
+    for i, (prompt, r, g, (d, _)) in enumerate(zip(prompts, ref, got, per)):
         if d is None:
             continue
-        gap, route = _step_margins(torch, engine, p, list(prompt), r["generated_ids"][:d])
-        ties.append(dict(request=i, token=d, top2_gap=gap, route_gap=route))
+        info = {}
+        gap, route = _step_margins(torch, engine, p, list(prompt), r["generated_ids"][:d], info)
+        a_tok, b_tok = r["generated_ids"][d], g["generated_ids"][d]
+        ties.append(dict(request=i, token=d, top2_gap=gap, route_gap=route, one_rank=a_tok,
+                         sharded=b_tok, step_top=info["top"],
+                         step_logits=(float(info["logits"][a_tok]),
+                                      float(info["logits"][b_tok]))))
         if gap > margin and (route is None or route > route_tol):
             fail(f"[{tag}] request {i}: sharded vs one-rank tokens differ at token {d}, a "
                  f"clear step (top-two gap {gap:.4g} > {margin:.4g}; router top-k edge gap "
-                 f"{route})")
+                 f"{route}; {ties[-1]})")
     equal = sum(r["generated_ids"] == g["generated_ids"] for r, g in zip(ref, got))
     log(f"[{tag}] {equal} of {len(ref)} requests token-equal to the one-rank engine; shared "
         f"tokens' logprobs within {dl:.3g}; where they part (a near tie of the head, above "
         f"{margin:.4g} fatal, or of the router, above {route_tol:.4g}): {ties}")
-    return dict(equal=equal, requests=len(ref), logprob_diff=dl, near_ties=ties)
+    return dict(equal=equal, requests=len(ref), logprob_diff=dl, near_ties=ties,
+                margin=margin, above_level=over)
 
 
-def phase_tp(torch, p, smi_line):
-    """[tp]: the slice's model (Llama-2-7B widths, 32 layers, int4 g128 from
-    seed 0, packed int4 KV packed per tp shard) at tensor_parallel 2, served
+def _arith_gate(torch, engine, p, prompts, on, off, tag, sp=1):
+    """Speculation on against off on one sharded engine. The two runs
+    decode in different attention arithmetic: a verify attends by einsum
+    (bf16 dots, as GSPMD does in the JAX package), a decode step through
+    the core (q and P requantized to int8), or under sp through the
+    flash-decoding merge (q scaled before its bf16 dot, unnormalized
+    probabilities rounded to bf16, as the JAX island), so on a random
+    model a step can flip between them. Along the tokens both drew the
+    logprobs differ by dl at most (_shared_dl with its bf16-step rule). A
+    request whose tokens part is fatal unless, at that step of the
+    one-rank engine `engine` (its prefill and a decode step a shared
+    token), either mode's top two lie within 4 min(dl, DL_LEVEL) + 1/32 (a
+    near tie), or the two modes themselves part there the same way: `xla`
+    (the verify's einsum) picks the speculating run's token and the decode
+    step's mode, `pallas` (the core) or with sp > 1 `merge` (the engine's
+    weights over an sp mesh of threads), the other's. Under sp each parting
+    also reports the largest |logit| difference between `xla` and `merge`
+    after the prefill and after each shared token (`xla_vs_merge`)."""
+    per, dl, over = _shared_dl(torch, engine, p, prompts, on, off, tag + " off vs on",
+                               "between speculation on and off", True)
+    margin, parts = 4 * min(dl, DL_LEVEL) + 1 / 32, []
+    modes = ("xla", "pallas") if sp == 1 else ("xla", "merge")
+    for i, (prompt, a, b, (d, _)) in enumerate(zip(prompts, on, off, per)):
+        if d is None:
+            continue
+        step, steps = dict(request=i, token=d, on=a["generated_ids"][d],
+                           off=b["generated_ids"][d]), {}
+        for mode in modes:
+            info = {}
+            with env_set("TPUSERVE_DECODE_ATTN", "xla" if mode == "merge" else mode):
+                gap, _ = _step_margins(torch, engine, p, list(prompt), a["generated_ids"][:d],
+                                       info, sp=sp if mode == "merge" else 1)
+            step[mode] = dict(top=info["top"], top2_gap=gap)
+            steps[mode] = info["steps"]
+        if sp > 1:
+            step["xla_vs_merge"] = [round((x - y).abs().max().item(), 4)
+                                    for x, y in zip(steps["xla"], steps["merge"])]
+        near = min(step[m]["top2_gap"] for m in modes) <= margin
+        split = step["xla"]["top"] == step["on"] and step[modes[1]]["top"] == step["off"]
+        parts.append(dict(step, near_tie=near, modes_part=split))
+        if not (near or split):
+            fail(f"[{tag}] request {i}: speculation on and off part at token {d}, where neither "
+                 f"mode of the one-rank engine ties and the modes do not part so: {step}")
+    equal = sum(a["generated_ids"] == b["generated_ids"] for a, b in zip(on, off))
+    log(f"[{tag}] speculation off against on, the same sharded engine: {equal} of {len(on)} "
+        f"requests token-equal, shared tokens' logprobs within {dl:.3g}; where they part (the "
+        f"one-rank engine's step under each mode; a near tie is within {margin:.4g}): {parts}")
+    return dict(equal=equal, requests=len(on), logprob_diff=dl, parts=parts, margin=margin,
+                above_level=over)
+
+
+def phase_tp(torch, p, smi_line, n_layers=8):
+    """[tp]: the slice's model (Llama-2-7B widths cut to 8 layers to keep the
+    script within its time limit, [spec-tp] running the tp path at full
+    depth; int4 g128 from seed 0, packed int4 KV packed per tp shard) at
+    tensor_parallel 2, served
     by two `python -m tpuserve_torch.server` processes joined by the
     TPUSERVE_* variables (process 0 the REST front, process 1 its follower;
     both on the card, gloo): a load and 4 concurrent greedy /generate
@@ -4113,10 +4210,12 @@ def phase_tp(torch, p, smi_line):
     /profile), then SIGINT; the one-rank engine's tokens on the same weights
     after, and each kernel against its plain version on each rank's blocks
     at its shard shapes."""
+    import dataclasses as dc
     import signal
 
     from tpuserve_torch.parallel.distributed import free_port
 
+    p = dc.replace(p, n_layers=n_layers)
     cfg = dict(_model_config(p), name="llama2_7b_int4_tp2", sharding={"tensor_parallel": 2})
     prompts = _mesh_prompts(torch, p, (5, 90, 33, 150), 23)
     new = 16
@@ -4390,28 +4489,37 @@ def _stage_qmm_shapes(p, tp):
     4096x22016, 11008x4096, 4096x32000; tp 2: 4096x6144, 2048x4096,
     4096x11008, 5504x4096, 4096x32000."""
     qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
-    return (f"{p.dim}x{(qd + 2 * kvd) // tp}", f"{qd // tp}x{p.dim}",
-            f"{p.dim}x{2 * p.ffn_dim // tp}", f"{p.ffn_dim // tp}x{p.dim}",
-            f"{p.dim}x{p.vocab_size}")
+    ffn = () if p.n_experts else (f"{p.dim}x{2 * p.ffn_dim // tp}", f"{p.ffn_dim // tp}x{p.dim}")
+    return (f"{p.dim}x{(qd + 2 * kvd) // tp}", f"{qd // tp}x{p.dim}") + ffn \
+        + (f"{p.dim}x{p.vocab_size}",)
 
 
 def _check_pp_ranks(tag, deltas, world, p, pp, steps, prefills, shapes, smi_line):
     """Every rank of a pipeline mesh (dp 1) launched the quant-matmul 4 *
     n_layers + 1 times a decode step (its n_layers/pp layers over each of
     the pp microbatches, and the lm_head) and 4 * n_layers/pp + 1 times a
-    prefill, each layer shape n_layers times a step and n_layers/pp a
-    prefill and the lm_head once a call, on the card; no decode-attention
-    kernel (the stage attends by einsum) and no plain version."""
+    prefill (a MoE model, in the dense loop: 2 + 2E a layer, 2E of them on
+    its own layers' expert views), each layer shape n_layers times a step
+    and n_layers/pp a prefill and the lm_head once a call, on the card; no
+    decode-attention kernel (the stage attends by einsum) and no plain
+    version."""
     lp = p.n_layers // pp
     if len(deltas) != world:
         fail(f"[{tag}] {len(deltas)} ranks answered, expected {world}")
-    want = steps * (4 * p.n_layers + 1) + prefills * (4 * lp + 1)
+    # a MoE layer: wqkv, wo and each expert's gate|up and down (the dense loop)
+    per_layer = 2 + 2 * p.n_experts if p.n_experts else 4
+    want = steps * (per_layer * p.n_layers + 1) + prefills * (per_layer * lp + 1)
     layer_want = steps * p.n_layers + prefills * lp
     for r, d in enumerate(deltas):
         if d["quant_matmul_launches"] != want:
             fail(f"[{tag}] rank {r}: {d['quant_matmul_launches']} quant-matmuls, not {want} "
-                 f"({4 * p.n_layers + 1} a decode step over {steps}, {4 * lp + 1} a prefill "
-                 f"over {prefills})")
+                 f"({per_layer * p.n_layers + 1} a decode step over {steps}, "
+                 f"{per_layer * lp + 1} a prefill over {prefills})")
+        experts = d["shard_launches"].get(f"quant_matmul experts {p.n_experts}", 0)
+        if p.n_experts and experts != 2 * p.n_experts * layer_want:
+            fail(f"[{tag}] rank {r}: {experts} expert-view launches, not "
+                 f"{2 * p.n_experts * layer_want} (its {lp} layers' {p.n_experts} experts, "
+                 f"gate|up and down, over {steps} decode steps and {prefills} prefills)")
         if d["decode_attention_launches"] or d["decode_attention_paged_launches"]:
             fail(f"[{tag}] rank {r}: a decode-attention kernel ran in the stage: {d}")
         if d["plain_calls"] or d["plain_row_shards"]:
@@ -4424,8 +4532,10 @@ def _check_pp_ranks(tag, deltas, world, p, pp, steps, prefills, shapes, smi_line
                 fail(f"[{tag}] rank {r}: {got} quant-matmuls at the stage shape {shape}: "
                      f"{d['shard_launches']}")
         log(f"[{tag}] rank {r} ({d['device']}, {d['backend']}): quant-matmul "
-            f"{d['quant_matmul_launches']} = {4 * p.n_layers + 1} a decode step x {steps} + "
-            f"{4 * lp + 1} a prefill x {prefills}; plain versions 0; at stage shapes "
+            f"{d['quant_matmul_launches']} = {per_layer * p.n_layers + 1} a decode step x "
+            f"{steps} + {per_layer * lp + 1} a prefill x {prefills}"
+            f"{f', expert views {experts}' if p.n_experts else ''}; plain versions 0; "
+            f"at stage shapes "
             f"{d['shard_launches']}; decode step host clock median {d['step_host_ms']:.2f} ms; "
             f"card {smi_line} (ranks share the card over gloo: not a multi-GPU speed)")
 
@@ -4435,15 +4545,17 @@ def _stage_kernel_checks(torch, tag, weights, cut, deltas):
     (stack_layer_params, then place_pipeline_params: its checksum must equal
     the rank's own, and its bytes are its n_layers/pp layers and the shared
     params), and row 1 on it against its plain version: its first layer's
-    wqkv, wo, w_gateup and w_down at one microbatch's rows (S / pp) and the
-    lm_head at the rank's slots, x ~ N(0, 1) in bf16, within one bf16 step
-    at the largest output."""
+    wqkv, wo, w_gateup and w_down (a MoE stage: each of its first layer's
+    experts' gate|up and down views) at one microbatch's rows (S / pp) and
+    the lm_head at the rank's slots, x ~ N(0, 1) in bf16, within one bf16
+    step at the largest output."""
     from tpuserve_torch.models.llama_bench import param_bytes
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
     from tpuserve_torch.parallel.mesh import Mesh
     from tpuserve_torch.parallel.pipeline import (_layer_view, place_pipeline_params,
                                                   stack_layer_params)
     from tpuserve_torch.parallel.sharding import block_fingerprint, qmatmul_local
+    from tpuserve_torch.quant.core import qmatmul
 
     pp, tp = cut
     p = weights.p
@@ -4464,21 +4576,28 @@ def _stage_kernel_checks(torch, tag, weights, cut, deltas):
                  f"cut holds {nbytes}")
         view = _layer_view(blk, 0)
         checks = {}
-        for name, rows in (("L/wqkv/kernel", weights.n_slots // pp),
-                           ("L/wo/kernel", weights.n_slots // pp),
-                           ("L/w_gateup/kernel", weights.n_slots // pp),
-                           ("L/w_down/kernel", weights.n_slots // pp),
-                           ("lm_head/kernel", weights.n_slots)):
-            qt = view[name] if name.startswith("L/") else blk[name]
+        calls = [(name, rows, view[name] if name.startswith("L/") else blk[name], None)
+                 for name, rows in (("L/wqkv/kernel", weights.n_slots // pp),
+                                    ("L/wo/kernel", weights.n_slots // pp),
+                                    ("L/w_gateup/kernel", weights.n_slots // pp),
+                                    ("L/w_down/kernel", weights.n_slots // pp),
+                                    ("lm_head/kernel", weights.n_slots))
+                 if name in view or name in blk]
+        for name in ("L/moe_gateup/kernel", "L/moe_down/kernel"):   # the stage's expert views
+            if name in view:
+                calls += [(name, weights.n_slots // pp, view[name].expert(e), e)
+                          for e in range(view[name].n_experts)]
+        for name, rows, qt, e in calls:
             k, n = qt.orig_shape
             x = torch.randn((rows, k), generator=gen, device=DEVICE).to(torch.bfloat16)
             ref = quant_matmul_plain(x, qt)
-            got = qmatmul_local(x, qt, name, 0, 1)
+            got = qmatmul_local(x, qt, name, 0, 1) if e is None else qmatmul(x, qt)
             err = (got.float() - ref.float()).abs().max().item()
             tol = 2 ** -7 * ref.float().abs().max().item()
+            key = f"quant_matmul {k}x{n}" if e is None else f"quant_matmul expert {e} {k}x{n}"
             if not err <= tol:
-                fail(f"[{tag}] rank {r}: quant_matmul {k}x{n}: max|kernel - plain| {err} > {tol}")
-            checks[f"quant_matmul {k}x{n} (B {rows})"] = (err, tol)
+                fail(f"[{tag}] rank {r}: {key}: max|kernel - plain| {err} > {tol}")
+            checks[f"{key} (B {rows})"] = (err, tol)
         out.append(dict(rank=r, checks=checks, block_bytes=nbytes, shared_bytes=shared))
         log(f"[{tag}] rank {r}: stage block {nbytes / 2**30:.3f} GiB = its {p.n_layers // pp} "
             f"of {p.n_layers} layers{' cut over tp ' + str(tp) if tp > 1 else ''} + the shared "
@@ -4554,9 +4673,11 @@ def phase_pp_paged(torch, p, smi_line, n_layers=8):
                                ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),))
 
 
-def phase_paged_tp(torch, p, smi_line):
+def phase_paged_tp(torch, p, smi_line, n_layers=8):
     """[paged-tp]: paged int8 flat pool (pages of 128, prefix sharing,
-    chunks of one page) under tensor_parallel 2 at full depth, two
+    chunks of one page) under tensor_parallel 2, the slice's widths cut to
+    8 layers to keep the script within its time limit (the paged core's
+    shard is the same at any depth), two
     engine-started ranks, the pool cut over tp on head boundaries (16 kv
     heads a rank) and its scales replicated: its own prompts, two of which
     share a 128-token first page (the second admitted in chunks, its first
@@ -4565,6 +4686,9 @@ def phase_paged_tp(torch, p, smi_line):
     against its plain version on each rank's shard of the one-rank
     engine's served pool, and the tokens against the one-rank paged engine
     under the [tp] gate."""
+    import dataclasses as dc
+
+    p = dc.replace(p, n_layers=n_layers)
     cfg = dict(_paged_model_config(p), name="llama2_7b_int4_paged_tp2",
                sharding={"tensor_parallel": 2})
     a, b, c, d = _mesh_prompts(torch, p, (200, 72, 5, 33), 37)
@@ -4651,6 +4775,392 @@ def phase_mixtral_tp(torch, p_moe, smi_line, n_layers=4):
     log(f"[mixtral-tp] each rank launched only its {e_loc} experts' views: {want} a rank")
     res["int4"] = _mixtral_int4_record(torch, pc, cfg, prompts, 16, res["ranks"])
     return res
+
+
+def phase_pp_mixtral(torch, p_moe, smi_line, n_layers=4):
+    """[pp-mixtral]: the Mixtral-8x7B-width MoE (published widths) cut to 4
+    layers at pipeline_parallel 2 (2 layers a stage), int8 KV on the 5D
+    stage caches (the JAX package refuses int4 KV under pp), two
+    engine-started ranks: each rank's launches a decode step and a prefill
+    exact, its expert views those of its own two layers only
+    (_check_pp_ranks), row 1 on each stage block's expert views against the
+    plain version (_stage_kernel_checks). The stage runs the MoE's dense loop
+    (TPUSERVE_MOE_CF=0 for every rank: no capacity drops) and attends by
+    einsum, so the tokens are held to the one-rank engine under the same
+    knobs and TPUSERVE_DECODE_ATTN=xla, as tests/test_torch_pipeline.py's
+    pp x MoE case holds the JAX island."""
+    import dataclasses as dc
+
+    pc = dc.replace(p_moe, n_layers=n_layers)
+    cfg = dict(_mixtral_config(pc), name="mixtral_l4_pp2", sharding={"pipeline_parallel": 2})
+    cfg["quantization"] = dict(cfg["quantization"], kv_cache="int8")
+    cfg["generation"] = dict(cfg["generation"], prefill_chunk=0)
+    prompts = _mesh_prompts(torch, p_moe, (5, 90, 33, 150), 31)
+    with env_set("TPUSERVE_MOE_CF", "0"):   # set before the load: the ranks inherit it
+        res = _engine_ranks_phase(
+            torch, pc, smi_line, "pp-mixtral", cfg, prompts, 16, None, attn=False,
+            shapes=_stage_qmm_shapes(pc, 1),
+            ref_env=(("TPUSERVE_MOE_CF", "0"), ("TPUSERVE_DECODE_ATTN", "xla")))
+    key = f"quant_matmul experts {pc.n_experts}"
+    experts = sum(d["shard_launches"].get(key, 0) for d in res["ranks"])
+    res["launches"] = dict(quant_matmul=res["launches"]["quant_matmul"] - experts,
+                           quant_matmul_experts=experts)
+    log(f"[pp-mixtral] expert-view launches over both stages: {experts}; card {smi_line}")
+    return res
+
+
+# ---------------------------------------------------------- speculation across ranks
+def _periodic(vocab_size, n, seed):
+    """A repetitive prompt of n tokens: a 12-token period drawn from numpy's
+    default_rng(seed), repeated (seed 0, n 96: _periodic_prompt)."""
+    import numpy as np
+
+    period = np.random.default_rng(seed).integers(100, vocab_size - 1, 12).tolist()
+    return (period * (n // 12 + 1))[:n]
+
+
+def _verify_rows_expected(vlog, n_slots, max_len, dp, sp):
+    """The candidate rows each (dp, sp) block takes over the verifies of
+    `vlog` (the controller's (positions, lengths) of each): slot i's
+    lengths[i] rows at positions[i] + j, in the dp group owning the slot and
+    the sp window holding the position."""
+    want = {}
+    for positions, lens in vlog:
+        for i, (pos, n) in enumerate(zip(positions, lens)):
+            for j in range(int(n) if pos >= 0 else 0):
+                key = (i * dp // n_slots, (int(pos) + j) * sp // max_len)
+                want[key] = want.get(key, 0) + 1
+    return want
+
+
+def _check_spec_ranks(tag, deltas, world, p, mesh, gen, steps, prefills, vlog, shapes, paged,
+                      smi_line):
+    """Every rank of a speculating mesh ran each verify the controller
+    published (verify_calls equal, none failed), launched the quant-matmul
+    4 * n_layers + 1 times a call it ran (verifies, decode steps, its dp
+    group's prefills) and exactly that many at a verify's S/dp * C rows at
+    each shard shape, the flat core (a paged pool: the paged core) n_layers
+    times a decode step between verifies (0 under sp: the merge is plain
+    torch), no plain version; and it wrote each verify's candidate rows of
+    its own slots and L window and no others (its verify_rows_written
+    against the count the controller's log gives its block)."""
+    dp, sp, tp = mesh["dp"], mesh["sp"], mesh["tp"]
+    per_call = 4 * p.n_layers + 1
+    c = int(gen["speculation_tokens"]) + 1
+    s_loc = int(gen["max_slots"]) // dp
+    verifies = len(vlog)
+    decode_steps = steps - verifies
+    rows = _verify_rows_expected(vlog, int(gen["max_slots"]), int(gen["max_seq_len"]), dp, sp)
+    lm_head = f"{p.dim}x{p.vocab_size // tp}"
+    if len(deltas) != world:
+        fail(f"[{tag}] {len(deltas)} ranks answered, expected {world}")
+    owned = [0] * dp
+    for r, d in enumerate(deltas):
+        if d["verify_calls"] != verifies or d["spec_disabled"]:
+            fail(f"[{tag}] rank {r}: {d['verify_calls']} verify calls (the controller published "
+                 f"{verifies}), speculation disabled {d['spec_disabled']}")
+        if d["plain_calls"] or d["plain_row_shards"]:
+            fail(f"[{tag}] rank {r} ran a plain version: {d}")
+        calls, rest = divmod(d["quant_matmul_launches"], per_call)
+        if rest or calls < steps:
+            fail(f"[{tag}] rank {r}: {d['quant_matmul_launches']} quant-matmuls, not {per_call} "
+                 f"a call over {steps} steps ({verifies} verifies) and its prefills")
+        owned[d["coords"]["dp"]] = calls - steps
+        core, other = ("decode_attention_paged_launches", "decode_attention_launches") if paged \
+            else ("decode_attention_launches", "decode_attention_paged_launches")
+        want_core = p.n_layers * decode_steps if sp == 1 else 0
+        if d[core] != want_core or d[other]:
+            fail(f"[{tag}] rank {r}: {d[core]} {core}, expected {want_core} ({p.n_layers} a "
+                 f"decode step over {decode_steps}); {d[other]} {other}")
+        at_rows = {}
+        for shape in shapes:
+            key = f"quant_matmul {s_loc * c}x{shape}"
+            want = verifies * (1 if shape == lm_head else p.n_layers)
+            at_rows[key] = d["shard_launch_rows"].get(key, 0)
+            if at_rows[key] != want:
+                fail(f"[{tag}] rank {r}: {at_rows[key]} quant-matmuls at {key}, not {want} "
+                     f"({verifies} verifies): {d['shard_launch_rows']}")
+        block = (d["coords"]["dp"], d["coords"]["sp"])
+        if d["verify_rows_written"] != rows.get(block, 0):
+            fail(f"[{tag}] rank {r}: wrote {d['verify_rows_written']} candidate rows, its block "
+                 f"{block} holds {rows.get(block, 0)} of the verifies' valid rows ({rows})")
+        log(f"[{tag}] rank {r} ({d['device']}, {d['backend']}): verify calls {verifies}, "
+            f"candidate rows written {d['verify_rows_written']} (its dp group's slots"
+            f"{', its L window' if sp > 1 else ''}: {rows.get(block, 0)}); quant-matmul "
+            f"{d['quant_matmul_launches']}, at a verify's {s_loc * c} rows {at_rows}; "
+            f"{core} {d[core]}; plain versions 0; card {smi_line} (ranks share the card over "
+            "gloo)")
+    if sum(owned) != prefills:
+        fail(f"[{tag}] the dp groups ran {owned} prefills, the controller {prefills}")
+    return rows
+
+
+def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=False,
+                     ref_env=(("TPUSERVE_DECODE_ATTN", "xla"),), warm=()):
+    """A speculating engine-started mesh: InferenceManager loads cfg (logs in
+    chiprun_out/<tag>_ranks/); a wave of concurrent greedy requests with
+    speculation on, every rank's verifies, launches and candidate rows
+    checked (_check_spec_ranks), drafts made and accepted; the same wave on
+    the same engine with speculation off (no verify on any rank); unload.
+    Then the one-rank speculative engine on the same weights under the
+    knobs `ref_env` (the sharded path's arithmetic: TPUSERVE_DECODE_ATTN=xla
+    where the mesh verifies by einsum and the one-rank engine would run the
+    multi-candidate kernel) serves the wave: the speculating run's tokens
+    are held to it by _mesh_gate's near-tie rule, and the run with
+    speculation off to the speculating one by _arith_gate;
+    each kernel of the rank's path against its plain version at its shard
+    shapes, the quant-matmul at a verify's rows (_shard_kernel_checks).
+    Both engines serve the `warm` prompts one at a time before their waves
+    (a paged engine's shared prefix then registered before any wave, so
+    that which request hits it does not hang on the order of admission).
+    Each wave's host-clock tokens/s is printed as a record of a gloo run."""
+    from tpuserve_torch.engine.manager import InferenceManager
+
+    gen = cfg["generation"]
+    c = int(gen["speculation_tokens"]) + 1
+    log_dir = os.path.join(OUT_DIR, f"{tag}_ranks")
+    waves = {}
+    with env_set("TPUSERVE_FOLLOWER_LOG_DIR", log_dir), env_set("TPUSERVE_DIST_TIMEOUT", "300"):
+        mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        t0 = time.monotonic()
+        mgr.load_model(cfg["name"])
+        load_s = time.monotonic() - t0
+        engine = mgr.get_model(cfg["name"]).backend.engine
+        mesh, world = dict(engine.mesh.shape), engine.mesh.size
+        for w in warm:
+            engine.generate(w, max_new_tokens=2)
+        for mode in ("on", "off"):
+            if mode == "off":   # the controller's knob: the same engine, speculation off
+                engine.config.generation.speculation_tokens = 0
+            before = engine.rank_stats()
+            base = dict(steps=engine.steps, prefills=engine.prefill_calls,
+                        log=len(engine.verify_log), drafted=engine.spec_drafted,
+                        accepted=engine.spec_accepted)
+            got, wall = _mesh_wave(lambda i: engine.generate(prompts[i], max_new_tokens=new,
+                                                             logprobs=True),
+                                   len(prompts), f"{tag} spec {mode}")
+            deltas = _rank_deltas(before, engine.rank_stats())
+            w = dict(got=got, wall_s=wall, deltas=deltas, steps=engine.steps - base["steps"],
+                     prefills=engine.prefill_calls - base["prefills"],
+                     vlog=list(engine.verify_log)[base["log"]:],
+                     drafted=engine.spec_drafted - base["drafted"],
+                     accepted=engine.spec_accepted - base["accepted"],
+                     tok_s=len(prompts) * new / wall)
+            waves[mode] = w
+            log(f"[{tag}] speculation {mode}: {len(prompts)} concurrent greedy requests of {new} "
+                f"tokens in {wall:.2f} s, {w['tok_s']:.2f} tok/s on the host clock (a record of "
+                f"{world} gloo ranks sharing one card, not a speed; card {smi_line}); steps "
+                f"{w['steps']} ({len(w['vlog'])} verifies), prefill calls {w['prefills']}, "
+                f"drafted {w['drafted']}, accepted {w['accepted']}")
+        on, off = waves["on"], waves["off"]
+        if not on["drafted"] or not on["accepted"] or not on["vlog"]:
+            fail(f"[{tag}] speculation on: drafted {on['drafted']}, accepted {on['accepted']}, "
+                 f"verifies {len(on['vlog'])}")
+        rows = _check_spec_ranks(tag, on["deltas"], world, p, mesh, gen, on["steps"],
+                                 on["prefills"], on["vlog"], shapes, paged, smi_line)
+        if off["vlog"] or any(d["verify_calls"] for d in off["deltas"]):
+            fail(f"[{tag}] speculation off still verified: "
+                 f"{[d['verify_calls'] for d in off['deltas']]}")
+        half = int(gen["max_seq_len"]) // mesh["sp"]
+        crossed = sum(1 for pos, lens in on["vlog"] for a, n in zip(pos, lens)
+                      if a >= 0 and n > 1 and a // half != (a + n - 1) // half) \
+            if mesh["sp"] > 1 else None
+        stats = engine.serving_stats()
+        followers = list(engine._followers)
+        mgr.shutdown()
+        if any(f.poll() is None for f in followers) or any(f.returncode for f in followers):
+            fail(f"[{tag}] follower ranks did not exit cleanly: "
+                 f"{[f.returncode for f in followers]}; see {log_dir}")
+    if paged and not stats.get("prefix_hits"):
+        fail(f"[{tag}] no prefix hit")
+    ref_mgr, ref_engine, ref = _mesh_reference(torch, cfg, prompts, new, tag, ref_env,
+                                               warm=warm)
+    with contextlib.ExitStack() as stack:
+        for key, val in ref_env:
+            stack.enter_context(env_set(key, val))
+        gate = _mesh_gate(torch, ref_engine, p, prompts, ref, on["got"], tag, ulp_rule=True)
+    gate_off = _arith_gate(torch, ref_engine, p, prompts, on["got"], off["got"], tag,
+                           sp=mesh["sp"])
+    sizes = (mesh["tp"], mesh["dp"], mesh["sp"])
+    checks = _shard_kernel_checks(torch, tag, ref_engine, ref_engine, sizes, on["deltas"],
+                                  max(map(len, prompts)) + new - 2,
+                                  qmm_rows=int(gen["max_slots"]) // mesh["dp"] * c)
+    ref_mgr.shutdown()
+    log(f"[{tag}] verify rows by (dp, sp) block: {rows}; verifies whose candidates straddle "
+        f"two sp windows: {crossed}; prefix hits {stats.get('prefix_hits')}; load {load_s:.1f} s")
+    d_on = on["deltas"]
+    return dict(mesh=mesh, load_s=load_s, gate=gate, gate_off=gate_off, kernel_checks=checks,
+                verify_rows={f"dp{d} sp{s_}": n for (d, s_), n in rows.items()},
+                straddling_verifies=crossed, prefix_hits=stats.get("prefix_hits"),
+                waves={m: {k: v for k, v in w.items() if k not in ("got", "vlog")}
+                       for m, w in waves.items()},
+                verifies=len(on["vlog"]),
+                launches=dict(quant_matmul=sum(d["quant_matmul_launches"] for d in d_on),
+                              decode_attention=sum(d["decode_attention_launches"] for d in d_on),
+                              decode_attention_paged=sum(d["decode_attention_paged_launches"]
+                                                         for d in d_on)))
+
+
+def phase_spec_tp(torch, p, smi_line):
+    """[spec-tp]: the [spec] phase's model and settings (Llama-2-7B widths, 32
+    layers, int4 g128, int8 KV, 8 slots of 512, 8 drafts) at
+    tensor_parallel 2 on engine-started ranks: 8 concurrent greedy requests
+    of the periodic prompt, 64 tokens each; a verify runs 72 rows (8 slots
+    x C 9) through each rank's shard shapes."""
+    cfg = dict(_spec_model_config(p), name="llama2_7b_int4_spec_tp2",
+               sharding={"tensor_parallel": 2})
+    prompts = [_periodic_prompt(p.vocab_size)] * 8
+    return _spec_mesh_phase(torch, p, smi_line, "spec-tp", cfg, prompts, 64,
+                            _qmm_shard_shapes(p, 2))
+
+
+def phase_spec_dp_sp(torch, p, smi_line, n_layers=8):
+    """[spec-dp-sp]: the [dp-sp] mesh with speculation: the [spec] setting
+    (8 slots of 512, 8 drafts, int8 KV on the 5D cache) cut to 8 layers at
+    data_parallel 2 x sequence_parallel 2 (four ranks: 4 slots a dp group,
+    L windows of 256), periodic prompts admitted in chunks of 64, 64 tokens
+    each: of 160 and 200 tokens (as [dp-sp]'s), and of 240 to 250, whose
+    verifies reach the second window and straddle the two. The one-rank
+    engine it is held to runs under TPUSERVE_DECODE_ATTN=xla (the verify's
+    einsum, which the sharded verify's softmax over sp matches; its decode
+    steps against the merge, as [dp-sp])."""
+    import dataclasses as dc
+
+    pc = dc.replace(p, n_layers=n_layers)
+    cfg = dict(_spec_model_config(pc), name="llama2_7b_l8_spec_dp2sp2",
+               sharding={"data_parallel": 2, "sequence_parallel": 2})
+    cfg["generation"] = dict(cfg["generation"], prefill_chunk=64)
+    prompts = [_periodic(p.vocab_size, n, 5 + i)
+               for i, n in enumerate((160, 240, 200, 248, 244, 5, 250, 40))]
+    return _spec_mesh_phase(torch, pc, smi_line, "spec-dp-sp", cfg, prompts, 64,
+                            _qmm_shard_shapes(pc, 1))
+
+
+def phase_spec_paged_tp(torch, p, smi_line, n_layers=8):
+    """[spec-paged-tp]: the [paged-tp] setting (int8 pool of 128-token pages
+    cut over tp, prefix sharing, chunks of one page, 64 slots of 256) cut to
+    8 layers with 8 drafts, at tensor_parallel 2: 8 concurrent greedy
+    requests of periodic prompts, two of which share their first 128-token
+    page with a third (a prefix hit), 32 tokens each; a verify runs 576
+    rows (64 slots x C 9). The one-rank paged engine verifies by einsum and
+    decodes on the paged core too, so it is the reference on its defaults.
+    The first prompt is served alone before the waves (in both engines), so
+    that every request of its first page hits it: a hit attends over the
+    int8 prefix page where a fresh prefill attends over its own K/V (one
+    bf16 step of a first token's logits, ROADMAP), and a wave's order of
+    admission would otherwise decide which request takes which path."""
+    import dataclasses as dc
+
+    pc = dc.replace(p, n_layers=n_layers)
+    cfg = dict(_paged_model_config(pc), name="llama2_7b_l8_spec_paged_tp2",
+               sharding={"tensor_parallel": 2})
+    cfg["generation"] = dict(cfg["generation"], speculation_tokens=8, speculation_min_gain=0)
+    a = _periodic(p.vocab_size, 200, 11)
+    prompts = [a, a[:128] + _periodic(p.vocab_size, 60, 12), _periodic(p.vocab_size, 40, 13),
+               _periodic(p.vocab_size, 96, 14), a[:128] + _periodic(p.vocab_size, 30, 15),
+               _periodic(p.vocab_size, 150, 16), _periodic(p.vocab_size, 5, 17),
+               _periodic(p.vocab_size, 72, 18)]
+    return _spec_mesh_phase(torch, pc, smi_line, "spec-paged-tp", cfg, prompts, 32,
+                            _qmm_shard_shapes(pc, 2), paged=True, ref_env=(), warm=[a])
+
+
+def phase_native(torch, p, smi_line, n_layers=4):
+    """[native]: libtpuserve.so built from native/src/*.cpp and native/include
+    into native/build/ (CMake where it is installed, else the host
+    compiler), found where the binding looks by default; then the [paged]
+    configuration cut to 4 layers loaded through InferenceManager(device=
+    "cuda"): the repository scan and the engine's page allocator must be
+    the native ones; its greedy tokens (one request, then one that hits its
+    first page, then two more) must equal the same engine's on
+    `_PyKvAllocator`, swapped in by the phase, with the same prefix hit and
+    every page back."""
+    import dataclasses as dc
+    import glob
+    import shutil
+    import subprocess
+
+    from tpuserve_torch.bindings import native
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.serving import paged_kv
+
+    out = os.path.join("native", "build")
+    os.makedirs(out, exist_ok=True)
+    if shutil.which("cmake"):
+        gen_args = ["-G", "Ninja"] if shutil.which("ninja") else []
+        cmds = [["cmake", "-S", "native", "-B", out] + gen_args,
+                ["cmake", "--build", out, "--target", "tpuserve"]]
+    else:
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            fail("[native] no cmake and no C++ compiler to build native/")
+        cmds = [[cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Inative/include"]
+                + sorted(glob.glob("native/src/*.cpp"))
+                + ["-o", os.path.join(out, "libtpuserve.so")]]
+    t0 = time.monotonic()
+    for cmd in cmds:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode:
+            fail(f"[native] build failed: {' '.join(cmd)}: {res.stdout[-2000:]} "
+                 f"{res.stderr[-2000:]}")
+    build_s = time.monotonic() - t0
+    lib = os.path.abspath(os.path.join(out, "libtpuserve.so"))
+    pc = dc.replace(p, n_layers=n_layers)
+    cfg = dict(_paged_model_config(pc), name="llama2_7b_l4_paged_native")
+    a, b, c, d = _mesh_prompts(torch, p, (200, 72, 5, 33), 41)
+    prompts = [a, a[:128] + b, c, d]
+
+    def serve(what):
+        mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        try:
+            mgr.load_model(cfg["name"])
+            backend = mgr.get_model(cfg["name"]).backend
+            engine = backend.engine
+            tokens = [backend.generate(pr, max_new_tokens=16)["generated_ids"] for pr in prompts]
+            st, back = _pages_back(engine, engine.cache.n_pages - 1)
+            return dict(scan_native=mgr.repository.uses_native, allocator=engine.kv_allocator,
+                        tokens=tokens, prefix_hits=st["prefix_hits"], pages_back=back,
+                        pages=engine.cache.n_pages - 1, what=what)
+        finally:
+            mgr.shutdown()
+
+    native.reset()
+    try:
+        with env_set("TPUSERVE_NATIVE_LIB", None), env_set("TPUSERVE_NATIVE", None):
+            if not native.available():
+                fail(f"[native] the binding did not load {lib}")
+            version = native.version()
+            nat = serve("native")
+            saved = paged_kv.make_allocator
+            paged_kv.make_allocator = paged_kv._PyKvAllocator
+            try:
+                py = serve("python")
+            finally:
+                paged_kv.make_allocator = saved
+    finally:
+        native.reset()
+    log(f"[native] libtpuserve.so {version} built in {build_s:.1f} s "
+        f"({' && '.join(c[0] for c in cmds)}); "
+        f"native run: scan native {nat['scan_native']}, allocator {nat['allocator']}, prefix hits "
+        f"{nat['prefix_hits']}, pages back {nat['pages_back']}/{nat['pages']}; the same engine "
+        f"on {py['allocator']}: prefix hits {py['prefix_hits']}, pages back "
+        f"{py['pages_back']}/{py['pages']}; tokens equal {nat['tokens'] == py['tokens']}; card "
+        f"{smi_line}")
+    if not nat["scan_native"] or nat["allocator"] != "NativeKvAllocator":
+        fail(f"[native] the repository scan (native {nat['scan_native']}) or the allocator "
+             f"({nat['allocator']}) is not the native runtime's")
+    if py["allocator"] != "_PyKvAllocator":
+        fail(f"[native] the swapped-in allocator is {py['allocator']}")
+    if nat["tokens"] != py["tokens"]:
+        fail(f"[native] greedy tokens differ between the native and Python allocators: "
+             f"{nat['tokens']} vs {py['tokens']}")
+    for run in (nat, py):
+        if run["prefix_hits"] < 1 or run["pages_back"] != run["pages"]:
+            fail(f"[native] {run['what']}: prefix hits {run['prefix_hits']}, pages back "
+                 f"{run['pages_back']} of {run['pages']}")
+    return dict(version=version, build_s=build_s, build=[c[0] for c in cmds],
+                native={k: v for k, v in nat.items() if k != "tokens"},
+                python={k: v for k, v in py.items() if k != "tokens"},
+                tokens_equal=True)
 
 
 def _mixtral_int4_record(torch, pc, cfg, prompts, new, deltas):
@@ -5638,6 +6148,16 @@ def phase_moe_ab(torch):
     return records
 
 
+def _timed(seconds, what, fn, /, *args, **kw):
+    """fn(*args, **kw), its wall seconds kept in `seconds` under `what` and
+    logged (the script's time limit is shared by every phase)."""
+    t0 = time.monotonic()
+    out = fn(*args, **kw)
+    seconds[what] = round(time.monotonic() - t0, 1)
+    log(f"[{what}] phase {seconds[what]} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5649,29 +6169,30 @@ def main() -> None:
     p = LlamaParams.llama2_7b()
     p_moe = LlamaParams.mixtral_8x7b()
     t0 = time.monotonic()
-    build = phase_build()
+    seconds = {}
+    build = _timed(seconds, "build", phase_build)
     timer = Timer(torch)
-    results = phase_kernels(torch, timer, 20, p, p_moe)
-    slice_res = phase_slice(torch, p, smi_line)
+    results = _timed(seconds, "kernel", phase_kernels, torch, timer, 20, p, p_moe)
+    slice_res = _timed(seconds, "slice", phase_slice, torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
     # the slice through its front: the served wave's launches add to the
     # main path's
-    rest_res = phase_rest(torch, p, smi_line)
+    rest_res = _timed(seconds, "rest", phase_rest, torch, p, smi_line)
     for name_, launched in rest_res["launches"].items():
         results[name_]["launches_by_path"] = {"slice": results[name_]["launches"],
                                               "rest": launched}
         results[name_]["launches"] += launched
     # the MoE path: the quant-matmul on expert views and the flat core at
     # GQA rep 4, each counted over the [mixtral] run
-    mixtral_res = phase_mixtral(torch, p_moe, smi_line)
+    mixtral_res = _timed(seconds, "mixtral", phase_mixtral, torch, p_moe, smi_line)
     results["quant_matmul_experts"]["launches"] = mixtral_res["launches"]["quant_matmul"]
     results["decode_attention_gqa"]["launches"] = mixtral_res["launches"]["decode_attention"]
     # sharded serving: ranks that share the card over gloo, each counting
     # its own launches at the shard shapes (the controller gathers them)
-    tp_res = phase_tp(torch, p, smi_line)
-    dp_sp_res = phase_dp_sp(torch, p, smi_line)
-    mixtral_tp_res = phase_mixtral_tp(torch, p_moe, smi_line)
+    tp_res = _timed(seconds, "tp", phase_tp, torch, p, smi_line)
+    dp_sp_res = _timed(seconds, "dp_sp", phase_dp_sp, torch, p, smi_line)
+    mixtral_tp_res = _timed(seconds, "mixtral_tp", phase_mixtral_tp, torch, p_moe, smi_line)
     for tag, res_ in (("tp", tp_res), ("dp-sp", dp_sp_res), ("mixtral-tp", mixtral_tp_res)):
         for name_, launched in res_["launches"].items():
             entry = results[name_]
@@ -5681,35 +6202,55 @@ def main() -> None:
     # pool) and paged KV under tensor_parallel: row 1 on every stage's
     # shapes, row 5 on each rank's kv heads of the pool (added to the paged
     # path's count below)
-    pp_res = phase_pp(torch, p, smi_line)
-    pp_tp_res = phase_pp_tp(torch, p, smi_line)
-    pp_paged_res = phase_pp_paged(torch, p, smi_line)
-    paged_tp_res = phase_paged_tp(torch, p, smi_line)
+    pp_res = _timed(seconds, "pp", phase_pp, torch, p, smi_line)
+    pp_tp_res = _timed(seconds, "pp_tp", phase_pp_tp, torch, p, smi_line)
+    pp_paged_res = _timed(seconds, "pp_paged", phase_pp_paged, torch, p, smi_line)
+    paged_tp_res = _timed(seconds, "paged_tp", phase_paged_tp, torch, p, smi_line)
+    # speculation across ranks (row 1 at a verify's S/dp * C rows, row 2 on
+    # the rank's heads in the decode steps between verifies, row 5 per
+    # shard) and pp x MoE (row 1i on each stage's own experts)
+    spec_tp_res = _timed(seconds, "spec_tp", phase_spec_tp, torch, p, smi_line)
+    spec_dp_sp_res = _timed(seconds, "spec_dp_sp", phase_spec_dp_sp, torch, p, smi_line)
+    spec_paged_tp_res = _timed(seconds, "spec_paged_tp", phase_spec_paged_tp, torch, p,
+                               smi_line)
+    pp_mixtral_res = _timed(seconds, "pp_mixtral", phase_pp_mixtral, torch, p_moe, smi_line)
     for tag, res_ in (("pp", pp_res), ("pp-tp", pp_tp_res), ("pp-paged", pp_paged_res),
-                      ("paged-tp", paged_tp_res)):
+                      ("paged-tp", paged_tp_res), ("spec-tp", spec_tp_res),
+                      ("spec-dp-sp", spec_dp_sp_res), ("spec-paged-tp", spec_paged_tp_res),
+                      ("pp-mixtral", pp_mixtral_res)):
         launched = res_["launches"]["quant_matmul"]
         results["quant_matmul"]["launches_by_path"][tag] = launched
         results["quant_matmul"]["launches"] += launched
+    for tag, res_ in (("spec-tp", spec_tp_res), ("spec-dp-sp", spec_dp_sp_res)):
+        entry = results["decode_attention"]
+        entry.setdefault("launches_by_path", {"slice": entry["launches"]})[tag] = \
+            res_["launches"]["decode_attention"]
+        entry["launches"] += res_["launches"]["decode_attention"]
+    results["quant_matmul_experts"]["launches_by_path"]["pp-mixtral"] = \
+        pp_mixtral_res["launches"]["quant_matmul_experts"]
+    results["quant_matmul_experts"]["launches"] += \
+        pp_mixtral_res["launches"]["quant_matmul_experts"]
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
-    w4a8_res = phase_quant_route(torch, p, smi_line, "w4a8", {"activations": "int8"},
-                                 {"w4a8_launches": 4 * p.n_layers + 1})
+    w4a8_res = _timed(seconds, "w4a8", phase_quant_route, torch, p, smi_line, "w4a8",
+                      {"activations": "int8"}, {"w4a8_launches": 4 * p.n_layers + 1})
     results["quant_matmul_w4a8"] = dict(results["quant_matmul"]["w4a8"],
                                         launches=w4a8_res["launches"]["w4a8_launches"])
     results["quantize_rows"]["launches"] = w4a8_res["launches"]["quantize_launches"]
-    odd_res = phase_quant_route(torch, p, smi_line, "odd", {"group_size": 688},
-                                {"odd_group_launches": p.n_layers})
+    odd_res = _timed(seconds, "odd", phase_quant_route, torch, p, smi_line, "odd",
+                     {"group_size": 688}, {"odd_group_launches": p.n_layers})
     results["quant_matmul_odd_groups"] = dict(results["quant_matmul"]["odd"],
                                               launches=odd_res["launches"]["odd_group_launches"])
     # w_down in groups of 344 (11008 / 32), the rest per channel: masked
     # k16 steps with bf16 x, masked k32 steps with int8 x
-    g344_res = phase_quant_route(torch, p, smi_line, "g344", {"group_size": 344},
-                                 {"group_route_launches": p.n_layers})
+    g344_res = _timed(seconds, "g344", phase_quant_route, torch, p, smi_line, "g344",
+                      {"group_size": 344}, {"group_route_launches": p.n_layers})
     results["quant_matmul_group_route"] = dict(
         results["quant_matmul"]["group_route"],
         launches=g344_res["launches"]["group_route_launches"])
     results["stage_x"]["launches"] = g344_res["launches"]["stage_launches"]
-    w4a8_g344_res = phase_quant_route(
+    w4a8_g344_res = _timed(
+        seconds, "w4a8_g344", phase_quant_route,
         torch, p, smi_line, "w4a8-g344", {"group_size": 344, "activations": "int8"},
         {"w4a8_launches": 3 * p.n_layers + 1, "w4a8_route_launches": p.n_layers})
     results["quant_matmul_w4a8_route"] = dict(
@@ -5718,7 +6259,7 @@ def main() -> None:
     # calibrated quantization: the load's calibration pass runs the f32-x
     # route (its launches are that load's), the served run the bf16 route
     # and the flat core with LoRC on top
-    gptq_res = phase_gptq(torch, timer, 20, p, smi_line)
+    gptq_res = _timed(seconds, "gptq", phase_gptq, torch, timer, 20, p, smi_line)
     results["quant_matmul_f32"] = dict(
         results["quant_records"]["f32"], launches=gptq_res["load_launches"]["f32_launches"],
         per="one call: wo (K 4096, N 4096), B=64, int4 g128, f32 x as three bf16 pieces",
@@ -5727,55 +6268,61 @@ def main() -> None:
                             ("decode_attention", gptq_res["attention_launches"])):
         results[name_]["launches_by_path"]["gptq"] = launched
         results[name_]["launches"] += launched
-    llm_demo_res = phase_llm_demo(torch, smi_line)
+    llm_demo_res = _timed(seconds, "llm_demo", phase_llm_demo, torch, smi_line)
     # the model zoo through the port's front: its served int8 quant-matmuls
     # (row 1b) add to the main path's, and eval_accuracy's f32-x calls to
     # the f32 route's
-    zoo_res = phase_zoo(torch, timer, smi_line)
+    zoo_res = _timed(seconds, "zoo", phase_zoo, torch, timer, smi_line)
     results["quant_matmul_int8"] = dict(zoo_res["entry"], launches=zoo_res["launches"])
     results["quant_matmul_f32"]["launches_by_path"] = {
         "gptq": results["quant_matmul_f32"]["launches"], "zoo": zoo_res["f32_launches"]}
     results["quant_matmul_f32"]["launches"] += zoo_res["f32_launches"]
-    paged_res = phase_paged_slice(torch, p, smi_line)
+    paged_res = _timed(seconds, "paged", phase_paged_slice, torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
     results["decode_attention_paged"]["launches"] = \
         paged_res["launches"]["decode_attention_paged"]
     results["decode_attention_paged"]["launches_by_path"] = {
         "paged": paged_res["launches"]["decode_attention_paged"],
-        "paged-tp": paged_tp_res["launches"]["decode_attention_paged"]}
+        "paged-tp": paged_tp_res["launches"]["decode_attention_paged"],
+        "spec-paged-tp": spec_paged_tp_res["launches"]["decode_attention_paged"]}
     results["decode_attention_paged"]["launches"] += \
-        paged_tp_res["launches"]["decode_attention_paged"]
-    spec_res = phase_spec(torch, p, smi_line)
+        paged_tp_res["launches"]["decode_attention_paged"] \
+        + spec_paged_tp_res["launches"]["decode_attention_paged"]
+    spec_res = _timed(seconds, "spec", phase_spec, torch, p, smi_line)
     # the multi kernel runs on the speculative path only: its count is that run's
     results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
     # the JAX package's default cache (kv_cache none, bf16): the multi
     # kernel's float route, counted over that run
-    spec_bf16_res = phase_spec(torch, p, smi_line, tag="spec-bf16", kv_cache="none")
+    spec_bf16_res = _timed(seconds, "spec_bf16", phase_spec, torch, p, smi_line,
+                           tag="spec-bf16", kv_cache="none")
     results["decode_attention_multi_float"] = dict(
         results["decode_attention_multi"]["float"],
         launches=spec_bf16_res["launches"]["decode_attention_multi"])
-    spec_paged_res = phase_spec_paged(torch, p, smi_line)
-    grouped_res = phase_grouped(torch, timer, p, smi_line)
+    spec_paged_res = _timed(seconds, "spec_paged", phase_spec_paged, torch, p, smi_line)
+    grouped_res = _timed(seconds, "grouped", phase_grouped, torch, timer, p, smi_line)
     # the grouped kernel runs on the grouped path only: its count is that run's
     results["decode_attention_grouped"]["launches"] = \
         grouped_res["launches"]["decode_attention_grouped"]
-    grouped_bf16_res = phase_grouped(torch, timer, p, smi_line, tag="grouped-bf16",
-                                     kv_cache="none")
+    grouped_bf16_res = _timed(seconds, "grouped_bf16", phase_grouped, torch, timer, p,
+                              smi_line, tag="grouped-bf16", kv_cache="none")
     results["decode_attention_grouped_float"] = dict(
         results["decode_attention_grouped"]["float"],
         launches=grouped_bf16_res["launches"]["decode_attention_grouped"])
-    sweep_res = phase_sweep(torch)
+    # the native runtime last of the served phases: once built, the
+    # binding finds native/build/libtpuserve.so in every later load
+    native_res = _timed(seconds, "native", phase_native, torch, p, smi_line)
+    sweep_res = _timed(seconds, "sweep", phase_sweep, torch)
     # the probes and the prebuilt-Q_wide entry run in the sweep only
     for kname, launched in sweep_res["launches"].items():
         results[kname]["launches"] = launched
-    unpack_res = phase_unpack(torch, timer, 20, p, smi_line)
+    unpack_res = _timed(seconds, "unpack", phase_unpack, torch, timer, 20, p, smi_line)
     # the unpack probes run in the microbenchmark only, the copy kernel in diag_bw
     for kname, launched in unpack_res["launches"].items():
         results[kname]["launches"] = launched
-    diag_res = phase_diag_bw(torch)
+    diag_res = _timed(seconds, "diag", phase_diag_bw, torch)
     results["diag_copy"]["launches"] = diag_res["launches"]
-    qmm_sweep_res = phase_qmm_sweep(torch)
-    moe_ab_res = phase_moe_ab(torch)
+    qmm_sweep_res = _timed(seconds, "qmm_sweep", phase_qmm_sweep, torch)
+    moe_ab_res = _timed(seconds, "moe_ab", phase_moe_ab, torch)
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -5874,11 +6421,14 @@ def main() -> None:
                    "g344": g344_res, "w4a8_g344": w4a8_g344_res, "mixtral": mixtral_res,
                    "tp": tp_res, "dp_sp": dp_sp_res, "mixtral_tp": mixtral_tp_res,
                    "pp": pp_res, "pp_tp": pp_tp_res, "pp_paged": pp_paged_res,
-                   "paged_tp": paged_tp_res,
+                   "paged_tp": paged_tp_res, "spec_tp": spec_tp_res,
+                   "spec_dp_sp": spec_dp_sp_res, "spec_paged_tp": spec_paged_tp_res,
+                   "pp_mixtral": pp_mixtral_res, "native": native_res,
                    "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
+                   "phase_seconds": seconds,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)

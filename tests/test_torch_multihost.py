@@ -12,8 +12,8 @@ the multi-process front (tpuserve_torch.parallel, server/follower.py).
   on two ranks;
 - what the port leaves out, and the JAX engine's refusals, are refused
   with a BackendError naming them (the CLI's form keeps the JAX multi-host
-  refusals of pipeline_parallel and paged KV), and a failed sharded start
-  leaves no live-engine mark.
+  refusals of pipeline_parallel, paged KV and speculation), and a failed
+  sharded start leaves no live-engine mark.
 
 Every spawned rank runs under a timeout (TPUSERVE_DIST_TIMEOUT 60 s for the
 groups; the engine waits 60 s for its ranks at stop and kills the rest; the
@@ -242,8 +242,6 @@ def test_multihost_generator_ranks_agree(tmp_path):
 REFUSALS = {
     "paged": ({"tensor_parallel": 2}, {"paged": True, "page_size": 16, "prefill_chunk": 0},
               "paged kv_cache int4 is single-chip"),
-    "speculation": ({"data_parallel": 2}, {"speculation_tokens": 4},
-                    "speculative decoding under a mesh"),
     "pipeline": ({"pipeline_parallel": 2}, {"prefill_chunk": 0},
                  "kv_cache int4 does not compose with pipeline_parallel"),
     "gspmd_only": ({"tensor_parallel": 8}, {}, "n_kv_heads 4 over tensor_parallel 8"),
@@ -272,6 +270,8 @@ CLI_REFUSALS = {
                   "page-table bookkeeping is controller-local"),
     "cli_paged_dp": ({"data_parallel": 2}, {"paged": True, "page_size": 16, "prefill_chunk": 0},
                      "multi-host serving v1 does not compose with paged KV"),
+    "cli_speculation": ({"data_parallel": 2}, {"speculation_tokens": 4},
+                        "multi-host serving v1 does not compose with speculative decoding"),
 }
 
 
@@ -279,8 +279,9 @@ CLI_REFUSALS = {
 def test_cli_form_refuses_pipeline_and_paged(tmp_path, monkeypatch, case):
     """Ranks joined by the TPUSERVE_* variables (the CLI's multi-process
     form, the JAX package's multi-host) keep the JAX multi-host v1
-    refusals of pipeline_parallel and of paged KV, before joining; the
-    same configurations are served by ranks an engine starts itself."""
+    refusals of pipeline_parallel, of paged KV and of speculative
+    decoding, before joining; the same configurations are served by ranks
+    an engine starts itself."""
     sharding, gen, msg = CLI_REFUSALS[case]
     monkeypatch.setenv("TPUSERVE_COORDINATOR", "127.0.0.1:1")
     monkeypatch.setenv("TPUSERVE_NUM_PROCESSES", "2")

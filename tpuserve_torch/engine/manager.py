@@ -25,6 +25,7 @@ from __future__ import annotations
 import enum
 import json
 import queue
+import logging
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -42,6 +43,8 @@ from tpuserve_torch.utils.errors import (
 )
 from tpuserve_torch.utils.tensor import Tensor
 
+
+log = logging.getLogger("tpuserve_torch.manager")
 
 class ModelState(enum.Enum):
     """≙ ModelState (inference_manager.h:22-29)."""
@@ -67,6 +70,8 @@ class InferenceManager:
     def __init__(self, repository_path: str, num_workers: int = 4, device="cuda"):
         self.device = torch.device(device)
         self.repository = ModelRepository(repository_path)
+        log.info("repository %s: %s scan", repository_path,
+                 "native" if self.repository.uses_native else "python")
         self._lock = threading.RLock()
         self._models: Dict[_Key, Model] = {}
         self._states: Dict[_Key, ModelState] = {}

@@ -46,12 +46,14 @@ shards' partials summed), MoE experts over tp, decode attention on the
 rank's slots and kv heads through the flat core, or over its L window with
 the flash-decoding merge under sp. Inputs and outputs stay global (tokens
 and positions of every slot, logits [S, V]): a prefill runs on the slot's
-dp group and the others add zeros to its logits. The paged forms (but the
-verify) run under a tp/dp mesh too: the rank's pool block holds its kv
+dp group and the others add zeros to its logits. The paged forms run under
+a tp/dp mesh too: the rank's pool block holds its kv
 heads of every page, replicated over dp, so a prefill runs on every dp
 group (each writes its copy of the pool, as a replicated computation does
 in the JAX package) and a decode step on the rank's dp slots through the
 paged core at its kv heads (`sharding.decode_attention_paged_sharded`).
+verify_step and verify_step_paged run the rank's dp slots' candidates by
+einsum, as GSPMD runs them in the JAX package (`_verify_rank`).
 """
 
 from __future__ import annotations
@@ -680,10 +682,14 @@ def _moe_ffn(params, pre, h, p: LlamaParams, mm=None):
         cap = min(t, max(8, int(math.ceil(t * p.n_experts_per_tok / p.n_experts * cf))))
         if cap < t:
             return _moe_dispatch(h2, w2, gu, dn, p, cap).reshape(*lead_shape, h.shape[-1])
+    from tpuserve_torch.ops import quant_matmul
+
+    before = quant_matmul.launches
     out = torch.zeros_like(h2)
     for e in range(p.n_experts):
         y = expert_forward(h2, _expert_slice(gu, e), _expert_slice(dn, e), p.ffn_dim)
         out = out + w2[:, e:e + 1].to(y.dtype) * y
+    sharding._launched("quant_matmul experts", before, quant_matmul.launches, (p.n_experts,))
     return out.reshape(*lead_shape, h.shape[-1])
 
 
@@ -1026,7 +1032,11 @@ def verify_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     rows were written, with no host sync (the fused rounds need none).
     Callers keep valid rows below L-1, where clamped invalid rows gather.
     Attention is the multi-candidate kernel (`decode_attention_wide_cache_
-    multi`) under "pallas" and the einsum path otherwise (`_decode_attn_mode`)."""
+    multi`) under "pallas" and the einsum path otherwise (`_decode_attn_mode`).
+    Under a live mesh the rank runs its part (`_verify_rank`)."""
+    mesh = _mesh()
+    if mesh is not None:
+        return _verify_rank(params, p, tokens, cache, positions, lengths, window, mesh)
     s, c = tokens.shape
     mode = _decode_attn_mode(p)
     pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, tokens, positions, lengths,
@@ -1065,6 +1075,101 @@ def verify_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
 
     logits = _logits(params, x, p).reshape(s, c, -1)
     return torch.where(valid[:, :, None], logits, 0.0), cache
+
+
+def _verify_rank(params, p: LlamaParams, tokens, cache, positions, lengths, window, mesh,
+                 page_table=None):
+    """verify_step under a live mesh, or verify_step_paged (`page_table`)
+    with or without one, on this rank, as the JAX package runs them there
+    (einsums: a mesh and a pool have no multi-candidate kernel). The rank's
+    dp slots' candidates go through its weight blocks (q, k, v at its
+    heads); their K/V is written into its block only: the valid rows of its
+    slots, at its kv heads (a packed int4 cache packed per shard), under sp
+    only the rows whose position lies in its L window (one slot's
+    candidates may straddle two windows), in a pool its slots' pages.
+    Attention is `_attend_window` on its heads over its window, or under sp
+    the verify's softmax as GSPMD splits it over the windows
+    (`sharding.attend_seq_softmax`); positions clamp at the global L - 1
+    (a pool's: the window's pages), as in the JAX package. Logits are
+    gathered over tp and dp. Under a mesh the host work (the rank's inputs,
+    the rows it writes, which syncs) and the step run under
+    `sharding.run_agreed`: a failure on any rank raises VerifyFailed on
+    every rank."""
+    c = tokens.shape[1]
+    hd = p.head_dim
+    pl = _local_p(p, mesh)
+    sp = sharding.mesh_sp(mesh)
+    paged = page_table is not None
+
+    def prep():
+        toks, pos, lens, table = sharding.local_verify_inputs(mesh, tokens, positions, lengths,
+                                                              page_table)
+        dev = toks.device
+        st = dict(s=toks.shape[0])
+        if paged:
+            ps = cache.page_size
+            table = table.to(device=dev, dtype=torch.long)
+            if window is not None:
+                table = table[:, :max(1, min(int(window) // ps, table.shape[1]))]
+            win = l_lim = table.shape[1] * ps
+            ksr, vsr = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
+            st.update(table=table, scales=dataclasses.replace(cache, k_scale=ksr, v_scale=vsr))
+        else:
+            win = cache.max_len if window is None else min(int(window), cache.max_len)
+            l_lim = cache.max_len * sp
+        pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, toks, pos, lens, l_lim)
+        l_off = _l_off(mesh, cache) if not paged else 0
+        si, ci, lp = sharding.verify_write_rows(valid, pos_c, l_off,
+                                                cache.max_len if sp > 1 else None)
+        if paged:
+            lp = (st["table"][si, lp // cache.page_size], lp % cache.page_size)
+        st.update(win=win, pos_c=pos_c, valid=valid, x=x, cos=cos_q, sin=sin_q, si=si, ci=ci,
+                  lp=lp, mask=torch.arange(win, device=dev)[None, None, :] <= pos_c[:, :, None])
+        return st
+
+    def body(st):
+        s, win, si, ci, lp = st["s"], st["win"], st["si"], st["ci"], st["lp"]
+        x = st["x"]
+        for layer in range(p.n_layers):
+            def attn_fn(q, k, v, layer=layer):
+                q = apply_rope(q.reshape(s, c, pl.n_heads, hd), st["cos"], st["sin"])
+                k = apply_rope(k.reshape(s, c, pl.n_kv_heads, hd), st["cos"], st["sin"])
+                v = v.reshape(s, c, pl.n_kv_heads, hd)
+                if paged:
+                    _write_pages(cache, layer, lp[0], lp[1], k[si, ci], v[si, ci], mesh)
+                    table = st["table"]
+                    out = _attend_window(q, cache.k[layer][table].reshape(s, win, -1),
+                                         cache.v[layer][table].reshape(s, win, -1),
+                                         *_paged_window_scales(st["scales"], layer, table, pl),
+                                         st["mask"], pl)
+                    return out.to(x.dtype).reshape(s * c, -1)
+                kq, vq, ks, vs = _kv_rows(cache, k[si, ci], v[si, ci])
+                cache.rows(cache.k)[layer][si, lp] = kq
+                cache.rows(cache.v)[layer][si, lp] = vq
+                if ks is not None:
+                    cache.k_scale[layer][si, :, lp] = ks.to(cache.k_scale.dtype)
+                    cache.v_scale[layer][si, :, lp] = vs.to(cache.v_scale.dtype)
+                if sp > 1:
+                    k5, v5 = _heads_view(cache, pl)
+                    out = sharding.attend_seq_softmax(
+                        q, k5[layer], v5[layer],
+                        cache.k_scale[layer] if cache.quantized else None,
+                        cache.v_scale[layer] if cache.quantized else None, st["pos_c"], mesh,
+                        math.sqrt(hd))
+                else:
+                    out = _attend_window(q, cache.k[layer, :, :win], cache.v[layer, :, :win],
+                                         *_window_scales(cache, layer, win), st["mask"], pl)
+                return out.to(x.dtype).reshape(s * c, -1)
+
+            x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
+        logits = _logits(params, x, p).reshape(s, c, -1)
+        logits = torch.where(st["valid"][:, :, None], logits, 0.0)
+        sharding.verify_rows_written += int(si.numel())
+        return logits if mesh is None else mesh.gather(logits, "dp", dim=0)
+
+    if mesh is None:
+        return body(prep()), cache
+    return sharding.run_agreed(mesh, tokens.device, prep, body), cache
 
 
 # ---------------------------------------------------------------------- paged
@@ -1254,36 +1359,10 @@ def verify_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     through `_write_pages` (finding them syncs with the host, which the
     host-drafted paged path does anyway); rejected drafts leave entries past
     the live position, masked by position. Returns (logits [S, C, V] f32,
-    0 on invalid rows; cache)."""
-    s, c = tokens.shape
-    dev = tokens.device
-    ps = cache.page_size
-    page_table = page_table.to(device=dev, dtype=torch.long)
-    if window is not None:
-        page_table = page_table[:, :max(1, min(int(window) // ps, page_table.shape[1]))]
-    n_cols = page_table.shape[1]
-    l_virt = n_cols * ps
-    pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, tokens, positions, lengths, l_virt)
-    mask = torch.arange(l_virt, device=dev)[None, None, :] <= pos_c[:, :, None]  # [S, C, win]
-    vs_idx, vc_idx = torch.nonzero(valid, as_tuple=True)
-    wpos = pos_c[vs_idx, vc_idx]
-    wpages, woffs = page_table[vs_idx, wpos // ps], wpos % ps
-
-    for layer in range(p.n_layers):
-        def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(s, c, p.n_heads, p.head_dim), cos_q, sin_q)
-            k = apply_rope(k.reshape(s, c, p.n_kv_heads, p.head_dim), cos_q, sin_q)
-            v = v.reshape(s, c, p.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, wpages, woffs, k[vs_idx, vc_idx], v[vs_idx, vc_idx])
-            out = _attend_window(q, cache.k[layer][page_table].reshape(s, l_virt, -1),
-                                 cache.v[layer][page_table].reshape(s, l_virt, -1),
-                                 *_paged_window_scales(cache, layer, page_table, p), mask, p)
-            return out.to(x.dtype).reshape(s * c, p.n_heads * p.head_dim)
-
-        x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
-
-    logits = _logits(params, x, p).reshape(s, c, -1)
-    return torch.where(valid[:, :, None], logits, 0.0), cache
+    0 on invalid rows; cache). One rank or a live tp/dp mesh runs the same
+    body (`_verify_rank`)."""
+    return _verify_rank(params, p, tokens, cache, positions, lengths, window, _mesh(),
+                        page_table=page_table)
 
 
 # ---------------------------------------------------------------------- whole sequence

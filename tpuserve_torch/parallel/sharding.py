@@ -39,7 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from tpuserve_torch.quant.core import QExperts, QTensor, qmatmul
+from tpuserve_torch.quant.core import QExperts, QTensor, qmatmul, true_div
 
 _COL = (
     "wq/kernel", "wk/kernel", "wv/kernel", "wqkv/kernel",
@@ -47,8 +47,10 @@ _COL = (
 )
 _ROW = ("wo/kernel", "w_down/kernel")
 
-# kernel launches of the sharded bodies at their local shapes: name -> count
+# kernel launches of the sharded bodies at their local shapes: name -> count;
+# the quant-matmul's also by its rows of x ("quant_matmul MxKxN")
 shard_launches: "collections.Counter[str]" = collections.Counter()
+shard_launch_rows: "collections.Counter[str]" = collections.Counter()
 # row shards whose scales straddle groups, run in plain torch on the rank's rows
 plain_fallbacks = 0
 
@@ -221,9 +223,12 @@ def mesh_sp(mesh) -> int:
     return 1 if mesh is None else int(mesh.shape.get("sp", 1))
 
 
-def _launched(kind: str, before: int, after: int, shape) -> None:
+def _launched(kind: str, before: int, after: int, shape, rows: Optional[int] = None) -> None:
     if after != before:
         shard_launches[f"{kind} {'x'.join(str(d) for d in shape)}"] += after - before
+        if rows is not None:
+            shard_launch_rows[f"{kind} {'x'.join(str(d) for d in (rows,) + tuple(shape))}"] += \
+                after - before
 
 
 # ------------------------------------------------------------- sharded qmatmul
@@ -277,7 +282,8 @@ def qmatmul_local(x: torch.Tensor, qt: QTensor, name: str, tp_index: int,
         plain_fallbacks += 1
     else:
         out = qmatmul(x, op)
-    _launched("quant_matmul", before, quant_matmul.launches, (k_loc, n))
+    _launched("quant_matmul", before, quant_matmul.launches, (k_loc, n),
+              rows=x.numel() // max(1, x.shape[-1]))
     return out
 
 
@@ -346,14 +352,10 @@ def decode_attention_sharded(q, k_local, v_local, k_scale_l, v_scale_l, position
     return out
 
 
-def seq_partial(q, k_l, v_l, k_scale_l, v_scale_l, qpos, l_off: int):
-    """One sp shard's unnormalized attention over its L window (the JAX
-    island's `_partial`): q [S, C, H, hd] pre-scaled by 1/sqrt(hd); k_l/v_l
-    [S, L_loc, Hkv, hd] (int8, bf16 or f32); scales [S, Hkv, L_loc] or None;
-    qpos [S, C] the global position of each query (keys at <= qpos count).
-    Returns (o [S, C, Hkv, rep, hd], m [S, C, Hkv, rep], mass [S, C, Hkv,
-    rep]), all f32. Masked scores are -1e30, so a window wholly past a
-    query's position gives m = -1e30 and its mass vanishes in the merge."""
+def _seq_scores(q, k_l, k_scale_l, qpos, l_off: int, scale: float = 1.0):
+    """A shard's masked scores [S, C, Hkv, rep, L_loc] f32 (bf16 dots, f32
+    over an f32 window), divided by `scale` after the key scales, and the
+    dots' dtype."""
     s, c, h, hd = q.shape
     lloc, hkv = k_l.shape[1], k_l.shape[2]
     qg = q.reshape(s, c, hkv, h // hkv, hd)
@@ -362,9 +364,22 @@ def seq_partial(q, k_l, v_l, k_scale_l, v_scale_l, qpos, l_off: int):
                           k_l.to(cdt).to(torch.float32))
     if k_scale_l is not None:
         scores = scores * k_scale_l.to(torch.float32)[:, None, :, None, :]
+    if scale != 1.0:
+        scores = true_div(scores, scale)
     kpos = l_off + torch.arange(lloc, device=q.device)
     mask = kpos[None, None, :] <= qpos[:, :, None]                # [S, C, L_loc]
-    scores = torch.where(mask[:, :, None, None, :], scores, -1e30)
+    return torch.where(mask[:, :, None, None, :], scores, -1e30), cdt
+
+
+def seq_partial(q, k_l, v_l, k_scale_l, v_scale_l, qpos, l_off: int):
+    """One sp shard's unnormalized attention over its L window (the JAX
+    island's `_partial`): q [S, C, H, hd] pre-scaled by 1/sqrt(hd); k_l/v_l
+    [S, L_loc, Hkv, hd] (int8, bf16 or f32); scales [S, Hkv, L_loc] or None;
+    qpos [S, C] the global position of each query (keys at <= qpos count).
+    Returns (o [S, C, Hkv, rep, hd], m [S, C, Hkv, rep], mass [S, C, Hkv,
+    rep]), all f32. Masked scores are -1e30, so a window wholly past a
+    query's position gives m = -1e30 and its mass vanishes in the merge."""
+    scores, cdt = _seq_scores(q, k_l, k_scale_l, qpos, l_off)
     m = scores.amax(dim=-1)
     probs = torch.exp(scores - m[..., None])
     mass = probs.sum(dim=-1)
@@ -394,6 +409,92 @@ def attend_seq_sharded(q, k_l, v_l, k_scale_l, v_scale_l, qpos, mesh) -> torch.T
     o = mesh.psum(o * w[..., None], "sp")
     mass = mesh.psum(mass * w, "sp")
     return seq_finish(o, mass, qpos)
+
+
+def attend_seq_softmax(q, k_l, v_l, k_scale_l, v_scale_l, qpos, mesh,
+                       scale: float) -> torch.Tensor:
+    """The JAX verify's einsum attention over an L split over sp, as GSPMD
+    partitions it: q [S, C, H, hd] unscaled (rope applied), the rank's
+    k_l/v_l [S, L_loc, Hkv, hd] and scales [S, Hkv, L_loc] or None, qpos
+    [S, C] each candidate's global position. Scores are bf16 dots divided
+    by `scale` after the key scales (as `_attend_window`); the softmax takes
+    the global max (one pmax) and sum (one psum) before it normalizes, so
+    the probabilities round to bf16 as one softmax's do, and one psum adds
+    the ranks' P@V partials. Returns [S, C, H, hd] f32. Every row has a key
+    at position 0, so its sum is at least 1."""
+    l_off = mesh.coords["sp"] * k_l.shape[1]
+    scores, cdt = _seq_scores(q, k_l, k_scale_l, qpos, l_off, scale)
+    m = mesh.pmax(scores.amax(dim=-1), "sp")
+    probs = torch.exp(scores - m[..., None])
+    probs = probs / mesh.psum(probs.sum(dim=-1), "sp")[..., None]
+    if v_scale_l is not None:
+        probs = probs * v_scale_l.to(torch.float32)[:, None, :, None, :]
+    o = torch.einsum("schrl,slhd->schrd", probs.to(cdt).to(torch.float32),
+                     v_l.to(cdt).to(torch.float32))
+    o = mesh.psum(o, "sp")
+    return o.reshape(q.shape[0], q.shape[1], -1, o.shape[-1])
+
+
+# ------------------------------------------------------------ sharded verify
+# rows a rank wrote into its cache block or pool block in its verify calls
+# (each (slot, candidate) row once a call, whatever the layer count)
+verify_rows_written = 0
+
+
+class VerifyFailed(RuntimeError):
+    """A sharded verify failed on some rank; raised on every rank."""
+
+
+def local_verify_inputs(mesh, tokens, positions, lengths, page_table=None):
+    """The rank's dp slots' rows of a verify's global inputs: tokens [S, C],
+    positions [S], lengths [S] and a page table [S, P] (or None); all of
+    them with no mesh."""
+    if mesh is None:
+        return tokens, positions, lengths, page_table
+    lo, hi = local_slots(mesh, tokens.shape[0])
+    table = None if page_table is None else page_table[lo:hi]
+    return tokens[lo:hi], positions[lo:hi], lengths[lo:hi], table
+
+
+def verify_write_rows(valid: torch.Tensor, pos_c: torch.Tensor, l_off: int = 0,
+                      l_loc: Optional[int] = None):
+    """The (slot, candidate) rows a rank writes in a verify: the valid ones
+    whose global position pos_c lies in its L window [l_off, l_off + l_loc)
+    (every valid one with no window). Returns (slot index, candidate index,
+    position in the window), long tensors of one length (finding them
+    syncs with the host)."""
+    held = valid if l_loc is None else valid & (pos_c >= l_off) & (pos_c < l_off + l_loc)
+    si, ci = torch.nonzero(held, as_tuple=True)
+    return si, ci, pos_c[si, ci].long() - l_off
+
+
+def mesh_any(mesh, flag: bool, device) -> bool:
+    """Whether `flag` holds on any rank of the mesh: a max over every axis in
+    turn (each rank calls it, in the same place)."""
+    t = torch.tensor([1.0 if flag else 0.0], dtype=torch.float32, device=device)
+    for axis in ("tp", "sp", "pp", "dp"):
+        t = mesh.pmax(t, axis)
+    return bool(t.item() > 0)
+
+
+def run_agreed(mesh, device, prep, body):
+    """A sharded verify's two phases with the ranks agreeing after each:
+    `prep()` (host work, before any collective of the step) and
+    `body(prep's result)`. Where either raised on some rank, every rank
+    raises VerifyFailed after that phase, so no rank is left waiting in the
+    step's collectives for one that stopped before them. A rank that fails
+    between two of the body's collectives leaves the others in the next one
+    until the group's timeout (TPUSERVE_DIST_TIMEOUT)."""
+    for phase, fn in (("prepare", prep), ("run", body)):
+        err = None
+        try:
+            state = fn() if phase == "prepare" else fn(state)
+        except Exception as e:  # agreed on below, then raised on every rank
+            err = e
+        if mesh_any(mesh, err is not None, device):
+            where = f"rank {mesh.rank}: {err}" if err is not None else "another rank"
+            raise VerifyFailed(f"the sharded verify failed to {phase} ({where})") from err
+    return state
 
 
 def decode_attention_seq_sharded(q, k_l, v_l, k_scale_l, v_scale_l, positions, mesh):

@@ -88,16 +88,30 @@ def _version_sort_key(v: str):
 class ModelRepository:
     """Thread-safe scanner over `repository_path/<model>/<version>/`.
 
-    A pure-Python walk (the JAX package can also hand the walk to its
-    native C++ runtime; the port keeps only the Python walk, which has the
-    same semantics).
+    When the native runtime (libtpuserve.so, native/src/repository.cpp)
+    loads, the filesystem walk runs there (bindings/native.py); otherwise a
+    pure-Python walk with the same semantics. TPUSERVE_NATIVE=0 keeps the
+    Python walk, as in the JAX package.
     """
 
     def __init__(self, repository_path: str):
         self._path = os.path.abspath(repository_path)
         self._lock = threading.Lock()
         self._models: Dict[str, List[str]] = {}  # name -> versions (desc)
+        self._native = None
+        if os.environ.get("TPUSERVE_NATIVE", "1") != "0":
+            try:
+                from tpuserve_torch.bindings import native
+
+                if native.available():
+                    self._native = native.NativeRepository(self._path)
+            except Exception:
+                self._native = None
         self.scan()
+
+    @property
+    def uses_native(self) -> bool:
+        return self._native is not None
 
     # ------------------------------------------------------------------
     @property
@@ -108,6 +122,11 @@ class ModelRepository:
         """Re-walk the repository. A model directory counts if at least one
         version subdirectory contains a recognized marker file or a
         config.json (≙ ScanRepository, model_repository.cpp:18-66)."""
+        if self._native is not None:
+            found = {k: list(v) for k, v in self._native.scan().items()}
+            with self._lock:
+                self._models = found
+            return dict(found)
         found: Dict[str, List[str]] = {}
         if os.path.isdir(self._path):
             for name in sorted(os.listdir(self._path)):

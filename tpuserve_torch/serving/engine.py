@@ -54,14 +54,21 @@ paths).
   single-host mesh: pipeline_parallel and paged KV too). Under
   sequence_parallel the cache is the 5D layout, its L split over sp. Under
   pipeline_parallel speculation is off, as in the JAX engine (its pipeline
-  has no verify).
+  has no verify). Under a tp/dp/sp mesh speculation runs the JAX engine's
+  single-round host-drafted verify, contiguous or paged, whatever
+  speculation_rounds: the controller drafts, publishes a ("verify", ...)
+  event and accepts; every rank runs the verify on its blocks
+  (llama.verify_step / verify_step_paged under the mesh); a verify that
+  fails on any rank fails on every rank and latches speculation off. The
+  CLI's multi-process form refuses speculation, as the JAX multi-host v1
+  does.
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
 no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (speculation under a tp/dp/sp mesh; the meshes
-the JAX package serves only through GSPMD) raise BackendError naming them,
-as do the JAX engine's own refusals and a contiguous speculation width the
-verify kernel does not take.
+that need unported parts (the meshes the JAX package serves only through
+GSPMD) raise BackendError naming them, as do the JAX engine's own refusals
+and a one-rank contiguous speculation width the verify kernel does not
+take.
 """
 
 from __future__ import annotations
@@ -180,6 +187,8 @@ class GenerationEngine:
         self._spec_probe = 0         # break-even-guard probe counter
         self.spec_drafted = 0        # drafted tokens proposed
         self.spec_accepted = 0       # drafted tokens accepted (and emitted)
+        # under a mesh: each verify's positions and lengths [S], as published
+        self.verify_log: "collections.deque" = collections.deque(maxlen=4096)
         # sharded serving: this rank's mesh, whether this process is the
         # controller (rank 0), the follower ranks this engine started (one
         # host, no process group yet), the last decode steps' host clock, a
@@ -270,16 +279,11 @@ class GenerationEngine:
         tp, dp, sp = self._mesh_sizes()
         pp = self._pp
         spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
-        unported = []
-        if tp * dp * sp > 1 and pp == 1:
-            if spec_k > 0:
-                unported.append("speculative decoding under a mesh")
-            if p.n_kv_heads % tp:
-                unported.append(
-                    f"n_kv_heads {p.n_kv_heads} over tensor_parallel {tp} (the JAX "
-                    "package serves it only through GSPMD on the 5D cache)")
-        if unported:
-            raise BackendError("not ported to tpuserve_torch yet: " + ", ".join(unported))
+        if tp * dp * sp > 1 and pp == 1 and p.n_kv_heads % tp:
+            raise BackendError(
+                f"not ported to tpuserve_torch yet: n_kv_heads {p.n_kv_heads} over "
+                f"tensor_parallel {tp} (the JAX package serves it only through GSPMD on the "
+                "5D cache)")
         if pp > 1:
             self._check_pipeline(pp, tp, dp, sp)
         if self._world() > 1:
@@ -293,10 +297,14 @@ class GenerationEngine:
                 if gen.paged:
                     raise BackendError("multi-host serving v1 does not compose with paged KV "
                                        "(page-table bookkeeping is controller-local)")
+                if spec_k > 0:
+                    raise BackendError("multi-host serving v1 does not compose with "
+                                       "speculative decoding")
             self._check_mesh(tp, dp, sp)
-        if spec_k > 0 and not gen.paged and pp == 1:
-            # the contiguous verify's kernel takes C = k+1 candidates of the
-            # query heads one block serves (a head pair's for int4 KV)
+        if spec_k > 0 and not gen.paged and self._world() == 1:
+            # the one-rank contiguous verify's kernel takes C = k+1 candidates
+            # of the query heads one block serves (a head pair's for int4 KV);
+            # a mesh verifies by einsum
             nq = p.n_heads // p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
             cache = qcfg.kv_cache if qcfg.kv_cache in ("int8", "int4") else "bf16"
             try:
@@ -624,6 +632,9 @@ class GenerationEngine:
             self.ptm = None if not self._mh_ctrl else PageTableManager(
                 num_pages, ps, self.n_slots, self.max_seq_len,
                 prefix_sharing=bool(gen.prefix_sharing), device=self.device)
+            if self.ptm is not None:
+                log.info("paged KV: %s page allocator (native runtime %s)",
+                         self.kv_allocator, self._native_version())
         else:
             # a rank's block: its slots, kv heads and (5D under sp) L window;
             # a pipeline stage's 5D stage cache
@@ -695,6 +706,11 @@ class GenerationEngine:
                 last_logits = self._dev_chunk(*ev[1:])
             elif op == "chunk_final":
                 self._dev_first_sample(*ev[1:], last_logits)
+            elif op == "verify":
+                try:
+                    self._dev_verify(*ev[1:])
+                except Exception as e:  # every rank raised: the controller latches too
+                    self._spec_failed(e)
             elif op == "stats":
                 exchange(self.local_stats())
             elif op == "ping":
@@ -704,10 +720,22 @@ class GenerationEngine:
             else:
                 raise BackendError(f"unknown event on the bus: {op!r}")
 
+    @property
+    def kv_allocator(self) -> Optional[str]:
+        """The page allocator's class (paged mode, the controller), or None."""
+        return None if self.ptm is None else type(self.ptm._alloc).__name__
+
+    @staticmethod
+    def _native_version() -> Optional[str]:
+        from tpuserve_torch.bindings import native
+
+        return native.version()
+
     def local_stats(self) -> Dict:
         """This rank's counts: the kernels' launches (quant-matmul, the flat
         and paged decode-attention core) at the shard shapes, the plain-torch row
-        shards, the last decode steps' host clock, the profiled decode step
+        shards, its verify calls and the candidate rows they wrote into its
+        block, the last decode steps' host clock, the profiled decode step
         (profile_next_decode), its weight blocks' checksum and its memory."""
         from tpuserve_torch.ops import decode_attention, quant_matmul
         from tpuserve_torch.parallel import sharding
@@ -722,7 +750,12 @@ class GenerationEngine:
                 "decode_attention_paged_launches": decode_attention.paged_launches,
                 "plain_calls": quant_matmul.plain_calls + decode_attention.plain_calls,
                 "shard_launches": dict(sharding.shard_launches),
+                "shard_launch_rows": dict(sharding.shard_launch_rows),
                 "plain_row_shards": sharding.plain_fallbacks,
+                "kv_allocator": self.kv_allocator, "native_runtime": self._native_version(),
+                "verify_calls": self.verify_calls,
+                "verify_rows_written": sharding.verify_rows_written,
+                "spec_disabled": self._spec_disabled,
                 "step_host_ms_median": host[len(host) // 2] if host else None,
                 "decode_profile": self._decode_profile,
                 "param_bytes": self._param_bytes, "param_fingerprint": self._fingerprint,
@@ -1068,19 +1101,28 @@ class GenerationEngine:
         return {"host_ms": host_ms / horizon, "busy_ms": sum(r[1] for r in rows),
                 "device_ops": sum(r[2] for r in rows), "rows": rows}
 
-    def _dev_verify(self, toks, positions, lens, window: int):
-        """One paged verify of host-drafted candidates toks [S, C] and their
+    def _dev_verify(self, toks, positions, lens, window: int, table=None):
+        """One verify of host-drafted candidates toks [S, C] and their
         acceptance, fetched with one copy; returns host arrays (tokens
-        [S, C], logprobs [S, C], accepted [S])."""
+        [S, C], logprobs [S, C], accepted [S]). Paged mode: `table`, the
+        controller's page table [S, P]. A follower rank runs the same step
+        on its blocks and draws the acceptance's random numbers, so that its
+        sampler stays in step with the controller's; the controller's
+        acceptance is the one served."""
         dev = self.device
         toks_t = torch.from_numpy(toks).to(dev)
         pos_t = torch.from_numpy(np.asarray(positions, np.int32)).to(dev)
         lens_t = torch.from_numpy(lens).to(dev)
-        logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
-                                            self._table(self.ptm.table), pos_t, lens_t,
-                                            window=window)
+        if table is None:
+            logits, _ = llama.verify_step(self.params, self.p, toks_t, self.cache, pos_t, lens_t,
+                                          window=window)
+        else:
+            logits, _ = llama.verify_step_paged(self.params, self.p, toks_t, self.cache,
+                                                self._table(table), pos_t, lens_t, window=window)
         self.verify_calls += 1
         g, lp, acc = spec_accept(logits, toks_t, lens_t, self._sampling, self._generator)
+        if not self._mh_ctrl:
+            return None
         c = toks.shape[1]
         host = torch.cat([g.to(torch.float64), lp.to(torch.float64),
                           acc[:, None].to(torch.float64)], dim=1).cpu().numpy()
@@ -1295,10 +1337,11 @@ class GenerationEngine:
         """One speculative iteration; False when drafting is not worthwhile
         (the caller runs a plain decode step instead).
 
-        Contiguous mode: speculation_rounds rounds on the device with device
-        drafting (_dev_spec_rounds); paged mode: one host-drafted verify
-        (_spec_step_single)."""
-        if self.ptm is not None:
+        Contiguous mode on one rank: speculation_rounds rounds on the device
+        with device drafting (_dev_spec_rounds); paged mode and any mesh of
+        more than one rank, whatever speculation_rounds: one host-drafted
+        verify (_spec_step_single), as in the JAX engine."""
+        if self.ptm is not None or self.mesh is not None:
             return self._spec_step_single(active, positions, spec_k)
         gen = self.config.generation
         rounds = max(1, int(getattr(gen, "speculation_rounds", 1) or 1))
@@ -1353,7 +1396,9 @@ class GenerationEngine:
     def _spec_step_single(self, active, positions, spec_k: int) -> bool:
         """One host-drafted verify (paged mode: the page chains are grown to
         cover the drafts before the dispatch); False when no slot has a
-        draft."""
+        draft. Under a mesh the controller publishes the verify's inputs
+        before its own dispatch and the followers run the same step;
+        drafting, the acceptance and the commit stay here."""
         n = int(getattr(self.config.generation, "speculation_ngram", 3) or 3)
         c = spec_k + 1
         props: Dict[int, List[int]] = {}
@@ -1368,22 +1413,30 @@ class GenerationEngine:
             row = [self._slots[i].last_token] + props[i]
             toks[i, :len(row)] = row
             lens[i] = len(row)
-        # page chains must cover every candidate; a slot the pool cannot
-        # grow drops its drafts (one real token)
-        for i in active:
-            try:
-                self.ptm.ensure(i, self._slots[i].next_pos + int(lens[i]))
-            except Exception:
-                toks[i, 1:] = 0
-                lens[i] = 1
-                props[i] = []
-        if not any(props.values()):
-            return False
         last_pos = max(positions[i] for i in active) + c - 1
-        ps = self.ptm.page_size
-        window = min(-(-(last_pos + 1) // ps) * ps, self.max_seq_len)
+        table = None
+        if self.ptm is not None:
+            # page chains must cover every candidate; a slot the pool cannot
+            # grow drops its drafts (one real token)
+            for i in active:
+                try:
+                    self.ptm.ensure(i, self._slots[i].next_pos + int(lens[i]))
+                except Exception:
+                    toks[i, 1:] = 0
+                    lens[i] = 1
+                    props[i] = []
+            if not any(props.values()):
+                return False
+            ps = self.ptm.page_size
+            window = min(-(-(last_pos + 1) // ps) * ps, self.max_seq_len)
+            table = self.ptm.table.copy()
+        else:
+            window = self._window(last_pos)
+        if self.mesh is not None:
+            self.verify_log.append((np.array(positions, np.int64), lens.copy()))
         try:
-            g, lps, acc = self._dev_verify(toks, positions, lens, window)
+            self._publish(("verify", toks, positions, lens, window, table))
+            g, lps, acc = self._dev_verify(toks, positions, lens, window, table)
         except Exception as e:
             return self._spec_failed(e)
         self.steps += 1

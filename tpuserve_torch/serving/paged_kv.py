@@ -20,9 +20,11 @@ Device layout:
 
 Decode reads pages from the pool in place through the page table
 (ops/decode_attention.py::decode_attention_wide_paged). Page bookkeeping
-(free list, per-sequence chains, run-affine placement) is `_PyKvAllocator`,
-a verbatim port of the JAX package's pure-Python allocator, so page ids
-come out identical in the two packages.
+(free list, per-sequence chains, run-affine placement) is the native
+runtime's allocator where libtpuserve.so loads (bindings/native.py), else
+`_PyKvAllocator`, a verbatim port of the JAX package's pure-Python
+allocator; both place pages alike, so page ids come out identical in the
+two packages.
 """
 
 from __future__ import annotations
@@ -172,8 +174,17 @@ class _PyKvAllocator:
             return None if chain is None else list(chain)
 
 
-def make_allocator(num_pages: int, page_size: int) -> _PyKvAllocator:
-    """The page allocator (the native allocator's binding is not ported)."""
+def make_allocator(num_pages: int, page_size: int):
+    """The native runtime's allocator (bindings/native.py) where
+    libtpuserve.so loads, else `_PyKvAllocator`, which places pages the same
+    way; the JAX package chooses so too."""
+    try:
+        from tpuserve_torch.bindings import native
+
+        if native.available():
+            return native.NativeKvAllocator(num_pages, page_size)
+    except Exception:
+        pass
     return _PyKvAllocator(num_pages, page_size)
 
 
