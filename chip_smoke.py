@@ -172,6 +172,27 @@ Phases, each fatal on failure:
  13. moe_ab   the MoE decode FFN's dense loop against the dispatch
               (tpuserve_torch.scripts.ab_moe_decode) at Mixtral-8x7B's FFN,
               batch sizes 8 and 64, f32 h (the JAX script's) and bf16 h.
+Right after the kernel phase, kernel-grid: scripts/kernel_smoke_tpu.py's
+grid (tpuserve_torch.scripts.kernel_smoke): the flat, multi (C = 4),
+paged, wide and grouped entries x Hkv {1, 2, 4, 8, 32} x rep {1, 4} x hd
+{128, 256} over int8 (f32 and bf16 scales), bf16 and packed int4, plus
+rep 3, 7 and 8 at Hkv 8 over every cache: a PASS/FAIL line each, every
+one held to its plain version. Before the native phase: hd256, Gemma-7B's
+attention geometry (16 query and 16 kv heads of head_dim 256) on
+Llama-2-7B's other widths at 8 layers, and gqa8, Llama-2-70B's widths (64
+heads over 8 kv heads, d_model 8192, ffn 28672) at 4 layers: int4 g128
+weights, packed int4 KV, speculation 4 through InferenceManager (the flat
+and multi cores' launches exact, no plain call), full-width decode_step
+(also under TPUSERVE_DECODE_ATTN=grouped) and verify_step against the
+plain versions, then paged (hd256 an int8 pool, gqa8 packed int4 pages:
+16 rows a block) with the paged core's launches exact and a full-width
+decode_step_paged against the plain versions; each kernel at those head
+shapes timed beside its bound, plain version and SDPA; then scripts: the
+slice's spec_bench, spec_trace and verify_profile at short settings, and
+a 2-layer HF-named checkpoint at Llama-2-7B widths converted by
+convert_hf_llama, served and scored by eval_real_ppl --token-ids. The
+spec phase also samples at top_k=1 (the greedy tokens, gated as on/off)
+and at temperature 0.8 (completes), scripts/spec_tpu_check.py's checks.
 The kernel phase also holds the grouped kernel (packed int4, int8, bf16 at
 g_kv 1, 16 // rep and Hkv, and f32; the packed route beside the parent's
 unpack-then-int8 route),
@@ -296,7 +317,8 @@ def phase_build():
 
     info = kernels.build(force=True)
     log(f"[build] nvcc {kernels.ARCH}: {len(kernels.SOURCES)} sources in "
-        f"{info.seconds:.1f} s -> {info.path}")
+        f"{info.seconds:.1f} s -> {info.path}; each source's nvcc done at "
+        f"{info.source_seconds} s")
     for src, text in info.log.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line or "error" in line.lower():
@@ -951,9 +973,9 @@ def check_decode_attention(torch, timer, reps, p, tag="", full_step=False):
         # one V row over the row sum, so allow 2e-3 of the output range
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
-            fail(f"decode_attention {kind} S={ss} window={window}: max|err| {err} > {tol}")
+            fail(f"decode_attention{tag} {kind} S={ss} window={window}: max|err| {err} > {tol}")
         if not torch.all(out[pos < 0] == 0):
-            fail(f"decode_attention {kind}: inactive slots are not zero")
+            fail(f"decode_attention{tag} {kind}: inactive slots are not zero")
         worst = max(worst, err)
         ms = timer.ms(lambda i: call(decode_attention_wide_cache, i), reps)
         plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_plain, i),
@@ -982,7 +1004,8 @@ def check_decode_attention(torch, timer, reps, p, tag="", full_step=False):
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"],
                 per=f"one decode step: {n_l} launches, packed int4 KV, S=64, H={h}, Hkv={hkv}, "
-                    f"L=256" + (", every slot live at 100-249" if full_step else ""), cases=rows)
+                    f"hd={hd}, L=256" + (", every slot live at 100-249" if full_step else ""),
+                cases=rows)
 
 
 def step_positions(torch, g, s):
@@ -1027,10 +1050,11 @@ def sdpa_ms(torch, timer, reps, q, kw, vw, ks, vs, pos, kind):
     return ms
 
 
-def check_decode_attention_paged(torch, timer, reps, p):
+def check_decode_attention_paged(torch, timer, reps, p, tag="", main_kind="int8"):
     """The paged kernel at the paged slice's shapes (S=64, L=256 as two
     pages of 128, shuffled across the pool) against its plain version and
-    against the flat kernel on the same KV laid out contiguously."""
+    against the flat kernel on the same KV laid out contiguously; the
+    per-step line is the `main_kind` pool's case at random positions."""
     from tpuserve_torch.ops.decode_attention import (
         decode_attention_wide_cache, decode_attention_wide_paged,
         decode_attention_wide_paged_plain)
@@ -1098,15 +1122,15 @@ def check_decode_attention_paged(torch, timer, reps, p):
         # points; an ulp of exp() can tip one P code: 2e-3 of the range
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
-            fail(f"decode_attention_paged {kind}: max|err| {err} > {tol}")
+            fail(f"decode_attention_paged{tag} {kind}: max|err| {err} > {tol}")
         # the flat kernel with block_l = ps runs the same blocks in the same
         # order over the same bytes: equal up to f32 rounding (expected 0)
         flat_err = (out - out_flat).abs().max().item()
         flat_tol = 1e-6
         if not flat_err <= flat_tol:
-            fail(f"decode_attention_paged {kind}: differs from the flat kernel by {flat_err}")
+            fail(f"decode_attention_paged{tag} {kind}: differs from the flat kernel by {flat_err}")
         if not torch.all(out[pos < 0] == 0):
-            fail(f"decode_attention_paged {kind}: inactive slots are not zero")
+            fail(f"decode_attention_paged{tag} {kind}: inactive slots are not zero")
         worst = max(worst, err)
         ms = timer.ms(lambda i: call(decode_attention_wide_paged, i), reps)
         flat_ms = timer.ms(call_flat, reps)
@@ -1124,10 +1148,10 @@ def check_decode_attention_paged(torch, timer, reps, p):
                    max_abs_err=err, tol=tol, flat_err=flat_err, flat_tol=flat_tol, ms=ms,
                    flat_ms=flat_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        if kind == "int8" and not at_step:          # the paged slice's KV
+        if kind == main_kind and not at_step:       # the served pool
             main = row
         rows.append(row)
-        log(f"[kernel] decode_attention_paged {kind} S={s} H={h} Hkv={hkv} ps={ps} L={l}"
+        log(f"[kernel] decode_attention_paged{tag} {kind} S={s} H={h} Hkv={hkv} ps={ps} L={l}"
             f"{' step positions' if at_step else ''}: "
             f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel {flat_err:.3g} (tol "
             f"{flat_tol}); {ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms, bound "
@@ -1139,27 +1163,29 @@ def check_decode_attention_paged(torch, timer, reps, p):
     return dict(max_abs_err=worst, ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
-                per="one decode step: 32 launches, int8 pool, S=64, ps=128, L=256",
-                cases=rows)
+                per=f"one decode step: {n_l} launches, "
+                    f"{'packed int4' if main_kind == 'int4' else main_kind} pool, S=64, H={h}, "
+                    f"Hkv={hkv}, hd={hd}, ps=128, L=256", cases=rows)
 
 
-def check_decode_attention_multi(torch, timer, reps, p):
+def check_decode_attention_multi(torch, timer, reps, p, tag="", c=9, main_kind="int8"):
     """The multi-candidate (speculative verify) kernel at the [spec] phase's
-    shapes (S=8 slots, C=9 candidates, L=512, Llama-2-7B heads, positions
+    shapes (S=8 slots, C=`c` candidates, L=512, p's heads, positions
     100-400; int8 and packed int4 caches with the bf16 scales the engine
     serves (kv_scale_dtype's default) and again with f32 scales, bf16 and
     f32 caches, each beside SDPA) against its plain version, and each
     candidate c against the flat kernel at positions + c on the same KV.
     The int8 case with bf16 scales is the [spec] phase's route, the bf16
     cache the [spec-bf16] phase's (the float multi entry of the kernels
-    line)."""
+    line). The per-step line is the `main_kind` cache's with bf16 scales at
+    `c` candidates."""
     from tpuserve_torch.ops.decode_attention import (
-        decode_attention_wide_cache, decode_attention_wide_cache_multi,
+        core_rows, decode_attention_wide_cache, decode_attention_wide_cache_multi,
         decode_attention_wide_cache_multi_plain)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
-    s, c, h, hkv, hd, l = 8, 9, p.n_heads, p.n_kv_heads, p.head_dim, 512
+    s, h, hkv, hd, l = 8, p.n_heads, p.n_kv_heads, p.head_dim, 512
     w = hkv * hd
     pos = torch.randint(100, 401, (s,), generator=g, device="cuda", dtype=torch.int32)
     pos_c = [pos + j for j in range(c)]
@@ -1174,7 +1200,11 @@ def check_decode_attention_multi(torch, timer, reps, p):
         sc_elem = 0 if flt else sdt.itemsize
         kv_live = 2 * live * w * elem + 2 * live * hkv * sc_elem
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / kv_live))
-        shape = (n_layers, s, l, w // 2 if kind == "int4" else w)
+        # one junk block past the window keeps the flat side on its
+        # L-blocked form at any width (a window that is the whole cache
+        # takes the TPU's one-block form where win * W * 2 < 1 MiB, with
+        # other P requant points), as the multi kernel always is
+        shape = (n_layers, s, l + 128, w // 2 if kind == "int4" else w)
         if kind == "int4":
             kv = [torch.randint(0, 256, shape, generator=g, device="cuda",
                                 dtype=torch.int32).to(torch.uint8) for _ in range(2)]
@@ -1186,7 +1216,7 @@ def check_decode_attention_multi(torch, timer, reps, p):
                 torch.bfloat16 if kind == "bf16" else torch.float32) for _ in range(2)]
         sc = None
         if not flt:
-            sc = [((torch.rand((n_layers, s, hkv, l), generator=g, device="cuda") + 0.5)
+            sc = [((torch.rand((n_layers, s, hkv, l + 128), generator=g, device="cuda") + 0.5)
                    * 0.01).to(sdt) for _ in range(2)]
         q = (torch.randn((s, c, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         q_c = [q[:, j].contiguous() for j in range(c)]
@@ -1213,14 +1243,14 @@ def check_decode_attention_multi(torch, timer, reps, p):
         # points; an ulp of exp() can tip one P code: 2e-3 of the range
         tol = 2e-3 * ref.abs().max().item() + 1e-6
         if not err <= tol:
-            fail(f"decode_attention_multi {name}: max|err| {err} > {tol}")
+            fail(f"decode_attention_multi{tag} {name}: max|err| {err} > {tol}")
         # every cache: candidate j runs the flat kernel's blocks (the same
         # core) over the same bytes with the same arithmetic, and blocks past
         # its horizon add nothing: equal up to f32 rounding (expected 0)
         flat_err = (out - out_flat).abs().max().item()
         flat_tol = 1e-6 * out_flat.abs().max().item() + 1e-7
         if not flat_err <= flat_tol:
-            fail(f"decode_attention_multi {name}: differs from the flat kernel at "
+            fail(f"decode_attention_multi{tag} {name}: differs from the flat kernel at "
                  f"positions + c by {flat_err} > {flat_tol}")
         # an inactive slot (positions -1): candidate 0 exactly 0
         pos_off = pos.clone()
@@ -1228,7 +1258,7 @@ def check_decode_attention_multi(torch, timer, reps, p):
         out_off = decode_attention_wide_cache_multi(q, kv[0], kv[1], *scales(1), pos_off, 1,
                                                     window=l)
         if not torch.all(out_off[1, 0] == 0):
-            fail(f"decode_attention_multi {name}: an inactive slot's candidate 0 is not zero")
+            fail(f"decode_attention_multi{tag} {name}: an inactive slot's candidate 0 is not zero")
         ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi, i), reps)
         flat_ms = timer.ms(call_flat, reps)
         plain_ms = timer.ms(lambda i: call(decode_attention_wide_cache_multi_plain, i),
@@ -1236,18 +1266,19 @@ def check_decode_attention_multi(torch, timer, reps, p):
         nbytes = kv_live + q.numel() * 2 + q.numel() * 4 + s * 4
         ops = 2 * 2 * cand_rows * h * hd
         b_ms, b_by = bound(nbytes, ops, PEAK_OPS[kind if flt else "int8"])
-        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0], kv[1][0], *scales(0), pos, kind)
+        lib_ms = sdpa_ms(torch, timer, reps, q, kv[0][0, :, :l], kv[1][0, :, :l],
+                         *(None if t is None else t[:, :, :l] for t in scales(0)), pos, kind)
         row = dict(kind=kind, scales=None if flt else str(sdt)[6:], S=s, C=c, H=h, Hkv=hkv,
                    L=l, live_rows=live, candidate_rows=cand_rows, layers_rotated=n_layers,
                    max_abs_err=err, tol=tol, flat_err=flat_err, flat_tol=flat_tol, ms=ms,
                    flat_ms=flat_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by)
-        if kind == "int8" and sdt == torch.bfloat16:   # the [spec] phase's KV
+        if kind == main_kind and sdt == torch.bfloat16:   # the served KV
             main = row
         if kind == "bf16":                      # the [spec-bf16] phase's KV
             main_f = row
         rows.append(row)
-        log(f"[kernel] decode_attention_multi {name} S={s} C={c} H={h} Hkv={hkv} L={l}: "
+        log(f"[kernel] decode_attention_multi{tag} {name} S={s} C={c} H={h} Hkv={hkv} L={l}: "
             f"max|err| {err:.3g} (tol {tol:.3g}), vs flat kernel at pos + c {flat_err:.3g} "
             f"(tol {flat_tol:.3g}); {ms:.4f} ms, {c} flat-kernel calls {flat_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}, {live} live rows), plain {plain_ms:.4f} ms, SDPA bf16 with "
@@ -1263,11 +1294,12 @@ def check_decode_attention_multi(torch, timer, reps, p):
     for kind in ("int4", "int8"):
         elem = {"int4": 0.5, "int8": 1}[kind]
         n_layers = max(2, math.ceil(L2_FLUSH_BYTES / (2 * live1 * w * elem)))
+        # a junk block past the window, as above
         kv = [torch.randint(*((0, 256) if kind == "int4" else (-127, 128)),
-                            (n_layers, s1, l1, w // 2 if kind == "int4" else w), generator=g,
+                            (n_layers, s1, l1 + 128, w // 2 if kind == "int4" else w), generator=g,
                             device="cuda", dtype=torch.int32).to(
                                 torch.uint8 if kind == "int4" else torch.int8) for _ in range(2)]
-        sc = [((torch.rand((n_layers, s1, hkv, l1), generator=g, device="cuda") + 0.5)
+        sc = [((torch.rand((n_layers, s1, hkv, l1 + 128), generator=g, device="cuda") + 0.5)
                * 0.01).to(torch.bfloat16) for _ in range(2)]
         q1 = (torch.randn((s1, 1, h, hd), generator=g, device="cuda") / hd ** 0.5).to(
             torch.bfloat16)
@@ -1276,20 +1308,21 @@ def check_decode_attention_multi(torch, timer, reps, p):
         def one(i):
             li = i % n_layers
             return decode_attention_wide_cache_multi(q1, kv[0], kv[1], sc[0][li], sc[1][li],
-                                                     pos1, li)
+                                                     pos1, li, window=l1)
 
         def flat1(i):
             li = i % n_layers
             return decode_attention_wide_cache(q1_flat, kv[0], kv[1], sc[0][li], sc[1][li],
-                                               pos1, li)
+                                               pos1, li, window=l1)
 
         c1_err = (one(1)[:, 0] - flat1(1)).abs().max().item()
         if not c1_err <= 1e-6:   # the same blocks in the same order: expected 0
-            fail(f"decode_attention_multi C=1 {kind}: differs from the flat kernel by {c1_err}")
+            fail(f"decode_attention_multi{tag} C=1 {kind}: differs from the flat kernel by "
+                 f"{c1_err}")
         c1_rows.append(dict(kind=kind, S=s1, C=1, L=l1, step_positions=True, flat_err=c1_err,
                             ms=timer.ms(one, reps), flat_ms=timer.ms(flat1, reps)))
-        log(f"[kernel] decode_attention_multi C=1 {kind} S={s1} L={l1} step positions: vs flat "
-            f"kernel {c1_err:.3g}; {c1_rows[-1]['ms']:.4f} ms, flat kernel "
+        log(f"[kernel] decode_attention_multi{tag} C=1 {kind} S={s1} L={l1} step positions: vs "
+            f"flat kernel {c1_err:.3g}; {c1_rows[-1]['ms']:.4f} ms, flat kernel "
             f"{c1_rows[-1]['flat_ms']:.4f} ms; {n_layers} layers rotated")
         del kv, sc, q1, q1_flat
         torch.cuda.empty_cache()
@@ -1298,7 +1331,10 @@ def check_decode_attention_multi(torch, timer, reps, p):
                 ms=n_l * main["ms"], plain_ms=n_l * main["plain_ms"],
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
-                per="one verify step: 32 launches, int8 KV with bf16 scales, S=8, C=9, L=512",
+                per=f"one verify step: {n_l} launches, "
+                    f"{'packed int4' if main_kind == 'int4' else main_kind} KV with bf16 scales, "
+                    f"S=8, C={c}, H={h}, Hkv={hkv}, hd={hd}, L=512, "
+                    f"{core_rows(c, h // hkv * (2 if main_kind == 'int4' else 1))[0]} row groups",
                 cases=rows + c1_rows,
                 float=dict(max_abs_err=max(r["max_abs_err"] for r in rows
                                            if r["kind"] in ("bf16", "f32")),
@@ -1306,11 +1342,11 @@ def check_decode_attention_multi(torch, timer, reps, p):
                            bound_ms=n_l * main_f["bound_ms"], bound_by=main_f["bound_by"],
                            library_ms=n_l * main_f["library_ms"],
                            flat_ms=n_l * main_f["flat_ms"],
-                           per="one verify step: 32 launches, bf16 KV (kv_cache none), S=8, "
-                               "C=9, L=512"))
+                           per=f"one verify step: {n_l} launches, bf16 KV (kv_cache none), "
+                               f"S=8, C={c}, H={h}, Hkv={hkv}, hd={hd}, L=512"))
 
 
-def check_decode_attention_grouped(torch, timer, reps, p):
+def check_decode_attention_grouped(torch, timer, reps, p, tag=""):
     """The grouped kernel at the [grouped] phase's shapes (S=64, L=256,
     Llama-2-7B heads, step positions) and at a rep-4 shape (H=32, Hkv=8):
     the packed int4 route (the [grouped] path: the Hopper kernel reads the
@@ -1332,9 +1368,10 @@ def check_decode_attention_grouped(torch, timer, reps, p):
     live = int((pos.clamp(min=-1) + 1).sum().item())        # KV rows the data needs
     rows, main, main_f = [], None, None
     h, hk, bf, f32 = p.n_heads, p.n_kv_heads, torch.bfloat16, torch.float32
-    for kind, h, hkv, sdt in (("int4", h, hk, bf), ("int4", h, hk, f32), ("int8", h, hk, bf),
-                              ("int8", h, hk, f32), ("bf16", h, hk, None), ("f32", h, hk, None),
-                              ("int4", h, 8, bf), ("int8", h, 8, bf), ("bf16", h, 8, None)):
+    for kind, h, hkv, sdt in dict.fromkeys((
+            ("int4", h, hk, bf), ("int4", h, hk, f32), ("int8", h, hk, bf), ("int8", h, hk, f32),
+            ("bf16", h, hk, None), ("f32", h, hk, None),
+            ("int4", h, 8, bf), ("int8", h, 8, bf), ("bf16", h, 8, None))):
         w = hkv * hd
         flt = kind in ("bf16", "f32")
         elem = {"int4": 0.5, "int8": 1, "bf16": 2, "f32": 4}[kind]
@@ -1359,7 +1396,7 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                    * 0.01).to(sdt) for _ in range(2)]
         q = (torch.randn((s, h, hd), generator=g, device="cuda") / hd ** 0.5).to(torch.bfloat16)
         g_kvs = {"bf16": (None, 16 // (h // hkv), hkv), "f32": (None,)}.get(kind, (None, hkv))
-        for g_kv in g_kvs:
+        for g_kv in dict.fromkeys(g_kvs):
             def call(fn, i, g_kv=g_kv):
                 li = i % n_layers
                 if kind == "int4":     # the packed window and head-major scales, in place
@@ -1392,10 +1429,10 @@ def check_decode_attention_grouped(torch, timer, reps, p):
             # it): 1e-3 of the output range
             tol = 1e-3 * ref.abs().max().item() + 1e-7
             if not err <= tol:
-                fail(f"decode_attention_grouped {name} H={h} Hkv={hkv} g_kv={g_kv}: "
+                fail(f"decode_attention_grouped{tag} {name} H={h} Hkv={hkv} g_kv={g_kv}: "
                      f"max|err| {err} > {tol}")
             if not torch.all(out[pos < 0] == 0):
-                fail("decode_attention_grouped: inactive slots are not zero")
+                fail(f"decode_attention_grouped{tag}: inactive slots are not zero")
             ms = timer.ms(lambda i: call(kern, i), reps)
             flat_ms = timer.ms(flat, reps)
             unpack_ms = timer.ms(unpacked, reps) if kind == "int4" and g_kv is None else None
@@ -1419,7 +1456,7 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                     main_f = row
             rows.append(row)
             extra = "" if unpack_ms is None else f", unpack + int8 kernel {unpack_ms:.4f} ms"
-            log(f"[kernel] decode_attention_grouped {name} S={s} H={h} Hkv={hkv} L={l} "
+            log(f"[kernel] decode_attention_grouped{tag} {name} S={s} H={h} Hkv={hkv} L={l} "
                 f"g_kv={g_kv or 1} step positions: max|err| {err:.3g} (tol {tol:.3g}); "
                 f"{ms:.4f} ms, flat kernel on the same KV {flat_ms:.4f} ms{extra}, bound "
                 f"{b_ms:.4f} ms ({b_by}), plain {plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms; "
@@ -1433,14 +1470,16 @@ def check_decode_attention_grouped(torch, timer, reps, p):
                 bound_ms=n_l * main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=n_l * main["library_ms"], flat_ms=n_l * main["flat_ms"],
                 unpack_then_int8_ms=n_l * main["unpack_then_int8_ms"],
-                per="one decode step: 32 launches, packed int4 window read in place, bf16 "
-                    "scales, S=64, L=256, TPUSERVE_ATTN_DYNSKIP=0", cases=rows,
+                per=f"one decode step: {n_l} launches, packed int4 window read in place, bf16 "
+                    f"scales, S=64, H={p.n_heads}, Hkv={p.n_kv_heads}, hd={hd}, L=256, "
+                    "TPUSERVE_ATTN_DYNSKIP=0", cases=rows,
                 float=dict(max_abs_err=worst(("bf16", "f32")), ms=n_l * main_f["ms"],
                            plain_ms=n_l * main_f["plain_ms"], bound_ms=n_l * main_f["bound_ms"],
                            bound_by=main_f["bound_by"], library_ms=n_l * main_f["library_ms"],
                            flat_ms=n_l * main_f["flat_ms"],
-                           per="one decode step: 32 launches, bf16 window (kv_cache none), S=64, "
-                               "L=256, g_kv 1, TPUSERVE_ATTN_DYNSKIP=0"))
+                           per=f"one decode step: {n_l} launches, bf16 window (kv_cache none), "
+                               f"S=64, H={p.n_heads}, Hkv={p.n_kv_heads}, hd={hd}, L=256, g_kv 1, "
+                               "TPUSERVE_ATTN_DYNSKIP=0"))
 
 
 def check_dynskip(torch, timer, reps, p):
@@ -5443,16 +5482,17 @@ def _periodic_prompt(vocab_size):
     return (period * 10)[:96]
 
 
-def _serve_wave(backend, prompts, new, tag):
-    """One concurrent greedy request per prompt, a thread each; fatal unless
-    every one returns `new` tokens. Returns (token lists, wall seconds)."""
+def _serve_wave(backend, prompts, new, tag, **sampling):
+    """One concurrent request per prompt (greedy unless `sampling` says
+    otherwise), a thread each; fatal unless every one returns `new` tokens.
+    Returns (token lists, wall seconds)."""
     import torch
 
     results, errors = [None] * len(prompts), []
 
     def run(i):
         try:
-            results[i] = backend.generate(prompts[i], max_new_tokens=new)
+            results[i] = backend.generate(prompts[i], max_new_tokens=new, **sampling)
         except Exception as e:  # recorded, then fatal below
             errors.append(f"request {i}: {e}")
 
@@ -5584,6 +5624,17 @@ def phase_spec(torch, p, smi_line, tag="spec", kv_cache="int8"):
     log(f"[{tag}] speculation off, same engine and traffic: {off_wall:.2f} s, {off_tok_s:.1f} "
         f"tok/s (on/off {on_tok_s / off_tok_s:.3f}); first differing token per request, on vs "
         f"off (None = equal): {diffs}; card {smi_line}")
+    # scripts/spec_tpu_check.py's other two checks, speculation on: sampling
+    # at top_k=1 is a point mass, so the rejection-sampled path emits the
+    # greedy tokens; free sampling completes
+    topk1_tokens, _ = _serve_wave(backend, prompts, new, f"{tag}-top_k1", temperature=0.9,
+                                  top_k=1, seed=7)
+    topk1_diffs = [_first_diff(a, b) for a, b in zip(topk1_tokens, on_tokens)]
+    free_tokens, _ = _serve_wave(backend, prompts, new, f"{tag}-sampled", temperature=0.8,
+                                 seed=3)
+    log(f"[{tag}] speculation on, temperature 0.9 with top_k=1: first token differing from "
+        f"greedy per request (None = equal): {topk1_diffs}; free sampling at temperature 0.8: "
+        f"{len(free_tokens)} requests of {new} tokens completed")
 
     # one full-width verify_step: 8 slots x 9 candidates at positions 100-400
     # (one slot with 3 drafts, one inactive), kernels vs plain versions, and
@@ -5649,6 +5700,8 @@ def phase_spec(torch, p, smi_line, tag="spec", kv_cache="int8"):
         fail(f"[{tag}] full-width verify_step disagrees with its plain path or sequential decode")
     served_gaps = _gate_served(torch, engine, p, prompts, on_tokens, off_tokens, 2 * seq_err, tag,
                                "speculation on and off")
+    topk1_gaps = _gate_served(torch, engine, p, prompts, on_tokens, topk1_tokens, 2 * seq_err,
+                              tag, "greedy and top_k=1 sampling")
 
     verify_ms, verify_times = _host_ms(torch, verify)
     decode_ms, decode_times = _host_ms(torch, lambda i: llama.decode_step(
@@ -5674,6 +5727,7 @@ def phase_spec(torch, p, smi_line, tag="spec", kv_cache="int8"):
                 prefill_calls=prefills, drafted=drafted, accepted=accepted,
                 acceptance=acceptance, on_wall_s=on_wall, on_tok_s=on_tok_s, off_wall_s=off_wall,
                 off_tok_s=off_tok_s, first_diff=diffs, served_gaps=served_gaps,
+                topk1_first_diff=topk1_diffs, topk1_gaps=topk1_gaps,
                 on_tokens=on_tokens, off_tokens=off_tokens,
                 full_verify_err=err, full_verify_seq_err=seq_err, full_verify_tol=tol,
                 argmax_agreement=agree, seq_argmax_agreement=seq_agree, verify_ms=verify_ms,
@@ -6148,6 +6202,366 @@ def phase_moe_ab(torch):
     return records
 
 
+# ------------------------------------------------ head shapes (head_dim 256, GQA rep 8)
+def phase_kernel_grid(torch):
+    """[kernel-grid]: scripts/kernel_smoke_tpu.py's grid on the card
+    (tpuserve_torch/scripts/kernel_smoke.py): the flat, multi (C = 4),
+    paged, wide and grouped entries x Hkv {1, 2, 4, 8, 32} x rep {1, 4} x
+    hd {128, 256} over int8 (f32 and bf16 scales), bf16 and packed int4,
+    and rep 3, 7 and 8 at Hkv 8 over every cache, each one launch held to
+    its plain version at the [kernel] checks' tolerance. A PASS/FAIL line a
+    combination; any FAIL fails the run."""
+    from tpuserve_torch.scripts import kernel_smoke
+
+    rows, failures = kernel_smoke.run_grid(log=lambda m: log(f"[kernel-grid] {m}"))
+    log(f"[kernel-grid] {len(rows) - len(failures)} combos passed, {len(failures)} failed")
+    if failures:
+        fail(f"[kernel-grid] {len(failures)} combinations failed: {failures[:20]}")
+    return dict(combos=len(rows), failures=failures,
+                worst=max(r["max_abs_err"] / r["tol"] for r in rows))
+
+
+def _head_shape_params(tag):
+    """[hd256]: Gemma-7B's attention geometry (16 query and 16 kv heads of
+    head_dim 256, its published config.json) on Llama-2-7B's other widths,
+    8 layers; [gqa8]: Llama-2-70B's widths (d_model 8192, 64 heads over 8
+    kv heads, ffn 28672), 4 layers."""
+    from tpuserve_torch.models.llama import LlamaParams
+
+    base = LlamaParams.llama2_7b()
+    if tag == "hd256":
+        return dataclasses.replace(base, n_layers=8, n_heads=16, n_kv_heads=16, head_dim=256)
+    return dataclasses.replace(base, dim=8192, n_layers=4, n_heads=64, n_kv_heads=8,
+                               head_dim=128, ffn_dim=28672)
+
+
+def phase_head_shape(torch, timer, reps, smi_line, tag, paged_kv):
+    """A head shape the earlier phases do not serve, end to end on the
+    card ([hd256], [gqa8]; `_head_shape_params`): int4 g128 weights drawn on
+    the card from a seed, packed int4 KV, served through
+    InferenceManager(device="cuda") with speculation_tokens 4 (the flat
+    core in the decode steps, the multi core in the verifies: 8 concurrent
+    greedy requests of the periodic prompt, launches exact, no plain call);
+    a full-width decode_step (also under TPUSERVE_DECODE_ATTN=grouped: the
+    grouped kernel) and verify_step against the plain versions (5% of the
+    logit range, as [slice] and [spec]); the same model without speculation
+    served under TPUSERVE_DECODE_ATTN=grouped (the grouped kernel's launches
+    exact, no plain call); then the paged setting over a `paged_kv` pool: 8
+    requests, the paged core's launches exact, no plain call, a full-width
+    decode_step_paged against the plain versions. Then each kernel at this
+    head shape through the [kernel] checks (packed int4 KV, a verify's C=5
+    candidates, the `paged_kv` pool)."""
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models import llama
+    from tpuserve_torch.ops import decode_attention, quant_matmul
+
+    p = _head_shape_params(tag)
+    res = {"params": dataclasses.asdict(p)}
+    cfg = _model_config(p)
+    cfg["name"] = name = f"{tag}_spec"
+    cfg["generation"] = {"max_seq_len": 512, "max_slots": 8, "eos_token_id": -1,
+                         "max_new_tokens": 64, "decode_horizon": 4, "speculation_tokens": 4,
+                         "speculation_rounds": 4, "speculation_min_gain": 0}
+    mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+    t0 = time.monotonic()
+    mgr.load_model(name)
+    res["load_s"] = time.monotonic() - t0
+    backend = mgr.get_model(name).backend
+    engine = backend.engine
+    n_slots, new = engine.n_slots, 32
+    prompts = [_periodic_prompt(p.vocab_size)] * n_slots
+    backend.generate(prompts[0], max_new_tokens=8)      # warm-up, outside the counted run
+    for mod in (quant_matmul, decode_attention):
+        mod.launches = 0
+    decode_attention.multi_launches = decode_attention.paged_launches = 0
+    base = (engine.steps, engine.prefill_calls, engine.verify_calls, engine.spec_drafted)
+    with plain_calls() as plain:
+        _, wall = _serve_wave(backend, prompts, new, tag)
+    steps, prefills, verifies, drafted = (a - b for a, b in zip(
+        (engine.steps, engine.prefill_calls, engine.verify_calls, engine.spec_drafted), base))
+    launches = {"quant_matmul": quant_matmul.launches,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_multi": decode_attention.multi_launches}
+    want = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+            "decode_attention": p.n_layers * (steps - verifies),
+            "decode_attention_multi": p.n_layers * verifies}
+    log(f"[{tag}] {n_slots} concurrent greedy requests, {new} tokens each, speculation 4: "
+        f"{wall:.2f} s ({n_slots * new / wall:.1f} tok/s); decode steps {steps - verifies}, "
+        f"verifies {verifies}, prefills {prefills}, drafted {drafted}; launches {launches} "
+        f"(expected {want}); plain calls {plain or 'none'}; load {res['load_s']:.1f} s")
+    if plain or launches != want or verifies < 1 or steps - verifies < 1:
+        fail(f"[{tag}] the served run's launches or plain calls are off")
+    res.update(contiguous_launches=launches, contiguous_want=want, wall_s=wall,
+               decode_steps=steps - verifies, verifies=verifies, drafted=drafted)
+
+    # full-width decode_step (pallas and grouped) and verify_step vs plain
+    cache = engine.cache
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(6)
+    c = 5
+    toks = torch.randint(0, p.vocab_size, (n_slots, c), generator=g, device=DEVICE)
+    pos = torch.randint(100, 401, (n_slots,), generator=g, device=DEVICE, dtype=torch.int32)
+    lens = torch.full((n_slots,), c, dtype=torch.int32, device=DEVICE)
+    lens[3] = 3
+    pos[5], lens[5] = -1, 0
+    tensors = cache_tensors(cache)
+    snapshot = [t.clone() for t in tensors]
+
+    def restore():
+        for dst, src in zip(tensors, snapshot):
+            dst.copy_(src)
+
+    def against_plain(what, step, mask=None):
+        logits_k = step().float()
+        restore()
+        with plain_kernels(llama):
+            logits_p = step().float()
+        restore()
+        torch.cuda.synchronize()
+        sel = (lambda t: t[mask]) if mask is not None else (lambda t: t)
+        ref_max = sel(logits_p).abs().max().item()
+        err = sel(logits_k - logits_p).abs().max().item()
+        agree = sel((logits_k.argmax(-1) == logits_p.argmax(-1)).float()).mean().item()
+        finite = bool(torch.isfinite(logits_k).all())
+        tol = 0.05 * ref_max
+        log(f"[{tag}] full-width {what}, kernels vs plain: max|err| {err:.4g} of {ref_max:.4g} "
+            f"(tol {tol:.4g}); argmax agreement {agree:.4f}; finite {finite}")
+        if not finite or not err <= tol:
+            fail(f"[{tag}] full-width {what}: kernel path and plain path disagree")
+        return dict(err=err, tol=tol, argmax_agreement=agree)
+
+    before = (decode_attention.launches, decode_attention.grouped_launches)
+    res["decode_step"] = against_plain("decode_step", lambda: llama.decode_step(
+        engine.params, p, toks[:, 0], cache, pos)[0])
+    with env_set("TPUSERVE_DECODE_ATTN", "grouped"):
+        res["decode_step_grouped"] = against_plain(
+            "decode_step under TPUSERVE_DECODE_ATTN=grouped",
+            lambda: llama.decode_step(engine.params, p, toks[:, 0], cache, pos)[0])
+    valid = torch.arange(c, device=DEVICE)[None, :] < lens[:, None]
+    res["verify_step"] = against_plain("verify_step", lambda: llama.verify_step(
+        engine.params, p, toks, cache, pos, lens)[0], valid)
+    if (decode_attention.launches - before[0], decode_attention.grouped_launches - before[1]) \
+            != (p.n_layers, p.n_layers):
+        fail(f"[{tag}] the full-width steps' flat and grouped launches are off")
+    del snapshot
+    mgr.shutdown()
+
+    # the grouped kernel served: the same model without speculation under
+    # TPUSERVE_DECODE_ATTN=grouped, every decode step's attention on it
+    cfg = _model_config(p)
+    cfg["name"] = name = f"{tag}_grouped"
+    cfg["generation"] = {"max_seq_len": 512, "max_slots": 8, "eos_token_id": -1,
+                         "max_new_tokens": 64, "decode_horizon": 4}
+    with attn_mode("grouped"):
+        mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        mgr.load_model(name)
+        backend = mgr.get_model(name).backend
+        engine = backend.engine
+        backend.generate(prompts[0], max_new_tokens=4)   # warm-up, outside the counted run
+        for mod in (quant_matmul, decode_attention):
+            mod.launches = 0
+        decode_attention.grouped_launches = 0
+        base = (engine.steps, engine.prefill_calls)
+        with plain_calls() as plain:
+            _, gwall = _serve_wave(backend, prompts, new, f"{tag}-grouped")
+        steps, prefills = engine.steps - base[0], engine.prefill_calls - base[1]
+        glaunches = {"quant_matmul": quant_matmul.launches,
+                     "decode_attention": decode_attention.launches,
+                     "decode_attention_grouped": decode_attention.grouped_launches}
+        gwant = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+                 "decode_attention": 0, "decode_attention_grouped": p.n_layers * steps}
+        log(f"[{tag}] TPUSERVE_DECODE_ATTN=grouped: {n_slots} concurrent greedy requests, {new} "
+            f"tokens each: {gwall:.2f} s; decode steps {steps}, prefills {prefills}; launches "
+            f"{glaunches} (expected {gwant}); plain calls {plain or 'none'}")
+        if plain or glaunches != gwant or steps < 1:
+            fail(f"[{tag}] the grouped run's launches or plain calls are off")
+        mgr.shutdown()
+    res.update(grouped_launches=glaunches, grouped_want=gwant, grouped_wall_s=gwall)
+
+    # the paged setting over a `paged_kv` pool
+    cfg = _model_config(p)
+    cfg["name"] = name = f"{tag}_paged"
+    cfg["quantization"]["kv_cache"] = paged_kv
+    cfg["generation"] = {"max_seq_len": 256, "max_slots": 8, "eos_token_id": -1,
+                         "max_new_tokens": 32, "decode_horizon": 8, "paged": True,
+                         "page_size": 128, "num_pages": 0, "prefill_chunk": 128}
+    mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+    mgr.load_model(name)
+    backend = mgr.get_model(name).backend
+    engine = backend.engine
+    rng = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(0, p.vocab_size, (n,), generator=rng).tolist()
+               for n in (6, 40, 100, 150, 9, 77, 130, 20)]
+    backend.generate(prompts[0], max_new_tokens=4)
+    for mod in (quant_matmul, decode_attention):
+        mod.launches = 0
+    decode_attention.paged_launches = 0
+    base = (engine.steps, engine.prefill_calls)
+    with plain_calls() as plain:
+        _, pwall = _serve_wave(backend, prompts, new, f"{tag}-paged")
+    steps, prefills = engine.steps - base[0], engine.prefill_calls - base[1]
+    plaunches = {"quant_matmul": quant_matmul.launches,
+                 "decode_attention_paged": decode_attention.paged_launches}
+    pwant = {"quant_matmul": (4 * p.n_layers + 1) * (steps + prefills),
+             "decode_attention_paged": p.n_layers * steps}
+    log(f"[{tag}] paged ({paged_kv} pool, pages of 128): {len(prompts)} requests of {new} tokens "
+        f"in {pwall:.2f} s; decode steps {steps}, prefills {prefills}; launches {plaunches} "
+        f"(expected {pwant}); plain calls {plain or 'none'}")
+    if plain or plaunches != pwant or steps < 1:
+        fail(f"[{tag}] the paged run's launches or plain calls are off")
+    res.update(paged_launches=plaunches, paged_want=pwant, paged_wall_s=pwall)
+    cache, ptm = engine.cache, engine.ptm
+    g.manual_seed(7)
+    for t in (cache.k, cache.v):
+        if t.dtype == torch.uint8:
+            t.random_(0, 256, generator=g)
+        else:
+            t.random_(-127, 128, generator=g)
+    for t in (cache.k_scale, cache.v_scale):
+        t.uniform_(0.005, 0.015, generator=g)
+    n_cols = -(-engine.max_seq_len // ptm.page_size)
+    table = (1 + torch.randperm(cache.n_pages - 1, generator=g, device=DEVICE))
+    table = table[:n_slots * n_cols].view(n_slots, n_cols).to(torch.int32)
+    ptoks = torch.randint(0, p.vocab_size, (n_slots,), generator=g, device=DEVICE)
+    ppos = torch.randint(100, 250, (n_slots,), generator=g, device=DEVICE, dtype=torch.int32)
+    ppos[2] = -1
+    tensors = [cache.k, cache.v, cache.k_scale, cache.v_scale]
+    snapshot = [t.clone() for t in tensors]
+    res["decode_step_paged"] = against_plain("decode_step_paged", lambda: llama.decode_step_paged(
+        engine.params, p, ptoks, cache, table, ppos)[0])
+    del snapshot
+    mgr.shutdown()
+    torch.cuda.empty_cache()
+    suffix = {"hd256": "_hd256", "gqa8": "_rep8"}[tag]
+    res["kernels"] = {
+        "flat": check_decode_attention(torch, timer, reps, p, tag=suffix, full_step=True),
+        "multi": check_decode_attention_multi(torch, timer, reps, p, tag=suffix, c=5,
+                                              main_kind="int4"),
+        "paged": check_decode_attention_paged(torch, timer, reps, p, tag=suffix,
+                                              main_kind=paged_kv),
+        "grouped": check_decode_attention_grouped(torch, timer, reps, p, tag=suffix)}
+    log(f"[{tag}] card {smi_line}")
+    return res
+
+
+# ------------------------------------------------ the scripts of the slice
+def _hf_checkpoint(torch, root, p, n_layers):
+    """An HF-named Llama checkpoint at p's widths cut to `n_layers` (bf16
+    weights drawn on the card from a seed, std 0.02), with config.json."""
+    from tpuserve_torch.utils.checkpoint import write_safetensors
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(31)
+    qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=DEVICE) * 0.02).to(torch.bfloat16).cpu()
+
+    w = {"model.embed_tokens.weight": rnd(p.vocab_size, p.dim),
+         "model.norm.weight": torch.ones(p.dim, dtype=torch.bfloat16),
+         "lm_head.weight": rnd(p.vocab_size, p.dim)}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        w[f"{pre}.input_layernorm.weight"] = torch.ones(p.dim, dtype=torch.bfloat16)
+        w[f"{pre}.post_attention_layernorm.weight"] = torch.ones(p.dim, dtype=torch.bfloat16)
+        for nm, shape in (("self_attn.q_proj", (qd, p.dim)), ("self_attn.k_proj", (kvd, p.dim)),
+                          ("self_attn.v_proj", (kvd, p.dim)), ("self_attn.o_proj", (p.dim, qd)),
+                          ("mlp.gate_proj", (p.ffn_dim, p.dim)),
+                          ("mlp.up_proj", (p.ffn_dim, p.dim)),
+                          ("mlp.down_proj", (p.dim, p.ffn_dim))):
+            w[f"{pre}.{nm}.weight"] = rnd(*shape)
+    os.makedirs(root, exist_ok=True)
+    write_safetensors(os.path.join(root, "model.safetensors"), w)
+    with open(os.path.join(root, "config.json"), "w") as fh:
+        json.dump({"num_hidden_layers": n_layers, "num_attention_heads": p.n_heads,
+                   "num_key_value_heads": p.n_kv_heads, "hidden_size": p.dim,
+                   "intermediate_size": p.ffn_dim, "vocab_size": p.vocab_size,
+                   "rope_theta": p.rope_theta, "rms_norm_eps": p.rms_eps,
+                   "eos_token_id": [2]}, fh)
+
+
+def phase_scripts(torch, smi_line):
+    """[scripts]: the slice's five scripts on the card at short settings:
+    spec_bench (7B int4 + int8 KV, the three workloads on and off, one wave
+    each of TPUSERVE_SPEC_BENCH_NEW=32 tokens), spec_trace (one wave),
+    verify_profile (2 rounds); then a 2-layer Llama-2-7B-width
+    checkpoint written in HF naming, converted by convert_hf_llama, served
+    through InferenceManager(device="cuda") (greedy tokens, no plain call)
+    and scored by eval_real_ppl --token-ids with int4 RTN."""
+    import numpy as np
+
+    from tpuserve_torch.engine.manager import InferenceManager
+    from tpuserve_torch.models.llama import LlamaParams
+    from tpuserve_torch.scripts import (convert_hf_llama, eval_real_ppl, spec_bench, spec_trace,
+                                        verify_profile)
+
+    res, seconds = {}, {}
+    with env_set("TPUSERVE_SPEC_BENCH_NEW", "32"):   # one wave a workload and side, no warm-up
+        t0 = time.monotonic()
+        res["spec_bench"] = spec_bench.report(spec_bench.run(DEVICE, warm=False))
+        seconds["spec_bench"] = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        res["spec_trace"] = spec_trace.run(DEVICE, warm=False)
+        seconds["spec_trace"] = time.monotonic() - t0
+        torch.cuda.empty_cache()
+    if res["spec_bench"]["repetitive"]["spec_on"]["spec_drafted"] <= 0:
+        fail("[scripts] spec_bench: no draft fired on the repetitive workload")
+    if not any(k.startswith("_dev_spec_rounds(") or k.startswith("_dev_verify(")
+               for k in res["spec_trace"]["dispatches"]):
+        fail("[scripts] spec_trace: no verify dispatch traced")
+    t0 = time.monotonic()
+    res["verify_profile"] = verify_profile.run(DEVICE, rounds=2)
+    seconds["verify_profile"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="tpuserve_torch_ckpt_")
+    try:
+        t0 = time.monotonic()
+        p = LlamaParams.llama2_7b()
+        _hf_checkpoint(torch, os.path.join(tmp, "hf"), p, n_layers=2)
+        seconds["hf_checkpoint"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        vdir = convert_hf_llama.convert(os.path.join(tmp, "hf"), os.path.join(tmp, "repo"),
+                                        "hf_llama", "1", "int4", "int8", 4, 512, device=DEVICE)
+        seconds["convert"] = time.monotonic() - t0
+        with open(os.path.join(vdir, "config.json")) as fh:
+            cfg = json.load(fh)
+        if cfg["model_params"]["n_layers"] != 2 or cfg["generation"]["eos_token_id"] != 2:
+            fail(f"[scripts] convert_hf_llama wrote {cfg['model_params']}")
+        t0 = time.monotonic()
+        mgr = InferenceManager(os.path.join(tmp, "repo"), num_workers=1, device=DEVICE)
+        mgr.load_model("hf_llama")
+        backend = mgr.get_model("hf_llama").backend
+        with plain_calls() as plain:
+            served = backend.generate([5, 17, 100, 42, 7], max_new_tokens=16)
+        mgr.shutdown()
+        seconds["serve"] = time.monotonic() - t0
+        log(f"[scripts] converted HF checkpoint served on the card: {served['num_generated']} "
+            f"tokens {served['generated_ids']}; plain calls {plain or 'none'}")
+        if plain or served["num_generated"] < 1:
+            fail("[scripts] the converted checkpoint did not serve through the kernels")
+        ids = np.random.default_rng(5).integers(0, p.vocab_size, 4 * 256)
+        ids_path = os.path.join(tmp, "ids.json")
+        with open(ids_path, "w") as fh:
+            json.dump([int(t) for t in ids], fh)
+        t0 = time.monotonic()
+        res["eval_real_ppl"] = eval_real_ppl.main(
+            ["--repository", os.path.join(tmp, "repo"), "--model", "hf_llama", "--token-ids",
+             ids_path, "--ctx", "256", "--max-windows", "4", "--bits", "4", "--quantizer", "rtn",
+             "--json", "--device", DEVICE])
+        seconds["eval_real_ppl"] = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = res["eval_real_ppl"]
+    if not (np.isfinite(row["ppl_fp"]) and np.isfinite(row["ppl_quant"])) \
+            or row["eval_windows"] != 4:
+        fail(f"[scripts] eval_real_ppl: {row}")
+    res["seconds"] = seconds
+    log(f"[scripts] seconds {seconds}; card {smi_line}")
+    return res
+
+
 def _timed(seconds, what, fn, /, *args, **kw):
     """fn(*args, **kw), its wall seconds kept in `seconds` under `what` and
     logged (the script's time limit is shared by every phase)."""
@@ -6173,6 +6587,8 @@ def main() -> None:
     build = _timed(seconds, "build", phase_build)
     timer = Timer(torch)
     results = _timed(seconds, "kernel", phase_kernels, torch, timer, 20, p, p_moe)
+    # every head shape the Pallas kernels serve, each entry against its plain version
+    grid_res = _timed(seconds, "kernel_grid", phase_kernel_grid, torch)
     slice_res = _timed(seconds, "slice", phase_slice, torch, p, smi_line)
     for name_, launched in slice_res["launches"].items():
         results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
@@ -6308,6 +6724,23 @@ def main() -> None:
     results["decode_attention_grouped_float"] = dict(
         results["decode_attention_grouped"]["float"],
         launches=grouped_bf16_res["launches"]["decode_attention_grouped"])
+    # head_dim 256 and GQA rep 8 served end to end (the core at NT 2 paged,
+    # three row groups a verify), each kernel timed at those shapes; then
+    # the slice's five scripts
+    shape_res = {tag: _timed(seconds, tag, phase_head_shape, torch, timer, 20, smi_line, tag,
+                             paged_kv) for tag, paged_kv in (("hd256", "int8"), ("gqa8", "int4"))}
+    for tag, suffix in (("hd256", "hd256"), ("gqa8", "rep8")):
+        res_ = shape_res[tag]
+        for part, kname, launched in (
+                ("flat", "decode_attention", res_["contiguous_launches"]["decode_attention"]),
+                ("multi", "decode_attention_multi",
+                 res_["contiguous_launches"]["decode_attention_multi"]),
+                ("paged", "decode_attention_paged",
+                 res_["paged_launches"]["decode_attention_paged"]),
+                ("grouped", "decode_attention_grouped",
+                 res_["grouped_launches"]["decode_attention_grouped"])):
+            results[f"{kname}_{suffix}"] = dict(res_["kernels"][part], launches=launched)
+    scripts_res = _timed(seconds, "scripts", phase_scripts, torch, smi_line)
     # the native runtime last of the served phases: once built, the
     # binding finds native/build/libtpuserve.so in every later load
     native_res = _timed(seconds, "native", phase_native, torch, p, smi_line)
@@ -6360,7 +6793,7 @@ def main() -> None:
                                         "tpuserve/ops/decode_attention.py:160 (_wide_kernel, "
                                         "GQA rep 4: nq 8 packed int4)"),
                "decode_attention_paged": (
-                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
+                   "tpuserve_torch/csrc/decode_attention_hopper_paged.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc; call :1217)"),
                "decode_attention_multi": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
@@ -6375,6 +6808,34 @@ def main() -> None:
                "decode_attention_grouped_float": (
                    "tpuserve_torch/csrc/decode_attention_grouped_hopper.cu",
                    "tpuserve/ops/decode_attention.py:1237 (_kernel, float window; call :1423)"),
+               "decode_attention_hd256": (
+                   "tpuserve_torch/csrc/decode_attention_hopper_hd256.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, head_dim 256)"),
+               "decode_attention_multi_hd256": (
+                   "tpuserve_torch/csrc/decode_attention_hopper_hd256.cu",
+                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel, head_dim 256)"),
+               "decode_attention_paged_hd256": (
+                   "tpuserve_torch/csrc/decode_attention_hopper_paged_hd256.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc, head_dim 256)"),
+               "decode_attention_grouped_hd256": (
+                   "tpuserve_torch/csrc/decode_attention_grouped_hopper_hd256.cu",
+                   "tpuserve/ops/decode_attention.py:1237 (_kernel, head_dim 256)"),
+               "decode_attention_rep8": (
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, GQA rep 8: packed int4, "
+                   "16 query rows a block)"),
+               "decode_attention_multi_rep8": (
+                   "tpuserve_torch/csrc/decode_attention_hopper.cu",
+                   "tpuserve/ops/decode_attention.py:804 (_wide_multi_kernel, GQA rep 8: 5 x 16 "
+                   "rows in 3 row groups)"),
+               "decode_attention_paged_rep8": (
+                   "tpuserve_torch/csrc/decode_attention_hopper_paged.cu",
+                   "tpuserve/ops/decode_attention.py:160 (_wide_kernel, paged_sc, GQA rep 8: "
+                   "packed int4 pages, 16 rows a block)"),
+               "decode_attention_grouped_rep8": (
+                   "tpuserve_torch/csrc/decode_attention_grouped_hopper.cu",
+                   "tpuserve/ops/decode_attention.py:1237 (_kernel, GQA rep 8: 16 rows a "
+                   "packed int4 pair)"),
                "decode_attention_wide": (
                    "tpuserve_torch/csrc/decode_attention_hopper.cu",
                    "tpuserve/ops/decode_attention.py:160 (_wide_kernel, prebuilt Q_wide; "
@@ -6424,6 +6885,8 @@ def main() -> None:
                    "paged_tp": paged_tp_res, "spec_tp": spec_tp_res,
                    "spec_dp_sp": spec_dp_sp_res, "spec_paged_tp": spec_paged_tp_res,
                    "pp_mixtral": pp_mixtral_res, "native": native_res,
+                   "kernel_grid": grid_res, "hd256": shape_res["hd256"],
+                   "gqa8": shape_res["gqa8"], "scripts": scripts_res,
                    "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,

@@ -24,6 +24,7 @@ from tpuserve_torch.device import smoke
 from tpuserve_torch.ops import decode_attention as da
 from tpuserve_torch.ops import quant_matmul as qm
 from tpuserve_torch.quant.core import QTensor, quantize, quantize_activation, unpack_int4
+from tpuserve_torch.scripts import kernel_smoke
 
 pytestmark = pytest.mark.gpu
 
@@ -493,12 +494,18 @@ def test_decode_attention_grouped_refuses(cuda):
     with pytest.raises(ValueError, match="contiguous rows"):   # heads not adjacent
         da.decode_attention(q, k4.transpose(0, 1).contiguous().transpose(0, 1), v4, ks4, vs4,
                             pos)
-    with pytest.raises(ValueError, match="query heads per block"):   # rep 3
-        da.decode_attention(torch.randn((2, 6, 128), device=cuda), k4, v4, ks4, vs4, pos)
     before = da.grouped_launches
     da.decode_attention(q, k4, v4, ks4, vs4, pos)
     torch.cuda.synchronize()
     assert da.grouped_launches == before + 1
+    # GQA rep 3 (6 query heads over 2 kv heads), once refused: the kernel
+    # takes any ratio, held to its plain version at its tolerance
+    q3 = torch.randn((2, 6, 128), device=cuda) / 128 ** 0.5
+    out = da.decode_attention(q3, k4, v4, ks4, vs4, pos)
+    ref = da.decode_attention_plain(q3, k4, v4, ks4, vs4, pos)
+    torch.cuda.synchronize()
+    assert da.grouped_launches == before + 2
+    assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item() + 1e-7
 
 
 @pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
@@ -1411,3 +1418,15 @@ def test_zoo_forward_on_card(cuda, arch):
     assert out.is_cuda and torch.isfinite(out).all()
     span = (ref.max() - ref.min()).item()
     assert (out - ref).abs().max().item() <= 0.05 * span
+
+
+@pytest.mark.parametrize("combo", kernel_smoke.combos(), ids=lambda c: kernel_smoke.tag_of(*c))
+def test_kernel_grid(cuda, combo):
+    """chip_smoke's [kernel-grid]: one combination of the flat, multi (C =
+    4), paged, wide and grouped entries at Hkv {1, 2, 4, 8, 32} x rep {1, 4}
+    x hd {128, 256} (and rep 3, 7, 8 at Hkv 8) over every cache, one launch,
+    against its plain version (the core's 2e-3 of the range, the grouped
+    kernel's 1e-3)."""
+    err, tol, launched = kernel_smoke.run_combo(combo)
+    assert launched == 1
+    assert err <= tol, (err, tol)

@@ -185,8 +185,11 @@ def test_import_leaves_jax_out():
     """`import tpuserve_torch`, its serving stack, its quantizers (GPTQ), its
     front (REST, gRPC, the CLI, the soak script), its accuracy script, the
     model zoo (the registry with its builtins), the four backends, the ONNX
-    importer, the fixtures, the batcher and sharded serving (parallel/, the
-    follower) import neither JAX nor any module of the JAX package."""
+    importer, the fixtures, the batcher, sharded serving (parallel/, the
+    follower), the checkpoint and speculation scripts (convert_hf_llama,
+    eval_real_ppl, spec_bench, spec_trace, verify_profile) and the kernel
+    grid (kernel_smoke) import neither JAX nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "import tpuserve_torch, tpuserve_torch.interop, tpuserve_torch.kernels\n"
@@ -207,6 +210,8 @@ def test_import_leaves_jax_out():
         "import tpuserve_torch.fixtures, tpuserve_torch.utils.checkpoint\n"
         "from tpuserve_torch.parallel import mesh, sharding, distributed, dispatcher, pipeline\n"
         "import tpuserve_torch.server.follower\n"
+        "from tpuserve_torch.scripts import convert_hf_llama, eval_real_ppl, spec_bench\n"
+        "from tpuserve_torch.scripts import spec_trace, verify_profile, kernel_smoke\n"
         "registry._ensure_builtins()\n"
         "assert {'mlp', 'bert', 'densenet121', 'resnet50', 'llama'} <= "
         "set(registry.known_architectures())\n"

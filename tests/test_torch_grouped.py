@@ -294,9 +294,9 @@ def test_grouped_cuda_tensors_pass_the_route_arguments(monkeypatch, route, skip)
 
 @pytest.mark.parametrize("name", ["base", "s2b6", "s4b3", "s6b2", "no_convert", "no_pv"])
 def test_grouped_ablations_still_match_the_kernel_source(name):
-    """Each variant of scripts/grouped_ablate.py applies to
-    csrc/decode_attention_grouped_hopper.cu as it is (the script runs only
-    on the card; this keeps it in step)."""
+    """Each variant of scripts/grouped_ablate.py applies to the grouped
+    kernel's source as it is (csrc/attention_grouped.cuh; the script runs
+    only on the card; this keeps it in step)."""
     from tpuserve_torch.scripts import grouped_ablate
 
     assert list(grouped_ablate.PATCHES) == ["base", "s2b6", "s4b3", "s6b2", "no_convert",

@@ -1,7 +1,8 @@
-// Pieces shared by the decode-attention kernels (decode_attention_hopper.cu,
+// Pieces shared by the decode-attention kernels (attention_core.cuh,
 // decode_attention_grouped_hopper.cu): the block shape, the cache kinds,
-// how one lane reads its four values of a query row, the per-row int8
-// quantizer of q and the online-softmax step.
+// how one lane reads its V values of a query row (head_dim / 32: 4 at
+// head_dim 128, 8 at 256), the per-row int8 quantizer of q and the
+// online-softmax step.
 #pragma once
 
 #include "common.cuh"
@@ -9,7 +10,6 @@
 namespace tpuserve {
 namespace attn {
 
-constexpr int HD = 128;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
@@ -26,24 +26,31 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// A lane's 4 consecutive values of a query row, f32 or bf16, from element i.
-__device__ __forceinline__ void load_q4(const void* q, size_t i, int q_bf16, float (&qv)[4]) {
+// A lane's V consecutive values of a query row, f32 or bf16, from element i.
+template <int V>
+__device__ __forceinline__ void load_qv(const void* q, size_t i, int q_bf16, float (&qv)[V]) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
+  for (int c = 0; c < V; ++c)
     qv[c] = q_bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(q)[i + c])
                    : reinterpret_cast<const float*>(q)[i + c];
 }
 
-// Symmetric int8 quantization of one query row of HD values held by one
-// warp, 4 a lane (the TPU kernels' _quantize_q): scale = max(absmax / 127,
-// 1e-10), code = clip(round half to even(x / scale), +-127). Writes the
-// lane's 4 codes and returns the row's scale.
-__device__ __forceinline__ float quantize_q4(const float (&qv)[4], int8_t (&code)[4]) {
+// Symmetric int8 quantization of one query row of 32 * V values held by
+// one warp, V a lane (the TPU kernels' _quantize_q: one scale over the whole
+// head): scale = max(absmax / 127, 1e-10), code = clip(round half to
+// even(x / scale), +-127). Writes the lane's V codes and returns the row's
+// scale.
+template <int V>
+__device__ __forceinline__ float quantize_qv(const float (&qv)[V], int8_t (&code)[V]) {
   float am = fmaxf(fmaxf(fabsf(qv[0]), fabsf(qv[1])), fmaxf(fabsf(qv[2]), fabsf(qv[3])));
+#pragma unroll
+  for (int c = 4; c < V; c += 4)
+    am = fmaxf(am, fmaxf(fmaxf(fabsf(qv[c]), fabsf(qv[c + 1])),
+                         fmaxf(fabsf(qv[c + 2]), fabsf(qv[c + 3]))));
   am = warp_max(am);
   const float scale = fmaxf(am / 127.0f, 1e-10f);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < V; ++c) {
     float r = rintf(qv[c] / scale);
     r = fminf(fmaxf(r, -127.0f), 127.0f);
     code[c] = (int8_t)r;

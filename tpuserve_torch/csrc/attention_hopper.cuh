@@ -16,22 +16,26 @@ namespace tpuserve {
 namespace hopper {
 
 constexpr int TR = 64;            // cache rows of a ring tile
-constexpr int ROW_B = 144;        // tile row stride: a unit's 128 bytes + 16 (conflict-free)
 constexpr int SC_W = 68;          // words of a staged scale row (64 f32, or 33 bf16 pairs)
-constexpr int TILE_B = TR * ROW_B;
-constexpr int STAGE_B = TILE_B + 4 * SC_W * 4;  // data, then ks lo/hi, vs lo/hi
-constexpr int QS_B = 144;         // q code row stride
 constexpr size_t SMEM_LIMIT = 227 * 1024;
-constexpr int ROW_BF16 = 272;     // a bf16 row of one kv head (256 bytes) + 16 (conflict-free)
-constexpr int ROW_F32 = 528;      // an f32 row (512 bytes) + 16
-constexpr int QF_W = ROW_F32 / 4; // floats of a staged f32 q row
+
+// Row strides of a ring tile at head_dim HD (128 or 256), each a row of one
+// kv unit + 16 bytes (conflict-free): int8 or packed int4 HD bytes (144 at
+// 128), bf16 2 * HD (272), f32 4 * HD (528); a staged q row takes the
+// cache's stride (int8 codes: HD + 16), an f32 one row_f32 / 4 floats
+__host__ __device__ constexpr int row_b(int hd) { return hd + 16; }
+__host__ __device__ constexpr int row_bf16(int hd) { return 2 * hd + 16; }
+__host__ __device__ constexpr int row_f32(int hd) { return 4 * hd + 16; }
 
 // A ring tile's row stride and a stage's bytes for a cache kind (the
-// wrappers in ops/decode_attention.py mirror them)
-__host__ __device__ constexpr int tile_row_b(int kind) {
-  return kind == attn::KV_F32 ? ROW_F32 : kind == attn::KV_BF16 ? ROW_BF16 : ROW_B;
+// wrappers in ops/decode_attention.py mirror them): TR rows, then 4 staged
+// scale rows (ks lo/hi, vs lo/hi)
+__host__ __device__ constexpr int tile_row_b(int kind, int hd) {
+  return kind == attn::KV_F32 ? row_f32(hd) : kind == attn::KV_BF16 ? row_bf16(hd) : row_b(hd);
 }
-__host__ __device__ constexpr int stage_b(int kind) { return TR * tile_row_b(kind) + 4 * SC_W * 4; }
+__host__ __device__ constexpr int stage_b(int kind, int hd) {
+  return TR * tile_row_b(kind, hd) + 4 * SC_W * 4;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -135,16 +139,17 @@ __device__ __forceinline__ uint32_t ld_u32(const void* p) {
 // lane % 4); the f32 forms compute the same elements on the CUDA cores.
 
 // Scores of cache rows row0 .. row0 + 15 of a bf16 stage (A by ldmatrix)
-// against NT n-tiles of bf16 query rows staged ROW_BF16 apart (B), in
+// against NT n-tiles of bf16 query rows staged row_bf16(HD) apart (B), in
 // `pieces` pieces piece_b bytes apart whose products are summed (an f32 q
 // as hi + mid + lo: each product is exact in f32); f32 sums.
-template <int NT>
+template <int NT, int HD>
 __device__ __forceinline__ void scores_bf16(float (&acc)[NT][4], const unsigned char* st, int row0,
                                             const unsigned char* qs, int pieces, int piece_b,
                                             int lane) {
+  constexpr int ROW_BF16 = row_bf16(HD);
   const int g = lane >> 2, t = lane & 3, mat = lane >> 3;
 #pragma unroll
-  for (int kk = 0; kk < attn::HD / 16; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     uint32_t a[4];
     ldsm_x4(a, st + (row0 + (lane & 7) + (mat & 1) * 8) * ROW_BF16 + 32 * kk + (mat >> 1) * 16);
 #pragma unroll
@@ -159,16 +164,17 @@ __device__ __forceinline__ void scores_bf16(float (&acc)[NT][4], const unsigned 
   }
 }
 
-// The same elements from an f32 stage and f32 query rows QF_W floats apart,
-// by FMA (no TF32)
-template <int NT>
+// The same elements from an f32 stage and f32 query rows row_f32(HD) / 4
+// floats apart, by FMA (no TF32)
+template <int NT, int HD>
 __device__ __forceinline__ void scores_f32(float (&acc)[NT][4], const unsigned char* st, int row0,
                                            const float* qf, int lane) {
+  constexpr int ROW_F32 = row_f32(HD), QF_W = ROW_F32 / 4;
   const int g = lane >> 2, t = lane & 3;
   const float* k0 = reinterpret_cast<const float*>(st + (row0 + g) * ROW_F32);
   const float* k1 = reinterpret_cast<const float*>(st + (row0 + g + 8) * ROW_F32);
 #pragma unroll 4
-  for (int d = 0; d < attn::HD; d += 4) {
+  for (int d = 0; d < HD; d += 4) {
     const float4 x = *reinterpret_cast<const float4*>(k0 + d);
     const float4 y = *reinterpret_cast<const float4*>(k1 + d);
 #pragma unroll
@@ -183,14 +189,15 @@ __device__ __forceinline__ void scores_f32(float (&acc)[NT][4], const unsigned c
   }
 }
 
-// P @ V of a bf16 stage's TR rows for hd rows 32 * warp .. + 31 (two m16
-// chunks c): V read in place by ldmatrix.trans (A), P bf16 rows pstride
-// apart from column pcol0 (B; query rows past prow_max read row prow_max:
-// they only fill dropped columns); f32 sums
-template <int NT>
-__device__ __forceinline__ void pv_bf16(float (&acc)[2][NT][4], const unsigned char* st,
+// P @ V of a bf16 stage's TR rows for hd rows HD / 4 * warp .. + HD / 4 - 1
+// (MC = HD / 64 m16 chunks c): V read in place by ldmatrix.trans (A), P
+// bf16 rows pstride apart from column pcol0 (B; query rows past prow_max
+// read row prow_max: they only fill dropped columns); f32 sums
+template <int NT, int HD>
+__device__ __forceinline__ void pv_bf16(float (&acc)[HD / 64][NT][4], const unsigned char* st,
                                         const __nv_bfloat16* p, int pstride, int pcol0,
                                         int prow_max, int warp, int lane) {
+  constexpr int ROW_BF16 = row_bf16(HD), MC = HD / 64;
   const int g = lane >> 2, t = lane & 3, mat = lane >> 3;
 #pragma unroll
   for (int ks = 0; ks < TR / 16; ++ks) {
@@ -202,10 +209,10 @@ __device__ __forceinline__ void pv_bf16(float (&acc)[2][NT][4], const unsigned c
       ph[n] = ld_u32(pr + 8);
     }
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < MC; ++c) {
       uint32_t a[4];
       ldsm_x4_trans(a, st + (16 * ks + (lane & 7) + (mat >> 1) * 8) * ROW_BF16 +
-                           (warp * 32 + 16 * c + (mat & 1) * 8) * 2);
+                           (warp * (HD / 4) + 16 * c + (mat & 1) * 8) * 2);
 #pragma unroll
       for (int n = 0; n < NT; ++n) mma_bf16(acc[c][n], a[0], a[1], a[2], a[3], pl[n], ph[n]);
     }
@@ -214,10 +221,11 @@ __device__ __forceinline__ void pv_bf16(float (&acc)[2][NT][4], const unsigned c
 
 // The same elements from an f32 stage and f32 P rows, by FMA. P and V are
 // zero past the rows a block reads, so all TR rows are summed.
-template <int NT>
-__device__ __forceinline__ void pv_f32(float (&acc)[2][NT][4], const unsigned char* st,
+template <int NT, int HD>
+__device__ __forceinline__ void pv_f32(float (&acc)[HD / 64][NT][4], const unsigned char* st,
                                        const float* p, int pstride, int pcol0, int prow_max,
                                        int warp, int lane) {
+  constexpr int ROW_F32 = row_f32(HD), MC = HD / 64;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 2
   for (int k = 0; k < TR; k += 4) {
@@ -230,18 +238,22 @@ __device__ __forceinline__ void pv_f32(float (&acc)[2][NT][4], const unsigned ch
             p + min(n * 8 + 2 * t + e, prow_max) * pstride + pcol0 + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float* vr = reinterpret_cast<const float*>(st + (k + kk) * ROW_F32) + warp * 32 + g;
-      const float v0 = vr[0], v1 = vr[8], v2 = vr[16], v3 = vr[24];
+      const float* vr =
+          reinterpret_cast<const float*>(st + (k + kk) * ROW_F32) + warp * (HD / 4) + g;
+      float vv[2 * MC];   // hd 8j + g of the warp's HD / 4
+#pragma unroll
+      for (int j = 0; j < 2 * MC; ++j) vv[j] = vr[8 * j];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float4 q4 = pv[n][e];
           const float pk = kk == 0 ? q4.x : kk == 1 ? q4.y : kk == 2 ? q4.z : q4.w;
-          acc[0][n][e] = fmaf(pk, v0, acc[0][n][e]);
-          acc[0][n][2 + e] = fmaf(pk, v1, acc[0][n][2 + e]);
-          acc[1][n][e] = fmaf(pk, v2, acc[1][n][e]);
-          acc[1][n][2 + e] = fmaf(pk, v3, acc[1][n][2 + e]);
+#pragma unroll
+          for (int c = 0; c < MC; ++c) {
+            acc[c][n][e] = fmaf(pk, vv[2 * c], acc[c][n][e]);
+            acc[c][n][2 + e] = fmaf(pk, vv[2 * c + 1], acc[c][n][2 + e]);
+          }
         }
     }
   }

@@ -8,7 +8,8 @@ nibble), at a layer offset. Scales are this layer's [S, Hkv, L] (bf16 or
 f32, head-major). For tensors on the card the wrapper launches a CUDA
 kernel: the Hopper core of csrc/decode_attention_hopper.cu, which serves
 the flat, paged, prebuilt-Q_wide and multi-candidate entries for every
-cache.
+cache, at head_dim 128 or 256 (KERNEL_HEAD_DIMS; the JAX kernels take any
+multiple of 128) and any GQA ratio.
 For tensors on the CPU it runs the plain version below, which follows the
 kernel's (and the TPU kernel's) algorithm step by step:
 
@@ -93,8 +94,7 @@ wide_launches = 0     # flat-kernel launches through decode_attention_wide
 grouped_launches = 0  # grouped kernel launches
 
 _NEG_INF = -1e30
-_HD = 128          # head_dim the CUDA kernel is written for
-_KERNEL_NQ = (1, 2, 4, 8)
+KERNEL_HEAD_DIMS = (128, 256)   # head_dims the CUDA kernels are built for (any GQA ratio)
 _BLOCK_L_ENV = "TPUSERVE_ATTN_BLOCK_L"   # L rows per online-softmax block, default 128
 _DYNSKIP_ENV = "TPUSERVE_ATTN_DYNSKIP"
 _READ_ALL = 16     # added to a kernel's launch code: read and mask past a slot (attention_common.cuh)
@@ -103,10 +103,11 @@ _UNPACK_ENV = "TPUSERVE_INT4_UNPACK"
 _KV_INT8, _KV_INT4, _KV_BF16, _KV_F32 = 0, 1, 2, 3
 _CACHE_KINDS = {"int8": _KV_INT8, "int4": _KV_INT4, "bf16": _KV_BF16, "f32": _KV_F32}
 # the Hopper kernels' ring (csrc/attention_hopper.cuh): tiles of 64 rows, a
-# row of one kv unit + 16 bytes (int8/int4 144, bf16 272, f32 528), then 4
-# staged scale rows of 68 words
-_CORE_TR, _CORE_SC_W = 64, 68
-_ROW_B = {_KV_BF16: 272, _KV_F32: 528}
+# row of one kv unit + 16 bytes (int8/int4 hd + 16, bf16 2 hd + 16, f32 4 hd
+# + 16: 144, 272 and 528 at head_dim 128), then 4 staged scale rows of 68
+# words; the core transposes an int8/int4 V tile in its stage to hd rows of
+# 80 bytes (attention_core.cuh: a stage is padded to it at head_dim 256)
+_CORE_TR, _CORE_SC_W, _CORE_VT_B = 64, 68, 80
 _CORE_RG = 32          # query rows one block serves (a row group)
 _CORE_SPLIT_FILL = 4   # blocks an SM should have before the window is split
 _H100_SMS = 132        # the plan of a CPU call is the H100's
@@ -157,27 +158,42 @@ def core_rows(cands: int, nq: int):
     return -(-rows // _CORE_RG), (8 if rmax <= 8 else 16 if rmax <= 16 else 32)
 
 
-def _stage_bytes(kind: int) -> int:
+def _row_bytes(kind: int, hd: int = 128) -> int:
+    """A ring tile's row stride (tile_row_b): one kv unit's row + 16."""
+    return {_KV_BF16: 2 * hd, _KV_F32: 4 * hd}.get(kind, hd) + 16
+
+
+def _stage_bytes(kind: int, hd: int = 128) -> int:
     """A ring stage of the Hopper kernels for a cache kind (stage_b)."""
-    return _CORE_TR * _ROW_B.get(kind, 144) + 4 * _CORE_SC_W * 4
+    return _CORE_TR * _row_bytes(kind, hd) + 4 * _CORE_SC_W * 4
 
 
-def core_smem_bytes(rp: int, block_l: int, pages: int = 0, kind: int = _KV_INT4) -> int:
+def _core_stage_bytes(kind: int, hd: int = 128) -> int:
+    """A ring stage of the core (core_stage_b): an int8/int4 stage holds its
+    V tile transposed to hd rows of 80 bytes."""
+    if kind in (_KV_BF16, _KV_F32):
+        return _stage_bytes(kind, hd)
+    return max(_stage_bytes(kind, hd), hd * _CORE_VT_B)
+
+
+def core_smem_bytes(rp: int, block_l: int, pages: int = 0, kind: int = _KV_INT4,
+                    hd: int = 128) -> int:
     """Dynamic shared memory of one block of the Hopper core (its
-    smem_bytes) for a cache `kind`: the cp.async ring (a V tile is
-    transposed within its stage; 2 stages for a bf16 cache with up to 8
-    rows, 3 for an int8 one with up to 8 and for f32, else 4), q codes
-    (float: q's values), scores and P f32, P codes (bf16: P bf16; f32:
-    none), the block's V scales, eight per-row statistics and flags, four
-    per-warp partials a row and, paged, the `pages` page ids of a split."""
+    smem_bytes) for a cache `kind` at head_dim `hd`: the cp.async ring (a V
+    tile is transposed within its stage; 2 stages for a bf16 cache with up
+    to 8 rows and for f32 at head_dim 256, 3 for an int8 one with up to 8
+    and for f32, else 4), q codes (float: q's values), scores and P f32, P
+    codes (bf16: P bf16; f32: none), the block's V scales, eight per-row
+    statistics and flags, four per-warp partials a row and, paged, the
+    `pages` page ids of a split."""
     blp = -(-block_l // _CORE_TR) * _CORE_TR
-    if kind == _KV_BF16 and rp == 8:
+    if (kind == _KV_BF16 and rp == 8) or (kind == _KV_F32 and hd > 128):
         stages = 2
     else:
         stages = 3 if (kind == _KV_INT8 and rp == 8) or kind == _KV_F32 else 4
     p_row = {_KV_BF16: 2 * (blp + 8), _KV_F32: 0}.get(kind, blp + 16)
-    return (stages * _stage_bytes(kind) + rp * _ROW_B.get(kind, 144) + rp * (blp + 4) * 4
-            + rp * p_row + 2 * blp * 4 + 24 * rp * 4 + pages * 4)
+    return (stages * _core_stage_bytes(kind, hd) + rp * _row_bytes(kind, hd)
+            + rp * (blp + 4) * 4 + rp * p_row + 2 * blp * 4 + 24 * rp * 4 + pages * 4)
 
 
 def _plan_sms(device) -> int:
@@ -361,9 +377,11 @@ def _merge_runs(parts):
 def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
     """The kernel's (kind, query heads per block) for a cache dtype; raises
     on what the CUDA kernel does not take. Packed int4 is kind 1, or 4
-    under TPUSERVE_INT4_UNPACK=noop."""
-    if hd != _HD:
-        raise ValueError(f"decode attention kernel: head_dim must be {_HD}, got {hd}")
+    under TPUSERVE_INT4_UNPACK=noop. Any GQA ratio: a block serves rep
+    query rows (2 * rep for a packed int4 head pair), in row groups of 32."""
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"decode attention kernel: head_dim must be one of {KERNEL_HEAD_DIMS}, "
+                         f"got {hd}")
     if kv_bits == 4:
         kind, nq = (4 if int4_unpack_noop() else 1), 2 * rep
         if n_kv % 2:
@@ -376,8 +394,6 @@ def _kernel_kind(k_dtype, kv_bits: int, n_kv: int, rep: int, hd: int):
         kind, nq = 3, rep
     else:
         raise ValueError(f"decode attention kernel: unsupported cache dtype {k_dtype}")
-    if nq not in _KERNEL_NQ:
-        raise ValueError(f"decode attention kernel: {nq} query heads per block unsupported")
     return kind, nq
 
 
@@ -463,8 +479,9 @@ def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, 
     units = g["n_kv"] // 2 if g["kv_bits"] == 4 else g["n_kv"]
     groups, rp = core_rows(cands, nq)
     kind = code & ~_READ_ALL
+    hd = q.shape[-1]
     smem = core_smem_bytes(rp, g["block_l"], bps if table is not None else 0,
-                           kind=_KV_INT4 if kind == 4 else kind)
+                           kind=_KV_INT4 if kind == 4 else kind, hd=hd)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"decode attention kernel: {smem} bytes of shared memory for "
                          f"{cands * nq} rows, block {g['block_l']}")
@@ -475,7 +492,7 @@ def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, 
         n_cnt = g["s_dim"] * units * groups
         if n_cnt > _CORE_MAX_COUNTERS:
             raise ValueError("decode attention kernel: too many (slot, unit) pairs to split")
-        ws = torch.empty(n_cnt * splits * rp * (_HD + 2), dtype=torch.float32, device=q.device)
+        ws = torch.empty(n_cnt * splits * rp * (hd + 2), dtype=torch.float32, device=q.device)
         cnt = _core_counters(q.device)
     rc = kernels.lib().tpuserve_decode_attention_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if ks is None else ks.data_ptr(),
@@ -485,7 +502,8 @@ def _launch_core(q, k, v, ks, vs, pos32, table, out, g, cands, nq, layer, code, 
         int(q.dtype == torch.bfloat16), sc_bf16, g["s_dim"], cands, g["n_heads"], g["n_kv"],
         g["l_max"], int(layer), g["win"], g["block_l"], k.shape[-1] * k.element_size(),
         n_pages, hp,
-        0 if table is None else table.stride(0), code, nq, splits, bps, kernels.stream_of(q))
+        0 if table is None else table.stride(0), code, nq, splits, bps, hd,
+        kernels.stream_of(q))
     kernels.check(rc, "decode_attention_core")
 
 
@@ -663,19 +681,28 @@ def decode_attention_plain(q, k, v, k_scale, v_scale, positions, *, block_l: int
     return _merge_runs(parts)
 
 
-def grouped_smem_bytes(nq: int, block_l: int, kind: int = _KV_INT8) -> int:
+def grouped_rows(nq: int):
+    """(row groups, rows of a full group, its padding to the mma's 8, 16 or
+    32) of the grouped Hopper kernel for nq query rows a unit."""
+    nr = min(nq, _CORE_RG)
+    return -(-nq // _CORE_RG), nr, (8 if nr <= 8 else 16 if nr <= 16 else 32)
+
+
+def grouped_smem_bytes(nq: int, block_l: int, kind: int = _KV_INT8, hd: int = 128) -> int:
     """Dynamic shared memory of one block of the grouped Hopper kernel (its
-    grouped_smem) for nq query rows a unit of a cache `kind`: a 3-stage
-    cp.async ring, q (padded to the mma's 8 or 16 rows: int8 codes, a bf16
-    window's three bf16 pieces, f32 values), scores f32 and P bf16 of the
-    block's nq rows (f32: P in the score rows), its V scales, six per-row
-    statistics and two per-warp partials a padded row."""
-    rp = 8 if nq <= 8 else 16
+    grouped_smem) for nq query rows a unit of a cache `kind` at head_dim
+    `hd`: a 3-stage cp.async ring (2 for f32 at head_dim 256), q (padded to
+    the mma's 8, 16 or 32 rows: int8 codes, a bf16 window's three bf16
+    pieces, f32 values), scores f32 and P bf16 of a row group's rows (up to
+    32; f32: P in the score rows), its V scales, six per-row statistics and
+    two per-warp partials a padded row."""
+    _, nr, rp = grouped_rows(nq)
     blp = -(-block_l // _CORE_TR) * _CORE_TR
-    q_row = {_KV_BF16: 3 * 272, _KV_F32: 528}.get(kind, 144)
-    p_rows = 0 if kind == _KV_F32 else nq * (blp + 8) * 2
-    return (3 * _stage_bytes(kind) + rp * q_row + nq * (blp + 4) * 4 + p_rows + 2 * blp * 4
-            + 6 * rp * 4 + 2 * 4 * rp * 4)
+    q_row = (3 if kind == _KV_BF16 else 1) * _row_bytes(kind, hd)
+    p_rows = 0 if kind == _KV_F32 else nr * (blp + 8) * 2
+    stages = 2 if (kind == _KV_F32 and hd > 128) else 3
+    return (stages * _stage_bytes(kind, hd) + rp * q_row + nr * (blp + 4) * 4 + p_rows
+            + 2 * blp * 4 + 6 * rp * 4 + 2 * 4 * rp * 4)
 
 
 def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what):
@@ -686,10 +713,10 @@ def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what
     0 int8, 1 packed int4, 2 bf16, 3 f32."""
     from tpuserve_torch import kernels
 
-    s_dim, n_kv = g["s_dim"], g["n_kv"]
+    s_dim, n_kv, hd = g["s_dim"], g["n_kv"], g["hd"]
     units = n_kv // 2 if kind == _KV_INT4 else n_kv
-    rp = 8 if nq <= 8 else 16
-    smem = grouped_smem_bytes(nq, g["block_l"], kind)
+    groups, _, rp = grouped_rows(nq)
+    smem = grouped_smem_bytes(nq, g["block_l"], kind, hd)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{what}: {smem} bytes of shared memory for {nq} query heads a kv "
                          f"unit, block {g['block_l']}")
@@ -702,10 +729,10 @@ def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what
     splits, bps = g["splits"], g["bps"]
     ws = cnt = None
     if splits > 1:
-        n_cnt = s_dim * units
+        n_cnt = s_dim * units * groups
         if n_cnt > _CORE_MAX_COUNTERS:
             raise ValueError(f"{what}: too many (slot, unit) pairs to split")
-        ws = torch.empty(n_cnt * splits * rp * (_HD + 2), dtype=torch.float32, device=q.device)
+        ws = torch.empty(n_cnt * splits * rp * (hd + 2), dtype=torch.float32, device=q.device)
         cnt = _core_counters(q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     code = kind if dynskip(grouped=True) else kind + _READ_ALL
@@ -717,7 +744,7 @@ def _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, row_stride, what
         k.stride(0) * k.element_size(), ks.stride(0) if scaled else 0,
         ks.stride(1) if scaled else 0, int(q.dtype == torch.bfloat16),
         int(scaled and ks.dtype == torch.bfloat16), s_dim, g["n_heads"], n_kv, g["l_max"],
-        g["block_l"], row_stride, code, nq, splits, bps, kernels.stream_of(q))
+        g["block_l"], row_stride, code, nq, splits, bps, hd, kernels.stream_of(q))
     kernels.check(rc, "decode_attention_grouped_hopper")
     return out
 
@@ -765,8 +792,8 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
     quantized = g["quantized"]
     _check_grouped_call(q, positions, [q, k, v, positions] + ([k_scale, v_scale] if quantized
                                                                else []), what)
-    esz = k.element_size()
-    if (k.stride()[1:] != (n_kv * _HD, _HD, 1) or v.stride() != k.stride()
+    esz, hd = k.element_size(), g["hd"]
+    if (k.stride()[1:] != (n_kv * hd, hd, 1) or v.stride() != k.stride()
             or (k.stride(0) * esz) % 16 or k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("grouped decode attention kernel: k/v must be [S, L, Hkv, hd] views "
                          "with contiguous rows, 16-byte aligned slots and equal strides")
@@ -780,29 +807,30 @@ def decode_attention(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256
         ks, vs = k_scale.transpose(1, 2), v_scale.transpose(1, 2)    # [S, Hkv, L]
         if ks.stride(2) != 1:   # other layouts are copied head-major
             ks, vs = ks.contiguous(), vs.contiguous()
-    out = _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, n_kv * _HD * esz, what)
+    out = _launch_grouped_hopper(q, k, v, ks, vs, pos32, g, kind, nq, n_kv * hd * esz, what)
     grouped_launches += 1
     return out
 
 
-def _packed_views(k, v, k_scale, v_scale, n_kv):
+def _packed_views(k, v, k_scale, v_scale, n_kv, hd):
     """The packed route's operands as the public entry's: k/v unpacked to
     int8 codes [S, L, Hkv, hd], scales as [S, L, Hkv] views."""
     s_dim, l_max = k.shape[:2]
-    k8, v8 = (unpack_kv_codes(t).view(s_dim, l_max, n_kv, _HD) for t in (k, v))
+    k8, v8 = (unpack_kv_codes(t).view(s_dim, l_max, n_kv, hd) for t in (k, v))
     return k8, v8, k_scale.transpose(1, 2), v_scale.transpose(1, 2)
 
 
 def _check_packed(q, k, v, k_scale, v_scale):
+    """n_kv of a packed call, its head_dim q's."""
     if k.dim() != 3 or k.dtype != torch.uint8 or k.shape != v.shape or v.dtype != torch.uint8:
         raise ValueError("packed grouped decode attention: k/v must be packed int4 uint8 "
                          "[S, L, Hkv*hd/2] of one shape")
     s_dim, l_max, w_half = k.shape
-    n_kv = 2 * w_half // _HD
-    if q.dim() != 3 or q.shape[0] != s_dim or q.shape[2] != _HD or n_kv < 2 \
-            or 2 * w_half != n_kv * _HD or n_kv % 2:
+    hd = q.shape[-1] if q.dim() == 3 else 0
+    n_kv = 2 * w_half // hd if hd else 0
+    if q.dim() != 3 or q.shape[0] != s_dim or n_kv < 2 or 2 * w_half != n_kv * hd or n_kv % 2:
         raise ValueError(f"packed grouped decode attention: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} do not fit (head_dim {_HD}, an even n_kv_heads)")
+                         f"{tuple(k.shape)} do not fit (q's head_dim, an even n_kv_heads)")
     want = (s_dim, n_kv, l_max)
     if k_scale is None or tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
         raise ValueError(f"packed grouped decode attention: scales must be {want}")
@@ -815,8 +843,8 @@ def decode_attention_packed_plain(q, k, v, k_scale, v_scale, positions, *, block
     to int8 codes by unpack_kv_codes, then decode_attention_plain over it
     with the scales as [S, L, Hkv] views. [S, H, hd] f32."""
     n_kv = _check_packed(q, k, v, k_scale, v_scale)
-    return decode_attention_plain(q, *_packed_views(k, v, k_scale, v_scale, n_kv), positions,
-                                  block_l=block_l, g_kv=g_kv)
+    return decode_attention_plain(q, *_packed_views(k, v, k_scale, v_scale, n_kv, q.shape[-1]),
+                                  positions, block_l=block_l, g_kv=g_kv)
 
 
 def decode_attention_packed(q, k, v, k_scale, v_scale, positions, *, block_l: int = 256,
@@ -846,9 +874,7 @@ def decode_attention_packed(q, k, v, k_scale, v_scale, positions, *, block_l: in
     if n_heads % n_kv:
         raise ValueError(f"{what}: {n_heads} heads over {n_kv} kv heads")
     g = _grouped_dims(q, l_max, n_kv, True, True, block_l)   # the unpacked window's
-    nq = 2 * g["rep"]
-    if nq > 16:
-        raise ValueError(f"{what}: {nq} query heads per kv head pair unsupported")
+    _, nq = _kernel_kind(k.dtype, 4, n_kv, g["rep"], g["hd"])
     _check_grouped_call(q, positions, [q, k, v, k_scale, v_scale, positions], what)
     _check_scale_dtypes(k_scale, v_scale, what)
     if k.stride(2) != 1 or k.stride(1) != w_half or v.stride() != k.stride():
@@ -866,16 +892,16 @@ _SMEM_LIMIT = 227 * 1024   # shared memory one block may use on the H100
 
 
 def check_multi_kernel(cands: int, nq: int, block_l: Optional[int] = None,
-                       cache: str = "int8") -> None:
+                       cache: str = "int8", hd: int = 128) -> None:
     """Raise ValueError unless the multi kernel (the Hopper core) takes
     `cands` candidates of `nq` query heads per block over blocks of
     `block_l` rows (None: the entry's default, TPUSERVE_ATTN_BLOCK_L or 128)
-    of a `cache` ("int8", "int4", "bf16" or "f32")."""
+    of a `cache` ("int8", "int4", "bf16" or "f32") at head_dim `hd`."""
     block_l = default_block_l() if block_l is None else block_l
     if not 1 <= cands <= _MULTI_MAX_C:
         raise ValueError(f"multi decode attention kernel: {cands} candidates, "
                          f"takes 1..{_MULTI_MAX_C}")
-    smem = core_smem_bytes(core_rows(cands, nq)[1], block_l, kind=_CACHE_KINDS[cache])
+    smem = core_smem_bytes(core_rows(cands, nq)[1], block_l, kind=_CACHE_KINDS[cache], hd=hd)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"multi decode attention kernel: {smem} bytes of shared memory for "
                          f"{cands} candidates x {nq} heads, block {block_l}")
@@ -924,7 +950,7 @@ def decode_attention_wide_cache_multi(q, k_full, v_full, k_scale_l, v_scale_l, p
     _check_inputs(q, [q, k_full, v_full, positions]
                   + ([k_scale_l, v_scale_l] if g["quantized"] else []), k_full, v_full)
     cache = {_KV_INT8: "int8", _KV_BF16: "bf16", _KV_F32: "f32"}.get(kind, "int4")
-    check_multi_kernel(cands, nq, g["block_l"], cache=cache)
+    check_multi_kernel(cands, nq, g["block_l"], cache=cache, hd=hd)
     if not 0 <= int(layer) < g["n_layers"]:
         raise ValueError(f"layer {layer} out of range")
     if positions.shape != (s_dim,):

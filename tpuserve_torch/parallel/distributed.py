@@ -54,11 +54,12 @@ def choose_backend(device_type: str, world: int) -> str:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *, device_type: str = "cuda",
-               await_followers=None) -> bool:
+               await_followers=None, store=None) -> bool:
     """Join the process group; False (and nothing done) when no coordinator
     and no process count is configured. `await_followers(store)` runs on
     process 0 before the group forms (the engine checks there that the
-    ranks it started are alive)."""
+    ranks it started are alive). `store`: process 0's TCPStore, already
+    listening at the coordinator's address (launch_local_ranks)."""
     import torch.distributed as dist
 
     addr = coordinator_address or os.environ.get("TPUSERVE_COORDINATOR")
@@ -74,8 +75,9 @@ def initialize(coordinator_address: Optional[str] = None,
         raise BackendError("TPUSERVE_COORDINATOR, TPUSERVE_NUM_PROCESSES and "
                            "TPUSERVE_PROCESS_ID must all be set")
     host, port = addr.rsplit(":", 1)
-    store = dist.TCPStore(host, int(port), num_processes, is_master=process_id == 0,
-                          timeout=timeout(), wait_for_workers=False)
+    if store is None:
+        store = dist.TCPStore(host, int(port), num_processes, is_master=process_id == 0,
+                              timeout=timeout(), wait_for_workers=False)
     if process_id == 0:
         if await_followers is not None:
             await_followers(store)
@@ -160,8 +162,16 @@ def launch_local_ranks(world: int, device_type: str,
     tpuserve_torch.server.follower --once` and join them as rank 0. Their
     output goes to `log_dir`/follower-<rank>.log where given (or
     TPUSERVE_FOLLOWER_LOG_DIR), else to this process's stderr. Raises
-    BackendError if one of them exits before the group forms."""
-    port = free_port()
+    BackendError if one of them exits before the group forms.
+
+    Rank 0's store listens on a port the system picks before any follower
+    is told of it: a port found free, closed and bound only later could be
+    taken in between by another process starting ranks on this host."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, timeout=timeout(),
+                          wait_for_workers=False)
+    port = store.port
     log_dir = log_dir or os.environ.get("TPUSERVE_FOLLOWER_LOG_DIR")
     procs: List[subprocess.Popen] = []
     for r in range(1, world):
@@ -196,7 +206,7 @@ def launch_local_ranks(world: int, device_type: str,
 
     try:
         initialize(f"127.0.0.1:{port}", world, 0, device_type=device_type,
-                   await_followers=await_followers)
+                   await_followers=await_followers, store=store)
     except BaseException:
         stop_local_ranks(procs, grace=0.0)
         raise

@@ -1,8 +1,9 @@
 """Where the grouped Hopper decode attention's time goes, on the card:
-copies of csrc/decode_attention_grouped_hopper.cu with its ring changed or
-one part cut out, built side by side with nvcc and timed through the
-port's wrappers at the [grouped] phase's shape (S=64, H=Hkv=32, L=256,
-block_l 256, chip_smoke's step positions).
+copies of its kernel (csrc/attention_grouped.cuh, built by
+decode_attention_grouped_hopper.cu and its head_dim-256 unit) with its
+ring changed or one part cut out, built side by side with nvcc and timed
+through the port's wrappers at the [grouped] phase's shape (S=64,
+H=Hkv=32, L=256, block_l 256, chip_smoke's step positions).
 
 Variants (each a text patch of the source; a patch that no longer matches
 the source stops the script, so that it is brought up to date with the
@@ -41,7 +42,8 @@ import torch
 from tpuserve_torch import kernels
 from tpuserve_torch.ops import decode_attention as da
 
-SOURCE = "decode_attention_grouped_hopper.cu"
+SOURCE = "attention_grouped.cuh"          # the kernel the variants patch
+UNITS = ("decode_attention_grouped_hopper.cu", "decode_attention_grouped_hopper_hd256.cu")
 ENTRY = "tpuserve_decode_attention_grouped_hopper"
 _RING = ("  static constexpr int STAGES = 3;\n"
          "  static constexpr int BLOCKS = NT == 1 ? 4 : 3;\n")
@@ -94,7 +96,7 @@ def build(out: Path) -> dict:
         (d / SOURCE).write_text(patched(name))
         so = out / f"lib_{name}.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS[:-2], "-shared", "-I", str(d),
-               str(d / SOURCE), "-o", str(so)]
+               *(str(d / u) for u in UNITS), "-o", str(so)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     fns = {}

@@ -89,12 +89,13 @@ import torch
 from tpuserve_torch.models import llama
 from tpuserve_torch.models.llama import KVCache, LlamaParams
 from tpuserve_torch.parallel import pipeline
-from tpuserve_torch.ops.decode_attention import check_multi_kernel
+from tpuserve_torch.ops.decode_attention import KERNEL_HEAD_DIMS, check_multi_kernel
 from tpuserve_torch.models.llama_bench import init_quantized_params, param_bytes
 from tpuserve_torch.quant.core import quantize_param_tree
 from tpuserve_torch.repository.config import ModelConfig
 from tpuserve_torch.serving.paged_kv import PagedKVCache, PageTableManager
 from tpuserve_torch.serving.sampling import SamplingParams, sample_with_logprobs, spec_accept
+from tpuserve_torch.utils.checkpoint import read_safetensors
 from tpuserve_torch.utils.device import resolve_device
 from tpuserve_torch.utils.dtypes import DataType
 from tpuserve_torch.utils.errors import BackendError, InvalidArgumentError
@@ -245,13 +246,10 @@ class GenerationEngine:
         init_mode = str(self.config.model_params.get("init", "")).lower()
         st_path = os.path.join(self.model_dir, "model.safetensors")
         dev = torch.device("cpu") if host else self.device
-        if os.path.exists(st_path):
-            from safetensors.numpy import load_file
-
+        if os.path.exists(st_path):   # the port's own reader: no safetensors package needed
             out = {}
-            for k, v in load_file(st_path).items():
-                t = torch.from_numpy(np.ascontiguousarray(v))
-                if np.issubdtype(v.dtype, np.floating):
+            for k, t in read_safetensors(st_path).items():
+                if t.is_floating_point():
                     t = t.to(dtype)
                 out[k] = t.to(dev)
             return out
@@ -279,6 +277,7 @@ class GenerationEngine:
         tp, dp, sp = self._mesh_sizes()
         pp = self._pp
         spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
+        self._check_head_dim(spec_k)
         if tp * dp * sp > 1 and pp == 1 and p.n_kv_heads % tp:
             raise BackendError(
                 f"not ported to tpuserve_torch yet: n_kv_heads {p.n_kv_heads} over "
@@ -308,9 +307,36 @@ class GenerationEngine:
             nq = p.n_heads // p.n_kv_heads * (2 if qcfg.kv_cache == "int4" else 1)
             cache = qcfg.kv_cache if qcfg.kv_cache in ("int8", "int4") else "bf16"
             try:
-                check_multi_kernel(spec_k + 1, nq, cache=cache)
+                check_multi_kernel(spec_k + 1, nq, cache=cache, hd=p.head_dim)
             except ValueError as e:
                 raise BackendError(f"generation.speculation_tokens {spec_k}: {e}") from e
+
+    def _check_head_dim(self, spec_k: int) -> None:
+        """Refuse at load a head_dim that a decode-attention kernel of the
+        configured mode (TPUSERVE_DECODE_ATTN, read here as decode_step reads
+        it) does not take, naming the shape and the kernels: "pallas" runs
+        the flat core in the decode step, the multi-candidate core in a
+        speculative verify and the paged core over a paged pool wherever
+        head_dim is a multiple of 128 (else the einsum path, as the JAX
+        package); "grouped" runs the grouped kernel in the contiguous decode
+        step, and the einsum path over a paged pool. The kernels take
+        head_dim 128 and 256, so a larger multiple of 128 is refused here and
+        never at a decode step; the CPU's plain versions are held to the
+        card's shapes."""
+        p, gen = self.p, self.config.generation
+        mode = llama._decode_attn_mode(p)
+        if mode == "xla" or p.head_dim in KERNEL_HEAD_DIMS or (mode == "grouped" and gen.paged):
+            return
+        if mode == "grouped":
+            used = ["grouped"]
+        else:
+            used = ["paged" if gen.paged else "flat"]
+            if spec_k > 0 and not gen.paged:
+                used.append("multi-candidate")
+        raise BackendError(
+            f"head_dim {p.head_dim} ({p.n_heads} heads over {p.n_kv_heads} kv heads): the "
+            f"{' and '.join(used)} decode-attention kernel{'s' if len(used) > 1 else ''} of "
+            f"TPUSERVE_DECODE_ATTN={mode} take head_dim {' or '.join(map(str, KERNEL_HEAD_DIMS))}")
 
     def _check_pipeline(self, pp: int, tp: int, dp: int, sp: int) -> None:
         """The JAX engine's refusals under pipeline_parallel, with its
