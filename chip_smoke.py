@@ -74,6 +74,16 @@ Phases, each fatal on failure:
   4f3. mixtral-tp  the Mixtral-8x7B-width MoE at 4 layers, tensor_parallel
               2, int8 KV: each rank launches only its 4 experts' views, the
               same checks (the one-rank engine in the dense expert loop);
+  4f4. mqa-tp  after the pipeline and speculation phases: Gemma-2B's
+              widths (one kv head of 256) at 8 layers and tensor_parallel
+              2, which does not divide the kv heads: every rank holds
+              every kv head and attends by einsum, no attention kernel;
+              contiguous (4 greedy requests) and paged with prefix sharing
+              and 4 drafts, the quant-matmul's launches exact at the shard
+              shapes, each shard shape against its plain version, tokens
+              against the one-rank engine under TPUSERVE_DECODE_ATTN=xla,
+              load peaks, a profiled decode step, every rank's cache the
+              whole cache and the replicas byte-equal;
   4g. gptq   calibrated quantization: the slice's configuration at
               Llama-2-7B widths cut to 4 layers, init random (bf16 weights
               from a seed), int4 g128 with method gptq and
@@ -223,7 +233,8 @@ TPUSERVE_QMATMUL=xla against the kernel step. Then a `kernels` JSON line, the nv
 last line {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 
-    python3 chip_smoke.py            # needs one card
+    python3 chip_smoke.py                       # every phase; needs one card
+    python3 chip_smoke.py --phases mqa_tp,kernel   # device, build and these
 
 Imports torch and tpuserve_torch only (no JAX).
 """
@@ -3776,7 +3787,8 @@ def _mesh_prompts(torch, p, lengths, seed):
 
 def _rank_deltas(before, after):
     """Per rank: the change of every count between two rank_stats reads,
-    and the rank's memory and weight-block checksum."""
+    the rank's memory and weight-block checksum, and its cache's checksum
+    where the later read asked for it (rank_stats(cache=True))."""
     out = []
     for b, a in zip(before, after):
         d = {k: a[k] - b[k] for k in ("quant_matmul_launches", "decode_attention_launches",
@@ -3789,6 +3801,7 @@ def _rank_deltas(before, after):
         d.update({k: a[k] for k in ("rank", "coords", "device", "backend", "param_bytes",
                                     "cache_bytes", "param_fingerprint", "spec_disabled",
                                     "load_max_memory_allocated", "max_memory_allocated")},
+                 cache_fingerprint=a.get("cache_fingerprint"),
                  step_host_ms=a["step_host_ms_median"])
         out.append(d)
     return out
@@ -3897,16 +3910,19 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
     (not under sp: its merge is plain torch), or for a paged pool the paged
     core on the rank's block of layer 0's pages (_paged_shard_check). With
     `qmm_rows` the quant-matmul runs at that many rows instead (a verify's
-    S/dp * C). Tolerances as in [kernel]: one bf16 step at the largest
-    output; 2e-3 of the output range."""
+    S/dp * C). Where tp does not divide the kv heads (`kv_replicated`) the
+    attention is einsums on every rank, no kernel: the quant-matmul alone.
+    Tolerances as in [kernel]: one bf16 step at the largest output; 2e-3
+    of the output range."""
     from tpuserve_torch.models.llama import KVCache, _expert_slice, pack_kv_codes
     from tpuserve_torch.ops.decode_attention import (decode_attention_wide_cache_plain,
                                                      unpack_kv_codes)
     from tpuserve_torch.ops.quant_matmul import quant_matmul_plain
     from tpuserve_torch.parallel.mesh import Mesh
     from tpuserve_torch.parallel.sharding import (block_fingerprint, decode_attention_sharded,
-                                                  kernel_operand, local_llama_params,
-                                                  qmatmul_local, shard_cache, shard_llama_params)
+                                                  kernel_operand, kv_replicated,
+                                                  local_llama_params, qmatmul_local,
+                                                  shard_cache, shard_llama_params)
     from tpuserve_torch.quant.core import qmatmul
     from tpuserve_torch.serving.paged_kv import PagedKVCache
 
@@ -3957,7 +3973,9 @@ def _shard_kernel_checks(torch, tag, weights, cache_engine, sizes, deltas, pos_m
                 ref = quant_matmul_plain(x, view)
                 hold(f"quant_matmul experts {stack.n_experts} {k}x{n}", qmatmul(x, view), ref,
                      2 ** -7 * ref.float().abs().max().item())
-        if isinstance(full, PagedKVCache):
+        if kv_replicated(p, mesh):   # every rank attends by einsum: no core on its path
+            pass
+        elif isinstance(full, PagedKVCache):
             _paged_shard_check(torch, gen, hold, p, full, mesh, rows, pos_max)
         elif sp == 1:
             kv = [full.k[:1], full.v[:1]]
@@ -4453,7 +4471,7 @@ def _engine_ranks_phase(torch, p, smi_line, tag, cfg, prompts, new, per_call, at
         got, wall = _mesh_wave(lambda i: engine.generate(prompts[i], max_new_tokens=new,
                                                          logprobs=True), len(prompts), tag)
         steps, prefills = engine.steps - s0, engine.prefill_calls - f0
-        deltas = _rank_deltas(before, engine.rank_stats())
+        deltas = _rank_deltas(before, engine.rank_stats(cache=True))
         stats = engine.serving_stats()
         log(f"[{tag}] {world} engine-started ranks ({stats['mesh']}): load {load_s:.1f} s; "
             f"{len(prompts)} concurrent greedy requests of {new} tokens in {wall:.2f} s; decode "
@@ -4879,11 +4897,14 @@ def _check_spec_ranks(tag, deltas, world, p, mesh, gen, steps, prefills, vlog, s
     4 * n_layers + 1 times a call it ran (verifies, decode steps, its dp
     group's prefills) and exactly that many at a verify's S/dp * C rows at
     each shard shape, the flat core (a paged pool: the paged core) n_layers
-    times a decode step between verifies (0 under sp: the merge is plain
-    torch), no plain version; and it wrote each verify's candidate rows of
+    times a decode step between verifies (0 under sp, where the merge is
+    plain torch, and where tp does not divide the kv heads, where every
+    rank attends by einsum: `kv_replicated`), no plain version; and it wrote each verify's candidate rows of
     its own slots and L window and no others (its verify_rows_written
     against the count the controller's log gives its block)."""
-    dp, sp, tp = mesh["dp"], mesh["sp"], mesh["tp"]
+    from tpuserve_torch.parallel.sharding import kv_replicated
+
+    dp, sp, tp = mesh.shape["dp"], mesh.shape["sp"], mesh.shape["tp"]
     per_call = 4 * p.n_layers + 1
     c = int(gen["speculation_tokens"]) + 1
     s_loc = int(gen["max_slots"]) // dp
@@ -4907,7 +4928,7 @@ def _check_spec_ranks(tag, deltas, world, p, mesh, gen, steps, prefills, vlog, s
         owned[d["coords"]["dp"]] = calls - steps
         core, other = ("decode_attention_paged_launches", "decode_attention_launches") if paged \
             else ("decode_attention_launches", "decode_attention_paged_launches")
-        want_core = p.n_layers * decode_steps if sp == 1 else 0
+        want_core = p.n_layers * decode_steps if sp == 1 and not kv_replicated(p, mesh) else 0
         if d[core] != want_core or d[other]:
             fail(f"[{tag}] rank {r}: {d[core]} {core}, expected {want_core} ({p.n_layers} a "
                  f"decode step over {decode_steps}); {d[other]} {other}")
@@ -4952,7 +4973,10 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
     Both engines serve the `warm` prompts one at a time before their waves
     (a paged engine's shared prefix then registered before any wave, so
     that which request hits it does not hang on the order of admission).
-    Each wave's host-clock tokens/s is printed as a record of a gloo run."""
+    Each wave's host-clock tokens/s is printed as a record of a gloo run.
+    Each rank's load peak is held to its blocks and cache
+    (_check_rank_memory) and every rank profiles one decode step after the
+    waves (_log_profiles)."""
     from tpuserve_torch.engine.manager import InferenceManager
 
     gen = cfg["generation"]
@@ -4961,6 +4985,9 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
     waves = {}
     with env_set("TPUSERVE_FOLLOWER_LOG_DIR", log_dir), env_set("TPUSERVE_DIST_TIMEOUT", "300"):
         mgr = InferenceManager(_write_repo(cfg), num_workers=1, device=DEVICE)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()   # rank 0 lives in this process
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         mgr.load_model(cfg["name"])
         load_s = time.monotonic() - t0
@@ -4978,7 +5005,7 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
             got, wall = _mesh_wave(lambda i: engine.generate(prompts[i], max_new_tokens=new,
                                                              logprobs=True),
                                    len(prompts), f"{tag} spec {mode}")
-            deltas = _rank_deltas(before, engine.rank_stats())
+            deltas = _rank_deltas(before, engine.rank_stats(cache=True))
             w = dict(got=got, wall_s=wall, deltas=deltas, steps=engine.steps - base["steps"],
                      prefills=engine.prefill_calls - base["prefills"],
                      vlog=list(engine.verify_log)[base["log"]:],
@@ -4995,7 +5022,7 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
         if not on["drafted"] or not on["accepted"] or not on["vlog"]:
             fail(f"[{tag}] speculation on: drafted {on['drafted']}, accepted {on['accepted']}, "
                  f"verifies {len(on['vlog'])}")
-        rows = _check_spec_ranks(tag, on["deltas"], world, p, mesh, gen, on["steps"],
+        rows = _check_spec_ranks(tag, on["deltas"], world, p, engine.mesh, gen, on["steps"],
                                  on["prefills"], on["vlog"], shapes, paged, smi_line)
         if off["vlog"] or any(d["verify_calls"] for d in off["deltas"]):
             fail(f"[{tag}] speculation off still verified: "
@@ -5005,6 +5032,12 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
                       if a >= 0 and n > 1 and a // half != (a + n - 1) // half) \
             if mesh["sp"] > 1 else None
         stats = engine.serving_stats()
+        # speculation is off: the next dispatch is a decode step
+        engine.profile_next_decode()
+        engine.generate(prompts[0], max_new_tokens=4)
+        profiles = [r["decode_profile"] and _profile_summary(r["decode_profile"])
+                    for r in engine.rank_stats()]
+        _log_profiles(tag, profiles, off["deltas"], smi_line)
         followers = list(engine._followers)
         mgr.shutdown()
         if any(f.poll() is None for f in followers) or any(f.returncode for f in followers):
@@ -5024,11 +5057,14 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
     checks = _shard_kernel_checks(torch, tag, ref_engine, ref_engine, sizes, on["deltas"],
                                   max(map(len, prompts)) + new - 2,
                                   qmm_rows=int(gen["max_slots"]) // mesh["dp"] * c)
+    mem = _check_rank_memory(tag, on["deltas"], ref_engine._param_bytes, mesh["tp"],
+                             base=(held,))
     ref_mgr.shutdown()
     log(f"[{tag}] verify rows by (dp, sp) block: {rows}; verifies whose candidates straddle "
         f"two sp windows: {crossed}; prefix hits {stats.get('prefix_hits')}; load {load_s:.1f} s")
     d_on = on["deltas"]
     return dict(mesh=mesh, load_s=load_s, gate=gate, gate_off=gate_off, kernel_checks=checks,
+                memory=mem, profiles=profiles,
                 verify_rows={f"dp{d} sp{s_}": n for (d, s_), n in rows.items()},
                 straddling_verifies=crossed, prefix_hits=stats.get("prefix_hits"),
                 waves={m: {k: v for k, v in w.items() if k not in ("got", "vlog")}
@@ -5040,17 +5076,22 @@ def _spec_mesh_phase(torch, p, smi_line, tag, cfg, prompts, new, shapes, paged=F
                                                          for d in d_on)))
 
 
-def phase_spec_tp(torch, p, smi_line):
-    """[spec-tp]: the [spec] phase's model and settings (Llama-2-7B widths, 32
-    layers, int4 g128, int8 KV, 8 slots of 512, 8 drafts) at
-    tensor_parallel 2 on engine-started ranks: 8 concurrent greedy requests
-    of the periodic prompt, 64 tokens each; a verify runs 72 rows (8 slots
-    x C 9) through each rank's shard shapes."""
-    cfg = dict(_spec_model_config(p), name="llama2_7b_int4_spec_tp2",
+def phase_spec_tp(torch, p, smi_line, n_layers=16):
+    """[spec-tp]: the [spec] phase's model and settings (Llama-2-7B widths,
+    int4 g128, int8 KV, 8 slots of 512, 8 drafts) cut to 16 of its 32
+    layers (the deepest sharded phase; its gloo ranks' host-bound steps
+    made it the script's most variable phase at 32) at tensor_parallel 2
+    on engine-started ranks: 8 concurrent greedy requests of the periodic
+    prompt, 64 tokens each; a verify runs 72 rows (8 slots x C 9) through
+    each rank's shard shapes."""
+    import dataclasses as dc
+
+    pc = dc.replace(p, n_layers=n_layers)
+    cfg = dict(_spec_model_config(pc), name="llama2_7b_l16_spec_tp2",
                sharding={"tensor_parallel": 2})
     prompts = [_periodic_prompt(p.vocab_size)] * 8
-    return _spec_mesh_phase(torch, p, smi_line, "spec-tp", cfg, prompts, 64,
-                            _qmm_shard_shapes(p, 2))
+    return _spec_mesh_phase(torch, pc, smi_line, "spec-tp", cfg, prompts, 64,
+                            _qmm_shard_shapes(pc, 2))
 
 
 def phase_spec_dp_sp(torch, p, smi_line, n_layers=8):
@@ -5101,6 +5142,96 @@ def phase_spec_paged_tp(torch, p, smi_line, n_layers=8):
                _periodic(p.vocab_size, 72, 18)]
     return _spec_mesh_phase(torch, pc, smi_line, "spec-paged-tp", cfg, prompts, 32,
                             _qmm_shard_shapes(pc, 2), paged=True, ref_env=(), warm=[a])
+
+
+def gemma_2b_params(n_layers=18):
+    """Gemma-2B's published widths and attention (google/gemma-2b
+    config.json: hidden 2048, 8 query heads over 1 kv head of head_dim 256,
+    intermediate 16384, vocab 256000, rms_norm_eps 1e-6, 18 layers) on the
+    repo's Llama block (SwiGLU, an untied lm_head), cut to `n_layers`."""
+    from tpuserve_torch.models.llama import LlamaParams
+
+    return LlamaParams(vocab_size=256000, dim=2048, n_layers=n_layers, n_heads=8, n_kv_heads=1,
+                       head_dim=256, ffn_dim=16384, rms_eps=1e-6)
+
+
+def _whole_kv_bytes(p, cfg):
+    """The bytes of the whole int8 cache of a one-rank engine on `cfg`:
+    contiguous [n_layers, S, L, Hkv, hd] codes twice and [n_layers, S, Hkv,
+    L] scales twice (kv_scale_dtype, bf16 by default), or the pool's
+    (num_pages = S * pages a slot + 1; f32 scale pools of pad8(Hkv) rows a
+    page)."""
+    gen = cfg["generation"]
+    hkv, hd, s, l = p.n_kv_heads, p.head_dim, int(gen["max_slots"]), int(gen["max_seq_len"])
+    if not gen.get("paged"):
+        scale = 4 if cfg["quantization"].get("kv_scale_dtype") == "float32" else 2
+        return 2 * p.n_layers * s * l * hkv * (hd + scale)
+    ps = int(gen["page_size"])
+    pages = s * -(-l // ps) + 1
+    return 2 * p.n_layers * pages * ps * (hkv * hd + 4 * ((hkv + 7) // 8 * 8))
+
+
+def _check_replicas(tag, deltas, whole):
+    """Every tp rank holds the whole cache (its bytes those of the one-rank
+    engine's) and the replicas are byte-equal (the ranks' cache checksums)."""
+    sizes = [d["cache_bytes"] for d in deltas]
+    sums = {d["cache_fingerprint"] for d in deltas}
+    if any(n != whole for n in sizes) or len(sums) != 1:
+        fail(f"[{tag}] the ranks' caches are not the whole cache of {whole} bytes on every "
+             f"rank, byte-equal: bytes {sizes}, checksums {sums}")
+    log(f"[{tag}] every rank holds the whole cache ({whole} bytes) and the replicas are "
+        f"byte-equal (checksum {sums.pop()})")
+
+
+def phase_mqa_tp(torch, smi_line, n_layers=8):
+    """[mqa-tp]: a tensor_parallel 2 mesh that does not divide the kv heads,
+    at Gemma-2B's widths (`gemma_2b_params`: one kv head of 256, 8 query
+    heads) cut to 8 of its 18 layers to keep the phase within its share of
+    the script's time: int4 g128 drawn from seed 0, int8 KV (the JAX engine
+    refuses int4 KV here), 8 slots of 512, two engine-started ranks sharing
+    the card over gloo. Every rank keeps every kv head (the 5D cache or
+    pool replicated over tp, as the JAX package's GSPMD path) and attends by
+    einsum: no attention kernel; the quant-matmul at the rank's shard
+    shapes (wqkv 2048x1280, wo 1024x2048, w_gateup 2048x16384, w_down
+    8192x2048, lm_head 2048x128000). (a) contiguous, 4 greedy requests of
+    16 tokens (the [tp] checks: exact launches, no plain call, each shard
+    shape against its plain version, tokens against the one-rank engine
+    under TPUSERVE_DECODE_ATTN=xla by the near-tie gate, load peak, a
+    profiled decode step on every rank); (b) a paged int8 pool of 128-token
+    pages with prefix sharing and 4 drafts on periodic prompts, 32 tokens
+    each (the [spec-paged-tp] checks, a verify's rows at each shard shape,
+    the same gate, load peak and profile). Both: every rank's cache is the
+    whole cache, the replicas byte-equal."""
+    pc = gemma_2b_params(n_layers)
+    shapes = _qmm_shard_shapes(pc, 2)
+    cfg = _model_config(pc)
+    cfg.update(name="gemma_2b_l8_mqa_tp2", sharding={"tensor_parallel": 2})
+    cfg["model_params"]["rms_eps"] = pc.rms_eps
+    cfg["quantization"] = dict(cfg["quantization"], kv_cache="int8")
+    cfg["generation"] = {"max_seq_len": 512, "max_slots": 8, "eos_token_id": -1,
+                         "max_new_tokens": 32, "prefill_chunk": 64, "decode_horizon": 8}
+    xla = (("TPUSERVE_DECODE_ATTN", "xla"),)
+    prompts = _mesh_prompts(torch, pc, (5, 90, 33, 150), 41)
+    contiguous = _engine_ranks_phase(torch, pc, smi_line, "mqa-tp", cfg, prompts, 16,
+                                     4 * pc.n_layers + 1, attn=False, shapes=shapes,
+                                     ref_env=xla)
+    _check_replicas("mqa-tp", contiguous["ranks"], _whole_kv_bytes(pc, cfg))
+    pcfg = dict(cfg, name="gemma_2b_l8_mqa_tp2_paged")
+    pcfg["generation"] = dict(cfg["generation"], paged=True, page_size=128, num_pages=0,
+                              prefix_sharing=True, prefill_chunk=128, speculation_tokens=4,
+                              speculation_min_gain=0)
+    a = _periodic(pc.vocab_size, 200, 11)
+    pprompts = [a, a[:128] + _periodic(pc.vocab_size, 60, 12),
+                _periodic(pc.vocab_size, 40, 13), _periodic(pc.vocab_size, 96, 14)]
+    paged = _spec_mesh_phase(torch, pc, smi_line, "mqa-tp-paged", pcfg, pprompts, 32, shapes,
+                             paged=True, ref_env=xla, warm=[a])
+    _check_replicas("mqa-tp-paged", paged["waves"]["off"]["deltas"], _whole_kv_bytes(pc, pcfg))
+    launched = contiguous["launches"]["quant_matmul"] + paged["launches"]["quant_matmul"]
+    log(f"[mqa-tp] quant-matmul launches at the shard shapes {shapes}: {launched} "
+        f"(contiguous {contiguous['launches']['quant_matmul']}, paged with speculation "
+        f"{paged['launches']['quant_matmul']}); card {smi_line}")
+    return dict(contiguous=contiguous, paged=paged, shapes=shapes,
+                launches=dict(quant_matmul=launched))
 
 
 def phase_native(torch, p, smi_line, n_layers=4):
@@ -6572,9 +6703,46 @@ def _timed(seconds, what, fn, /, *args, **kw):
     return out
 
 
-def main() -> None:
+# every phase after device and build, by the name --phases takes, in the
+# order main runs them
+PHASES = ("kernel", "kernel_grid", "slice", "rest", "mixtral", "tp", "dp_sp", "mixtral_tp",
+          "pp", "pp_tp", "pp_paged", "paged_tp", "spec_tp", "spec_dp_sp", "spec_paged_tp",
+          "pp_mixtral", "mqa_tp", "w4a8", "odd", "g344", "w4a8_g344", "gptq", "llm_demo",
+          "zoo", "paged", "spec", "spec_bf16", "spec_paged", "grouped", "grouped_bf16",
+          "hd256", "gqa8", "scripts", "native", "sweep", "unpack", "diag", "qmm_sweep",
+          "moe_ab")
+
+
+def _parse_phases(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's chip smoke run on one card.")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run (default: every phase); device and "
+                         f"build always run. Phases: {', '.join(PHASES)}")
+    names = [n for n in ap.parse_args(argv).phases.split(",") if n]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
+    return set(names) or set(PHASES)
+
+
+def _add_path(results, kname, tag, launched, first=None):
+    """Add a path's launches to a kernel's entry of the kernels line, by
+    path (`first` names the entry's own count where the path table starts
+    with it); a no-op when the kernel phase did not run."""
+    entry = results.get(kname)
+    if entry is None:
+        return
+    by = entry.setdefault("launches_by_path", {} if first is None else {first: entry["launches"]})
+    by[tag] = launched
+    entry["launches"] += launched
+
+
+def main(argv=None) -> None:
     import torch
 
+    want = _parse_phases(argv)
     name, count, smi_line = phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6584,153 +6752,170 @@ def main() -> None:
     p_moe = LlamaParams.mixtral_8x7b()
     t0 = time.monotonic()
     seconds = {}
+
+    def run(what, fn, *args, **kw):
+        """A selected phase's result (timed), else None."""
+        return _timed(seconds, what, fn, *args, **kw) if what in want else None
+
     build = _timed(seconds, "build", phase_build)
     timer = Timer(torch)
-    results = _timed(seconds, "kernel", phase_kernels, torch, timer, 20, p, p_moe)
+    results = run("kernel", phase_kernels, torch, timer, 20, p, p_moe) or {}
     # every head shape the Pallas kernels serve, each entry against its plain version
-    grid_res = _timed(seconds, "kernel_grid", phase_kernel_grid, torch)
-    slice_res = _timed(seconds, "slice", phase_slice, torch, p, smi_line)
-    for name_, launched in slice_res["launches"].items():
-        results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
+    grid_res = run("kernel_grid", phase_kernel_grid, torch)
+    slice_res = run("slice", phase_slice, torch, p, smi_line)
+    if slice_res and results:
+        for name_, launched in slice_res["launches"].items():
+            results[{"smoke": "vector_add"}.get(name_, name_)]["launches"] = launched
     # the slice through its front: the served wave's launches add to the
     # main path's
-    rest_res = _timed(seconds, "rest", phase_rest, torch, p, smi_line)
-    for name_, launched in rest_res["launches"].items():
-        results[name_]["launches_by_path"] = {"slice": results[name_]["launches"],
-                                              "rest": launched}
-        results[name_]["launches"] += launched
+    rest_res = run("rest", phase_rest, torch, p, smi_line)
+    if rest_res:
+        for name_, launched in rest_res["launches"].items():
+            _add_path(results, name_, "rest", launched, first="slice")
     # the MoE path: the quant-matmul on expert views and the flat core at
     # GQA rep 4, each counted over the [mixtral] run
-    mixtral_res = _timed(seconds, "mixtral", phase_mixtral, torch, p_moe, smi_line)
-    results["quant_matmul_experts"]["launches"] = mixtral_res["launches"]["quant_matmul"]
-    results["decode_attention_gqa"]["launches"] = mixtral_res["launches"]["decode_attention"]
+    mixtral_res = run("mixtral", phase_mixtral, torch, p_moe, smi_line)
+    if mixtral_res and results:
+        results["quant_matmul_experts"]["launches"] = mixtral_res["launches"]["quant_matmul"]
+        results["decode_attention_gqa"]["launches"] = \
+            mixtral_res["launches"]["decode_attention"]
     # sharded serving: ranks that share the card over gloo, each counting
     # its own launches at the shard shapes (the controller gathers them)
-    tp_res = _timed(seconds, "tp", phase_tp, torch, p, smi_line)
-    dp_sp_res = _timed(seconds, "dp_sp", phase_dp_sp, torch, p, smi_line)
-    mixtral_tp_res = _timed(seconds, "mixtral_tp", phase_mixtral_tp, torch, p_moe, smi_line)
+    tp_res = run("tp", phase_tp, torch, p, smi_line)
+    dp_sp_res = run("dp_sp", phase_dp_sp, torch, p, smi_line)
+    mixtral_tp_res = run("mixtral_tp", phase_mixtral_tp, torch, p_moe, smi_line)
     for tag, res_ in (("tp", tp_res), ("dp-sp", dp_sp_res), ("mixtral-tp", mixtral_tp_res)):
-        for name_, launched in res_["launches"].items():
-            entry = results[name_]
-            entry.setdefault("launches_by_path", {"mixtral": entry["launches"]})[tag] = launched
-            entry["launches"] += launched
+        for name_, launched in (res_ or {}).get("launches", {}).items():
+            _add_path(results, name_, tag, launched, first="mixtral")
     # the layer pipeline (stage blocks, 5D stage caches and the 5D paged
     # pool) and paged KV under tensor_parallel: row 1 on every stage's
     # shapes, row 5 on each rank's kv heads of the pool (added to the paged
     # path's count below)
-    pp_res = _timed(seconds, "pp", phase_pp, torch, p, smi_line)
-    pp_tp_res = _timed(seconds, "pp_tp", phase_pp_tp, torch, p, smi_line)
-    pp_paged_res = _timed(seconds, "pp_paged", phase_pp_paged, torch, p, smi_line)
-    paged_tp_res = _timed(seconds, "paged_tp", phase_paged_tp, torch, p, smi_line)
+    pp_res = run("pp", phase_pp, torch, p, smi_line)
+    pp_tp_res = run("pp_tp", phase_pp_tp, torch, p, smi_line)
+    pp_paged_res = run("pp_paged", phase_pp_paged, torch, p, smi_line)
+    paged_tp_res = run("paged_tp", phase_paged_tp, torch, p, smi_line)
     # speculation across ranks (row 1 at a verify's S/dp * C rows, row 2 on
     # the rank's heads in the decode steps between verifies, row 5 per
     # shard) and pp x MoE (row 1i on each stage's own experts)
-    spec_tp_res = _timed(seconds, "spec_tp", phase_spec_tp, torch, p, smi_line)
-    spec_dp_sp_res = _timed(seconds, "spec_dp_sp", phase_spec_dp_sp, torch, p, smi_line)
-    spec_paged_tp_res = _timed(seconds, "spec_paged_tp", phase_spec_paged_tp, torch, p,
-                               smi_line)
-    pp_mixtral_res = _timed(seconds, "pp_mixtral", phase_pp_mixtral, torch, p_moe, smi_line)
+    spec_tp_res = run("spec_tp", phase_spec_tp, torch, p, smi_line)
+    spec_dp_sp_res = run("spec_dp_sp", phase_spec_dp_sp, torch, p, smi_line)
+    spec_paged_tp_res = run("spec_paged_tp", phase_spec_paged_tp, torch, p, smi_line)
+    pp_mixtral_res = run("pp_mixtral", phase_pp_mixtral, torch, p_moe, smi_line)
+    # a tp that does not divide the kv heads (Gemma-2B's one kv head at tp
+    # 2): row 1 at the shard shapes, no attention kernel (einsums)
+    mqa_tp_res = run("mqa_tp", phase_mqa_tp, torch, smi_line)
     for tag, res_ in (("pp", pp_res), ("pp-tp", pp_tp_res), ("pp-paged", pp_paged_res),
                       ("paged-tp", paged_tp_res), ("spec-tp", spec_tp_res),
                       ("spec-dp-sp", spec_dp_sp_res), ("spec-paged-tp", spec_paged_tp_res),
-                      ("pp-mixtral", pp_mixtral_res)):
-        launched = res_["launches"]["quant_matmul"]
-        results["quant_matmul"]["launches_by_path"][tag] = launched
-        results["quant_matmul"]["launches"] += launched
+                      ("pp-mixtral", pp_mixtral_res), ("mqa-tp", mqa_tp_res)):
+        if res_:
+            _add_path(results, "quant_matmul", tag, res_["launches"]["quant_matmul"])
     for tag, res_ in (("spec-tp", spec_tp_res), ("spec-dp-sp", spec_dp_sp_res)):
-        entry = results["decode_attention"]
-        entry.setdefault("launches_by_path", {"slice": entry["launches"]})[tag] = \
-            res_["launches"]["decode_attention"]
-        entry["launches"] += res_["launches"]["decode_attention"]
-    results["quant_matmul_experts"]["launches_by_path"]["pp-mixtral"] = \
-        pp_mixtral_res["launches"]["quant_matmul_experts"]
-    results["quant_matmul_experts"]["launches"] += \
-        pp_mixtral_res["launches"]["quant_matmul_experts"]
+        if res_:
+            _add_path(results, "decode_attention", tag, res_["launches"]["decode_attention"],
+                      first="slice")
+    if pp_mixtral_res:
+        _add_path(results, "quant_matmul_experts", "pp-mixtral",
+                  pp_mixtral_res["launches"]["quant_matmul_experts"])
     # the slice's path with int8 activations, then with groups a 64-row
     # stage cannot tile: each route's launches are that run's
-    w4a8_res = _timed(seconds, "w4a8", phase_quant_route, torch, p, smi_line, "w4a8",
-                      {"activations": "int8"}, {"w4a8_launches": 4 * p.n_layers + 1})
-    results["quant_matmul_w4a8"] = dict(results["quant_matmul"]["w4a8"],
-                                        launches=w4a8_res["launches"]["w4a8_launches"])
-    results["quantize_rows"]["launches"] = w4a8_res["launches"]["quantize_launches"]
-    odd_res = _timed(seconds, "odd", phase_quant_route, torch, p, smi_line, "odd",
-                     {"group_size": 688}, {"odd_group_launches": p.n_layers})
-    results["quant_matmul_odd_groups"] = dict(results["quant_matmul"]["odd"],
-                                              launches=odd_res["launches"]["odd_group_launches"])
+    w4a8_res = run("w4a8", phase_quant_route, torch, p, smi_line, "w4a8",
+                   {"activations": "int8"}, {"w4a8_launches": 4 * p.n_layers + 1})
+    if w4a8_res and results:
+        results["quant_matmul_w4a8"] = dict(results["quant_matmul"]["w4a8"],
+                                            launches=w4a8_res["launches"]["w4a8_launches"])
+        results["quantize_rows"]["launches"] = w4a8_res["launches"]["quantize_launches"]
+    odd_res = run("odd", phase_quant_route, torch, p, smi_line, "odd",
+                  {"group_size": 688}, {"odd_group_launches": p.n_layers})
+    if odd_res and results:
+        results["quant_matmul_odd_groups"] = dict(
+            results["quant_matmul"]["odd"], launches=odd_res["launches"]["odd_group_launches"])
     # w_down in groups of 344 (11008 / 32), the rest per channel: masked
     # k16 steps with bf16 x, masked k32 steps with int8 x
-    g344_res = _timed(seconds, "g344", phase_quant_route, torch, p, smi_line, "g344",
-                      {"group_size": 344}, {"group_route_launches": p.n_layers})
-    results["quant_matmul_group_route"] = dict(
-        results["quant_matmul"]["group_route"],
-        launches=g344_res["launches"]["group_route_launches"])
-    results["stage_x"]["launches"] = g344_res["launches"]["stage_launches"]
-    w4a8_g344_res = _timed(
-        seconds, "w4a8_g344", phase_quant_route,
+    g344_res = run("g344", phase_quant_route, torch, p, smi_line, "g344",
+                   {"group_size": 344}, {"group_route_launches": p.n_layers})
+    if g344_res and results:
+        results["quant_matmul_group_route"] = dict(
+            results["quant_matmul"]["group_route"],
+            launches=g344_res["launches"]["group_route_launches"])
+        results["stage_x"]["launches"] = g344_res["launches"]["stage_launches"]
+    w4a8_g344_res = run(
+        "w4a8_g344", phase_quant_route,
         torch, p, smi_line, "w4a8-g344", {"group_size": 344, "activations": "int8"},
         {"w4a8_launches": 3 * p.n_layers + 1, "w4a8_route_launches": p.n_layers})
-    results["quant_matmul_w4a8_route"] = dict(
-        results["quant_matmul"]["w4a8_route"],
-        launches=w4a8_g344_res["launches"]["w4a8_route_launches"])
+    if w4a8_g344_res and results:
+        results["quant_matmul_w4a8_route"] = dict(
+            results["quant_matmul"]["w4a8_route"],
+            launches=w4a8_g344_res["launches"]["w4a8_route_launches"])
     # calibrated quantization: the load's calibration pass runs the f32-x
     # route (its launches are that load's), the served run the bf16 route
     # and the flat core with LoRC on top
-    gptq_res = _timed(seconds, "gptq", phase_gptq, torch, timer, 20, p, smi_line)
-    results["quant_matmul_f32"] = dict(
-        results["quant_records"]["f32"], launches=gptq_res["load_launches"]["f32_launches"],
-        per="one call: wo (K 4096, N 4096), B=64, int4 g128, f32 x as three bf16 pieces",
-        calibration=gptq_res["f32_calibration"])
-    for name_, launched in (("quant_matmul", gptq_res["launches"]["launches"]),
-                            ("decode_attention", gptq_res["attention_launches"])):
-        results[name_]["launches_by_path"]["gptq"] = launched
-        results[name_]["launches"] += launched
-    llm_demo_res = _timed(seconds, "llm_demo", phase_llm_demo, torch, smi_line)
+    gptq_res = run("gptq", phase_gptq, torch, timer, 20, p, smi_line)
+    if gptq_res and results:
+        results["quant_matmul_f32"] = dict(
+            results["quant_records"]["f32"],
+            launches=gptq_res["load_launches"]["f32_launches"],
+            per="one call: wo (K 4096, N 4096), B=64, int4 g128, f32 x as three bf16 pieces",
+            calibration=gptq_res["f32_calibration"])
+        for name_, launched in (("quant_matmul", gptq_res["launches"]["launches"]),
+                                ("decode_attention", gptq_res["attention_launches"])):
+            _add_path(results, name_, "gptq", launched)
+    llm_demo_res = run("llm_demo", phase_llm_demo, torch, smi_line)
     # the model zoo through the port's front: its served int8 quant-matmuls
     # (row 1b) add to the main path's, and eval_accuracy's f32-x calls to
     # the f32 route's
-    zoo_res = _timed(seconds, "zoo", phase_zoo, torch, timer, smi_line)
-    results["quant_matmul_int8"] = dict(zoo_res["entry"], launches=zoo_res["launches"])
-    results["quant_matmul_f32"]["launches_by_path"] = {
-        "gptq": results["quant_matmul_f32"]["launches"], "zoo": zoo_res["f32_launches"]}
-    results["quant_matmul_f32"]["launches"] += zoo_res["f32_launches"]
-    paged_res = _timed(seconds, "paged", phase_paged_slice, torch, p, smi_line)
+    zoo_res = run("zoo", phase_zoo, torch, timer, smi_line)
+    if zoo_res and results:
+        results["quant_matmul_int8"] = dict(zoo_res["entry"], launches=zoo_res["launches"])
+        if "quant_matmul_f32" in results:
+            _add_path(results, "quant_matmul_f32", "zoo", zoo_res["f32_launches"],
+                      first="gptq")
+    paged_res = run("paged", phase_paged_slice, torch, p, smi_line)
     # the paged kernel runs on the paged path only: its count is that run's
-    results["decode_attention_paged"]["launches"] = \
-        paged_res["launches"]["decode_attention_paged"]
-    results["decode_attention_paged"]["launches_by_path"] = {
-        "paged": paged_res["launches"]["decode_attention_paged"],
-        "paged-tp": paged_tp_res["launches"]["decode_attention_paged"],
-        "spec-paged-tp": spec_paged_tp_res["launches"]["decode_attention_paged"]}
-    results["decode_attention_paged"]["launches"] += \
-        paged_tp_res["launches"]["decode_attention_paged"] \
-        + spec_paged_tp_res["launches"]["decode_attention_paged"]
-    spec_res = _timed(seconds, "spec", phase_spec, torch, p, smi_line)
+    if results:
+        entry = results["decode_attention_paged"]
+        for tag, res_ in (("paged", paged_res), ("paged-tp", paged_tp_res),
+                          ("spec-paged-tp", spec_paged_tp_res)):
+            if res_:
+                if tag == "paged":
+                    entry["launches"] = 0
+                _add_path(results, "decode_attention_paged", tag,
+                          res_["launches"]["decode_attention_paged"])
+    spec_res = run("spec", phase_spec, torch, p, smi_line)
     # the multi kernel runs on the speculative path only: its count is that run's
-    results["decode_attention_multi"]["launches"] = spec_res["launches"]["decode_attention_multi"]
+    if spec_res and results:
+        results["decode_attention_multi"]["launches"] = \
+            spec_res["launches"]["decode_attention_multi"]
     # the JAX package's default cache (kv_cache none, bf16): the multi
     # kernel's float route, counted over that run
-    spec_bf16_res = _timed(seconds, "spec_bf16", phase_spec, torch, p, smi_line,
-                           tag="spec-bf16", kv_cache="none")
-    results["decode_attention_multi_float"] = dict(
-        results["decode_attention_multi"]["float"],
-        launches=spec_bf16_res["launches"]["decode_attention_multi"])
-    spec_paged_res = _timed(seconds, "spec_paged", phase_spec_paged, torch, p, smi_line)
-    grouped_res = _timed(seconds, "grouped", phase_grouped, torch, timer, p, smi_line)
+    spec_bf16_res = run("spec_bf16", phase_spec, torch, p, smi_line, tag="spec-bf16",
+                        kv_cache="none")
+    if spec_bf16_res and results:
+        results["decode_attention_multi_float"] = dict(
+            results["decode_attention_multi"]["float"],
+            launches=spec_bf16_res["launches"]["decode_attention_multi"])
+    spec_paged_res = run("spec_paged", phase_spec_paged, torch, p, smi_line)
+    grouped_res = run("grouped", phase_grouped, torch, timer, p, smi_line)
     # the grouped kernel runs on the grouped path only: its count is that run's
-    results["decode_attention_grouped"]["launches"] = \
-        grouped_res["launches"]["decode_attention_grouped"]
-    grouped_bf16_res = _timed(seconds, "grouped_bf16", phase_grouped, torch, timer, p,
-                              smi_line, tag="grouped-bf16", kv_cache="none")
-    results["decode_attention_grouped_float"] = dict(
-        results["decode_attention_grouped"]["float"],
-        launches=grouped_bf16_res["launches"]["decode_attention_grouped"])
+    if grouped_res and results:
+        results["decode_attention_grouped"]["launches"] = \
+            grouped_res["launches"]["decode_attention_grouped"]
+    grouped_bf16_res = run("grouped_bf16", phase_grouped, torch, timer, p, smi_line,
+                           tag="grouped-bf16", kv_cache="none")
+    if grouped_bf16_res and results:
+        results["decode_attention_grouped_float"] = dict(
+            results["decode_attention_grouped"]["float"],
+            launches=grouped_bf16_res["launches"]["decode_attention_grouped"])
     # head_dim 256 and GQA rep 8 served end to end (the core at NT 2 paged,
     # three row groups a verify), each kernel timed at those shapes; then
     # the slice's five scripts
-    shape_res = {tag: _timed(seconds, tag, phase_head_shape, torch, timer, 20, smi_line, tag,
-                             paged_kv) for tag, paged_kv in (("hd256", "int8"), ("gqa8", "int4"))}
+    shape_res = {tag: run(tag, phase_head_shape, torch, timer, 20, smi_line, tag, paged_kv)
+                 for tag, paged_kv in (("hd256", "int8"), ("gqa8", "int4"))}
     for tag, suffix in (("hd256", "hd256"), ("gqa8", "rep8")):
         res_ = shape_res[tag]
+        if not res_:
+            continue
         for part, kname, launched in (
                 ("flat", "decode_attention", res_["contiguous_launches"]["decode_attention"]),
                 ("multi", "decode_attention_multi",
@@ -6740,22 +6925,25 @@ def main() -> None:
                 ("grouped", "decode_attention_grouped",
                  res_["grouped_launches"]["decode_attention_grouped"])):
             results[f"{kname}_{suffix}"] = dict(res_["kernels"][part], launches=launched)
-    scripts_res = _timed(seconds, "scripts", phase_scripts, torch, smi_line)
+    scripts_res = run("scripts", phase_scripts, torch, smi_line)
     # the native runtime last of the served phases: once built, the
     # binding finds native/build/libtpuserve.so in every later load
-    native_res = _timed(seconds, "native", phase_native, torch, p, smi_line)
-    sweep_res = _timed(seconds, "sweep", phase_sweep, torch)
+    native_res = run("native", phase_native, torch, p, smi_line)
+    sweep_res = run("sweep", phase_sweep, torch)
     # the probes and the prebuilt-Q_wide entry run in the sweep only
-    for kname, launched in sweep_res["launches"].items():
-        results[kname]["launches"] = launched
-    unpack_res = _timed(seconds, "unpack", phase_unpack, torch, timer, 20, p, smi_line)
+    for kname, launched in (sweep_res or {}).get("launches", {}).items():
+        if kname in results:
+            results[kname]["launches"] = launched
+    unpack_res = run("unpack", phase_unpack, torch, timer, 20, p, smi_line)
     # the unpack probes run in the microbenchmark only, the copy kernel in diag_bw
-    for kname, launched in unpack_res["launches"].items():
-        results[kname]["launches"] = launched
-    diag_res = _timed(seconds, "diag", phase_diag_bw, torch)
-    results["diag_copy"]["launches"] = diag_res["launches"]
-    qmm_sweep_res = _timed(seconds, "qmm_sweep", phase_qmm_sweep, torch)
-    moe_ab_res = _timed(seconds, "moe_ab", phase_moe_ab, torch)
+    for kname, launched in (unpack_res or {}).get("launches", {}).items():
+        if kname in results:
+            results[kname]["launches"] = launched
+    diag_res = run("diag", phase_diag_bw, torch)
+    if diag_res and results:
+        results["diag_copy"]["launches"] = diag_res["launches"]
+    qmm_sweep_res = run("qmm_sweep", phase_qmm_sweep, torch)
+    moe_ab_res = run("moe_ab", phase_moe_ab, torch)
     sources = {"vector_add": ("tpuserve_torch/csrc/vector_add.cu",
                               "tpuserve/device/smoke.py:21"),
                "quant_matmul": ("tpuserve_torch/csrc/quant_matmul.cu",
@@ -6861,6 +7049,8 @@ def main() -> None:
                              "scripts/diag_bw.py:78 (copy_kernel; calls :137, :165, :201)")}
     line = []
     for kname in sources:
+        if kname not in results:   # its phases were not selected
+            continue
         r = results[kname]
         line.append({"name": kname, "route": "cuda", "source": sources[kname][0],
                      "replaces": sources[kname][1], "launches": r["launches"],
@@ -6884,14 +7074,14 @@ def main() -> None:
                    "pp": pp_res, "pp_tp": pp_tp_res, "pp_paged": pp_paged_res,
                    "paged_tp": paged_tp_res, "spec_tp": spec_tp_res,
                    "spec_dp_sp": spec_dp_sp_res, "spec_paged_tp": spec_paged_tp_res,
-                   "pp_mixtral": pp_mixtral_res, "native": native_res,
+                   "pp_mixtral": pp_mixtral_res, "mqa_tp": mqa_tp_res, "native": native_res,
                    "kernel_grid": grid_res, "hd256": shape_res["hd256"],
                    "gqa8": shape_res["gqa8"], "scripts": scripts_res,
                    "gptq": gptq_res, "llm_demo": llm_demo_res, "zoo": zoo_res,
                    "moe_ab": moe_ab_res,
                    "sweep": sweep_res, "unpack": unpack_res,
                    "diag_bw": diag_res, "qmm_sweep": qmm_sweep_res,
-                   "phase_seconds": seconds,
+                   "phases": sorted(want, key=PHASES.index), "phase_seconds": seconds,
                    "seconds": time.monotonic() - t0}, fh, indent=1,
                   default=str)
     print(json.dumps({"kernels": line}), flush=True)

@@ -160,18 +160,21 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path, monkeypatch):
     ({"model_params.n_experts": 4}, True),
     ({"sharding.pipeline_parallel": 2, "generation.prefill_chunk": 0,
       "quantization.kv_cache": "int8"}, True),
+    ({"sharding.tensor_parallel": 2, "model_params.n_kv_heads": 1,
+      "quantization.kv_cache": "int8"}, True),
 ], ids=["generation.paged-True", "generation.speculation_tokens-4",
         "sharding.tensor_parallel-2", "quantization.method-gptq",
         "quantization.lowrank_correction-16", "model_params.n_experts-4",
-        "sharding.pipeline_parallel-2"])
+        "sharding.pipeline_parallel-2", "kv_heads-1-over-tensor_parallel-2"])
 def test_unported_configurations_raise(tmp_path, overrides, ported):
     """Unported parts raise instead of running something else. Speculative
     decoding, paged or contiguous, MoE, GPTQ, LoRC, tensor parallelism and
     pipeline_parallel (the engine's own follower rank, which fails alike;
     the pipeline with what the JAX engine composes it with: no
-    prefill_chunk, int8 KV) are ported: their configurations pass the check
-    and go on to load the model (which fails here: the directory holds no
-    checkpoint)."""
+    prefill_chunk, int8 KV) and a tp that does not divide n_kv_heads (int8
+    KV: every kv head on every rank) are ported: their configurations pass
+    the check and go on to load the model (which fails here: the directory
+    holds no checkpoint)."""
     cfg = _config("unported")
     for field, value in overrides.items():
         section, key = field.split(".")

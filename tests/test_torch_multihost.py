@@ -201,16 +201,13 @@ distributed.shutdown()
 """
 
 
-def test_multihost_generator_ranks_agree(tmp_path):
-    """The sharded model without the scheduler
-    (dispatcher.MultiHostGenerator): two gloo ranks at tensor_parallel 2,
-    the prompt broadcast from rank 0, both return the greedy tokens of the
-    same seeded model run on one rank."""
+def _generator_ranks(dims):
+    """Two gloo ranks joined by the TPUSERVE_* variables run
+    dispatcher.MultiHostGenerator at tensor_parallel 2; each rank's greedy
+    tokens, and the same seeded model's on one rank."""
     from tpuserve_torch.models import llama as tllama
     from tpuserve_torch.parallel.distributed import free_port
 
-    dims = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=16,
-                ffn_dim=128)
     env = dict(os.environ, PYTHONPATH=REPO, TPUSERVE_COORDINATOR=f"127.0.0.1:{free_port()}",
                TPUSERVE_NUM_PROCESSES="2")
     procs = [subprocess.Popen([sys.executable, "-c", GENERATOR_RANK, json.dumps(dims)],
@@ -236,6 +233,26 @@ def test_multihost_generator_ranks_agree(tmp_path):
         pos = torch.full((4,), -1, dtype=torch.int32)
         t[0], pos[0] = ref[-1], 5 + i
         ref.append(int(tllama.decode_step(params, p, t, cache, pos)[0][0].argmax()))
+    return got, ref
+
+
+def test_multihost_generator_ranks_agree(tmp_path):
+    """The sharded model without the scheduler
+    (dispatcher.MultiHostGenerator): two gloo ranks at tensor_parallel 2,
+    the prompt broadcast from rank 0, both return the greedy tokens of the
+    same seeded model run on one rank."""
+    got, ref = _generator_ranks(dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                                     n_kv_heads=2, head_dim=16, ffn_dim=128))
+    assert got == [ref, ref]
+
+
+def test_multihost_generator_ranks_agree_over_one_kv_head(tmp_path):
+    """The same over one kv head: tensor_parallel 2 does not divide it, so
+    both ranks joined by the variables keep every kv head (the JAX
+    package's GSPMD-only mesh) and attend with the query heads of their wo
+    rows."""
+    got, ref = _generator_ranks(dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                                     n_kv_heads=1, head_dim=16, ffn_dim=128))
     assert got == [ref, ref]
 
 
@@ -244,7 +261,10 @@ REFUSALS = {
               "paged kv_cache int4 is single-chip"),
     "pipeline": ({"pipeline_parallel": 2}, {"prefill_chunk": 0},
                  "kv_cache int4 does not compose with pipeline_parallel"),
-    "gspmd_only": ({"tensor_parallel": 8}, {}, "n_kv_heads 4 over tensor_parallel 8"),
+    "gspmd_only": ({"tensor_parallel": 8}, {}, "kv_cache int4 under tp needs tp \\| n_kv_heads"),
+    "gspmd_pipeline": ({"tensor_parallel": 8, "pipeline_parallel": 2}, {"prefill_chunk": 0},
+                       "n_heads/n_kv_heads/ffn_dim must divide by tensor_parallel 8 under "
+                       "pipeline_parallel"),
     "slots": ({"data_parallel": 3}, {}, "max_slots 4 must divide by data_parallel 3"),
     "int4_sp": ({"sequence_parallel": 2}, {}, "kv_cache int4 does not compose"),
 }
@@ -252,9 +272,11 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_left_out_configs_refused(tmp_path, case):
-    """What the port leaves out, and what the JAX engine refuses (a paged
-    int4 pool under a mesh; int4 KV under the pipeline's 5D stage caches),
-    raises a BackendError naming it, before any rank is started."""
+    """What the JAX engine refuses (a paged int4 pool under a mesh; int4
+    KV under the pipeline's 5D stage caches; int4 KV, and the pipeline, at
+    a tp that does not divide n_kv_heads, whose other configurations the
+    port serves as the JAX package does) raises a BackendError with its
+    words, before any rank is started."""
     sharding, gen, msg = REFUSALS[case]
     cfg = _config("r", sharding, kv="int4", **gen)
     eng = GenerationEngine(str(tmp_path), ModelConfig.from_dict(cfg), device="cpu")

@@ -53,7 +53,12 @@ group (each writes its copy of the pool, as a replicated computation does
 in the JAX package) and a decode step on the rank's dp slots through the
 paged core at its kv heads (`sharding.decode_attention_paged_sharded`).
 verify_step and verify_step_paged run the rank's dp slots' candidates by
-einsum, as GSPMD runs them in the JAX package (`_verify_rank`).
+einsum, as GSPMD runs them in the JAX package (`_verify_rank`). Where tp
+does not divide n_kv_heads (`sharding.kv_replicated`) every rank writes
+and holds every kv head of its block (the JAX cache replicates the head
+axis over tp), attends by einsum with the query heads of the kv groups
+over its rows of wo and keeps those rows' columns (`_rank_heads`,
+`_attn_view`).
 """
 
 from __future__ import annotations
@@ -416,9 +421,10 @@ def _kv_rows(cache, k, v):
 def _write_pages(cache, layer: int, pages, offsets, k, v, mesh=None) -> None:
     """Write K/V [N, Hkv, hd] in place at pool rows (layer, pages[i],
     offsets[i]), quantizing (and packing) for an int8/int4 pool (a 5D pool
-    takes the rows as [N, Hkv, hd]). Under a tp mesh whose ranks each hold
-    the whole scale pool, the rows' scales are gathered over tp first, so
-    that every rank's copy is the whole pool's (one all_reduce for both)."""
+    takes the rows as [N, Hkv, hd]). Under a tp mesh that cuts the kv heads
+    (the rank's `kv_mesh`) and whose ranks each hold the whole scale pool,
+    the rows' scales are gathered over tp first, so that every rank's copy
+    is the whole pool's (one all_reduce for both)."""
     kq, vq, ks, vs = _kv_rows(cache, k, v)
     if cache.k.dim() == 5:
         kq, vq = kq.view(k.shape), vq.view(v.shape)
@@ -455,9 +461,10 @@ def _attend_window(q, k_rows, v_rows, k_scale, v_scale, mask, p: LlamaParams):
     prefill_chunk, prefill_paged_suffix and verify_step_paged compute it
     (XLA einsums: bf16 dots, no q or P requant): q [..., C, H, hd] (rope
     applied); k_rows/v_rows [..., win, Wst] (codes, packed int4 codes or
-    values); k_scale/v_scale [..., Hkv, win] or None; mask [..., C, win].
-    Leading dims (slots) batch. Returns [..., C, H*hd] f32."""
-    c, win = q.shape[-3], k_rows.shape[-2]
+    values), or [..., win, Hkv, hd] (a 5D cache's window);
+    k_scale/v_scale [..., Hkv, win] or None; mask [..., C, win]. Leading
+    dims (slots) batch. Returns [..., C, H*hd] f32."""
+    c, win = q.shape[-3], mask.shape[-1]
     lead = q.shape[:-3]
     if k_rows.dtype == torch.uint8:
         k_rows, v_rows = unpack_kv_codes(k_rows), unpack_kv_codes(v_rows)
@@ -575,6 +582,7 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn, mm=None):
     # under tp the column shards' outputs are gathered, then each rank takes
     # its heads (and its ffn columns), as GSPMD reshards them in the JAX package
     full = (lambda y: mesh.gather(y, "tp")) if mesh is not None else (lambda y: y)
+    heads = None if mesh is None else sharding.attention_heads(p, mesh)
     h = rms_norm(params, f"{pre}/attn_norm", x, p.rms_eps)
     if f"{pre}/wqkv/kernel" in params:
         qkv = full(mm(params, f"{pre}/wqkv/kernel", h))
@@ -583,9 +591,16 @@ def _forward_block(params, pre, x, p: LlamaParams, attn_fn, mm=None):
         q = full(mm(params, f"{pre}/wq/kernel", h))
         k = full(mm(params, f"{pre}/wk/kernel", h))
         v = full(mm(params, f"{pre}/wv/kernel", h))
-    if mesh is not None:
+    if heads is not None:
+        # every kv head on every rank (kv_replicated): the query heads of the
+        # kv groups over its wo rows attend, and it keeps those rows' columns
+        group = p.n_heads // p.n_kv_heads * p.head_dim
+        q = q[..., heads[0].start * group:heads[0].stop * group]
+    elif mesh is not None:
         q, k, v = (_tp_part(t, mesh) for t in (q, k, v))
     attn_out = attn_fn(q, k, v)
+    if heads is not None:
+        attn_out = attn_out[..., heads[1]].contiguous()
     x = x + mm(params, f"{pre}/wo/kernel", attn_out)
     h = rms_norm(params, f"{pre}/mlp_norm", x, p.rms_eps)
     if p.n_experts:
@@ -766,7 +781,7 @@ def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: 
     b, l = tokens.shape
     slot, length = int(slot), int(length)
     mesh = _mesh()
-    pl = _local_p(p, mesh)
+    pl, pa, hs, _ = _rank_heads(p, mesh)
     l_off = _l_off(mesh, cache)
     positions = torch.arange(l, device=tokens.device)[None, :]
     cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
@@ -778,14 +793,14 @@ def prefill(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, slot: 
         x = params["embed/weight"][tokens]  # embeddings stay unquantized
         for layer in range(p.n_layers):
             def attn_fn(q, k, v, layer=layer):
-                q = apply_rope(q.reshape(b, l, pl.n_heads, p.head_dim), cos, sin)
+                q = apply_rope(q.reshape(b, l, pa.n_heads, p.head_dim), cos, sin)
                 k = apply_rope(k.reshape(b, l, pl.n_kv_heads, p.head_dim), cos, sin)
                 v = v.reshape(b, l, pl.n_kv_heads, p.head_dim)
                 # write K/V into the slot (whole bucket; the invalid tail is
                 # masked on every read)
                 _write_slot_kv(cache, layer, local_slot, 0, k[0], v[0], l_off)
-                out = _attention_prefill(q, k, v, mask)
-                return out.reshape(b, l, pl.n_heads * p.head_dim)
+                out = _attention_prefill(q, _kv_heads(k, hs), _kv_heads(v, hs), mask)
+                return out.reshape(b, l, pa.n_heads * p.head_dim)
 
             x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
         return _logits(params, x[:, length - 1, :], p)
@@ -802,14 +817,16 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
     to cache positions < start (earlier chunks) plus causally within the
     chunk. The padded tail writes garbage K/V at [start+length, start+C),
     which decode overwrites before any read reaches it. Under sp each rank
-    attends over its L window and the shards merge (the seq-sharded path).
-    Returns (logits [1, V] at the chunk's last valid position, cache).
+    attends over its L window, the softmax split over sp as GSPMD splits the
+    JAX package's einsums (`sharding.attend_seq_softmax`). Returns (logits
+    [1, V] at the chunk's last valid position, cache).
     """
     b, c = tokens.shape
     slot, start, length, window = int(slot), int(start), int(length), int(window)
     dev = tokens.device
     mesh = _mesh()
-    pl = _local_p(p, mesh)
+    pl, pa, hs, _ = _rank_heads(p, mesh)
+    av = _attn_view(cache, hs, p.head_dim)
     l_off = _l_off(mesh, cache)
     gpos = start + torch.arange(c, device=dev)
     cos, sin = rope_cos_sin(gpos[None, :], p.head_dim, p.rope_theta)
@@ -821,25 +838,24 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
         x = params["embed/weight"][tokens]
         for layer in range(p.n_layers):
             def attn_fn(q, k, v, layer=layer):
-                q = apply_rope(q.reshape(b, c, pl.n_heads, p.head_dim), cos, sin)
+                q = apply_rope(q.reshape(b, c, pa.n_heads, p.head_dim), cos, sin)
                 k = apply_rope(k.reshape(b, c, pl.n_kv_heads, p.head_dim), cos, sin)
                 v = v.reshape(b, c, pl.n_kv_heads, p.head_dim)
                 _write_slot_kv(cache, layer, ls, start, k[0], v[0], l_off)
                 if sharding.mesh_sp(mesh) > 1:
-                    k5, v5 = _heads_view(cache, pl)
-                    out = sharding.attend_seq_sharded(
-                        true_div(q, math.sqrt(p.head_dim)), k5[layer, ls:ls + 1],
-                        v5[layer, ls:ls + 1],
-                        cache.k_scale[layer, ls:ls + 1] if cache.quantized else None,
-                        cache.v_scale[layer, ls:ls + 1] if cache.quantized else None,
-                        gpos[None, :], mesh)
+                    k5, v5 = _heads_view(av, pa)
+                    out = sharding.attend_seq_softmax(
+                        q, k5[layer, ls:ls + 1], v5[layer, ls:ls + 1],
+                        av.k_scale[layer, ls:ls + 1] if av.quantized else None,
+                        av.v_scale[layer, ls:ls + 1] if av.quantized else None,
+                        gpos[None, :], mesh, math.sqrt(p.head_dim))
                     return out.to(x.dtype).reshape(b, c, -1)
                 ks = vs = None
-                if cache.quantized:
-                    ks = cache.k_scale[layer, ls][:, :window]
-                    vs = cache.v_scale[layer, ls][:, :window]
-                out = _attend_window(q[0], cache.rows(cache.k)[layer, ls, :window],
-                                     cache.rows(cache.v)[layer, ls, :window], ks, vs, mask, pl)
+                if av.quantized:
+                    ks = av.k_scale[layer, ls][:, :window]
+                    vs = av.v_scale[layer, ls][:, :window]
+                out = _attend_window(q[0], av.k[layer, ls, :window], av.v[layer, ls, :window],
+                                     ks, vs, mask, pa)
                 return out.to(x.dtype).reshape(b, c, -1)
 
             x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -848,9 +864,48 @@ def prefill_chunk(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache, 
     return _on_slot_group(mesh, cache, slot, p.vocab_size, run), cache
 
 
-def _local_p(p: LlamaParams, mesh) -> LlamaParams:
-    """The attention's LlamaParams on this rank (its kv-head groups)."""
-    return p if mesh is None else sharding.local_llama_params(p, mesh)
+def _rank_heads(p: LlamaParams, mesh):
+    """This rank's heads: (pl, pa, hs, kv_mesh). pl: the LlamaParams of its
+    K/V and cache (its kv-head groups, or every head where
+    sharding.kv_replicated); pa: those of the attention it runs; hs: the kv
+    heads of pl that pa attends over (None: all of them); kv_mesh: the mesh
+    where its tp cuts the kv heads (a paged pool's replicated scale rows are
+    then the rank's view and gathered over tp on a write), else None."""
+    if mesh is None:
+        return p, p, None, None
+    pl = sharding.local_llama_params(p, mesh)
+    heads = sharding.attention_heads(p, mesh)
+    if heads is None:
+        return pl, pl, None, mesh
+    n_kv = heads[0].stop - heads[0].start
+    pa = dataclasses.replace(p, n_heads=n_kv * (p.n_heads // p.n_kv_heads), n_kv_heads=n_kv)
+    return pl, pa, heads[0], None
+
+
+def _attn_view(cache, hs: Optional[slice], head_dim: int):
+    """A KVCache or PagedKVCache as the rank's attention reads it: the cache
+    itself, or where it holds every kv head (kv_replicated) views of k and
+    v as [.., Hkv, hd] and of the head-major scales at the kv heads `hs`
+    (no copy; writes to the cache show through)."""
+    if hs is None:
+        return cache
+    if cache.k.dtype == torch.uint8:
+        raise ValueError("kv_cache int4 under tp needs tp | n_kv_heads")
+
+    def heads(t):
+        if t.dim() == 4:   # flat rows: W on head boundaries
+            t = t.view(t.shape[:3] + (-1, head_dim))
+        return t[..., hs, :]
+
+    return dataclasses.replace(
+        cache, k=heads(cache.k), v=heads(cache.v),
+        k_scale=None if cache.k_scale is None else cache.k_scale[:, :, hs],
+        v_scale=None if cache.v_scale is None else cache.v_scale[:, :, hs])
+
+
+def _kv_heads(t: torch.Tensor, hs: Optional[slice]) -> torch.Tensor:
+    """K or V [.., Hkv, hd] at the kv heads `hs` (all of them for None)."""
+    return t if hs is None else t[..., hs, :]
 
 
 def _l_off(mesh, cache: KVCache) -> int:
@@ -886,10 +941,13 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
     """
     mode = _decode_attn_mode(p)
     mesh = _mesh()
-    pl = _local_p(p, mesh)
+    pl, pa, hs, _ = _rank_heads(p, mesh)
     if mode == "pallas" and mesh is not None and cache.k.dtype == torch.uint8 \
             and (cache.k.shape[-1] % 128):
         mode = "xla"   # a packed shard narrower than the core's 128-byte rows, as in JAX
+    if hs is not None:
+        mode = "xla"   # every kv head on every rank: GSPMD's einsums in the JAX package
+    av = _attn_view(cache, hs, p.head_dim)
     positions = positions.to(device=tokens.device, dtype=torch.int32)
     all_active = positions >= 0
     sp = sharding.mesh_sp(mesh)
@@ -914,7 +972,7 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(s, pl.n_heads, p.head_dim), cos_q, sin_q)
+            q = apply_rope(q.reshape(s, pa.n_heads, p.head_dim), cos_q, sin_q)
             k = apply_rope(k.reshape(s, pl.n_kv_heads, p.head_dim), cos_q, sin_q)
             v = v.reshape(s, pl.n_kv_heads, p.head_dim)
             kq, vq, ks, vs = _kv_rows(cache, k, v)  # [S, Wst] rows, [S, Hkv]
@@ -928,11 +986,11 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
                 cache.k_scale[layer][active_idx, :, pos_a] = ks[active_idx].to(cache.k_scale.dtype)
                 cache.v_scale[layer][active_idx, :, pos_a] = vs[active_idx].to(cache.v_scale.dtype)
             if sp > 1:
-                k5, v5 = _heads_view(cache, pl)
+                k5, v5 = _heads_view(av, pa)
                 out = sharding.decode_attention_seq_sharded(
                     true_div(q, math.sqrt(p.head_dim)), k5[layer], v5[layer],
-                    cache.k_scale[layer] if cache.quantized else None,
-                    cache.v_scale[layer] if cache.quantized else None, positions, mesh)
+                    av.k_scale[layer] if av.quantized else None,
+                    av.v_scale[layer] if av.quantized else None, positions, mesh)
             elif mode == "pallas":
                 args = (true_div(q, math.sqrt(p.head_dim)), k_rows, v_rows,
                         cache.k_scale[layer] if cache.quantized else None,
@@ -945,9 +1003,9 @@ def decode_step(params, p: LlamaParams, tokens: torch.Tensor, cache: KVCache,
             elif mode == "grouped":
                 out = _attend_grouped(q, cache, layer, win, positions, pl)
             else:
-                out = _attend_window(q[:, None], k_rows[layer, :, :win], v_rows[layer, :, :win],
-                                     *_window_scales(cache, layer, win), read_mask[:, None], pl)
-            return out.to(x.dtype).reshape(s, pl.n_heads * p.head_dim)
+                out = _attend_window(q[:, None], av.k[layer, :, :win], av.v[layer, :, :win],
+                                     *_window_scales(av, layer, win), read_mask[:, None], pa)
+            return out.to(x.dtype).reshape(s, pa.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
@@ -1097,7 +1155,7 @@ def _verify_rank(params, p: LlamaParams, tokens, cache, positions, lengths, wind
     every rank."""
     c = tokens.shape[1]
     hd = p.head_dim
-    pl = _local_p(p, mesh)
+    pl, pa, hs, kv_mesh = _rank_heads(p, mesh)
     sp = sharding.mesh_sp(mesh)
     paged = page_table is not None
 
@@ -1112,11 +1170,13 @@ def _verify_rank(params, p: LlamaParams, tokens, cache, positions, lengths, wind
             if window is not None:
                 table = table[:, :max(1, min(int(window) // ps, table.shape[1]))]
             win = l_lim = table.shape[1] * ps
-            ksr, vsr = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
-            st.update(table=table, scales=dataclasses.replace(cache, k_scale=ksr, v_scale=vsr))
+            ksr, vsr = sharding.paged_scale_rows(cache, pl.n_kv_heads, kv_mesh)
+            view = dataclasses.replace(cache, k_scale=ksr, v_scale=vsr)
         else:
             win = cache.max_len if window is None else min(int(window), cache.max_len)
             l_lim = cache.max_len * sp
+            view = cache
+        st.update(table=table, view=_attn_view(view, hs, hd))
         pos_c, valid, x, cos_q, sin_q = _verify_prep(params, p, toks, pos, lens, l_lim)
         l_off = _l_off(mesh, cache) if not paged else 0
         si, ci, lp = sharding.verify_write_rows(valid, pos_c, l_off,
@@ -1129,19 +1189,19 @@ def _verify_rank(params, p: LlamaParams, tokens, cache, positions, lengths, wind
 
     def body(st):
         s, win, si, ci, lp = st["s"], st["win"], st["si"], st["ci"], st["lp"]
-        x = st["x"]
+        x, av = st["x"], st["view"]
         for layer in range(p.n_layers):
             def attn_fn(q, k, v, layer=layer):
-                q = apply_rope(q.reshape(s, c, pl.n_heads, hd), st["cos"], st["sin"])
+                q = apply_rope(q.reshape(s, c, pa.n_heads, hd), st["cos"], st["sin"])
                 k = apply_rope(k.reshape(s, c, pl.n_kv_heads, hd), st["cos"], st["sin"])
                 v = v.reshape(s, c, pl.n_kv_heads, hd)
                 if paged:
-                    _write_pages(cache, layer, lp[0], lp[1], k[si, ci], v[si, ci], mesh)
+                    _write_pages(cache, layer, lp[0], lp[1], k[si, ci], v[si, ci], kv_mesh)
                     table = st["table"]
-                    out = _attend_window(q, cache.k[layer][table].reshape(s, win, -1),
-                                         cache.v[layer][table].reshape(s, win, -1),
-                                         *_paged_window_scales(st["scales"], layer, table, pl),
-                                         st["mask"], pl)
+                    out = _attend_window(q, av.k[layer][table].reshape(s, win, -1),
+                                         av.v[layer][table].reshape(s, win, -1),
+                                         *_paged_window_scales(av, layer, table, pa),
+                                         st["mask"], pa)
                     return out.to(x.dtype).reshape(s * c, -1)
                 kq, vq, ks, vs = _kv_rows(cache, k[si, ci], v[si, ci])
                 cache.rows(cache.k)[layer][si, lp] = kq
@@ -1150,15 +1210,15 @@ def _verify_rank(params, p: LlamaParams, tokens, cache, positions, lengths, wind
                     cache.k_scale[layer][si, :, lp] = ks.to(cache.k_scale.dtype)
                     cache.v_scale[layer][si, :, lp] = vs.to(cache.v_scale.dtype)
                 if sp > 1:
-                    k5, v5 = _heads_view(cache, pl)
+                    k5, v5 = _heads_view(av, pa)
                     out = sharding.attend_seq_softmax(
                         q, k5[layer], v5[layer],
-                        cache.k_scale[layer] if cache.quantized else None,
-                        cache.v_scale[layer] if cache.quantized else None, st["pos_c"], mesh,
+                        av.k_scale[layer] if av.quantized else None,
+                        av.v_scale[layer] if av.quantized else None, st["pos_c"], mesh,
                         math.sqrt(hd))
                 else:
-                    out = _attend_window(q, cache.k[layer, :, :win], cache.v[layer, :, :win],
-                                         *_window_scales(cache, layer, win), st["mask"], pl)
+                    out = _attend_window(q, av.k[layer, :, :win], av.v[layer, :, :win],
+                                         *_window_scales(av, layer, win), st["mask"], pa)
                 return out.to(x.dtype).reshape(s * c, -1)
 
             x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -1187,7 +1247,7 @@ def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_tabl
     dev = tokens.device
     ps = cache.page_size
     mesh = _mesh()
-    pl = _local_p(p, mesh)
+    pl, pa, hs, kv_mesh = _rank_heads(p, mesh)
     x = params["embed/weight"][tokens]
     positions = torch.arange(l, device=dev)[None, :]
     cos, sin = rope_cos_sin(positions, p.head_dim, p.rope_theta)
@@ -1201,12 +1261,12 @@ def prefill_paged(params, p: LlamaParams, tokens: torch.Tensor, cache, page_tabl
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, l, pl.n_heads, p.head_dim), cos, sin)
+            q = apply_rope(q.reshape(b, l, pa.n_heads, p.head_dim), cos, sin)
             k = apply_rope(k.reshape(b, l, pl.n_kv_heads, p.head_dim), cos, sin)
             v = v.reshape(b, l, pl.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, pages, offsets, k[0], v[0], mesh)
-            out = _attention_prefill(q, k, v, mask)
-            return out.reshape(b, l, pl.n_heads * p.head_dim)
+            _write_pages(cache, layer, pages, offsets, k[0], v[0], kv_mesh)
+            out = _attention_prefill(q, _kv_heads(k, hs), _kv_heads(v, hs), mask)
+            return out.reshape(b, l, pa.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 
@@ -1233,8 +1293,10 @@ def prefill_paged_suffix(params, p: LlamaParams, tokens: torch.Tensor, cache,
     dev = tokens.device
     ps = cache.page_size
     mesh = _mesh()
-    pl = _local_p(p, mesh)
-    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
+    pl, pa, hs, kv_mesh = _rank_heads(p, mesh)
+    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, kv_mesh)
+    av = _attn_view(dataclasses.replace(cache, k_scale=ks_pool, v_scale=vs_pool), hs,
+                    p.head_dim)
     x = params["embed/weight"][tokens]
     gpos = start + torch.arange(c, device=dev)
     cos, sin = rope_cos_sin(gpos[None, :], p.head_dim, p.rope_theta)
@@ -1248,19 +1310,19 @@ def prefill_paged_suffix(params, p: LlamaParams, tokens: torch.Tensor, cache,
     cols = row[:n_cols]
 
     def window_scales(pool, layer):  # [n_cols, hp, ps] -> [Hkv, l_virt]
-        return pool[layer][cols].permute(1, 0, 2).reshape(-1, l_virt)[:pl.n_kv_heads]
+        return pool[layer][cols].permute(1, 0, 2).reshape(-1, l_virt)[:pa.n_kv_heads]
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(b, c, pl.n_heads, p.head_dim), cos, sin)
+            q = apply_rope(q.reshape(b, c, pa.n_heads, p.head_dim), cos, sin)
             k = apply_rope(k.reshape(b, c, pl.n_kv_heads, p.head_dim), cos, sin)
             v = v.reshape(b, c, pl.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, wpages, woffs, k[0, :length], v[0, :length], mesh)
+            _write_pages(cache, layer, wpages, woffs, k[0, :length], v[0, :length], kv_mesh)
             ks = vs = None
-            if cache.quantized:
-                ks, vs = window_scales(ks_pool, layer), window_scales(vs_pool, layer)
-            out = _attend_window(q[0], cache.k[layer][cols].reshape(l_virt, -1),
-                                 cache.v[layer][cols].reshape(l_virt, -1), ks, vs, mask, pl)
+            if av.quantized:
+                ks, vs = window_scales(av.k_scale, layer), window_scales(av.v_scale, layer)
+            out = _attend_window(q[0], av.k[layer][cols].reshape(l_virt, -1),
+                                 av.v[layer][cols].reshape(l_virt, -1), ks, vs, mask, pa)
             return out.to(x.dtype).reshape(b, c, -1)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
@@ -1288,7 +1350,9 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     dev = tokens.device
     ps = cache.page_size
     mesh = _mesh()
-    pl = _local_p(p, mesh)
+    pl, pa, hs, kv_mesh = _rank_heads(p, mesh)
+    if hs is not None:
+        mode = "xla"   # every kv head on every rank: GSPMD's einsums in the JAX package
     positions = positions.to(device=dev, dtype=torch.int32)
     page_table = page_table.to(device=dev, dtype=torch.int32)
     all_active = positions >= 0
@@ -1311,15 +1375,16 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
     cos, sin = rope_cos_sin(pos, p.head_dim, p.rope_theta)
     cos_q, sin_q = cos[:, None, :], sin[:, None, :]
     read_mask = torch.arange(l_virt, device=dev)[None, :] <= pos[:, None]  # [S, l_virt]
-    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, mesh)
-    rows = dataclasses.replace(cache, k_scale=ks_pool, v_scale=vs_pool)
+    ks_pool, vs_pool = sharding.paged_scale_rows(cache, pl.n_kv_heads, kv_mesh)
+    av = _attn_view(dataclasses.replace(cache, k_scale=ks_pool, v_scale=vs_pool), hs,
+                    p.head_dim)
 
     for layer in range(p.n_layers):
         def attn_fn(q, k, v, layer=layer):
-            q = apply_rope(q.reshape(s, pl.n_heads, p.head_dim), cos_q, sin_q)
+            q = apply_rope(q.reshape(s, pa.n_heads, p.head_dim), cos_q, sin_q)
             k = apply_rope(k.reshape(s, pl.n_kv_heads, p.head_dim), cos_q, sin_q)
             v = v.reshape(s, pl.n_kv_heads, p.head_dim)
-            _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx], mesh)
+            _write_pages(cache, layer, wpages, woffs, k[active_idx], v[active_idx], kv_mesh)
             if mode == "pallas":
                 args = (true_div(q, math.sqrt(p.head_dim)), cache.k, cache.v, ks_pool, vs_pool,
                         page_table, positions, layer)
@@ -1330,10 +1395,10 @@ def decode_step_paged(params, p: LlamaParams, tokens: torch.Tensor, cache,
             else:
                 cols = page_table.long()
                 out = _attend_window(
-                    q[:, None], cache.k[layer][cols].reshape(s, l_virt, -1),
-                    cache.v[layer][cols].reshape(s, l_virt, -1),
-                    *_paged_window_scales(rows, layer, cols, pl), read_mask[:, None], pl)
-            return out.to(x.dtype).reshape(s, pl.n_heads * p.head_dim)
+                    q[:, None], av.k[layer][cols].reshape(s, l_virt, -1),
+                    av.v[layer][cols].reshape(s, l_virt, -1),
+                    *_paged_window_scales(av, layer, cols, pa), read_mask[:, None], pa)
+            return out.to(x.dtype).reshape(s, pa.n_heads * p.head_dim)
 
         x = _forward_block(params, f"layers.{layer}", x, p, attn_fn)
 

@@ -11,6 +11,7 @@ values. Each stack is drawn in place on the device, one at a time.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -58,7 +59,19 @@ def init_quantized_params(p: LlamaParams, bits: int = 4, group_size: int = 128,
                         orig_shape=(n_e, k_dim, n_dim))
 
     def normal(*shape):
-        return (torch.randn(shape, generator=generator, device=dev) * 0.02).to(dtype)
+        """N(0, 0.02) drawn in f32, cast to `dtype`: in one draw, or where
+        that would hold more than 2^28 f32 values beside the result (a
+        256000-word embedding: 2 GiB for a 1 GiB bf16 table) in row chunks
+        of at most 2^24 values (other values than one draw)."""
+        if math.prod(shape) <= 1 << 28:
+            return (torch.randn(shape, generator=generator, device=dev) * 0.02).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        rows = max(1, (1 << 24) // math.prod(shape[1:]))
+        for i in range(0, shape[0], rows):
+            part = torch.randn((min(rows, shape[0] - i),) + shape[1:], generator=generator,
+                               device=dev)
+            out[i:i + part.shape[0]] = (part * 0.02).to(dtype)
+        return out
 
     params: Dict[str, object] = {}
 

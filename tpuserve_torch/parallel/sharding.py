@@ -15,12 +15,15 @@ collectives through its Mesh. The rules (mesh axes ("dp", "sp", "tp")):
   when it cannot split over tp (per-channel G == 1, or G % tp != 0);
 - stacked MoE experts [E, ...]: E over tp when it divides, else replicated;
 - KV cache [n_layers, S, L, Hkv, hd] (flat: [.., W]): slots over dp, kv
-  heads over tp, L over sp; scales [n_layers, S, Hkv, L] alike;
+  heads over tp where tp divides them (else every rank holds every head:
+  the JAX package's GSPMD-only meshes, see `kv_replicated`), L over sp;
+  scales [n_layers, S, Hkv, L] alike;
 - paged pool [n_layers, n_pages, ps, W] (5D: [.., Hkv, hd]): kv heads over
-  tp, replicated over dp (any slot's table may name any page); the scale
-  pool [n_layers, n_pages, pad8(Hkv), ps] over tp only where its rows split
-  into whole unpadded head groups (a 5D pool whose Hkv is a multiple of 8
-  and of tp), else replicated. Slots, tables and positions ride dp.
+  tp where tp divides them, replicated over dp (any slot's table may name
+  any page); the scale pool [n_layers, n_pages, pad8(Hkv), ps] over tp only
+  where its rows split into whole unpadded head groups (a 5D pool whose Hkv
+  is a multiple of 8 and of tp), else replicated. Slots, tables and
+  positions ride dp.
 
 Each rank keeps its block as a tensor of its own, and a QTensor block's
 orig_shape is its local [K, N]. Per-shard bodies are plain functions of the
@@ -155,11 +158,42 @@ def shard_llama_params(params: Dict, mesh) -> Dict:
     return out
 
 
+def kv_replicated(p, mesh) -> bool:
+    """Whether every tp rank keeps every kv head: a tp that does not divide
+    n_kv_heads (MQA or narrow GQA at a wide tp). The JAX package serves such
+    a mesh through GSPMD: its cache replicates the head axis over tp
+    (shard_cache) and attention takes the XLA einsum path."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    return tp > 1 and p.n_kv_heads % tp != 0
+
+
 def local_llama_params(p, mesh):
-    """The LlamaParams of one rank's attention: n_heads and n_kv_heads over
-    tp (the kv-head groups split on head boundaries)."""
+    """The LlamaParams of one rank's K/V and cache: n_heads and n_kv_heads
+    over tp (the kv-head groups split on head boundaries), or, where
+    kv_replicated, every head (attention_heads names those it attends
+    over)."""
     tp = mesh.shape["tp"] if mesh is not None else 1
+    if kv_replicated(p, mesh):
+        return p
     return dataclasses.replace(p, n_heads=p.n_heads // tp, n_kv_heads=p.n_kv_heads // tp)
+
+
+def attention_heads(p, mesh) -> Tuple[slice, slice]:
+    """Where kv_replicated, the heads a tp rank attends over and the columns
+    it keeps: (kv heads [kv0, kv1), the kv groups whose query heads cover
+    the rank's qd/tp rows of the row-sharded wo; those rows' columns of the
+    groups' attention output [.., (kv1 - kv0) * rep * hd]). A wo shard may
+    cut a head (n_heads % tp != 0) or hold part of one group. None where
+    the rank's heads are its own whole kv groups."""
+    if not kv_replicated(p, mesh):
+        return None
+    tp, r = mesh.shape["tp"], mesh.coords["tp"]
+    width = p.n_heads * p.head_dim // tp
+    group = p.n_heads // p.n_kv_heads * p.head_dim    # a kv group's output columns
+    kv0, kv1 = r * width // group, -(-(r + 1) * width // group)
+    col = r * width - kv0 * group
+    return slice(kv0, kv1), slice(col, col + width)
+
 
 
 def local_slots(mesh, n_slots: int) -> Tuple[int, int]:
@@ -520,14 +554,19 @@ def cache_pspec(sp: bool = False):
 
 def shard_cache(cache, mesh):
     """This rank's block of a full KVCache (flat [.., W] or 5D): slots over
-    dp, heads (W on head boundaries) over tp, L over sp on an sp mesh. A
-    packed int4 cache splits its bytes over tp (the global cache packed with
+    dp, heads (W on head boundaries) over tp where they split (the JAX
+    rule: dim 3, Hkv or W, a multiple of tp; else every rank holds every
+    head, and the scales' heads alike), L over sp on an sp mesh. A packed
+    int4 cache splits its bytes over tp (the global cache packed with
     chunks = tp)."""
     from tpuserve_torch.models.llama import KVCache
 
+    tp = mesh.shape["tp"]
     l_ax = "sp" if mesh_sp(mesh) > 1 else None
-    kv = (None, "dp", l_ax, "tp") + (() if cache.k.dim() == 4 else (None,))
-    sc = (None, "dp", "tp", l_ax)
+    h_ax = "tp" if cache.k.shape[3] % tp == 0 else None
+    kv = (None, "dp", l_ax, h_ax) + (() if cache.k.dim() == 4 else (None,))
+    sc = (None, "dp", "tp" if cache.k_scale is not None and cache.k_scale.shape[2] % tp == 0
+          else None, l_ax)
     return KVCache(
         k=shard_block(cache.k, kv, mesh), v=shard_block(cache.v, kv, mesh),
         k_scale=None if cache.k_scale is None else shard_block(cache.k_scale, sc, mesh),
@@ -545,11 +584,14 @@ def _paged_scale_split(cache, tp: int) -> bool:
 
 def shard_paged_cache(cache, mesh):
     """This rank's block of a whole PagedKVCache: the pool's kv heads (W on
-    head boundaries) over tp, every page, replicated over dp; the scale
-    pool cut over tp where _paged_scale_split holds, else whole."""
+    head boundaries) over tp where they split (dim 3, Hkv or W, a multiple
+    of tp; else whole: the JAX package's device_put refuses that cut),
+    every page, replicated over dp; the scale pool cut over tp where
+    _paged_scale_split holds, else whole."""
     from tpuserve_torch.serving.paged_kv import PagedKVCache
 
-    kv = (None, None, None, "tp") + (() if cache.k.dim() == 4 else (None,))
+    h_ax = "tp" if cache.k.shape[3] % mesh.shape["tp"] == 0 else None
+    kv = (None, None, None, h_ax) + (() if cache.k.dim() == 4 else (None,))
     sc = (None, None, "tp" if _paged_scale_split(cache, mesh.shape["tp"]) else None, None)
     cut = (lambda t, spec: None if t is None else shard_block(t, spec, mesh))
     return PagedKVCache(k=cut(cache.k, kv), v=cut(cache.v, kv),
@@ -560,9 +602,14 @@ def paged_cache_block(p, mesh, n_pages: int, page_size: int, quantized: bool,
                       dtype=torch.bfloat16, kv_bits: int = 8, device="cuda"):
     """A rank's block of a flat pool, made at its size: [n_layers, n_pages,
     ps, W/tp] and, the flat pool's scales being replicated, the whole scale
-    pool [n_layers, n_pages, pad8(Hkv), ps] (shard_paged_cache's shapes)."""
+    pool [n_layers, n_pages, pad8(Hkv), ps] (shard_paged_cache's shapes).
+    Where kv_replicated, the whole 5D pool [n_layers, n_pages, ps, Hkv,
+    hd] and its scale pool, as the JAX engine makes it there."""
     from tpuserve_torch.serving.paged_kv import PagedKVCache, pad8
 
+    if kv_replicated(p, mesh):
+        return PagedKVCache.create(p, n_pages, page_size, quantized, dtype=dtype,
+                                   kv_bits=kv_bits, device=device, flat=False)
     blk = PagedKVCache.create(local_llama_params(p, mesh), n_pages, page_size, quantized,
                               dtype=dtype, kv_bits=kv_bits, device=device)
     if quantized and mesh.shape["tp"] > 1:

@@ -52,7 +52,10 @@ paths).
   pipeline); with no process group, `start()` starts world - 1 follower
   ranks on this host itself and `stop()` stops them (the JAX package's
   single-host mesh: pipeline_parallel and paged KV too). Under
-  sequence_parallel the cache is the 5D layout, its L split over sp. Under
+  sequence_parallel the cache is the 5D layout, its L split over sp. Where
+  tensor_parallel does not divide n_kv_heads (MQA, narrow GQA) every rank
+  keeps every kv head on the 5D cache or pool and attends by einsum, as
+  the JAX engine's GSPMD path (parallel/sharding.py::kv_replicated). Under
   pipeline_parallel speculation is off, as in the JAX engine (its pipeline
   has no verify). Under a tp/dp/sp mesh speculation runs the JAX engine's
   single-round host-drafted verify, contiguous or paged, whatever
@@ -64,11 +67,9 @@ paths).
   does.
 
 Runs on `device` ("cuda" by default); it never falls back to the CPU: with
-no card it raises unless the caller passed device="cpu". Configurations
-that need unported parts (the meshes the JAX package serves only through
-GSPMD) raise BackendError naming them, as do the JAX engine's own refusals
-and a one-rank contiguous speculation width the verify kernel does not
-take.
+no card it raises unless the caller passed device="cpu". The JAX
+engine's own refusals raise BackendError with its words, as does a one-rank
+contiguous speculation width the verify kernel does not take.
 """
 
 from __future__ import annotations
@@ -278,11 +279,6 @@ class GenerationEngine:
         pp = self._pp
         spec_k = int(getattr(gen, "speculation_tokens", 0) or 0)
         self._check_head_dim(spec_k)
-        if tp * dp * sp > 1 and pp == 1 and p.n_kv_heads % tp:
-            raise BackendError(
-                f"not ported to tpuserve_torch yet: n_kv_heads {p.n_kv_heads} over "
-                f"tensor_parallel {tp} (the JAX package serves it only through GSPMD on the "
-                "5D cache)")
         if pp > 1:
             self._check_pipeline(pp, tp, dp, sp)
         if self._world() > 1:
@@ -395,7 +391,7 @@ class GenerationEngine:
             if sp > 1:
                 raise BackendError("kv_cache int4 does not compose with sequence_parallel "
                                    "(sp reads the 5D layout)")
-            if (p.n_kv_heads * p.head_dim // tp) % 2:
+            if p.n_kv_heads % tp or (p.n_kv_heads * p.head_dim // tp) % 2:
                 raise BackendError("kv_cache int4 under tp needs tp | n_kv_heads")
         qd, kvd = p.n_heads * p.head_dim, p.n_kv_heads * p.head_dim
         widths = {"(n_heads + 2 n_kv_heads) * head_dim": qd + 2 * kvd,
@@ -516,6 +512,12 @@ class GenerationEngine:
             self._generator = torch.Generator(device=dev)
             self._generator.manual_seed(int(self.config.model_params.get("seed", 0)))
             self._sampling = SamplingParams.create(self.n_slots, device=dev)
+        # every rank's groups are up before any rank loads: a rank that
+        # fails its load and exits would otherwise close its sockets under
+        # another rank's group creation
+        from tpuserve_torch.parallel.sharding import mesh_any
+
+        mesh_any(self.mesh, False, self.device)
 
     def _leave_ranks(self) -> None:
         """Release the followers (a published unload), the mesh's groups, the
@@ -604,7 +606,7 @@ class GenerationEngine:
         qcfg = self.config.quantization
         if self.mesh is not None:
             # `params` are this rank's blocks (_start_rank)
-            from tpuserve_torch.parallel.sharding import (block_fingerprint,
+            from tpuserve_torch.parallel.sharding import (block_fingerprint, kv_replicated,
                                                           local_llama_params,
                                                           set_active_mesh)
 
@@ -634,9 +636,10 @@ class GenerationEngine:
             raise BackendError("kv_cache int4 needs even n_kv_heads*head_dim")
         if gen.paged:
             # flat pools (the JAX package's int4 pools are always flat), cut
-            # over tp and replicated over dp under a mesh; a pipeline stage's
-            # block of the 5D pool; scale pools are float32 whatever
-            # kv_scale_dtype says, as there
+            # over tp and replicated over dp under a mesh (where tp does not
+            # divide the kv heads, the whole 5D pool on every rank); a
+            # pipeline stage's block of the 5D pool; scale pools are float32
+            # whatever kv_scale_dtype says, as there
             ps = int(gen.page_size)
             max_pages = -(-self.max_seq_len // ps)
             num_pages = int(gen.num_pages) or self.n_slots * max_pages + 1
@@ -662,8 +665,9 @@ class GenerationEngine:
                 log.info("paged KV: %s page allocator (native runtime %s)",
                          self.kv_allocator, self._native_version())
         else:
-            # a rank's block: its slots, kv heads and (5D under sp) L window;
-            # a pipeline stage's 5D stage cache
+            # a rank's block: its slots, kv heads and (5D under sp) L window,
+            # or where tp does not divide the kv heads every head on the 5D
+            # cache, as the JAX engine; a pipeline stage's 5D stage cache
             scale_dtype = torch.bfloat16 \
                 if getattr(qcfg, "kv_scale_dtype", "float32") == "bfloat16" else torch.float32
             if self._pp > 1:
@@ -673,7 +677,8 @@ class GenerationEngine:
                                          quant_kv, dtype=torch.bfloat16,
                                          scale_dtype=scale_dtype, device=self.device)
             else:
-                flat = self.mesh is None or self.mesh.shape["sp"] == 1
+                flat = self.mesh is None or (self.mesh.shape["sp"] == 1
+                                             and not kv_replicated(p, self.mesh))
                 self.cache = KVCache.create(pc, n_slots, max_len, quantized=quant_kv,
                                             dtype=torch.bfloat16, scale_dtype=scale_dtype,
                                             kv_bits=kv_bits, device=self.device, flat=flat)
@@ -738,7 +743,7 @@ class GenerationEngine:
                 except Exception as e:  # every rank raised: the controller latches too
                     self._spec_failed(e)
             elif op == "stats":
-                exchange(self.local_stats())
+                exchange(self.local_stats(*ev[1:]))
             elif op == "ping":
                 continue
             elif op in ("unload", "shutdown"):
@@ -757,18 +762,20 @@ class GenerationEngine:
 
         return native.version()
 
-    def local_stats(self) -> Dict:
+    def local_stats(self, cache: bool = False) -> Dict:
         """This rank's counts: the kernels' launches (quant-matmul, the flat
         and paged decode-attention core) at the shard shapes, the plain-torch row
         shards, its verify calls and the candidate rows they wrote into its
         block, the last decode steps' host clock, the profiled decode step
-        (profile_next_decode), its weight blocks' checksum and its memory."""
+        (profile_next_decode), its weight blocks' checksum and its memory.
+        cache=True adds its cache's checksum (the tp replicas of a cache block
+        are byte-equal), a read of the whole cache that only checks ask for."""
         from tpuserve_torch.ops import decode_attention, quant_matmul
         from tpuserve_torch.parallel import sharding
 
         host = sorted(ms / h for ms, h in self._step_log)
         cuda = self.device.type == "cuda"
-        return {"rank": self.mesh.rank if self.mesh is not None else 0,
+        stats = {"rank": self.mesh.rank if self.mesh is not None else 0,
                 "coords": dict(self.mesh.coords) if self.mesh is not None else None,
                 "device": str(self.device), "backend": self.mesh.backend if self.mesh else None,
                 "quant_matmul_launches": quant_matmul.launches,
@@ -789,17 +796,22 @@ class GenerationEngine:
                 "load_max_memory_allocated": self._load_peak,
                 "max_memory_allocated": torch.cuda.max_memory_allocated(self.device)
                 if cuda else None}
+        if cache:
+            stats["cache_fingerprint"] = sharding.block_fingerprint({} if self.cache is None else {
+                name: getattr(self.cache, name) for name in ("k", "v", "k_scale", "v_scale")
+                if getattr(self.cache, name) is not None})
+        return stats
 
-    def rank_stats(self) -> List[Dict]:
-        """Every rank's local_stats, in rank order (controller only: the
-        followers answer a published "stats" event on the bus)."""
+    def rank_stats(self, cache: bool = False) -> List[Dict]:
+        """Every rank's local_stats(cache), in rank order (controller only:
+        the followers answer a published "stats" event on the bus)."""
         if not self._mh:
-            return [self.local_stats()]
+            return [self.local_stats(cache)]
         from tpuserve_torch.parallel.dispatcher import controlled, exchange, publish_event
 
         with controlled():
-            publish_event(("stats",))
-            return exchange(self.local_stats())
+            publish_event(("stats", cache))
+            return exchange(self.local_stats(cache))
 
     def _fail_outstanding(self, reason: str) -> None:
         """Complete every in-flight and queued request with an error so no
